@@ -25,8 +25,10 @@ Phases (any failure exits nonzero and prints no result line):
      ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--quick`` builds with ``-Xptxas -v`` and runs only the correctness
-checks of phase 3 (a first call after a kernel change). Details of every
-case go to ``chiprun_out/chip_smoke.json`` next to this script.
+checks of phase 3 (a first call after a kernel change). ``--profile``
+adds a torch.profiler pass over steady main-path steps (device time by
+kernel category, the device's busy share). Details of every case go to
+``chiprun_out/chip_smoke.json`` next to this script.
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import os
 import statistics
 import subprocess
 import sys
@@ -388,10 +389,99 @@ def run_main_path() -> tuple[dict, dict]:
     return summary, res
 
 
+def _category(name: str) -> str:
+    """Coarse owner of a CUDA kernel, from its (mangled) name."""
+    n = name.lower()
+    if 'gram_' in n:
+        return 'K2 patch_cov' if 'patchloader' in n else 'K1 factor_ema'
+    if 'bgemm_kernel' in n or 'vg_reduce' in n:
+        return 'K3 bucket_precond'
+    if 'conv' in n or 'cudnn' in n or 'implicit_gemm' in n or 'wgrad' in n \
+            or 'dgrad' in n:
+        return 'model convolutions (cuDNN)'
+    if 'gemm' in n or 'cutlass' in n or 'sm90_' in n or 'gemv' in n:
+        return 'matmul (cuBLAS: warm polish, linear head)'
+    if 'batch_norm' in n or 'bn_' in n:
+        return 'batch norm'
+    if 'reduce' in n:
+        return 'reductions'
+    return 'elementwise / copies / other'
+
+
+def profile_main_path(steps: int = 5) -> dict:
+    """torch.profiler over ``steps`` steady non-firing steps and one firing
+    step of the main path: device time by kernel category and the device's
+    busy share (kernel time / wall time of the profiled window)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_kfac_pytorch_tpu_torch.models import cifar_resnet
+    from distributed_kfac_pytorch_tpu_torch.training import datasets, \
+        engine, optimizers
+    dev = torch.device('cuda')
+    (x, y), _ = datasets.get_cifar(synthetic_size=128)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = cifar_resnet.get_model('resnet32').to(dev)
+    cfg = optimizers.OptimConfig(kfac_inv_update_freq=10,
+                                 kfac_cov_update_freq=1)
+    optimizer, _, kfac, sched = optimizers.get_optimizer(model, cfg, dev)
+    state = engine.TrainState(model=model, optimizer=optimizer, kfac=kfac,
+                              kfac_state=kfac.init_state())
+    hyper = {'lr': 0.1, **sched.params()}
+    xb = torch.as_tensor(x, device=dev)
+    yb = torch.as_tensor(y, device=dev)
+
+    def step():
+        flags = engine.cadence_flags(state.step, 1, 10)
+        engine.train_step(state, xb, yb, hyper, flags)
+        state.step += 1
+
+    while state.step < 11:            # warm-up, incl. the firings at 0, 10
+        step()
+    torch.cuda.synchronize()
+    out = {}
+    for label, n in (('non_firing', steps), ('firing', 1)):
+        if label == 'firing':
+            while state.step % 10:
+                step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        cats: dict[str, float] = {}
+        kernels_ms = 0.0
+        for ev in prof.key_averages():
+            dt = getattr(ev, 'self_device_time_total', None)
+            if dt is None:
+                dt = ev.self_cuda_time_total
+            if not dt or ev.device_type.name != 'CUDA':
+                continue
+            ms = dt / 1e3 / n
+            cats[_category(ev.key)] = cats.get(_category(ev.key), 0.0) + ms
+            kernels_ms += ms
+        out[label] = {'wall_ms_per_step': wall_ms,
+                      'device_kernel_ms_per_step': kernels_ms,
+                      'device_busy_share': kernels_ms / wall_ms,
+                      'by_category_ms': dict(sorted(
+                          cats.items(), key=lambda kv: -kv[1]))}
+        log(f'  {label}: wall {wall_ms:.2f} ms/step, device kernels '
+            f'{kernels_ms:.2f} ms/step, busy {kernels_ms / wall_ms:.1%}')
+        for cat, ms in out[label]['by_category_ms'].items():
+            log(f'    {cat:45s} {ms:8.3f} ms')
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--quick', action='store_true',
                     help='build verbosely and check the kernels only')
+    ap.add_argument('--profile', action='store_true',
+                    help='also profile steady main-path steps')
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -444,6 +534,9 @@ def main(argv=None) -> int:
                 'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
                 'library_ms': agg['library_ms']})
         report['kernels'] = line
+        if args.profile:
+            log('== profile: device time by kernel category')
+            report['profile'] = profile_main_path()
     out_dir = ROOT / 'chiprun_out'
     out_dir.mkdir(exist_ok=True)
     (out_dir / 'chip_smoke.json').write_text(json.dumps(report, indent=1))

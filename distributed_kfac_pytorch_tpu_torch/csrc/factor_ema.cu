@@ -14,9 +14,9 @@
 #include "gram.cuh"
 
 extern "C" int kfac_factor_ema(const float* x, int rows, int d_in, int inner,
-                               int64_t sb, int64_t ss, int64_t sc,
-                               int mult_bf16, int tile, int chunks,
-                               int rows_per_chunk, float* ws,
+                               int sb, int ss, int sc, int mult_bf16,
+                               int tile, int chunks, int rows_per_chunk,
+                               float* ws,
                                float* ws_colsum, const float* old,
                                float decay, float inv_scale, int has_bias,
                                float bias_scale, float corner, float* out,

@@ -8,10 +8,12 @@
 //
 //   pass 1 (gram_partial_kernel): block (p, chunk) owns one lower-triangle
 //     output tile pair p = (ta >= tb) and one contiguous row chunk. It
-//     stages kRowStep rows of both column tiles in shared memory, keeps a
-//     TM x TM micro-tile of the sum in registers per thread, and writes
-//     the fp32 partial tile (plus, on diagonal pairs, the column sums) to
-//     a workspace. No atomics: the result is deterministic.
+//     stages kRowStep rows of both column tiles in shared memory (column
+//     major, so each thread reads four rows of a column as one float4),
+//     keeps a TM x TM micro-tile of the sum in registers per thread, and
+//     prefetches the next row step into registers while it computes. It
+//     writes the fp32 partial tile (plus, on diagonal pairs, the column
+//     sums) to a workspace. No atomics: the result is deterministic.
 //   pass 2 (gram_finalize_kernel): one thread per output element sums the
 //     chunk partials in chunk order, scales, assembles the bias row and
 //     column, blends with the running factor and writes the dense (n, n)
@@ -19,13 +21,16 @@
 //
 // The Loader decides how (row, column) maps to memory, so the same two
 // passes read a strided 2-D view (conv output-grads straight from NCHW,
-// dense captures) or an implicit im2col of an NCHW input with padding
-// handled by bounds checks (never a padded copy).
+// dense captures) or an implicit im2col of a 4-D input with padding
+// handled by bounds checks (never a padded copy). A thread stages one row
+// of each step (kThreads is a multiple of kRowStep), so it decodes that
+// row once and reuses it for all its columns.
 //
 // Symmetry: pair (ta, tb) with ta > tb is computed once and read back
-// transposed; inside a diagonal pair, entries (u, v) and (v, u) are the
-// same products fmaf(a, b, acc) / fmaf(b, a, acc) summed in the same row
-// order, so the result is exactly symmetric and needs no (C + C^T) / 2.
+// transposed; a diagonal pair stages one tile and reads it for both
+// operands, so entries (u, v) and (v, u) are the same products summed in
+// the same row order: the result is exactly symmetric and needs no
+// (C + C^T) / 2.
 
 #pragma once
 
@@ -35,8 +40,9 @@
 
 namespace kfac {
 
-constexpr int kThreads = 256;  // a 16 x 16 thread grid per block
-constexpr int kRowStep = 16;   // rows staged in shared memory per step
+constexpr int kThreads = 256;      // a 16 x 16 thread grid per block
+constexpr int kRowStep = 32;       // rows staged in shared memory per step
+constexpr int kStride = kRowStep + 4;  // padded smem column (conflict-free)
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -53,79 +59,95 @@ __device__ __forceinline__ void pair_of(int p, int* ta, int* tb) {
 
 // Rows r = (b, s), s in [0, inner): element (r, c) at b*sb + s*ss + c*sc.
 // A dense (rows, d) matrix is inner = 1; an NCHW conv output-grad read as
-// rows (b, h*w) by columns c is inner = H*W, ss = 1, sc = H*W.
+// rows (b, h*w) by columns c is inner = H*W, ss = 1, sc = H*W. Offsets are
+// 32-bit: the wrapper requires every element offset to fit an int.
 struct StridedLoader {
   const float* x;
   int inner;
-  int64_t sb, ss, sc;
+  int sb, ss, sc;
   int ncols;
   struct Col {
-    int64_t off;
+    int off;
     bool ok;
   };
+  struct Row {
+    int off;
+  };
   __device__ Col col(int c) const {
-    Col k;
-    k.ok = c < ncols;
-    k.off = k.ok ? static_cast<int64_t>(c) * sc : 0;
-    return k;
+    const bool ok = c < ncols;
+    return Col{ok ? c * sc : 0, ok};
   }
-  __device__ float load(int r, const Col& k) const {
-    if (!k.ok) return 0.f;
+  __device__ Row row(int r) const {
     const int b = r / inner;
-    const int s = r - b * inner;
-    return __ldg(x + b * sb + s * ss + k.off);
+    return Row{b * sb + (r - b * inner) * ss};
+  }
+  __device__ float load(const Row& rw, const Col& k) const {
+    return k.ok ? __ldg(x + (rw.off + k.off)) : 0.f;
   }
 };
 
 // Implicit im2col of a 4-D (B, C, H, W) input addressed by its element
 // strides (NCHW-contiguous or channels-last alike): row r = (b, oh, ow),
 // feature f = (c, ki, kj) with kj fastest -- torch's (Cout, Cin, KH, KW)
-// weight flattening order. Out-of-image taps (padding) read as zero.
+// weight flattening order. Out-of-image taps (padding) read as zero. A
+// row carries its top-left tap (h0, w0) and base offset, a column its tap
+// shift (dh, dw) and offset, so a load is two adds, two unsigned bound
+// checks and one add for the address (32-bit offsets, as above).
 struct PatchLoader {
   const float* x;
   int C, H, W, KH, KW, SH, SW, PH, PW, OH, OW;
-  int64_t sb, sc, sh, sw;  // element strides of the b, c, h, w axes
-  int ncols;               // C * KH * KW
+  int sb, sc, sh, sw;  // element strides of the b, c, h, w axes
+  int ncols;           // C * KH * KW
   struct Col {
-    int64_t coff;
+    int off;             // c*sc + dh*sh + dw*sw
     int dh, dw;
     bool ok;
   };
+  struct Row {
+    int off;             // b*sb + h0*sh + w0*sw
+    int h0, w0;
+  };
   __device__ Col col(int f) const {
-    Col k;
-    k.ok = f < ncols;
-    const int ff = k.ok ? f : 0;
+    const bool ok = f < ncols;
+    const int ff = ok ? f : 0;
     const int kj = ff % KW;
     const int t = ff / KW;
     const int ki = t % KH;
     const int c = t / KH;
-    k.coff = static_cast<int64_t>(c) * sc;
-    k.dh = ki - PH;
-    k.dw = kj - PW;
-    return k;
+    const int dh = ki - PH, dw = kj - PW;
+    return Col{c * sc + dh * sh + dw * sw, dh, dw, ok};
   }
-  __device__ float load(int r, const Col& k) const {
-    if (!k.ok) return 0.f;
+  __device__ Row row(int r) const {
     const int ow = r % OW;
     const int t = r / OW;
     const int oh = t % OH;
     const int b = t / OH;
-    const int h = oh * SH + k.dh;
-    const int w = ow * SW + k.dw;
-    if (h < 0 || h >= H || w < 0 || w >= W) return 0.f;
-    return __ldg(x + b * sb + k.coff + h * sh + w * sw);
+    const int h0 = oh * SH, w0 = ow * SW;
+    return Row{b * sb + h0 * sh + w0 * sw, h0, w0};
+  }
+  __device__ float load(const Row& rw, const Col& k) const {
+    const unsigned h = static_cast<unsigned>(rw.h0 + k.dh);
+    const unsigned w = static_cast<unsigned>(rw.w0 + k.dw);
+    if (!k.ok || h >= static_cast<unsigned>(H) ||
+        w >= static_cast<unsigned>(W))
+      return 0.f;
+    return __ldg(x + (rw.off + k.off));
   }
 };
 
+// Thread (tx, ty) owns output rows ty + 16*i and columns tx + 16*j of its
+// TD x TD tile (TD = 16*TM). Staging: thread t stages row k = t % kRowStep
+// of columns t / kRowStep + kColStep * q.
 template <int TM, class Loader>
 __global__ void __launch_bounds__(kThreads)
 gram_partial_kernel(Loader ld, int rows, int rows_per_chunk, int mult_bf16,
                     float* __restrict__ ws, float* __restrict__ ws_colsum,
                     int ncols_pad) {
   constexpr int TD = 16 * TM;
-  constexpr int kLoads = (kRowStep * TD) / kThreads;
-  __shared__ float sa[kRowStep][TD];
-  __shared__ float sb[kRowStep][TD];
+  constexpr int kColStep = kThreads / kRowStep;
+  constexpr int kLoads = TD / kColStep;
+  __shared__ __align__(16) float sa[TD][kStride];
+  __shared__ __align__(16) float sb[TD][kStride];
 
   const int p = blockIdx.x;
   const int chunk = blockIdx.y;
@@ -136,61 +158,78 @@ gram_partial_kernel(Loader ld, int rows, int rows_per_chunk, int mult_bf16,
   const int t = threadIdx.x;
   const int tx = t % 16;
   const int ty = t / 16;
+  const int kk = t % kRowStep;
+  const int c0 = t / kRowStep;
 
-  // Each thread always stages the same (row-in-step, column) slots, so
-  // the column decomposition is done once, outside the row walk.
   typename Loader::Col ca[kLoads], cb[kLoads];
-  int kk[kLoads], cc[kLoads];
 #pragma unroll
   for (int q = 0; q < kLoads; ++q) {
-    const int e = t + q * kThreads;
-    kk[q] = e % kRowStep;  // consecutive threads walk consecutive rows
-    cc[q] = e / kRowStep;
-    ca[q] = ld.col(ta * TD + cc[q]);
-    cb[q] = ld.col(tb * TD + cc[q]);
+    ca[q] = ld.col(ta * TD + c0 + kColStep * q);
+    cb[q] = ld.col(tb * TD + c0 + kColStep * q);
   }
 
   const int r0 = chunk * rows_per_chunk;
   const int r1 = min(rows, r0 + rows_per_chunk);
+  float va[kLoads], vb[kLoads];
+  auto fetch = [&](int rb) {
+    const int r = rb + kk;
+    const bool ok = r < r1;
+    const typename Loader::Row rw = ld.row(ok ? r : r0);
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      float a = ok ? ld.load(rw, ca[q]) : 0.f;
+      float b = (ok && !diag) ? ld.load(rw, cb[q]) : 0.f;
+      if (mult_bf16) {
+        a = round_bf16(a);
+        b = round_bf16(b);
+      }
+      va[q] = a;
+      vb[q] = b;
+    }
+  };
+
   float acc[TM][TM];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TM; ++j) acc[i][j] = 0.f;
-  float cs = 0.f;
+  // Diagonal pairs also sum their columns: per lane over its rows here,
+  // across the warp (one warp = one column group) at the end.
+  float cs[kLoads];
+#pragma unroll
+  for (int q = 0; q < kLoads; ++q) cs[q] = 0.f;
+  const float(*B)[kStride] = diag ? sa : sb;
 
+  if (r0 < r1) fetch(r0);
   for (int rb = r0; rb < r1; rb += kRowStep) {
 #pragma unroll
     for (int q = 0; q < kLoads; ++q) {
-      const int r = rb + kk[q];
-      float va = 0.f, vb = 0.f;
-      if (r < r1) {
-        va = ld.load(r, ca[q]);
-        vb = diag ? va : ld.load(r, cb[q]);
-      }
-      if (mult_bf16) {
-        va = round_bf16(va);
-        vb = round_bf16(vb);
-      }
-      sa[kk[q]][cc[q]] = va;
-      sb[kk[q]][cc[q]] = vb;
+      sa[c0 + kColStep * q][kk] = va[q];
+      if (diag)
+        cs[q] += va[q];
+      else
+        sb[c0 + kColStep * q][kk] = vb[q];
     }
     __syncthreads();
+    if (rb + kRowStep < r1) fetch(rb + kRowStep);
 #pragma unroll
-    for (int k = 0; k < kRowStep; ++k) {
-      float a[TM], b[TM];
+    for (int k = 0; k < kRowStep; k += 4) {
+      float4 a4[TM], b4[TM];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = sa[k][ty * TM + i];
+      for (int i = 0; i < TM; ++i)
+        a4[i] = *reinterpret_cast<const float4*>(&sa[ty + 16 * i][k]);
 #pragma unroll
-      for (int j = 0; j < TM; ++j) b[j] = sb[k][tx * TM + j];
+      for (int j = 0; j < TM; ++j)
+        b4[j] = *reinterpret_cast<const float4*>(&B[tx + 16 * j][k]);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TM; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (diag && t < TD) {
-#pragma unroll
-      for (int k = 0; k < kRowStep; ++k) cs += sa[k][t];
+        for (int j = 0; j < TM; ++j) {
+          acc[i][j] = fmaf(a4[i].x, b4[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a4[i].y, b4[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a4[i].z, b4[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a4[i].w, b4[j].w, acc[i][j]);
+        }
     }
     __syncthreads();
   }
@@ -200,9 +239,20 @@ gram_partial_kernel(Loader ld, int rows, int rows_per_chunk, int mult_bf16,
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TM; ++j)
-      out[(ty * TM + i) * TD + tx * TM + j] = acc[i][j];
-  if (diag && t < TD)
-    ws_colsum[static_cast<int64_t>(chunk) * ncols_pad + ta * TD + t] = cs;
+      out[(ty + 16 * i) * TD + tx + 16 * j] = acc[i][j];
+  if (diag) {
+    static_assert(kRowStep == 32, "one warp must stage one column group");
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      float v = cs[q];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (kk == 0)
+        ws_colsum[static_cast<int64_t>(chunk) * ncols_pad + ta * TD + c0 +
+                  kColStep * q] = v;
+    }
+  }
 }
 
 // out[i, j] = decay * old[i, j] + (1 - decay) * F[i, j]  (old may be null:

@@ -18,10 +18,10 @@
 #include "gram.cuh"
 
 extern "C" int kfac_patch_cov(const float* x, int B, int C, int H, int W,
-                              int64_t sb, int64_t sc, int64_t sh,
-                              int64_t sw, int KH, int KW, int SH, int SW,
-                              int PH, int PW, int OH, int OW, int mult_bf16,
-                              int tile, int chunks, int rows_per_chunk,
+                              int sb, int sc, int sh, int sw, int KH,
+                              int KW, int SH, int SW, int PH, int PW,
+                              int OH, int OW, int mult_bf16, int tile,
+                              int chunks, int rows_per_chunk,
                               float* ws, float* ws_colsum, float inv_scale,
                               int has_bias, float bias_scale, float corner,
                               float* out, void* stream) {

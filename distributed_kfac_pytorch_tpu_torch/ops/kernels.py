@@ -52,7 +52,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 LAUNCHES = {name: 0 for name in SOURCES}
 
 # Split-K geometry of the Gram kernels (must match gram.cuh).
-_ROW_STEP = 16
+_ROW_STEP = 32
 # Blocks to aim for per Gram launch: 4 per SM of a 132-SM H100.
 _TARGET_BLOCKS = 4 * 132
 # Output-tile edge of the batched GEMM in bucket_precond.cu.
@@ -239,14 +239,13 @@ def build(verbose: bool = False) -> dict[str, Path]:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_L = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
     'factor_ema': {
-        'kfac_factor_ema': [_P, _I, _I, _I, _L, _L, _L, _I, _I, _I, _I, _P,
+        'kfac_factor_ema': [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                             _P, _P, _F, _F, _I, _F, _F, _P, _P]},
     'patch_cov': {
-        'kfac_patch_cov': [_P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I,
+        'kfac_patch_cov': [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F,
                            _I, _F, _F, _P, _P]},
     'bucket_precond': {
@@ -291,6 +290,14 @@ def _require(t: torch.Tensor, what: str, ndim: int | None = None) -> None:
     if ndim is not None and t.ndim != ndim:
         raise ValueError(f'{what}: expected {ndim}-D, got shape '
                          f'{tuple(t.shape)}')
+
+
+def _require_int32_offsets(x: torch.Tensor, what: str) -> None:
+    """The Gram kernels address their input with 32-bit element offsets."""
+    span = sum((n - 1) * abs(s) for n, s in zip(x.shape, x.stride()))
+    if span >= 2 ** 31:
+        raise ValueError(f'{what}: input spans {span + 1} elements; the '
+                         'kernel takes at most 2**31 (32-bit offsets)')
 
 
 def _dispatch_device(x: torch.Tensor, what: str) -> bool:
@@ -369,6 +376,7 @@ def factor_ema(x: torch.Tensor, old: torch.Tensor | None, decay, *,
         return factor_ema_plain(x, old, decay, scale=scale,
                                 has_bias=has_bias, corner=corner, bf16=bf16)
     _require(x, 'factor_ema x')
+    _require_int32_offsets(x, 'factor_ema')
     if x.ndim == 2:
         rows, d_in = x.shape
         inner, sb, ss, sc = 1, x.stride(0), 0, x.stride(1)
@@ -442,6 +450,7 @@ def patch_cov(x: torch.Tensor, kernel_size, strides, padding,
         return patch_cov_plain(x, kernel_size, strides, padding, has_bias,
                                bf16=bf16)
     _require(x, 'patch_cov x', 4)
+    _require_int32_offsets(x, 'patch_cov')
     b, c, h, w = x.shape
     kh, kw = kernel_size
     sh, sw = strides
