@@ -67,22 +67,18 @@ struct StridedLoader {
   int sb, ss, sc;
   int ncols;
   struct Col {
-    int off;
-    bool ok;
+    int off;  // c * sc; -1 past the last column (reads as zero)
   };
   struct Row {
     int off;
   };
-  __device__ Col col(int c) const {
-    const bool ok = c < ncols;
-    return Col{ok ? c * sc : 0, ok};
-  }
+  __device__ Col col(int c) const { return Col{c < ncols ? c * sc : -1}; }
   __device__ Row row(int r) const {
     const int b = r / inner;
     return Row{b * sb + (r - b * inner) * ss};
   }
   __device__ float load(const Row& rw, const Col& k) const {
-    return k.ok ? __ldg(x + (rw.off + k.off)) : 0.f;
+    return k.off >= 0 ? __ldg(x + (rw.off + k.off)) : 0.f;
   }
 };
 
@@ -91,8 +87,10 @@ struct StridedLoader {
 // feature f = (c, ki, kj) with kj fastest -- torch's (Cout, Cin, KH, KW)
 // weight flattening order. Out-of-image taps (padding) read as zero. A
 // row carries its top-left tap (h0, w0) and base offset, a column its tap
-// shift (dh, dw) and offset, so a load is two adds, two unsigned bound
-// checks and one add for the address (32-bit offsets, as above).
+// shift (dh, dw), packed in one int, and offset, so a load is two adds,
+// two unsigned bound checks and one add for the address (32-bit offsets,
+// as above). A column past the last one gets a tap shift that is always
+// out of the image.
 struct PatchLoader {
   const float* x;
   int C, H, W, KH, KW, SH, SW, PH, PW, OH, OW;
@@ -100,22 +98,22 @@ struct PatchLoader {
   int ncols;           // C * KH * KW
   struct Col {
     int off;             // c*sc + dh*sh + dw*sw
-    int dh, dw;
-    bool ok;
+    int dhw;             // dh << 16 | (dw & 0xffff)
   };
   struct Row {
     int off;             // b*sb + h0*sh + w0*sw
     int h0, w0;
   };
   __device__ Col col(int f) const {
-    const bool ok = f < ncols;
-    const int ff = ok ? f : 0;
-    const int kj = ff % KW;
-    const int t = ff / KW;
+    if (f >= ncols) return Col{0, -(1 << 30)};
+    const int kj = f % KW;
+    const int t = f / KW;
     const int ki = t % KH;
     const int c = t / KH;
     const int dh = ki - PH, dw = kj - PW;
-    return Col{c * sc + dh * sh + dw * sw, dh, dw, ok};
+    return Col{c * sc + dh * sh + dw * sw,
+               static_cast<int>((static_cast<unsigned>(dh) << 16) |
+                                (static_cast<unsigned>(dw) & 0xffffu))};
   }
   __device__ Row row(int r) const {
     const int ow = r % OW;
@@ -126,10 +124,10 @@ struct PatchLoader {
     return Row{b * sb + h0 * sh + w0 * sw, h0, w0};
   }
   __device__ float load(const Row& rw, const Col& k) const {
-    const unsigned h = static_cast<unsigned>(rw.h0 + k.dh);
-    const unsigned w = static_cast<unsigned>(rw.w0 + k.dw);
-    if (!k.ok || h >= static_cast<unsigned>(H) ||
-        w >= static_cast<unsigned>(W))
+    const unsigned h = static_cast<unsigned>(rw.h0 + (k.dhw >> 16));
+    const unsigned w =
+        static_cast<unsigned>(rw.w0 + static_cast<short>(k.dhw & 0xffff));
+    if (h >= static_cast<unsigned>(H) || w >= static_cast<unsigned>(W))
       return 0.f;
     return __ldg(x + (rw.off + k.off));
   }
@@ -138,8 +136,11 @@ struct PatchLoader {
 // Thread (tx, ty) owns output rows ty + 16*i and columns tx + 16*j of its
 // TD x TD tile (TD = 16*TM). Staging: thread t stages row k = t % kRowStep
 // of columns t / kRowStep + kColStep * q.
+// Two blocks per SM: the register cap keeps 16 warps resident to hide
+// the gather latency (without it the 64-wide im2col kernel took 176
+// registers, one block per SM).
 template <int TM, class Loader>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 gram_partial_kernel(Loader ld, int rows, int rows_per_chunk, int mult_bf16,
                     float* __restrict__ ws, float* __restrict__ ws_colsum,
                     int ncols_pad) {
@@ -161,12 +162,14 @@ gram_partial_kernel(Loader ld, int rows, int rows_per_chunk, int mult_bf16,
   const int kk = t % kRowStep;
   const int c0 = t / kRowStep;
 
-  typename Loader::Col ca[kLoads], cb[kLoads];
-#pragma unroll
-  for (int q = 0; q < kLoads; ++q) {
-    ca[q] = ld.col(ta * TD + c0 + kColStep * q);
-    cb[q] = ld.col(tb * TD + c0 + kColStep * q);
+  // Column descriptors of both tiles, decoded once per block and read
+  // back as warp broadcasts (a warp stages one column at a time).
+  __shared__ typename Loader::Col scol[2][TD];
+  if (t < TD) {
+    scol[0][t] = ld.col(ta * TD + t);
+    scol[1][t] = ld.col(tb * TD + t);
   }
+  __syncthreads();
 
   const int r0 = chunk * rows_per_chunk;
   const int r1 = min(rows, r0 + rows_per_chunk);
@@ -177,8 +180,9 @@ gram_partial_kernel(Loader ld, int rows, int rows_per_chunk, int mult_bf16,
     const typename Loader::Row rw = ld.row(ok ? r : r0);
 #pragma unroll
     for (int q = 0; q < kLoads; ++q) {
-      float a = ok ? ld.load(rw, ca[q]) : 0.f;
-      float b = (ok && !diag) ? ld.load(rw, cb[q]) : 0.f;
+      const int c = c0 + kColStep * q;
+      float a = ok ? ld.load(rw, scol[0][c]) : 0.f;
+      float b = (ok && !diag) ? ld.load(rw, scol[1][c]) : 0.f;
       if (mult_bf16) {
         a = round_bf16(a);
         b = round_bf16(b);
