@@ -35,7 +35,6 @@ class LayerSpec:
     path: tuple[str, ...]           # module path (``named_modules`` name)
     kind: str                       # LINEAR | CONV2D
     has_bias: bool
-    num_calls: int = 1
     # conv2d only:
     kernel_size: tuple[int, ...] | None = None
     strides: tuple[int, ...] | None = None

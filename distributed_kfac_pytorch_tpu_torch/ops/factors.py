@@ -18,9 +18,8 @@ import torch
 
 from distributed_kfac_pytorch_tpu_torch.ops import kernels
 from distributed_kfac_pytorch_tpu_torch.ops.kernels import (  # noqa: F401
+    _assemble_bias_factor,
     _canonical_pad,
-    conv_out_geometry,
-    extract_conv2d_patches,
     mult_bf16,
 )
 
@@ -63,19 +62,6 @@ def collapse_batch_dims(x: torch.Tensor) -> torch.Tensor:
 def _column_mean(x: torch.Tensor) -> torch.Tensor:
     """Column mean of a 2-D tensor, accumulated in fp32."""
     return x.float().sum(0) / x.shape[0]
-
-
-def _assemble_bias_factor(cov: torch.Tensor, bias_col: torch.Tensor,
-                          corner) -> torch.Tensor:
-    """[[cov, b], [b^T, corner]]: the covariance of rows with an appended
-    ones column, without materializing the (rows, d + 1) concatenation."""
-    d = cov.shape[0]
-    out = cov.new_zeros((d + 1, d + 1))
-    out[:d, :d] = cov
-    out[d, :d] = bias_col
-    out[:d, d] = bias_col
-    out[d, d] = corner
-    return out
 
 
 def linear_a_factor(a: torch.Tensor, has_bias: bool,

@@ -161,19 +161,26 @@ def _gram_rows(x: torch.Tensor) -> torch.Tensor:
                      f'{tuple(x.shape)}')
 
 
+def _assemble_bias_factor(cov: torch.Tensor, bias_col: torch.Tensor,
+                          corner) -> torch.Tensor:
+    """[[cov, b], [b^T, corner]]: the covariance of rows with an appended
+    ones column, without materializing the (rows, d + 1) concatenation."""
+    d = cov.shape[0]
+    out = cov.new_zeros((d + 1, d + 1))
+    out[:d, :d] = cov
+    out[d, :d] = bias_col
+    out[:d, d] = bias_col
+    out[d, d] = corner
+    return out
+
+
 def _finish_gram(acc: torch.Tensor, colsum: torch.Tensor | None,
                  inv_scale: float, bias_scale: float, corner: float,
                  old: torch.Tensor | None, decay) -> torch.Tensor:
     """Scale, bias-assemble and EMA-blend a summed Gram (plain versions)."""
     cov = (acc + acc.T) * (0.5 * inv_scale)
     if colsum is not None:
-        d = cov.shape[0]
-        full = cov.new_zeros((d + 1, d + 1))
-        full[:d, :d] = cov
-        full[d, :d] = colsum * bias_scale
-        full[:d, d] = colsum * bias_scale
-        full[d, d] = corner
-        cov = full
+        cov = _assemble_bias_factor(cov, colsum * bias_scale, corner)
     if old is None:
         return cov
     return decay * old.float() + (1.0 - decay) * cov

@@ -8,8 +8,9 @@ polish is matmul-only; with the port's entry points TF32 is off, so
 package's ``Precision.HIGHEST``.
 
 Not ported in this slice: the Jacobi eigh (``jacobi_eigh``, the Pallas
-Jacobi kernel), the Newton--Schulz inverse, the randomized low-rank path
-and the truncated / diagonal-A / reduced-precision precondition branches.
+Jacobi kernel), the Cholesky and Newton--Schulz inverses, the randomized
+low-rank path and the truncated / diagonal-A / reduced-precision
+precondition branches.
 """
 
 from __future__ import annotations
@@ -108,15 +109,6 @@ def batched_eigh(stack: torch.Tensor, method: str = 'xla',
         raise ValueError("eigh method must be 'auto', 'xla' or 'warm', "
                          f'got {method!r}')
     return get_eigendecomp(stack, clip=clip)
-
-
-def get_inverse(x: torch.Tensor, damping=None) -> torch.Tensor:
-    """Damped SPD inverse via Cholesky: ``(x + damping*I)^-1`` in fp32."""
-    x = x.float()
-    if damping is not None:
-        x = x + damping * torch.eye(x.shape[-1], dtype=x.dtype,
-                                    device=x.device)
-    return torch.cholesky_inverse(torch.linalg.cholesky(x))
 
 
 def _require_square(q: torch.Tensor) -> None:

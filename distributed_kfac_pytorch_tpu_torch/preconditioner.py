@@ -44,6 +44,10 @@ from distributed_kfac_pytorch_tpu_torch.ops import kernels, linalg
 #: implement yet, with the value that means "off". Passing any other
 #: value raises ``NotImplementedError`` naming the knob.
 NOT_PORTED = {
+    'auto_eigen_max_dim': 640,
+    'auto_large_method': 'cholesky',
+    'factor_dtype': None,
+    'inv_dtype': torch.float32,
     'inv_lowrank_rank': 0,
     'inv_lowrank_dim_threshold': 2048,
     'newton_iters': 100,
@@ -79,9 +83,9 @@ def _check_not_ported(knobs: dict) -> None:
                 f'port yet (only {key}={NOT_PORTED[key]!r} is)')
 
 
-def eigen_family(method: str | None) -> bool:
-    """True for methods whose inverse is an eigenpair ``(Q, d)``."""
-    return method == 'eigen'
+#: Largest factor dim the 'auto' dispatch keeps on the eigen path; above
+#: it the JAX package bakes damped Cholesky inverses, not ported yet.
+AUTO_EIGEN_MAX_DIM = 640
 
 
 class KFAC:
@@ -93,12 +97,11 @@ class KFAC:
     Args:
       model: the ``nn.Module`` to precondition; its ``nn.Linear`` and
         ``nn.Conv2d`` (groups=1) layers are registered at construction.
-      inverse_method: ``'auto'`` (default; eigen with the warm-start
-        polish for factor dims <= ``auto_eigen_max_dim``, damped Cholesky
-        inverses above), ``'eigen'`` or ``'cholesky'``.
-      eigh_method: ``'auto'``/``'warm'`` (warm-start polish seeded from
-        the previous basis) or ``'xla'`` (``torch.linalg.eigh`` every
-        firing).
+      inverse_method: ``'auto'`` (default; the eigen path for factor
+        dims <= 640 -- every CIFAR ResNet factor -- and, not ported yet,
+        damped Cholesky inverses above) or ``'eigen'`` (every factor).
+      eigh_method: ``'auto'`` (warm-start polish seeded from the previous
+        basis) or ``'xla'`` (``torch.linalg.eigh`` every firing).
       factor_compute_dtype: ``None``/``torch.float32`` (fp32
         multiplicands) or ``torch.bfloat16`` (bf16-rounded multiplicands);
         accumulation is fp32 either way.
@@ -118,18 +121,13 @@ class KFAC:
                  lr: float = 0.1,
                  use_eigen_decomp: bool | None = None,
                  inverse_method: str | None = None,
-                 auto_eigen_max_dim: int = 640,
-                 auto_large_method: str = 'cholesky',
                  eigh_method: str = 'auto',
                  eigh_polish_iters: int = 8,
-                 factor_dtype: Any = None,
                  factor_compute_dtype: Any = None,
-                 inv_dtype: Any = torch.float32,
                  skip_layers: str | Sequence[str] | None = None,
                  fused_factor_contraction: bool = True,
                  fused_precondition: bool = True,
                  device='cuda',
-                 verbose: bool = False,
                  **not_ported):
         _check_not_ported(not_ported)
         self.device = resolve_device(device)
@@ -144,28 +142,25 @@ class KFAC:
         if inverse_method is None:
             inverse_method = ('auto' if use_eigen_decomp is None else
                               'eigen' if use_eigen_decomp else 'cholesky')
-        if inverse_method == 'newton' or auto_large_method == 'newton':
+        if inverse_method in ('cholesky', 'newton'):
             raise NotImplementedError(
-                "the Newton-Schulz inverse ('newton', the TPU "
-                "_ns_inverse_kernel) is not ported yet")
-        if inverse_method not in ('auto', 'eigen', 'cholesky'):
-            raise ValueError("inverse_method must be 'auto', 'eigen' or "
-                             f"'cholesky', got {inverse_method!r}")
+                f'inverse_method={inverse_method!r} is not ported yet (the '
+                "port has the eigen path: 'auto' and 'eigen')")
+        if inverse_method not in ('auto', 'eigen'):
+            raise ValueError("inverse_method must be 'auto' or 'eigen', got "
+                             f'{inverse_method!r}')
         if use_eigen_decomp is not None and (
                 inverse_method == 'auto'
                 or use_eigen_decomp != (inverse_method == 'eigen')):
             raise ValueError(f'{use_eigen_decomp=} contradicts '
                              f'{inverse_method=}; set one or the other')
-        if auto_large_method != 'cholesky':
-            raise ValueError("auto_large_method must be 'cholesky', got "
-                             f'{auto_large_method!r}')
-        if eigh_method not in ('auto', 'warm', 'xla'):
-            if eigh_method == 'jacobi':
-                raise NotImplementedError(
-                    "eigh_method='jacobi' (the TPU Jacobi eigh kernel) is "
-                    'not ported yet')
-            raise ValueError("eigh_method must be 'auto', 'warm' or 'xla', "
-                             f'got {eigh_method!r}')
+        if eigh_method == 'jacobi':
+            raise NotImplementedError(
+                "eigh_method='jacobi' (the TPU Jacobi eigh kernel) is not "
+                'ported yet')
+        if eigh_method not in ('auto', 'xla'):
+            raise ValueError("eigh_method must be 'auto' or 'xla', got "
+                             f'{eigh_method!r}')
         kernels.mult_bf16(factor_compute_dtype)  # validates the dtype
         self.model = model
         self.capture = KFACCapture(model, skip_layers=skip_layers)
@@ -177,43 +172,24 @@ class KFAC:
         self.kl_clip = kl_clip
         self.lr = lr
         self.inverse_method = inverse_method
-        self.auto_eigen_max_dim = auto_eigen_max_dim
-        self.auto_large_method = auto_large_method
         self.eigh_method = eigh_method
         self.eigh_polish_iters = eigh_polish_iters
-        self.factor_dtype = factor_dtype or torch.float32
         self.factor_compute_dtype = factor_compute_dtype
-        self.inv_dtype = inv_dtype
         self.fused_factor_contraction = bool(fused_factor_contraction)
         self.fused_precondition = bool(fused_precondition)
-        if verbose:
-            for name, spec in self.specs.items():
-                print(f'Registered {name}: {spec.kind} '
-                      f'(bias={spec.has_bias})')
-            for name, reason in self.capture.skipped_modules.items():
-                print(f'Skipped {name}: {reason}')
-
-    def __repr__(self) -> str:
-        fields = ('damping', 'factor_decay', 'factor_update_freq',
-                  'inv_update_freq', 'kl_clip', 'lr', 'inverse_method',
-                  'auto_eigen_max_dim', 'eigh_method', 'eigh_polish_iters',
-                  'factor_dtype', 'factor_compute_dtype', 'inv_dtype',
-                  'fused_factor_contraction', 'fused_precondition',
-                  'device')
-        lines = [f'  {name}: {getattr(self, name)!r}' for name in fields]
-        lines.append(f'  registered_layers: {len(self.specs)}')
-        return 'KFAC(\n' + '\n'.join(lines) + '\n)'
 
     # ------------------------------------------------------------------
     # Per-dim inverse dispatch and state
     # ------------------------------------------------------------------
 
-    def method_for_dim(self, dim: int) -> str:
-        """'eigen' or 'cholesky' for a dense factor of this dimension."""
-        if self.inverse_method == 'auto':
-            return ('eigen' if dim <= self.auto_eigen_max_dim
-                    else self.auto_large_method)
-        return self.inverse_method
+    def _check_dim(self, name: str, dim: int) -> None:
+        """The 'auto' dispatch needs damped Cholesky inverses above
+        ``AUTO_EIGEN_MAX_DIM``; the port has only the eigen path yet."""
+        if self.inverse_method == 'auto' and dim > AUTO_EIGEN_MAX_DIM:
+            raise NotImplementedError(
+                f'layer {name}: factor dim {dim} > {AUTO_EIGEN_MAX_DIM} '
+                "needs the damped Cholesky inverse of inverse_method='auto',"
+                " not ported yet (inverse_method='eigen' decomposes it)")
 
     def _layer_params(self, name: str, tensors: dict) -> dict:
         """``{'weight', 'bias'}`` entries of one layer from a dict keyed by
@@ -224,33 +200,23 @@ class KFAC:
         return out
 
     def init_state(self) -> dict:
-        """Fresh state: identity factors; eigen sides seeded with the exact
-        eigendecomposition of the identity (``Q = I, d = 1``) so the warm
-        polish has a basis from step 0; baked inverses zero (every slot is
-        computed at step 0 before first use)."""
+        """Fresh state: identity factors, and eigen slots seeded with their
+        exact eigendecomposition (``Q = I, d = 1``) so the warm polish has
+        a basis from step 0."""
         params = dict(self.model.named_parameters())
-        dev, fdt, idt = self.device, self.factor_dtype, self.inv_dtype
+        dev = self.device
         factors, inverses = {}, {}
         for name, spec in self.specs.items():
-            a_dim, g_dim = L.factor_shapes(spec,
-                                           self._layer_params(name, params))
-            ma, mg = self.method_for_dim(a_dim), self.method_for_dim(g_dim)
-            mixed = eigen_family(ma) != eigen_family(mg)
-            factors[name] = {
-                'A': torch.eye(a_dim, dtype=fdt, device=dev),
-                'G': torch.eye(g_dim, dtype=fdt, device=dev)}
-            entry = {}
-            for side, m, dim in (('A', ma, a_dim), ('G', mg, g_dim)):
-                if eigen_family(m):
-                    entry[f'Q{side}'] = torch.eye(dim, dtype=idt,
-                                                  device=dev)
-                    entry[f'd{side}'] = torch.ones(dim, dtype=idt,
-                                                   device=dev)
-                if not eigen_family(m) or mixed:
-                    entry[f'{side}_inv'] = torch.zeros((dim, dim),
-                                                       dtype=idt,
-                                                       device=dev)
-            inverses[name] = entry
+            dims = dict(zip('AG', L.factor_shapes(
+                spec, self._layer_params(name, params))))
+            factors[name], inverses[name] = {}, {}
+            for side, dim in dims.items():
+                self._check_dim(name, dim)
+                eye = torch.eye(dim, dtype=torch.float32, device=dev)
+                factors[name][side] = eye
+                inverses[name][f'Q{side}'] = eye.clone()
+                inverses[name][f'd{side}'] = torch.ones(
+                    dim, dtype=torch.float32, device=dev)
         return {'step': 0, 'factors': factors, 'inverses': inverses,
                 'inv_chunk_phase': 0}
 
@@ -278,59 +244,38 @@ class KFAC:
             out['G'] = (g, float(b * h * w) * (h * w) ** 2, False)
         return out
 
-    def _fused_blend_factors(self, old_factors: dict, captures: dict,
-                             alpha) -> dict:
-        """Blend one batch into the running factors, eligible sides in the
-        factor contraction + EMA kernel, the rest on the stock path."""
-        cdt = self.factor_compute_dtype
-        out = {}
-        for name, spec in self.specs.items():
-            fused = self.fused_factor_inputs(spec, captures[name])
-            old = old_factors[name]
-            res = {}
-            for side, (x, scale, has_bias) in fused.items():
-                res[side] = kernels.factor_ema(
-                    x, old[side].float(), alpha, scale=scale,
-                    has_bias=has_bias, compute_dtype=cdt).to(
-                        old[side].dtype)
-            if 'A' not in res:
-                a_new = L.compute_a_factor(spec, captures[name]['a'],
-                                           compute_dtype=cdt)
-                res['A'] = F.update_running_avg(a_new.to(old['A'].dtype),
-                                                old['A'], alpha)
-            if 'G' not in res:
-                g_new = L.compute_g_factor(spec, captures[name]['g'],
-                                           compute_dtype=cdt)
-                res['G'] = F.update_running_avg(g_new.to(old['G'].dtype),
-                                                old['G'], alpha)
-            out[name] = res
-        return out
-
     def update_factors(self, state: dict, captures: dict,
                        factor_decay=None) -> dict:
-        """EWMA-update every factor from one batch's captures."""
+        """EWMA-update every factor from one batch's captures: the sides
+        :meth:`fused_factor_inputs` names run the factor contraction + EMA
+        kernel (with ``fused_factor_contraction``), the rest the stock
+        per-call factors + :func:`F.update_running_avg`."""
         alpha = self.factor_decay if factor_decay is None else factor_decay
         missing = [n for n in self.specs if n not in captures]
         if missing:
             raise ValueError(f'no captures for registered layers {missing} '
                              '(capture with intercept=True on factor '
                              'steps)')
-        if self.fused_factor_contraction:
-            return self._fused_blend_factors(state['factors'], captures,
-                                             alpha)
         cdt = self.factor_compute_dtype
         new_factors = {}
         for name, spec in self.specs.items():
-            old = state['factors'][name]
-            a_new = L.compute_a_factor(spec, captures[name]['a'],
-                                       compute_dtype=cdt)
-            g_new = L.compute_g_factor(spec, captures[name]['g'],
-                                       compute_dtype=cdt)
-            new_factors[name] = {
-                'A': F.update_running_avg(a_new.to(old['A'].dtype),
-                                          old['A'], alpha),
-                'G': F.update_running_avg(g_new.to(old['G'].dtype),
-                                          old['G'], alpha)}
+            entry, old = captures[name], state['factors'][name]
+            fused = (self.fused_factor_inputs(spec, entry)
+                     if self.fused_factor_contraction else {})
+            res = {}
+            for side, compute, calls in (
+                    ('A', L.compute_a_factor, entry['a']),
+                    ('G', L.compute_g_factor, entry['g'])):
+                if side in fused:
+                    x, scale, has_bias = fused[side]
+                    res[side] = kernels.factor_ema(
+                        x, old[side], alpha, scale=scale,
+                        has_bias=has_bias, compute_dtype=cdt)
+                else:
+                    res[side] = F.update_running_avg(
+                        compute(spec, calls, compute_dtype=cdt), old[side],
+                        alpha)
+            new_factors[name] = res
         return new_factors
 
     # ------------------------------------------------------------------
@@ -339,9 +284,9 @@ class KFAC:
 
     def _bucketed_eigh(self, mats: dict, prev: dict | None = None) -> dict:
         """Eigendecompose a dict of SPD matrices, one batched call per
-        size; with ``prev`` bases (and eigh_method 'auto'/'warm') the warm
-        polish, else the library eigh."""
-        method = 'auto' if self.eigh_method in ('auto', 'warm') else 'xla'
+        size; with ``prev`` bases (and eigh_method 'auto') the warm polish,
+        else the library eigh."""
+        method = self.eigh_method
         out = {}
         for names, stack in _size_buckets(mats):
             q_prev = None
@@ -354,57 +299,26 @@ class KFAC:
                 out[n] = (qs[i], ds[i])
         return out
 
-    def _bucketed_inverse(self, mats: dict, damping) -> dict:
-        """Damped Cholesky inverses of a dict of SPD matrices, batched by
-        size."""
-        out = {}
-        for names, stack in _size_buckets(mats):
-            invs = linalg.get_inverse(stack, damping)
-            for i, n in enumerate(names):
-                out[n] = invs[i]
-        return out
+    def update_inverses(self, state: dict, *, warm: bool = True) -> dict:
+        """Recompute every eigendecomposition from the factors.
 
-    def update_inverses(self, state: dict, damping, *,
-                        warm: bool = True) -> dict:
-        """Recompute every inverse / eigendecomposition from the factors.
-
-        ``warm`` seeds the eigen path from the bases stored in
+        ``warm`` seeds the polish from the bases stored in
         ``state['inverses']``; ``warm=False`` (a rebuild from checkpointed
         factors) runs the library eigh instead.
         """
-        eigen_mats, inv_mats, prev, sides = {}, {}, {}, {}
+        mats, prev = {}, {}
         for name in self.specs:
-            f = state['factors'][name]
-            ma = self.method_for_dim(f['A'].shape[-1])
-            mg = self.method_for_dim(f['G'].shape[-1])
-            sides[name] = (ma, mg)
-            for side, m in (('A', ma), ('G', mg)):
-                key = f'{name}/{side}'
-                if eigen_family(m):
-                    eigen_mats[key] = f[side]
-                    prev[key] = state['inverses'][name][f'Q{side}']
-                else:
-                    inv_mats[key] = f[side]
-        eigs = self._bucketed_eigh(eigen_mats, prev if warm else None)
-        invs = self._bucketed_inverse(inv_mats, damping)
+            for side in ('A', 'G'):
+                mats[f'{name}/{side}'] = state['factors'][name][side]
+                prev[f'{name}/{side}'] = state['inverses'][name][f'Q{side}']
+        eigs = self._bucketed_eigh(mats, prev if warm else None)
         new_inv = {}
-        idt = self.inv_dtype
         for name in self.specs:
-            ma, mg = sides[name]
-            mixed = eigen_family(ma) != eigen_family(mg)
-            entry = {}
-            for side, m in (('A', ma), ('G', mg)):
-                key = f'{name}/{side}'
-                if eigen_family(m):
-                    q, d = eigs[key]
-                    entry[f'Q{side}'] = q.to(idt)
-                    entry[f'd{side}'] = d.to(idt)
-                    if mixed:
-                        entry[f'{side}_inv'] = linalg.eigen_side_inverse(
-                            q, d, damping).to(idt)
-                else:
-                    entry[f'{side}_inv'] = invs[key].to(idt)
-            new_inv[name] = entry
+            new_inv[name] = {}
+            for side in ('A', 'G'):
+                q, d = eigs[f'{name}/{side}']
+                new_inv[name][f'Q{side}'] = q
+                new_inv[name][f'd{side}'] = d
         return new_inv
 
     # ------------------------------------------------------------------
@@ -417,8 +331,6 @@ class KFAC:
 
         Returns ``(mats, vg)``: the preconditioned matrix per layer and,
         for the stacks the kernel ran, its per-layer ``sum(v * g)``.
-        A shape group is wholly eigen (QA/dA/QG/dG) or wholly baked
-        (A_inv/G_inv): the per-dim method depends on the dims alone.
         """
         groups: dict[tuple, list[str]] = {}
         for name, mat in grad_mats.items():
@@ -426,11 +338,8 @@ class KFAC:
         mats, vg = {}, {}
         for members in groups.values():
             gstack = torch.stack([grad_mats[n].float() for n in members])
-            e0 = inverses[members[0]]
-            keys = (('A_inv', 'G_inv') if 'A_inv' in e0 or 'G_inv' in e0
-                    else ('QA', 'dA', 'QG', 'dG'))
-            entry = {k: torch.stack([inverses[n][k].float()
-                                     for n in members]) for k in keys}
+            entry = {k: torch.stack([inverses[n][k] for n in members])
+                     for k in ('QA', 'dA', 'QG', 'dG')}
             if self.fused_precondition:
                 vs, vgs = kernels.bucket_precond(gstack, entry, damping)
                 for i, n in enumerate(members):
@@ -502,7 +411,7 @@ class KFAC:
         factors = (self.update_factors(state, captures, factor_decay)
                    if factor_update else state['factors'])
         state_f = {**state, 'factors': factors}
-        inverses = (self.update_inverses(state_f, damping) if inv_update
+        inverses = (self.update_inverses(state_f) if inv_update
                     else state['inverses'])
         state_i = {**state_f, 'inverses': inverses, 'inv_chunk_phase': 0}
         precond = self.precondition(state_i, grads, damping, lr)
@@ -511,14 +420,6 @@ class KFAC:
     # ------------------------------------------------------------------
     # Checkpoint helpers
     # ------------------------------------------------------------------
-
-    def memory_usage(self, state: dict) -> dict[str, int]:
-        """Bytes held by the factors and the inverses."""
-        def size(tree):
-            return sum(t.numel() * t.element_size()
-                       for entry in tree.values() for t in entry.values())
-        return {'factors': size(state['factors']),
-                'inverses': size(state['inverses'])}
 
     def state_dict(self, state: dict, include_inverses: bool = False
                    ) -> dict:
@@ -534,8 +435,8 @@ class KFAC:
                         compute_inverses: bool = True) -> dict:
         """Rebuild the full state from :meth:`state_dict` output: layer
         sets must match; stored inverses are used when their layout
-        matches and their bases are not degenerate, else the inverses are
-        recomputed from the factors with the library eigh."""
+        matches, else they are recomputed from the factors with the
+        library eigh."""
         state = self.init_state()
         if set(sd['factors']) != set(state['factors']):
             raise ValueError(
@@ -552,27 +453,13 @@ class KFAC:
                     == tuple(state['inverses'][n][k].shape)
                     for k in state['inverses'][n])
             for n in state['inverses'])
-        if compatible and not _degenerate_bases(saved):
+        if compatible:
             state['inverses'] = {n: {k: t.to(self.device)
                                      for k, t in e.items()}
                                  for n, e in saved.items()}
         elif compute_inverses:
-            state['inverses'] = self.update_inverses(state, self.damping,
-                                                     warm=False)
+            state['inverses'] = self.update_inverses(state, warm=False)
         return state
-
-
-def _degenerate_bases(inverses: dict) -> bool:
-    """True if a stored eigenbasis is unusable (``|Q|_F`` far below the
-    ``sqrt(n)`` of an orthonormal basis -- e.g. zero-seeded slots, a
-    fixed point of the warm polish)."""
-    for entry in inverses.values():
-        for key in ('QA', 'QG'):
-            if key in entry:
-                q = entry[key].float()
-                if float(torch.linalg.norm(q)) < 0.5 * q.shape[-1] ** 0.5:
-                    return True
-    return False
 
 
 def _size_buckets(mats: dict):

@@ -6,6 +6,7 @@ otherwise a deterministic synthetic set of the same shapes (the JAX
 package's class-conditional Gaussian images, same values, transposed to
 NCHW) keeps every run offline. Augmentation draws its random numbers in
 the JAX package's order, so both packages crop and flip alike.
+Mid-epoch resume (``skip_batches``) waits for the checkpoint port.
 """
 
 from __future__ import annotations
@@ -84,14 +85,6 @@ def get_cifar(data_dir: str | None = None, synthetic_size: int = 2048):
     return (norm(train[0]), train[1]), (norm(test[0]), test[1])
 
 
-def consume_augment_rng(rng: np.random.Generator, n: int) -> None:
-    """Advance ``rng`` exactly as :func:`augment_cifar` would for ``n``
-    images, without the pixel work (mirror its draw sequence)."""
-    rng.integers(0, 9, size=n)
-    rng.integers(0, 9, size=n)
-    rng.random(n)
-
-
 def augment_cifar(x: np.ndarray, rng: np.random.Generator) -> np.ndarray:
     """Pad-4 (reflect) random crop + horizontal flip of an NCHW batch."""
     n, c, h, w = x.shape
@@ -108,25 +101,15 @@ def augment_cifar(x: np.ndarray, rng: np.random.Generator) -> np.ndarray:
 
 def epoch_batches(x: np.ndarray, y: np.ndarray, batch_size: int, *,
                   shuffle: bool = True, seed: int = 0, epoch: int = 0,
-                  augment: bool = False, drop_last: bool = True,
-                  skip_batches: int = 0
+                  augment: bool = False
                   ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
-    """Batch iterator, reshuffled per epoch from ``(seed, epoch)``.
-
-    ``skip_batches`` fast-forwards past the first K batches while still
-    consuming their augmentation draws, so batch K+1 onward matches the
-    uninterrupted epoch.
-    """
+    """Full batches, reshuffled per epoch from ``(seed, epoch)`` (the
+    trailing partial batch is dropped)."""
     n = x.shape[0]
     rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
     idx = rng.permutation(n) if shuffle else np.arange(n)
-    end = n - (n % batch_size) if drop_last else n
-    for bi, start in enumerate(range(0, end, batch_size)):
+    for start in range(0, n - n % batch_size, batch_size):
         sel = idx[start:start + batch_size]
-        if bi < skip_batches:
-            if augment:
-                consume_augment_rng(rng, len(sel))
-            continue
         xb = x[sel]
         if augment:
             xb = augment_cifar(xb, rng)

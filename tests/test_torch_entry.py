@@ -104,7 +104,8 @@ def test_import_leaves_jax_unloaded():
 @pytest.mark.parametrize('knob,value', [
     ('inv_pipeline_chunks', 2), ('deferred_factor_reduction', True),
     ('inv_staleness', 1), ('inv_lowrank_rank', 16),
-    ('kfac_approx', 'reduce'), ('collect_metrics', True)])
+    ('kfac_approx', 'reduce'), ('collect_metrics', True),
+    ('inv_dtype', torch.bfloat16), ('auto_large_method', 'newton')])
 def test_unported_knobs_raise_by_name(knob, value):
     with pytest.raises(NotImplementedError, match=knob):
         KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
@@ -112,10 +113,22 @@ def test_unported_knobs_raise_by_name(knob, value):
 
 
 @pytest.mark.parametrize('kwargs', [{'inverse_method': 'newton'},
+                                    {'inverse_method': 'cholesky'},
+                                    {'use_eigen_decomp': False},
                                     {'eigh_method': 'jacobi'}])
-def test_unported_kernels_raise(kwargs):
+def test_unported_inverse_methods_raise(kwargs):
     with pytest.raises(NotImplementedError, match='not ported'):
         KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu', **kwargs)
+
+
+def test_auto_dispatch_above_640_raises_and_eigen_accepts():
+    # 'auto' needs damped Cholesky inverses above dim 640 (not ported);
+    # 'eigen' decomposes every dim.
+    model = nn.Sequential(nn.Linear(700, 3))
+    with pytest.raises(NotImplementedError, match='factor dim 701'):
+        KFAC(model, device='cpu').init_state()
+    state = KFAC(model, device='cpu', inverse_method='eigen').init_state()
+    assert state['inverses']['0']['QA'].shape == (701, 701)
 
 
 def test_unknown_knob_is_a_type_error():

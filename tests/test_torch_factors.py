@@ -96,17 +96,20 @@ def test_conv2d_a_factor_vs_stock(case):
     _close(got, ref[p][:, p])
 
 
+@pytest.mark.parametrize('bf16', [False, True], ids=['fp32', 'bf16'])
 @pytest.mark.parametrize('case', list(CONV_CASES), ids=list(CONV_CASES))
-def test_patch_cov_plain_vs_pallas_interpret(case):
-    # K2's plain version against the Pallas kernel run in interpret mode
-    # (strict fp32 multiplicands).
+def test_patch_cov_plain_vs_pallas_interpret(case, bf16):
+    # K2's plain version against the Pallas kernel run in interpret mode,
+    # strict fp32 multiplicands and bf16-rounded ones (both round the
+    # same values; fp32 accumulation either way).
     shape, k, s, pad, bias = CONV_CASES[case]
     x = _rng(6).normal(size=shape).astype('float32')
     ref = np.asarray(JP.conv_a_factor_fused(
-        jnp.asarray(x), k, s, pad, bias, mult_bf16=False,
+        jnp.asarray(x), k, s, pad, bias, mult_bf16=bf16,
         block_batch=shape[0], interpret=True))
     p = convert.conv_a_perm(k, shape[-1], bias)
-    got = kernels.patch_cov_plain(_nhwc_to_nchw(x), k, s, pad, bias)
+    got = kernels.patch_cov_plain(_nhwc_to_nchw(x), k, s, pad, bias,
+                                  bf16=bf16)
     _close(got, ref[p][:, p])
 
 
@@ -127,6 +130,24 @@ FACTOR_EMA_CASES = {
     'ema_bias': ((16, 12), True, None, True),
     'ema_plain_d10': ((40, 10), False, None, True),
 }
+
+
+@pytest.mark.parametrize('case', list(FACTOR_EMA_CASES),
+                         ids=list(FACTOR_EMA_CASES))
+def test_factor_ema_plain_bf16_vs_pallas_interpret(case):
+    # bf16-rounded multiplicands (KFAC factor_compute_dtype=bfloat16).
+    shape, bias, _, with_old = FACTOR_EMA_CASES[case]
+    x = _rng(11).normal(size=shape).astype('float32')
+    n = shape[1] + int(bias)
+    old = np.eye(n, dtype='float32') * 0.5 if with_old else None
+    ref = JP.fused_factor_ema(jnp.asarray(x),
+                              None if old is None else jnp.asarray(old),
+                              0.9, has_bias=bias,
+                              compute_dtype=jnp.bfloat16, interpret=True)
+    got = kernels.factor_ema_plain(
+        torch.from_numpy(x), None if old is None else torch.from_numpy(old),
+        0.9, has_bias=bias, bf16=True)
+    _close(got, ref)
 
 
 @pytest.mark.parametrize('case', list(FACTOR_EMA_CASES),

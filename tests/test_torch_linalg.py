@@ -151,7 +151,9 @@ def test_precondition_eigen_and_inv_match_jax():
                                atol=V_ATOL)
 
 
-def test_eigen_side_and_cholesky_inverses_match_jax():
+def test_eigen_side_inverse_matches_jax():
+    # rel 1e-4: entries of (F + 0.01 I)^-1 reach 1/0.06, so fp32 rounding
+    # of the two frameworks' products differs at ~1e-6 of that.
     rng = np.random.default_rng(5)
     a = _spd(rng, 1, 7)[0]
     d, q = np.linalg.eigh(a.astype(np.float64))
@@ -159,10 +161,6 @@ def test_eigen_side_and_cholesky_inverses_match_jax():
     ref = JL.eigen_side_inverse(jnp.asarray(q), jnp.asarray(d), 0.01)
     got = L.eigen_side_inverse(torch.from_numpy(q), torch.from_numpy(d),
                                0.01)
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
-                               atol=1e-4)
-    ref = JL.get_inverse(jnp.asarray(a), 0.01)
-    got = L.get_inverse(torch.from_numpy(a), 0.01)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
                                atol=1e-4)
 
