@@ -26,11 +26,8 @@ class OptimConfig:
     base_lr: float = 0.1
     momentum: float = 0.9
     weight_decay: float = 5e-4
-    nesterov: bool = False
     warmup_epochs: float = 5.0
     lr_decay: Sequence[int] = (35, 75, 90)
-    lr_decay_alpha: float = 0.1
-    workers: int = 1                      # world size for LR scaling
     # K-FAC (0 inverse update freq disables it: plain SGD)
     kfac_inv_update_freq: int = 10
     kfac_cov_update_freq: int = 1
@@ -63,10 +60,9 @@ def get_optimizer(model: torch.nn.Module, cfg: OptimConfig, device='cuda'):
     """
     optimizer = torch.optim.SGD(model.parameters(), lr=cfg.base_lr,
                                 momentum=cfg.momentum,
-                                weight_decay=cfg.weight_decay,
-                                nesterov=cfg.nesterov)
-    factor = create_lr_schedule(cfg.workers, cfg.warmup_epochs,
-                                cfg.lr_decay, cfg.lr_decay_alpha)
+                                weight_decay=cfg.weight_decay)
+    # Single device: no world-size LR scaling (workers = 1).
+    factor = create_lr_schedule(1, cfg.warmup_epochs, cfg.lr_decay)
     lr_schedule = lambda epoch: cfg.base_lr * factor(epoch)  # noqa: E731
     kfac = kfac_scheduler = None
     if cfg.kfac_inv_update_freq > 0:
