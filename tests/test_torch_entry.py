@@ -18,6 +18,18 @@ from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
 from distributed_kfac_pytorch_tpu_torch.training import engine
 from distributed_kfac_pytorch_tpu_torch import train_cifar10_resnet as cli
 
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The suite runs test files in parallel processes next to JAX's
+    virtual devices; torch's default of one thread per core would
+    oversubscribe the machine."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / 'distributed_kfac_pytorch_tpu_torch'
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'distributed_kfac_pytorch_tpu')

@@ -43,6 +43,18 @@ from distributed_kfac_pytorch_tpu_torch.models import cifar_resnet
 from distributed_kfac_pytorch_tpu_torch.ops import kernels
 from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
 
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The suite runs test files in parallel processes next to JAX's
+    virtual devices; torch's default of one thread per core would
+    oversubscribe the machine."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 BATCH, STEPS, INV_FREQ, LR = 8, 3, 2, 0.1
 HYPER = dict(damping=0.003, lr=LR, kl_clip=0.001, factor_update_freq=1,
              inv_update_freq=INV_FREQ)

@@ -18,6 +18,17 @@ from distributed_kfac_pytorch_tpu_torch.ops import kernels
 from distributed_kfac_pytorch_tpu_torch.ops import linalg as L
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The suite runs test files in parallel processes next to JAX's
+    virtual devices; torch's default of one thread per core would
+    oversubscribe the machine."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _spd(rng, b, n, spread=1.0):
     m = rng.normal(size=(b, n, n))
     return ((m @ m.transpose(0, 2, 1)) / n * spread

@@ -13,6 +13,18 @@ from distributed_kfac_pytorch_tpu.models import cifar_resnet as jres
 from distributed_kfac_pytorch_tpu_torch import convert
 from distributed_kfac_pytorch_tpu_torch.models import cifar_resnet
 
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The suite runs test files in parallel processes next to JAX's
+    virtual devices; torch's default of one thread per core would
+    oversubscribe the machine."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 BLOCKS = (1, 1, 1)
 
 
