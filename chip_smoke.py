@@ -191,9 +191,10 @@ def patch_cov_cases(gen, dev):
                                      bf16=bf16)
 
         def library():
+            # im2col rows in the (c, kh, kw) basis, then one GEMM.
             xp = F.pad(x, (pw_lo, pw_hi, ph_lo, ph_hi))
-            p = F.unfold(xp, k, stride=stride)
-            return torch.matmul(p, p.transpose(1, 2)).sum(0)
+            p = F.unfold(xp, k, stride=stride).transpose(1, 2).reshape(-1, d)
+            return p.T @ p
 
         nbytes = 4 * (x.numel() + n * n)
         return kern, plain, library, nbytes, rows * d * (d + 1)

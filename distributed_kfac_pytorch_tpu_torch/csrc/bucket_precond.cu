@@ -162,9 +162,15 @@ __global__ void vg_reduce_kernel(const float* part, int tiles, int S,
   vg[s] = acc;
 }
 
+// Output tiles of one slice's (M, N) product: the grid's x * y, and the
+// number of v.g partials per slice.
+dim3 tile_grid(int M, int N, int S) {
+  return dim3((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, S);
+}
+
 template <bool TA, bool TB, int EPI>
 cudaError_t gemm(const GemmArgs& p, int S, cudaStream_t stream) {
-  const dim3 grid((p.N + kTile - 1) / kTile, (p.M + kTile - 1) / kTile, S);
+  const dim3 grid = tile_grid(p.M, p.N, S);
   bgemm_kernel<TA, TB, EPI><<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
@@ -183,10 +189,11 @@ GemmArgs make(const float* a, int64_t a_stride, int lda, const float* b,
 
 }  // namespace
 
-// Number of per-slice v.g partials the final product writes (the size of
-// the vg_part workspace per slice).
+// Number of per-slice v.g partials the final (G, A) product writes: the
+// size of the vg_part workspace per slice, which the caller allocates.
 extern "C" int kfac_bucket_precond_tiles(int G, int A) {
-  return ((A + kTile - 1) / kTile) * ((G + kTile - 1) / kTile);
+  const dim3 grid = tile_grid(G, A, 1);
+  return static_cast<int>(grid.x * grid.y);
 }
 
 // g (S, G, A); qa (S, A, A); qg (S, G, G); da (S, A); dg (S, G).

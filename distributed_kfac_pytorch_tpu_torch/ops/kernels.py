@@ -32,6 +32,7 @@ loaded with ``ctypes``. Nothing is compiled or imported at module import.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -55,8 +56,6 @@ LAUNCHES = {name: 0 for name in SOURCES}
 _ROW_STEP = 32
 # Blocks to aim for per Gram launch: 4 per SM of a 132-SM H100.
 _TARGET_BLOCKS = 4 * 132
-# Output-tile edge of the batched GEMM in bucket_precond.cu.
-_PRECOND_TILE = 64
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -256,6 +255,7 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F,
                            _I, _F, _F, _P, _P]},
     'bucket_precond': {
+        'kfac_bucket_precond_tiles': [_I, _I],
         'kfac_bucket_precond_eigen': [_P, _P, _P, _P, _P, _F, _I, _I, _I,
                                       _I, _P, _P, _P, _P, _P, _P],
         'kfac_bucket_precond_baked': [_P, _P, _P, _I, _I, _I, _I, _P, _P,
@@ -492,6 +492,13 @@ def patch_cov(x: torch.Tensor, kernel_size, strides, padding,
 # reduction of the partials.
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _precond_tiles(g_dim: int, a_dim: int) -> int:
+    """The v.g partials per slice, counted by the library that writes
+    them (cached: one host call per bucket shape)."""
+    return _lib('bucket_precond').kfac_bucket_precond_tiles(g_dim, a_dim)
+
+
 def bucket_precond_plain(gstack: torch.Tensor, entry: dict, damping, *,
                          bf16: bool = False
                          ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -537,12 +544,12 @@ def bucket_precond(gstack: torch.Tensor, entry: dict, damping, *,
             raise ValueError(f'bucket_precond: {key} must be a contiguous '
                              f'{shape} tensor, got {tuple(t.shape)}')
     dev = gstack.device
-    tiles = -(-a_dim // _PRECOND_TILE) * -(-g_dim // _PRECOND_TILE)
+    lib = _lib('bucket_precond')
+    tiles = _precond_tiles(g_dim, a_dim)
     v = torch.empty_like(gstack)
     vg = torch.empty((s,), dtype=torch.float32, device=dev)
     ws_u = torch.empty_like(gstack)
     vg_part = torch.empty((s, tiles), dtype=torch.float32, device=dev)
-    lib = _lib('bucket_precond')
     if eigen:
         ws_t = torch.empty_like(gstack)
         err = lib.kfac_bucket_precond_eigen(

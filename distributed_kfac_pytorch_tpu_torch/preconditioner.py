@@ -44,6 +44,7 @@ from distributed_kfac_pytorch_tpu_torch.ops import kernels, linalg
 #: implement yet, with the value that means "off". Passing any other
 #: value raises ``NotImplementedError`` naming the knob.
 NOT_PORTED = {
+    'use_eigen_decomp': None,
     'auto_eigen_max_dim': 640,
     'auto_large_method': 'cholesky',
     'factor_dtype': None,
@@ -79,8 +80,8 @@ def _check_not_ported(knobs: dict) -> None:
                             f'{key!r}')
         if value != NOT_PORTED[key]:
             raise NotImplementedError(
-                f'KFAC({key}={value!r}) is not implemented in the torch '
-                f'port yet (only {key}={NOT_PORTED[key]!r} is)')
+                f'KFAC({key}={value!r}) is not ported to torch yet (only '
+                f'{key}={NOT_PORTED[key]!r} is)')
 
 
 #: Largest factor dim the 'auto' dispatch keeps on the eigen path; above
@@ -119,8 +120,7 @@ class KFAC:
                  inv_update_freq: int = 100,
                  kl_clip: float | None = 0.001,
                  lr: float = 0.1,
-                 use_eigen_decomp: bool | None = None,
-                 inverse_method: str | None = None,
+                 inverse_method: str = 'auto',
                  eigh_method: str = 'auto',
                  eigh_polish_iters: int = 8,
                  factor_compute_dtype: Any = None,
@@ -139,9 +139,6 @@ class KFAC:
                 'inv_update_freq is not a multiple of factor_update_freq: '
                 'some inverse updates will reuse stale factors '
                 f'({inv_update_freq=} {factor_update_freq=})')
-        if inverse_method is None:
-            inverse_method = ('auto' if use_eigen_decomp is None else
-                              'eigen' if use_eigen_decomp else 'cholesky')
         if inverse_method in ('cholesky', 'newton'):
             raise NotImplementedError(
                 f'inverse_method={inverse_method!r} is not ported yet (the '
@@ -149,11 +146,6 @@ class KFAC:
         if inverse_method not in ('auto', 'eigen'):
             raise ValueError("inverse_method must be 'auto' or 'eigen', got "
                              f'{inverse_method!r}')
-        if use_eigen_decomp is not None and (
-                inverse_method == 'auto'
-                or use_eigen_decomp != (inverse_method == 'eigen')):
-            raise ValueError(f'{use_eigen_decomp=} contradicts '
-                             f'{inverse_method=}; set one or the other')
         if eigh_method == 'jacobi':
             raise NotImplementedError(
                 "eigh_method='jacobi' (the TPU Jacobi eigh kernel) is not "

@@ -10,7 +10,8 @@ flags: ``--device`` (default ``cuda``; ``cpu`` must be asked for),
 ``--no-augment``, ``--max-steps`` (stop after that many steps) and
 ``--time-steps`` (synchronize each step and record its wall time). Not
 ported yet: checkpointing and resume, metrics sinks and profiling, mesh
-distribution, gradient accumulation, label smoothing, precise-BN, fp16,
+distribution with its LR warmup (``--warmup-epochs`` ramps the LR to the
+world size), gradient accumulation, label smoothing, precise-BN, fp16,
 and the K-FAC knobs listed in ``preconditioner.NOT_PORTED``.
 
 :func:`train` is the programmatic entry point.
@@ -43,7 +44,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--epochs', type=int, default=100)
     p.add_argument('--base-lr', type=float, default=0.1)
     p.add_argument('--lr-decay', type=int, nargs='+', default=[35, 75, 90])
-    p.add_argument('--warmup-epochs', type=float, default=5)
     p.add_argument('--momentum', type=float, default=0.9)
     p.add_argument('--wd', type=float, default=5e-4)
     p.add_argument('--bn-momentum', type=float, default=0.9,
@@ -122,8 +122,7 @@ def train(args_or_config=None, device='cuda') -> dict:
     model = model.to(dev)
     cfg = optimizers.OptimConfig(
         base_lr=args.base_lr, momentum=args.momentum,
-        weight_decay=args.wd, warmup_epochs=args.warmup_epochs,
-        lr_decay=args.lr_decay,
+        weight_decay=args.wd, lr_decay=args.lr_decay,
         kfac_inv_update_freq=args.kfac_update_freq,
         kfac_cov_update_freq=args.kfac_cov_update_freq,
         damping=args.damping, factor_decay=args.stat_decay,

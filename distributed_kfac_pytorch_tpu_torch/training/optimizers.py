@@ -26,7 +26,6 @@ class OptimConfig:
     base_lr: float = 0.1
     momentum: float = 0.9
     weight_decay: float = 5e-4
-    warmup_epochs: float = 5.0
     lr_decay: Sequence[int] = (35, 75, 90)
     # K-FAC (0 inverse update freq disables it: plain SGD)
     kfac_inv_update_freq: int = 10
@@ -54,15 +53,13 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
 def get_optimizer(model: torch.nn.Module, cfg: OptimConfig, device='cuda'):
     """``(optimizer, lr_schedule, kfac | None, kfac_scheduler | None)``.
 
-    ``lr_schedule(epoch) -> lr`` is ``base_lr`` times the warmup/decay
-    factor; the caller feeds the same value to the optimizer and to the
+    ``lr_schedule(epoch) -> lr`` is ``base_lr`` times the decay factor; the caller feeds the same value to the optimizer and to the
     KL clip. K-FAC is on when ``kfac_inv_update_freq > 0``.
     """
     optimizer = torch.optim.SGD(model.parameters(), lr=cfg.base_lr,
                                 momentum=cfg.momentum,
                                 weight_decay=cfg.weight_decay)
-    # Single device: no world-size LR scaling (workers = 1).
-    factor = create_lr_schedule(1, cfg.warmup_epochs, cfg.lr_decay)
+    factor = create_lr_schedule(cfg.lr_decay)
     lr_schedule = lambda epoch: cfg.base_lr * factor(epoch)  # noqa: E731
     kfac = kfac_scheduler = None
     if cfg.kfac_inv_update_freq > 0:

@@ -34,18 +34,18 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logits.argmax(dim=-1) == labels).float().mean()
 
 
-def create_lr_schedule(workers: int, warmup_epochs: float,
-                       decay_schedule: Sequence[int],
-                       alpha: float = 0.1):
-    """LR *factor* schedule over epochs: linear warmup from 1 to
-    ``workers`` over ``warmup_epochs``, then a factor ``alpha`` at each
-    epoch in ``decay_schedule``. Returns ``f(epoch) -> factor``."""
+def create_lr_schedule(decay_schedule: Sequence[int], alpha: float = 0.1):
+    """LR *factor* schedule over epochs: a factor ``alpha`` at each epoch
+    in ``decay_schedule``. Returns ``f(epoch) -> factor``.
+
+    The JAX schedule's warmup ramps the factor from 1 to the number of
+    workers; on one device that ramp is flat, so it comes with the
+    multi-device port.
+    """
     decay_schedule = sorted(decay_schedule)
 
     def schedule(epoch: float) -> float:
-        if warmup_epochs > 0 and epoch < warmup_epochs:
-            return 1.0 + (workers - 1.0) * (epoch / warmup_epochs)
-        factor = float(workers)
+        factor = 1.0
         for e in decay_schedule:
             if epoch >= e:
                 factor *= alpha

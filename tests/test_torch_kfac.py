@@ -84,21 +84,26 @@ def _jax_run(batches, eigh_method):
             lambda out: optax.softmax_cross_entropy_with_integer_labels(
                 out, y).mean(),
             params, x, extra_vars=extra, mutable_cols=('batch_stats',))
+        # This batch's factor contribution alone (EMA decay 0), through
+        # the same fused factor path as the step.
+        contrib = kfac.update_factors(kstate, captures, factor_decay=0.0)
         precond, kstate = kfac.step(kstate, grads, captures,
                                     factor_update=True,
                                     inv_update=inv_update)
         updates, opt_state = tx.update(precond, opt_state, params)
         params = optax.apply_updates(params, updates)
-        return loss, precond, params, opt_state, kstate, {**extra, **upd}
+        return (loss, precond, params, opt_state, kstate, {**extra, **upd},
+                contrib)
 
     jstep = jax.jit(step_fn, static_argnames=('inv_update',))
     rec = []
     for step, (x, y) in enumerate(batches):
-        loss, precond, params, opt_state, kstate, extra = jstep(
+        loss, precond, params, opt_state, kstate, extra, contrib = jstep(
             params, opt_state, kstate, extra, jnp.asarray(x),
             jnp.asarray(y), inv_update=step % INV_FREQ == 0)
         rec.append({'loss': float(loss),
                     'factors': jax.tree.map(np.asarray, kstate['factors']),
+                    'contrib': jax.tree.map(np.asarray, contrib),
                     'precond': jax.tree.map(np.asarray, precond),
                     'params': jax.tree.map(np.asarray, params)})
     return init, rec
@@ -118,6 +123,7 @@ def _torch_run(init, batches, eigh_method):
         yt = torch.from_numpy(y)
         loss, _, grads, captures = kfac.capture.loss_and_grads(
             lambda out: F.cross_entropy(out, yt), xt)
+        contrib = kfac.update_factors(state, captures, factor_decay=0.0)
         precond, state = kfac.step(state, grads, captures,
                                    factor_update=True,
                                    inv_update=step % INV_FREQ == 0)
@@ -127,6 +133,7 @@ def _torch_run(init, batches, eigh_method):
         rec.append({'loss': float(loss),
                     'factors': {n: {k: t.clone() for k, t in f.items()}
                                 for n, f in state['factors'].items()},
+                    'contrib': contrib,
                     'precond': {n: t.clone() for n, t in precond.items()},
                     'params': {n: p.detach().clone()
                                for n, p in model.named_parameters()}})
@@ -171,6 +178,31 @@ def test_factors(runs, step):
             np.testing.assert_allclose(
                 got[name][side].numpy(), f[side].numpy(), rtol=rtol,
                 atol=1e-6, err_msg=f'{name}/{side} step {step}')
+
+
+@pytest.mark.parametrize('step', range(STEPS))
+def test_factor_contributions(runs, step):
+    """Each step's own factor contribution (``update_factors`` with decay
+    0 on that step's captures), held on its own scale: a conv G
+    contribution is ~1e-9 to 1e-5, so in the running factor it is 0.05 x
+    that next to 0.95 x the identity and below ``test_factors``' atol.
+    Here each factor's error is measured against its largest entry:
+    <= 1e-5 at step 1 and under exact eigh (measured <= 2.3e-6); <= 1e-3
+    at later steps of the warm polish, whose parameters already carry
+    the polish noise (measured <= 1.2e-4)."""
+    ref = convert.jax_factors_to_torch(runs['jax'][step]['contrib'],
+                                       runs['kfac'].specs)
+    got = runs['torch'][step]['contrib']
+    assert set(ref) == set(got)
+    tol = 1e-3 if step and runs['kfac'].eigh_method == 'auto' else 1e-5
+    for name, f in ref.items():
+        for side in ('A', 'G'):
+            r = f[side].numpy()
+            scale = np.abs(r).max()
+            assert scale > 0, f'{name}/{side} step {step}: zero contribution'
+            np.testing.assert_allclose(
+                got[name][side].numpy(), r, rtol=0, atol=tol * scale,
+                err_msg=f'{name}/{side} step {step}')
 
 
 @pytest.mark.parametrize('what', ['precond', 'params'])
