@@ -9,25 +9,45 @@ Phases (any failure exits nonzero and prints no result line):
      CUDA versions, the TF32 flags;
   2. build: every kernel from ``distributed_kfac_pytorch_tpu_torch/csrc``
      with nvcc for sm_90a (``ops.kernels.build``);
-  3. kernels: each kernel at the shapes of the ResNet-32 / batch-128 main
-     path plus ragged edge cases, fp32 and bf16-multiplicand modes, held
-     against its plain PyTorch version on the same inputs on the card
-     (relative to the largest plain entry: fp32 <= 1e-5 for the Gram
-     kernels, <= 1e-4 for bucketed preconditioning; bf16 <= 1e-2), and
-     timed with CUDA events (median) beside the plain version, a library
-     yardstick and the card's bound;
-  4. main path: ``train_cifar10_resnet.train`` on ResNet-32, batch 128,
-     30 K-FAC steps on one fixed synthetic batch; every loss finite, the
-     last five below the first five, and every kernel launched exactly
-     as often as the path needs (factor_ema 33, patch_cov 31,
-     bucket_precond 7 per step);
-  5. the result: a JSON line of per-kernel numbers, then
+  3. kernels K1-K3: each at the shapes of the ResNet-32 / batch-128 path
+     and of the ResNet-50 / 224 px / batch-64 path plus ragged edge
+     cases, fp32 and bf16-multiplicand modes, held against its plain
+     PyTorch version on the same inputs on the card (relative to the
+     largest plain entry: fp32 <= 1e-5 for the Gram kernels, <= 1e-4 for
+     bucketed preconditioning; bf16 <= 1e-2), and timed with CUDA events
+     (median) beside the plain version, a library yardstick and the
+     card's bound;
+  4. kernel K4 (Newton--Schulz inverse): random SPD stacks at every
+     ResNet-50 size bucket and edge sizes, damping 0.003 and 0.001, and
+     stacks whose matrices stop at different iterations (and at the cap),
+     against its plain version: relative Frobenius error <= 1e-4 for
+     n <= 1024; above, the final ``max|MX - I|`` at most 2x the plain
+     version's and iteration counts within +-1; timed beside the plain
+     version, ``torch.cholesky_inverse(torch.linalg.cholesky(M))`` (the
+     same operator by another algorithm) and the bound;
+  5. main path, ResNet-32: ``train_cifar10_resnet.train``, batch 128, 30
+     K-FAC steps on one fixed synthetic batch; every loss finite, the last
+     five below the first five, launches factor_ema 33, patch_cov 31,
+     bucket_precond 7 per step, ns_inverse 0;
+  6. main path, ResNet-50: ``train_imagenet_resnet.train``, 224 px, batch
+     64, one fixed synthetic batch, ``--inverse-method newton``, factors
+     every step, inverses every 10, 12 steps (firings at steps 0 and 10);
+     every loss finite, the last three below the first three, launches
+     factor_ema 55, patch_cov 53, bucket_precond 21 per step, ns_inverse
+     13 per firing; then each size bucket of the final factors through K4
+     (iterations, residual, ms);
+  7. ResNet-50 under the default ``--inverse-method auto``: 3 steps, one
+     firing; finite losses, no ns_inverse launch, bucket_precond 21 per
+     step split between eigen and baked buckets;
+  8. the result: a JSON line of per-kernel numbers (K1-K3 per ResNet-50
+     step, K4 per ResNet-50 firing), the card line, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--quick`` builds with ``-Xptxas -v`` and runs only the correctness
-checks of phase 3 (a first call after a kernel change). ``--profile``
-adds a torch.profiler pass over steady main-path steps (device time by
-kernel category, the device's busy share). Details of every case go to
+checks of phases 3 and 4 (a first call after a kernel change).
+``--profile`` adds a torch.profiler pass over steady ResNet-32 and
+ResNet-50 (``newton``) steps (device time by kernel category, the
+device's busy share). Details of every case go to
 ``chiprun_out/chip_smoke.json`` next to this script.
 """
 
@@ -52,7 +72,22 @@ PEAK_BYTES = 3.35e12
 TOL_FP32 = {'factor_ema': 1e-5, 'patch_cov': 1e-5, 'bucket_precond': 1e-4}
 TOL_BF16 = 1e-2
 STEPS = 30
-EXPECTED_PER_STEP = {'factor_ema': 33, 'patch_cov': 31, 'bucket_precond': 7}
+EXPECTED_PER_STEP = {'factor_ema': 33, 'patch_cov': 31, 'bucket_precond': 7,
+                     'ns_inverse': 0}
+# ResNet-50 path: per factor step, per step, per firing.
+R50_STEPS, R50_FIRE_EVERY, R50_BATCH = 12, 10, 64
+R50_PER_STEP = {'factor_ema': 55, 'patch_cov': 53, 'bucket_precond': 21}
+R50_PER_FIRING = 13
+# The CLI's base lr; the KL clip bounds each step, so the loss falls on
+# the fixed batch within 12 steps at this lr.
+R50_LR = 0.0125
+NS_TOL = 1e-4          # relative Frobenius error of K4, n <= 1024
+NS_EDGE_SIZES = (1, 2, 65, 100)
+# (n, matrices) of each ResNet-50 factor size bucket: one K4 launch each
+# per firing under 'newton'.
+R50_NS_BUCKETS = ((64, 12), (128, 12), (147, 1), (256, 26), (512, 19),
+                  (576, 3), (1000, 1), (1024, 14), (1152, 4), (2048, 6),
+                  (2049, 1), (2304, 6), (4608, 3))
 
 
 def log(msg: str) -> None:
@@ -71,11 +106,11 @@ def card_line() -> str:
 # Timing and bounds
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, reps: int = 20, trials: int = 5) -> float:
+def time_ms(fn, reps: int = 20, trials: int = 5, warmup: int = 3) -> float:
     """Median over ``trials`` of the mean ms per call of ``reps`` calls,
-    CUDA events around each trial, after a warm-up."""
+    CUDA events around each trial, after ``warmup`` calls."""
     import torch
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -103,7 +138,7 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 # builder of (kernel_fn(bf16), plain_fn(bf16), library_fn, nbytes, flops))
 # ---------------------------------------------------------------------------
 
-def factor_ema_cases(gen, dev):
+def factor_ema_cases(gen, dev, resnet50=None):
     import torch
     from distributed_kfac_pytorch_tpu_torch.ops import kernels as K
 
@@ -152,6 +187,15 @@ def factor_ema_cases(gen, dev):
         nbytes = 4 * (rows * d_in + 2 * n * n)
         return kern, plain, library, nbytes, rows * d_in * (d_in + 1)
 
+    if resnet50:
+        fc_in, fc_out = resnet50['fc']
+        return [(f'conv G ({R50_BATCH},{c},{h},{w})', count,
+                 lambda c=c, h=h, w=w: case((R50_BATCH, c, h, w), False))
+                for (c, h, w), count in resnet50['conv_g']] + [
+            (f'linear A ({R50_BATCH},{fc_in})+bias', 1,
+             lambda: case((R50_BATCH, fc_in), True)),
+            (f'linear G ({R50_BATCH},{fc_out})', 1,
+             lambda: case((R50_BATCH, fc_out), False))]
     return [
         ('conv G (128,16,32,32)', 11, lambda: case((128, 16, 32, 32), False)),
         ('conv G (128,32,16,16)', 10, lambda: case((128, 32, 16, 16), False)),
@@ -165,20 +209,20 @@ def factor_ema_cases(gen, dev):
     ]
 
 
-def patch_cov_cases(gen, dev):
+def patch_cov_cases(gen, dev, resnet50=None):
     import torch
     import torch.nn.functional as F
     from distributed_kfac_pytorch_tpu_torch.ops import kernels as K
 
-    def case(shape, stride, padding, has_bias=False, channels_last=False):
+    def case(shape, stride, padding, has_bias=False, channels_last=False,
+             k=(3, 3)):
         x = torch.randn(shape, generator=gen, device=dev)
         if channels_last:
             x = x.contiguous(memory_format=torch.channels_last)
-        k = (3, 3)
         (pads, oh, ow) = K.conv_out_geometry(x.shape, k, stride, padding)
         (ph_lo, ph_hi), (pw_lo, pw_hi) = pads
         b, c = shape[:2]
-        rows, d = b * oh * ow, c * 9
+        rows, d = b * oh * ow, c * k[0] * k[1]
         n = d + int(has_bias)
 
         def kern(bf16, both=True):
@@ -199,6 +243,12 @@ def patch_cov_cases(gen, dev):
         nbytes = 4 * (x.numel() + n * n)
         return kern, plain, library, nbytes, rows * d * (d + 1)
 
+    if resnet50:
+        return [(f'D={c * k[0] * k[1]} ({R50_BATCH},{c},{h},{w}) k{k[0]} '
+                 f's{s[0]}', count,
+                 lambda c=c, h=h, w=w, k=k, s=s: case(
+                     (R50_BATCH, c, h, w), s, (k[0] // 2, k[1] // 2), k=k))
+                for (c, h, w), k, s, count in resnet50['conv_a']]
     s1, s2 = (1, 1), (2, 2)
     return [
         ('stem D=27 (128,3,32,32)', 1, lambda: case((128, 3, 32, 32), s1, 1)),
@@ -216,7 +266,7 @@ def patch_cov_cases(gen, dev):
     ]
 
 
-def bucket_precond_cases(gen, dev):
+def bucket_precond_cases(gen, dev, resnet50=None):
     import torch
     from distributed_kfac_pytorch_tpu_torch.ops import kernels as K
 
@@ -266,6 +316,16 @@ def bucket_precond_cases(gen, dev):
         flops = s * (4 if eigen else 2) * g_dim * a_dim * (a_dim + g_dim)
         return kern, plain, library, nbytes, flops
 
+    if resnet50:
+        # Under 'newton' every bucket is baked (timed, once per step);
+        # the eigen form is checked at the same shapes.
+        out = []
+        for (g_dim, a_dim), s in resnet50['buckets']:
+            out.append((f'baked ({s},{g_dim},{a_dim})', 1,
+                        lambda s=s, g=g_dim, a=a_dim: case(s, g, a, False)))
+            out.append((f'eigen ({s},{g_dim},{a_dim})', 0,
+                        lambda s=s, g=g_dim, a=a_dim: case(s, g, a)))
+        return out
     return [
         ('(1,16,27)', 1, lambda: case(1, 16, 27)),
         ('(10,16,144)', 1, lambda: case(10, 16, 144)),
@@ -297,21 +357,59 @@ def rel_err(got, ref) -> tuple[float, float]:
     return abs_err, rel
 
 
-def check_kernels(quick: bool) -> tuple[dict, list]:
+def resnet50_shapes() -> dict:
+    """The shapes the ResNet-50 path gives K1-K3, from one forward pass of
+    the model on the CPU at batch 1: conv output (C, H, W) with counts,
+    conv input (C, H, W) + kernel + stride with counts, the head's
+    (in, out) and the precondition buckets ((G, A), layers)."""
+    import collections
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.models import imagenet_resnet
+    model = imagenet_resnet.get_model('resnet50').eval()
+    seen, hooks = [], []
+    for mod in model.modules():
+        if isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear)):
+            hooks.append(mod.register_forward_hook(
+                lambda m, i, o: seen.append((m, tuple(i[0].shape[1:]),
+                                             tuple(o.shape[1:])))))
+    with torch.no_grad():
+        model(torch.zeros(1, 3, 224, 224))
+    conv_g, conv_a, buckets = (collections.Counter() for _ in range(3))
+    fc = None
+    for m, x_shape, y_shape in seen:
+        w = m.weight
+        if isinstance(m, torch.nn.Conv2d):
+            conv_g[y_shape] += 1
+            conv_a[(x_shape, tuple(m.kernel_size), tuple(m.stride))] += 1
+            buckets[(w.shape[0], w[0].numel())] += 1
+        else:
+            fc = (w.shape[1], w.shape[0])
+            buckets[(w.shape[0], w.shape[1] + 1)] += 1
+    return {'conv_g': sorted(conv_g.items()),
+            'conv_a': [(*k, n) for k, n in sorted(conv_a.items())],
+            'fc': fc, 'buckets': sorted(buckets.items())}
+
+
+def check_kernels(quick: bool, resnet50: dict | None = None
+                  ) -> tuple[dict, list]:
+    """K1-K3 against their plain versions at the ResNet-32 shapes (or,
+    given ``resnet50_shapes()``, the ResNet-50 ones); per-step sums of the
+    timed cases' ms, plain ms, library ms and bounds."""
     import torch
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    families = {'factor_ema': factor_ema_cases(gen, dev),
-                'patch_cov': patch_cov_cases(gen, dev),
-                'bucket_precond': bucket_precond_cases(gen, dev)}
+    families = {'factor_ema': factor_ema_cases(gen, dev, resnet50),
+                'patch_cov': patch_cov_cases(gen, dev, resnet50),
+                'bucket_precond': bucket_precond_cases(gen, dev, resnet50)}
     summary, details = {}, []
     for name, cases in families.items():
         agg = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0,
                't_bytes': 0.0, 't_ops': 0.0, 'max_abs_err': 0.0}
         for label, count, make in cases:
             kern, plain, library, nbytes, flops = make()
-            row = {'kernel': name, 'case': label, 'per_step': count}
+            row = {'kernel': name, 'case': label, 'per_step': count,
+                   'model': 'resnet50' if resnet50 else 'resnet32'}
             for mode, bf16, tol in (('fp32', False, TOL_FP32[name]),
                                     ('bf16', True, TOL_BF16)):
                 got = kern(bf16)
@@ -323,13 +421,15 @@ def check_kernels(quick: bool) -> tuple[dict, list]:
                 if not rel <= tol:
                     raise AssertionError(
                         f'{name} {label} {mode}: rel err {rel:.3g} > {tol}')
-            msg = (f'  {name:15s} {label:32s} fp32 rel '
+            msg = (f'  {name:15s} {label:34s} fp32 rel '
                    f'{row["fp32_rel_err"]:.2e}  bf16 rel '
                    f'{row["bf16_rel_err"]:.2e}')
             if not quick and count:
-                row['ms'] = time_ms(lambda: kern(False, both=False))
-                row['plain_ms'] = time_ms(lambda: plain(False, both=False))
-                row['library_ms'] = time_ms(library)
+                reps = 20 if flops < 2e10 else 5
+                row['ms'] = time_ms(lambda: kern(False, both=False), reps)
+                row['plain_ms'] = time_ms(lambda: plain(False, both=False),
+                                          reps)
+                row['library_ms'] = time_ms(library, reps)
                 row['bound_ms'], row['bound_by'] = bound(nbytes, flops)
                 msg += (f'  ms {row["ms"]:.4f} plain {row["plain_ms"]:.4f}'
                         f' lib {row["library_ms"]:.4f} bound '
@@ -348,6 +448,130 @@ def check_kernels(quick: bool) -> tuple[dict, list]:
     return summary, details
 
 
+# ---------------------------------------------------------------------------
+# K4: the Newton--Schulz inverse
+# ---------------------------------------------------------------------------
+
+def ns_bound(n: int, count: int, iters) -> tuple[float, str]:
+    """Bound of one K4 call: 4 n^3 FLOPs per matrix and iteration run,
+    the stack read once and the inverses written once."""
+    return bound(8.0 * count * n * n, 4.0 * n ** 3 * float(sum(iters)))
+
+
+def _ns_residual(f, damping, x) -> float:
+    """``max|(F + damping I) X - I|``, computed in float64 so that the
+    product's own rounding does not swamp the accuracy of ``X``."""
+    import torch
+    f, x = f.double(), x.double()
+    eye = torch.eye(f.shape[-1], dtype=torch.float64, device=f.device)
+    return float(((f + damping * eye) @ x - eye).abs().max())
+
+
+def _spd_stack(gen, count: int, n: int, ks=None, shift: float = 0.0):
+    """``count`` SPD matrices ``shift I + W W^T / k`` with W (n, k)
+    Gaussian (default k = 2n: eigenvalues of ``W W^T / k`` in
+    ~[0.09, 2.9])."""
+    import torch
+    mats = []
+    for i in range(count):
+        k = ks[i] if ks else 2 * n
+        w = torch.randn((n, k), generator=gen, device='cuda')
+        mats.append((w @ w.T) / k
+                    + shift * torch.eye(n, device='cuda'))
+    return torch.stack(mats).contiguous()
+
+
+def check_ns_inverse(quick: bool) -> tuple[dict, list]:
+    """K4 against its plain version at every ResNet-50 size bucket and the
+    edge sizes, damping 0.003 and 0.001, plus stacks whose matrices stop
+    at different iterations (all converging, and a cap of 8 iterations
+    that the slower ones reach). Returns the per-firing sums (ResNet-50
+    buckets at damping 0.001, the main path's) and the per-case rows."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels as K
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(1)
+    cases = []
+    # Above n = 1024 the fp32 fixed point of the iteration sits at the
+    # tolerance for condition ~34 (both versions measured ~2.6e-5 at
+    # n = 2048 on the H100), so whether a matrix stops early there is down
+    # to rounding: those buckets get the identity-seeded form of a K-FAC
+    # factor, I + W W^T / 2n (condition ~3.6), and stop well clear of it.
+    for damping in (0.003, 0.001):
+        for n, count in R50_NS_BUCKETS:
+            cases.append((f'R50 ({count},{n},{n}) l={damping}', damping,
+                          100, count if damping == 0.001 else 0,
+                          lambda n=n, c=count: _spd_stack(
+                              gen, c, n, shift=1.0 if n > 1024 else 0.0)))
+        for n in NS_EDGE_SIZES:
+            cases.append((f'edge (2,{n},{n}) l={damping}', damping, 100, 0,
+                          lambda n=n: _spd_stack(gen, 2, n)))
+    # Condition numbers ~4, 9, 34 and 97: the matrices stop at different
+    # iterations, and under a cap of 8 the slower ones stop at the cap.
+    varied = lambda: _spd_stack(gen, 4, 100,  # noqa: E731
+                                ks=[1000, 400, 200, 150])
+    cases.append(('varied stop (4,100,100) l=0.001', 0.001, 100, 0, varied))
+    cases.append(('cap 8 (4,100,100) l=0.001', 0.001, 8, 0, varied))
+    agg = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0, 'bound_ms': 0.0,
+           't_bytes': 0.0, 't_ops': 0.0, 'max_abs_err': 0.0}
+    rows = []
+    for label, damping, iters, timed, make in cases:
+        f = make()
+        n = f.shape[-1]
+        got, k_got = K.batched_inverse(f, damping, iters, with_iters=True)
+        torch.cuda.synchronize()
+        ref, k_ref = K.batched_inverse_plain(f, damping, iters)
+        k_got, k_ref = k_got.tolist(), k_ref.tolist()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f'ns_inverse {label}: non-finite output')
+        abs_err = float((got - ref).abs().max())
+        rel_fro = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+        res_got = _ns_residual(f, damping, got)
+        res_ref = _ns_residual(f, damping, ref)
+        row = {'kernel': 'ns_inverse', 'case': label, 'n': n,
+               'count': f.shape[0], 'damping': damping, 'iters_cap': iters,
+               'iters': k_got, 'plain_iters': k_ref, 'max_abs_err': abs_err,
+               'rel_fro_err': rel_fro, 'residual': res_got,
+               'plain_residual': res_ref, 'per_firing': timed}
+        if n <= 1024:
+            ok = rel_fro <= NS_TOL
+        else:
+            ok = (res_got <= 2 * res_ref and all(
+                abs(a - b) <= 1 for a, b in zip(k_got, k_ref)))
+        if not ok:
+            raise AssertionError(f'ns_inverse {label}: rel Frobenius '
+                                 f'{rel_fro:.3g}, residual {res_got:.3g} vs '
+                                 f'plain {res_ref:.3g}, iterations {k_got} '
+                                 f'vs {k_ref}')
+        msg = (f'  ns_inverse {label:34s} iters {k_got} (plain {k_ref}) '
+               f'rel fro {rel_fro:.2e} residual {res_got:.2e} (plain '
+               f'{res_ref:.2e})')
+        if not quick and timed:
+            reps, trials, warm = (1, 3, 1) if n >= 1024 else (5, 5, 3)
+            row['ms'] = time_ms(lambda: K.batched_inverse(f, damping, iters),
+                                reps, trials, warm)
+            row['plain_ms'] = time_ms(
+                lambda: K.batched_inverse_plain(f, damping, iters), reps,
+                trials, warm)
+            eye = torch.eye(n, device='cuda')
+            row['library_ms'] = time_ms(lambda: torch.cholesky_inverse(
+                torch.linalg.cholesky(f + damping * eye)), reps, trials, warm)
+            row['bound_ms'], row['bound_by'] = ns_bound(n, f.shape[0], k_got)
+            for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms'):
+                agg[key] += row[key]
+            agg['t_bytes'] += 8.0 * f.shape[0] * n * n / PEAK_BYTES * 1e3
+            agg['t_ops'] += (4.0 * n ** 3 * sum(k_got)
+                             / PEAK_FP32_FLOPS * 1e3)
+            agg['max_abs_err'] = max(agg['max_abs_err'], abs_err)
+            msg += (f'  ms {row["ms"]:.3f} plain {row["plain_ms"]:.3f} lib '
+                    f'(cholesky_inverse) {row["library_ms"]:.3f} bound '
+                    f'{row["bound_ms"]:.3f} ({row["bound_by"]})')
+        log(msg)
+        rows.append(row)
+        del f, got, ref
+    return agg, rows
+
+
 def run_main_path() -> tuple[dict, dict]:
     from distributed_kfac_pytorch_tpu_torch import train_cifar10_resnet
     from distributed_kfac_pytorch_tpu_torch.ops import kernels
@@ -361,6 +585,7 @@ def run_main_path() -> tuple[dict, dict]:
     kernels.reset_launches()
     res = train_cifar10_resnet.train(config, device='cuda')
     launches = dict(kernels.LAUNCHES)
+    res.pop('state')
     losses = res['losses']
     n = res['steps']
     log(f'  losses: {[round(v, 4) for v in losses]}')
@@ -390,6 +615,134 @@ def run_main_path() -> tuple[dict, dict]:
     return summary, res
 
 
+def _r50_config(**over) -> dict:
+    config = {'model': 'resnet50', 'image_size': 224,
+              'batch_size': R50_BATCH, 'synthetic_size': R50_BATCH,
+              'val_batch_size': R50_BATCH, 'no_augment': True, 'seed': 0,
+              'kfac_update_freq': R50_FIRE_EVERY, 'kfac_cov_update_freq': 1,
+              'damping': 0.001, 'kl_clip': 0.001, 'label_smoothing': 0.1,
+              'base_lr': R50_LR, 'time_steps': True, 'quiet': True}
+    config.update(over)
+    return config
+
+
+def _step_ms(res) -> tuple[list, list]:
+    """(firing, non-firing) step ms, leaving out step 0 (first calls)."""
+    ms, fired = res['step_ms'], res['fired']
+    firing = [t for i, (t, f) in enumerate(zip(ms, fired))
+              if f == 'inverse' and i > 0]
+    plain = [t for i, (t, f) in enumerate(zip(ms, fired))
+             if f != 'inverse' and i > 0]
+    return firing, plain
+
+
+def run_resnet50_newton(card: str) -> tuple[dict, dict]:
+    """Phase 6: 12 ResNet-50 steps under 'newton', then the final factors'
+    size buckets through K4 one by one (iterations, residual, ms)."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch import train_imagenet_resnet
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    config = _r50_config(epochs=R50_STEPS, inverse_method='newton')
+    kernels.reset_launches()
+    res = train_imagenet_resnet.train(config, device='cuda')
+    launches = dict(kernels.LAUNCHES)
+    state = res.pop('state')
+    losses, n = res['losses'], res['steps']
+    log(f'  lr {R50_LR}; losses: {[round(v, 4) for v in losses]}')
+    if n != R50_STEPS or len(losses) != R50_STEPS:
+        raise AssertionError(f'expected {R50_STEPS} steps, ran {n}')
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError('non-finite loss on the ResNet-50 path')
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not last < first:
+        raise AssertionError(f'loss did not decrease: first three '
+                             f'{first:.4f}, last three {last:.4f}')
+    firings = res['fired'].count('inverse')
+    expected = {name: per * n for name, per in R50_PER_STEP.items()}
+    expected['ns_inverse'] = R50_PER_FIRING * firings
+    if launches != expected:
+        raise AssertionError(f'launches {launches}, expected {expected}')
+    firing, plain = _step_ms(res)
+    summary = {'steps': n, 'lr': R50_LR, 'losses': losses,
+               'loss_first3': first, 'loss_last3': last,
+               'firings': firings, 'launches': launches,
+               'firing_ms': firing, 'step0_ms': res['step_ms'][0],
+               'nonfiring_ms_median': statistics.median(plain),
+               'nonfiring_ms': plain}
+    log(f'  loss first three {first:.4f} -> last three {last:.4f}; '
+        f'launches {launches}')
+    log(f'  ms/step: non-firing {summary["nonfiring_ms_median"]:.2f} '
+        f'(median), firing {firing} (step 0: {res["step_ms"][0]:.1f}) '
+        f'({card})')
+    # The final factors, bucketed by size as a firing does, through K4.
+    by_size: dict[int, list] = {}
+    for f in state.kfac_state['factors'].values():
+        for t in f.values():
+            by_size.setdefault(t.shape[-1], []).append(t)
+    buckets = []
+    total_ms = 0.0
+    for mats in by_size.values():
+        stack = torch.stack(mats)
+        inv, k = kernels.batched_inverse(stack, config['damping'],
+                                         state.kfac.newton_iters,
+                                         with_iters=True)
+        ms = time_ms(lambda: kernels.batched_inverse(
+            stack, config['damping'], state.kfac.newton_iters), 1, 3, 1)
+        row = {'n': stack.shape[-1], 'count': len(mats),
+               'iters': k.tolist(),
+               'residual': _ns_residual(stack, config['damping'], inv),
+               'ms': ms}
+        total_ms += ms
+        buckets.append(row)
+        log(f'    bucket ({row["count"]},{row["n"]},{row["n"]}): iterations '
+            f'{row["iters"]}, max|MX-I| {row["residual"]:.2e}, {ms:.2f} ms')
+    log(f'  K4 over the final factors: {total_ms:.1f} ms per firing')
+    summary['final_factor_buckets'] = buckets
+    summary['final_factor_k4_ms'] = total_ms
+    return summary, res
+
+
+def run_resnet50_auto(card: str) -> dict:
+    """Phase 7: 3 ResNet-50 steps under the default 'auto' (one firing)."""
+    from distributed_kfac_pytorch_tpu_torch import train_imagenet_resnet
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    config = _r50_config(epochs=3)
+    kernels.reset_launches()
+    res = train_imagenet_resnet.train(config, device='cuda')
+    launches = dict(kernels.LAUNCHES)
+    state = res.pop('state')
+    losses = res['losses']
+    if len(losses) != 3 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f'auto: losses {losses}')
+    if res['fired'].count('inverse') != 1:
+        raise AssertionError(f'auto: fired {res["fired"]}')
+    expected = {name: per * 3 for name, per in R50_PER_STEP.items()}
+    expected['ns_inverse'] = 0
+    if launches != expected:
+        raise AssertionError(f'auto: launches {launches}, expected '
+                             f'{expected}')
+    # The 21 shape buckets, split by the form the kernel ran.
+    groups: dict[tuple, str] = {}
+    for name, entry in state.kfac_state['inverses'].items():
+        w = dict(state.model.named_parameters())[f'{name}.weight']
+        shape = (w.shape[0], w[0].numel() + int(
+            state.kfac.specs[name].has_bias))
+        groups[shape] = 'baked' if 'A_inv' in entry else 'eigen'
+    split = {form: list(groups.values()).count(form)
+             for form in ('eigen', 'baked')}
+    if len(groups) != R50_PER_STEP['bucket_precond'] or min(
+            split.values()) == 0:
+        raise AssertionError(f'auto: bucket forms {split}')
+    summary = {'losses': losses, 'launches': launches,
+               'bucket_forms': split, 'firing_ms': res['step_ms'][0],
+               'nonfiring_ms': res['step_ms'][1:]}
+    log(f'  losses {[round(v, 4) for v in losses]}; launches {launches}; '
+        f'buckets {split}')
+    log(f'  firing step (step 0) {res["step_ms"][0]:.1f} ms, non-firing '
+        f'{[round(t, 2) for t in res["step_ms"][1:]]} ms ({card})')
+    return summary
+
+
 def _category(name: str) -> str:
     """Coarse owner of a CUDA kernel, from its (mangled) name."""
     n = name.lower()
@@ -397,6 +750,9 @@ def _category(name: str) -> str:
         return 'K2 patch_cov' if 'patchloader' in n else 'K1 factor_ema'
     if 'bgemm_kernel' in n or 'vg_reduce' in n:
         return 'K3 bucket_precond'
+    if any(f'ns_{k}_kernel' in n
+           for k in ('fold', 'init', 'residual', 'update', 'finish')):
+        return 'K4 ns_inverse'
     if 'conv' in n or 'cudnn' in n or 'implicit_gemm' in n or 'wgrad' in n \
             or 'dgrad' in n:
         return 'model convolutions (cuDNN)'
@@ -409,33 +765,47 @@ def _category(name: str) -> str:
     return 'elementwise / copies / other'
 
 
-def profile_main_path(steps: int = 5) -> dict:
+def profile_main_path(resnet50: bool = False, steps: int = 5) -> dict:
     """torch.profiler over ``steps`` steady non-firing steps and one firing
-    step of the main path: device time by kernel category and the device's
-    busy share (kernel time / wall time of the profiled window)."""
+    step of the ResNet-32 path (or, with ``resnet50``, the ResNet-50
+    ``newton`` path): device time by kernel category and the device's busy
+    share (kernel time / wall time of the profiled window)."""
+    import functools
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from distributed_kfac_pytorch_tpu_torch.models import cifar_resnet
+    from distributed_kfac_pytorch_tpu_torch.models import cifar_resnet, \
+        imagenet_resnet
     from distributed_kfac_pytorch_tpu_torch.training import datasets, \
-        engine, optimizers
+        engine, optimizers, utils
     dev = torch.device('cuda')
-    (x, y), _ = datasets.get_cifar(synthetic_size=128)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
-        model = cifar_resnet.get_model('resnet32').to(dev)
-    cfg = optimizers.OptimConfig(kfac_inv_update_freq=10,
-                                 kfac_cov_update_freq=1)
+        if resnet50:
+            (x, y), _ = datasets.get_imagenet(synthetic_size=R50_BATCH)
+            model = imagenet_resnet.get_model('resnet50').to(dev)
+            cfg = optimizers.OptimConfig(
+                base_lr=R50_LR, weight_decay=5e-5, damping=0.001,
+                inverse_method='newton', kfac_inv_update_freq=10,
+                kfac_cov_update_freq=1)
+            criterion = functools.partial(utils.label_smooth_loss,
+                                          smoothing=0.1)
+        else:
+            (x, y), _ = datasets.get_cifar(synthetic_size=128)
+            model = cifar_resnet.get_model('resnet32').to(dev)
+            cfg = optimizers.OptimConfig(kfac_inv_update_freq=10,
+                                         kfac_cov_update_freq=1)
+            criterion = torch.nn.functional.cross_entropy
     optimizer, _, kfac, sched = optimizers.get_optimizer(model, cfg, dev)
     state = engine.TrainState(model=model, optimizer=optimizer, kfac=kfac,
                               kfac_state=kfac.init_state())
-    hyper = {'lr': 0.1, **sched.params()}
+    hyper = {'lr': cfg.base_lr, **sched.params()}
     xb = torch.as_tensor(x, device=dev)
     yb = torch.as_tensor(y, device=dev)
 
     def step():
         flags = engine.cadence_flags(state.step, 1, 10)
-        engine.train_step(state, xb, yb, hyper, flags)
+        engine.train_step(state, xb, yb, hyper, flags, criterion)
         state.step += 1
 
     while state.step < 11:            # warm-up, incl. the firings at 0, 10
@@ -508,9 +878,17 @@ def main(argv=None) -> int:
     log(f'  built {sorted(p.name for p in paths.values())} in '
         f'{time.perf_counter() - t0:.1f} s')
 
-    log('== kernels vs plain versions')
-    summary, details = check_kernels(args.quick)
-    report = {'card': card, 'kernel_cases': details}
+    log('== kernels K1-K3 vs plain versions: ResNet-32 shapes')
+    summary32, details = check_kernels(args.quick)
+    log('== kernels K1-K3 vs plain versions: ResNet-50 shapes')
+    summary50, details50 = check_kernels(args.quick, resnet50_shapes())
+    log('== kernel K4 (Newton-Schulz inverse) vs plain version')
+    summary_ns, details_ns = check_ns_inverse(args.quick)
+    report = {'card': card,
+              'kernel_cases': details + details50 + details_ns,
+              'per_step_resnet32': summary32,
+              'per_step_resnet50': summary50,
+              'per_firing_resnet50_ns_inverse': summary_ns}
     if not args.quick:
         log('== main path: ResNet-32, batch 128, '
             f'{STEPS} K-FAC steps on one batch')
@@ -521,14 +899,25 @@ def main(argv=None) -> int:
         report['main_path'] = main_summary
         report['step_ms'] = res['step_ms']
         report['fired'] = res['fired']
+        log(f'== main path: ResNet-50, 224 px, batch {R50_BATCH}, '
+            f'inverse_method newton, {R50_STEPS} steps on one batch')
+        r50, res50 = run_resnet50_newton(card)
+        report['resnet50_newton'] = r50
+        log('== ResNet-50, inverse_method auto, 3 steps')
+        report['resnet50_auto'] = run_resnet50_auto(card)
+        launches = {name: main_summary['launches'][name]
+                    + r50['launches'][name]
+                    + report['resnet50_auto']['launches'][name]
+                    for name in kernels.LAUNCHES}
         line = []
-        for name, agg in summary.items():
+        for name in kernels.LAUNCHES:
+            agg = summary_ns if name == 'ns_inverse' else summary50[name]
             t_bytes, t_ops = agg['t_bytes'], agg['t_ops']
             line.append({
                 'name': name, 'route': 'cuda',
                 'source': kernels.KERNEL_INFO[name]['source'],
                 'replaces': kernels.KERNEL_INFO[name]['replaces'],
-                'launches': main_summary['launches'][name],
+                'launches': launches[name],
                 'max_abs_err': agg['max_abs_err'],
                 'ms': agg['ms'], 'plain_ms': agg['plain_ms'],
                 'bound_ms': max(t_bytes, t_ops),
@@ -536,8 +925,11 @@ def main(argv=None) -> int:
                 'library_ms': agg['library_ms']})
         report['kernels'] = line
         if args.profile:
-            log('== profile: device time by kernel category')
+            log('== profile: device time by kernel category, ResNet-32')
             report['profile'] = profile_main_path()
+            log('== profile: device time by kernel category, ResNet-50 '
+                'newton')
+            report['profile_resnet50'] = profile_main_path(resnet50=True)
     out_dir = ROOT / 'chiprun_out'
     out_dir.mkdir(exist_ok=True)
     (out_dir / 'chip_smoke.json').write_text(json.dumps(report, indent=1))

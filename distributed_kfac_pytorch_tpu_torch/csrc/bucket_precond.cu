@@ -13,26 +13,17 @@
 // operands), bytes at the small ones. The TPU kernel keeps one slice's
 // whole chain in VMEM; a 576 x 576 fp32 QA is 1.3 MB, far beyond a
 // block's shared memory, so here the chain is four launches of one
-// batched 64 x 64-tile FMA GEMM (grid z = slice), with the eigenvalue
+// batched 64 x 64-tile FMA GEMM (gemm.cuh, shared with K4; grid z =
+// slice), with the eigenvalue
 // divide fused into the second product's epilogue and the v.g partial
 // into the last one's; a final one-thread-per-slice launch sums the
 // per-tile partials in a fixed order (deterministic, no atomics).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gemm.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;  // output tile edge; 4 x 4 per thread
-constexpr int kK = 16;     // depth staged in shared memory per step
-
 enum Epilogue { kStore = 0, kDivide = 1, kStoreVg = 2 };
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 struct GemmArgs {
   // C[s] (M x N) = op(A[s]) (M x K) @ op(B[s]) (K x N), row-major slices.
@@ -67,58 +58,9 @@ __global__ void __launch_bounds__(kThreads) bgemm_kernel(GemmArgs p) {
   const int t = threadIdx.x;
   const int tx = t % 16;
   const int ty = t / 16;
-  const float* A = p.a + s * p.a_stride;
-  const float* B = p.b + s * p.b_stride;
-
   float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < p.K; k0 += kK) {
-#pragma unroll
-    for (int q = 0; q < (kK * kTile) / kThreads; ++q) {
-      const int e = t + q * kThreads;
-      // Consecutive threads read consecutive addresses of each layout.
-      int m, k;
-      if (TA) { m = e % kTile; k = e / kTile; }
-      else    { k = e % kK;    m = e / kK; }
-      const int gm = m0 + m, gk = k0 + k;
-      float v = 0.f;
-      if (gm < p.M && gk < p.K)
-        v = TA ? A[static_cast<int64_t>(gk) * p.lda + gm]
-               : A[static_cast<int64_t>(gm) * p.lda + gk];
-      sa[k][m] = p.mult_bf16 ? round_bf16(v) : v;
-    }
-#pragma unroll
-    for (int q = 0; q < (kK * kTile) / kThreads; ++q) {
-      const int e = t + q * kThreads;
-      int n, k;
-      if (TB) { k = e % kK;    n = e / kK; }
-      else    { n = e % kTile; k = e / kTile; }
-      const int gn = n0 + n, gk = k0 + k;
-      float v = 0.f;
-      if (gn < p.N && gk < p.K)
-        v = TB ? B[static_cast<int64_t>(gn) * p.ldb + gk]
-               : B[static_cast<int64_t>(gk) * p.ldb + gn];
-      sb[k][n] = p.mult_bf16 ? round_bf16(v) : v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sa[k][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sb[k][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+  tile_mma<TA, TB>(p.a + s * p.a_stride, p.lda, p.b + s * p.b_stride, p.ldb,
+                   p.M, p.N, p.K, m0, n0, p.mult_bf16, sa, sb, acc);
 
   float* C = p.c + s * p.c_stride;
   float part = 0.f;
@@ -160,12 +102,6 @@ __global__ void vg_reduce_kernel(const float* part, int tiles, int S,
   float acc = 0.f;
   for (int i = 0; i < tiles; ++i) acc += part[s * tiles + i];
   vg[s] = acc;
-}
-
-// Output tiles of one slice's (M, N) product: the grid's x * y, and the
-// number of v.g partials per slice.
-dim3 tile_grid(int M, int N, int S) {
-  return dim3((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, S);
 }
 
 template <bool TA, bool TB, int EPI>

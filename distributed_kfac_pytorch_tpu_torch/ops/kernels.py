@@ -2,7 +2,7 @@
 plain PyTorch versions and launch counters.
 
 The counterpart of ``distributed_kfac_pytorch_tpu/ops/pallas_kernels.py``.
-Three kernels carry the single-device ResNet-32 step:
+Four kernels carry the single-device K-FAC step:
 
   ``factor_ema``     K1, ``csrc/factor_ema.cu`` -- factor contraction +
                      bias assembly + EMA blend (replaces
@@ -16,11 +16,16 @@ Three kernels carry the single-device ResNet-32 step:
                      baked preconditioning with the KL-clip ``v.g``
                      partial (replaces
                      ``pallas_kernels._bucket_precond_kernel`` via
-                     ``fused_bucket_precondition``).
+                     ``fused_bucket_precondition``);
+  ``ns_inverse``     K4, ``csrc/ns_inverse.cu`` -- batched damped SPD
+                     inverse by Newton--Schulz (replaces
+                     ``pallas_kernels._ns_inverse_kernel`` via
+                     ``batched_inverse`` / ``damped_inverse_stack``).
 
-Each wrapper runs its kernel's plain version for tensors on the CPU and
-launches the CUDA kernel for tensors on the card; any other device, dtype
-or layout raises. There is no fallback: a build or launch failure raises.
+K3 and K4 share the tile GEMM of ``csrc/gemm.cuh``. Each wrapper runs
+its kernel's plain version for tensors on the CPU and launches the CUDA
+kernel for tensors on the card; any other device, dtype or layout
+raises. There is no fallback: a build or launch failure raises.
 Each launch adds one to ``LAUNCHES[name]`` (launches only: the plain
 versions do not count).
 
@@ -41,11 +46,14 @@ from pathlib import Path
 
 import torch
 
+from distributed_kfac_pytorch_tpu_torch.ops import linalg
+
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 SOURCES = {'factor_ema': 'factor_ema.cu', 'patch_cov': 'patch_cov.cu',
-           'bucket_precond': 'bucket_precond.cu'}
-HEADERS = ('gram.cuh',)
+           'bucket_precond': 'bucket_precond.cu',
+           'ns_inverse': 'ns_inverse.cu'}
+HEADERS = ('gram.cuh', 'gemm.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 
@@ -260,6 +268,9 @@ _SIGNATURES = {
                                       _I, _P, _P, _P, _P, _P, _P],
         'kfac_bucket_precond_baked': [_P, _P, _P, _I, _I, _I, _I, _P, _P,
                                       _P, _P, _P]},
+    'ns_inverse': {
+        'kfac_ns_inverse': [_P, _F, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P,
+                            _P]},
 }
 
 
@@ -569,6 +580,79 @@ def bucket_precond(gstack: torch.Tensor, entry: dict, damping, *,
     return v, vg
 
 
+# ---------------------------------------------------------------------------
+# K4: batched damped SPD inverse by Newton--Schulz. Replaces
+# pallas_kernels._ns_inverse_kernel (driven by _pallas_batched_ns_inverse /
+# batched_inverse / damped_inverse_stack). Bound on the H100: operations --
+# 4 n^3 fp32 FLOPs per matrix and iteration, 1.8 TFLOP per iteration over
+# the ResNet-50 factor set, ~27 ms at the fp32 peak. The TPU kernel keeps M
+# and X in VMEM (n <= 512); here every n runs as two launches per
+# iteration of the batched tile GEMM of gemm.cuh with fused epilogues (the
+# residual max; 2X - XY into a second buffer), per-matrix active flags in
+# device memory, and one host read of the active count every 8 iterations.
+# It follows the unpadded iteration: no identity padding, no size cap.
+# ---------------------------------------------------------------------------
+
+def batched_inverse_plain(mats: torch.Tensor, damping, iters: int = 100,
+                          tol: float = 1e-5
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K4: :func:`linalg.newton_schulz_inverse` of each
+    matrix of a ``(B, n, n)`` stack. Returns ``(inverses, iterations run
+    per matrix)``."""
+    return linalg.newton_schulz_inverse(mats, damping, iters=iters, tol=tol,
+                                        with_iters=True)
+
+
+def batched_inverse(mats: torch.Tensor, damping, iters: int = 100,
+                    tol: float = 1e-5, *, with_iters: bool = False):
+    """Damped inverses ``(F + damping I)^-1`` of a ``(B, n, n)`` fp32 SPD
+    stack by Newton--Schulz (K4), each matrix stopping on its own once
+    ``max|M X - I| <= tol`` or after ``iters`` iterations. With
+    ``with_iters`` also returns the ``(B,)`` int32 iterations run per
+    matrix."""
+    damping = 0.0 if damping is None else float(damping)
+    if not _dispatch_device(mats, 'batched_inverse'):
+        out, k = batched_inverse_plain(mats, damping, iters, tol)
+        return (out, k) if with_iters else out
+    _require(mats, 'batched_inverse mats', 3)
+    b, n, n2 = mats.shape
+    if n != n2 or not mats.is_contiguous() or b < 1 or n < 1:
+        raise ValueError(f'batched_inverse: expected a contiguous (B, n, n) '
+                         f'stack, got shape {tuple(mats.shape)}')
+    if b > 65535:
+        raise ValueError(f'batched_inverse: at most 65535 matrices per '
+                         f'launch (grid z), got {b}')
+    iters = int(iters)
+    if iters < 0:
+        raise ValueError(f'batched_inverse: iters must be >= 0, got {iters}')
+    dev = mats.device
+    out = torch.empty_like(mats)
+    m_ws, y_ws, x_ws = (torch.empty_like(mats) for _ in range(3))
+    fstate = torch.empty((b * (1 + iters),), dtype=torch.float32,
+                         device=dev)
+    istate = torch.empty((3 * b + 1,), dtype=torch.int32, device=dev)
+    err = _lib('ns_inverse').kfac_ns_inverse(
+        mats.data_ptr(), damping, b, n, iters, float(tol), m_ws.data_ptr(),
+        y_ws.data_ptr(), x_ws.data_ptr(), fstate.data_ptr(),
+        istate.data_ptr(), out.data_ptr(), _stream(mats))
+    _check(err, 'batched_inverse')
+    LAUNCHES['ns_inverse'] += 1
+    return (out, istate[b:2 * b]) if with_iters else out
+
+
+def damped_inverse_stack(stack: torch.Tensor, damping, method: str,
+                         iters: int = 100) -> torch.Tensor:
+    """Damped inverses of a same-size factor stack: ``'newton'`` runs K4
+    (:func:`batched_inverse`), ``'cholesky'`` the batched Cholesky
+    inverse (:func:`linalg.get_inverse`)."""
+    if method == 'newton':
+        return batched_inverse(stack, damping, iters=iters)
+    if method == 'cholesky':
+        return linalg.get_inverse(stack, damping)
+    raise ValueError(f"damped inverse method must be 'newton' or "
+                     f"'cholesky', got {method!r}")
+
+
 #: Per kernel: its source, the TPU kernel it replaces, and what bounds it.
 KERNEL_INFO = {
     'factor_ema': {
@@ -584,9 +668,14 @@ KERNEL_INFO = {
             'distributed_kfac_pytorch_tpu_torch/csrc/bucket_precond.cu',
         'replaces': 'distributed_kfac_pytorch_tpu/ops/pallas_kernels.py:845',
     },
+    'ns_inverse': {
+        'source': 'distributed_kfac_pytorch_tpu_torch/csrc/ns_inverse.cu',
+        'replaces': 'distributed_kfac_pytorch_tpu/ops/pallas_kernels.py:122',
+    },
 }
 
 __all__ = ['LAUNCHES', 'KERNEL_INFO', 'reset_launches', 'build',
            'factor_ema', 'factor_ema_plain', 'patch_cov', 'patch_cov_plain',
-           'bucket_precond', 'bucket_precond_plain', 'mult_bf16',
+           'bucket_precond', 'bucket_precond_plain', 'batched_inverse',
+           'batched_inverse_plain', 'damped_inverse_stack', 'mult_bf16',
            'extract_conv2d_patches', 'conv_out_geometry']

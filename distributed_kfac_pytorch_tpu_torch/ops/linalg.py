@@ -7,10 +7,9 @@ polish is matmul-only; with the port's entry points TF32 is off, so
 ``torch.matmul`` on fp32 runs in full fp32 -- the counterpart of the JAX
 package's ``Precision.HIGHEST``.
 
-Not ported in this slice: the Jacobi eigh (``jacobi_eigh``, the Pallas
-Jacobi kernel), the Cholesky and Newton--Schulz inverses, the randomized
-low-rank path and the truncated / diagonal-A / reduced-precision
-precondition branches.
+Not ported yet: the Jacobi eigh (``jacobi_eigh``, the Pallas Jacobi
+kernel), the randomized low-rank path and the truncated / diagonal-A /
+reduced-precision precondition branches.
 """
 
 from __future__ import annotations
@@ -109,6 +108,55 @@ def batched_eigh(stack: torch.Tensor, method: str = 'xla',
         raise ValueError("eigh method must be 'auto', 'xla' or 'warm', "
                          f'got {method!r}')
     return get_eigendecomp(stack, clip=clip)
+
+
+def get_inverse(x: torch.Tensor, damping=None) -> torch.Tensor:
+    """Damped SPD inverse ``(x + damping I)^-1`` in fp32 by Cholesky: a
+    triangular solve of the factor against ``I``, then ``inv_l^T @
+    inv_l``. A matrix that is not positive definite in fp32 gets a NaN
+    inverse, as the JAX package's Cholesky gives (no error, no host
+    sync)."""
+    x = x.float()
+    eye = torch.eye(x.shape[-1], dtype=torch.float32, device=x.device)
+    if damping is not None:
+        x = x + damping * eye
+    chol, info = torch.linalg.cholesky_ex(x)
+    chol = torch.where((info == 0)[..., None, None], chol, float('nan'))
+    inv_l = torch.linalg.solve_triangular(chol, eye.expand_as(chol),
+                                          upper=False)
+    return inv_l.mT @ inv_l
+
+
+def newton_schulz_inverse(x: torch.Tensor, damping=None, iters: int = 100,
+                          tol: float = 1e-5, *, with_iters: bool = False):
+    """Damped SPD inverse by Newton--Schulz iteration, per matrix of any
+    leading batch dims.
+
+    ``M = x + damping I``, ``X_0 = I / max(max row abs sum of M, 1e-30)``;
+    while ``k < iters`` and ``res > tol``: ``Y = M X``, ``res = max|Y -
+    I|`` (the residual of the iterate before the update), ``X <- 2X -
+    XY``. Each matrix stops on its own, as a vmapped ``while_loop`` does;
+    a NaN residual stops it. With ``with_iters`` also returns the int32
+    iterations run per matrix.
+    """
+    x = x.float()
+    n = x.shape[-1]
+    eye = torch.eye(n, dtype=torch.float32, device=x.device)
+    m = x if damping is None else x + damping * eye
+    bound = torch.clamp(m.abs().sum(-1).amax(-1), min=1e-30)
+    xk = eye / bound[..., None, None]
+    res = torch.full(bound.shape, float('inf'), device=x.device)
+    k_run = torch.zeros(bound.shape, dtype=torch.int32, device=x.device)
+    for _ in range(iters):
+        active = res > tol
+        if not bool(active.any()):
+            break
+        y = m @ xk
+        r = (y - eye).abs().amax((-2, -1))
+        xk = torch.where(active[..., None, None], 2.0 * xk - xk @ y, xk)
+        res = torch.where(active, r, res)
+        k_run += active.to(torch.int32)
+    return (xk, k_run) if with_iters else xk
 
 
 def _require_square(q: torch.Tensor) -> None:

@@ -13,15 +13,23 @@ over plain dicts of tensors, so a test can compare the state key by key.
 pass through unchanged. Each step returns new factor / inverse tensors
 rather than updating the old ones in place.
 
-On the main path three hand-written CUDA kernels do the per-step work
-(``ops.kernels``): the factor contraction + EMA (linear A/G and conv G),
-the conv-A patch covariance, and the bucketed preconditioning with the
-KL-clip ``v.g`` partial. ``fused_factor_contraction`` and
-``fused_precondition`` default to True here (the JAX package defaults
-them off: there they are unproven TPU study kernels); with a knob off
-that stage runs the stock torch path. Conv A always goes through the
-patch-covariance kernel. The KL-clip scale stays a device tensor: no host
-sync per layer.
+On the main path hand-written CUDA kernels do the work (``ops.kernels``):
+the factor contraction + EMA (linear A/G and conv G), the conv-A patch
+covariance, the bucketed preconditioning with the KL-clip ``v.g``
+partial (eigen and baked forms), and, under ``'newton'``, the batched
+Newton--Schulz damped inverse of each size bucket at an inverse firing.
+``fused_factor_contraction`` and ``fused_precondition`` default to True
+here (the JAX package defaults them off: there they are unproven TPU
+study kernels); with a knob off that stage runs the stock torch path.
+Conv A always goes through the patch-covariance kernel. The KL-clip scale
+stays a device tensor: no host sync per layer.
+
+Inverses follow the JAX per-dim dispatch (:meth:`KFAC.method_for_dim`):
+eigen slots (``Q``, ``d``, damping applied at precondition time) or
+baked damped inverses (``A_inv``/``G_inv``, damping applied at firing
+time, by damped Cholesky or Newton--Schulz). A *mixed* layer (one side
+of each kind) also bakes its eigen side at the firing's damping, and is
+preconditioned through its baked inverses.
 """
 
 from __future__ import annotations
@@ -45,13 +53,10 @@ from distributed_kfac_pytorch_tpu_torch.ops import kernels, linalg
 #: value raises ``NotImplementedError`` naming the knob.
 NOT_PORTED = {
     'use_eigen_decomp': None,
-    'auto_eigen_max_dim': 640,
-    'auto_large_method': 'cholesky',
     'factor_dtype': None,
     'inv_dtype': torch.float32,
     'inv_lowrank_rank': 0,
     'inv_lowrank_dim_threshold': 2048,
-    'newton_iters': 100,
     'factor_batch_fraction': 1.0,
     'capture_dtype': 'auto',
     'precond_compute_dtype': None,
@@ -84,11 +89,6 @@ def _check_not_ported(knobs: dict) -> None:
                 f'{key}={NOT_PORTED[key]!r} is)')
 
 
-#: Largest factor dim the 'auto' dispatch keeps on the eigen path; above
-#: it the JAX package bakes damped Cholesky inverses, not ported yet.
-AUTO_EIGEN_MAX_DIM = 640
-
-
 class KFAC:
     """K-FAC gradient preconditioner over a torch model (single device).
 
@@ -98,9 +98,18 @@ class KFAC:
     Args:
       model: the ``nn.Module`` to precondition; its ``nn.Linear`` and
         ``nn.Conv2d`` (groups=1) layers are registered at construction.
-      inverse_method: ``'auto'`` (default; the eigen path for factor
-        dims <= 640 -- every CIFAR ResNet factor -- and, not ported yet,
-        damped Cholesky inverses above) or ``'eigen'`` (every factor).
+      inverse_method: ``'auto'`` (default: the eigen path for factor
+        dims <= ``auto_eigen_max_dim`` -- every CIFAR ResNet factor --
+        and ``auto_large_method`` damped inverses above), ``'eigen'``
+        (every factor), ``'cholesky'`` or ``'newton'`` (every factor
+        baked as a damped inverse; ``'newton'`` runs the Newton--Schulz
+        kernel).
+      auto_eigen_max_dim: largest factor dim ``'auto'`` keeps on the
+        eigen path (default 640).
+      auto_large_method: ``'cholesky'`` (default) or ``'newton'``: the
+        damped inverse ``'auto'`` uses above ``auto_eigen_max_dim``.
+      newton_iters: iteration cap of ``'newton'`` (the loop stops early
+        once ``max|M X - I| <= 1e-5``).
       eigh_method: ``'auto'`` (warm-start polish seeded from the previous
         basis) or ``'xla'`` (``torch.linalg.eigh`` every firing).
       factor_compute_dtype: ``None``/``torch.float32`` (fp32
@@ -121,8 +130,11 @@ class KFAC:
                  kl_clip: float | None = 0.001,
                  lr: float = 0.1,
                  inverse_method: str = 'auto',
+                 auto_eigen_max_dim: int = 640,
+                 auto_large_method: str = 'cholesky',
                  eigh_method: str = 'auto',
                  eigh_polish_iters: int = 8,
+                 newton_iters: int = 100,
                  factor_compute_dtype: Any = None,
                  skip_layers: str | Sequence[str] | None = None,
                  fused_factor_contraction: bool = True,
@@ -139,13 +151,12 @@ class KFAC:
                 'inv_update_freq is not a multiple of factor_update_freq: '
                 'some inverse updates will reuse stale factors '
                 f'({inv_update_freq=} {factor_update_freq=})')
-        if inverse_method in ('cholesky', 'newton'):
-            raise NotImplementedError(
-                f'inverse_method={inverse_method!r} is not ported yet (the '
-                "port has the eigen path: 'auto' and 'eigen')")
-        if inverse_method not in ('auto', 'eigen'):
-            raise ValueError("inverse_method must be 'auto' or 'eigen', got "
-                             f'{inverse_method!r}')
+        if inverse_method not in ('auto', 'eigen', 'cholesky', 'newton'):
+            raise ValueError("inverse_method must be 'auto', 'eigen', "
+                             f"'cholesky' or 'newton', got {inverse_method!r}")
+        if auto_large_method not in ('cholesky', 'newton'):
+            raise ValueError("auto_large_method must be 'cholesky' or "
+                             f"'newton', got {auto_large_method!r}")
         if eigh_method == 'jacobi':
             raise NotImplementedError(
                 "eigh_method='jacobi' (the TPU Jacobi eigh kernel) is not "
@@ -164,8 +175,11 @@ class KFAC:
         self.kl_clip = kl_clip
         self.lr = lr
         self.inverse_method = inverse_method
+        self.auto_eigen_max_dim = auto_eigen_max_dim
+        self.auto_large_method = auto_large_method
         self.eigh_method = eigh_method
         self.eigh_polish_iters = eigh_polish_iters
+        self.newton_iters = newton_iters
         self.factor_compute_dtype = factor_compute_dtype
         self.fused_factor_contraction = bool(fused_factor_contraction)
         self.fused_precondition = bool(fused_precondition)
@@ -174,14 +188,19 @@ class KFAC:
     # Per-dim inverse dispatch and state
     # ------------------------------------------------------------------
 
-    def _check_dim(self, name: str, dim: int) -> None:
-        """The 'auto' dispatch needs damped Cholesky inverses above
-        ``AUTO_EIGEN_MAX_DIM``; the port has only the eigen path yet."""
-        if self.inverse_method == 'auto' and dim > AUTO_EIGEN_MAX_DIM:
-            raise NotImplementedError(
-                f'layer {name}: factor dim {dim} > {AUTO_EIGEN_MAX_DIM} '
-                "needs the damped Cholesky inverse of inverse_method='auto',"
-                " not ported yet (inverse_method='eigen' decomposes it)")
+    def method_for_dim(self, dim: int) -> str:
+        """Inverse method of a factor of this dimension: ``'auto'``
+        dispatches per dim (eigen up to ``auto_eigen_max_dim``,
+        ``auto_large_method`` above); the global modes return
+        themselves."""
+        if self.inverse_method == 'auto':
+            return ('eigen' if dim <= self.auto_eigen_max_dim
+                    else self.auto_large_method)
+        return self.inverse_method
+
+    def _side_methods(self, a_dim: int, g_dim: int) -> tuple[str, str]:
+        """(A-side, G-side) inverse methods of one layer."""
+        return self.method_for_dim(a_dim), self.method_for_dim(g_dim)
 
     def _layer_params(self, name: str, tensors: dict) -> dict:
         """``{'weight', 'bias'}`` entries of one layer from a dict keyed by
@@ -192,23 +211,31 @@ class KFAC:
         return out
 
     def init_state(self) -> dict:
-        """Fresh state: identity factors, and eigen slots seeded with their
+        """Fresh state: identity factors; eigen slots seeded with their
         exact eigendecomposition (``Q = I, d = 1``) so the warm polish has
-        a basis from step 0."""
+        a basis from step 0; baked slots (non-eigen sides, and the eigen
+        side of a mixed layer) zero, computed at step 0 before first
+        use."""
         params = dict(self.model.named_parameters())
         dev = self.device
         factors, inverses = {}, {}
         for name, spec in self.specs.items():
             dims = dict(zip('AG', L.factor_shapes(
                 spec, self._layer_params(name, params))))
-            factors[name], inverses[name] = {}, {}
+            methods = dict(zip('AG', self._side_methods(dims['A'],
+                                                        dims['G'])))
+            mixed = eigen_family(methods['A']) != eigen_family(methods['G'])
+            factors[name], entry = {}, {}
             for side, dim in dims.items():
-                self._check_dim(name, dim)
                 eye = torch.eye(dim, dtype=torch.float32, device=dev)
                 factors[name][side] = eye
-                inverses[name][f'Q{side}'] = eye.clone()
-                inverses[name][f'd{side}'] = torch.ones(
-                    dim, dtype=torch.float32, device=dev)
+                if eigen_family(methods[side]):
+                    entry[f'Q{side}'] = eye.clone()
+                    entry[f'd{side}'] = torch.ones(
+                        dim, dtype=torch.float32, device=dev)
+                if mixed or not eigen_family(methods[side]):
+                    entry[f'{side}_inv'] = torch.zeros_like(eye)
+            inverses[name] = entry
         return {'step': 0, 'factors': factors, 'inverses': inverses,
                 'inv_chunk_phase': 0}
 
@@ -291,26 +318,64 @@ class KFAC:
                 out[n] = (qs[i], ds[i])
         return out
 
-    def update_inverses(self, state: dict, *, warm: bool = True) -> dict:
-        """Recompute every eigendecomposition from the factors.
+    def _bucketed_inverse(self, mats: dict, damping) -> dict:
+        """Damped-inverse a dict of SPD matrices, one batched call per
+        size (:func:`kernels.damped_inverse_stack` with the size's
+        method: the Newton--Schulz kernel or the Cholesky inverse)."""
+        out = {}
+        for names, stack in _size_buckets(mats):
+            invs = kernels.damped_inverse_stack(
+                stack, damping, self.method_for_dim(stack.shape[-1]),
+                iters=self.newton_iters)
+            for i, n in enumerate(names):
+                out[n] = invs[i]
+        return out
 
-        ``warm`` seeds the polish from the bases stored in
-        ``state['inverses']``; ``warm=False`` (a rebuild from checkpointed
-        factors) runs the library eigh instead.
+    def update_inverses(self, state: dict, damping=None, *,
+                        warm: bool = True) -> dict:
+        """Recompute every inverse slot from the factors (a monolithic
+        firing) at ``damping`` (default: the constructor's).
+
+        Eigen sides are decomposed per size bucket; ``warm`` seeds the
+        polish from the bases stored in ``state['inverses']``, and
+        ``warm=False`` (a rebuild from checkpointed factors) runs the
+        library eigh instead. The other sides get damped inverses per
+        size bucket. A mixed layer's eigen side is also baked into
+        ``{side}_inv`` at this damping, so both of its sides carry the
+        firing-time damping.
         """
-        mats, prev = {}, {}
+        damping = self.damping if damping is None else damping
+        eigen_mats, inv_mats, prev, sides = {}, {}, {}, {}
         for name in self.specs:
-            for side in ('A', 'G'):
-                mats[f'{name}/{side}'] = state['factors'][name][side]
-                prev[f'{name}/{side}'] = state['inverses'][name][f'Q{side}']
-        eigs = self._bucketed_eigh(mats, prev if warm else None)
+            f = state['factors'][name]
+            sides[name] = self._side_methods(f['A'].shape[-1],
+                                             f['G'].shape[-1])
+            for side, method in zip('AG', sides[name]):
+                key = f'{name}/{side}'
+                if eigen_family(method):
+                    eigen_mats[key] = f[side]
+                    prev[key] = state['inverses'][name][f'Q{side}']
+                else:
+                    inv_mats[key] = f[side]
+        eigs = self._bucketed_eigh(eigen_mats, prev if warm else None)
+        invs = self._bucketed_inverse(inv_mats, damping)
         new_inv = {}
         for name in self.specs:
-            new_inv[name] = {}
-            for side in ('A', 'G'):
-                q, d = eigs[f'{name}/{side}']
-                new_inv[name][f'Q{side}'] = q
-                new_inv[name][f'd{side}'] = d
+            mixed = eigen_family(sides[name][0]) != eigen_family(
+                sides[name][1])
+            entry = {}
+            for side, method in zip('AG', sides[name]):
+                key = f'{name}/{side}'
+                if eigen_family(method):
+                    q, d = eigs[key]
+                    entry[f'Q{side}'] = q
+                    entry[f'd{side}'] = d
+                    if mixed:
+                        entry[f'{side}_inv'] = linalg.eigen_side_inverse(
+                            q, d, damping)
+                else:
+                    entry[f'{side}_inv'] = invs[key]
+            new_inv[name] = entry
         return new_inv
 
     # ------------------------------------------------------------------
@@ -321,6 +386,9 @@ class KFAC:
                                damping) -> tuple[dict, dict]:
         """Precondition same-shape layers as one stack each.
 
+        A shape group is wholly eigen (``QA/dA/QG/dG``) or wholly baked
+        (``A_inv/G_inv``; mixed layers precondition through their baked
+        inverses): the per-dim method depends on the factor dims alone.
         Returns ``(mats, vg)``: the preconditioned matrix per layer and,
         for the stacks the kernel ran, its per-layer ``sum(v * g)``.
         """
@@ -330,8 +398,11 @@ class KFAC:
         mats, vg = {}, {}
         for members in groups.values():
             gstack = torch.stack([grad_mats[n].float() for n in members])
+            e0 = inverses[members[0]]
+            keys = (('A_inv', 'G_inv') if 'A_inv' in e0 or 'G_inv' in e0
+                    else ('QA', 'dA', 'QG', 'dG'))
             entry = {k: torch.stack([inverses[n][k] for n in members])
-                     for k in ('QA', 'dA', 'QG', 'dG')}
+                     for k in keys}
             if self.fused_precondition:
                 vs, vgs = kernels.bucket_precond(gstack, entry, damping)
                 for i, n in enumerate(members):
@@ -403,7 +474,7 @@ class KFAC:
         factors = (self.update_factors(state, captures, factor_decay)
                    if factor_update else state['factors'])
         state_f = {**state, 'factors': factors}
-        inverses = (self.update_inverses(state_f) if inv_update
+        inverses = (self.update_inverses(state_f, damping) if inv_update
                     else state['inverses'])
         state_i = {**state_f, 'inverses': inverses, 'inv_chunk_phase': 0}
         precond = self.precondition(state_i, grads, damping, lr)
@@ -427,8 +498,9 @@ class KFAC:
                         compute_inverses: bool = True) -> dict:
         """Rebuild the full state from :meth:`state_dict` output: layer
         sets must match; stored inverses are used when their layout
-        matches, else they are recomputed from the factors with the
-        library eigh."""
+        (slot keys and shapes) matches, else they are recomputed from the
+        factors (library eigh for eigen sides, damped inverses at the
+        constructor's damping for the others)."""
         state = self.init_state()
         if set(sd['factors']) != set(state['factors']):
             raise ValueError(
@@ -452,6 +524,14 @@ class KFAC:
         elif compute_inverses:
             state['inverses'] = self.update_inverses(state, warm=False)
         return state
+
+
+def eigen_family(method: str) -> bool:
+    """True for methods whose inverse slots are an eigenpair ``(Q, d)``
+    read through the eigen precondition path (in the port, ``'eigen'``;
+    the JAX package's low-rank method is not ported). A layer is *mixed*
+    when exactly one side is eigen-family."""
+    return method == 'eigen'
 
 
 def _size_buckets(mats: dict):

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
 
 import torch
 
@@ -79,23 +78,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _to_args(args_or_config) -> argparse.Namespace:
-    parser = build_parser()
-    if args_or_config is None:
-        return parser.parse_args([])
-    if isinstance(args_or_config, argparse.Namespace):
-        return args_or_config
-    if isinstance(args_or_config, dict):
-        args = parser.parse_args([])
-        for key, value in args_or_config.items():
-            key = key.replace('-', '_')
-            if not hasattr(args, key):
-                raise ValueError(f'unknown train option {key!r}')
-            setattr(args, key, value)
-        return args
-    return parser.parse_args(list(args_or_config))
-
-
 def train(args_or_config=None, device='cuda') -> dict:
     """Train and return a summary dict.
 
@@ -104,15 +86,13 @@ def train(args_or_config=None, device='cuda') -> dict:
     ``device`` (default ``'cuda'``) overrides ``--device``; it raises
     without a CUDA device unless ``'cpu'`` is asked for.
 
-    Returns ``{'device', 'steps', 'losses', 'fired', 'step_ms', 'train',
-    'val', 'seconds'}``: per-step losses and fired stages ('inverse',
-    'factor' or None), per-step wall ms when ``time_steps``, and the last
-    epoch's train / val metrics.
+    Returns what :func:`engine.fit` returns: per-step losses and fired
+    stages, per-step wall ms when ``time_steps``, the last epoch's train /
+    val metrics and the final ``TrainState``.
     """
-    args = _to_args(args_or_config)
+    args = engine.parse_args(build_parser(), args_or_config)
     dev = resolve_device(device if device is not None else args.device)
     set_fp32_precision()
-    verbose = not args.quiet
     (train_x, train_y), (test_x, test_y) = datasets.get_cifar(
         args.data_dir, synthetic_size=args.synthetic_size)
     with torch.random.fork_rng(devices=[]):
@@ -140,41 +120,13 @@ def train(args_or_config=None, device='cuda') -> dict:
     state = engine.TrainState(
         model=model, optimizer=optimizer, kfac=kfac,
         kfac_state=kfac.init_state() if kfac is not None else None)
-    losses, fired, step_ms = [], [], []
-    train_m = val_m = {}
-    t_start = time.perf_counter()
-    for epoch in range(args.epochs):
-        if args.max_steps is not None and state.step >= args.max_steps:
-            break
-        state.epoch = epoch
-        lr = lr_schedule(epoch)
-        optimizers.set_lr(optimizer, lr)
-        hyper = {'lr': lr, **(kfac_sched.params() if kfac_sched else {})}
-        batches = datasets.epoch_batches(
-            train_x, train_y, args.batch_size, seed=args.seed, epoch=epoch,
-            augment=not args.no_augment)
-        res = engine.train_epoch(state, batches, hyper, device=dev,
-                                 verbose=verbose,
-                                 time_steps=args.time_steps,
-                                 max_steps=args.max_steps)
-        train_m = res['metrics']
-        losses += res['losses']
-        fired += res['fired']
-        if args.time_steps:
-            step_ms += res['step_ms']
-        val_m = engine.evaluate(
-            model, datasets.epoch_batches(test_x, test_y,
-                                          args.val_batch_size,
-                                          shuffle=False),
-            device=dev, epoch=epoch, verbose=verbose)
-        if kfac_sched:
-            kfac_sched.step(epoch + 1)
-    seconds = time.perf_counter() - t_start
-    if verbose:
-        print(f'total: {seconds:.1f}s')
-    return {'device': str(dev), 'steps': state.step, 'losses': losses,
-            'fired': fired, 'step_ms': step_ms if args.time_steps else None,
-            'train': train_m, 'val': val_m, 'seconds': seconds}
+    return engine.fit(
+        state, (train_x, train_y), (test_x, test_y),
+        lr_schedule=lr_schedule, kfac_sched=kfac_sched, epochs=args.epochs,
+        batch_size=args.batch_size, val_batch_size=args.val_batch_size,
+        seed=args.seed, augment=not args.no_augment, device=dev,
+        max_steps=args.max_steps, time_steps=args.time_steps,
+        verbose=not args.quiet)
 
 
 def main(argv=None) -> int:

@@ -1,11 +1,14 @@
-"""CIFAR-10 input pipeline in numpy, NCHW (PyTorch port of the CIFAR part
-of ``distributed_kfac_pytorch_tpu/training/datasets.py``).
+"""CIFAR-10 and ImageNet input pipelines in numpy, NCHW (PyTorch port of
+the CIFAR and synthetic-ImageNet parts of
+``distributed_kfac_pytorch_tpu/training/datasets.py``).
 
-Real data is read from CIFAR-10 python pickle batches when present;
-otherwise a deterministic synthetic set of the same shapes (the JAX
-package's class-conditional Gaussian images, same values, transposed to
-NCHW) keeps every run offline. Augmentation draws its random numbers in
-the JAX package's order, so both packages crop and flip alike.
+Real CIFAR-10 is read from python pickle batches when present; otherwise
+a deterministic synthetic set of the same shapes (the JAX package's
+class-conditional Gaussian images, same values, transposed to NCHW)
+keeps every run offline. ImageNet is synthetic only: the JAX package's
+tf.data directory reader is not ported. Augmentation draws its random
+numbers in the JAX package's order, so both packages crop and flip
+alike.
 Mid-epoch resume (``skip_batches``) waits for the checkpoint port.
 """
 
@@ -19,6 +22,8 @@ import numpy as np
 
 CIFAR_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
 CIFAR_STD = np.array([0.247, 0.243, 0.262], np.float32)
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 CIFAR_SEARCH_PATHS = (
     'data/cifar-10-batches-py',
@@ -83,6 +88,25 @@ def get_cifar(data_dir: str | None = None, synthetic_size: int = 2048):
     std = CIFAR_STD[None, :, None, None]
     norm = lambda x: ((x - mean) / std).astype(np.float32)  # noqa: E731
     return (norm(train[0]), train[1]), (norm(test[0]), test[1])
+
+
+def get_imagenet(data_dir: str | None = None, image_size: int = 224,
+                 synthetic_size: int = 512, num_classes: int = 1000):
+    """((train_x, train_y), (val_x, val_y)) normalized NCHW synthetic
+    ImageNet: ``synthetic_size`` images per split at ``image_size``, the
+    JAX package's arrays from the same seeds. A ``data_dir`` holding a
+    ``train`` tree raises: the tf.data reader is not ported."""
+    if data_dir and os.path.isdir(os.path.join(data_dir, 'train')):
+        raise NotImplementedError(
+            'the ImageNet directory reader (tf.data in the JAX package) is '
+            'not ported yet; run without --data-dir for synthetic data')
+    train = _synthetic_images(synthetic_size, image_size, num_classes,
+                              seed=0)
+    val = _synthetic_images(synthetic_size, image_size, num_classes, seed=1)
+    mean = IMAGENET_MEAN[None, :, None, None]
+    std = IMAGENET_STD[None, :, None, None]
+    norm = lambda x: ((x - mean) / std).astype(np.float32)  # noqa: E731
+    return (norm(train[0]), train[1]), (norm(val[0]), val[1])
 
 
 def augment_cifar(x: np.ndarray, rng: np.random.Generator) -> np.ndarray:

@@ -1,6 +1,7 @@
 """Train / eval epoch loops over the single-device K-FAC step (PyTorch port
 of ``distributed_kfac_pytorch_tpu/training/engine.py``: the classic
-cadence of ``cadence_flags``, ``train_epoch`` and ``evaluate``).
+cadence of ``cadence_flags``, ``train_epoch`` and ``evaluate``), and the
+epoch loop the training CLIs share (``fit``).
 
 The host drives the cadence (``factor_update`` / ``inv_update`` flags from
 the step counter). Losses and accuracies stay device tensors until the
@@ -10,14 +11,17 @@ unless per-step times are asked for.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import time
-from typing import Any, Iterable
+from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from distributed_kfac_pytorch_tpu_torch.training import datasets, \
+    optimizers
 from distributed_kfac_pytorch_tpu_torch.training.utils import Metric, \
     accuracy
 
@@ -56,11 +60,13 @@ class TrainState:
 
 
 def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
-               hyper: dict, flags: dict) -> tuple[torch.Tensor,
-                                                  torch.Tensor]:
-    """One forward/backward, K-FAC preconditioning and SGD update.
+               hyper: dict, flags: dict,
+               criterion: Callable = F.cross_entropy
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One forward/backward, K-FAC preconditioning and SGD update, with
+    the loss ``criterion(logits, labels)`` (default cross entropy).
     Returns the (device) loss and accuracy of the batch."""
-    loss_fn = lambda out: F.cross_entropy(out, y)  # noqa: E731
+    loss_fn = lambda out: criterion(out, y)  # noqa: E731
     kfac = state.kfac
     if kfac is None:
         state.optimizer.zero_grad(set_to_none=True)
@@ -85,14 +91,16 @@ def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
 
 def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
                 device, verbose: bool = False, time_steps: bool = False,
-                max_steps: int | None = None) -> dict:
+                max_steps: int | None = None,
+                criterion: Callable = F.cross_entropy) -> dict:
     """One training epoch; returns the averaged metrics and, per step,
     the device losses, the fired stage and (``time_steps``: each step
     synchronized) the wall milliseconds.
 
     ``hyper`` holds this epoch's ``lr`` and, with K-FAC, ``damping`` and
     the update frequencies (``KFACParamScheduler.params()``). Stops after
-    ``max_steps`` global steps when given.
+    ``max_steps`` global steps when given. ``criterion`` is the training
+    loss (see :func:`train_step`).
     """
     device = torch.device(device)
     state.model.train()
@@ -107,7 +115,7 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
         x = torch.as_tensor(np.ascontiguousarray(xb), device=device)
         y = torch.as_tensor(yb, dtype=torch.long, device=device)
         t0 = time.perf_counter()
-        loss, acc = train_step(state, x, y, hyper, flags)
+        loss, acc = train_step(state, x, y, hyper, flags, criterion)
         if time_steps:
             if device.type == 'cuda':
                 torch.cuda.synchronize(device)
@@ -123,6 +131,76 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
         print(f'epoch {state.epoch}: train {shown}')
     return {'metrics': out, 'losses': [float(v) for v in losses],
             'fired': fired, 'step_ms': step_ms if time_steps else None}
+
+
+def fit(state: TrainState, train_data, val_data, *, lr_schedule,
+        kfac_sched, epochs: int, batch_size: int, val_batch_size: int,
+        seed: int, augment: bool, device, max_steps: int | None = None,
+        time_steps: bool = False, verbose: bool = False,
+        criterion: Callable = F.cross_entropy) -> dict:
+    """The CLIs' epoch loop: per epoch, set the LR, train on the
+    reshuffled ``(x, y)`` arrays of ``train_data`` (augmented with
+    ``augment``), evaluate on ``val_data`` and advance the K-FAC
+    scheduler; stop after ``max_steps`` global steps when given.
+
+    Returns ``{'device', 'steps', 'losses', 'fired', 'step_ms', 'train',
+    'val', 'seconds', 'state'}``: per-step losses and fired stages
+    ('inverse', 'factor' or None), per-step wall ms when ``time_steps``,
+    the last epoch's train / val metrics and the final ``TrainState``.
+    """
+    device = torch.device(device)
+    losses, fired, step_ms = [], [], []
+    train_m = val_m = {}
+    t_start = time.perf_counter()
+    for epoch in range(epochs):
+        if max_steps is not None and state.step >= max_steps:
+            break
+        state.epoch = epoch
+        lr = lr_schedule(epoch)
+        optimizers.set_lr(state.optimizer, lr)
+        hyper = {'lr': lr, **(kfac_sched.params() if kfac_sched else {})}
+        batches = datasets.epoch_batches(*train_data, batch_size, seed=seed,
+                                         epoch=epoch, augment=augment)
+        res = train_epoch(state, batches, hyper, device=device,
+                          verbose=verbose, time_steps=time_steps,
+                          max_steps=max_steps, criterion=criterion)
+        train_m = res['metrics']
+        losses += res['losses']
+        fired += res['fired']
+        if time_steps:
+            step_ms += res['step_ms']
+        val_m = evaluate(
+            state.model, datasets.epoch_batches(*val_data, val_batch_size,
+                                                shuffle=False),
+            device=device, epoch=epoch, verbose=verbose)
+        if kfac_sched:
+            kfac_sched.step(epoch + 1)
+    seconds = time.perf_counter() - t_start
+    if verbose:
+        print(f'total: {seconds:.1f}s')
+    return {'device': str(device), 'steps': state.step, 'losses': losses,
+            'fired': fired, 'step_ms': step_ms if time_steps else None,
+            'train': train_m, 'val': val_m, 'seconds': seconds,
+            'state': state}
+
+
+def parse_args(parser: argparse.ArgumentParser,
+               args_or_config) -> argparse.Namespace:
+    """A CLI's options from an ``argparse.Namespace`` (as is), a list of
+    CLI strings, a dict of option overrides or None (the defaults)."""
+    if args_or_config is None:
+        return parser.parse_args([])
+    if isinstance(args_or_config, argparse.Namespace):
+        return args_or_config
+    if isinstance(args_or_config, dict):
+        args = parser.parse_args([])
+        for key, value in args_or_config.items():
+            key = key.replace('-', '_')
+            if not hasattr(args, key):
+                raise ValueError(f'unknown train option {key!r}')
+            setattr(args, key, value)
+        return args
+    return parser.parse_args(list(args_or_config))
 
 
 @torch.no_grad()

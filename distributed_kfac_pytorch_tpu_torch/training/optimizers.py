@@ -33,6 +33,10 @@ class OptimConfig:
     damping: float = 0.003
     factor_decay: float = 0.95
     kl_clip: float = 0.001
+    inverse_method: str = 'auto'
+    auto_eigen_max_dim: int = 640
+    auto_large_method: str = 'cholesky'
+    newton_iters: int = 100
     eigh_method: str = 'auto'
     eigh_polish_iters: int = 8
     # The port's hot-path kernels are on by default (see KFAC).
@@ -71,6 +75,10 @@ def get_optimizer(model: torch.nn.Module, cfg: OptimConfig, device='cuda'):
             inv_update_freq=cfg.kfac_inv_update_freq,
             kl_clip=cfg.kl_clip,
             lr=cfg.base_lr,
+            inverse_method=cfg.inverse_method,
+            auto_eigen_max_dim=cfg.auto_eigen_max_dim,
+            auto_large_method=cfg.auto_large_method,
+            newton_iters=cfg.newton_iters,
             eigh_method=cfg.eigh_method,
             eigh_polish_iters=cfg.eigh_polish_iters,
             skip_layers=list(cfg.skip_layers) or None,

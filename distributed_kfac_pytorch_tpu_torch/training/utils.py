@@ -1,11 +1,13 @@
-"""Training utilities: metrics and the LR schedule (PyTorch port of
-``distributed_kfac_pytorch_tpu/training/utils.py``)."""
+"""Training utilities: metrics, the label-smoothed loss and the LR
+schedule (PyTorch port of ``distributed_kfac_pytorch_tpu/training/
+utils.py``)."""
 
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
 
 class Metric:
@@ -32,6 +34,19 @@ class Metric:
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Top-1 accuracy of logits vs integer labels (a device scalar)."""
     return (logits.argmax(dim=-1) == labels).float().mean()
+
+
+def label_smooth_loss(logits: torch.Tensor, labels: torch.Tensor,
+                      smoothing: float = 0.0) -> torch.Tensor:
+    """Mean cross entropy against labels smoothed as ``one_hot * (1 -
+    smoothing) + smoothing / n``; plain cross entropy at ``smoothing <=
+    0``."""
+    if smoothing <= 0.0:
+        return F.cross_entropy(logits, labels)
+    n = logits.shape[-1]
+    target = torch.full_like(logits, smoothing / n)
+    target.scatter_(-1, labels[:, None], 1.0 - smoothing + smoothing / n)
+    return -(target * F.log_softmax(logits, dim=-1)).sum(-1).mean()
 
 
 def create_lr_schedule(decay_schedule: Sequence[int], alpha: float = 0.1):

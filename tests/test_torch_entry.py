@@ -15,8 +15,9 @@ from distributed_kfac_pytorch_tpu_torch import resolve_device
 from distributed_kfac_pytorch_tpu_torch.capture import KFACCapture
 from distributed_kfac_pytorch_tpu_torch.models import cifar_resnet
 from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
-from distributed_kfac_pytorch_tpu_torch.training import engine
+from distributed_kfac_pytorch_tpu_torch.training import engine, optimizers
 from distributed_kfac_pytorch_tpu_torch import train_cifar10_resnet as cli
+from distributed_kfac_pytorch_tpu_torch import train_imagenet_resnet as inet
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -58,6 +59,46 @@ def test_cli_main_runs_on_cpu(capsys):
     assert 'total:' in capsys.readouterr().out
 
 
+INET_TINY = {'model': 'resnet50', 'image_size': 32, 'batch_size': 2,
+             'val_batch_size': 2, 'synthetic_size': 2, 'epochs': 1,
+             'inverse_method': 'cholesky', 'kfac_update_freq': 1,
+             'kfac_cov_update_freq': 1, 'quiet': True}
+
+
+def test_imagenet_train_on_cpu_one_step():
+    # ResNet-50 at 32 px, batch 2: every layer registered, the inverse
+    # firing at step 0 through the damped Cholesky buckets.
+    res = inet.train({**INET_TINY, 'max_steps': 1, 'time_steps': True},
+                     device='cpu')
+    assert res['steps'] == 1 and res['device'] == 'cpu'
+    assert len(res['losses']) == 1 and math.isfinite(res['losses'][0])
+    assert res['fired'] == ['inverse']
+    assert len(res['state'].kfac.specs) == 54
+
+
+def test_imagenet_cli_rejects_vit_and_parses_flags():
+    with pytest.raises(NotImplementedError, match='ViT'):
+        inet.train({**INET_TINY, 'model': 'vit_small'}, device='cpu')
+    args = inet.build_parser().parse_args(
+        ['--inverse-method', 'newton', '--label-smoothing', '0.2'])
+    assert (args.inverse_method, args.label_smoothing) == ('newton', 0.2)
+    assert (args.base_lr, args.wd, args.kfac_update_freq,
+            args.kfac_cov_update_freq, args.damping) == (0.0125, 5e-5, 100,
+                                                         10, 0.001)
+
+
+def test_optim_config_passes_the_inverse_knobs_to_kfac():
+    cfg = optimizers.OptimConfig(inverse_method='auto',
+                                 auto_eigen_max_dim=40,
+                                 auto_large_method='newton', newton_iters=7)
+    _, _, kfac, _ = optimizers.get_optimizer(
+        cifar_resnet.CifarResNet((1, 1, 1)), cfg, device='cpu')
+    assert (kfac.inverse_method, kfac.auto_eigen_max_dim,
+            kfac.auto_large_method, kfac.newton_iters) == ('auto', 40,
+                                                          'newton', 7)
+    assert [kfac.method_for_dim(d) for d in (40, 41)] == ['eigen', 'newton']
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
 
@@ -70,6 +111,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
         KFAC(cifar_resnet.CifarResNet((1, 1, 1)))
     with pytest.raises(RuntimeError, match='no CUDA device'):
         cli.train(TINY)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        inet.train(INET_TINY)
     assert resolve_device('cpu') == torch.device('cpu')
 
 
@@ -117,28 +160,35 @@ def test_import_leaves_jax_unloaded():
     ('inv_pipeline_chunks', 2), ('deferred_factor_reduction', True),
     ('inv_staleness', 1), ('inv_lowrank_rank', 16),
     ('kfac_approx', 'reduce'), ('collect_metrics', True),
-    ('inv_dtype', torch.bfloat16), ('auto_large_method', 'newton')])
+    ('inv_dtype', torch.bfloat16), ('factor_dtype', torch.bfloat16)])
 def test_unported_knobs_raise_by_name(knob, value):
     with pytest.raises(NotImplementedError, match=knob):
         KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
              **{knob: value})
 
 
-@pytest.mark.parametrize('kwargs', [{'inverse_method': 'newton'},
-                                    {'inverse_method': 'cholesky'},
-                                    {'use_eigen_decomp': False},
-                                    {'eigh_method': 'jacobi'}])
+@pytest.mark.parametrize('kwargs', [{'use_eigen_decomp': False},
+                                    {'use_eigen_decomp': True},
+                                    {'eigh_method': 'jacobi'},
+                                    {'inverse_method': 'newton',
+                                     'eigh_method': 'jacobi'}])
 def test_unported_inverse_methods_raise(kwargs):
     with pytest.raises(NotImplementedError, match='not ported'):
         KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu', **kwargs)
 
 
 def test_auto_dispatch_above_640_raises_and_eigen_accepts():
-    # 'auto' needs damped Cholesky inverses above dim 640 (not ported);
-    # 'eigen' decomposes every dim.
+    # 'auto' bakes a damped inverse above dim 640 (the A side here) and
+    # keeps the eigen path below, so the layer is mixed; an unknown
+    # large-dim method raises; 'eigen' decomposes every dim.
     model = nn.Sequential(nn.Linear(700, 3))
-    with pytest.raises(NotImplementedError, match='factor dim 701'):
-        KFAC(model, device='cpu').init_state()
+    state = KFAC(model, device='cpu').init_state()
+    assert set(state['inverses']['0']) == {'A_inv', 'QG', 'dG', 'G_inv'}
+    assert state['inverses']['0']['A_inv'].shape == (701, 701)
+    with pytest.raises(ValueError, match='auto_large_method'):
+        KFAC(model, device='cpu', auto_large_method='qr')
+    with pytest.raises(ValueError, match='inverse_method'):
+        KFAC(model, device='cpu', inverse_method='lu')
     state = KFAC(model, device='cpu', inverse_method='eigen').init_state()
     assert state['inverses']['0']['QA'].shape == (701, 701)
 
