@@ -10,8 +10,8 @@ Phases (any failure exits nonzero and prints no result line):
   2. build: every kernel from ``distributed_kfac_pytorch_tpu_torch/csrc``
      with nvcc for sm_90a (``ops.kernels.build``);
   3. kernels K1-K3: each at the shapes of the ResNet-32 / batch-128 path
-     and of the ResNet-50 / 224 px / batch-64 path plus ragged edge
-     cases, fp32 and bf16-multiplicand modes, held against its plain
+     and of the ResNet-50 / 224 px / batch-64 path (K3 also at the LSTM
+     LM's (16, 650, 651) bucket, eigen and baked) plus ragged edge cases, fp32 and bf16-multiplicand modes, held against its plain
      PyTorch version on the same inputs on the card (relative to the
      largest plain entry: fp32 <= 1e-5 for the Gram kernels, <= 1e-4 for
      bucketed preconditioning; bf16 <= 1e-2), and timed with CUDA events
@@ -39,15 +39,35 @@ Phases (any failure exits nonzero and prints no result line):
   7. ResNet-50 under the default ``--inverse-method auto``: 3 steps, one
      firing; finite losses, no ns_inverse launch, bucket_precond 21 per
      step split between eigen and baked buckets;
-  8. the result: a JSON line of per-kernel numbers (K1-K3 per ResNet-50
-     step, K4 per ResNet-50 firing), the card line, then
-     ``{"ok": true, "device": {...}}`` as the last line.
+  8. kernel K5 (Jacobi eigh): random SPD stacks at the LSTM LM's two
+     size buckets (16 x 651, 16 x 650), the nine ResNet-32 buckets, edge
+     sizes 1, 2, 3, 64, 65 and an identity stack, against its plain
+     version: eigenvalues <= 1e-5 of the largest, ``max|Q^T Q - I|`` and
+     reconstruction <= 5e-5, the damped side inverse ``Q diag(1/(d +
+     0.003)) Q^T`` <= 1e-4 relative; where one of these fails, the
+     kernel's errors against a float64 eigh at most 2x the plain
+     version's; timed beside the plain version (one run),
+     ``torch.linalg.eigh`` and the bound;
+  9. main path, LSTM LM: ``train_language_model.train`` at the PTB-medium
+     widths (650/650, 2 layers, 8-gate cell), synthetic vocabulary 10,000,
+     batch 20, BPTT 35, dropout 0.5, one fixed batch, ``--inverse-method
+     eigen --eigh-method jacobi``, 12 steps (firings at 0 and 10); every
+     loss finite, the last three below the first three, launches
+     bucket_precond 1 per step, jacobi_eigh 2 per firing, none of
+     factor_ema, patch_cov, ns_inverse;
+ 10. the LM CLI defaults (``auto``: damped Cholesky at 650/651), 3 steps:
+     finite losses, no jacobi_eigh launch;
+ 11. ResNet-32 under ``--eigh-method jacobi``: 11 steps, finite losses,
+     jacobi_eigh 9 per firing besides phase 5's per-step launches;
+ 12. the result: a JSON line of per-kernel numbers (K1-K3 per ResNet-50
+     step, K4 per ResNet-50 firing, K5 per LSTM firing), the card line,
+     then ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--quick`` builds with ``-Xptxas -v`` and runs only the correctness
-checks of phases 3 and 4 (a first call after a kernel change).
-``--profile`` adds a torch.profiler pass over steady ResNet-32 and
-ResNet-50 (``newton``) steps (device time by kernel category, the
-device's busy share). Details of every case go to
+checks of phases 3, 4 and 8 (a first call after a kernel change).
+``--profile`` adds a torch.profiler pass over steady ResNet-32,
+ResNet-50 (``newton``) and LSTM (``jacobi``) steps (device time by kernel
+category, the device's busy share). Details of every case go to
 ``chiprun_out/chip_smoke.json`` next to this script.
 """
 
@@ -83,6 +103,19 @@ R50_PER_FIRING = 13
 R50_LR = 0.0125
 NS_TOL = 1e-4          # relative Frobenius error of K4, n <= 1024
 NS_EDGE_SIZES = (1, 2, 65, 100)
+# K5: the LSTM LM's gate buckets (A 651, G 650; 16 gates each) and
+# ResNet-32's nine factor sizes, (n, matrices); one launch each per firing.
+LSTM_JACOBI_BUCKETS = ((651, 16), (650, 16))
+R32_JACOBI_BUCKETS = ((27, 1), (144, 11), (288, 10), (576, 9), (65, 1),
+                      (16, 11), (32, 10), (64, 10), (10, 1))
+JACOBI_EDGE_SIZES = (1, 2, 3, 64, 65)
+JACOBI_DAMPING = 0.003
+# LSTM LM path: steps, inverse cadence, launches per step and per firing.
+LM_STEPS, LM_FIRE_EVERY = 12, 10
+LM_PER_STEP = {'factor_ema': 0, 'patch_cov': 0, 'bucket_precond': 1,
+               'ns_inverse': 0}
+LM_JACOBI_PER_FIRING = 2
+R32_JACOBI_STEPS, R32_JACOBI_PER_FIRING = 11, 9
 # (n, matrices) of each ResNet-50 factor size bucket: one K4 launch each
 # per firing under 'newton'.
 R50_NS_BUCKETS = ((64, 12), (128, 12), (147, 1), (256, 26), (512, 19),
@@ -339,6 +372,15 @@ def bucket_precond_cases(gen, dev, resnet50=None):
     ]
 
 
+def lstm_bucket_precond_cases(gen, dev):
+    """The LSTM LM path's one K3 bucket: 16 gates, G 650 x A 651 (eigen
+    under ``jacobi``, baked under the defaults' Cholesky)."""
+    cases = {label: make for label, _, make in bucket_precond_cases(
+        gen, dev, {'buckets': [((650, 651), 16)]})}
+    return [('eigen (16,650,651)', 1, cases['eigen (16,650,651)']),
+            ('baked (16,650,651)', 0, cases['baked (16,650,651)'])]
+
+
 def rel_err(got, ref) -> tuple[float, float]:
     """(max abs error, max over outputs of max abs error / max |ref|)."""
     import torch
@@ -390,18 +432,24 @@ def resnet50_shapes() -> dict:
             'fc': fc, 'buckets': sorted(buckets.items())}
 
 
-def check_kernels(quick: bool, resnet50: dict | None = None
-                  ) -> tuple[dict, list]:
+def check_kernels(quick: bool, resnet50: dict | None = None,
+                  lstm: bool = False) -> tuple[dict, list]:
     """K1-K3 against their plain versions at the ResNet-32 shapes (or,
-    given ``resnet50_shapes()``, the ResNet-50 ones); per-step sums of the
-    timed cases' ms, plain ms, library ms and bounds."""
+    given ``resnet50_shapes()``, the ResNet-50 ones; with ``lstm``, K3 at
+    the LSTM LM's bucket); per-step sums of the timed cases' ms, plain
+    ms, library ms and bounds."""
     import torch
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    families = {'factor_ema': factor_ema_cases(gen, dev, resnet50),
-                'patch_cov': patch_cov_cases(gen, dev, resnet50),
-                'bucket_precond': bucket_precond_cases(gen, dev, resnet50)}
+    if lstm:
+        families = {'bucket_precond': lstm_bucket_precond_cases(gen, dev)}
+    else:
+        families = {
+            'factor_ema': factor_ema_cases(gen, dev, resnet50),
+            'patch_cov': patch_cov_cases(gen, dev, resnet50),
+            'bucket_precond': bucket_precond_cases(gen, dev, resnet50)}
+    model = 'lstm' if lstm else 'resnet50' if resnet50 else 'resnet32'
     summary, details = {}, []
     for name, cases in families.items():
         agg = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0,
@@ -409,7 +457,7 @@ def check_kernels(quick: bool, resnet50: dict | None = None
         for label, count, make in cases:
             kern, plain, library, nbytes, flops = make()
             row = {'kernel': name, 'case': label, 'per_step': count,
-                   'model': 'resnet50' if resnet50 else 'resnet32'}
+                   'model': model}
             for mode, bf16, tol in (('fp32', False, TOL_FP32[name]),
                                     ('bf16', True, TOL_BF16)):
                 got = kern(bf16)
@@ -597,7 +645,7 @@ def run_main_path() -> tuple[dict, dict]:
     if not last < first:
         raise AssertionError(f'loss did not decrease: first five '
                              f'{first:.4f}, last five {last:.4f}')
-    for name, per_step in EXPECTED_PER_STEP.items():
+    for name, per_step in {**EXPECTED_PER_STEP, 'jacobi_eigh': 0}.items():
         if launches[name] != per_step * n:
             raise AssertionError(f'{name}: {launches[name]} launches, '
                                  f'expected {per_step} x {n}')
@@ -660,6 +708,7 @@ def run_resnet50_newton(card: str) -> tuple[dict, dict]:
     firings = res['fired'].count('inverse')
     expected = {name: per * n for name, per in R50_PER_STEP.items()}
     expected['ns_inverse'] = R50_PER_FIRING * firings
+    expected['jacobi_eigh'] = 0
     if launches != expected:
         raise AssertionError(f'launches {launches}, expected {expected}')
     firing, plain = _step_ms(res)
@@ -717,7 +766,7 @@ def run_resnet50_auto(card: str) -> dict:
     if res['fired'].count('inverse') != 1:
         raise AssertionError(f'auto: fired {res["fired"]}')
     expected = {name: per * 3 for name, per in R50_PER_STEP.items()}
-    expected['ns_inverse'] = 0
+    expected['ns_inverse'] = expected['jacobi_eigh'] = 0
     if launches != expected:
         raise AssertionError(f'auto: launches {launches}, expected '
                              f'{expected}')
@@ -743,6 +792,229 @@ def run_resnet50_auto(card: str) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# K5: the Jacobi eigh
+# ---------------------------------------------------------------------------
+
+def jacobi_work(n: int, count: int) -> tuple[float, float]:
+    """(bytes, FLOPs) of one K5 call: 9 n_pad^2 FLOPs per matrix and round
+    over ``default_jacobi_sweeps(n) * (n_pad - 1)`` rounds; the stack read
+    once, the eigenvectors and eigenvalues written once."""
+    from distributed_kfac_pytorch_tpu_torch.ops import linalg
+    n_pad = n + n % 2
+    rounds = linalg.default_jacobi_sweeps(n) * (n_pad - 1) if n > 1 else 0
+    return (4.0 * count * (2 * n * n + n),
+            9.0 * n_pad * n_pad * rounds * count)
+
+
+def _jacobi_errors(mats, q, d, d64) -> dict:
+    """Eigenvalue error against ``d64`` (a float64 eigh) and the
+    orthogonality and reconstruction errors of ``(q, d)``, each relative
+    to the largest eigenvalue where the quantity scales with it."""
+    import torch
+    scale = max(float(d64.abs().max()), 1e-30)
+    eye = torch.eye(q.shape[-1], dtype=torch.float64, device=q.device)
+    q64, d_64 = q.double(), d.double()
+    return {
+        'eig': float((d_64 - d64).abs().max()) / scale,
+        'orth': float((q64.mT @ q64 - eye).abs().max()),
+        'recon': float(((q64 * d_64[:, None, :]) @ q64.mT
+                        - mats.double()).abs().max()) / scale}
+
+
+def _side_inverse(q, d):
+    return (q * (1.0 / (d + JACOBI_DAMPING))[:, None, :]) @ q.mT
+
+
+def check_jacobi_eigh(quick: bool) -> tuple[dict, dict, list]:
+    """K5 against its plain version at the LSTM LM's and ResNet-32's size
+    buckets, the edge sizes and an identity stack. Returns the per-firing
+    sums of the LSTM buckets and of the ResNet-32 ones, and the rows."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels as K
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(2)
+    cases = [(f'LSTM ({c},{n},{n})', 'lstm', lambda n=n, c=c: _spd_stack(
+        gen, c, n)) for n, c in LSTM_JACOBI_BUCKETS]
+    cases += [(f'R32 ({c},{n},{n})', 'r32', lambda n=n, c=c: _spd_stack(
+        gen, c, n)) for n, c in R32_JACOBI_BUCKETS]
+    cases += [(f'edge (2,{n},{n})', None, lambda n=n: _spd_stack(gen, 2, n))
+              for n in JACOBI_EDGE_SIZES]
+    cases.append(('identity (4,65,65)', None, lambda: torch.eye(
+        65, device='cuda').expand(4, 65, 65).contiguous()))
+    aggs = {group: {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0,
+                    't_bytes': 0.0, 't_ops': 0.0, 'max_abs_err': 0.0}
+            for group in ('lstm', 'r32')}
+    rows = []
+    for label, group, make in cases:
+        f = make()
+        count, n = f.shape[0], f.shape[-1]
+        got_q, got_d = K.batched_jacobi_eigh(f)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_q, ref_d = K.batched_jacobi_eigh_plain(f)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not (torch.isfinite(got_q).all() and torch.isfinite(got_d).all()):
+            raise AssertionError(f'jacobi_eigh {label}: non-finite output')
+        d_scale = max(float(ref_d.abs().max()), 1e-30)
+        d_abs = float((got_d - ref_d).abs().max())
+        inv_got, inv_ref = _side_inverse(got_q, got_d), _side_inverse(
+            ref_q, ref_d)
+        inv_abs = float((inv_got - inv_ref).abs().max())
+        inv_rel = inv_abs / float(inv_ref.abs().max())
+        d64 = torch.linalg.eigvalsh(f.double())
+        err = _jacobi_errors(f, got_q, got_d, d64)
+        row = {'kernel': 'jacobi_eigh', 'case': label, 'n': n,
+               'count': count, 'd_rel_err': d_abs / d_scale,
+               'side_inverse_rel_err': inv_rel, 'orth': err['orth'],
+               'recon': err['recon'], 'eig_vs_fp64': err['eig'],
+               'plain_ms': plain_ms, 'q_max_abs_diff': float(
+                   (got_q - ref_q).abs().max())}
+        # Against the plain version: eigenvalues and the damped side
+        # inverse, always.
+        ok = row['d_rel_err'] <= 1e-5 and inv_rel <= 1e-4
+        if err['orth'] > 5e-5 or err['recon'] > 5e-5:
+            # fp32 drift of the algorithm over thousands of rounds: hold the
+            # kernel to at most twice the plain version's own orthogonality
+            # and reconstruction errors against float64.
+            ref_err = _jacobi_errors(f, ref_q, ref_d, d64)
+            row['plain_vs_fp64'] = ref_err
+            row['rule'] = '2x plain vs fp64'
+            ok = ok and all(err[k] <= 2 * max(ref_err[k], 1e-7)
+                            for k in ('orth', 'recon'))
+        if not ok:
+            raise AssertionError(f'jacobi_eigh {label}: {row}')
+        msg = (f'  jacobi_eigh {label:22s} d rel {row["d_rel_err"]:.1e} '
+               f'inv rel {inv_rel:.1e} orth {err["orth"]:.1e} recon '
+               f'{err["recon"]:.1e} |dQ| {row["q_max_abs_diff"]:.1e} '
+               f'plain {plain_ms:.1f} ms')
+        if not quick and group is not None:
+            reps, trials, warm = (1, 3, 1) if n >= 500 else (3, 3, 1)
+            row['ms'] = time_ms(lambda: K.batched_jacobi_eigh(f), reps,
+                                trials, warm)
+            row['library_ms'] = time_ms(lambda: torch.linalg.eigh(f), reps,
+                                        trials, warm)
+            nbytes, flops = jacobi_work(n, count)
+            row['bound_ms'], row['bound_by'] = bound(nbytes, flops)
+            agg = aggs[group]
+            for key in ('ms', 'plain_ms', 'library_ms'):
+                agg[key] += row[key]
+            agg['t_bytes'] += nbytes / PEAK_BYTES * 1e3
+            agg['t_ops'] += flops / PEAK_FP32_FLOPS * 1e3
+            agg['max_abs_err'] = max(agg['max_abs_err'], d_abs, inv_abs)
+            msg += (f'  ms {row["ms"]:.2f} lib (eigh) '
+                    f'{row["library_ms"]:.2f} bound {row["bound_ms"]:.3f} '
+                    f'({row["bound_by"]})')
+        log(msg)
+        rows.append(row)
+        del f, got_q, got_d, ref_q, ref_d
+    return aggs['lstm'], aggs['r32'], rows
+
+
+def _lm_config(**over) -> dict:
+    config = {'synthetic_vocab': 10000, 'fixed_batch': True, 'epochs': 1,
+              'max_steps': LM_STEPS, 'seed': 0, 'time_steps': True,
+              'quiet': True}
+    config.update(over)
+    return config
+
+
+def _run_lm(config: dict) -> tuple[dict, dict, list]:
+    from distributed_kfac_pytorch_tpu_torch import train_language_model
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    kernels.reset_launches()
+    res = train_language_model.train(config, device='cuda')
+    launches = dict(kernels.LAUNCHES)
+    res.pop('state')
+    losses = res['losses']
+    if len(losses) != config['max_steps'] or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f'LM: losses {losses}')
+    return res, launches, losses
+
+
+def run_lstm_jacobi(card: str) -> dict:
+    """Phase 9: 12 LSTM LM steps under eigen + jacobi."""
+    res, launches, losses = _run_lm(_lm_config(inverse_method='eigen',
+                                               eigh_method='jacobi'))
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    log(f'  losses: {[round(v, 4) for v in losses]}')
+    if not last < first:
+        raise AssertionError(f'LSTM loss did not decrease: first three '
+                             f'{first:.4f}, last three {last:.4f}')
+    firings = res['fired'].count('inverse')
+    if firings != 2:
+        raise AssertionError(f'LSTM: fired {res["fired"]}')
+    expected = {name: per * LM_STEPS for name, per in LM_PER_STEP.items()}
+    expected['jacobi_eigh'] = LM_JACOBI_PER_FIRING * firings
+    if launches != expected:
+        raise AssertionError(f'LSTM: launches {launches}, expected '
+                             f'{expected}')
+    firing, plain = _step_ms(res)
+    summary = {'steps': LM_STEPS, 'losses': losses, 'loss_first3': first,
+               'loss_last3': last, 'firings': firings,
+               'launches': launches, 'firing_ms': firing,
+               'step0_ms': res['step_ms'][0],
+               'nonfiring_ms_median': statistics.median(plain),
+               'nonfiring_ms': plain, 'val': res['val']}
+    log(f'  loss first three {first:.4f} -> last three {last:.4f}; '
+        f'launches {launches}; val ppl {res["val"]["ppl"]:.1f}')
+    log(f'  ms/step: non-firing {summary["nonfiring_ms_median"]:.2f} '
+        f'(median), firing {[round(t, 1) for t in firing]} (step 0: '
+        f'{res["step_ms"][0]:.1f}) ({card})')
+    return summary
+
+
+def run_lm_defaults(card: str) -> dict:
+    """Phase 10: 3 steps of the LM CLI's defaults (auto: Cholesky)."""
+    res, launches, losses = _run_lm(_lm_config(max_steps=3))
+    expected = {name: per * 3 for name, per in LM_PER_STEP.items()}
+    expected['jacobi_eigh'] = 0
+    if launches != expected or res['fired'].count('inverse') != 1:
+        raise AssertionError(f'LM defaults: launches {launches} (expected '
+                             f'{expected}), fired {res["fired"]}')
+    summary = {'losses': losses, 'launches': launches,
+               'firing_ms': res['step_ms'][0],
+               'nonfiring_ms': res['step_ms'][1:]}
+    log(f'  losses {[round(v, 4) for v in losses]}; launches {launches}; '
+        f'firing step (step 0) {res["step_ms"][0]:.1f} ms, non-firing '
+        f'{[round(t, 2) for t in res["step_ms"][1:]]} ms ({card})')
+    return summary
+
+
+def run_resnet32_jacobi(card: str) -> dict:
+    """Phase 11: 11 ResNet-32 steps under --eigh-method jacobi."""
+    from distributed_kfac_pytorch_tpu_torch import train_cifar10_resnet
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    config = {'model': 'resnet32', 'batch_size': 128,
+              'synthetic_size': 128, 'val_batch_size': 32,
+              'epochs': R32_JACOBI_STEPS, 'no_augment': True, 'seed': 0,
+              'kfac_update_freq': 10, 'kfac_cov_update_freq': 1,
+              'eigh_method': 'jacobi', 'time_steps': True, 'quiet': True}
+    kernels.reset_launches()
+    res = train_cifar10_resnet.train(config, device='cuda')
+    launches = dict(kernels.LAUNCHES)
+    res.pop('state')
+    losses, n = res['losses'], res['steps']
+    if n != R32_JACOBI_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f'ResNet-32 jacobi: {n} steps, losses {losses}')
+    firings = res['fired'].count('inverse')
+    expected = {name: per * n for name, per in EXPECTED_PER_STEP.items()}
+    expected['jacobi_eigh'] = R32_JACOBI_PER_FIRING * firings
+    if launches != expected:
+        raise AssertionError(f'ResNet-32 jacobi: launches {launches}, '
+                             f'expected {expected}')
+    firing, plain = _step_ms(res)
+    summary = {'losses': losses, 'launches': launches, 'firings': firings,
+               'firing_ms': firing, 'step0_ms': res['step_ms'][0],
+               'nonfiring_ms_median': statistics.median(plain)}
+    log(f'  losses {[round(v, 4) for v in losses]}; launches {launches}')
+    log(f'  ms/step: non-firing {summary["nonfiring_ms_median"]:.2f} '
+        f'(median), firing {[round(t, 1) for t in firing]} ({card})')
+    return summary
+
+
 def _category(name: str) -> str:
     """Coarse owner of a CUDA kernel, from its (mangled) name."""
     n = name.lower()
@@ -753,11 +1025,13 @@ def _category(name: str) -> str:
     if any(f'ns_{k}_kernel' in n
            for k in ('fold', 'init', 'residual', 'update', 'finish')):
         return 'K4 ns_inverse'
+    if 'jacobi_round' in n:
+        return 'K5 jacobi_eigh'
     if 'conv' in n or 'cudnn' in n or 'implicit_gemm' in n or 'wgrad' in n \
             or 'dgrad' in n:
         return 'model convolutions (cuDNN)'
     if 'gemm' in n or 'cutlass' in n or 'sm90_' in n or 'gemv' in n:
-        return 'matmul (cuBLAS: warm polish, linear head)'
+        return 'matmul (cuBLAS: layers, factors, warm polish)'
     if 'batch_norm' in n or 'bn_' in n:
         return 'batch norm'
     if 'reduce' in n:
@@ -765,23 +1039,37 @@ def _category(name: str) -> str:
     return 'elementwise / copies / other'
 
 
-def profile_main_path(resnet50: bool = False, steps: int = 5) -> dict:
+def profile_main_path(which: str = 'resnet32', steps: int = 5) -> dict:
     """torch.profiler over ``steps`` steady non-firing steps and one firing
-    step of the ResNet-32 path (or, with ``resnet50``, the ResNet-50
-    ``newton`` path): device time by kernel category and the device's busy
-    share (kernel time / wall time of the profiled window)."""
+    step of the ResNet-32 path, the ResNet-50 ``newton`` path or the LSTM
+    LM ``jacobi`` path (``which``: 'resnet32', 'resnet50', 'lstm'): device
+    time by kernel category and the device's busy share (kernel time /
+    wall time of the profiled window)."""
     import functools
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_kfac_pytorch_tpu_torch.models import cifar_resnet, \
-        imagenet_resnet
+        imagenet_resnet, lstm_lm
     from distributed_kfac_pytorch_tpu_torch.training import datasets, \
         engine, optimizers, utils
     dev = torch.device('cuda')
+    gen = None
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
-        if resnet50:
+        if which == 'lstm':
+            ids, _, vocab = datasets.get_lm_corpus(vocab_size=10000)
+            x, y = next(datasets.bptt_batches(ids, 20, 35))
+            model = lstm_lm.LSTMLanguageModel(vocab).to(dev)
+            cfg = optimizers.OptimConfig(
+                base_lr=1.0, weight_decay=0.0, lr_decay=(20, 30),
+                inverse_method='eigen', eigh_method='jacobi',
+                kfac_inv_update_freq=10, kfac_cov_update_freq=1,
+                skip_layers=('embed', 'decoder'))
+            criterion = None
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+        elif which == 'resnet50':
             (x, y), _ = datasets.get_imagenet(synthetic_size=R50_BATCH)
             model = imagenet_resnet.get_model('resnet50').to(dev)
             cfg = optimizers.OptimConfig(
@@ -805,7 +1093,11 @@ def profile_main_path(resnet50: bool = False, steps: int = 5) -> dict:
 
     def step():
         flags = engine.cadence_flags(state.step, 1, 10)
-        engine.train_step(state, xb, yb, hyper, flags, criterion)
+        if which == 'lstm':
+            engine.lm_train_step(state, xb.long(), yb.long(), hyper, flags,
+                                 grad_clip=0.25, generator=gen)
+        else:
+            engine.train_step(state, xb, yb, hyper, flags, criterion)
         state.step += 1
 
     while state.step < 11:            # warm-up, incl. the firings at 0, 10
@@ -882,13 +1174,21 @@ def main(argv=None) -> int:
     summary32, details = check_kernels(args.quick)
     log('== kernels K1-K3 vs plain versions: ResNet-50 shapes')
     summary50, details50 = check_kernels(args.quick, resnet50_shapes())
+    log('== kernel K3 vs plain version: LSTM LM bucket')
+    summary_lm, details_lm = check_kernels(args.quick, lstm=True)
     log('== kernel K4 (Newton-Schulz inverse) vs plain version')
     summary_ns, details_ns = check_ns_inverse(args.quick)
+    log('== kernel K5 (Jacobi eigh) vs plain version')
+    summary_jac, summary_jac32, details_jac = check_jacobi_eigh(args.quick)
     report = {'card': card,
-              'kernel_cases': details + details50 + details_ns,
+              'kernel_cases': (details + details50 + details_lm
+                               + details_ns + details_jac),
               'per_step_resnet32': summary32,
               'per_step_resnet50': summary50,
-              'per_firing_resnet50_ns_inverse': summary_ns}
+              'per_step_lstm': summary_lm,
+              'per_firing_resnet50_ns_inverse': summary_ns,
+              'per_firing_lstm_jacobi_eigh': summary_jac,
+              'per_firing_resnet32_jacobi_eigh': summary_jac32}
     if not args.quick:
         log('== main path: ResNet-32, batch 128, '
             f'{STEPS} K-FAC steps on one batch')
@@ -905,13 +1205,23 @@ def main(argv=None) -> int:
         report['resnet50_newton'] = r50
         log('== ResNet-50, inverse_method auto, 3 steps')
         report['resnet50_auto'] = run_resnet50_auto(card)
-        launches = {name: main_summary['launches'][name]
-                    + r50['launches'][name]
-                    + report['resnet50_auto']['launches'][name]
+        log('== main path: LSTM LM (PTB medium), batch 20, BPTT 35, '
+            f'eigen + jacobi, {LM_STEPS} steps on one batch')
+        report['lstm_jacobi'] = run_lstm_jacobi(card)
+        log('== LSTM LM, CLI defaults (auto: Cholesky), 3 steps')
+        report['lm_defaults'] = run_lm_defaults(card)
+        log(f'== ResNet-32, eigh_method jacobi, {R32_JACOBI_STEPS} steps')
+        report['resnet32_jacobi'] = run_resnet32_jacobi(card)
+        runs = (main_summary, r50, report['resnet50_auto'],
+                report['lstm_jacobi'], report['lm_defaults'],
+                report['resnet32_jacobi'])
+        launches = {name: sum(r['launches'].get(name, 0) for r in runs)
                     for name in kernels.LAUNCHES}
+        aggs = {**summary50, 'ns_inverse': summary_ns,
+                'jacobi_eigh': summary_jac}
         line = []
         for name in kernels.LAUNCHES:
-            agg = summary_ns if name == 'ns_inverse' else summary50[name]
+            agg = aggs[name]
             t_bytes, t_ops = agg['t_bytes'], agg['t_ops']
             line.append({
                 'name': name, 'route': 'cuda',
@@ -929,7 +1239,10 @@ def main(argv=None) -> int:
             report['profile'] = profile_main_path()
             log('== profile: device time by kernel category, ResNet-50 '
                 'newton')
-            report['profile_resnet50'] = profile_main_path(resnet50=True)
+            report['profile_resnet50'] = profile_main_path('resnet50')
+            log('== profile: device time by kernel category, LSTM LM '
+                'jacobi')
+            report['profile_lstm'] = profile_main_path('lstm')
     out_dir = ROOT / 'chiprun_out'
     out_dir.mkdir(exist_ok=True)
     (out_dir / 'chip_smoke.json').write_text(json.dumps(report, indent=1))

@@ -4,7 +4,9 @@ port of ``distributed_kfac_pytorch_tpu/capture.py``).
 Registration walks ``model.named_modules()`` once: every ``nn.Linear`` and
 every ``nn.Conv2d`` with ``groups=1`` becomes a :class:`LayerSpec`;
 anything else that holds parameters is recorded in
-:attr:`KFACCapture.skipped_modules` with its reason.
+:attr:`KFACCapture.skipped_modules` with its reason, except a trainable
+``nn.Embedding`` outside ``skip_layers``: the JAX package preconditions
+embeddings, the port does not yet, so it raises.
 
 Capture uses forward hooks: while recording, each registered module's
 input is kept (``a``) and a tensor hook on its output keeps the gradient
@@ -121,6 +123,12 @@ class KFACCapture:
                     self._skipped[name] = 'skip_layers match'
                 continue
             own = list(mod.parameters(recurse=False))
+            if isinstance(mod, nn.Embedding) and any(p.requires_grad
+                                                     for p in own):
+                raise NotImplementedError(
+                    f'embedding-layer K-FAC is not ported yet: nn.Embedding '
+                    f'{name!r} would be preconditioned by the JAX package; '
+                    'leave it out with skip_layers')
             if not isinstance(mod, (nn.Linear, nn.Conv2d)):
                 if own:
                     self._skipped[name] = (
@@ -194,7 +202,9 @@ class KFACCapture:
                        intercept: bool = True, **kwargs):
         """One forward/backward pass: ``(loss, out, grads, captures)``.
 
-        ``loss_fn`` maps the model output to a scalar loss. ``grads`` maps
+        ``loss_fn`` maps the model output (a tensor, or nested tuples and
+        lists of tensors such as an LM's ``(logits, states)``) to a scalar
+        loss; ``out`` comes back detached. ``grads`` maps
         parameter names to their gradients; ``captures`` is :meth:`collect`
         (``{}`` with ``intercept=False`` -- the non-factor steps, where the
         JAX package skips its capture machinery too).
@@ -207,10 +217,19 @@ class KFACCapture:
         grads = {n: p.grad for n, p in self.model.named_parameters()
                  if p.grad is not None}
         captures = self.collect() if intercept else {}
-        return loss.detach(), out.detach(), grads, captures
+        return loss.detach(), _detach(out), grads, captures
 
     def close(self) -> None:
         """Remove the forward hooks."""
         for h in self._handles:
             h.remove()
         self._handles = []
+
+
+def _detach(out):
+    """``out`` with every tensor detached, nested tuples and lists kept."""
+    if isinstance(out, torch.Tensor):
+        return out.detach()
+    if isinstance(out, (tuple, list)):
+        return type(out)(_detach(x) for x in out)
+    return out

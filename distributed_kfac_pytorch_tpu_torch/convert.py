@@ -8,6 +8,7 @@ framework has to import the other. Layout rules:
   - flax module path ``a/b`` is torch module name ``a.b``;
   - conv kernel HWIO -> weight OIHW: ``transpose(3, 2, 0, 1)``;
   - Dense kernel ``(in, out)`` -> weight ``(out, in)``;
+  - ``Embed.embedding`` ``(vocab, dim)`` -> ``nn.Embedding.weight`` as is;
   - BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` ->
     ``weight``/``bias``/``running_mean``/``running_var``. Values are
     copied as they are: flax keeps the biased batch variance in ``var``
@@ -42,6 +43,9 @@ def flax_to_torch(params: dict, batch_stats: dict | None = None
     for path, leaves in _walk(params):
         name = '.'.join(path)
         t = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa
+        if 'embedding' in leaves:                     # Embed
+            out[f'{name}.weight'] = t(leaves['embedding'])
+            continue
         if 'scale' in leaves:                         # BatchNorm
             out[f'{name}.weight'] = t(leaves['scale'])
             out[f'{name}.bias'] = t(leaves['bias'])
@@ -63,8 +67,12 @@ def flax_to_torch(params: dict, batch_stats: dict | None = None
     return out
 
 
-def torch_to_flax(state_dict: dict) -> tuple[dict, dict]:
-    """Inverse of :func:`flax_to_torch`: ``(params, batch_stats)``."""
+def torch_to_flax(state_dict: dict, embeddings=()) -> tuple[dict, dict]:
+    """Inverse of :func:`flax_to_torch`: ``(params, batch_stats)``.
+
+    ``embeddings`` names the ``nn.Embedding`` modules: a state dict alone
+    does not tell an embedding table from a bias-free Dense weight.
+    """
     params: dict = {}
     stats: dict = {}
 
@@ -84,6 +92,9 @@ def torch_to_flax(state_dict: dict) -> tuple[dict, dict]:
             put(stats, path, 'var', leaf('running_var'))
             continue
         w = leaf('weight')
+        if name in embeddings:
+            put(params, path, 'embedding', w)
+            continue
         put(params, path, 'kernel',
             w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.T)
         if f'{name}.bias' in state_dict:

@@ -2,7 +2,7 @@
 plain PyTorch versions and launch counters.
 
 The counterpart of ``distributed_kfac_pytorch_tpu/ops/pallas_kernels.py``.
-Four kernels carry the single-device K-FAC step:
+Five kernels carry the single-device K-FAC step:
 
   ``factor_ema``     K1, ``csrc/factor_ema.cu`` -- factor contraction +
                      bias assembly + EMA blend (replaces
@@ -20,7 +20,11 @@ Four kernels carry the single-device K-FAC step:
   ``ns_inverse``     K4, ``csrc/ns_inverse.cu`` -- batched damped SPD
                      inverse by Newton--Schulz (replaces
                      ``pallas_kernels._ns_inverse_kernel`` via
-                     ``batched_inverse`` / ``damped_inverse_stack``).
+                     ``batched_inverse`` / ``damped_inverse_stack``);
+  ``jacobi_eigh``    K5, ``csrc/jacobi_eigh.cu`` -- batched Brent--Luk
+                     parallel Jacobi eigh (replaces
+                     ``pallas_kernels._jacobi_eigh_kernel`` via
+                     ``batched_jacobi_eigh``).
 
 K3 and K4 share the tile GEMM of ``csrc/gemm.cuh``. Each wrapper runs
 its kernel's plain version for tensors on the CPU and launches the CUDA
@@ -52,7 +56,7 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 SOURCES = {'factor_ema': 'factor_ema.cu', 'patch_cov': 'patch_cov.cu',
            'bucket_precond': 'bucket_precond.cu',
-           'ns_inverse': 'ns_inverse.cu'}
+           'ns_inverse': 'ns_inverse.cu', 'jacobi_eigh': 'jacobi_eigh.cu'}
 HEADERS = ('gram.cuh', 'gemm.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
@@ -271,6 +275,8 @@ _SIGNATURES = {
     'ns_inverse': {
         'kfac_ns_inverse': [_P, _F, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P,
                             _P]},
+    'jacobi_eigh': {
+        'kfac_jacobi_eigh': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
 }
 
 
@@ -653,6 +659,93 @@ def damped_inverse_stack(stack: torch.Tensor, damping, method: str,
                      f"'cholesky', got {method!r}")
 
 
+# ---------------------------------------------------------------------------
+# K5: batched Brent--Luk parallel Jacobi eigh. Replaces
+# pallas_kernels._jacobi_eigh_kernel (driven by _pallas_batched_jacobi_eigh /
+# batched_jacobi_eigh). Bound on the H100: operations -- 9 n^2 fp32 FLOPs per
+# matrix and round over sweeps * (n - 1) rounds (~7.7 ms for a (16, 652)
+# stack at the fp32 peak). The TPU kernel holds A and V in VMEM (n <= 64
+# there); here every n runs as one launch per round that rotates 2 x 2
+# blocks of A and V and stores them straight to their slots after the
+# exchange (ping-pong buffers), so each round streams A and V through
+# L2 / HBM. Pad, sort and strip stay outside the kernel, as in JAX.
+# ---------------------------------------------------------------------------
+
+#: Working-set budget of one chunk of matrices (4 buffers of n_pad^2
+#: floats each), so that a chunk's rounds run in the 50 MB L2.
+_JACOBI_L2_BYTES = 32 << 20
+
+
+def jacobi_slot_dest(n_pad: int) -> torch.Tensor:
+    """The Brent--Luk exchange as an int32 table: slot ``k`` moves to slot
+    ``dest[k]`` (:func:`linalg.jacobi_exchange`; the identity for
+    ``n_pad = 2``, where the plain loop skips the exchange)."""
+    if n_pad <= 2:
+        return torch.arange(n_pad, dtype=torch.int32)
+    moved = linalg.jacobi_exchange(torch.arange(n_pad), 0)
+    dest = torch.empty(n_pad, dtype=torch.int32)
+    dest[moved] = torch.arange(n_pad, dtype=torch.int32)
+    return dest
+
+
+@functools.lru_cache(maxsize=None)
+def _jacobi_dest_on(n_pad: int, device: torch.device) -> torch.Tensor:
+    """The table on the card, built once per size (the kernel only reads
+    it)."""
+    return jacobi_slot_dest(n_pad).to(device)
+
+
+def batched_jacobi_eigh_plain(mats: torch.Tensor, sweeps: int | None = None
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K5: :func:`linalg.jacobi_eigh` of each matrix of a
+    ``(B, n, n)`` stack; ``(Q, d)`` ascending."""
+    return linalg.jacobi_eigh(mats, sweeps)
+
+
+def batched_jacobi_eigh(mats: torch.Tensor, sweeps: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric eigendecomposition of a ``(B, n, n)`` fp32 stack by
+    Brent--Luk parallel Jacobi (K5): ``(Q, d)`` with eigenvalues
+    ascending, ``sweeps`` defaulting to
+    :func:`linalg.default_jacobi_sweeps` of ``n``.
+
+    Odd ``n`` is padded with a decoupled unit eigenpair, and the result
+    sorted and stripped of it, around the kernel; ``n = 1`` launches
+    nothing. One round's launch covers as many matrices as fit the L2
+    budget.
+    """
+    n = mats.shape[-1]
+    if sweeps is None:
+        sweeps = linalg.default_jacobi_sweeps(n)
+    if not _dispatch_device(mats, 'batched_jacobi_eigh'):
+        return batched_jacobi_eigh_plain(mats, sweeps)
+    _require(mats, 'batched_jacobi_eigh mats', 3)
+    b, n, n2 = mats.shape
+    if n != n2 or not mats.is_contiguous() or b < 1 or n < 1:
+        raise ValueError(f'batched_jacobi_eigh: expected a contiguous '
+                         f'(B, n, n) stack, got shape {tuple(mats.shape)}')
+    sweeps = int(sweeps)
+    if sweeps < 0:
+        raise ValueError(f'batched_jacobi_eigh: sweeps must be >= 0, got '
+                         f'{sweeps}')
+    if n == 1:
+        return torch.ones_like(mats), mats.reshape(b, 1).clone()
+    a0, v0 = linalg.jacobi_pad(mats)
+    n_pad = a0.shape[-1]
+    # Matrices per launch: as many as fit the L2 budget, at most grid z.
+    chunk = max(1, min(b, 65535, _JACOBI_L2_BYTES // (16 * n_pad * n_pad)))
+    a1, v1 = torch.empty_like(a0), torch.empty_like(v0)
+    rounds = sweeps * (n_pad - 1)
+    err = _lib('jacobi_eigh').kfac_jacobi_eigh(
+        a0.data_ptr(), a1.data_ptr(), v0.data_ptr(), v1.data_ptr(),
+        _jacobi_dest_on(n_pad, mats.device).data_ptr(), b, n_pad, rounds,
+        chunk, _stream(mats))
+    _check(err, 'batched_jacobi_eigh')
+    LAUNCHES['jacobi_eigh'] += 1
+    a, v = (a0, v0) if rounds % 2 == 0 else (a1, v1)
+    return linalg.jacobi_finish(torch.diagonal(a, dim1=-2, dim2=-1), v, n)
+
+
 #: Per kernel: its source, the TPU kernel it replaces, and what bounds it.
 KERNEL_INFO = {
     'factor_ema': {
@@ -672,10 +765,16 @@ KERNEL_INFO = {
         'source': 'distributed_kfac_pytorch_tpu_torch/csrc/ns_inverse.cu',
         'replaces': 'distributed_kfac_pytorch_tpu/ops/pallas_kernels.py:122',
     },
+    'jacobi_eigh': {
+        'source': 'distributed_kfac_pytorch_tpu_torch/csrc/jacobi_eigh.cu',
+        'replaces': 'distributed_kfac_pytorch_tpu/ops/pallas_kernels.py:210',
+    },
 }
 
 __all__ = ['LAUNCHES', 'KERNEL_INFO', 'reset_launches', 'build',
            'factor_ema', 'factor_ema_plain', 'patch_cov', 'patch_cov_plain',
            'bucket_precond', 'bucket_precond_plain', 'batched_inverse',
-           'batched_inverse_plain', 'damped_inverse_stack', 'mult_bf16',
+           'batched_inverse_plain', 'damped_inverse_stack',
+           'batched_jacobi_eigh', 'batched_jacobi_eigh_plain',
+           'jacobi_slot_dest', 'mult_bf16',
            'extract_conv2d_patches', 'conv_out_geometry']

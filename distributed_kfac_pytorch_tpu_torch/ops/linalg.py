@@ -7,9 +7,11 @@ polish is matmul-only; with the port's entry points TF32 is off, so
 ``torch.matmul`` on fp32 runs in full fp32 -- the counterpart of the JAX
 package's ``Precision.HIGHEST``.
 
-Not ported yet: the Jacobi eigh (``jacobi_eigh``, the Pallas Jacobi
-kernel), the randomized low-rank path and the truncated / diagonal-A /
-reduced-precision precondition branches.
+The Brent--Luk Jacobi eigh (:func:`jacobi_eigh`) is the plain version of
+the Jacobi kernel (``ops.kernels.batched_jacobi_eigh``, K5).
+
+Not ported yet: the randomized low-rank path and the truncated /
+diagonal-A / reduced-precision precondition branches.
 """
 
 from __future__ import annotations
@@ -30,6 +32,128 @@ def get_eigendecomp(x: torch.Tensor, clip: float | None = 0.0
 def _sign(x: torch.Tensor) -> torch.Tensor:
     """+1 where ``x >= 0`` (sign(0) = +1), else -1."""
     return torch.where(x >= 0, 1.0, -1.0)
+
+
+def default_jacobi_sweeps(n: int) -> int:
+    """Sweep count reaching fp32 roundoff: 12 up to n=512, +log2 beyond."""
+    return 12 if n <= 512 else 12 + max(0, (n - 1).bit_length() - 9)
+
+
+def jacobi_rotation(app: torch.Tensor, aqq: torch.Tensor,
+                    apq: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-pair ``(c, s)`` of the Jacobi rotation zeroing ``apq``: ``tau =
+    (aqq - app) / (2 apq)`` (``t = 0`` where ``|apq| <= 1e-30``), ``t =
+    sign(tau) / (|tau| + sqrt(1 + tau^2))`` with sign(0) = +1 (equal
+    diagonals take the full 45-degree rotation), ``c = 1 / sqrt(1 + t^2)``,
+    ``s = t c``."""
+    small = apq.abs() <= 1e-30
+    tau = (aqq - app) / torch.where(small, 1.0, 2.0 * apq)
+    t = _sign(tau) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
+    t = torch.where(small, 0.0, t)
+    c = 1.0 / torch.sqrt(1.0 + t * t)
+    return c, t * c
+
+
+def _rotate_halves(m: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
+                   dim: int) -> torch.Tensor:
+    """Mix the two halves of ``m`` along ``dim`` (-2: rows, -1: columns)
+    with per-pair ``(c, s)``: ``[c lo - s hi, s lo + c hi]``."""
+    p = m.shape[dim] // 2
+    lo, hi = m.narrow(dim, 0, p), m.narrow(dim, p, p)
+    c, s = (c[..., :, None], s[..., :, None]) if dim == -2 else (
+        c[..., None, :], s[..., None, :])
+    return torch.cat([c * lo - s * hi, s * lo + c * hi], dim=dim)
+
+
+def jacobi_exchange(m: torch.Tensor, dim: int) -> torch.Tensor:
+    """Brent--Luk systolic move to the next pairing along ``dim``:
+    tops' = [t0, b0, t1..t_{p-2}]; bots' = [b1..b_{p-1}, t_{p-1}]."""
+    p = m.shape[dim] // 2
+    t, b = m.narrow(dim, 0, p), m.narrow(dim, p, p)
+    return torch.cat([t.narrow(dim, 0, 1), b.narrow(dim, 0, 1),
+                      t.narrow(dim, 1, p - 2), b.narrow(dim, 1, p - 1),
+                      t.narrow(dim, p - 1, 1)], dim=dim)
+
+
+def jacobi_slot_iteration(a: torch.Tensor, v: torch.Tensor, sweeps: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Brent--Luk Jacobi inner loop over an even-dim slot-basis pair
+    (any leading batch dims): ``sweeps * (n - 1)`` rounds, each pairing
+    slot ``i`` with slot ``p + i`` (``p = n / 2``), rotating the paired
+    halves of ``a`` (rows, then columns) and of ``v`` (columns), then
+    moving to the next tournament pairing with :func:`jacobi_exchange`.
+
+    Returns ``(a, v)``: ``a`` ~diagonal in the final slot order and the
+    columns of ``v`` the matching eigenvector candidates.
+    """
+    n_pad = a.shape[-1]
+    p = n_pad // 2
+    a, v = a.float(), v.float()
+    for _ in range(sweeps * (n_pad - 1)):
+        d = torch.diagonal(a, dim1=-2, dim2=-1)
+        apq = torch.diagonal(a[..., :p, p:], dim1=-2, dim2=-1)
+        c, s = jacobi_rotation(d[..., :p], d[..., p:], apq)
+        a = _rotate_halves(_rotate_halves(a, c, s, -2), c, s, -1)
+        v = _rotate_halves(v, c, s, -1)
+        if p > 1:
+            a = jacobi_exchange(jacobi_exchange(a, -2), -1)
+            v = jacobi_exchange(v, -1)
+    return a, v
+
+
+def jacobi_pad(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The slot iteration's start ``(a, v)`` for a ``(..., n, n)`` stack
+    (``n >= 2``): fp32 copies at even size ``n_pad = n + n % 2``, odd ``n``
+    padded with a decoupled unit eigenvalue, and ``v`` the identity."""
+    n = x.shape[-1]
+    n_pad = n + n % 2
+    a = x.new_zeros((*x.shape[:-2], n_pad, n_pad), dtype=torch.float32)
+    a[..., :n, :n] = x
+    if n_pad != n:
+        a[..., n, n] = 1.0
+    v = torch.eye(n_pad, dtype=torch.float32, device=x.device).expand_as(
+        a).clone()
+    return a, v
+
+
+def jacobi_finish(d: torch.Tensor, v: torch.Tensor, n: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sort the slot-order eigenpairs ``(v, d)`` ascending (stably, as
+    ``jnp.argsort``) and, for a padded stack, drop the pad eigenpair, whose
+    eigenvector is exactly ``e_n``. Returns ``(Q, d)``."""
+    order = torch.argsort(d, dim=-1, stable=True)
+    d = torch.gather(d, -1, order)
+    v = torch.gather(v, -1, order[..., None, :].expand_as(v))
+    if v.shape[-1] != n:
+        # The kept columns' positions, in order (no host sync).
+        drop = (v[..., n, :] >= 0.5).to(torch.int32)
+        idx = torch.argsort(drop, dim=-1, stable=True)[..., :n]
+        v = torch.gather(v[..., :n, :], -1,
+                         idx[..., None, :].expand(*idx.shape[:-1], n, n))
+        d = torch.gather(d, -1, idx)
+    return v, d
+
+
+def jacobi_eigh(x: torch.Tensor, sweeps: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric eigendecomposition of a ``(..., n, n)`` stack by
+    Brent--Luk parallel Jacobi (the JAX ``jacobi_eigh``, batched): ``(Q,
+    d)`` with eigenvalues ascending. ``sweeps`` defaults to
+    :func:`default_jacobi_sweeps` of ``n``."""
+    n = x.shape[-1]
+    x = x.float()
+    if sweeps is None:
+        sweeps = default_jacobi_sweeps(n)
+    if n == 1:
+        return torch.ones_like(x), x.reshape(*x.shape[:-2], 1).clone()
+    a, v = jacobi_slot_iteration(*jacobi_pad(x), sweeps)
+    return jacobi_finish(torch.diagonal(a, dim1=-2, dim2=-1), v, n)
+
+
+def resolve_eigh_method(method: str) -> str:
+    """The eigh-method alias: ``'warm'`` behaves as ``'auto'`` (polish when
+    a previous basis exists, the library eigh when not)."""
+    return 'auto' if method in ('auto', 'warm') else method
 
 
 def eigh_polish(a: torch.Tensor, q_prev: torch.Tensor, iters: int = 16,
@@ -81,15 +205,19 @@ def eigh_polish(a: torch.Tensor, q_prev: torch.Tensor, iters: int = 16,
 
 def batched_eigh(stack: torch.Tensor, method: str = 'xla',
                  clip: float | None = 0.0,
+                 sweeps: int | None = None,
                  q_prev: torch.Tensor | None = None,
                  polish_iters: int = 16
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Eigendecompose a ``(B, n, n)`` SPD stack: ``(Q, d)``.
 
     ``'xla'`` is the library eigh (``torch.linalg.eigh``, ascending);
-    ``'warm'`` requires ``q_prev`` and runs :func:`eigh_polish`
-    (eigenvalues in tracked order); ``'auto'`` picks ``'warm'`` when
-    ``q_prev`` is given, else ``'xla'``.
+    ``'jacobi'`` the Brent--Luk Jacobi eigh (ascending) through
+    ``ops.kernels.batched_jacobi_eigh`` -- the CUDA kernel for a stack on
+    the card, :func:`jacobi_eigh` on the CPU; ``'warm'`` requires
+    ``q_prev`` and runs :func:`eigh_polish` (eigenvalues in tracked
+    order); ``'auto'`` picks ``'warm'`` when ``q_prev`` is given, else
+    ``'xla'``.
     """
     if method == 'auto':
         method = 'warm' if q_prev is not None else 'xla'
@@ -97,17 +225,17 @@ def batched_eigh(stack: torch.Tensor, method: str = 'xla',
         if q_prev is None:
             raise ValueError("eigh method 'warm' requires q_prev")
         qs, ds = eigh_polish(stack, q_prev, iters=polish_iters)
-        if clip is not None:
-            ds = torch.clamp(ds, min=clip)
-        return qs, ds
-    if method == 'jacobi':
-        raise NotImplementedError(
-            "eigh method 'jacobi' (the Jacobi eigh kernel) is not ported "
-            'yet')
-    if method != 'xla':
-        raise ValueError("eigh method must be 'auto', 'xla' or 'warm', "
-                         f'got {method!r}')
-    return get_eigendecomp(stack, clip=clip)
+    elif method == 'jacobi':
+        from distributed_kfac_pytorch_tpu_torch.ops import kernels
+        qs, ds = kernels.batched_jacobi_eigh(stack, sweeps)
+    elif method == 'xla':
+        return get_eigendecomp(stack, clip=clip)
+    else:
+        raise ValueError("eigh method must be 'auto', 'xla', 'jacobi' or "
+                         f"'warm', got {method!r}")
+    if clip is not None:
+        ds = torch.clamp(ds, min=clip)
+    return qs, ds
 
 
 def get_inverse(x: torch.Tensor, damping=None) -> torch.Tensor:

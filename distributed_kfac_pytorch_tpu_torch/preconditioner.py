@@ -16,8 +16,10 @@ rather than updating the old ones in place.
 On the main path hand-written CUDA kernels do the work (``ops.kernels``):
 the factor contraction + EMA (linear A/G and conv G), the conv-A patch
 covariance, the bucketed preconditioning with the KL-clip ``v.g``
-partial (eigen and baked forms), and, under ``'newton'``, the batched
-Newton--Schulz damped inverse of each size bucket at an inverse firing.
+partial (eigen and baked forms), under ``'newton'`` the batched
+Newton--Schulz damped inverse of each size bucket at an inverse firing,
+and under ``eigh_method='jacobi'`` the batched Jacobi eigh of each eigen
+size bucket.
 ``fused_factor_contraction`` and ``fused_precondition`` default to True
 here (the JAX package defaults them off: there they are unproven TPU
 study kernels); with a knob off that stage runs the stock torch path.
@@ -110,8 +112,10 @@ class KFAC:
         damped inverse ``'auto'`` uses above ``auto_eigen_max_dim``.
       newton_iters: iteration cap of ``'newton'`` (the loop stops early
         once ``max|M X - I| <= 1e-5``).
-      eigh_method: ``'auto'`` (warm-start polish seeded from the previous
-        basis) or ``'xla'`` (``torch.linalg.eigh`` every firing).
+      eigh_method: ``'auto'`` or its alias ``'warm'`` (warm-start polish
+        seeded from the previous basis), ``'xla'`` (``torch.linalg.eigh``
+        every firing) or ``'jacobi'`` (the Brent--Luk Jacobi eigh kernel
+        every firing, cold: the previous basis is not used).
       factor_compute_dtype: ``None``/``torch.float32`` (fp32
         multiplicands) or ``torch.bfloat16`` (bf16-rounded multiplicands);
         accumulation is fp32 either way.
@@ -157,13 +161,9 @@ class KFAC:
         if auto_large_method not in ('cholesky', 'newton'):
             raise ValueError("auto_large_method must be 'cholesky' or "
                              f"'newton', got {auto_large_method!r}")
-        if eigh_method == 'jacobi':
-            raise NotImplementedError(
-                "eigh_method='jacobi' (the TPU Jacobi eigh kernel) is not "
-                'ported yet')
-        if eigh_method not in ('auto', 'xla'):
-            raise ValueError("eigh_method must be 'auto' or 'xla', got "
-                             f'{eigh_method!r}')
+        if eigh_method not in ('auto', 'xla', 'jacobi', 'warm'):
+            raise ValueError("eigh_method must be 'auto', 'xla', 'jacobi' "
+                             f"or 'warm', got {eigh_method!r}")
         kernels.mult_bf16(factor_compute_dtype)  # validates the dtype
         self.model = model
         self.capture = KFACCapture(model, skip_layers=skip_layers)
@@ -303,9 +303,10 @@ class KFAC:
 
     def _bucketed_eigh(self, mats: dict, prev: dict | None = None) -> dict:
         """Eigendecompose a dict of SPD matrices, one batched call per
-        size; with ``prev`` bases (and eigh_method 'auto') the warm polish,
-        else the library eigh."""
-        method = self.eigh_method
+        size; with ``prev`` bases (and eigh_method 'auto'/'warm') the warm
+        polish, under 'jacobi' the Jacobi kernel (``prev`` unused), else
+        the library eigh."""
+        method = linalg.resolve_eigh_method(self.eigh_method)
         out = {}
         for names, stack in _size_buckets(mats):
             q_prev = None

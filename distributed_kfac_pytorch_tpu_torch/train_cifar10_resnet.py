@@ -60,7 +60,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--kfac-update-freq-alpha', type=float, default=10)
     p.add_argument('--kfac-update-freq-decay', type=int, nargs='+',
                    default=[])
-    p.add_argument('--eigh-method', default='auto', choices=['auto', 'xla'])
+    p.add_argument('--eigh-method', default='auto',
+                   choices=['auto', 'xla', 'jacobi', 'warm'],
+                   help='auto/warm = warm-start polish; xla = '
+                        'torch.linalg.eigh; jacobi = the Jacobi '
+                        'eigh kernel')
     p.add_argument('--eigh-polish-iters', type=int, default=8)
     p.add_argument('--stat-decay', type=float, default=0.95)
     p.add_argument('--damping', type=float, default=0.003)

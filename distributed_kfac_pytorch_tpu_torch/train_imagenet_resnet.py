@@ -70,7 +70,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help='auto = eigen up to factor dim 640, damped '
                         'Cholesky above; newton = every factor by the '
                         'Newton-Schulz kernel')
-    p.add_argument('--eigh-method', default='auto', choices=['auto', 'xla'])
+    p.add_argument('--eigh-method', default='auto',
+                   choices=['auto', 'xla', 'jacobi', 'warm'],
+                   help='auto/warm = warm-start polish; xla = '
+                        'torch.linalg.eigh; jacobi = the Jacobi '
+                        'eigh kernel')
     p.add_argument('--eigh-polish-iters', type=int, default=8)
     p.add_argument('--stat-decay', type=float, default=0.95)
     p.add_argument('--damping', type=float, default=0.001)

@@ -1,0 +1,170 @@
+"""Train an LSTM language model with single-device K-FAC + SGD (PyTorch port
+of ``examples/train_language_model.py``, ``--arch lstm``).
+
+    python -m distributed_kfac_pytorch_tpu_torch.train_language_model \
+        --inverse-method eigen --eigh-method jacobi
+
+Flags keep the JAX CLI's names and defaults for what the port supports:
+the PTB "medium" LSTM (650-wide embedding and hidden, 2 layers, the
+8-gate K-FAC cell), BPTT 35, batch 20, dropout 0.5, global-norm gradient
+clip 0.25, lr 1.0 decayed at epochs 20/30, momentum 0.9, damping 0.003,
+KL clip 0.001, stat decay 0.95, inverses every 10 steps and factors every
+step; K-FAC preconditions the LSTM gates, with ``embed`` and ``decoder``
+skipped by default. Each BPTT window starts from zero states, as the JAX
+CLI calls the model with ids only. The data is whitespace-tokenized
+``train.txt`` / ``valid.txt`` under ``--data-dir``, else the JAX
+package's synthetic Markov corpus.
+
+Port-only flags: ``--device`` (default ``cuda``; ``cpu`` must be asked
+for), ``--synthetic-size`` and ``--synthetic-vocab`` (train tokens and
+vocabulary of the synthetic corpus; the JAX defaults 200000 and 1000),
+``--fixed-batch`` (every step trains on the first window), ``--max-steps``
+(stop after that many steps), ``--time-steps`` (synchronize each step and
+record its wall time) and ``--quiet``.
+
+The JAX CLI wraps ``KFAC`` in a one-device ``DistributedKFAC``; here the
+single-device ``KFAC`` runs directly. Not ported yet: ``--arch
+transformer`` (raises), embedding-layer K-FAC (an unskipped embedding
+raises; ``--tied`` runs with the shared table skipped), the LR warmup
+(``--warmup-epochs``, flat on one device), sequence parallelism,
+multi-slice meshes, checkpointing and resume, metrics sinks and
+profiling, fp16 / bf16 modes, autotune and the K-FAC knobs listed in
+``preconditioner.NOT_PORTED``.
+
+:func:`train` is the programmatic entry point.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+from distributed_kfac_pytorch_tpu_torch import resolve_device, \
+    set_fp32_precision
+from distributed_kfac_pytorch_tpu_torch.models import lstm_lm
+from distributed_kfac_pytorch_tpu_torch.training import datasets, engine, \
+    optimizers
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description='LSTM language model + single-device K-FAC (torch '
+                    'port)')
+    p.add_argument('--data-dir', default=None,
+                   help='dir with train.txt/valid.txt (synthetic if '
+                        'absent)')
+    p.add_argument('--arch', default='lstm',
+                   choices=['lstm', 'transformer'],
+                   help='transformer is not ported yet (raises)')
+    p.add_argument('--emsize', type=int, default=650)
+    p.add_argument('--nhid', type=int, default=650)
+    p.add_argument('--nlayers', type=int, default=2)
+    p.add_argument('--dropout', type=float, default=0.5)
+    p.add_argument('--tied', action='store_true')
+    p.add_argument('--bptt', type=int, default=35)
+    p.add_argument('--batch-size', type=int, default=20)
+    p.add_argument('--epochs', type=int, default=40)
+    p.add_argument('--base-lr', type=float, default=1.0)
+    p.add_argument('--lr-decay', type=int, nargs='+', default=[20, 30])
+    p.add_argument('--momentum', type=float, default=0.9)
+    p.add_argument('--wd', type=float, default=0.0)
+    p.add_argument('--grad-clip', type=float, default=0.25,
+                   help='global-norm clip of every update (0 = off)')
+    p.add_argument('--seed', type=int, default=42)
+    p.add_argument('--kfac-update-freq', type=int, default=10,
+                   help='inverse update interval; 0 disables K-FAC')
+    p.add_argument('--kfac-cov-update-freq', type=int, default=1)
+    p.add_argument('--inverse-method', default='auto',
+                   choices=['auto', 'eigen', 'cholesky', 'newton'],
+                   help='auto = eigen up to factor dim 640, damped '
+                        'Cholesky above (every LSTM gate factor: 650/651)')
+    p.add_argument('--eigh-method', default='auto',
+                   choices=['auto', 'xla', 'jacobi', 'warm'],
+                   help='auto/warm = warm-start polish; xla = '
+                        'torch.linalg.eigh; jacobi = the Jacobi eigh '
+                        'kernel')
+    p.add_argument('--eigh-polish-iters', type=int, default=8)
+    p.add_argument('--stat-decay', type=float, default=0.95)
+    p.add_argument('--damping', type=float, default=0.003)
+    p.add_argument('--kl-clip', type=float, default=0.001)
+    p.add_argument('--skip-layers', nargs='+', default=None,
+                   help="default: ['embed', 'decoder'] (K-FAC on the "
+                        'LSTM gates only)')
+    # Port-only flags.
+    p.add_argument('--device', default='cuda')
+    p.add_argument('--synthetic-size', type=int, default=200_000)
+    p.add_argument('--synthetic-vocab', type=int, default=1000)
+    p.add_argument('--fixed-batch', action='store_true')
+    p.add_argument('--max-steps', type=int, default=None)
+    p.add_argument('--time-steps', action='store_true')
+    p.add_argument('--quiet', action='store_true')
+    return p
+
+
+def train(args_or_config=None, device='cuda') -> dict:
+    """Train and return a summary dict.
+
+    ``args_or_config``: an ``argparse.Namespace``, a list of CLI strings,
+    or a dict of option overrides (``{'nhid': 32, 'max_steps': 2}``).
+    ``device`` (default ``'cuda'``) overrides ``--device``; it raises
+    without a CUDA device unless ``'cpu'`` is asked for.
+
+    Returns what :func:`engine.fit_lm` returns: per-step losses and fired
+    stages ('inverse', 'factor' or None), per-step wall ms when
+    ``time_steps``, the last epoch's train / val loss and perplexity and
+    the final ``TrainState``. The launch counts of the kernels are
+    ``ops.kernels.LAUNCHES``.
+    """
+    args = engine.parse_args(build_parser(), args_or_config)
+    if args.arch != 'lstm':
+        raise NotImplementedError(
+            f'--arch {args.arch}: the Transformer LM is not ported yet')
+    dev = resolve_device(device if device is not None else args.device)
+    set_fp32_precision()
+    train_ids, val_ids, vocab = datasets.get_lm_corpus(
+        args.data_dir, synthetic_size=args.synthetic_size,
+        vocab_size=args.synthetic_vocab)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(args.seed)
+        model = lstm_lm.LSTMLanguageModel(
+            vocab, embedding_dim=args.emsize, hidden_dim=args.nhid,
+            num_layers=args.nlayers, dropout=args.dropout,
+            tie_weights=args.tied)
+    model = model.to(dev)
+    skip = (['embed', 'decoder'] if args.skip_layers is None
+            else args.skip_layers)
+    cfg = optimizers.OptimConfig(
+        base_lr=args.base_lr, momentum=args.momentum,
+        weight_decay=args.wd, lr_decay=args.lr_decay,
+        kfac_inv_update_freq=args.kfac_update_freq,
+        kfac_cov_update_freq=args.kfac_cov_update_freq,
+        damping=args.damping, factor_decay=args.stat_decay,
+        kl_clip=args.kl_clip, inverse_method=args.inverse_method,
+        eigh_method=args.eigh_method,
+        eigh_polish_iters=args.eigh_polish_iters, skip_layers=skip)
+    optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
+        model, cfg, device=dev)
+    state = engine.TrainState(
+        model=model, optimizer=optimizer, kfac=kfac,
+        kfac_state=kfac.init_state() if kfac is not None else None)
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(args.seed)
+    return engine.fit_lm(
+        state, train_ids, val_ids, lr_schedule=lr_schedule,
+        kfac_sched=kfac_sched, epochs=args.epochs,
+        batch_size=args.batch_size, bptt=args.bptt, seed=args.seed,
+        device=dev, grad_clip=args.grad_clip, generator=generator,
+        fixed_batch=args.fixed_batch, max_steps=args.max_steps,
+        time_steps=args.time_steps, verbose=not args.quiet)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    train(args, device=args.device)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,15 +1,18 @@
-"""CIFAR-10 and ImageNet input pipelines in numpy, NCHW (PyTorch port of
-the CIFAR and synthetic-ImageNet parts of
+"""CIFAR-10, ImageNet and language-model input pipelines in numpy, images
+NCHW (PyTorch port of the CIFAR, synthetic-ImageNet and LM-corpus parts of
 ``distributed_kfac_pytorch_tpu/training/datasets.py``).
 
 Real CIFAR-10 is read from python pickle batches when present; otherwise
 a deterministic synthetic set of the same shapes (the JAX package's
 class-conditional Gaussian images, same values, transposed to NCHW)
-keeps every run offline. ImageNet is synthetic only: the JAX package's
+keeps every run offline; the LM corpus likewise (whitespace-tokenized
+``train.txt`` / ``valid.txt``, else the JAX package's synthetic Markov
+chain, token for token). ImageNet is synthetic only: the JAX package's
 tf.data directory reader is not ported. Augmentation draws its random
 numbers in the JAX package's order, so both packages crop and flip
 alike.
-Mid-epoch resume (``skip_batches``) waits for the checkpoint port.
+Mid-epoch resume of the image sets (``skip_batches``) waits for the
+checkpoint port; ``bptt_batches`` takes it as the JAX function does.
 """
 
 from __future__ import annotations
@@ -138,3 +141,82 @@ def epoch_batches(x: np.ndarray, y: np.ndarray, batch_size: int, *,
         if augment:
             xb = augment_cifar(xb, rng)
         yield xb, y[sel]
+
+
+def get_lm_corpus(data_dir: str | None = None, *,
+                  synthetic_size: int = 200_000,
+                  vocab_size: int = 1000):
+    """(train_ids, val_ids, vocab_size) int32 token streams.
+
+    Reads whitespace-tokenized ``train.txt`` / ``valid.txt`` under
+    ``data_dir`` (PTB / WikiText layout; newlines become ``<eos>``, the
+    vocabulary comes from the train split plus ``<unk>``). Without them,
+    a synthetic sparse random bigram chain over ``vocab_size`` tokens
+    (``synthetic_size`` train tokens, a tenth as many validation tokens),
+    the same ids as the JAX package's for the same arguments.
+    ``KFAC_SYNTHETIC_LM`` overrides the synthetic train-token count.
+    """
+    env_size = os.environ.get('KFAC_SYNTHETIC_LM')
+    if env_size:
+        synthetic_size = max(int(env_size), 10)
+    if data_dir and os.path.isfile(os.path.join(data_dir, 'train.txt')):
+        def read(split):
+            with open(os.path.join(data_dir, f'{split}.txt')) as f:
+                return f.read().replace('\n', ' <eos> ').split()
+        train_tok = read('train')
+        val_tok = read('valid')
+        vocab = {w: i for i, w in enumerate(
+            sorted(set(train_tok)) + ['<unk>'])}
+        unk = vocab['<unk>']
+
+        def to_ids(toks):
+            return np.array([vocab.get(w, unk) for w in toks], np.int32)
+        return to_ids(train_tok), to_ids(val_tok), len(vocab)
+
+    # Sparse random bigram chain: the next token depends on the current
+    # one, so an LM can beat the unigram entropy.
+    rng = np.random.default_rng(1234)
+    n_next = 8
+    trans = rng.integers(0, vocab_size, size=(vocab_size, n_next))
+
+    def gen(n, seed):
+        r = np.random.default_rng(seed)
+        out = np.empty(n, np.int32)
+        tok = 0
+        for i in range(n):
+            out[i] = tok
+            tok = trans[tok, r.integers(0, n_next)]
+        return out
+
+    return (gen(synthetic_size, 0), gen(synthetic_size // 10, 1),
+            vocab_size)
+
+
+def bptt_batches(ids: np.ndarray, batch_size: int, bptt: int, *,
+                 shuffle_offset: bool = False, seed: int = 0,
+                 epoch: int = 0, skip_batches: int = 0
+                 ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """``(inputs, targets)`` BPTT windows of shape ``(batch_size, bptt)``.
+
+    The stream is folded into ``batch_size`` contiguous tracks; targets are
+    the inputs shifted by one. With ``shuffle_offset`` each ``(seed,
+    epoch)`` starts the tracks at a random offset below ``bptt``; a short
+    last window is dropped; ``skip_batches`` drops the first windows
+    after the offset draw.
+    """
+    n = ids.shape[0]
+    off = 0
+    if shuffle_offset and (n - 1) // batch_size > bptt:
+        off = int(np.random.default_rng(
+            np.random.SeedSequence([seed, epoch])).integers(0, bptt))
+    track = (n - 1 - off) // batch_size
+    x = ids[off:off + batch_size * track].reshape(batch_size, track)
+    t = ids[off + 1:off + 1 + batch_size * track].reshape(batch_size,
+                                                          track)
+    for bi, start in enumerate(range(0, track - 1, bptt)):
+        stop = min(start + bptt, track)
+        if stop - start < bptt:
+            break
+        if bi < skip_batches:
+            continue
+        yield x[:, start:stop], t[:, start:stop]

@@ -1,7 +1,8 @@
 """Train / eval epoch loops over the single-device K-FAC step (PyTorch port
 of ``distributed_kfac_pytorch_tpu/training/engine.py``: the classic
-cadence of ``cadence_flags``, ``train_epoch`` and ``evaluate``), and the
-epoch loop the training CLIs share (``fit``).
+cadence of ``cadence_flags``, ``train_epoch`` and ``evaluate``), the
+epoch loop the image CLIs share (``fit``) and the language-model step and
+loop of the LM CLI (``lm_train_step``, ``fit_lm``, ``evaluate_lm``).
 
 The host drives the cadence (``factor_update`` / ``inv_update`` flags from
 the step counter). Losses and accuracies stay device tensors until the
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import time
 from typing import Any, Callable, Iterable
 
@@ -226,3 +228,157 @@ def evaluate(model: torch.nn.Module, batches: Iterable, *, device,
         print(f'epoch {epoch}: val '
               f'{ {k: round(v, 4) for k, v in out.items()} }')
     return out
+
+
+# ---------------------------------------------------------------------------
+# Language model (the JAX LM CLI's step, on the single-device KFAC)
+# ---------------------------------------------------------------------------
+
+def lm_loss(out, targets: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross entropy over every ``(batch, time)`` position of
+    an LM's ``(logits, states)`` output."""
+    logits = out[0]
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1))
+
+
+def clip_by_global_norm(grads: dict, max_norm: float) -> dict:
+    """``optax.clip_by_global_norm`` over a dict of gradients: unchanged
+    while their global L2 norm is below ``max_norm``, else each becomes
+    ``(g / norm) * max_norm`` (device tensors throughout: no host sync)."""
+    norm = torch.sqrt(sum(torch.sum(g.float() * g.float())
+                          for g in grads.values()))
+    return {k: torch.where(norm < max_norm, g, (g / norm) * max_norm)
+            for k, g in grads.items()}
+
+
+def lm_train_step(state: TrainState, ids: torch.Tensor,
+                  targets: torch.Tensor, hyper: dict, flags: dict, *,
+                  grad_clip: float = 0.0,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """One LM step: forward from zero states (``generator`` draws the
+    dropout masks), backward, K-FAC preconditioning, then the global-norm
+    clip at ``grad_clip`` (0: none) over every update, then the SGD
+    update. Returns the (device) loss."""
+    model = state.model
+    kwargs = {'dropout_generator': generator}
+    loss_fn = lambda out: lm_loss(out, targets)  # noqa: E731
+    if state.kfac is None:
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(model(ids, **kwargs))
+        loss.backward()
+        loss = loss.detach()
+        grads = {n: p.grad for n, p in model.named_parameters()
+                 if p.grad is not None}
+    else:
+        loss, _, grads, captures = state.kfac.capture.loss_and_grads(
+            loss_fn, ids, intercept=flags['factor_update'], **kwargs)
+        grads, state.kfac_state = state.kfac.step(
+            state.kfac_state, grads, captures,
+            damping=hyper.get('damping'), lr=hyper['lr'],
+            factor_update=flags['factor_update'],
+            inv_update=flags['inv_update'])
+    if grad_clip:
+        grads = clip_by_global_norm(grads, grad_clip)
+    for name, p in model.named_parameters():
+        if name in grads:
+            p.grad = grads[name]
+    state.optimizer.step()
+    return loss
+
+
+@torch.no_grad()
+def evaluate_lm(model: torch.nn.Module, batches: Iterable, *,
+                device) -> dict[str, float]:
+    """Validation loss (mean over the windows, dropout off) and
+    perplexity ``exp(min(loss, 20))``."""
+    device = torch.device(device)
+    model.eval()
+    meter, windows = Metric('loss'), 0
+    for xb, yb in batches:
+        x = torch.as_tensor(xb, dtype=torch.long, device=device)
+        y = torch.as_tensor(yb, dtype=torch.long, device=device)
+        meter.update(lm_loss(model(x), y))
+        windows += 1
+    if not windows:
+        raise ValueError('evaluate_lm: no validation windows (the '
+                         'validation stream is shorter than batch x bptt)')
+    loss = meter.avg
+    return {'loss': loss, 'ppl': math.exp(min(loss, 20.0))}
+
+
+def fit_lm(state: TrainState, train_ids: np.ndarray, val_ids: np.ndarray,
+           *, lr_schedule, kfac_sched, epochs: int, batch_size: int,
+           bptt: int, seed: int, device, grad_clip: float = 0.0,
+           generator: torch.Generator | None = None,
+           fixed_batch: bool = False, max_steps: int | None = None,
+           time_steps: bool = False, verbose: bool = False) -> dict:
+    """The LM CLI's epoch loop: per epoch, set the LR, train on the BPTT
+    windows of ``train_ids`` (tracks offset per ``(seed, epoch)``; with
+    ``fixed_batch`` every step takes epoch 0's first window instead),
+    evaluate on ``val_ids`` and advance the K-FAC scheduler; stop after
+    ``max_steps`` global steps when given.
+
+    Returns ``{'device', 'steps', 'losses', 'fired', 'step_ms', 'train',
+    'val', 'seconds', 'state'}`` as :func:`fit` does; ``train`` and
+    ``val`` hold the last epoch's ``loss`` and ``ppl``.
+    """
+    device = torch.device(device)
+    losses, fired, step_ms = [], [], []
+    train_m = val_m = {}
+    first = next(datasets.bptt_batches(train_ids, batch_size, bptt,
+                                       shuffle_offset=True, seed=seed,
+                                       epoch=0))
+    t_start = time.perf_counter()
+    for epoch in range(epochs):
+        if max_steps is not None and state.step >= max_steps:
+            break
+        state.epoch = epoch
+        lr = lr_schedule(epoch)
+        optimizers.set_lr(state.optimizer, lr)
+        hyper = {'lr': lr, **(kfac_sched.params() if kfac_sched else {})}
+        windows = datasets.bptt_batches(train_ids, batch_size, bptt,
+                                        shuffle_offset=True, seed=seed,
+                                        epoch=epoch)
+        state.model.train()
+        epoch_losses = []
+        for xb, yb in windows:
+            if max_steps is not None and state.step >= max_steps:
+                break
+            if fixed_batch:
+                xb, yb = first
+            flags = (cadence_flags(state.step, hyper['factor_update_freq'],
+                                   hyper['inv_update_freq'])
+                     if state.kfac is not None else {})
+            x = torch.as_tensor(xb, dtype=torch.long, device=device)
+            y = torch.as_tensor(yb, dtype=torch.long, device=device)
+            t0 = time.perf_counter()
+            loss = lm_train_step(state, x, y, hyper, flags,
+                                 grad_clip=grad_clip, generator=generator)
+            if time_steps:
+                if device.type == 'cuda':
+                    torch.cuda.synchronize(device)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            epoch_losses.append(loss)
+            fired.append(fired_stage(flags))
+            state.step += 1
+        epoch_losses = [float(v) for v in epoch_losses]
+        losses += epoch_losses
+        if epoch_losses:
+            mean = sum(epoch_losses) / len(epoch_losses)
+            train_m = {'loss': mean, 'ppl': math.exp(min(mean, 20.0))}
+        val_m = evaluate_lm(state.model, datasets.bptt_batches(
+            val_ids, batch_size, bptt), device=device)
+        if verbose:
+            train_ppl = train_m.get('ppl', math.nan)
+            print(f'epoch {epoch}: train ppl {train_ppl:.2f}, val ppl '
+                  f'{val_m["ppl"]:.2f}')
+        if kfac_sched:
+            kfac_sched.step(epoch + 1)
+    seconds = time.perf_counter() - t_start
+    if verbose:
+        print(f'total: {seconds:.1f}s')
+    return {'device': str(device), 'steps': state.step, 'losses': losses,
+            'fired': fired, 'step_ms': step_ms if time_steps else None,
+            'train': train_m, 'val': val_m, 'seconds': seconds,
+            'state': state}

@@ -18,6 +18,7 @@ from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
 from distributed_kfac_pytorch_tpu_torch.training import engine, optimizers
 from distributed_kfac_pytorch_tpu_torch import train_cifar10_resnet as cli
 from distributed_kfac_pytorch_tpu_torch import train_imagenet_resnet as inet
+from distributed_kfac_pytorch_tpu_torch import train_language_model as lm
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -113,6 +114,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
         cli.train(TINY)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         inet.train(INET_TINY)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        lm.train({'max_steps': 1})
     assert resolve_device('cpu') == torch.device('cpu')
 
 
@@ -168,13 +171,22 @@ def test_unported_knobs_raise_by_name(knob, value):
 
 
 @pytest.mark.parametrize('kwargs', [{'use_eigen_decomp': False},
-                                    {'use_eigen_decomp': True},
-                                    {'eigh_method': 'jacobi'},
-                                    {'inverse_method': 'newton',
-                                     'eigh_method': 'jacobi'}])
+                                    {'use_eigen_decomp': True}])
 def test_unported_inverse_methods_raise(kwargs):
     with pytest.raises(NotImplementedError, match='not ported'):
         KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu', **kwargs)
+
+
+@pytest.mark.parametrize('module', [cli, inet, lm])
+@pytest.mark.parametrize('method', ['auto', 'xla', 'jacobi', 'warm'])
+def test_clis_take_every_eigh_method(module, method):
+    args = module.build_parser().parse_args(['--eigh-method', method])
+    assert args.eigh_method == method
+    kfac = KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
+                eigh_method=method)
+    assert kfac.eigh_method == method
+    with pytest.raises(SystemExit):
+        module.build_parser().parse_args(['--eigh-method', 'qr'])
 
 
 def test_auto_dispatch_above_640_raises_and_eigen_accepts():

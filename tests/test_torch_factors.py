@@ -215,7 +215,8 @@ def test_wrappers_on_cpu_launch_nothing():
     kernels.patch_cov(x, (3, 3), (1, 1), 1, False)
     kernels.factor_ema(x, None, 0.0)
     assert kernels.LAUNCHES == {'factor_ema': 0, 'patch_cov': 0,
-                                'bucket_precond': 0, 'ns_inverse': 0}
+                                'bucket_precond': 0, 'ns_inverse': 0,
+                                'jacobi_eigh': 0}
 
 
 def test_unsupported_compute_dtype_raises():

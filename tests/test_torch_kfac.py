@@ -231,7 +231,8 @@ def test_state_keys_and_shapes(runs):
 
 def test_cpu_path_launches_no_kernel(runs):
     assert runs['launches'] == {'factor_ema': 0, 'patch_cov': 0,
-                                'bucket_precond': 0, 'ns_inverse': 0}
+                                'bucket_precond': 0, 'ns_inverse': 0,
+                                'jacobi_eigh': 0}
 
 
 def test_stock_path_matches_kernel_plain_path(runs):
