@@ -24,7 +24,9 @@ Phases (any failure exits nonzero and prints no result line):
      n <= 1024; above, the final ``max|MX - I|`` at most 2x the plain
      version's and iteration counts within +-1; timed beside the plain
      version, ``torch.cholesky_inverse(torch.linalg.cholesky(M))`` (the
-     same operator by another algorithm) and the bound;
+     same operator by another algorithm) and two bounds: the tensor-core
+     bound its time is read against (3 TF32 products per fp32 product at
+     494.7 TFLOP/s) and the fp32 CUDA-core bound;
   5. main path, ResNet-32: ``train_cifar10_resnet.train``, batch 128, 30
      K-FAC steps on one fixed synthetic batch; every loss finite, the last
      five below the first five, launches factor_ema 33, patch_cov 31,
@@ -35,7 +37,8 @@ Phases (any failure exits nonzero and prints no result line):
      every loss finite, the last three below the first three, launches
      factor_ema 55, patch_cov 53, bucket_precond 21 per step, ns_inverse
      13 per firing; then each size bucket of the final factors through K4
-     (iterations, residual, ms);
+     (iterations, residual, ms) beside the plain version's iterations and
+     residual (untimed);
   7. ResNet-50 under the default ``--inverse-method auto``: 3 steps, one
      firing; finite losses, no ns_inverse launch, bucket_precond 21 per
      step split between eigen and baked buckets;
@@ -86,8 +89,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores and HBM3 bandwidth.
+# cores, dense TF32 on the tensor cores and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
+# What each kernel's operations run on, for its bound: K4 takes each fp32
+# product as three TF32 products (3xTF32), the others are fp32 FMAs.
+BOUND_RATE = {'ns_inverse': 'tf32 tensor cores, 3 per fp32 product '
+                            '(494.7 TFLOP/s)'}
+FP32_RATE = 'fp32 CUDA cores (67 TFLOP/s)'
 PEAK_BYTES = 3.35e12
 TOL_FP32 = {'factor_ema': 1e-5, 'patch_cov': 1e-5, 'bucket_precond': 1e-4}
 TOL_BF16 = 1e-2
@@ -159,9 +168,10 @@ def time_ms(fn, reps: int = 20, trials: int = 5, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
                                  else 'operations')
 
@@ -500,10 +510,14 @@ def check_kernels(quick: bool, resnet50: dict | None = None,
 # K4: the Newton--Schulz inverse
 # ---------------------------------------------------------------------------
 
-def ns_bound(n: int, count: int, iters) -> tuple[float, str]:
-    """Bound of one K4 call: 4 n^3 FLOPs per matrix and iteration run,
-    the stack read once and the inverses written once."""
-    return bound(8.0 * count * n * n, 4.0 * n ** 3 * float(sum(iters)))
+def ns_bounds(n: int, count: int, iters) -> tuple[tuple, tuple]:
+    """Bounds of one K4 call, the stack read once and the inverses written
+    once, 4 n^3 fp32 FLOPs per matrix and iteration run: (on the tensor
+    cores at 3 TF32 products per fp32 product, the kernel's own; on the
+    fp32 CUDA cores), each (ms, 'bytes' or 'operations')."""
+    nbytes, flops = 8.0 * count * n * n, 4.0 * n ** 3 * float(sum(iters))
+    return (bound(nbytes, 3 * flops, PEAK_TF32_FLOPS),
+            bound(nbytes, flops))
 
 
 def _ns_residual(f, damping, x) -> float:
@@ -561,7 +575,8 @@ def check_ns_inverse(quick: bool) -> tuple[dict, list]:
     cases.append(('varied stop (4,100,100) l=0.001', 0.001, 100, 0, varied))
     cases.append(('cap 8 (4,100,100) l=0.001', 0.001, 8, 0, varied))
     agg = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0, 'bound_ms': 0.0,
-           't_bytes': 0.0, 't_ops': 0.0, 'max_abs_err': 0.0}
+           'fp32_bound_ms': 0.0, 't_bytes': 0.0, 't_ops': 0.0,
+           'max_abs_err': 0.0}
     rows = []
     for label, damping, iters, timed, make in cases:
         f = make()
@@ -604,19 +619,31 @@ def check_ns_inverse(quick: bool) -> tuple[dict, list]:
             eye = torch.eye(n, device='cuda')
             row['library_ms'] = time_ms(lambda: torch.cholesky_inverse(
                 torch.linalg.cholesky(f + damping * eye)), reps, trials, warm)
-            row['bound_ms'], row['bound_by'] = ns_bound(n, f.shape[0], k_got)
-            for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms'):
+            ((row['bound_ms'], row['bound_by']),
+             (row['fp32_bound_ms'], row['fp32_bound_by'])) = ns_bounds(
+                 n, f.shape[0], k_got)
+            for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms',
+                        'fp32_bound_ms'):
                 agg[key] += row[key]
             agg['t_bytes'] += 8.0 * f.shape[0] * n * n / PEAK_BYTES * 1e3
-            agg['t_ops'] += (4.0 * n ** 3 * sum(k_got)
-                             / PEAK_FP32_FLOPS * 1e3)
+            agg['t_ops'] += (3 * 4.0 * n ** 3 * sum(k_got)
+                             / PEAK_TF32_FLOPS * 1e3)
             agg['max_abs_err'] = max(agg['max_abs_err'], abs_err)
             msg += (f'  ms {row["ms"]:.3f} plain {row["plain_ms"]:.3f} lib '
                     f'(cholesky_inverse) {row["library_ms"]:.3f} bound '
-                    f'{row["bound_ms"]:.3f} ({row["bound_by"]})')
+                    f'(3xTF32, read against) {row["bound_ms"]:.3f} '
+                    f'({row["bound_by"]}) fp32 bound '
+                    f'{row["fp32_bound_ms"]:.3f}')
         log(msg)
         rows.append(row)
         del f, got, ref
+    if agg['ms']:
+        log(f'  K4 per ResNet-50 firing: {agg["ms"]:.2f} ms; bound '
+            f'(3xTF32, read against) {agg["bound_ms"]:.2f} ms '
+            f'({agg["bound_ms"] / agg["ms"]:.1%} of it reached), fp32 '
+            f'bound {agg["fp32_bound_ms"]:.2f} ms '
+            f'({agg["fp32_bound_ms"] / agg["ms"]:.1%}); library '
+            f'{agg["library_ms"]:.2f} ms')
     return agg, rows
 
 
@@ -737,14 +764,22 @@ def run_resnet50_newton(card: str) -> tuple[dict, dict]:
                                          with_iters=True)
         ms = time_ms(lambda: kernels.batched_inverse(
             stack, config['damping'], state.kfac.newton_iters), 1, 3, 1)
+        # The plain version once, untimed: whether a stall at the cap is
+        # the fp32 iteration's or the kernel's.
+        inv_p, k_p = kernels.batched_inverse_plain(
+            stack, config['damping'], state.kfac.newton_iters)
         row = {'n': stack.shape[-1], 'count': len(mats),
-               'iters': k.tolist(),
+               'iters': k.tolist(), 'plain_iters': k_p.tolist(),
                'residual': _ns_residual(stack, config['damping'], inv),
+               'plain_residual': _ns_residual(stack, config['damping'],
+                                              inv_p),
                'ms': ms}
         total_ms += ms
         buckets.append(row)
         log(f'    bucket ({row["count"]},{row["n"]},{row["n"]}): iterations '
-            f'{row["iters"]}, max|MX-I| {row["residual"]:.2e}, {ms:.2f} ms')
+            f'{row["iters"]} (plain {row["plain_iters"]}), max|MX-I| '
+            f'{row["residual"]:.2e} (plain {row["plain_residual"]:.2e}), '
+            f'{ms:.2f} ms')
     log(f'  K4 over the final factors: {total_ms:.1f} ms per firing')
     summary['final_factor_buckets'] = buckets
     summary['final_factor_k4_ms'] = total_ms
@@ -1223,7 +1258,7 @@ def main(argv=None) -> int:
         for name in kernels.LAUNCHES:
             agg = aggs[name]
             t_bytes, t_ops = agg['t_bytes'], agg['t_ops']
-            line.append({
+            entry = {
                 'name': name, 'route': 'cuda',
                 'source': kernels.KERNEL_INFO[name]['source'],
                 'replaces': kernels.KERNEL_INFO[name]['replaces'],
@@ -1232,7 +1267,11 @@ def main(argv=None) -> int:
                 'ms': agg['ms'], 'plain_ms': agg['plain_ms'],
                 'bound_ms': max(t_bytes, t_ops),
                 'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
-                'library_ms': agg['library_ms']})
+                'library_ms': agg['library_ms'],
+                'bound_rate': BOUND_RATE.get(name, FP32_RATE)}
+            if name == 'ns_inverse':
+                entry['fp32_bound_ms'] = agg['fp32_bound_ms']
+            line.append(entry)
         report['kernels'] = line
         if args.profile:
             log('== profile: device time by kernel category, ResNet-32')

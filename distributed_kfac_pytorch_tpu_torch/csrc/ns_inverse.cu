@@ -14,11 +14,21 @@
 //
 // Bound on the H100: operations, 4 n^3 fp32 FLOPs per matrix and
 // iteration (two n x n x n products) against 3 n^2 floats of traffic per
-// product. The TPU kernel holds M and X in VMEM for the whole solve; an
-// n = 4608 matrix is 85 MB, so here each iteration is two launches of the
-// batched 64 x 64-tile FMA GEMM of gemm.cuh (grid z = matrix), all in
-// fp32 FMA (the reference iterates at Precision.HIGHEST; TF32 would stall
-// the residual):
+// product. Both products run on the tensor cores by 3xTF32 (gemm_tc.cuh):
+// three TF32 products per fp32 product, so the kernel is held to
+// 3 x 4 n^3 FLOPs at the dense TF32 rate of 494.7 TFLOP/s, about 2.5x
+// below the fp32 CUDA-core bound (4 n^3 at 67 TFLOP/s), which no fp32-FMA
+// design can beat and which lies above a library Cholesky inverse. One
+// TF32 product is not enough: the reference iterates at
+// Precision.HIGHEST, and with one TF32 product per fp32 product the
+// residual stalls near 2e-3, far above the 1e-5 tolerance.
+//
+// The TPU kernel holds M and X in VMEM for the whole solve; an n = 4608
+// matrix is 85 MB, so here each iteration is two launches of the batched
+// 128 x 128-tile tensor-core GEMM (grid z = matrix; 32-deep k-tiles through
+// a 4-slot cp.async ring in dynamic shared memory; mma.sync m16n8k8 with
+// fp32 accumulators, each k-tile summed on its own and then added to the
+// running sum):
 //   residual launch: Y = M X_k, epilogue max|Y - I| per tile, folded into
 //     the matrix's residual of iteration k with an atomicMax on the bits of
 //     the non-negative float (order-free, so deterministic; a NaN wins, as
@@ -27,14 +37,19 @@
 //     (ping-pong); the matrix's last block to finish reads the residual,
 //     clears the matrix's active flag once it is <= tol (or NaN) and
 //     counts its iterations.
-// Blocks of an inactive matrix return at once. The host loop issues the
-// launches without a sync and reads the count of active matrices once
-// every 8 iterations, to stop early. A last launch copies each matrix
-// whose final iterate sits in the second buffer into the output.
+// Blocks of an inactive matrix return at once. Sizes with n % 4 != 0 stage
+// their tiles with 4-byte copies (rows are not 16-byte aligned), the others
+// with 16-byte copies; either way the edges past n are zero-filled. The
+// host loop issues the launches without a sync and reads the count of
+// active matrices once every 8 iterations, to stop early. A last launch
+// copies each matrix whose final iterate sits in the second buffer into
+// the output.
 
-#include "gemm.cuh"
+#include "gemm_tc.cuh"
 
 namespace {
+
+constexpr int kThreads = 256;  // the element-wise and row kernels
 
 __device__ __forceinline__ unsigned warp_max(unsigned v) {
 #pragma unroll
@@ -89,76 +104,61 @@ __global__ void ns_init_kernel(const unsigned* bound_bits, int n, float* x) {
 }
 
 // Y = M X_k and res_k[z] = max |Y - I| (float bits).
-__global__ void __launch_bounds__(kThreads) ns_residual_kernel(
+template <bool kVec>
+__global__ void __launch_bounds__(kTcThreads, 1) ns_residual_kernel(
     const float* m, const float* x, float* y, int n, const int* active,
     unsigned* res_k) {
   const int z = blockIdx.z;
   if (!active[z]) return;
-  __shared__ float sa[kK][kTile];
-  __shared__ float sb[kK][kTile];
-  __shared__ unsigned red[kThreads / 32];
+  extern __shared__ __align__(16) float smem[];
+  __shared__ unsigned red[kTcThreads / 32];
   const int64_t nn = static_cast<int64_t>(n) * n;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
-  float acc[4][4];
-  tile_mma<false, false>(m + z * nn, n, x + z * nn, n, n, n, n, m0, n0, 0,
-                         sa, sb, acc);
+  const int m0 = blockIdx.y * kTcTile, n0 = blockIdx.x * kTcTile;
+  float acc[4][4][4];
+  tc_tile_mma<kVec>(m + z * nn, n, x + z * nn, n, n, n, n, m0, n0, smem,
+                    acc);
   float* Y = y + z * nn;
   unsigned part = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= n) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gn >= n) continue;
-      const float v = acc[i][j];
+  tc_for_each(acc, m0, n0, [&](int gm, int gn, float v) {
+    if (gm < n && gn < n) {
       Y[static_cast<int64_t>(gm) * n + gn] = v;
       part = max(part, __float_as_uint(fabsf(v - (gm == gn ? 1.f : 0.f))));
     }
-  }
+  });
   part = warp_max(part);
+  const int t = threadIdx.x;
   if (t % 32 == 0) red[t / 32] = part;
   __syncthreads();
   if (t == 0) {
     unsigned r = red[0];
 #pragma unroll
-    for (int w = 1; w < kThreads / 32; ++w) r = max(r, red[w]);
+    for (int w = 1; w < kTcThreads / 32; ++w) r = max(r, red[w]);
     atomicMax(&res_k[z], r);
   }
 }
 
 // X_{k+1} = 2 X_k - X_k Y; the matrix's last block closes iteration k.
-__global__ void __launch_bounds__(kThreads) ns_update_kernel(
+template <bool kVec>
+__global__ void __launch_bounds__(kTcThreads, 1) ns_update_kernel(
     const float* x, const float* y, float* x_next, int n, int k, float tol,
     const float* res_k, int* active, int* iters_run, int* done,
     int* n_active) {
   const int z = blockIdx.z;
   if (!active[z]) return;
-  __shared__ float sa[kK][kTile];
-  __shared__ float sb[kK][kTile];
+  extern __shared__ __align__(16) float smem[];
   const int64_t nn = static_cast<int64_t>(n) * n;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
-  float acc[4][4];
+  const int m0 = blockIdx.y * kTcTile, n0 = blockIdx.x * kTcTile;
+  float acc[4][4][4];
   const float* X = x + z * nn;
-  tile_mma<false, false>(X, n, y + z * nn, n, n, n, n, m0, n0, 0, sa, sb,
-                         acc);
+  tc_tile_mma<kVec>(X, n, y + z * nn, n, n, n, n, m0, n0, smem, acc);
   float* Xn = x_next + z * nn;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= n) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gn >= n) continue;
+  tc_for_each(acc, m0, n0, [&](int gm, int gn, float v) {
+    if (gm < n && gn < n) {
       const int64_t off = static_cast<int64_t>(gm) * n + gn;
-      Xn[off] = 2.f * X[off] - acc[i][j];
+      Xn[off] = 2.f * X[off] - v;
     }
-  }
-  if (t == 0) {
+  });
+  if (threadIdx.x == 0) {
     // Every block of matrix z has read active[z] before it counts itself
     // here, so the last one may clear the flag for the next iteration.
     const int blocks = gridDim.x * gridDim.y;
@@ -183,6 +183,46 @@ __global__ void ns_finish_kernel(const float* x1, const int* iters_run,
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (e < nn) out[z * nn + e] = x1[z * nn + e];
+}
+
+// The iterations: two tensor-core launches each, X_k alternating between
+// out (even k) and x_ws (odd k).
+template <bool kVec>
+cudaError_t ns_iterate(int B, int n, int iters, float tol, const float* m_ws,
+                       float* y_ws, float* x_ws, unsigned* res, int* active,
+                       int* iters_run, int* done, int* n_active, float* out,
+                       cudaStream_t stream) {
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(ns_residual_kernel<kVec>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kTcSmemBytes)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(ns_update_kernel<kVec>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kTcSmemBytes)) != cudaSuccess)
+    return err;
+  const dim3 grid = tc_tile_grid(n, n, B);
+  for (int k = 0; k < iters; ++k) {
+    const float* xk = (k % 2 == 0) ? out : x_ws;
+    float* xn = (k % 2 == 0) ? x_ws : out;
+    unsigned* res_k = res + static_cast<int64_t>(k) * B;
+    ns_residual_kernel<kVec><<<grid, kTcThreads, kTcSmemBytes, stream>>>(
+        m_ws, xk, y_ws, n, active, res_k);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    ns_update_kernel<kVec><<<grid, kTcThreads, kTcSmemBytes, stream>>>(
+        xk, y_ws, xn, n, k, tol, reinterpret_cast<const float*>(res_k),
+        active, iters_run, done, n_active);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((k + 1) % 8 == 0 && k + 1 < iters) {
+      int left = 0;
+      if ((err = cudaMemcpyAsync(&left, n_active, sizeof(int),
+                                 cudaMemcpyDeviceToHost, stream)) !=
+          cudaSuccess)
+        return err;
+      if ((err = cudaStreamSynchronize(stream)) != cudaSuccess) return err;
+      if (left == 0) break;
+    }
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -216,28 +256,13 @@ extern "C" int kfac_ns_inverse(const float* f, float damping, int B, int n,
                        B);
   ns_init_kernel<<<elem_grid, kThreads, 0, stream>>>(bound_bits, n, out);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 grid = tile_grid(n, n, B);
-  for (int k = 0; k < iters; ++k) {
-    const float* xk = (k % 2 == 0) ? out : x_ws;
-    float* xn = (k % 2 == 0) ? x_ws : out;
-    unsigned* res_k = res + static_cast<int64_t>(k) * B;
-    ns_residual_kernel<<<grid, kThreads, 0, stream>>>(m_ws, xk, y_ws, n,
-                                                      active, res_k);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ns_update_kernel<<<grid, kThreads, 0, stream>>>(
-        xk, y_ws, xn, n, k, tol, reinterpret_cast<const float*>(res_k),
-        active, iters_run, done, n_active);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if ((k + 1) % 8 == 0 && k + 1 < iters) {
-      int left = 0;
-      if ((err = cudaMemcpyAsync(&left, n_active, sizeof(int),
-                                 cudaMemcpyDeviceToHost, stream)) !=
-          cudaSuccess)
-        return err;
-      if ((err = cudaStreamSynchronize(stream)) != cudaSuccess) return err;
-      if (left == 0) break;
-    }
-  }
+  err = (n % 4 == 0)
+            ? ns_iterate<true>(B, n, iters, tol, m_ws, y_ws, x_ws, res, active,
+                               iters_run, done, n_active, out, stream)
+            : ns_iterate<false>(B, n, iters, tol, m_ws, y_ws, x_ws, res,
+                                active, iters_run, done, n_active, out,
+                                stream);
+  if (err != cudaSuccess) return err;
   ns_finish_kernel<<<elem_grid, kThreads, 0, stream>>>(x_ws, iters_run, n,
                                                        out);
   return static_cast<int>(cudaGetLastError());

@@ -26,7 +26,8 @@ Five kernels carry the single-device K-FAC step:
                      ``pallas_kernels._jacobi_eigh_kernel`` via
                      ``batched_jacobi_eigh``).
 
-K3 and K4 share the tile GEMM of ``csrc/gemm.cuh``. Each wrapper runs
+K3 runs on the CUDA-core tile GEMM of ``csrc/gemm.cuh``, K4 on the
+3xTF32 tensor-core tile GEMM of ``csrc/gemm_tc.cuh``. Each wrapper runs
 its kernel's plain version for tensors on the CPU and launches the CUDA
 kernel for tensors on the card; any other device, dtype or layout
 raises. There is no fallback: a build or launch failure raises.
@@ -57,7 +58,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 SOURCES = {'factor_ema': 'factor_ema.cu', 'patch_cov': 'patch_cov.cu',
            'bucket_precond': 'bucket_precond.cu',
            'ns_inverse': 'ns_inverse.cu', 'jacobi_eigh': 'jacobi_eigh.cu'}
-HEADERS = ('gram.cuh', 'gemm.cuh')
+HEADERS = ('gram.cuh', 'gemm.cuh', 'gemm_tc.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 
@@ -589,14 +590,19 @@ def bucket_precond(gstack: torch.Tensor, entry: dict, damping, *,
 # ---------------------------------------------------------------------------
 # K4: batched damped SPD inverse by Newton--Schulz. Replaces
 # pallas_kernels._ns_inverse_kernel (driven by _pallas_batched_ns_inverse /
-# batched_inverse / damped_inverse_stack). Bound on the H100: operations --
-# 4 n^3 fp32 FLOPs per matrix and iteration, 1.8 TFLOP per iteration over
-# the ResNet-50 factor set, ~27 ms at the fp32 peak. The TPU kernel keeps M
-# and X in VMEM (n <= 512); here every n runs as two launches per
-# iteration of the batched tile GEMM of gemm.cuh with fused epilogues (the
-# residual max; 2X - XY into a second buffer), per-matrix active flags in
-# device memory, and one host read of the active count every 8 iterations.
-# It follows the unpadded iteration: no identity padding, no size cap.
+# batched_inverse / damped_inverse_stack). The TPU kernel keeps M and X in
+# VMEM (n <= 512); here every n runs as two launches per iteration of the
+# batched 128 x 128-tile tensor-core GEMM of gemm_tc.cuh (mma.sync TF32,
+# 32-deep k-tiles through a 4-slot cp.async ring in dynamic shared memory,
+# fp32 accumulators) with fused epilogues (the residual max; 2X - XY into a
+# second buffer), per-matrix active flags in device memory, and one host
+# read of the active count every 8 iterations. Each fp32 product is three
+# TF32 products (3xTF32: big and small parts), so the bound on the H100 is
+# 3 x 4 n^3 FLOPs per matrix and iteration at the dense TF32 rate of 494.7
+# TFLOP/s. Plain TF32 is not used: the reference iterates at
+# Precision.HIGHEST, and one TF32 product stalls the residual near 2e-3,
+# far above tol. It follows the unpadded iteration: no identity padding,
+# no size cap.
 # ---------------------------------------------------------------------------
 
 def batched_inverse_plain(mats: torch.Tensor, damping, iters: int = 100,

@@ -138,7 +138,8 @@ def _imports(path: pathlib.Path):
 
 
 @pytest.mark.parametrize('path', sorted(
-    [*PACKAGE.rglob('*.py'), ROOT / 'chip_smoke.py']),
+    [*PACKAGE.rglob('*.py'), ROOT / 'chip_smoke.py',
+     ROOT / 'scripts' / 'k4_ablation.py']),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     for name in _imports(path):

@@ -4,6 +4,9 @@ kernel) against ``linalg.newton_schulz_inverse`` and against the Pallas
 kernel in interpret mode, and ``damped_inverse_stack``. Inputs are numpy
 arrays from a seed; each test states its tolerance."""
 
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -162,3 +165,27 @@ def test_eigen_side_inverse_is_the_damped_inverse():
     np.testing.assert_allclose(
         got.numpy(), linalg.get_inverse(torch.from_numpy(stack), 0.003),
         rtol=1e-4, atol=1e-4)
+
+
+def _k4_ablation():
+    path = Path(__file__).resolve().parent.parent / 'scripts' / \
+        'k4_ablation.py'
+    spec = importlib.util.spec_from_file_location('k4_ablation', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize('name', ['committed', 'cvt_rna', 'one_level',
+                                  'stages3', 'mma_only'])
+def test_k4_ablation_variants_apply_to_the_sources(name):
+    # Each variant of scripts/k4_ablation.py is a text edit of the
+    # committed K4 sources; an edit that no longer matches (the sources
+    # moved on) must fail here rather than on the card.
+    ab = _k4_ablation()
+    assert set(ab.VARIANTS) == {'committed', 'cvt_rna', 'one_level',
+                                'stages3', 'mma_only'}
+    committed = ab.edited_sources(kernels.CSRC, 'committed')
+    srcs = ab.edited_sources(kernels.CSRC, name)
+    assert (srcs == committed) == (name == 'committed')
+
