@@ -44,13 +44,18 @@ Phases (any failure exits nonzero and prints no result line):
      step split between eigen and baked buckets;
   8. kernel K5 (Jacobi eigh): random SPD stacks at the LSTM LM's two
      size buckets (16 x 651, 16 x 650), the nine ResNet-32 buckets, edge
-     sizes 1, 2, 3, 64, 65 and an identity stack, against its plain
+     sizes 1, 2, 3, 64, 65, for each cluster size the largest size that
+     takes it (the largest of all is the cluster path's capacity), one
+     size just above the capacity (the streaming path), all read from
+     ``jacobi_cluster_plan``, and an identity stack, against its plain
      version: eigenvalues <= 1e-5 of the largest, ``max|Q^T Q - I|`` and
      reconstruction <= 5e-5, the damped side inverse ``Q diag(1/(d +
      0.003)) Q^T`` <= 1e-4 relative; where one of these fails, the
      kernel's errors against a float64 eigh at most 2x the plain
      version's; timed beside the plain version (one run),
-     ``torch.linalg.eigh`` and the bound;
+     ``torch.linalg.eigh`` and the bound; each row prints its path
+     (cluster size C, the card's max active clusters and the waves per
+     launch, or the streaming path) and whether ``|dQ|`` is exactly 0;
   9. main path, LSTM LM: ``train_language_model.train`` at the PTB-medium
      widths (650/650, 2 layers, 8-gate cell), synthetic vocabulary 10,000,
      batch 20, BPTT 35, dropout 0.5, one fixed batch, ``--inverse-method
@@ -861,10 +866,44 @@ def _side_inverse(q, d):
     return (q * (1.0 / (d + JACOBI_DAMPING))[:, None, :]) @ q.mT
 
 
+def jacobi_path_sizes() -> list[int]:
+    """Edge sizes of K5's two paths, from ``jacobi_cluster_plan``: for
+    each cluster size the largest ``n_pad`` that takes it (the last is the
+    cluster path's capacity), then an odd size whose ``n_pad`` is just
+    above the capacity (the streaming path)."""
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels as K
+    largest = {}
+    for n_pad in range(2, K.jacobi_cluster_capacity() + 1, 2):
+        largest[K.jacobi_cluster_plan(n_pad, 2, 1).cluster] = n_pad
+    cap = K.jacobi_cluster_capacity()
+    assert K.jacobi_cluster_plan(cap + 2, 2, 1) is None
+    return [largest[c] for c in sorted(largest)] + [cap + 1]
+
+
+def jacobi_path(n: int, count: int) -> dict:
+    """K5's path for a (count, n, n) stack: cluster size, max active
+    clusters and waves per launch, or the streaming path."""
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels as K
+    from distributed_kfac_pytorch_tpu_torch.ops import linalg
+    n_pad = n + n % 2
+    if n < 2:
+        return {'path': 'none'}
+    plan = K.jacobi_cluster_plan(
+        n_pad, count, linalg.default_jacobi_sweeps(n) * (n_pad - 1))
+    if plan is None:
+        return {'path': 'streaming'}
+    active = K.jacobi_max_active_clusters(n_pad)
+    per = min(count, plan.chunk)
+    return {'path': 'cluster', 'cluster': plan.cluster,
+            'max_active_clusters': active,
+            'waves': math.ceil(per / active) * math.ceil(count / per)}
+
+
 def check_jacobi_eigh(quick: bool) -> tuple[dict, dict, list]:
     """K5 against its plain version at the LSTM LM's and ResNet-32's size
-    buckets, the edge sizes and an identity stack. Returns the per-firing
-    sums of the LSTM buckets and of the ResNet-32 ones, and the rows."""
+    buckets, the edge sizes of both paths and an identity stack. Returns
+    the per-firing sums of the LSTM buckets and of the ResNet-32 ones, and
+    the rows."""
     import torch
     from distributed_kfac_pytorch_tpu_torch.ops import kernels as K
     gen = torch.Generator(device='cuda')
@@ -874,7 +913,7 @@ def check_jacobi_eigh(quick: bool) -> tuple[dict, dict, list]:
     cases += [(f'R32 ({c},{n},{n})', 'r32', lambda n=n, c=c: _spd_stack(
         gen, c, n)) for n, c in R32_JACOBI_BUCKETS]
     cases += [(f'edge (2,{n},{n})', None, lambda n=n: _spd_stack(gen, 2, n))
-              for n in JACOBI_EDGE_SIZES]
+              for n in (*JACOBI_EDGE_SIZES, *jacobi_path_sizes())]
     cases.append(('identity (4,65,65)', None, lambda: torch.eye(
         65, device='cuda').expand(4, 65, 65).contiguous()))
     aggs = {group: {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0,
@@ -905,7 +944,7 @@ def check_jacobi_eigh(quick: bool) -> tuple[dict, dict, list]:
                'side_inverse_rel_err': inv_rel, 'orth': err['orth'],
                'recon': err['recon'], 'eig_vs_fp64': err['eig'],
                'plain_ms': plain_ms, 'q_max_abs_diff': float(
-                   (got_q - ref_q).abs().max())}
+                   (got_q - ref_q).abs().max()), **jacobi_path(n, count)}
         # Against the plain version: eigenvalues and the damped side
         # inverse, always.
         ok = row['d_rel_err'] <= 1e-5 and inv_rel <= 1e-4
@@ -920,9 +959,13 @@ def check_jacobi_eigh(quick: bool) -> tuple[dict, dict, list]:
                             for k in ('orth', 'recon'))
         if not ok:
             raise AssertionError(f'jacobi_eigh {label}: {row}')
+        path = (f'C {row["cluster"]} active {row["max_active_clusters"]} '
+                f'waves {row["waves"]}' if row['path'] == 'cluster'
+                else row['path'])
         msg = (f'  jacobi_eigh {label:22s} d rel {row["d_rel_err"]:.1e} '
                f'inv rel {inv_rel:.1e} orth {err["orth"]:.1e} recon '
                f'{err["recon"]:.1e} |dQ| {row["q_max_abs_diff"]:.1e} '
+               f'(exactly 0: {row["q_max_abs_diff"] == 0.0}) [{path}] '
                f'plain {plain_ms:.1f} ms')
         if not quick and group is not None:
             reps, trials, warm = (1, 3, 1) if n >= 500 else (3, 3, 1)
@@ -1060,7 +1103,7 @@ def _category(name: str) -> str:
     if any(f'ns_{k}_kernel' in n
            for k in ('fold', 'init', 'residual', 'update', 'finish')):
         return 'K4 ns_inverse'
-    if 'jacobi_round' in n:
+    if any(f'jacobi_{k}' in n for k in ('round', 'cluster', 'vlog')):
         return 'K5 jacobi_eigh'
     if 'conv' in n or 'cudnn' in n or 'implicit_gemm' in n or 'wgrad' in n \
             or 'dgrad' in n:
@@ -1152,6 +1195,7 @@ def profile_main_path(which: str = 'resnet32', steps: int = 5) -> dict:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / n
         cats: dict[str, float] = {}
+        k5: dict[str, float] = {}
         kernels_ms = 0.0
         for ev in prof.key_averages():
             dt = getattr(ev, 'self_device_time_total', None)
@@ -1162,15 +1206,22 @@ def profile_main_path(which: str = 'resnet32', steps: int = 5) -> dict:
             ms = dt / 1e3 / n
             cats[_category(ev.key)] = cats.get(_category(ev.key), 0.0) + ms
             kernels_ms += ms
+            for part in ('round', 'cluster', 'vlog'):
+                if f'jacobi_{part}' in ev.key:
+                    k5[part] = k5.get(part, 0.0) + ms
         out[label] = {'wall_ms_per_step': wall_ms,
                       'device_kernel_ms_per_step': kernels_ms,
                       'device_busy_share': kernels_ms / wall_ms,
                       'by_category_ms': dict(sorted(
-                          cats.items(), key=lambda kv: -kv[1]))}
+                          cats.items(), key=lambda kv: -kv[1])),
+                      'k5_by_kernel_ms': k5}
         log(f'  {label}: wall {wall_ms:.2f} ms/step, device kernels '
             f'{kernels_ms:.2f} ms/step, busy {kernels_ms / wall_ms:.1%}')
         for cat, ms in out[label]['by_category_ms'].items():
             log(f'    {cat:45s} {ms:8.3f} ms')
+        if k5:
+            log('    K5 by kernel (round: streaming, cluster: A, vlog: V): '
+                + ', '.join(f'{k} {ms:.3f} ms' for k, ms in k5.items()))
     return out
 
 

@@ -13,7 +13,7 @@
 // operands), bytes at the small ones. The TPU kernel keeps one slice's
 // whole chain in VMEM; a 576 x 576 fp32 QA is 1.3 MB, far beyond a
 // block's shared memory, so here the chain is four launches of one
-// batched 64 x 64-tile FMA GEMM (gemm.cuh, shared with K4; grid z =
+// batched 64 x 64-tile FMA GEMM (gemm.cuh, K3's alone; grid z =
 // slice), with the eigenvalue
 // divide fused into the second product's epilogue and the v.g partial
 // into the last one's; a final one-thread-per-slice launch sums the

@@ -1,5 +1,5 @@
-// The batched fp32 tile GEMM shared by K3 (bucket_precond.cu) and K4
-// (ns_inverse.cu): one 64 x 64 output tile per 256-thread block, 4 x 4
+// The batched fp32 tile GEMM of K3 (bucket_precond.cu; K4 runs on
+// gemm_tc.cuh): one 64 x 64 output tile per 256-thread block, 4 x 4
 // outputs per thread, operands staged through shared memory kK deep, every
 // product a plain fp32 FMA (no tensor cores, no TF32). Each kernel that
 // includes it adds its own epilogue on the accumulators.

@@ -42,6 +42,7 @@ loaded with ``ctypes``. Nothing is compiled or imported at module import.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -277,7 +278,10 @@ _SIGNATURES = {
         'kfac_ns_inverse': [_P, _F, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P,
                             _P]},
     'jacobi_eigh': {
-        'kfac_jacobi_eigh': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+        'kfac_jacobi_eigh': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        'kfac_jacobi_eigh_cluster': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _P],
+        'kfac_jacobi_cluster_occupancy': [_I, _I, _P]},
 }
 
 
@@ -670,16 +674,30 @@ def damped_inverse_stack(stack: torch.Tensor, damping, method: str,
 # pallas_kernels._jacobi_eigh_kernel (driven by _pallas_batched_jacobi_eigh /
 # batched_jacobi_eigh). Bound on the H100: operations -- 9 n^2 fp32 FLOPs per
 # matrix and round over sweeps * (n - 1) rounds (~7.7 ms for a (16, 652)
-# stack at the fp32 peak). The TPU kernel holds A and V in VMEM (n <= 64
-# there); here every n runs as one launch per round that rotates 2 x 2
-# blocks of A and V and stores them straight to their slots after the
-# exchange (ping-pong buffers), so each round streams A and V through
-# L2 / HBM. Pad, sort and strip stay outside the kernel, as in JAX.
+# stack at the fp32 peak). The TPU kernel holds A and V in VMEM for every
+# round. Here, for n_pad up to the capacity of an 8-CTA cluster (664), one
+# thread-block cluster per matrix holds A in its distributed shared memory
+# for all rounds of one launch and logs each round's (c, s); a second
+# kernel applies the log to row blocks of V (see csrc/jacobi_eigh.cu).
+# Larger n runs the streaming kernel: one launch per round, A and V through
+# L2 / HBM. The path is chosen by size alone. Pad, sort and strip stay
+# outside the kernels, as in JAX.
 # ---------------------------------------------------------------------------
 
-#: Working-set budget of one chunk of matrices (4 buffers of n_pad^2
-#: floats each), so that a chunk's rounds run in the 50 MB L2.
+#: Working-set budget of one chunk of matrices on the streaming path (4
+#: buffers of n_pad^2 floats each), so that a chunk's rounds run in L2.
 _JACOBI_L2_BYTES = 32 << 20
+#: Opt-in dynamic shared memory of one block and shared memory of one SM on
+#: the H100, and what is kept back from the block's share for the kernels'
+#: static shared variables.
+_SMEM_PER_BLOCK = 232448
+_SMEM_PER_SM = 233472
+_SMEM_RESERVE = 1024
+_SMS = 132
+#: Cluster sizes of the A kernel (8 is the portable maximum).
+_JACOBI_CLUSTERS = (1, 2, 4, 8)
+#: Budget of the rotation log of one chunk of matrices.
+_JACOBI_LOG_BYTES = 1 << 30
 
 
 def jacobi_slot_dest(n_pad: int) -> torch.Tensor:
@@ -694,11 +712,113 @@ def jacobi_slot_dest(n_pad: int) -> torch.Tensor:
     return dest
 
 
+def jacobi_ring_order(n_pad: int) -> torch.Tensor:
+    """The exchange as a ring: the slot at each of the ``n_pad - 1`` ring
+    positions, starting at slot 1 and following :func:`jacobi_slot_dest`
+    (``t1 .. t_{p-1}, b_{p-1} .. b0``). Slot 0 never moves; every other
+    slot's content moves one ring position forward per exchange, so after
+    ``r`` exchanges slot ``ring[q]`` holds what slot ``ring[(q - r) mod
+    (n_pad - 1)]`` held at the start."""
+    dest = jacobi_slot_dest(n_pad).tolist()
+    ring = [1]
+    for _ in range(n_pad - 2):
+        ring.append(dest[ring[-1]])
+    if sorted(ring) != list(range(1, n_pad)):
+        raise AssertionError(f'exchange of size {n_pad} is not one ring')
+    return torch.tensor(ring, dtype=torch.int32)
+
+
+def jacobi_ring_position(n_pad: int) -> torch.Tensor:
+    """The kernels' table: each slot's position in
+    :func:`jacobi_ring_order`, -1 for slot 0."""
+    pos = torch.full((n_pad,), -1, dtype=torch.int32)
+    pos[jacobi_ring_order(n_pad).long()] = torch.arange(
+        n_pad - 1, dtype=torch.int32)
+    return pos
+
+
+def jacobi_cluster_bytes(n_pad: int, cluster: int) -> int:
+    """Dynamic shared memory of one CTA of the cluster kernel (must match
+    ``csrc/jacobi_eigh.cu``): ``2 ceil(p / C) + 2`` columns of ``n_pad``
+    floats (its pairs' columns and two staging columns), the ``p`` pairs'
+    ``(c, s)``, its column table and two incoming column indices."""
+    p = n_pad // 2
+    nl = -(-p // cluster)
+    return 4 * (2 * nl + 2) * n_pad + 8 * p + 4 * (2 * nl + 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class JacobiClusterPlan:
+    """Launch geometry of the cluster path of K5 for one stack."""
+    cluster: int         # CTAs per matrix (cluster size)
+    pairs_per_cta: int   # at most; the pairs are split as evenly as can be
+    smem_bytes: int      # dynamic shared memory per CTA of the A kernel
+    v_rows: int          # rows of V per CTA of the V kernel
+    v_smem_bytes: int    # dynamic shared memory per CTA of the V kernel
+    chunk: int           # matrices per launch pair
+    log_bytes: int       # rotation log of one chunk
+
+
+def jacobi_cluster_plan(n_pad: int, batch: int, rounds: int
+                        ) -> JacobiClusterPlan | None:
+    """The cluster path's geometry for ``batch`` matrices of even size
+    ``n_pad`` over ``rounds`` rounds, or ``None`` where no cluster size
+    holds a matrix (the streaming path).
+
+    The cluster size is the smallest of 1, 2, 4, 8 whose per-CTA bytes fit
+    the block's shared memory less a reserve (and that leaves every CTA at
+    least two pairs); the chunk keeps the log (``rounds * p`` float pairs
+    per matrix) within ``_JACOBI_LOG_BYTES``; the V kernel's rows per CTA
+    give about two CTAs per SM over the chunk, two CTAs fitting one SM.
+    """
+    if n_pad < 2 or n_pad % 2 or batch < 1 or rounds < 0:
+        raise ValueError(f'jacobi_cluster_plan: need an even n_pad >= 2, '
+                         f'batch >= 1 and rounds >= 0, got {n_pad}, {batch}, '
+                         f'{rounds}')
+    p = n_pad // 2
+    fits = [c for c in _JACOBI_CLUSTERS if (c == 1 or p >= 2 * c) and
+            jacobi_cluster_bytes(n_pad, c) <= _SMEM_PER_BLOCK - _SMEM_RESERVE]
+    if not fits:
+        return None
+    cluster = fits[0]
+    per_matrix = 8 * max(1, rounds) * p
+    chunk = max(1, min(batch, 65535, _JACOBI_LOG_BYTES // per_matrix))
+    per_sm = max(1, 2 * _SMS // chunk)
+    max_rows = (_SMEM_PER_SM // 2 - _SMEM_RESERVE - 16 * p) // (4 * n_pad)
+    v_rows = max(1, min(-(-n_pad // per_sm), max_rows))
+    return JacobiClusterPlan(
+        cluster=cluster, pairs_per_cta=-(-p // cluster),
+        smem_bytes=jacobi_cluster_bytes(n_pad, cluster), v_rows=v_rows,
+        v_smem_bytes=4 * v_rows * n_pad + 16 * p, chunk=chunk,
+        log_bytes=chunk * per_matrix)
+
+
+def jacobi_cluster_capacity() -> int:
+    """The largest even ``n_pad`` the cluster path takes."""
+    n_pad = 2
+    while jacobi_cluster_plan(n_pad + 2, 1, 1) is not None:
+        n_pad += 2
+    return n_pad
+
+
 @functools.lru_cache(maxsize=None)
-def _jacobi_dest_on(n_pad: int, device: torch.device) -> torch.Tensor:
-    """The table on the card, built once per size (the kernel only reads
-    it)."""
-    return jacobi_slot_dest(n_pad).to(device)
+def _jacobi_table_on(table, n_pad: int, device: torch.device
+                     ) -> torch.Tensor:
+    """``table(n_pad)`` on the card, built once per size (the kernels only
+    read it)."""
+    return table(n_pad).to(device)
+
+
+def jacobi_max_active_clusters(n_pad: int) -> int:
+    """How many clusters of the A kernel for ``n_pad`` the card holds at
+    once (``cudaOccupancyMaxActiveClusters``); needs the card."""
+    plan = jacobi_cluster_plan(n_pad, 1, 1)
+    if plan is None:
+        raise ValueError(f'n_pad {n_pad} runs the streaming path')
+    out = ctypes.c_int(0)
+    _check(_lib('jacobi_eigh').kfac_jacobi_cluster_occupancy(
+        n_pad, plan.cluster, ctypes.byref(out)), 'jacobi_max_active_clusters')
+    return out.value
 
 
 def batched_jacobi_eigh_plain(mats: torch.Tensor, sweeps: int | None = None
@@ -716,9 +836,11 @@ def batched_jacobi_eigh(mats: torch.Tensor, sweeps: int | None = None
     :func:`linalg.default_jacobi_sweeps` of ``n``.
 
     Odd ``n`` is padded with a decoupled unit eigenpair, and the result
-    sorted and stripped of it, around the kernel; ``n = 1`` launches
-    nothing. One round's launch covers as many matrices as fit the L2
-    budget.
+    sorted and stripped of it, around the kernels; ``n = 1`` launches
+    nothing. Up to the cluster capacity (:func:`jacobi_cluster_plan`) each
+    chunk of matrices is one launch of the cluster kernel and one of the
+    V kernel, with the rotation log from torch's allocator; above it, one
+    launch per round covers as many matrices as fit the L2 budget.
     """
     n = mats.shape[-1]
     if sweeps is None:
@@ -738,18 +860,38 @@ def batched_jacobi_eigh(mats: torch.Tensor, sweeps: int | None = None
         return torch.ones_like(mats), mats.reshape(b, 1).clone()
     a0, v0 = linalg.jacobi_pad(mats)
     n_pad = a0.shape[-1]
-    # Matrices per launch: as many as fit the L2 budget, at most grid z.
-    chunk = max(1, min(b, 65535, _JACOBI_L2_BYTES // (16 * n_pad * n_pad)))
-    a1, v1 = torch.empty_like(a0), torch.empty_like(v0)
     rounds = sweeps * (n_pad - 1)
-    err = _lib('jacobi_eigh').kfac_jacobi_eigh(
-        a0.data_ptr(), a1.data_ptr(), v0.data_ptr(), v1.data_ptr(),
-        _jacobi_dest_on(n_pad, mats.device).data_ptr(), b, n_pad, rounds,
-        chunk, _stream(mats))
-    _check(err, 'batched_jacobi_eigh')
+    lib = _lib('jacobi_eigh')
+    plan = jacobi_cluster_plan(n_pad, b, rounds)
+    if plan is None:
+        # Matrices per launch: as many as fit the L2 budget, at most grid z.
+        chunk = max(1, min(b, 65535,
+                           _JACOBI_L2_BYTES // (16 * n_pad * n_pad)))
+        a1, v1 = torch.empty_like(a0), torch.empty_like(v0)
+        dest = _jacobi_table_on(jacobi_slot_dest, n_pad, mats.device)
+        err = lib.kfac_jacobi_eigh(
+            a0.data_ptr(), a1.data_ptr(), v0.data_ptr(), v1.data_ptr(),
+            dest.data_ptr(), b, n_pad, rounds, chunk, _stream(mats))
+        _check(err, 'batched_jacobi_eigh')
+        LAUNCHES['jacobi_eigh'] += 1
+        a, v = (a0, v0) if rounds % 2 == 0 else (a1, v1)
+        return linalg.jacobi_finish(torch.diagonal(a, dim1=-2, dim2=-1), v,
+                                    n)
+    # The V kernel writes every entry of v0, so the identity start is its
+    # output buffer.
+    d = a0.new_empty((b, n_pad))
+    log = torch.empty(plan.log_bytes // 4, dtype=torch.float32,
+                      device=mats.device)
+    pos = _jacobi_table_on(jacobi_ring_position, n_pad, mats.device)
+    for z0 in range(0, b, plan.chunk):
+        count = min(plan.chunk, b - z0)
+        err = lib.kfac_jacobi_eigh_cluster(
+            a0[z0].data_ptr(), d[z0].data_ptr(), v0[z0].data_ptr(),
+            log.data_ptr(), pos.data_ptr(), count, n_pad, rounds,
+            plan.cluster, plan.v_rows, _stream(mats))
+        _check(err, 'batched_jacobi_eigh')
     LAUNCHES['jacobi_eigh'] += 1
-    a, v = (a0, v0) if rounds % 2 == 0 else (a1, v1)
-    return linalg.jacobi_finish(torch.diagonal(a, dim1=-2, dim2=-1), v, n)
+    return linalg.jacobi_finish(d, v0, n)
 
 
 #: Per kernel: its source, the TPU kernel it replaces, and what bounds it.
@@ -782,5 +924,7 @@ __all__ = ['LAUNCHES', 'KERNEL_INFO', 'reset_launches', 'build',
            'bucket_precond', 'bucket_precond_plain', 'batched_inverse',
            'batched_inverse_plain', 'damped_inverse_stack',
            'batched_jacobi_eigh', 'batched_jacobi_eigh_plain',
-           'jacobi_slot_dest', 'mult_bf16',
+           'jacobi_slot_dest', 'jacobi_ring_order', 'jacobi_ring_position',
+           'jacobi_cluster_plan', 'jacobi_cluster_capacity',
+           'jacobi_max_active_clusters', 'JacobiClusterPlan', 'mult_bf16',
            'extract_conv2d_patches', 'conv_out_geometry']

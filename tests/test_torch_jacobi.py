@@ -164,3 +164,126 @@ def test_resolve_eigh_method_aliases_warm():
     assert [L.default_jacobi_sweeps(n) for n in (2, 512, 513, 650, 1024,
                                                  1025)] == [
         JL.default_jacobi_sweeps(n) for n in (2, 512, 513, 650, 1024, 1025)]
+
+
+# ---------------------------------------------------------------------------
+# The cluster path's two facts and its plan (csrc/jacobi_eigh.cu)
+# ---------------------------------------------------------------------------
+
+def _a_rounds_with_log(a, sweeps):
+    """A's rounds of ``jacobi_slot_iteration`` alone, logging each round's
+    ``(c, s)``."""
+    n_pad = a.shape[-1]
+    p = n_pad // 2
+    log = []
+    for _ in range(sweeps * (n_pad - 1)):
+        d = torch.diagonal(a, dim1=-2, dim2=-1)
+        apq = torch.diagonal(a[..., :p, p:], dim1=-2, dim2=-1)
+        c, s = L.jacobi_rotation(d[..., :p], d[..., p:], apq)
+        log.append((c, s))
+        a = L._rotate_halves(L._rotate_halves(a, c, s, -2), c, s, -1)
+        if p > 1:
+            a = L.jacobi_exchange(L.jacobi_exchange(a, -2), -1)
+    return a, log
+
+
+def _v_from_log(log, n_pad, ring_storage):
+    """V from the log: columns rotated and exchanged as the plain loop does
+    them, or (``ring_storage``) kept in place at the kernels' ring indices
+    (slot k's column at 1 + (pos[k] - r) mod (n_pad - 1), slot 0's at 0)
+    and gathered into slot order at the end."""
+    p = n_pad // 2
+    v = torch.eye(n_pad)
+    if not ring_storage:
+        for c, s in log:
+            v = L._rotate_halves(v, c, s, -1)
+            if p > 1:
+                v = L.jacobi_exchange(v, -1)
+        return v
+    pos = K.jacobi_ring_position(n_pad).long()
+    m = n_pad - 1
+
+    def index(r):
+        return torch.where(pos < 0, 0, (pos - r) % m + 1)
+
+    v = v[:, torch.argsort(index(0))]               # storage order
+    for r, (c, s) in enumerate(log):
+        idx = index(r)
+        lo, hi = v[:, idx[:p]], v[:, idx[p:]]
+        v[:, idx[:p]] = c * lo - s * hi
+        v[:, idx[p:]] = s * lo + c * hi
+    return v[:, index(len(log))]
+
+
+@pytest.mark.parametrize('ring_storage', [False, True])
+@pytest.mark.parametrize('n', [2, 9, 12])
+def test_split_iteration_is_bitwise(n, ring_storage):
+    """A's rounds logging (c, s), then V from the log, give the joint
+    iteration's A and V bit for bit (odd n through the pad)."""
+    a0, v0 = L.jacobi_pad(torch.from_numpy(_spd(n, 300 + n)))
+    sweeps = 3
+    a_ref, v_ref = L.jacobi_slot_iteration(a0, v0, sweeps)
+    a, log = _a_rounds_with_log(a0, sweeps)
+    v = _v_from_log(log, a0.shape[-1], ring_storage)
+    assert torch.equal(a, a_ref)
+    assert torch.equal(v, v_ref)
+
+
+@pytest.mark.parametrize('n_pad', [2, 4, 6, 10, 652])
+def test_ring_order_plus_offset_is_repeated_exchange(n_pad):
+    ring = K.jacobi_ring_order(n_pad)
+    pos = K.jacobi_ring_position(n_pad)
+    assert ring.dtype == pos.dtype == torch.int32
+    m = n_pad - 1
+    assert sorted(ring.tolist()) == list(range(1, n_pad))
+    assert pos[0] == -1 and torch.equal(
+        pos[ring.long()], torch.arange(m, dtype=torch.int32))
+    x = torch.arange(n_pad)
+    for r in range(3 * n_pad + 2):
+        # Slot k holds what slot ring[(pos[k] - r) mod m] held at the start.
+        got = torch.where(pos < 0, 0, ring[((pos - r) % m).long()])
+        if r in (0, 1, 5, m, n_pad, 2 * m + 3, 3 * n_pad + 1):
+            assert torch.equal(got, x), (n_pad, r)
+        if n_pad > 2:
+            x = L.jacobi_exchange(x, 0)
+
+
+def test_cluster_plan_fits_and_picks_the_smallest_cluster():
+    limit = K._SMEM_PER_BLOCK - K._SMEM_RESERVE
+    cap = K.jacobi_cluster_capacity()
+    assert cap == 664
+    for n_pad in range(2, cap + 1, 2):
+        p = n_pad // 2
+        plan = K.jacobi_cluster_plan(n_pad, 16, 12 * (n_pad - 1))
+        assert plan is not None, n_pad
+        assert plan.smem_bytes == K.jacobi_cluster_bytes(n_pad, plan.cluster)
+        assert plan.smem_bytes <= limit
+        assert plan.pairs_per_cta * plan.cluster >= p
+        assert plan.cluster == 1 or p >= 2 * plan.cluster
+        smaller = [c for c in (1, 2, 4, 8) if c < plan.cluster]
+        assert all(K.jacobi_cluster_bytes(n_pad, c) > limit or p < 2 * c
+                   for c in smaller), n_pad
+        assert 1 <= plan.v_rows <= n_pad
+        assert plan.v_smem_bytes <= K._SMEM_PER_SM // 2 - K._SMEM_RESERVE
+    for n_pad in (cap + 2, cap + 4, 700, 1024, 4608):
+        assert K.jacobi_cluster_plan(n_pad, 4, 100) is None
+    assert K.jacobi_cluster_plan(652, 16, 13 * 651).cluster == 8
+    assert K.jacobi_cluster_plan(650, 16, 13 * 649).cluster == 8
+    assert K.jacobi_cluster_plan(288, 10, 12 * 287).cluster == 2
+    assert K.jacobi_cluster_plan(144, 11, 12 * 143).cluster == 1
+    with pytest.raises(ValueError):
+        K.jacobi_cluster_plan(651, 1, 1)
+
+
+@pytest.mark.parametrize('n_pad,batch,rounds', [
+    (652, 16, 13 * 651), (652, 200, 13 * 651), (576, 1000, 13 * 575),
+    (64, 70000, 12 * 63), (2, 5, 0)])
+def test_cluster_plan_log_chunks_within_budget(n_pad, batch, rounds):
+    plan = K.jacobi_cluster_plan(n_pad, batch, rounds)
+    per_matrix = 8 * max(1, rounds) * (n_pad // 2)
+    assert 1 <= plan.chunk <= min(batch, 65535)
+    assert plan.log_bytes == plan.chunk * per_matrix
+    assert plan.log_bytes <= K._JACOBI_LOG_BYTES
+    # As many matrices per chunk as the budget allows.
+    assert plan.chunk == min(batch, 65535) or \
+        (plan.chunk + 1) * per_matrix > K._JACOBI_LOG_BYTES
