@@ -16,7 +16,10 @@ Phases (any failure exits nonzero and prints no result line):
      largest plain entry: fp32 <= 1e-5 for the Gram kernels, <= 1e-4 for
      bucketed preconditioning; bf16 <= 1e-2), and timed with CUDA events
      (median) beside the plain version, a library yardstick and the
-     card's bound;
+     card's bound (K1 against the 3xTF32 tensor-core rate, its fp32
+     CUDA-core bound beside it); K1 also at one edge case per staging path
+     of ``factor_ema_plan``, its output exactly symmetric and two calls
+     bit-identical, each case printing its tile, pairs, chunks and path;
   4. kernel K4 (Newton--Schulz inverse): random SPD stacks at every
      ResNet-50 size bucket and edge sizes, damping 0.003 and 0.001, and
      stacks whose matrices stop at different iterations (and at the cap),
@@ -97,11 +100,13 @@ ROOT = Path(__file__).resolve().parent
 # cores, dense TF32 on the tensor cores and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 494.7e12
-# What each kernel's operations run on, for its bound: K4 takes each fp32
-# product as three TF32 products (3xTF32), the others are fp32 FMAs.
-BOUND_RATE = {'ns_inverse': 'tf32 tensor cores, 3 per fp32 product '
-                            '(494.7 TFLOP/s)'}
+# What each kernel's operations run on, for its bound: K1 and K4 take each
+# fp32 product as three TF32 products (3xTF32), the others are fp32 FMAs.
+TC_RATE = 'tf32 tensor cores, 3 per fp32 product (494.7 TFLOP/s)'
+BOUND_RATE = {'factor_ema': TC_RATE, 'ns_inverse': TC_RATE}
 FP32_RATE = 'fp32 CUDA cores (67 TFLOP/s)'
+# fp32 FLOPs per second of each kernel's bound (phase 3).
+OPS_PEAK = {'factor_ema': PEAK_TF32_FLOPS / 3}
 PEAK_BYTES = 3.35e12
 TOL_FP32 = {'factor_ema': 1e-5, 'patch_cov': 1e-5, 'bucket_precond': 1e-4}
 TOL_BF16 = 1e-2
@@ -232,6 +237,9 @@ def factor_ema_cases(gen, dev, resnet50=None):
             return torch.addmm(old_in, x2.T, x2, beta=decay,
                                alpha=(1 - decay) / scale)
 
+        kern.plan = K.factor_ema_plan(x.shape, x.stride(), has_bias,
+                                      K._sm_count(x.device.index or 0),
+                                      aligned=x.data_ptr() % 16 == 0)
         nbytes = 4 * (rows * d_in + 2 * n * n)
         return kern, plain, library, nbytes, rows * d_in * (d_in + 1)
 
@@ -254,6 +262,15 @@ def factor_ema_cases(gen, dev, resnet50=None):
         ('ragged (37,5)', 0, lambda: case((37, 5), False)),
         ('channels-last conv G (8,24,7,7)', 0,
          lambda: case((8, 24, 7, 7), False, channels_last=True)),
+        # One per staging path the plan can choose, d past one tile:
+        # 7 x 7 (4-byte K-major), channels-last and dense (4-byte feature
+        # gathers; rows not a multiple of 32), w == 1 (16-byte K-major).
+        ('7x7 conv G (16,200,7,7)', 0, lambda: case((16, 200, 7, 7), False)),
+        ('channels-last conv G (8,160,14,14)', 0,
+         lambda: case((8, 160, 14, 14), False, channels_last=True)),
+        ('ragged (1000,200)+bias', 0, lambda: case((1000, 200), True)),
+        ('w=1 conv G (16,136,12,1)', 0,
+         lambda: case((16, 136, 12, 1), False)),
     ]
 
 
@@ -467,12 +484,18 @@ def check_kernels(quick: bool, resnet50: dict | None = None,
     model = 'lstm' if lstm else 'resnet50' if resnet50 else 'resnet32'
     summary, details = {}, []
     for name, cases in families.items():
+        peak = OPS_PEAK.get(name, PEAK_FP32_FLOPS)
         agg = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0,
-               't_bytes': 0.0, 't_ops': 0.0, 'max_abs_err': 0.0}
+               't_bytes': 0.0, 't_ops': 0.0, 'fp32_bound_ms': 0.0,
+               'max_abs_err': 0.0}
         for label, count, make in cases:
             kern, plain, library, nbytes, flops = make()
             row = {'kernel': name, 'case': label, 'per_step': count,
                    'model': model}
+            plan = getattr(kern, 'plan', None)
+            if plan is not None:
+                row.update(tile=plan.tile, pairs=plan.npairs,
+                           chunks=plan.chunks, staging=plan.path)
             for mode, bf16, tol in (('fp32', False, TOL_FP32[name]),
                                     ('bf16', True, TOL_BF16)):
                 got = kern(bf16)
@@ -484,24 +507,43 @@ def check_kernels(quick: bool, resnet50: dict | None = None,
                 if not rel <= tol:
                     raise AssertionError(
                         f'{name} {label} {mode}: rel err {rel:.3g} > {tol}')
+                if plan is not None:
+                    # K1 mirrors every upper entry from its lower one and
+                    # sums split-K partials in a fixed order.
+                    again = kern(bf16)
+                    for g, h in zip(got, again, strict=True):
+                        if not torch.equal(g, g.T):
+                            raise AssertionError(
+                                f'{name} {label} {mode}: not symmetric')
+                        if not torch.equal(g, h):
+                            raise AssertionError(
+                                f'{name} {label} {mode}: two calls differ')
             msg = (f'  {name:15s} {label:34s} fp32 rel '
                    f'{row["fp32_rel_err"]:.2e}  bf16 rel '
                    f'{row["bf16_rel_err"]:.2e}')
+            if plan is not None:
+                msg += (f'  tile {plan.tile} pairs {plan.npairs} chunks '
+                        f'{plan.chunks} {plan.path}')
             if not quick and count:
                 reps = 20 if flops < 2e10 else 5
                 row['ms'] = time_ms(lambda: kern(False, both=False), reps)
                 row['plain_ms'] = time_ms(lambda: plain(False, both=False),
                                           reps)
                 row['library_ms'] = time_ms(library, reps)
-                row['bound_ms'], row['bound_by'] = bound(nbytes, flops)
+                row['bound_ms'], row['bound_by'] = bound(nbytes, flops,
+                                                         peak)
+                row['fp32_bound_ms'] = bound(nbytes, flops)[0]
                 msg += (f'  ms {row["ms"]:.4f} plain {row["plain_ms"]:.4f}'
                         f' lib {row["library_ms"]:.4f} bound '
                         f'{row["bound_ms"]:.4f} ({row["bound_by"]})')
+                if peak != PEAK_FP32_FLOPS:
+                    msg += f' fp32 bound {row["fp32_bound_ms"]:.4f}'
                 agg['ms'] += count * row['ms']
                 agg['plain_ms'] += count * row['plain_ms']
                 agg['library_ms'] += count * row['library_ms']
                 agg['t_bytes'] += count * nbytes / PEAK_BYTES * 1e3
-                agg['t_ops'] += count * flops / PEAK_FP32_FLOPS * 1e3
+                agg['t_ops'] += count * flops / peak * 1e3
+                agg['fp32_bound_ms'] += count * row['fp32_bound_ms']
                 agg['max_abs_err'] = max(agg['max_abs_err'],
                                          row['fp32_abs_err'])
             log(msg)
@@ -1096,8 +1138,10 @@ def run_resnet32_jacobi(card: str) -> dict:
 def _category(name: str) -> str:
     """Coarse owner of a CUDA kernel, from its (mangled) name."""
     n = name.lower()
+    if 'factor_partial' in n or 'factor_finalize' in n:
+        return 'K1 factor_ema'
     if 'gram_' in n:
-        return 'K2 patch_cov' if 'patchloader' in n else 'K1 factor_ema'
+        return 'K2 patch_cov'
     if 'bgemm_kernel' in n or 'vg_reduce' in n:
         return 'K3 bucket_precond'
     if any(f'ns_{k}_kernel' in n
@@ -1320,7 +1364,7 @@ def main(argv=None) -> int:
                 'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
                 'library_ms': agg['library_ms'],
                 'bound_rate': BOUND_RATE.get(name, FP32_RATE)}
-            if name == 'ns_inverse':
+            if name in ('factor_ema', 'ns_inverse'):
                 entry['fp32_bound_ms'] = agg['fp32_bound_ms']
             line.append(entry)
         report['kernels'] = line

@@ -1,6 +1,8 @@
-// Split-K Gram (X^T X) of an implicitly addressed fp32 matrix, shared by
-// the factor contraction + EMA kernel (factor_ema.cu) and the conv-A patch
-// covariance kernel (patch_cov.cu).
+// Split-K Gram (X^T X) of an implicitly addressed fp32 matrix on the CUDA
+// cores, used by the conv-A patch covariance kernel (patch_cov.cu, K2)
+// alone. The factor contraction kernel (factor_ema.cu, K1) runs on the
+// tensor cores (gemm_tc.cuh) with its own staging; StridedLoader below, its
+// former loader, has no caller left.
 //
 // The TPU kernels these replace walk the rows sequentially and carry the
 // (d, d) accumulator in VMEM from one grid step to the next. Blocks on

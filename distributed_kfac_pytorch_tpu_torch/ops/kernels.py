@@ -26,8 +26,9 @@ Five kernels carry the single-device K-FAC step:
                      ``pallas_kernels._jacobi_eigh_kernel`` via
                      ``batched_jacobi_eigh``).
 
-K3 runs on the CUDA-core tile GEMM of ``csrc/gemm.cuh``, K4 on the
-3xTF32 tensor-core tile GEMM of ``csrc/gemm_tc.cuh``. Each wrapper runs
+K2 runs on the CUDA-core split-K Gram of ``csrc/gram.cuh``, K3 on the
+CUDA-core tile GEMM of ``csrc/gemm.cuh``; K1 and K4 on the 3xTF32
+tensor-core primitives of ``csrc/gemm_tc.cuh``. Each wrapper runs
 its kernel's plain version for tensors on the CPU and launches the CUDA
 kernel for tensors on the card; any other device, dtype or layout
 raises. There is no fallback: a build or launch failure raises.
@@ -66,7 +67,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES = {name: 0 for name in SOURCES}
 
-# Split-K geometry of the Gram kernels (must match gram.cuh).
+# Split-K geometry of the Gram kernels (must match gram.cuh; K1's k-tile
+# depth, gemm_tc.cuh's kTcK, is the same 32).
 _ROW_STEP = 32
 # Blocks to aim for per Gram launch: 4 per SM of a 132-SM H100.
 _TARGET_BLOCKS = 4 * 132
@@ -262,7 +264,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     'factor_ema': {
-        'kfac_factor_ema': [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        'kfac_factor_ema': [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P, _P, _F, _F, _I, _F, _F, _P, _P]},
     'patch_cov': {
         'kfac_patch_cov': [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -367,12 +369,146 @@ def _gram_workspace(d_in: int, rows: int, device):
 
 # ---------------------------------------------------------------------------
 # K1: factor contraction + EMA. Replaces pallas_kernels._factor_ema_kernel
-# (driven by _pallas_factor_ema / fused_factor_ema). Bound on the H100:
-# bytes -- conv G reads up to (131072, 16) fp32 rows for a 16 x 16 output.
-# The kernel reads the NCHW grad once through its strides (no permuted
-# copy), splits the row walk over ~500 blocks (split-K, fixed-order
-# second pass: deterministic) and writes only the (n, n) result.
+# (pallas_kernels.py:593, driven by _pallas_factor_ema :661 /
+# fused_factor_ema :696). Bound on the H100: bytes at ResNet-32 widths
+# (conv G reads up to (131072, 16) fp32 rows for a 16 x 16 output),
+# operations at ResNet-50's d >= 128 (~13 GFLOP per heavy conv G launch).
+# The kernel runs the products on the tensor cores (3xTF32 mma.sync over a
+# cp.async ring, gemm_tc.cuh), stages X^T tiles K-major straight from the
+# caller's strides (no permuted or padded copy), computes lower-triangle
+# tile pairs only, and splits the row walk over about one or two waves of
+# resident blocks (split-K, fixed-order second pass that mirrors each
+# upper entry from its lower one: exactly symmetric, deterministic).
+# factor_ema_plan decides the tile, split and staging path.
 # ---------------------------------------------------------------------------
+
+_K1_STAGING = ('kmajor16', 'kmajor4', 'feature4')  # csrc kPath 0, 1, 2
+# Blocks per SM by tile edge (shared memory and the register cap).
+_K1_BLOCKS_PER_SM = {32: 4, 64: 2, 128: 1}
+# The split's cost model, microseconds on the H100 (chunk sweeps of the
+# ResNet-32 and ResNet-50 K1 shapes under torch.profiler): a block's time
+# per k-tile by tile edge, the finalize's time per chunk (its serial sum),
+# and the card's memory rate in bytes per us.
+_K1_US_PER_KTILE = {32: 0.55, 64: 1.5, 128: 2.6}
+_K1_US_PER_CHUNK = 0.04
+_K1_BYTES_PER_US = 3.35e6
+
+
+@dataclasses.dataclass(frozen=True)
+class FactorEmaPlan:
+    """How K1 runs one input: its row geometry after collapsing (row r =
+    (b, s), s < ``inner``, at ``b*sb + s*ss``; ``inner == 1``: row stride
+    ``sb``), the tile edge, the lower-triangle tile pairs, the split-K
+    chunks of ``rows_per_chunk`` rows, the staging path and the workspace
+    (partial tiles, then column sums with a bias) in bytes."""
+    rows: int
+    d_in: int
+    inner: int
+    sb: int
+    ss: int
+    sc: int
+    tile: int
+    npairs: int
+    chunks: int
+    rows_per_chunk: int
+    path: str
+    ws_bytes: int
+
+    @property
+    def ntiles(self) -> int:
+        return -(-self.d_in // self.tile)
+
+
+def _pair_of(p: int) -> tuple[int, int]:
+    """Pair index -> (ta, tb), ta >= tb, p = ta(ta+1)/2 + tb: the closed
+    form of csrc/factor_ema.cu's ``pair_of`` (float32 sqrt, corrected)."""
+    a = int((float(torch.tensor(8.0 * p + 1.0).sqrt()) - 1.0) * 0.5)
+    while (a + 1) * (a + 2) // 2 <= p:
+        a += 1
+    while a * (a + 1) // 2 > p:
+        a -= 1
+    return a, p - a * (a + 1) // 2
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_split(ktiles: int, npairs: int, slots: int, tile: int,
+              in_bytes: int) -> int:
+    """Chunks of the row walk that minimize the modelled time: waves of
+    ``slots`` resident blocks times each block's k-tiles (at least the
+    input read at the memory rate), plus the finalize's serial sum over
+    chunks and the workspace written and read back."""
+    best, best_us = 1, None
+    for chunks in range(1, min(ktiles, max(1, 4 * slots // npairs)) + 1):
+        waves = -(-npairs * chunks // slots)
+        us = max(waves * (-(-ktiles // chunks) + 2) * _K1_US_PER_KTILE[tile],
+                 in_bytes / _K1_BYTES_PER_US)
+        us += chunks * (_K1_US_PER_CHUNK
+                        + 8 * npairs * tile * tile / _K1_BYTES_PER_US)
+        if best_us is None or us < best_us:
+            best, best_us = chunks, us
+    return best
+
+
+@functools.lru_cache(maxsize=1024)
+def factor_ema_plan(shape, strides, has_bias: bool, device_sms: int = 132,
+                    aligned: bool = True) -> FactorEmaPlan:
+    """K1's plan for a ``(rows, d)`` or ``(B, C, H, W)`` input of element
+    ``strides`` (``aligned``: its first element is 16-byte aligned) on a
+    card of ``device_sms`` SMs (cached: one plan per layer shape). Raises
+    on a 4-D input whose (h, w) axes do not collapse to one strided
+    axis."""
+    shape, strides = tuple(shape), tuple(strides)
+    if len(shape) == 2:
+        rows, d_in = shape
+        inner, sb, ss, sc = 1, strides[0], 0, strides[1]
+    elif len(shape) == 4:
+        b, d_in, h, w = shape
+        if h > 1 and w > 1 and strides[2] != w * strides[3]:
+            raise ValueError('factor_ema: the (h, w) axes of a 4-D input '
+                             'must collapse to one strided axis, got '
+                             f'strides {strides}')
+        rows, inner = b * h * w, h * w
+        sb, sc = strides[0], strides[1]
+        ss = strides[3] if w > 1 else strides[2]
+        if inner == 1:
+            ss = 0
+        elif b == 1 or sb == inner * ss:
+            inner, sb, ss = 1, ss, 0          # one strided row axis
+    else:
+        raise ValueError(f'factor_ema: expected 2-D or 4-D x, got shape '
+                         f'{shape}')
+    k_contig = (sb if inner == 1 else ss) == 1
+    if k_contig and aligned and sc % 4 == 0 and (
+            inner == 1 or (inner % 4 == 0 and sb % 4 == 0)):
+        path = 'kmajor16'
+    elif not k_contig and sc == 1:
+        path = 'feature4'
+    else:
+        path = 'kmajor4'
+    tile = 32 if d_in <= 32 else 64 if d_in <= 64 else 128
+    ntiles = -(-d_in // tile)
+    npairs = ntiles * (ntiles + 1) // 2
+    ktiles = max(1, -(-rows // _ROW_STEP))
+    chunks = _k1_split(ktiles, npairs, device_sms * _K1_BLOCKS_PER_SM[tile],
+                       tile, 4 * rows * d_in)
+    per = -(-ktiles // chunks) * _ROW_STEP
+    chunks = -(-rows // per) if rows else 1
+    floats = chunks * npairs * tile * tile
+    if has_bias:
+        floats += chunks * ntiles * tile
+    return FactorEmaPlan(rows, d_in, inner, sb, ss, sc, tile, npairs,
+                         chunks, per, path, 4 * floats)
+
+
+def _factor_ema_workspace(plan: FactorEmaPlan, device) -> torch.Tensor:
+    return torch.empty(plan.ws_bytes // 4, dtype=torch.float32,
+                       device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 def factor_ema_plain(x: torch.Tensor, old: torch.Tensor | None, decay, *,
                      scale: float | None = None, has_bias: bool = False,
@@ -406,22 +542,10 @@ def factor_ema(x: torch.Tensor, old: torch.Tensor | None, decay, *,
                                 has_bias=has_bias, corner=corner, bf16=bf16)
     _require(x, 'factor_ema x')
     _require_int32_offsets(x, 'factor_ema')
-    if x.ndim == 2:
-        rows, d_in = x.shape
-        inner, sb, ss, sc = 1, x.stride(0), 0, x.stride(1)
-    elif x.ndim == 4:
-        b, d_in, h, w = x.shape
-        if h > 1 and w > 1 and x.stride(2) != w * x.stride(3):
-            raise ValueError('factor_ema: the (h, w) axes of a 4-D input '
-                             'must collapse to one strided axis, got '
-                             f'strides {x.stride()}')
-        rows, inner = b * h * w, h * w
-        sb, ss, sc = x.stride(0), x.stride(3), x.stride(1)
-        if w == 1:
-            ss = x.stride(2)
-    else:
-        raise ValueError(f'factor_ema: expected 2-D or 4-D x, got shape '
-                         f'{tuple(x.shape)}')
+    plan = factor_ema_plan(tuple(x.shape), x.stride(), bool(has_bias),
+                           _sm_count(x.device.index or 0),
+                           aligned=x.data_ptr() % 16 == 0)
+    rows, d_in = plan.rows, plan.d_in
     n = d_in + int(has_bias)
     if old is not None:
         _require(old, 'factor_ema old', 2)
@@ -431,11 +555,12 @@ def factor_ema(x: torch.Tensor, old: torch.Tensor | None, decay, *,
     if rows < 1:
         raise ValueError('factor_ema: x has no rows')
     scale = rows if scale is None else scale
-    tile, chunks, per, ws, ws_colsum = _gram_workspace(d_in, rows, x.device)
+    ws = _factor_ema_workspace(plan, x.device)
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
     err = _lib('factor_ema').kfac_factor_ema(
-        x.data_ptr(), rows, d_in, inner, sb, ss, sc, int(bf16), tile,
-        chunks, per, ws.data_ptr(), ws_colsum.data_ptr(),
+        x.data_ptr(), rows, d_in, plan.inner, plan.sb, plan.ss, plan.sc,
+        int(bf16), plan.tile, _K1_STAGING.index(plan.path), plan.chunks,
+        plan.rows_per_chunk, ws.data_ptr(),
         old.data_ptr() if old is not None else None,
         float(decay) if old is not None else 0.0, 1.0 / float(scale),
         int(has_bias), 1.0 / rows, float(corner), out.data_ptr(),
@@ -920,7 +1045,8 @@ KERNEL_INFO = {
 }
 
 __all__ = ['LAUNCHES', 'KERNEL_INFO', 'reset_launches', 'build',
-           'factor_ema', 'factor_ema_plain', 'patch_cov', 'patch_cov_plain',
+           'factor_ema', 'factor_ema_plain', 'factor_ema_plan',
+           'FactorEmaPlan', 'patch_cov', 'patch_cov_plain',
            'bucket_precond', 'bucket_precond_plain', 'batched_inverse',
            'batched_inverse_plain', 'damped_inverse_stack',
            'batched_jacobi_eigh', 'batched_jacobi_eigh_plain',
