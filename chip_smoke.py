@@ -16,10 +16,12 @@ Phases (any failure exits nonzero and prints no result line):
      largest plain entry: fp32 <= 1e-5 for the Gram kernels, <= 1e-4 for
      bucketed preconditioning; bf16 <= 1e-2), and timed with CUDA events
      (median) beside the plain version, a library yardstick and the
-     card's bound (K1 against the 3xTF32 tensor-core rate, its fp32
-     CUDA-core bound beside it); K1 also at one edge case per staging path
-     of ``factor_ema_plan``, its output exactly symmetric and two calls
-     bit-identical, each case printing its tile, pairs, chunks and path;
+     card's bound (K1 and K3 against the 3xTF32 tensor-core rate, their
+     fp32 CUDA-core bound beside it) and the bound's share of the time;
+     K1 also at one edge case per staging path of ``factor_ema_plan``, its
+     output exactly symmetric; K1 and K3 bit-identical over two calls,
+     each case printing its plan (K1: tile, pairs, chunks, staging path;
+     K3: tile, staging path, waves from ``bucket_precond_plan``);
   4. kernel K4 (Newton--Schulz inverse): random SPD stacks at every
      ResNet-50 size bucket and edge sizes, damping 0.003 and 0.001, and
      stacks whose matrices stop at different iterations (and at the cap),
@@ -100,13 +102,16 @@ ROOT = Path(__file__).resolve().parent
 # cores, dense TF32 on the tensor cores and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 494.7e12
-# What each kernel's operations run on, for its bound: K1 and K4 take each
-# fp32 product as three TF32 products (3xTF32), the others are fp32 FMAs.
+# What each kernel's operations run on, for its bound: K1, K3 and K4 take
+# each fp32 product as three TF32 products (3xTF32), the others are fp32
+# FMAs.
 TC_RATE = 'tf32 tensor cores, 3 per fp32 product (494.7 TFLOP/s)'
-BOUND_RATE = {'factor_ema': TC_RATE, 'ns_inverse': TC_RATE}
+TC_KERNELS = ('factor_ema', 'bucket_precond', 'ns_inverse')
+BOUND_RATE = dict.fromkeys(TC_KERNELS, TC_RATE)
 FP32_RATE = 'fp32 CUDA cores (67 TFLOP/s)'
 # fp32 FLOPs per second of each kernel's bound (phase 3).
-OPS_PEAK = {'factor_ema': PEAK_TF32_FLOPS / 3}
+OPS_PEAK = {'factor_ema': PEAK_TF32_FLOPS / 3,
+            'bucket_precond': PEAK_TF32_FLOPS / 3}
 PEAK_BYTES = 3.35e12
 TOL_FP32 = {'factor_ema': 1e-5, 'patch_cov': 1e-5, 'bucket_precond': 1e-4}
 TOL_BF16 = 1e-2
@@ -375,6 +380,11 @@ def bucket_precond_cases(gen, dev, resnet50=None):
                 v = torch.bmm(torch.bmm(entry['G_inv'], g), entry['A_inv'])
             return v, (v * g).sum(dim=(1, 2))
 
+        kern.inputs = (g, entry, damping)
+        kern.plan = K.bucket_precond_plan(
+            s, g_dim, a_dim, eigen, K._sm_count(g.device.index or 0),
+            aligned=all(t.data_ptr() % 16 == 0
+                        for t in (g, *entry.values())))
         ins = g_dim * a_dim + a_dim * a_dim + g_dim * g_dim
         ins += (a_dim + g_dim) if eigen else 0
         nbytes = 4 * s * (ins + g_dim * a_dim + 1)
@@ -464,6 +474,17 @@ def resnet50_shapes() -> dict:
             'fc': fc, 'buckets': sorted(buckets.items())}
 
 
+def plan_fields(plan) -> dict:
+    """What a phase-3 row records of a kernel's plan: K1's tile, tile
+    pairs, split-K chunks and staging path; K3's tile, staging path and
+    waves."""
+    if hasattr(plan, 'npairs'):
+        return {'tile': plan.tile, 'pairs': plan.npairs,
+                'chunks': plan.chunks, 'staging': plan.path}
+    return {'tile': f'{plan.tile_m}x128', 'staging': plan.path,
+            'waves': plan.waves}
+
+
 def check_kernels(quick: bool, resnet50: dict | None = None,
                   lstm: bool = False) -> tuple[dict, list]:
     """K1-K3 against their plain versions at the ResNet-32 shapes (or,
@@ -493,9 +514,8 @@ def check_kernels(quick: bool, resnet50: dict | None = None,
             row = {'kernel': name, 'case': label, 'per_step': count,
                    'model': model}
             plan = getattr(kern, 'plan', None)
-            if plan is not None:
-                row.update(tile=plan.tile, pairs=plan.npairs,
-                           chunks=plan.chunks, staging=plan.path)
+            desc = plan_fields(plan) if plan is not None else {}
+            row.update(desc)
             for mode, bf16, tol in (('fp32', False, TOL_FP32[name]),
                                     ('bf16', True, TOL_BF16)):
                 got = kern(bf16)
@@ -508,11 +528,11 @@ def check_kernels(quick: bool, resnet50: dict | None = None,
                     raise AssertionError(
                         f'{name} {label} {mode}: rel err {rel:.3g} > {tol}')
                 if plan is not None:
-                    # K1 mirrors every upper entry from its lower one and
-                    # sums split-K partials in a fixed order.
+                    # K1 mirrors every upper entry from its lower one; K1
+                    # and K3 sum their partials in a fixed order.
                     again = kern(bf16)
                     for g, h in zip(got, again, strict=True):
-                        if not torch.equal(g, g.T):
+                        if name == 'factor_ema' and not torch.equal(g, g.T):
                             raise AssertionError(
                                 f'{name} {label} {mode}: not symmetric')
                         if not torch.equal(g, h):
@@ -521,9 +541,7 @@ def check_kernels(quick: bool, resnet50: dict | None = None,
             msg = (f'  {name:15s} {label:34s} fp32 rel '
                    f'{row["fp32_rel_err"]:.2e}  bf16 rel '
                    f'{row["bf16_rel_err"]:.2e}')
-            if plan is not None:
-                msg += (f'  tile {plan.tile} pairs {plan.npairs} chunks '
-                        f'{plan.chunks} {plan.path}')
+            msg += ''.join(f'  {k} {v}' for k, v in desc.items())
             if not quick and count:
                 reps = 20 if flops < 2e10 else 5
                 row['ms'] = time_ms(lambda: kern(False, both=False), reps)
@@ -535,7 +553,8 @@ def check_kernels(quick: bool, resnet50: dict | None = None,
                 row['fp32_bound_ms'] = bound(nbytes, flops)[0]
                 msg += (f'  ms {row["ms"]:.4f} plain {row["plain_ms"]:.4f}'
                         f' lib {row["library_ms"]:.4f} bound '
-                        f'{row["bound_ms"]:.4f} ({row["bound_by"]})')
+                        f'{row["bound_ms"]:.4f} ({row["bound_by"]}, '
+                        f'{100 * row["bound_ms"] / row["ms"]:.1f} %)')
                 if peak != PEAK_FP32_FLOPS:
                     msg += f' fp32 bound {row["fp32_bound_ms"]:.4f}'
                 agg['ms'] += count * row['ms']
@@ -1364,7 +1383,7 @@ def main(argv=None) -> int:
                 'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
                 'library_ms': agg['library_ms'],
                 'bound_rate': BOUND_RATE.get(name, FP32_RATE)}
-            if name in ('factor_ema', 'ns_inverse'):
+            if name in TC_KERNELS:
                 entry['fp32_bound_ms'] = agg['fp32_bound_ms']
             line.append(entry)
         report['kernels'] = line

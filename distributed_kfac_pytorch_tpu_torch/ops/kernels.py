@@ -26,11 +26,10 @@ Five kernels carry the single-device K-FAC step:
                      ``pallas_kernels._jacobi_eigh_kernel`` via
                      ``batched_jacobi_eigh``).
 
-K2 runs on the CUDA-core split-K Gram of ``csrc/gram.cuh``, K3 on the
-CUDA-core tile GEMM of ``csrc/gemm.cuh``; K1 and K4 on the 3xTF32
-tensor-core primitives of ``csrc/gemm_tc.cuh``. Each wrapper runs
-its kernel's plain version for tensors on the CPU and launches the CUDA
-kernel for tensors on the card; any other device, dtype or layout
+K2 runs on the CUDA-core split-K Gram of ``csrc/gram.cuh``; K1, K3 and K4
+on the 3xTF32 tensor-core primitives of ``csrc/gemm_tc.cuh``. Each wrapper
+runs its kernel's plain version for tensors on the CPU and launches the
+CUDA kernel for tensors on the card; any other device, dtype or layout
 raises. There is no fallback: a build or launch failure raises.
 Each launch adds one to ``LAUNCHES[name]`` (launches only: the plain
 versions do not count).
@@ -60,7 +59,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 SOURCES = {'factor_ema': 'factor_ema.cu', 'patch_cov': 'patch_cov.cu',
            'bucket_precond': 'bucket_precond.cu',
            'ns_inverse': 'ns_inverse.cu', 'jacobi_eigh': 'jacobi_eigh.cu'}
-HEADERS = ('gram.cuh', 'gemm.cuh', 'gemm_tc.cuh')
+HEADERS = ('gram.cuh', 'gemm_tc.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 
@@ -271,11 +270,10 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F,
                            _I, _F, _F, _P, _P]},
     'bucket_precond': {
-        'kfac_bucket_precond_tiles': [_I, _I],
         'kfac_bucket_precond_eigen': [_P, _P, _P, _P, _P, _F, _I, _I, _I,
-                                      _I, _P, _P, _P, _P, _P, _P],
-        'kfac_bucket_precond_baked': [_P, _P, _P, _I, _I, _I, _I, _P, _P,
-                                      _P, _P, _P]},
+                                      _I, _I, _I, _P, _P, _P, _P, _P, _P],
+        'kfac_bucket_precond_baked': [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                      _P, _P, _P, _P, _P]},
     'ns_inverse': {
         'kfac_ns_inverse': [_P, _F, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P,
                             _P]},
@@ -630,20 +628,107 @@ def patch_cov(x: torch.Tensor, kernel_size, strides, padding,
 
 # ---------------------------------------------------------------------------
 # K3: bucketed preconditioning with the KL-clip v.g partial. Replaces
-# pallas_kernels._bucket_precond_kernel (driven by _pallas_bucket_precond /
-# fused_bucket_precondition). Bound on the H100: operations at the large
-# buckets ((64, 576) x 9), launch latency at the small ones. A 576 x 576
-# QA does not fit a block's shared memory, so the chain is four launches
-# of one batched 64 x 64-tile GEMM (grid z = slice) with the eigenvalue
-# divide and the v.g partial fused into epilogues, plus a fixed-order
-# reduction of the partials.
+# pallas_kernels._bucket_precond_kernel (pallas_kernels.py:804, driven by
+# _pallas_bucket_precond :845 / fused_bucket_precondition :883). Bound on
+# the H100: operations at the large buckets (ResNet-50's (512, 4608) x 3 is
+# 72.5 GFLOP, three times that in TF32 products), launches at the small
+# ones. A 4608 x 4608 A_inv does not fit a block's shared memory, so the
+# chain is one launch per product of the batched tile GEMM of gemm_tc.cuh
+# (3xTF32 mma.sync over a cp.async ring, grid z = slice; QG^T and QA^T read
+# in place through the transposed stagings), with the eigenvalue divide and
+# the v.g partial fused into epilogues, plus a fixed-order reduction of the
+# partials. bucket_precond_plan picks the tile height and staging path.
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _precond_tiles(g_dim: int, a_dim: int) -> int:
-    """The v.g partials per slice, counted by the library that writes
-    them (cached: one host call per bucket shape)."""
-    return _lib('bucket_precond').kfac_bucket_precond_tiles(g_dim, a_dim)
+_K3_STAGING = ('vec4', 'vec16')  # csrc `vec` 0, 1
+_K3_TILE_N = 128
+# Blocks per SM by tile height (shared memory and the register cap), and
+# the time per 32-deep k-tile of the blocks resident on one SM, by staging
+# path, tile height and resident blocks, microseconds on the H100 (tile
+# sweeps of the ResNet-50 and LSTM buckets, scripts/k3_tiles.py).
+_K3_BLOCKS_PER_SM = {64: 2, 128: 1}
+_K3_US_PER_KTILE = {('vec16', 128, 1): 2.6, ('vec16', 64, 1): 1.9,
+                    ('vec16', 64, 2): 2.8, ('vec4', 128, 1): 3.35,
+                    ('vec4', 64, 1): 2.9, ('vec4', 64, 2): 4.8}
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketPrecondPlan:
+    """How K3 runs one bucket of ``s`` slices of ``(g_dim, a_dim)``
+    gradients: ``tile_m`` rows of G by 128 columns of A per block, the
+    staging path (``'vec16'``: 16-byte copies, ``'vec4'``: 4-byte), the
+    output tiles per slice (``tiles``: also the v.g partials the last
+    product writes per slice), the waves of each product's grid at the
+    tile's resident blocks per SM, the modelled time per k-tile of the
+    busiest SM's blocks (``us_per_ktile``, microseconds), and the
+    workspace in floats (U, T for eigen, then the partials)."""
+    s: int
+    g_dim: int
+    a_dim: int
+    eigen: bool
+    tile_m: int
+    path: str
+    tiles: int
+    waves: int
+    us_per_ktile: float
+    ws_floats: int
+
+
+@functools.lru_cache(maxsize=1024)
+def bucket_precond_plan(s: int, g_dim: int, a_dim: int, eigen: bool,
+                        device_sms: int = 132,
+                        aligned: bool = True) -> BucketPrecondPlan:
+    """K3's plan for ``s`` slices of ``(g_dim, a_dim)`` (``aligned``: every
+    operand's first element is 16-byte aligned) on a card of
+    ``device_sms`` SMs (cached: one plan per bucket shape).
+
+    Every product of the chain has the ``(G, A)`` output, so one grid
+    serves them all. The 16-byte staging needs G and A to be multiples of
+    4 (each operand's rows then start 16-byte aligned); the others (A =
+    2049, 651, 147, G = 650) stage with 4-byte copies. The tile height,
+    64 or 128, minimizes the modelled time of the SM that holds the most
+    blocks: at G <= 64 a 128-row tile would be half empty or worse; two
+    64-row blocks share an SM where one 128-row block (140-144 KB of ring)
+    holds it alone, and a 64-row block alone on an SM runs faster still,
+    so 64 rows win where they spread a grid over more SMs and 128 where
+    they fill the card. The (512, 4608) x 3 bucket, for one, gives 432
+    128-row tiles, 3.3 waves at one block per SM, and 864 64-row tiles,
+    3.3 waves at two.
+    """
+    if min(s, g_dim, a_dim) < 1:
+        raise ValueError(f'bucket_precond_plan: empty bucket ({s}, {g_dim}, '
+                         f'{a_dim})')
+    path = ('vec16' if aligned and g_dim % 4 == 0 and a_dim % 4 == 0
+            else 'vec4')
+    plans = [_k3_plan(s, g_dim, a_dim, eigen, path, tile_m, device_sms)
+             for tile_m in _K3_BLOCKS_PER_SM]
+    return min(plans, key=lambda p: p.us_per_ktile)
+
+
+def _k3_plan(s: int, g_dim: int, a_dim: int, eigen: bool, path: str,
+             tile_m: int, device_sms: int) -> BucketPrecondPlan:
+    """K3's plan with the tile height and staging path given."""
+    tiles = -(-g_dim // tile_m) * -(-a_dim // _K3_TILE_N)
+    per_sm = _K3_BLOCKS_PER_SM[tile_m]
+    waves = -(-s * tiles // (device_sms * per_sm))
+    # The busiest SM runs `most` blocks, `per_sm` at a time.
+    most = -(-s * tiles // device_sms)
+    us = (most // per_sm * _K3_US_PER_KTILE[path, tile_m, per_sm]
+          + (_K3_US_PER_KTILE[path, tile_m, 1] if most % per_sm else 0.0))
+    ws_floats = s * (g_dim * a_dim * (2 if eigen else 1) + tiles)
+    return BucketPrecondPlan(s, g_dim, a_dim, bool(eigen), tile_m, path,
+                             tiles, waves, us, ws_floats)
+
+
+def _bucket_precond_workspace(plan: BucketPrecondPlan, device):
+    """One flat allocation of ``plan.ws_floats``: U ``(s, G, A)``, then T
+    for eigen, then the ``(s, tiles)`` v.g partials, at the element
+    offsets ``(0, n, (1 + eigen) n)`` (n = s G A) that
+    :func:`_bucket_precond_launch` hands the library as pointers (views
+    cost host time, which the small buckets feel)."""
+    n = plan.s * plan.g_dim * plan.a_dim
+    ws = torch.empty(plan.ws_floats, dtype=torch.float32, device=device)
+    return ws, (0, n, (2 if plan.eigen else 1) * n)
 
 
 def bucket_precond_plain(gstack: torch.Tensor, entry: dict, damping, *,
@@ -690,27 +775,35 @@ def bucket_precond(gstack: torch.Tensor, entry: dict, damping, *,
         if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
             raise ValueError(f'bucket_precond: {key} must be a contiguous '
                              f'{shape} tensor, got {tuple(t.shape)}')
-    dev = gstack.device
+    plan = bucket_precond_plan(
+        s, g_dim, a_dim, eigen, _sm_count(gstack.device.index or 0),
+        aligned=all(t.data_ptr() % 16 == 0
+                    for t in (gstack, *(entry[k] for k in shapes))))
+    return _bucket_precond_launch(plan, gstack, entry, damping, bf16)
+
+
+def _bucket_precond_launch(plan: BucketPrecondPlan, gstack: torch.Tensor,
+                           entry: dict, damping, bf16: bool
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One K3 call on checked CUDA inputs under ``plan``."""
     lib = _lib('bucket_precond')
-    tiles = _precond_tiles(g_dim, a_dim)
+    ws, offsets = _bucket_precond_workspace(plan, gstack.device)
+    ws_u, ws_t, vg_part = (ws.data_ptr() + 4 * o for o in offsets)
     v = torch.empty_like(gstack)
-    vg = torch.empty((s,), dtype=torch.float32, device=dev)
-    ws_u = torch.empty_like(gstack)
-    vg_part = torch.empty((s, tiles), dtype=torch.float32, device=dev)
-    if eigen:
-        ws_t = torch.empty_like(gstack)
+    vg = torch.empty((plan.s,), dtype=torch.float32, device=gstack.device)
+    geometry = (plan.s, plan.g_dim, plan.a_dim, plan.tile_m,
+                _K3_STAGING.index(plan.path), int(bf16))
+    if plan.eigen:
         err = lib.kfac_bucket_precond_eigen(
             gstack.data_ptr(), entry['QA'].data_ptr(),
             entry['QG'].data_ptr(), entry['dA'].data_ptr(),
-            entry['dG'].data_ptr(), float(damping), s, g_dim, a_dim,
-            int(bf16), ws_u.data_ptr(), ws_t.data_ptr(), vg_part.data_ptr(),
-            v.data_ptr(), vg.data_ptr(), _stream(gstack))
+            entry['dG'].data_ptr(), float(damping), *geometry, ws_u, ws_t,
+            vg_part, v.data_ptr(), vg.data_ptr(), _stream(gstack))
     else:
         err = lib.kfac_bucket_precond_baked(
             gstack.data_ptr(), entry['A_inv'].data_ptr(),
-            entry['G_inv'].data_ptr(), s, g_dim, a_dim, int(bf16),
-            ws_u.data_ptr(), vg_part.data_ptr(), v.data_ptr(),
-            vg.data_ptr(), _stream(gstack))
+            entry['G_inv'].data_ptr(), *geometry, ws_u, vg_part,
+            v.data_ptr(), vg.data_ptr(), _stream(gstack))
     _check(err, 'bucket_precond')
     LAUNCHES['bucket_precond'] += 1
     return v, vg
@@ -1047,7 +1140,8 @@ KERNEL_INFO = {
 __all__ = ['LAUNCHES', 'KERNEL_INFO', 'reset_launches', 'build',
            'factor_ema', 'factor_ema_plain', 'factor_ema_plan',
            'FactorEmaPlan', 'patch_cov', 'patch_cov_plain',
-           'bucket_precond', 'bucket_precond_plain', 'batched_inverse',
+           'bucket_precond', 'bucket_precond_plain', 'bucket_precond_plan',
+           'BucketPrecondPlan', 'batched_inverse',
            'batched_inverse_plain', 'damped_inverse_stack',
            'batched_jacobi_eigh', 'batched_jacobi_eigh_plain',
            'jacobi_slot_dest', 'jacobi_ring_order', 'jacobi_ring_position',

@@ -142,6 +142,41 @@ def test_bucket_precond_plain_baked_vs_pallas():
                                atol=V_ATOL)
 
 
+# The bf16-multiplicand mode: every operand and the intermediates U and T
+# rounded to bf16 (Pallas: default precision on bf16 operands), held at
+# 1e-2 of the largest reference entry -- the chip tolerance of the mode.
+# Both round at the same points; what is left is fp32 accumulation order
+# moving a value across a bf16 rounding boundary (~3e-3 seen at these
+# shapes).
+BF16_REL = 1e-2
+
+
+@pytest.mark.parametrize('eigen', [True, False], ids=['eigen', 'baked'])
+@pytest.mark.parametrize('dims', [(3, 9, 13), (2, 64, 130)],
+                         ids=['3x9x13', '2x64x130'])
+def test_bucket_precond_plain_bf16_vs_pallas(dims, eigen):
+    s, g_dim, a_dim = dims
+    rng = np.random.default_rng(5)
+    g = rng.normal(size=dims).astype('float32')
+    entry = (_eigen_entry(rng, s, a_dim, g_dim) if eigen else
+             {'A_inv': _spd(rng, s, a_dim), 'G_inv': _spd(rng, s, g_dim)})
+    v_ref, vg_ref = JP.fused_bucket_precondition(
+        jnp.asarray(g), {k: jnp.asarray(v) for k, v in entry.items()},
+        0.003, compute_dtype=jnp.bfloat16, interpret=True)
+    v, vg = kernels.bucket_precond_plain(torch.from_numpy(g),
+                                         _torch_entry(entry), 0.003,
+                                         bf16=True)
+    for got, ref in ((v.numpy(), np.asarray(v_ref)),
+                     (vg.numpy(), np.asarray(vg_ref))):
+        assert got.shape == ref.shape
+        assert np.abs(got - ref).max() <= BF16_REL * np.abs(ref).max()
+    # The mode does round: fp32 multiplicands land measurably elsewhere.
+    v32, _ = kernels.bucket_precond_plain(torch.from_numpy(g),
+                                          _torch_entry(entry), 0.003)
+    assert np.abs(v32.numpy() - v.numpy()).max() > 1e-4 * np.abs(
+        v32.numpy()).max()
+
+
 def test_precondition_eigen_and_inv_match_jax():
     rng = np.random.default_rng(4)
     grad = rng.normal(size=(6, 10)).astype('float32')
