@@ -16,12 +16,13 @@ Phases (any failure exits nonzero and prints no result line):
      largest plain entry: fp32 <= 1e-5 for the Gram kernels, <= 1e-4 for
      bucketed preconditioning; bf16 <= 1e-2), and timed with CUDA events
      (median) beside the plain version, a library yardstick and the
-     card's bound (K1 and K3 against the 3xTF32 tensor-core rate, their
-     fp32 CUDA-core bound beside it) and the bound's share of the time;
-     K1 also at one edge case per staging path of ``factor_ema_plan``, its
-     output exactly symmetric; K1 and K3 bit-identical over two calls,
-     each case printing its plan (K1: tile, pairs, chunks, staging path;
-     K3: tile, staging path, waves from ``bucket_precond_plan``);
+     card's bound (K1-K3 against the 3xTF32 tensor-core rate, their fp32
+     CUDA-core bound beside it) and the bound's share of the time; K1 and
+     K2 also at one edge case per staging path of ``factor_ema_plan`` and
+     ``patch_cov_plan``, their outputs exactly symmetric; K1-K3
+     bit-identical over two calls, each case printing its plan (K1, K2:
+     tile, pairs, chunks, staging path; K3: tile, staging path, waves from
+     ``bucket_precond_plan``);
   4. kernel K4 (Newton--Schulz inverse): random SPD stacks at every
      ResNet-50 size bucket and edge sizes, damping 0.003 and 0.001, and
      stacks whose matrices stop at different iterations (and at the cap),
@@ -80,7 +81,8 @@ Phases (any failure exits nonzero and prints no result line):
 checks of phases 3, 4 and 8 (a first call after a kernel change).
 ``--profile`` adds a torch.profiler pass over steady ResNet-32,
 ResNet-50 (``newton``) and LSTM (``jacobi``) steps (device time by kernel
-category, the device's busy share). Details of every case go to
+category, the device's busy share; it fails if the ResNet-50 steps show
+no K2 time). Details of every case go to
 ``chiprun_out/chip_smoke.json`` next to this script.
 """
 
@@ -102,15 +104,15 @@ ROOT = Path(__file__).resolve().parent
 # cores, dense TF32 on the tensor cores and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 494.7e12
-# What each kernel's operations run on, for its bound: K1, K3 and K4 take
-# each fp32 product as three TF32 products (3xTF32), the others are fp32
-# FMAs.
+# What each kernel's operations run on, for its bound: K1-K4 take each
+# fp32 product as three TF32 products (3xTF32), K5 is fp32 FMAs.
 TC_RATE = 'tf32 tensor cores, 3 per fp32 product (494.7 TFLOP/s)'
-TC_KERNELS = ('factor_ema', 'bucket_precond', 'ns_inverse')
+TC_KERNELS = ('factor_ema', 'patch_cov', 'bucket_precond', 'ns_inverse')
 BOUND_RATE = dict.fromkeys(TC_KERNELS, TC_RATE)
 FP32_RATE = 'fp32 CUDA cores (67 TFLOP/s)'
 # fp32 FLOPs per second of each kernel's bound (phase 3).
 OPS_PEAK = {'factor_ema': PEAK_TF32_FLOPS / 3,
+            'patch_cov': PEAK_TF32_FLOPS / 3,
             'bucket_precond': PEAK_TF32_FLOPS / 3}
 PEAK_BYTES = 3.35e12
 TOL_FP32 = {'factor_ema': 1e-5, 'patch_cov': 1e-5, 'bucket_precond': 1e-4}
@@ -295,14 +297,17 @@ def patch_cov_cases(gen, dev, resnet50=None):
         rows, d = b * oh * ow, c * k[0] * k[1]
         n = d + int(has_bias)
 
+        # One output; a 1-tuple for the checks, the tensor when timed.
         def kern(bf16, both=True):
-            return K.patch_cov(x, k, stride, padding, has_bias,
-                               compute_dtype=torch.bfloat16 if bf16
-                               else None)
+            out = K.patch_cov(x, k, stride, padding, has_bias,
+                              compute_dtype=torch.bfloat16 if bf16
+                              else None)
+            return (out,) if both else out
 
         def plain(bf16, both=True):
-            return K.patch_cov_plain(x, k, stride, padding, has_bias,
-                                     bf16=bf16)
+            out = K.patch_cov_plain(x, k, stride, padding, has_bias,
+                                    bf16=bf16)
+            return (out,) if both else out
 
         def library():
             # im2col rows in the (c, kh, kw) basis, then one GEMM.
@@ -310,6 +315,10 @@ def patch_cov_cases(gen, dev, resnet50=None):
             p = F.unfold(xp, k, stride=stride).transpose(1, 2).reshape(-1, d)
             return p.T @ p
 
+        kern.plan = K.patch_cov_plan(x.shape, x.stride(), k, stride, pads,
+                                     has_bias,
+                                     K._sm_count(x.device.index or 0),
+                                     aligned=x.data_ptr() % 16 == 0)
         nbytes = 4 * (x.numel() + n * n)
         return kern, plain, library, nbytes, rows * d * (d + 1)
 
@@ -333,6 +342,22 @@ def patch_cov_cases(gen, dev, resnet50=None):
          lambda: case((7, 3, 9, 9), s2, 'SAME', has_bias=True)),
         ('channels-last (5,4,6,6)', 0,
          lambda: case((5, 4, 6, 6), s1, 1, channels_last=True)),
+        # One per staging path patch_cov_plan can choose, past one tile:
+        # the implicit im2col (the ResNet-50 stem, 1 x 1 stride 2) and
+        # K1's paths for 1 x 1 stride 1 (a 7 x 7 grid: 4-byte K-major;
+        # channels-last: 4-byte along features; 14 x 14 with a bias:
+        # 16-byte K-major).
+        ('stem 7x7 s2 D=147 (8,3,224,224)', 0,
+         lambda: case((8, 3, 224, 224), s2, 3, k=(7, 7))),
+        ('1x1 s2 D=256 (8,256,56,56)', 0,
+         lambda: case((8, 256, 56, 56), s2, 0, k=(1, 1))),
+        ('1x1 on 7x7 D=512 (16,512,7,7)', 0,
+         lambda: case((16, 512, 7, 7), s1, 0, k=(1, 1))),
+        ('channels-last 1x1 D=160 (8,160,14,14)', 0,
+         lambda: case((8, 160, 14, 14), s1, 0, channels_last=True,
+                      k=(1, 1))),
+        ('1x1 +bias D=200 (8,200,14,14)', 0,
+         lambda: case((8, 200, 14, 14), s1, 0, has_bias=True, k=(1, 1))),
     ]
 
 
@@ -475,9 +500,9 @@ def resnet50_shapes() -> dict:
 
 
 def plan_fields(plan) -> dict:
-    """What a phase-3 row records of a kernel's plan: K1's tile, tile
-    pairs, split-K chunks and staging path; K3's tile, staging path and
-    waves."""
+    """What a phase-3 row records of a kernel's plan: K1's and K2's tile,
+    tile pairs, split-K chunks and staging path; K3's tile, staging path
+    and waves."""
     if hasattr(plan, 'npairs'):
         return {'tile': plan.tile, 'pairs': plan.npairs,
                 'chunks': plan.chunks, 'staging': plan.path}
@@ -528,11 +553,12 @@ def check_kernels(quick: bool, resnet50: dict | None = None,
                     raise AssertionError(
                         f'{name} {label} {mode}: rel err {rel:.3g} > {tol}')
                 if plan is not None:
-                    # K1 mirrors every upper entry from its lower one; K1
-                    # and K3 sum their partials in a fixed order.
+                    # K1 and K2 mirror every upper entry from its lower
+                    # one; K1-K3 sum their partials in a fixed order.
                     again = kern(bf16)
                     for g, h in zip(got, again, strict=True):
-                        if name == 'factor_ema' and not torch.equal(g, g.T):
+                        if name in ('factor_ema', 'patch_cov') and \
+                                not torch.equal(g, g.T):
                             raise AssertionError(
                                 f'{name} {label} {mode}: not symmetric')
                         if not torch.equal(g, h):
@@ -1159,7 +1185,7 @@ def _category(name: str) -> str:
     n = name.lower()
     if 'factor_partial' in n or 'factor_finalize' in n:
         return 'K1 factor_ema'
-    if 'gram_' in n:
+    if 'patch_partial' in n or 'patch_finalize' in n:
         return 'K2 patch_cov'
     if 'bgemm_kernel' in n or 'vg_reduce' in n:
         return 'K3 bucket_precond'
@@ -1393,6 +1419,10 @@ def main(argv=None) -> int:
             log('== profile: device time by kernel category, ResNet-50 '
                 'newton')
             report['profile_resnet50'] = profile_main_path('resnet50')
+            if not report['profile_resnet50']['non_firing'][
+                    'by_category_ms'].get('K2 patch_cov'):
+                raise AssertionError('profile: no K2 patch_cov device time '
+                                     'in the ResNet-50 steps')
             log('== profile: device time by kernel category, LSTM LM '
                 'jacobi')
             report['profile_lstm'] = profile_main_path('lstm')

@@ -1,6 +1,7 @@
 // Batched fp32 tile GEMM on the Hopper tensor cores by 3xTF32: the products
-// of K4 (ns_inverse.cu) and K3 (bucket_precond.cu); K1 (factor_ema.cu) uses
-// its primitives (the cp.async copies, split_tf32, mma_tf32).
+// of K4 (ns_inverse.cu) and K3 (bucket_precond.cu); the Gram engine of K1
+// and K2 (gram_tc.cuh) uses its primitives (the cp.async copies,
+// split_tf32, mma_tf32).
 //
 // One BM x 128 output tile (BM = 128 or 64 rows) of C = op(A) op(B), with
 // op(A) M x K and op(B) K x N, per 256-thread block. The 8 warps sit in a

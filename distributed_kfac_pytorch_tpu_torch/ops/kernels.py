@@ -26,8 +26,9 @@ Five kernels carry the single-device K-FAC step:
                      ``pallas_kernels._jacobi_eigh_kernel`` via
                      ``batched_jacobi_eigh``).
 
-K2 runs on the CUDA-core split-K Gram of ``csrc/gram.cuh``; K1, K3 and K4
-on the 3xTF32 tensor-core primitives of ``csrc/gemm_tc.cuh``. Each wrapper
+K1 and K2 run on the split-K Gram engine of ``csrc/gram_tc.cuh``, K3 and
+K4 on the tile GEMM of ``csrc/gemm_tc.cuh``, all by 3xTF32 on the tensor
+cores. Each wrapper
 runs its kernel's plain version for tensors on the CPU and launches the
 CUDA kernel for tensors on the card; any other device, dtype or layout
 raises. There is no fallback: a build or launch failure raises.
@@ -59,18 +60,16 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 SOURCES = {'factor_ema': 'factor_ema.cu', 'patch_cov': 'patch_cov.cu',
            'bucket_precond': 'bucket_precond.cu',
            'ns_inverse': 'ns_inverse.cu', 'jacobi_eigh': 'jacobi_eigh.cu'}
-HEADERS = ('gram.cuh', 'gemm_tc.cuh')
+HEADERS = ('gram_tc.cuh', 'gemm_tc.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES = {name: 0 for name in SOURCES}
 
-# Split-K geometry of the Gram kernels (must match gram.cuh; K1's k-tile
-# depth, gemm_tc.cuh's kTcK, is the same 32).
+# Rows of one staged k-tile of the Gram kernels K1 and K2 (gemm_tc.cuh's
+# kTcK); split-K chunks are multiples of it.
 _ROW_STEP = 32
-# Blocks to aim for per Gram launch: 4 per SM of a 132-SM H100.
-_TARGET_BLOCKS = 4 * 132
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -266,9 +265,7 @@ _SIGNATURES = {
         'kfac_factor_ema': [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P, _P, _F, _F, _I, _F, _F, _P, _P]},
     'patch_cov': {
-        'kfac_patch_cov': [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F,
-                           _I, _F, _F, _P, _P]},
+        'kfac_patch_cov': [_P, *[_I] * 25, _P, _F, _I, _F, _F, _P, _P]},
     'bucket_precond': {
         'kfac_bucket_precond_eigen': [_P, _P, _P, _P, _P, _F, _I, _I, _I,
                                       _I, _I, _I, _P, _P, _P, _P, _P, _P],
@@ -339,32 +336,6 @@ def _dispatch_device(x: torch.Tensor, what: str) -> bool:
     raise ValueError(f'{what}: unsupported device {x.device}')
 
 
-def _gram_tile(d_in: int) -> int:
-    return 16 if d_in <= 16 else 32 if d_in <= 32 else 64
-
-
-def _split_rows(rows: int, npairs: int) -> tuple[int, int]:
-    """(chunks, rows_per_chunk) of the split-K row walk: about
-    ``_TARGET_BLOCKS`` blocks, at least four row steps per chunk."""
-    chunks = max(1, min(-(-_TARGET_BLOCKS // npairs),
-                        -(-rows // (4 * _ROW_STEP))))
-    per = -(-rows // chunks)
-    per = -(-per // _ROW_STEP) * _ROW_STEP
-    return -(-rows // per), per
-
-
-def _gram_workspace(d_in: int, rows: int, device):
-    tile = _gram_tile(d_in)
-    ntiles = -(-d_in // tile)
-    npairs = ntiles * (ntiles + 1) // 2
-    chunks, per = _split_rows(rows, npairs)
-    ws = torch.empty((chunks, npairs, tile, tile), dtype=torch.float32,
-                     device=device)
-    ws_colsum = torch.empty((chunks, ntiles * tile), dtype=torch.float32,
-                            device=device)
-    return tile, chunks, per, ws, ws_colsum
-
-
 # ---------------------------------------------------------------------------
 # K1: factor contraction + EMA. Replaces pallas_kernels._factor_ema_kernel
 # (pallas_kernels.py:593, driven by _pallas_factor_ema :661 /
@@ -429,40 +400,42 @@ def _pair_of(p: int) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def _k1_split(ktiles: int, npairs: int, slots: int, tile: int,
-              in_bytes: int) -> int:
-    """Chunks of the row walk that minimize the modelled time: waves of
-    ``slots`` resident blocks times each block's k-tiles (at least the
-    input read at the memory rate), plus the finalize's serial sum over
-    chunks and the workspace written and read back."""
+def _gram_split(ktiles: int, npairs: int, slots: int, tile: int,
+                us_per_ktile: float, in_bytes: int) -> tuple[int, float]:
+    """(chunks, modelled us) of the Gram engine's row walk (K1, K2) that
+    minimize the modelled time: waves of ``slots`` resident blocks times
+    each block's k-tiles at ``us_per_ktile`` (at least the input read at
+    the memory rate), plus the finalize's serial sum over chunks and the
+    workspace written and read back."""
     best, best_us = 1, None
     for chunks in range(1, min(ktiles, max(1, 4 * slots // npairs)) + 1):
         waves = -(-npairs * chunks // slots)
-        us = max(waves * (-(-ktiles // chunks) + 2) * _K1_US_PER_KTILE[tile],
+        us = max(waves * (-(-ktiles // chunks) + 2) * us_per_ktile,
                  in_bytes / _K1_BYTES_PER_US)
         us += chunks * (_K1_US_PER_CHUNK
                         + 8 * npairs * tile * tile / _K1_BYTES_PER_US)
         if best_us is None or us < best_us:
             best, best_us = chunks, us
-    return best
+    return best, best_us
 
 
-@functools.lru_cache(maxsize=1024)
-def factor_ema_plan(shape, strides, has_bias: bool, device_sms: int = 132,
-                    aligned: bool = True) -> FactorEmaPlan:
-    """K1's plan for a ``(rows, d)`` or ``(B, C, H, W)`` input of element
-    ``strides`` (``aligned``: its first element is 16-byte aligned) on a
-    card of ``device_sms`` SMs (cached: one plan per layer shape). Raises
-    on a 4-D input whose (h, w) axes do not collapse to one strided
-    axis."""
-    shape, strides = tuple(shape), tuple(strides)
+def _row_geometry(shape, strides, aligned: bool, what: str):
+    """``(rows, d_in, inner, sb, ss, sc, path)`` of a ``(rows, d)`` or
+    ``(B, C, H, W)`` input read as K1 reads it: rows collapsed to one
+    strided axis where they can be (row r = (b, s), s < ``inner``, at
+    ``b*sb + s*ss``; ``inner == 1``: row stride ``sb``), feature c at
+    ``c*sc``, and the staging path (16-byte K-major where rows are
+    unit-stride, 4-row groups stay in one image and starts are 16-byte
+    aligned; 4-byte along features where features are unit-stride; else
+    4-byte K-major). Raises on a 4-D input whose (h, w) axes do not
+    collapse to one strided axis."""
     if len(shape) == 2:
         rows, d_in = shape
         inner, sb, ss, sc = 1, strides[0], 0, strides[1]
     elif len(shape) == 4:
         b, d_in, h, w = shape
         if h > 1 and w > 1 and strides[2] != w * strides[3]:
-            raise ValueError('factor_ema: the (h, w) axes of a 4-D input '
+            raise ValueError(f'{what}: the (h, w) axes of a 4-D input '
                              'must collapse to one strided axis, got '
                              f'strides {strides}')
         rows, inner = b * h * w, h * w
@@ -473,7 +446,7 @@ def factor_ema_plan(shape, strides, has_bias: bool, device_sms: int = 132,
         elif b == 1 or sb == inner * ss:
             inner, sb, ss = 1, ss, 0          # one strided row axis
     else:
-        raise ValueError(f'factor_ema: expected 2-D or 4-D x, got shape '
+        raise ValueError(f'{what}: expected 2-D or 4-D x, got shape '
                          f'{shape}')
     k_contig = (sb if inner == 1 else ss) == 1
     if k_contig and aligned and sc % 4 == 0 and (
@@ -483,12 +456,26 @@ def factor_ema_plan(shape, strides, has_bias: bool, device_sms: int = 132,
         path = 'feature4'
     else:
         path = 'kmajor4'
+    return rows, d_in, inner, sb, ss, sc, path
+
+
+@functools.lru_cache(maxsize=1024)
+def factor_ema_plan(shape, strides, has_bias: bool, device_sms: int = 132,
+                    aligned: bool = True) -> FactorEmaPlan:
+    """K1's plan for a ``(rows, d)`` or ``(B, C, H, W)`` input of element
+    ``strides`` (``aligned``: its first element is 16-byte aligned) on a
+    card of ``device_sms`` SMs (cached: one plan per layer shape). Raises
+    on a 4-D input whose (h, w) axes do not collapse to one strided
+    axis."""
+    rows, d_in, inner, sb, ss, sc, path = _row_geometry(
+        tuple(shape), tuple(strides), aligned, 'factor_ema')
     tile = 32 if d_in <= 32 else 64 if d_in <= 64 else 128
     ntiles = -(-d_in // tile)
     npairs = ntiles * (ntiles + 1) // 2
     ktiles = max(1, -(-rows // _ROW_STEP))
-    chunks = _k1_split(ktiles, npairs, device_sms * _K1_BLOCKS_PER_SM[tile],
-                       tile, 4 * rows * d_in)
+    chunks, _ = _gram_split(ktiles, npairs,
+                            device_sms * _K1_BLOCKS_PER_SM[tile], tile,
+                            _K1_US_PER_KTILE[tile], 4 * rows * d_in)
     per = -(-ktiles // chunks) * _ROW_STEP
     chunks = -(-rows // per) if rows else 1
     floats = chunks * npairs * tile * tile
@@ -498,7 +485,8 @@ def factor_ema_plan(shape, strides, has_bias: bool, device_sms: int = 132,
                          chunks, per, path, 4 * floats)
 
 
-def _factor_ema_workspace(plan: FactorEmaPlan, device) -> torch.Tensor:
+def _plan_workspace(plan, device) -> torch.Tensor:
+    """The flat fp32 workspace of a K1 or K2 plan (``plan.ws_bytes``)."""
     return torch.empty(plan.ws_bytes // 4, dtype=torch.float32,
                        device=device)
 
@@ -553,7 +541,7 @@ def factor_ema(x: torch.Tensor, old: torch.Tensor | None, decay, *,
     if rows < 1:
         raise ValueError('factor_ema: x has no rows')
     scale = rows if scale is None else scale
-    ws = _factor_ema_workspace(plan, x.device)
+    ws = _plan_workspace(plan, x.device)
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
     err = _lib('factor_ema').kfac_factor_ema(
         x.data_ptr(), rows, d_in, plan.inner, plan.sb, plan.ss, plan.sc,
@@ -570,12 +558,125 @@ def factor_ema(x: torch.Tensor, old: torch.Tensor | None, decay, *,
 
 # ---------------------------------------------------------------------------
 # K2: conv-A patch covariance. Replaces pallas_kernels._patch_cov_kernel
-# (driven by _pallas_patch_cov / conv_a_factor_fused). Bound on the H100:
-# operations -- up to rows x D^2 / 2 FMAs (8192 x 576^2) on a few MB of
-# input. The KH*KW-times-larger patch matrix never exists: blocks gather
-# patch columns from the input into shared memory, padding is a bounds
-# check, and only lower-triangle output tiles are computed.
+# (pallas_kernels.py:319, driven by _pallas_patch_cov :372 /
+# conv_a_factor_fused :485). Bound on the H100: operations (ResNet-50's
+# conv A factors are 1.31 TFLOP per step at rows D (D + 1) FLOPs each, on a
+# few MB of input per layer). The kernel is K1's Gram engine (gram_tc.cuh:
+# 3xTF32 mma.sync over a cp.async ring, lower-triangle tile pairs, split-K,
+# a fixed-order finalize that mirrors each upper entry from its lower one)
+# with its own staging: the implicit im2col gathered straight from the
+# input (`patch4`: the KH*KW-times-larger patch matrix never exists, and
+# padding taps are zero-filled by cp.async, with no padded copy), or, for a
+# 1 x 1 stride-1 unpadded conv, whose patch matrix is the input read as
+# (B*H*W, C) rows, K1's row stagings. patch_cov_plan decides the staging
+# path, the tile and the split.
 # ---------------------------------------------------------------------------
+
+_K2_STAGING = _K1_STAGING + ('patch4',)  # csrc kPath 0, 1, 2, 3
+# A block's time per k-tile by staging ('patch4', or 'rows' for K1's row
+# stagings) and tile edge, microseconds on the H100: medians over every
+# ResNet-32 and ResNet-50 conv A shape of the tile sweep of
+# scripts/k2_tiles.py (time / (waves x (k-tiles per chunk + 2))). patch4
+# pays for its 4-byte copies, row decode and per-element tap check. K1's
+# _K1_US_PER_KTILE sets K1's split at the one tile its width fixes; across
+# tiles the sweep found 32- and 64-wide tiles far slower than it models.
+_K2_US_PER_KTILE = {'patch4': {32: 2.18, 64: 2.48, 128: 3.81},
+                    'rows': {32: 1.94, 64: 2.16, 128: 2.9}}
+
+
+@dataclasses.dataclass(frozen=True)
+class PatchCovPlan:
+    """How K2 runs one conv input: its patch rows (``b*oh*ow``) and
+    features (``c*kh*kw``), the conv's output grid and top / left padding,
+    the staging path (``'patch4'``: the implicit im2col; else one of K1's,
+    with K1's row geometry ``inner``, ``sb``, ``ss``, ``sc`` as in
+    :class:`FactorEmaPlan`, zeros for ``patch4``), the tile edge, the
+    lower-triangle tile pairs, the split-K chunks of ``rows_per_chunk``
+    rows, the modelled time in microseconds and the workspace (partial
+    tiles, then column sums with a bias) in bytes."""
+    rows: int
+    d_in: int
+    oh: int
+    ow: int
+    ph: int
+    pw: int
+    path: str
+    inner: int
+    sb: int
+    ss: int
+    sc: int
+    tile: int
+    npairs: int
+    chunks: int
+    rows_per_chunk: int
+    us: float
+    ws_bytes: int
+
+    @property
+    def ntiles(self) -> int:
+        return -(-self.d_in // self.tile)
+
+
+@functools.lru_cache(maxsize=1024)
+def patch_cov_plan(shape, strides, kernel_size, conv_strides, pads,
+                   has_bias: bool, device_sms: int = 132,
+                   aligned: bool = True) -> PatchCovPlan:
+    """K2's plan for a ``(B, C, H, W)`` input of element ``strides``
+    (``aligned``: its first element is 16-byte aligned) under a conv of
+    ``kernel_size``, ``conv_strides`` and ``pads`` (``((top, bottom),
+    (left, right))``, as :func:`_canonical_pad` gives them), on a card of
+    ``device_sms`` SMs (cached: one plan per layer shape).
+
+    A 1 x 1 stride-1 unpadded conv whose (h, w) axes collapse to one
+    strided axis takes K1's staging path by K1's rule
+    (:func:`_row_geometry`); every other conv takes ``patch4``. The tile
+    edge, 32, 64 or 128, minimizes the modelled time of
+    :func:`_gram_split` (waves of resident blocks times k-tiles per chunk
+    at the path's time per k-tile, and the finalize), which counts the
+    padded width: a 128-wide tile over D = 144 computes three 128 x 128
+    pairs for 144 x 145 / 2 entries.
+    """
+    plans = [_k2_plan(tuple(shape), tuple(strides), tuple(kernel_size),
+                      tuple(conv_strides), pads, has_bias, tile, device_sms,
+                      aligned) for tile in _K1_BLOCKS_PER_SM]
+    return min(plans, key=lambda p: p.us)
+
+
+def _k2_plan(shape, strides, kernel_size, conv_strides, pads,
+             has_bias: bool, tile: int, device_sms: int,
+             aligned: bool) -> PatchCovPlan:
+    """K2's plan with the tile edge given."""
+    b, c, h, w = shape
+    kh, kw = kernel_size
+    sh, sw = conv_strides
+    (ph, ph_hi), (pw, pw_hi) = pads
+    oh = (h + ph + ph_hi - kh) // sh + 1
+    ow = (w + pw + pw_hi - kw) // sw + 1
+    if min(b, oh, ow) < 1:
+        raise ValueError(f'patch_cov: empty conv output for input {shape}')
+    rows, d_in = b * oh * ow, c * kh * kw
+    inner = rsb = ss = sc = 0
+    path = 'patch4'
+    if ((kh, kw, sh, sw, ph, ph_hi, pw, pw_hi) == (1, 1, 1, 1, 0, 0, 0, 0)
+            and not (h > 1 and w > 1 and strides[2] != w * strides[3])):
+        _, _, inner, rsb, ss, sc, path = _row_geometry(shape, strides,
+                                                       aligned, 'patch_cov')
+    us_per_ktile = _K2_US_PER_KTILE['patch4' if path == 'patch4'
+                                    else 'rows'][tile]
+    ktiles = -(-rows // _ROW_STEP)
+    ntiles = -(-d_in // tile)
+    npairs = ntiles * (ntiles + 1) // 2
+    chunks, us = _gram_split(ktiles, npairs,
+                             device_sms * _K1_BLOCKS_PER_SM[tile], tile,
+                             us_per_ktile, 4 * b * c * h * w)
+    per = -(-ktiles // chunks) * _ROW_STEP
+    chunks = -(-rows // per)
+    floats = chunks * npairs * tile * tile
+    if has_bias:
+        floats += chunks * ntiles * tile
+    return PatchCovPlan(rows, d_in, oh, ow, ph, pw, path, inner, rsb, ss,
+                        sc, tile, npairs, chunks, per, us, 4 * floats)
+
 
 def patch_cov_plain(x: torch.Tensor, kernel_size, strides, padding,
                     has_bias: bool, *, bf16: bool = False) -> torch.Tensor:
@@ -603,24 +704,31 @@ def patch_cov(x: torch.Tensor, kernel_size, strides, padding,
                                bf16=bf16)
     _require(x, 'patch_cov x', 4)
     _require_int32_offsets(x, 'patch_cov')
-    b, c, h, w = x.shape
-    kh, kw = kernel_size
-    sh, sw = strides
-    ((ph_lo, _), (pw_lo, _)), oh, ow = conv_out_geometry(
-        x.shape, kernel_size, strides, padding)
-    if oh < 1 or ow < 1:
-        raise ValueError(f'patch_cov: empty conv output for input '
-                         f'{tuple(x.shape)}')
-    rows, spatial, d_in = b * oh * ow, oh * ow, c * kh * kw
-    n = d_in + int(has_bias)
-    inv = 1.0 / (rows * spatial * spatial)
-    tile, chunks, per, ws, ws_colsum = _gram_workspace(d_in, rows, x.device)
+    kernel_size, strides = tuple(kernel_size), tuple(strides)
+    pads = _canonical_pad(padding, kernel_size, tuple(x.shape[2:]), strides)
+    plan = patch_cov_plan(tuple(x.shape), x.stride(), kernel_size, strides,
+                          pads, bool(has_bias),
+                          _sm_count(x.device.index or 0),
+                          aligned=x.data_ptr() % 16 == 0)
+    return _patch_cov_launch(plan, x, kernel_size, strides, bool(has_bias),
+                             bf16)
+
+
+def _patch_cov_launch(plan: PatchCovPlan, x: torch.Tensor, kernel_size,
+                      strides, has_bias: bool, bf16: bool) -> torch.Tensor:
+    """One K2 call on a checked CUDA input under ``plan``."""
+    spatial = plan.oh * plan.ow
+    inv = 1.0 / (plan.rows * spatial * spatial)
+    n = plan.d_in + int(has_bias)
+    ws = _plan_workspace(plan, x.device)
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
     err = _lib('patch_cov').kfac_patch_cov(
-        x.data_ptr(), b, c, h, w, *x.stride(), kh, kw, sh, sw, ph_lo,
-        pw_lo, oh, ow, int(bf16), tile, chunks, per, ws.data_ptr(),
-        ws_colsum.data_ptr(), inv, int(has_bias), inv,
-        1.0 / (spatial * spatial), out.data_ptr(), _stream(x))
+        x.data_ptr(), *x.shape, *x.stride(), *kernel_size, *strides,
+        plan.ph, plan.pw, plan.oh, plan.ow, plan.inner, plan.sb, plan.ss,
+        plan.sc, int(bf16), plan.tile, _K2_STAGING.index(plan.path),
+        plan.chunks, plan.rows_per_chunk, ws.data_ptr(), inv,
+        int(has_bias), inv, 1.0 / (spatial * spatial), out.data_ptr(),
+        _stream(x))
     _check(err, 'patch_cov')
     LAUNCHES['patch_cov'] += 1
     return out
@@ -1139,7 +1247,8 @@ KERNEL_INFO = {
 
 __all__ = ['LAUNCHES', 'KERNEL_INFO', 'reset_launches', 'build',
            'factor_ema', 'factor_ema_plain', 'factor_ema_plan',
-           'FactorEmaPlan', 'patch_cov', 'patch_cov_plain',
+           'FactorEmaPlan', 'patch_cov', 'patch_cov_plain', 'patch_cov_plan',
+           'PatchCovPlan',
            'bucket_precond', 'bucket_precond_plain', 'bucket_precond_plan',
            'BucketPrecondPlan', 'batched_inverse',
            'batched_inverse_plain', 'damped_inverse_stack',

@@ -139,7 +139,8 @@ def _imports(path: pathlib.Path):
 
 @pytest.mark.parametrize('path', sorted(
     [*PACKAGE.rglob('*.py'), ROOT / 'chip_smoke.py',
-     ROOT / 'scripts' / 'k4_ablation.py']),
+     ROOT / 'scripts' / 'k4_ablation.py', ROOT / 'scripts' / 'k2_tiles.py',
+     ROOT / 'scripts' / 'k2_ab.py']),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     for name in _imports(path):

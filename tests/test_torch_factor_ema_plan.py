@@ -120,7 +120,7 @@ def test_workspace_matches_allocation(shape, has_bias, channels_last):
     if has_bias:
         floats += p.chunks * p.ntiles * p.tile
     assert p.ws_bytes == 4 * floats
-    ws = kernels._factor_ema_workspace(p, 'cpu')
+    ws = kernels._plan_workspace(p, 'cpu')
     assert ws.dtype == torch.float32 and ws.numel() * 4 == p.ws_bytes
 
 
