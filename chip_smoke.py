@@ -73,9 +73,33 @@ Phases (any failure exits nonzero and prints no result line):
      finite losses, no jacobi_eigh launch;
  11. ResNet-32 under ``--eigh-method jacobi``: 11 steps, finite losses,
      jacobi_eigh 9 per firing besides phase 5's per-step launches;
- 12. the result: a JSON line of per-kernel numbers (K1-K3 per ResNet-50
-     step, K4 per ResNet-50 firing, K5 per LSTM firing), the card line,
-     then ``{"ok": true, "device": {...}}`` as the last line.
+ 12. the result (printed after phases 13 and 14): a JSON line of
+     per-kernel numbers (K1-K3 per ResNet-50 step, K4 per ResNet-50
+     firing, K5 per LSTM firing; launches summed over phases 5-7, 9-11,
+     13 and 14), the card line, then ``{"ok": true, "device": {...}}`` as
+     the last line;
+ 13. distributed, NCCL at world size 1: phase 6's ResNet-50 run through
+     ``train_imagenet_resnet.train`` inside a one-rank NCCL group
+     (``file://`` rendezvous under ``chiprun_out/``), ``--comm-method
+     comm-opt``, so K-FAC runs as ``parallel.DistributedKFAC``; every loss
+     finite and falling, the losses of steps 0-2 within 1e-3 relative of
+     phase 6's and the mean of the last three within 5e-2 (phase 6 is
+     not reproducible beyond that: its backward convolutions are
+     nondeterministic and the 12-step run amplifies the difference),
+     phase 6's launches, its step times printed beside phase 6's;
+ 14. distributed, gloo: 4 ranks (subprocesses of this script, all on
+     ``cuda:0``, started after the build) train ResNet-32 at full width
+     with BatchNorm in eval mode (running statistics from one pass over
+     the global batch) on their slices of one global batch of 128, under COMM_OPT (1 x 4), MEM_OPT (4 x 1) and HYBRID_OPT with
+     fraction 0.5 (2 x 2), 3 steps each, inverses every 2nd, ``eigen`` +
+     ``eigh_method='xla'``, then HYBRID_OPT once more under ``'jacobi'``;
+     rank 0 holds every step against the single-device ``KFAC`` on the
+     full batch (factors <= 1e-5, preconditioned gradients <= 1e-4 and
+     the KL-clip scale <= 1e-5, each relative to the largest reference
+     entry), every rank's launches must equal what the work assignment
+     predicts (K1 33 and K2 31 per step; K3 one per gradient shape its
+     row owns; K5 one per bucket it holds a slot of, per firing), and
+     the step times print labelled as gloo through host memory.
 
 ``--quick`` builds with ``-Xptxas -v`` and runs only the correctness
 checks of phases 3, 4 and 8 (a first call after a kernel change).
@@ -91,6 +115,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -142,6 +167,12 @@ LM_PER_STEP = {'factor_ema': 0, 'patch_cov': 0, 'bucket_precond': 1,
                'ns_inverse': 0}
 LM_JACOBI_PER_FIRING = 2
 R32_JACOBI_STEPS, R32_JACOBI_PER_FIRING = 11, 9
+R32_PER_STEP_K1, R32_PER_STEP_K2 = 33, 31
+# Phase 13 against phase 6. cuDNN's backward kernels make the ResNet-50
+# run chaotic at this lr: two runs of phase 6 itself drift apart from step
+# 3 (1.4e-2 relative by step 11 on the H100), so steps 0-2 are held at
+# 1e-3 and the mean of the last three within 5e-2.
+R50_NCCL_HELD, R50_NCCL_FINAL_TOL = 3, 5e-2
 # (n, matrices) of each ResNet-50 factor size bucket: one K4 launch each
 # per firing under 'newton'.
 R50_NS_BUCKETS = ((64, 12), (128, 12), (147, 1), (256, 26), (512, 19),
@@ -1180,6 +1211,285 @@ def run_resnet32_jacobi(card: str) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phases 13-14: distributed K-FAC (parallel.DistributedKFAC)
+# ---------------------------------------------------------------------------
+
+def _fresh_store(name: str) -> Path:
+    """A ``file://`` rendezvous path under chiprun_out (must not exist)."""
+    out = ROOT / 'chiprun_out'
+    out.mkdir(exist_ok=True)
+    path = out / name
+    path.unlink(missing_ok=True)
+    return path
+
+
+def run_resnet50_nccl(card: str, r50: dict) -> dict:
+    """Phase 13: phase 6's run through ``train_imagenet_resnet.train``
+    inside a one-rank NCCL group (``--comm-method comm-opt``): the same
+    losses within 1e-3, the same launches, step times beside phase 6's."""
+    import torch.distributed as dist
+    from distributed_kfac_pytorch_tpu_torch import launch, \
+        train_imagenet_resnet
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    store = _fresh_store('nccl_world1.store')
+    launch.initialize_distributed(init_method=f'file://{store}', rank=0,
+                                  world_size=1, device='cuda')
+    try:
+        if dist.get_backend() != 'nccl':
+            raise AssertionError(f'backend {dist.get_backend()}, not nccl')
+        config = _r50_config(epochs=R50_STEPS, inverse_method='newton',
+                             comm_method='comm-opt')
+        kernels.reset_launches()
+        res = train_imagenet_resnet.train(config, device='cuda')
+        launches = dict(kernels.LAUNCHES)
+        state = res.pop('state')
+    finally:
+        dist.destroy_process_group()
+    if type(state.kfac).__name__ != 'DistributedKFAC' or \
+            not state.distributed:
+        raise AssertionError('phase 13 did not run DistributedKFAC')
+    losses, n = res['losses'], res['steps']
+    log(f'  losses: {[round(v, 4) for v in losses]}')
+    if n != R50_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f'NCCL world 1: {n} steps, losses {losses}')
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, r50['losses'])]
+    if max(rel[:R50_NCCL_HELD]) > 1e-3:
+        raise AssertionError(f'NCCL world 1: losses of steps 0-'
+                             f'{R50_NCCL_HELD - 1} differ from phase 6 by '
+                             f'{[f"{r:.2e}" for r in rel[:R50_NCCL_HELD]]} '
+                             'relative (limit 1e-3)')
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    last6 = statistics.mean(r50['losses'][-3:])
+    if abs(last - last6) > R50_NCCL_FINAL_TOL * last6:
+        raise AssertionError(f'NCCL world 1: last three losses {last:.4f} '
+                             f'against phase 6\'s {last6:.4f} (limit '
+                             f'{R50_NCCL_FINAL_TOL} relative)')
+    if not last < first:
+        raise AssertionError(f'NCCL world 1: loss did not decrease: first '
+                             f'three {first:.4f}, last three {last:.4f}')
+    firings = res['fired'].count('inverse')
+    expected = {name: per * n for name, per in R50_PER_STEP.items()}
+    expected['ns_inverse'] = R50_PER_FIRING * firings
+    expected['jacobi_eigh'] = 0
+    if launches != expected:
+        raise AssertionError(f'NCCL world 1: launches {launches}, expected '
+                             f'{expected}')
+    firing, plain = _step_ms(res)
+    summary = {'losses': losses, 'rel_loss_vs_phase6': rel,
+               'launches': launches, 'firings': firings,
+               'firing_ms': firing, 'nonfiring_ms': plain,
+               'nonfiring_ms_median': statistics.median(plain),
+               'phase6_nonfiring_ms_median': r50['nonfiring_ms_median'],
+               'phase6_firing_ms': r50['firing_ms']}
+    log(f'  relative to phase 6 per step: {[f"{r:.1e}" for r in rel]}; '
+        f'launches {launches}')
+    log(f'  ms/step, NCCL world 1: non-firing '
+        f'{summary["nonfiring_ms_median"]:.2f} (median), firing '
+        f'{[round(t, 2) for t in firing]}; phase 6 (single device): '
+        f'{r50["nonfiring_ms_median"]:.2f}, '
+        f'{[round(t, 2) for t in r50["firing_ms"]]} ({card})')
+    return summary
+
+
+# (name, comm method, grad-worker fraction, eigh method, expected grid)
+GLOO_CASES = (('comm_opt', 'comm-opt', 0.0, 'xla', (1, 4)),
+              ('mem_opt', 'mem-opt', 0.0, 'xla', (4, 1)),
+              ('hybrid_opt', 'hybrid-opt', 0.5, 'xla', (2, 2)),
+              ('hybrid_opt_jacobi', 'hybrid-opt', 0.5, 'jacobi', (2, 2)))
+GLOO_WORLD, GLOO_BATCH, GLOO_STEPS, GLOO_INV_FREQ = 4, 128, 3, 2
+GLOO_TOL = {'factors': 1e-5, 'precond': 1e-4, 'nu': 1e-5}
+
+
+def _max_rel(pairs) -> float:
+    """Largest per-tensor ``max|a - b| / max|b|`` over ``(a, b)`` pairs."""
+    return max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for a, b in pairs)
+
+
+def dist_worker(cfg: dict) -> int:
+    """One rank of phase 14 (``chip_smoke.py --dist-worker CONFIG``):
+    ResNet-32 at full width, BatchNorm in eval mode, this rank's slice of
+    one global batch, every case of GLOO_CASES in turn; rank 0 holds each
+    step against the single-device KFAC on the full batch."""
+    import torch
+    import torch.nn.functional as F
+    from distributed_kfac_pytorch_tpu_torch import launch, \
+        set_fp32_precision
+    from distributed_kfac_pytorch_tpu_torch.models import cifar_resnet
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    from distributed_kfac_pytorch_tpu_torch.parallel.distributed import \
+        DistributedKFAC
+    from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
+    from distributed_kfac_pytorch_tpu_torch.training import engine
+    import torch.distributed as dist
+
+    set_fp32_precision()
+    meta = launch.initialize_distributed(
+        init_method=f'file://{cfg["store"]}', backend='gloo',
+        device='cuda:0', timeout=600)
+    rank = meta['process_index']
+    dev = torch.device('cuda:0')
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(GLOO_BATCH, 3, 32, 32, generator=gen).to(dev)
+    y = torch.randint(0, 10, (GLOO_BATCH,), generator=gen).to(dev)
+    local = launch.process_local_slice(GLOO_BATCH)
+    torch.manual_seed(0)
+    model = cifar_resnet.get_model('resnet32').to(dev)
+    # BatchNorm in eval mode, with running statistics set from one pass
+    # over the global batch (the same on every rank): each rank's slice is
+    # then normalized as in the full batch. Left at their initial (0, 1)
+    # the 15 residual blocks grow the head's inputs until its A factor's
+    # condition number is ~1e5 and the loss ~600.
+    for mod in model.modules():
+        if isinstance(mod, torch.nn.BatchNorm2d):
+            mod.reset_running_stats()
+            mod.momentum = None
+    with torch.no_grad():
+        model(x)
+    model.eval()
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    knobs = dict(inverse_method='eigen', factor_update_freq=1,
+                 inv_update_freq=GLOO_INV_FREQ, damping=0.003, lr=0.1,
+                 kl_clip=0.001, device=dev)
+    report = {'rank': rank, 'cases': []}
+    failures = []
+    for name, comm, frac, eigh, grid in GLOO_CASES:
+        model.load_state_dict(init)
+        kfac = KFAC(model, eigh_method=eigh, **knobs)
+        dk = DistributedKFAC(kfac, comm_method=comm,
+                             grad_worker_fraction=frac)
+        work = dk.local_work()
+        state = dk.init_state()
+        ref = ref_state = None
+        if rank == 0:
+            ref = KFAC(model, eigh_method=eigh, **knobs)
+            ref_state = ref.init_state()
+        launches = dict.fromkeys(kernels.LAUNCHES, 0)
+        errors, step_ms = [], []
+        firings = 0
+        for step in range(GLOO_STEPS):
+            inv = step % GLOO_INV_FREQ == 0
+            firings += inv
+            torch.cuda.synchronize()
+            dist.barrier()     # rank 0's reference check runs between steps
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            _, _, grads, captures = kfac.capture.loss_and_grads(
+                lambda out: F.cross_entropy(out, y[local]), x[local])
+            grads = dict(zip(grads, engine.world_mean(list(grads.values()))))
+            precond, state = dk.step(state, grads, captures,
+                                     factor_update=True, inv_update=inv)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            for k, v in kernels.LAUNCHES.items():
+                launches[k] += v
+            if rank == 0:
+                _, _, g_full, c_full = ref.capture.loss_and_grads(
+                    lambda out: F.cross_entropy(out, y), x)
+                p_ref, ref_state = ref.step(ref_state, g_full, c_full,
+                                            factor_update=True,
+                                            inv_update=inv)
+                err = {
+                    'factors': _max_rel(
+                        (state['factors'][n][s], ref_state['factors'][n][s])
+                        for n in ref.specs for s in 'AG'),
+                    'precond': _max_rel((precond[n], p_ref[n])
+                                        for n in p_ref),
+                    'nu': _max_rel([(dk.last_nu, ref.last_nu)])}
+                errors.append(err)
+                bad = {k: v for k, v in err.items() if not v <= GLOO_TOL[k]}
+                if bad:
+                    failures.append(f'{name} step {step}: {bad}')
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p -= 0.1 * precond[n]
+        expected = dict.fromkeys(kernels.LAUNCHES, 0)
+        expected.update({
+            'factor_ema': R32_PER_STEP_K1 * GLOO_STEPS,
+            'patch_cov': R32_PER_STEP_K2 * GLOO_STEPS,
+            'bucket_precond': len(work['precondition']) * GLOO_STEPS})
+        if eigh == 'jacobi':
+            expected['jacobi_eigh'] = len(work['decompose']) * firings
+            if work['decompose'] and not launches['jacobi_eigh']:
+                failures.append(f'{name}: rank {rank} holds slots but '
+                                'launched no K5')
+        if launches != expected:
+            failures.append(f'{name}: rank {rank} launches {launches}, '
+                            f'expected {expected} from the assignment')
+        if (dk.n_rows, dk.n_cols) != grid:
+            failures.append(f'{name}: grid {(dk.n_rows, dk.n_cols)}')
+        report['cases'].append({
+            'name': name, 'grid': [dk.n_rows, dk.n_cols],
+            'row': dk.row, 'col': dk.col, 'work': {
+                'decompose': work['decompose'],
+                'precondition': [list(s) for s in work['precondition']]},
+            'launches': launches, 'expected': expected,
+            'errors': errors, 'step_ms': step_ms})
+        kfac.capture.close()
+        if ref is not None:
+            ref.capture.close()
+    report['failures'] = failures
+    Path(cfg['out']).write_text(json.dumps(report, indent=1))
+    dist.destroy_process_group()
+    return 1 if failures else 0
+
+
+def run_gloo_world(card: str) -> dict:
+    """Phase 14: GLOO_WORLD ranks on the one card over gloo, every case
+    of GLOO_CASES; fails if any rank fails."""
+    store = _fresh_store('gloo_world.store')
+    outs = [_fresh_store(f'gloo_rank{r}.json') for r in range(GLOO_WORLD)]
+    procs = []
+    for rank in range(GLOO_WORLD):
+        cfg = json.dumps({'store': str(store), 'out': str(outs[rank])})
+        env = {**os.environ, 'RANK': str(rank),
+               'WORLD_SIZE': str(GLOO_WORLD), 'LOCAL_RANK': '0'}
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / 'chip_smoke.py'), '--dist-worker',
+             cfg], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    reports = [json.loads(o.read_text()) if o.exists() else None
+               for o in outs]
+    for rank, (p, rep) in enumerate(zip(procs, reports)):
+        if p.returncode != 0 or rep is None:
+            log(logs[rank][-4000:])
+            raise AssertionError(
+                f'gloo rank {rank}: exit {p.returncode}; '
+                f'{rep["failures"] if rep else "no report"}')
+    total = dict.fromkeys(reports[0]['cases'][0]['launches'], 0)
+    for rep in reports:
+        for case in rep['cases']:
+            for k, v in case['launches'].items():
+                total[k] += v
+    for i, (name, *_rest) in enumerate(GLOO_CASES):
+        errs = reports[0]['cases'][i]['errors']
+        worst = {k: max(e[k] for e in errs) for k in GLOO_TOL}
+        log(f'  {name} grid {reports[0]["cases"][i]["grid"]}: rank 0 vs '
+            f'single-device KFAC, worst of {len(errs)} steps: factors '
+            f'{worst["factors"]:.2e}, preconditioned grads '
+            f'{worst["precond"]:.2e}, nu {worst["nu"]:.2e}')
+        for rep in reports:
+            case = rep['cases'][i]
+            log(f'    rank {rep["rank"]} (row {case["row"]}, col '
+                f'{case["col"]}): launches '
+                f'{ {k: v for k, v in case["launches"].items() if v} } = '
+                f'assignment; step ms (gloo through host memory, '
+                f'{GLOO_WORLD} ranks on one card) '
+                f'{[round(t, 1) for t in case["step_ms"]]}')
+    log(f'  all ranks: launches {total} ({card})')
+    return {'launches': total, 'ranks': reports}
+
+
 def _category(name: str) -> str:
     """Coarse owner of a CUDA kernel, from its (mangled) name."""
     n = name.lower()
@@ -1320,8 +1630,13 @@ def main(argv=None) -> int:
                     help='build verbosely and check the kernels only')
     ap.add_argument('--profile', action='store_true',
                     help='also profile steady main-path steps')
+    ap.add_argument('--dist-worker', metavar='CONFIG',
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
+    if args.dist_worker:
+        sys.path.insert(0, str(ROOT))
+        return dist_worker(json.loads(args.dist_worker))
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
         return 2
@@ -1387,9 +1702,17 @@ def main(argv=None) -> int:
         report['lm_defaults'] = run_lm_defaults(card)
         log(f'== ResNet-32, eigh_method jacobi, {R32_JACOBI_STEPS} steps')
         report['resnet32_jacobi'] = run_resnet32_jacobi(card)
+        log(f'== distributed: ResNet-50 as phase 6 in a one-rank NCCL '
+            f'group, comm-opt, {R50_STEPS} steps')
+        report['resnet50_nccl_world1'] = run_resnet50_nccl(card, r50)
+        log(f'== distributed: ResNet-32, {GLOO_WORLD} ranks on one card over '
+            f'gloo, global batch {GLOO_BATCH}, BatchNorm eval, '
+            f'{len(GLOO_CASES)} mesh cases x {GLOO_STEPS} steps')
+        report['gloo_world'] = run_gloo_world(card)
         runs = (main_summary, r50, report['resnet50_auto'],
                 report['lstm_jacobi'], report['lm_defaults'],
-                report['resnet32_jacobi'])
+                report['resnet32_jacobi'], report['resnet50_nccl_world1'],
+                report['gloo_world'])
         launches = {name: sum(r['launches'].get(name, 0) for r in runs)
                     for name in kernels.LAUNCHES}
         aggs = {**summary50, 'ns_inverse': summary_ns,

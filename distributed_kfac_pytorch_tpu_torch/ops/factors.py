@@ -140,3 +140,35 @@ def unpack_symmetric(packed: torch.Tensor, n: int) -> torch.Tensor:
     u[k:, k:] = torch.tril(top[:, :k], -1).T + torch.diag(packed[k, :k])
     full = u + u.T - torch.diag(torch.diagonal(u))
     return full[:n, :n]
+
+
+def get_triu(x: torch.Tensor) -> torch.Tensor:
+    """The upper triangle of a 2-D ``(n, m)`` tensor, ``n <= m``, flattened
+    row by row: the reference's ``n(n+1)/2``-element wire format for a
+    symmetric factor (the packed factor average uses
+    :func:`pack_symmetric`)."""
+    if x.ndim != 2:
+        raise ValueError('get_triu expects a 2-D tensor')
+    n, m = x.shape
+    if n > m:
+        raise ValueError('tensor cannot have more rows than columns')
+    rows, cols = torch.triu_indices(n, m, device=x.device)
+    return x[rows, cols]
+
+
+def fill_triu(shape, triu: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`get_triu`: the ``(n, m)`` tensor whose upper
+    triangle is ``triu`` and whose strictly-lower triangle mirrors it."""
+    if len(shape) != 2:
+        raise ValueError('shape must be 2 dimensional')
+    n, m = shape
+    if n > m:
+        raise ValueError('shape cannot have more rows than columns')
+    rows, cols = torch.triu_indices(n, m, device=triu.device)
+    out = triu.new_zeros((n, m))
+    out[rows, cols] = triu
+    sq = out[:, :n]
+    strict = torch.tril(torch.ones((n, n), dtype=torch.bool,
+                                   device=triu.device), -1)
+    sym_sq = torch.where(strict, sq.T, sq)
+    return torch.cat([sym_sq, out[:, n:]], dim=1)

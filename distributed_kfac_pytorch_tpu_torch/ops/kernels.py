@@ -42,8 +42,10 @@ loaded with ``ctypes``. Nothing is compiled or imported at module import.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import fcntl
 import functools
 import hashlib
 import os
@@ -223,11 +225,34 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f'lib{name}-{h.hexdigest()[:16]}.so'
 
 
+@contextlib.contextmanager
+def build_lock(build_dir: Path | None = None):
+    """Hold an exclusive ``fcntl`` lock on ``_build/.lock``: the ranks of
+    one host that reach their first kernel together build once, the
+    others wait and find the libraries made."""
+    build_dir = BUILD_DIR if build_dir is None else Path(build_dir)
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / '.lock', 'w') as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(verbose: bool = False) -> dict[str, Path]:
     """Compile every kernel source that has no up-to-date library yet,
-    one ``nvcc`` per source, all started together. Raises on failure."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    one ``nvcc`` per source, all started together, under
+    :func:`build_lock`. Raises on failure."""
     paths = {name: _lib_path(name) for name in SOURCES}
+    if all(p.exists() for p in paths.values()):
+        return paths
+    with build_lock():
+        return _build_locked(paths, verbose)
+
+
+def _build_locked(paths: dict[str, Path], verbose: bool
+                  ) -> dict[str, Path]:
     todo = {name: p for name, p in paths.items() if not p.exists()}
     if not todo:
         return paths

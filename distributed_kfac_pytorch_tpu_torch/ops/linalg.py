@@ -19,6 +19,18 @@ from __future__ import annotations
 import torch
 
 
+def decomposition_cost(dim: int, count: int = 1,
+                       rank: int | None = None) -> float:
+    """Cost proxy of decomposing ``count`` SPD matrices of ``dim``: the
+    ``dim^3`` scaling every dense factorization here shares, the cost
+    model of the KAISA work balancer (``assignment_strategy='compute'``).
+    ``rank`` (a low-rank decomposition, which the port does not run yet)
+    makes it ``rank * dim^2``."""
+    if rank:
+        return float(count) * float(rank) * float(dim) ** 2
+    return float(count) * float(dim) ** 3
+
+
 def get_eigendecomp(x: torch.Tensor, clip: float | None = 0.0
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric eigendecomposition in fp32, eigenvalues ascending and

@@ -1,0 +1,672 @@
+"""Distributed K-FAC over ``torch.distributed`` (PyTorch port of
+``distributed_kfac_pytorch_tpu/parallel/distributed.py``): the KAISA
+strategies COMM_OPT, MEM_OPT and HYBRID_OPT.
+
+The world of ``W`` ranks is a ``(n_rows, n_cols)`` grid
+(``placement.WorkerAllocator.grid``; rank ``row * n_cols + col``). A row
+is an *inverse group*: its ranks hold and precondition the same layers.
+A column is a *gradient-broadcast group*: one rank of each row, over which
+the preconditioned gradients are delivered. COMM_OPT is ``1 x W`` (every
+rank holds every inverse), MEM_OPT ``W x 1`` (each layer's inverses on one
+rank), HYBRID_OPT ``W / gw x gw`` for ``gw = grad_worker_fraction * W``.
+
+One step on every rank, with its own batch shard's captures and the
+world-averaged gradients:
+
+  1. factors: each rank contracts its captures into local covariance
+     contributions (K1 in its contraction-only form, K2 for conv A), one
+     ``all_reduce`` SUM over the world averages them (``G`` times
+     ``1/W^2``: the captured output-grads come from the rank's local-mean
+     loss), and every rank applies the EMA;
+  2. inverses, on firing steps: every same-size factor forms a *bucket*;
+     each row owns ``slots_per_row`` slots of it, and each rank decomposes
+     the assigned slots of its own ``slots_per_col`` (warm polish or
+     library eigh, K5 under ``'jacobi'``, K4 or Cholesky for baked
+     inverses). Each rank writes its slots into a zeroed row stack and
+     one ``all_reduce`` SUM over its row gathers the row's stacks;
+  3. preconditioning: per gradient shape, each rank runs K3 on its row's
+     layers only; the KL-clip ``v.g`` partial and the preconditioned
+     matrices (zero where the row does not own the layer) ride one
+     ``all_reduce`` SUM over the rank's column.
+
+Only ``all_reduce`` and ``broadcast`` are used, so one code path serves
+NCCL and gloo (which runs both on CUDA tensors). A group of one rank runs
+no collective.
+
+Work placement (:func:`assign_work`) is the JAX package's, exactly: the
+two-level LPT of layers onto rows and of factors onto a row's columns.
+Not ported: pipelined firing, inverse staleness, deferred and
+hierarchical factor reduction, the quarantine gates, metrics and the
+non-finite guard (the ``KFAC`` knobs raise by name), and embedding and
+grouped-conv layers (capture rejects them).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+from distributed_kfac_pytorch_tpu_torch import layers as L
+from distributed_kfac_pytorch_tpu_torch.ops import factors as F
+from distributed_kfac_pytorch_tpu_torch.ops import kernels, linalg
+from distributed_kfac_pytorch_tpu_torch.parallel.placement import (
+    WorkerAllocator,
+    load_balance,
+)
+from distributed_kfac_pytorch_tpu_torch.preconditioner import (
+    KFAC,
+    CommMethod,
+    comm_method_of,
+    eigen_family,
+)
+
+
+def resolve_grad_workers(size: int, comm_method: CommMethod,
+                         grad_worker_fraction: float) -> int:
+    """Ranks per inverse group: COMM_OPT the world, MEM_OPT one,
+    HYBRID_OPT ``round(size * grad_worker_fraction)``, which must divide
+    ``size``."""
+    if comm_method is CommMethod.COMM_OPT:
+        return size
+    if comm_method is CommMethod.MEM_OPT:
+        return 1
+    gw = max(1, round(size * grad_worker_fraction))
+    if size % gw != 0:
+        raise ValueError(
+            f'grad_worker_fraction {grad_worker_fraction} gives '
+            f'{gw} grad workers, which does not divide world size {size}')
+    return gw
+
+
+# ---------------------------------------------------------------------------
+# Host-side static work assignment
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BucketPlan:
+    """Layout of every factor of one size as a stacked workload.
+
+    Each row owns ``slots_per_row = slots_per_col * n_cols`` slots; the
+    rank in column ``c`` decomposes slots ``[c * slots_per_col, (c + 1) *
+    slots_per_col)`` of its row. ``slot`` maps ``(layer, 'A'|'G')`` to
+    its slot within the owning row.
+    """
+    dim: int
+    slots_per_col: int
+    n_cols: int
+    slot: dict[tuple[str, str], int]
+
+    @property
+    def slots_per_row(self) -> int:
+        return self.slots_per_col * self.n_cols
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkAssignment:
+    """Static placement: ``layer_row[name]`` is the row that stores,
+    decomposes and preconditions with layer ``name``'s inverses;
+    ``buckets`` lay out the decompositions by factor size."""
+    n_rows: int
+    n_cols: int
+    layer_row: dict[str, int]
+    buckets: dict[int, BucketPlan]
+
+
+def factor_dims(kfac: KFAC) -> dict[str, tuple[int, int]]:
+    """``{layer: (A dim, G dim)}`` of a KFAC's registered layers."""
+    params = dict(kfac.model.named_parameters())
+    return {name: L.factor_shapes(spec, kfac._layer_params(name, params))
+            for name, spec in kfac.specs.items()}
+
+
+def assign_work(kfac: KFAC, n_rows: int, n_cols: int, *,
+                distribute_layer_factors: bool | None = None
+                ) -> WorkAssignment:
+    """LPT-place layers onto rows and factors onto a row's columns.
+
+    The cost of a factor is ``n^3`` (``assignment_strategy='compute'``)
+    or ``n^2`` (``'memory'``). Layers go to rows (a layer's A and G stay
+    in one row), then the row's factors to its columns;
+    ``distribute_layer_factors`` (default: ``n_cols > 1``) lets A and G
+    of one layer land on different columns, else whole layers are placed.
+    """
+    if distribute_layer_factors is None:
+        distribute_layer_factors = n_cols > 1
+    exp = 3 if kfac.assignment_strategy == 'compute' else 2
+    names = list(kfac.specs)
+    shapes = factor_dims(kfac)
+
+    def factor_entries(name):
+        a_dim, g_dim = shapes[name]
+        return [((name, 'A'), a_dim, a_dim ** exp),
+                ((name, 'G'), g_dim, g_dim ** exp)]
+
+    layer_cost = {n: sum(c for _, _, c in factor_entries(n)) for n in names}
+    row_of = dict(zip(names, load_balance(
+        n_rows, [layer_cost[n] for n in names])))
+
+    cell: dict[tuple[int, int, int], list] = collections.defaultdict(list)
+    for r in range(n_rows):
+        row_names = [n for n in names if row_of[n] == r]
+        if not row_names:
+            continue
+        if distribute_layer_factors:
+            items = [e for n in row_names for e in factor_entries(n)]
+        else:
+            items = [((n, '*'), 0, layer_cost[n]) for n in row_names]
+        cols = load_balance(n_cols, [c for _, _, c in items])
+        for (key, dim, _), col in zip(items, cols):
+            if key[1] == '*':
+                for sub_key, sub_dim, _ in factor_entries(key[0]):
+                    cell[(r, col, sub_dim)].append(sub_key)
+            else:
+                cell[(r, col, dim)].append(key)
+
+    buckets = {}
+    for dim in sorted({d for (_, _, d) in cell}):
+        s = max(len(cell[(r, c, dim)])
+                for r in range(n_rows) for c in range(n_cols))
+        slot = {}
+        for r in range(n_rows):
+            for c in range(n_cols):
+                for k, key in enumerate(cell[(r, c, dim)]):
+                    slot[key] = c * s + k
+        buckets[dim] = BucketPlan(dim=dim, slots_per_col=s, n_cols=n_cols,
+                                  slot=slot)
+    return WorkAssignment(n_rows=n_rows, n_cols=n_cols, layer_row=row_of,
+                          buckets=buckets)
+
+
+def plan_precond_groups(kfac: KFAC, assignment: WorkAssignment
+                        ) -> list[dict]:
+    """Shape groups of the row-sharded preconditioning.
+
+    Layers are grouped by gradient-matrix shape ``(g_dim, a_dim)``; in a
+    group of ``S`` slots per row, row ``r``'s layers take the global
+    slots ``r * S + k`` (``slot_of``), and ``a_idx`` / ``g_idx`` give
+    each global slot's in-row slot in the A / G factor buckets (0 for
+    padding). The JAX package's plan, in its order.
+    """
+    dims = factor_dims(kfac)
+    by_shape: dict[tuple[int, int], dict[int, list[str]]] = {}
+    for name in kfac.specs:
+        a_dim, g_dim = dims[name]
+        rows = by_shape.setdefault((g_dim, a_dim), {})
+        rows.setdefault(assignment.layer_row[name], []).append(name)
+    groups = []
+    for (g_dim, a_dim), rows in by_shape.items():
+        s = max(len(v) for v in rows.values())
+        slot_of = {}
+        a_idx = [0] * (assignment.n_rows * s)
+        g_idx = [0] * (assignment.n_rows * s)
+        for r, names in rows.items():
+            for k, name in enumerate(names):
+                gslot = r * s + k
+                slot_of[name] = gslot
+                a_idx[gslot] = assignment.buckets[a_dim].slot[(name, 'A')]
+                g_idx[gslot] = assignment.buckets[g_dim].slot[(name, 'G')]
+        groups.append({'shape': (g_dim, a_dim), 'S': s, 'slot_of': slot_of,
+                       'a_idx': a_idx, 'g_idx': g_idx})
+    return groups
+
+
+# ---------------------------------------------------------------------------
+# Process groups
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class KFACGroups:
+    """This rank's place in the grid and its two process groups (``None``
+    where the group is this rank alone: no collective runs there)."""
+    row: int
+    col: int
+    inv_ranks: tuple[int, ...]      # this rank's row
+    grad_ranks: tuple[int, ...]     # this rank's column (strided)
+    inv_group: Any
+    grad_group: Any
+
+
+def make_kfac_groups(allocator: WorkerAllocator) -> KFACGroups:
+    """Create the grid's process groups and return this rank's.
+
+    ``dist.new_group`` is collective: every rank creates every row group
+    and then every column group of more than one rank, in the same
+    order, whether or not it is a member.
+    """
+    if not dist.is_initialized():
+        raise RuntimeError('make_kfac_groups needs an initialized process '
+                           'group (launch.initialize_distributed)')
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if allocator.size != world:
+        raise ValueError(f'allocator of {allocator.size} ranks for a world '
+                         f'of {world}')
+    made = {}
+    for ranks in allocator.bcast_inv_ranks + allocator.bcast_grad_ranks:
+        key = tuple(ranks)
+        if len(key) > 1 and key not in made:
+            made[key] = dist.new_group(list(key))
+    inv_ranks = tuple(allocator.get_inv_ranks(rank))
+    grad_ranks = tuple(allocator.get_grad_ranks(rank))
+    return KFACGroups(row=allocator.inv_group_index(rank),
+                      col=allocator.grad_group_index(rank),
+                      inv_ranks=inv_ranks, grad_ranks=grad_ranks,
+                      inv_group=made.get(inv_ranks),
+                      grad_group=made.get(grad_ranks))
+
+
+def _all_reduce_sum(tensors: list[torch.Tensor], group) -> list:
+    """SUM ``tensors`` over ``group`` as one flat ``all_reduce``; returns
+    the reduced tensors in their shapes."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    return [v.view(t.shape)
+            for v, t in zip(flat.split([t.numel() for t in tensors]),
+                            tensors)]
+
+
+# ---------------------------------------------------------------------------
+# The distributed preconditioner
+# ---------------------------------------------------------------------------
+
+class DistributedKFAC:
+    """A :class:`KFAC` whose second-order work is spread over the ranks of
+    the initialized ``torch.distributed`` world.
+
+    ``comm_method`` / ``grad_worker_fraction`` default to the wrapped
+    ``KFAC``'s; ``distribute_layer_factors`` (default: more than one rank
+    per row) lets a layer's A and G be decomposed by different ranks.
+    Every rank must build it, and call :meth:`step` (a collective) with
+    its own batch shard's captures and the world-averaged gradients.
+    """
+
+    def __init__(self, kfac: KFAC, *,
+                 comm_method: CommMethod | str | None = None,
+                 grad_worker_fraction: float | None = None,
+                 distribute_layer_factors: bool | None = None):
+        if not dist.is_initialized():
+            raise RuntimeError('DistributedKFAC needs an initialized process '
+                               'group (launch.initialize_distributed)')
+        self.kfac = kfac
+        self.capture = kfac.capture
+        self.specs = kfac.specs
+        self.device = kfac.device
+        self.comm_method = comm_method_of(
+            kfac.comm_method if comm_method is None else comm_method)
+        fraction = (kfac.grad_worker_fraction if grad_worker_fraction is None
+                    else grad_worker_fraction)
+        self.world_size = dist.get_world_size()
+        gw = resolve_grad_workers(self.world_size, self.comm_method,
+                                  fraction)
+        self.allocator = WorkerAllocator(self.world_size,
+                                         gw / self.world_size)
+        self.groups = make_kfac_groups(self.allocator)
+        self.n_rows, self.n_cols = self.allocator.inv_groups, gw
+        self.row, self.col = self.groups.row, self.groups.col
+        self.distribute_layer_factors = (
+            self.n_cols > 1 if distribute_layer_factors is None
+            else bool(distribute_layer_factors))
+        self.assignment = assign_work(
+            kfac, self.n_rows, self.n_cols,
+            distribute_layer_factors=self.distribute_layer_factors)
+        self._factor_dims = factor_dims(kfac)
+        self._bucket_mixed = {
+            dim: any(self._layer_is_mixed(name) for name, _ in plan.slot)
+            for dim, plan in self.assignment.buckets.items()
+            if eigen_family(kfac.method_for_dim(dim))}
+        # This rank's decomposition work: {dim: [(in-row slot, key)]},
+        # and the slots as a device index (built once: a host-to-device
+        # copy per step would stall the host on the device).
+        self._cells, self._cell_idx = {}, {}
+        for dim, plan in self.assignment.buckets.items():
+            lo = self.col * plan.slots_per_col
+            self._cells[dim] = sorted(
+                (slot, key) for key, slot in plan.slot.items()
+                if self.assignment.layer_row[key[0]] == self.row
+                and lo <= slot < lo + plan.slots_per_col)
+            self._cell_idx[dim] = torch.tensor(
+                [slot for slot, _ in self._cells[dim]], device=self.device)
+        # This row's layers per shape group: (names, A slots, G slots).
+        self._row_groups = []
+        for grp in plan_precond_groups(kfac, self.assignment):
+            s = grp['S']
+            mine = sorted((gslot, name) for name, gslot
+                          in grp['slot_of'].items() if gslot // s == self.row)
+            if mine:
+                self._row_groups.append((
+                    grp['shape'], [name for _, name in mine],
+                    torch.tensor([grp['a_idx'][g] for g, _ in mine],
+                                 device=self.device),
+                    torch.tensor([grp['g_idx'][g] for g, _ in mine],
+                                 device=self.device)))
+        #: The KL-clip scale of the last :meth:`step` (a device scalar).
+        self.last_nu = None
+
+    def _layer_is_mixed(self, name: str) -> bool:
+        a_dim, g_dim = self._factor_dims[name]
+        return (eigen_family(self.kfac.method_for_dim(a_dim))
+                != eigen_family(self.kfac.method_for_dim(g_dim)))
+
+    def local_work(self) -> dict:
+        """What this rank launches: ``'decompose'``, the bucket dims it
+        decomposes at a firing (it holds an assigned slot), and
+        ``'precondition'``, the gradient shapes its row preconditions."""
+        return {'decompose': [d for d, cell in self._cells.items() if cell],
+                'precondition': [shape for shape, *_ in self._row_groups]}
+
+    # -- state ---------------------------------------------------------
+
+    def init_state(self) -> dict:
+        """Fresh state: identity factors (replicated on every rank) and
+        this rank's row of each bucket, ``(slots_per_row, dim, dim)``:
+        identity ``Q`` and unit ``d`` for eigen buckets (plus a zero
+        ``inv`` where a mixed layer bakes its eigen side), zero ``inv``
+        for baked ones."""
+        dev = self.device
+        factors = {
+            name: {side: torch.eye(dim, dtype=torch.float32, device=dev)
+                   for side, dim in zip('AG', self._factor_dims[name])}
+            for name in self.specs}
+        stacks = {}
+        for dim, plan in self.assignment.buckets.items():
+            n = plan.slots_per_row
+            if eigen_family(self.kfac.method_for_dim(dim)):
+                entry = {'Q': torch.eye(dim, dtype=torch.float32, device=dev
+                                        ).repeat(n, 1, 1),
+                         'd': torch.ones((n, dim), dtype=torch.float32,
+                                         device=dev)}
+                if self._bucket_mixed.get(dim):
+                    entry['inv'] = torch.zeros((n, dim, dim),
+                                               dtype=torch.float32,
+                                               device=dev)
+            else:
+                entry = {'inv': torch.zeros((n, dim, dim),
+                                            dtype=torch.float32, device=dev)}
+            stacks[str(dim)] = entry
+        return {'step': 0, 'factors': factors, 'inv_stacks': stacks,
+                'inv_chunk_phase': 0}
+
+    # -- factors -------------------------------------------------------
+
+    def local_factor_contribs(self, captures: dict) -> dict:
+        """This rank's covariance contributions ``{layer: {'A', 'G'}}``:
+        the sides ``KFAC.fused_factor_inputs`` names through K1 in its
+        contraction-only form (no old factor, decay 0), conv A through K2,
+        multi-call layers as the stock sum of per-call factors."""
+        kfac = self.kfac
+        missing = [n for n in self.specs if n not in captures]
+        if missing:
+            raise ValueError(f'no captures for registered layers {missing} '
+                             '(capture with intercept=True on factor '
+                             'steps)')
+        cdt = kfac.factor_compute_dtype
+        out = {}
+        for name, spec in self.specs.items():
+            entry = captures[name]
+            fused = (kfac.fused_factor_inputs(spec, entry)
+                     if kfac.fused_factor_contraction else {})
+            contrib = {}
+            for side, compute, calls in (
+                    ('A', L.compute_a_factor, entry['a']),
+                    ('G', L.compute_g_factor, entry['g'])):
+                if side in fused:
+                    x, scale, has_bias = fused[side]
+                    contrib[side] = kernels.factor_ema(
+                        x, None, 0.0, scale=scale, has_bias=has_bias,
+                        compute_dtype=cdt)
+                else:
+                    contrib[side] = compute(spec, calls, compute_dtype=cdt)
+            out[name] = contrib
+        return out
+
+    def update_factors(self, state: dict, contribs: dict,
+                       factor_decay=None) -> dict:
+        """Average the ranks' contributions (one ``all_reduce`` over the
+        world, triangle-packed with ``symmetry_aware_comm``; ``G`` times
+        ``1/W^2``) and EMA them into the factors."""
+        kfac = self.kfac
+        alpha = kfac.factor_decay if factor_decay is None else factor_decay
+        w = self.world_size
+        packed = kfac.symmetry_aware_comm
+        keys = [(n, s) for s in 'AG' for n in self.specs]
+        parts = [F.pack_symmetric(contribs[n][s]) if packed
+                 else contribs[n][s] for n, s in keys]
+        sizes = [t.numel() for t in parts]
+        flat = torch.cat([t.reshape(-1) for t in parts])
+        dist.all_reduce(flat)
+        if w > 1:
+            flat /= w                                    # the mean
+            flat[sum(sizes[:len(self.specs)]):] /= w ** 2   # G: 1/W^2
+        olds = [state['factors'][n][s] for n, s in keys]
+        news = [v.view(t.shape) for v, t in zip(flat.split(sizes), parts)]
+        if packed:
+            news = [F.unpack_symmetric(m, o.shape[-1])
+                    for m, o in zip(news, olds)]
+        # F.update_running_avg, alpha * old + (1 - alpha) * new, over the
+        # whole list at once.
+        ema = torch._foreach_mul(olds, alpha)
+        torch._foreach_add_(ema, torch._foreach_mul(news, 1.0 - alpha))
+        new_factors = {n: {} for n in self.specs}
+        for (n, s), t in zip(keys, ema):
+            new_factors[n][s] = t
+        return new_factors
+
+    # -- inverses ------------------------------------------------------
+
+    def update_inverses(self, factors: dict, damping=None,
+                        prev_stacks: dict | None = None) -> dict:
+        """A monolithic firing: this rank decomposes its assigned slots of
+        every bucket, then one ``all_reduce`` SUM over its row assembles
+        the row's stacks (a masked-sum gather: each slot is nonzero on
+        one rank only).
+
+        Eigen buckets: the warm polish seeded from ``prev_stacks``' bases
+        of the same slots (``eigh_method`` 'auto'/'warm'; without
+        ``prev_stacks`` the library eigh), the library eigh (``'xla'``) or
+        K5 (``'jacobi'``); a mixed layer's eigen side is also baked into
+        ``inv`` at ``damping``. Other buckets: damped inverses by K4
+        (``'newton'``) or Cholesky.
+        """
+        kfac = self.kfac
+        damping = kfac.damping if damping is None else damping
+        method = linalg.resolve_eigh_method(kfac.eigh_method)
+        dev = self.device
+        stacks = {}
+        for dim, plan in self.assignment.buckets.items():
+            n = plan.slots_per_row
+            bucket_method = kfac.method_for_dim(dim)
+            eigen = eigen_family(bucket_method)
+            entry = {}
+            if eigen:
+                entry['Q'] = torch.zeros((n, dim, dim), device=dev)
+                entry['d'] = torch.zeros((n, dim), device=dev)
+            if not eigen or self._bucket_mixed.get(dim):
+                entry['inv'] = torch.zeros((n, dim, dim), device=dev)
+            cell = self._cells[dim]
+            if cell:
+                idx = self._cell_idx[dim]
+                local = torch.stack([factors[name][side].float()
+                                     for _, (name, side) in cell])
+                if eigen:
+                    q_prev = None
+                    if prev_stacks is not None and method == 'auto':
+                        q_prev = prev_stacks[str(dim)]['Q'][idx].float()
+                    q, d = linalg.batched_eigh(
+                        local, method, clip=0.0, q_prev=q_prev,
+                        polish_iters=kfac.eigh_polish_iters)
+                    entry['Q'][idx] = q
+                    entry['d'][idx] = d
+                    if 'inv' in entry:
+                        entry['inv'][idx] = linalg.eigen_side_inverse(
+                            q, d, damping)
+                else:
+                    entry['inv'][idx] = kernels.damped_inverse_stack(
+                        local, damping, bucket_method,
+                        iters=kfac.newton_iters)
+            stacks[str(dim)] = entry
+        group = self.groups.inv_group
+        if group is not None:
+            keys = [(d, k) for d, e in stacks.items() for k in e]
+            reduced = _all_reduce_sum([stacks[d][k] for d, k in keys], group)
+            for (d, k), t in zip(keys, reduced):
+                stacks[d][k] = t
+        return stacks
+
+    # -- preconditioning -----------------------------------------------
+
+    def precondition(self, inv_stacks: dict, grads: dict, damping, lr
+                     ) -> dict:
+        """Precondition this row's layers (K3 per shape group), deliver
+        every layer's result over the column, and apply the KL-clip scale
+        ``nu = min(1, sqrt(kl_clip / |sum lr^2 v.g|))``; unregistered
+        gradients pass through."""
+        kfac = self.kfac
+        dev = self.device
+        grad_mats = {
+            name: L.grads_to_matrix(spec, kfac._layer_params(name, grads))
+            for name, spec in self.specs.items()}
+        mats, vg = {}, {}
+        for (g_dim, a_dim), names, a_idx, g_idx in self._row_groups:
+            gstack = torch.stack([grad_mats[n].float() for n in names])
+            a_stack, g_stack = inv_stacks[str(a_dim)], inv_stacks[str(g_dim)]
+            if (eigen_family(kfac.method_for_dim(a_dim))
+                    and eigen_family(kfac.method_for_dim(g_dim))):
+                entry = {'QA': a_stack['Q'][a_idx], 'dA': a_stack['d'][a_idx],
+                         'QG': g_stack['Q'][g_idx], 'dG': g_stack['d'][g_idx]}
+            else:
+                entry = {'A_inv': a_stack['inv'][a_idx],
+                         'G_inv': g_stack['inv'][g_idx]}
+            if kfac.fused_precondition:
+                vs, vgs = kernels.bucket_precond(gstack, entry, damping)
+                for i, n in enumerate(names):
+                    vg[n] = vgs[i]
+            else:
+                vs = linalg.precondition_dispatch(gstack, entry, damping)
+            for i, n in enumerate(names):
+                mats[n] = vs[i]
+        # This row's v.g partial, in registration order.
+        vg_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        if kfac.kl_clip is not None:
+            for name in self.specs:
+                if name in vg:
+                    vg_sum = vg_sum + vg[name] * lr ** 2
+                elif name in mats:
+                    vg_sum = vg_sum + torch.sum(
+                        mats[name] * grad_mats[name].float() * lr ** 2)
+        group = self.groups.grad_group
+        if group is not None:
+            parts = [vg_sum] + [
+                mats[n] if n in mats else torch.zeros(
+                    grad_mats[n].shape, dtype=torch.float32, device=dev)
+                for n in self.specs]
+            vg_sum, *delivered = _all_reduce_sum(parts, group)
+            mats = dict(zip(self.specs, delivered))
+        if kfac.kl_clip is not None:
+            nu = torch.clamp(torch.sqrt(
+                kfac.kl_clip / (vg_sum.abs() + 1e-30)), max=1.0)
+        else:
+            nu = torch.ones((), dtype=torch.float32, device=dev)
+        self.last_nu = nu
+        out = dict(grads)
+        for name, spec in self.specs.items():
+            like = kfac._layer_params(name, grads)
+            new = L.matrix_to_grads(spec, nu * mats[name], like)
+            for key, t in new.items():
+                out[f'{name}.{key}'] = t.to(like[key].dtype)
+        return out
+
+    # -- the step ------------------------------------------------------
+
+    def step(self, state: dict, grads: dict, captures: dict, *,
+             damping=None, lr=None, factor_decay=None,
+             factor_update_freq=None, inv_update_freq=None,
+             factor_update: bool | None = None,
+             inv_update: bool | None = None) -> tuple[dict, dict]:
+        """One distributed K-FAC update, ``(preconditioned_grads,
+        new_state)``, with ``KFAC.step``'s cadence semantics. ``grads``
+        must already be averaged over the world; ``captures`` are this
+        rank's own."""
+        kfac = self.kfac
+        damping = kfac.damping if damping is None else damping
+        lr = kfac.lr if lr is None else lr
+        f_freq = (kfac.factor_update_freq if factor_update_freq is None
+                  else factor_update_freq)
+        i_freq = (kfac.inv_update_freq if inv_update_freq is None
+                  else inv_update_freq)
+        step = state['step']
+        if factor_update is None:
+            factor_update = step % f_freq == 0
+        if inv_update is None:
+            inv_update = step % i_freq == 0
+        factors = (self.update_factors(
+            state, self.local_factor_contribs(captures), factor_decay)
+            if factor_update else state['factors'])
+        inv_stacks = (self.update_inverses(factors, damping,
+                                           state['inv_stacks'])
+                      if inv_update else state['inv_stacks'])
+        precond = self.precondition(inv_stacks, grads, damping, lr)
+        return precond, {'step': step + 1, 'factors': factors,
+                         'inv_stacks': inv_stacks, 'inv_chunk_phase': 0}
+
+    # -- checkpointing -------------------------------------------------
+
+    def _layout(self) -> dict:
+        return {'row': self.row, 'n_rows': self.n_rows,
+                'n_cols': self.n_cols}
+
+    def state_dict(self, state: dict, include_inverses: bool = True
+                   ) -> dict:
+        """Checkpointable state: step and factors (the same on every
+        rank) and, with ``include_inverses``, this rank's row stacks with
+        the grid position they belong to."""
+        out = {'step': state['step'], 'factors': state['factors'],
+               'inv_chunk_phase': state.get('inv_chunk_phase', 0)}
+        if include_inverses:
+            out['inv_stacks'] = state['inv_stacks']
+            out['inv_layout'] = self._layout()
+        return out
+
+    def load_state_dict(self, sd: dict, *, damping=None) -> dict:
+        """Rebuild the state from :meth:`state_dict` output (collective).
+
+        The layer sets must match. Saved row stacks are used when they
+        were written for this rank's row of the same grid, with the same
+        keys and shapes, and hold no all-zero basis; otherwise every rank
+        recomputes its inverses from the factors
+        (:meth:`recompute_inverses`).
+        """
+        state = self.init_state()
+        if set(sd['factors']) != set(state['factors']):
+            raise ValueError(
+                'checkpoint layers do not match registered layers: '
+                f'{sorted(sd["factors"])} vs {sorted(state["factors"])}')
+        factors = {n: {k: t.to(self.device) for k, t in f.items()}
+                   for n, f in sd['factors'].items()}
+        state = {**state, 'step': int(sd['step']), 'factors': factors,
+                 'inv_chunk_phase': int(sd.get('inv_chunk_phase', 0))}
+        saved = sd.get('inv_stacks')
+        ok = (saved is not None and sd.get('inv_layout') == self._layout()
+              and all(set(saved.get(d, ())) == set(e)
+                      and all(tuple(saved[d][k].shape) == tuple(t.shape)
+                              for k, t in e.items())
+                      for d, e in state['inv_stacks'].items()))
+        ok = ok and not any('Q' in e and not torch.any(e['Q'])
+                            for e in saved.values())
+        # Every rank must take the same branch: recomputing is collective.
+        flag = torch.tensor([0.0 if ok else 1.0], device=self.device)
+        dist.all_reduce(flag)
+        if flag.item() == 0.0:
+            state['inv_stacks'] = {d: {k: t.to(self.device)
+                                       for k, t in e.items()}
+                                   for d, e in saved.items()}
+            return state
+        return self.recompute_inverses(state, damping=damping)
+
+    def recompute_inverses(self, state: dict, damping=None) -> dict:
+        """Every rank's row stacks rebuilt from the current factors (a
+        collective; eigen buckets by the library eigh under 'auto')."""
+        return {**state, 'inv_stacks': self.update_inverses(
+            state['factors'], damping)}

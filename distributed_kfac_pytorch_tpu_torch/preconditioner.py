@@ -36,6 +36,7 @@ preconditioned through its baked inverses.
 
 from __future__ import annotations
 
+import enum
 import warnings
 from typing import Any, Sequence
 
@@ -49,6 +50,31 @@ from distributed_kfac_pytorch_tpu_torch.capture import CONV2D, LINEAR, \
     KFACCapture
 from distributed_kfac_pytorch_tpu_torch.ops import factors as F
 from distributed_kfac_pytorch_tpu_torch.ops import kernels, linalg
+
+class CommMethod(enum.Enum):
+    """Communication strategy of ``parallel.DistributedKFAC`` (the JAX
+    package's ``CommMethod``).
+
+    - COMM_OPT: every rank holds all inverses and preconditions every
+      layer; inverses are gathered after each firing.
+    - MEM_OPT: each layer's inverses live on one rank, which
+      preconditions the layer and delivers the result.
+    - HYBRID_OPT: a ``grad_worker_fraction`` of the ranks per layer hold
+      its inverses and precondition it; the rest receive the result
+      (KAISA).
+    """
+    COMM_OPT = 1
+    MEM_OPT = 2
+    HYBRID_OPT = 3
+
+
+def comm_method_of(value: CommMethod | str) -> CommMethod:
+    """A :class:`CommMethod`, or its name (``'hybrid-opt'``,
+    ``'HYBRID_OPT'``), as a :class:`CommMethod`."""
+    if isinstance(value, str):
+        return CommMethod[value.upper().replace('-', '_')]
+    return CommMethod(value)
+
 
 #: Constructor knobs of the JAX ``KFAC`` that this port does not
 #: implement yet, with the value that means "off". Passing any other
@@ -71,10 +97,6 @@ NOT_PORTED = {
     'kfac_approx': 'expand',
     'tied_embeddings': None,
     'trainable': None,
-    'symmetry_aware_comm': False,
-    'assignment_strategy': 'compute',
-    'comm_method': None,
-    'grad_worker_fraction': 0.25,
     'collect_metrics': False,
     'nonfinite_guard': False,
 }
@@ -122,6 +144,16 @@ class KFAC:
       fused_factor_contraction / fused_precondition: route the factor
         contraction + EMA and the bucketed preconditioning through their
         CUDA kernels (default True).
+      symmetry_aware_comm: average only each factor's packed triangle
+        across ranks (``ops.factors.pack_symmetric``), about half the
+        bytes; read by ``parallel.DistributedKFAC``.
+      assignment_strategy: ``'compute'`` (``n^3``) or ``'memory'``
+        (``n^2``): the cost model of the distributed work placement.
+      comm_method / grad_worker_fraction: the distributed strategy
+        (:class:`CommMethod`, or its name) and, for HYBRID_OPT, the
+        fraction of ranks that hold each layer's inverses; consumed by
+        ``parallel.DistributedKFAC``. A single-device ``KFAC`` ignores
+        the four.
       device: where the state lives (default ``'cuda'``; raises without a
         CUDA device unless ``'cpu'`` is passed).
     """
@@ -143,6 +175,10 @@ class KFAC:
                  skip_layers: str | Sequence[str] | None = None,
                  fused_factor_contraction: bool = True,
                  fused_precondition: bool = True,
+                 symmetry_aware_comm: bool = False,
+                 assignment_strategy: str = 'compute',
+                 comm_method: CommMethod | str = CommMethod.COMM_OPT,
+                 grad_worker_fraction: float = 0.25,
                  device='cuda',
                  **not_ported):
         _check_not_ported(not_ported)
@@ -165,6 +201,9 @@ class KFAC:
             raise ValueError("eigh_method must be 'auto', 'xla', 'jacobi' "
                              f"or 'warm', got {eigh_method!r}")
         kernels.mult_bf16(factor_compute_dtype)  # validates the dtype
+        if assignment_strategy not in ('compute', 'memory'):
+            raise ValueError("assignment_strategy must be 'compute' or "
+                             f"'memory', got {assignment_strategy!r}")
         self.model = model
         self.capture = KFACCapture(model, skip_layers=skip_layers)
         self.specs = self.capture.specs
@@ -183,6 +222,13 @@ class KFAC:
         self.factor_compute_dtype = factor_compute_dtype
         self.fused_factor_contraction = bool(fused_factor_contraction)
         self.fused_precondition = bool(fused_precondition)
+        self.symmetry_aware_comm = bool(symmetry_aware_comm)
+        self.assignment_strategy = assignment_strategy
+        self.comm_method = comm_method_of(comm_method)
+        self.grad_worker_fraction = grad_worker_fraction
+        #: The KL-clip scale of the last :meth:`precondition` (a device
+        #: scalar).
+        self.last_nu = None
 
     # ------------------------------------------------------------------
     # Per-dim inverse dispatch and state
@@ -438,6 +484,7 @@ class KFAC:
                 self.kl_clip / (vg_sum.abs() + 1e-30)), max=1.0)
         else:
             nu = torch.ones((), dtype=torch.float32, device=self.device)
+        self.last_nu = nu
         out = dict(grads)
         for name, spec in self.specs.items():
             like = self._layer_params(name, grads)

@@ -1,18 +1,27 @@
-"""Train a CIFAR-10 ResNet with single-device K-FAC + SGD (PyTorch port of
-``examples/train_cifar10_resnet.py``).
+"""Train a CIFAR-10 ResNet with K-FAC + SGD (PyTorch port of
+``examples/train_cifar10_resnet.py``), on one device or data parallel.
 
     python -m distributed_kfac_pytorch_tpu_torch.train_cifar10_resnet \
         --model resnet32 --epochs 100
+    torchrun --nproc-per-node 4 -m \
+        distributed_kfac_pytorch_tpu_torch.train_cifar10_resnet \
+        --comm-method hybrid-opt --grad-worker-fraction 0.5
 
-Flags keep the JAX CLI's names for what the port supports. Port-only
-flags: ``--device`` (default ``cuda``; ``cpu`` must be asked for),
-``--synthetic-size`` (train images of the offline synthetic set),
-``--no-augment``, ``--max-steps`` (stop after that many steps) and
-``--time-steps`` (synchronize each step and record its wall time). Not
-ported yet: checkpointing and resume, metrics sinks and profiling, mesh
-distribution with its LR warmup (``--warmup-epochs`` ramps the LR to the
-world size), gradient accumulation, label smoothing, precise-BN, fp16,
-and the K-FAC knobs listed in ``preconditioner.NOT_PORTED``.
+Flags keep the JAX CLI's names for what the port supports. Under a
+process group (``torchrun``'s environment, or one the caller started)
+``--batch-size`` is the global batch, each rank trains on its slice, and
+K-FAC runs as ``parallel.DistributedKFAC`` (``--comm-method``,
+``--grad-worker-fraction``, ``--coallocate-layer-factors``,
+``--symmetry-aware-comm``; the LR warms up over ``--warmup-epochs`` to
+world-size times ``--base-lr``); alone it runs the single-device
+``KFAC``. Port-only flags: ``--device`` (default ``cuda``; ``cpu`` must
+be asked for, and gives a gloo group), ``--synthetic-size`` (train images
+of the offline synthetic set), ``--no-augment``, ``--max-steps`` (stop
+after that many steps) and ``--time-steps`` (synchronize each step and
+record its wall time). Not ported yet: checkpointing and resume, metrics
+sinks and profiling, gradient accumulation, multi-slice meshes and fp16
+(``--grad-accum``, ``--num-slices``, ``--fp16`` raise), label smoothing,
+precise-BN, and the K-FAC knobs listed in ``preconditioner.NOT_PORTED``.
 
 :func:`train` is the programmatic entry point.
 """
@@ -33,7 +42,7 @@ from distributed_kfac_pytorch_tpu_torch.training import datasets, engine, \
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description='CIFAR-10 ResNet + single-device K-FAC (torch port)')
+        description='CIFAR-10 ResNet + K-FAC (torch port)')
     p.add_argument('--data-dir', default=None,
                    help='CIFAR-10 python batches; synthetic data if absent')
     p.add_argument('--model', default='resnet32',
@@ -72,6 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--damping-decay', type=int, nargs='+', default=[])
     p.add_argument('--kl-clip', type=float, default=0.001)
     p.add_argument('--skip-layers', nargs='+', default=[])
+    engine.add_distributed_args(p)
     # Port-only flags.
     p.add_argument('--device', default='cuda')
     p.add_argument('--synthetic-size', type=int, default=2048)
@@ -96,7 +106,9 @@ def train(args_or_config=None, device='cuda') -> dict:
     """
     args = engine.parse_args(build_parser(), args_or_config)
     dev = resolve_device(device if device is not None else args.device)
+    engine.check_unported(args)
     set_fp32_precision()
+    workers = engine.start_world(dev)
     (train_x, train_y), (test_x, test_y) = datasets.get_cifar(
         args.data_dir, synthetic_size=args.synthetic_size)
     with torch.random.fork_rng(devices=[]):
@@ -107,6 +119,10 @@ def train(args_or_config=None, device='cuda') -> dict:
     cfg = optimizers.OptimConfig(
         base_lr=args.base_lr, momentum=args.momentum,
         weight_decay=args.wd, lr_decay=args.lr_decay,
+        warmup_epochs=args.warmup_epochs, workers=workers,
+        comm_method=args.comm_method,
+        grad_worker_fraction=args.grad_worker_fraction,
+        symmetry_aware_comm=args.symmetry_aware_comm,
         kfac_inv_update_freq=args.kfac_update_freq,
         kfac_cov_update_freq=args.kfac_cov_update_freq,
         damping=args.damping, factor_decay=args.stat_decay,
@@ -121,9 +137,7 @@ def train(args_or_config=None, device='cuda') -> dict:
         kfac_update_freq_schedule=args.kfac_update_freq_decay)
     optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
         model, cfg, device=dev)
-    state = engine.TrainState(
-        model=model, optimizer=optimizer, kfac=kfac,
-        kfac_state=kfac.init_state() if kfac is not None else None)
+    state = engine.make_train_state(model, optimizer, kfac, args)
     return engine.fit(
         state, (train_x, train_y), (test_x, test_y),
         lr_schedule=lr_schedule, kfac_sched=kfac_sched, epochs=args.epochs,

@@ -1,5 +1,5 @@
-"""Train an ImageNet ResNet with single-device K-FAC + SGD (PyTorch port of
-``examples/train_imagenet_resnet.py``).
+"""Train an ImageNet ResNet with K-FAC + SGD (PyTorch port of
+``examples/train_imagenet_resnet.py``), on one device or data parallel.
 
     python -m distributed_kfac_pytorch_tpu_torch.train_imagenet_resnet \
         --model resnet50 --inverse-method newton
@@ -8,19 +8,20 @@ Flags keep the JAX CLI's names and defaults for what the port supports
 (the recipe: lr 0.0125 decayed at epochs 25/35/40/45/50, wd 5e-5, label
 smoothing 0.1, inverses every 100 steps and factors every 10). The data
 is synthetic ImageNet (``datasets.get_imagenet``: 3 x ``--image-size``^2
-images, 1000 classes), which the JAX CLI does not augment either.
-Port-only flags: ``--device`` (default ``cuda``; ``cpu`` must be asked
-for), ``--synthetic-size`` (images per split), ``--no-augment`` (accepted
-as in the CIFAR CLI; synthetic ImageNet is never augmented),
-``--max-steps`` (stop after that many steps) and ``--time-steps``
-(synchronize each step and record its wall time).
-
-The JAX CLI wraps ``KFAC`` in a one-device ``DistributedKFAC``; here the
-single-device ``KFAC`` runs directly. Not ported yet: the ImageNet
-directory reader, ViT models, the LR warmup (``--warmup-epochs``, flat on
-one device), checkpointing and resume, metrics sinks and profiling,
-gradient accumulation, precise-BN, fp16 / bf16 modes, ``--remat`` and the
-K-FAC knobs listed in ``preconditioner.NOT_PORTED``.
+images, 1000 classes), which the JAX CLI does not augment either. Under a
+process group (``torchrun``, or one the caller started) K-FAC runs as
+``parallel.DistributedKFAC`` and each rank trains on its slice of the
+global batch, as in the CIFAR CLI (same distribution flags); alone, the
+single-device ``KFAC`` runs directly. Port-only flags: ``--device``
+(default ``cuda``; ``cpu`` must be asked for), ``--synthetic-size``
+(images per split), ``--no-augment`` (accepted as in the CIFAR CLI;
+synthetic ImageNet is never augmented), ``--max-steps`` (stop after that
+many steps) and ``--time-steps`` (synchronize each step and record its
+wall time). Not ported yet: the ImageNet directory reader, ViT models,
+checkpointing and resume, metrics sinks and profiling, gradient
+accumulation, multi-slice meshes and fp16 (``--grad-accum``,
+``--num-slices``, ``--fp16`` raise), precise-BN, bf16 modes, ``--remat``
+and the K-FAC knobs listed in ``preconditioner.NOT_PORTED``.
 
 :func:`train` is the programmatic entry point.
 """
@@ -42,7 +43,7 @@ from distributed_kfac_pytorch_tpu_torch.training import datasets, engine, \
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description='ImageNet ResNet + single-device K-FAC (torch port)')
+        description='ImageNet ResNet + K-FAC (torch port)')
     p.add_argument('--data-dir', default=None,
                    help='ImageFolder-style tree (not ported: raises); '
                         'synthetic data if absent')
@@ -82,6 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--damping-decay', type=int, nargs='+', default=[])
     p.add_argument('--kl-clip', type=float, default=0.001)
     p.add_argument('--skip-layers', nargs='+', default=[])
+    engine.add_distributed_args(p)
     # Port-only flags.
     p.add_argument('--device', default='cuda')
     p.add_argument('--synthetic-size', type=int, default=512)
@@ -108,7 +110,9 @@ def train(args_or_config=None, device='cuda') -> dict:
         raise NotImplementedError(
             f'model {args.model!r}: the ViT models are not ported yet')
     dev = resolve_device(device if device is not None else args.device)
+    engine.check_unported(args)
     set_fp32_precision()
+    workers = engine.start_world(dev)
     train_data, val_data = datasets.get_imagenet(
         args.data_dir, image_size=args.image_size,
         synthetic_size=args.synthetic_size)
@@ -119,6 +123,10 @@ def train(args_or_config=None, device='cuda') -> dict:
     cfg = optimizers.OptimConfig(
         base_lr=args.base_lr, momentum=args.momentum,
         weight_decay=args.wd, lr_decay=args.lr_decay,
+        warmup_epochs=args.warmup_epochs, workers=workers,
+        comm_method=args.comm_method,
+        grad_worker_fraction=args.grad_worker_fraction,
+        symmetry_aware_comm=args.symmetry_aware_comm,
         kfac_inv_update_freq=args.kfac_update_freq,
         kfac_cov_update_freq=args.kfac_cov_update_freq,
         damping=args.damping, factor_decay=args.stat_decay,
@@ -132,9 +140,7 @@ def train(args_or_config=None, device='cuda') -> dict:
         kfac_update_freq_schedule=args.kfac_update_freq_decay)
     optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
         model, cfg, device=dev)
-    state = engine.TrainState(
-        model=model, optimizer=optimizer, kfac=kfac,
-        kfac_state=kfac.init_state() if kfac is not None else None)
+    state = engine.make_train_state(model, optimizer, kfac, args)
     return engine.fit(
         state, train_data, val_data, lr_schedule=lr_schedule,
         kfac_sched=kfac_sched, epochs=args.epochs,

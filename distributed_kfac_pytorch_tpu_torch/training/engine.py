@@ -8,6 +8,15 @@ The host drives the cadence (``factor_update`` / ``inv_update`` flags from
 the step counter). Losses and accuracies stay device tensors until the
 epoch's averages are read, so the loop does not sync the host each step
 unless per-step times are asked for.
+
+Data parallelism (a ``TrainState`` with ``distributed=True``, in an
+initialized ``torch.distributed`` world): every rank draws the same
+global batch and trains on its ``launch.process_local_slice``; after the
+backward pass one ``all_reduce`` averages the gradients (with the loss
+and accuracy) over the world -- explicitly, not through DDP, since the
+K-FAC capture owns the backward pass -- then ``DistributedKFAC.step``
+preconditions, and after the update the BatchNorm running buffers are
+averaged over the world.
 """
 
 from __future__ import annotations
@@ -20,8 +29,10 @@ from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from distributed_kfac_pytorch_tpu_torch import launch
 from distributed_kfac_pytorch_tpu_torch.training import datasets, \
     optimizers
 from distributed_kfac_pytorch_tpu_torch.training.utils import Metric, \
@@ -55,10 +66,29 @@ class TrainState:
     """Everything a training step threads through."""
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
-    kfac: Any = None                 # KFAC or None (plain SGD)
+    kfac: Any = None                 # KFAC, DistributedKFAC or None (SGD)
     kfac_state: dict | None = None
     step: int = 0
     epoch: int = 0
+    distributed: bool = False        # data parallel over the world
+
+
+def world_mean(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The world's mean of each tensor, as one flat ``all_reduce``."""
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat)
+    flat /= dist.get_world_size()
+    return [v.view(t.shape).to(t.dtype)
+            for v, t in zip(flat.split([t.numel() for t in tensors]),
+                            tensors)]
+
+
+def average_buffers(model: torch.nn.Module) -> None:
+    """Average the floating-point buffers (BatchNorm running statistics)
+    over the world, in place."""
+    bufs = [b for b in model.buffers() if b.is_floating_point()]
+    if bufs:
+        torch._foreach_copy_(bufs, world_mean(bufs))
 
 
 def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
@@ -67,7 +97,8 @@ def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """One forward/backward, K-FAC preconditioning and SGD update, with
     the loss ``criterion(logits, labels)`` (default cross entropy).
-    Returns the (device) loss and accuracy of the batch."""
+    Returns the (device) loss and accuracy of the batch, averaged over
+    the world when ``state.distributed``."""
     loss_fn = lambda out: criterion(out, y)  # noqa: E731
     kfac = state.kfac
     if kfac is None:
@@ -75,20 +106,29 @@ def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
         out = state.model(x)
         loss = loss_fn(out)
         loss.backward()
-        state.optimizer.step()
-        return loss.detach(), accuracy(out.detach(), y)
-    loss, out, grads, captures = kfac.capture.loss_and_grads(
-        loss_fn, x, intercept=flags['factor_update'])
-    precond, state.kfac_state = kfac.step(
-        state.kfac_state, grads, captures,
-        damping=hyper.get('damping'), lr=hyper['lr'],
-        factor_update=flags['factor_update'],
-        inv_update=flags['inv_update'])
+        loss, out = loss.detach(), out.detach()
+        grads = {n: p.grad for n, p in state.model.named_parameters()
+                 if p.grad is not None}
+    else:
+        loss, out, grads, captures = kfac.capture.loss_and_grads(
+            loss_fn, x, intercept=flags['factor_update'])
+    acc = accuracy(out, y)
+    if state.distributed:
+        *means, loss, acc = world_mean([*grads.values(), loss, acc])
+        grads = dict(zip(grads, means))
+    if kfac is not None:
+        grads, state.kfac_state = kfac.step(
+            state.kfac_state, grads, captures,
+            damping=hyper.get('damping'), lr=hyper['lr'],
+            factor_update=flags['factor_update'],
+            inv_update=flags['inv_update'])
     for name, p in state.model.named_parameters():
-        if name in precond:
-            p.grad = precond[name]
+        if name in grads:
+            p.grad = grads[name]
     state.optimizer.step()
-    return loss, accuracy(out, y)
+    if state.distributed:
+        average_buffers(state.model)
+    return loss, acc
 
 
 def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
@@ -114,6 +154,9 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
         flags = (cadence_flags(state.step, hyper['factor_update_freq'],
                                hyper['inv_update_freq'])
                  if state.kfac is not None else {})
+        if state.distributed:
+            local = launch.process_local_slice(len(xb))
+            xb, yb = xb[local], yb[local]
         x = torch.as_tensor(np.ascontiguousarray(xb), device=device)
         y = torch.as_tensor(yb, dtype=torch.long, device=device)
         t0 = time.perf_counter()
@@ -184,6 +227,63 @@ def fit(state: TrainState, train_data, val_data, *, lr_schedule,
             'fired': fired, 'step_ms': step_ms if time_steps else None,
             'train': train_m, 'val': val_m, 'seconds': seconds,
             'state': state}
+
+
+def add_distributed_args(p: argparse.ArgumentParser) -> None:
+    """The image CLIs' distribution flags (the JAX CLIs' names)."""
+    p.add_argument('--warmup-epochs', type=float, default=5,
+                   help='epochs of LR warm-up to world-size x base lr')
+    p.add_argument('--comm-method', default='comm-opt',
+                   choices=sorted(optimizers.COMM_METHODS))
+    p.add_argument('--grad-worker-fraction', type=float, default=0.25)
+    p.add_argument('--coallocate-layer-factors', action='store_true',
+                   help='decompose A and G of a layer on the same rank')
+    p.add_argument('--symmetry-aware-comm', action='store_true',
+                   help='triangle-packed factor all_reduce (about half '
+                        'the bytes)')
+    # JAX CLI flags the port does not run yet: setting one raises.
+    p.add_argument('--grad-accum', type=int, default=1,
+                   help='not ported (raises unless 1)')
+    p.add_argument('--num-slices', type=int, default=1,
+                   help='not ported (raises unless 1)')
+    p.add_argument('--fp16', action='store_true',
+                   help='not ported (raises)')
+
+
+def check_unported(args: argparse.Namespace) -> None:
+    """Raise ``NotImplementedError`` naming any unported flag that is
+    set."""
+    for flag, off in (('grad_accum', 1), ('num_slices', 1),
+                      ('fp16', False)):
+        if getattr(args, flag) != off:
+            raise NotImplementedError(
+                f'--{flag.replace("_", "-")} is not ported to torch yet')
+
+
+def start_world(device) -> int:
+    """Join the world a launcher declared (``torchrun``'s environment)
+    unless a process group is already up; returns its size (1 when the
+    process is alone)."""
+    launch.initialize_distributed(device=device)
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def make_train_state(model, optimizer, kfac, args) -> TrainState:
+    """The CLIs' ``TrainState``: with a process group up, data parallel
+    over the world and ``kfac`` wrapped in ``DistributedKFAC`` (strategy
+    from the ``KFAC``'s knobs, ``--coallocate-layer-factors``); else the
+    single-device ``KFAC``."""
+    distributed = dist.is_initialized()
+    if kfac is not None and distributed:
+        from distributed_kfac_pytorch_tpu_torch.parallel.distributed import (
+            DistributedKFAC,
+        )
+        kfac = DistributedKFAC(kfac, distribute_layer_factors=(
+            False if args.coallocate_layer_factors else None))
+    return TrainState(
+        model=model, optimizer=optimizer, kfac=kfac,
+        kfac_state=kfac.init_state() if kfac is not None else None,
+        distributed=distributed)
 
 
 def parse_args(parser: argparse.ArgumentParser,

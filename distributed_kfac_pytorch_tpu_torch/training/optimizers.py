@@ -14,10 +14,22 @@ from typing import Sequence
 
 import torch
 
-from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
+from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC, \
+    CommMethod
 from distributed_kfac_pytorch_tpu_torch.scheduler import KFACParamScheduler
 from distributed_kfac_pytorch_tpu_torch.training.utils import \
     create_lr_schedule
+
+
+# CLI string -> CommMethod.
+COMM_METHODS = {
+    'comm-opt': CommMethod.COMM_OPT,
+    'mem-opt': CommMethod.MEM_OPT,
+    'hybrid-opt': CommMethod.HYBRID_OPT,
+    'hybrid_opt': CommMethod.HYBRID_OPT,
+    'comm_opt': CommMethod.COMM_OPT,
+    'mem_opt': CommMethod.MEM_OPT,
+}
 
 
 @dataclasses.dataclass
@@ -26,7 +38,9 @@ class OptimConfig:
     base_lr: float = 0.1
     momentum: float = 0.9
     weight_decay: float = 5e-4
+    warmup_epochs: float = 5.0
     lr_decay: Sequence[int] = (35, 75, 90)
+    workers: int = 1                  # world size for the LR scaling
     # K-FAC (0 inverse update freq disables it: plain SGD)
     kfac_inv_update_freq: int = 10
     kfac_cov_update_freq: int = 1
@@ -43,6 +57,10 @@ class OptimConfig:
     fused_factor_contraction: bool = True
     fused_precondition: bool = True
     skip_layers: Sequence[str] = ()
+    # Distribution (read by parallel.DistributedKFAC).
+    comm_method: str = 'comm-opt'
+    grad_worker_fraction: float = 0.25
+    symmetry_aware_comm: bool = False
     damping_alpha: float = 1.0
     damping_schedule: Sequence[int] = ()
     kfac_update_freq_alpha: float = 1.0
@@ -57,13 +75,16 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
 def get_optimizer(model: torch.nn.Module, cfg: OptimConfig, device='cuda'):
     """``(optimizer, lr_schedule, kfac | None, kfac_scheduler | None)``.
 
-    ``lr_schedule(epoch) -> lr`` is ``base_lr`` times the decay factor; the caller feeds the same value to the optimizer and to the
-    KL clip. K-FAC is on when ``kfac_inv_update_freq > 0``.
+    ``lr_schedule(epoch) -> lr`` is ``base_lr`` times the warm-up /
+    decay factor (warm-up to ``workers`` times ``base_lr``); the caller
+    feeds the same value to the optimizer and to the KL clip. K-FAC is on
+    when ``kfac_inv_update_freq > 0``.
     """
     optimizer = torch.optim.SGD(model.parameters(), lr=cfg.base_lr,
                                 momentum=cfg.momentum,
                                 weight_decay=cfg.weight_decay)
-    factor = create_lr_schedule(cfg.lr_decay)
+    factor = create_lr_schedule(cfg.workers, cfg.warmup_epochs,
+                                cfg.lr_decay)
     lr_schedule = lambda epoch: cfg.base_lr * factor(epoch)  # noqa: E731
     kfac = kfac_scheduler = None
     if cfg.kfac_inv_update_freq > 0:
@@ -84,6 +105,9 @@ def get_optimizer(model: torch.nn.Module, cfg: OptimConfig, device='cuda'):
             skip_layers=list(cfg.skip_layers) or None,
             fused_factor_contraction=cfg.fused_factor_contraction,
             fused_precondition=cfg.fused_precondition,
+            symmetry_aware_comm=cfg.symmetry_aware_comm,
+            comm_method=COMM_METHODS[cfg.comm_method.lower()],
+            grad_worker_fraction=cfg.grad_worker_fraction,
             device=device)
         kfac_scheduler = KFACParamScheduler(
             kfac,

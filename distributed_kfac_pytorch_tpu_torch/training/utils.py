@@ -49,18 +49,21 @@ def label_smooth_loss(logits: torch.Tensor, labels: torch.Tensor,
     return -(target * F.log_softmax(logits, dim=-1)).sum(-1).mean()
 
 
-def create_lr_schedule(decay_schedule: Sequence[int], alpha: float = 0.1):
-    """LR *factor* schedule over epochs: a factor ``alpha`` at each epoch
-    in ``decay_schedule``. Returns ``f(epoch) -> factor``.
+def create_lr_schedule(workers: int, warmup_epochs: float,
+                       decay_schedule: Sequence[int], alpha: float = 0.1):
+    """LR *factor* schedule over epochs: linear warm-up, then step decay.
 
-    The JAX schedule's warmup ramps the factor from 1 to the number of
-    workers; on one device that ramp is flat, so it comes with the
-    multi-device port.
+    Over ``warmup_epochs`` the factor rises from 1 (the base, per-worker
+    lr) to ``workers``; after it, ``workers`` times ``alpha`` per epoch
+    of ``decay_schedule`` passed. Returns ``f(epoch) -> factor``. One
+    worker makes the warm-up flat.
     """
     decay_schedule = sorted(decay_schedule)
 
     def schedule(epoch: float) -> float:
-        factor = 1.0
+        if warmup_epochs > 0 and epoch < warmup_epochs:
+            return 1.0 + (workers - 1.0) * (epoch / warmup_epochs)
+        factor = float(workers)
         for e in decay_schedule:
             if epoch >= e:
                 factor *= alpha

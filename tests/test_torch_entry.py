@@ -140,7 +140,9 @@ def _imports(path: pathlib.Path):
 @pytest.mark.parametrize('path', sorted(
     [*PACKAGE.rglob('*.py'), ROOT / 'chip_smoke.py',
      ROOT / 'scripts' / 'k4_ablation.py', ROOT / 'scripts' / 'k2_tiles.py',
-     ROOT / 'scripts' / 'k2_ab.py']),
+     ROOT / 'scripts' / 'k2_ab.py',
+     ROOT / 'scripts' / 'nccl_world1_repro.py',
+     ROOT / 'scripts' / 'nccl_world1_profile.py']),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     for name in _imports(path):
@@ -165,11 +167,51 @@ def test_import_leaves_jax_unloaded():
     ('inv_pipeline_chunks', 2), ('deferred_factor_reduction', True),
     ('inv_staleness', 1), ('inv_lowrank_rank', 16),
     ('kfac_approx', 'reduce'), ('collect_metrics', True),
-    ('inv_dtype', torch.bfloat16), ('factor_dtype', torch.bfloat16)])
+    ('inv_dtype', torch.bfloat16), ('factor_dtype', torch.bfloat16),
+    ('hierarchical_reduce', True), ('nonfinite_guard', True),
+    ('inv_pipeline_costs', {64: 1.0})])
 def test_unported_knobs_raise_by_name(knob, value):
     with pytest.raises(NotImplementedError, match=knob):
         KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
              **{knob: value})
+
+
+def test_distribution_knobs_are_kfac_attributes():
+    from distributed_kfac_pytorch_tpu_torch.preconditioner import (
+        NOT_PORTED,
+        CommMethod,
+    )
+    knobs = {'comm_method': 'hybrid-opt', 'grad_worker_fraction': 0.5,
+             'symmetry_aware_comm': True, 'assignment_strategy': 'memory'}
+    assert not set(knobs) & set(NOT_PORTED)
+    kfac = KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu', **knobs)
+    assert kfac.comm_method is CommMethod.HYBRID_OPT
+    assert (kfac.grad_worker_fraction, kfac.symmetry_aware_comm,
+            kfac.assignment_strategy) == (0.5, True, 'memory')
+    default = KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu')
+    assert default.comm_method is CommMethod.COMM_OPT
+    with pytest.raises(ValueError, match='assignment_strategy'):
+        KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
+             assignment_strategy='speed')
+
+
+@pytest.mark.parametrize('module', [cli, inet])
+@pytest.mark.parametrize('flag,value', [('grad_accum', 2),
+                                        ('num_slices', 2), ('fp16', True)])
+def test_cli_unported_flags_raise_by_name(module, flag, value):
+    with pytest.raises(NotImplementedError, match=flag.replace('_', '-')):
+        module.train({flag: value}, device='cpu')
+
+
+@pytest.mark.parametrize('module', [cli, inet])
+def test_clis_take_the_distribution_flags(module):
+    args = module.build_parser().parse_args(
+        ['--comm-method', 'hybrid-opt', '--grad-worker-fraction', '0.5',
+         '--coallocate-layer-factors', '--symmetry-aware-comm',
+         '--warmup-epochs', '2'])
+    assert (args.comm_method, args.grad_worker_fraction,
+            args.coallocate_layer_factors, args.symmetry_aware_comm,
+            args.warmup_epochs) == ('hybrid-opt', 0.5, True, True, 2.0)
 
 
 @pytest.mark.parametrize('kwargs', [{'use_eigen_decomp': False},
