@@ -11,7 +11,11 @@ Phases (any failure exits nonzero and prints no result line):
      with nvcc for sm_90a (``ops.kernels.build``);
   3. kernels K1-K3: each at the shapes of the ResNet-32 / batch-128 path
      and of the ResNet-50 / 224 px / batch-64 path (K3 also at the LSTM
-     LM's (16, 650, 651) bucket, eigen and baked) plus ragged edge cases, fp32 and bf16-multiplicand modes, held against its plain
+     LM's (16, 650, 651) bucket, eigen and baked; K1 and K3 at the
+     Transformer-XL step's shapes: row-major (4096, 1024) and (4096,
+     4096) with and without the bias column, and the baked buckets (72,
+     1024, 1025), (18, 4096, 1025), (18, 1024, 4097)) plus ragged edge
+     cases, fp32 and bf16-multiplicand modes, held against its plain
      PyTorch version on the same inputs on the card (relative to the
      largest plain entry: fp32 <= 1e-5 for the Gram kernels, <= 1e-4 for
      bucketed preconditioning; bf16 <= 1e-2), and timed with CUDA events
@@ -20,7 +24,9 @@ Phases (any failure exits nonzero and prints no result line):
      CUDA-core bound beside it) and the bound's share of the time; K1 and
      K2 also at one edge case per staging path of ``factor_ema_plan`` and
      ``patch_cov_plan``, their outputs exactly symmetric; K1-K3
-     bit-identical over two calls, each case printing its plan (K1, K2:
+     bit-identical over two calls; on every K1 case (fp32),
+     ``kernels.ema_blend`` of the contraction alone equal bit for bit to
+     the fused blend; each case printing its plan (K1, K2:
      tile, pairs, chunks, staging path; K3: tile, staging path, waves from
      ``bucket_precond_plan``);
   4. kernel K4 (Newton--Schulz inverse): random SPD stacks at every
@@ -75,9 +81,10 @@ Phases (any failure exits nonzero and prints no result line):
      jacobi_eigh 9 per firing besides phase 5's per-step launches;
  12. the result (printed after phases 13 and 14): a JSON line of
      per-kernel numbers (K1-K3 per ResNet-50 step, K4 per ResNet-50
-     firing, K5 per LSTM firing; launches summed over phases 5-7, 9-11,
-     13 and 14), the card line, then ``{"ok": true, "device": {...}}`` as
-     the last line;
+     firing, K5 per LSTM firing, and under ``transformer_xl`` K1 and K3
+     per XL step and K4 per XL firing; launches summed over phases 5-7,
+     9-11 and 13-18), the card line, then ``{"ok": true, "device":
+     {...}}`` as the last line;
  13. distributed, NCCL at world size 1: phase 6's ResNet-50 run through
      ``train_imagenet_resnet.train`` inside a one-rank NCCL group
      (``file://`` rendezvous under ``chiprun_out/``), ``--comm-method
@@ -86,7 +93,12 @@ Phases (any failure exits nonzero and prints no result line):
      phase 6's and the mean of the last three within 5e-2 (phase 6 is
      not reproducible beyond that: its backward convolutions are
      nondeterministic and the 12-step run amplifies the difference),
-     phase 6's launches, its step times printed beside phase 6's;
+     phase 6's launches, its step times printed beside phase 6's; then,
+     in the same group, 12 steps of shared inputs: one capture per step
+     into both the single-device ``KFAC`` and ``DistributedKFAC``, every
+     step's factors (<= 1e-5), preconditioned gradients (<= 1e-4) and
+     KL-clip scale (<= 1e-5) held against the single-device ones, as
+     phase 14 holds its ranks;
  14. distributed, gloo: 4 ranks (subprocesses of this script, all on
      ``cuda:0``, started after the build) train ResNet-32 at full width
      with BatchNorm in eval mode (running statistics from one pass over
@@ -99,14 +111,40 @@ Phases (any failure exits nonzero and prints no result line):
      entry), every rank's launches must equal what the work assignment
      predicts (K1 33 and K2 31 per step; K3 one per gradient shape its
      row owns; K5 one per bucket it holds a slot of, per firing), and
-     the step times print labelled as gloo through host memory.
+     the step times print labelled as gloo through host memory;
+ 15. main path, Transformer-XL LM: ``train_language_model.train`` with
+     ``--arch transformer`` at d 1024, 18 blocks, 16 heads, MLP 4096,
+     tied, synthetic vocabulary 32,768, BPTT 1024, batch 4, dropout 0,
+     one fixed batch, the default ``auto`` (damped Cholesky on every
+     side), factors every step, inverses every 10, 12 steps; every loss
+     finite, the last three below the first three, launches factor_ema
+     217 (every dense side and the embedding's G) and bucket_precond 3
+     per step and nothing else, the embedding's diagonal A equal to the
+     batch's id frequencies under the EMA, step times, state sizes and
+     peak memory printed;
+ 16. the XL model under ``--kfac-approx reduce`` (tied statistics on), 3
+     steps: finite losses, every block Linear resolved to reduce, the
+     tied embedding's G on the stock path (factor_ema 216 per step);
+     then one capture of the fixed batch: the embedding's A contribution
+     with the attend site at or above the lookup's alone everywhere and
+     above it on every id absent from the batch, its G different;
+ 17. the XL model under ``--inverse-method newton``, 3 steps, one
+     firing: ns_inverse 4 (one per factor size); then each size bucket
+     of the final factors through K4 (iterations; every matrix's
+     residual within 2x the plain version's or 2e-5; ms) beside the
+     plain version (on one matrix of the 4096 / 4097 buckets), the
+     library Cholesky inverse and the bound;
+ 18. the Transformer CLI's own defaults (650 wide, 2 blocks, 10 heads,
+     untied, dropout 0.5, nothing skipped, decoder G 10,000 on the
+     synthetic 10,000 vocabulary), 3 steps: finite losses, factor_ema 27
+     and bucket_precond 4 per step.
 
 ``--quick`` builds with ``-Xptxas -v`` and runs only the correctness
 checks of phases 3, 4 and 8 (a first call after a kernel change).
 ``--profile`` adds a torch.profiler pass over steady ResNet-32,
-ResNet-50 (``newton``) and LSTM (``jacobi``) steps (device time by kernel
-category, the device's busy share; it fails if the ResNet-50 steps show
-no K2 time). Details of every case go to
+ResNet-50 (``newton``), LSTM (``jacobi``) and Transformer-XL (``auto``)
+steps (device time by kernel category, the device's busy share; it fails
+if the ResNet-50 steps show no K2 time or the XL steps no K1 time). Details of every case go to
 ``chiprun_out/chip_smoke.json`` next to this script.
 """
 
@@ -173,6 +211,50 @@ R32_PER_STEP_K1, R32_PER_STEP_K2 = 33, 31
 # 3 (1.4e-2 relative by step 11 on the H100), so steps 0-2 are held at
 # 1e-3 and the mean of the last three within 5e-2.
 R50_NCCL_HELD, R50_NCCL_FINAL_TOL = 3, 5e-2
+# Every step of phase 13's shared-input check (the same captures and
+# gradients into the single-device KFAC and DistributedKFAC) and of phase
+# 14's gloo ranks is held to these, relative to the largest reference entry.
+STEP_TOL = {'factors': 1e-5, 'precond': 1e-4, 'nu': 1e-5}
+# Transformer-XL large (tracked config 4; benchmarks/flagship_lm.py's
+# shape): d 1024, 18 blocks, 16 heads, MLP 4096, vocabulary 32768, BPTT
+# 1024, batch 4, tied embedding, fp32. Per expand step K1 runs every dense
+# side (18 blocks x 6 Linears x 2) plus the untied-statistics embedding's
+# G; K3 the three baked shape buckets (G, A): 72 x (1024, 1025) for
+# q/k/v/o, 18 x (4096, 1025) for mlp_in, 18 x (1024, 4097) for mlp_out.
+XL_D, XL_LAYERS, XL_HEADS, XL_VOCAB = 1024, 18, 16, 32768
+XL_BPTT, XL_BATCH = 1024, 4
+XL_TOKENS = XL_BPTT * XL_BATCH
+XL_STEPS, XL_FIRE_EVERY = 12, 10
+XL_K1_CASES = (   # (rows, d, bias, launches per step)
+    (XL_TOKENS, XL_D, True, 5 * XL_LAYERS),           # q, k, v, o, mlp_in A
+    (XL_TOKENS, XL_D, False, 5 * XL_LAYERS + 1),      # ... G and embed G
+    (XL_TOKENS, 4 * XL_D, True, XL_LAYERS),           # mlp_out A
+    (XL_TOKENS, 4 * XL_D, False, XL_LAYERS))          # mlp_in G
+XL_K3_BUCKETS = (((XL_D, XL_D + 1), 4 * XL_LAYERS),
+                 ((4 * XL_D, XL_D + 1), XL_LAYERS),
+                 ((XL_D, 4 * XL_D + 1), XL_LAYERS))
+XL_PER_STEP = {'factor_ema': sum(c[3] for c in XL_K1_CASES),
+               'patch_cov': 0, 'bucket_precond': len(XL_K3_BUCKETS),
+               'ns_inverse': 0, 'jacobi_eigh': 0}
+# Under --kfac-approx reduce the tied embedding's G (lookup plus attend
+# terms) leaves K1 for the stock path.
+XL_REDUCE_PER_STEP = {**XL_PER_STEP,
+                      'factor_ema': XL_PER_STEP['factor_ema'] - 1}
+XL_REDUCE_STEPS, XL_NEWTON_STEPS = 3, 3
+# Under --inverse-method newton, one K4 launch per factor size per firing.
+XL_NS_SIZES = (XL_D, XL_D + 1, 4 * XL_D, 4 * XL_D + 1)
+# The plain Newton--Schulz iteration runs on one matrix of each bucket of
+# this size or more (in fp32 it can stall to the 100-iteration cap).
+XL_NS_PLAIN_ONE_FROM = 4 * XL_D
+# The Transformer CLI's own defaults: 650 wide, 2 blocks, 10 heads,
+# untied, BPTT 35, batch 20, synthetic vocabulary 10,000, nothing skipped:
+# K1 on 2 x 6 x 2 block sides + the embedding's G + the decoder's A and G;
+# K3 on four buckets, (650, 651) x 8, (2600, 651) x 2, (650, 2601) x 2 and
+# the decoder's (10000, 651).
+TLM_DEFAULT_STEPS = 3
+TLM_DEFAULT_PER_STEP = {'factor_ema': 27, 'patch_cov': 0,
+                        'bucket_precond': 4, 'ns_inverse': 0,
+                        'jacobi_eigh': 0}
 # (n, matrices) of each ResNet-50 factor size bucket: one K4 launch each
 # per firing under 'newton'.
 R50_NS_BUCKETS = ((64, 12), (128, 12), (147, 1), (256, 26), (512, 19),
@@ -229,7 +311,7 @@ def bound(nbytes: float, flops: float,
 # builder of (kernel_fn(bf16), plain_fn(bf16), library_fn, nbytes, flops))
 # ---------------------------------------------------------------------------
 
-def factor_ema_cases(gen, dev, resnet50=None):
+def factor_ema_cases(gen, dev, resnet50=None, xl=False):
     import torch
     from distributed_kfac_pytorch_tpu_torch.ops import kernels as K
 
@@ -275,12 +357,20 @@ def factor_ema_cases(gen, dev, resnet50=None):
             return torch.addmm(old_in, x2.T, x2, beta=decay,
                                alpha=(1 - decay) / scale)
 
+        # A path that blends K1's contraction in torch (DistributedKFAC,
+        # after its all_reduce) has K1's fused bits only through
+        # kernels.ema_blend: checked bit for bit in phase 3.
+        kern.blend = lambda f: K.ema_blend(old, f, decay)
         kern.plan = K.factor_ema_plan(x.shape, x.stride(), has_bias,
                                       K._sm_count(x.device.index or 0),
                                       aligned=x.data_ptr() % 16 == 0)
         nbytes = 4 * (rows * d_in + 2 * n * n)
         return kern, plain, library, nbytes, rows * d_in * (d_in + 1)
 
+    if xl:
+        return [(f'xl ({rows},{d}){"+bias" if bias else ""}', count,
+                 lambda rows=rows, d=d, bias=bias: case((rows, d), bias))
+                for rows, d, bias, count in XL_K1_CASES]
     if resnet50:
         fc_in, fc_out = resnet50['fc']
         return [(f'conv G ({R50_BATCH},{c},{h},{w})', count,
@@ -392,7 +482,7 @@ def patch_cov_cases(gen, dev, resnet50=None):
     ]
 
 
-def bucket_precond_cases(gen, dev, resnet50=None):
+def bucket_precond_cases(gen, dev, resnet50=None, xl=False):
     import torch
     from distributed_kfac_pytorch_tpu_torch.ops import kernels as K
 
@@ -447,6 +537,12 @@ def bucket_precond_cases(gen, dev, resnet50=None):
         flops = s * (4 if eigen else 2) * g_dim * a_dim * (a_dim + g_dim)
         return kern, plain, library, nbytes, flops
 
+    if xl:
+        # Under 'auto' every side above 640 is baked: the main path's
+        # three buckets, timed once per step.
+        return [(f'xl baked ({s},{g_dim},{a_dim})', 1,
+                 lambda s=s, g=g_dim, a=a_dim: case(s, g, a, False))
+                for (g_dim, a_dim), s in XL_K3_BUCKETS]
     if resnet50:
         # Under 'newton' every bucket is baked (timed, once per step);
         # the eigen form is checked at the same shapes.
@@ -542,23 +638,29 @@ def plan_fields(plan) -> dict:
 
 
 def check_kernels(quick: bool, resnet50: dict | None = None,
-                  lstm: bool = False) -> tuple[dict, list]:
+                  lstm: bool = False, xl: bool = False) -> tuple[dict, list]:
     """K1-K3 against their plain versions at the ResNet-32 shapes (or,
     given ``resnet50_shapes()``, the ResNet-50 ones; with ``lstm``, K3 at
-    the LSTM LM's bucket); per-step sums of the timed cases' ms, plain
-    ms, library ms and bounds."""
+    the LSTM LM's bucket; with ``xl``, K1 and K3 at the Transformer-XL
+    step's shapes); per-step sums of the timed cases' ms, plain ms,
+    library ms and bounds."""
     import torch
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     if lstm:
         families = {'bucket_precond': lstm_bucket_precond_cases(gen, dev)}
+    elif xl:
+        families = {'factor_ema': factor_ema_cases(gen, dev, xl=True),
+                    'bucket_precond': bucket_precond_cases(gen, dev,
+                                                           xl=True)}
     else:
         families = {
             'factor_ema': factor_ema_cases(gen, dev, resnet50),
             'patch_cov': patch_cov_cases(gen, dev, resnet50),
             'bucket_precond': bucket_precond_cases(gen, dev, resnet50)}
-    model = 'lstm' if lstm else 'resnet50' if resnet50 else 'resnet32'
+    model = ('lstm' if lstm else 'transformer_xl' if xl
+             else 'resnet50' if resnet50 else 'resnet32')
     summary, details = {}, []
     for name, cases in families.items():
         peak = OPS_PEAK.get(name, PEAK_FP32_FLOPS)
@@ -583,6 +685,14 @@ def check_kernels(quick: bool, resnet50: dict | None = None,
                 if not rel <= tol:
                     raise AssertionError(
                         f'{name} {label} {mode}: rel err {rel:.3g} > {tol}')
+                blend = getattr(kern, 'blend', None)
+                if blend is not None and not bf16:
+                    differ = int((blend(got[1]) != got[0]).sum())
+                    if differ:
+                        raise AssertionError(
+                            f'{name} {label}: kernels.ema_blend of the '
+                            f'contraction differs from the fused blend in '
+                            f'{differ} entries')
                 if plan is not None:
                     # K1 and K2 mirror every upper entry from its lower
                     # one; K1-K3 sum their partials in a fixed order.
@@ -1244,6 +1354,7 @@ def run_resnet50_nccl(card: str, r50: dict) -> dict:
         res = train_imagenet_resnet.train(config, device='cuda')
         launches = dict(kernels.LAUNCHES)
         state = res.pop('state')
+        shared = _nccl_shared_inputs()
     finally:
         dist.destroy_process_group()
     if type(state.kfac).__name__ != 'DistributedKFAC' or \
@@ -1277,6 +1388,7 @@ def run_resnet50_nccl(card: str, r50: dict) -> dict:
                              f'{expected}')
     firing, plain = _step_ms(res)
     summary = {'losses': losses, 'rel_loss_vs_phase6': rel,
+               'shared_inputs': shared,
                'launches': launches, 'firings': firings,
                'firing_ms': firing, 'nonfiring_ms': plain,
                'nonfiring_ms_median': statistics.median(plain),
@@ -1292,13 +1404,72 @@ def run_resnet50_nccl(card: str, r50: dict) -> dict:
     return summary
 
 
+def _nccl_shared_inputs() -> dict:
+    """Phase 13's per-step check, inside its NCCL group: ResNet-50 as in
+    phase 6 (224 px, batch 64, ``newton``, factors every step, inverses
+    every 10, 12 steps), one capture per step feeding both the
+    single-device ``KFAC`` and ``DistributedKFAC`` (COMM_OPT), the model
+    stepped with the single-device result; every step's factors,
+    preconditioned gradients and KL-clip scale held against it
+    (``STEP_TOL``, relative to the largest reference entry)."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.models import imagenet_resnet
+    from distributed_kfac_pytorch_tpu_torch.parallel.distributed import \
+        DistributedKFAC
+    from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
+    from distributed_kfac_pytorch_tpu_torch.training import datasets, utils
+    dev = torch.device('cuda')
+    (x, y), _ = datasets.get_imagenet(synthetic_size=R50_BATCH)
+    x, y = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    with torch.random.fork_rng(devices=[dev]):
+        torch.manual_seed(0)
+        model = imagenet_resnet.get_model('resnet50').to(dev)
+    knobs = dict(damping=0.001, factor_update_freq=1,
+                 inv_update_freq=R50_FIRE_EVERY, kl_clip=0.001, lr=R50_LR,
+                 inverse_method='newton', device=dev)
+    ref = KFAC(model, **knobs)
+    dk = DistributedKFAC(KFAC(model, **knobs), comm_method='comm-opt')
+    ref_state, dk_state = ref.init_state(), dk.init_state()
+    errors, failures = [], []
+    for step in range(R50_STEPS):
+        inv = step % R50_FIRE_EVERY == 0
+        _, _, grads, captures = ref.capture.loss_and_grads(
+            lambda out: utils.label_smooth_loss(out, y, smoothing=0.1), x)
+        p_ref, ref_state = ref.step(ref_state, grads, captures,
+                                    factor_update=True, inv_update=inv)
+        p_dk, dk_state = dk.step(dk_state, grads, captures,
+                                 factor_update=True, inv_update=inv)
+        err = {'factors': _max_rel(
+                   (dk_state['factors'][n][s], ref_state['factors'][n][s])
+                   for n in ref.specs for s in 'AG'),
+               'precond': _max_rel((p_dk[n], p_ref[n]) for n in p_ref),
+               'nu': _max_rel([(dk.last_nu, ref.last_nu)])}
+        errors.append(err)
+        bad = {k: v for k, v in err.items()
+               if not v <= STEP_TOL[k]}
+        if bad:
+            failures.append(f'step {step}: {bad}')
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p -= R50_LR * p_ref[n]
+    ref.capture.close()
+    dk.kfac.capture.close()
+    worst = {k: max(e[k] for e in errors) for k in STEP_TOL}
+    log(f'  shared inputs, {R50_STEPS} steps, DistributedKFAC (NCCL, world '
+        f'1) vs single-device KFAC, worst: factors {worst["factors"]:.2e}, '
+        f'preconditioned grads {worst["precond"]:.2e}, nu '
+        f'{worst["nu"]:.2e} (limits {STEP_TOL})')
+    if failures:
+        raise AssertionError(f'NCCL world 1, shared inputs: {failures}')
+    return {'errors': errors, 'worst': worst}
+
+
 # (name, comm method, grad-worker fraction, eigh method, expected grid)
 GLOO_CASES = (('comm_opt', 'comm-opt', 0.0, 'xla', (1, 4)),
               ('mem_opt', 'mem-opt', 0.0, 'xla', (4, 1)),
               ('hybrid_opt', 'hybrid-opt', 0.5, 'xla', (2, 2)),
               ('hybrid_opt_jacobi', 'hybrid-opt', 0.5, 'jacobi', (2, 2)))
 GLOO_WORLD, GLOO_BATCH, GLOO_STEPS, GLOO_INV_FREQ = 4, 128, 3, 2
-GLOO_TOL = {'factors': 1e-5, 'precond': 1e-4, 'nu': 1e-5}
 
 
 def _max_rel(pairs) -> float:
@@ -1398,7 +1569,7 @@ def dist_worker(cfg: dict) -> int:
                                         for n in p_ref),
                     'nu': _max_rel([(dk.last_nu, ref.last_nu)])}
                 errors.append(err)
-                bad = {k: v for k, v in err.items() if not v <= GLOO_TOL[k]}
+                bad = {k: v for k, v in err.items() if not v <= STEP_TOL[k]}
                 if bad:
                     failures.append(f'{name} step {step}: {bad}')
             with torch.no_grad():
@@ -1473,7 +1644,7 @@ def run_gloo_world(card: str) -> dict:
                 total[k] += v
     for i, (name, *_rest) in enumerate(GLOO_CASES):
         errs = reports[0]['cases'][i]['errors']
-        worst = {k: max(e[k] for e in errs) for k in GLOO_TOL}
+        worst = {k: max(e[k] for e in errs) for k in STEP_TOL}
         log(f'  {name} grid {reports[0]["cases"][i]["grid"]}: rank 0 vs '
             f'single-device KFAC, worst of {len(errs)} steps: factors '
             f'{worst["factors"]:.2e}, preconditioned grads '
@@ -1488,6 +1659,287 @@ def run_gloo_world(card: str) -> dict:
                 f'{[round(t, 1) for t in case["step_ms"]]}')
     log(f'  all ranks: launches {total} ({card})')
     return {'launches': total, 'ranks': reports}
+
+
+# ---------------------------------------------------------------------------
+# Phases 15-18: the Transformer LM (--arch transformer)
+# ---------------------------------------------------------------------------
+
+def _xl_config(**over) -> dict:
+    """The LM CLI at Transformer-XL large width, tied, dropout 0, one
+    fixed synthetic batch (60,000 train tokens: the first window of
+    epoch 0 at every step; 6,000 validation tokens: one window)."""
+    config = {'arch': 'transformer', 'emsize': XL_D, 'nlayers': XL_LAYERS,
+              'nheads': XL_HEADS, 'tied': True, 'bptt': XL_BPTT,
+              'batch_size': XL_BATCH, 'dropout': 0.0,
+              'synthetic_vocab': XL_VOCAB, 'synthetic_size': 60_000,
+              'fixed_batch': True, 'epochs': 1, 'max_steps': XL_STEPS,
+              'seed': 0, 'time_steps': True, 'quiet': True}
+    config.update(over)
+    return config
+
+
+def _release() -> None:
+    """Free the card between the full-width phases (the capture's hooks
+    and the model reference each other)."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _run_tlm(label: str, config: dict, per_step: dict, firings: int,
+             per_firing: dict | None = None):
+    """``train_language_model.train`` on the card with the launch counts
+    reset just before and read just after; fails unless every loss is
+    finite, ``firings`` steps fired and the launches are ``per_step``
+    times the steps plus ``per_firing`` times the firings. Returns
+    ``(res, launches, state)``."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch import train_language_model
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    res = train_language_model.train(config, device='cuda')
+    launches = dict(kernels.LAUNCHES)
+    state = res.pop('state')
+    losses, n = res['losses'], res['steps']
+    log(f'  losses: {[round(v, 4) for v in losses]}')
+    if n != config['max_steps'] or not all(math.isfinite(v)
+                                           for v in losses):
+        raise AssertionError(f'{label}: {n} steps, losses {losses}')
+    if res['fired'].count('inverse') != firings:
+        raise AssertionError(f'{label}: fired {res["fired"]}')
+    expected = {k: v * n for k, v in per_step.items()}
+    for k, v in (per_firing or {}).items():
+        expected[k] += v * firings
+    if launches != expected:
+        raise AssertionError(f'{label}: launches {launches}, expected '
+                             f'{expected}')
+    res['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return res, launches, state
+
+
+def _xl_first_window():
+    """The fixed batch of the XL phases: epoch 0's first BPTT window."""
+    from distributed_kfac_pytorch_tpu_torch.training import datasets
+    cfg = _xl_config()
+    train_ids, _, _ = datasets.get_lm_corpus(
+        synthetic_size=cfg['synthetic_size'], vocab_size=XL_VOCAB)
+    return next(datasets.bptt_batches(train_ids, XL_BATCH, XL_BPTT,
+                                      shuffle_offset=True, seed=0, epoch=0))
+
+
+def run_transformer_xl(card: str) -> dict:
+    """Phase 15: 12 steps of the Transformer-XL LM (expand, tied, 'auto':
+    damped Cholesky on every side), firings at steps 0 and 10."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.ops import factors as F
+    res, launches, state = _run_tlm('transformer-xl', _xl_config(),
+                                    XL_PER_STEP, 2)
+    losses = res['losses']
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not last < first:
+        raise AssertionError(f'transformer-xl: loss did not decrease: first '
+                             f'three {first:.4f}, last three {last:.4f}')
+    # The embedding's diagonal A after 12 factor steps on the fixed batch:
+    # alpha^12 * 1 + (1 - alpha^12) * (the batch's id frequencies).
+    kst = state.kfac_state
+    alpha = state.kfac.factor_decay ** XL_STEPS
+    freq = F.embedding_a_factor(torch.as_tensor(
+        _xl_first_window()[0], device='cuda').long(), XL_VOCAB)
+    a_err = _max_rel([(kst['factors']['embed']['A'],
+                       alpha + (1 - alpha) * freq)])
+    if not a_err <= 1e-5:
+        raise AssertionError(f'transformer-xl: embedding A {a_err:.2e} off '
+                             'the id frequencies')
+    nbytes = {k: sum(t.numel() * 4 for e in kst[k].values()
+                     for t in e.values())
+              for k in ('factors', 'inverses')}
+    params = sum(p.numel() for p in state.model.parameters())
+    firing, plain = _step_ms(res)
+    summary = {'steps': res['steps'], 'losses': losses,
+               'loss_first3': first, 'loss_last3': last,
+               'launches': launches, 'firing_ms': firing,
+               'step0_ms': res['step_ms'][0],
+               'nonfiring_ms': plain,
+               'nonfiring_ms_median': statistics.median(plain),
+               'params': params, 'factor_bytes': nbytes['factors'],
+               'inverse_bytes': nbytes['inverses'],
+               'peak_gib': res['peak_gib'], 'embed_a_rel_err': a_err,
+               'val': res['val']}
+    log(f'  loss first three {first:.4f} -> last three {last:.4f}; '
+        f'launches {launches}; embedding A vs frequencies {a_err:.1e}')
+    log(f'  {params / 1e6:.1f} M parameters, factors '
+        f'{nbytes["factors"] / 1e9:.2f} GB, inverses '
+        f'{nbytes["inverses"] / 1e9:.2f} GB, peak allocated '
+        f'{res["peak_gib"]:.1f} GiB')
+    log(f'  ms/step: non-firing {summary["nonfiring_ms_median"]:.2f} '
+        f'(median of {len(plain)}), firing {[round(t, 1) for t in firing]} '
+        f'(step 0: {res["step_ms"][0]:.1f}) ({card})')
+    del state
+    _release()
+    return summary
+
+
+def run_transformer_xl_reduce(card: str) -> dict:
+    """Phase 16: the XL model under --kfac-approx reduce (tied statistics
+    on), 3 steps; then one capture of the fixed batch: the tied
+    embedding's contribution (lookup plus attend site) against the
+    lookup's alone, as an expand run takes it."""
+    import torch
+    res, launches, state = _run_tlm(
+        'transformer-xl reduce', _xl_config(max_steps=XL_REDUCE_STEPS,
+                                            kfac_approx='reduce'),
+        XL_REDUCE_PER_STEP, 1)
+    kfac = state.kfac
+    summary_map = kfac.approx_summary()
+    if summary_map.pop('embed') != 'expand+tied' or set(
+            summary_map.values()) != {'reduce'}:
+        raise AssertionError(f'reduce: resolved {kfac.approx_summary()}')
+    x, y = (torch.as_tensor(t, device='cuda').long()
+            for t in _xl_first_window())
+    from distributed_kfac_pytorch_tpu_torch.training import engine
+    _, _, _, caps = kfac.capture.loss_and_grads(
+        lambda out: engine.lm_loss(out, y), x)
+    entry, spec = caps['embed'], kfac.specs['embed']
+    if 'g_tied' not in entry:
+        raise AssertionError('reduce: no tied attend capture')
+    tied = kfac.stock_contribs(spec, entry)
+    lookup = kfac.stock_contribs(spec, {'a': entry['a'], 'g': entry['g']})
+    absent = torch.bincount(x.reshape(-1), minlength=XL_VOCAB) == 0
+    d_a = tied['A'] - lookup['A']
+    if not (bool((d_a >= 0).all()) and bool((d_a[absent] > 0).all())):
+        raise AssertionError('reduce: the embedding A does not hold the '
+                             'attend diagonal')
+    d_g = float((tied['G'] - lookup['G']).abs().max())
+    if not d_g > 0:
+        raise AssertionError('reduce: the embedding G lacks the attend '
+                             'term')
+    firing, plain = _step_ms(res)
+    summary = {'losses': res['losses'], 'launches': launches,
+               'step_ms': res['step_ms'], 'nonfiring_ms': plain,
+               'peak_gib': res['peak_gib'],
+               'embed_a_attend_max': float(d_a.max()),
+               'embed_a_attend_min_absent': float(d_a[absent].min()),
+               'ids_absent': int(absent.sum()),
+               'embed_g_attend_max': d_g}
+    log(f'  launches {launches}; the tied A exceeds the lookup\'s on all '
+        f'{int(absent.sum())} absent ids (min {float(d_a[absent].min()):.2e}'
+        f', max over all {float(d_a.max()):.2e}), G by up to {d_g:.3e}')
+    log(f'  ms/step: {[round(t, 1) for t in res["step_ms"]]} (step 0 '
+        f'fires) ({card})')
+    del state, kfac, caps, entry
+    _release()
+    return summary
+
+
+def run_transformer_xl_newton(card: str) -> tuple[dict, dict]:
+    """Phase 17: the XL model under --inverse-method newton, 3 steps, one
+    firing (K4 on the four size buckets); then every size bucket of the
+    final factors through K4 beside its plain version (one matrix per
+    bucket from XL_NS_PLAIN_ONE_FROM up) and the library Cholesky
+    inverse. Returns the summary and the per-firing K4 aggregate."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    res, launches, state = _run_tlm(
+        'transformer-xl newton', _xl_config(max_steps=XL_NEWTON_STEPS,
+                                            inverse_method='newton'),
+        XL_PER_STEP, 1, {'ns_inverse': len(XL_NS_SIZES)})
+    damping, iters = state.kfac.damping, state.kfac.newton_iters
+    by_size: dict[int, list] = {}
+    for f in state.kfac_state['factors'].values():
+        for t in f.values():
+            if t.ndim == 2:
+                by_size.setdefault(t.shape[-1], []).append(t)
+    del state
+    _release()
+    if sorted(by_size) != sorted(XL_NS_SIZES):
+        raise AssertionError(f'newton: factor sizes {sorted(by_size)}')
+    agg = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0, 't_bytes': 0.0,
+           't_ops': 0.0, 'fp32_bound_ms': 0.0, 'max_abs_err': 0.0}
+    buckets = []
+    for n in XL_NS_SIZES:
+        stack = torch.stack(by_size.pop(n))
+        count = stack.shape[0]
+        inv, k = kernels.batched_inverse(stack, damping, iters,
+                                         with_iters=True)
+        k = k.tolist()
+        sub = 1 if n >= XL_NS_PLAIN_ONE_FROM else count
+        inv_p, k_p = kernels.batched_inverse_plain(stack[:sub], damping,
+                                                   iters)
+        # Every matrix of the bucket is held to the residual bound taken
+        # from the plain version, a few matrices at a time (float64).
+        res_got = max(_ns_residual(stack[i:i + 8], damping, inv[i:i + 8])
+                      for i in range(0, count, 8))
+        res_ref = _ns_residual(stack[:sub], damping, inv_p)
+        if not torch.isfinite(inv).all() or not res_got <= 2 * max(
+                res_ref, 1e-5):
+            raise AssertionError(f'newton: bucket ({count},{n},{n}): '
+                                 f'residual {res_got:.3g} over all '
+                                 f'{count} vs plain {res_ref:.3g}')
+        row = {'n': n, 'count': count, 'iters': k,
+               'plain_matrices': sub, 'plain_iters': k_p.tolist(),
+               'residual': res_got, 'plain_residual': res_ref,
+               'max_abs_err': float((inv[:sub] - inv_p).abs().max())}
+        row['ms'] = time_ms(lambda: kernels.batched_inverse(
+            stack, damping, iters), 1, 3, 1)
+        row['plain_ms'] = time_ms(lambda: kernels.batched_inverse_plain(
+            stack[:sub], damping, iters), 1, 2, 0)
+        eye = torch.eye(n, device='cuda')
+        row['library_ms'] = time_ms(lambda: torch.cholesky_inverse(
+            torch.linalg.cholesky(stack + damping * eye)), 1, 3, 1)
+        ((row['bound_ms'], row['bound_by']),
+         (row['fp32_bound_ms'], _)) = ns_bounds(n, count, k)
+        for key in ('ms', 'plain_ms', 'library_ms', 'fp32_bound_ms'):
+            agg[key] += row[key]
+        agg['t_bytes'] += 8.0 * count * n * n / PEAK_BYTES * 1e3
+        agg['t_ops'] += 3 * 4.0 * n ** 3 * sum(k) / PEAK_TF32_FLOPS * 1e3
+        agg['max_abs_err'] = max(agg['max_abs_err'], row['max_abs_err'])
+        buckets.append(row)
+        log(f'    bucket ({count},{n},{n}): iterations {sorted(set(k))} '
+            f'(plain, {sub} matrices: {sorted(set(row["plain_iters"]))}), '
+            f'max|MX-I| {res_got:.2e} over all {count} (plain '
+            f'{res_ref:.2e}); ms '
+            f'{row["ms"]:.2f}, plain ({sub} matrices) {row["plain_ms"]:.2f}'
+            f', lib {row["library_ms"]:.2f}, bound {row["bound_ms"]:.2f} '
+            f'({row["bound_by"]})')
+        del stack, inv, inv_p
+    log(f'  K4 per XL firing: {agg["ms"]:.1f} ms over {len(buckets)} '
+        f'buckets; bound {max(agg["t_bytes"], agg["t_ops"]):.1f} ms; '
+        f'library {agg["library_ms"]:.1f} ms ({card})')
+    summary = {'losses': res['losses'], 'launches': launches,
+               'step_ms': res['step_ms'], 'peak_gib': res['peak_gib'],
+               'final_factor_buckets': buckets}
+    step_ms = [round(t, 1) for t in res['step_ms']]
+    log(f'  launches {launches}; ms/step {step_ms} (step 0 fires) ({card})')
+    _release()
+    return summary, agg
+
+
+def run_transformer_defaults(card: str) -> dict:
+    """Phase 18: the Transformer CLI's own defaults (650 wide, 2 blocks,
+    10 heads, untied, dropout 0.5, BPTT 35, batch 20, nothing skipped) on
+    the synthetic 10,000 vocabulary, 3 steps."""
+    res, launches, state = _run_tlm(
+        'transformer defaults', {'arch': 'transformer',
+                                 'synthetic_vocab': 10000,
+                                 'fixed_batch': True, 'epochs': 1,
+                                 'max_steps': TLM_DEFAULT_STEPS, 'seed': 0,
+                                 'time_steps': True, 'quiet': True},
+        TLM_DEFAULT_PER_STEP, 1)
+    specs = state.kfac.specs
+    if specs['embed'].kind != 'embedding' or 'decoder' not in specs:
+        raise AssertionError(f'transformer defaults: registered '
+                             f'{list(specs)}')
+    dims = tuple(state.kfac_state['factors']['decoder']['G'].shape)
+    summary = {'losses': res['losses'], 'launches': launches,
+               'step_ms': res['step_ms'], 'decoder_G': dims}
+    log(f'  launches {launches}; decoder G {dims}; ms/step '
+        f'{[round(t, 1) for t in res["step_ms"]]} (step 0 fires) ({card})')
+    del state
+    _release()
+    return summary
 
 
 def _category(name: str) -> str:
@@ -1507,6 +1959,8 @@ def _category(name: str) -> str:
     if 'conv' in n or 'cudnn' in n or 'implicit_gemm' in n or 'wgrad' in n \
             or 'dgrad' in n:
         return 'model convolutions (cuDNN)'
+    if any(k in n for k in ('potrf', 'trsm', 'cusolver', 'syrk', 'trsv')):
+        return 'factorizations (cuSOLVER: Cholesky, triangular solves)'
     if 'gemm' in n or 'cutlass' in n or 'sm90_' in n or 'gemv' in n:
         return 'matmul (cuBLAS: layers, factors, warm polish)'
     if 'batch_norm' in n or 'bn_' in n:
@@ -1518,23 +1972,37 @@ def _category(name: str) -> str:
 
 def profile_main_path(which: str = 'resnet32', steps: int = 5) -> dict:
     """torch.profiler over ``steps`` steady non-firing steps and one firing
-    step of the ResNet-32 path, the ResNet-50 ``newton`` path or the LSTM
-    LM ``jacobi`` path (``which``: 'resnet32', 'resnet50', 'lstm'): device
-    time by kernel category and the device's busy share (kernel time /
-    wall time of the profiled window)."""
+    step of the ResNet-32 path, the ResNet-50 ``newton`` path, the LSTM
+    LM ``jacobi`` path or the Transformer-XL path of phase 15 (``which``:
+    'resnet32', 'resnet50', 'lstm', 'transformer_xl'): device time by
+    kernel category and the device's busy share (kernel time / wall time
+    of the profiled window)."""
     import functools
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from distributed_kfac_pytorch_tpu_torch import train_language_model
     from distributed_kfac_pytorch_tpu_torch.models import cifar_resnet, \
         imagenet_resnet, lstm_lm
     from distributed_kfac_pytorch_tpu_torch.training import datasets, \
         engine, optimizers, utils
     dev = torch.device('cuda')
     gen = None
+    lm = which in ('lstm', 'transformer_xl')
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
-        if which == 'lstm':
+        if which == 'transformer_xl':
+            args = engine.parse_args(train_language_model.build_parser(),
+                                     _xl_config())
+            x, y = _xl_first_window()
+            model = train_language_model.build_model(args, XL_VOCAB, dev)
+            cfg = optimizers.OptimConfig(
+                base_lr=1.0, weight_decay=0.0, lr_decay=(20, 30),
+                kfac_inv_update_freq=10, kfac_cov_update_freq=1)
+            criterion = None
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+        elif which == 'lstm':
             ids, _, vocab = datasets.get_lm_corpus(vocab_size=10000)
             x, y = next(datasets.bptt_batches(ids, 20, 35))
             model = lstm_lm.LSTMLanguageModel(vocab).to(dev)
@@ -1570,7 +2038,7 @@ def profile_main_path(which: str = 'resnet32', steps: int = 5) -> dict:
 
     def step():
         flags = engine.cadence_flags(state.step, 1, 10)
-        if which == 'lstm':
+        if lm:
             engine.lm_train_step(state, xb.long(), yb.long(), hyper, flags,
                                  grad_clip=0.25, generator=gen)
         else:
@@ -1666,16 +2134,19 @@ def main(argv=None) -> int:
     summary50, details50 = check_kernels(args.quick, resnet50_shapes())
     log('== kernel K3 vs plain version: LSTM LM bucket')
     summary_lm, details_lm = check_kernels(args.quick, lstm=True)
+    log('== kernels K1, K3 vs plain versions: Transformer-XL shapes')
+    summary_xl, details_xl = check_kernels(args.quick, xl=True)
     log('== kernel K4 (Newton-Schulz inverse) vs plain version')
     summary_ns, details_ns = check_ns_inverse(args.quick)
     log('== kernel K5 (Jacobi eigh) vs plain version')
     summary_jac, summary_jac32, details_jac = check_jacobi_eigh(args.quick)
     report = {'card': card,
               'kernel_cases': (details + details50 + details_lm
-                               + details_ns + details_jac),
+                               + details_xl + details_ns + details_jac),
               'per_step_resnet32': summary32,
               'per_step_resnet50': summary50,
               'per_step_lstm': summary_lm,
+              'per_step_transformer_xl': summary_xl,
               'per_firing_resnet50_ns_inverse': summary_ns,
               'per_firing_lstm_jacobi_eigh': summary_jac,
               'per_firing_resnet32_jacobi_eigh': summary_jac32}
@@ -1709,10 +2180,26 @@ def main(argv=None) -> int:
             f'gloo, global batch {GLOO_BATCH}, BatchNorm eval, '
             f'{len(GLOO_CASES)} mesh cases x {GLOO_STEPS} steps')
         report['gloo_world'] = run_gloo_world(card)
+        log(f'== main path: Transformer-XL LM (d {XL_D}, {XL_LAYERS} blocks, '
+            f'vocabulary {XL_VOCAB}, tied), BPTT {XL_BPTT}, batch '
+            f'{XL_BATCH}, auto, {XL_STEPS} steps on one batch')
+        report['transformer_xl'] = run_transformer_xl(card)
+        log(f'== Transformer-XL LM, --kfac-approx reduce (tied statistics), '
+            f'{XL_REDUCE_STEPS} steps')
+        report['transformer_xl_reduce'] = run_transformer_xl_reduce(card)
+        log(f'== Transformer-XL LM, --inverse-method newton, '
+            f'{XL_NEWTON_STEPS} steps')
+        report['transformer_xl_newton'], summary_ns_xl = \
+            run_transformer_xl_newton(card)
+        log(f'== Transformer LM, CLI defaults, {TLM_DEFAULT_STEPS} steps')
+        report['transformer_defaults'] = run_transformer_defaults(card)
         runs = (main_summary, r50, report['resnet50_auto'],
                 report['lstm_jacobi'], report['lm_defaults'],
                 report['resnet32_jacobi'], report['resnet50_nccl_world1'],
-                report['gloo_world'])
+                report['gloo_world'], report['transformer_xl'],
+                report['transformer_xl_reduce'],
+                report['transformer_xl_newton'],
+                report['transformer_defaults'])
         launches = {name: sum(r['launches'].get(name, 0) for r in runs)
                     for name in kernels.LAUNCHES}
         aggs = {**summary50, 'ns_inverse': summary_ns,
@@ -1734,6 +2221,22 @@ def main(argv=None) -> int:
                 'bound_rate': BOUND_RATE.get(name, FP32_RATE)}
             if name in TC_KERNELS:
                 entry['fp32_bound_ms'] = agg['fp32_bound_ms']
+            # K1 and K3 per Transformer-XL step, K4 per XL firing.
+            xl_agg, xl_launches = (
+                (summary_xl.get(name), report['transformer_xl']['launches'])
+                if name != 'ns_inverse' else
+                (summary_ns_xl, report['transformer_xl_newton']['launches']))
+            if xl_agg and xl_launches.get(name):
+                t_b, t_o = xl_agg['t_bytes'], xl_agg['t_ops']
+                entry['transformer_xl'] = {
+                    'per': 'firing' if name == 'ns_inverse' else 'step',
+                    'launches': xl_launches[name],
+                    'max_abs_err': xl_agg['max_abs_err'],
+                    'ms': xl_agg['ms'], 'plain_ms': xl_agg['plain_ms'],
+                    'bound_ms': max(t_b, t_o),
+                    'bound_by': 'bytes' if t_b >= t_o else 'operations',
+                    'library_ms': xl_agg['library_ms'],
+                    'fp32_bound_ms': xl_agg['fp32_bound_ms']}
             line.append(entry)
         report['kernels'] = line
         if args.profile:
@@ -1749,6 +2252,15 @@ def main(argv=None) -> int:
             log('== profile: device time by kernel category, LSTM LM '
                 'jacobi')
             report['profile_lstm'] = profile_main_path('lstm')
+            _release()
+            log('== profile: device time by kernel category, '
+                'Transformer-XL LM auto')
+            report['profile_transformer_xl'] = profile_main_path(
+                'transformer_xl')
+            if not report['profile_transformer_xl']['non_firing'][
+                    'by_category_ms'].get('K1 factor_ema'):
+                raise AssertionError('profile: no K1 factor_ema device time '
+                                     'in the Transformer-XL steps')
     out_dir = ROOT / 'chiprun_out'
     out_dir.mkdir(exist_ok=True)
     (out_dir / 'chip_smoke.json').write_text(json.dumps(report, indent=1))

@@ -1,46 +1,80 @@
 """Layer registration and activation / output-gradient capture (PyTorch
 port of ``distributed_kfac_pytorch_tpu/capture.py``).
 
-Registration walks ``model.named_modules()`` once: every ``nn.Linear`` and
-every ``nn.Conv2d`` with ``groups=1`` becomes a :class:`LayerSpec`;
-anything else that holds parameters is recorded in
-:attr:`KFACCapture.skipped_modules` with its reason, except a trainable
-``nn.Embedding`` outside ``skip_layers``: the JAX package preconditions
-embeddings, the port does not yet, so it raises.
+Registration walks ``model.named_modules()`` once: every ``nn.Linear``,
+every ``nn.Conv2d`` with ``groups=1`` and every ``nn.Embedding`` (or the
+port's :class:`~distributed_kfac_pytorch_tpu_torch.modules.embed.Embed`)
+becomes a :class:`LayerSpec`; anything else that holds parameters is
+recorded in :attr:`KFACCapture.skipped_modules` with its reason.
 
 Capture uses forward hooks: while recording, each registered module's
-input is kept (``a``) and a tensor hook on its output keeps the gradient
-of the loss with respect to that output (``g``) -- the gradient of the
-loss as the caller defines it (a batch mean for the training CLI), the
-same scaling as the JAX package's probes. A module called several times
-in one pass gets one ``(a, g)`` pair per call.
+input is kept (``a``; an embedding's ids) and a tensor hook on its output
+keeps the gradient of the loss with respect to that output (``g``) -- the
+gradient of the loss as the caller defines it (a batch mean for the
+training CLI), the same scaling as the JAX package's probes. A module
+called several times in one pass gets one ``(a, g)`` pair per call.
+
+Tied embeddings (``tied_embeddings=True``): torch has no method
+interceptor, so the tied in/out use must be visible as a call. An
+``Embed``'s ``attend(x)`` (the logits ``x E^T``, flax's ``Embed.attend``)
+is wrapped while the capture is open; each recorded call adds ``x`` to
+the layer's ``a_tied`` stream and the logits' gradient to ``g_tied``,
+paired by index. The weight's gradient stays the sum over both uses. A
+bare ``x @ embed.weight.T`` is invisible to capture.
+
+The weight-sharing approximation of each layer (``LayerSpec.kfac_approx``)
+is resolved by ``sharing.approx``; a Linear's shared-axis positions
+(``shared_positions``) are read from its input at the first recorded
+call (:meth:`KFACCapture.observed_specs`), since registration runs no
+forward pass.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Any, Callable, Sequence
 
 import torch
 from torch import nn
 
+from distributed_kfac_pytorch_tpu_torch.modules.embed import Embed
+
 LINEAR = 'linear'
 CONV2D = 'conv2d'
+EMBEDDING = 'embedding'
+# Weight-sharing Kronecker approximations (arXiv:2311.00636):
+# KFAC_EXPAND flattens a shared (sequence / patch) axis into covariance
+# rows; KFAC_REDUCE averages activations and sums output-grads over it
+# before the covariance. Resolved per layer by sharing.approx.
+KFAC_EXPAND = 'expand'
+KFAC_REDUCE = 'reduce'
+KFAC_APPROXES = (KFAC_EXPAND, KFAC_REDUCE)
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     """Static description of one registered layer (mirrors the JAX
     ``LayerSpec``): what the factor math needs to read its captures and
-    map its gradient to and from the 2-D ``(out_dim, in_dim[+1])`` form."""
+    map its gradient to and from the 2-D ``(out_dim, in_dim[+1])`` form
+    (``(vocab, dim)`` for an embedding)."""
     path: tuple[str, ...]           # module path (``named_modules`` name)
-    kind: str                       # LINEAR | CONV2D
+    kind: str                       # LINEAR | CONV2D | EMBEDDING
     has_bias: bool
     # conv2d only:
     kernel_size: tuple[int, ...] | None = None
     strides: tuple[int, ...] | None = None
     padding: Any = None
+    # embedding only:
+    vocab_size: int | None = None
+    # KFAC_EXPAND | KFAC_REDUCE (sharing.approx.annotate_specs).
+    kfac_approx: str = KFAC_EXPAND
+    # A Linear's shared-axis positions: the product of its input's dims
+    # between batch and features (1 for a 2-D input).
+    shared_positions: int = 1
+    # Tied attend call sites captured for this embedding (0: lookup only).
+    tied_calls: int = 0
 
     @property
     def name(self) -> str:
@@ -48,12 +82,19 @@ class LayerSpec:
 
 
 def _decline_reason(mod: nn.Module) -> str | None:
-    """Why a Linear/Conv2d-family module is NOT preconditioned, or None."""
-    for base in (nn.Linear, nn.Conv2d):
-        if isinstance(mod, base) and type(mod) is not base:
+    """Why a Linear/Conv2d/Embedding-family module is NOT preconditioned,
+    or None."""
+    for base in (nn.Linear, nn.Conv2d, nn.Embedding):
+        if isinstance(mod, base) and type(mod) not in (base, Embed):
             return (f'{base.__name__} subclass {type(mod).__name__} '
                     f'(capture only matches exact {base.__name__}; its '
                     'call semantics may differ from the factor math)')
+    if isinstance(mod, nn.Embedding):
+        for attr, off in (('padding_idx', None), ('max_norm', None),
+                          ('scale_grad_by_freq', False), ('sparse', False)):
+            if getattr(mod, attr) != off:
+                return (f'embedding with {attr}={getattr(mod, attr)!r} '
+                        '(not modelled by the factor math)')
     if isinstance(mod, nn.Conv2d):
         if mod.groups != 1:
             return (f'grouped conv (groups={mod.groups}) is not ported '
@@ -67,6 +108,9 @@ def _decline_reason(mod: nn.Module) -> str | None:
 
 def _spec_for_module(mod: nn.Module, path: tuple[str, ...]
                      ) -> LayerSpec | None:
+    if isinstance(mod, nn.Embedding):
+        return LayerSpec(path=path, kind=EMBEDDING, has_bias=False,
+                         vocab_size=mod.num_embeddings)
     if isinstance(mod, nn.Linear):
         return LayerSpec(path=path, kind=LINEAR,
                          has_bias=mod.bias is not None)
@@ -86,13 +130,17 @@ class KFACCapture:
 
     ``skip_layers``: module names or class names (case-insensitive) whose
     subtrees are left out; frozen modules (no parameter requiring grad)
-    are left out too. The hooks stay installed for the life of the
-    object and record only inside :meth:`recording`.
+    are left out too. ``tied_embeddings``: also capture the ``attend``
+    calls of registered ``Embed`` modules (the tied decoder). The hooks
+    stay installed for the life of the object (until :meth:`close`) and
+    record only inside :meth:`recording`.
     """
 
     def __init__(self, model: nn.Module,
-                 skip_layers: str | Sequence[str] | None = None):
+                 skip_layers: str | Sequence[str] | None = None,
+                 tied_embeddings: bool = False):
         self.model = model
+        self.tied_embeddings = bool(tied_embeddings)
         if skip_layers is None:
             skip_layers = []
         elif isinstance(skip_layers, str):
@@ -103,7 +151,12 @@ class KFACCapture:
         self._recording = False
         self._a: dict[str, list] = {}
         self._g: dict[str, list] = {}
+        self._a_tied: dict[str, list] = {}
+        self._g_tied: dict[str, list] = {}
+        self._shared: dict[str, int] = {}
+        self._tied_seen: dict[str, int] = {}
         self._handles = []
+        self._wrapped: list[nn.Module] = []
         self._register()
 
     def _is_skipped(self, mod: nn.Module, path: tuple[str, ...]) -> bool:
@@ -123,13 +176,7 @@ class KFACCapture:
                     self._skipped[name] = 'skip_layers match'
                 continue
             own = list(mod.parameters(recurse=False))
-            if isinstance(mod, nn.Embedding) and any(p.requires_grad
-                                                     for p in own):
-                raise NotImplementedError(
-                    f'embedding-layer K-FAC is not ported yet: nn.Embedding '
-                    f'{name!r} would be preconditioned by the JAX package; '
-                    'leave it out with skip_layers')
-            if not isinstance(mod, (nn.Linear, nn.Conv2d)):
+            if not isinstance(mod, (nn.Linear, nn.Conv2d, nn.Embedding)):
                 if own:
                     self._skipped[name] = (
                         'unsupported module type (params receive plain '
@@ -147,25 +194,62 @@ class KFACCapture:
             self._specs[name] = _spec_for_module(mod, path)
             self._handles.append(mod.register_forward_hook(
                 self._make_hook(name)))
+            if self.tied_embeddings and hasattr(mod, 'attend'):
+                mod.attend = self._make_attend(name, mod.attend)
+                self._wrapped.append(mod)
+
+    def _record(self, name: str, x: torch.Tensor, y: torch.Tensor,
+                a_store: dict, g_store: dict) -> bool:
+        """Keep ``x`` and, through a tensor hook on ``y``, the gradient of
+        the loss with respect to ``y``, as one call of ``name``; False
+        outside recording."""
+        if not self._recording or not torch.is_grad_enabled():
+            return False
+        calls_a = a_store.setdefault(name, [])
+        calls_g = g_store.setdefault(name, [])
+        idx = len(calls_a)
+        calls_a.append(x.detach())
+        calls_g.append(None)
+        if y.requires_grad:
+            def store(grad, idx=idx):
+                calls_g[idx] = grad.detach()
+            y.register_hook(store)
+        return True
 
     def _make_hook(self, name: str):
         def hook(mod, inputs, output):
-            if not self._recording or not torch.is_grad_enabled():
-                return
-            calls_a = self._a.setdefault(name, [])
-            calls_g = self._g.setdefault(name, [])
-            idx = len(calls_a)
-            calls_a.append(inputs[0].detach())
-            calls_g.append(None)
-            if output.requires_grad:
-                def store(grad, idx=idx):
-                    calls_g[idx] = grad.detach()
-                output.register_hook(store)
+            x = inputs[0]
+            if self._record(name, x, output, self._a, self._g) \
+                    and name not in self._shared:
+                self._shared[name] = math.prod(x.shape[1:-1])
         return hook
+
+    def _make_attend(self, name: str, attend: Callable):
+        def wrapped(x):
+            y = attend(x)
+            self._record(name, x, y, self._a_tied, self._g_tied)
+            return y
+        return wrapped
 
     @property
     def specs(self) -> dict[str, LayerSpec]:
         return dict(self._specs)
+
+    def observed_specs(self, specs: dict[str, LayerSpec]
+                       ) -> dict[str, LayerSpec]:
+        """``specs`` with what the recorded calls showed: each Linear's
+        ``shared_positions`` (from its first recorded input) and each
+        embedding's ``tied_calls`` (attend calls in the last recorded
+        pass)."""
+        out = dict(specs)
+        for name, spec in specs.items():
+            if spec.kind == LINEAR and name in self._shared:
+                out[name] = dataclasses.replace(
+                    spec, shared_positions=self._shared[name])
+            elif spec.kind == EMBEDDING:
+                out[name] = dataclasses.replace(
+                    spec, tied_calls=self._tied_seen.get(name, 0))
+        return out
 
     @property
     def skipped_modules(self) -> dict[str, str]:
@@ -190,12 +274,17 @@ class KFACCapture:
         for name in self._specs:
             a_calls = self._a.get(name, [])
             g_calls = self._g.get(name, [])
-            if any(g is None for g in g_calls):
+            tied = self._g_tied.get(name, [])
+            if any(g is None for g in (*g_calls, *tied)):
                 raise ValueError(
                     f'layer {name}: an output gradient was never produced '
                     '(was backward run inside recording()?)')
             out[name] = {'a': tuple(a_calls), 'g': tuple(g_calls)}
-        self._a, self._g = {}, {}
+            if tied:
+                out[name]['a_tied'] = tuple(self._a_tied[name])
+                out[name]['g_tied'] = tuple(tied)
+            self._tied_seen[name] = len(tied)
+        self._a, self._g, self._a_tied, self._g_tied = {}, {}, {}, {}
         return out
 
     def loss_and_grads(self, loss_fn: Callable, *args,
@@ -220,10 +309,12 @@ class KFACCapture:
         return loss.detach(), _detach(out), grads, captures
 
     def close(self) -> None:
-        """Remove the forward hooks."""
+        """Remove the forward hooks and the ``attend`` wrappers."""
         for h in self._handles:
             h.remove()
-        self._handles = []
+        for mod in self._wrapped:
+            del mod.attend
+        self._handles, self._wrapped = [], []
 
 
 def _detach(out):

@@ -14,6 +14,10 @@ framework has to import the other. Layout rules:
     copied as they are: flax keeps the biased batch variance in ``var``
     and torch the unbiased one in ``running_var``, so running statistics
     accumulated by the two frameworks differ by ``n/(n-1)`` per update;
+  - LayerNorm ``scale``/``bias`` (no batch stats) -> ``weight``/``bias``;
+  - a parameter a module declares itself (``self.param``; e.g. the
+    Transformer LM's top-level ``pos_embed``) keeps its name under the
+    module's path;
   - a conv A factor's basis ``(kh, kw, c)`` -> ``(c, kh, kw)``
     (:func:`conv_a_perm`); G factors and Linear factors need no change.
 """
@@ -43,10 +47,14 @@ def flax_to_torch(params: dict, batch_stats: dict | None = None
     for path, leaves in _walk(params):
         name = '.'.join(path)
         t = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa
+        if not path or not {'embedding', 'scale', 'kernel'} & set(leaves):
+            for leaf, value in leaves.items():        # own parameters
+                out['.'.join((*path, leaf))] = t(value)
+            continue
         if 'embedding' in leaves:                     # Embed
             out[f'{name}.weight'] = t(leaves['embedding'])
             continue
-        if 'scale' in leaves:                         # BatchNorm
+        if 'scale' in leaves:                         # BatchNorm, LayerNorm
             out[f'{name}.weight'] = t(leaves['scale'])
             out[f'{name}.bias'] = t(leaves['bias'])
             if path in stats:
@@ -72,6 +80,9 @@ def torch_to_flax(state_dict: dict, embeddings=()) -> tuple[dict, dict]:
 
     ``embeddings`` names the ``nn.Embedding`` modules: a state dict alone
     does not tell an embedding table from a bias-free Dense weight.
+    A top-level name such as ``pos_embed`` is a parameter the model
+    declares itself, kept as it is.
+    A 1-D ``weight`` without running statistics is a LayerNorm scale.
     """
     params: dict = {}
     stats: dict = {}
@@ -81,7 +92,13 @@ def torch_to_flax(state_dict: dict, embeddings=()) -> tuple[dict, dict]:
             tree = tree.setdefault(part, {})
         tree[key] = value
 
-    names = sorted({k.rsplit('.', 1)[0] for k in state_dict})
+    own = {k for k in state_dict if '.' not in k}
+    for key in own:
+        *path, leaf = key.split('.')
+        put(params, tuple(path), leaf,
+            state_dict[key].detach().cpu().numpy())
+    names = sorted({k.rsplit('.', 1)[0] for k in state_dict
+                    if k not in own})
     for name in names:
         path = tuple(name.split('.'))
         leaf = lambda k: state_dict[f'{name}.{k}'].detach().cpu().numpy()  # noqa
@@ -95,11 +112,25 @@ def torch_to_flax(state_dict: dict, embeddings=()) -> tuple[dict, dict]:
         if name in embeddings:
             put(params, path, 'embedding', w)
             continue
+        if w.ndim == 1:                               # LayerNorm
+            put(params, path, 'scale', w)
+            put(params, path, 'bias', leaf('bias'))
+            continue
         put(params, path, 'kernel',
             w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.T)
         if f'{name}.bias' in state_dict:
             put(params, path, 'bias', leaf('bias'))
     return params, stats
+
+
+def load_flax_params(model: torch.nn.Module, params: dict,
+                     batch_stats: dict | None = None) -> torch.nn.Module:
+    """Load flax ``params`` (+ ``batch_stats``) into the port's twin of
+    the flax model, every parameter and buffer matched by name
+    (``strict``): e.g. a JAX ``TransformerLM``'s parameters, tied or
+    untied, into :class:`models.transformer_lm.TransformerLM`."""
+    model.load_state_dict(flax_to_torch(params, batch_stats))
+    return model
 
 
 def conv_a_perm(kernel_size, cin: int, has_bias: bool = False

@@ -2,8 +2,8 @@
 ``distributed_kfac_pytorch_tpu/models/lstm_lm.py``).
 
 Embedding -> dropout -> K-FAC-friendly LSTM stack -> dropout -> decoder.
-With ``tie_weights`` there is no decoder: the logits are ``x @
-embed.weight.T`` with no bias, as flax's ``Embed.attend``. Submodule names
+With ``tie_weights`` there is no decoder: the logits are
+``embed.attend(x)``, ``x E^T`` with no bias, as flax's ``Embed.attend``. Submodule names
 match the flax model (``embed``, ``lstm``, ``decoder``).
 """
 
@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from distributed_kfac_pytorch_tpu_torch.modules.embed import Embed
 from distributed_kfac_pytorch_tpu_torch.modules.lstm import LSTM, dense, \
     dropout
 
@@ -34,9 +35,7 @@ class LSTMLanguageModel(nn.Module):
                              f'{hidden_dim}')
         self.dropout = dropout
         self.tie_weights = tie_weights
-        self.embed = nn.Embedding(vocab_size, embedding_dim)
-        # flax's Embed default: a normal of variance 1 / embedding_dim.
-        nn.init.normal_(self.embed.weight, std=embedding_dim ** -0.5)
+        self.embed = Embed(vocab_size, embedding_dim)
         self.lstm = LSTM(embedding_dim, hidden_dim, num_layers=num_layers,
                          dropout=dropout, kfac_cell=kfac_cell)
         if not tie_weights:
@@ -50,7 +49,7 @@ class LSTMLanguageModel(nn.Module):
                               dropout_generator=dropout_generator)
         x = dropout(x, self.dropout, self.training, dropout_generator)
         if self.tie_weights:
-            logits = x @ self.embed.weight.T
+            logits = self.embed.attend(x)
         else:
             logits = self.decoder(x)
         return logits, states

@@ -50,8 +50,9 @@ def get_cov(a: torch.Tensor, b: torch.Tensor | None = None,
 
 def update_running_avg(new: torch.Tensor, current: torch.Tensor,
                        alpha: float) -> torch.Tensor:
-    """EWMA ``alpha * current + (1 - alpha) * new`` (returns a new tensor)."""
-    return alpha * current + (1.0 - alpha) * new
+    """EWMA ``alpha * current + (1 - alpha) * new`` (returns a new tensor),
+    rounded as K1's fused blend (:func:`kernels.ema_blend`)."""
+    return kernels.ema_blend(current, new, alpha)
 
 
 def collapse_batch_dims(x: torch.Tensor) -> torch.Tensor:
@@ -80,6 +81,34 @@ def linear_g_factor(g: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     return get_cov(collapse_batch_dims(g), compute_dtype=compute_dtype)
 
 
+def _reduce_shared_axes(x: torch.Tensor, mean: bool) -> torch.Tensor:
+    """``(B, *, d)`` reduced over the middle (shared) axes to fp32 ``(B,
+    d)`` rows: their mean with ``mean``, else their sum. A 2-D ``x`` is
+    returned as fp32 rows."""
+    if x.ndim <= 2:
+        return x.float()
+    x3 = x.reshape(x.shape[0], -1, x.shape[-1]).float()
+    out = x3.sum(1)
+    return out / x3.shape[1] if mean else out
+
+
+def linear_a_factor_reduced(a: torch.Tensor, has_bias: bool,
+                            compute_dtype=None) -> torch.Tensor:
+    """KFAC-reduce A of a weight-shared dense layer: ``a`` is ``(B, T...,
+    d)``, MEAN-reduced over the shared axes before the covariance, which
+    then runs over the ``B`` rows (the bias column stays exactly 1)."""
+    return linear_a_factor(_reduce_shared_axes(a, mean=True), has_bias,
+                           compute_dtype=compute_dtype)
+
+
+def linear_g_factor_reduced(g: torch.Tensor,
+                            compute_dtype=None) -> torch.Tensor:
+    """KFAC-reduce G of a weight-shared dense layer: output-grads SUMMED
+    over the shared axes, then their covariance over the ``B`` rows."""
+    return linear_g_factor(_reduce_shared_axes(g, mean=False),
+                           compute_dtype=compute_dtype)
+
+
 def conv2d_a_factor(a: torch.Tensor, kernel_size, strides, padding,
                     has_bias: bool, compute_dtype=None) -> torch.Tensor:
     """A factor for conv2d from an NCHW input: the covariance of the
@@ -105,6 +134,47 @@ def conv2d_g_factor(g: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     g2 = g.permute(0, 2, 3, 1).reshape(-1, c)
     return get_cov(g2, scale=g2.shape[0] * spatial * spatial,
                    compute_dtype=compute_dtype)
+
+
+def conv2d_a_factor_reduced(a: torch.Tensor, kernel_size, strides,
+                            padding, has_bias: bool,
+                            compute_dtype=None) -> torch.Tensor:
+    """KFAC-reduce A of a patch-embedding conv (NCHW input): the patch
+    rows MEAN-reduced over the ``(OH, OW)`` grid, then the plain
+    covariance over the ``B`` reduced rows (not the expand path's
+    ``1/spatial^2`` convention), in the ``(c, kh, kw)`` basis."""
+    patches = kernels.extract_conv2d_patches(a, kernel_size, strides,
+                                             padding)
+    rows = patches.reshape(a.shape[0], -1, patches.shape[-1])
+    return linear_a_factor(_reduce_shared_axes(rows, mean=True), has_bias,
+                           compute_dtype=compute_dtype)
+
+
+def conv2d_g_factor_reduced(g: torch.Tensor,
+                            compute_dtype=None) -> torch.Tensor:
+    """KFAC-reduce G of a patch-embedding conv: NCHW output-grads summed
+    over the ``(H, W)`` grid, covariance over the ``B`` rows."""
+    b, c = g.shape[:2]
+    return linear_g_factor(g.float().reshape(b, c, -1).sum(-1),
+                           compute_dtype=compute_dtype)
+
+
+def embedding_a_factor(ids: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """Diagonal A of an embedding layer, as a ``(vocab_size,)`` vector:
+    the frequency of each id among the looked-up ids (the diagonal of
+    ``E[onehot onehot^T]``). Ids outside the vocabulary count nowhere."""
+    ids = ids.reshape(-1)
+    counts = torch.bincount(ids, minlength=vocab_size)[:vocab_size]
+    return counts.float() / ids.shape[0]
+
+
+def embedding_tied_a_diag(g: torch.Tensor) -> torch.Tensor:
+    """Vocab-side diagonal of a tied attend site: ``E[g_v^2]`` of the
+    output-grads of the logits ``x E^T`` per vocabulary entry (the
+    diagonal of their covariance), which keeps the tied embedding's A
+    diagonal."""
+    g2 = collapse_batch_dims(g).float()
+    return (g2 * g2).sum(0) / g2.shape[0]
 
 
 def pack_symmetric(m: torch.Tensor) -> torch.Tensor:

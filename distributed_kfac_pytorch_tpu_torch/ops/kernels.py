@@ -53,6 +53,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from distributed_kfac_pytorch_tpu_torch.ops import linalg
@@ -189,6 +190,21 @@ def _assemble_bias_factor(cov: torch.Tensor, bias_col: torch.Tensor,
     return out
 
 
+def ema_new_weight(decay) -> float:
+    """``1 - decay`` as K1's blend takes it: in fp32, from the fp32
+    ``decay``."""
+    return float(np.float32(1.0) - np.float32(decay))
+
+
+def ema_blend(old: torch.Tensor, new: torch.Tensor, decay) -> torch.Tensor:
+    """``decay * old + (1 - decay) * new`` rounded as K1's fused blend
+    rounds it on the card: ``decay * old`` rounded, then ``(1 - decay) *
+    new`` fused into the sum (``torch.add``'s ``alpha``, with
+    :func:`ema_new_weight`). Every EMA of the port takes this form, so the
+    separate EMA of a distributed step gives the fused kernel's bits."""
+    return torch.add(old * decay, new, alpha=ema_new_weight(decay))
+
+
 def _finish_gram(acc: torch.Tensor, colsum: torch.Tensor | None,
                  inv_scale: float, bias_scale: float, corner: float,
                  old: torch.Tensor | None, decay) -> torch.Tensor:
@@ -198,7 +214,7 @@ def _finish_gram(acc: torch.Tensor, colsum: torch.Tensor | None,
         cov = _assemble_bias_factor(cov, colsum * bias_scale, corner)
     if old is None:
         return cov
-    return decay * old.float() + (1.0 - decay) * cov
+    return ema_blend(old.float(), cov, decay)
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,7 @@ The Brent--Luk Jacobi eigh (:func:`jacobi_eigh`) is the plain version of
 the Jacobi kernel (``ops.kernels.batched_jacobi_eigh``, K5).
 
 Not ported yet: the randomized low-rank path and the truncated /
-diagonal-A / reduced-precision precondition branches.
+reduced-precision precondition branches.
 """
 
 from __future__ import annotations
@@ -299,6 +299,15 @@ def newton_schulz_inverse(x: torch.Tensor, damping=None, iters: int = 100,
     return (xk, k_run) if with_iters else xk
 
 
+def get_elementwise_inverse(v: torch.Tensor, damping=None) -> torch.Tensor:
+    """Reciprocal of each nonzero element of ``v + damping`` (zeros stay
+    zero): the inverse of a diagonal factor (embedding A)."""
+    if damping is not None:
+        v = v + damping
+    nonzero = v != 0.0
+    return torch.where(nonzero, 1.0 / torch.where(nonzero, v, 1.0), 0.0)
+
+
 def _require_square(q: torch.Tensor) -> None:
     if q.shape[-1] != q.shape[-2]:
         raise NotImplementedError(
@@ -323,6 +332,13 @@ def precondition_inv(grad: torch.Tensor, a_inv: torch.Tensor,
     return g_inv @ grad.float() @ a_inv
 
 
+def precondition_diag_a(grad: torch.Tensor, a_inv_diag: torch.Tensor,
+                        g_inv: torch.Tensor) -> torch.Tensor:
+    """Preconditioning with a diagonal A inverse (embedding layers):
+    ``(A_inv[:, None] * grad) @ G_inv`` for a ``(vocab, dim)`` gradient."""
+    return (a_inv_diag[:, None] * grad.float()) @ g_inv
+
+
 def eigen_side_inverse(q: torch.Tensor, d: torch.Tensor,
                        damping) -> torch.Tensor:
     """Damped inverse from an eigendecomposition:
@@ -332,11 +348,23 @@ def eigen_side_inverse(q: torch.Tensor, d: torch.Tensor,
     return (q * (1.0 / (d.float() + damping))[..., None, :]) @ q.mT
 
 
-def precondition_dispatch(grad: torch.Tensor, entry: dict,
-                          damping) -> torch.Tensor:
+def precondition_dispatch(grad: torch.Tensor, entry: dict, damping,
+                          diag_a: torch.Tensor | None = None
+                          ) -> torch.Tensor:
     """Per-layer preconditioning dispatched on the inverse slots present:
     both sides eigen (no baked inverse) -> :func:`precondition_eigen` with
-    the live damping; any baked inverse -> :func:`precondition_inv`."""
+    the live damping; any baked inverse -> :func:`precondition_inv`.
+
+    ``diag_a``: the diagonal A inverse of an embedding layer (damping
+    baked in); ``entry`` then supplies the G side, baked (``G_inv``,
+    :func:`precondition_diag_a`) or eigen (``diag_a[:, None] * ((grad QG)
+    / (dG + damping)) QG^T``)."""
+    if diag_a is not None:
+        if 'G_inv' in entry:
+            return precondition_diag_a(grad, diag_a, entry['G_inv'])
+        _require_square(entry['QG'])
+        v = (grad.float() @ entry['QG']) / (entry['dG'][None, :] + damping)
+        return diag_a[:, None] * (v @ entry['QG'].T)
     if 'A_inv' not in entry and 'G_inv' not in entry:
         return precondition_eigen(grad, entry['QA'], entry['QG'],
                                   entry['dA'], entry['dG'], damping)

@@ -51,6 +51,7 @@ import torch
 import torch.distributed as dist
 
 from distributed_kfac_pytorch_tpu_torch import layers as L
+from distributed_kfac_pytorch_tpu_torch.capture import EMBEDDING
 from distributed_kfac_pytorch_tpu_torch.ops import factors as F
 from distributed_kfac_pytorch_tpu_torch.ops import kernels, linalg
 from distributed_kfac_pytorch_tpu_torch.parallel.placement import (
@@ -290,6 +291,17 @@ class DistributedKFAC:
         if not dist.is_initialized():
             raise RuntimeError('DistributedKFAC needs an initialized process '
                                'group (launch.initialize_distributed)')
+        embeddings = [n for n, spec in kfac.specs.items()
+                      if spec.kind == EMBEDDING]
+        if embeddings:
+            raise NotImplementedError(
+                f'DistributedKFAC over embedding layers {embeddings} is not '
+                'ported yet (its placement and gathers have no diagonal '
+                'factor); leave them out with skip_layers')
+        if kfac.kfac_approx != 'expand':
+            raise NotImplementedError(
+                f'DistributedKFAC with kfac_approx={kfac.kfac_approx!r} is '
+                "not ported yet (only 'expand' is)")
         self.kfac = kfac
         self.capture = kfac.capture
         self.specs = kfac.specs
@@ -445,10 +457,11 @@ class DistributedKFAC:
         if packed:
             news = [F.unpack_symmetric(m, o.shape[-1])
                     for m, o in zip(news, olds)]
-        # F.update_running_avg, alpha * old + (1 - alpha) * new, over the
-        # whole list at once.
+        # F.update_running_avg over the whole list at once, rounded as
+        # kernels.ema_blend (so a one-rank world gives the single-device
+        # step's bits, K1's fused blend included).
         ema = torch._foreach_mul(olds, alpha)
-        torch._foreach_add_(ema, torch._foreach_mul(news, 1.0 - alpha))
+        torch._foreach_add_(ema, news, alpha=kernels.ema_new_weight(alpha))
         new_factors = {n: {} for n in self.specs}
         for (n, s), t in zip(keys, ema):
             new_factors[n][s] = t
@@ -634,9 +647,9 @@ class DistributedKFAC:
 
         The layer sets must match. Saved row stacks are used when they
         were written for this rank's row of the same grid, with the same
-        keys and shapes, and hold no all-zero basis; otherwise every rank
-        recomputes its inverses from the factors
-        (:meth:`recompute_inverses`).
+        keys and shapes, and every slot this rank decomposes holds a
+        nonzero basis; otherwise every rank recomputes its inverses from
+        the factors (:meth:`recompute_inverses`).
         """
         state = self.init_state()
         if set(sd['factors']) != set(state['factors']):
@@ -653,8 +666,7 @@ class DistributedKFAC:
                       and all(tuple(saved[d][k].shape) == tuple(t.shape)
                               for k, t in e.items())
                       for d, e in state['inv_stacks'].items()))
-        ok = ok and not any('Q' in e and not torch.any(e['Q'])
-                            for e in saved.values())
+        ok = ok and self._holds_bases(saved)
         # Every rank must take the same branch: recomputing is collective.
         flag = torch.tensor([0.0 if ok else 1.0], device=self.device)
         dist.all_reduce(flag)
@@ -664,6 +676,18 @@ class DistributedKFAC:
                                    for d, e in saved.items()}
             return state
         return self.recompute_inverses(state, damping=damping)
+
+    def _holds_bases(self, stacks: dict) -> bool:
+        """Whether every eigen slot this rank decomposes holds a nonzero
+        basis. Other slots of a row stack may be zero: padding, and the
+        slots of layers placed on other rows."""
+        for dim, cell in self._cells.items():
+            q = stacks[str(dim)].get('Q')
+            if cell and q is not None:
+                mine = q.to(self.device)[self._cell_idx[dim]].flatten(1)
+                if not bool(mine.any(dim=1).all()):
+                    return False
+        return True
 
     def recompute_inverses(self, state: dict, damping=None) -> dict:
         """Every rank's row stacks rebuilt from the current factors (a

@@ -32,6 +32,14 @@ baked damped inverses (``A_inv``/``G_inv``, damping applied at firing
 time, by damped Cholesky or Newton--Schulz). A *mixed* layer (one side
 of each kind) also bakes its eigen side at the firing's damping, and is
 preconditioned through its baked inverses.
+
+Embedding layers carry a diagonal A (a vector over the vocabulary, its
+inverse the elementwise one, damping baked at the firing) and a dense G
+under the per-dim dispatch; they are preconditioned one by one outside
+the buckets, their ``v.g`` inside the KL clip. ``kfac_approx`` (the
+weight-sharing approximation, ``sharing.approx``) and
+``tied_embeddings`` (the attend site of a tied in/out embedding feeds its
+one factor pair) follow the JAX ``KFAC``.
 """
 
 from __future__ import annotations
@@ -46,10 +54,11 @@ from torch import nn
 from distributed_kfac_pytorch_tpu_torch import resolve_device, \
     set_fp32_precision
 from distributed_kfac_pytorch_tpu_torch import layers as L
-from distributed_kfac_pytorch_tpu_torch.capture import CONV2D, LINEAR, \
-    KFACCapture
+from distributed_kfac_pytorch_tpu_torch.capture import CONV2D, EMBEDDING, \
+    KFAC_REDUCE, LINEAR, KFACCapture
 from distributed_kfac_pytorch_tpu_torch.ops import factors as F
 from distributed_kfac_pytorch_tpu_torch.ops import kernels, linalg
+from distributed_kfac_pytorch_tpu_torch.sharing import approx
 
 class CommMethod(enum.Enum):
     """Communication strategy of ``parallel.DistributedKFAC`` (the JAX
@@ -94,8 +103,6 @@ NOT_PORTED = {
     'deferred_factor_reduction': False,
     'hierarchical_reduce': False,
     'inv_staleness': 0,
-    'kfac_approx': 'expand',
-    'tied_embeddings': None,
     'trainable': None,
     'collect_metrics': False,
     'nonfinite_guard': False,
@@ -120,8 +127,9 @@ class KFAC:
     this port has not implemented are listed in :data:`NOT_PORTED`.
 
     Args:
-      model: the ``nn.Module`` to precondition; its ``nn.Linear`` and
-        ``nn.Conv2d`` (groups=1) layers are registered at construction.
+      model: the ``nn.Module`` to precondition; its ``nn.Linear``,
+        ``nn.Conv2d`` (groups=1) and ``nn.Embedding`` layers are
+        registered at construction.
       inverse_method: ``'auto'`` (default: the eigen path for factor
         dims <= ``auto_eigen_max_dim`` -- every CIFAR ResNet factor --
         and ``auto_large_method`` damped inverses above), ``'eigen'``
@@ -138,6 +146,16 @@ class KFAC:
         seeded from the previous basis), ``'xla'`` (``torch.linalg.eigh``
         every firing) or ``'jacobi'`` (the Brent--Luk Jacobi eigh kernel
         every firing, cold: the previous basis is not used).
+      kfac_approx: the weight-sharing approximation, ``'expand'``
+        (default), ``'reduce'`` (every sequence/patch-shared layer) or a
+        ``{pattern: approx}`` dict (``sharing.approx``). A Linear is
+        shared when its input has more than 2 dims, which the port reads
+        at the first recorded call: :attr:`specs` carry the resolved map
+        from the first factor update on.
+      tied_embeddings: capture the ``attend`` call of registered
+        ``Embed`` modules, so a tied in/out embedding's two uses feed its
+        one factor pair; None (default) turns it on exactly when
+        ``kfac_approx`` names 'reduce' somewhere.
       factor_compute_dtype: ``None``/``torch.float32`` (fp32
         multiplicands) or ``torch.bfloat16`` (bf16-rounded multiplicands);
         accumulation is fp32 either way.
@@ -172,6 +190,8 @@ class KFAC:
                  eigh_polish_iters: int = 8,
                  newton_iters: int = 100,
                  factor_compute_dtype: Any = None,
+                 kfac_approx: Any = 'expand',
+                 tied_embeddings: bool | None = None,
                  skip_layers: str | Sequence[str] | None = None,
                  fused_factor_contraction: bool = True,
                  fused_precondition: bool = True,
@@ -204,9 +224,19 @@ class KFAC:
         if assignment_strategy not in ('compute', 'memory'):
             raise ValueError("assignment_strategy must be 'compute' or "
                              f"'memory', got {assignment_strategy!r}")
+        if kfac_approx is None:
+            kfac_approx = 'expand'
+        if tied_embeddings is None:
+            named = (kfac_approx.values() if isinstance(kfac_approx, dict)
+                     else [kfac_approx])
+            tied_embeddings = any(v == 'reduce' for v in named)
+        self.kfac_approx = kfac_approx
+        self.tied_embeddings = bool(tied_embeddings)
         self.model = model
-        self.capture = KFACCapture(model, skip_layers=skip_layers)
-        self.specs = self.capture.specs
+        self.capture = KFACCapture(model, skip_layers=skip_layers,
+                                   tied_embeddings=self.tied_embeddings)
+        self.specs = approx.annotate_specs(self.capture.specs, kfac_approx)
+        self._specs_observed = False
         self.damping = damping
         self.factor_decay = factor_decay
         self.factor_update_freq = factor_update_freq
@@ -244,9 +274,34 @@ class KFAC:
                     else self.auto_large_method)
         return self.inverse_method
 
-    def _side_methods(self, a_dim: int, g_dim: int) -> tuple[str, str]:
-        """(A-side, G-side) inverse methods of one layer."""
-        return self.method_for_dim(a_dim), self.method_for_dim(g_dim)
+    def _side_methods(self, a_dim: int, g_dim: int, name: str
+                      ) -> tuple[str | None, str]:
+        """(A-side, G-side) inverse methods of layer ``name``; an
+        embedding's diagonal A has none."""
+        ma = (None if self.specs[name].kind == EMBEDDING
+              else self.method_for_dim(a_dim))
+        return ma, self.method_for_dim(g_dim)
+
+    def _is_mixed(self, methods) -> bool:
+        """One side eigen and the other baked (a diagonal A is neither)."""
+        ma, mg = methods
+        return ma is not None and eigen_family(ma) != eigen_family(mg)
+
+    def observe_specs(self) -> None:
+        """Resolve the specs against what the recorded calls showed (each
+        Linear's shared-axis positions, each embedding's tied calls):
+        once, at the first factor update; the 'reduce' policy needs the
+        former."""
+        if self._specs_observed:
+            return
+        self.specs.update(approx.annotate_specs(
+            self.capture.observed_specs(self.specs), self.kfac_approx))
+        self._specs_observed = True
+
+    def approx_summary(self) -> dict[str, str]:
+        """``{layer: approx}`` of the resolved specs (``sharing.approx.
+        approx_summary``)."""
+        return approx.approx_summary(self.specs)
 
     def _layer_params(self, name: str, tensors: dict) -> dict:
         """``{'weight', 'bias'}`` entries of one layer from a dict keyed by
@@ -257,11 +312,11 @@ class KFAC:
         return out
 
     def init_state(self) -> dict:
-        """Fresh state: identity factors; eigen slots seeded with their
-        exact eigendecomposition (``Q = I, d = 1``) so the warm polish has
-        a basis from step 0; baked slots (non-eigen sides, and the eigen
-        side of a mixed layer) zero, computed at step 0 before first
-        use."""
+        """Fresh state: identity factors (an embedding's diagonal A: ones);
+        eigen slots seeded with their exact eigendecomposition (``Q = I, d
+        = 1``) so the warm polish has a basis from step 0; baked slots
+        (non-eigen sides, the eigen side of a mixed layer, an embedding's
+        diagonal ``A_inv``) zero, computed at step 0 before first use."""
         params = dict(self.model.named_parameters())
         dev = self.device
         factors, inverses = {}, {}
@@ -269,10 +324,16 @@ class KFAC:
             dims = dict(zip('AG', L.factor_shapes(
                 spec, self._layer_params(name, params))))
             methods = dict(zip('AG', self._side_methods(dims['A'],
-                                                        dims['G'])))
-            mixed = eigen_family(methods['A']) != eigen_family(methods['G'])
+                                                        dims['G'], name)))
+            mixed = self._is_mixed(methods.values())
             factors[name], entry = {}, {}
             for side, dim in dims.items():
+                if methods[side] is None:
+                    factors[name][side] = torch.ones(
+                        dim, dtype=torch.float32, device=dev)
+                    entry[f'{side}_inv'] = torch.zeros(
+                        dim, dtype=torch.float32, device=dev)
+                    continue
                 eye = torch.eye(dim, dtype=torch.float32, device=dev)
                 factors[name][side] = eye
                 if eigen_family(methods[side]):
@@ -292,18 +353,29 @@ class KFAC:
     def fused_factor_inputs(self, spec, entry: dict) -> dict:
         """``{side: (x, scale, has_bias)}`` for the sides of one layer that
         the factor contraction + EMA kernel computes: single-call dense A
-        and G, and single-call conv G (read in place as ``(B*H*W, C)``).
-        Conv A has its own patch-covariance kernel; multi-call layers run
-        the stock sum of per-call factors."""
+        and G (under 'reduce' their ``(B, d)`` reduced rows), single-call
+        conv G (read in place as ``(B*H*W, C)``) and an untied embedding's
+        single-call G. Conv A has its own patch-covariance kernel; a
+        reduced conv, an embedding's A, a tied embedding's G and
+        multi-call layers run the stock sum of per-call factors."""
         out = {}
         if spec.kind == LINEAR:
+            reduced = spec.kfac_approx == KFAC_REDUCE
             if len(entry['a']) == 1:
-                out['A'] = (F.collapse_batch_dims(entry['a'][0]), None,
+                a = entry['a'][0]
+                out['A'] = (F._reduce_shared_axes(a, mean=True) if reduced
+                            else F.collapse_batch_dims(a), None,
                             spec.has_bias)
             if len(entry['g']) == 1:
+                g = entry['g'][0]
+                out['G'] = (F._reduce_shared_axes(g, mean=False) if reduced
+                            else F.collapse_batch_dims(g), None, False)
+        elif spec.kind == EMBEDDING:
+            if len(entry['g']) == 1 and not entry.get('g_tied'):
                 out['G'] = (F.collapse_batch_dims(entry['g'][0]), None,
                             False)
-        elif spec.kind == CONV2D and len(entry['g']) == 1:
+        elif spec.kind == CONV2D and len(entry['g']) == 1 \
+                and spec.kfac_approx != KFAC_REDUCE:
             g = entry['g'][0]
             b, _, h, w = g.shape
             out['G'] = (g, float(b * h * w) * (h * w) ** 2, False)
@@ -314,13 +386,15 @@ class KFAC:
         """EWMA-update every factor from one batch's captures: the sides
         :meth:`fused_factor_inputs` names run the factor contraction + EMA
         kernel (with ``fused_factor_contraction``), the rest the stock
-        per-call factors + :func:`F.update_running_avg`."""
+        per-call factors (a tied embedding's attend-site terms added) +
+        :func:`F.update_running_avg`."""
         alpha = self.factor_decay if factor_decay is None else factor_decay
         missing = [n for n in self.specs if n not in captures]
         if missing:
             raise ValueError(f'no captures for registered layers {missing} '
                              '(capture with intercept=True on factor '
                              'steps)')
+        self.observe_specs()
         cdt = self.factor_compute_dtype
         new_factors = {}
         for name, spec in self.specs.items():
@@ -328,20 +402,30 @@ class KFAC:
             fused = (self.fused_factor_inputs(spec, entry)
                      if self.fused_factor_contraction else {})
             res = {}
-            for side, compute, calls in (
-                    ('A', L.compute_a_factor, entry['a']),
-                    ('G', L.compute_g_factor, entry['g'])):
-                if side in fused:
-                    x, scale, has_bias = fused[side]
-                    res[side] = kernels.factor_ema(
-                        x, old[side], alpha, scale=scale,
-                        has_bias=has_bias, compute_dtype=cdt)
-                else:
-                    res[side] = F.update_running_avg(
-                        compute(spec, calls, compute_dtype=cdt), old[side],
-                        alpha)
-            new_factors[name] = res
+            for side, new in self.stock_contribs(spec, entry, fused).items():
+                res[side] = F.update_running_avg(new, old[side], alpha)
+            for side, (x, scale, has_bias) in fused.items():
+                res[side] = kernels.factor_ema(
+                    x, old[side], alpha, scale=scale, has_bias=has_bias,
+                    compute_dtype=cdt)
+            new_factors[name] = {side: res[side] for side in 'AG'}
         return new_factors
+
+    def stock_contribs(self, spec, entry: dict, skip=()) -> dict:
+        """One batch's contribution to each side of one layer not in
+        ``skip``: the per-call factors summed, plus a tied embedding's
+        attend-site terms (``layers.compute_tied_factor_extras``)."""
+        cdt = self.factor_compute_dtype
+        extras = L.compute_tied_factor_extras(spec, entry, compute_dtype=cdt)
+        out = {}
+        for side, compute, calls, extra in (
+                ('A', L.compute_a_factor, entry['a'], 'A_g2'),
+                ('G', L.compute_g_factor, entry['g'], 'G_a')):
+            if side in skip:
+                continue
+            new = compute(spec, calls, compute_dtype=cdt)
+            out[side] = new if extras is None else new + extras[extra]
+        return out
 
     # ------------------------------------------------------------------
     # Inverse update (monolithic firing)
@@ -396,9 +480,11 @@ class KFAC:
         for name in self.specs:
             f = state['factors'][name]
             sides[name] = self._side_methods(f['A'].shape[-1],
-                                             f['G'].shape[-1])
+                                             f['G'].shape[-1], name)
             for side, method in zip('AG', sides[name]):
                 key = f'{name}/{side}'
+                if method is None:
+                    continue
                 if eigen_family(method):
                     eigen_mats[key] = f[side]
                     prev[key] = state['inverses'][name][f'Q{side}']
@@ -408,12 +494,14 @@ class KFAC:
         invs = self._bucketed_inverse(inv_mats, damping)
         new_inv = {}
         for name in self.specs:
-            mixed = eigen_family(sides[name][0]) != eigen_family(
-                sides[name][1])
+            mixed = self._is_mixed(sides[name])
             entry = {}
             for side, method in zip('AG', sides[name]):
                 key = f'{name}/{side}'
-                if eigen_family(method):
+                if method is None:
+                    entry[f'{side}_inv'] = linalg.get_elementwise_inverse(
+                        state['factors'][name][side].float(), damping)
+                elif eigen_family(method):
                     q, d = eigs[key]
                     entry[f'Q{side}'] = q
                     entry[f'd{side}'] = d
@@ -438,10 +526,12 @@ class KFAC:
         inverses): the per-dim method depends on the factor dims alone.
         Returns ``(mats, vg)``: the preconditioned matrix per layer and,
         for the stacks the kernel ran, its per-layer ``sum(v * g)``.
+        Embeddings (a diagonal A) are left to the caller.
         """
         groups: dict[tuple, list[str]] = {}
         for name, mat in grad_mats.items():
-            groups.setdefault(tuple(mat.shape), []).append(name)
+            if self.specs[name].kind != EMBEDDING:
+                groups.setdefault(tuple(mat.shape), []).append(name)
         mats, vg = {}, {}
         for members in groups.values():
             gstack = torch.stack([grad_mats[n].float() for n in members])
@@ -469,6 +559,11 @@ class KFAC:
             for name, spec in self.specs.items()}
         precond_mats, fused_vg = self._bucketed_precond_mats(
             state['inverses'], grad_mats, damping)
+        for name, spec in self.specs.items():
+            if spec.kind == EMBEDDING:
+                inv = state['inverses'][name]
+                precond_mats[name] = linalg.precondition_dispatch(
+                    grad_mats[name], inv, damping, diag_a=inv['A_inv'])
         if self.kl_clip is not None:
             # Registration order, like the JAX package's summation.
             vg_sum = torch.zeros((), dtype=torch.float32,

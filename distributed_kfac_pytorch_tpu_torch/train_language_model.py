@@ -1,19 +1,29 @@
-"""Train an LSTM language model with single-device K-FAC + SGD (PyTorch port
-of ``examples/train_language_model.py``, ``--arch lstm``).
+"""Train a language model with single-device K-FAC + SGD (PyTorch port of
+``examples/train_language_model.py``): the LSTM (``--arch lstm``) or the
+decoder-only Transformer (``--arch transformer``).
 
     python -m distributed_kfac_pytorch_tpu_torch.train_language_model \
         --inverse-method eigen --eigh-method jacobi
+    python -m distributed_kfac_pytorch_tpu_torch.train_language_model \
+        --arch transformer --emsize 1024 --nlayers 18 --nheads 16 \
+        --tied --bptt 1024 --batch-size 4 --kfac-approx reduce
 
 Flags keep the JAX CLI's names and defaults for what the port supports:
-the PTB "medium" LSTM (650-wide embedding and hidden, 2 layers, the
-8-gate K-FAC cell), BPTT 35, batch 20, dropout 0.5, global-norm gradient
-clip 0.25, lr 1.0 decayed at epochs 20/30, momentum 0.9, damping 0.003,
-KL clip 0.001, stat decay 0.95, inverses every 10 steps and factors every
-step; K-FAC preconditions the LSTM gates, with ``embed`` and ``decoder``
-skipped by default. Each BPTT window starts from zero states, as the JAX
-CLI calls the model with ids only. The data is whitespace-tokenized
-``train.txt`` / ``valid.txt`` under ``--data-dir``, else the JAX
-package's synthetic Markov corpus.
+the PTB "medium" widths (650-wide embedding and hidden, 2 layers; the
+LSTM's 8-gate K-FAC cell, or for the Transformer ``--emsize`` wide blocks
+with ``--nheads`` heads and a 4x MLP), BPTT 35, batch 20, dropout 0.5,
+global-norm gradient clip 0.25, lr 1.0 decayed at epochs 20/30, momentum
+0.9, damping 0.003, KL clip 0.001, stat decay 0.95, inverses every 10
+steps and factors every step. K-FAC skips ``embed`` and ``decoder`` by
+default under the LSTM and nothing under the Transformer, whose embedding
+(a diagonal A over the vocabulary) and untied decoder are then
+preconditioned too; ``--kfac-approx reduce`` takes the KFAC-reduce
+statistics for every sequence-shared Linear and, with ``--tied``, the
+tied attend site's statistics into the embedding's factors. The
+Transformer's ``max_len`` is ``max(bptt, 16)``. Each BPTT window starts
+from zero states, as the JAX CLI calls the model with ids only. The data
+is whitespace-tokenized ``train.txt`` / ``valid.txt`` under
+``--data-dir``, else the JAX package's synthetic Markov corpus.
 
 Port-only flags: ``--device`` (default ``cuda``; ``cpu`` must be asked
 for), ``--synthetic-size`` and ``--synthetic-vocab`` (train tokens and
@@ -23,10 +33,10 @@ vocabulary of the synthetic corpus; the JAX defaults 200000 and 1000),
 record its wall time) and ``--quiet``.
 
 The JAX CLI wraps ``KFAC`` in a one-device ``DistributedKFAC``; here the
-single-device ``KFAC`` runs directly. Not ported yet: ``--arch
-transformer`` (raises), embedding-layer K-FAC (an unskipped embedding
-raises; ``--tied`` runs with the shared table skipped), the LR warmup
-(``--warmup-epochs``, flat on one device), sequence parallelism,
+single-device ``KFAC`` runs directly. Not ported yet (a set flag raises by
+name): sequence parallelism (``--seq-parallel``) and the chunked
+attention fold (``--attn-block-size``). Also not ported: the LR warmup
+(``--warmup-epochs``, flat on one device), a process group,
 multi-slice meshes, checkpointing and resume, metrics sinks and
 profiling, fp16 / bf16 modes, autotune and the K-FAC knobs listed in
 ``preconditioner.NOT_PORTED``.
@@ -43,24 +53,26 @@ import torch
 
 from distributed_kfac_pytorch_tpu_torch import resolve_device, \
     set_fp32_precision
-from distributed_kfac_pytorch_tpu_torch.models import lstm_lm
+from distributed_kfac_pytorch_tpu_torch.models import lstm_lm, \
+    transformer_lm
 from distributed_kfac_pytorch_tpu_torch.training import datasets, engine, \
     optimizers
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description='LSTM language model + single-device K-FAC (torch '
-                    'port)')
+        description='Language model (LSTM or Transformer) + '
+                    'single-device K-FAC (torch port)')
     p.add_argument('--data-dir', default=None,
                    help='dir with train.txt/valid.txt (synthetic if '
                         'absent)')
     p.add_argument('--arch', default='lstm',
-                   choices=['lstm', 'transformer'],
-                   help='transformer is not ported yet (raises)')
+                   choices=['lstm', 'transformer'])
     p.add_argument('--emsize', type=int, default=650)
     p.add_argument('--nhid', type=int, default=650)
     p.add_argument('--nlayers', type=int, default=2)
+    p.add_argument('--nheads', type=int, default=10,
+                   help='attention heads (transformer)')
     p.add_argument('--dropout', type=float, default=0.5)
     p.add_argument('--tied', action='store_true')
     p.add_argument('--bptt', type=int, default=35)
@@ -73,6 +85,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--grad-clip', type=float, default=0.25,
                    help='global-norm clip of every update (0 = off)')
     p.add_argument('--seed', type=int, default=42)
+    p.add_argument('--seq-parallel', type=int, default=1,
+                   help='not ported (raises unless 1)')
+    p.add_argument('--attn-block-size', type=int, default=None,
+                   help='not ported (raises if set)')
     p.add_argument('--kfac-update-freq', type=int, default=10,
                    help='inverse update interval; 0 disables K-FAC')
     p.add_argument('--kfac-cov-update-freq', type=int, default=1)
@@ -89,9 +105,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--stat-decay', type=float, default=0.95)
     p.add_argument('--damping', type=float, default=0.003)
     p.add_argument('--kl-clip', type=float, default=0.001)
+    p.add_argument('--kfac-approx', default='expand',
+                   choices=['expand', 'reduce'],
+                   help='weight-sharing approximation: expand flattens '
+                        'the sequence axis into covariance rows; reduce '
+                        'averages activations / sums grads over it first '
+                        '(and captures the tied attend site)')
     p.add_argument('--skip-layers', nargs='+', default=None,
-                   help="default: ['embed', 'decoder'] (K-FAC on the "
-                        'LSTM gates only)')
+                   help="default: ['embed', 'decoder'] for lstm (K-FAC on "
+                        'the gates only), [] for transformer')
     # Port-only flags.
     p.add_argument('--device', default='cuda')
     p.add_argument('--synthetic-size', type=int, default=200_000)
@@ -118,23 +140,17 @@ def train(args_or_config=None, device='cuda') -> dict:
     ``ops.kernels.LAUNCHES``.
     """
     args = engine.parse_args(build_parser(), args_or_config)
-    if args.arch != 'lstm':
-        raise NotImplementedError(
-            f'--arch {args.arch}: the Transformer LM is not ported yet')
+    engine.check_unported(args)
     dev = resolve_device(device if device is not None else args.device)
     set_fp32_precision()
     train_ids, val_ids, vocab = datasets.get_lm_corpus(
         args.data_dir, synthetic_size=args.synthetic_size,
         vocab_size=args.synthetic_vocab)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(args.seed)
-        model = lstm_lm.LSTMLanguageModel(
-            vocab, embedding_dim=args.emsize, hidden_dim=args.nhid,
-            num_layers=args.nlayers, dropout=args.dropout,
-            tie_weights=args.tied)
-    model = model.to(dev)
-    skip = (['embed', 'decoder'] if args.skip_layers is None
-            else args.skip_layers)
+    model = build_model(args, vocab, dev)
+    if args.skip_layers is not None:
+        skip = args.skip_layers
+    else:
+        skip = ['embed', 'decoder'] if args.arch == 'lstm' else []
     cfg = optimizers.OptimConfig(
         base_lr=args.base_lr, momentum=args.momentum,
         weight_decay=args.wd, lr_decay=args.lr_decay,
@@ -143,7 +159,8 @@ def train(args_or_config=None, device='cuda') -> dict:
         damping=args.damping, factor_decay=args.stat_decay,
         kl_clip=args.kl_clip, inverse_method=args.inverse_method,
         eigh_method=args.eigh_method,
-        eigh_polish_iters=args.eigh_polish_iters, skip_layers=skip)
+        eigh_polish_iters=args.eigh_polish_iters,
+        kfac_approx=args.kfac_approx, skip_layers=skip)
     optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
         model, cfg, device=dev)
     state = engine.TrainState(
@@ -158,6 +175,29 @@ def train(args_or_config=None, device='cuda') -> dict:
         device=dev, grad_clip=args.grad_clip, generator=generator,
         fixed_batch=args.fixed_batch, max_steps=args.max_steps,
         time_steps=args.time_steps, verbose=not args.quiet)
+
+
+def build_model(args: argparse.Namespace, vocab: int,
+                device) -> torch.nn.Module:
+    """The ``--arch`` model from ``--seed``, on ``device``: its weights
+    are drawn there (the LSTM's on the CPU, then moved), so a
+    Transformer at full width never passes through host memory."""
+    device = torch.device(device)
+    if args.arch == 'lstm':
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(args.seed)
+            model = lstm_lm.LSTMLanguageModel(
+                vocab, embedding_dim=args.emsize, hidden_dim=args.nhid,
+                num_layers=args.nlayers, dropout=args.dropout,
+                tie_weights=args.tied)
+        return model.to(device)
+    cuda = [device] if device.type == 'cuda' else []
+    with torch.random.fork_rng(devices=cuda), device:
+        torch.manual_seed(args.seed)
+        return transformer_lm.TransformerLM(
+            vocab, d_model=args.emsize, num_layers=args.nlayers,
+            num_heads=args.nheads, max_len=max(args.bptt, 16),
+            dropout=args.dropout, tie_weights=args.tied)
 
 
 def main(argv=None) -> int:

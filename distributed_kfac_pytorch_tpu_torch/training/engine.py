@@ -250,12 +250,18 @@ def add_distributed_args(p: argparse.ArgumentParser) -> None:
                    help='not ported (raises)')
 
 
+#: CLI flags of the JAX CLIs the port does not run yet, with their "off"
+#: value: the image CLIs' data-parallel extras and the LM CLI's sequence
+#: parallelism and chunked attention.
+UNPORTED_FLAGS = (('grad_accum', 1), ('num_slices', 1), ('fp16', False),
+                  ('seq_parallel', 1), ('attn_block_size', None))
+
+
 def check_unported(args: argparse.Namespace) -> None:
     """Raise ``NotImplementedError`` naming any unported flag that is
-    set."""
-    for flag, off in (('grad_accum', 1), ('num_slices', 1),
-                      ('fp16', False)):
-        if getattr(args, flag) != off:
+    set (flags the CLI does not have are skipped)."""
+    for flag, off in UNPORTED_FLAGS:
+        if getattr(args, flag, off) != off:
             raise NotImplementedError(
                 f'--{flag.replace("_", "-")} is not ported to torch yet')
 
@@ -336,8 +342,9 @@ def evaluate(model: torch.nn.Module, batches: Iterable, *, device,
 
 def lm_loss(out, targets: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross entropy over every ``(batch, time)`` position of
-    an LM's ``(logits, states)`` output."""
-    logits = out[0]
+    an LM's output: the LSTM's ``(logits, states)`` or the Transformer's
+    bare logits tensor."""
+    logits = out if isinstance(out, torch.Tensor) else out[0]
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            targets.reshape(-1))
 

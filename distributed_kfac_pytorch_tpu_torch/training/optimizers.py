@@ -10,7 +10,7 @@ same order as the JAX package's optax chain (``add_decayed_weights`` ->
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Any, Sequence
 
 import torch
 
@@ -56,6 +56,7 @@ class OptimConfig:
     # The port's hot-path kernels are on by default (see KFAC).
     fused_factor_contraction: bool = True
     fused_precondition: bool = True
+    kfac_approx: Any = 'expand'       # 'expand' | 'reduce' | {pattern: ..}
     skip_layers: Sequence[str] = ()
     # Distribution (read by parallel.DistributedKFAC).
     comm_method: str = 'comm-opt'
@@ -102,6 +103,7 @@ def get_optimizer(model: torch.nn.Module, cfg: OptimConfig, device='cuda'):
             newton_iters=cfg.newton_iters,
             eigh_method=cfg.eigh_method,
             eigh_polish_iters=cfg.eigh_polish_iters,
+            kfac_approx=cfg.kfac_approx,
             skip_layers=list(cfg.skip_layers) or None,
             fused_factor_contraction=cfg.fused_factor_contraction,
             fused_precondition=cfg.fused_precondition,

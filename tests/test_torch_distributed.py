@@ -55,6 +55,11 @@ CASES = [
      dict(inverse_method='eigen', eigh_method='xla')),
 ]
 CASE_IDS = [c[0] for c in CASES]
+# Checkpoint round trips under the default eigh_method='auto' (the warm
+# polish), on grids with more than one row, in the 4-rank world:
+# (name, comm_method, grad_worker_fraction, grid).
+AUTO_CASES = [('mem_opt_auto', 'mem-opt', 0.0, (4, 1)),
+              ('hybrid_auto', 'hybrid-opt', 0.5, (2, 2))]
 WORLD_TIMEOUT = 240
 
 
@@ -181,6 +186,27 @@ def worker_main():
         if knobs.get('eigh_method') == 'xla':
             rec.update(_checkpoint_record(dk, box['state'], rank))
         out.update({f'{name}|{k}': v for k, v in rec.items()})
+    for name, comm, frac, _ in AUTO_CASES if cfg['world'] == 4 else ():
+        model = _model(params)
+        kfac = KFAC(model, device='cpu', inverse_method='eigen', **COMMON)
+        dk = DistributedKFAC(kfac, comm_method=comm,
+                             grad_worker_fraction=frac)
+        box = {'state': dk.init_state()}
+
+        def step_fn(grads, captures, inv_update, dk=dk, box=box):
+            grads = dict(zip(grads, engine.world_mean(list(grads.values()))))
+            precond, box['state'] = dk.step(box['state'], grads, captures,
+                                             factor_update=True,
+                                             inv_update=inv_update)
+            return precond, dk.last_nu, box['state']['factors']
+
+        _run(model, kfac, step_fn, x[local], y[local])
+        state = box['state']
+        loaded = dk.load_state_dict(dk.state_dict(state))
+        out[f'{name}|grid'] = np.asarray([dk.n_rows, dk.n_cols])
+        out[f'{name}|reload_err'] = np.asarray(max(
+            float((loaded['inv_stacks'][d][k] - t).abs().max())
+            for d, e in state['inv_stacks'].items() for k, t in e.items()))
     leaked = [m for m in sys.modules
               if m.split('.')[0] in ('jax', 'flax', 'optax')]
     out['jax_modules'] = np.asarray(len(leaked))
@@ -212,7 +238,8 @@ def _start_world(tmp: pathlib.Path, world: int, cases: list[str],
     out = tmp / f'world{world}'
     out.mkdir()
     cfg = json.dumps({'store': str(tmp / f'store{world}'),
-                      'data': str(data), 'out': str(out), 'cases': cases})
+                      'data': str(data), 'out': str(out), 'cases': cases,
+                      'world': world})
     code = (f'import sys; sys.path.insert(0, {str(HERE)!r}); '
             'import test_torch_distributed as t; t.worker_main()')
     procs = []
@@ -337,7 +364,8 @@ def runs(tmp_path_factory):
     finally:
         ranks = {w: _finish_world(p, tmp, w) for w, p in worlds.items()}
     dist = {}
-    for name, world, *_ in CASES:
+    for name, world in [c[:2] for c in CASES] + [(c[0], 4)
+                                                  for c in AUTO_CASES]:
         dist[name] = [{k.split('|', 1)[1]: v for k, v in r.items()
                        if k.startswith(name + '|')} for r in ranks[world]]
     leaked = sum(int(r['jax_modules']) for rs in ranks.values() for r in rs)
@@ -397,6 +425,18 @@ def test_checkpoint_round_trip(runs, name):
         assert bool(rec['reload_same']), r
         assert float(rec['reload_err']) == 0.0, r
         assert float(rec['rebuilt_err']) == 0.0, r
+
+
+@pytest.mark.parametrize('name', [c[0] for c in AUTO_CASES])
+def test_checkpoint_reuses_saved_stacks_under_auto(runs, name):
+    """Under the warm polish a reload on the same grid takes the saved
+    row stacks as they are, on every rank, although rows that own no slot
+    of a bucket saved an all-zero basis there (a recompute would run the
+    library eigh and move the bases)."""
+    grid = next(c[3] for c in AUTO_CASES if c[0] == name)
+    for r, rec in enumerate(runs['dist'][name]):
+        assert tuple(rec['grid']) == grid, r
+        assert float(rec['reload_err']) == 0.0, r
 
 
 @pytest.mark.parametrize('name', CASE_IDS)

@@ -166,7 +166,7 @@ def test_import_leaves_jax_unloaded():
 @pytest.mark.parametrize('knob,value', [
     ('inv_pipeline_chunks', 2), ('deferred_factor_reduction', True),
     ('inv_staleness', 1), ('inv_lowrank_rank', 16),
-    ('kfac_approx', 'reduce'), ('collect_metrics', True),
+    ('factor_batch_fraction', 0.5), ('collect_metrics', True),
     ('inv_dtype', torch.bfloat16), ('factor_dtype', torch.bfloat16),
     ('hierarchical_reduce', True), ('nonfinite_guard', True),
     ('inv_pipeline_costs', {64: 1.0})])

@@ -141,7 +141,7 @@ def test_resnet50_auto_inverse_slots_match_jax(resnet50):
     mixed = 0
     for name, spec in kfac.specs.items():
         a, g = L.factor_shapes(spec, kfac._layer_params(name, params))
-        methods = dict(zip('AG', kfac._side_methods(a, g)))
+        methods = dict(zip('AG', kfac._side_methods(a, g, name)))
         is_mixed = eigen_family(methods['A']) != eigen_family(methods['G'])
         mixed += is_mixed
         keys = set()

@@ -201,10 +201,26 @@ def test_capture_aligns_calls_over_the_unrolled_loop():
         assert not torch.equal(g_calls[0], g_calls[-1])
 
 
-def test_unskipped_embedding_raises():
+def test_unskipped_embedding_raises(tmp_path):
+    # Embedding K-FAC is ported: the capture registers the table (a
+    # diagonal A over the vocabulary); the distributed wrapper, which has
+    # no diagonal factor yet, raises by name.
+    import torch.distributed as dist
+
+    from distributed_kfac_pytorch_tpu_torch.parallel.distributed import \
+        DistributedKFAC
+    from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
     model = lstm_lm.LSTMLanguageModel(20, 6, 6, num_layers=1)
-    with pytest.raises(NotImplementedError, match='embedding'):
-        KFACCapture(model, skip_layers=['decoder'])
+    spec = KFACCapture(model, skip_layers=['decoder']).specs['embed']
+    assert (spec.kind, spec.vocab_size) == ('embedding', 20)
+    dist.init_process_group('gloo', init_method=f'file://{tmp_path}/s',
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(NotImplementedError, match='embedding'):
+            DistributedKFAC(KFAC(model, skip_layers=['decoder'],
+                                 device='cpu'))
+    finally:
+        dist.destroy_process_group()
     model.embed.weight.requires_grad_(False)        # frozen: plain skip
     cap = KFACCapture(model, skip_layers=['decoder'])
     assert 'embed' in cap.skipped_modules
