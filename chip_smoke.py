@@ -79,11 +79,11 @@ Phases (any failure exits nonzero and prints no result line):
      finite losses, no jacobi_eigh launch;
  11. ResNet-32 under ``--eigh-method jacobi``: 11 steps, finite losses,
      jacobi_eigh 9 per firing besides phase 5's per-step launches;
- 12. the result (printed after phases 13 and 14): a JSON line of
+ 12. the result (printed after phases 13-20): a JSON line of
      per-kernel numbers (K1-K3 per ResNet-50 step, K4 per ResNet-50
      firing, K5 per LSTM firing, and under ``transformer_xl`` K1 and K3
      per XL step and K4 per XL firing; launches summed over phases 5-7,
-     9-11 and 13-18), the card line, then ``{"ok": true, "device":
+     9-11 and 13-20), the card line, then ``{"ok": true, "device":
      {...}}`` as the last line;
  13. distributed, NCCL at world size 1: phase 6's ResNet-50 run through
      ``train_imagenet_resnet.train`` inside a one-rank NCCL group
@@ -137,7 +137,42 @@ Phases (any failure exits nonzero and prints no result line):
  18. the Transformer CLI's own defaults (650 wide, 2 blocks, 10 heads,
      untied, dropout 0.5, nothing skipped, decoder G 10,000 on the
      synthetic 10,000 vocabulary), 3 steps: finite losses, factor_ema 27
-     and bucket_precond 4 per step.
+     and bucket_precond 4 per step;
+ 19. distributed LM, NCCL at world size 1: phase 15's run through
+     ``train_language_model.train`` inside a one-rank NCCL group,
+     ``--comm-method comm-opt``, so K-FAC runs as
+     ``parallel.DistributedKFAC`` with the embedding's diagonal A; every
+     loss finite and falling and equal to phase 15's bit for bit (phase
+     13's looser rule is for cuDNN, which the XL path does not run),
+     phase 15's launches, step times beside phase 15's; then, in the same
+     group, shared inputs: one capture per step into both the
+     single-device ``KFAC`` and a ``DistributedKFAC`` wrapping it, 12
+     steps under ``expand`` (firings at 0 and 10) and 3 under ``reduce``
+     (tied statistics on), every step's factors (the embedding's diagonal
+     A too) and diagonal inverses (<= 1e-5), preconditioned gradients
+     (<= 1e-4; the embedding's printed on its own) and KL-clip scale
+     (<= 1e-5) held to the single-device ones, both K-FAC states on the
+     card at once (peak memory printed);
+ 20. distributed LM, gloo: 4 ranks (subprocesses, all on ``cuda:0``) train
+     the XL-width tied Transformer at 2 blocks (d 1024, 16 heads, MLP
+     4096, vocabulary 32,768, BPTT 1024) on one sequence each of phase
+     15's batch of 4, under COMM_OPT 1 x 4 ``expand``, MEM_OPT 4 x 1
+     ``reduce`` and HYBRID_OPT 2 x 2 ``reduce`` + ``newton`` +
+     ``symmetry_aware_comm``, 3 steps each, inverses every 2nd; rank 0
+     holds every step against the single-device ``KFAC`` on the full
+     batch (phase 19's tolerances; where a preconditioned gradient is
+     over 1e-4, the layer's whole ``[W | b]`` matrix is held at 1e-4 of
+     its largest entry to the fp64 recomputation of the distributed step,
+     from the factors of its last firing and the full batch's fp64
+     gradient: two fp32 Cholesky schedules part by ~1e-4 on a bias block
+     alone, see PERF.md); every rank's launches equal what its assignment
+     predicts (K1 on every dense side of its captures, K3 once per shape
+     group its row owns, K4 once per bucket it holds a slot of); then
+     the LM CLI itself on the 4 ranks, the LSTM at PTB-medium widths,
+     ``--comm-method hybrid-opt --grad-worker-fraction 0.5
+     --inverse-method eigen --eigh-method jacobi``, 3 steps: every rank's
+     losses identical, K5 per firing equal to the rank's buckets; step
+     times print labelled as gloo through host memory.
 
 ``--quick`` builds with ``-Xptxas -v`` and runs only the correctness
 checks of phases 3, 4 and 8 (a first call after a kernel change).
@@ -257,6 +292,13 @@ TLM_DEFAULT_PER_STEP = {'factor_ema': 27, 'patch_cov': 0,
                         'jacobi_eigh': 0}
 # (n, matrices) of each ResNet-50 factor size bucket: one K4 launch each
 # per firing under 'newton'.
+# Phase 19's shared-input check runs the XL model at XL_SHARED_LAYERS
+# blocks, 12 expand steps (firings at 0 and 10) and 3 reduce steps.
+XL_SHARED_LAYERS = XL_LAYERS
+XL_SHARED_EXPAND_STEPS, XL_SHARED_REDUCE_STEPS = XL_STEPS, 3
+# Phase 20: the XL width at 2 blocks on 4 gloo ranks (one sequence each),
+# 3 steps per case, inverses every 2nd.
+LM_GLOO_LAYERS, LM_GLOO_STEPS, LM_GLOO_INV_FREQ = 2, 3, 2
 R50_NS_BUCKETS = ((64, 12), (128, 12), (147, 1), (256, 26), (512, 19),
                   (576, 3), (1000, 1), (1024, 14), (1152, 4), (2048, 6),
                   (2049, 1), (2304, 6), (4608, 3))
@@ -1606,14 +1648,17 @@ def dist_worker(cfg: dict) -> int:
     return 1 if failures else 0
 
 
-def run_gloo_world(card: str) -> dict:
-    """Phase 14: GLOO_WORLD ranks on the one card over gloo, every case
-    of GLOO_CASES; fails if any rank fails."""
-    store = _fresh_store('gloo_world.store')
-    outs = [_fresh_store(f'gloo_rank{r}.json') for r in range(GLOO_WORLD)]
+def _run_gloo_ranks(phase: str) -> list:
+    """GLOO_WORLD ranks of ``phase`` (``'resnet32'``: :func:`dist_worker`,
+    ``'lm'``: :func:`lm_dist_worker`) on the one card, subprocesses of
+    this script; returns their reports, failing if any rank fails."""
+    store = _fresh_store(f'gloo_{phase}.store')
+    outs = [_fresh_store(f'gloo_{phase}_rank{r}.json')
+            for r in range(GLOO_WORLD)]
     procs = []
     for rank in range(GLOO_WORLD):
-        cfg = json.dumps({'store': str(store), 'out': str(outs[rank])})
+        cfg = json.dumps({'phase': phase, 'store': str(store),
+                          'out': str(outs[rank])})
         env = {**os.environ, 'RANK': str(rank),
                'WORLD_SIZE': str(GLOO_WORLD), 'LOCAL_RANK': '0'}
         procs.append(subprocess.Popen(
@@ -1635,13 +1680,26 @@ def run_gloo_world(card: str) -> dict:
         if p.returncode != 0 or rep is None:
             log(logs[rank][-4000:])
             raise AssertionError(
-                f'gloo rank {rank}: exit {p.returncode}; '
+                f'gloo {phase} rank {rank}: exit {p.returncode}; '
                 f'{rep["failures"] if rep else "no report"}')
+    return reports
+
+
+def _launch_total(reports) -> dict:
+    """Launches summed over every rank and case of a gloo world."""
     total = dict.fromkeys(reports[0]['cases'][0]['launches'], 0)
     for rep in reports:
         for case in rep['cases']:
             for k, v in case['launches'].items():
                 total[k] += v
+    return total
+
+
+def run_gloo_world(card: str) -> dict:
+    """Phase 14: GLOO_WORLD ranks on the one card over gloo, every case
+    of GLOO_CASES; fails if any rank fails."""
+    reports = _run_gloo_ranks('resnet32')
+    total = _launch_total(reports)
     for i, (name, *_rest) in enumerate(GLOO_CASES):
         errs = reports[0]['cases'][i]['errors']
         worst = {k: max(e[k] for e in errs) for k in STEP_TOL}
@@ -1942,6 +2000,489 @@ def run_transformer_defaults(card: str) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phases 19-20: the language model over DistributedKFAC
+# ---------------------------------------------------------------------------
+
+def _xl_model(layers: int, dev):
+    """The XL-width tied Transformer at ``layers`` blocks, dropout 0,
+    built on ``dev`` from seed 0."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.models import transformer_lm
+    with torch.random.fork_rng(devices=[dev]), dev:
+        torch.manual_seed(0)
+        return transformer_lm.TransformerLM(
+            XL_VOCAB, d_model=XL_D, num_layers=layers, num_heads=XL_HEADS,
+            max_len=XL_BPTT, dropout=0.0, tie_weights=True)
+
+
+def _step_errors(dk, dk_state, p_dk, kfac, ref_state, p_ref) -> dict:
+    """One step's errors of ``DistributedKFAC`` against the single-device
+    ``KFAC`` (relative to the largest reference entry): every factor (an
+    embedding's diagonal A too), the embeddings' diagonal inverses, every
+    preconditioned gradient (the embedding's also on its own) and the
+    KL-clip scale."""
+    diag = dk.assignment.diag_layers
+    precond = _per_tensor_rel(p_dk, p_ref)
+    worst = max(precond, key=precond.get)
+    return {
+        'factors': _max_rel((dk_state['factors'][n][s],
+                             ref_state['factors'][n][s])
+                            for n in kfac.specs for s in 'AG'),
+        'diag_inv': _max_rel((dk_state['diag_inv'][n],
+                              ref_state['inverses'][n]['A_inv'])
+                             for n in diag),
+        'precond': precond[worst], 'precond_worst': worst,
+        'embed_precond': max(precond[f'{n}.weight'] for n in diag),
+        'nu': _max_rel([(dk.last_nu, kfac.last_nu)])}
+
+
+def _per_tensor_rel(got: dict, want: dict) -> dict:
+    """``{name: max|got - want| / max|want|}`` over ``want``'s tensors."""
+    return {n: _max_rel([(got[n].double(), w.double())])
+            for n, w in want.items()}
+
+
+def _fp64_grads(model64, model, x, y) -> dict:
+    """The full-batch gradient of ``model``'s parameters taken by
+    ``model64``, its fp64 twin (whose attention softmax stays fp32, as the
+    model defines it)."""
+    from distributed_kfac_pytorch_tpu_torch.training import engine
+    model64.load_state_dict(model.state_dict())
+    model64.zero_grad(set_to_none=True)
+    engine.lm_loss(model64(x), y).backward()
+    return {n: p.grad for n, p in model64.named_parameters()}
+
+
+def _unit(kfac, name: str) -> str:
+    """The unit a parameter is preconditioned in: its registered layer
+    (whose ``[W | b]`` matrix K-FAC preconditions as one), else itself."""
+    layer = name.rsplit('.', 1)[0]
+    return layer if layer in kfac.specs else name
+
+
+def _as_units(kfac, tensors: dict) -> dict:
+    """``tensors`` (by parameter) as ``{unit: matrix or tensor}``."""
+    from distributed_kfac_pytorch_tpu_torch import layers as L
+    out = {n: t for n, t in tensors.items() if _unit(kfac, n) == n}
+    for name, spec in kfac.specs.items():
+        out[name] = L.grads_to_matrix(spec, kfac._layer_params(name,
+                                                               tensors))
+    return out
+
+
+def _fp64_precond(kfac, factors: dict, nu: float, grads: dict) -> dict:
+    """A K-FAC step's preconditioned gradients recomputed in fp64 from its
+    ``factors`` and KL-clip scale ``nu``, by unit (:func:`_as_units`):
+    ``grads`` (fp64) through the damped inverses (Cholesky in fp64; an
+    embedding's diagonal A elementwise), unregistered gradients as they
+    are. Valid for baked inverses (``'cholesky'``, ``'newton'``), which
+    approximate the same operator."""
+    import torch
+    lam = kfac.damping
+
+    def inverse(m):
+        m = m.double()
+        return torch.cholesky_inverse(torch.linalg.cholesky(
+            m + lam * torch.eye(m.shape[-1], dtype=m.dtype, device=m.device)))
+
+    out = _as_units(kfac, grads)
+    for name in kfac.specs:
+        f, g = factors[name], out[name]
+        if f['A'].ndim == 1:
+            v = (1.0 / (f['A'].double() + lam))[:, None] * g @ inverse(f['G'])
+        else:
+            v = inverse(f['G']) @ g @ inverse(f['A'])
+        out[name] = nu * v
+    return out
+
+
+# The tolerance each error of _step_errors is held to.
+STEP_ERROR_TOL = {'factors': STEP_TOL['factors'],
+                  'diag_inv': STEP_TOL['factors'],
+                  'precond': STEP_TOL['precond'],
+                  'embed_precond': STEP_TOL['precond'],
+                  'nu': STEP_TOL['nu']}
+
+
+def run_transformer_xl_nccl(card: str, xl: dict) -> dict:
+    """Phase 19: phase 15's run through ``train_language_model.train``
+    inside a one-rank NCCL group (``--comm-method comm-opt``): the same
+    losses bit for bit (the XL path runs no cuDNN, and the world-1 step of
+    ``DistributedKFAC`` is the single-device step's), the same launches,
+    step times beside phase 15's; then the shared-input check
+    (:func:`_xl_shared_inputs`) in the same group."""
+    import torch.distributed as dist
+    from distributed_kfac_pytorch_tpu_torch import launch
+    t0 = time.perf_counter()
+    store = _fresh_store('nccl_xl_world1.store')
+    launch.initialize_distributed(init_method=f'file://{store}', rank=0,
+                                  world_size=1, device='cuda')
+    try:
+        if dist.get_backend() != 'nccl':
+            raise AssertionError(f'backend {dist.get_backend()}, not nccl')
+        res, launches, state = _run_tlm(
+            'transformer-xl NCCL world 1',
+            _xl_config(comm_method='comm-opt'), XL_PER_STEP, 2)
+        kind = type(state.kfac).__name__
+        distributed = state.distributed
+        del state
+        _release()
+        if kind != 'DistributedKFAC' or not distributed:
+            raise AssertionError(f'phase 19 ran {kind}, distributed '
+                                 f'{distributed}')
+        shared = _xl_shared_inputs()
+    finally:
+        dist.destroy_process_group()
+    losses = res['losses']
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, xl['losses'])]
+    if losses != xl['losses']:
+        raise AssertionError(f'XL NCCL world 1: losses differ from phase '
+                             f'15\'s by {[f"{r:.2e}" for r in rel]} '
+                             'relative (the path is bitwise reproducible: '
+                             'limit 0)')
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not last < first:
+        raise AssertionError(f'XL NCCL world 1: loss did not decrease: '
+                             f'first three {first:.4f}, last three '
+                             f'{last:.4f}')
+    firing, plain = _step_ms(res)
+    summary = {'losses': losses, 'rel_loss_vs_phase15': rel,
+               'launches': launches, 'firing_ms': firing,
+               'nonfiring_ms': plain,
+               'nonfiring_ms_median': statistics.median(plain),
+               'peak_gib': res['peak_gib'],
+               'phase15_nonfiring_ms_median': xl['nonfiring_ms_median'],
+               'phase15_firing_ms': xl['firing_ms'],
+               'shared_inputs': shared,
+               'seconds': time.perf_counter() - t0}
+    log(f'  relative to phase 15 per step: {[f"{r:.1e}" for r in rel]}; '
+        f'launches {launches}')
+    log(f'  ms/step, NCCL world 1: non-firing '
+        f'{summary["nonfiring_ms_median"]:.2f} (median), firing '
+        f'{[round(t, 2) for t in firing]}; phase 15 (single device): '
+        f'{xl["nonfiring_ms_median"]:.2f}, '
+        f'{[round(t, 2) for t in xl["firing_ms"]]} ({card})')
+    log(f'  phase 19: {summary["seconds"]:.1f} s wall')
+    return summary
+
+
+def _xl_shared_inputs() -> dict:
+    """Phase 19's per-step check, inside its NCCL group: the XL model
+    (phase 15's, at XL_SHARED_LAYERS blocks) on the fixed batch, one
+    capture per step feeding both the single-device ``KFAC`` and a
+    ``DistributedKFAC`` wrapping it (COMM_OPT); under ``expand``
+    XL_SHARED_EXPAND_STEPS steps (firings at 0 and 10), then under
+    ``reduce`` (tied statistics on) XL_SHARED_REDUCE_STEPS; the model
+    stepped with the single-device result (clipped at 0.25, lr 1.0).
+    Every step held to STEP_ERROR_TOL; both K-FAC states live on the card
+    at once (peak memory printed)."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.parallel.distributed import \
+        DistributedKFAC
+    from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
+    from distributed_kfac_pytorch_tpu_torch.training import engine
+    dev = torch.device('cuda')
+    x, y = (torch.as_tensor(t, device=dev).long()
+            for t in _xl_first_window())
+    model = _xl_model(XL_SHARED_LAYERS, dev)
+    out = {'layers': XL_SHARED_LAYERS}
+    for approx, steps in (('expand', XL_SHARED_EXPAND_STEPS),
+                          ('reduce', XL_SHARED_REDUCE_STEPS)):
+        kfac = KFAC(model, damping=0.003, factor_update_freq=1,
+                    inv_update_freq=XL_FIRE_EVERY, kl_clip=0.001, lr=1.0,
+                    kfac_approx=approx, device=dev)
+        dk = DistributedKFAC(kfac, comm_method='comm-opt')
+        torch.cuda.reset_peak_memory_stats()
+        ref_state, dk_state = kfac.init_state(), dk.init_state()
+        errors, failures = [], []
+        for step in range(steps):
+            inv = step % XL_FIRE_EVERY == 0
+            _, _, grads, captures = kfac.capture.loss_and_grads(
+                lambda o: engine.lm_loss(o, y), x)
+            p_ref, ref_state = kfac.step(ref_state, grads, captures,
+                                         factor_update=True, inv_update=inv)
+            p_dk, dk_state = dk.step(dk_state, grads, captures,
+                                     factor_update=True, inv_update=inv)
+            err = _step_errors(dk, dk_state, p_dk, kfac, ref_state, p_ref)
+            errors.append(err)
+            bad = {k: err[k] for k in STEP_ERROR_TOL
+                   if not err[k] <= STEP_ERROR_TOL[k]}
+            if bad:
+                failures.append(f'{approx} step {step}: {bad} (worst '
+                                f'gradient {err["precond_worst"]})')
+            del grads, captures, p_dk
+            with torch.no_grad():
+                update = engine.clip_by_global_norm(p_ref, 0.25)
+                for n, p in model.named_parameters():
+                    p -= update[n]
+            del p_ref, update
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        approx_map = kfac.approx_summary()
+        kfac.capture.close()
+        del kfac, dk, ref_state, dk_state
+        _release()
+        worst = {k: max(e[k] for e in errors) for k in STEP_ERROR_TOL}
+        log(f'  shared inputs, {approx}, {steps} steps at '
+            f'{XL_SHARED_LAYERS} blocks, DistributedKFAC (NCCL, world 1) '
+            f'vs single-device KFAC, worst: '
+            + ', '.join(f'{k} {v:.2e}' for k, v in worst.items())
+            + f'; both states on the card: peak {peak:.1f} GiB')
+        if failures:
+            raise AssertionError(f'XL NCCL world 1, shared inputs: '
+                                 f'{failures}')
+        if approx == 'reduce' and approx_map.get('embed') != 'expand+tied':
+            raise AssertionError(f'shared inputs: resolved {approx_map}')
+        out[approx] = {'steps': steps, 'errors': errors, 'worst': worst,
+                       'peak_gib': peak}
+    del model
+    _release()
+    return out
+
+
+# (name, comm method, grad-worker fraction, expected grid, KFAC knobs)
+LM_GLOO_CASES = (
+    ('comm_opt_expand', 'comm-opt', 0.0, (1, 4), {'kfac_approx': 'expand'}),
+    ('mem_opt_reduce', 'mem-opt', 0.0, (4, 1), {'kfac_approx': 'reduce'}),
+    ('hybrid_opt_reduce_newton', 'hybrid-opt', 0.5, (2, 2),
+     {'kfac_approx': 'reduce', 'inverse_method': 'newton',
+      'symmetry_aware_comm': True}))
+
+
+def lm_dist_worker(cfg: dict) -> int:
+    """One rank of phase 20 (``chip_smoke.py --dist-worker CONFIG`` with
+    ``phase`` 'lm'): the XL-width tied Transformer at LM_GLOO_LAYERS
+    blocks on this rank's sequence of the fixed global batch of
+    XL_BATCH, every case of LM_GLOO_CASES in turn (rank 0 holds each step
+    against the single-device KFAC on the full batch), then the LM CLI
+    itself for the LSTM (PTB medium, HYBRID_OPT 2 x 2, eigen + jacobi)."""
+    import torch
+    import torch.distributed as dist
+    from distributed_kfac_pytorch_tpu_torch import launch, \
+        set_fp32_precision, train_language_model
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    from distributed_kfac_pytorch_tpu_torch.parallel.distributed import \
+        DistributedKFAC
+    from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
+    from distributed_kfac_pytorch_tpu_torch.training import engine
+
+    set_fp32_precision()
+    meta = launch.initialize_distributed(
+        init_method=f'file://{cfg["store"]}', backend='gloo',
+        device='cuda:0', timeout=600)
+    rank = meta['process_index']
+    dev = torch.device('cuda:0')
+    x, y = (torch.as_tensor(t, device=dev).long()
+            for t in _xl_first_window())
+    local = launch.process_local_slice(XL_BATCH)
+    model = _xl_model(LM_GLOO_LAYERS, dev)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    # Rank 0's reference runs on a twin of the model, loaded with the
+    # model's parameters before each of its steps: two captures on one
+    # model would nest the tied embedding's wrapped attend call.
+    twin = _xl_model(LM_GLOO_LAYERS, dev) if rank == 0 else None
+    model64 = None
+    knobs = dict(damping=0.003, factor_update_freq=1,
+                 inv_update_freq=LM_GLOO_INV_FREQ, kl_clip=0.001, lr=1.0,
+                 device=dev)
+    report = {'rank': rank, 'cases': []}
+    failures = []
+    for name, comm, frac, grid, extra in LM_GLOO_CASES:
+        model.load_state_dict(init)
+        kfac = KFAC(model, **knobs, **extra)
+        dk = DistributedKFAC(kfac, comm_method=comm,
+                             grad_worker_fraction=frac)
+        work = dk.local_work()
+        state = dk.init_state()
+        ref = ref_state = None
+        if rank == 0:
+            ref = KFAC(twin, **knobs, **extra)
+            ref_state = ref.init_state()
+        launches = dict.fromkeys(kernels.LAUNCHES, 0)
+        errors, step_ms = [], []
+        firings = 0
+        for step in range(LM_GLOO_STEPS):
+            inv = step % LM_GLOO_INV_FREQ == 0
+            firings += inv
+            torch.cuda.synchronize()
+            dist.barrier()     # rank 0's reference check runs between steps
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            _, _, grads, captures = kfac.capture.loss_and_grads(
+                lambda o: engine.lm_loss(o, y[local]), x[local])
+            grads = dict(zip(grads, engine.world_mean(list(grads.values()))))
+            precond, state = dk.step(state, grads, captures,
+                                     factor_update=True, inv_update=inv)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            for k, v in kernels.LAUNCHES.items():
+                launches[k] += v
+            del grads, captures
+            if rank == 0:
+                twin.load_state_dict(model.state_dict())
+                _, _, g_full, c_full = ref.capture.loss_and_grads(
+                    lambda o: engine.lm_loss(o, y), x)
+                p_ref, ref_state = ref.step(ref_state, g_full, c_full,
+                                            factor_update=True,
+                                            inv_update=inv)
+                if inv:     # the factors the inverses were taken from
+                    fired = (state['factors'], ref_state['factors'])
+                err = _step_errors(dk, state, precond, ref, ref_state,
+                                   p_ref)
+                errors.append(err)
+                over = [n for n, e in _per_tensor_rel(precond, p_ref).items()
+                        if e > STEP_TOL['precond']]
+                if over:
+                    # Two fp32 paths can part by more than this on a small
+                    # block of a layer's matrix (a bias column): each unit
+                    # with such a tensor is held to the fp64 recomputation
+                    # of its own step (the factors of its last firing, the
+                    # full batch's fp64 gradient), relative to the unit's
+                    # largest entry.
+                    if model64 is None:
+                        model64 = _xl_model(LM_GLOO_LAYERS, dev).double()
+                    g64 = _fp64_grads(model64, twin, x, y)
+                    exact_dk = _fp64_precond(ref, fired[0],
+                                             float(dk.last_nu), g64)
+                    exact_ref = _fp64_precond(ref, fired[1],
+                                              float(ref.last_nu), g64)
+                    mine, theirs = (_as_units(ref, p)
+                                    for p in (precond, p_ref))
+                    err['fp64'] = {u: {
+                        'distributed': _max_rel([(mine[u].double(),
+                                                  exact_dk[u])]),
+                        'single_device': _max_rel([(theirs[u].double(),
+                                                    exact_ref[u])]),
+                        'factor_spread': _max_rel([(exact_dk[u],
+                                                    exact_ref[u])])}
+                        for u in {_unit(ref, n) for n in over}}
+                    del g64, exact_dk, exact_ref, mine, theirs
+                bad = {k: err[k] for k in STEP_ERROR_TOL
+                       if not err[k] <= STEP_ERROR_TOL[k]}
+                if over and all(e['distributed'] <= STEP_TOL['precond']
+                                for e in err['fp64'].values()):
+                    bad.pop('precond', None)
+                    bad.pop('embed_precond', None)
+                if bad:
+                    failures.append(f'{name} step {step}: {bad} (worst '
+                                    f'gradient {err["precond_worst"]}; '
+                                    f'fp64 {err.get("fp64")})')
+                del g_full, c_full, p_ref
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p -= precond[n]
+            del precond
+        reduced = extra['kfac_approx'] == 'reduce'
+        expected = dict.fromkeys(kernels.LAUNCHES, 0)
+        expected.update({
+            # Every dense side of this rank's captures, and the untied-
+            # statistics embedding's G under expand.
+            'factor_ema': (12 * LM_GLOO_LAYERS + (not reduced))
+                          * LM_GLOO_STEPS,
+            'bucket_precond': len(work['precondition']) * LM_GLOO_STEPS})
+        if extra.get('inverse_method') == 'newton':
+            expected['ns_inverse'] = len(work['decompose']) * firings
+        if launches != expected:
+            failures.append(f'{name}: rank {rank} launches {launches}, '
+                            f'expected {expected} from the assignment')
+        if (dk.n_rows, dk.n_cols) != grid:
+            failures.append(f'{name}: grid {(dk.n_rows, dk.n_cols)}')
+        report['cases'].append({
+            'name': name, 'grid': [dk.n_rows, dk.n_cols],
+            'row': dk.row, 'col': dk.col, 'work': {
+                'decompose': work['decompose'],
+                'precondition': [list(s) for s in work['precondition']]},
+            'launches': launches, 'expected': expected,
+            'errors': errors, 'step_ms': step_ms})
+        kfac.capture.close()
+        if ref is not None:
+            ref.capture.close()
+        del kfac, dk, state, ref, ref_state
+        _release()
+    del model, init, twin, model64
+    _release()
+    # The LM CLI itself, the LSTM over the same 4 ranks.
+    kernels.reset_launches()
+    res = train_language_model.train(_lm_config(
+        max_steps=LM_GLOO_STEPS, inverse_method='eigen',
+        eigh_method='jacobi', comm_method='hybrid-opt',
+        grad_worker_fraction=0.5), device='cuda')
+    launches = dict(kernels.LAUNCHES)
+    st = res.pop('state')
+    work = st.kfac.local_work()
+    firings = res['fired'].count('inverse')
+    expected = dict.fromkeys(kernels.LAUNCHES, 0)
+    expected.update({
+        'bucket_precond': len(work['precondition']) * LM_GLOO_STEPS,
+        'jacobi_eigh': len(work['decompose']) * firings})
+    if type(st.kfac).__name__ != 'DistributedKFAC' or not st.distributed:
+        failures.append('LSTM CLI: not DistributedKFAC')
+    if launches != expected:
+        failures.append(f'LSTM CLI: rank {rank} launches {launches}, '
+                        f'expected {expected} from the assignment')
+    if not all(math.isfinite(v) for v in res['losses']):
+        failures.append(f'LSTM CLI: losses {res["losses"]}')
+    report['cases'].append({
+        'name': 'lstm_cli_hybrid_jacobi',
+        'grid': [st.kfac.n_rows, st.kfac.n_cols], 'row': st.kfac.row,
+        'col': st.kfac.col, 'work': {
+            'decompose': work['decompose'],
+            'precondition': [list(s) for s in work['precondition']]},
+        'launches': launches, 'expected': expected,
+        'losses': res['losses'], 'val': res['val']['loss'],
+        'firings': firings, 'errors': [], 'step_ms': res['step_ms']})
+    st.kfac.capture.close()
+    report['failures'] = failures
+    Path(cfg['out']).write_text(json.dumps(report, indent=1))
+    dist.destroy_process_group()
+    return 1 if failures else 0
+
+
+def run_lm_gloo_world(card: str) -> dict:
+    """Phase 20: GLOO_WORLD ranks on the one card over gloo, every case
+    of LM_GLOO_CASES and the LSTM CLI case; fails if any rank fails or
+    the ranks' LSTM losses differ."""
+    t0 = time.perf_counter()
+    reports = _run_gloo_ranks('lm')
+    cli = [rep['cases'][-1] for rep in reports]
+    if any(c['losses'] != cli[0]['losses'] or c['val'] != cli[0]['val']
+           for c in cli):
+        raise AssertionError(f'LSTM CLI: the ranks\' losses differ: '
+                             f'{[c["losses"] for c in cli]}')
+    total = _launch_total(reports)
+    for i, (name, *_rest) in enumerate(LM_GLOO_CASES):
+        errs = reports[0]['cases'][i]['errors']
+        worst = {k: max(e[k] for e in errs) for k in STEP_ERROR_TOL}
+        log(f'  {name} grid {reports[0]["cases"][i]["grid"]}: rank 0 vs '
+            f'single-device KFAC, worst of {len(errs)} steps: '
+            + ', '.join(f'{k} {v:.2e}' for k, v in worst.items())
+            + f' ({max(errs, key=lambda e: e["precond"])["precond_worst"]})')
+        for step, e in enumerate(errs):
+            for n, v in e.get('fp64', {}).items():
+                log(f'    step {step} {n}: a tensor over '
+                    f'{STEP_TOL["precond"]}; the unit vs its fp64 '
+                    f'recomputation: distributed {v["distributed"]:.2e}, '
+                    f'single-device {v["single_device"]:.2e}; the two '
+                    f'fp64 results (their factors) '
+                    f'{v["factor_spread"]:.2e} apart')
+    for i, case in enumerate(reports[0]['cases']):
+        if case['name'].startswith('lstm'):
+            log(f'  {case["name"]} grid {case["grid"]}: losses '
+                f'{[round(v, 4) for v in case["losses"]]} on every rank, '
+                f'{case["firings"]} firing')
+        for rep in reports:
+            c = rep['cases'][i]
+            log(f'    rank {rep["rank"]} (row {c["row"]}, col {c["col"]}): '
+                f'launches { {k: v for k, v in c["launches"].items() if v} }'
+                f' = assignment; step ms (gloo through host memory, '
+                f'{GLOO_WORLD} ranks on one card) '
+                f'{[round(t, 1) for t in c["step_ms"]]}')
+    seconds = time.perf_counter() - t0
+    log(f'  all ranks: launches {total}; phase 20: {seconds:.1f} s wall '
+        f'({card})')
+    return {'launches': total, 'ranks': reports, 'seconds': seconds}
+
+
 def _category(name: str) -> str:
     """Coarse owner of a CUDA kernel, from its (mangled) name."""
     n = name.lower()
@@ -2104,7 +2645,8 @@ def main(argv=None) -> int:
     import torch
     if args.dist_worker:
         sys.path.insert(0, str(ROOT))
-        return dist_worker(json.loads(args.dist_worker))
+        cfg = json.loads(args.dist_worker)
+        return (lm_dist_worker if cfg['phase'] == 'lm' else dist_worker)(cfg)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
         return 2
@@ -2193,13 +2735,25 @@ def main(argv=None) -> int:
             run_transformer_xl_newton(card)
         log(f'== Transformer LM, CLI defaults, {TLM_DEFAULT_STEPS} steps')
         report['transformer_defaults'] = run_transformer_defaults(card)
+        log(f'== distributed: the Transformer-XL LM as phase 15 in a '
+            f'one-rank NCCL group, comm-opt, {XL_STEPS} steps; shared '
+            f'inputs at {XL_SHARED_LAYERS} blocks')
+        report['transformer_xl_nccl_world1'] = run_transformer_xl_nccl(
+            card, report['transformer_xl'])
+        log(f'== distributed: the LM at XL width, {LM_GLOO_LAYERS} blocks, '
+            f'{GLOO_WORLD} ranks on one card over gloo, global batch '
+            f'{XL_BATCH}, {len(LM_GLOO_CASES)} mesh cases x {LM_GLOO_STEPS} '
+            'steps; the LSTM CLI, hybrid-opt 2 x 2, jacobi')
+        report['lm_gloo_world'] = run_lm_gloo_world(card)
         runs = (main_summary, r50, report['resnet50_auto'],
                 report['lstm_jacobi'], report['lm_defaults'],
                 report['resnet32_jacobi'], report['resnet50_nccl_world1'],
                 report['gloo_world'], report['transformer_xl'],
                 report['transformer_xl_reduce'],
                 report['transformer_xl_newton'],
-                report['transformer_defaults'])
+                report['transformer_defaults'],
+                report['transformer_xl_nccl_world1'],
+                report['lm_gloo_world'])
         launches = {name: sum(r['launches'].get(name, 0) for r in runs)
                     for name in kernels.LAUNCHES}
         aggs = {**summary50, 'ns_inverse': summary_ns,

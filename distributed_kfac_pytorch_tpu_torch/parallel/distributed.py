@@ -14,20 +14,24 @@ One step on every rank, with its own batch shard's captures and the
 world-averaged gradients:
 
   1. factors: each rank contracts its captures into local covariance
-     contributions (K1 in its contraction-only form, K2 for conv A), one
-     ``all_reduce`` SUM over the world averages them (``G`` times
-     ``1/W^2``: the captured output-grads come from the rank's local-mean
-     loss), and every rank applies the EMA;
+     contributions (K1 in its contraction-only form, K2 for conv A, plus
+     a tied embedding's attend-site parts), one ``all_reduce`` SUM over
+     the world averages them (the output-grad-quadratic parts ``G`` and
+     ``A_g2`` times ``1/W^2``: the captured output-grads come from the
+     rank's local-mean loss), and every rank applies the EMA;
   2. inverses, on firing steps: every same-size factor forms a *bucket*;
      each row owns ``slots_per_row`` slots of it, and each rank decomposes
      the assigned slots of its own ``slots_per_col`` (warm polish or
      library eigh, K5 under ``'jacobi'``, K4 or Cholesky for baked
      inverses). Each rank writes its slots into a zeroed row stack and
-     one ``all_reduce`` SUM over its row gathers the row's stacks;
+     one ``all_reduce`` SUM over its row gathers the row's stacks. An
+     embedding's diagonal A is not placed: every rank computes its
+     elementwise inverse (``diag_inv``, replicated);
   3. preconditioning: per gradient shape, each rank runs K3 on its row's
-     layers only; the KL-clip ``v.g`` partial and the preconditioned
-     matrices (zero where the row does not own the layer) ride one
-     ``all_reduce`` SUM over the rank's column.
+     layers only, and its row's embeddings one by one (the diagonal A
+     inverse with the G inverse of the G bucket); the KL-clip ``v.g``
+     partial and the preconditioned matrices (zero where the row does not
+     own the layer) ride one ``all_reduce`` SUM over the rank's column.
 
 Only ``all_reduce`` and ``broadcast`` are used, so one code path serves
 NCCL and gloo (which runs both on CUDA tensors). A group of one rank runs
@@ -37,8 +41,8 @@ Work placement (:func:`assign_work`) is the JAX package's, exactly: the
 two-level LPT of layers onto rows and of factors onto a row's columns.
 Not ported: pipelined firing, inverse staleness, deferred and
 hierarchical factor reduction, the quarantine gates, metrics and the
-non-finite guard (the ``KFAC`` knobs raise by name), and embedding and
-grouped-conv layers (capture rejects them).
+non-finite guard (the ``KFAC`` knobs raise by name), and grouped-conv
+layers (capture rejects them).
 """
 
 from __future__ import annotations
@@ -110,11 +114,14 @@ class BucketPlan:
 class WorkAssignment:
     """Static placement: ``layer_row[name]`` is the row that stores,
     decomposes and preconditions with layer ``name``'s inverses;
-    ``buckets`` lay out the decompositions by factor size."""
+    ``buckets`` lay out the decompositions by factor size;
+    ``diag_layers`` are the embeddings, whose diagonal A is inverted on
+    every rank (outside the buckets)."""
     n_rows: int
     n_cols: int
     layer_row: dict[str, int]
     buckets: dict[int, BucketPlan]
+    diag_layers: tuple[str, ...]
 
 
 def factor_dims(kfac: KFAC) -> dict[str, tuple[int, int]]:
@@ -134,17 +141,22 @@ def assign_work(kfac: KFAC, n_rows: int, n_cols: int, *,
     in one row), then the row's factors to its columns;
     ``distribute_layer_factors`` (default: ``n_cols > 1``) lets A and G
     of one layer land on different columns, else whole layers are placed.
+    An embedding's diagonal A is no work item: only its G is placed and
+    costed.
     """
     if distribute_layer_factors is None:
         distribute_layer_factors = n_cols > 1
     exp = 3 if kfac.assignment_strategy == 'compute' else 2
     names = list(kfac.specs)
     shapes = factor_dims(kfac)
+    diag = tuple(n for n in names if kfac.specs[n].kind == EMBEDDING)
 
     def factor_entries(name):
         a_dim, g_dim = shapes[name]
-        return [((name, 'A'), a_dim, a_dim ** exp),
-                ((name, 'G'), g_dim, g_dim ** exp)]
+        g_item = ((name, 'G'), g_dim, g_dim ** exp)
+        if name in diag:
+            return [g_item]
+        return [((name, 'A'), a_dim, a_dim ** exp), g_item]
 
     layer_cost = {n: sum(c for _, _, c in factor_entries(n)) for n in names}
     row_of = dict(zip(names, load_balance(
@@ -179,22 +191,25 @@ def assign_work(kfac: KFAC, n_rows: int, n_cols: int, *,
         buckets[dim] = BucketPlan(dim=dim, slots_per_col=s, n_cols=n_cols,
                                   slot=slot)
     return WorkAssignment(n_rows=n_rows, n_cols=n_cols, layer_row=row_of,
-                          buckets=buckets)
+                          buckets=buckets, diag_layers=diag)
 
 
 def plan_precond_groups(kfac: KFAC, assignment: WorkAssignment
                         ) -> list[dict]:
     """Shape groups of the row-sharded preconditioning.
 
-    Layers are grouped by gradient-matrix shape ``(g_dim, a_dim)``; in a
-    group of ``S`` slots per row, row ``r``'s layers take the global
-    slots ``r * S + k`` (``slot_of``), and ``a_idx`` / ``g_idx`` give
-    each global slot's in-row slot in the A / G factor buckets (0 for
-    padding). The JAX package's plan, in its order.
+    Dense layers are grouped by gradient-matrix shape ``(g_dim, a_dim)``
+    (embeddings are preconditioned one by one); in a group of ``S`` slots
+    per row, row ``r``'s layers take the global slots ``r * S + k``
+    (``slot_of``), and ``a_idx`` / ``g_idx`` give each global slot's
+    in-row slot in the A / G factor buckets (0 for padding). The JAX
+    package's plan, in its order.
     """
     dims = factor_dims(kfac)
     by_shape: dict[tuple[int, int], dict[int, list[str]]] = {}
-    for name in kfac.specs:
+    for name, spec in kfac.specs.items():
+        if spec.kind == EMBEDDING:
+            continue
         a_dim, g_dim = dims[name]
         rows = by_shape.setdefault((g_dim, a_dim), {})
         rows.setdefault(assignment.layer_row[name], []).append(name)
@@ -282,6 +297,8 @@ class DistributedKFAC:
     per row) lets a layer's A and G be decomposed by different ranks.
     Every rank must build it, and call :meth:`step` (a collective) with
     its own batch shard's captures and the world-averaged gradients.
+    Embeddings (tied or not) and every ``kfac_approx`` of the wrapped
+    ``KFAC`` run as they do there.
     """
 
     def __init__(self, kfac: KFAC, *,
@@ -291,17 +308,6 @@ class DistributedKFAC:
         if not dist.is_initialized():
             raise RuntimeError('DistributedKFAC needs an initialized process '
                                'group (launch.initialize_distributed)')
-        embeddings = [n for n, spec in kfac.specs.items()
-                      if spec.kind == EMBEDDING]
-        if embeddings:
-            raise NotImplementedError(
-                f'DistributedKFAC over embedding layers {embeddings} is not '
-                'ported yet (its placement and gathers have no diagonal '
-                'factor); leave them out with skip_layers')
-        if kfac.kfac_approx != 'expand':
-            raise NotImplementedError(
-                f'DistributedKFAC with kfac_approx={kfac.kfac_approx!r} is '
-                "not ported yet (only 'expand' is)")
         self.kfac = kfac
         self.capture = kfac.capture
         self.specs = kfac.specs
@@ -358,6 +364,8 @@ class DistributedKFAC:
         self.last_nu = None
 
     def _layer_is_mixed(self, name: str) -> bool:
+        if self.specs[name].kind == EMBEDDING:
+            return False        # a diagonal A is neither eigen nor baked
         a_dim, g_dim = self._factor_dims[name]
         return (eigen_family(self.kfac.method_for_dim(a_dim))
                 != eigen_family(self.kfac.method_for_dim(g_dim)))
@@ -372,16 +380,23 @@ class DistributedKFAC:
     # -- state ---------------------------------------------------------
 
     def init_state(self) -> dict:
-        """Fresh state: identity factors (replicated on every rank) and
-        this rank's row of each bucket, ``(slots_per_row, dim, dim)``:
-        identity ``Q`` and unit ``d`` for eigen buckets (plus a zero
-        ``inv`` where a mixed layer bakes its eigen side), zero ``inv``
-        for baked ones."""
+        """Fresh state: identity factors (an embedding's diagonal A: ones;
+        replicated on every rank), a zero ``diag_inv`` per embedding
+        (replicated) and this rank's row of each bucket, ``(slots_per_row,
+        dim, dim)``: identity ``Q`` and unit ``d`` for eigen buckets (plus
+        a zero ``inv`` where a mixed layer bakes its eigen side), zero
+        ``inv`` for baked ones."""
         dev = self.device
+        diag = self.assignment.diag_layers
         factors = {
-            name: {side: torch.eye(dim, dtype=torch.float32, device=dev)
+            name: {side: (torch.ones(dim, dtype=torch.float32, device=dev)
+                          if side == 'A' and name in diag else
+                          torch.eye(dim, dtype=torch.float32, device=dev))
                    for side, dim in zip('AG', self._factor_dims[name])}
             for name in self.specs}
+        diag_inv = {name: torch.zeros(self._factor_dims[name][0],
+                                      dtype=torch.float32, device=dev)
+                    for name in diag}
         stacks = {}
         for dim, plan in self.assignment.buckets.items():
             n = plan.slots_per_row
@@ -399,21 +414,28 @@ class DistributedKFAC:
                                             dtype=torch.float32, device=dev)}
             stacks[str(dim)] = entry
         return {'step': 0, 'factors': factors, 'inv_stacks': stacks,
-                'inv_chunk_phase': 0}
+                'diag_inv': diag_inv, 'inv_chunk_phase': 0}
 
     # -- factors -------------------------------------------------------
 
     def local_factor_contribs(self, captures: dict) -> dict:
         """This rank's covariance contributions ``{layer: {'A', 'G'}}``:
         the sides ``KFAC.fused_factor_inputs`` names through K1 in its
-        contraction-only form (no old factor, decay 0), conv A through K2,
-        multi-call layers as the stock sum of per-call factors."""
+        contraction-only form (no old factor, decay 0; under 'reduce' the
+        reduced rows), conv A through K2, multi-call layers, an
+        embedding's A and a tied embedding's G as the stock sum of
+        per-call factors; a tied embedding also gets its attend-site parts
+        ``A_g2`` and ``G_a`` (``layers.compute_tied_factor_extras``), kept
+        apart until :meth:`update_factors` has scaled them. The specs are
+        resolved first (``KFAC.observe_specs``), as ``KFAC`` does at its
+        first factor update."""
         kfac = self.kfac
         missing = [n for n in self.specs if n not in captures]
         if missing:
             raise ValueError(f'no captures for registered layers {missing} '
                              '(capture with intercept=True on factor '
                              'steps)')
+        kfac.observe_specs()
         cdt = kfac.factor_compute_dtype
         out = {}
         for name, spec in self.specs.items():
@@ -431,50 +453,67 @@ class DistributedKFAC:
                         compute_dtype=cdt)
                 else:
                     contrib[side] = compute(spec, calls, compute_dtype=cdt)
+            extras = L.compute_tied_factor_extras(spec, entry,
+                                                  compute_dtype=cdt)
+            if extras is not None:
+                contrib.update(extras)
             out[name] = contrib
         return out
 
     def update_factors(self, state: dict, contribs: dict,
                        factor_decay=None) -> dict:
         """Average the ranks' contributions (one ``all_reduce`` over the
-        world, triangle-packed with ``symmetry_aware_comm``; ``G`` times
-        ``1/W^2``) and EMA them into the factors."""
+        world, each 2-D part triangle-packed with ``symmetry_aware_comm``;
+        the output-grad-quadratic parts, ``layers.GRAD_QUADRATIC_KEYS``,
+        times ``1/W^2``), fold a tied embedding's ``A_g2`` into its A and
+        ``G_a`` into its G, and EMA them into the factors."""
         kfac = self.kfac
         alpha = kfac.factor_decay if factor_decay is None else factor_decay
         w = self.world_size
         packed = kfac.symmetry_aware_comm
-        keys = [(n, s) for s in 'AG' for n in self.specs]
-        parts = [F.pack_symmetric(contribs[n][s]) if packed
-                 else contribs[n][s] for n, s in keys]
-        sizes = [t.numel() for t in parts]
-        flat = torch.cat([t.reshape(-1) for t in parts])
+        # The grad-quadratic parts last, so one slice takes their scale.
+        keys = sorted(((n, k) for n in self.specs for k in contribs[n]),
+                      key=lambda nk: nk[1] in L.GRAD_QUADRATIC_KEYS)
+        n_plain = sum(k not in L.GRAD_QUADRATIC_KEYS for _, k in keys)
+        parts = [contribs[n][k] for n, k in keys]
+        wire = [F.pack_symmetric(t) if packed and t.ndim == 2 else t
+                for t in parts]
+        sizes = [t.numel() for t in wire]
+        flat = torch.cat([t.reshape(-1) for t in wire])
         dist.all_reduce(flat)
         if w > 1:
             flat /= w                                    # the mean
-            flat[sum(sizes[:len(self.specs)]):] /= w ** 2   # G: 1/W^2
-        olds = [state['factors'][n][s] for n, s in keys]
-        news = [v.view(t.shape) for v, t in zip(flat.split(sizes), parts)]
-        if packed:
-            news = [F.unpack_symmetric(m, o.shape[-1])
-                    for m, o in zip(news, olds)]
+            flat[sum(sizes[:n_plain]):] /= w ** 2        # G, A_g2: 1/W^2
+        means = {}
+        for key, v, sent, t in zip(keys, flat.split(sizes), wire, parts):
+            v = v.view(sent.shape)
+            means[key] = (F.unpack_symmetric(v, t.shape[-1])
+                          if sent is not t else v)
+        news = []
+        for n in self.specs:
+            for side, extra in (('A', 'A_g2'), ('G', 'G_a')):
+                new = means[n, side]
+                news.append(new if (n, extra) not in means
+                            else new + means[n, extra])
+        olds = [state['factors'][n][s] for n in self.specs for s in 'AG']
         # F.update_running_avg over the whole list at once, rounded as
         # kernels.ema_blend (so a one-rank world gives the single-device
         # step's bits, K1's fused blend included).
         ema = torch._foreach_mul(olds, alpha)
         torch._foreach_add_(ema, news, alpha=kernels.ema_new_weight(alpha))
-        new_factors = {n: {} for n in self.specs}
-        for (n, s), t in zip(keys, ema):
-            new_factors[n][s] = t
-        return new_factors
+        return {n: {'A': a, 'G': g}
+                for n, a, g in zip(self.specs, ema[0::2], ema[1::2])}
 
     # -- inverses ------------------------------------------------------
 
     def update_inverses(self, factors: dict, damping=None,
                         prev_stacks: dict | None = None) -> dict:
-        """A monolithic firing: this rank decomposes its assigned slots of
-        every bucket, then one ``all_reduce`` SUM over its row assembles
-        the row's stacks (a masked-sum gather: each slot is nonzero on
-        one rank only).
+        """A monolithic firing, ``{'inv_stacks', 'diag_inv'}``: this rank
+        decomposes its assigned slots of every bucket, then one
+        ``all_reduce`` SUM over its row assembles the row's stacks (a
+        masked-sum gather: each slot is nonzero on one rank only); every
+        rank inverts every embedding's diagonal A elementwise at
+        ``damping``.
 
         Eigen buckets: the warm polish seeded from ``prev_stacks``' bases
         of the same slots (``eigh_method`` 'auto'/'warm'; without
@@ -526,18 +565,22 @@ class DistributedKFAC:
             reduced = _all_reduce_sum([stacks[d][k] for d, k in keys], group)
             for (d, k), t in zip(keys, reduced):
                 stacks[d][k] = t
-        return stacks
+        diag_inv = {name: linalg.get_elementwise_inverse(
+            factors[name]['A'].float(), damping)
+            for name in self.assignment.diag_layers}
+        return {'inv_stacks': stacks, 'diag_inv': diag_inv}
 
     # -- preconditioning -----------------------------------------------
 
-    def precondition(self, inv_stacks: dict, grads: dict, damping, lr
-                     ) -> dict:
-        """Precondition this row's layers (K3 per shape group), deliver
-        every layer's result over the column, and apply the KL-clip scale
-        ``nu = min(1, sqrt(kl_clip / |sum lr^2 v.g|))``; unregistered
-        gradients pass through."""
+    def precondition(self, state: dict, grads: dict, damping, lr) -> dict:
+        """Precondition this row's layers (K3 per shape group; each
+        embedding with its diagonal A inverse from ``state['diag_inv']``),
+        deliver every layer's result over the column, and apply the
+        KL-clip scale ``nu = min(1, sqrt(kl_clip / |sum lr^2 v.g|))``;
+        unregistered gradients pass through."""
         kfac = self.kfac
         dev = self.device
+        inv_stacks = state['inv_stacks']
         grad_mats = {
             name: L.grads_to_matrix(spec, kfac._layer_params(name, grads))
             for name, spec in self.specs.items()}
@@ -560,6 +603,18 @@ class DistributedKFAC:
                 vs = linalg.precondition_dispatch(gstack, entry, damping)
             for i, n in enumerate(names):
                 mats[n] = vs[i]
+        for name in self.assignment.diag_layers:
+            if self.assignment.layer_row[name] != self.row:
+                continue
+            g_dim = self._factor_dims[name][1]
+            g_stack = inv_stacks[str(g_dim)]
+            slot = self.assignment.buckets[g_dim].slot[(name, 'G')]
+            entry = ({'QG': g_stack['Q'][slot], 'dG': g_stack['d'][slot]}
+                     if eigen_family(kfac.method_for_dim(g_dim))
+                     else {'G_inv': g_stack['inv'][slot]})
+            mats[name] = linalg.precondition_dispatch(
+                grad_mats[name], entry, damping,
+                diag_a=state['diag_inv'][name])
         # This row's v.g partial, in registration order.
         vg_sum = torch.zeros((), dtype=torch.float32, device=dev)
         if kfac.kl_clip is not None:
@@ -617,12 +672,13 @@ class DistributedKFAC:
         factors = (self.update_factors(
             state, self.local_factor_contribs(captures), factor_decay)
             if factor_update else state['factors'])
-        inv_stacks = (self.update_inverses(factors, damping,
-                                           state['inv_stacks'])
-                      if inv_update else state['inv_stacks'])
-        precond = self.precondition(inv_stacks, grads, damping, lr)
-        return precond, {'step': step + 1, 'factors': factors,
-                         'inv_stacks': inv_stacks, 'inv_chunk_phase': 0}
+        inverses = (self.update_inverses(factors, damping,
+                                         state['inv_stacks'])
+                    if inv_update else {k: state[k]
+                                        for k in ('inv_stacks', 'diag_inv')})
+        new_state = {'step': step + 1, 'factors': factors, **inverses,
+                     'inv_chunk_phase': 0}
+        return self.precondition(new_state, grads, damping, lr), new_state
 
     # -- checkpointing -------------------------------------------------
 
@@ -634,22 +690,24 @@ class DistributedKFAC:
                    ) -> dict:
         """Checkpointable state: step and factors (the same on every
         rank) and, with ``include_inverses``, this rank's row stacks with
-        the grid position they belong to."""
+        the grid position they belong to and the embeddings' diagonal
+        inverses."""
         out = {'step': state['step'], 'factors': state['factors'],
                'inv_chunk_phase': state.get('inv_chunk_phase', 0)}
         if include_inverses:
             out['inv_stacks'] = state['inv_stacks']
+            out['diag_inv'] = state['diag_inv']
             out['inv_layout'] = self._layout()
         return out
 
     def load_state_dict(self, sd: dict, *, damping=None) -> dict:
         """Rebuild the state from :meth:`state_dict` output (collective).
 
-        The layer sets must match. Saved row stacks are used when they
-        were written for this rank's row of the same grid, with the same
-        keys and shapes, and every slot this rank decomposes holds a
-        nonzero basis; otherwise every rank recomputes its inverses from
-        the factors (:meth:`recompute_inverses`).
+        The layer sets must match. Saved row stacks and diagonal inverses
+        are used when the stacks were written for this rank's row of the
+        same grid, with the same keys and shapes, and every slot this rank
+        decomposes holds a nonzero basis; otherwise every rank recomputes
+        its inverses from the factors (:meth:`recompute_inverses`).
         """
         state = self.init_state()
         if set(sd['factors']) != set(state['factors']):
@@ -662,6 +720,7 @@ class DistributedKFAC:
                  'inv_chunk_phase': int(sd.get('inv_chunk_phase', 0))}
         saved = sd.get('inv_stacks')
         ok = (saved is not None and sd.get('inv_layout') == self._layout()
+              and set(sd.get('diag_inv', ())) == set(state['diag_inv'])
               and all(set(saved.get(d, ())) == set(e)
                       and all(tuple(saved[d][k].shape) == tuple(t.shape)
                               for k, t in e.items())
@@ -674,6 +733,8 @@ class DistributedKFAC:
             state['inv_stacks'] = {d: {k: t.to(self.device)
                                        for k, t in e.items()}
                                    for d, e in saved.items()}
+            state['diag_inv'] = {n: t.to(self.device)
+                                 for n, t in sd['diag_inv'].items()}
             return state
         return self.recompute_inverses(state, damping=damping)
 
@@ -690,7 +751,7 @@ class DistributedKFAC:
         return True
 
     def recompute_inverses(self, state: dict, damping=None) -> dict:
-        """Every rank's row stacks rebuilt from the current factors (a
-        collective; eigen buckets by the library eigh under 'auto')."""
-        return {**state, 'inv_stacks': self.update_inverses(
-            state['factors'], damping)}
+        """Every rank's row stacks and diagonal inverses rebuilt from the
+        current factors (a collective; eigen buckets by the library eigh
+        under 'auto')."""
+        return {**state, **self.update_inverses(state['factors'], damping)}

@@ -140,7 +140,9 @@ def train(args_or_config=None, device='cuda') -> dict:
         kfac_update_freq_schedule=args.kfac_update_freq_decay)
     optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
         model, cfg, device=dev)
-    state = engine.make_train_state(model, optimizer, kfac, args)
+    state = engine.make_train_state(
+        model, optimizer, kfac,
+        coallocate_layer_factors=args.coallocate_layer_factors)
     return engine.fit(
         state, train_data, val_data, lr_schedule=lr_schedule,
         kfac_sched=kfac_sched, epochs=args.epochs,

@@ -1,10 +1,12 @@
-"""Train a language model with single-device K-FAC + SGD (PyTorch port of
+"""Train a language model with K-FAC + SGD (PyTorch port of
 ``examples/train_language_model.py``): the LSTM (``--arch lstm``) or the
-decoder-only Transformer (``--arch transformer``).
+decoder-only Transformer (``--arch transformer``), on one device or data
+parallel over a process group.
 
     python -m distributed_kfac_pytorch_tpu_torch.train_language_model \
         --inverse-method eigen --eigh-method jacobi
-    python -m distributed_kfac_pytorch_tpu_torch.train_language_model \
+    torchrun --nproc-per-node 4 -m \
+        distributed_kfac_pytorch_tpu_torch.train_language_model \
         --arch transformer --emsize 1024 --nlayers 18 --nheads 16 \
         --tied --bptt 1024 --batch-size 4 --kfac-approx reduce
 
@@ -25,6 +27,19 @@ from zero states, as the JAX CLI calls the model with ids only. The data
 is whitespace-tokenized ``train.txt`` / ``valid.txt`` under
 ``--data-dir``, else the JAX package's synthetic Markov corpus.
 
+Under a launcher's process group (``torchrun``'s environment) every rank
+trains on its slice of each global batch of ``--batch-size`` sequences
+and K-FAC runs as ``parallel.DistributedKFAC`` with the JAX CLI's
+``--comm-method`` (default ``comm-opt``), ``--grad-worker-fraction``
+(0.25) and ``--symmetry-aware-comm``; alone, the single-device ``KFAC``
+runs (the JAX CLI wraps it in a one-device ``DistributedKFAC``, which
+computes the same step). ``--warmup-epochs`` (default 1, the JAX LM
+CLI's) goes to the LR schedule with one worker, as the JAX CLI passes
+it: the LM's LR does not scale with the world, so the warm-up is flat.
+Each rank seeds its dropout generator
+with ``--seed`` plus its rank, so the ranks draw different masks (the
+JAX CLI folds the device index into the step's key).
+
 Port-only flags: ``--device`` (default ``cuda``; ``cpu`` must be asked
 for), ``--synthetic-size`` and ``--synthetic-vocab`` (train tokens and
 vocabulary of the synthetic corpus; the JAX defaults 200000 and 1000),
@@ -32,13 +47,11 @@ vocabulary of the synthetic corpus; the JAX defaults 200000 and 1000),
 (stop after that many steps), ``--time-steps`` (synchronize each step and
 record its wall time) and ``--quiet``.
 
-The JAX CLI wraps ``KFAC`` in a one-device ``DistributedKFAC``; here the
-single-device ``KFAC`` runs directly. Not ported yet (a set flag raises by
-name): sequence parallelism (``--seq-parallel``) and the chunked
-attention fold (``--attn-block-size``). Also not ported: the LR warmup
-(``--warmup-epochs``, flat on one device), a process group,
-multi-slice meshes, checkpointing and resume, metrics sinks and
-profiling, fp16 / bf16 modes, autotune and the K-FAC knobs listed in
+Not ported yet (a set flag raises by name): sequence parallelism
+(``--seq-parallel``), the chunked attention fold (``--attn-block-size``),
+multi-slice meshes (``--num-slices``) and fp16 (``--fp16``). Also not
+ported: checkpointing and resume, metrics sinks and profiling, the bf16
+modes, autotune and the K-FAC knobs listed in
 ``preconditioner.NOT_PORTED``.
 
 :func:`train` is the programmatic entry point.
@@ -50,6 +63,7 @@ import argparse
 import sys
 
 import torch
+import torch.distributed as dist
 
 from distributed_kfac_pytorch_tpu_torch import resolve_device, \
     set_fp32_precision
@@ -61,8 +75,8 @@ from distributed_kfac_pytorch_tpu_torch.training import datasets, engine, \
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description='Language model (LSTM or Transformer) + '
-                    'single-device K-FAC (torch port)')
+        description='Language model (LSTM or Transformer) + K-FAC, data '
+                    'parallel under a process group (torch port)')
     p.add_argument('--data-dir', default=None,
                    help='dir with train.txt/valid.txt (synthetic if '
                         'absent)')
@@ -80,12 +94,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--epochs', type=int, default=40)
     p.add_argument('--base-lr', type=float, default=1.0)
     p.add_argument('--lr-decay', type=int, nargs='+', default=[20, 30])
+    p.add_argument('--warmup-epochs', type=float, default=1)
     p.add_argument('--momentum', type=float, default=0.9)
     p.add_argument('--wd', type=float, default=0.0)
     p.add_argument('--grad-clip', type=float, default=0.25,
                    help='global-norm clip of every update (0 = off)')
     p.add_argument('--seed', type=int, default=42)
     p.add_argument('--seq-parallel', type=int, default=1,
+                   help='not ported (raises unless 1)')
+    p.add_argument('--num-slices', type=int, default=1,
                    help='not ported (raises unless 1)')
     p.add_argument('--attn-block-size', type=int, default=None,
                    help='not ported (raises if set)')
@@ -114,6 +131,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--skip-layers', nargs='+', default=None,
                    help="default: ['embed', 'decoder'] for lstm (K-FAC on "
                         'the gates only), [] for transformer')
+    p.add_argument('--comm-method', default='comm-opt',
+                   choices=sorted(optimizers.COMM_METHODS))
+    p.add_argument('--grad-worker-fraction', type=float, default=0.25)
+    p.add_argument('--symmetry-aware-comm', action='store_true',
+                   help='triangle-packed factor all_reduce (about half '
+                        'the bytes)')
+    p.add_argument('--fp16', action='store_true',
+                   help='not ported (raises)')
     # Port-only flags.
     p.add_argument('--device', default='cuda')
     p.add_argument('--synthetic-size', type=int, default=200_000)
@@ -136,13 +161,15 @@ def train(args_or_config=None, device='cuda') -> dict:
     Returns what :func:`engine.fit_lm` returns: per-step losses and fired
     stages ('inverse', 'factor' or None), per-step wall ms when
     ``time_steps``, the last epoch's train / val loss and perplexity and
-    the final ``TrainState``. The launch counts of the kernels are
+    the final ``TrainState`` (under a process group its ``kfac`` is a
+    ``DistributedKFAC``). The launch counts of the kernels are
     ``ops.kernels.LAUNCHES``.
     """
     args = engine.parse_args(build_parser(), args_or_config)
     engine.check_unported(args)
     dev = resolve_device(device if device is not None else args.device)
     set_fp32_precision()
+    engine.start_world(dev)
     train_ids, val_ids, vocab = datasets.get_lm_corpus(
         args.data_dir, synthetic_size=args.synthetic_size,
         vocab_size=args.synthetic_vocab)
@@ -151,9 +178,14 @@ def train(args_or_config=None, device='cuda') -> dict:
         skip = args.skip_layers
     else:
         skip = ['embed', 'decoder'] if args.arch == 'lstm' else []
+    # workers=1: the JAX LM CLI's LR does not scale with the world.
     cfg = optimizers.OptimConfig(
         base_lr=args.base_lr, momentum=args.momentum,
         weight_decay=args.wd, lr_decay=args.lr_decay,
+        warmup_epochs=args.warmup_epochs, workers=1,
+        comm_method=args.comm_method,
+        grad_worker_fraction=args.grad_worker_fraction,
+        symmetry_aware_comm=args.symmetry_aware_comm,
         kfac_inv_update_freq=args.kfac_update_freq,
         kfac_cov_update_freq=args.kfac_cov_update_freq,
         damping=args.damping, factor_decay=args.stat_decay,
@@ -163,11 +195,10 @@ def train(args_or_config=None, device='cuda') -> dict:
         kfac_approx=args.kfac_approx, skip_layers=skip)
     optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
         model, cfg, device=dev)
-    state = engine.TrainState(
-        model=model, optimizer=optimizer, kfac=kfac,
-        kfac_state=kfac.init_state() if kfac is not None else None)
+    state = engine.make_train_state(model, optimizer, kfac)
     generator = torch.Generator(device=dev)
-    generator.manual_seed(args.seed)
+    generator.manual_seed(args.seed + (dist.get_rank() if state.distributed
+                                       else 0))
     return engine.fit_lm(
         state, train_ids, val_ids, lr_schedule=lr_schedule,
         kfac_sched=kfac_sched, epochs=args.epochs,

@@ -1,8 +1,8 @@
-"""Train / eval epoch loops over the single-device K-FAC step (PyTorch port
-of ``distributed_kfac_pytorch_tpu/training/engine.py``: the classic
-cadence of ``cadence_flags``, ``train_epoch`` and ``evaluate``), the
-epoch loop the image CLIs share (``fit``) and the language-model step and
-loop of the LM CLI (``lm_train_step``, ``fit_lm``, ``evaluate_lm``).
+"""Train / eval epoch loops over the K-FAC step (PyTorch port of
+``distributed_kfac_pytorch_tpu/training/engine.py``: the classic cadence
+of ``cadence_flags``, ``train_epoch`` and ``evaluate``), the epoch loop
+the image CLIs share (``fit``) and the language-model step and loop of
+the LM CLI (``lm_train_step``, ``fit_lm``, ``evaluate_lm``).
 
 The host drives the cadence (``factor_update`` / ``inv_update`` flags from
 the step counter). Losses and accuracies stay device tensors until the
@@ -16,7 +16,9 @@ backward pass one ``all_reduce`` averages the gradients (with the loss
 and accuracy) over the world -- explicitly, not through DDP, since the
 K-FAC capture owns the backward pass -- then ``DistributedKFAC.step``
 preconditions, and after the update the BatchNorm running buffers are
-averaged over the world.
+averaged over the world. The LM step does the same (it has no buffers),
+then clips the replicated update by its global norm; its validation loss
+is the world's mean over the ranks' slices.
 """
 
 from __future__ import annotations
@@ -274,18 +276,19 @@ def start_world(device) -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def make_train_state(model, optimizer, kfac, args) -> TrainState:
+def make_train_state(model, optimizer, kfac, *,
+                     coallocate_layer_factors: bool = False) -> TrainState:
     """The CLIs' ``TrainState``: with a process group up, data parallel
     over the world and ``kfac`` wrapped in ``DistributedKFAC`` (strategy
-    from the ``KFAC``'s knobs, ``--coallocate-layer-factors``); else the
-    single-device ``KFAC``."""
+    from the ``KFAC``'s knobs; ``coallocate_layer_factors``: a layer's A
+    and G on one rank); else the single-device ``KFAC``."""
     distributed = dist.is_initialized()
     if kfac is not None and distributed:
         from distributed_kfac_pytorch_tpu_torch.parallel.distributed import (
             DistributedKFAC,
         )
         kfac = DistributedKFAC(kfac, distribute_layer_factors=(
-            False if args.coallocate_layer_factors else None))
+            False if coallocate_layer_factors else None))
     return TrainState(
         model=model, optimizer=optimizer, kfac=kfac,
         kfac_state=kfac.init_state() if kfac is not None else None,
@@ -337,7 +340,7 @@ def evaluate(model: torch.nn.Module, batches: Iterable, *, device,
 
 
 # ---------------------------------------------------------------------------
-# Language model (the JAX LM CLI's step, on the single-device KFAC)
+# Language model (the JAX LM CLI's step)
 # ---------------------------------------------------------------------------
 
 def lm_loss(out, targets: torch.Tensor) -> torch.Tensor:
@@ -364,9 +367,10 @@ def lm_train_step(state: TrainState, ids: torch.Tensor,
                   grad_clip: float = 0.0,
                   generator: torch.Generator | None = None) -> torch.Tensor:
     """One LM step: forward from zero states (``generator`` draws the
-    dropout masks), backward, K-FAC preconditioning, then the global-norm
-    clip at ``grad_clip`` (0: none) over every update, then the SGD
-    update. Returns the (device) loss."""
+    dropout masks), backward, with ``state.distributed`` the world's mean
+    of the gradients and the loss, K-FAC preconditioning, then the
+    global-norm clip at ``grad_clip`` (0: none) over every update, then
+    the SGD update. Returns the (device) loss."""
     model = state.model
     kwargs = {'dropout_generator': generator}
     loss_fn = lambda out: lm_loss(out, targets)  # noqa: E731
@@ -380,6 +384,10 @@ def lm_train_step(state: TrainState, ids: torch.Tensor,
     else:
         loss, _, grads, captures = state.kfac.capture.loss_and_grads(
             loss_fn, ids, intercept=flags['factor_update'], **kwargs)
+    if state.distributed:
+        *means, loss = world_mean([*grads.values(), loss])
+        grads = dict(zip(grads, means))
+    if state.kfac is not None:
         grads, state.kfac_state = state.kfac.step(
             state.kfac_state, grads, captures,
             damping=hyper.get('damping'), lr=hyper['lr'],
@@ -396,21 +404,28 @@ def lm_train_step(state: TrainState, ids: torch.Tensor,
 
 @torch.no_grad()
 def evaluate_lm(model: torch.nn.Module, batches: Iterable, *,
-                device) -> dict[str, float]:
+                device, distributed: bool = False) -> dict[str, float]:
     """Validation loss (mean over the windows, dropout off) and
-    perplexity ``exp(min(loss, 20))``."""
+    perplexity ``exp(min(loss, 20))``; with ``distributed``, each rank
+    takes its ``launch.process_local_slice`` of every window and the loss
+    is the world's mean."""
     device = torch.device(device)
     model.eval()
-    meter, windows = Metric('loss'), 0
+    total, windows = torch.zeros((), device=device), 0
     for xb, yb in batches:
+        if distributed:
+            local = launch.process_local_slice(len(xb))
+            xb, yb = xb[local], yb[local]
         x = torch.as_tensor(xb, dtype=torch.long, device=device)
         y = torch.as_tensor(yb, dtype=torch.long, device=device)
-        meter.update(lm_loss(model(x), y))
+        total += lm_loss(model(x), y)
         windows += 1
     if not windows:
         raise ValueError('evaluate_lm: no validation windows (the '
                          'validation stream is shorter than batch x bptt)')
-    loss = meter.avg
+    if distributed:
+        (total,) = world_mean([total])
+    loss = float(total) / windows
     return {'loss': loss, 'ppl': math.exp(min(loss, 20.0))}
 
 
@@ -422,9 +437,10 @@ def fit_lm(state: TrainState, train_ids: np.ndarray, val_ids: np.ndarray,
            time_steps: bool = False, verbose: bool = False) -> dict:
     """The LM CLI's epoch loop: per epoch, set the LR, train on the BPTT
     windows of ``train_ids`` (tracks offset per ``(seed, epoch)``; with
-    ``fixed_batch`` every step takes epoch 0's first window instead),
-    evaluate on ``val_ids`` and advance the K-FAC scheduler; stop after
-    ``max_steps`` global steps when given.
+    ``fixed_batch`` every step takes epoch 0's first window instead;
+    with ``state.distributed`` each rank its ``launch.process_local_slice``
+    of the window's sequences), evaluate on ``val_ids`` and advance the
+    K-FAC scheduler; stop after ``max_steps`` global steps when given.
 
     Returns ``{'device', 'steps', 'losses', 'fired', 'step_ms', 'train',
     'val', 'seconds', 'state'}`` as :func:`fit` does; ``train`` and
@@ -454,6 +470,9 @@ def fit_lm(state: TrainState, train_ids: np.ndarray, val_ids: np.ndarray,
                 break
             if fixed_batch:
                 xb, yb = first
+            if state.distributed:
+                local = launch.process_local_slice(len(xb))
+                xb, yb = xb[local], yb[local]
             flags = (cadence_flags(state.step, hyper['factor_update_freq'],
                                    hyper['inv_update_freq'])
                      if state.kfac is not None else {})
@@ -475,7 +494,8 @@ def fit_lm(state: TrainState, train_ids: np.ndarray, val_ids: np.ndarray,
             mean = sum(epoch_losses) / len(epoch_losses)
             train_m = {'loss': mean, 'ppl': math.exp(min(mean, 20.0))}
         val_m = evaluate_lm(state.model, datasets.bptt_batches(
-            val_ids, batch_size, bptt), device=device)
+            val_ids, batch_size, bptt), device=device,
+            distributed=state.distributed)
         if verbose:
             train_ppl = train_m.get('ppl', math.nan)
             print(f'epoch {epoch}: train ppl {train_ppl:.2f}, val ppl '

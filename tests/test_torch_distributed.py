@@ -217,11 +217,15 @@ def worker_main():
 def _checkpoint_record(dk, state, rank) -> dict:
     """Round trips of ``state_dict`` / ``load_state_dict``: as saved, and
     with rank 0's stacks marked as another row's (every rank must then
-    recompute its inverses from the factors, with the library eigh)."""
+    recompute its inverses from the factors, with the library eigh). The
+    errors cover the row stacks and the embeddings' diagonal inverses."""
     def err(loaded):
-        return np.asarray(max(
-            float((loaded['inv_stacks'][d][k] - t).abs().max())
-            for d, e in state['inv_stacks'].items() for k, t in e.items()))
+        pairs = [(loaded['inv_stacks'][d][k], t)
+                 for d, e in state['inv_stacks'].items()
+                 for k, t in e.items()]
+        pairs += [(loaded['diag_inv'][n], t)
+                  for n, t in state['diag_inv'].items()]
+        return np.asarray(max(float((a - b).abs().max()) for a, b in pairs))
     sd = dk.state_dict(state)
     loaded = dk.load_state_dict(sd)
     same = [loaded['step'] == state['step']] + [
@@ -234,14 +238,16 @@ def _checkpoint_record(dk, state, rank) -> dict:
 
 
 def _start_world(tmp: pathlib.Path, world: int, cases: list[str],
-                 data: pathlib.Path) -> list:
+                 data: pathlib.Path, module: str = 'test_torch_distributed'
+                 ) -> list:
+    """``world`` rank subprocesses, each running ``module.worker_main``."""
     out = tmp / f'world{world}'
     out.mkdir()
     cfg = json.dumps({'store': str(tmp / f'store{world}'),
                       'data': str(data), 'out': str(out), 'cases': cases,
                       'world': world})
     code = (f'import sys; sys.path.insert(0, {str(HERE)!r}); '
-            'import test_torch_distributed as t; t.worker_main()')
+            f'import {module} as t; t.worker_main()')
     procs = []
     for rank in range(world):
         env = {**os.environ, 'RANK': str(rank), 'WORLD_SIZE': str(world),
@@ -454,6 +460,33 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def run_two_ranks(code: str) -> list:
+    """``python -c code`` in two processes with torchrun's environment (a
+    free localhost port); returns each rank's ``RESULT`` JSON line."""
+    port = _free_port()
+    procs = []
+    for rank in range(2):
+        env = {**os.environ, 'RANK': str(rank), 'LOCAL_RANK': str(rank),
+               'WORLD_SIZE': '2', 'MASTER_ADDR': '127.0.0.1',
+               'MASTER_PORT': str(port), 'OMP_NUM_THREADS': '1',
+               'PYTHONPATH': str(ROOT)}
+        procs.append(subprocess.Popen(
+            [sys.executable, '-c', code], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    results = []
+    for p in procs:
+        try:
+            log, _ = p.communicate(timeout=WORLD_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise AssertionError('two-rank run hung')
+        assert p.returncode == 0, log[-3000:]
+        line = next(ln for ln in log.splitlines() if ln.startswith('RESULT'))
+        results.append(json.loads(line.split(' ', 1)[1]))
+    return results
+
+
 def test_cli_two_ranks_torchrun_style():
     """``train_cifar10_resnet.train(..., device='cpu')`` in two processes
     with torchrun's environment: a gloo group, ``DistributedKFAC`` under
@@ -472,27 +505,7 @@ def test_cli_two_ranks_torchrun_style():
         "k = r['state'].kfac\n"
         "print('RESULT', json.dumps({'losses': r['losses'], 'kind': "
         "type(k).__name__, 'grid': [k.n_rows, k.n_cols]}))\n")
-    port = _free_port()
-    procs = []
-    for rank in range(2):
-        env = {**os.environ, 'RANK': str(rank), 'LOCAL_RANK': str(rank),
-               'WORLD_SIZE': '2', 'MASTER_ADDR': '127.0.0.1',
-               'MASTER_PORT': str(port), 'OMP_NUM_THREADS': '1',
-               'PYTHONPATH': str(ROOT)}
-        procs.append(subprocess.Popen(
-            [sys.executable, '-c', code], cwd=ROOT, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    results = []
-    for p in procs:
-        try:
-            log, _ = p.communicate(timeout=WORLD_TIMEOUT)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            raise AssertionError('two-rank CLI run hung')
-        assert p.returncode == 0, log[-3000:]
-        line = next(ln for ln in log.splitlines() if ln.startswith('RESULT'))
-        results.append(json.loads(line.split(' ', 1)[1]))
+    results = run_two_ranks(code)
     assert results[0] == results[1]
     res = results[0]
     assert res['kind'] == 'DistributedKFAC' and res['grid'] == [2, 1]

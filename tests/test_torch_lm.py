@@ -317,9 +317,9 @@ def test_cli_parses_defaults_and_rejects_transformer():
 
 
 def test_unskipped_embedding_raises_by_name(tmp_path):
-    # The single-device KFAC preconditions an unskipped embedding; the
-    # distributed wrapper raises naming it, and naming a non-expand
-    # kfac_approx.
+    # The single-device KFAC preconditions an unskipped embedding; so does
+    # the distributed wrapper (its diagonal A replicated), and it takes a
+    # non-expand kfac_approx.
     import torch.distributed as dist
 
     from distributed_kfac_pytorch_tpu_torch.parallel.distributed import \
@@ -332,12 +332,13 @@ def test_unskipped_embedding_raises_by_name(tmp_path):
     dist.init_process_group('gloo', init_method=f'file://{tmp_path}/s',
                             rank=0, world_size=1)
     try:
-        with pytest.raises(NotImplementedError, match="'embed'"):
-            DistributedKFAC(KFAC(lstm_lm.LSTMLanguageModel(
-                10, 4, 4, num_layers=1), device='cpu'))
-        with pytest.raises(NotImplementedError, match='kfac_approx'):
-            DistributedKFAC(KFAC(lstm_lm.LSTMLanguageModel(
-                10, 4, 4, num_layers=1), skip_layers=['embed', 'decoder'],
-                kfac_approx='reduce', device='cpu'))
+        dk = DistributedKFAC(KFAC(lstm_lm.LSTMLanguageModel(
+            10, 4, 4, num_layers=1), device='cpu'))
+        assert dk.assignment.diag_layers == ('embed',)
+        assert tuple(dk.init_state()['diag_inv']['embed'].shape) == (10,)
+        dk = DistributedKFAC(KFAC(lstm_lm.LSTMLanguageModel(
+            10, 4, 4, num_layers=1), skip_layers=['embed', 'decoder'],
+            kfac_approx='reduce', device='cpu'))
+        assert dk.kfac.kfac_approx == 'reduce'
     finally:
         dist.destroy_process_group()

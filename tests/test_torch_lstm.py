@@ -203,8 +203,8 @@ def test_capture_aligns_calls_over_the_unrolled_loop():
 
 def test_unskipped_embedding_raises(tmp_path):
     # Embedding K-FAC is ported: the capture registers the table (a
-    # diagonal A over the vocabulary); the distributed wrapper, which has
-    # no diagonal factor yet, raises by name.
+    # diagonal A over the vocabulary), and the distributed wrapper takes
+    # it (the diagonal A's inverse replicated, its G in the buckets).
     import torch.distributed as dist
 
     from distributed_kfac_pytorch_tpu_torch.parallel.distributed import \
@@ -216,9 +216,13 @@ def test_unskipped_embedding_raises(tmp_path):
     dist.init_process_group('gloo', init_method=f'file://{tmp_path}/s',
                             rank=0, world_size=1)
     try:
-        with pytest.raises(NotImplementedError, match='embedding'):
-            DistributedKFAC(KFAC(model, skip_layers=['decoder'],
-                                 device='cpu'))
+        dk = DistributedKFAC(KFAC(model, skip_layers=['decoder'],
+                                  device='cpu'))
+        state = dk.init_state()
+        assert torch.equal(state['factors']['embed']['A'], torch.ones(20))
+        assert ('embed', 'G') in dk.assignment.buckets[6].slot
+        assert all(('embed', 'A') not in plan.slot
+                   for plan in dk.assignment.buckets.values())
     finally:
         dist.destroy_process_group()
     model.embed.weight.requires_grad_(False)        # frozen: plain skip

@@ -2,9 +2,11 @@
 exact equality: the placement helpers, ``WorkerAllocator``, the
 grad-worker count of each strategy, the decomposition cost, the
 triangle wire format, and ``assign_work`` / the precondition shape groups
-on the JAX suite's ``SmallCNN`` and on ResNet-32, for every mesh of
-``tests/test_distributed.py`` plus 1 x 1, with ``distribute_layer_factors``
-on and off and both assignment strategies.
+on the JAX suite's ``SmallCNN``, on ResNet-32, and on two models with an
+embedding (whose diagonal A is no work item): the JAX suite's
+``EmbedNet`` and the tiny tied Transformer of ``tests/test_sharing.py``,
+for every mesh of ``tests/test_distributed.py`` plus 1 x 1, with
+``distribute_layer_factors`` on and off and both assignment strategies.
 
 The golden cases of ``tests/test_placement.py`` also run against the
 port's copy: the module is loaded a second time with its placement names
@@ -25,17 +27,20 @@ import torch
 from distributed_kfac_pytorch_tpu import KFAC as JKFAC
 from distributed_kfac_pytorch_tpu import CommMethod as JCommMethod
 from distributed_kfac_pytorch_tpu.models import cifar_resnet as jres
+from distributed_kfac_pytorch_tpu.models import transformer_lm as jtl
 from distributed_kfac_pytorch_tpu.ops import factors as jfactors
 from distributed_kfac_pytorch_tpu.ops import linalg as jlinalg
 from distributed_kfac_pytorch_tpu.parallel import distributed as JD
 from distributed_kfac_pytorch_tpu.parallel import placement as jplace
-from distributed_kfac_pytorch_tpu_torch.models import cifar_resnet
+from distributed_kfac_pytorch_tpu_torch.models import cifar_resnet, \
+    transformer_lm
 from distributed_kfac_pytorch_tpu_torch.ops import factors, linalg
 from distributed_kfac_pytorch_tpu_torch.parallel import distributed as D
 from distributed_kfac_pytorch_tpu_torch.parallel import placement
 from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC, \
     CommMethod
 from test_torch_distributed import SmallCNN, jax_small_cnn
+from test_torch_distributed_lm import EmbedNet
 
 HERE = pathlib.Path(__file__).resolve().parent
 
@@ -165,19 +170,43 @@ def _cnn_pair():
     return (jk, variables['params']), SmallCNN()
 
 
+def _embed_pair():
+    from test_distributed import EmbedNet as JaxEmbedNet
+    jk = JKFAC(JaxEmbedNet())
+    variables, _ = jk.init(jax.random.PRNGKey(0), jnp.zeros((2, 6),
+                                                            jnp.int32))
+    return (jk, variables['params']), EmbedNet()
+
+
+def _tied_lm_pair():
+    """The tiny tied Transformer of ``tests/test_sharing.py`` (vocabulary
+    37, d 16, 1 block, 2 heads, sequence 8)."""
+    jk = JKFAC(jtl.TransformerLM(vocab_size=37, d_model=16, num_layers=1,
+                                 num_heads=2, max_len=8, dropout=0.0,
+                                 tie_weights=True), skip_layers=[])
+    variables, _ = jk.init(jax.random.PRNGKey(0), jnp.zeros((2, 8),
+                                                            jnp.int32),
+                           train=False)
+    return (jk, variables['params']), transformer_lm.TransformerLM(
+        37, d_model=16, num_layers=1, num_heads=2, max_len=8, dropout=0.0,
+        tie_weights=True)
+
+
 _MODELS = {}
+_PAIRS = {'cnn': _cnn_pair, 'resnet32': _resnet32_pair,
+          'embed': _embed_pair, 'tied_lm': _tied_lm_pair}
 
 
 def _models(which):
     if which not in _MODELS:
-        _MODELS[which] = (_cnn_pair if which == 'cnn' else _resnet32_pair)()
+        _MODELS[which] = _PAIRS[which]()
     return _MODELS[which]
 
 
 @pytest.mark.parametrize('strategy', ['compute', 'memory'])
 @pytest.mark.parametrize('distribute', [True, False, None])
 @pytest.mark.parametrize('mesh', MESHES, ids=lambda m: f'{m[0]}x{m[1]}')
-@pytest.mark.parametrize('which', ['cnn', 'resnet32'])
+@pytest.mark.parametrize('which', list(_PAIRS))
 def test_assign_work_matches(which, mesh, distribute, strategy):
     (jk, jparams), model = _models(which)
     jk.assignment_strategy = strategy
@@ -191,6 +220,8 @@ def test_assign_work_matches(which, mesh, distribute, strategy):
     assert (got.n_rows, got.n_cols) == (want.n_rows, want.n_cols)
     assert got.layer_row == {n.replace('/', '.'): r
                              for n, r in want.layer_row.items()}
+    assert got.diag_layers == tuple(n.replace('/', '.')
+                                    for n in want.diag_layers)
     assert set(got.buckets) == set(want.buckets)
     for dim, plan in want.buckets.items():
         mine = got.buckets[dim]
@@ -215,3 +246,20 @@ def test_assign_work_matches(which, mesh, distribute, strategy):
                                 for n, v in w['slot_of'].items()}
         assert g['a_idx'] == w['a_idx'].tolist()
         assert g['g_idx'] == w['g_idx'].tolist()
+
+
+@pytest.mark.parametrize('mesh', [(4, 1), (4, 2), (8, 1)],
+                         ids=lambda m: f'{m[0]}x{m[1]}')
+def test_row_holding_only_the_embedding(mesh):
+    """On these grids LPT gives ``EmbedNet``'s embedding a row of its own:
+    the row's only bucket item is the embedding's G (exact against JAX in
+    ``test_assign_work_matches``), and every other layer's A and G lie in
+    other rows."""
+    _, model = _models('embed')
+    got = D.assign_work(KFAC(model, device='cpu'), *mesh)
+    row = got.layer_row['embed']
+    assert [n for n, r in got.layer_row.items() if r == row] == ['embed']
+    assert got.diag_layers == ('embed',)
+    in_row = [key for plan in got.buckets.values() for key in plan.slot
+              if got.layer_row[key[0]] == row]
+    assert in_row == [('embed', 'G')]
