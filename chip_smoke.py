@@ -79,11 +79,11 @@ Phases (any failure exits nonzero and prints no result line):
      finite losses, no jacobi_eigh launch;
  11. ResNet-32 under ``--eigh-method jacobi``: 11 steps, finite losses,
      jacobi_eigh 9 per firing besides phase 5's per-step launches;
- 12. the result (printed after phases 13-20): a JSON line of
+ 12. the result (printed after phases 13-22): a JSON line of
      per-kernel numbers (K1-K3 per ResNet-50 step, K4 per ResNet-50
      firing, K5 per LSTM firing, and under ``transformer_xl`` K1 and K3
      per XL step and K4 per XL firing; launches summed over phases 5-7,
-     9-11 and 13-20), the card line, then ``{"ok": true, "device":
+     9-11 and 13-22), the card line, then ``{"ok": true, "device":
      {...}}`` as the last line;
  13. distributed, NCCL at world size 1: phase 6's ResNet-50 run through
      ``train_imagenet_resnet.train`` inside a one-rank NCCL group
@@ -152,7 +152,9 @@ Phases (any failure exits nonzero and prints no result line):
      A too) and diagonal inverses (<= 1e-5), preconditioned gradients
      (<= 1e-4; the embedding's printed on its own) and KL-clip scale
      (<= 1e-5) held to the single-device ones, both K-FAC states on the
-     card at once (peak memory printed);
+     card at once (peak memory printed); then the ring's K/V shift over
+     NCCL from rank 0 to itself, forward and backward equal bit for bit
+     to the message and the incoming gradient;
  20. distributed LM, gloo: 4 ranks (subprocesses, all on ``cuda:0``) train
      the XL-width tied Transformer at 2 blocks (d 1024, 16 heads, MLP
      4096, vocabulary 32,768, BPTT 1024) on one sequence each of phase
@@ -167,12 +169,38 @@ Phases (any failure exits nonzero and prints no result line):
      gradient: two fp32 Cholesky schedules part by ~1e-4 on a bias block
      alone, see PERF.md); every rank's launches equal what its assignment
      predicts (K1 on every dense side of its captures, K3 once per shape
-     group its row owns, K4 once per bucket it holds a slot of); then
+     group its row owns, K4 once per bucket it holds a slot of), every
+     rank's factors and preconditioned gradients equal bit for bit on
+     each step (digests); then
      the LM CLI itself on the 4 ranks, the LSTM at PTB-medium widths,
      ``--comm-method hybrid-opt --grad-worker-fraction 0.5
      --inverse-method eigen --eigh-method jacobi``, 3 steps: every rank's
      losses identical, K5 per firing equal to the rank's buckets; step
-     times print labelled as gloo through host memory.
+     times print labelled as gloo through host memory;
+ 21. the chunked attention fold: ``chunked_causal_attention`` at (B 4,
+     T 4096, H 16, D 64), blocks of 512, against ``local_causal_attention``
+     on the same inputs (output <= 1e-5, q/k/v gradients <= 1e-4,
+     relative to the largest plain entry), forward + backward ms and the
+     peak memory of each; then phase 15's run under ``--attn-block-size
+     256``, 12 steps: every loss finite and falling, steps 0-2 within 1e-4
+     relative of phase 15's (the fold reorders the softmax sums), phase
+     15's launches, step times and peak memory beside phase 15's;
+ 22. sequence parallelism, gloo: 4 ranks (subprocesses, all on
+     ``cuda:0``) train phase 20's model (XL width, 2 blocks) with its
+     attention a ring over sequence groups, each rank on its tile of
+     phase 15's batch (K-FAC rank ``rank // sp`` its sequences, sequence
+     index ``rank % sp`` its block of positions and ``pos_offset``):
+     sp 4 x dp 1 ``expand`` (grid 1 x 1), sp 2 x dp 2 MEM_OPT ``expand`` +
+     ``newton``, sp 2 x dp 2 COMM_OPT ``reduce``, 3 steps each, inverses
+     every 2nd; rank 0 holds every ``expand`` step against the
+     single-device ``KFAC`` on the full batch (phase 20's tolerances and
+     fp64 rule), every rank's factors and preconditioned gradients equal
+     every other rank's bit for bit on each step (digests), every rank's
+     launches equal its assignment; then the LM CLI itself, the XL-width
+     Transformer at 2 blocks with ``--seq-parallel 2`` (2 K-FAC ranks x
+     2 sequence ranks), 3 steps: every rank's losses identical and
+     finite, launches equal the assignment; step times print labelled as
+     gloo through host memory.
 
 ``--quick`` builds with ``-Xptxas -v`` and runs only the correctness
 checks of phases 3, 4 and 8 (a first call after a kernel change).
@@ -299,6 +327,22 @@ XL_SHARED_EXPAND_STEPS, XL_SHARED_REDUCE_STEPS = XL_STEPS, 3
 # Phase 20: the XL width at 2 blocks on 4 gloo ranks (one sequence each),
 # 3 steps per case, inverses every 2nd.
 LM_GLOO_LAYERS, LM_GLOO_STEPS, LM_GLOO_INV_FREQ = 2, 3, 2
+# Phase 21: the chunked fold alone at a long sequence (batch 4, 4096
+# tokens, 16 heads of 64), blocks of 512, then phase 15's run in blocks of
+# 256; its losses held to phase 15's on the first three steps.
+ATTN_SHAPE, ATTN_BLOCK, XL_ATTN_BLOCK = (4, 4096, 16, 64), 512, 256
+CHUNKED_OUT_TOL, CHUNKED_GRAD_TOL = 1e-5, 1e-4
+XL_CHUNKED_LOSS_TOL, XL_CHUNKED_HELD = 1e-4, 3
+# Phase 22: phase 20's width on 4 gloo ranks, the sequence sharded:
+# (name, seq_parallel, comm_method, fraction, grid, KFAC knobs); then the
+# LM CLI with --seq-parallel SEQ_CLI_SP.
+SEQ_GLOO_CASES = (
+    ('sp4_expand', 4, 'comm-opt', 0.0, (1, 1), {'kfac_approx': 'expand'}),
+    ('sp2_mem_opt_expand_newton', 2, 'mem-opt', 0.0, (2, 1),
+     {'kfac_approx': 'expand', 'inverse_method': 'newton'}),
+    ('sp2_comm_opt_reduce', 2, 'comm-opt', 0.0, (1, 2),
+     {'kfac_approx': 'reduce'}))
+SEQ_CLI_SP = 2
 R50_NS_BUCKETS = ((64, 12), (128, 12), (147, 1), (256, 26), (512, 19),
                   (576, 3), (1000, 1), (1024, 14), (1152, 4), (2048, 6),
                   (2049, 1), (2304, 6), (4608, 3))
@@ -2004,16 +2048,18 @@ def run_transformer_defaults(card: str) -> dict:
 # Phases 19-20: the language model over DistributedKFAC
 # ---------------------------------------------------------------------------
 
-def _xl_model(layers: int, dev):
+def _xl_model(layers: int, dev, seq_group=None):
     """The XL-width tied Transformer at ``layers`` blocks, dropout 0,
-    built on ``dev`` from seed 0."""
+    built on ``dev`` from seed 0 (attention a ring over ``seq_group`` when
+    given)."""
     import torch
     from distributed_kfac_pytorch_tpu_torch.models import transformer_lm
     with torch.random.fork_rng(devices=[dev]), dev:
         torch.manual_seed(0)
         return transformer_lm.TransformerLM(
             XL_VOCAB, d_model=XL_D, num_layers=layers, num_heads=XL_HEADS,
-            max_len=XL_BPTT, dropout=0.0, tie_weights=True)
+            max_len=XL_BPTT, dropout=0.0, tie_weights=True,
+            seq_group=seq_group)
 
 
 def _step_errors(dk, dk_state, p_dk, kfac, ref_state, p_ref) -> dict:
@@ -2105,6 +2151,40 @@ STEP_ERROR_TOL = {'factors': STEP_TOL['factors'],
                   'nu': STEP_TOL['nu']}
 
 
+def _held_step(dk, state, precond, ref, ref_state, p_ref, fired, twin, x,
+               y, fp64: dict) -> tuple[dict, dict]:
+    """Rank 0's errors of one distributed step against the single-device
+    ``KFAC`` on the full batch (:func:`_step_errors`) and those over
+    STEP_ERROR_TOL. Two fp32 paths can part by more than the gradient
+    limit on a small block of a layer's matrix (a bias column): each unit
+    with such a tensor is held instead to the fp64 recomputation of its
+    own step (the factors of its last firing, ``fired``; the full batch's
+    fp64 gradient from ``twin``'s fp64 copy, kept in ``fp64``), relative
+    to the unit's largest entry."""
+    err = _step_errors(dk, state, precond, ref, ref_state, p_ref)
+    over = [n for n, e in _per_tensor_rel(precond, p_ref).items()
+            if e > STEP_TOL['precond']]
+    if over:
+        if 'model' not in fp64:
+            fp64['model'] = _xl_model(LM_GLOO_LAYERS, x.device).double()
+        g64 = _fp64_grads(fp64['model'], twin, x, y)
+        exact_dk = _fp64_precond(ref, fired[0], float(dk.last_nu), g64)
+        exact_ref = _fp64_precond(ref, fired[1], float(ref.last_nu), g64)
+        mine, theirs = (_as_units(ref, p) for p in (precond, p_ref))
+        err['fp64'] = {u: {
+            'distributed': _max_rel([(mine[u].double(), exact_dk[u])]),
+            'single_device': _max_rel([(theirs[u].double(), exact_ref[u])]),
+            'factor_spread': _max_rel([(exact_dk[u], exact_ref[u])])}
+            for u in {_unit(ref, n) for n in over}}
+    bad = {k: err[k] for k in STEP_ERROR_TOL
+           if not err[k] <= STEP_ERROR_TOL[k]}
+    if over and all(e['distributed'] <= STEP_TOL['precond']
+                    for e in err['fp64'].values()):
+        bad.pop('precond', None)
+        bad.pop('embed_precond', None)
+    return err, bad
+
+
 def run_transformer_xl_nccl(card: str, xl: dict) -> dict:
     """Phase 19: phase 15's run through ``train_language_model.train``
     inside a one-rank NCCL group (``--comm-method comm-opt``): the same
@@ -2132,6 +2212,7 @@ def run_transformer_xl_nccl(card: str, xl: dict) -> dict:
             raise AssertionError(f'phase 19 ran {kind}, distributed '
                                  f'{distributed}')
         shared = _xl_shared_inputs()
+        shift = _nccl_self_shift()
     finally:
         dist.destroy_process_group()
     losses = res['losses']
@@ -2154,7 +2235,7 @@ def run_transformer_xl_nccl(card: str, xl: dict) -> dict:
                'peak_gib': res['peak_gib'],
                'phase15_nonfiring_ms_median': xl['nonfiring_ms_median'],
                'phase15_firing_ms': xl['firing_ms'],
-               'shared_inputs': shared,
+               'shared_inputs': shared, 'nccl_self_shift': shift,
                'seconds': time.perf_counter() - t0}
     log(f'  relative to phase 15 per step: {[f"{r:.1e}" for r in rel]}; '
         f'launches {launches}')
@@ -2165,6 +2246,30 @@ def run_transformer_xl_nccl(card: str, xl: dict) -> dict:
         f'{[round(t, 2) for t in xl["firing_ms"]]} ({card})')
     log(f'  phase 19: {summary["seconds"]:.1f} s wall')
     return summary
+
+
+def _nccl_self_shift() -> dict:
+    """The ring shift's NCCL transport inside phase 19's one-rank group:
+    rank 0 shifts a phase-22-sized K/V message to itself; the result must
+    equal the message and the reverse shift of the backward pass the
+    incoming gradient, bit for bit. (A ring of more ranks needs more
+    cards: this is the one run of the shift over NCCL.)"""
+    import torch
+    import torch.distributed as dist
+    from distributed_kfac_pytorch_tpu_torch.parallel import sequence
+    gen = torch.Generator(device='cuda').manual_seed(19)
+    shape = (2, XL_BATCH, XL_BPTT // 4, XL_HEADS, XL_D // XL_HEADS)
+    x = torch.randn(shape, generator=gen, device='cuda', requires_grad=True)
+    w = torch.randn(shape, generator=gen, device='cuda')
+    y = sequence._RingShift.apply(x, dist.group.WORLD, 0, 0)
+    (y * w).sum().backward()
+    equal = {'forward': torch.equal(y.detach(), x.detach()),
+             'backward': torch.equal(x.grad, w)}
+    log(f'  the ring shift over NCCL, rank 0 to itself, {list(shape)}: '
+        f'forward and backward equal bit for bit {equal}')
+    if not all(equal.values()):
+        raise AssertionError(f'NCCL self shift: {equal}')
+    return {'shape': list(shape), **equal}
 
 
 def _xl_shared_inputs() -> dict:
@@ -2241,65 +2346,81 @@ def _xl_shared_inputs() -> dict:
 
 
 # (name, comm method, grad-worker fraction, expected grid, KFAC knobs)
-LM_GLOO_CASES = (
-    ('comm_opt_expand', 'comm-opt', 0.0, (1, 4), {'kfac_approx': 'expand'}),
-    ('mem_opt_reduce', 'mem-opt', 0.0, (4, 1), {'kfac_approx': 'reduce'}),
-    ('hybrid_opt_reduce_newton', 'hybrid-opt', 0.5, (2, 2),
+LM_GLOO_CASES = (  # (name, seq_parallel, comm_method, fraction, grid, knobs)
+    ('comm_opt_expand', 1, 'comm-opt', 0.0, (1, 4),
+     {'kfac_approx': 'expand'}),
+    ('mem_opt_reduce', 1, 'mem-opt', 0.0, (4, 1), {'kfac_approx': 'reduce'}),
+    ('hybrid_opt_reduce_newton', 1, 'hybrid-opt', 0.5, (2, 2),
      {'kfac_approx': 'reduce', 'inverse_method': 'newton',
       'symmetry_aware_comm': True}))
 
 
-def lm_dist_worker(cfg: dict) -> int:
-    """One rank of phase 20 (``chip_smoke.py --dist-worker CONFIG`` with
-    ``phase`` 'lm'): the XL-width tied Transformer at LM_GLOO_LAYERS
-    blocks on this rank's sequence of the fixed global batch of
-    XL_BATCH, every case of LM_GLOO_CASES in turn (rank 0 holds each step
-    against the single-device KFAC on the full batch), then the LM CLI
-    itself for the LSTM (PTB medium, HYBRID_OPT 2 x 2, eigen + jacobi)."""
+def _digest(*dicts) -> str:
+    """A hash of every tensor of ``dicts`` (nested one level for factor
+    dicts), in key order: equal digests mean equal bits."""
+    import hashlib
+    h = hashlib.blake2b(digest_size=16)
+    for d in dicts:
+        for key in sorted(d):
+            value = d[key]
+            for t in (value.values() if isinstance(value, dict)
+                      else (value,)):
+                h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _lm_gloo_cases(cases, rank: int) -> tuple[list, list]:
+    """Every case ``(name, sp, comm_method, fraction, grid, knobs)`` on
+    this rank of a gloo world (phases 20 and 22): the XL-width tied
+    Transformer at LM_GLOO_LAYERS blocks, its attention a ring over this
+    rank's sequence group when ``sp > 1``, on its tile of the fixed
+    global batch (K-FAC rank ``rank // sp`` takes its sequences, sequence
+    index ``rank % sp`` its block of positions), LM_GLOO_STEPS steps,
+    inverses every LM_GLOO_INV_FREQ-th. Where the step is the
+    single-device step on the full batch (``sp == 1`` or ``expand``),
+    rank 0 holds it there (:func:`_held_step`); every rank records a
+    digest of each step's factors and preconditioned gradients, and its
+    launches and grid place are held to its assignment. Returns the
+    case reports and the failures."""
     import torch
     import torch.distributed as dist
-    from distributed_kfac_pytorch_tpu_torch import launch, \
-        set_fp32_precision, train_language_model
+    from distributed_kfac_pytorch_tpu_torch import launch
     from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    from distributed_kfac_pytorch_tpu_torch.parallel import sequence
     from distributed_kfac_pytorch_tpu_torch.parallel.distributed import \
         DistributedKFAC
     from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
     from distributed_kfac_pytorch_tpu_torch.training import engine
 
-    set_fp32_precision()
-    meta = launch.initialize_distributed(
-        init_method=f'file://{cfg["store"]}', backend='gloo',
-        device='cuda:0', timeout=600)
-    rank = meta['process_index']
     dev = torch.device('cuda:0')
     x, y = (torch.as_tensor(t, device=dev).long()
             for t in _xl_first_window())
-    local = launch.process_local_slice(XL_BATCH)
-    model = _xl_model(LM_GLOO_LAYERS, dev)
-    init = {k: v.clone() for k, v in model.state_dict().items()}
+    groups = {sp: sequence.make_sequence_group(sp)
+              for sp in sorted({c[1] for c in cases})}
     # Rank 0's reference runs on a twin of the model, loaded with the
     # model's parameters before each of its steps: two captures on one
     # model would nest the tied embedding's wrapped attend call.
     twin = _xl_model(LM_GLOO_LAYERS, dev) if rank == 0 else None
-    model64 = None
+    fp64 = {}       # rank 0's fp64 twin, built at its first use
     knobs = dict(damping=0.003, factor_update_freq=1,
                  inv_update_freq=LM_GLOO_INV_FREQ, kl_clip=0.001, lr=1.0,
                  device=dev)
-    report = {'rank': rank, 'cases': []}
-    failures = []
-    for name, comm, frac, grid, extra in LM_GLOO_CASES:
-        model.load_state_dict(init)
+    out, failures = [], []
+    for name, sp, comm, frac, grid, extra in cases:
+        rows, cols = launch.process_local_tile(XL_BATCH, XL_BPTT, sp)
+        model = _xl_model(LM_GLOO_LAYERS, dev, groups[sp])
         kfac = KFAC(model, **knobs, **extra)
         dk = DistributedKFAC(kfac, comm_method=comm,
-                             grad_worker_fraction=frac)
+                             grad_worker_fraction=frac, seq_parallel=sp)
         work = dk.local_work()
         state = dk.init_state()
+        expand = extra['kfac_approx'] == 'expand'
         ref = ref_state = None
-        if rank == 0:
+        if rank == 0 and (sp == 1 or expand):
             ref = KFAC(twin, **knobs, **extra)
             ref_state = ref.init_state()
         launches = dict.fromkeys(kernels.LAUNCHES, 0)
-        errors, step_ms = [], []
+        errors, step_ms, digests = [], [], []
         firings = 0
         for step in range(LM_GLOO_STEPS):
             inv = step % LM_GLOO_INV_FREQ == 0
@@ -2309,7 +2430,8 @@ def lm_dist_worker(cfg: dict) -> int:
             kernels.reset_launches()
             t0 = time.perf_counter()
             _, _, grads, captures = kfac.capture.loss_and_grads(
-                lambda o: engine.lm_loss(o, y[local]), x[local])
+                lambda o: engine.lm_loss(o, y[rows, cols]), x[rows, cols],
+                pos_offset=cols.start)
             grads = dict(zip(grads, engine.world_mean(list(grads.values()))))
             precond, state = dk.step(state, grads, captures,
                                      factor_update=True, inv_update=inv)
@@ -2318,7 +2440,8 @@ def lm_dist_worker(cfg: dict) -> int:
             for k, v in kernels.LAUNCHES.items():
                 launches[k] += v
             del grads, captures
-            if rank == 0:
+            digests.append(_digest(state['factors'], precond))
+            if ref is not None:
                 twin.load_state_dict(model.state_dict())
                 _, _, g_full, c_full = ref.capture.loss_and_grads(
                     lambda o: engine.lm_loss(o, y), x)
@@ -2327,42 +2450,9 @@ def lm_dist_worker(cfg: dict) -> int:
                                             inv_update=inv)
                 if inv:     # the factors the inverses were taken from
                     fired = (state['factors'], ref_state['factors'])
-                err = _step_errors(dk, state, precond, ref, ref_state,
-                                   p_ref)
+                err, bad = _held_step(dk, state, precond, ref, ref_state,
+                                      p_ref, fired, twin, x, y, fp64)
                 errors.append(err)
-                over = [n for n, e in _per_tensor_rel(precond, p_ref).items()
-                        if e > STEP_TOL['precond']]
-                if over:
-                    # Two fp32 paths can part by more than this on a small
-                    # block of a layer's matrix (a bias column): each unit
-                    # with such a tensor is held to the fp64 recomputation
-                    # of its own step (the factors of its last firing, the
-                    # full batch's fp64 gradient), relative to the unit's
-                    # largest entry.
-                    if model64 is None:
-                        model64 = _xl_model(LM_GLOO_LAYERS, dev).double()
-                    g64 = _fp64_grads(model64, twin, x, y)
-                    exact_dk = _fp64_precond(ref, fired[0],
-                                             float(dk.last_nu), g64)
-                    exact_ref = _fp64_precond(ref, fired[1],
-                                              float(ref.last_nu), g64)
-                    mine, theirs = (_as_units(ref, p)
-                                    for p in (precond, p_ref))
-                    err['fp64'] = {u: {
-                        'distributed': _max_rel([(mine[u].double(),
-                                                  exact_dk[u])]),
-                        'single_device': _max_rel([(theirs[u].double(),
-                                                    exact_ref[u])]),
-                        'factor_spread': _max_rel([(exact_dk[u],
-                                                    exact_ref[u])])}
-                        for u in {_unit(ref, n) for n in over}}
-                    del g64, exact_dk, exact_ref, mine, theirs
-                bad = {k: err[k] for k in STEP_ERROR_TOL
-                       if not err[k] <= STEP_ERROR_TOL[k]}
-                if over and all(e['distributed'] <= STEP_TOL['precond']
-                                for e in err['fp64'].values()):
-                    bad.pop('precond', None)
-                    bad.pop('embed_precond', None)
                 if bad:
                     failures.append(f'{name} step {step}: {bad} (worst '
                                     f'gradient {err["precond_worst"]}; '
@@ -2372,115 +2462,314 @@ def lm_dist_worker(cfg: dict) -> int:
                 for n, p in model.named_parameters():
                     p -= precond[n]
             del precond
-        reduced = extra['kfac_approx'] == 'reduce'
         expected = dict.fromkeys(kernels.LAUNCHES, 0)
         expected.update({
             # Every dense side of this rank's captures, and the untied-
             # statistics embedding's G under expand.
-            'factor_ema': (12 * LM_GLOO_LAYERS + (not reduced))
-                          * LM_GLOO_STEPS,
+            'factor_ema': (12 * LM_GLOO_LAYERS + expand) * LM_GLOO_STEPS,
             'bucket_precond': len(work['precondition']) * LM_GLOO_STEPS})
         if extra.get('inverse_method') == 'newton':
             expected['ns_inverse'] = len(work['decompose']) * firings
         if launches != expected:
             failures.append(f'{name}: rank {rank} launches {launches}, '
                             f'expected {expected} from the assignment')
-        if (dk.n_rows, dk.n_cols) != grid:
-            failures.append(f'{name}: grid {(dk.n_rows, dk.n_cols)}')
-        report['cases'].append({
-            'name': name, 'grid': [dk.n_rows, dk.n_cols],
-            'row': dk.row, 'col': dk.col, 'work': {
-                'decompose': work['decompose'],
-                'precondition': [list(s) for s in work['precondition']]},
-            'launches': launches, 'expected': expected,
+        k_rank = rank // sp
+        if ((dk.n_rows, dk.n_cols) != grid
+                or (dk.row, dk.col) != divmod(k_rank, grid[1])):
+            failures.append(f'{name}: rank {rank} at {(dk.row, dk.col)} of '
+                            f'grid {(dk.n_rows, dk.n_cols)}')
+        out.append({
+            'name': name, 'seq_parallel': sp, 'kfac_rank': k_rank,
+            'grid': [dk.n_rows, dk.n_cols], 'row': dk.row, 'col': dk.col,
+            'tile': [[rows.start, rows.stop], [cols.start, cols.stop]],
+            'work': {'decompose': work['decompose'],
+                     'precondition': [list(s) for s in work['precondition']]},
+            'launches': launches, 'expected': expected, 'digests': digests,
             'errors': errors, 'step_ms': step_ms})
         kfac.capture.close()
         if ref is not None:
             ref.capture.close()
-        del kfac, dk, state, ref, ref_state
+        del model, kfac, dk, state, ref, ref_state
         _release()
-    del model, init, twin, model64
+    del twin, fp64
     _release()
-    # The LM CLI itself, the LSTM over the same 4 ranks.
+    return out, failures
+
+
+def _gloo_cli_case(rank: int, name: str, config: dict, expected_fn,
+                   seq_parallel: int = 1) -> tuple[dict, list]:
+    """The LM CLI itself on the gloo world: ``config`` through
+    ``train_language_model.train`` with the launch counts reset just
+    before; fails unless K-FAC ran as ``DistributedKFAC`` (with
+    ``seq_parallel`` ranks per sequence group, its attention a ring when
+    more than one), every loss is finite and the launches equal
+    ``expected_fn(work, firings)`` from the rank's assignment."""
+    from distributed_kfac_pytorch_tpu_torch import train_language_model
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
     kernels.reset_launches()
-    res = train_language_model.train(_lm_config(
-        max_steps=LM_GLOO_STEPS, inverse_method='eigen',
-        eigh_method='jacobi', comm_method='hybrid-opt',
-        grad_worker_fraction=0.5), device='cuda')
+    res = train_language_model.train(config, device='cuda')
     launches = dict(kernels.LAUNCHES)
     st = res.pop('state')
-    work = st.kfac.local_work()
+    dk = st.kfac
+    work = dk.local_work()
     firings = res['fired'].count('inverse')
     expected = dict.fromkeys(kernels.LAUNCHES, 0)
-    expected.update({
-        'bucket_precond': len(work['precondition']) * LM_GLOO_STEPS,
-        'jacobi_eigh': len(work['decompose']) * firings})
-    if type(st.kfac).__name__ != 'DistributedKFAC' or not st.distributed:
-        failures.append('LSTM CLI: not DistributedKFAC')
+    expected.update(expected_fn(work, firings))
+    attn = getattr(st.model, 'block0', None)
+    ring = attn is not None and attn.attn.seq_group is not None
+    failures = []
+    if (type(dk).__name__ != 'DistributedKFAC' or not st.distributed
+            or dk.seq_parallel != seq_parallel
+            or ring != (seq_parallel > 1)):
+        failures.append(f'{name}: not a DistributedKFAC with seq_parallel '
+                        f'{seq_parallel}')
     if launches != expected:
-        failures.append(f'LSTM CLI: rank {rank} launches {launches}, '
+        failures.append(f'{name}: rank {rank} launches {launches}, '
                         f'expected {expected} from the assignment')
     if not all(math.isfinite(v) for v in res['losses']):
-        failures.append(f'LSTM CLI: losses {res["losses"]}')
-    report['cases'].append({
-        'name': 'lstm_cli_hybrid_jacobi',
-        'grid': [st.kfac.n_rows, st.kfac.n_cols], 'row': st.kfac.row,
-        'col': st.kfac.col, 'work': {
-            'decompose': work['decompose'],
-            'precondition': [list(s) for s in work['precondition']]},
-        'launches': launches, 'expected': expected,
-        'losses': res['losses'], 'val': res['val']['loss'],
-        'firings': firings, 'errors': [], 'step_ms': res['step_ms']})
+        failures.append(f'{name}: losses {res["losses"]}')
+    case = {'name': name, 'seq_parallel': seq_parallel,
+            'kfac_rank': rank // seq_parallel,
+            'grid': [dk.n_rows, dk.n_cols], 'row': dk.row, 'col': dk.col,
+            'work': {'decompose': work['decompose'],
+                     'precondition': [list(s) for s in work['precondition']]},
+            'launches': launches, 'expected': expected,
+            'losses': res['losses'], 'val': res['val']['loss'],
+            'firings': firings, 'digests': [], 'errors': [],
+            'step_ms': res['step_ms']}
     st.kfac.capture.close()
-    report['failures'] = failures
+    return case, failures
+
+
+def _gloo_lm_rank(cfg: dict, cases, cli) -> int:
+    """One rank of phase 20 or 22 (``chip_smoke.py --dist-worker CONFIG``
+    with ``phase`` 'lm' or 'seq'): :func:`_lm_gloo_cases` over ``cases``,
+    then ``cli()``, the LM CLI case; writes the rank's report."""
+    import torch.distributed as dist
+    from distributed_kfac_pytorch_tpu_torch import launch, set_fp32_precision
+    set_fp32_precision()
+    meta = launch.initialize_distributed(
+        init_method=f'file://{cfg["store"]}', backend='gloo',
+        device='cuda:0', timeout=600)
+    rank = meta['process_index']
+    report = {'rank': rank}
+    report['cases'], failures = _lm_gloo_cases(cases, rank)
+    case, more = cli(rank)
+    report['cases'].append(case)
+    report['failures'] = failures + more
     Path(cfg['out']).write_text(json.dumps(report, indent=1))
     dist.destroy_process_group()
-    return 1 if failures else 0
+    return 1 if report['failures'] else 0
 
 
-def run_lm_gloo_world(card: str) -> dict:
-    """Phase 20: GLOO_WORLD ranks on the one card over gloo, every case
-    of LM_GLOO_CASES and the LSTM CLI case; fails if any rank fails or
-    the ranks' LSTM losses differ."""
+def lm_dist_worker(cfg: dict) -> int:
+    """A rank of phase 20: LM_GLOO_CASES (one sequence per rank), then the
+    LM CLI for the LSTM (PTB medium, HYBRID_OPT 2 x 2, eigen + jacobi)."""
+    return _gloo_lm_rank(cfg, LM_GLOO_CASES, lambda rank: _gloo_cli_case(
+        rank, 'lstm_cli_hybrid_jacobi', _lm_config(
+            max_steps=LM_GLOO_STEPS, inverse_method='eigen',
+            eigh_method='jacobi', comm_method='hybrid-opt',
+            grad_worker_fraction=0.5),
+        lambda work, firings: {
+            'bucket_precond': len(work['precondition']) * LM_GLOO_STEPS,
+            'jacobi_eigh': len(work['decompose']) * firings}))
+
+
+def seq_dist_worker(cfg: dict) -> int:
+    """A rank of phase 22: SEQ_GLOO_CASES (the ring), then the LM CLI for
+    the XL-width Transformer at LM_GLOO_LAYERS blocks with
+    ``--seq-parallel SEQ_CLI_SP`` (COMM_OPT over the K-FAC ranks)."""
+    return _gloo_lm_rank(cfg, SEQ_GLOO_CASES, lambda rank: _gloo_cli_case(
+        rank, f'transformer_cli_seq_parallel_{SEQ_CLI_SP}', _xl_config(
+            nlayers=LM_GLOO_LAYERS, max_steps=LM_GLOO_STEPS,
+            kfac_update_freq=LM_GLOO_INV_FREQ, seq_parallel=SEQ_CLI_SP,
+            comm_method='comm-opt'),
+        lambda work, firings: {
+            'factor_ema': (12 * LM_GLOO_LAYERS + 1) * LM_GLOO_STEPS,
+            'bucket_precond': len(work['precondition']) * LM_GLOO_STEPS},
+        seq_parallel=SEQ_CLI_SP))
+
+
+def _run_lm_gloo(phase: str, number: int, card: str) -> dict:
+    """Phase 20 (``phase`` 'lm') or 22 ('seq'): GLOO_WORLD ranks on the one
+    card over gloo; fails if any rank fails, if the ranks' digests of any
+    step differ (every rank ends a step with the same factors and
+    preconditioned gradients), or if the ranks' CLI losses differ."""
     t0 = time.perf_counter()
-    reports = _run_gloo_ranks('lm')
+    reports = _run_gloo_ranks(phase)
+    for i, case in enumerate(reports[0]['cases']):
+        digests = [rep['cases'][i]['digests'] for rep in reports]
+        if any(d != digests[0] for d in digests):
+            raise AssertionError(f'{case["name"]}: the ranks\' factors or '
+                                 f'preconditioned gradients differ: '
+                                 f'{digests}')
     cli = [rep['cases'][-1] for rep in reports]
     if any(c['losses'] != cli[0]['losses'] or c['val'] != cli[0]['val']
            for c in cli):
-        raise AssertionError(f'LSTM CLI: the ranks\' losses differ: '
+        raise AssertionError(f'{cli[0]["name"]}: the ranks\' losses differ: '
                              f'{[c["losses"] for c in cli]}')
     total = _launch_total(reports)
-    for i, (name, *_rest) in enumerate(LM_GLOO_CASES):
-        errs = reports[0]['cases'][i]['errors']
-        worst = {k: max(e[k] for e in errs) for k in STEP_ERROR_TOL}
-        log(f'  {name} grid {reports[0]["cases"][i]["grid"]}: rank 0 vs '
-            f'single-device KFAC, worst of {len(errs)} steps: '
-            + ', '.join(f'{k} {v:.2e}' for k, v in worst.items())
-            + f' ({max(errs, key=lambda e: e["precond"])["precond_worst"]})')
-        for step, e in enumerate(errs):
-            for n, v in e.get('fp64', {}).items():
-                log(f'    step {step} {n}: a tensor over '
-                    f'{STEP_TOL["precond"]}; the unit vs its fp64 '
-                    f'recomputation: distributed {v["distributed"]:.2e}, '
-                    f'single-device {v["single_device"]:.2e}; the two '
-                    f'fp64 results (their factors) '
-                    f'{v["factor_spread"]:.2e} apart')
     for i, case in enumerate(reports[0]['cases']):
-        if case['name'].startswith('lstm'):
-            log(f'  {case["name"]} grid {case["grid"]}: losses '
-                f'{[round(v, 4) for v in case["losses"]]} on every rank, '
-                f'{case["firings"]} firing')
+        errs = case['errors']
+        head = (f'  {case["name"]} grid {case["grid"]}, sp '
+                f'{case["seq_parallel"]}: ')
+        if errs:
+            worst = {k: max(e[k] for e in errs) for k in STEP_ERROR_TOL}
+            tensor = max(errs, key=lambda e: e['precond'])['precond_worst']
+            log(head + f'rank 0 vs single-device KFAC, worst of {len(errs)} '
+                'steps: ' + ', '.join(f'{k} {v:.2e}'
+                                      for k, v in worst.items())
+                + f' ({tensor})')
+            for step, e in enumerate(errs):
+                for n, v in e.get('fp64', {}).items():
+                    log(f'    step {step} {n}: a tensor over '
+                        f'{STEP_TOL["precond"]}; the unit vs its fp64 '
+                        f'recomputation: distributed '
+                        f'{v["distributed"]:.2e}, single-device '
+                        f'{v["single_device"]:.2e}; the two fp64 results '
+                        f'(their factors) {v["factor_spread"]:.2e} apart')
+        if 'losses' in case:
+            log(head + f'losses {[round(v, 4) for v in case["losses"]]} '
+                f'on every rank, {case["firings"]} firing(s)')
+        elif not errs:
+            log(head + 'every rank\'s factors and preconditioned gradients '
+                'equal bit for bit on each step')
         for rep in reports:
             c = rep['cases'][i]
-            log(f'    rank {rep["rank"]} (row {c["row"]}, col {c["col"]}): '
-                f'launches { {k: v for k, v in c["launches"].items() if v} }'
-                f' = assignment; step ms (gloo through host memory, '
+            log(f'    rank {rep["rank"]} (K-FAC rank {c["kfac_rank"]}, row '
+                f'{c["row"]}, col {c["col"]}): launches '
+                f'{ {k: v for k, v in c["launches"].items() if v} } = '
+                f'assignment; step ms (gloo through host memory, '
                 f'{GLOO_WORLD} ranks on one card) '
                 f'{[round(t, 1) for t in c["step_ms"]]}')
     seconds = time.perf_counter() - t0
-    log(f'  all ranks: launches {total}; phase 20: {seconds:.1f} s wall '
-        f'({card})')
+    log(f'  all ranks: launches {total}; phase {number}: {seconds:.1f} s '
+        f'wall ({card})')
     return {'launches': total, 'ranks': reports, 'seconds': seconds}
+
+
+def run_lm_gloo_world(card: str) -> dict:
+    """Phase 20: LM_GLOO_CASES and the LSTM CLI on 4 gloo ranks."""
+    return _run_lm_gloo('lm', 20, card)
+
+
+# ---------------------------------------------------------------------------
+# Phases 21-22: the chunked attention fold and the ring
+# ---------------------------------------------------------------------------
+
+def _attention_run(fn, q, k, v, w) -> dict:
+    """``fn(q, k, v)`` and the gradients of ``sum(fn * w)``, twice (the
+    second timed with the host clock after ``synchronize``); the peak
+    memory of a run above what was allocated before it."""
+    import torch
+    for _ in range(2):
+        _release()
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*leaves)
+        (out * w).sum().backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    return {'out': out.detach(), 'grads': [t.grad for t in leaves],
+            'ms': ms, 'peak_gib': peak}
+
+
+def check_chunked_attention(card: str) -> dict:
+    """Phase 21, first part: ``chunked_causal_attention`` at ATTN_SHAPE,
+    block ATTN_BLOCK, against ``local_causal_attention`` on the same
+    inputs: the output (<= 1e-5) and the q/k/v gradients (<= 1e-4),
+    relative to the largest plain entry; forward + backward ms and peak
+    memory of each."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.parallel import sequence
+    gen = torch.Generator(device='cuda').manual_seed(21)
+    q, k, v, w = (torch.randn(ATTN_SHAPE, generator=gen, device='cuda')
+                  for _ in range(4))
+    local = _attention_run(sequence.local_causal_attention, q, k, v, w)
+    chunked = _attention_run(
+        lambda q, k, v: sequence.chunked_causal_attention(
+            q, k, v, block_size=ATTN_BLOCK), q, k, v, w)
+    errs = {'out': _max_rel([(chunked['out'], local['out'])])}
+    errs.update({f'grad_{n}': _max_rel([(a, b)]) for n, a, b in zip(
+        'qkv', chunked['grads'], local['grads'])})
+    summary = {'shape': list(ATTN_SHAPE), 'block': ATTN_BLOCK,
+               'rel_err': errs,
+               'ms': {'local': local['ms'], 'chunked': chunked['ms']},
+               'peak_gib': {'local': local['peak_gib'],
+                            'chunked': chunked['peak_gib']}}
+    log(f'  attention {ATTN_SHAPE}, block {ATTN_BLOCK}: chunked vs local '
+        + ', '.join(f'{n} {e:.2e}' for n, e in errs.items())
+        + f'; forward + backward {chunked["ms"]:.1f} ms, peak '
+        f'{chunked["peak_gib"]:.2f} GiB (local {local["ms"]:.1f} ms, '
+        f'{local["peak_gib"]:.2f} GiB) ({card})')
+    bad = {n: e for n, e in errs.items()
+           if not e <= (CHUNKED_OUT_TOL if n == 'out' else CHUNKED_GRAD_TOL)}
+    del local, chunked, q, k, v, w
+    _release()
+    if bad:
+        raise AssertionError(f'chunked attention vs local: {bad}')
+    return summary
+
+
+def run_transformer_xl_chunked(card: str, xl: dict) -> dict:
+    """Phase 21: the fold alone (:func:`check_chunked_attention`), then
+    phase 15's run under ``--attn-block-size XL_ATTN_BLOCK``: every loss
+    finite and falling, steps 0-2 within XL_CHUNKED_LOSS_TOL relative of
+    phase 15's (the fold reorders the softmax sums), phase 15's launches;
+    step times and peak memory beside phase 15's."""
+    t0 = time.perf_counter()
+    attention = check_chunked_attention(card)
+    res, launches, state = _run_tlm(
+        'transformer-xl chunked', _xl_config(attn_block_size=XL_ATTN_BLOCK),
+        XL_PER_STEP, 2)
+    block = state.model.block0.attn.attn_block_size
+    del state
+    _release()
+    if block != XL_ATTN_BLOCK:
+        raise AssertionError(f'phase 21 model block size {block}')
+    losses = res['losses']
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, xl['losses'])]
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not last < first:
+        raise AssertionError(f'XL chunked: loss did not decrease: first '
+                             f'three {first:.4f}, last three {last:.4f}')
+    if not all(r <= XL_CHUNKED_LOSS_TOL for r in rel[:XL_CHUNKED_HELD]):
+        raise AssertionError(f'XL chunked: steps 0-{XL_CHUNKED_HELD - 1} '
+                             f'differ from phase 15\'s by {rel}')
+    if launches != xl['launches']:
+        raise AssertionError(f'XL chunked: launches {launches}, phase 15 '
+                             f'{xl["launches"]}')
+    firing, plain = _step_ms(res)
+    summary = {'attention': attention, 'losses': losses,
+               'rel_loss_vs_phase15': rel, 'launches': launches,
+               'firing_ms': firing, 'nonfiring_ms': plain,
+               'nonfiring_ms_median': statistics.median(plain),
+               'peak_gib': res['peak_gib'],
+               'phase15_nonfiring_ms_median': xl['nonfiring_ms_median'],
+               'phase15_firing_ms': xl['firing_ms'],
+               'phase15_peak_gib': xl['peak_gib'],
+               'seconds': time.perf_counter() - t0}
+    log(f'  losses relative to phase 15: {[f"{r:.1e}" for r in rel]}; '
+        f'launches {launches} (= phase 15)')
+    log(f'  ms/step, block {XL_ATTN_BLOCK}: non-firing '
+        f'{summary["nonfiring_ms_median"]:.2f} (median), firing '
+        f'{[round(t, 2) for t in firing]}, peak allocated '
+        f'{res["peak_gib"]:.2f} GiB; phase 15: '
+        f'{xl["nonfiring_ms_median"]:.2f}, '
+        f'{[round(t, 2) for t in xl["firing_ms"]]}, '
+        f'{xl["peak_gib"]:.2f} GiB ({card})')
+    log(f'  phase 21: {summary["seconds"]:.1f} s wall')
+    return summary
+
+
+def run_seq_gloo_world(card: str) -> dict:
+    """Phase 22: SEQ_GLOO_CASES (the ring) and the Transformer CLI with
+    ``--seq-parallel SEQ_CLI_SP`` on 4 gloo ranks."""
+    return _run_lm_gloo('seq', 22, card)
 
 
 def _category(name: str) -> str:
@@ -2511,13 +2800,15 @@ def _category(name: str) -> str:
     return 'elementwise / copies / other'
 
 
-def profile_main_path(which: str = 'resnet32', steps: int = 5) -> dict:
+def profile_main_path(which: str = 'resnet32', steps: int = 5,
+                      **xl_over) -> dict:
     """torch.profiler over ``steps`` steady non-firing steps and one firing
     step of the ResNet-32 path, the ResNet-50 ``newton`` path, the LSTM
     LM ``jacobi`` path or the Transformer-XL path of phase 15 (``which``:
-    'resnet32', 'resnet50', 'lstm', 'transformer_xl'): device time by
-    kernel category and the device's busy share (kernel time / wall time
-    of the profiled window)."""
+    'resnet32', 'resnet50', 'lstm', 'transformer_xl'; ``xl_over``: LM CLI
+    options over phase 15's): device time by kernel category and the
+    device's busy share (kernel time / wall time of the profiled
+    window)."""
     import functools
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2534,7 +2825,7 @@ def profile_main_path(which: str = 'resnet32', steps: int = 5) -> dict:
         torch.manual_seed(0)
         if which == 'transformer_xl':
             args = engine.parse_args(train_language_model.build_parser(),
-                                     _xl_config())
+                                     _xl_config(**xl_over))
             x, y = _xl_first_window()
             model = train_language_model.build_model(args, XL_VOCAB, dev)
             cfg = optimizers.OptimConfig(
@@ -2646,7 +2937,8 @@ def main(argv=None) -> int:
     if args.dist_worker:
         sys.path.insert(0, str(ROOT))
         cfg = json.loads(args.dist_worker)
-        return (lm_dist_worker if cfg['phase'] == 'lm' else dist_worker)(cfg)
+        return {'lm': lm_dist_worker, 'seq': seq_dist_worker}.get(
+            cfg['phase'], dist_worker)(cfg)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
         return 2
@@ -2745,6 +3037,17 @@ def main(argv=None) -> int:
             f'{XL_BATCH}, {len(LM_GLOO_CASES)} mesh cases x {LM_GLOO_STEPS} '
             'steps; the LSTM CLI, hybrid-opt 2 x 2, jacobi')
         report['lm_gloo_world'] = run_lm_gloo_world(card)
+        log(f'== the chunked attention fold: attention alone at '
+            f'{ATTN_SHAPE}, block {ATTN_BLOCK}; phase 15 under '
+            f'--attn-block-size {XL_ATTN_BLOCK}, {XL_STEPS} steps')
+        report['transformer_xl_chunked'] = run_transformer_xl_chunked(
+            card, report['transformer_xl'])
+        log(f'== sequence parallelism: the LM at XL width, {LM_GLOO_LAYERS} '
+            f'blocks, {GLOO_WORLD} ranks on one card over gloo, the ring '
+            f'over sequence groups, global batch {XL_BATCH} x {XL_BPTT}, '
+            f'{len(SEQ_GLOO_CASES)} cases x {LM_GLOO_STEPS} steps; the '
+            f'Transformer CLI, --seq-parallel {SEQ_CLI_SP}')
+        report['seq_gloo_world'] = run_seq_gloo_world(card)
         runs = (main_summary, r50, report['resnet50_auto'],
                 report['lstm_jacobi'], report['lm_defaults'],
                 report['resnet32_jacobi'], report['resnet50_nccl_world1'],
@@ -2753,7 +3056,8 @@ def main(argv=None) -> int:
                 report['transformer_xl_newton'],
                 report['transformer_defaults'],
                 report['transformer_xl_nccl_world1'],
-                report['lm_gloo_world'])
+                report['lm_gloo_world'], report['transformer_xl_chunked'],
+                report['seq_gloo_world'])
         launches = {name: sum(r['launches'].get(name, 0) for r in runs)
                     for name in kernels.LAUNCHES}
         aggs = {**summary50, 'ns_inverse': summary_ns,

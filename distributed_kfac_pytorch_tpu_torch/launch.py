@@ -11,7 +11,8 @@ them (or explicit arguments) and starts ``torch.distributed``:
 The backend is ``nccl`` on CUDA and ``gloo`` on the CPU; gloo on CUDA
 tensors (several ranks sharing one card) only when asked for with
 ``backend='gloo'``. Every rank draws the same global batch from the same
-seed and keeps its :func:`process_local_slice`; the JAX package's mesh
+seed and keeps its :func:`process_local_slice` (under sequence
+parallelism its :func:`process_local_tile`); the JAX package's mesh
 helpers (``replicate_on_mesh``, ``host_local_batch_to_global``,
 ``global_batches``) have no counterpart, since a rank's batch is a plain
 tensor.
@@ -124,11 +125,31 @@ def host_metadata() -> dict:
 def process_local_slice(n_global: int) -> slice:
     """Index range of this rank's share of a global batch of
     ``n_global`` (which must divide evenly over the world)."""
-    if not dist.is_initialized():
-        return slice(0, n_global)
-    world, rank = dist.get_world_size(), dist.get_rank()
-    if n_global % world:
-        raise ValueError(f'global batch of {n_global} does not divide '
-                         f'evenly over {world} processes')
-    per = n_global // world
-    return slice(rank * per, (rank + 1) * per)
+    return process_local_tile(n_global, 1)[0]
+
+
+def process_local_tile(n_batch: int, n_seq: int, seq_parallel: int = 1
+                       ) -> tuple[slice, slice]:
+    """``(batch slice, sequence slice)`` of this rank's tile of a global
+    ``(n_batch, n_seq)`` batch under ``seq_parallel``-way sequence
+    parallelism: world rank ``r`` is K-FAC rank ``r // seq_parallel``,
+    which takes its share of the sequences, and sequence index ``r %
+    seq_parallel``, which takes its contiguous share of the positions. The
+    sequence slice's ``start`` is the tile's ``pos_offset``. Both shares
+    must divide evenly."""
+    world, rank = ((dist.get_world_size(), dist.get_rank())
+                   if dist.is_initialized() else (1, 0))
+    if world % seq_parallel:
+        raise ValueError(f'{seq_parallel=} does not divide the world of '
+                         f'{world} processes')
+    dp = world // seq_parallel
+    if n_batch % dp:
+        raise ValueError(f'global batch of {n_batch} does not divide '
+                         f'evenly over {dp} (K-FAC) ranks')
+    if n_seq % seq_parallel:
+        raise ValueError(f'sequence of {n_seq} does not divide evenly '
+                         f'over {seq_parallel} sequence ranks')
+    per_b, per_t = n_batch // dp, n_seq // seq_parallel
+    k, j = divmod(rank, seq_parallel)
+    return (slice(k * per_b, (k + 1) * per_b),
+            slice(j * per_t, (j + 1) * per_t))

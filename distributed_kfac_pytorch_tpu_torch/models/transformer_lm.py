@@ -14,11 +14,22 @@ flax's conventions are kept: LayerNorm epsilon 1e-6, the tanh GELU,
 lecun-normal Linear weights with zero biases, flax's ``Embed`` init,
 ``pos_embed`` from N(0, 0.02), dropout after the embeddings, after the
 attention projection and after the MLP, its masks drawn from
-``dropout_generator``. Not ported yet: sequence parallelism (ring
-attention), the chunked attention fold and reduced-precision compute.
+``dropout_generator``.
+
+Long contexts, as in the JAX model: ``attn_block_size`` folds attention
+over K/V blocks of that many tokens on one device
+(``parallel.sequence.chunked_causal_attention``); ``seq_group`` (a
+``torch.distributed`` sequence group) shards the sequence over its ranks
+and runs attention as a ring (``ring_self_attention``): each rank passes
+its contiguous block of ids and its first position as ``pos_offset``. The
+two are exclusive. :func:`whole_sequences` runs a ring model over whole
+sequences on each rank (the JAX CLI's evaluation twin). Not ported yet:
+reduced-precision compute.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -26,22 +37,34 @@ from torch import nn
 
 from distributed_kfac_pytorch_tpu_torch.modules.embed import Embed
 from distributed_kfac_pytorch_tpu_torch.modules.lstm import dense, dropout
-from distributed_kfac_pytorch_tpu_torch.parallel.sequence import \
-    local_causal_attention
+from distributed_kfac_pytorch_tpu_torch.parallel.sequence import (
+    chunked_causal_attention,
+    local_causal_attention,
+    ring_self_attention,
+)
 
 LN_EPS = 1e-6
 
 
 class CausalSelfAttention(nn.Module):
     """Multi-head (causal) self-attention from four K-FAC-visible
-    Linears."""
+    Linears: over the whole sequence, folded over K/V blocks of
+    ``attn_block_size`` tokens, or as a ring over ``seq_group``."""
 
-    def __init__(self, d_model: int, num_heads: int, causal: bool = True):
+    def __init__(self, d_model: int, num_heads: int, causal: bool = True,
+                 attn_block_size: int | None = None, seq_group=None):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f'{d_model=} not divisible by {num_heads=}')
+        if seq_group is not None and attn_block_size is not None:
+            raise ValueError(
+                'seq_axis and attn_block_size are mutually exclusive: '
+                'the ring already folds blockwise per device (set '
+                'attn_block_size=None under sequence parallelism)')
         self.num_heads = num_heads
         self.causal = causal
+        self.attn_block_size = attn_block_size
+        self.seq_group = seq_group
         self.q_proj = dense(d_model, d_model)
         self.k_proj = dense(d_model, d_model)
         self.v_proj = dense(d_model, d_model)
@@ -54,10 +77,17 @@ class CausalSelfAttention(nn.Module):
             return y.reshape(*y.shape[:-1], self.num_heads,
                              d_model // self.num_heads)
 
-        o = local_causal_attention(heads(self.q_proj(x)),
-                                   heads(self.k_proj(x)),
-                                   heads(self.v_proj(x)),
-                                   causal=self.causal)
+        q, k, v = (heads(proj(x))
+                   for proj in (self.q_proj, self.k_proj, self.v_proj))
+        if self.seq_group is not None:
+            o = ring_self_attention(q, k, v, group=self.seq_group,
+                                    causal=self.causal)
+        elif self.attn_block_size is not None:
+            o = chunked_causal_attention(q, k, v,
+                                         block_size=self.attn_block_size,
+                                         causal=self.causal)
+        else:
+            o = local_causal_attention(q, k, v, causal=self.causal)
         return self.out_proj(o.reshape(x.shape).to(x.dtype))
 
 
@@ -66,10 +96,12 @@ class TransformerBlock(nn.Module):
     MLP -> dropout -> residual."""
 
     def __init__(self, d_model: int, num_heads: int, mlp_ratio: int = 4,
-                 dropout: float = 0.0, causal: bool = True):
+                 dropout: float = 0.0, causal: bool = True,
+                 attn_block_size: int | None = None, seq_group=None):
         super().__init__()
         self.dropout = dropout
-        self.attn = CausalSelfAttention(d_model, num_heads, causal)
+        self.attn = CausalSelfAttention(d_model, num_heads, causal,
+                                        attn_block_size, seq_group)
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.mlp_in = dense(d_model, mlp_ratio * d_model)
@@ -87,14 +119,17 @@ class TransformerLM(nn.Module):
     """``forward(ids (B, T) int) -> logits (B, T, vocab)``: embed +
     learned positions -> blocks -> LN -> tied attend or decoder.
 
-    ``dropout_generator`` (a ``torch.Generator`` on the model's device)
-    draws every dropout mask of a training-mode call.
+    ``pos_offset`` is the position of ``ids``' first token: under
+    ``seq_group``, the rank's block start (its group index times the local
+    length). ``dropout_generator`` (a ``torch.Generator`` on the model's
+    device) draws every dropout mask of a training-mode call.
     """
 
     def __init__(self, vocab_size: int, d_model: int = 512,
                  num_layers: int = 6, num_heads: int = 8,
                  max_len: int = 2048, dropout: float = 0.1,
-                 tie_weights: bool = True, mlp_ratio: int = 4):
+                 tie_weights: bool = True, mlp_ratio: int = 4,
+                 attn_block_size: int | None = None, seq_group=None):
         super().__init__()
         self.dropout = dropout
         self.tie_weights = tie_weights
@@ -104,16 +139,17 @@ class TransformerLM(nn.Module):
         nn.init.normal_(self.pos_embed, std=0.02)
         for i in range(num_layers):
             setattr(self, f'block{i}', TransformerBlock(
-                d_model, num_heads, mlp_ratio, dropout))
+                d_model, num_heads, mlp_ratio, dropout,
+                attn_block_size=attn_block_size, seq_group=seq_group))
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)
         if not tie_weights:
             self.decoder = dense(d_model, vocab_size)
 
-    def forward(self, ids: torch.Tensor, *,
+    def forward(self, ids: torch.Tensor, *, pos_offset: int = 0,
                 dropout_generator: torch.Generator | None = None
                 ) -> torch.Tensor:
-        x = self.embed(ids) + self.pos_embed[:ids.shape[-1]].to(
-            self.embed.weight.dtype)
+        pos = self.pos_embed[pos_offset:pos_offset + ids.shape[-1]]
+        x = self.embed(ids) + pos.to(self.embed.weight.dtype)
         x = dropout(x, self.dropout, self.training, dropout_generator)
         for i in range(self.num_layers):
             x = getattr(self, f'block{i}')(x, dropout_generator)
@@ -121,6 +157,24 @@ class TransformerLM(nn.Module):
         if self.tie_weights:
             return self.embed.attend(x)
         return self.decoder(x)
+
+
+@contextlib.contextmanager
+def whole_sequences(model: nn.Module):
+    """Inside, every attention of ``model`` runs over its input's whole
+    sequence on this rank (no ring): the JAX CLI evaluates with a twin
+    built with ``seq_axis=None`` and the same parameters. A model without
+    a sequence group is unchanged."""
+    ring = [m for m in model.modules()
+            if isinstance(m, CausalSelfAttention) and m.seq_group is not None]
+    groups = [m.seq_group for m in ring]
+    for m in ring:
+        m.seq_group = None
+    try:
+        yield model
+    finally:
+        for m, group in zip(ring, groups):
+            m.seq_group = group
 
 
 #: The JAX ``get_model`` sizes: (d_model, num_layers, num_heads).
@@ -137,7 +191,7 @@ SIZES = {
 def get_model(vocab_size: int, size: str = 'small',
               **overrides) -> TransformerLM:
     """A named size (``SIZES``) with ``overrides`` of any constructor
-    argument."""
+    argument (``attn_block_size`` and ``seq_group`` among them)."""
     if size not in SIZES:
         raise ValueError(f'unknown size {size!r}; have {sorted(SIZES)}')
     return TransformerLM(vocab_size=vocab_size,

@@ -33,6 +33,16 @@ world-averaged gradients:
      partial and the preconditioned matrices (zero where the row does not
      own the layer) ride one ``all_reduce`` SUM over the rank's column.
 
+Sequence parallelism (``seq_parallel = sp > 1``, the JAX mesh's third,
+innermost axis): world rank ``r`` is K-FAC rank ``r // sp`` at sequence
+index ``r % sp``, and the grid above is built over the ``W / sp`` K-FAC
+ranks. Each row and column group exists once per sequence index (``{k *
+sp + j}`` over the K-FAC ranks ``k`` of the row or column), so the ``sp``
+ranks of one K-FAC rank do the same decomposition and preconditioning
+work, as JAX's stacks are replicated over the sequence axis. The factor
+average and the gradient mean span the whole world of ``W`` ranks (JAX's
+``data_axes``), and the grad-quadratic parts take ``1/W^2``.
+
 Only ``all_reduce`` and ``broadcast`` are used, so one code path serves
 NCCL and gloo (which runs both on CUDA tensors). A group of one rank runs
 no collective.
@@ -237,7 +247,8 @@ def plan_precond_groups(kfac: KFAC, assignment: WorkAssignment
 @dataclasses.dataclass(frozen=True)
 class KFACGroups:
     """This rank's place in the grid and its two process groups (``None``
-    where the group is this rank alone: no collective runs there)."""
+    where the group is this rank alone: no collective runs there). The
+    ranks are world ranks."""
     row: int
     col: int
     inv_ranks: tuple[int, ...]      # this rank's row
@@ -246,29 +257,40 @@ class KFACGroups:
     grad_group: Any
 
 
-def make_kfac_groups(allocator: WorkerAllocator) -> KFACGroups:
+def make_kfac_groups(allocator: WorkerAllocator,
+                     seq_parallel: int = 1) -> KFACGroups:
     """Create the grid's process groups and return this rank's.
 
-    ``dist.new_group`` is collective: every rank creates every row group
-    and then every column group of more than one rank, in the same
-    order, whether or not it is a member.
+    ``allocator`` places the ``W / seq_parallel`` K-FAC ranks; world rank
+    ``r`` is K-FAC rank ``r // seq_parallel`` at sequence index ``r %
+    seq_parallel``, and every row and column group exists once per
+    sequence index. ``dist.new_group`` is collective: every rank creates
+    every row group and then every column group of more than one rank, in
+    the same order, whether or not it is a member.
     """
     if not dist.is_initialized():
         raise RuntimeError('make_kfac_groups needs an initialized process '
                            'group (launch.initialize_distributed)')
     rank, world = dist.get_rank(), dist.get_world_size()
-    if allocator.size != world:
-        raise ValueError(f'allocator of {allocator.size} ranks for a world '
-                         f'of {world}')
+    if allocator.size * seq_parallel != world:
+        raise ValueError(f'allocator of {allocator.size} ranks x '
+                         f'{seq_parallel} sequence ranks for a world of '
+                         f'{world}')
+    kfac_rank, seq_index = divmod(rank, seq_parallel)
+
+    def world_ranks(ranks, j):
+        return tuple(k * seq_parallel + j for k in ranks)
+
     made = {}
     for ranks in allocator.bcast_inv_ranks + allocator.bcast_grad_ranks:
-        key = tuple(ranks)
-        if len(key) > 1 and key not in made:
-            made[key] = dist.new_group(list(key))
-    inv_ranks = tuple(allocator.get_inv_ranks(rank))
-    grad_ranks = tuple(allocator.get_grad_ranks(rank))
-    return KFACGroups(row=allocator.inv_group_index(rank),
-                      col=allocator.grad_group_index(rank),
+        for j in range(seq_parallel):
+            key = world_ranks(ranks, j)
+            if len(key) > 1 and key not in made:
+                made[key] = dist.new_group(list(key))
+    inv_ranks = world_ranks(allocator.get_inv_ranks(kfac_rank), seq_index)
+    grad_ranks = world_ranks(allocator.get_grad_ranks(kfac_rank), seq_index)
+    return KFACGroups(row=allocator.inv_group_index(kfac_rank),
+                      col=allocator.grad_group_index(kfac_rank),
                       inv_ranks=inv_ranks, grad_ranks=grad_ranks,
                       inv_group=made.get(inv_ranks),
                       grad_group=made.get(grad_ranks))
@@ -299,12 +321,21 @@ class DistributedKFAC:
     its own batch shard's captures and the world-averaged gradients.
     Embeddings (tied or not) and every ``kfac_approx`` of the wrapped
     ``KFAC`` run as they do there.
+
+    ``seq_parallel`` (default 1): ranks per sequence group, which must
+    divide the world; the grid is laid over the ``W / seq_parallel``
+    K-FAC ranks. Each rank then captures its ``(batch, sequence)`` tile
+    (``launch.process_local_tile``; the ring makes its captures those of
+    the whole sequence's loss). Under ``'reduce'`` each rank reduces over
+    its own positions, as each JAX device does, so its local length must
+    exceed 1 for a layer to count as shared.
     """
 
     def __init__(self, kfac: KFAC, *,
                  comm_method: CommMethod | str | None = None,
                  grad_worker_fraction: float | None = None,
-                 distribute_layer_factors: bool | None = None):
+                 distribute_layer_factors: bool | None = None,
+                 seq_parallel: int = 1):
         if not dist.is_initialized():
             raise RuntimeError('DistributedKFAC needs an initialized process '
                                'group (launch.initialize_distributed)')
@@ -316,12 +347,16 @@ class DistributedKFAC:
             kfac.comm_method if comm_method is None else comm_method)
         fraction = (kfac.grad_worker_fraction if grad_worker_fraction is None
                     else grad_worker_fraction)
+        # The whole world averages the factors and the gradients.
         self.world_size = dist.get_world_size()
-        gw = resolve_grad_workers(self.world_size, self.comm_method,
-                                  fraction)
-        self.allocator = WorkerAllocator(self.world_size,
-                                         gw / self.world_size)
-        self.groups = make_kfac_groups(self.allocator)
+        if self.world_size % seq_parallel:
+            raise ValueError(f'{seq_parallel=} does not divide world size '
+                             f'{self.world_size}')
+        self.seq_parallel = seq_parallel
+        dp = self.world_size // seq_parallel
+        gw = resolve_grad_workers(dp, self.comm_method, fraction)
+        self.allocator = WorkerAllocator(dp, gw / dp)
+        self.groups = make_kfac_groups(self.allocator, seq_parallel)
         self.n_rows, self.n_cols = self.allocator.inv_groups, gw
         self.row, self.col = self.groups.row, self.groups.col
         self.distribute_layer_factors = (
@@ -371,9 +406,10 @@ class DistributedKFAC:
                 != eigen_family(self.kfac.method_for_dim(g_dim)))
 
     def local_work(self) -> dict:
-        """What this rank launches: ``'decompose'``, the bucket dims it
-        decomposes at a firing (it holds an assigned slot), and
-        ``'precondition'``, the gradient shapes its row preconditions."""
+        """What this rank launches (the same on every rank of its K-FAC
+        rank): ``'decompose'``, the bucket dims it decomposes at a firing
+        (it holds an assigned slot), and ``'precondition'``, the gradient
+        shapes its row preconditions."""
         return {'decompose': [d for d, cell in self._cells.items() if cell],
                 'precondition': [shape for shape, *_ in self._row_groups]}
 
@@ -684,14 +720,14 @@ class DistributedKFAC:
 
     def _layout(self) -> dict:
         return {'row': self.row, 'n_rows': self.n_rows,
-                'n_cols': self.n_cols}
+                'n_cols': self.n_cols, 'seq_parallel': self.seq_parallel}
 
     def state_dict(self, state: dict, include_inverses: bool = True
                    ) -> dict:
         """Checkpointable state: step and factors (the same on every
         rank) and, with ``include_inverses``, this rank's row stacks with
-        the grid position they belong to and the embeddings' diagonal
-        inverses."""
+        the grid position they belong to (and ``seq_parallel``) and the
+        embeddings' diagonal inverses."""
         out = {'step': state['step'], 'factors': state['factors'],
                'inv_chunk_phase': state.get('inv_chunk_phase', 0)}
         if include_inverses:
@@ -705,9 +741,10 @@ class DistributedKFAC:
 
         The layer sets must match. Saved row stacks and diagonal inverses
         are used when the stacks were written for this rank's row of the
-        same grid, with the same keys and shapes, and every slot this rank
-        decomposes holds a nonzero basis; otherwise every rank recomputes
-        its inverses from the factors (:meth:`recompute_inverses`).
+        same grid and ``seq_parallel``, with the same keys and shapes, and
+        every slot this rank decomposes holds a nonzero basis; otherwise
+        every rank recomputes its inverses from the factors
+        (:meth:`recompute_inverses`).
         """
         state = self.init_state()
         if set(sd['factors']) != set(state['factors']):

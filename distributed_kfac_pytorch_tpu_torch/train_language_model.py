@@ -40,6 +40,23 @@ Each rank seeds its dropout generator
 with ``--seed`` plus its rank, so the ranks draw different masks (the
 JAX CLI folds the device index into the step's key).
 
+Long contexts (``--arch transformer`` only), as in the JAX CLI:
+``--attn-block-size B`` folds attention over K/V blocks of ``B`` tokens
+on each device (a ``--bptt`` above ``B`` must be a multiple of it);
+``--seq-parallel N`` (K-FAC only) shards each BPTT window's positions
+over sequence groups of ``N`` consecutive ranks of the process group,
+attention running as a ring over each group and the KAISA grid over the
+``world / N`` K-FAC ranks; ``--attn-block-size`` is then dropped. The
+world must be a multiple of ``N``, and ``--bptt`` a multiple of ``N``
+that gives each rank more than one position (``kfac_approx`` reads a
+layer's shared positions from its rank's block). Validation runs whole
+sequences without the ring, as the JAX CLI's evaluation twin does.
+
+    torchrun --nproc-per-node 4 -m \
+        distributed_kfac_pytorch_tpu_torch.train_language_model \
+        --arch transformer --tied --bptt 1024 --batch-size 4 \
+        --seq-parallel 2
+
 Port-only flags: ``--device`` (default ``cuda``; ``cpu`` must be asked
 for), ``--synthetic-size`` and ``--synthetic-vocab`` (train tokens and
 vocabulary of the synthetic corpus; the JAX defaults 200000 and 1000),
@@ -47,9 +64,8 @@ vocabulary of the synthetic corpus; the JAX defaults 200000 and 1000),
 (stop after that many steps), ``--time-steps`` (synchronize each step and
 record its wall time) and ``--quiet``.
 
-Not ported yet (a set flag raises by name): sequence parallelism
-(``--seq-parallel``), the chunked attention fold (``--attn-block-size``),
-multi-slice meshes (``--num-slices``) and fp16 (``--fp16``). Also not
+Not ported yet (a set flag raises by name): multi-slice meshes
+(``--num-slices``) and fp16 (``--fp16``). Also not
 ported: checkpointing and resume, metrics sinks and profiling, the bf16
 modes, autotune and the K-FAC knobs listed in
 ``preconditioner.NOT_PORTED``.
@@ -69,6 +85,7 @@ from distributed_kfac_pytorch_tpu_torch import resolve_device, \
     set_fp32_precision
 from distributed_kfac_pytorch_tpu_torch.models import lstm_lm, \
     transformer_lm
+from distributed_kfac_pytorch_tpu_torch.parallel import sequence
 from distributed_kfac_pytorch_tpu_torch.training import datasets, engine, \
     optimizers
 
@@ -101,11 +118,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help='global-norm clip of every update (0 = off)')
     p.add_argument('--seed', type=int, default=42)
     p.add_argument('--seq-parallel', type=int, default=1,
-                   help='not ported (raises unless 1)')
+                   help='ranks per sequence group: ring attention over '
+                        'each BPTT window (transformer, K-FAC)')
     p.add_argument('--num-slices', type=int, default=1,
                    help='not ported (raises unless 1)')
     p.add_argument('--attn-block-size', type=int, default=None,
-                   help='not ported (raises if set)')
+                   help='chunked attention over K/V blocks of this many '
+                        'tokens (transformer; dropped under '
+                        '--seq-parallel)')
     p.add_argument('--kfac-update-freq', type=int, default=10,
                    help='inverse update interval; 0 disables K-FAC')
     p.add_argument('--kfac-cov-update-freq', type=int, default=1)
@@ -167,13 +187,18 @@ def train(args_or_config=None, device='cuda') -> dict:
     """
     args = engine.parse_args(build_parser(), args_or_config)
     engine.check_unported(args)
+    check_long_context(args)
     dev = resolve_device(device if device is not None else args.device)
     set_fp32_precision()
     engine.start_world(dev)
+    sp = args.seq_parallel
+    # Before DistributedKFAC's groups: every rank creates every group in
+    # the same order.
+    seq_group = sequence.make_sequence_group(sp)
     train_ids, val_ids, vocab = datasets.get_lm_corpus(
         args.data_dir, synthetic_size=args.synthetic_size,
         vocab_size=args.synthetic_vocab)
-    model = build_model(args, vocab, dev)
+    model = build_model(args, vocab, dev, seq_group)
     if args.skip_layers is not None:
         skip = args.skip_layers
     else:
@@ -195,7 +220,8 @@ def train(args_or_config=None, device='cuda') -> dict:
         kfac_approx=args.kfac_approx, skip_layers=skip)
     optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
         model, cfg, device=dev)
-    state = engine.make_train_state(model, optimizer, kfac)
+    state = engine.make_train_state(model, optimizer, kfac,
+                                    seq_parallel=sp)
     generator = torch.Generator(device=dev)
     generator.manual_seed(args.seed + (dist.get_rank() if state.distributed
                                        else 0))
@@ -205,14 +231,45 @@ def train(args_or_config=None, device='cuda') -> dict:
         batch_size=args.batch_size, bptt=args.bptt, seed=args.seed,
         device=dev, grad_clip=args.grad_clip, generator=generator,
         fixed_batch=args.fixed_batch, max_steps=args.max_steps,
-        time_steps=args.time_steps, verbose=not args.quiet)
+        time_steps=args.time_steps, verbose=not args.quiet,
+        seq_parallel=sp)
 
 
-def build_model(args: argparse.Namespace, vocab: int,
-                device) -> torch.nn.Module:
+def check_long_context(args: argparse.Namespace) -> None:
+    """The JAX CLI's checks of ``--seq-parallel`` and
+    ``--attn-block-size`` (``ValueError``; the world size is checked once
+    the process group is up), and the port's: ``--bptt`` a multiple of
+    ``--seq-parallel`` giving each rank more than one position."""
+    sp, block = args.seq_parallel, args.attn_block_size
+    if sp < 1:
+        raise ValueError(f'--seq-parallel {sp} must be at least 1')
+    if sp > 1 and args.arch != 'transformer':
+        raise ValueError('--seq-parallel requires --arch transformer')
+    if sp > 1 and not args.kfac_update_freq:
+        raise ValueError('--seq-parallel requires the K-FAC step '
+                         '(--kfac-update-freq > 0)')
+    if sp > 1 and (args.bptt % sp or args.bptt // sp < 2):
+        raise ValueError(f'--bptt {args.bptt} must be a multiple of '
+                         f'--seq-parallel {sp} with more than one position '
+                         'per rank')
+    if block:
+        if args.arch != 'transformer':
+            raise ValueError('--attn-block-size requires '
+                             '--arch transformer')
+        if sp == 1 and args.bptt > block and args.bptt % block:
+            raise ValueError(
+                f'--bptt {args.bptt} must be divisible by '
+                f'--attn-block-size {block} '
+                '(e.g. --bptt 1024 --attn-block-size 256)')
+
+
+def build_model(args: argparse.Namespace, vocab: int, device,
+                seq_group=None) -> torch.nn.Module:
     """The ``--arch`` model from ``--seed``, on ``device``: its weights
     are drawn there (the LSTM's on the CPU, then moved), so a
-    Transformer at full width never passes through host memory."""
+    Transformer at full width never passes through host memory. A
+    Transformer with a ``seq_group`` runs its attention as a ring over it
+    (and drops ``--attn-block-size``)."""
     device = torch.device(device)
     if args.arch == 'lstm':
         with torch.random.fork_rng(devices=[]):
@@ -228,7 +285,10 @@ def build_model(args: argparse.Namespace, vocab: int,
         return transformer_lm.TransformerLM(
             vocab, d_model=args.emsize, num_layers=args.nlayers,
             num_heads=args.nheads, max_len=max(args.bptt, 16),
-            dropout=args.dropout, tie_weights=args.tied)
+            dropout=args.dropout, tie_weights=args.tied,
+            attn_block_size=(args.attn_block_size if seq_group is None
+                             else None),
+            seq_group=seq_group)
 
 
 def main(argv=None) -> int:

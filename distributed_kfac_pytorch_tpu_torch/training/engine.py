@@ -18,7 +18,10 @@ K-FAC capture owns the backward pass -- then ``DistributedKFAC.step``
 preconditions, and after the update the BatchNorm running buffers are
 averaged over the world. The LM step does the same (it has no buffers),
 then clips the replicated update by its global norm; its validation loss
-is the world's mean over the ranks' slices.
+is the world's mean over the ranks' slices. Under sequence parallelism
+each rank trains on its ``launch.process_local_tile`` (a slice of the
+sequences and a block of positions, passed as ``pos_offset``) and
+evaluates whole sequences of its K-FAC rank's slice without the ring.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from distributed_kfac_pytorch_tpu_torch import launch
+from distributed_kfac_pytorch_tpu_torch.models.transformer_lm import \
+    whole_sequences
 from distributed_kfac_pytorch_tpu_torch.training import datasets, \
     optimizers
 from distributed_kfac_pytorch_tpu_torch.training.utils import Metric, \
@@ -253,10 +258,8 @@ def add_distributed_args(p: argparse.ArgumentParser) -> None:
 
 
 #: CLI flags of the JAX CLIs the port does not run yet, with their "off"
-#: value: the image CLIs' data-parallel extras and the LM CLI's sequence
-#: parallelism and chunked attention.
-UNPORTED_FLAGS = (('grad_accum', 1), ('num_slices', 1), ('fp16', False),
-                  ('seq_parallel', 1), ('attn_block_size', None))
+#: value: gradient accumulation, multi-slice meshes and fp16.
+UNPORTED_FLAGS = (('grad_accum', 1), ('num_slices', 1), ('fp16', False))
 
 
 def check_unported(args: argparse.Namespace) -> None:
@@ -277,18 +280,21 @@ def start_world(device) -> int:
 
 
 def make_train_state(model, optimizer, kfac, *,
-                     coallocate_layer_factors: bool = False) -> TrainState:
+                     coallocate_layer_factors: bool = False,
+                     seq_parallel: int = 1) -> TrainState:
     """The CLIs' ``TrainState``: with a process group up, data parallel
     over the world and ``kfac`` wrapped in ``DistributedKFAC`` (strategy
     from the ``KFAC``'s knobs; ``coallocate_layer_factors``: a layer's A
-    and G on one rank); else the single-device ``KFAC``."""
+    and G on one rank; ``seq_parallel`` ranks per sequence group); else
+    the single-device ``KFAC``."""
     distributed = dist.is_initialized()
     if kfac is not None and distributed:
         from distributed_kfac_pytorch_tpu_torch.parallel.distributed import (
             DistributedKFAC,
         )
         kfac = DistributedKFAC(kfac, distribute_layer_factors=(
-            False if coallocate_layer_factors else None))
+            False if coallocate_layer_factors else None),
+            seq_parallel=seq_parallel)
     return TrainState(
         model=model, optimizer=optimizer, kfac=kfac,
         kfac_state=kfac.init_state() if kfac is not None else None,
@@ -365,14 +371,18 @@ def clip_by_global_norm(grads: dict, max_norm: float) -> dict:
 def lm_train_step(state: TrainState, ids: torch.Tensor,
                   targets: torch.Tensor, hyper: dict, flags: dict, *,
                   grad_clip: float = 0.0,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
+                  generator: torch.Generator | None = None,
+                  pos_offset: int = 0) -> torch.Tensor:
     """One LM step: forward from zero states (``generator`` draws the
-    dropout masks), backward, with ``state.distributed`` the world's mean
+    dropout masks; a Transformer's ``ids`` start at position
+    ``pos_offset``), backward, with ``state.distributed`` the world's mean
     of the gradients and the loss, K-FAC preconditioning, then the
     global-norm clip at ``grad_clip`` (0: none) over every update, then
     the SGD update. Returns the (device) loss."""
     model = state.model
     kwargs = {'dropout_generator': generator}
+    if pos_offset:
+        kwargs['pos_offset'] = pos_offset
     loss_fn = lambda out: lm_loss(out, targets)  # noqa: E731
     if state.kfac is None:
         model.zero_grad(set_to_none=True)
@@ -404,21 +414,26 @@ def lm_train_step(state: TrainState, ids: torch.Tensor,
 
 @torch.no_grad()
 def evaluate_lm(model: torch.nn.Module, batches: Iterable, *,
-                device, distributed: bool = False) -> dict[str, float]:
+                device, distributed: bool = False,
+                seq_parallel: int = 1) -> dict[str, float]:
     """Validation loss (mean over the windows, dropout off) and
     perplexity ``exp(min(loss, 20))``; with ``distributed``, each rank
-    takes its ``launch.process_local_slice`` of every window and the loss
-    is the world's mean."""
+    takes its K-FAC rank's slice of every window's sequences
+    (``launch.process_local_tile`` under ``seq_parallel``), whole and
+    without the ring (as the JAX CLI's evaluation twin), and the loss is
+    the world's mean."""
     device = torch.device(device)
     model.eval()
     total, windows = torch.zeros((), device=device), 0
     for xb, yb in batches:
         if distributed:
-            local = launch.process_local_slice(len(xb))
+            local, _ = launch.process_local_tile(len(xb), xb.shape[1],
+                                                 seq_parallel)
             xb, yb = xb[local], yb[local]
         x = torch.as_tensor(xb, dtype=torch.long, device=device)
         y = torch.as_tensor(yb, dtype=torch.long, device=device)
-        total += lm_loss(model(x), y)
+        with whole_sequences(model):
+            total += lm_loss(model(x), y)
         windows += 1
     if not windows:
         raise ValueError('evaluate_lm: no validation windows (the '
@@ -434,13 +449,15 @@ def fit_lm(state: TrainState, train_ids: np.ndarray, val_ids: np.ndarray,
            bptt: int, seed: int, device, grad_clip: float = 0.0,
            generator: torch.Generator | None = None,
            fixed_batch: bool = False, max_steps: int | None = None,
-           time_steps: bool = False, verbose: bool = False) -> dict:
+           time_steps: bool = False, verbose: bool = False,
+           seq_parallel: int = 1) -> dict:
     """The LM CLI's epoch loop: per epoch, set the LR, train on the BPTT
     windows of ``train_ids`` (tracks offset per ``(seed, epoch)``; with
     ``fixed_batch`` every step takes epoch 0's first window instead;
-    with ``state.distributed`` each rank its ``launch.process_local_slice``
-    of the window's sequences), evaluate on ``val_ids`` and advance the
-    K-FAC scheduler; stop after ``max_steps`` global steps when given.
+    with ``state.distributed`` each rank its ``launch.process_local_tile``
+    of the window under ``seq_parallel``), evaluate on ``val_ids`` and
+    advance the K-FAC scheduler; stop after ``max_steps`` global steps
+    when given.
 
     Returns ``{'device', 'steps', 'losses', 'fired', 'step_ms', 'train',
     'val', 'seconds', 'state'}`` as :func:`fit` does; ``train`` and
@@ -470,9 +487,11 @@ def fit_lm(state: TrainState, train_ids: np.ndarray, val_ids: np.ndarray,
                 break
             if fixed_batch:
                 xb, yb = first
+            offset = 0
             if state.distributed:
-                local = launch.process_local_slice(len(xb))
-                xb, yb = xb[local], yb[local]
+                rows, cols = launch.process_local_tile(
+                    len(xb), xb.shape[1], seq_parallel)
+                xb, yb, offset = xb[rows, cols], yb[rows, cols], cols.start
             flags = (cadence_flags(state.step, hyper['factor_update_freq'],
                                    hyper['inv_update_freq'])
                      if state.kfac is not None else {})
@@ -480,7 +499,8 @@ def fit_lm(state: TrainState, train_ids: np.ndarray, val_ids: np.ndarray,
             y = torch.as_tensor(yb, dtype=torch.long, device=device)
             t0 = time.perf_counter()
             loss = lm_train_step(state, x, y, hyper, flags,
-                                 grad_clip=grad_clip, generator=generator)
+                                 grad_clip=grad_clip, generator=generator,
+                                 pos_offset=offset)
             if time_steps:
                 if device.type == 'cuda':
                     torch.cuda.synchronize(device)
@@ -495,7 +515,7 @@ def fit_lm(state: TrainState, train_ids: np.ndarray, val_ids: np.ndarray,
             train_m = {'loss': mean, 'ppl': math.exp(min(mean, 20.0))}
         val_m = evaluate_lm(state.model, datasets.bptt_batches(
             val_ids, batch_size, bptt), device=device,
-            distributed=state.distributed)
+            distributed=state.distributed, seq_parallel=seq_parallel)
         if verbose:
             train_ppl = train_m.get('ppl', math.nan)
             print(f'epoch {epoch}: train ppl {train_ppl:.2f}, val ppl '

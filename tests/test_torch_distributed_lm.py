@@ -88,13 +88,14 @@ class EmbedNet(nn.Module):
         return self.fc2(self.fc1(self.embed(ids).mean(dim=1)))
 
 
-def _model(kind, params):
+def _model(kind, params, seq_group=None):
     if kind == 'embed':
         model = EmbedNet()
     else:
         model = transformer_lm.TransformerLM(
             LM_VOCAB, d_model=LM_D, num_layers=1, num_heads=LM_HEADS,
-            max_len=LM_SEQ, dropout=0.0, tie_weights=True)
+            max_len=LM_SEQ, dropout=0.0, tie_weights=True,
+            seq_group=seq_group)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
     return model
 
@@ -105,8 +106,9 @@ def _loss(kind, y):
     return lambda out: engine.lm_loss(out, y)
 
 
-def _run(model, kfac, step_fn, loss_fn, x):
-    """Three K-FAC + SGD steps; the record holds every step's factors,
+def _run(model, kfac, step_fn, loss_fn, x, **model_kwargs):
+    """Three K-FAC + SGD steps (``model_kwargs`` go to the model's
+    forward); the record holds every step's factors,
     the embedding's factor contribution on its own scale (the factor
     update at decay 0: next to the running factor, the tied attend-site
     term of its A is ~1e-5), diagonal inverses, preconditioned gradients
@@ -115,7 +117,8 @@ def _run(model, kfac, step_fn, loss_fn, x):
     the key projection's G sums output-grads that cancel to ~1e-19.)"""
     rec = {}
     for step in range(STEPS):
-        _, _, grads, captures = kfac.capture.loss_and_grads(loss_fn, x)
+        _, _, grads, captures = kfac.capture.loss_and_grads(
+            loss_fn, x, **model_kwargs)
         precond, nu, factors, diag_inv, contribs = step_fn(
             grads, captures, step % INV_FREQ == 0)
         rec[f's{step}/nu'] = np.asarray(float(nu))
@@ -146,6 +149,12 @@ def _inputs(kind, data):
 def port_reference(name, data):
     """The port's single-device ``KFAC`` on the full batch."""
     _, kind, _, _, _, knobs = _case(name)
+    return port_run(kind, knobs, data)
+
+
+def port_run(kind, knobs, data):
+    """The port's single-device ``KFAC`` with ``knobs`` on the full batch
+    of ``kind``."""
     params, x, y = _inputs(kind, data)
     model = _model(kind, params)
     kfac = KFAC(model, device='cpu', **COMMON, **knobs)
@@ -219,37 +228,57 @@ def worker_main():
 # The JAX DistributedKFAC on the same grid
 # ---------------------------------------------------------------------------
 
-def _jax_model(kind):
+def _jax_model(kind, seq_axis=None):
     from distributed_kfac_pytorch_tpu.models import transformer_lm as jtl
     if kind == 'embed':
         from test_distributed import EmbedNet as JaxEmbedNet
         return JaxEmbedNet()
     return jtl.TransformerLM(vocab_size=LM_VOCAB, d_model=LM_D,
                              num_layers=1, num_heads=LM_HEADS,
-                             max_len=LM_SEQ, dropout=0.0, tie_weights=True)
+                             max_len=LM_SEQ, dropout=0.0, tie_weights=True,
+                             seq_axis=seq_axis)
 
 
 def jax_reference(name, flax_params, x, y, specs):
     """Three steps of the JAX ``build_train_step`` on the grid's mesh; the
     optimizer keeps each step's preconditioned gradients in its state.
     ``specs``: the port's, to convert the factors."""
+    _, kind, comm, frac, _, knobs = _case(name)
+    return jax_distributed_run(kind, comm, frac, knobs, flax_params, x, y,
+                               specs)
+
+
+def jax_distributed_run(kind, comm, frac, knobs, flax_params, x, y, specs,
+                        seq_parallel=1):
+    """:func:`jax_reference` for ``kind`` under ``comm`` / ``frac`` and
+    the KFAC ``knobs`` on the ``(rows, cols[, seq])`` mesh of the first
+    WORLD devices; with ``seq_parallel > 1`` the LM's sequences are
+    sharded over the mesh's sequence axis and attention runs as JAX's
+    ring (each device's ``pos_offset`` its block start)."""
     import jax
     import jax.numpy as jnp
     import optax
+    from jax.sharding import PartitionSpec as P
 
     from distributed_kfac_pytorch_tpu import KFAC as JKFAC
     from distributed_kfac_pytorch_tpu import CommMethod as JCommMethod
     from distributed_kfac_pytorch_tpu.parallel import distributed as JD
+    from distributed_kfac_pytorch_tpu.parallel import sequence as jseq
     from distributed_kfac_pytorch_tpu_torch import convert
 
-    _, kind, comm, frac, _, knobs = _case(name)
     lm = kind == 'lm'
-    kfac = JKFAC(_jax_model(kind), skip_layers=[], **COMMON, **knobs)
+    ring = seq_parallel > 1
+    kfac = JKFAC(_jax_model(kind, jseq.SEQ_AXIS if ring else None),
+                 skip_layers=[], **COMMON, **knobs)
+    # Registration traces the non-ring twin: the ring's collectives need
+    # the mesh.
     kfac.init(jax.random.PRNGKey(0), jnp.asarray(x),
-              **({'train': False} if lm else {}))
+              **({'train': False} if lm else {}),
+              **({'init_model': _jax_model(kind)} if ring else {}))
     method = JCommMethod[comm.upper().replace('-', '_')]
     mesh = JD.make_kfac_mesh(devices=jax.devices()[:WORLD],
-                             comm_method=method, grad_worker_fraction=frac)
+                             comm_method=method, grad_worker_fraction=frac,
+                             seq_parallel=seq_parallel)
     dk = JD.DistributedKFAC(kfac, mesh, flax_params)
     kstate = dk.init_state(flax_params)
 
@@ -257,12 +286,21 @@ def jax_reference(name, flax_params, x, y, specs):
         return optax.softmax_cross_entropy_with_integer_labels(
             out, batch[1]).mean()
 
+    def model_kwargs_fn(batch):
+        kwargs = {'train': False}
+        if ring:
+            kwargs['pos_offset'] = (jax.lax.axis_index(jseq.SEQ_AXIS)
+                                    * (x.shape[1] // seq_parallel))
+        return kwargs
+
     tx = optax.GradientTransformation(
         lambda p: jax.tree.map(jnp.zeros_like, p),
         lambda u, s, p=None: (jax.tree.map(lambda g: -LR * g, u), u))
+    spec = P(JD.KFAC_AXES, jseq.SEQ_AXIS)
     step = dk.build_train_step(
         loss_fn, tx, donate=False,
-        model_kwargs_fn=(lambda b: {'train': False}) if lm else None)
+        model_kwargs_fn=model_kwargs_fn if lm else None,
+        **({'batch_spec': (spec, spec)} if ring else {}))
     params = jax.tree.map(jnp.asarray, flax_params)
     opt_state = tx.init(params)
     batch = (jnp.asarray(x), jnp.asarray(y))

@@ -305,14 +305,20 @@ def test_cli_parses_defaults_and_rejects_transformer():
             args.inverse_method, args.eigh_method, args.device) == (
         650, 650, 2, 35, 20, 0.5, 0.25, 1.0, 0.003, 0.001, 0.95, 10, 1,
         'auto', 'auto', 'cuda')
-    # The Transformer is ported; what it does not run yet raises by name.
+    # The Transformer and its long-context flags are ported: the chunked
+    # fold runs on one process, the ring under a process group
+    # (tests/test_torch_seq_parallel.py); the JAX CLI's checks raise.
     assert (args.arch, args.nheads, args.kfac_approx, args.seq_parallel,
             args.attn_block_size) == ('lstm', 10, 'expand', 1, None)
-    with pytest.raises(NotImplementedError, match='seq-parallel'):
+    res = cli.train({**TINY, 'arch': 'transformer', 'emsize': 8,
+                     'nheads': 2, 'attn_block_size': 2}, device='cpu')
+    assert all(math.isfinite(v) for v in res['losses'])
+    assert res['state'].model.block0.attn.attn_block_size == 2
+    with pytest.raises(ValueError, match='--seq-parallel requires --arch '
+                                         'transformer'):
+        cli.train({**TINY, 'seq_parallel': 2}, device='cpu')
+    with pytest.raises(ValueError, match='does not divide the world'):
         cli.train({**TINY, 'arch': 'transformer', 'seq_parallel': 2},
-                  device='cpu')
-    with pytest.raises(NotImplementedError, match='attn-block-size'):
-        cli.train({**TINY, 'arch': 'transformer', 'attn_block_size': 2},
                   device='cpu')
 
 
