@@ -28,7 +28,15 @@ Phases (any failure exits nonzero and prints no result line):
      ``kernels.ema_blend`` of the contraction alone equal bit for bit to
      the fused blend; each case printing its plan (K1, K2:
      tile, pairs, chunks, staging path; K3: tile, staging path, waves from
-     ``bucket_precond_plan``);
+     ``bucket_precond_plan``); then K1-K3 at the ResNet-152 / 224 px /
+     batch-64 shapes in tracked config 5's modes: K1 in bf16-storage mode
+     (``old`` and the result bf16) on every case, bit for bit against
+     the widen, fp32 launch, round sequence and timed beside it, the
+     stored blend within one bf16 ulp of the largest plain entry; K1 and
+     K2 timed with bf16 multiplicands (bound against the bf16 tensor-core
+     rate); K3 on every eigen bucket, also fed bf16 stacks (fp32 and bf16
+     modes, the usual tolerances); and K1 in bf16-storage mode at one
+     Transformer-XL shape, checked and timed the same way;
   4. kernel K4 (Newton--Schulz inverse): random SPD stacks at every
      ResNet-50 size bucket and edge sizes, damping 0.003 and 0.001, and
      stacks whose matrices stop at different iterations (and at the cap),
@@ -79,11 +87,12 @@ Phases (any failure exits nonzero and prints no result line):
      finite losses, no jacobi_eigh launch;
  11. ResNet-32 under ``--eigh-method jacobi``: 11 steps, finite losses,
      jacobi_eigh 9 per firing besides phase 5's per-step launches;
- 12. the result (printed after phases 13-22): a JSON line of
+ 12. the result (printed after phases 13-24): a JSON line of
      per-kernel numbers (K1-K3 per ResNet-50 step, K4 per ResNet-50
-     firing, K5 per LSTM firing, and under ``transformer_xl`` K1 and K3
-     per XL step and K4 per XL firing; launches summed over phases 5-7,
-     9-11 and 13-22), the card line, then ``{"ok": true, "device":
+     firing, K5 per LSTM firing, under ``transformer_xl`` K1 and K3 per
+     XL step and K4 per XL firing, and under ``resnet152_config5`` K1-K3
+     per config-5 step; launches summed over phases 5-7, 9-11 and
+     13-24), the card line, then ``{"ok": true, "device":
      {...}}`` as the last line;
  13. distributed, NCCL at world size 1: phase 6's ResNet-50 run through
      ``train_imagenet_resnet.train`` inside a one-rank NCCL group
@@ -200,13 +209,40 @@ Phases (any failure exits nonzero and prints no result line):
      Transformer at 2 blocks with ``--seq-parallel 2`` (2 K-FAC ranks x
      2 sequence ranks), 3 steps: every rank's losses identical and
      finite, launches equal the assignment; step times print labelled as
-     gloo through host memory.
+     gloo through host memory;
+ 23. tracked config 5: ``train_imagenet_resnet.train`` with ``--model
+     resnet152 --bf16-factors --inverse-method eigen``, 224 px, batch 64,
+     one fixed synthetic batch, lr 0.1 (``R152_LR``: at the CLI's 0.0125
+     the loss stays flat over 12 steps), factors every step, inverses
+     every 10, 12 steps (firings at steps 0 and 10): every loss finite,
+     the last three
+     below the first three, every factor bf16 and every inverse fp32
+     after the run, launches K1 157 and K2 155 per step and K3 one per
+     shape bucket (printed) per step, no K4 or K5; median step ms
+     (non-firing, firing), ``max_memory_allocated`` and the bytes of the
+     factor and inverse state printed beside the same figures of 3 steps
+     with fp32 factors; then 3 steps with ``--bf16-factors
+     --bf16-inverses --bf16-precond`` (finite losses, inverses bf16), and
+     the LM CLI at phase 15's XL width with the three flags, 3 steps (one
+     firing): finite losses, phase 15's launches, the embedding's
+     ``diag_inv`` bf16, step ms beside phase 15's;
+ 24. distributed with the three bf16 flags, gloo: phase 14's 4 ranks and
+     ResNet-32 under COMM_OPT, MEM_OPT and HYBRID_OPT, 3 steps each; before
+     each step rank 0 takes one factor step of the single-device ``KFAC``
+     from the world's factors on the full batch and holds the world's new
+     factors to it within 1 bf16 ulp elementwise (or 1e-5 of the factor's
+     largest entry, phase 14's fp32 sum-order tolerance, where that is
+     more), prints the largest gap in ulps over the run, and holds the
+     preconditioned gradients and KL-clip scale against its own run at 2e-2
+     of the largest reference entry (``BF16_STEP_TOL``); every rank's
+     launches equal its assignment.
 
 ``--quick`` builds with ``-Xptxas -v`` and runs only the correctness
 checks of phases 3, 4 and 8 (a first call after a kernel change).
 ``--profile`` adds a torch.profiler pass over steady ResNet-32,
-ResNet-50 (``newton``), LSTM (``jacobi``) and Transformer-XL (``auto``)
-steps (device time by kernel category, the device's busy share; it fails
+ResNet-50 (``newton``), LSTM (``jacobi``), Transformer-XL (``auto``) and
+config-5 steps (ResNet-152 ``eigen``, bf16 and fp32 factors) (device
+time by kernel category, the device's busy share; it fails
 if the ResNet-50 steps show no K2 time or the XL steps no K1 time). Details of every case go to
 ``chiprun_out/chip_smoke.json`` next to this script.
 """
@@ -241,6 +277,12 @@ OPS_PEAK = {'factor_ema': PEAK_TF32_FLOPS / 3,
             'patch_cov': PEAK_TF32_FLOPS / 3,
             'bucket_precond': PEAK_TF32_FLOPS / 3}
 PEAK_BYTES = 3.35e12
+# Dense bf16 tensor cores: the bound of products of bf16-rounded operands
+# (K1 and K2 with bf16 multiplicands, tracked config 5).
+PEAK_BF16_FLOPS = 989.4e12
+# One bf16 ulp of the largest entry, relative to it (at most 2^-7): a
+# bf16-stored result held against its plain version.
+BF16_ULP = 2.0 ** -7
 TOL_FP32 = {'factor_ema': 1e-5, 'patch_cov': 1e-5, 'bucket_precond': 1e-4}
 TOL_BF16 = 1e-2
 STEPS = 30
@@ -343,6 +385,27 @@ SEQ_GLOO_CASES = (
     ('sp2_comm_opt_reduce', 2, 'comm-opt', 0.0, (1, 2),
      {'kfac_approx': 'reduce'}))
 SEQ_CLI_SP = 2
+# Phase 23: tracked config 5 (BASELINE.md:35; the JAX package's config at
+# benchmarks/flagship_resnet50.py:513-530): ResNet-152 at 224 px, batch 64,
+# --bf16-factors --inverse-method eigen, factors every step, inverses every
+# 10, 12 steps on one fixed batch. Per step K1 runs every conv G and both
+# fc sides (157), K2 every conv A (155), K3 every (eigen) shape bucket.
+R152_STEPS, R152_SHORT_STEPS = 12, 3
+R152_PER_STEP = {'factor_ema': 157, 'patch_cov': 155}
+# At the CLI's lr 0.0125 ResNet-152's loss on the fixed batch fell 7.812
+# -> 7.742 at step 1 and then wandered within +-0.04 (the last three
+# 0.004 below the first three, under the run-to-run spread): the KL-clipped
+# steps are too small for the deeper net in 12 steps. At 0.1 it falls.
+R152_LR = 0.1
+BF16_FLAGS = {'bf16_factors': True, 'bf16_inverses': True,
+              'bf16_precond': True}
+# Phase 24: phase 14's ResNet-32 ranks with the three flags. Rank 0 holds
+# each step's preconditioned gradients and KL-clip scale against the
+# single-device KFAC at 2e-2 of the largest reference entry: both read
+# bf16 inverses with bf16 operands, computed from factors at most one
+# bf16 ulp (2^-8 of a value) apart, and a product of three rounded
+# operands moves by about three of those.
+BF16_STEP_TOL = {'precond': 2e-2, 'nu': 2e-2}
 R50_NS_BUCKETS = ((64, 12), (128, 12), (147, 1), (256, 26), (512, 19),
                   (576, 3), (1000, 1), (1024, 14), (1152, 4), (2048, 6),
                   (2049, 1), (2304, 6), (4608, 3))
@@ -397,11 +460,16 @@ def bound(nbytes: float, flops: float,
 # builder of (kernel_fn(bf16), plain_fn(bf16), library_fn, nbytes, flops))
 # ---------------------------------------------------------------------------
 
-def factor_ema_cases(gen, dev, resnet50=None, xl=False):
+def factor_ema_cases(gen, dev, resnet50=None, xl=False,
+                     storage_bf16=False):
+    """K1's cases; ``storage_bf16``: the running factor ``old`` (and so the
+    result) in bf16, K1's bf16-storage mode, each case also held bit for
+    bit against the widen, fp32 launch, round sequence (``kern.widened``)
+    and timed beside it."""
     import torch
     from distributed_kfac_pytorch_tpu_torch.ops import kernels as K
 
-    def case(shape, has_bias, channels_last=False):
+    def case(shape, has_bias, channels_last=False, storage_bf16=False):
         x = torch.randn(shape, generator=gen, device=dev)
         if channels_last:
             x = x.contiguous(memory_format=torch.channels_last)
@@ -415,8 +483,10 @@ def factor_ema_cases(gen, dev, resnet50=None, xl=False):
         n = d_in + int(has_bias)
         m = torch.randn((n, n), generator=gen, device=dev) * 0.01
         old = (torch.eye(n, device=dev) + m + m.T).contiguous()
+        if storage_bf16:
+            old = old.bfloat16()
         x2 = K._gram_rows(x).contiguous()
-        old_in = old[:d_in, :d_in].contiguous()   # yardstick: no bias row
+        old_in = old[:d_in, :d_in].float().contiguous()   # no bias row
         decay = 0.95
 
         # Checked in both forms: with the EMA as the main path runs it,
@@ -450,22 +520,37 @@ def factor_ema_cases(gen, dev, resnet50=None, xl=False):
         kern.plan = K.factor_ema_plan(x.shape, x.stride(), has_bias,
                                       K._sm_count(x.device.index or 0),
                                       aligned=x.data_ptr() % 16 == 0)
-        nbytes = 4 * (rows * d_in + 2 * n * n)
+        if storage_bf16:
+            # What the bf16-storage mode replaces: widen the stored
+            # factor, blend with an fp32 launch, round the result.
+            kern.widened = lambda bf16: K.factor_ema(
+                x, old.float(), decay, scale=scale, has_bias=has_bias,
+                compute_dtype=torch.bfloat16 if bf16 else None).bfloat16()
+        nbytes = 4 * rows * d_in + 2 * old.element_size() * n * n
         return kern, plain, library, nbytes, rows * d_in * (d_in + 1)
 
     if xl:
+        # The XL step's cases, then one in bf16-storage mode (untimed on
+        # the main path: phase 15 keeps fp32 factors).
+        rows, d, bias, _ = XL_K1_CASES[0]
         return [(f'xl ({rows},{d}){"+bias" if bias else ""}', count,
                  lambda rows=rows, d=d, bias=bias: case((rows, d), bias))
-                for rows, d, bias, count in XL_K1_CASES]
+                for rows, d, bias, count in XL_K1_CASES] + [
+            (f'xl ({rows},{d})+bias bf16 storage', 0,
+             lambda: case((rows, d), bias, storage_bf16=True))]
     if resnet50:
         fc_in, fc_out = resnet50['fc']
-        return [(f'conv G ({R50_BATCH},{c},{h},{w})', count,
-                 lambda c=c, h=h, w=w: case((R50_BATCH, c, h, w), False))
+        tag = ' bf16 storage' if storage_bf16 else ''
+        return [(f'conv G ({R50_BATCH},{c},{h},{w}){tag}', count,
+                 lambda c=c, h=h, w=w: case((R50_BATCH, c, h, w), False,
+                                            storage_bf16=storage_bf16))
                 for (c, h, w), count in resnet50['conv_g']] + [
-            (f'linear A ({R50_BATCH},{fc_in})+bias', 1,
-             lambda: case((R50_BATCH, fc_in), True)),
-            (f'linear G ({R50_BATCH},{fc_out})', 1,
-             lambda: case((R50_BATCH, fc_out), False))]
+            (f'linear A ({R50_BATCH},{fc_in})+bias{tag}', 1,
+             lambda: case((R50_BATCH, fc_in), True,
+                          storage_bf16=storage_bf16)),
+            (f'linear G ({R50_BATCH},{fc_out}){tag}', 1,
+             lambda: case((R50_BATCH, fc_out), False,
+                          storage_bf16=storage_bf16))]
     return [
         ('conv G (128,16,32,32)', 11, lambda: case((128, 16, 32, 32), False)),
         ('conv G (128,32,16,16)', 10, lambda: case((128, 32, 16, 16), False)),
@@ -568,7 +653,11 @@ def patch_cov_cases(gen, dev, resnet50=None):
     ]
 
 
-def bucket_precond_cases(gen, dev, resnet50=None, xl=False):
+def bucket_precond_cases(gen, dev, resnet50=None, xl=False,
+                         eigen_path=False):
+    """K3's cases. ``eigen_path`` (the ResNet-152 path under ``eigen``):
+    every bucket eigen, timed, and checked again fed bf16 stacks (bf16
+    inverse storage, which the wrapper widens)."""
     import torch
     from distributed_kfac_pytorch_tpu_torch.ops import kernels as K
 
@@ -577,7 +666,7 @@ def bucket_precond_cases(gen, dev, resnet50=None, xl=False):
                                            device=dev))
         return q.contiguous()
 
-    def case(s, g_dim, a_dim, eigen=True):
+    def case(s, g_dim, a_dim, eigen=True, bf16_stacks=False):
         g = torch.randn((s, g_dim, a_dim), generator=gen, device=dev)
         if eigen:
             entry = {'QA': orth(s, a_dim), 'QG': orth(s, g_dim),
@@ -591,6 +680,8 @@ def bucket_precond_cases(gen, dev, resnet50=None, xl=False):
                 return (m @ m.mT / n + 0.5 * torch.eye(n, device=dev)
                         ).contiguous()
             entry = {'A_inv': spd(a_dim), 'G_inv': spd(g_dim)}
+        if bf16_stacks:
+            entry = {k: t.bfloat16() for k, t in entry.items()}
         damping = 0.003
 
         def kern(bf16, both=True):
@@ -602,14 +693,14 @@ def bucket_precond_cases(gen, dev, resnet50=None, xl=False):
             return K.bucket_precond_plain(g, entry, damping, bf16=bf16)
 
         def library():
+            e = {k: t.float() for k, t in entry.items()}
             if eigen:
-                qa, qg = entry['QA'], entry['QG']
+                qa, qg = e['QA'], e['QG']
                 t = torch.bmm(torch.bmm(qg.mT, g), qa) / (
-                    entry['dG'][:, :, None] * entry['dA'][:, None, :]
-                    + damping)
+                    e['dG'][:, :, None] * e['dA'][:, None, :] + damping)
                 v = torch.bmm(torch.bmm(qg, t), qa.mT)
             else:
-                v = torch.bmm(torch.bmm(entry['G_inv'], g), entry['A_inv'])
+                v = torch.bmm(torch.bmm(e['G_inv'], g), e['A_inv'])
             return v, (v * g).sum(dim=(1, 2))
 
         kern.inputs = (g, entry, damping)
@@ -617,9 +708,10 @@ def bucket_precond_cases(gen, dev, resnet50=None, xl=False):
             s, g_dim, a_dim, eigen, K._sm_count(g.device.index or 0),
             aligned=all(t.data_ptr() % 16 == 0
                         for t in (g, *entry.values())))
-        ins = g_dim * a_dim + a_dim * a_dim + g_dim * g_dim
-        ins += (a_dim + g_dim) if eigen else 0
-        nbytes = 4 * s * (ins + g_dim * a_dim + 1)
+        slots = a_dim * a_dim + g_dim * g_dim + ((a_dim + g_dim) if eigen
+                                                  else 0)
+        nbytes = s * (4 * (2 * g_dim * a_dim + 1)
+                      + (2 if bf16_stacks else 4) * slots)
         flops = s * (4 if eigen else 2) * g_dim * a_dim * (a_dim + g_dim)
         return kern, plain, library, nbytes, flops
 
@@ -629,6 +721,15 @@ def bucket_precond_cases(gen, dev, resnet50=None, xl=False):
         return [(f'xl baked ({s},{g_dim},{a_dim})', 1,
                  lambda s=s, g=g_dim, a=a_dim: case(s, g, a, False))
                 for (g_dim, a_dim), s in XL_K3_BUCKETS]
+    if resnet50 and eigen_path:
+        out = []
+        for (g_dim, a_dim), s in resnet50['buckets']:
+            out.append((f'eigen ({s},{g_dim},{a_dim})', 1,
+                        lambda s=s, g=g_dim, a=a_dim: case(s, g, a)))
+            out.append((f'eigen bf16 stacks ({s},{g_dim},{a_dim})', 0,
+                        lambda s=s, g=g_dim, a=a_dim: case(
+                            s, g, a, bf16_stacks=True)))
+        return out
     if resnet50:
         # Under 'newton' every bucket is baked (timed, once per step);
         # the eigen form is checked at the same shapes.
@@ -668,6 +769,7 @@ def rel_err(got, ref) -> tuple[float, float]:
         got, ref = (got,), (ref,)
     abs_err, rel = 0.0, 0.0
     for g, r in zip(got, ref, strict=True):
+        g, r = g.float(), r.float()
         if g.shape != r.shape:
             raise AssertionError(f'shape {tuple(g.shape)} != '
                                  f'{tuple(r.shape)}')
@@ -680,14 +782,19 @@ def rel_err(got, ref) -> tuple[float, float]:
 
 
 def resnet50_shapes() -> dict:
-    """The shapes the ResNet-50 path gives K1-K3, from one forward pass of
-    the model on the CPU at batch 1: conv output (C, H, W) with counts,
-    conv input (C, H, W) + kernel + stride with counts, the head's
-    (in, out) and the precondition buckets ((G, A), layers)."""
+    """:func:`resnet_shapes` of ResNet-50."""
+    return resnet_shapes('resnet50')
+
+
+def resnet_shapes(model_name: str) -> dict:
+    """The shapes an ImageNet ResNet's path (224 px) gives K1-K3, from one
+    forward pass of the model on the CPU at batch 1: conv output (C, H,
+    W) with counts, conv input (C, H, W) + kernel + stride with counts,
+    the head's (in, out) and the precondition buckets ((G, A), layers)."""
     import collections
     import torch
     from distributed_kfac_pytorch_tpu_torch.models import imagenet_resnet
-    model = imagenet_resnet.get_model('resnet50').eval()
+    model = imagenet_resnet.get_model(model_name).eval()
     seen, hooks = [], []
     for mod in model.modules():
         if isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear)):
@@ -724,16 +831,24 @@ def plan_fields(plan) -> dict:
 
 
 def check_kernels(quick: bool, resnet50: dict | None = None,
-                  lstm: bool = False, xl: bool = False) -> tuple[dict, list]:
+                  lstm: bool = False, xl: bool = False,
+                  config5: bool = False) -> tuple[dict, list]:
     """K1-K3 against their plain versions at the ResNet-32 shapes (or,
     given ``resnet50_shapes()``, the ResNet-50 ones; with ``lstm``, K3 at
     the LSTM LM's bucket; with ``xl``, K1 and K3 at the Transformer-XL
-    step's shapes); per-step sums of the timed cases' ms, plain ms,
-    library ms and bounds."""
+    step's shapes; with ``config5`` and ``resnet_shapes('resnet152')``,
+    tracked config 5's modes: K1 with bf16 storage, K3 on eigen buckets,
+    also fed bf16 stacks, and K1 and K2 timed with bf16 multiplicands);
+    per-step sums of the timed cases' ms, plain ms, library ms and
+    bounds. A K1 case in bf16-storage mode is also held bit for bit
+    against the widen, fp32 launch, round sequence and timed beside it."""
     import torch
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    # The multiplicand mode each kernel is timed in: config 5's path runs
+    # K1 and K2 with bf16 multiplicands (--bf16-factors).
+    timed_bf16 = {'factor_ema': config5, 'patch_cov': config5}
     if lstm:
         families = {'bucket_precond': lstm_bucket_precond_cases(gen, dev)}
     elif xl:
@@ -742,10 +857,13 @@ def check_kernels(quick: bool, resnet50: dict | None = None,
                                                            xl=True)}
     else:
         families = {
-            'factor_ema': factor_ema_cases(gen, dev, resnet50),
+            'factor_ema': factor_ema_cases(gen, dev, resnet50,
+                                           storage_bf16=config5),
             'patch_cov': patch_cov_cases(gen, dev, resnet50),
-            'bucket_precond': bucket_precond_cases(gen, dev, resnet50)}
+            'bucket_precond': bucket_precond_cases(gen, dev, resnet50,
+                                                   eigen_path=config5)}
     model = ('lstm' if lstm else 'transformer_xl' if xl
+             else 'resnet152' if config5
              else 'resnet50' if resnet50 else 'resnet32')
     summary, details = {}, []
     for name, cases in families.items():
@@ -753,10 +871,16 @@ def check_kernels(quick: bool, resnet50: dict | None = None,
         agg = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0,
                't_bytes': 0.0, 't_ops': 0.0, 'fp32_bound_ms': 0.0,
                'max_abs_err': 0.0}
+        timed = timed_bf16.get(name, False)
+        if timed:
+            # bf16 multiplicands: the same products could run on the bf16
+            # tensor cores.
+            peak = PEAK_BF16_FLOPS
         for label, count, make in cases:
             kern, plain, library, nbytes, flops = make()
+            widened = getattr(kern, 'widened', None)
             row = {'kernel': name, 'case': label, 'per_step': count,
-                   'model': model}
+                   'model': model, 'timed_mode': 'bf16' if timed else 'fp32'}
             plan = getattr(kern, 'plan', None)
             desc = plan_fields(plan) if plan is not None else {}
             row.update(desc)
@@ -765,7 +889,21 @@ def check_kernels(quick: bool, resnet50: dict | None = None,
                 got = kern(bf16)
                 torch.cuda.synchronize()
                 ref = plain(bf16)
-                abs_err, rel = rel_err(got, ref)
+                if widened is None:
+                    abs_err, rel = rel_err(got, ref)
+                else:
+                    # The bf16-stored blend: the kernel's and the plain
+                    # version's fp32 blends may part at a rounding
+                    # boundary, so it is held to one bf16 ulp of its
+                    # largest entry; the contraction at the mode's
+                    # tolerance.
+                    abs_err, rel = rel_err(got[1:], ref[1:])
+                    _, rel_store = rel_err(got[:1], ref[:1])
+                    row[f'{mode}_storage_rel_err'] = rel_store
+                    if not rel_store <= BF16_ULP:
+                        raise AssertionError(
+                            f'{name} {label} {mode}: bf16-stored blend rel '
+                            f'err {rel_store:.3g} > {BF16_ULP}')
                 row[f'{mode}_abs_err'] = abs_err
                 row[f'{mode}_rel_err'] = rel
                 if not rel <= tol:
@@ -779,6 +917,13 @@ def check_kernels(quick: bool, resnet50: dict | None = None,
                             f'{name} {label}: kernels.ema_blend of the '
                             f'contraction differs from the fused blend in '
                             f'{differ} entries')
+                if widened is not None:
+                    differ = int((widened(bf16) != got[0]).sum())
+                    if got[0].dtype != torch.bfloat16 or differ:
+                        raise AssertionError(
+                            f'{name} {label} {mode}: bf16 storage differs '
+                            f'from widen, launch, round in {differ} '
+                            f'entries ({got[0].dtype})')
                 if plan is not None:
                     # K1 and K2 mirror every upper entry from its lower
                     # one; K1-K3 sum their partials in a fixed order.
@@ -795,10 +940,10 @@ def check_kernels(quick: bool, resnet50: dict | None = None,
                    f'{row["fp32_rel_err"]:.2e}  bf16 rel '
                    f'{row["bf16_rel_err"]:.2e}')
             msg += ''.join(f'  {k} {v}' for k, v in desc.items())
-            if not quick and count:
+            if not quick and (count or widened is not None):
                 reps = 20 if flops < 2e10 else 5
-                row['ms'] = time_ms(lambda: kern(False, both=False), reps)
-                row['plain_ms'] = time_ms(lambda: plain(False, both=False),
+                row['ms'] = time_ms(lambda: kern(timed, both=False), reps)
+                row['plain_ms'] = time_ms(lambda: plain(timed, both=False),
                                           reps)
                 row['library_ms'] = time_ms(library, reps)
                 row['bound_ms'], row['bound_by'] = bound(nbytes, flops,
@@ -810,6 +955,11 @@ def check_kernels(quick: bool, resnet50: dict | None = None,
                         f'{100 * row["bound_ms"] / row["ms"]:.1f} %)')
                 if peak != PEAK_FP32_FLOPS:
                     msg += f' fp32 bound {row["fp32_bound_ms"]:.4f}'
+                if widened is not None:
+                    row['widened_ms'] = time_ms(lambda: widened(timed),
+                                                reps)
+                    msg += f' widen+fp32+round {row["widened_ms"]:.4f}'
+            if not quick and count:
                 agg['ms'] += count * row['ms']
                 agg['plain_ms'] += count * row['plain_ms']
                 agg['library_ms'] += count * row['library_ms']
@@ -1144,6 +1294,127 @@ def run_resnet50_auto(card: str) -> dict:
     log(f'  firing step (step 0) {res["step_ms"][0]:.1f} ms, non-firing '
         f'{[round(t, 2) for t in res["step_ms"][1:]]} ms ({card})')
     return summary
+
+
+def _r152_run(label: str, card: str, steps: int, buckets: int,
+              **flags) -> dict:
+    """One config-5-shaped run of ``train_imagenet_resnet.train``
+    (ResNet-152, 224 px, batch 64, ``eigen``, inverses every 10, lr
+    ``R152_LR``) with the
+    launch counts reset just before and read just after: every loss
+    finite, launches K1 157, K2 155 and K3 ``buckets`` per step and no K4
+    or K5. Returns its losses, step ms, peak allocated memory, the bytes
+    and dtypes of the factor and inverse state."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch import train_imagenet_resnet
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    config = _r50_config(model='resnet152', epochs=steps,
+                         inverse_method='eigen', base_lr=R152_LR, **flags)
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    res = train_imagenet_resnet.train(config, device='cuda')
+    launches = dict(kernels.LAUNCHES)
+    state = res.pop('state')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses, n = res['losses'], res['steps']
+    log(f'  {label}: losses {[round(v, 4) for v in losses]}')
+    if n != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f'{label}: {n} steps, losses {losses}')
+    expected = {name: per * n for name, per in R152_PER_STEP.items()}
+    expected.update(bucket_precond=buckets * n, ns_inverse=0,
+                    jacobi_eigh=0)
+    if launches != expected:
+        raise AssertionError(f'{label}: launches {launches}, expected '
+                             f'{expected}')
+    kst = state.kfac_state
+    nbytes = {k: sum(t.numel() * t.element_size() for e in kst[k].values()
+                     for t in e.values()) for k in ('factors', 'inverses')}
+    dtypes = {k: sorted({str(t.dtype).replace('torch.', '')
+                         for e in kst[k].values() for t in e.values()})
+              for k in ('factors', 'inverses')}
+    firing, plain = _step_ms(res)
+    summary = {'steps': n, 'flags': flags, 'losses': losses,
+               'launches': launches, 'fired': res['fired'],
+               'step_ms': res['step_ms'], 'firing_ms': firing,
+               'nonfiring_ms_median': statistics.median(plain),
+               'peak_gib': peak, 'factor_bytes': nbytes['factors'],
+               'inverse_bytes': nbytes['inverses'], 'dtypes': dtypes}
+    log(f'  {label}: ms/step non-firing {summary["nonfiring_ms_median"]:.2f}'
+        f' (median of {len(plain)}), firing '
+        f'{[round(t, 1) for t in firing]} (step 0, the first firing: '
+        f'{res["step_ms"][0]:.1f}); peak allocated {peak:.2f} GiB; factors '
+        f'{nbytes["factors"] / 1e9:.3f} GB {dtypes["factors"]}, inverses '
+        f'{nbytes["inverses"] / 1e9:.3f} GB {dtypes["inverses"]} ({card})')
+    del state
+    _release()
+    return summary
+
+
+def run_resnet152_config5(card: str, r152: dict, xl: dict) -> dict:
+    """Phase 23: tracked config 5, ``--model resnet152 --bf16-factors
+    --inverse-method eigen``, 12 steps (firings at steps 0 and 10): every
+    loss finite, the last three below the first three, every factor bf16
+    and every inverse fp32 after the run, K1 157 / K2 155 / K3 one per
+    bucket per step and no K4 or K5. Beside it, in the same call: 3 steps
+    with fp32 factors, 3 steps with ``--bf16-factors --bf16-inverses
+    --bf16-precond`` (inverses bf16), and the LM CLI at phase 15's XL
+    width with the three flags (3 steps, one firing: the embedding's
+    ``diag_inv`` bf16, step ms beside phase 15's ``xl``)."""
+    import torch
+    buckets = len(r152['buckets'])
+    log(f'  ResNet-152: {buckets} shape buckets, K1 '
+        f'{R152_PER_STEP["factor_ema"]} and K2 '
+        f'{R152_PER_STEP["patch_cov"]} launches per step')
+    main = _r152_run('bf16 factors', card, R152_STEPS, buckets,
+                     bf16_factors=True)
+    losses = main['losses']
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not last < first:
+        raise AssertionError(f'config 5: loss did not decrease: first three '
+                             f'{first:.4f}, last three {last:.4f}')
+    if main['dtypes'] != {'factors': ['bfloat16'],
+                          'inverses': ['float32']}:
+        raise AssertionError(f'config 5: state dtypes {main["dtypes"]}')
+    if main['fired'].count('inverse') != 2:
+        raise AssertionError(f'config 5: fired {main["fired"]}')
+    fp32 = _r152_run('fp32 factors', card, R152_SHORT_STEPS, buckets)
+    flags = _r152_run('bf16 factors, inverses, precond', card,
+                      R152_SHORT_STEPS, buckets, **BF16_FLAGS)
+    if flags['dtypes'] != {'factors': ['bfloat16'],
+                           'inverses': ['bfloat16']}:
+        raise AssertionError(f'config 5, three flags: state dtypes '
+                             f'{flags["dtypes"]}')
+    log(f'  config 5 against fp32 factors: factor state '
+        f'{main["factor_bytes"] / 1e9:.3f} / {fp32["factor_bytes"] / 1e9:.3f}'
+        f' GB, non-firing {main["nonfiring_ms_median"]:.2f} / '
+        f'{fp32["nonfiring_ms_median"]:.2f} ms, peak '
+        f'{main["peak_gib"]:.2f} / {fp32["peak_gib"]:.2f} GiB')
+    res, launches, state = _run_tlm(
+        'transformer-xl, three bf16 flags',
+        _xl_config(max_steps=R152_SHORT_STEPS, **BF16_FLAGS), XL_PER_STEP, 1)
+    diag = state.kfac_state['inverses']['embed']['A_inv'].dtype
+    dtypes = sorted({str(t.dtype) for e in state.kfac_state[
+        'inverses'].values() for t in e.values()})
+    if diag != torch.bfloat16 or dtypes != ['torch.bfloat16']:
+        raise AssertionError(f'xl, three flags: diag_inv {diag}, '
+                             f'inverses {dtypes}')
+    del state
+    _release()
+    xl_ms = res['step_ms'][1:]
+    lm = {'losses': res['losses'], 'launches': launches,
+          'step_ms': res['step_ms'], 'peak_gib': res['peak_gib'],
+          'nonfiring_ms_median': statistics.median(xl_ms),
+          'phase15_nonfiring_ms_median': xl['nonfiring_ms_median']}
+    log(f'  xl, three bf16 flags: ms/step non-firing '
+        f'{lm["nonfiring_ms_median"]:.2f} (median of {len(xl_ms)}; phase 15 '
+        f'{xl["nonfiring_ms_median"]:.2f}), firing (step 0) '
+        f'{res["step_ms"][0]:.1f}; peak {res["peak_gib"]:.1f} GiB ({card})')
+    return {'buckets': buckets, 'bf16_factors': main, 'fp32_factors': fp32,
+            'three_flags': flags, 'transformer_xl_three_flags': lm,
+            'launches': {k: main['launches'][k] + fp32['launches'][k]
+                         + flags['launches'][k] + launches[k]
+                         for k in launches}}
 
 
 # ---------------------------------------------------------------------------
@@ -1564,11 +1835,39 @@ def _max_rel(pairs) -> float:
                for a, b in pairs)
 
 
+def _bf16_gap(got: dict, want: dict) -> tuple[int, bool]:
+    """Two ``{layer: {'A', 'G'}}`` bf16 factor sets: the largest distance
+    in bf16 ulps, and whether every entry is within 1 ulp or, where that
+    is more, within 1e-5 of its factor's largest entry (phase 14's fp32
+    tolerance: sums taken in another order move an entry that cancels to
+    near zero by more than an ulp of itself)."""
+    import torch
+
+    def keys(t):
+        b = t.view(torch.int16).to(torch.int32)
+        return torch.where(b < 0, -(b & 0x7FFF), b)
+    worst, ok = 0, True
+    for name, f in want.items():
+        for side, w in f.items():
+            g = got[name][side]
+            gap = (keys(g) - keys(w)).abs()
+            diff = (g.float() - w.float()).abs()
+            worst = max(worst, int(gap.max()))
+            ok &= bool(((gap <= 1) | (diff <= 1e-5 * w.float().abs().max())
+                        ).all())
+    return worst, ok
+
+
 def dist_worker(cfg: dict) -> int:
     """One rank of phase 14 (``chip_smoke.py --dist-worker CONFIG``):
     ResNet-32 at full width, BatchNorm in eval mode, this rank's slice of
     one global batch, every case of GLOO_CASES in turn; rank 0 holds each
-    step against the single-device KFAC on the full batch."""
+    step against the single-device KFAC on the full batch. Phase 24
+    (``'resnet32_bf16'``) runs the first three cases with the three bf16
+    flags: rank 0 also takes one factor step of the single-device KFAC
+    from the world's factors before each step and holds the world's new
+    factors to it in bf16 ulps (:func:`_bf16_gap`), and holds the
+    preconditioned gradients and KL-clip scale at ``BF16_STEP_TOL``."""
     import torch
     import torch.nn.functional as F
     from distributed_kfac_pytorch_tpu_torch import launch, \
@@ -1609,9 +1908,16 @@ def dist_worker(cfg: dict) -> int:
     knobs = dict(inverse_method='eigen', factor_update_freq=1,
                  inv_update_freq=GLOO_INV_FREQ, damping=0.003, lr=0.1,
                  kl_clip=0.001, device=dev)
+    bf16 = cfg['phase'] == 'resnet32_bf16'
+    cases = GLOO_CASES[:3] if bf16 else GLOO_CASES
+    if bf16:
+        knobs.update(dict.fromkeys(
+            ('factor_dtype', 'factor_compute_dtype', 'inv_dtype',
+             'precond_compute_dtype'), torch.bfloat16))
+    tol = BF16_STEP_TOL if bf16 else STEP_TOL
     report = {'rank': rank, 'cases': []}
     failures = []
-    for name, comm, frac, eigh, grid in GLOO_CASES:
+    for name, comm, frac, eigh, grid in cases:
         model.load_state_dict(init)
         kfac = KFAC(model, eigh_method=eigh, **knobs)
         dk = DistributedKFAC(kfac, comm_method=comm,
@@ -1631,6 +1937,7 @@ def dist_worker(cfg: dict) -> int:
             torch.cuda.synchronize()
             dist.barrier()     # rank 0's reference check runs between steps
             kernels.reset_launches()
+            prev = state['factors']
             t0 = time.perf_counter()
             _, _, grads, captures = kfac.capture.loss_and_grads(
                 lambda out: F.cross_entropy(out, y[local]), x[local])
@@ -1644,18 +1951,32 @@ def dist_worker(cfg: dict) -> int:
             if rank == 0:
                 _, _, g_full, c_full = ref.capture.loss_and_grads(
                     lambda out: F.cross_entropy(out, y), x)
+                if bf16:
+                    shared = ref.update_factors({'factors': prev}, c_full)
                 p_ref, ref_state = ref.step(ref_state, g_full, c_full,
                                             factor_update=True,
                                             inv_update=inv)
                 err = {
-                    'factors': _max_rel(
-                        (state['factors'][n][s], ref_state['factors'][n][s])
-                        for n in ref.specs for s in 'AG'),
                     'precond': _max_rel((precond[n], p_ref[n])
                                         for n in p_ref),
                     'nu': _max_rel([(dk.last_nu, ref.last_nu)])}
+                if bf16:
+                    err['shared_ulps'], ok = _bf16_gap(state['factors'],
+                                                       shared)
+                    err['run_ulps'] = _bf16_gap(state['factors'],
+                                                ref_state['factors'])[0]
+                    if not ok:
+                        failures.append(
+                            f'{name} step {step}: factors from the shared '
+                            f'state {err["shared_ulps"]} ulps apart, over '
+                            '1 ulp (and 1e-5 of the largest entry)')
+                else:
+                    err['factors'] = _max_rel(
+                        (state['factors'][n][s], ref_state['factors'][n][s])
+                        for n in ref.specs for s in 'AG')
                 errors.append(err)
-                bad = {k: v for k, v in err.items() if not v <= STEP_TOL[k]}
+                bad = {k: v for k, v in err.items()
+                       if k in tol and not v <= tol[k]}
                 if bad:
                     failures.append(f'{name} step {step}: {bad}')
             with torch.no_grad():
@@ -1693,8 +2014,9 @@ def dist_worker(cfg: dict) -> int:
 
 
 def _run_gloo_ranks(phase: str) -> list:
-    """GLOO_WORLD ranks of ``phase`` (``'resnet32'``: :func:`dist_worker`,
-    ``'lm'``: :func:`lm_dist_worker`) on the one card, subprocesses of
+    """GLOO_WORLD ranks of ``phase`` (``'resnet32'`` and
+    ``'resnet32_bf16'``: :func:`dist_worker`, ``'lm'``:
+    :func:`lm_dist_worker`) on the one card, subprocesses of
     this script; returns their reports, failing if any rank fails."""
     store = _fresh_store(f'gloo_{phase}.store')
     outs = [_fresh_store(f'gloo_{phase}_rank{r}.json')
@@ -1737,6 +2059,32 @@ def _launch_total(reports) -> dict:
             for k, v in case['launches'].items():
                 total[k] += v
     return total
+
+
+def run_bf16_gloo_world(card: str) -> dict:
+    """Phase 24: phase 14's ranks with the three bf16 flags under COMM_OPT,
+    MEM_OPT and HYBRID_OPT; fails if any rank fails."""
+    reports = _run_gloo_ranks('resnet32_bf16')
+    worst = {}
+    for i, case in enumerate(reports[0]['cases']):
+        errs = case['errors']
+        worst[case['name']] = {k: max(e[k] for e in errs) for k in errs[0]}
+        w = worst[case['name']]
+        log(f'  {case["name"]} grid {case["grid"]}, bf16 factors, inverses '
+            f'and precond: rank 0 vs single-device KFAC over '
+            f'{len(errs)} steps: factors from the shared state '
+            f'{w["shared_ulps"]} ulp(s) at most, across the runs '
+            f'{w["run_ulps"]}; preconditioned grads {w["precond"]:.2e}, nu '
+            f'{w["nu"]:.2e} (limits {BF16_STEP_TOL})')
+        for rep in reports:
+            c = rep['cases'][i]
+            log(f'    rank {rep["rank"]} (row {c["row"]}, col {c["col"]}): '
+                f'launches { {k: v for k, v in c["launches"].items() if v} }'
+                f' = assignment; step ms (gloo through host memory) '
+                f'{[round(t, 1) for t in c["step_ms"]]}')
+    total = _launch_total(reports)
+    log(f'  all ranks: launches {total} ({card})')
+    return {'launches': total, 'worst': worst, 'ranks': reports}
 
 
 def run_gloo_world(card: str) -> dict:
@@ -2804,11 +3152,12 @@ def profile_main_path(which: str = 'resnet32', steps: int = 5,
                       **xl_over) -> dict:
     """torch.profiler over ``steps`` steady non-firing steps and one firing
     step of the ResNet-32 path, the ResNet-50 ``newton`` path, the LSTM
-    LM ``jacobi`` path or the Transformer-XL path of phase 15 (``which``:
-    'resnet32', 'resnet50', 'lstm', 'transformer_xl'; ``xl_over``: LM CLI
-    options over phase 15's): device time by kernel category and the
-    device's busy share (kernel time / wall time of the profiled
-    window)."""
+    LM ``jacobi`` path, the Transformer-XL path of phase 15 or phase 23's
+    config 5 with bf16 or fp32 factors (``which``: 'resnet32',
+    'resnet50', 'lstm', 'transformer_xl', 'resnet152', 'resnet152_fp32';
+    ``xl_over``: LM CLI options over phase 15's): device time by kernel
+    category and the device's busy share (kernel time / wall time of the
+    profiled window)."""
     import functools
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2853,6 +3202,16 @@ def profile_main_path(which: str = 'resnet32', steps: int = 5,
                 base_lr=R50_LR, weight_decay=5e-5, damping=0.001,
                 inverse_method='newton', kfac_inv_update_freq=10,
                 kfac_cov_update_freq=1)
+            criterion = functools.partial(utils.label_smooth_loss,
+                                          smoothing=0.1)
+        elif which in ('resnet152', 'resnet152_fp32'):
+            (x, y), _ = datasets.get_imagenet(synthetic_size=R50_BATCH)
+            model = imagenet_resnet.get_model('resnet152').to(dev)
+            cfg = optimizers.OptimConfig(
+                base_lr=R152_LR, weight_decay=5e-5, damping=0.001,
+                inverse_method='eigen', kfac_inv_update_freq=10,
+                kfac_cov_update_freq=1,
+                bf16_factors=which == 'resnet152')
             criterion = functools.partial(utils.label_smooth_loss,
                                           smoothing=0.1)
         else:
@@ -2970,17 +3329,24 @@ def main(argv=None) -> int:
     summary_lm, details_lm = check_kernels(args.quick, lstm=True)
     log('== kernels K1, K3 vs plain versions: Transformer-XL shapes')
     summary_xl, details_xl = check_kernels(args.quick, xl=True)
+    log('== kernels K1-K3 vs plain versions: ResNet-152 shapes, config 5 '
+        '(K1 bf16 storage, K1 and K2 bf16 multiplicands, K3 eigen and fed '
+        'bf16 stacks)')
+    r152 = resnet_shapes('resnet152')
+    summary152, details152 = check_kernels(args.quick, r152, config5=True)
     log('== kernel K4 (Newton-Schulz inverse) vs plain version')
     summary_ns, details_ns = check_ns_inverse(args.quick)
     log('== kernel K5 (Jacobi eigh) vs plain version')
     summary_jac, summary_jac32, details_jac = check_jacobi_eigh(args.quick)
     report = {'card': card,
               'kernel_cases': (details + details50 + details_lm
-                               + details_xl + details_ns + details_jac),
+                               + details_xl + details152 + details_ns
+                               + details_jac),
               'per_step_resnet32': summary32,
               'per_step_resnet50': summary50,
               'per_step_lstm': summary_lm,
               'per_step_transformer_xl': summary_xl,
+              'per_step_resnet152_config5': summary152,
               'per_firing_resnet50_ns_inverse': summary_ns,
               'per_firing_lstm_jacobi_eigh': summary_jac,
               'per_firing_resnet32_jacobi_eigh': summary_jac32}
@@ -3048,6 +3414,17 @@ def main(argv=None) -> int:
             f'{len(SEQ_GLOO_CASES)} cases x {LM_GLOO_STEPS} steps; the '
             f'Transformer CLI, --seq-parallel {SEQ_CLI_SP}')
         report['seq_gloo_world'] = run_seq_gloo_world(card)
+        log(f'== tracked config 5: ResNet-152, 224 px, batch {R50_BATCH}, '
+            f'--bf16-factors --inverse-method eigen, {R152_STEPS} steps on '
+            f'one batch; {R152_SHORT_STEPS} steps with fp32 factors and with '
+            'the three bf16 flags; the Transformer-XL LM with the three '
+            f'flags, {R152_SHORT_STEPS} steps')
+        report['resnet152_config5'] = run_resnet152_config5(
+            card, r152, report['transformer_xl'])
+        log(f'== distributed, bf16: ResNet-32, {GLOO_WORLD} ranks on one '
+            'card over gloo, --bf16-factors --bf16-inverses --bf16-precond, '
+            f'3 mesh cases x {GLOO_STEPS} steps')
+        report['bf16_gloo_world'] = run_bf16_gloo_world(card)
         runs = (main_summary, r50, report['resnet50_auto'],
                 report['lstm_jacobi'], report['lm_defaults'],
                 report['resnet32_jacobi'], report['resnet50_nccl_world1'],
@@ -3057,7 +3434,8 @@ def main(argv=None) -> int:
                 report['transformer_defaults'],
                 report['transformer_xl_nccl_world1'],
                 report['lm_gloo_world'], report['transformer_xl_chunked'],
-                report['seq_gloo_world'])
+                report['seq_gloo_world'], report['resnet152_config5'],
+                report['bf16_gloo_world'])
         launches = {name: sum(r['launches'].get(name, 0) for r in runs)
                     for name in kernels.LAUNCHES}
         aggs = {**summary50, 'ns_inverse': summary_ns,
@@ -3095,6 +3473,19 @@ def main(argv=None) -> int:
                     'bound_by': 'bytes' if t_b >= t_o else 'operations',
                     'library_ms': xl_agg['library_ms'],
                     'fp32_bound_ms': xl_agg['fp32_bound_ms']}
+            # K1-K3 per config-5 step (ResNet-152, bf16 factors).
+            agg152 = summary152.get(name)
+            if agg152:
+                t_b, t_o = agg152['t_bytes'], agg152['t_ops']
+                entry['resnet152_config5'] = {
+                    'per': 'step', 'launches': report['resnet152_config5'][
+                        'bf16_factors']['launches'][name],
+                    'max_abs_err': agg152['max_abs_err'],
+                    'ms': agg152['ms'], 'plain_ms': agg152['plain_ms'],
+                    'bound_ms': max(t_b, t_o),
+                    'bound_by': 'bytes' if t_b >= t_o else 'operations',
+                    'library_ms': agg152['library_ms'],
+                    'fp32_bound_ms': agg152['fp32_bound_ms']}
             line.append(entry)
         report['kernels'] = line
         if args.profile:
@@ -3119,6 +3510,12 @@ def main(argv=None) -> int:
                     'by_category_ms'].get('K1 factor_ema'):
                 raise AssertionError('profile: no K1 factor_ema device time '
                                      'in the Transformer-XL steps')
+            for which, what in (('resnet152', 'bf16 factors'),
+                                ('resnet152_fp32', 'fp32 factors')):
+                _release()
+                log('== profile: device time by kernel category, config 5 '
+                    f'(ResNet-152, eigen) with {what}')
+                report[f'profile_{which}'] = profile_main_path(which)
     out_dir = ROOT / 'chiprun_out'
     out_dir.mkdir(exist_ok=True)
     (out_dir / 'chip_smoke.json').write_text(json.dumps(report, indent=1))

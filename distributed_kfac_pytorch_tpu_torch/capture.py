@@ -22,6 +22,11 @@ the layer's ``a_tied`` stream and the logits' gradient to ``g_tied``,
 paired by index. The weight's gradient stays the sum over both uses. A
 bare ``x @ embed.weight.T`` is invisible to capture.
 
+``capture_dtype`` (the JAX knob) casts the kept activations: ``None``
+and ``'auto'`` keep them as they are (the JAX package casts under
+``'auto'`` on a TPU only), an explicit dtype casts every floating ``a``
+and ``a_tied`` to it. Output-gradients are never cast.
+
 The weight-sharing approximation of each layer (``LayerSpec.kfac_approx``)
 is resolved by ``sharing.approx``; a Linear's shared-axis positions
 (``shared_positions``) are read from its input at the first recorded
@@ -131,16 +136,20 @@ class KFACCapture:
     ``skip_layers``: module names or class names (case-insensitive) whose
     subtrees are left out; frozen modules (no parameter requiring grad)
     are left out too. ``tied_embeddings``: also capture the ``attend``
-    calls of registered ``Embed`` modules (the tied decoder). The hooks
-    stay installed for the life of the object (until :meth:`close`) and
-    record only inside :meth:`recording`.
+    calls of registered ``Embed`` modules (the tied decoder).
+    ``capture_dtype``: ``'auto'`` or None keep captured activations as
+    they are, a dtype casts floating ones to it (never the output-grads).
+    The hooks stay installed for the life of the object (until
+    :meth:`close`) and record only inside :meth:`recording`.
     """
 
     def __init__(self, model: nn.Module,
                  skip_layers: str | Sequence[str] | None = None,
-                 tied_embeddings: bool = False):
+                 tied_embeddings: bool = False,
+                 capture_dtype: Any = 'auto'):
         self.model = model
         self.tied_embeddings = bool(tied_embeddings)
+        self.capture_dtype = capture_dtype
         if skip_layers is None:
             skip_layers = []
         elif isinstance(skip_layers, str):
@@ -208,13 +217,21 @@ class KFACCapture:
         calls_a = a_store.setdefault(name, [])
         calls_g = g_store.setdefault(name, [])
         idx = len(calls_a)
-        calls_a.append(x.detach())
+        calls_a.append(self._cast(x.detach()))
         calls_g.append(None)
         if y.requires_grad:
             def store(grad, idx=idx):
                 calls_g[idx] = grad.detach()
             y.register_hook(store)
         return True
+
+    def _cast(self, x: torch.Tensor) -> torch.Tensor:
+        """A captured activation in ``capture_dtype``: an explicit dtype
+        casts a floating ``x``; ``'auto'`` and None pass it through."""
+        cd = self.capture_dtype
+        if cd is None or cd == 'auto' or not x.is_floating_point():
+            return x
+        return x.to(cd)
 
     def _make_hook(self, name: str):
         def hook(mod, inputs, output):

@@ -19,7 +19,10 @@ framework has to import the other. Layout rules:
     Transformer LM's top-level ``pos_embed``) keeps its name under the
     module's path;
   - a conv A factor's basis ``(kh, kw, c)`` -> ``(c, kh, kw)``
-    (:func:`conv_a_perm`); G factors and Linear factors need no change.
+    (:func:`conv_a_perm`), for the factor, a baked ``A_inv`` and the rows
+    of an eigenbasis ``QA``; G sides and Linear factors need no change;
+  - bf16 arrays (``ml_dtypes.bfloat16`` on the JAX side) cross as their
+    16-bit patterns, exactly (:func:`array_to_tensor`).
 """
 
 from __future__ import annotations
@@ -147,20 +150,104 @@ def conv_a_perm(kernel_size, cin: int, has_bias: bool = False
     return perm
 
 
+def array_to_tensor(a) -> torch.Tensor:
+    """A JAX-side array (numpy, or anything ``np.asarray`` takes) as a CPU
+    tensor: bf16 stays bf16, anything else becomes fp32.
+
+    The JAX package's bf16 arrays are ``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` rejects (and the card's machine has no
+    ``ml_dtypes``), so they are recognised by the dtype's name and carried
+    over as their 16-bit patterns, exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == 'bfloat16':
+        bits = np.ascontiguousarray(a).view(np.uint16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def tensor_to_array(t: torch.Tensor, bfloat16=None) -> np.ndarray:
+    """Inverse of :func:`array_to_tensor`: a tensor as a numpy array; a bf16
+    tensor as its 16-bit patterns (``uint16``), viewed as ``bfloat16``
+    when that numpy dtype is given (e.g. ``jnp.bfloat16`` on the JAX
+    side)."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy().copy()
+    bits = t.contiguous().view(torch.uint16).numpy().copy()
+    return bits if bfloat16 is None else bits.view(bfloat16)
+
+
+def _a_perm(spec, a_dim: int) -> np.ndarray | None:
+    """The conv A basis map of layer ``spec`` (:func:`conv_a_perm`) for an
+    A of dimension ``a_dim``; None for the other kinds."""
+    if spec.kind != 'conv2d':
+        return None
+    kh, kw = spec.kernel_size
+    cin = (a_dim - int(spec.has_bias)) // (kh * kw)
+    return conv_a_perm(spec.kernel_size, cin, spec.has_bias)
+
+
+def _map_a_side(key: str, a: np.ndarray, perm) -> np.ndarray:
+    """Reorder an A-side slot by ``perm``: a matrix (the factor, a baked
+    inverse) on both axes, an eigenbasis on its rows only; eigenvalues and
+    diagonal slots (1-D) as they are."""
+    if perm is None or a.ndim == 1:
+        return a
+    return a[perm] if key.startswith('Q') else a[perm][:, perm]
+
+
+def _convert_state(tree: dict, specs: dict, to_torch: bool,
+                   bfloat16=None) -> dict:
+    """A factor or inverse dict from one framework's keys and A basis to
+    the other's (:func:`jax_factors_to_torch` and its kin)."""
+    out = {}
+    for name, entry in tree.items():
+        tname = name.replace('/', '.')
+        spec = specs[tname]
+        mapped = {}
+        for key, value in entry.items():
+            a = (np.asarray(value) if to_torch
+                 else tensor_to_array(value, bfloat16))
+            if key.endswith('A') or key.startswith('A'):
+                dim = a.shape[0]
+                perm = _a_perm(spec, dim)
+                if perm is not None and not to_torch:
+                    perm = np.argsort(perm)
+                a = _map_a_side(key, a, perm)
+            mapped[key] = array_to_tensor(a) if to_torch else a
+        out[tname if to_torch else name] = mapped
+    return out
+
+
 def jax_factors_to_torch(factors: dict, specs: dict) -> dict:
     """JAX K-FAC ``state['factors']`` (keyed by flax path ``a/b``) -> the
     port's (keyed by ``a.b``), conv A factors permuted into ``(c, kh,
-    kw)``. ``specs`` are the port's ``KFAC.specs``."""
-    out = {}
-    for jname, f in factors.items():
-        name = jname.replace('/', '.')
-        spec = specs[name]
-        a = np.asarray(f['A'])
-        if spec.kind == 'conv2d':
-            kh, kw = spec.kernel_size
-            cin = (a.shape[0] - int(spec.has_bias)) // (kh * kw)
-            p = conv_a_perm(spec.kernel_size, cin, spec.has_bias)
-            a = a[p][:, p]
-        out[name] = {'A': torch.from_numpy(np.array(a, np.float32)),
-                     'G': torch.from_numpy(np.array(f['G'], np.float32))}
-    return out
+    kw)``; bf16 factors (``factor_dtype``) stay bf16, bit for bit
+    (:func:`array_to_tensor`). ``specs`` are the port's ``KFAC.specs``."""
+    return _convert_state(factors, specs, to_torch=True)
+
+
+def jax_inverses_to_torch(inverses: dict, specs: dict) -> dict:
+    """JAX K-FAC ``state['inverses']`` -> the port's: eigen slots (``QA``,
+    ``dA``, ``QG``, ``dG``), baked ``A_inv`` / ``G_inv`` and an
+    embedding's diagonal ``A_inv``, conv A bases into ``(c, kh, kw)`` (an
+    eigenbasis on its rows: its eigenvalue order is kept); bf16
+    (``inv_dtype``) stays bf16, bit for bit."""
+    return _convert_state(inverses, specs, to_torch=True)
+
+
+def torch_factors_to_jax(factors: dict, specs: dict, bfloat16=None
+                         ) -> dict:
+    """Inverse of :func:`jax_factors_to_torch`, keyed by the flax path
+    ``a/b``; bf16 tensors as :func:`tensor_to_array` gives them."""
+    return _convert_state({n.replace('.', '/'): e
+                           for n, e in factors.items()}, specs,
+                          to_torch=False, bfloat16=bfloat16)
+
+
+def torch_inverses_to_jax(inverses: dict, specs: dict, bfloat16=None
+                          ) -> dict:
+    """Inverse of :func:`jax_inverses_to_torch`."""
+    return _convert_state({n.replace('.', '/'): e
+                           for n, e in inverses.items()}, specs,
+                          to_torch=False, bfloat16=bfloat16)

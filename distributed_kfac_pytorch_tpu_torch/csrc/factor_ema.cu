@@ -24,7 +24,10 @@
 // host), and factor_finalize_kernel (pass 2) sums the split-K chunks in a
 // fixed order, adds the bias row and corner, blends with `old` and writes
 // each upper entry from its lower one (exactly symmetric, repeatable bit
-// for bit).
+// for bit). Under bf16 factor storage `old` and `out` are bf16: the blend
+// reads `old` widened, blends in fp32 and rounds once to nearest even on
+// the store, so the running factor makes one trip through memory at 2
+// bytes an entry and equals the fp32 blend rounded, bit for bit.
 
 #include "gram_tc.cuh"
 
@@ -39,15 +42,16 @@ factor_partial_kernel(Src src, int rows_per_chunk, int mult_bf16,
                    mult_bf16, has_bias, ws, ws_colsum, ncols_pad);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kFin * kFin)
 factor_finalize_kernel(const float* __restrict__ ws,
                        const float* __restrict__ ws_colsum, int chunks,
                        int npairs, int tile, int ncols_pad, int d_in, int n,
                        float inv_scale, float bias_scale, float corner,
-                       const float* __restrict__ old, float decay,
-                       float* __restrict__ out) {
-  gram_finalize(ws, ws_colsum, chunks, npairs, tile, ncols_pad, d_in, n,
-                inv_scale, bias_scale, corner, old, decay, out);
+                       const T* __restrict__ old, float decay,
+                       T* __restrict__ out) {
+  gram_finalize<T>(ws, ws_colsum, chunks, npairs, tile, ncols_pad, d_in, n,
+                   inv_scale, bias_scale, corner, old, decay, out);
 }
 
 template <int TM, int kPath>
@@ -93,14 +97,16 @@ cudaError_t launch_tile(int path, const Src& src, int npairs, int chunks,
 
 // ws holds chunks x npairs x tile^2 partial floats followed, with has_bias,
 // by chunks x ncols_pad column sums (ncols_pad = ceil(d_in / tile) tile).
+// `old` and `out` are fp32, or bf16 with storage_bf16 (bf16 factor storage:
+// the blend reads `old` widened and writes `out` rounded, in one pass).
 extern "C" int kfac_factor_ema(const float* x, int rows, int d_in, int inner,
                                int sb, int ss, int sc, int mult_bf16,
                                int tile, int path, int chunks,
                                int rows_per_chunk, float* ws,
-                               const float* old, float decay,
+                               const void* old, float decay,
                                float inv_scale, int has_bias,
-                               float bias_scale, float corner, float* out,
-                               void* stream) {
+                               float bias_scale, float corner, void* out,
+                               int storage_bf16, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Src src{x, rows, d_in, inner, sb, ss, sc};
   const int ntiles = (d_in + tile - 1) / tile;
@@ -127,8 +133,16 @@ extern "C" int kfac_factor_ema(const float* x, int rows, int d_in, int inner,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n = d_in + (has_bias ? 1 : 0);
   const int nb = (n + kFin - 1) / kFin;
-  factor_finalize_kernel<<<nb * (nb + 1) / 2, dim3(kFin, kFin), 0, st>>>(
-      ws, ws_colsum, chunks, npairs, tile, ncols_pad, d_in, n, inv_scale,
-      bias_scale, corner, old, decay, out);
+  const dim3 grid(nb * (nb + 1) / 2), block(kFin, kFin);
+  if (storage_bf16)
+    factor_finalize_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
+        ws, ws_colsum, chunks, npairs, tile, ncols_pad, d_in, n, inv_scale,
+        bias_scale, corner, static_cast<const __nv_bfloat16*>(old), decay,
+        static_cast<__nv_bfloat16*>(out));
+  else
+    factor_finalize_kernel<float><<<grid, block, 0, st>>>(
+        ws, ws_colsum, chunks, npairs, tile, ncols_pad, d_in, n, inv_scale,
+        bias_scale, corner, static_cast<const float*>(old), decay,
+        static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,7 +32,9 @@
 //   lower-triangle block pair, one thread per entry; it sums the chunk
 //   partials of the lower entries in chunk order (coalesced), scales, adds
 //   the bias row and corner, and writes the block and its mirror image
-//   (through shared memory, both coalesced), each blended with `old`.
+//   (through shared memory, both coalesced), each blended with `old` in
+//   fp32 (an `old` stored in bf16 is widened on the load and the result
+//   rounded to bf16 on the store).
 //   Entry (v, u) is written from (u, v), so the result is exactly
 //   symmetric and repeatable bit for bit.
 
@@ -304,24 +306,40 @@ __device__ __forceinline__ float chunk_sum(const float* __restrict__ v,
   return s;
 }
 
-__device__ __forceinline__ void blend(float* __restrict__ out,
-                                      const float* __restrict__ old,
+// The running factor's storage: fp32, or bf16 (K1 under bf16 factor
+// storage) read widened and written rounded to nearest even, so the blend
+// itself is the fp32 one in both.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__device__ __forceinline__ void blend(T* __restrict__ out,
+                                      const T* __restrict__ old,
                                       float decay, int n, int i, int j,
                                       float f) {
   if (i >= n || j >= n) return;
   const int64_t idx = static_cast<int64_t>(i) * n + j;
-  out[idx] = old ? decay * old[idx] + (1.f - decay) * f : f;
+  put(out + idx, old ? decay * widen(old[idx]) + (1.f - decay) * f : f);
 }
 
 // Pass 2: one kFin x kFin block (bi >= bj) of the output and its mirror
 // image, launched as kFin x kFin threads. Threads compute the block's
 // lower entries (i >= j; coalesced reads of the workspace) and write the
-// upper ones from shared memory. `old` may be null (no EMA).
+// upper ones from shared memory. `old` may be null (no EMA). T is the
+// storage type of `old` and `out` (float, or __nv_bfloat16 under bf16
+// factor storage).
+template <typename T>
 __device__ __forceinline__ void gram_finalize(
     const float* __restrict__ ws, const float* __restrict__ ws_colsum,
     int chunks, int npairs, int tile, int ncols_pad, int d_in, int n,
     float inv_scale, float bias_scale, float corner,
-    const float* __restrict__ old, float decay, float* __restrict__ out) {
+    const T* __restrict__ old, float decay, T* __restrict__ out) {
   __shared__ float blk[kFin][kFin + 1];
   int bi, bj;
   pair_of(blockIdx.x, bi, bj);

@@ -122,8 +122,8 @@ patch_finalize_kernel(const float* __restrict__ ws,
                       int npairs, int tile, int ncols_pad, int d_in, int n,
                       float inv_scale, float bias_scale, float corner,
                       float* __restrict__ out) {
-  gram_finalize(ws, ws_colsum, chunks, npairs, tile, ncols_pad, d_in, n,
-                inv_scale, bias_scale, corner, nullptr, 0.f, out);
+  gram_finalize<float>(ws, ws_colsum, chunks, npairs, tile, ncols_pad, d_in,
+                       n, inv_scale, bias_scale, corner, nullptr, 0.f, out);
 }
 
 struct Launch {

@@ -9,7 +9,10 @@ the order of torch's ``(Cout, Cin, KH, KW)`` weight flattened to
 Precision: ``compute_dtype=None`` and ``torch.float32`` are fp32
 multiplicands with fp32 accumulation (the port's entry points turn TF32
 off); ``torch.bfloat16`` rounds the multiplicands to bf16 and still
-accumulates and returns fp32.
+accumulates and returns fp32. Captures stored in bf16 (``capture_dtype``)
+are widened first, so every statistic, the KFAC-reduce sums over the
+shared axes included, accumulates in fp32, as the JAX functions'
+``preferred_element_type`` does.
 """
 
 from __future__ import annotations
@@ -51,7 +54,9 @@ def get_cov(a: torch.Tensor, b: torch.Tensor | None = None,
 def update_running_avg(new: torch.Tensor, current: torch.Tensor,
                        alpha: float) -> torch.Tensor:
     """EWMA ``alpha * current + (1 - alpha) * new`` (returns a new tensor),
-    rounded as K1's fused blend (:func:`kernels.ema_blend`)."""
+    rounded as K1's fused blend (:func:`kernels.ema_blend`), in
+    ``current``'s dtype: a bf16 factor is blended in fp32 and rounded
+    once."""
     return kernels.ema_blend(current, new, alpha)
 
 

@@ -30,8 +30,9 @@ K1 and K2 run on the split-K Gram engine of ``csrc/gram_tc.cuh``, K3 and
 K4 on the tile GEMM of ``csrc/gemm_tc.cuh``, all by 3xTF32 on the tensor
 cores. Each wrapper
 runs its kernel's plain version for tensors on the CPU and launches the
-CUDA kernel for tensors on the card; any other device, dtype or layout
-raises. There is no fallback: a build or launch failure raises.
+CUDA kernel for tensors on the card, bf16 inputs (captures, inverse
+stacks) widened to fp32 first and K1 blending into fp32 or bf16 factor
+storage; any other device, dtype or layout raises. There is no fallback: a build or launch failure raises.
 Each launch adds one to ``LAUNCHES[name]`` (launches only: the plain
 versions do not count).
 
@@ -201,20 +202,26 @@ def ema_blend(old: torch.Tensor, new: torch.Tensor, decay) -> torch.Tensor:
     rounds it on the card: ``decay * old`` rounded, then ``(1 - decay) *
     new`` fused into the sum (``torch.add``'s ``alpha``, with
     :func:`ema_new_weight`). Every EMA of the port takes this form, so the
-    separate EMA of a distributed step gives the fused kernel's bits."""
-    return torch.add(old * decay, new, alpha=ema_new_weight(decay))
+    separate EMA of a distributed step gives the fused kernel's bits.
+
+    The result has ``old``'s dtype: an ``old`` stored in bf16 is widened,
+    blended in fp32 with the fp32 ``new`` and rounded once (to nearest
+    even), as K1's bf16-storage blend does."""
+    out = torch.add(old.float() * decay, new, alpha=ema_new_weight(decay))
+    return out.to(old.dtype)
 
 
 def _finish_gram(acc: torch.Tensor, colsum: torch.Tensor | None,
                  inv_scale: float, bias_scale: float, corner: float,
                  old: torch.Tensor | None, decay) -> torch.Tensor:
-    """Scale, bias-assemble and EMA-blend a summed Gram (plain versions)."""
+    """Scale, bias-assemble and EMA-blend a summed Gram (plain versions);
+    the result has ``old``'s dtype (fp32 without ``old``)."""
     cov = (acc + acc.T) * (0.5 * inv_scale)
     if colsum is not None:
         cov = _assemble_bias_factor(cov, colsum * bias_scale, corner)
     if old is None:
         return cov
-    return ema_blend(old.float(), cov, decay)
+    return ema_blend(old, cov, decay)
 
 
 # ---------------------------------------------------------------------------
@@ -304,7 +311,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     'factor_ema': {
         'kfac_factor_ema': [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _P, _P, _F, _F, _I, _F, _F, _P, _P]},
+                            _P, _P, _F, _F, _I, _F, _F, _P, _I, _P]},
     'patch_cov': {
         'kfac_patch_cov': [_P, *[_I] * 25, _P, _F, _I, _F, _F, _P, _P]},
     'bucket_precond': {
@@ -348,15 +355,29 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _require(t: torch.Tensor, what: str, ndim: int | None = None) -> None:
+#: The storage dtypes of a running factor that K1 blends into.
+_STORAGE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _require(t: torch.Tensor, what: str, ndim: int | None = None,
+             dtypes=(torch.float32,)) -> None:
     if not t.is_cuda:
         raise ValueError(f'{what}: expected a CUDA tensor, got device '
                          f'{t.device}')
-    if t.dtype != torch.float32:
-        raise ValueError(f'{what}: expected float32, got {t.dtype}')
+    if t.dtype not in dtypes:
+        names = ' or '.join(str(d).replace('torch.', '') for d in dtypes)
+        raise ValueError(f'{what}: expected {names}, got {t.dtype}')
     if ndim is not None and t.ndim != ndim:
         raise ValueError(f'{what}: expected {ndim}-D, got shape '
                          f'{tuple(t.shape)}')
+
+
+def _widened(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor as fp32 (the kernels read fp32), others as they are.
+    The wrappers widen their bf16 inputs with it before any check, as the
+    JAX wrappers widen theirs before their Pallas calls
+    (``pallas_kernels.py:731, 903-920``)."""
+    return t.float() if t.dtype == torch.bfloat16 else t
 
 
 def _require_int32_offsets(x: torch.Tensor, what: str) -> None:
@@ -543,7 +564,8 @@ def factor_ema_plain(x: torch.Tensor, old: torch.Tensor | None, decay, *,
                      ) -> torch.Tensor:
     """Plain version of K1: ``decay*old + (1-decay)*F`` with ``F`` the
     symmetrized ``x^T x / scale`` plus, with ``has_bias``, the bias
-    row/column ``colsum(x)/rows`` and ``corner`` (``old=None``: ``F``)."""
+    row/column ``colsum(x)/rows`` and ``corner`` (``old=None``: ``F``). A
+    bf16 ``old`` gives a bf16 result: the fp32 blend rounded once."""
     x2 = _round(_gram_rows(x), bf16)
     rows = x2.shape[0]
     scale = rows if scale is None else scale
@@ -555,18 +577,23 @@ def factor_ema_plain(x: torch.Tensor, old: torch.Tensor | None, decay, *,
 def factor_ema(x: torch.Tensor, old: torch.Tensor | None, decay, *,
                scale: float | None = None, has_bias: bool = False,
                corner: float = 1.0, compute_dtype=None) -> torch.Tensor:
-    """Factor contraction + bias + EMA (K1); dense ``(n, n)`` fp32 result.
+    """Factor contraction + bias + EMA (K1); dense ``(n, n)`` result in
+    ``old``'s dtype (fp32 without ``old``).
 
     ``x`` is the ``(rows, d_in)`` capture matrix, or a ``(B, C, H, W)``
     conv output-grad read in place as ``(B*H*W, C)`` (through its strides:
-    no permuted copy is made). ``old`` is the running ``(n, n)`` factor
-    (``n = d_in + has_bias``) or None for the contraction alone; ``decay``
-    the EMA alpha. ``scale`` defaults to the row count.
+    no permuted copy is made); a bf16 ``x`` (a bf16 capture) is widened to
+    fp32 first. ``old`` is the running ``(n, n)`` factor (``n = d_in +
+    has_bias``), fp32 or bf16 (bf16 factor storage: the kernel reads it
+    widened and writes the blend rounded to bf16, in the same launch), or
+    None for the contraction alone; ``decay`` the EMA alpha. ``scale``
+    defaults to the row count.
     """
     bf16 = mult_bf16(compute_dtype)
     if not _dispatch_device(x, 'factor_ema'):
         return factor_ema_plain(x, old, decay, scale=scale,
                                 has_bias=has_bias, corner=corner, bf16=bf16)
+    x = _widened(x)
     _require(x, 'factor_ema x')
     _require_int32_offsets(x, 'factor_ema')
     plan = factor_ema_plan(tuple(x.shape), x.stride(), bool(has_bias),
@@ -574,8 +601,9 @@ def factor_ema(x: torch.Tensor, old: torch.Tensor | None, decay, *,
                            aligned=x.data_ptr() % 16 == 0)
     rows, d_in = plan.rows, plan.d_in
     n = d_in + int(has_bias)
+    storage = torch.float32 if old is None else old.dtype
     if old is not None:
-        _require(old, 'factor_ema old', 2)
+        _require(old, 'factor_ema old', 2, dtypes=_STORAGE_DTYPES)
         if tuple(old.shape) != (n, n) or not old.is_contiguous():
             raise ValueError(f'factor_ema: old must be a contiguous '
                              f'({n}, {n}) tensor, got {tuple(old.shape)}')
@@ -583,7 +611,7 @@ def factor_ema(x: torch.Tensor, old: torch.Tensor | None, decay, *,
         raise ValueError('factor_ema: x has no rows')
     scale = rows if scale is None else scale
     ws = _plan_workspace(plan, x.device)
-    out = torch.empty((n, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, n), dtype=storage, device=x.device)
     err = _lib('factor_ema').kfac_factor_ema(
         x.data_ptr(), rows, d_in, plan.inner, plan.sb, plan.ss, plan.sc,
         int(bf16), plan.tile, _K1_STAGING.index(plan.path), plan.chunks,
@@ -591,7 +619,7 @@ def factor_ema(x: torch.Tensor, old: torch.Tensor | None, decay, *,
         old.data_ptr() if old is not None else None,
         float(decay) if old is not None else 0.0, 1.0 / float(scale),
         int(has_bias), 1.0 / rows, float(corner), out.data_ptr(),
-        _stream(x))
+        int(storage == torch.bfloat16), _stream(x))
     _check(err, 'factor_ema')
     LAUNCHES['factor_ema'] += 1
     return out
@@ -738,11 +766,13 @@ def patch_cov(x: torch.Tensor, kernel_size, strides, padding,
               has_bias: bool, *, compute_dtype=None) -> torch.Tensor:
     """Conv A factor (K2) of a ``(B, C, H, W)`` input: dense ``(D, D)``
     fp32 (``D = C*KH*KW [+1]``) in the ``(c, kh, kw)`` basis, padding as
-    :func:`_canonical_pad`. The patch matrix is never materialized."""
+    :func:`_canonical_pad`. The patch matrix is never materialized. A bf16
+    ``x`` (a bf16 capture) is widened to fp32 first."""
     bf16 = mult_bf16(compute_dtype)
     if not _dispatch_device(x, 'patch_cov'):
         return patch_cov_plain(x, kernel_size, strides, padding, has_bias,
                                bf16=bf16)
+    x = _widened(x)
     _require(x, 'patch_cov x', 4)
     _require_int32_offsets(x, 'patch_cov')
     kernel_size, strides = tuple(kernel_size), tuple(strides)
@@ -885,7 +915,8 @@ def bucket_precond_plain(gstack: torch.Tensor, entry: dict, damping, *,
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K3, in the kernel's association order: eigen
     ``U = g QA``, ``T = (QG^T U) / (dG dA^T + lambda)``, ``W = T QA^T``,
-    ``v = QG W``; baked ``v = G_inv (g A_inv)``; ``vg = sum(v * g)``."""
+    ``v = QG W``; baked ``v = G_inv (g A_inv)``; ``vg = sum(v * g)``.
+    bf16 stacks are read widened."""
     r = lambda t: _round(t, bf16)  # noqa: E731
     g = gstack.float()
     if 'QA' in entry:
@@ -905,13 +936,16 @@ def bucket_precond(gstack: torch.Tensor, entry: dict, damping, *,
     """Bucketed preconditioning (K3) of an ``(S, G, A)`` gradient stack.
 
     ``entry`` holds stacked full-rank eigen slots ``{'QA', 'dA', 'QG',
-    'dG'}`` or baked inverses ``{'A_inv', 'G_inv'}``. Returns ``(v, vg)``:
-    the ``(S, G, A)`` preconditioned stack and the ``(S,)`` per-slice
-    ``sum(v * g)`` KL-clip partials (before the caller's ``lr^2``).
+    'dG'}`` or baked inverses ``{'A_inv', 'G_inv'}``, fp32 or bf16 (bf16
+    inverse storage: widened to fp32 before the launch, as the JAX wrapper
+    widens them before its Pallas call). Returns ``(v, vg)``: the ``(S, G,
+    A)`` preconditioned stack and the ``(S,)`` per-slice ``sum(v * g)``
+    KL-clip partials (before the caller's ``lr^2``).
     """
     bf16 = mult_bf16(compute_dtype)
     if not _dispatch_device(gstack, 'bucket_precond'):
         return bucket_precond_plain(gstack, entry, damping, bf16=bf16)
+    entry = {k: _widened(t) for k, t in entry.items()}
     _require(gstack, 'bucket_precond g', 3)
     s, g_dim, a_dim = gstack.shape
     eigen = 'QA' in entry

@@ -10,8 +10,10 @@ package's ``Precision.HIGHEST``.
 The Brent--Luk Jacobi eigh (:func:`jacobi_eigh`) is the plain version of
 the Jacobi kernel (``ops.kernels.batched_jacobi_eigh``, K5).
 
-Not ported yet: the randomized low-rank path and the truncated /
-reduced-precision precondition branches.
+The precondition functions take the JAX ``compute_dtype`` (None, fp32 or
+bf16 operands, fp32 accumulation) and read slots stored in bf16 widened.
+Not ported yet: the randomized low-rank path and the truncated
+precondition branches.
 """
 
 from __future__ import annotations
@@ -314,29 +316,70 @@ def _require_square(q: torch.Tensor) -> None:
             'truncated (low-rank) eigenbases are not ported yet')
 
 
+def _precond_operand(compute_dtype):
+    """The operand rounding of a non-default precondition compute dtype
+    (the JAX ``_precond_mm``): ``torch.float32`` keeps fp32 operands
+    (strict fp32: the port's entry points turn TF32 off);
+    ``torch.bfloat16`` rounds each operand to bf16 and keeps it in an fp32
+    tensor. Every product is then an fp32 ``torch.matmul``: the products
+    of bf16 values are exact in fp32 and the sums accumulate in fp32, the
+    JAX ``preferred_element_type=float32`` contract (a bf16
+    ``torch.matmul`` on the card would round its output to bf16)."""
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    bf16 = kernels.mult_bf16(compute_dtype)
+    return lambda t: kernels._round(t, bf16)
+
+
 def precondition_eigen(grad: torch.Tensor, qa: torch.Tensor,
                        qg: torch.Tensor, da: torch.Tensor, dg: torch.Tensor,
-                       damping) -> torch.Tensor:
+                       damping, compute_dtype=None) -> torch.Tensor:
     """Eigenbasis preconditioning ``QG ((QG^T grad QA) / (dG dA^T + l))
-    QA^T`` in fp32 (full-rank bases)."""
+    QA^T`` (full-rank bases), returning fp32.
+
+    ``compute_dtype`` None reads every operand widened to fp32 (the
+    default path); ``torch.float32`` / ``torch.bfloat16`` round the four
+    products' operands as :func:`_precond_operand` says, in the JAX
+    association ``QG^T (grad QA)`` and ``QG (V2 QA^T)``, while the damping
+    quotient stays fp32 on the stored (possibly bf16-rounded)
+    eigenvalues."""
     _require_square(qa)
     _require_square(qg)
-    v1 = qg.mT @ grad.float() @ qa
-    v2 = v1 / (dg[..., :, None] * da[..., None, :] + damping)
-    return qg @ v2 @ qa.mT
+    if compute_dtype is None:
+        qa, qg = qa.float(), qg.float()
+        v1 = qg.mT @ grad.float() @ qa
+        v2 = v1 / (dg.float()[..., :, None] * da.float()[..., None, :]
+                   + damping)
+        return qg @ v2 @ qa.mT
+    r = _precond_operand(compute_dtype)
+    qa, qg = r(qa), r(qg)
+    v1 = qg.mT @ (r(grad) @ qa)
+    denom = dg.float()[..., :, None] * da.float()[..., None, :] + damping
+    return qg @ (r(v1 / denom) @ qa.mT)
 
 
 def precondition_inv(grad: torch.Tensor, a_inv: torch.Tensor,
-                     g_inv: torch.Tensor) -> torch.Tensor:
-    """Inverse-method preconditioning ``G_inv @ grad @ A_inv``."""
-    return g_inv @ grad.float() @ a_inv
+                     g_inv: torch.Tensor, compute_dtype=None
+                     ) -> torch.Tensor:
+    """Inverse-method preconditioning ``G_inv @ grad @ A_inv``, fp32
+    (``compute_dtype`` as in :func:`precondition_eigen`)."""
+    if compute_dtype is None:
+        return g_inv.float() @ grad.float() @ a_inv.float()
+    r = _precond_operand(compute_dtype)
+    return r(g_inv) @ (r(grad) @ r(a_inv))
 
 
 def precondition_diag_a(grad: torch.Tensor, a_inv_diag: torch.Tensor,
-                        g_inv: torch.Tensor) -> torch.Tensor:
+                        g_inv: torch.Tensor, compute_dtype=None
+                        ) -> torch.Tensor:
     """Preconditioning with a diagonal A inverse (embedding layers):
-    ``(A_inv[:, None] * grad) @ G_inv`` for a ``(vocab, dim)`` gradient."""
-    return (a_inv_diag[:, None] * grad.float()) @ g_inv
+    ``(A_inv[:, None] * grad) @ G_inv`` for a ``(vocab, dim)`` gradient.
+    The diagonal scale runs in fp32; ``compute_dtype`` rounds the G-side
+    product's operands."""
+    scaled = a_inv_diag.float()[:, None] * grad.float()
+    if compute_dtype is None:
+        return scaled @ g_inv.float()
+    r = _precond_operand(compute_dtype)
+    return r(scaled) @ r(g_inv)
 
 
 def eigen_side_inverse(q: torch.Tensor, d: torch.Tensor,
@@ -349,8 +392,8 @@ def eigen_side_inverse(q: torch.Tensor, d: torch.Tensor,
 
 
 def precondition_dispatch(grad: torch.Tensor, entry: dict, damping,
-                          diag_a: torch.Tensor | None = None
-                          ) -> torch.Tensor:
+                          diag_a: torch.Tensor | None = None,
+                          compute_dtype=None) -> torch.Tensor:
     """Per-layer preconditioning dispatched on the inverse slots present:
     both sides eigen (no baked inverse) -> :func:`precondition_eigen` with
     the live damping; any baked inverse -> :func:`precondition_inv`.
@@ -358,14 +401,25 @@ def precondition_dispatch(grad: torch.Tensor, entry: dict, damping,
     ``diag_a``: the diagonal A inverse of an embedding layer (damping
     baked in); ``entry`` then supplies the G side, baked (``G_inv``,
     :func:`precondition_diag_a`) or eigen (``diag_a[:, None] * ((grad QG)
-    / (dG + damping)) QG^T``)."""
+    / (dG + damping)) QG^T``). ``compute_dtype`` reaches every branch (the
+    JAX ``precondition_dispatch``); slots may be stored in bf16."""
     if diag_a is not None:
         if 'G_inv' in entry:
-            return precondition_diag_a(grad, diag_a, entry['G_inv'])
+            return precondition_diag_a(grad, diag_a, entry['G_inv'],
+                                       compute_dtype=compute_dtype)
         _require_square(entry['QG'])
-        v = (grad.float() @ entry['QG']) / (entry['dG'][None, :] + damping)
-        return diag_a[:, None] * (v @ entry['QG'].T)
+        dg = entry['dG'].float()[None, :]
+        if compute_dtype is None:
+            qg = entry['QG'].float()
+            v = (grad.float() @ qg) / (dg + damping)
+            return diag_a.float()[:, None] * (v @ qg.T)
+        r = _precond_operand(compute_dtype)
+        qg = r(entry['QG'])
+        v = (r(grad) @ qg) / (dg + damping)
+        return diag_a.float()[:, None] * (r(v) @ qg.T)
     if 'A_inv' not in entry and 'G_inv' not in entry:
         return precondition_eigen(grad, entry['QA'], entry['QG'],
-                                  entry['dA'], entry['dG'], damping)
-    return precondition_inv(grad, entry['A_inv'], entry['G_inv'])
+                                  entry['dA'], entry['dG'], damping,
+                                  compute_dtype=compute_dtype)
+    return precondition_inv(grad, entry['A_inv'], entry['G_inv'],
+                            compute_dtype=compute_dtype)

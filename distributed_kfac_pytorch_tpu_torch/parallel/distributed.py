@@ -43,6 +43,14 @@ work, as JAX's stacks are replicated over the sequence axis. The factor
 average and the gradient mean span the whole world of ``W`` ranks (JAX's
 ``data_axes``), and the grad-quadratic parts take ``1/W^2``.
 
+Reduced precision (the ``KFAC`` knobs): factors are stored in
+``factor_dtype`` and the row stacks and ``diag_inv`` in ``inv_dtype``.
+Every collective moves fp32: the factor contributions, and the row stacks
+of a firing, which are cast to ``inv_dtype`` after the sum (as JAX casts
+its gathered fp32 stack). The EMA widens the stored factor, blends in fp32
+and rounds once, as the single-device ``KFAC`` does, so a world's factors
+stay the single-device step's bits up to the order of the fp32 sums.
+
 Only ``all_reduce`` and ``broadcast`` are used, so one code path serves
 NCCL and gloo (which runs both on CUDA tensors). A group of one rank runs
 no collective.
@@ -423,31 +431,30 @@ class DistributedKFAC:
         a zero ``inv`` where a mixed layer bakes its eigen side), zero
         ``inv`` for baked ones."""
         dev = self.device
+        fdt, idt = self.kfac.storage_dtype, self.kfac.inv_dtype
         diag = self.assignment.diag_layers
         factors = {
-            name: {side: (torch.ones(dim, dtype=torch.float32, device=dev)
+            name: {side: (torch.ones(dim, dtype=fdt, device=dev)
                           if side == 'A' and name in diag else
-                          torch.eye(dim, dtype=torch.float32, device=dev))
+                          torch.eye(dim, dtype=fdt, device=dev))
                    for side, dim in zip('AG', self._factor_dims[name])}
             for name in self.specs}
         diag_inv = {name: torch.zeros(self._factor_dims[name][0],
-                                      dtype=torch.float32, device=dev)
+                                      dtype=idt, device=dev)
                     for name in diag}
         stacks = {}
         for dim, plan in self.assignment.buckets.items():
             n = plan.slots_per_row
             if eigen_family(self.kfac.method_for_dim(dim)):
-                entry = {'Q': torch.eye(dim, dtype=torch.float32, device=dev
+                entry = {'Q': torch.eye(dim, dtype=idt, device=dev
                                         ).repeat(n, 1, 1),
-                         'd': torch.ones((n, dim), dtype=torch.float32,
-                                         device=dev)}
+                         'd': torch.ones((n, dim), dtype=idt, device=dev)}
                 if self._bucket_mixed.get(dim):
-                    entry['inv'] = torch.zeros((n, dim, dim),
-                                               dtype=torch.float32,
+                    entry['inv'] = torch.zeros((n, dim, dim), dtype=idt,
                                                device=dev)
             else:
-                entry = {'inv': torch.zeros((n, dim, dim),
-                                            dtype=torch.float32, device=dev)}
+                entry = {'inv': torch.zeros((n, dim, dim), dtype=idt,
+                                            device=dev)}
             stacks[str(dim)] = entry
         return {'step': 0, 'factors': factors, 'inv_stacks': stacks,
                 'diag_inv': diag_inv, 'inv_chunk_phase': 0}
@@ -502,7 +509,8 @@ class DistributedKFAC:
         world, each 2-D part triangle-packed with ``symmetry_aware_comm``;
         the output-grad-quadratic parts, ``layers.GRAD_QUADRATIC_KEYS``,
         times ``1/W^2``), fold a tied embedding's ``A_g2`` into its A and
-        ``G_a`` into its G, and EMA them into the factors."""
+        ``G_a`` into its G, and EMA them into the factors (the stored
+        factors widened, blended in fp32 and rounded to their dtype)."""
         kfac = self.kfac
         alpha = kfac.factor_decay if factor_decay is None else factor_decay
         w = self.world_size
@@ -535,8 +543,9 @@ class DistributedKFAC:
         # F.update_running_avg over the whole list at once, rounded as
         # kernels.ema_blend (so a one-rank world gives the single-device
         # step's bits, K1's fused blend included).
-        ema = torch._foreach_mul(olds, alpha)
+        ema = torch._foreach_mul([o.float() for o in olds], alpha)
         torch._foreach_add_(ema, news, alpha=kernels.ema_new_weight(alpha))
+        ema = [e.to(o.dtype) for e, o in zip(ema, olds)]
         return {n: {'A': a, 'G': g}
                 for n, a, g in zip(self.specs, ema[0::2], ema[1::2])}
 
@@ -556,7 +565,10 @@ class DistributedKFAC:
         ``prev_stacks`` the library eigh), the library eigh (``'xla'``) or
         K5 (``'jacobi'``); a mixed layer's eigen side is also baked into
         ``inv`` at ``damping``. Other buckets: damped inverses by K4
-        (``'newton'``) or Cholesky.
+        (``'newton'``) or Cholesky. Every decomposition runs in fp32 on
+        the widened factors (the polish from the stored bases widened), the
+        row gather sums fp32 stacks, and the results are cast to
+        ``inv_dtype`` after it.
         """
         kfac = self.kfac
         damping = kfac.damping if damping is None else damping
@@ -601,8 +613,11 @@ class DistributedKFAC:
             reduced = _all_reduce_sum([stacks[d][k] for d, k in keys], group)
             for (d, k), t in zip(keys, reduced):
                 stacks[d][k] = t
+        idt = kfac.inv_dtype
+        stacks = {d: {k: t.to(idt) for k, t in e.items()}
+                  for d, e in stacks.items()}
         diag_inv = {name: linalg.get_elementwise_inverse(
-            factors[name]['A'].float(), damping)
+            factors[name]['A'].float(), damping).to(idt)
             for name in self.assignment.diag_layers}
         return {'inv_stacks': stacks, 'diag_inv': diag_inv}
 
@@ -620,6 +635,7 @@ class DistributedKFAC:
         grad_mats = {
             name: L.grads_to_matrix(spec, kfac._layer_params(name, grads))
             for name, spec in self.specs.items()}
+        cdt = kfac.precond_compute_dtype
         mats, vg = {}, {}
         for (g_dim, a_dim), names, a_idx, g_idx in self._row_groups:
             gstack = torch.stack([grad_mats[n].float() for n in names])
@@ -632,11 +648,13 @@ class DistributedKFAC:
                 entry = {'A_inv': a_stack['inv'][a_idx],
                          'G_inv': g_stack['inv'][g_idx]}
             if kfac.fused_precondition:
-                vs, vgs = kernels.bucket_precond(gstack, entry, damping)
+                vs, vgs = kernels.bucket_precond(gstack, entry, damping,
+                                                 compute_dtype=cdt)
                 for i, n in enumerate(names):
                     vg[n] = vgs[i]
             else:
-                vs = linalg.precondition_dispatch(gstack, entry, damping)
+                vs = linalg.precondition_dispatch(gstack, entry, damping,
+                                                  compute_dtype=cdt)
             for i, n in enumerate(names):
                 mats[n] = vs[i]
         for name in self.assignment.diag_layers:
@@ -650,7 +668,7 @@ class DistributedKFAC:
                      else {'G_inv': g_stack['inv'][slot]})
             mats[name] = linalg.precondition_dispatch(
                 grad_mats[name], entry, damping,
-                diag_a=state['diag_inv'][name])
+                diag_a=state['diag_inv'][name], compute_dtype=cdt)
         # This row's v.g partial, in registration order.
         vg_sum = torch.zeros((), dtype=torch.float32, device=dev)
         if kfac.kl_clip is not None:
@@ -744,14 +762,16 @@ class DistributedKFAC:
         same grid and ``seq_parallel``, with the same keys and shapes, and
         every slot this rank decomposes holds a nonzero basis; otherwise
         every rank recomputes its inverses from the factors
-        (:meth:`recompute_inverses`).
+        (:meth:`recompute_inverses`). Factors and inverses take the
+        ``KFAC``'s storage dtypes.
         """
         state = self.init_state()
         if set(sd['factors']) != set(state['factors']):
             raise ValueError(
                 'checkpoint layers do not match registered layers: '
                 f'{sorted(sd["factors"])} vs {sorted(state["factors"])}')
-        factors = {n: {k: t.to(self.device) for k, t in f.items()}
+        fdt, idt = self.kfac.storage_dtype, self.kfac.inv_dtype
+        factors = {n: {k: t.to(self.device, fdt) for k, t in f.items()}
                    for n, f in sd['factors'].items()}
         state = {**state, 'step': int(sd['step']), 'factors': factors,
                  'inv_chunk_phase': int(sd.get('inv_chunk_phase', 0))}
@@ -767,10 +787,10 @@ class DistributedKFAC:
         flag = torch.tensor([0.0 if ok else 1.0], device=self.device)
         dist.all_reduce(flag)
         if flag.item() == 0.0:
-            state['inv_stacks'] = {d: {k: t.to(self.device)
+            state['inv_stacks'] = {d: {k: t.to(self.device, idt)
                                        for k, t in e.items()}
                                    for d, e in saved.items()}
-            state['diag_inv'] = {n: t.to(self.device)
+            state['diag_inv'] = {n: t.to(self.device, idt)
                                  for n, t in sd['diag_inv'].items()}
             return state
         return self.recompute_inverses(state, damping=damping)

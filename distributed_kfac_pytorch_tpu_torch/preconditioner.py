@@ -39,7 +39,10 @@ under the per-dim dispatch; they are preconditioned one by one outside
 the buckets, their ``v.g`` inside the KL clip. ``kfac_approx`` (the
 weight-sharing approximation, ``sharing.approx``) and
 ``tied_embeddings`` (the attend site of a tied in/out embedding feeds its
-one factor pair) follow the JAX ``KFAC``.
+one factor pair) follow the JAX ``KFAC``, as do the reduced-precision
+knobs ``factor_dtype``, ``inv_dtype``, ``capture_dtype`` and
+``precond_compute_dtype`` (bf16 storage is blended and decomposed in
+fp32, and rounded once on the way back).
 """
 
 from __future__ import annotations
@@ -90,13 +93,9 @@ def comm_method_of(value: CommMethod | str) -> CommMethod:
 #: value raises ``NotImplementedError`` naming the knob.
 NOT_PORTED = {
     'use_eigen_decomp': None,
-    'factor_dtype': None,
-    'inv_dtype': torch.float32,
     'inv_lowrank_rank': 0,
     'inv_lowrank_dim_threshold': 2048,
     'factor_batch_fraction': 1.0,
-    'capture_dtype': 'auto',
-    'precond_compute_dtype': None,
     'precond_bucketing': True,
     'inv_pipeline_chunks': 1,
     'inv_pipeline_costs': None,
@@ -107,6 +106,20 @@ NOT_PORTED = {
     'collect_metrics': False,
     'nonfinite_guard': False,
 }
+
+
+#: The dtypes of the reduced-precision knobs (``capture_dtype`` also takes
+#: ``'auto'``).
+PRECISION_DTYPES = (None, torch.float32, torch.bfloat16)
+
+
+def check_dtype(knob: str, value, allowed=PRECISION_DTYPES) -> None:
+    """Raise a ``ValueError`` naming the knob unless ``value`` is one of
+    ``allowed``."""
+    if not any(value is a or (a is not None and value == a)
+               for a in allowed):
+        raise ValueError(f'{knob} must be one of {allowed!r}, got '
+                         f'{value!r}')
 
 
 def _check_not_ported(knobs: dict) -> None:
@@ -159,6 +172,22 @@ class KFAC:
       factor_compute_dtype: ``None``/``torch.float32`` (fp32
         multiplicands) or ``torch.bfloat16`` (bf16-rounded multiplicands);
         accumulation is fp32 either way.
+      factor_dtype: storage dtype of the running factors, ``None`` (fp32)
+        or ``torch.bfloat16``. Contributions are fp32; the EMA widens the
+        stored factor, blends in fp32 and rounds once to the storage
+        dtype, on every path (K1's fused blend included).
+      inv_dtype: storage dtype of the inverses, eigenbases and
+        eigenvalues (default ``torch.float32``; ``torch.bfloat16``). The
+        decompositions always run in fp32 on the widened factors, the
+        warm polish from the stored basis widened.
+      capture_dtype: dtype of the captured activations ``a`` (never the
+        output-grads): ``'auto'`` (default: passthrough, as the JAX
+        package off a TPU), ``None`` (passthrough) or a dtype to cast
+        floating captures to.
+      precond_compute_dtype: operand dtype of the precondition products
+        (accumulation fp32, the eigen damping quotient fp32): ``None``
+        (default: operands read widened), ``torch.float32`` (strict fp32)
+        or ``torch.bfloat16`` (bf16-rounded operands); also K3's mode.
       fused_factor_contraction / fused_precondition: route the factor
         contraction + EMA and the bucketed preconditioning through their
         CUDA kernels (default True).
@@ -189,7 +218,11 @@ class KFAC:
                  eigh_method: str = 'auto',
                  eigh_polish_iters: int = 8,
                  newton_iters: int = 100,
+                 factor_dtype: Any = None,
                  factor_compute_dtype: Any = None,
+                 inv_dtype: Any = torch.float32,
+                 capture_dtype: Any = 'auto',
+                 precond_compute_dtype: Any = None,
                  kfac_approx: Any = 'expand',
                  tied_embeddings: bool | None = None,
                  skip_layers: str | Sequence[str] | None = None,
@@ -220,7 +253,18 @@ class KFAC:
         if eigh_method not in ('auto', 'xla', 'jacobi', 'warm'):
             raise ValueError("eigh_method must be 'auto', 'xla', 'jacobi' "
                              f"or 'warm', got {eigh_method!r}")
-        kernels.mult_bf16(factor_compute_dtype)  # validates the dtype
+        check_dtype('factor_dtype', factor_dtype)
+        check_dtype('factor_compute_dtype', factor_compute_dtype)
+        check_dtype('inv_dtype', inv_dtype)
+        check_dtype('capture_dtype', capture_dtype,
+                    (*PRECISION_DTYPES, 'auto'))
+        check_dtype('precond_compute_dtype', precond_compute_dtype)
+        if (capture_dtype == 'auto' and factor_compute_dtype is not None
+                and factor_compute_dtype.itemsize
+                > torch.bfloat16.itemsize):
+            # A strict fp32 factor request keeps its captures wide (the
+            # JAX rule; 'auto' passes through on the port anyway).
+            capture_dtype = None
         if assignment_strategy not in ('compute', 'memory'):
             raise ValueError("assignment_strategy must be 'compute' or "
                              f"'memory', got {assignment_strategy!r}")
@@ -234,7 +278,8 @@ class KFAC:
         self.tied_embeddings = bool(tied_embeddings)
         self.model = model
         self.capture = KFACCapture(model, skip_layers=skip_layers,
-                                   tied_embeddings=self.tied_embeddings)
+                                   tied_embeddings=self.tied_embeddings,
+                                   capture_dtype=capture_dtype)
         self.specs = approx.annotate_specs(self.capture.specs, kfac_approx)
         self._specs_observed = False
         self.damping = damping
@@ -250,6 +295,10 @@ class KFAC:
         self.eigh_polish_iters = eigh_polish_iters
         self.newton_iters = newton_iters
         self.factor_compute_dtype = factor_compute_dtype
+        self.factor_dtype = factor_dtype
+        self.inv_dtype = torch.float32 if inv_dtype is None else inv_dtype
+        self.capture_dtype = capture_dtype
+        self.precond_compute_dtype = precond_compute_dtype
         self.fused_factor_contraction = bool(fused_factor_contraction)
         self.fused_precondition = bool(fused_precondition)
         self.symmetry_aware_comm = bool(symmetry_aware_comm)
@@ -259,6 +308,27 @@ class KFAC:
         #: The KL-clip scale of the last :meth:`precondition` (a device
         #: scalar).
         self.last_nu = None
+
+    def __repr__(self) -> str:
+        """Hyperparameter dump (the JAX ``KFAC.__repr__`` for the knobs
+        the port has)."""
+        fields = ('damping', 'factor_decay', 'factor_update_freq',
+                  'inv_update_freq', 'kl_clip', 'lr', 'inverse_method',
+                  'auto_eigen_max_dim', 'auto_large_method', 'eigh_method',
+                  'eigh_polish_iters', 'newton_iters', 'factor_dtype',
+                  'factor_compute_dtype', 'inv_dtype', 'capture_dtype',
+                  'precond_compute_dtype', 'kfac_approx', 'tied_embeddings',
+                  'symmetry_aware_comm', 'assignment_strategy',
+                  'comm_method', 'grad_worker_fraction',
+                  'fused_factor_contraction', 'fused_precondition')
+        lines = [f'  {name}: {getattr(self, name)!r}' for name in fields]
+        lines.append(f'  registered_layers: {len(self.specs)}')
+        return 'KFAC(\n' + '\n'.join(lines) + '\n)'
+
+    @property
+    def storage_dtype(self) -> torch.dtype:
+        """The running factors' dtype (``factor_dtype``, fp32 if None)."""
+        return self.factor_dtype or torch.float32
 
     # ------------------------------------------------------------------
     # Per-dim inverse dispatch and state
@@ -312,13 +382,15 @@ class KFAC:
         return out
 
     def init_state(self) -> dict:
-        """Fresh state: identity factors (an embedding's diagonal A: ones);
-        eigen slots seeded with their exact eigendecomposition (``Q = I, d
-        = 1``) so the warm polish has a basis from step 0; baked slots
-        (non-eigen sides, the eigen side of a mixed layer, an embedding's
-        diagonal ``A_inv``) zero, computed at step 0 before first use."""
+        """Fresh state: identity factors (an embedding's diagonal A: ones)
+        in the storage dtype; eigen slots seeded with their exact
+        eigendecomposition (``Q = I, d = 1``) so the warm polish has a
+        basis from step 0; baked slots (non-eigen sides, the eigen side of
+        a mixed layer, an embedding's diagonal ``A_inv``) zero, computed
+        at step 0 before first use; every inverse slot in ``inv_dtype``."""
         params = dict(self.model.named_parameters())
         dev = self.device
+        fdt, idt = self.storage_dtype, self.inv_dtype
         factors, inverses = {}, {}
         for name, spec in self.specs.items():
             dims = dict(zip('AG', L.factor_shapes(
@@ -329,19 +401,20 @@ class KFAC:
             factors[name], entry = {}, {}
             for side, dim in dims.items():
                 if methods[side] is None:
-                    factors[name][side] = torch.ones(
-                        dim, dtype=torch.float32, device=dev)
-                    entry[f'{side}_inv'] = torch.zeros(
-                        dim, dtype=torch.float32, device=dev)
+                    factors[name][side] = torch.ones(dim, dtype=fdt,
+                                                     device=dev)
+                    entry[f'{side}_inv'] = torch.zeros(dim, dtype=idt,
+                                                       device=dev)
                     continue
-                eye = torch.eye(dim, dtype=torch.float32, device=dev)
-                factors[name][side] = eye
+                factors[name][side] = torch.eye(dim, dtype=fdt, device=dev)
                 if eigen_family(methods[side]):
-                    entry[f'Q{side}'] = eye.clone()
-                    entry[f'd{side}'] = torch.ones(
-                        dim, dtype=torch.float32, device=dev)
+                    entry[f'Q{side}'] = torch.eye(dim, dtype=idt,
+                                                  device=dev)
+                    entry[f'd{side}'] = torch.ones(dim, dtype=idt,
+                                                   device=dev)
                 if mixed or not eigen_family(methods[side]):
-                    entry[f'{side}_inv'] = torch.zeros_like(eye)
+                    entry[f'{side}_inv'] = torch.zeros(
+                        (dim, dim), dtype=idt, device=dev)
             inverses[name] = entry
         return {'step': 0, 'factors': factors, 'inverses': inverses,
                 'inv_chunk_phase': 0}
@@ -387,7 +460,8 @@ class KFAC:
         :meth:`fused_factor_inputs` names run the factor contraction + EMA
         kernel (with ``fused_factor_contraction``), the rest the stock
         per-call factors (a tied embedding's attend-site terms added) +
-        :func:`F.update_running_avg`."""
+        :func:`F.update_running_avg`. Both keep the storage dtype: the
+        fp32 blend of the widened factor, rounded once."""
         alpha = self.factor_decay if factor_decay is None else factor_decay
         missing = [n for n in self.specs if n not in captures]
         if missing:
@@ -473,7 +547,9 @@ class KFAC:
         library eigh instead. The other sides get damped inverses per
         size bucket. A mixed layer's eigen side is also baked into
         ``{side}_inv`` at this damping, so both of its sides carry the
-        firing-time damping.
+        firing-time damping. Every decomposition runs in fp32 on the
+        widened factors (the polish seeded from the stored basis widened);
+        the results are stored in ``inv_dtype``.
         """
         damping = self.damping if damping is None else damping
         eigen_mats, inv_mats, prev, sides = {}, {}, {}, {}
@@ -492,6 +568,7 @@ class KFAC:
                     inv_mats[key] = f[side]
         eigs = self._bucketed_eigh(eigen_mats, prev if warm else None)
         invs = self._bucketed_inverse(inv_mats, damping)
+        idt = self.inv_dtype
         new_inv = {}
         for name in self.specs:
             mixed = self._is_mixed(sides[name])
@@ -500,16 +577,17 @@ class KFAC:
                 key = f'{name}/{side}'
                 if method is None:
                     entry[f'{side}_inv'] = linalg.get_elementwise_inverse(
-                        state['factors'][name][side].float(), damping)
+                        state['factors'][name][side].float(), damping
+                    ).to(idt)
                 elif eigen_family(method):
                     q, d = eigs[key]
-                    entry[f'Q{side}'] = q
-                    entry[f'd{side}'] = d
+                    entry[f'Q{side}'] = q.to(idt)
+                    entry[f'd{side}'] = d.to(idt)
                     if mixed:
                         entry[f'{side}_inv'] = linalg.eigen_side_inverse(
-                            q, d, damping)
+                            q, d, damping).to(idt)
                 else:
-                    entry[f'{side}_inv'] = invs[key]
+                    entry[f'{side}_inv'] = invs[key].to(idt)
             new_inv[name] = entry
         return new_inv
 
@@ -540,12 +618,15 @@ class KFAC:
                     else ('QA', 'dA', 'QG', 'dG'))
             entry = {k: torch.stack([inverses[n][k] for n in members])
                      for k in keys}
+            cdt = self.precond_compute_dtype
             if self.fused_precondition:
-                vs, vgs = kernels.bucket_precond(gstack, entry, damping)
+                vs, vgs = kernels.bucket_precond(gstack, entry, damping,
+                                                 compute_dtype=cdt)
                 for i, n in enumerate(members):
                     vg[n] = vgs[i]
             else:
-                vs = linalg.precondition_dispatch(gstack, entry, damping)
+                vs = linalg.precondition_dispatch(gstack, entry, damping,
+                                                  compute_dtype=cdt)
             for i, n in enumerate(members):
                 mats[n] = vs[i]
         return mats, vg
@@ -563,7 +644,8 @@ class KFAC:
             if spec.kind == EMBEDDING:
                 inv = state['inverses'][name]
                 precond_mats[name] = linalg.precondition_dispatch(
-                    grad_mats[name], inv, damping, diag_a=inv['A_inv'])
+                    grad_mats[name], inv, damping, diag_a=inv['A_inv'],
+                    compute_dtype=self.precond_compute_dtype)
         if self.kl_clip is not None:
             # Registration order, like the JAX package's summation.
             vg_sum = torch.zeros((), dtype=torch.float32,
@@ -643,13 +725,16 @@ class KFAC:
         sets must match; stored inverses are used when their layout
         (slot keys and shapes) matches, else they are recomputed from the
         factors (library eigh for eigen sides, damped inverses at the
-        constructor's damping for the others)."""
+        constructor's damping for the others). Factors and inverses take
+        this ``KFAC``'s storage dtypes (a bf16 state round-trips as it
+        is)."""
         state = self.init_state()
         if set(sd['factors']) != set(state['factors']):
             raise ValueError(
                 'checkpoint layers do not match registered layers: '
                 f'{sorted(sd["factors"])} vs {sorted(state["factors"])}')
-        factors = {n: {k: t.to(self.device) for k, t in f.items()}
+        factors = {n: {k: t.to(self.device, self.storage_dtype)
+                       for k, t in f.items()}
                    for n, f in sd['factors'].items()}
         state = {**state, 'step': int(sd['step']), 'factors': factors,
                  'inv_chunk_phase': int(sd.get('inv_chunk_phase', 0))}
@@ -661,7 +746,7 @@ class KFAC:
                     for k in state['inverses'][n])
             for n in state['inverses'])
         if compatible:
-            state['inverses'] = {n: {k: t.to(self.device)
+            state['inverses'] = {n: {k: t.to(self.device, self.inv_dtype)
                                      for k, t in e.items()}
                                  for n, e in saved.items()}
         elif compute_inverses:

@@ -22,6 +22,8 @@ record its wall time). Not ported yet: checkpointing and resume, metrics
 sinks and profiling, gradient accumulation, multi-slice meshes and fp16
 (``--grad-accum``, ``--num-slices``, ``--fp16`` raise), label smoothing,
 precise-BN, and the K-FAC knobs listed in ``preconditioner.NOT_PORTED``.
+``--bf16-factors``, ``--bf16-inverses`` and ``--bf16-precond`` set the
+K-FAC reduced-precision knobs as the JAX ``OptimConfig`` does.
 
 :func:`train` is the programmatic entry point.
 """
@@ -82,6 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--kl-clip', type=float, default=0.001)
     p.add_argument('--skip-layers', nargs='+', default=[])
     engine.add_distributed_args(p)
+    engine.add_precision_args(p)
     # Port-only flags.
     p.add_argument('--device', default='cuda')
     p.add_argument('--synthetic-size', type=int, default=2048)
@@ -134,7 +137,8 @@ def train(args_or_config=None, device='cuda') -> dict:
         damping_alpha=args.damping_alpha,
         damping_schedule=args.damping_decay,
         kfac_update_freq_alpha=args.kfac_update_freq_alpha,
-        kfac_update_freq_schedule=args.kfac_update_freq_decay)
+        kfac_update_freq_schedule=args.kfac_update_freq_decay,
+        **engine.precision_config(args))
     optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
         model, cfg, device=dev)
     state = engine.make_train_state(

@@ -20,8 +20,11 @@ many steps) and ``--time-steps`` (synchronize each step and record its
 wall time). Not ported yet: the ImageNet directory reader, ViT models,
 checkpointing and resume, metrics sinks and profiling, gradient
 accumulation, multi-slice meshes and fp16 (``--grad-accum``,
-``--num-slices``, ``--fp16`` raise), precise-BN, bf16 modes, ``--remat``
-and the K-FAC knobs listed in ``preconditioner.NOT_PORTED``.
+``--num-slices``, ``--fp16`` raise), precise-BN, ``--remat`` and the
+K-FAC knobs listed in ``preconditioner.NOT_PORTED``. ``--bf16-factors``,
+``--bf16-inverses`` and ``--bf16-precond`` set the K-FAC reduced-precision
+knobs as the JAX ``OptimConfig`` does (tracked config 5 is ``--model
+resnet152 --bf16-factors --inverse-method eigen``).
 
 :func:`train` is the programmatic entry point.
 """
@@ -84,6 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--kl-clip', type=float, default=0.001)
     p.add_argument('--skip-layers', nargs='+', default=[])
     engine.add_distributed_args(p)
+    engine.add_precision_args(p)
     # Port-only flags.
     p.add_argument('--device', default='cuda')
     p.add_argument('--synthetic-size', type=int, default=512)
@@ -137,7 +141,8 @@ def train(args_or_config=None, device='cuda') -> dict:
         damping_alpha=args.damping_alpha,
         damping_schedule=args.damping_decay,
         kfac_update_freq_alpha=args.kfac_update_freq_alpha,
-        kfac_update_freq_schedule=args.kfac_update_freq_decay)
+        kfac_update_freq_schedule=args.kfac_update_freq_decay,
+        **engine.precision_config(args))
     optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
         model, cfg, device=dev)
     state = engine.make_train_state(

@@ -64,11 +64,14 @@ vocabulary of the synthetic corpus; the JAX defaults 200000 and 1000),
 (stop after that many steps), ``--time-steps`` (synchronize each step and
 record its wall time) and ``--quiet``.
 
+``--bf16-factors``, ``--bf16-inverses`` and ``--bf16-precond`` set the
+K-FAC reduced-precision knobs as the JAX ``OptimConfig`` does
+(``engine.add_precision_args``).
+
 Not ported yet (a set flag raises by name): multi-slice meshes
 (``--num-slices``) and fp16 (``--fp16``). Also not
-ported: checkpointing and resume, metrics sinks and profiling, the bf16
-modes, autotune and the K-FAC knobs listed in
-``preconditioner.NOT_PORTED``.
+ported: checkpointing and resume, metrics sinks and profiling, autotune
+and the K-FAC knobs listed in ``preconditioner.NOT_PORTED``.
 
 :func:`train` is the programmatic entry point.
 """
@@ -157,6 +160,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--symmetry-aware-comm', action='store_true',
                    help='triangle-packed factor all_reduce (about half '
                         'the bytes)')
+    engine.add_precision_args(p)
     p.add_argument('--fp16', action='store_true',
                    help='not ported (raises)')
     # Port-only flags.
@@ -217,7 +221,8 @@ def train(args_or_config=None, device='cuda') -> dict:
         kl_clip=args.kl_clip, inverse_method=args.inverse_method,
         eigh_method=args.eigh_method,
         eigh_polish_iters=args.eigh_polish_iters,
-        kfac_approx=args.kfac_approx, skip_layers=skip)
+        kfac_approx=args.kfac_approx, skip_layers=skip,
+        **engine.precision_config(args))
     optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
         model, cfg, device=dev)
     state = engine.make_train_state(model, optimizer, kfac,

@@ -257,6 +257,29 @@ def add_distributed_args(p: argparse.ArgumentParser) -> None:
                    help='not ported (raises)')
 
 
+def add_precision_args(p: argparse.ArgumentParser) -> None:
+    """The JAX CLIs' reduced-precision flags (all three CLIs), read by
+    :func:`precision_config`."""
+    p.add_argument('--bf16-factors', action='store_true',
+                   help='bf16 factor storage/averaging + bf16 covariance '
+                        'matmul inputs (matmuls accumulate fp32); the '
+                        'reference fp16 factor mode')
+    p.add_argument('--bf16-inverses', action='store_true',
+                   help='bf16 inverse storage (decompositions stay '
+                        'fp32); halves the K-FAC inverse state')
+    p.add_argument('--bf16-precond', action='store_true',
+                   help='bf16 precondition-contraction operands (fp32 '
+                        'accumulation; KFAC precond_compute_dtype); with '
+                        '--bf16-inverses the stored inverses are read as '
+                        'they are stored')
+
+
+def precision_config(args: argparse.Namespace) -> dict:
+    """The ``OptimConfig`` fields of :func:`add_precision_args`' flags."""
+    return {key: getattr(args, key) for key in
+            ('bf16_factors', 'bf16_inverses', 'bf16_precond')}
+
+
 #: CLI flags of the JAX CLIs the port does not run yet, with their "off"
 #: value: gradient accumulation, multi-slice meshes and fp16.
 UNPORTED_FLAGS = (('grad_accum', 1), ('num_slices', 1), ('fp16', False))

@@ -57,6 +57,14 @@ class OptimConfig:
     fused_factor_contraction: bool = True
     fused_precondition: bool = True
     kfac_approx: Any = 'expand'       # 'expand' | 'reduce' | {pattern: ..}
+    # Reduced precision, mapped onto the KFAC knobs as the JAX
+    # OptimConfig maps them: bf16 factor storage and bf16 covariance
+    # multiplicands (fp32 accumulation, fp32 blend rounded once); bf16
+    # inverse storage (decompositions stay fp32); bf16 precondition
+    # operands (fp32 accumulation). All False: the fp32 path, bit for bit.
+    bf16_factors: bool = False
+    bf16_inverses: bool = False
+    bf16_precond: bool = False
     skip_layers: Sequence[str] = ()
     # Distribution (read by parallel.DistributedKFAC).
     comm_method: str = 'comm-opt'
@@ -101,6 +109,13 @@ def get_optimizer(model: torch.nn.Module, cfg: OptimConfig, device='cuda'):
             auto_eigen_max_dim=cfg.auto_eigen_max_dim,
             auto_large_method=cfg.auto_large_method,
             newton_iters=cfg.newton_iters,
+            factor_dtype=torch.bfloat16 if cfg.bf16_factors else None,
+            factor_compute_dtype=(torch.bfloat16 if cfg.bf16_factors
+                                  else None),
+            inv_dtype=(torch.bfloat16 if cfg.bf16_inverses
+                       else torch.float32),
+            precond_compute_dtype=(torch.bfloat16 if cfg.bf16_precond
+                                   else None),
             eigh_method=cfg.eigh_method,
             eigh_polish_iters=cfg.eigh_polish_iters,
             kfac_approx=cfg.kfac_approx,

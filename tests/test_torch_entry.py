@@ -167,7 +167,7 @@ def test_import_leaves_jax_unloaded():
     ('inv_pipeline_chunks', 2), ('deferred_factor_reduction', True),
     ('inv_staleness', 1), ('inv_lowrank_rank', 16),
     ('factor_batch_fraction', 0.5), ('collect_metrics', True),
-    ('inv_dtype', torch.bfloat16), ('factor_dtype', torch.bfloat16),
+    ('precond_bucketing', False), ('inv_lowrank_dim_threshold', 1024),
     ('hierarchical_reduce', True), ('nonfinite_guard', True),
     ('inv_pipeline_costs', {64: 1.0})])
 def test_unported_knobs_raise_by_name(knob, value):
