@@ -87,12 +87,12 @@ Phases (any failure exits nonzero and prints no result line):
      finite losses, no jacobi_eigh launch;
  11. ResNet-32 under ``--eigh-method jacobi``: 11 steps, finite losses,
      jacobi_eigh 9 per firing besides phase 5's per-step launches;
- 12. the result (printed after phases 13-24): a JSON line of
+ 12. the result (printed after phases 13-26): a JSON line of
      per-kernel numbers (K1-K3 per ResNet-50 step, K4 per ResNet-50
      firing, K5 per LSTM firing, under ``transformer_xl`` K1 and K3 per
      XL step and K4 per XL firing, and under ``resnet152_config5`` K1-K3
      per config-5 step; launches summed over phases 5-7, 9-11 and
-     13-24), the card line, then ``{"ok": true, "device":
+     13-26), the card line, then ``{"ok": true, "device":
      {...}}`` as the last line;
  13. distributed, NCCL at world size 1: phase 6's ResNet-50 run through
      ``train_imagenet_resnet.train`` inside a one-rank NCCL group
@@ -165,7 +165,7 @@ Phases (any failure exits nonzero and prints no result line):
      NCCL from rank 0 to itself, forward and backward equal bit for bit
      to the message and the incoming gradient;
  20. distributed LM, gloo: 4 ranks (subprocesses, all on ``cuda:0``) train
-     the XL-width tied Transformer at 2 blocks (d 1024, 16 heads, MLP
+     the XL-width tied Transformer at 1 block (d 1024, 16 heads, MLP
      4096, vocabulary 32,768, BPTT 1024) on one sequence each of phase
      15's batch of 4, under COMM_OPT 1 x 4 ``expand``, MEM_OPT 4 x 1
      ``reduce`` and HYBRID_OPT 2 x 2 ``reduce`` + ``newton`` +
@@ -195,7 +195,7 @@ Phases (any failure exits nonzero and prints no result line):
      relative of phase 15's (the fold reorders the softmax sums), phase
      15's launches, step times and peak memory beside phase 15's;
  22. sequence parallelism, gloo: 4 ranks (subprocesses, all on
-     ``cuda:0``) train phase 20's model (XL width, 2 blocks) with its
+     ``cuda:0``) train phase 20's model (XL width, 1 block) with its
      attention a ring over sequence groups, each rank on its tile of
      phase 15's batch (K-FAC rank ``rank // sp`` its sequences, sequence
      index ``rank % sp`` its block of positions and ``pos_offset``):
@@ -206,7 +206,7 @@ Phases (any failure exits nonzero and prints no result line):
      fp64 rule), every rank's factors and preconditioned gradients equal
      every other rank's bit for bit on each step (digests), every rank's
      launches equal its assignment; then the LM CLI itself, the XL-width
-     Transformer at 2 blocks with ``--seq-parallel 2`` (2 K-FAC ranks x
+     Transformer at 1 block with ``--seq-parallel 2`` (2 K-FAC ranks x
      2 sequence ranks), 3 steps: every rank's losses identical and
      finite, launches equal the assignment; step times print labelled as
      gloo through host memory;
@@ -235,7 +235,36 @@ Phases (any failure exits nonzero and prints no result line):
      more), prints the largest gap in ulps over the run, and holds the
      preconditioned gradients and KL-clip scale against its own run at 2e-2
      of the largest reference entry (``BF16_STEP_TOL``); every rank's
-     launches equal its assignment.
+     launches equal its assignment;
+ 25. the firing schedule at config 5: phase 23's run with
+     ``--inv-pipeline-chunks 5``, 22 steps: the fired stages are
+     ``cadence_flags``' (step 0 monolithic, chunks 1-4 at steps 2-8, a
+     whole window 10-19), every loss finite and the last three below the
+     first three, phase 23's launches per step and no K4 or K5; the chunk
+     plan (items and ``dim^3`` share per chunk), each step's ms with its
+     stage, the window's largest step beside phase 23's firing step and
+     its mean beside phase 23's amortized step, ``KFAC.memory_usage``
+     beside phase 23's state bytes; from the final state, factors frozen,
+     a window of chunk firings equal to a monolithic firing bit for bit
+     in every ``Q`` and ``d``; the same run with ``--inv-staleness 1``
+     (chunks at phases 1, 3, 5, 7, 9, snapshots at the window heads); at
+     ResNet-50 under ``newton`` with 5 chunks (11 steps): K4 one launch
+     per size bucket with a matrix in the fired chunk, and the frozen
+     window bit for bit; 3 config-5 steps at ``--factor-batch-fraction
+     0.25`` (launches unchanged; K1 and K2 device ms of one profiled step
+     beside the same step at fraction 1); phase 15's Transformer-XL with
+     ``--inv-pipeline-chunks 2 --deferred-factor-reduction``, 12 steps on
+     one device, then in a one-rank NCCL group: losses equal bit for bit;
+ 26. the firing schedule distributed, gloo: phase 14's 4 ranks and
+     ResNet-32 under HYBRID_OPT 2 x 2 (``newton``) and MEM_OPT 4 x 1
+     (``jacobi``) with ``inv_pipeline_chunks=2``, ``inv_staleness=1`` and
+     ``deferred_factor_reduction``, inverses every 4, 9 steps; rank 0
+     holds every step to the single-device ``KFAC`` with the same knobs
+     firing the grid's chunk plan (factors 1e-5, gradients 1e-4, ``nu``
+     1e-5); every rank's K4 / K5 launches per firing equal what its
+     assignment and the plan give (``DistributedKFAC.firing_launches``),
+     and every rank's factors equal the others' by digest; each rank runs
+     under a timeout.
 
 ``--quick`` builds with ``-Xptxas -v`` and runs only the correctness
 checks of phases 3, 4 and 8 (a first call after a kernel change).
@@ -363,12 +392,16 @@ TLM_DEFAULT_PER_STEP = {'factor_ema': 27, 'patch_cov': 0,
 # (n, matrices) of each ResNet-50 factor size bucket: one K4 launch each
 # per firing under 'newton'.
 # Phase 19's shared-input check runs the XL model at XL_SHARED_LAYERS
-# blocks, 12 expand steps (firings at 0 and 10) and 3 reduce steps.
-XL_SHARED_LAYERS = XL_LAYERS
+# blocks, 12 expand steps (firings at 0 and 10) and 3 reduce steps. Its
+# depth is cut to 6 of the 18 blocks for the script's time budget; phase
+# 19's own run and phase 25's NCCL run keep all 18.
+XL_SHARED_LAYERS = 6
 XL_SHARED_EXPAND_STEPS, XL_SHARED_REDUCE_STEPS = XL_STEPS, 3
-# Phase 20: the XL width at 2 blocks on 4 gloo ranks (one sequence each),
-# 3 steps per case, inverses every 2nd.
-LM_GLOO_LAYERS, LM_GLOO_STEPS, LM_GLOO_INV_FREQ = 2, 3, 2
+# Phase 20: the XL width at 1 block on 4 gloo ranks (one sequence each),
+# 3 steps per case, inverses every 2nd. The depth is cut to one block for
+# the script's time budget: the gloo phases 20 and 22 move every block's
+# statistics through host memory.
+LM_GLOO_LAYERS, LM_GLOO_STEPS, LM_GLOO_INV_FREQ = 1, 3, 2
 # Phase 21: the chunked fold alone at a long sequence (batch 4, 4096
 # tokens, 16 heads of 64), blocks of 512, then phase 15's run in blocks of
 # 256; its losses held to phase 15's on the first three steps.
@@ -411,7 +444,14 @@ R50_NS_BUCKETS = ((64, 12), (128, 12), (147, 1), (256, 26), (512, 19),
                   (2049, 1), (2304, 6), (4608, 3))
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's header (``== ...``) with the seconds since
+    the script started."""
+    if msg.startswith('=='):
+        msg = f'{msg} [{time.perf_counter() - _T0:.1f} s]'
     print(msg, flush=True)
 
 
@@ -1297,14 +1337,15 @@ def run_resnet50_auto(card: str) -> dict:
 
 
 def _r152_run(label: str, card: str, steps: int, buckets: int,
-              **flags) -> dict:
+              inspect=None, **flags) -> dict:
     """One config-5-shaped run of ``train_imagenet_resnet.train``
     (ResNet-152, 224 px, batch 64, ``eigen``, inverses every 10, lr
     ``R152_LR``) with the
     launch counts reset just before and read just after: every loss
     finite, launches K1 157, K2 155 and K3 ``buckets`` per step and no K4
     or K5. Returns its losses, step ms, peak allocated memory, the bytes
-    and dtypes of the factor and inverse state."""
+    and dtypes of the factor and inverse state, and what ``inspect(train
+    state)`` returns (run on the final state before it is freed)."""
     import torch
     from distributed_kfac_pytorch_tpu_torch import train_imagenet_resnet
     from distributed_kfac_pytorch_tpu_torch.ops import kernels
@@ -1340,6 +1381,8 @@ def _r152_run(label: str, card: str, steps: int, buckets: int,
                'nonfiring_ms_median': statistics.median(plain),
                'peak_gib': peak, 'factor_bytes': nbytes['factors'],
                'inverse_bytes': nbytes['inverses'], 'dtypes': dtypes}
+    if inspect is not None:
+        summary.update(inspect(state))
     log(f'  {label}: ms/step non-firing {summary["nonfiring_ms_median"]:.2f}'
         f' (median of {len(plain)}), firing '
         f'{[round(t, 1) for t in firing]} (step 0, the first firing: '
@@ -1415,6 +1458,340 @@ def run_resnet152_config5(card: str, r152: dict, xl: dict) -> dict:
             'launches': {k: main['launches'][k] + fp32['launches'][k]
                          + flags['launches'][k] + launches[k]
                          for k in launches}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: the firing schedule at config 5
+# ---------------------------------------------------------------------------
+
+# Config 5 with its firing spread over 5 chunks (stride 2 at inverses every
+# 10): 22 steps hold step 0's monolithic firing, chunks 1-4 at steps 2-8, a
+# whole window 10-19 and chunk 0 again at 20.
+SCHEDULE_STEPS, SCHEDULE_CHUNKS, SCHEDULE_FREQ = 22, 5, 10
+R50_CHUNK_STEPS = 11
+FRACTION = 0.25
+XL_SCHEDULE = {'inv_pipeline_chunks': 2, 'deferred_factor_reduction': True}
+
+
+def _schedule_fired(steps: int, **kw) -> list:
+    """The fired stages ``cadence_flags`` gives steps ``0..steps-1`` at
+    factors every step and inverses every SCHEDULE_FREQ."""
+    from distributed_kfac_pytorch_tpu_torch.training import engine
+    return [engine.fired_stage(engine.cadence_flags(s, 1, SCHEDULE_FREQ,
+                                                    **kw))
+            for s in range(steps)]
+
+
+def _chunk_plan_summary(kfac, factors) -> list:
+    """Per chunk of ``kfac``'s plan: its items, their ``dim^3`` share and
+    the count of matrices of each size."""
+    plan = kfac.inverse_chunk_plan(factors)
+    cost = dict(kfac.inverse_chunk_items(factors))
+    total = sum(cost.values())
+    out = []
+    for j in range(kfac.inv_pipeline_chunks):
+        keys = [k for k, c in plan.items() if c == j]
+        dims: dict[int, int] = {}
+        for key in keys:
+            if key[0] == 'mat':
+                d = int(factors[key[1]][key[2]].shape[-1])
+                dims[d] = dims.get(d, 0) + 1
+        out.append({'chunk': j, 'items': len(keys),
+                    'share': sum(cost[k] for k in keys) / total,
+                    'matrices_by_dim': dict(sorted(dims.items()))})
+    return out
+
+
+def _frozen_window(kfac, state, launch_key: str | None = None) -> dict:
+    """From ``state``, its factors frozen: one monolithic firing against a
+    window of chunk firings, every inverse slot bit for bit. With
+    ``launch_key`` (K4 or K5) each chunk firing must launch it once per
+    size bucket with a matrix in the chunk, from the plan, and the
+    monolithic firing their sum."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    factors = state['factors']
+    plan = kfac.inverse_chunk_plan(factors)
+    want = [len({int(factors[k[1]][k[2]].shape[-1])
+                 for k, c in plan.items() if c == j and k[0] == 'mat'})
+            for j in range(kfac.inv_pipeline_chunks)]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, dict(kernels.LAUNCHES)
+
+    mono, mono_ms, mono_launches = timed(lambda: kfac.update_inverses(state))
+    cur, chunk_ms, chunk_launches = state, [], []
+    for j in range(kfac.inv_pipeline_chunks):
+        inv, ms, launches = timed(
+            lambda j=j: kfac.update_inverses(cur, chunk=j))
+        cur = {**cur, 'inverses': inv}
+        chunk_ms.append(ms)
+        chunk_launches.append(launches)
+    differ = [(n, key) for n, e in mono.items() for key, t in e.items()
+              if not torch.equal(t, cur['inverses'][n][key])]
+    if differ:
+        raise AssertionError(f'frozen window: {len(differ)} slots differ '
+                             f'from the monolithic firing, first '
+                             f'{differ[:3]}')
+    out = {'slots': sum(len(e) for e in mono.values()),
+           'monolithic_ms': mono_ms, 'chunk_ms': chunk_ms}
+    if launch_key:
+        got = [launches[launch_key] for launches in chunk_launches]
+        if got != want or mono_launches[launch_key] != sum(want):
+            raise AssertionError(
+                f'frozen window: {launch_key} launches per chunk {got}, '
+                f'monolithic {mono_launches[launch_key]}; the plan gives '
+                f'{want} and {sum(want)}')
+        out.update(launches_per_chunk=got,
+                   monolithic_launches=mono_launches[launch_key])
+    return out
+
+
+def _factor_kernel_ms(state, x, y) -> dict:
+    """Device ms of K1 and K2 in one profiled non-firing step of the
+    config-5 run's ``state`` on the batch ``(x, y)``."""
+    import functools
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from distributed_kfac_pytorch_tpu_torch.training import engine, utils
+    criterion = functools.partial(utils.label_smooth_loss, smoothing=0.1)
+    hyper = {'lr': R152_LR, 'damping': state.kfac.damping}
+    flags = {'factor_update': True, 'inv_update': False}
+    xb = torch.as_tensor(x, device='cuda')
+    yb = torch.as_tensor(y, dtype=torch.long, device='cuda')
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.train_step(state, xb, yb, hyper, flags, criterion)
+        torch.cuda.synchronize()
+    out = {'K1 factor_ema': 0.0, 'K2 patch_cov': 0.0}
+    for ev in prof.key_averages():
+        dt = getattr(ev, 'self_device_time_total', None)
+        if dt is None:
+            dt = ev.self_cuda_time_total
+        cat = _category(ev.key)
+        if dt and ev.device_type.name == 'CUDA' and cat in out:
+            out[cat] += dt / 1e3
+    return out
+
+
+def _schedule_run(label: str, card: str, buckets: int, c5: dict,
+                  **knobs) -> dict:
+    """Phase 23's config-5 run for SCHEDULE_STEPS steps with ``knobs``:
+    the fired stages must be ``cadence_flags``', the loss finite and
+    falling, the launches phase 23's, ``KFAC.memory_usage`` phase 23's
+    state bytes; prints the plan and every step's ms with its stage."""
+    def inspect(state):
+        kfac, kst = state.kfac, state.kfac_state
+        out = {'memory_usage': kfac.memory_usage(kst),
+               'plan': _chunk_plan_summary(kfac, kst['factors'])}
+        if 'frozen_factors' in kst:
+            out['frozen_bytes'] = sum(
+                t.numel() * t.element_size()
+                for f in kst['frozen_factors'].values() for t in f.values())
+        else:
+            out['frozen_window'] = _frozen_window(kfac, kst)
+        return out
+
+    run = _r152_run(label, card, SCHEDULE_STEPS, buckets, inspect=inspect,
+                    bf16_factors=True, **knobs)
+    want = _schedule_fired(SCHEDULE_STEPS,
+                           inv_pipeline_chunks=knobs['inv_pipeline_chunks'],
+                           inv_staleness=knobs.get('inv_staleness', 0))
+    if run['fired'] != want:
+        raise AssertionError(f'{label}: fired {run["fired"]}, the schedule '
+                             f'gives {want}')
+    losses = run['losses']
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not last < first:
+        raise AssertionError(f'{label}: loss did not decrease: first three '
+                             f'{first:.4f}, last three {last:.4f}')
+    ref = c5['bf16_factors']
+    usage = run['memory_usage']
+    if usage != {'factors': ref['factor_bytes'],
+                 'inverses': ref['inverse_bytes']}:
+        raise AssertionError(f'{label}: memory_usage {usage}, phase 23 '
+                             f'{ref["factor_bytes"]} / '
+                             f'{ref["inverse_bytes"]}')
+    window = run['step_ms'][SCHEDULE_FREQ:2 * SCHEDULE_FREQ]
+    amortized = (ref['nonfiring_ms_median'] * (SCHEDULE_FREQ - 1)
+                 + ref['firing_ms'][0]) / SCHEDULE_FREQ
+    run.update(window_max_ms=max(window),
+               window_mean_ms=statistics.mean(window),
+               phase23_firing_ms=ref['firing_ms'][0],
+               phase23_amortized_ms=amortized,
+               phase23_nonfiring_ms=ref['nonfiring_ms_median'])
+    for row in run['plan']:
+        log(f'    chunk {row["chunk"]}: {row["items"]} items, '
+            f'{row["share"]:.1%} of the dim^3 proxy, matrices by dim '
+            f'{row["matrices_by_dim"]}')
+    log(f'  {label}: ms per step (stage): ' + ', '.join(
+        f'{i}:{ms:.1f}' + (f'({f})' if f not in ('factor', None) else '')
+        for i, (ms, f) in enumerate(zip(run['step_ms'], run['fired']))))
+    log(f'  {label}: window {SCHEDULE_FREQ}-{2 * SCHEDULE_FREQ - 1}: '
+        f'largest step {run["window_max_ms"]:.1f} ms against phase 23\'s '
+        f'firing step {ref["firing_ms"][0]:.1f}; mean '
+        f'{run["window_mean_ms"]:.2f} ms against phase 23\'s amortized '
+        f'{amortized:.2f} (non-firing {ref["nonfiring_ms_median"]:.2f}); '
+        f'memory_usage {usage["factors"] / 1e9:.3f} / '
+        f'{usage["inverses"] / 1e9:.3f} GB = phase 23'
+        + (f', snapshot {run["frozen_bytes"] / 1e9:.3f} GB'
+           if 'frozen_bytes' in run else '') + f' ({card})')
+    return run
+
+
+def _r50_chunk_run(card: str) -> dict:
+    """ResNet-50 under ``newton`` with SCHEDULE_CHUNKS chunks for
+    R50_CHUNK_STEPS steps: K4 launches one per size bucket with a matrix
+    in each fired chunk (step 0: every chunk's buckets), from the plan;
+    then the frozen window from the final state, K4 per chunk."""
+    from distributed_kfac_pytorch_tpu_torch import train_imagenet_resnet
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    config = _r50_config(epochs=R50_CHUNK_STEPS, inverse_method='newton',
+                         inv_pipeline_chunks=SCHEDULE_CHUNKS)
+    _release()
+    kernels.reset_launches()
+    res = train_imagenet_resnet.train(config, device='cuda')
+    launches = dict(kernels.LAUNCHES)
+    state = res.pop('state')
+    kfac, kst = state.kfac, state.kfac_state
+    plan = kfac.inverse_chunk_plan(kst['factors'])
+    per_chunk = [len({int(kst['factors'][k[1]][k[2]].shape[-1])
+                      for k, c in plan.items() if c == j and k[0] == 'mat'})
+                 for j in range(SCHEDULE_CHUNKS)]
+    fired = res['fired']
+    want_fired = _schedule_fired(R50_CHUNK_STEPS,
+                                 inv_pipeline_chunks=SCHEDULE_CHUNKS)
+    n = res['steps']
+    expected = {name: per * n for name, per in R50_PER_STEP.items()}
+    expected['ns_inverse'] = sum(per_chunk) + sum(
+        per_chunk[int(f[len('chunk'):])] for f in fired
+        if f and f.startswith('chunk'))
+    expected['jacobi_eigh'] = 0
+    if fired != want_fired or launches != expected or not all(
+            math.isfinite(v) for v in res['losses']):
+        raise AssertionError(f'resnet-50 newton, chunks: fired {fired}, '
+                             f'launches {launches}, expected {expected}, '
+                             f'losses {res["losses"]}')
+    window = _frozen_window(kfac, kst, 'ns_inverse')
+    del state
+    _release()
+    log(f'  resnet-50 newton, {SCHEDULE_CHUNKS} chunks: K4 buckets per '
+        f'chunk {per_chunk}; launches {launches}; frozen window equal bit '
+        f'for bit, monolithic {window["monolithic_ms"]:.1f} ms, chunks '
+        f'{[round(t, 1) for t in window["chunk_ms"]]} ms ({card})')
+    return {'launches': launches, 'buckets_per_chunk': per_chunk,
+            'frozen_window': window, 'losses': res['losses'],
+            'step_ms': res['step_ms'], 'fired': fired}
+
+
+def _fraction_run(card: str, buckets: int, r152_ms: dict) -> dict:
+    """Config 5 for 3 steps at FRACTION: phase 23's launches; K1 and K2
+    device ms of one profiled step at FRACTION and at 1."""
+    from distributed_kfac_pytorch_tpu_torch.training import datasets
+    (x, y), _ = datasets.get_imagenet(synthetic_size=R50_BATCH)
+
+    def inspect(state):
+        thinned = _factor_kernel_ms(state, x, y)
+        state.kfac.factor_batch_fraction = 1.0
+        return {'kernel_ms': thinned,
+                'kernel_ms_full': _factor_kernel_ms(state, x, y)}
+
+    run = _r152_run(f'config 5, factor_batch_fraction {FRACTION}', card,
+                    R152_SHORT_STEPS, buckets, inspect=inspect,
+                    bf16_factors=True, factor_batch_fraction=FRACTION)
+    got, full = run['kernel_ms'], run['kernel_ms_full']
+    log(f'  fraction {FRACTION}: per step K1 {got["K1 factor_ema"]:.2f} ms,'
+        f' K2 {got["K2 patch_cov"]:.2f} ms; the same step at fraction 1: '
+        f'K1 {full["K1 factor_ema"]:.2f}, K2 {full["K2 patch_cov"]:.2f} '
+        f'(phase 3 at config-5 shapes: K1 {r152_ms["factor_ema"]:.2f}, K2 '
+        f'{r152_ms["patch_cov"]:.2f}); non-firing '
+        f'{run["nonfiring_ms_median"]:.2f} ms ({card})')
+    return run
+
+
+def _xl_schedule(card: str) -> dict:
+    """Phase 15's model with XL_SCHEDULE, 12 steps on one device, then in
+    a one-rank NCCL group through ``DistributedKFAC``: the same fired
+    stages (``cadence_flags``') and launches, losses bit for bit."""
+    import torch.distributed as dist
+    from distributed_kfac_pytorch_tpu_torch import launch
+    single, launches, state = _run_tlm(
+        'xl, chunks 2, deferred', _xl_config(**XL_SCHEDULE), XL_PER_STEP, 1)
+    del state
+    _release()
+    store = _fresh_store('nccl_xl_schedule.store')
+    launch.initialize_distributed(init_method=f'file://{store}', rank=0,
+                                  world_size=1, device='cuda')
+    try:
+        if dist.get_backend() != 'nccl':
+            raise AssertionError(f'backend {dist.get_backend()}, not nccl')
+        nccl, nccl_launches, state = _run_tlm(
+            'xl NCCL world 1, chunks 2, deferred',
+            _xl_config(comm_method='comm-opt', **XL_SCHEDULE), XL_PER_STEP,
+            1)
+        kind = type(state.kfac).__name__
+        del state
+        _release()
+    finally:
+        dist.destroy_process_group()
+    want = _schedule_fired(XL_STEPS, inv_pipeline_chunks=2,
+                           deferred_reduce=True)
+    if kind != 'DistributedKFAC' or single['fired'] != want \
+            or nccl['fired'] != want or nccl_launches != launches:
+        raise AssertionError(f'xl schedule: {kind}, fired {single["fired"]}'
+                             f' / {nccl["fired"]} (want {want}), launches '
+                             f'{launches} / {nccl_launches}')
+    if nccl['losses'] != single['losses']:
+        raise AssertionError(f'xl schedule: NCCL world 1 losses '
+                             f'{nccl["losses"]} differ from the single '
+                             f'device\'s {single["losses"]}')
+    log(f'  xl, chunks 2, deferred: losses equal bit for bit in the NCCL '
+        f'group; ms per step (stage) single device ' + ', '.join(
+            f'{i}:{ms:.1f}' + (f'({f})' if f not in ('factor', None) else '')
+            for i, (ms, f) in enumerate(zip(single['step_ms'],
+                                            single['fired'])))
+        + '; NCCL world 1 ' + ', '.join(
+            f'{ms:.1f}' for ms in nccl['step_ms']) + f' ({card})')
+    return {'losses': single['losses'], 'fired': single['fired'],
+            'step_ms': single['step_ms'], 'nccl_step_ms': nccl['step_ms'],
+            'launches': {k: launches[k] + nccl_launches[k]
+                         for k in launches}}
+
+
+def run_firing_schedule(card: str, r152: dict, c5: dict,
+                        r152_ms: dict) -> dict:
+    """Phase 25 (see the module docstring): ``c5`` is phase 23's report,
+    ``r152_ms`` phase 3's K1 and K2 ms per config-5 step."""
+    t0 = time.perf_counter()
+    buckets = len(r152['buckets'])
+    chunks = _schedule_run(f'config 5, {SCHEDULE_CHUNKS} chunks', card,
+                           buckets, c5, inv_pipeline_chunks=SCHEDULE_CHUNKS)
+    window = chunks['frozen_window']
+    log(f'  frozen window from the final state: {window["slots"]} slots '
+        f'equal bit for bit; monolithic firing '
+        f'{window["monolithic_ms"]:.1f} ms, chunks '
+        f'{[round(t, 1) for t in window["chunk_ms"]]} ms')
+    stale = _schedule_run(f'config 5, {SCHEDULE_CHUNKS} chunks, staleness 1',
+                          card, buckets, c5,
+                          inv_pipeline_chunks=SCHEDULE_CHUNKS,
+                          inv_staleness=1)
+    r50 = _r50_chunk_run(card)
+    frac = _fraction_run(card, buckets, r152_ms)
+    xl = _xl_schedule(card)
+    runs = (chunks, stale, r50, frac, xl)
+    summary = {'chunks': chunks, 'staleness': stale, 'resnet50_newton': r50,
+               'fraction': frac, 'transformer_xl': xl,
+               'launches': {k: sum(r['launches'][k] for r in runs)
+                            for k in chunks['launches']},
+               'seconds': time.perf_counter() - t0}
+    log(f'  phase 25: {summary["seconds"]:.1f} s wall')
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -1858,33 +2235,20 @@ def _bf16_gap(got: dict, want: dict) -> tuple[int, bool]:
     return worst, ok
 
 
-def dist_worker(cfg: dict) -> int:
-    """One rank of phase 14 (``chip_smoke.py --dist-worker CONFIG``):
-    ResNet-32 at full width, BatchNorm in eval mode, this rank's slice of
-    one global batch, every case of GLOO_CASES in turn; rank 0 holds each
-    step against the single-device KFAC on the full batch. Phase 24
-    (``'resnet32_bf16'``) runs the first three cases with the three bf16
-    flags: rank 0 also takes one factor step of the single-device KFAC
-    from the world's factors before each step and holds the world's new
-    factors to it in bf16 ulps (:func:`_bf16_gap`), and holds the
-    preconditioned gradients and KL-clip scale at ``BF16_STEP_TOL``."""
+def _gloo_resnet32(cfg: dict, timeout: float) -> tuple:
+    """A gloo rank of phases 14, 24 and 26 on ``cuda:0`` (collectives time
+    out after ``timeout`` seconds), and its data: ``(rank, device, x, y,
+    local slice, model, initial state_dict)`` for ResNet-32 at full width
+    on one global batch of GLOO_BATCH."""
     import torch
-    import torch.nn.functional as F
     from distributed_kfac_pytorch_tpu_torch import launch, \
         set_fp32_precision
     from distributed_kfac_pytorch_tpu_torch.models import cifar_resnet
-    from distributed_kfac_pytorch_tpu_torch.ops import kernels
-    from distributed_kfac_pytorch_tpu_torch.parallel.distributed import \
-        DistributedKFAC
-    from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
-    from distributed_kfac_pytorch_tpu_torch.training import engine
-    import torch.distributed as dist
 
     set_fp32_precision()
     meta = launch.initialize_distributed(
         init_method=f'file://{cfg["store"]}', backend='gloo',
-        device='cuda:0', timeout=600)
-    rank = meta['process_index']
+        device='cuda:0', timeout=timeout)
     dev = torch.device('cuda:0')
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(GLOO_BATCH, 3, 32, 32, generator=gen).to(dev)
@@ -1905,6 +2269,29 @@ def dist_worker(cfg: dict) -> int:
         model(x)
     model.eval()
     init = {k: v.clone() for k, v in model.state_dict().items()}
+    return meta['process_index'], dev, x, y, local, model, init
+
+
+def dist_worker(cfg: dict) -> int:
+    """One rank of phase 14 (``chip_smoke.py --dist-worker CONFIG``):
+    ResNet-32 at full width, BatchNorm in eval mode, this rank's slice of
+    one global batch, every case of GLOO_CASES in turn; rank 0 holds each
+    step against the single-device KFAC on the full batch. Phase 24
+    (``'resnet32_bf16'``) runs the first three cases with the three bf16
+    flags: rank 0 also takes one factor step of the single-device KFAC
+    from the world's factors before each step and holds the world's new
+    factors to it in bf16 ulps (:func:`_bf16_gap`), and holds the
+    preconditioned gradients and KL-clip scale at ``BF16_STEP_TOL``."""
+    import torch
+    import torch.nn.functional as F
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    from distributed_kfac_pytorch_tpu_torch.parallel.distributed import \
+        DistributedKFAC
+    from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
+    from distributed_kfac_pytorch_tpu_torch.training import engine
+    import torch.distributed as dist
+
+    rank, dev, x, y, local, model, init = _gloo_resnet32(cfg, 600)
     knobs = dict(inverse_method='eigen', factor_update_freq=1,
                  inv_update_freq=GLOO_INV_FREQ, damping=0.003, lr=0.1,
                  kl_clip=0.001, device=dev)
@@ -2013,11 +2400,13 @@ def dist_worker(cfg: dict) -> int:
     return 1 if failures else 0
 
 
-def _run_gloo_ranks(phase: str) -> list:
+def _run_gloo_ranks(phase: str, timeout: float = 900) -> list:
     """GLOO_WORLD ranks of ``phase`` (``'resnet32'`` and
     ``'resnet32_bf16'``: :func:`dist_worker`, ``'lm'``:
-    :func:`lm_dist_worker`) on the one card, subprocesses of
-    this script; returns their reports, failing if any rank fails."""
+    :func:`lm_dist_worker`, ``'resnet32_overlap'``:
+    :func:`overlap_dist_worker`) on the one card, subprocesses of this
+    script, each given ``timeout`` seconds; returns their reports,
+    failing if any rank fails."""
     store = _fresh_store(f'gloo_{phase}.store')
     outs = [_fresh_store(f'gloo_{phase}_rank{r}.json')
             for r in range(GLOO_WORLD)]
@@ -2034,7 +2423,7 @@ def _run_gloo_ranks(phase: str) -> list:
     logs = []
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=900)[0])
+            logs.append(p.communicate(timeout=timeout)[0])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2085,6 +2474,165 @@ def run_bf16_gloo_world(card: str) -> dict:
     total = _launch_total(reports)
     log(f'  all ranks: launches {total} ({card})')
     return {'launches': total, 'worst': worst, 'ranks': reports}
+
+
+# Phase 26: phase 14's ranks under the firing-schedule knobs, inverses
+# every 4 (chunk 0 at phase 1, chunk 1 at phase 3, snapshots and the
+# deferred reduction at the window heads), 9 steps.
+OVERLAP_GLOO_CASES = (  # (name, comm_method, fraction, knobs, grid)
+    ('hybrid_opt_newton', 'hybrid-opt', 0.5, {'inverse_method': 'newton'},
+     (2, 2)),
+    ('mem_opt_jacobi', 'mem-opt', 0.0,
+     {'inverse_method': 'eigen', 'eigh_method': 'jacobi'}, (4, 1)))
+OVERLAP_KNOBS = {'inv_pipeline_chunks': 2, 'inv_staleness': 1,
+                 'deferred_factor_reduction': True}
+OVERLAP_STEPS, OVERLAP_INV_FREQ, OVERLAP_TIMEOUT = 9, 4, 300
+
+
+def overlap_dist_worker(cfg: dict) -> int:
+    """One rank of phase 26 (``chip_smoke.py --dist-worker CONFIG``):
+    ResNet-32 as phase 14 runs it, every case of OVERLAP_GLOO_CASES with
+    OVERLAP_KNOBS. Each step's K4 / K5 launches must equal
+    ``DistributedKFAC.firing_launches`` of its firing; rank 0 holds every
+    step against the single-device ``KFAC`` with the same knobs on the
+    full batch, firing the grid's chunk plan (``item_chunk_plan``); every
+    step's factor digest goes into the report."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    from distributed_kfac_pytorch_tpu_torch.parallel.distributed import \
+        DistributedKFAC
+    from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
+    from distributed_kfac_pytorch_tpu_torch.training import engine
+
+    rank, dev, x, y, local, model, init = _gloo_resnet32(cfg, 120)
+    common = dict(factor_update_freq=1, inv_update_freq=OVERLAP_INV_FREQ,
+                  damping=0.003, lr=0.1, kl_clip=0.001, device=dev,
+                  **OVERLAP_KNOBS)
+    report = {'rank': rank, 'cases': []}
+    failures = []
+    for name, comm, frac, knobs, grid in OVERLAP_GLOO_CASES:
+        model.load_state_dict(init)
+        kfac = KFAC(model, **common, **knobs)
+        dk = DistributedKFAC(kfac, comm_method=comm,
+                             grad_worker_fraction=frac)
+        work = dk.local_work()
+        decompose = ('jacobi_eigh' if knobs.get('eigh_method') == 'jacobi'
+                     else 'ns_inverse')
+        state = dk.init_state()
+        ref = ref_state = None
+        if rank == 0:
+            ref = KFAC(model, **common, **knobs)
+            plan = dk.item_chunk_plan()
+            ref.inverse_chunk_plan = lambda factors: plan
+            ref_state = ref.init_state()
+        launches = dict.fromkeys(kernels.LAUNCHES, 0)
+        errors, step_ms, digests, fired, firing_launches = [], [], [], [], []
+        for step in range(OVERLAP_STEPS):
+            flags = engine.kfac_step_flags(engine.cadence_flags(
+                step, 1, OVERLAP_INV_FREQ, OVERLAP_KNOBS['inv_pipeline_chunks'],
+                deferred_reduce=True, inv_staleness=1))
+            torch.cuda.synchronize()
+            dist.barrier()     # rank 0's reference check runs between steps
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            _, _, grads, captures = kfac.capture.loss_and_grads(
+                lambda out: F.cross_entropy(out, y[local]), x[local])
+            grads = dict(zip(grads, engine.world_mean(list(grads.values()))))
+            precond, state = dk.step(state, grads, captures, **flags)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            fired.append(engine.fired_stage(flags))
+            digests.append(_digest(state['factors']))
+            want = (dk.firing_launches() if flags['inv_update'] else
+                    dk.firing_launches(flags['inv_chunk'])
+                    if 'inv_chunk' in flags else 0)
+            firing_launches.append(kernels.LAUNCHES[decompose])
+            if kernels.LAUNCHES[decompose] != want:
+                failures.append(f'{name} step {step} ({fired[-1]}): rank '
+                                f'{rank} {decompose} launches '
+                                f'{kernels.LAUNCHES[decompose]}, its '
+                                f'assignment and the plan give {want}')
+            for k, v in kernels.LAUNCHES.items():
+                launches[k] += v
+            if rank == 0:
+                _, _, g_full, c_full = ref.capture.loss_and_grads(
+                    lambda out: F.cross_entropy(out, y), x)
+                p_ref, ref_state = ref.step(ref_state, g_full, c_full,
+                                            **flags)
+                err = {'factors': _max_rel(
+                           (state['factors'][n][s], ref_state['factors'][n][s])
+                           for n in ref.specs for s in 'AG'),
+                       'precond': _max_rel((precond[n], p_ref[n])
+                                           for n in p_ref),
+                       'nu': _max_rel([(dk.last_nu, ref.last_nu)])}
+                errors.append(err)
+                bad = {k: v for k, v in err.items() if not v <= STEP_TOL[k]}
+                if bad:
+                    failures.append(f'{name} step {step}: {bad}')
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p -= 0.1 * precond[n]
+        expected = dict.fromkeys(kernels.LAUNCHES, 0)
+        expected.update({
+            'factor_ema': R32_PER_STEP_K1 * OVERLAP_STEPS,
+            'patch_cov': R32_PER_STEP_K2 * OVERLAP_STEPS,
+            'bucket_precond': len(work['precondition']) * OVERLAP_STEPS,
+            decompose: sum(firing_launches)})
+        if launches != expected:
+            failures.append(f'{name}: rank {rank} launches {launches}, '
+                            f'expected {expected}')
+        if (dk.n_rows, dk.n_cols) != grid:
+            failures.append(f'{name}: grid {(dk.n_rows, dk.n_cols)}')
+        report['cases'].append({
+            'name': name, 'grid': [dk.n_rows, dk.n_cols], 'row': dk.row,
+            'col': dk.col, 'fired': fired, 'launches': launches,
+            'firing_launches': firing_launches, 'digests': digests,
+            'errors': errors, 'step_ms': step_ms})
+        kfac.capture.close()
+        if ref is not None:
+            ref.capture.close()
+    report['failures'] = failures
+    Path(cfg['out']).write_text(json.dumps(report, indent=1))
+    dist.destroy_process_group()
+    return 1 if failures else 0
+
+
+def run_overlap_gloo_world(card: str) -> dict:
+    """Phase 26: GLOO_WORLD ranks of :func:`overlap_dist_worker`, each
+    under OVERLAP_TIMEOUT; fails if any rank fails or two ranks' factor
+    digests differ at any step."""
+    t0 = time.perf_counter()
+    reports = _run_gloo_ranks('resnet32_overlap', timeout=OVERLAP_TIMEOUT)
+    worst = {}
+    for i, case in enumerate(reports[0]['cases']):
+        name = case['name']
+        digests = {rep['rank']: rep['cases'][i]['digests']
+                   for rep in reports}
+        if any(d != digests[0] for d in digests.values()):
+            raise AssertionError(f'{name}: ranks\' factors differ: '
+                                 f'{digests}')
+        errs = case['errors']
+        worst[name] = {k: max(e[k] for e in errs) for k in STEP_TOL}
+        w = worst[name]
+        log(f'  {name} grid {case["grid"]}, stages {case["fired"]}: rank 0 '
+            f'vs single-device KFAC on the grid\'s plan, worst of '
+            f'{len(errs)} steps: factors {w["factors"]:.2e}, gradients '
+            f'{w["precond"]:.2e}, nu {w["nu"]:.2e}; factors equal on every '
+            'rank at every step (digests)')
+        for rep in reports:
+            c = rep['cases'][i]
+            log(f'    rank {rep["rank"]} (row {c["row"]}, col {c["col"]}): '
+                f'decomposition launches per step {c["firing_launches"]} = '
+                f'assignment and plan; step ms (gloo through host memory) '
+                f'{[round(t, 1) for t in c["step_ms"]]}')
+    total = _launch_total(reports)
+    seconds = time.perf_counter() - t0
+    log(f'  all ranks: launches {total}; phase 26: {seconds:.1f} s wall '
+        f'({card})')
+    return {'launches': total, 'worst': worst, 'ranks': reports,
+            'seconds': seconds}
 
 
 def run_gloo_world(card: str) -> dict:
@@ -2158,7 +2706,8 @@ def _run_tlm(label: str, config: dict, per_step: dict, firings: int,
     if n != config['max_steps'] or not all(math.isfinite(v)
                                            for v in losses):
         raise AssertionError(f'{label}: {n} steps, losses {losses}')
-    if res['fired'].count('inverse') != firings:
+    if sum(1 for f in res['fired'] if f and f.startswith('inverse')) \
+            != firings:
         raise AssertionError(f'{label}: fired {res["fired"]}')
     expected = {k: v * n for k, v in per_step.items()}
     for k, v in (per_firing or {}).items():
@@ -3296,7 +3845,8 @@ def main(argv=None) -> int:
     if args.dist_worker:
         sys.path.insert(0, str(ROOT))
         cfg = json.loads(args.dist_worker)
-        return {'lm': lm_dist_worker, 'seq': seq_dist_worker}.get(
+        return {'lm': lm_dist_worker, 'seq': seq_dist_worker,
+                'resnet32_overlap': overlap_dist_worker}.get(
             cfg['phase'], dist_worker)(cfg)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -3425,6 +3975,20 @@ def main(argv=None) -> int:
             'card over gloo, --bf16-factors --bf16-inverses --bf16-precond, '
             f'3 mesh cases x {GLOO_STEPS} steps')
         report['bf16_gloo_world'] = run_bf16_gloo_world(card)
+        log(f'== the firing schedule at config 5: {SCHEDULE_CHUNKS} chunks, '
+            f'{SCHEDULE_STEPS} steps; with --inv-staleness 1; ResNet-50 '
+            f'newton in chunks; --factor-batch-fraction {FRACTION}, '
+            f'{R152_SHORT_STEPS} steps; the Transformer-XL LM with '
+            '--inv-pipeline-chunks 2 --deferred-factor-reduction, one device '
+            'and a one-rank NCCL group')
+        report['firing_schedule'] = run_firing_schedule(
+            card, r152, report['resnet152_config5'],
+            {k: summary152[k]['ms'] for k in ('factor_ema', 'patch_cov')})
+        log(f'== distributed firing schedule: ResNet-32, {GLOO_WORLD} ranks '
+            f'on one card over gloo, chunks 2, staleness 1, deferred '
+            f'reduction, {len(OVERLAP_GLOO_CASES)} cases x {OVERLAP_STEPS} '
+            'steps')
+        report['overlap_gloo_world'] = run_overlap_gloo_world(card)
         runs = (main_summary, r50, report['resnet50_auto'],
                 report['lstm_jacobi'], report['lm_defaults'],
                 report['resnet32_jacobi'], report['resnet50_nccl_world1'],
@@ -3435,7 +3999,8 @@ def main(argv=None) -> int:
                 report['transformer_xl_nccl_world1'],
                 report['lm_gloo_world'], report['transformer_xl_chunked'],
                 report['seq_gloo_world'], report['resnet152_config5'],
-                report['bf16_gloo_world'])
+                report['bf16_gloo_world'], report['firing_schedule'],
+                report['overlap_gloo_world'])
         launches = {name: sum(r['launches'].get(name, 0) for r in runs)
                     for name in kernels.LAUNCHES}
         aggs = {**summary50, 'ns_inverse': summary_ns,

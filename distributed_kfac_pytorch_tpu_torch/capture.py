@@ -334,6 +334,30 @@ class KFACCapture:
         self._handles, self._wrapped = [], []
 
 
+def subsample_captures(captures: dict, fraction: float) -> dict:
+    """Keep ``ceil(B * fraction)`` batch rows of every capture, at the
+    evenly spread positions ``arange(k) * B // k`` (strided over the whole
+    batch, never a head slice), as the JAX package's
+    ``subsample_captures``: the factor statistics of a batch thinned
+    within the step. Every stream thins alike, a tied embedding's
+    ``a_tied`` / ``g_tied`` included; the gradients are untouched.
+    ``fraction >= 1`` returns ``captures`` itself."""
+    if fraction >= 1.0:
+        return captures
+
+    def keep(t):
+        b = t.shape[0]
+        k = max(1, int(math.ceil(b * fraction)))
+        if k >= b:
+            return t
+        idx = torch.arange(k, device=t.device) * b // k
+        return t.index_select(0, idx)
+
+    return {name: {key: tuple(keep(t) for t in calls)
+                   for key, calls in c.items()}
+            for name, c in captures.items()}
+
+
 def _detach(out):
     """``out`` with every tensor detached, nested tuples and lists kept."""
     if isinstance(out, torch.Tensor):

@@ -223,7 +223,9 @@ def jax_factors_to_torch(factors: dict, specs: dict) -> dict:
     """JAX K-FAC ``state['factors']`` (keyed by flax path ``a/b``) -> the
     port's (keyed by ``a.b``), conv A factors permuted into ``(c, kh,
     kw)``; bf16 factors (``factor_dtype``) stay bf16, bit for bit
-    (:func:`array_to_tensor`). ``specs`` are the port's ``KFAC.specs``."""
+    (:func:`array_to_tensor`). ``specs`` are the port's ``KFAC.specs``.
+    A state's ``factor_accum`` and ``frozen_factors`` have the factors'
+    layout and convert the same way (:func:`jax_state_to_torch`)."""
     return _convert_state(factors, specs, to_torch=True)
 
 
@@ -251,3 +253,46 @@ def torch_inverses_to_jax(inverses: dict, specs: dict, bfloat16=None
     return _convert_state({n.replace('.', '/'): e
                            for n, e in inverses.items()}, specs,
                           to_torch=False, bfloat16=bfloat16)
+
+
+#: Entries of a K-FAC state laid out as its factors: the factors, the
+#: deferred-reduction accumulator and the stale-firing snapshot.
+FACTOR_LAYOUT_KEYS = ('factors', 'factor_accum', 'frozen_factors')
+
+
+def jax_state_to_torch(state: dict, specs: dict) -> dict:
+    """A single-device JAX ``KFAC`` state -> the port's ``KFAC`` state: the
+    factor-layout entries (:data:`FACTOR_LAYOUT_KEYS`, each present one)
+    through :func:`jax_factors_to_torch`, conv A bases permuted; the
+    inverses through :func:`jax_inverses_to_torch`; ``step``,
+    ``inv_chunk_phase`` as ints and ``accum_decay`` as an fp32 scalar
+    tensor. Tensors are on the CPU."""
+    out = {'step': int(np.asarray(state['step'])),
+           'inv_chunk_phase': int(np.asarray(state.get('inv_chunk_phase',
+                                                       0)))}
+    for key in FACTOR_LAYOUT_KEYS:
+        if key in state:
+            out[key] = jax_factors_to_torch(state[key], specs)
+    if 'inverses' in state:
+        out['inverses'] = jax_inverses_to_torch(state['inverses'], specs)
+    if 'accum_decay' in state:
+        out['accum_decay'] = torch.tensor(
+            float(np.asarray(state['accum_decay'])), dtype=torch.float32)
+    return out
+
+
+def torch_state_to_jax(state: dict, specs: dict, bfloat16=None) -> dict:
+    """Inverse of :func:`jax_state_to_torch` (numpy arrays keyed by flax
+    path; ``step``, ``inv_chunk_phase`` int32 and ``accum_decay`` fp32
+    scalars)."""
+    out = {'step': np.int32(state['step']),
+           'inv_chunk_phase': np.int32(state.get('inv_chunk_phase', 0))}
+    for key in FACTOR_LAYOUT_KEYS:
+        if key in state:
+            out[key] = torch_factors_to_jax(state[key], specs, bfloat16)
+    if 'inverses' in state:
+        out['inverses'] = torch_inverses_to_jax(state['inverses'], specs,
+                                                bfloat16)
+    if 'accum_decay' in state:
+        out['accum_decay'] = np.float32(float(state['accum_decay']))
+    return out

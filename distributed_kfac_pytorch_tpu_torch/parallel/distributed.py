@@ -57,10 +57,22 @@ no collective.
 
 Work placement (:func:`assign_work`) is the JAX package's, exactly: the
 two-level LPT of layers onto rows and of factors onto a row's columns.
-Not ported: pipelined firing, inverse staleness, deferred and
-hierarchical factor reduction, the quarantine gates, metrics and the
-non-finite guard (the ``KFAC`` knobs raise by name), and grouped-conv
-layers (capture rejects them).
+The firing schedule (the ``KFAC`` knobs): under ``inv_pipeline_chunks`` /
+``inv_staleness`` a chunk firing decomposes the slot offsets the chunk
+plan gives it (:func:`plan_firing_chunks`; the unit is a
+within-column slot offset, one decomposition per rank) into a zeroed stack
+of the row's fired slots, one masked-sum ``all_reduce`` over the row
+assembles it, and the result is written into the stored row stacks;
+slots that did not fire keep their bits. Under
+``deferred_factor_reduction`` each rank folds its own contributions into a
+local accumulator (K1's fused blend, no collective) and the window head
+runs one flat fp32 ``all_reduce`` of the accumulators; ``inv_staleness``
+fires from the replicated ``frozen_factors``; ``factor_batch_fraction``
+thins each rank's own captures.
+
+Not ported: hierarchical factor reduction, the quarantine gates, metrics
+and the non-finite guard (the ``KFAC`` knobs raise by name), and
+grouped-conv layers (capture rejects them).
 """
 
 from __future__ import annotations
@@ -73,7 +85,8 @@ import torch
 import torch.distributed as dist
 
 from distributed_kfac_pytorch_tpu_torch import layers as L
-from distributed_kfac_pytorch_tpu_torch.capture import EMBEDDING
+from distributed_kfac_pytorch_tpu_torch.capture import EMBEDDING, \
+    subsample_captures
 from distributed_kfac_pytorch_tpu_torch.ops import factors as F
 from distributed_kfac_pytorch_tpu_torch.ops import kernels, linalg
 from distributed_kfac_pytorch_tpu_torch.parallel.placement import (
@@ -82,9 +95,13 @@ from distributed_kfac_pytorch_tpu_torch.parallel.placement import (
 )
 from distributed_kfac_pytorch_tpu_torch.preconditioner import (
     KFAC,
+    OVERLAP_KEYS,
     CommMethod,
     comm_method_of,
     eigen_family,
+    measured_unit_scale,
+    overlay_overlap_state,
+    plan_inverse_chunks,
 )
 
 
@@ -248,6 +265,76 @@ def plan_precond_groups(kfac: KFAC, assignment: WorkAssignment
     return groups
 
 
+def plan_firing_chunks(kfac: KFAC, assignment: WorkAssignment
+                       ) -> dict | None:
+    """The chunk plan of a pipelined firing on a grid's ``assignment``
+    (the JAX ``DistributedKFAC._plan_firing_chunks``), None while the
+    ``KFAC``'s firings are not pipelined.
+
+    The work unit is a within-column slot offset ``('slot', dim, m)`` of a
+    bucket: firing it costs each rank of a row the one slot at ``col *
+    slots_per_col + m``, so a chunk's load per rank is what the
+    pipelining spreads. An embedding's diagonal A is an item ``('diag',
+    layer)``. The items are packed onto ``inv_pipeline_chunks`` chunks by
+    ``preconditioner.plan_inverse_chunks`` (global and deterministic:
+    every rank gets the same plan). Returns ``{'offsets': {dim: {chunk:
+    (m, ...)}}, 'diag': {layer: chunk}}``.
+    """
+    k = kfac.inv_pipeline_chunks
+    if not kfac.pipelined_firing:
+        return None
+    measured = kfac.inv_pipeline_costs or {}
+    buckets = assignment.buckets
+    dims = factor_dims(kfac)
+    proxy_scale = measured_unit_scale(
+        measured, {dim: plan.slots_per_col for dim, plan in buckets.items()},
+        'inverse bucket dim of this mesh layout')
+    items: list[tuple[tuple, float]] = []
+    for dim in sorted(buckets):
+        plan = buckets[dim]
+        unit = (float(measured[dim]) / plan.slots_per_col
+                if dim in measured else linalg.decomposition_cost(dim))
+        for m in range(plan.slots_per_col):
+            items.append((('slot', dim, m), unit))
+    for name in assignment.diag_layers:
+        items.append((('diag', name), proxy_scale * float(dims[name][0])))
+    if k > len(items):
+        raise ValueError(
+            f'inv_pipeline_chunks={k} exceeds the {len(items)} '
+            'inverse work items of this mesh layout (bucket slot '
+            'offsets + grouped/diagonal layers); lower it to at '
+            f'most {len(items)}')
+    offsets: dict[int, dict[int, list]] = {dim: {} for dim in buckets}
+    diag: dict[str, int] = {}
+    for key, j in plan_inverse_chunks(items, k).items():
+        if key[0] == 'slot':
+            offsets[key[1]].setdefault(j, []).append(key[2])
+        else:
+            diag[key[1]] = j
+    return {'offsets': {dim: {j: tuple(sorted(ms)) for j, ms in per.items()}
+                        for dim, per in offsets.items()},
+            'diag': diag}
+
+
+def item_chunk_plan(assignment: WorkAssignment, chunk_plan: dict
+                    ) -> dict[tuple, int]:
+    """A grid's chunk plan (:func:`plan_firing_chunks`) in the items of
+    the single-device ``KFAC.inverse_chunk_plan``: ``{('mat', layer,
+    'A'|'G'): chunk, ('diag', layer): chunk}``, each matrix in the chunk
+    of its slot offset. A single-device ``KFAC`` firing this plan fires,
+    at each chunk, the matrices the grid fires."""
+    out = {}
+    for dim, plan in assignment.buckets.items():
+        s = plan.slots_per_col
+        chunk_of = {m: j for j, offs in chunk_plan['offsets'][dim].items()
+                    for m in offs}
+        for (name, side), slot in plan.slot.items():
+            out[('mat', name, side)] = chunk_of[slot % s]
+    for name, j in chunk_plan['diag'].items():
+        out[('diag', name)] = j
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Process groups
 # ---------------------------------------------------------------------------
@@ -403,8 +490,71 @@ class DistributedKFAC:
                                  device=self.device),
                     torch.tensor([grp['g_idx'][g] for g, _ in mine],
                                  device=self.device)))
+        # Pipelined firing: the chunk plan over within-column slot offsets
+        # and this rank's share of each chunk.
+        self._chunk_plan = plan_firing_chunks(kfac, self.assignment)
+        self._chunk_cells, self._chunk_rows = self._plan_chunk_work()
         #: The KL-clip scale of the last :meth:`step` (a device scalar).
         self.last_nu = None
+
+    def _plan_chunk_work(self) -> tuple[dict, dict]:
+        """This rank's share of each chunk: ``({dim: {chunk: (cells,
+        slots)}}, {chunk: {dim: (cells, slots, positions, row slots)}})``.
+        ``cells`` are the ``(in-row slot, key)`` this rank decomposes in
+        the chunk, ``slots`` their slots (a device index); ``row slots``
+        (a device index) the in-row slots of its row that
+        the chunk fires and that hold a layer, the same on every rank of
+        the row (padding slots are never fired); ``positions`` (a device
+        index) are the cells' places among them. A bucket whose row
+        slots are empty in a chunk is left out, on every rank of the row
+        alike. Empty without a chunk plan."""
+        if self._chunk_plan is None:
+            return {}, {}
+        dev = self.device
+
+        def index(values):
+            return torch.tensor(values, dtype=torch.long, device=dev)
+
+        groups: dict[int, dict[int, tuple]] = {}
+        work: dict[int, dict] = {j: {} for j in
+                                 range(self.kfac.inv_pipeline_chunks)}
+        for dim, plan in self.assignment.buckets.items():
+            s = plan.slots_per_col
+            row_slots = sorted(
+                slot for key, slot in plan.slot.items()
+                if self.assignment.layer_row[key[0]] == self.row)
+            groups[dim] = {}
+            for j, offs in sorted(self._chunk_plan['offsets'][dim].items()):
+                cells = [c for c in self._cells[dim] if c[0] % s in offs]
+                slots = index([slot for slot, _ in cells])
+                if cells:
+                    groups[dim][j] = (cells, slots)
+                fired = [slot for slot in row_slots if slot % s in offs]
+                if fired:
+                    pos = [fired.index(slot) for slot, _ in cells]
+                    work[j][dim] = (cells, slots, index(pos), index(fired))
+        return groups, work
+
+    def item_chunk_plan(self) -> dict[tuple, int] | None:
+        """This grid's chunk plan in the single-device ``KFAC``'s items
+        (:func:`item_chunk_plan`); None while firings are not
+        pipelined."""
+        if self._chunk_plan is None:
+            return None
+        return item_chunk_plan(self.assignment, self._chunk_plan)
+
+    def firing_launches(self, chunk: int | None = None) -> int:
+        """Decomposition launches (K4 or K5, under ``'newton'`` or
+        ``'jacobi'``) of one firing on this rank: one per bucket it holds
+        slots of, and while firings are pipelined one per bucket and
+        chunk; with ``chunk``, one per bucket it holds a slot of in that
+        chunk."""
+        if chunk is not None:
+            return sum(bool(work[0])
+                       for work in self._chunk_rows[chunk].values())
+        if self._chunk_plan is None:
+            return sum(bool(cell) for cell in self._cells.values())
+        return sum(len(g) for g in self._chunk_cells.values())
 
     def _layer_is_mixed(self, name: str) -> bool:
         if self.specs[name].kind == EMBEDDING:
@@ -429,7 +579,9 @@ class DistributedKFAC:
         (replicated) and this rank's row of each bucket, ``(slots_per_row,
         dim, dim)``: identity ``Q`` and unit ``d`` for eigen buckets (plus
         a zero ``inv`` where a mixed layer bakes its eigen side), zero
-        ``inv`` for baked ones."""
+        ``inv`` for baked ones; and the firing-schedule state of the
+        ``KFAC``'s knobs (as ``KFAC.init_state``: this rank's zero
+        accumulator, ``frozen_factors``)."""
         dev = self.device
         fdt, idt = self.kfac.storage_dtype, self.kfac.inv_dtype
         diag = self.assignment.diag_layers
@@ -456,8 +608,9 @@ class DistributedKFAC:
                 entry = {'inv': torch.zeros((n, dim, dim), dtype=idt,
                                             device=dev)}
             stacks[str(dim)] = entry
-        return {'step': 0, 'factors': factors, 'inv_stacks': stacks,
-                'diag_inv': diag_inv, 'inv_chunk_phase': 0}
+        return self.kfac._seed_overlap_state(
+            {'step': 0, 'factors': factors, 'inv_stacks': stacks,
+             'diag_inv': diag_inv, 'inv_chunk_phase': 0})
 
     # -- factors -------------------------------------------------------
 
@@ -471,7 +624,8 @@ class DistributedKFAC:
         ``A_g2`` and ``G_a`` (``layers.compute_tied_factor_extras``), kept
         apart until :meth:`update_factors` has scaled them. The specs are
         resolved first (``KFAC.observe_specs``), as ``KFAC`` does at its
-        first factor update."""
+        first factor update; the captures are thinned to
+        ``factor_batch_fraction`` (this rank's own rows)."""
         kfac = self.kfac
         missing = [n for n in self.specs if n not in captures]
         if missing:
@@ -479,6 +633,7 @@ class DistributedKFAC:
                              '(capture with intercept=True on factor '
                              'steps)')
         kfac.observe_specs()
+        captures = subsample_captures(captures, kfac.factor_batch_fraction)
         cdt = kfac.factor_compute_dtype
         out = {}
         for name, spec in self.specs.items():
@@ -549,16 +704,74 @@ class DistributedKFAC:
         return {n: {'A': a, 'G': g}
                 for n, a, g in zip(self.specs, ema[0::2], ema[1::2])}
 
+    def accumulate_factors(self, state: dict, captures: dict,
+                           factor_decay=None) -> tuple[dict, Any]:
+        """Deferred-reduction factor step, with no collective: this rank
+        folds its own contributions into its local accumulator, ``acc <-
+        alpha acc + (1 - alpha) c``, and ``decay <- alpha decay``
+        (``KFAC.blend_factors``: K1's fused blend with the accumulator as
+        ``old`` where it applies). ``c`` takes the scale
+        :meth:`update_factors` gives the world's mean (the
+        output-grad-quadratic parts times ``1/W^2``), so that the window
+        head's mean of the accumulators is the eager recursion's value.
+        Returns ``(new_accum, new_decay)``."""
+        kfac = self.kfac
+        alpha = kfac.factor_decay if factor_decay is None else factor_decay
+        return (kfac.blend_factors(state['factor_accum'], captures, alpha,
+                                   quad_scale=1.0 / self.world_size ** 2),
+                alpha * state['accum_decay'])
+
+    def reduce_factors(self, state: dict, acc: dict, decay) -> dict:
+        """Deferred-reduction window head: one flat fp32 ``all_reduce`` of
+        every rank's accumulator over the world (each 2-D part
+        triangle-packed with ``symmetry_aware_comm``), then ``F <- decay
+        F + mean(acc)``, blended in fp32 and rounded once to the storage
+        dtype."""
+        packed = self.kfac.symmetry_aware_comm
+        w = self.world_size
+        parts = [acc[n][s].float() for n in self.specs for s in 'AG']
+        wire = [F.pack_symmetric(t) if packed and t.ndim == 2 else t
+                for t in parts]
+        sizes = [t.numel() for t in wire]
+        flat = torch.cat([t.reshape(-1) for t in wire])
+        dist.all_reduce(flat)
+        if w > 1:
+            flat /= w
+        means = [F.unpack_symmetric(v.view(sent.shape), t.shape[-1])
+                 if sent is not t else v.view(t.shape)
+                 for v, sent, t in zip(flat.split(sizes), wire, parts)]
+        olds = [state['factors'][n][s] for n in self.specs for s in 'AG']
+        new = [(decay * o.float() + m).to(o.dtype)
+               for o, m in zip(olds, means)]
+        return {n: {'A': a, 'G': g}
+                for n, a, g in zip(self.specs, new[0::2], new[1::2])}
+
     # -- inverses ------------------------------------------------------
 
     def update_inverses(self, factors: dict, damping=None,
-                        prev_stacks: dict | None = None) -> dict:
-        """A monolithic firing, ``{'inv_stacks', 'diag_inv'}``: this rank
-        decomposes its assigned slots of every bucket, then one
-        ``all_reduce`` SUM over its row assembles the row's stacks (a
-        masked-sum gather: each slot is nonzero on one rank only); every
-        rank inverts every embedding's diagonal A elementwise at
-        ``damping``.
+                        prev_stacks: dict | None = None, *,
+                        chunk: int | None = None,
+                        prev_diag: dict | None = None) -> dict:
+        """A firing, ``{'inv_stacks', 'diag_inv'}``.
+
+        Monolithic (``chunk`` None): this rank decomposes its assigned
+        slots of every bucket, then one ``all_reduce`` SUM over its row
+        assembles the row's stacks (a masked-sum gather: each slot is
+        nonzero on one rank only); every rank inverts every embedding's
+        diagonal A elementwise at ``damping``. While firings are
+        pipelined (and ``prev_stacks`` are given) the slots are
+        decomposed chunk group by chunk group, as the chunk firings
+        stack them, so that a window of chunk firings over frozen factors
+        gives the monolithic firing's bits.
+
+        ``chunk=j`` (with ``prev_stacks`` and ``prev_diag``): only the
+        slot offsets and diagonal inverses the chunk plan gives chunk
+        ``j``. Each rank decomposes its fired slots into a zeroed stack
+        of the row's fired slots alone, one ``all_reduce`` SUM over the
+        row assembles it (every rank of a row joins, whether it holds a
+        fired slot or not; a row with no fired slot runs none), and the
+        result is written into the stored row stacks at those slots;
+        every other slot, padding included, keeps its value bit for bit.
 
         Eigen buckets: the warm polish seeded from ``prev_stacks``' bases
         of the same slots (``eigh_method`` 'auto'/'warm'; without
@@ -572,40 +785,29 @@ class DistributedKFAC:
         """
         kfac = self.kfac
         damping = kfac.damping if damping is None else damping
-        method = linalg.resolve_eigh_method(kfac.eigh_method)
+        pipelined = self._chunk_plan is not None and prev_stacks is not None
+        if chunk is not None:
+            if not pipelined:
+                raise ValueError(
+                    'inv_chunk requires inv_pipeline_chunks > 1 (or '
+                    'inv_staleness=1) and stored inverse stacks')
+            return self._fire_chunk(factors, damping, prev_stacks,
+                                    prev_diag, chunk)
         dev = self.device
         stacks = {}
         for dim, plan in self.assignment.buckets.items():
             n = plan.slots_per_row
-            bucket_method = kfac.method_for_dim(dim)
-            eigen = eigen_family(bucket_method)
-            entry = {}
-            if eigen:
-                entry['Q'] = torch.zeros((n, dim, dim), device=dev)
-                entry['d'] = torch.zeros((n, dim), device=dev)
-            if not eigen or self._bucket_mixed.get(dim):
-                entry['inv'] = torch.zeros((n, dim, dim), device=dev)
-            cell = self._cells[dim]
-            if cell:
-                idx = self._cell_idx[dim]
-                local = torch.stack([factors[name][side].float()
-                                     for _, (name, side) in cell])
-                if eigen:
-                    q_prev = None
-                    if prev_stacks is not None and method == 'auto':
-                        q_prev = prev_stacks[str(dim)]['Q'][idx].float()
-                    q, d = linalg.batched_eigh(
-                        local, method, clip=0.0, q_prev=q_prev,
-                        polish_iters=kfac.eigh_polish_iters)
-                    entry['Q'][idx] = q
-                    entry['d'][idx] = d
-                    if 'inv' in entry:
-                        entry['inv'][idx] = linalg.eigen_side_inverse(
-                            q, d, damping)
-                else:
-                    entry['inv'][idx] = kernels.damped_inverse_stack(
-                        local, damping, bucket_method,
-                        iters=kfac.newton_iters)
+            entry = {key: torch.zeros((n, dim) if key == 'd'
+                                      else (n, dim, dim), device=dev)
+                     for key in self._stack_keys(dim)}
+            groups = (list(self._chunk_cells[dim].values()) if pipelined
+                      else [(self._cells[dim], self._cell_idx[dim])]
+                      if self._cells[dim] else [])
+            for cells, idx in groups:
+                out = self._decompose(dim, cells, idx, factors, damping,
+                                      prev_stacks)
+                for key, t in out.items():
+                    entry[key][idx] = t
             stacks[str(dim)] = entry
         group = self.groups.inv_group
         if group is not None:
@@ -616,8 +818,78 @@ class DistributedKFAC:
         idt = kfac.inv_dtype
         stacks = {d: {k: t.to(idt) for k, t in e.items()}
                   for d, e in stacks.items()}
-        diag_inv = {name: linalg.get_elementwise_inverse(
-            factors[name]['A'].float(), damping).to(idt)
+        diag_inv = {name: self._diag_inverse(factors, name, damping)
+                    for name in self.assignment.diag_layers}
+        return {'inv_stacks': stacks, 'diag_inv': diag_inv}
+
+    def _stack_keys(self, dim: int) -> tuple[str, ...]:
+        """The row-stack keys of a bucket: ``Q`` and ``d`` for eigen
+        (with ``inv`` where a mixed layer bakes its eigen side), ``inv``
+        for baked ones."""
+        if not eigen_family(self.kfac.method_for_dim(dim)):
+            return ('inv',)
+        return ('Q', 'd', 'inv') if self._bucket_mixed.get(dim) else ('Q', 'd')
+
+    def _decompose(self, dim: int, cells: list, idx, factors: dict,
+                   damping, prev_stacks: dict | None) -> dict:
+        """Decompose the factors of ``cells`` (``(in-row slot, key)``) as
+        one stack: ``{stack key: (len(cells), ...) fp32}``; ``idx`` (their
+        slots, a device index) picks the warm polish's previous bases."""
+        kfac = self.kfac
+        method = linalg.resolve_eigh_method(kfac.eigh_method)
+        bucket_method = kfac.method_for_dim(dim)
+        local = torch.stack([factors[name][side].float()
+                             for _, (name, side) in cells])
+        if not eigen_family(bucket_method):
+            return {'inv': kernels.damped_inverse_stack(
+                local, damping, bucket_method, iters=kfac.newton_iters)}
+        q_prev = None
+        if prev_stacks is not None and method == 'auto':
+            q_prev = prev_stacks[str(dim)]['Q'][idx].float()
+        q, d = linalg.batched_eigh(local, method, clip=0.0, q_prev=q_prev,
+                                   polish_iters=kfac.eigh_polish_iters)
+        out = {'Q': q, 'd': d}
+        if self._bucket_mixed.get(dim):
+            out['inv'] = linalg.eigen_side_inverse(q, d, damping)
+        return out
+
+    def _diag_inverse(self, factors: dict, name: str, damping):
+        return linalg.get_elementwise_inverse(
+            factors[name]['A'].float(), damping).to(self.kfac.inv_dtype)
+
+    def _fire_chunk(self, factors: dict, damping, prev_stacks: dict,
+                    prev_diag: dict, chunk: int) -> dict:
+        """Chunk ``chunk`` of a pipelined firing (:meth:`update_inverses`):
+        the row's fired slots on a zeroed fp32 stack, one masked-sum
+        ``all_reduce`` over the row, written into copies of the stored
+        stacks at the fired slots."""
+        dev = self.device
+        parts, targets = [], []
+        for dim, (cells, idx, pos, fired) in self._chunk_rows[chunk].items():
+            sub = {key: torch.zeros((len(fired), dim) if key == 'd'
+                                    else (len(fired), dim, dim), device=dev)
+                   for key in self._stack_keys(dim)}
+            if cells:
+                out = self._decompose(dim, cells, idx, factors, damping,
+                                      prev_stacks)
+                for key, t in out.items():
+                    sub[key][pos] = t
+            for key, t in sub.items():
+                parts.append(t)
+                targets.append((dim, key, fired))
+        group = self.groups.inv_group
+        if group is not None and parts:
+            parts = _all_reduce_sum(parts, group)
+        idt = self.kfac.inv_dtype
+        stacks = {d: dict(e) for d, e in prev_stacks.items()}
+        for (dim, key, fired), t in zip(targets, parts):
+            stored = stacks[str(dim)][key].clone()
+            stored[fired] = t.to(idt)
+            stacks[str(dim)][key] = stored
+        diag_inv = {
+            name: (self._diag_inverse(factors, name, damping)
+                   if self._chunk_plan['diag'][name] == chunk
+                   else prev_diag[name])
             for name in self.assignment.diag_layers}
         return {'inv_stacks': stacks, 'diag_inv': diag_inv}
 
@@ -706,9 +978,13 @@ class DistributedKFAC:
              damping=None, lr=None, factor_decay=None,
              factor_update_freq=None, inv_update_freq=None,
              factor_update: bool | None = None,
-             inv_update: bool | None = None) -> tuple[dict, dict]:
+             inv_update: bool | None = None,
+             inv_chunk: int | None = None,
+             factor_reduce: bool = False,
+             factor_snapshot: bool = False) -> tuple[dict, dict]:
         """One distributed K-FAC update, ``(preconditioned_grads,
-        new_state)``, with ``KFAC.step``'s cadence semantics. ``grads``
+        new_state)``, with ``KFAC.step``'s cadence semantics and flags
+        (``inv_chunk``, ``factor_reduce``, ``factor_snapshot``). ``grads``
         must already be averaged over the world; ``captures`` are this
         rank's own."""
         kfac = self.kfac
@@ -719,19 +995,72 @@ class DistributedKFAC:
         i_freq = (kfac.inv_update_freq if inv_update_freq is None
                   else inv_update_freq)
         step = state['step']
-        if factor_update is None:
-            factor_update = step % f_freq == 0
-        if inv_update is None:
-            inv_update = step % i_freq == 0
-        factors = (self.update_factors(
-            state, self.local_factor_contribs(captures), factor_decay)
-            if factor_update else state['factors'])
-        inverses = (self.update_inverses(factors, damping,
-                                         state['inv_stacks'])
-                    if inv_update else {k: state[k]
-                                        for k in ('inv_stacks', 'diag_inv')})
+        overlap = {}
+        if kfac.deferred_factor_reduction:
+            if factor_update is None:
+                raise ValueError(
+                    'deferred_factor_reduction requires static cadence '
+                    'flags (Python-bool factor_update/factor_reduce) — '
+                    'the window-boundary reduce is static program '
+                    'structure, like inv_chunk')
+            acc, decay = state['factor_accum'], state['accum_decay']
+            if factor_update:
+                acc, decay = self.accumulate_factors(state, captures,
+                                                     factor_decay)
+            if factor_reduce:
+                factors = self.reduce_factors(state, acc, decay)
+                acc = {n: {k: torch.zeros_like(t) for k, t in e.items()}
+                       for n, e in acc.items()}
+                decay = torch.ones((), dtype=torch.float32,
+                                   device=self.device)
+            else:
+                factors = state['factors']
+            overlap = {'factor_accum': acc, 'accum_decay': decay}
+        else:
+            if factor_reduce:
+                raise ValueError('factor_reduce requires '
+                                 'deferred_factor_reduction=True')
+            if factor_update is None:
+                factor_update = step % f_freq == 0
+            factors = (self.update_factors(
+                state, self.local_factor_contribs(captures), factor_decay)
+                if factor_update else state['factors'])
+        fire_factors = factors
+        if kfac.inv_staleness:
+            if inv_update is None:
+                raise ValueError(
+                    'inv_staleness=1 requires static cadence flags '
+                    '(the frozen-snapshot firing schedule is static '
+                    'program structure, like inv_chunk)')
+            fire_factors = (factors if factor_snapshot or inv_update
+                            else state['frozen_factors'])
+            overlap['frozen_factors'] = fire_factors
+        elif factor_snapshot:
+            raise ValueError('factor_snapshot requires inv_staleness=1')
+        if inv_chunk is not None:
+            k = kfac.inv_pipeline_chunks
+            if inv_update:
+                raise ValueError(
+                    'inv_chunk is mutually exclusive with '
+                    'inv_update=True (a monolithic firing already '
+                    'covers every chunk)')
+            if not 0 <= inv_chunk < k:
+                raise ValueError(f'{inv_chunk=} out of range for '
+                                 f'inv_pipeline_chunks={k}')
+            inverses = self.update_inverses(
+                fire_factors, damping, state['inv_stacks'], chunk=inv_chunk,
+                prev_diag=state['diag_inv'])
+            chunk_phase = (inv_chunk + 1) % k
+        else:
+            if inv_update is None:
+                inv_update = step % i_freq == 0
+            inverses = (self.update_inverses(fire_factors, damping,
+                                             state['inv_stacks'])
+                        if inv_update else {k: state[k] for k in
+                                            ('inv_stacks', 'diag_inv')})
+            chunk_phase = 0 if inv_update else state['inv_chunk_phase']
         new_state = {'step': step + 1, 'factors': factors, **inverses,
-                     'inv_chunk_phase': 0}
+                     'inv_chunk_phase': chunk_phase, **overlap}
         return self.precondition(new_state, grads, damping, lr), new_state
 
     # -- checkpointing -------------------------------------------------
@@ -743,11 +1072,16 @@ class DistributedKFAC:
     def state_dict(self, state: dict, include_inverses: bool = True
                    ) -> dict:
         """Checkpointable state: step and factors (the same on every
-        rank) and, with ``include_inverses``, this rank's row stacks with
+        rank), the firing-schedule state where its knob is on (this
+        rank's own accumulator, ``frozen_factors``) and, with
+        ``include_inverses``, this rank's row stacks with
         the grid position they belong to (and ``seq_parallel``) and the
         embeddings' diagonal inverses."""
         out = {'step': state['step'], 'factors': state['factors'],
                'inv_chunk_phase': state.get('inv_chunk_phase', 0)}
+        for key in OVERLAP_KEYS:
+            if key in state:
+                out[key] = state[key]
         if include_inverses:
             out['inv_stacks'] = state['inv_stacks']
             out['diag_inv'] = state['diag_inv']
@@ -763,7 +1097,8 @@ class DistributedKFAC:
         every slot this rank decomposes holds a nonzero basis; otherwise
         every rank recomputes its inverses from the factors
         (:meth:`recompute_inverses`). Factors and inverses take the
-        ``KFAC``'s storage dtypes.
+        ``KFAC``'s storage dtypes; the firing-schedule state is restored
+        as ``KFAC.load_state_dict`` restores it.
         """
         state = self.init_state()
         if set(sd['factors']) != set(state['factors']):
@@ -775,6 +1110,7 @@ class DistributedKFAC:
                    for n, f in sd['factors'].items()}
         state = {**state, 'step': int(sd['step']), 'factors': factors,
                  'inv_chunk_phase': int(sd.get('inv_chunk_phase', 0))}
+        state = overlay_overlap_state(state, sd)
         saved = sd.get('inv_stacks')
         ok = (saved is not None and sd.get('inv_layout') == self._layout()
               and set(sd.get('diag_inv', ())) == set(state['diag_inv'])

@@ -8,9 +8,10 @@ The step keeps the JAX package's functional form
 
 over plain dicts of tensors, so a test can compare the state key by key.
 ``state`` is ``{'step': int, 'factors': {layer: {'A', 'G'}}, 'inverses':
-{layer: {...}}, 'inv_chunk_phase': 0}``; ``grads`` maps parameter names
-(``model.named_parameters()``) to gradients, and unregistered parameters
-pass through unchanged. Each step returns new factor / inverse tensors
+{layer: {...}}, 'inv_chunk_phase': int}`` (plus ``factor_accum`` /
+``accum_decay`` and ``frozen_factors`` with their knobs); ``grads`` maps
+parameter names (``model.named_parameters()``) to gradients, and
+unregistered parameters pass through unchanged. Each step returns new factor / inverse tensors
 rather than updating the old ones in place.
 
 On the main path hand-written CUDA kernels do the work (``ops.kernels``):
@@ -43,6 +44,15 @@ one factor pair) follow the JAX ``KFAC``, as do the reduced-precision
 knobs ``factor_dtype``, ``inv_dtype``, ``capture_dtype`` and
 ``precond_compute_dtype`` (bf16 storage is blended and decomposed in
 fp32, and rounded once on the way back).
+
+The firing schedule follows the JAX package too: ``inv_pipeline_chunks``
+spreads a firing over ``k`` cost-balanced chunks of the window
+(:meth:`KFAC.inverse_chunk_plan`), ``inv_staleness=1`` decomposes a
+snapshot of the window head's factors (``frozen_factors``),
+``deferred_factor_reduction`` folds the factor steps into a local
+accumulator (``factor_accum``, ``accum_decay``) that the window head
+applies, and ``factor_batch_fraction`` thins the factor statistics within
+the step (:func:`capture.subsample_captures`).
 """
 
 from __future__ import annotations
@@ -58,9 +68,11 @@ from distributed_kfac_pytorch_tpu_torch import resolve_device, \
     set_fp32_precision
 from distributed_kfac_pytorch_tpu_torch import layers as L
 from distributed_kfac_pytorch_tpu_torch.capture import CONV2D, EMBEDDING, \
-    KFAC_REDUCE, LINEAR, KFACCapture
+    KFAC_REDUCE, LINEAR, KFACCapture, subsample_captures
 from distributed_kfac_pytorch_tpu_torch.ops import factors as F
 from distributed_kfac_pytorch_tpu_torch.ops import kernels, linalg
+from distributed_kfac_pytorch_tpu_torch.parallel.placement import \
+    load_balance
 from distributed_kfac_pytorch_tpu_torch.sharing import approx
 
 class CommMethod(enum.Enum):
@@ -95,13 +107,8 @@ NOT_PORTED = {
     'use_eigen_decomp': None,
     'inv_lowrank_rank': 0,
     'inv_lowrank_dim_threshold': 2048,
-    'factor_batch_fraction': 1.0,
     'precond_bucketing': True,
-    'inv_pipeline_chunks': 1,
-    'inv_pipeline_costs': None,
-    'deferred_factor_reduction': False,
     'hierarchical_reduce': False,
-    'inv_staleness': 0,
     'trainable': None,
     'collect_metrics': False,
     'nonfinite_guard': False,
@@ -191,6 +198,24 @@ class KFAC:
       fused_factor_contraction / fused_precondition: route the factor
         contraction + EMA and the bucketed preconditioning through their
         CUDA kernels (default True).
+      factor_batch_fraction: the fraction of the batch rows the factor
+        statistics read, in (0, 1] (``capture.subsample_captures``; the
+        gradients always see the whole batch).
+      inv_pipeline_chunks: fire the inverses in ``k`` cost-balanced
+        chunks (:meth:`inverse_chunk_plan`), chunk ``j`` at phase ``j *
+        inv_update_freq / k`` of each window (``step(inv_chunk=j)``;
+        ``training.engine.cadence_flags``); ``k`` must divide
+        ``inv_update_freq``. Step 0 fires monolithically.
+      inv_pipeline_costs: measured ``{dim: ms}`` of a whole firing's size
+        buckets, in place of the ``dim^3`` proxy; it must cover every
+        dense factor dim.
+      deferred_factor_reduction: factor steps fold into a local
+        accumulator; the window head (``step(factor_reduce=True)``)
+        applies it to the factors, one collective per window under
+        ``parallel.DistributedKFAC``.
+      inv_staleness: 0, or 1: window heads snapshot the factors
+        (``step(factor_snapshot=True)``) and the chunks fire from that
+        snapshot one step after their phase.
       symmetry_aware_comm: average only each factor's packed triangle
         across ranks (``ops.factors.pack_symmetric``), about half the
         bytes; read by ``parallel.DistributedKFAC``.
@@ -220,9 +245,14 @@ class KFAC:
                  newton_iters: int = 100,
                  factor_dtype: Any = None,
                  factor_compute_dtype: Any = None,
+                 factor_batch_fraction: float = 1.0,
                  inv_dtype: Any = torch.float32,
                  capture_dtype: Any = 'auto',
                  precond_compute_dtype: Any = None,
+                 inv_pipeline_chunks: int = 1,
+                 inv_pipeline_costs: dict | None = None,
+                 deferred_factor_reduction: bool = False,
+                 inv_staleness: int = 0,
                  kfac_approx: Any = 'expand',
                  tied_embeddings: bool | None = None,
                  skip_layers: str | Sequence[str] | None = None,
@@ -244,6 +274,41 @@ class KFAC:
                 'inv_update_freq is not a multiple of factor_update_freq: '
                 'some inverse updates will reuse stale factors '
                 f'({inv_update_freq=} {factor_update_freq=})')
+        if inv_pipeline_chunks < 1:
+            raise ValueError(
+                f'{inv_pipeline_chunks=} must be >= 1')
+        if inv_pipeline_chunks > 1:
+            if inv_update_freq % inv_pipeline_chunks != 0:
+                raise ValueError(
+                    'inv_pipeline_chunks must divide inv_update_freq '
+                    'so chunk phases land on whole steps '
+                    f'({inv_pipeline_chunks=} {inv_update_freq=})')
+            stride = inv_update_freq // inv_pipeline_chunks
+            if stride % factor_update_freq != 0:
+                warnings.warn(
+                    'inv_update_freq/inv_pipeline_chunks is not a '
+                    'multiple of factor_update_freq: some chunk '
+                    'firings will reuse stale factors '
+                    f'({inv_update_freq=} {inv_pipeline_chunks=} '
+                    f'{factor_update_freq=})')
+        if inv_staleness not in (0, 1):
+            raise ValueError(
+                f'{inv_staleness=} must be 0 or 1 (one-window-stale '
+                'off-critical-path inverses; deeper staleness is not '
+                'supported)')
+        if inv_staleness == 1:
+            k = max(1, inv_pipeline_chunks)
+            if inv_update_freq % k != 0 or inv_update_freq // k < 2:
+                raise ValueError(
+                    'inv_staleness=1 fires chunk j at phase '
+                    'j*(inv_update_freq/inv_pipeline_chunks)+1 of each '
+                    'window, which needs inv_update_freq/'
+                    'inv_pipeline_chunks >= 2 so the shifted phases '
+                    f'stay inside the window ({inv_update_freq=} '
+                    f'{inv_pipeline_chunks=})')
+        if not 0.0 < factor_batch_fraction <= 1.0:
+            raise ValueError(
+                f'{factor_batch_fraction=} must be in (0, 1]')
         if inverse_method not in ('auto', 'eigen', 'cholesky', 'newton'):
             raise ValueError("inverse_method must be 'auto', 'eigen', "
                              f"'cholesky' or 'newton', got {inverse_method!r}")
@@ -299,6 +364,12 @@ class KFAC:
         self.inv_dtype = torch.float32 if inv_dtype is None else inv_dtype
         self.capture_dtype = capture_dtype
         self.precond_compute_dtype = precond_compute_dtype
+        self.factor_batch_fraction = factor_batch_fraction
+        self.inv_pipeline_chunks = inv_pipeline_chunks
+        self.inv_pipeline_costs = (dict(inv_pipeline_costs)
+                                   if inv_pipeline_costs else None)
+        self.deferred_factor_reduction = bool(deferred_factor_reduction)
+        self.inv_staleness = int(inv_staleness)
         self.fused_factor_contraction = bool(fused_factor_contraction)
         self.fused_precondition = bool(fused_precondition)
         self.symmetry_aware_comm = bool(symmetry_aware_comm)
@@ -315,9 +386,12 @@ class KFAC:
         fields = ('damping', 'factor_decay', 'factor_update_freq',
                   'inv_update_freq', 'kl_clip', 'lr', 'inverse_method',
                   'auto_eigen_max_dim', 'auto_large_method', 'eigh_method',
-                  'eigh_polish_iters', 'newton_iters', 'factor_dtype',
+                  'eigh_polish_iters', 'newton_iters',
+                  'factor_batch_fraction', 'factor_dtype',
                   'factor_compute_dtype', 'inv_dtype', 'capture_dtype',
-                  'precond_compute_dtype', 'kfac_approx', 'tied_embeddings',
+                  'precond_compute_dtype', 'inv_pipeline_chunks',
+                  'deferred_factor_reduction', 'inv_staleness',
+                  'kfac_approx', 'tied_embeddings',
                   'symmetry_aware_comm', 'assignment_strategy',
                   'comm_method', 'grad_worker_fraction',
                   'fused_factor_contraction', 'fused_precondition')
@@ -356,6 +430,73 @@ class KFAC:
         """One side eigen and the other baked (a diagonal A is neither)."""
         ma, mg = methods
         return ma is not None and eigen_family(ma) != eigen_family(mg)
+
+    # ------------------------------------------------------------------
+    # Pipelined inverse firing: the chunk plan
+    # ------------------------------------------------------------------
+
+    @property
+    def pipelined_firing(self) -> bool:
+        """Whether firings run chunk by chunk: ``inv_pipeline_chunks >
+        1``, or ``inv_staleness == 1``, which fires even one chunk
+        mid-window from the frozen snapshot (at ``k == 1`` the plan is one
+        chunk holding every item)."""
+        return self.inv_pipeline_chunks > 1 or self.inv_staleness == 1
+
+    def inverse_chunk_items(self, factors: dict
+                            ) -> list[tuple[tuple, float]]:
+        """Cost-weighted inverse work items of a pipelined firing, in
+        registration order: one per dense factor matrix, ``('mat', layer,
+        'A'|'G')``, and one per embedding's diagonal A, ``('diag',
+        layer)``. A matrix costs the ``dim^3`` proxy
+        (``linalg.decomposition_cost``), or with ``inv_pipeline_costs``
+        its bucket's measured ms split evenly over the bucket's matrices;
+        a diagonal A costs its dim, rescaled into the measured unit
+        (:func:`measured_unit_scale`, which requires the measurement to
+        cover every dense factor dim)."""
+        dense_count: dict[int, int] = {}
+        for name, spec in self.specs.items():
+            f = factors[name]
+            if spec.kind != EMBEDDING:
+                a = int(f['A'].shape[-1])
+                dense_count[a] = dense_count.get(a, 0) + 1
+            g = int(f['G'].shape[-1])
+            dense_count[g] = dense_count.get(g, 0) + 1
+        measured = self.inv_pipeline_costs or {}
+        proxy_scale = measured_unit_scale(measured, dense_count,
+                                          'dense factor dim')
+
+        def unit_cost(dim: int) -> float:
+            if dim in measured:
+                return float(measured[dim]) / dense_count[dim]
+            return linalg.decomposition_cost(dim)
+
+        items: list[tuple[tuple, float]] = []
+        for name, spec in self.specs.items():
+            f = factors[name]
+            a_dim = int(f['A'].shape[-1])
+            g_dim = int(f['G'].shape[-1])
+            if spec.kind == EMBEDDING:
+                items.append((('diag', name), proxy_scale * a_dim))
+            else:
+                items.append((('mat', name, 'A'), unit_cost(a_dim)))
+            items.append((('mat', name, 'G'), unit_cost(g_dim)))
+        return items
+
+    def inverse_chunk_plan(self, factors: dict) -> dict[tuple, int]:
+        """``{item: chunk}``: the greedy LPT packing
+        (:func:`plan_inverse_chunks`) of :meth:`inverse_chunk_items` onto
+        ``inv_pipeline_chunks`` chunks, deterministic for a model. Raises
+        if there are more chunks than items."""
+        items = self.inverse_chunk_items(factors)
+        k = self.inv_pipeline_chunks
+        if k > len(items):
+            raise ValueError(
+                f'inv_pipeline_chunks={k} exceeds the {len(items)} '
+                'inverse work items of this model (dense factor '
+                'matrices + grouped/diagonal layers); lower it to at '
+                f'most {len(items)}')
+        return plan_inverse_chunks(items, k)
 
     def observe_specs(self) -> None:
         """Resolve the specs against what the recorded calls showed (each
@@ -416,8 +557,28 @@ class KFAC:
                     entry[f'{side}_inv'] = torch.zeros(
                         (dim, dim), dtype=idt, device=dev)
             inverses[name] = entry
-        return {'step': 0, 'factors': factors, 'inverses': inverses,
-                'inv_chunk_phase': 0}
+        state = {'step': 0, 'factors': factors, 'inverses': inverses,
+                 'inv_chunk_phase': 0}
+        return self._seed_overlap_state(state)
+
+    def _seed_overlap_state(self, state: dict) -> dict:
+        """Add the fresh state of the firing-schedule knobs: under
+        ``deferred_factor_reduction`` a zero accumulator of the factors'
+        layout and dtype (``factor_accum``) and its decay product
+        ``accum_decay`` (an fp32 device scalar, 1); under
+        ``inv_staleness=1`` the snapshot ``frozen_factors`` (the factors
+        themselves). With chunks, the plan is checked here, once."""
+        factors = state['factors']
+        if self.deferred_factor_reduction:
+            state['factor_accum'] = _zeros_like(factors)
+            state['accum_decay'] = torch.ones((), dtype=torch.float32,
+                                              device=self.device)
+        if self.inv_staleness:
+            state['frozen_factors'] = {n: dict(f)
+                                       for n, f in factors.items()}
+        if self.pipelined_firing:
+            self.inverse_chunk_plan(factors)
+        return state
 
     # ------------------------------------------------------------------
     # Factor update
@@ -456,41 +617,83 @@ class KFAC:
 
     def update_factors(self, state: dict, captures: dict,
                        factor_decay=None) -> dict:
-        """EWMA-update every factor from one batch's captures: the sides
+        """EWMA-update every factor from one batch's captures
+        (:meth:`blend_factors` into ``state['factors']``)."""
+        alpha = self.factor_decay if factor_decay is None else factor_decay
+        return self.blend_factors(state['factors'], captures, alpha)
+
+    def blend_factors(self, old_factors: dict, captures: dict,
+                      alpha, quad_scale: float = 1.0) -> dict:
+        """``alpha * old + (1 - alpha) * contribution`` of one batch for
+        every factor of ``old_factors`` (the running factors, or the
+        deferred accumulator): the captures are thinned to
+        ``factor_batch_fraction`` first; the sides
         :meth:`fused_factor_inputs` names run the factor contraction + EMA
         kernel (with ``fused_factor_contraction``), the rest the stock
         per-call factors (a tied embedding's attend-site terms added) +
-        :func:`F.update_running_avg`. Both keep the storage dtype: the
-        fp32 blend of the widened factor, rounded once."""
-        alpha = self.factor_decay if factor_decay is None else factor_decay
+        :func:`F.update_running_avg`. Both keep ``old``'s dtype: the fp32
+        blend of the widened value, rounded once. ``quad_scale``
+        multiplies the output-grad-quadratic parts (``G``, a tied
+        embedding's ``A_g2``; ``parallel.DistributedKFAC`` folds a rank's
+        contribution with ``1/W^2``)."""
         missing = [n for n in self.specs if n not in captures]
         if missing:
             raise ValueError(f'no captures for registered layers {missing} '
                              '(capture with intercept=True on factor '
                              'steps)')
         self.observe_specs()
+        captures = subsample_captures(captures, self.factor_batch_fraction)
         cdt = self.factor_compute_dtype
         new_factors = {}
         for name, spec in self.specs.items():
-            entry, old = captures[name], state['factors'][name]
+            entry, old = captures[name], old_factors[name]
             fused = (self.fused_factor_inputs(spec, entry)
                      if self.fused_factor_contraction else {})
             res = {}
-            for side, new in self.stock_contribs(spec, entry, fused).items():
+            for side, new in self.stock_contribs(spec, entry, fused,
+                                                 quad_scale).items():
                 res[side] = F.update_running_avg(new, old[side], alpha)
             for side, (x, scale, has_bias) in fused.items():
+                if side == 'G' and quad_scale != 1.0:
+                    scale = (x.shape[0] if scale is None
+                             else scale) / quad_scale
                 res[side] = kernels.factor_ema(
                     x, old[side], alpha, scale=scale, has_bias=has_bias,
                     compute_dtype=cdt)
             new_factors[name] = {side: res[side] for side in 'AG'}
         return new_factors
 
-    def stock_contribs(self, spec, entry: dict, skip=()) -> dict:
+    def accumulate_factors(self, state: dict, captures: dict,
+                           factor_decay=None) -> tuple[dict, Any]:
+        """Deferred-reduction factor step: ``acc <- alpha acc + (1 -
+        alpha) c`` (:meth:`blend_factors` into ``state['factor_accum']``,
+        K1's fused blend with the accumulator as ``old``) and ``decay <-
+        alpha decay``; the running factors are left alone. Returns
+        ``(new_accum, new_decay)``."""
+        alpha = self.factor_decay if factor_decay is None else factor_decay
+        return (self.blend_factors(state['factor_accum'], captures, alpha),
+                alpha * state['accum_decay'])
+
+    def reduce_factors(self, state: dict, acc: dict, decay) -> dict:
+        """Deferred-reduction window head: ``F <- decay F + acc``, in fp32
+        and rounded once to the storage dtype (by EMA linearity the eager
+        recursion's value, up to the order of the fp32 sums)."""
+        return {name: {side: (decay * old[side].float()
+                              + acc[name][side].float()).to(old[side].dtype)
+                       for side in 'AG'}
+                for name, old in state['factors'].items()}
+
+    def stock_contribs(self, spec, entry: dict, skip=(),
+                       quad_scale: float = 1.0) -> dict:
         """One batch's contribution to each side of one layer not in
         ``skip``: the per-call factors summed, plus a tied embedding's
-        attend-site terms (``layers.compute_tied_factor_extras``)."""
+        attend-site terms (``layers.compute_tied_factor_extras``); the
+        output-grad-quadratic parts (``G``, ``A_g2``) times
+        ``quad_scale``."""
         cdt = self.factor_compute_dtype
         extras = L.compute_tied_factor_extras(spec, entry, compute_dtype=cdt)
+        if extras is not None and quad_scale != 1.0:
+            extras = {**extras, 'A_g2': quad_scale * extras['A_g2']}
         out = {}
         for side, compute, calls, extra in (
                 ('A', L.compute_a_factor, entry['a'], 'A_g2'),
@@ -498,6 +701,8 @@ class KFAC:
             if side in skip:
                 continue
             new = compute(spec, calls, compute_dtype=cdt)
+            if side == 'G' and quad_scale != 1.0:
+                new = quad_scale * new
             out[side] = new if extras is None else new + extras[extra]
         return out
 
@@ -537,9 +742,12 @@ class KFAC:
         return out
 
     def update_inverses(self, state: dict, damping=None, *,
-                        warm: bool = True) -> dict:
-        """Recompute every inverse slot from the factors (a monolithic
-        firing) at ``damping`` (default: the constructor's).
+                        warm: bool = True, chunk: int | None = None) -> dict:
+        """Recompute the inverse slots from the factors at ``damping``
+        (default: the constructor's): every slot (a monolithic firing),
+        or with ``chunk`` only the items :meth:`inverse_chunk_plan` gives
+        that chunk, every other slot passing through from
+        ``state['inverses']`` as it is.
 
         Eigen sides are decomposed per size bucket; ``warm`` seeds the
         polish from the bases stored in ``state['inverses']``, and
@@ -547,38 +755,63 @@ class KFAC:
         library eigh instead. The other sides get damped inverses per
         size bucket. A mixed layer's eigen side is also baked into
         ``{side}_inv`` at this damping, so both of its sides carry the
-        firing-time damping. Every decomposition runs in fp32 on the
-        widened factors (the polish seeded from the stored basis widened);
-        the results are stored in ``inv_dtype``.
+        damping of the firing that computed them (under chunks, each
+        side's own chunk). Every decomposition runs in fp32 on the
+        widened factors (the polish seeded from the stored basis
+        widened); the results are stored in ``inv_dtype``.
+
+        While firings are pipelined even a monolithic firing decomposes
+        chunk by chunk, each chunk's size buckets stacked as that chunk's
+        own firing stacks them: a window of chunk firings over frozen
+        factors then gives the monolithic firing's bits by construction,
+        whatever the batched kernels do with another batch count.
         """
         damping = self.damping if damping is None else damping
+        plan = (self.inverse_chunk_plan(state['factors'])
+                if self.pipelined_firing else None)
+        if chunk is not None and plan is None:
+            raise ValueError('inv_chunk requires inv_pipeline_chunks > 1 '
+                             'or inv_staleness=1')
+
+        def fires(key: tuple) -> bool:
+            return chunk is None or plan[key] == chunk
+
         eigen_mats, inv_mats, prev, sides = {}, {}, {}, {}
         for name in self.specs:
             f = state['factors'][name]
             sides[name] = self._side_methods(f['A'].shape[-1],
                                              f['G'].shape[-1], name)
             for side, method in zip('AG', sides[name]):
-                key = f'{name}/{side}'
-                if method is None:
+                if method is None or not fires(('mat', name, side)):
                     continue
+                key = f'{name}/{side}'
                 if eigen_family(method):
                     eigen_mats[key] = f[side]
                     prev[key] = state['inverses'][name][f'Q{side}']
                 else:
                     inv_mats[key] = f[side]
-        eigs = self._bucketed_eigh(eigen_mats, prev if warm else None)
-        invs = self._bucketed_inverse(inv_mats, damping)
+        prev = prev if warm else None
+        eigs, invs = {}, {}
+        for mats in _by_chunk(eigen_mats, plan):
+            eigs.update(self._bucketed_eigh(mats, prev))
+        for mats in _by_chunk(inv_mats, plan):
+            invs.update(self._bucketed_inverse(mats, damping))
         idt = self.inv_dtype
         new_inv = {}
         for name in self.specs:
             mixed = self._is_mixed(sides[name])
-            entry = {}
+            entry = dict(state['inverses'][name]) if chunk is not None \
+                else {}
             for side, method in zip('AG', sides[name]):
                 key = f'{name}/{side}'
                 if method is None:
-                    entry[f'{side}_inv'] = linalg.get_elementwise_inverse(
-                        state['factors'][name][side].float(), damping
-                    ).to(idt)
+                    if fires(('diag', name)):
+                        entry[f'{side}_inv'] = \
+                            linalg.get_elementwise_inverse(
+                                state['factors'][name][side].float(),
+                                damping).to(idt)
+                elif not fires(('mat', name, side)):
+                    continue
                 elif eigen_family(method):
                     q, d = eigs[key]
                     entry[f'Q{side}'] = q.to(idt)
@@ -678,12 +911,22 @@ class KFAC:
              damping=None, lr=None, factor_decay=None,
              factor_update_freq=None, inv_update_freq=None,
              factor_update: bool | None = None,
-             inv_update: bool | None = None) -> tuple[dict, dict]:
+             inv_update: bool | None = None,
+             inv_chunk: int | None = None,
+             factor_reduce: bool = False,
+             factor_snapshot: bool = False) -> tuple[dict, dict]:
         """One K-FAC update: ``(preconditioned_grads, new_state)``.
 
-        ``factor_update`` / ``inv_update`` are the static cadence flags
-        (the caller's schedule, ``training.engine.cadence_flags``); left
-        None they follow ``state['step']`` modulo the update frequencies.
+        ``factor_update`` / ``inv_update`` are the cadence flags (the
+        caller's schedule, ``training.engine.cadence_flags``); left None
+        they follow ``state['step']`` modulo the update frequencies.
+        ``inv_chunk=j`` fires chunk ``j`` of a pipelined firing (not with
+        ``inv_update=True``). ``factor_reduce`` (with
+        ``deferred_factor_reduction``) applies the accumulator to the
+        factors this step; ``factor_snapshot`` (with ``inv_staleness=1``)
+        refreshes ``frozen_factors`` from this step's factors, which the
+        chunk firings decompose (a monolithic firing snapshots, then
+        fires). The deferred and stale schedules need explicit flags.
         """
         damping = self.damping if damping is None else damping
         lr = self.lr if lr is None else lr
@@ -692,29 +935,94 @@ class KFAC:
         i_freq = (self.inv_update_freq if inv_update_freq is None
                   else inv_update_freq)
         step = state['step']
-        if factor_update is None:
-            factor_update = step % f_freq == 0
-        if inv_update is None:
-            inv_update = step % i_freq == 0
-        factors = (self.update_factors(state, captures, factor_decay)
-                   if factor_update else state['factors'])
-        state_f = {**state, 'factors': factors}
-        inverses = (self.update_inverses(state_f, damping) if inv_update
-                    else state['inverses'])
-        state_i = {**state_f, 'inverses': inverses, 'inv_chunk_phase': 0}
+        if self.deferred_factor_reduction:
+            if factor_update is None:
+                raise ValueError(
+                    'deferred_factor_reduction requires static cadence '
+                    'flags (Python-bool factor_update/factor_reduce) — '
+                    'the window-boundary reduce is static program '
+                    'structure, like inv_chunk')
+            acc, decay = state['factor_accum'], state['accum_decay']
+            if factor_update:
+                acc, decay = self.accumulate_factors(state, captures,
+                                                     factor_decay)
+            if factor_reduce:
+                factors = self.reduce_factors(state, acc, decay)
+                acc = _zeros_like(acc)
+                decay = torch.ones((), dtype=torch.float32,
+                                   device=self.device)
+            else:
+                factors = state['factors']
+            state_f = {**state, 'factors': factors, 'factor_accum': acc,
+                       'accum_decay': decay}
+        else:
+            if factor_reduce:
+                raise ValueError('factor_reduce requires '
+                                 'deferred_factor_reduction=True')
+            if factor_update is None:
+                factor_update = step % f_freq == 0
+            factors = (self.update_factors(state, captures, factor_decay)
+                       if factor_update else state['factors'])
+            state_f = {**state, 'factors': factors}
+        if self.inv_staleness:
+            if inv_update is None:
+                raise ValueError(
+                    'inv_staleness=1 requires static cadence flags '
+                    '(the frozen-snapshot firing schedule is static '
+                    'program structure, like inv_chunk)')
+            frozen = (state_f['factors'] if factor_snapshot or inv_update
+                      else state['frozen_factors'])
+            state_f = {**state_f, 'frozen_factors': frozen}
+            fire_state = {**state_f, 'factors': frozen}
+        else:
+            if factor_snapshot:
+                raise ValueError('factor_snapshot requires inv_staleness=1')
+            fire_state = state_f
+        if inv_chunk is not None:
+            k = self.inv_pipeline_chunks
+            if inv_update:
+                raise ValueError(
+                    'inv_chunk is mutually exclusive with '
+                    'inv_update=True (a monolithic firing already '
+                    'covers every chunk)')
+            if not 0 <= inv_chunk < k:
+                raise ValueError(f'{inv_chunk=} out of range for '
+                                 f'inv_pipeline_chunks={k}')
+            inverses = self.update_inverses(fire_state, damping,
+                                            chunk=inv_chunk)
+            chunk_phase = (inv_chunk + 1) % k
+        else:
+            if inv_update is None:
+                inv_update = step % i_freq == 0
+            inverses = (self.update_inverses(fire_state, damping)
+                        if inv_update else state['inverses'])
+            chunk_phase = 0 if inv_update else state['inv_chunk_phase']
+        state_i = {**state_f, 'inverses': inverses,
+                   'inv_chunk_phase': chunk_phase}
         precond = self.precondition(state_i, grads, damping, lr)
         return precond, {**state_i, 'step': step + 1}
 
     # ------------------------------------------------------------------
-    # Checkpoint helpers
+    # Introspection and checkpoint helpers
     # ------------------------------------------------------------------
+
+    def memory_usage(self, state: dict) -> dict[str, int]:
+        """Bytes held by the factors and by the inverses of ``state``
+        (the JAX ``KFAC.memory_usage``)."""
+        return {'factors': _nbytes(state['factors']),
+                'inverses': _nbytes(state['inverses'])}
 
     def state_dict(self, state: dict, include_inverses: bool = False
                    ) -> dict:
-        """Checkpointable dict: factors + step, inverses optional (they
-        are recomputed on load otherwise, as in the JAX package)."""
+        """Checkpointable dict: factors + step, the firing-schedule state
+        where its knob is on (``factor_accum`` with ``accum_decay``,
+        ``frozen_factors``), inverses optional (they are recomputed on
+        load otherwise, as in the JAX package)."""
         out = {'step': state['step'], 'factors': state['factors'],
                'inv_chunk_phase': state.get('inv_chunk_phase', 0)}
+        for key in OVERLAP_KEYS:
+            if key in state:
+                out[key] = state[key]
         if include_inverses:
             out['inverses'] = state['inverses']
         return out
@@ -727,7 +1035,9 @@ class KFAC:
         factors (library eigh for eigen sides, damped inverses at the
         constructor's damping for the others). Factors and inverses take
         this ``KFAC``'s storage dtypes (a bf16 state round-trips as it
-        is)."""
+        is). The firing-schedule state is restored by
+        :func:`overlay_overlap_state`: a bundle without it loads with the
+        JAX package's defaults."""
         state = self.init_state()
         if set(sd['factors']) != set(state['factors']):
             raise ValueError(
@@ -738,6 +1048,7 @@ class KFAC:
                    for n, f in sd['factors'].items()}
         state = {**state, 'step': int(sd['step']), 'factors': factors,
                  'inv_chunk_phase': int(sd.get('inv_chunk_phase', 0))}
+        state = overlay_overlap_state(state, sd)
         saved = sd.get('inverses')
         compatible = saved is not None and all(
             set(saved.get(n, ())) == set(state['inverses'][n])
@@ -754,12 +1065,115 @@ class KFAC:
         return state
 
 
+#: State keys of the firing-schedule knobs, present only with their knob
+#: on (``deferred_factor_reduction``: the first two; ``inv_staleness``:
+#: the last).
+OVERLAP_KEYS = ('factor_accum', 'accum_decay', 'frozen_factors')
+
+
+def _same_layout(saved, fresh: dict) -> bool:
+    """Whether a saved ``{layer: {side: tensor}}`` dict has the layers,
+    sides and shapes of ``fresh``."""
+    return (isinstance(saved, dict) and set(saved) == set(fresh)
+            and all(set(saved[n]) == set(fresh[n])
+                    and all(tuple(saved[n][k].shape)
+                            == tuple(fresh[n][k].shape) for k in fresh[n])
+                    for n in fresh))
+
+
+def overlay_overlap_state(state: dict, sd: dict) -> dict:
+    """Restore ``factor_accum`` / ``accum_decay`` and ``frozen_factors``
+    from a checkpoint into a rebuilt ``state`` that carries them (the
+    JAX ``_overlay_overlap_state``). Each is taken when the checkpoint
+    has it in the same layout, the accumulator only together with its
+    decay product; otherwise the fresh seeds stand: a zero accumulator
+    with decay 1, and a snapshot of the restored factors. Tensors take
+    the state's devices and dtypes."""
+    out = dict(state)
+
+    def like(saved: dict, fresh: dict) -> dict:
+        return {n: {k: t.to(fresh[n][k].device, fresh[n][k].dtype)
+                    for k, t in e.items()} for n, e in saved.items()}
+
+    if 'frozen_factors' in state:
+        frozen = sd.get('frozen_factors')
+        out['frozen_factors'] = (
+            like(frozen, state['factors'])
+            if _same_layout(frozen, state['factors'])
+            else {n: dict(f) for n, f in out['factors'].items()})
+    if 'factor_accum' in state:
+        acc = sd.get('factor_accum')
+        if 'accum_decay' in sd and _same_layout(acc, state['factor_accum']):
+            out['factor_accum'] = like(acc, state['factor_accum'])
+            out['accum_decay'] = torch.as_tensor(
+                sd['accum_decay'], dtype=torch.float32,
+                device=state['accum_decay'].device).reshape(())
+    return out
+
+
+def _nbytes(tree: dict) -> int:
+    """Bytes of every tensor in a ``{layer: {key: tensor}}`` dict."""
+    return sum(t.numel() * t.element_size()
+               for e in tree.values() for t in e.values())
+
+
 def eigen_family(method: str) -> bool:
     """True for methods whose inverse slots are an eigenpair ``(Q, d)``
     read through the eigen precondition path (in the port, ``'eigen'``;
     the JAX package's low-rank method is not ported). A layer is *mixed*
     when exactly one side is eigen-family."""
     return method == 'eigen'
+
+
+def _by_chunk(mats: dict, plan: dict | None) -> list[dict]:
+    """``mats`` (keyed ``layer/side``) split by the chunk each matrix's
+    item falls in, in chunk order; ``[mats]`` without a plan."""
+    if plan is None:
+        return [mats]
+    out: dict[int, dict] = {}
+    for key, m in mats.items():
+        name, side = key.rsplit('/', 1)
+        out.setdefault(plan[('mat', name, side)], {})[key] = m
+    return [out[j] for j in sorted(out)]
+
+
+def _zeros_like(factors: dict) -> dict:
+    return {n: {k: torch.zeros_like(t) for k, t in f.items()}
+            for n, f in factors.items()}
+
+
+def measured_unit_scale(measured: dict, dim_counts: dict[int, int],
+                        scope: str) -> float:
+    """The ms-per-``dim^3`` factor of a measured chunk-cost dict
+    (``{dim: whole-bucket ms}``; ``dim_counts``: the work units of each
+    dim), which converts the remaining proxy costs (diagonal items) into
+    the measured unit; 1.0 when nothing is measured. Measured ms and the
+    proxy are different units, so the measurement must cover every dim of
+    ``dim_counts`` (raises otherwise). Shared by the single-device and
+    the distributed planner."""
+    if not measured:
+        return 1.0
+    missing = sorted(d for d in dim_counts if d not in measured)
+    if missing:
+        raise ValueError(
+            f'inv_pipeline_costs must cover every {scope} (missing '
+            f'{missing}): measured ms and the dim^3 proxy are '
+            'different units and cannot be mixed in one chunk packing '
+            '— pass the full bucket_parts of a firing leg')
+    proxy_total = sum(linalg.decomposition_cost(d, c)
+                      for d, c in dim_counts.items())
+    ms_total = sum(float(measured[d]) for d in dim_counts)
+    return ms_total / proxy_total if ms_total > 0 else 1.0
+
+
+def plan_inverse_chunks(items: Sequence[tuple[Any, float]],
+                        k: int) -> dict[Any, int]:
+    """``{key: chunk}`` of ``(key, cost)`` items packed onto ``k`` chunks
+    by greedy LPT (``parallel.placement.load_balance``, the balancer of
+    the KAISA work placement); the single-device and distributed planners
+    share it."""
+    assignment = load_balance(k, [cost for _, cost in items])
+    return {key: chunk for (key, _), chunk in zip(items, assignment)}
 
 
 def _size_buckets(mats: dict):

@@ -24,6 +24,9 @@ sinks and profiling, gradient accumulation, multi-slice meshes and fp16
 precise-BN, and the K-FAC knobs listed in ``preconditioner.NOT_PORTED``.
 ``--bf16-factors``, ``--bf16-inverses`` and ``--bf16-precond`` set the
 K-FAC reduced-precision knobs as the JAX ``OptimConfig`` does.
+``--inv-pipeline-chunks``, ``--inv-staleness``,
+``--deferred-factor-reduction`` and ``--factor-batch-fraction`` set the
+firing-schedule knobs of the same names (``engine.add_schedule_args``).
 
 :func:`train` is the programmatic entry point.
 """
@@ -85,6 +88,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--skip-layers', nargs='+', default=[])
     engine.add_distributed_args(p)
     engine.add_precision_args(p)
+    engine.add_schedule_args(p)
     # Port-only flags.
     p.add_argument('--device', default='cuda')
     p.add_argument('--synthetic-size', type=int, default=2048)
@@ -138,7 +142,8 @@ def train(args_or_config=None, device='cuda') -> dict:
         damping_schedule=args.damping_decay,
         kfac_update_freq_alpha=args.kfac_update_freq_alpha,
         kfac_update_freq_schedule=args.kfac_update_freq_decay,
-        **engine.precision_config(args))
+        **engine.precision_config(args),
+        **engine.schedule_config(args))
     optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
         model, cfg, device=dev)
     state = engine.make_train_state(

@@ -25,6 +25,9 @@ K-FAC knobs listed in ``preconditioner.NOT_PORTED``. ``--bf16-factors``,
 ``--bf16-inverses`` and ``--bf16-precond`` set the K-FAC reduced-precision
 knobs as the JAX ``OptimConfig`` does (tracked config 5 is ``--model
 resnet152 --bf16-factors --inverse-method eigen``).
+``--inv-pipeline-chunks``, ``--inv-staleness``,
+``--deferred-factor-reduction`` and ``--factor-batch-fraction`` set the
+firing-schedule knobs of the same names (``engine.add_schedule_args``).
 
 :func:`train` is the programmatic entry point.
 """
@@ -88,6 +91,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--skip-layers', nargs='+', default=[])
     engine.add_distributed_args(p)
     engine.add_precision_args(p)
+    engine.add_schedule_args(p)
     # Port-only flags.
     p.add_argument('--device', default='cuda')
     p.add_argument('--synthetic-size', type=int, default=512)
@@ -142,7 +146,8 @@ def train(args_or_config=None, device='cuda') -> dict:
         damping_schedule=args.damping_decay,
         kfac_update_freq_alpha=args.kfac_update_freq_alpha,
         kfac_update_freq_schedule=args.kfac_update_freq_decay,
-        **engine.precision_config(args))
+        **engine.precision_config(args),
+        **engine.schedule_config(args))
     optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
         model, cfg, device=dev)
     state = engine.make_train_state(

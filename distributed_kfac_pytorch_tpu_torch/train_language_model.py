@@ -67,6 +67,9 @@ record its wall time) and ``--quiet``.
 ``--bf16-factors``, ``--bf16-inverses`` and ``--bf16-precond`` set the
 K-FAC reduced-precision knobs as the JAX ``OptimConfig`` does
 (``engine.add_precision_args``).
+``--inv-pipeline-chunks``, ``--inv-staleness``,
+``--deferred-factor-reduction`` and ``--factor-batch-fraction`` set the
+firing-schedule knobs of the same names (``engine.add_schedule_args``).
 
 Not ported yet (a set flag raises by name): multi-slice meshes
 (``--num-slices``) and fp16 (``--fp16``). Also not
@@ -161,6 +164,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help='triangle-packed factor all_reduce (about half '
                         'the bytes)')
     engine.add_precision_args(p)
+    engine.add_schedule_args(p)
     p.add_argument('--fp16', action='store_true',
                    help='not ported (raises)')
     # Port-only flags.
@@ -222,7 +226,8 @@ def train(args_or_config=None, device='cuda') -> dict:
         eigh_method=args.eigh_method,
         eigh_polish_iters=args.eigh_polish_iters,
         kfac_approx=args.kfac_approx, skip_layers=skip,
-        **engine.precision_config(args))
+        **engine.precision_config(args),
+        **engine.schedule_config(args))
     optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
         model, cfg, device=dev)
     state = engine.make_train_state(model, optimizer, kfac,

@@ -1,6 +1,7 @@
 """Train / eval epoch loops over the K-FAC step (PyTorch port of
-``distributed_kfac_pytorch_tpu/training/engine.py``: the classic cadence
-of ``cadence_flags``, ``train_epoch`` and ``evaluate``), the epoch loop
+``distributed_kfac_pytorch_tpu/training/engine.py``: the cadence of
+``cadence_flags``, classic, pipelined, stale and deferred, ``train_epoch``
+and ``evaluate``), the epoch loop
 the image CLIs share (``fit``) and the language-model step and loop of
 the LM CLI (``lm_train_step``, ``fit_lm``, ``evaluate_lm``).
 
@@ -30,6 +31,7 @@ import argparse
 import dataclasses
 import math
 import time
+import warnings
 from typing import Any, Callable, Iterable
 
 import numpy as np
@@ -47,25 +49,102 @@ from distributed_kfac_pytorch_tpu_torch.training.utils import Metric, \
 
 
 def cadence_flags(step: int, factor_update_freq, inv_update_freq,
-                  inv_pipeline_chunks: int = 1) -> dict:
-    """Static cadence flags for one host step: factors every
-    ``factor_update_freq`` steps, the whole inverse update every
-    ``inv_update_freq`` steps (the JAX package's classic schedule)."""
-    if int(inv_pipeline_chunks) != 1:
-        raise NotImplementedError(
-            'pipelined inverse firing (inv_pipeline_chunks > 1) is not '
-            'ported yet')
-    return {'factor_update': step % int(factor_update_freq) == 0,
-            'inv_update': step % int(inv_update_freq) == 0}
+                  inv_pipeline_chunks: int = 1, *,
+                  deferred_reduce: bool = False,
+                  inv_staleness: int = 0) -> dict:
+    """Cadence flags for one host step (the JAX package's schedule).
+
+    Factors every ``factor_update_freq`` steps. The whole inverse update
+    every ``inv_update_freq`` steps; with ``inv_pipeline_chunks = k > 1``
+    chunk ``j`` fires at phase ``j * inv_update_freq / k`` of each window
+    (``inv_chunk``) instead, except at step 0, which fires monolithically
+    (every inverse slot must exist before its first use).
+    ``inv_staleness=1``: window heads past step 0 take a factor snapshot
+    (``factor_snapshot``) instead of firing, and chunk ``j`` fires at
+    phase ``j * stride + 1`` from it (``k == 1``: the whole firing at
+    phase 1). ``deferred_reduce`` adds ``factor_reduce`` on window heads.
+    A chunk count that does not divide ``inv_update_freq`` (or staleness
+    whose shifted phases do not fit) fires monolithically.
+    """
+    f_freq, i_freq = int(factor_update_freq), int(inv_update_freq)
+    k = int(inv_pipeline_chunks)
+    phase = step % i_freq
+    flags = {'factor_update': step % f_freq == 0}
+    if int(inv_staleness) == 1 and i_freq % k == 0 and i_freq // k >= 2:
+        stride = i_freq // k
+        flags['inv_update'] = step == 0
+        if step != 0:
+            if phase == 0:
+                flags['factor_snapshot'] = True
+            elif (phase - 1) % stride == 0 and (phase - 1) // stride < k:
+                flags['inv_chunk'] = (phase - 1) // stride
+    elif k > 1 and i_freq % k == 0:
+        stride = i_freq // k
+        flags['inv_update'] = step == 0
+        if step != 0 and phase % stride == 0:
+            flags['inv_chunk'] = phase // stride
+    else:
+        flags['inv_update'] = step % i_freq == 0
+    if deferred_reduce:
+        flags['factor_reduce'] = phase == 0
+    return flags
 
 
 def fired_stage(flags: dict) -> str | None:
-    """Most expensive stage a step's flags fire: 'inverse' > 'factor'."""
+    """Most expensive stage a step's flags fire: 'inverse' > 'chunk<j>' >
+    'reduce' (the deferred window-head factor reduction) > 'factor' >
+    None; a firing step that also reduces is 'inverse+reduce' or
+    'chunk<j>+reduce'."""
+    reduce_tag = '+reduce' if flags.get('factor_reduce') else ''
     if flags.get('inv_update'):
-        return 'inverse'
+        return 'inverse' + reduce_tag
+    if flags.get('inv_chunk') is not None:
+        return f"chunk{flags['inv_chunk']}" + reduce_tag
+    if flags.get('factor_reduce'):
+        return 'reduce'
     if flags.get('factor_update'):
         return 'factor'
     return None
+
+
+def epoch_schedule(kfac, inv_update_freq) -> dict:
+    """The ``cadence_flags`` keywords of one epoch at ``inv_update_freq``
+    for a ``KFAC`` or ``DistributedKFAC`` (the JAX ``train_epoch``
+    rules): a chunk count that does not divide the epoch's frequency
+    (after ``--kfac-update-freq-decay``, say) fires monolithically for
+    the epoch, and staleness whose shifted phases do not fit (``freq /
+    chunks < 2``) fires eagerly and monolithically at the window heads;
+    each warns."""
+    if kfac is None:
+        return {}
+    kfac = getattr(kfac, 'kfac', kfac)      # a DistributedKFAC's KFAC
+    k = kfac.inv_pipeline_chunks
+    freq = int(inv_update_freq)
+    staleness = kfac.inv_staleness
+    chunks = k
+    if chunks > 1 and freq % chunks != 0:
+        warnings.warn(
+            f'inv_pipeline_chunks={chunks} does not divide this '
+            f'epoch\'s inv_update_freq={freq} — firing '
+            'monolithically for the epoch')
+        chunks = 1
+    if staleness and (freq % k != 0 or freq // k < 2):
+        warnings.warn(
+            f'inv_staleness=1 with inv_pipeline_chunks={k} does not fit '
+            f'this epoch\'s inv_update_freq={freq} (needs freq/chunks '
+            '>= 2) — firing eagerly/monolithically at window heads '
+            'for the epoch')
+        staleness, chunks = 0, 1
+    return {'inv_pipeline_chunks': chunks, 'inv_staleness': staleness,
+            'deferred_reduce': kfac.deferred_factor_reduction}
+
+
+def kfac_step_flags(flags: dict) -> dict:
+    """The keywords of ``KFAC.step`` / ``DistributedKFAC.step`` in a
+    step's cadence flags."""
+    return {k: flags[k] for k in ('factor_update', 'inv_update',
+                                  'inv_chunk', 'factor_reduce',
+                                  'factor_snapshot') if k in flags}
 
 
 @dataclasses.dataclass
@@ -127,8 +206,7 @@ def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
         grads, state.kfac_state = kfac.step(
             state.kfac_state, grads, captures,
             damping=hyper.get('damping'), lr=hyper['lr'],
-            factor_update=flags['factor_update'],
-            inv_update=flags['inv_update'])
+            **kfac_step_flags(flags))
     for name, p in state.model.named_parameters():
         if name in grads:
             p.grad = grads[name]
@@ -155,11 +233,13 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
     state.model.train()
     meters: dict[str, Metric] = {}
     losses, fired, step_ms = [], [], []
+    schedule = (epoch_schedule(state.kfac, hyper['inv_update_freq'])
+                if state.kfac is not None else {})
     for xb, yb in batches:
         if max_steps is not None and state.step >= max_steps:
             break
         flags = (cadence_flags(state.step, hyper['factor_update_freq'],
-                               hyper['inv_update_freq'])
+                               hyper['inv_update_freq'], **schedule)
                  if state.kfac is not None else {})
         if state.distributed:
             local = launch.process_local_slice(len(xb))
@@ -197,7 +277,7 @@ def fit(state: TrainState, train_data, val_data, *, lr_schedule,
 
     Returns ``{'device', 'steps', 'losses', 'fired', 'step_ms', 'train',
     'val', 'seconds', 'state'}``: per-step losses and fired stages
-    ('inverse', 'factor' or None), per-step wall ms when ``time_steps``,
+    (:func:`fired_stage`), per-step wall ms when ``time_steps``,
     the last epoch's train / val metrics and the final ``TrainState``.
     """
     device = torch.device(device)
@@ -272,6 +352,40 @@ def add_precision_args(p: argparse.ArgumentParser) -> None:
                         'accumulation; KFAC precond_compute_dtype); with '
                         '--bf16-inverses the stored inverses are read as '
                         'they are stored')
+
+
+def add_schedule_args(p: argparse.ArgumentParser) -> None:
+    """The JAX CLIs' firing-schedule flags (all three CLIs), read by
+    :func:`schedule_config`."""
+    p.add_argument('--inv-pipeline-chunks', type=int, default=1,
+                   help='pipeline the per-firing inverse work into K '
+                        'cost-balanced chunks fired across the cadence '
+                        'window (step-time uniformity); 1 = reference '
+                        'parity (monolithic firing). K must divide '
+                        "--kfac-update-freq and not exceed the model's "
+                        'inverse work items')
+    p.add_argument('--deferred-factor-reduction', action='store_true',
+                   help='accumulate factor statistics locally and '
+                        'reduce across replicas once per cadence window '
+                        'instead of every factor step (exact by EMA '
+                        'linearity; off keeps the eager per-step '
+                        'reduction)')
+    p.add_argument('--inv-staleness', type=int, default=0, choices=[0, 1],
+                   help='1 = one-window-stale inverses: decompositions '
+                        "fire across the window's plain steps from the "
+                        'frozen window-head factor snapshot (needs '
+                        '--kfac-update-freq / --inv-pipeline-chunks >= 2)')
+    p.add_argument('--factor-batch-fraction', type=float, default=1.0,
+                   help='fraction of the batch used for factor '
+                        'statistics (1.0 = reference parity; <1 thins '
+                        'the covariance sample within the step)')
+
+
+def schedule_config(args: argparse.Namespace) -> dict:
+    """The ``OptimConfig`` fields of :func:`add_schedule_args`' flags."""
+    return {key: getattr(args, key) for key in
+            ('inv_pipeline_chunks', 'deferred_factor_reduction',
+             'inv_staleness', 'factor_batch_fraction')}
 
 
 def precision_config(args: argparse.Namespace) -> dict:
@@ -424,8 +538,7 @@ def lm_train_step(state: TrainState, ids: torch.Tensor,
         grads, state.kfac_state = state.kfac.step(
             state.kfac_state, grads, captures,
             damping=hyper.get('damping'), lr=hyper['lr'],
-            factor_update=flags['factor_update'],
-            inv_update=flags['inv_update'])
+            **kfac_step_flags(flags))
     if grad_clip:
         grads = clip_by_global_norm(grads, grad_clip)
     for name, p in model.named_parameters():
@@ -503,6 +616,8 @@ def fit_lm(state: TrainState, train_ids: np.ndarray, val_ids: np.ndarray,
         windows = datasets.bptt_batches(train_ids, batch_size, bptt,
                                         shuffle_offset=True, seed=seed,
                                         epoch=epoch)
+        schedule = (epoch_schedule(state.kfac, hyper['inv_update_freq'])
+                    if state.kfac is not None else {})
         state.model.train()
         epoch_losses = []
         for xb, yb in windows:
@@ -516,7 +631,7 @@ def fit_lm(state: TrainState, train_ids: np.ndarray, val_ids: np.ndarray,
                     len(xb), xb.shape[1], seq_parallel)
                 xb, yb, offset = xb[rows, cols], yb[rows, cols], cols.start
             flags = (cadence_flags(state.step, hyper['factor_update_freq'],
-                                   hyper['inv_update_freq'])
+                                   hyper['inv_update_freq'], **schedule)
                      if state.kfac is not None else {})
             x = torch.as_tensor(xb, dtype=torch.long, device=device)
             y = torch.as_tensor(yb, dtype=torch.long, device=device)

@@ -65,6 +65,14 @@ class OptimConfig:
     bf16_factors: bool = False
     bf16_inverses: bool = False
     bf16_precond: bool = False
+    # The firing schedule (KFAC's knobs of the same names): the fraction
+    # of the batch the factor statistics read, inverse firings in k
+    # chunks over the window, the window-head factor reduction, and
+    # one-window-stale inverses. The defaults are the classic schedule.
+    factor_batch_fraction: float = 1.0
+    inv_pipeline_chunks: int = 1
+    deferred_factor_reduction: bool = False
+    inv_staleness: int = 0
     skip_layers: Sequence[str] = ()
     # Distribution (read by parallel.DistributedKFAC).
     comm_method: str = 'comm-opt'
@@ -116,6 +124,10 @@ def get_optimizer(model: torch.nn.Module, cfg: OptimConfig, device='cuda'):
                        else torch.float32),
             precond_compute_dtype=(torch.bfloat16 if cfg.bf16_precond
                                    else None),
+            factor_batch_fraction=cfg.factor_batch_fraction,
+            inv_pipeline_chunks=cfg.inv_pipeline_chunks,
+            deferred_factor_reduction=cfg.deferred_factor_reduction,
+            inv_staleness=cfg.inv_staleness,
             eigh_method=cfg.eigh_method,
             eigh_polish_iters=cfg.eigh_polish_iters,
             kfac_approx=cfg.kfac_approx,

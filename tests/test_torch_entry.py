@@ -164,16 +164,26 @@ def test_import_leaves_jax_unloaded():
 
 
 @pytest.mark.parametrize('knob,value', [
-    ('inv_pipeline_chunks', 2), ('deferred_factor_reduction', True),
-    ('inv_staleness', 1), ('inv_lowrank_rank', 16),
-    ('factor_batch_fraction', 0.5), ('collect_metrics', True),
+    ('inv_lowrank_rank', 16), ('collect_metrics', True),
     ('precond_bucketing', False), ('inv_lowrank_dim_threshold', 1024),
     ('hierarchical_reduce', True), ('nonfinite_guard', True),
-    ('inv_pipeline_costs', {64: 1.0})])
+    ('trainable', ('fc',)), ('use_eigen_decomp', True)])
 def test_unported_knobs_raise_by_name(knob, value):
     with pytest.raises(NotImplementedError, match=knob):
         KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
              **{knob: value})
+
+
+@pytest.mark.parametrize('knob,value', [
+    ('inv_pipeline_chunks', 2), ('deferred_factor_reduction', True),
+    ('inv_staleness', 1), ('factor_batch_fraction', 0.5),
+    ('inv_pipeline_costs', {64: 1.0})])
+def test_schedule_knobs_are_kfac_attributes(knob, value):
+    from distributed_kfac_pytorch_tpu_torch.preconditioner import NOT_PORTED
+    assert knob not in NOT_PORTED and len(NOT_PORTED) == 8
+    kfac = KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
+                inv_update_freq=10, **{knob: value})
+    assert getattr(kfac, knob) == value
 
 
 def test_distribution_knobs_are_kfac_attributes():
@@ -256,12 +266,17 @@ def test_unknown_knob_is_a_type_error():
 
 
 def test_cadence_flags_classic_schedule():
+    from distributed_kfac_pytorch_tpu.training import engine as jengine
     flags = [engine.cadence_flags(s, 1, 10) for s in range(21)]
     assert all(f['factor_update'] for f in flags)
     assert [s for s, f in enumerate(flags) if f['inv_update']] == [0, 10,
                                                                      20]
-    with pytest.raises(NotImplementedError):
-        engine.cadence_flags(0, 1, 10, inv_pipeline_chunks=2)
+    chunked = [engine.cadence_flags(s, 1, 10, inv_pipeline_chunks=2)
+               for s in range(21)]
+    assert chunked == [jengine.cadence_flags(s, 1, 10, 2)
+                       for s in range(21)]
+    assert [(s, f['inv_chunk']) for s, f in enumerate(chunked)
+            if 'inv_chunk' in f] == [(5, 1), (10, 0), (15, 1), (20, 0)]
 
 
 def test_registration_and_declines():
