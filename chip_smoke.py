@@ -87,12 +87,12 @@ Phases (any failure exits nonzero and prints no result line):
      finite losses, no jacobi_eigh launch;
  11. ResNet-32 under ``--eigh-method jacobi``: 11 steps, finite losses,
      jacobi_eigh 9 per firing besides phase 5's per-step launches;
- 12. the result (printed after phases 13-26): a JSON line of
+ 12. the result (printed after phases 13-28): a JSON line of
      per-kernel numbers (K1-K3 per ResNet-50 step, K4 per ResNet-50
      firing, K5 per LSTM firing, under ``transformer_xl`` K1 and K3 per
      XL step and K4 per XL firing, and under ``resnet152_config5`` K1-K3
      per config-5 step; launches summed over phases 5-7, 9-11 and
-     13-26), the card line, then ``{"ok": true, "device":
+     13-28), the card line, then ``{"ok": true, "device":
      {...}}`` as the last line;
  13. distributed, NCCL at world size 1: phase 6's ResNet-50 run through
      ``train_imagenet_resnet.train`` inside a one-rank NCCL group
@@ -264,7 +264,43 @@ Phases (any failure exits nonzero and prints no result line):
      1e-5); every rank's K4 / K5 launches per firing equal what its
      assignment and the plan give (``DistributedKFAC.firing_launches``),
      and every rank's factors equal the others' by digest; each rank runs
-     under a timeout.
+     under a timeout;
+ 27. checkpoint, preemption and verified resume at ResNet-50's published
+     widths: the ImageNet CLI through its module entry point, each run a
+     subprocess with a timeout (three on the card at once), 224 px, batch
+     64, 512 synthetic images (8 steps per epoch), 2 epochs, factors every
+     step, inverses every 10, ``--checkpoint-steps 4
+     --checkpoint-freq 1 --deterministic``, each case in a fresh
+     ``--checkpoint-dir`` under a temporary directory: an uninterrupted
+     run; ``KFAC_CHAOS=preempt@5`` (exit 75, ``steps/5`` written) and its
+     relaunch (resumes at epoch 0, offset 5); ``crash@9`` (exit 137,
+     step bundles 4 and 8) and its relaunch (resumes at global step 8);
+     ``preempt@5`` again with ``--inv-pipeline-chunks 5
+     --deferred-factor-reduction --inverse-method newton`` against its
+     own uninterrupted run. Every resumed run's final epoch bundle
+     equals its uninterrupted run's in every tensor and scalar, file by
+     file, bit for bit (``--deterministic`` makes two uninterrupted runs
+     equal; ``--determinism-probe`` shows what it buys and costs); then
+     the bundle's bytes, a blocking save (the manager's checksum and
+     write), the checksum alone and the restore (read, verify, onto the
+     card), each timed twice, each run's wall and step-save times, and
+     the wall time;
+ 28. checkpoint and resume distributed: the CIFAR CLI on 4 gloo ranks of
+     ``cuda:0`` (subprocesses, ``--dist-backend gloo``), ResNet-32 at full
+     width, HYBRID_OPT 2 x 2, batch 128, 1024 synthetic images, 2 epochs
+     of 8 steps,
+     ``--inv-pipeline-chunks 2 --deferred-factor-reduction --eigh-method
+     jacobi``, inverses every 4, ``--checkpoint-steps 3``: an
+     uninterrupted run; a real SIGTERM to rank 0 alone once it has saved
+     step 6, after which all four ranks drain at one global step (exit
+     75) into one bundle holding every ``kfac_rank<r>.pt``, and the
+     relaunch ends equal to the uninterrupted run file by file;
+     ``KFAC_CHAOS=corrupt-ckpt@6,crash@7`` (exit 137), whose relaunch
+     quarantines label 6 with its reason, resumes from label 3 and ends
+     equal. The uninterrupted world and the two interrupted ones run at
+     once, then the two relaunches; rank 0's step-save ms under the group
+     are printed. The phases' launches come from each run's
+     ``--launch-counts`` file and join the result line's.
 
 ``--quick`` builds with ``-Xptxas -v`` and runs only the correctness
 checks of phases 3, 4 and 8 (a first call after a kernel change).
@@ -273,7 +309,13 @@ ResNet-50 (``newton``), LSTM (``jacobi``), Transformer-XL (``auto``) and
 config-5 steps (ResNet-152 ``eigen``, bf16 and fp32 factors) (device
 time by kernel category, the device's busy share; it fails
 if the ResNet-50 steps show no K2 time or the XL steps no K1 time). Details of every case go to
-``chiprun_out/chip_smoke.json`` next to this script.
+``chiprun_out/chip_smoke.json`` next to this script. ``--resume-only``
+builds and runs phases 27-28 alone (no result line;
+``chiprun_out/chip_smoke_resume.json``). ``--determinism-probe`` (alone
+or before ``--resume-only``'s phases) runs phase 27's uninterrupted
+ResNet-50 twice without ``--deterministic`` and compares the final
+bundles, then times phase 6's steps with cuDNN's deterministic
+algorithms off, on, on and off.
 """
 
 from __future__ import annotations
@@ -285,6 +327,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -3669,6 +3712,502 @@ def run_seq_gloo_world(card: str) -> dict:
     return _run_lm_gloo('seq', 22, card)
 
 
+# ---------------------------------------------------------------------------
+# Phases 27-28: checkpoint, preemption and verified resume
+# ---------------------------------------------------------------------------
+
+# Phase 27: the ImageNet CLI at ResNet-50's published widths, 224 px, batch
+# 64, 512 synthetic images (8 steps per epoch), 2 epochs, factors every
+# step, inverses every 10, step bundles every 4 steps, an epoch bundle
+# every epoch, deterministic cuDNN. The pipelined case adds 5 chunks, the
+# deferred reduction and --inverse-method newton (K4 fires after the
+# resume).
+RESUME_R50 = ('--model', 'resnet50', '--image-size', '224', '--batch-size',
+              '64', '--synthetic-size', '512', '--epochs', '2',
+              '--kfac-cov-update-freq', '1', '--kfac-update-freq', '10',
+              '--checkpoint-steps', '4', '--checkpoint-freq', '1',
+              '--deterministic')
+RESUME_PIPELINED = ('--inv-pipeline-chunks', '5',
+                    '--deferred-factor-reduction', '--inverse-method',
+                    'newton')
+# Subprocesses of phase 27 on the card at once (each ResNet-50 run holds
+# about 15 GB), and each run's time limit.
+RESUME_CONCURRENCY, RESUME_TIMEOUT = 3, 600
+# Phase 28: the CIFAR CLI at ResNet-32's full width on GLOO_WORLD gloo
+# ranks of cuda:0, HYBRID_OPT 2 x 2, batch 128, 1024 synthetic images (8
+# steps per epoch), 2 epochs, 2 chunks and the deferred reduction,
+# inverses every 4, step bundles every 3, the Jacobi eigh (K5).
+RESUME_R32 = ('--model', 'resnet32', '--batch-size', '128',
+              '--synthetic-size', '1024', '--epochs', '2',
+              '--kfac-update-freq', '4', '--comm-method', 'hybrid-opt',
+              '--grad-worker-fraction', '0.5', '--inv-pipeline-chunks', '2',
+              '--deferred-factor-reduction', '--eigh-method', 'jacobi',
+              '--checkpoint-steps', '3', '--checkpoint-freq', '1',
+              '--dist-backend', 'gloo', '--deterministic')
+RESUME_WORLD_TIMEOUT = 300
+
+
+def _resume_env(chaos: str | None = None, **extra) -> dict:
+    env = {k: v for k, v in os.environ.items() if k != 'KFAC_CHAOS'}
+    env.update(PYTHONUNBUFFERED='1', **extra)
+    if chaos:
+        env['KFAC_CHAOS'] = chaos
+    return env
+
+
+def _cli_argv(module: str, flags, directory: Path) -> list:
+    return [sys.executable, '-m', f'distributed_kfac_pytorch_tpu_torch.{module}',
+            *flags, '--checkpoint-dir', str(directory),
+            '--launch-counts', str(directory) + '.launches.{rank}.json']
+
+
+def _launches_of(directory: Path, ranks: int = 1) -> dict:
+    """The launch counts the runs into ``directory`` wrote (summed over
+    ``ranks`` and over the runs read so far: each file is read once)."""
+    total = {}
+    for r in range(ranks):
+        path = Path(f'{directory}.launches.{r}.json')
+        if path.exists():
+            for k, v in json.loads(path.read_text()).items():
+                total[k] = total.get(k, 0) + v
+            path.unlink()
+    return total
+
+
+def _add(total: dict, more: dict) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _bundle_diff(a, b, path='') -> tuple[int, float, list]:
+    """``(leaves that differ, largest |a - b| over float tensors, the
+    first differing paths)`` of two bundle trees."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.resilience import integrity
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return 1, math.inf, [f'{path} keys']
+        n, worst, where = 0, 0.0, []
+        for k in a:
+            if k == integrity.CHECKSUM_KEY:
+                continue
+            dn, dw, dp = _bundle_diff(a[k], b[k], f'{path}/{k}')
+            n, worst, where = n + dn, max(worst, dw), where + dp
+        return n, worst, where[:5]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return 1, math.inf, [path]
+        out = [_bundle_diff(x, y, f'{path}[{i}]')
+               for i, (x, y) in enumerate(zip(a, b))]
+        return (sum(o[0] for o in out), max([o[1] for o in out] or [0.0]),
+                [p for o in out for p in o[2]][:5])
+    if isinstance(a, torch.Tensor):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return 1, math.inf, [path]
+        if torch.equal(a, b):
+            return 0, 0.0, []
+        worst = (float((a.double() - b.double()).abs().max())
+                 if a.is_floating_point() else math.inf)
+        return 1, worst, [path]
+    return (0, 0.0, []) if a == b else (1, math.inf, [path])
+
+
+def _load_bundle_files(directory: Path) -> dict:
+    """Every file of a bundle directory, on the host: ``{name: tree}``."""
+    import torch
+    return {p.name: torch.load(p, map_location='cpu', weights_only=True)
+            for p in sorted(directory.glob('*.pt'))}
+
+
+def _held_to(label: str, got: Path, want: Path) -> dict:
+    """Hold bundle directory ``got`` to ``want`` file by file: equal bit
+    for bit (``--deterministic`` makes two uninterrupted runs on the card
+    equal; ``--determinism-probe`` shows they differ without it), or
+    raise."""
+    a, b = _load_bundle_files(got), _load_bundle_files(want)
+    n, worst, where = _bundle_diff(a, b)
+    log(f'  {label}: {sorted(a)} vs the uninterrupted run: '
+        + ('equal bit for bit' if n == 0 else
+           f'{n} leaves differ, largest |diff| {worst:.3e} at {where}'))
+    if n:
+        raise AssertionError(f'{label}: resumed bundle differs from the '
+                             f'uninterrupted run: {n} leaves, {where}')
+    return {'differing_leaves': n, 'max_abs_diff': worst}
+
+
+def _resumed_line(out: str) -> str:
+    lines = [ln for ln in out.splitlines() if ln.startswith('resumed from')]
+    if len(lines) != 1:
+        raise AssertionError(f'expected one resume line, got {lines}:\n'
+                             f'{out[-3000:]}')
+    return lines[0]
+
+
+def run_resume_resnet50(card: str) -> dict:
+    """Phase 27: ResNet-50 preempted, killed and resumed through the
+    ImageNet CLI's module entry point (each run a subprocess), every
+    resumed final bundle held to its uninterrupted run's; then the
+    bundle's bytes and its save, restore and checksum ms."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix='kfac-resume-'))
+    sem = threading.BoundedSemaphore(RESUME_CONCURRENCY)
+    launches: dict = {}
+    lock = threading.Lock()
+
+    walls: list = []
+
+    def run(name: str, flags=(), chaos=None) -> tuple[int, str]:
+        d = tmp / name
+        with sem:
+            t = time.perf_counter()
+            p = subprocess.run(
+                _cli_argv('train_imagenet_resnet', [*RESUME_R50, *flags], d),
+                cwd=ROOT, env=_resume_env(chaos), capture_output=True,
+                text=True, timeout=RESUME_TIMEOUT)
+            t = time.perf_counter() - t
+        saves = [float(ln.split(' saved in ')[1].split()[0])
+                 for ln in p.stdout.splitlines()
+                 if ln.startswith('checkpoint: step ')]
+        with lock:
+            _add(launches, _launches_of(d))
+            walls.append((name + (f' {chaos}' if chaos else ''), t, saves))
+        return p.returncode, p.stdout + p.stderr
+
+    def keep_final(name: str) -> None:
+        """Only the final epoch bundle is compared: drop the rest."""
+        d = tmp / name
+        shutil.rmtree(d / 'steps', ignore_errors=True)
+        shutil.rmtree(d / '0', ignore_errors=True)
+
+    def uninterrupted(name: str, flags=()) -> dict:
+        rc, out = run(name, flags)
+        if rc != 0:
+            raise AssertionError(f'{name}: exit {rc}\n{out[-4000:]}')
+        keep_final(name)
+        return {'exit': rc}
+
+    def interrupted(name: str, flags, chaos: str, rc_want: int,
+                    labels_want: list, resume_want: str) -> dict:
+        rc, out = run(name, flags, chaos)
+        if rc != rc_want:
+            raise AssertionError(f'{name}: exit {rc}, expected {rc_want}\n'
+                                 f'{out[-4000:]}')
+        labels = sorted(int(n) for n in os.listdir(tmp / name / 'steps')
+                        if n.isdigit())
+        if labels != labels_want:
+            raise AssertionError(f'{name}: step bundles {labels}, expected '
+                                 f'{labels_want}')
+        rc2, out2 = run(name, flags)
+        if rc2 != 0:
+            raise AssertionError(f'{name} relaunch: exit {rc2}\n'
+                                 f'{out2[-4000:]}')
+        line = _resumed_line(out2)
+        if resume_want not in line:
+            raise AssertionError(f'{name}: {line!r}, expected '
+                                 f'{resume_want!r}')
+        keep_final(name)
+        saves = [ln for ln in (out + out2).splitlines()
+                 if ln.startswith('checkpoint:')]
+        return {'exit': rc, 'step_bundles': labels, 'resumed': line,
+                'saves': saves}
+
+    jobs = {
+        'uninterrupted': lambda: uninterrupted('ref'),
+        'uninterrupted_pipelined': lambda: uninterrupted(
+            'ref_pipe', RESUME_PIPELINED),
+        'preempt@5': lambda: interrupted(
+            'preempt', (), 'preempt@5', 75, [4, 5],
+            'step checkpoint 5 (epoch 0, mid-epoch offset 5, global step 5)'),
+        'crash@9': lambda: interrupted(
+            'crash', (), 'crash@9', 137, [4, 8], 'global step 8)'),
+        'preempt@5 pipelined': lambda: interrupted(
+            'preempt_pipe', RESUME_PIPELINED, 'preempt@5', 75, [4, 5],
+            'step checkpoint 5 (epoch 0, mid-epoch offset 5, global step 5)'),
+    }
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {k: pool.submit(fn) for k, fn in jobs.items()}
+        runs = {k: f.result() for k, f in futures.items()}
+    for k in ('preempt@5', 'crash@9', 'preempt@5 pipelined'):
+        log(f'  {k}: exit {runs[k]["exit"]}, step bundles '
+            f'{runs[k]["step_bundles"]}; relaunch {runs[k]["resumed"]}')
+    held = {k: _held_to(k, tmp / name / '1', tmp / ref / '1')
+            for k, name, ref in (('preempt@5', 'preempt', 'ref'),
+                                 ('crash@9', 'crash', 'ref'),
+                                 ('preempt@5 pipelined', 'preempt_pipe',
+                                  'ref_pipe'))}
+    log(f'  each run: wall s, its step saves ms ({RESUME_CONCURRENCY} on '
+        'the card at once): '
+        + '; '.join(f'{n} {t:.1f} {[round(v) for v in sv]}'
+                    for n, t, sv in walls))
+    figures = _bundle_figures(tmp / 'ref', card)
+    seconds = time.perf_counter() - t0
+    log(f'  launches {launches}; phase 27: {seconds:.1f} s wall ({card})')
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {'runs': runs, 'held': held, 'figures': figures,
+            'walls': walls, 'launches': launches, 'seconds': seconds}
+
+
+def run_determinism_probe(card: str) -> dict:
+    """``--determinism-probe``: what ``--deterministic`` buys and costs at
+    phase 27's ResNet-50. Two uninterrupted runs of phase 27's CLI without
+    the flag (at once), their final bundles compared; then phase 6's 12
+    steps timed in this process with cuDNN's deterministic algorithms off,
+    on, on and off."""
+    import shutil
+    import tempfile
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from distributed_kfac_pytorch_tpu_torch import train_imagenet_resnet
+
+    _release()
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix='kfac-determinism-'))
+    flags = [f for f in RESUME_R50 if f != '--deterministic']
+
+    def run(name: str) -> None:
+        p = subprocess.run(
+            _cli_argv('train_imagenet_resnet', flags, tmp / name), cwd=ROOT,
+            env=_resume_env(), capture_output=True, text=True,
+            timeout=RESUME_TIMEOUT)
+        if p.returncode != 0:
+            raise AssertionError(f'{name}: exit {p.returncode}\n'
+                                 f'{(p.stdout + p.stderr)[-4000:]}')
+
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(run, ['a', 'b']))
+    n, worst, where = _bundle_diff(_load_bundle_files(tmp / 'a' / '1'),
+                                   _load_bundle_files(tmp / 'b' / '1'))
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f'  two uninterrupted phase-27 runs without --deterministic: {n} '
+        f'leaves differ, largest |diff| {worst:.3e}, first at {where}')
+    config = _r50_config(epochs=R50_STEPS, inverse_method='newton')
+    ms: dict = {'off': [], 'on': []}
+    for det in (False, True, True, False):
+        torch.backends.cudnn.deterministic = det
+        res = train_imagenet_resnet.train(config, device='cuda')
+        res.pop('state')
+        ms['on' if det else 'off'].append(
+            statistics.median(_step_ms(res)[1]))
+        _release()
+    torch.backends.cudnn.deterministic = False
+    seconds = time.perf_counter() - t0
+    log(f'  phase 6 non-firing ms/step (median of {R50_STEPS - 2}), '
+        f'deterministic cuDNN off {[round(v, 2) for v in ms["off"]]}, on '
+        f'{[round(v, 2) for v in ms["on"]]}; probe {seconds:.1f} s wall '
+        f'({card})')
+    return {'differing_leaves': n, 'max_abs_diff': worst, 'where': where,
+            'nonfiring_ms': ms, 'seconds': seconds}
+
+
+def run_resume_phases(card: str) -> dict:
+    """Phases 27 and 28, with their wall time; this process's cached
+    device memory is released first (the phases' subprocesses share the
+    card)."""
+    import shutil
+    import tempfile
+    import torch
+    _release()
+    t0 = time.perf_counter()
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    log(f'== checkpoint and resume: ResNet-50 at 224 px, batch 64, 2 epochs '
+        f'of 8 steps through the ImageNet CLI (subprocesses, '
+        f'{RESUME_CONCURRENCY} at a time; {free / 2**30:.1f} GiB free in '
+        f'{tempfile.gettempdir()}, '
+        f'{torch.cuda.mem_get_info()[0] / 2**30:.1f} GiB on the card): '
+        'uninterrupted, preempt@5, crash@9, and preempt@5 with 5 chunks, '
+        'the deferred reduction and newton')
+    out = {'resume_resnet50': run_resume_resnet50(card)}
+    log(f'== checkpoint and resume, distributed: ResNet-32, {GLOO_WORLD} '
+        'gloo ranks of the CIFAR CLI on one card, hybrid-opt 2 x 2, 2 '
+        'epochs of 8 steps, jacobi: SIGTERM on rank 0, then '
+        'corrupt-ckpt@6,crash@7 (three worlds at once, then two)')
+    out['resume_gloo_world'] = run_resume_gloo_world(card)
+    seconds = time.perf_counter() - t0
+    log(f'  phases 27-28: {seconds:.1f} s wall ({card})')
+    out['resume_seconds'] = seconds
+    return out
+
+
+def _bundle_figures(directory: Path, card: str) -> dict:
+    """The final ResNet-50 bundle's bytes; the restore (read, verify,
+    onto the card), the checksum alone and the blocking save (the
+    manager's checksum and write), each measured twice."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.resilience import integrity
+    from distributed_kfac_pytorch_tpu_torch.training.checkpoint import \
+        CheckpointManager
+    nbytes = sum(p.stat().st_size for p in (directory / '1').iterdir())
+    mgr = CheckpointManager(str(directory))
+    out = {'bytes': nbytes, 'restore_ms': [], 'checksum_ms': [],
+           'save_ms': []}
+    for i in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tree = mgr.restore(1, map_location='cuda')
+        torch.cuda.synchronize()
+        out['restore_ms'].append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        integrity.tree_checksum(tree)
+        out['checksum_ms'].append((time.perf_counter() - t) * 1e3)
+        writer = CheckpointManager(str(directory / 'write'))
+        t = time.perf_counter()
+        writer.save(i, tree)
+        out['save_ms'].append((time.perf_counter() - t) * 1e3)
+        del tree
+
+    def ms(key):
+        return [round(v, 1) for v in out[key]]
+
+    log(f'  ResNet-50 bundle: {nbytes} bytes; blocking save (checksum, '
+        f'write) ms {ms("save_ms")}; the checksum alone '
+        f'{ms("checksum_ms")}; restore (read, verify, onto the card) ms '
+        f'{ms("restore_ms")} ({card})')
+    return out
+
+
+_PORTS_LOCK = threading.Lock()
+_PORTS_TAKEN: set = set()
+
+
+def _world_run(directory: Path, chaos: str | None = None,
+               sigterm_after: str | None = None, flags=()) -> tuple:
+    """GLOO_WORLD ranks of the CIFAR CLI (module entry point) on cuda:0:
+    ``(exit codes, outputs)``. ``sigterm_after``: send SIGTERM to rank 0
+    alone once its output shows that line."""
+    import signal
+    import socket
+    with _PORTS_LOCK:
+        # Worlds start at once: never hand a free port out twice.
+        port = 0
+        while port == 0 or port in _PORTS_TAKEN:
+            with socket.socket() as s:
+                s.bind(('localhost', 0))
+                port = s.getsockname()[1]
+        _PORTS_TAKEN.add(port)
+    procs = []
+    for rank in range(GLOO_WORLD):
+        env = _resume_env(chaos, RANK=str(rank), WORLD_SIZE=str(GLOO_WORLD),
+                          LOCAL_RANK='0', MASTER_ADDR='localhost',
+                          MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            _cli_argv('train_cifar10_resnet', [*RESUME_R32, *flags],
+                      directory),
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = [[] for _ in procs]
+
+    def drain(i: int) -> None:
+        for line in procs[i].stdout:
+            outs[i].append(line)
+            if i == 0 and sigterm_after and line.startswith(sigterm_after):
+                procs[0].send_signal(signal.SIGTERM)
+
+    readers = [threading.Thread(target=drain, args=(i,), daemon=True)
+               for i in range(len(procs))]
+    for t in readers:
+        t.start()
+    deadline = time.monotonic() + RESUME_WORLD_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for t in readers:
+            t.join(timeout=30)
+    return [p.returncode for p in procs], [''.join(o) for o in outs]
+
+
+def run_resume_gloo_world(card: str) -> dict:
+    """Phase 28: the CIFAR CLI on GLOO_WORLD gloo ranks of the card: a
+    real SIGTERM on rank 0 alone drains every rank at one step into one
+    bundle of every rank's file, and the relaunch ends equal, file by
+    file, to the uninterrupted run; a bundle bit-rotted at step 6, then a
+    crash at step 7: the relaunch quarantines label 6 with its reason and
+    resumes from label 3. The uninterrupted world and the two interrupted
+    ones run at once, then the two relaunches."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from distributed_kfac_pytorch_tpu_torch.training.checkpoint import \
+        RANK_FILE
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix='kfac-resume-world-'))
+    launches: dict = {}
+    out = {}
+    files = ['bundle.pt'] + [RANK_FILE.format(r) for r in range(GLOO_WORLD)]
+
+    def world(name, want_rc, **kw):
+        rcs, outs = _world_run(tmp / name, **kw)
+        if rcs != [want_rc] * GLOO_WORLD:
+            raise AssertionError(f'{name}: exits {rcs}, expected {want_rc}\n'
+                                 f'{outs[0][-4000:]}')
+        return outs
+
+    def wave(*runs) -> list:
+        with ThreadPoolExecutor(len(runs)) as pool:
+            done = [f.result() for f in
+                    [pool.submit(world, *a, **kw) for a, kw in runs]]
+        for name in {a[0] for a, _ in runs}:
+            _add(launches, _launches_of(tmp / name, GLOO_WORLD))
+        return done
+
+    # SIGTERM on rank 0 alone, once it has saved step 6 (past step 5). Bit
+    # rot at step 6 is not paired with preempt@6: its forced save would
+    # replace the corrupted label.
+    _, sig_outs, _ = wave(
+        (('ref', 0), {}),
+        (('sigterm', 75), {'sigterm_after': 'checkpoint: step 6 saved'}),
+        (('corrupt', 137), {'chaos': 'corrupt-ckpt@6,crash@7'}))
+    last = tmp / 'ref' / '1'     # the final epoch bundle
+    drained = set()
+    for o in sig_outs:
+        drained |= {ln.split('at global step ')[1].split(';')[0]
+                    for ln in o.splitlines() if ln.startswith('preempted (')}
+    if len(drained) != 1:
+        raise AssertionError(f'ranks drained at steps {drained}')
+    step = int(drained.pop())
+    got = sorted(os.listdir(tmp / 'sigterm' / 'steps' / str(step)))
+    if got != sorted(files):
+        raise AssertionError(f'steps/{step} holds {got}')
+    log(f'  SIGTERM to rank 0 after its step-6 save: all {GLOO_WORLD} ranks '
+        f'drained at global step {step} (exit 75), steps/{step} holds {got}')
+    save_ms = [float(ln.split(' saved in ')[1].split()[0])
+               for ln in sig_outs[0].splitlines()
+               if ln.startswith('checkpoint: step ')]
+    log(f'  rank 0 blocking step saves under the group (its files and '
+        f'bundle.pt, each hashed once), ms {save_ms} ({card})')
+    sig_outs, cor_outs = wave((('sigterm', 0), {}), (('corrupt', 0), {}))
+    out['sigterm'] = {'drained_at': step, 'save_ms': save_ms,
+                      'resumed': _resumed_line(sig_outs[0]),
+                      'held': _held_to('SIGTERM relaunch',
+                                       tmp / 'sigterm' / '1', last)}
+    text = cor_outs[0]
+    quarantine = [ln for ln in text.splitlines()
+                  if 'quarantining step checkpoint 6' in ln]
+    line = _resumed_line(text)
+    if not quarantine or 'step checkpoint 3' not in line:
+        raise AssertionError(f'corrupt case: {quarantine}, {line}')
+    reason = (tmp / 'corrupt' / 'steps' / '6.quarantined' /
+              'QUARANTINE_REASON').read_text().strip()
+    log(f'  corrupt-ckpt@6,crash@7: label 6 quarantined ({reason}); '
+        f'relaunch {line}')
+    out['corrupt'] = {'reason': reason, 'resumed': line,
+                      'held': _held_to('corrupt relaunch', tmp / 'corrupt' /
+                                       '1', last)}
+    seconds = time.perf_counter() - t0
+    log(f'  launches {launches}; phase 28: {seconds:.1f} s wall ({card})')
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {**out, 'launches': launches, 'seconds': seconds}
+
+
 def _category(name: str) -> str:
     """Coarse owner of a CUDA kernel, from its (mangled) name."""
     n = name.lower()
@@ -3838,6 +4377,13 @@ def main(argv=None) -> int:
                     help='build verbosely and check the kernels only')
     ap.add_argument('--profile', action='store_true',
                     help='also profile steady main-path steps')
+    ap.add_argument('--resume-only', action='store_true',
+                    help='build, then run phases 27-28 only (no result '
+                         'line)')
+    ap.add_argument('--determinism-probe', action='store_true',
+                    help="build, then measure what phase 27's "
+                         '--deterministic buys and costs (no result '
+                         'line; with --resume-only, before phases 27-28)')
     ap.add_argument('--dist-worker', metavar='CONFIG',
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -3871,6 +4417,21 @@ def main(argv=None) -> int:
     log(f'  built {sorted(p.name for p in paths.values())} in '
         f'{time.perf_counter() - t0:.1f} s')
 
+    if args.resume_only or args.determinism_probe:
+        report = {'card': card}
+        if args.determinism_probe:
+            log('== --deterministic at phase 27: two runs without it, and '
+                "phase 6's step time with cuDNN's deterministic algorithms "
+                'off and on')
+            report['determinism_probe'] = run_determinism_probe(card)
+        if args.resume_only:
+            report.update(run_resume_phases(card))
+        out_dir = ROOT / 'chiprun_out'
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / 'chip_smoke_resume.json').write_text(
+            json.dumps(report, indent=1))
+        log('done')
+        return 0
     log('== kernels K1-K3 vs plain versions: ResNet-32 shapes')
     summary32, details = check_kernels(args.quick)
     log('== kernels K1-K3 vs plain versions: ResNet-50 shapes')
@@ -3989,6 +4550,7 @@ def main(argv=None) -> int:
             f'reduction, {len(OVERLAP_GLOO_CASES)} cases x {OVERLAP_STEPS} '
             'steps')
         report['overlap_gloo_world'] = run_overlap_gloo_world(card)
+        report.update(run_resume_phases(card))
         runs = (main_summary, r50, report['resnet50_auto'],
                 report['lstm_jacobi'], report['lm_defaults'],
                 report['resnet32_jacobi'], report['resnet50_nccl_world1'],
@@ -4000,7 +4562,8 @@ def main(argv=None) -> int:
                 report['lm_gloo_world'], report['transformer_xl_chunked'],
                 report['seq_gloo_world'], report['resnet152_config5'],
                 report['bf16_gloo_world'], report['firing_schedule'],
-                report['overlap_gloo_world'])
+                report['overlap_gloo_world'], report['resume_resnet50'],
+                report['resume_gloo_world'])
         launches = {name: sum(r['launches'].get(name, 0) for r in runs)
                     for name in kernels.LAUNCHES}
         aggs = {**summary50, 'ns_inverse': summary_ns,

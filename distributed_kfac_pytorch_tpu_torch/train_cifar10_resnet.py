@@ -15,13 +15,31 @@ K-FAC runs as ``parallel.DistributedKFAC`` (``--comm-method``,
 ``--symmetry-aware-comm``; the LR warms up over ``--warmup-epochs`` to
 world-size times ``--base-lr``); alone it runs the single-device
 ``KFAC``. Port-only flags: ``--device`` (default ``cuda``; ``cpu`` must
-be asked for, and gives a gloo group), ``--synthetic-size`` (train images
-of the offline synthetic set), ``--no-augment``, ``--max-steps`` (stop
-after that many steps) and ``--time-steps`` (synchronize each step and
-record its wall time). Not ported yet: checkpointing and resume, metrics
-sinks and profiling, gradient accumulation, multi-slice meshes and fp16
-(``--grad-accum``, ``--num-slices``, ``--fp16`` raise), label smoothing,
-precise-BN, and the K-FAC knobs listed in ``preconditioner.NOT_PORTED``.
+be asked for, and gives a gloo group), ``--dist-backend`` (``gloo`` runs
+several ranks on one card), ``--deterministic`` (deterministic cuDNN
+convolutions), ``--synthetic-size`` (train images of the offline
+synthetic set), ``--no-augment``, ``--max-steps`` (stop after that many
+steps), ``--time-steps`` (synchronize each step and record its wall
+time) and ``--launch-counts`` (the kernels' launch counts to a JSON
+file). ``--use-inv-kfac`` takes the damped Cholesky inverse for every
+factor; ``--label-smoothing`` and ``--kfac-approx`` are the JAX CLI's.
+
+Checkpoints, as in the JAX CLI: an epoch bundle every
+``--checkpoint-freq`` epochs (and after the last) under
+``--checkpoint-dir``, global-step bundles under its ``steps/``
+(``--checkpoint-steps``, ``--checkpoint-secs``), and on SIGTERM / SIGINT
+(or ``KFAC_PREEMPT_FILE``) a drain: the step finishes, a blocking bundle
+is written and ``main`` returns ``RELAUNCH_EXIT_CODE`` (75), so a relaunch
+loop restarts the run, which resumes from the newest bundle that verifies,
+mid-epoch included (``--no-resume``, ``--resume-step``). ``train`` called
+with a dict of options checkpoints only when the dict sets
+``checkpoint_dir``.
+
+Not ported yet (a set flag raises by name, ``engine.UNPORTED_FLAGS``):
+metrics sinks, profiling and autotune, heartbeats and self-healing,
+gradient accumulation, multi-slice meshes and fp16, precise-BN, the
+hierarchical reduce, the low-rank inverse, and the K-FAC knobs listed in
+``preconditioner.NOT_PORTED``.
 ``--bf16-factors``, ``--bf16-inverses`` and ``--bf16-precond`` set the
 K-FAC reduced-precision knobs as the JAX ``OptimConfig`` does.
 ``--inv-pipeline-chunks``, ``--inv-staleness``,
@@ -34,6 +52,7 @@ firing-schedule knobs of the same names (``engine.add_schedule_args``).
 from __future__ import annotations
 
 import argparse
+import functools
 import sys
 
 import torch
@@ -41,8 +60,12 @@ import torch
 from distributed_kfac_pytorch_tpu_torch import resolve_device, \
     set_fp32_precision
 from distributed_kfac_pytorch_tpu_torch.models import cifar_resnet
+from distributed_kfac_pytorch_tpu_torch.resilience import \
+    cli as resilience_cli
+from distributed_kfac_pytorch_tpu_torch.resilience.preemption import \
+    RELAUNCH_EXIT_CODE
 from distributed_kfac_pytorch_tpu_torch.training import datasets, engine, \
-    optimizers
+    optimizers, utils
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,6 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
         description='CIFAR-10 ResNet + K-FAC (torch port)')
     p.add_argument('--data-dir', default=None,
                    help='CIFAR-10 python batches; synthetic data if absent')
+    resilience_cli.add_checkpoint_args(p, 'cifar10', 10)
     p.add_argument('--model', default='resnet32',
                    help='resnet20/32/44/56/110/1202')
     p.add_argument('--batch-size', type=int, default=128)
@@ -59,6 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--lr-decay', type=int, nargs='+', default=[35, 75, 90])
     p.add_argument('--momentum', type=float, default=0.9)
     p.add_argument('--wd', type=float, default=5e-4)
+    p.add_argument('--label-smoothing', type=float, default=0.0)
     p.add_argument('--bn-momentum', type=float, default=0.9,
                    help='flax convention: new = m*old + (1-m)*batch')
     p.add_argument('--seed', type=int, default=42)
@@ -71,9 +96,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--fused-precondition',
                    action=argparse.BooleanOptionalAction, default=True,
                    help='bucketed preconditioning kernel (default on)')
+    p.add_argument('--kfac-approx', default='expand',
+                   choices=['expand', 'reduce'],
+                   help='weight-sharing Kronecker approximation: expand '
+                        '(default) or reduce; a no-op for plain conv nets')
     p.add_argument('--kfac-update-freq-alpha', type=float, default=10)
     p.add_argument('--kfac-update-freq-decay', type=int, nargs='+',
                    default=[])
+    p.add_argument('--use-inv-kfac', action='store_true',
+                   help='Cholesky inverse method instead of eigen')
     p.add_argument('--eigh-method', default='auto',
                    choices=['auto', 'xla', 'jacobi', 'warm'],
                    help='auto/warm = warm-start polish; xla = '
@@ -89,13 +120,12 @@ def build_parser() -> argparse.ArgumentParser:
     engine.add_distributed_args(p)
     engine.add_precision_args(p)
     engine.add_schedule_args(p)
+    resilience_cli.add_resilience_args(p)
+    engine.add_unported_args(p, 'precise_bn_batches')
     # Port-only flags.
-    p.add_argument('--device', default='cuda')
+    engine.add_port_args(p)
     p.add_argument('--synthetic-size', type=int, default=2048)
     p.add_argument('--no-augment', action='store_true')
-    p.add_argument('--max-steps', type=int, default=None)
-    p.add_argument('--time-steps', action='store_true')
-    p.add_argument('--quiet', action='store_true')
     return p
 
 
@@ -103,19 +133,31 @@ def train(args_or_config=None, device='cuda') -> dict:
     """Train and return a summary dict.
 
     ``args_or_config``: an ``argparse.Namespace``, a list of CLI strings,
-    or a dict of option overrides (``{'epochs': 2, 'batch_size': 8}``).
-    ``device`` (default ``'cuda'``) overrides ``--device``; it raises
-    without a CUDA device unless ``'cpu'`` is asked for.
+    or a dict of option overrides (``{'epochs': 2, 'batch_size': 8}``;
+    checkpointing only when it sets ``checkpoint_dir``). ``device``
+    (default ``'cuda'``) overrides ``--device``; it raises without a CUDA
+    device unless ``'cpu'`` is asked for.
 
     Returns what :func:`engine.fit` returns: per-step losses and fired
     stages, per-step wall ms when ``time_steps``, the last epoch's train /
-    val metrics and the final ``TrainState``.
+    val metrics, the final ``TrainState`` and, when a preemption ended
+    the run, ``preempted``.
     """
     args = engine.parse_args(build_parser(), args_or_config)
     dev = resolve_device(device if device is not None else args.device)
     engine.check_unported(args)
+    preemption = engine.install_preemption(args)
+    try:
+        return _train(args, dev, preemption)
+    finally:
+        engine.finish_run(args, preemption)
+
+
+def _train(args: argparse.Namespace, dev: torch.device,
+           preemption) -> dict:
     set_fp32_precision()
-    workers = engine.start_world(dev)
+    engine.set_determinism(args)
+    workers = engine.start_world(dev, args.dist_backend)
     (train_x, train_y), (test_x, test_y) = datasets.get_cifar(
         args.data_dir, synthetic_size=args.synthetic_size)
     with torch.random.fork_rng(devices=[]):
@@ -134,9 +176,11 @@ def train(args_or_config=None, device='cuda') -> dict:
         kfac_cov_update_freq=args.kfac_cov_update_freq,
         damping=args.damping, factor_decay=args.stat_decay,
         kl_clip=args.kl_clip, eigh_method=args.eigh_method,
+        inverse_method='cholesky' if args.use_inv_kfac else 'auto',
         eigh_polish_iters=args.eigh_polish_iters,
         fused_factor_contraction=args.fused_factor_contraction,
         fused_precondition=args.fused_precondition,
+        kfac_approx=args.kfac_approx,
         skip_layers=args.skip_layers,
         damping_alpha=args.damping_alpha,
         damping_schedule=args.damping_decay,
@@ -149,19 +193,27 @@ def train(args_or_config=None, device='cuda') -> dict:
     state = engine.make_train_state(
         model, optimizer, kfac,
         coallocate_layer_factors=args.coallocate_layer_factors)
+    ckpt = engine.start_checkpointing(
+        args, state, kfac_sched, name='cifar10', device=dev,
+        preemption=preemption, verbose=not args.quiet)
     return engine.fit(
         state, (train_x, train_y), (test_x, test_y),
         lr_schedule=lr_schedule, kfac_sched=kfac_sched, epochs=args.epochs,
         batch_size=args.batch_size, val_batch_size=args.val_batch_size,
         seed=args.seed, augment=not args.no_augment, device=dev,
         max_steps=args.max_steps, time_steps=args.time_steps,
-        verbose=not args.quiet)
+        verbose=not args.quiet,
+        criterion=functools.partial(utils.label_smooth_loss,
+                                    smoothing=args.label_smoothing),
+        ckpt=ckpt)
 
 
 def main(argv=None) -> int:
+    """The command line: 0 when training ends, ``RELAUNCH_EXIT_CODE``
+    after a preemption drained into a saved bundle."""
     args = build_parser().parse_args(argv)
-    train(args, device=args.device)
-    return 0
+    res = train(args, device=args.device)
+    return RELAUNCH_EXIT_CODE if res['preempted'] else 0
 
 
 if __name__ == '__main__':

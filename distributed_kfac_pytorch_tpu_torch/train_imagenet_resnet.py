@@ -13,15 +13,25 @@ process group (``torchrun``, or one the caller started) K-FAC runs as
 ``parallel.DistributedKFAC`` and each rank trains on its slice of the
 global batch, as in the CIFAR CLI (same distribution flags); alone, the
 single-device ``KFAC`` runs directly. Port-only flags: ``--device``
-(default ``cuda``; ``cpu`` must be asked for), ``--synthetic-size``
+(default ``cuda``; ``cpu`` must be asked for), ``--dist-backend``,
+``--deterministic`` (deterministic cuDNN convolutions: reruns and resumed
+runs equal the uninterrupted run bit for bit), ``--synthetic-size``
 (images per split), ``--no-augment`` (accepted as in the CIFAR CLI;
 synthetic ImageNet is never augmented), ``--max-steps`` (stop after that
-many steps) and ``--time-steps`` (synchronize each step and record its
-wall time). Not ported yet: the ImageNet directory reader, ViT models,
-checkpointing and resume, metrics sinks and profiling, gradient
-accumulation, multi-slice meshes and fp16 (``--grad-accum``,
-``--num-slices``, ``--fp16`` raise), precise-BN, ``--remat`` and the
-K-FAC knobs listed in ``preconditioner.NOT_PORTED``. ``--bf16-factors``,
+many steps), ``--time-steps`` (synchronize each step and record its
+wall time) and ``--launch-counts`` (the kernels' launch counts to a JSON
+file).
+
+Checkpoints and resume as in the CIFAR CLI (``--checkpoint-dir``, default
+``./checkpoints/imagenet``; ``--checkpoint-freq``, default 5 epochs;
+``--checkpoint-steps``, ``--checkpoint-secs``, ``--preemption-grace``,
+``--resume-step``, ``--no-resume``; exit 75 after a preemption). Not
+ported yet: the ImageNet directory reader, ViT models, and the flags of
+``engine.UNPORTED_FLAGS`` (metrics sinks, profiling and autotune,
+heartbeats and self-healing, gradient accumulation, multi-slice meshes,
+fp16, precise-BN, ``--remat``, the hierarchical reduce, the low-rank
+inverse), which raise by name, and the K-FAC knobs listed in
+``preconditioner.NOT_PORTED``. ``--bf16-factors``,
 ``--bf16-inverses`` and ``--bf16-precond`` set the K-FAC reduced-precision
 knobs as the JAX ``OptimConfig`` does (tracked config 5 is ``--model
 resnet152 --bf16-factors --inverse-method eigen``).
@@ -43,6 +53,10 @@ import torch
 from distributed_kfac_pytorch_tpu_torch import resolve_device, \
     set_fp32_precision
 from distributed_kfac_pytorch_tpu_torch.models import imagenet_resnet
+from distributed_kfac_pytorch_tpu_torch.resilience import \
+    cli as resilience_cli
+from distributed_kfac_pytorch_tpu_torch.resilience.preemption import \
+    RELAUNCH_EXIT_CODE
 from distributed_kfac_pytorch_tpu_torch.training import datasets, engine, \
     optimizers, utils
 
@@ -53,6 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--data-dir', default=None,
                    help='ImageFolder-style tree (not ported: raises); '
                         'synthetic data if absent')
+    resilience_cli.add_checkpoint_args(p, 'imagenet', 5)
     p.add_argument('--model', default='resnet50',
                    help='resnet18/34/50/101/152')
     p.add_argument('--image-size', type=int, default=224)
@@ -65,10 +80,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--momentum', type=float, default=0.9)
     p.add_argument('--wd', type=float, default=5e-5)
     p.add_argument('--label-smoothing', type=float, default=0.1)
+    p.add_argument('--bn-momentum', type=float, default=None,
+                   help='BatchNorm running-stat EWMA momentum (flax '
+                        'convention; default 0.9 = torch momentum 0.1)')
     p.add_argument('--seed', type=int, default=42)
     p.add_argument('--kfac-update-freq', type=int, default=100,
                    help='inverse update interval (0 = plain SGD)')
     p.add_argument('--kfac-cov-update-freq', type=int, default=10)
+    p.add_argument('--fused-factor-contraction',
+                   action=argparse.BooleanOptionalAction, default=True,
+                   help='factor contraction + EMA kernel (default on)')
+    p.add_argument('--fused-precondition',
+                   action=argparse.BooleanOptionalAction, default=True,
+                   help='bucketed preconditioning kernel (default on)')
+    p.add_argument('--kfac-approx', default='expand',
+                   choices=['expand', 'reduce'],
+                   help='weight-sharing Kronecker approximation: expand '
+                        '(default) or reduce; a no-op for plain conv nets')
     p.add_argument('--kfac-update-freq-alpha', type=float, default=10)
     p.add_argument('--kfac-update-freq-decay', type=int, nargs='+',
                    default=[])
@@ -92,13 +120,12 @@ def build_parser() -> argparse.ArgumentParser:
     engine.add_distributed_args(p)
     engine.add_precision_args(p)
     engine.add_schedule_args(p)
+    resilience_cli.add_resilience_args(p)
+    engine.add_unported_args(p, 'precise_bn_batches', 'remat')
     # Port-only flags.
-    p.add_argument('--device', default='cuda')
+    engine.add_port_args(p)
     p.add_argument('--synthetic-size', type=int, default=512)
     p.add_argument('--no-augment', action='store_true')
-    p.add_argument('--max-steps', type=int, default=None)
-    p.add_argument('--time-steps', action='store_true')
-    p.add_argument('--quiet', action='store_true')
     return p
 
 
@@ -107,8 +134,9 @@ def train(args_or_config=None, device='cuda') -> dict:
 
     ``args_or_config``: an ``argparse.Namespace``, a list of CLI strings,
     or a dict of option overrides (``{'model': 'resnet18', 'epochs':
-    1}``). ``device`` (default ``'cuda'``) overrides ``--device``; it
-    raises without a CUDA device unless ``'cpu'`` is asked for.
+    1}``; checkpointing only when it sets ``checkpoint_dir``). ``device``
+    (default ``'cuda'``) overrides ``--device``; it raises without a CUDA
+    device unless ``'cpu'`` is asked for.
 
     Returns what :func:`engine.fit` returns, as the CIFAR ``train``
     does.
@@ -119,14 +147,26 @@ def train(args_or_config=None, device='cuda') -> dict:
             f'model {args.model!r}: the ViT models are not ported yet')
     dev = resolve_device(device if device is not None else args.device)
     engine.check_unported(args)
+    preemption = engine.install_preemption(args)
+    try:
+        return _train(args, dev, preemption)
+    finally:
+        engine.finish_run(args, preemption)
+
+
+def _train(args: argparse.Namespace, dev: torch.device,
+           preemption) -> dict:
     set_fp32_precision()
-    workers = engine.start_world(dev)
+    engine.set_determinism(args)
+    workers = engine.start_world(dev, args.dist_backend)
     train_data, val_data = datasets.get_imagenet(
         args.data_dir, image_size=args.image_size,
         synthetic_size=args.synthetic_size)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
-        model = imagenet_resnet.get_model(args.model)
+        model = imagenet_resnet.get_model(
+            args.model, bn_momentum=(0.9 if args.bn_momentum is None
+                                     else args.bn_momentum))
     model = model.to(dev)
     cfg = optimizers.OptimConfig(
         base_lr=args.base_lr, momentum=args.momentum,
@@ -141,6 +181,9 @@ def train(args_or_config=None, device='cuda') -> dict:
         kl_clip=args.kl_clip, inverse_method=args.inverse_method,
         eigh_method=args.eigh_method,
         eigh_polish_iters=args.eigh_polish_iters,
+        fused_factor_contraction=args.fused_factor_contraction,
+        fused_precondition=args.fused_precondition,
+        kfac_approx=args.kfac_approx,
         skip_layers=args.skip_layers,
         damping_alpha=args.damping_alpha,
         damping_schedule=args.damping_decay,
@@ -153,6 +196,9 @@ def train(args_or_config=None, device='cuda') -> dict:
     state = engine.make_train_state(
         model, optimizer, kfac,
         coallocate_layer_factors=args.coallocate_layer_factors)
+    ckpt = engine.start_checkpointing(
+        args, state, kfac_sched, name='imagenet', device=dev,
+        preemption=preemption, verbose=not args.quiet)
     return engine.fit(
         state, train_data, val_data, lr_schedule=lr_schedule,
         kfac_sched=kfac_sched, epochs=args.epochs,
@@ -161,13 +207,16 @@ def train(args_or_config=None, device='cuda') -> dict:
         max_steps=args.max_steps, time_steps=args.time_steps,
         verbose=not args.quiet,
         criterion=functools.partial(utils.label_smooth_loss,
-                                    smoothing=args.label_smoothing))
+                                    smoothing=args.label_smoothing),
+        ckpt=ckpt)
 
 
 def main(argv=None) -> int:
+    """The command line: 0 when training ends, ``RELAUNCH_EXIT_CODE``
+    after a preemption drained into a saved bundle."""
     args = build_parser().parse_args(argv)
-    train(args, device=args.device)
-    return 0
+    res = train(args, device=args.device)
+    return RELAUNCH_EXIT_CODE if res['preempted'] else 0
 
 
 if __name__ == '__main__':

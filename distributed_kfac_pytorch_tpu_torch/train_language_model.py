@@ -58,11 +58,20 @@ sequences without the ring, as the JAX CLI's evaluation twin does.
         --seq-parallel 2
 
 Port-only flags: ``--device`` (default ``cuda``; ``cpu`` must be asked
-for), ``--synthetic-size`` and ``--synthetic-vocab`` (train tokens and
-vocabulary of the synthetic corpus; the JAX defaults 200000 and 1000),
-``--fixed-batch`` (every step trains on the first window), ``--max-steps``
-(stop after that many steps), ``--time-steps`` (synchronize each step and
-record its wall time) and ``--quiet``.
+for), ``--dist-backend``, ``--deterministic``, ``--synthetic-size`` and
+``--synthetic-vocab`` (train tokens and vocabulary of the synthetic
+corpus; the JAX defaults 200000 and 1000), ``--fixed-batch`` (every step
+trains on the first window), ``--max-steps`` (stop after that many
+steps), ``--time-steps`` (synchronize each step and record its wall time),
+``--launch-counts`` (the kernels' launch counts to a JSON file) and
+``--quiet``.
+
+Checkpoints and resume as in the CIFAR CLI (``--checkpoint-dir``, default
+``./checkpoints/lm``; ``--checkpoint-freq``, default 5 epochs;
+``--checkpoint-steps``, ``--checkpoint-secs``, ``--preemption-grace``,
+``--resume-step``, ``--no-resume``; exit 75 after a preemption); a bundle
+also holds each rank's dropout generator state, so a resumed run draws
+the masks the uninterrupted run draws.
 
 ``--bf16-factors``, ``--bf16-inverses`` and ``--bf16-precond`` set the
 K-FAC reduced-precision knobs as the JAX ``OptimConfig`` does
@@ -71,10 +80,11 @@ K-FAC reduced-precision knobs as the JAX ``OptimConfig`` does
 ``--deferred-factor-reduction`` and ``--factor-batch-fraction`` set the
 firing-schedule knobs of the same names (``engine.add_schedule_args``).
 
-Not ported yet (a set flag raises by name): multi-slice meshes
-(``--num-slices``) and fp16 (``--fp16``). Also not
-ported: checkpointing and resume, metrics sinks and profiling, autotune
-and the K-FAC knobs listed in ``preconditioner.NOT_PORTED``.
+Not ported yet (a set flag raises by name, ``engine.UNPORTED_FLAGS``):
+multi-slice meshes (``--num-slices``), fp16 (``--fp16``), metrics sinks,
+profiling and autotune, heartbeats and self-healing, the hierarchical
+reduce and the low-rank inverse; nor the K-FAC knobs listed in
+``preconditioner.NOT_PORTED``.
 
 :func:`train` is the programmatic entry point.
 """
@@ -92,6 +102,10 @@ from distributed_kfac_pytorch_tpu_torch import resolve_device, \
 from distributed_kfac_pytorch_tpu_torch.models import lstm_lm, \
     transformer_lm
 from distributed_kfac_pytorch_tpu_torch.parallel import sequence
+from distributed_kfac_pytorch_tpu_torch.resilience import \
+    cli as resilience_cli
+from distributed_kfac_pytorch_tpu_torch.resilience.preemption import \
+    RELAUNCH_EXIT_CODE
 from distributed_kfac_pytorch_tpu_torch.training import datasets, engine, \
     optimizers
 
@@ -103,6 +117,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--data-dir', default=None,
                    help='dir with train.txt/valid.txt (synthetic if '
                         'absent)')
+    resilience_cli.add_checkpoint_args(p, 'lm', 5)
     p.add_argument('--arch', default='lstm',
                    choices=['lstm', 'transformer'])
     p.add_argument('--emsize', type=int, default=650)
@@ -135,6 +150,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--kfac-update-freq', type=int, default=10,
                    help='inverse update interval; 0 disables K-FAC')
     p.add_argument('--kfac-cov-update-freq', type=int, default=1)
+    p.add_argument('--fused-factor-contraction',
+                   action=argparse.BooleanOptionalAction, default=True,
+                   help='factor contraction + EMA kernel (default on)')
+    p.add_argument('--fused-precondition',
+                   action=argparse.BooleanOptionalAction, default=True,
+                   help='bucketed preconditioning kernel (default on)')
     p.add_argument('--inverse-method', default='auto',
                    choices=['auto', 'eigen', 'cholesky', 'newton'],
                    help='auto = eigen up to factor dim 640, damped '
@@ -167,14 +188,13 @@ def build_parser() -> argparse.ArgumentParser:
     engine.add_schedule_args(p)
     p.add_argument('--fp16', action='store_true',
                    help='not ported (raises)')
+    resilience_cli.add_resilience_args(p)
+    engine.add_unported_args(p)
     # Port-only flags.
-    p.add_argument('--device', default='cuda')
+    engine.add_port_args(p)
     p.add_argument('--synthetic-size', type=int, default=200_000)
     p.add_argument('--synthetic-vocab', type=int, default=1000)
     p.add_argument('--fixed-batch', action='store_true')
-    p.add_argument('--max-steps', type=int, default=None)
-    p.add_argument('--time-steps', action='store_true')
-    p.add_argument('--quiet', action='store_true')
     return p
 
 
@@ -182,23 +202,34 @@ def train(args_or_config=None, device='cuda') -> dict:
     """Train and return a summary dict.
 
     ``args_or_config``: an ``argparse.Namespace``, a list of CLI strings,
-    or a dict of option overrides (``{'nhid': 32, 'max_steps': 2}``).
-    ``device`` (default ``'cuda'``) overrides ``--device``; it raises
-    without a CUDA device unless ``'cpu'`` is asked for.
+    or a dict of option overrides (``{'nhid': 32, 'max_steps': 2}``;
+    checkpointing only when it sets ``checkpoint_dir``). ``device``
+    (default ``'cuda'``) overrides ``--device``; it raises without a CUDA
+    device unless ``'cpu'`` is asked for.
 
     Returns what :func:`engine.fit_lm` returns: per-step losses and fired
     stages ('inverse', 'factor' or None), per-step wall ms when
-    ``time_steps``, the last epoch's train / val loss and perplexity and
+    ``time_steps``, the last epoch's train / val loss and perplexity,
     the final ``TrainState`` (under a process group its ``kfac`` is a
-    ``DistributedKFAC``). The launch counts of the kernels are
-    ``ops.kernels.LAUNCHES``.
+    ``DistributedKFAC``) and ``preempted``. The launch counts of the
+    kernels are ``ops.kernels.LAUNCHES``.
     """
     args = engine.parse_args(build_parser(), args_or_config)
     engine.check_unported(args)
     check_long_context(args)
     dev = resolve_device(device if device is not None else args.device)
+    preemption = engine.install_preemption(args)
+    try:
+        return _train(args, dev, preemption)
+    finally:
+        engine.finish_run(args, preemption)
+
+
+def _train(args: argparse.Namespace, dev: torch.device,
+           preemption) -> dict:
     set_fp32_precision()
-    engine.start_world(dev)
+    engine.set_determinism(args)
+    engine.start_world(dev, args.dist_backend)
     sp = args.seq_parallel
     # Before DistributedKFAC's groups: every rank creates every group in
     # the same order.
@@ -225,6 +256,8 @@ def train(args_or_config=None, device='cuda') -> dict:
         kl_clip=args.kl_clip, inverse_method=args.inverse_method,
         eigh_method=args.eigh_method,
         eigh_polish_iters=args.eigh_polish_iters,
+        fused_factor_contraction=args.fused_factor_contraction,
+        fused_precondition=args.fused_precondition,
         kfac_approx=args.kfac_approx, skip_layers=skip,
         **engine.precision_config(args),
         **engine.schedule_config(args))
@@ -235,6 +268,13 @@ def train(args_or_config=None, device='cuda') -> dict:
     generator = torch.Generator(device=dev)
     generator.manual_seed(args.seed + (dist.get_rank() if state.distributed
                                        else 0))
+    ckpt = engine.start_checkpointing(
+        args, state, kfac_sched, name='lm', device=dev,
+        preemption=preemption,
+        extra_state=lambda: {'dropout_generator': generator.get_state()},
+        load_extra=lambda extra: generator.set_state(
+            extra['dropout_generator'].cpu()),
+        verbose=not args.quiet)
     return engine.fit_lm(
         state, train_ids, val_ids, lr_schedule=lr_schedule,
         kfac_sched=kfac_sched, epochs=args.epochs,
@@ -242,7 +282,7 @@ def train(args_or_config=None, device='cuda') -> dict:
         device=dev, grad_clip=args.grad_clip, generator=generator,
         fixed_batch=args.fixed_batch, max_steps=args.max_steps,
         time_steps=args.time_steps, verbose=not args.quiet,
-        seq_parallel=sp)
+        seq_parallel=sp, ckpt=ckpt)
 
 
 def check_long_context(args: argparse.Namespace) -> None:
@@ -302,9 +342,11 @@ def build_model(args: argparse.Namespace, vocab: int, device,
 
 
 def main(argv=None) -> int:
+    """The command line: 0 when training ends, ``RELAUNCH_EXIT_CODE``
+    after a preemption drained into a saved bundle."""
     args = build_parser().parse_args(argv)
-    train(args, device=args.device)
-    return 0
+    res = train(args, device=args.device)
+    return RELAUNCH_EXIT_CODE if res['preempted'] else 0
 
 
 if __name__ == '__main__':

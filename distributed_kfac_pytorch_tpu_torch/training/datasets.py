@@ -10,9 +10,9 @@ keeps every run offline; the LM corpus likewise (whitespace-tokenized
 chain, token for token). ImageNet is synthetic only: the JAX package's
 tf.data directory reader is not ported. Augmentation draws its random
 numbers in the JAX package's order, so both packages crop and flip
-alike.
-Mid-epoch resume of the image sets (``skip_batches``) waits for the
-checkpoint port; ``bptt_batches`` takes it as the JAX function does.
+alike. ``epoch_batches`` and ``bptt_batches`` take ``skip_batches`` for
+mid-epoch resume as the JAX functions do: the rest of the epoch equals the
+uninterrupted epoch's batches, crops and flips included.
 """
 
 from __future__ import annotations
@@ -112,8 +112,19 @@ def get_imagenet(data_dir: str | None = None, image_size: int = 224,
     return (norm(train[0]), train[1]), (norm(val[0]), val[1])
 
 
+def consume_augment_rng(rng: np.random.Generator, n: int) -> None:
+    """Advance ``rng`` exactly as :func:`augment_cifar` would for a batch
+    of ``n`` images, without the pixel work (a skipped batch of a resumed
+    epoch). Must mirror ``augment_cifar``'s draws: crop ys, crop xs,
+    flip."""
+    rng.integers(0, 9, size=n)
+    rng.integers(0, 9, size=n)
+    rng.random(n)
+
+
 def augment_cifar(x: np.ndarray, rng: np.random.Generator) -> np.ndarray:
-    """Pad-4 (reflect) random crop + horizontal flip of an NCHW batch."""
+    """Pad-4 (reflect) random crop + horizontal flip of an NCHW batch;
+    its draws are mirrored by :func:`consume_augment_rng`."""
     n, c, h, w = x.shape
     ys = rng.integers(0, 9, size=n)
     xs = rng.integers(0, 9, size=n)
@@ -128,15 +139,22 @@ def augment_cifar(x: np.ndarray, rng: np.random.Generator) -> np.ndarray:
 
 def epoch_batches(x: np.ndarray, y: np.ndarray, batch_size: int, *,
                   shuffle: bool = True, seed: int = 0, epoch: int = 0,
-                  augment: bool = False
+                  augment: bool = False, skip_batches: int = 0
                   ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
     """Full batches, reshuffled per epoch from ``(seed, epoch)`` (the
-    trailing partial batch is dropped)."""
+    trailing partial batch is dropped). ``skip_batches`` drops the first
+    batches for mid-epoch resume: they are not built, but their
+    augmentation draws are consumed, so the batches that remain equal the
+    uninterrupted epoch's."""
     n = x.shape[0]
     rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
     idx = rng.permutation(n) if shuffle else np.arange(n)
-    for start in range(0, n - n % batch_size, batch_size):
+    for bi, start in enumerate(range(0, n - n % batch_size, batch_size)):
         sel = idx[start:start + batch_size]
+        if bi < skip_batches:
+            if augment:
+                consume_augment_rng(rng, len(sel))
+            continue
         xb = x[sel]
         if augment:
             xb = augment_cifar(xb, rng)

@@ -505,7 +505,8 @@ def test_cli_distribution_flags_match_jax():
     want = vars(jcli.parse_args([]))
     got = vars(train_language_model.build_parser().parse_args([]))
     port_only = {'device', 'synthetic_size', 'synthetic_vocab',
-                 'fixed_batch', 'max_steps', 'time_steps', 'quiet'}
+                 'fixed_batch', 'max_steps', 'time_steps', 'quiet',
+                 'dist_backend', 'deterministic', 'launch_counts'}
     assert set(got) - port_only <= set(want), set(got) - set(want)
     for key in ('warmup_epochs', 'comm_method', 'grad_worker_fraction',
                 'symmetry_aware_comm', 'num_slices', 'fp16',

@@ -52,11 +52,13 @@ def test_train_on_cpu_two_steps():
     assert math.isfinite(res['val']['loss'])
 
 
-def test_cli_main_runs_on_cpu(capsys):
+def test_cli_main_runs_on_cpu(capsys, tmp_path):
+    # The command line checkpoints by default: into a test directory.
     assert cli.main(['--model', 'resnet20', '--batch-size', '8',
                      '--val-batch-size', '4', '--synthetic-size', '16',
                      '--epochs', '1', '--no-augment', '--device', 'cpu',
-                     '--kfac-update-freq', '0']) == 0
+                     '--kfac-update-freq', '0',
+                     '--checkpoint-dir', str(tmp_path / 'ck')]) == 0
     assert 'total:' in capsys.readouterr().out
 
 
@@ -150,6 +152,16 @@ def test_no_jax_imports(path):
         assert top not in FORBIDDEN, f'{path.name} imports {name}'
 
 
+@pytest.mark.parametrize('module', [
+    'resilience/__init__.py', 'resilience/dataiter.py',
+    'resilience/preemption.py', 'resilience/integrity.py',
+    'resilience/faults.py', 'resilience/policy.py', 'resilience/cli.py',
+    'training/checkpoint.py'])
+def test_no_jax_imports_reaches_the_checkpoint_modules(module):
+    assert PACKAGE / module in set(PACKAGE.rglob('*.py'))
+    test_no_jax_imports(PACKAGE / module)
+
+
 def test_import_leaves_jax_unloaded():
     mods = sorted(str(p.relative_to(ROOT).with_suffix('')).replace('/', '.')
                   for p in PACKAGE.rglob('*.py')
@@ -205,12 +217,84 @@ def test_distribution_knobs_are_kfac_attributes():
              assignment_strategy='speed')
 
 
-@pytest.mark.parametrize('module', [cli, inet])
-@pytest.mark.parametrize('flag,value', [('grad_accum', 2),
-                                        ('num_slices', 2), ('fp16', True)])
-def test_cli_unported_flags_raise_by_name(module, flag, value):
-    with pytest.raises(NotImplementedError, match=flag.replace('_', '-')):
-        module.train({flag: value}, device='cpu')
+def _set_value(off):
+    """A value other than a flag's "off" value."""
+    if off is None:
+        return 'warn'
+    if isinstance(off, bool):
+        return not off
+    return off + 1
+
+
+@pytest.mark.parametrize('module', [cli, inet, lm],
+                         ids=['cifar', 'imagenet', 'lm'])
+@pytest.mark.parametrize('flag,off', engine.UNPORTED_FLAGS,
+                         ids=[f for f, _ in engine.UNPORTED_FLAGS])
+def test_cli_unported_flags_raise_by_name(module, flag, off):
+    option = '--' + flag.replace('_', '-')
+    if option not in module.build_parser()._option_string_actions:
+        # Flags of another CLI (the JAX CLIs' sets differ).
+        assert (module, flag) in {(lm, 'grad_accum'),
+                                  (lm, 'precise_bn_batches'),
+                                  (lm, 'remat'), (cli, 'remat')}
+        return
+    with pytest.raises(NotImplementedError, match=option):
+        module.train({flag: _set_value(off)}, device='cpu')
+
+
+JAX_CLI_SOURCES = {
+    'cifar': ['examples/train_cifar10_resnet.py'],
+    'imagenet': ['examples/train_imagenet_resnet.py'],
+    'lm': ['examples/train_language_model.py']}
+#: The flag helpers every JAX CLI calls (observability, resilience and
+#: autotune's ``add_*_args``), read as text.
+JAX_FLAG_HELPERS = ['distributed_kfac_pytorch_tpu/observability/cli.py',
+                    'distributed_kfac_pytorch_tpu/resilience/cli.py',
+                    'distributed_kfac_pytorch_tpu/autotune/cli.py']
+
+
+def _jax_cli_flags(name: str) -> list[str]:
+    import re
+    flags = []
+    for rel in JAX_CLI_SOURCES[name] + JAX_FLAG_HELPERS:
+        flags += re.findall(r"add_argument\(\s*'(--[a-z0-9-]+)'",
+                            (ROOT / rel).read_text())
+    return sorted(set(flags))
+
+
+@pytest.mark.parametrize('name,module', [('cifar', cli), ('imagenet', inet),
+                                         ('lm', lm)],
+                         ids=['cifar', 'imagenet', 'lm'])
+def test_every_jax_cli_flag_is_wired_or_raises_by_name(name, module):
+    flags = _jax_cli_flags(name)
+    assert len(flags) > 60, flags
+    options = module.build_parser()._option_string_actions
+    unported = {'--' + f.replace('_', '-') for f, _ in engine.UNPORTED_FLAGS}
+    missing = [f for f in flags if f not in options]
+    assert not missing, f'{name}: JAX flags the port does not accept: ' \
+                        f'{missing}'
+    # Wired flags are not in the unported table and parse to a value.
+    wired = [f for f in flags if f not in unported]
+    assert {'--checkpoint-dir', '--checkpoint-freq', '--no-resume',
+            '--checkpoint-steps', '--checkpoint-secs', '--preemption-grace',
+            '--resume-step', '--fused-precondition',
+            '--fused-factor-contraction'} <= set(wired)
+
+
+@pytest.mark.parametrize('name,module,freq', [('cifar10', cli, 10),
+                                              ('imagenet', inet, 5),
+                                              ('lm', lm, 5)])
+def test_checkpoint_flags_take_the_jax_defaults(name, module, freq):
+    args = module.build_parser().parse_args([])
+    assert (args.checkpoint_dir, args.checkpoint_freq, args.no_resume,
+            args.checkpoint_steps, args.checkpoint_secs,
+            args.preemption_grace, args.resume_step) == (
+        f'./checkpoints/{name}', freq, False, 0, 0.0, 30.0, None)
+    # A programmatic run checkpoints only when asked to.
+    assert engine.parse_args(module.build_parser(), {}).checkpoint_dir \
+        is None
+    assert engine.parse_args(module.build_parser(),
+                             {'checkpoint_dir': 'x'}).checkpoint_dir == 'x'
 
 
 @pytest.mark.parametrize('module', [cli, inet])
