@@ -302,6 +302,42 @@ Phases (any failure exits nonzero and prints no result line):
      are printed. The phases' launches come from each run's
      ``--launch-counts`` file and join the result line's.
 
+ 29. gradient accumulation at ResNet-50 width: the ImageNet CLI
+     (in process), 224 px, batch 256 as ``--grad-accum 4`` (micro-batches
+     of 64), ``newton``, 12 steps on one fixed batch (firings at 0 and
+     10): every loss finite, the last three below the first three, K1 55
+     x 4 and K2 53 x 4 launches per factor step (the single pass's plan,
+     once per micro-batch), K3 21 per step, K4 13 per firing; its peak
+     device memory (allocated, above the process's baseline) beside 2-step
+     ``newton`` runs at batch 64 and at batch 256 in one pass;
+     then the CIFAR CLI at ResNet-32 GN, batch 512, ``--grad-accum 4``
+     against ``--grad-accum 1``, 3 steps, inverses every 2nd,
+     ``--eigh-method xla --deterministic``: final factors within 1e-5 and
+     preconditioned gradients within 1e-4 of the largest entry, every
+     loss within 1e-5 relative, K1 / K2 launches once per micro-batch;
+ 30. block rematerialization: ResNet-50 through the ImageNet CLI with
+     ``--remat`` against without, ``--deterministic``, batches 64 and
+     128, 3 steps (a firing at step 0): losses, final factors,
+     preconditioned gradients and BatchNorm buffers within fp32
+     tolerances (the largest gaps printed, and whether each is bit for
+     bit), the BatchNorm counters equal; peak memory and the non-firing
+     step ms of each;
+ 31. precise-BN and distribution: the ImageNet CLI at ResNet-50 (224 px,
+     batch 64, one epoch of 4 steps) with ``--precise-bn-batches 4``: the
+     batches are the epoch stream's first four, the evaluation's
+     statistics equal the plain average of those batches' statistics
+     taken by hand at the same weights (float64, unbiased variance) within
+     1e-5, and the training buffers are back bit for bit after the
+     evaluation; then ResNet-32 GN on 4 gloo ranks of ``cuda:0``, world
+     batch 128 with ``grad_accum`` 2 (``engine.accumulate_pass``,
+     ``DistributedKFAC.step(contribs=)``), comm-opt 1 x 4 and hybrid-opt
+     2 x 2, 3 steps each: rank 0 holds every step to the single-device
+     ``KFAC`` single pass on the full batch at phase 14's tolerances (the
+     preconditioned gradients against the largest entry of all, the
+     per-tensor gap printed; the loss within 1e-5), every rank's
+     launches twice the single pass's K1 / K2.
+     Phases 29-31 print their seconds.
+
 ``--quick`` builds with ``-Xptxas -v`` and runs only the correctness
 checks of phases 3, 4 and 8 (a first call after a kernel change).
 ``--profile`` adds a torch.profiler pass over steady ResNet-32,
@@ -311,7 +347,9 @@ time by kernel category, the device's busy share; it fails
 if the ResNet-50 steps show no K2 time or the XL steps no K1 time). Details of every case go to
 ``chiprun_out/chip_smoke.json`` next to this script. ``--resume-only``
 builds and runs phases 27-28 alone (no result line;
-``chiprun_out/chip_smoke_resume.json``). ``--determinism-probe`` (alone
+``chiprun_out/chip_smoke_resume.json``); ``--accum-only`` builds and runs
+phases 29-31 alone (``chiprun_out/chip_smoke_accum.json``).
+``--determinism-probe`` (alone
 or before ``--resume-only``'s phases) runs phase 27's uninterrupted
 ResNet-50 twice without ``--deterministic`` and compares the final
 bundles, then times phase 6's steps with cuDNN's deterministic
@@ -321,6 +359,7 @@ algorithms off, on, on and off.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -4208,6 +4247,587 @@ def run_resume_gloo_world(card: str) -> dict:
     return {**out, 'launches': launches, 'seconds': seconds}
 
 
+# ---------------------------------------------------------------------------
+# Phases 29-31: gradient accumulation, remat, precise-BN
+# ---------------------------------------------------------------------------
+
+# Phase 29: the ImageNet CLI at ResNet-50, 224 px, batch 256 as 4
+# micro-batches of 64, newton, one fixed batch, 12 steps (firings at 0 and
+# 10): K1 and K2 run once per micro-batch on factor steps, K3 once per
+# step, K4 once per size bucket per firing.
+ACCUM_BATCH, ACCUM_N, ACCUM_STEPS = 256, 4, 12
+# Peak device memory of ResNet-50 under newton (2 steps, one firing) at
+# batch 64 and at batch 256 in one pass, beside the accumulated run's.
+# The one-pass case runs because the builder's probe on the H100
+# (``scripts/accum_memory_probe.py``) showed it fits (PERF.md §6); an
+# out-of-memory error there fails the phase.
+ACCUM_MEMORY_CASES = ((R50_BATCH, 1), (ACCUM_BATCH, 1))
+# Then the CIFAR CLI at ResNet-32 GN, batch 512, --grad-accum 4 against
+# --grad-accum 1, 3 steps (inverses every 2nd, exact eigh: the warm
+# polish's basis is sensitive to fp32 summation order), held: every
+# step's loss 1e-5 relative, the final factors within 1e-5 of the largest
+# entry, the first step's preconditioned gradients (one step each, from
+# the same parameters) within 1e-4 of the largest entry of all of them
+# (the largest gaps per tensor, relative to the tensor's own largest
+# entry, are printed: the GN net's initial logits are large, so the
+# forward's convolution sums, taken in another order at batch 128 than
+# at 512, move a small cancelling gradient such as the head's bias by up
+# to ~5e-4 of itself on the H100). The final step's gradients are
+# printed, not held: the K-FAC updates amplify the first step's gap (a
+# CPU rehearsal at batch 64: 3e-5 at step 0, 1e-3 at step 1, 1e-2 at
+# step 2; the JAX suite holds its accumulated run at rtol 1e-2).
+ACCUM_GN_BATCH, ACCUM_GN_STEPS = 512, 3
+ACCUM_GN_TOL = {'factors': 1e-5, 'precond': 1e-4, 'loss': 1e-5}
+# Phase 30: ResNet-50 with --remat against without, --deterministic, 3
+# steps (a firing at step 0), at each batch; held within these relative
+# to the largest entry (bit for bit expected: the recomputation repeats
+# the forward pass's deterministic arithmetic).
+REMAT_BATCHES, REMAT_STEPS = (R50_BATCH, 2 * R50_BATCH), 3
+REMAT_TOL = {'loss': 1e-6, 'factors': 1e-5, 'precond': 1e-4,
+             'buffers': 1e-5}
+# Phase 31: --precise-bn-batches 4 on the ImageNet CLI (ResNet-50, 224
+# px, batch 64, one epoch of 4 steps): the evaluation's statistics within
+# 1e-5 of the plain average taken by hand; then ResNet-32 GN on the 4
+# gloo ranks at world batch GLOO_BATCH with grad_accum 2, each step held
+# to the single-device single pass at STEP_TOL (the preconditioned
+# gradients relative to the largest entry of all of them).
+PRECISE_BN_BATCHES, PRECISE_BN_TOL = 4, 1e-5
+ACCUM_GLOO_N = 2
+ACCUM_GLOO_CASES = (('comm_opt', 'comm-opt', 0.0, (1, 4)),
+                    ('hybrid_opt', 'hybrid-opt', 0.5, (2, 2)))
+
+
+def _gib(n: float) -> float:
+    return n / 2 ** 30
+
+
+def _measured_run(module, config: dict) -> tuple[dict, dict, float]:
+    """A CLI's ``train`` on the card with the launch counts reset just
+    before and read just after; returns ``(result, launches, peak GiB)``,
+    the peak of allocated device memory above what was allocated when it
+    started."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    _release()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    res = module.train(config, device='cuda')
+    launches = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    peak = _gib(torch.cuda.max_memory_allocated() - base)
+    return res, launches, peak
+
+
+@contextlib.contextmanager
+def _cudnn_flags():
+    """cuDNN's determinism flags as they were after the block (the CLIs'
+    ``--deterministic`` sets them for the process)."""
+    import torch
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+def _tensor_rel(got, want) -> float:
+    """``max|got - want| / max|want|`` of two tensors (0 when equal)."""
+    import torch
+    if torch.equal(got, want):
+        return 0.0
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def _state_gaps(a, b) -> dict:
+    """Largest relative gaps of two runs' final states: factors,
+    preconditioned gradients (``p.grad`` after the last step), buffers;
+    and whether each is bit for bit."""
+    import torch
+    sa, sb = a['state'], b['state']
+    pairs = {
+        'factors': [(sa.kfac_state['factors'][n][s],
+                     sb.kfac_state['factors'][n][s])
+                    for n in sb.kfac_state['factors'] for s in 'AG'],
+        'precond': [(pa.grad, pb.grad) for (_, pa), (_, pb) in zip(
+            sa.model.named_parameters(), sb.model.named_parameters())],
+        'buffers': [(x, y) for (_, x), (_, y) in zip(
+            sa.model.named_buffers(), sb.model.named_buffers())
+            if y.is_floating_point()]}
+    out = {}
+    for key, ps in pairs.items():
+        out[key] = max((_tensor_rel(x, y) for x, y in ps), default=0.0)
+        out[f'{key}_bitwise'] = all(torch.equal(x, y) for x, y in ps)
+    out['counters_equal'] = all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(
+            sa.model.named_buffers(), sb.model.named_buffers())
+        if not y.is_floating_point())
+    return out
+
+
+def _grad_gaps(a, b) -> tuple[list, float]:
+    """The preconditioned gradients (``p.grad`` after the last step) of
+    two runs: per tensor the largest gap relative to the tensor's largest
+    entry (worst first), and the largest gap of all relative to the
+    largest entry of all."""
+    per, gap, top = [], 0.0, 0.0
+    for (name, pa), (_, pb) in zip(a['state'].model.named_parameters(),
+                                   b['state'].model.named_parameters()):
+        per.append({'name': name, 'entry': _tensor_rel(pa.grad, pb.grad)})
+        gap = max(gap, float((pa.grad - pb.grad).abs().max()))
+        top = max(top, float(pb.grad.abs().max()))
+    return sorted(per, key=lambda w: -w['entry']), gap / max(top, 1e-30)
+
+
+def run_grad_accum(card: str) -> dict:
+    """Phase 29: ResNet-50 at batch 256 as 4 micro-batches through the
+    ImageNet CLI; the peak memory cases; ResNet-32 GN accumulated against
+    its single pass through the CIFAR CLI."""
+    from distributed_kfac_pytorch_tpu_torch import train_cifar10_resnet, \
+        train_imagenet_resnet
+    config = _r50_config(batch_size=ACCUM_BATCH, synthetic_size=ACCUM_BATCH,
+                         grad_accum=ACCUM_N, epochs=ACCUM_STEPS,
+                         inverse_method='newton')
+    res, launches, peak = _measured_run(train_imagenet_resnet, config)
+    res.pop('state')
+    losses, n = res['losses'], res['steps']
+    log(f'  batch {ACCUM_BATCH} as {ACCUM_N} x {ACCUM_BATCH // ACCUM_N}: '
+        f'losses {[round(v, 4) for v in losses]}')
+    if n != ACCUM_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f'grad accum: {n} steps, losses {losses}')
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not last < first:
+        raise AssertionError(f'grad accum: loss did not decrease: first '
+                             f'three {first:.4f}, last three {last:.4f}')
+    firings = res['fired'].count('inverse')
+    # The single pass's plan, extended: K1 and K2 once per micro-batch.
+    expected = {'factor_ema': R50_PER_STEP['factor_ema'] * ACCUM_N * n,
+                'patch_cov': R50_PER_STEP['patch_cov'] * ACCUM_N * n,
+                'bucket_precond': R50_PER_STEP['bucket_precond'] * n,
+                'ns_inverse': R50_PER_FIRING * firings, 'jacobi_eigh': 0}
+    if launches != expected:
+        raise AssertionError(f'grad accum: launches {launches}, expected '
+                             f'{expected}')
+    firing, plain = _step_ms(res)
+    summary = {'losses': losses, 'launches': launches, 'firings': firings,
+               'nonfiring_ms_median': statistics.median(plain),
+               'firing_ms': firing, 'peak_gib': peak}
+    log(f'  launches {launches} = {ACCUM_N} x K1/K2 per factor step; '
+        f'non-firing {summary["nonfiring_ms_median"]:.2f} ms (median), '
+        f'firing {[round(t, 1) for t in firing]} ms; peak '
+        f'{peak:.2f} GiB ({card})')
+    memory = [{'batch': ACCUM_BATCH, 'grad_accum': ACCUM_N,
+               'peak_gib': peak, 'step_ms': res['step_ms']}]
+    for batch, accum in ACCUM_MEMORY_CASES:
+        mres, _, mpeak = _measured_run(train_imagenet_resnet, _r50_config(
+            batch_size=batch, synthetic_size=batch, grad_accum=accum,
+            epochs=2, inverse_method='newton'))
+        mres.pop('state')
+        if not all(math.isfinite(v) for v in mres['losses']):
+            raise AssertionError(f'memory case {batch} x{accum}: losses '
+                                 f'{mres["losses"]}')
+        memory.append({'batch': batch, 'grad_accum': accum,
+                       'peak_gib': mpeak, 'step_ms': mres['step_ms']})
+        log(f'  ResNet-50 batch {batch}, --grad-accum {accum}: peak '
+            f'{mpeak:.2f} GiB above the process baseline; step ms '
+            f'{[round(t, 1) for t in mres["step_ms"]]} ({card})')
+    summary['memory'] = memory
+    # ResNet-32 GN: --grad-accum 4 against the single pass, 3 steps and
+    # the first step alone.
+    gn = {}
+    with _cudnn_flags():
+        for accum in (1, ACCUM_N):
+            for steps in (1, ACCUM_GN_STEPS):
+                gres, glaunch, _ = _measured_run(train_cifar10_resnet, {
+                    'model': 'resnet32gn', 'batch_size': ACCUM_GN_BATCH,
+                    'synthetic_size': ACCUM_GN_BATCH,
+                    'val_batch_size': ACCUM_GN_BATCH // 4, 'epochs': steps,
+                    'no_augment': True, 'seed': 0, 'kfac_update_freq': 2,
+                    'kfac_cov_update_freq': 1, 'eigh_method': 'xla',
+                    'grad_accum': accum, 'deterministic': True,
+                    'time_steps': True, 'quiet': True})
+                want = {'factor_ema': R32_PER_STEP_K1 * accum * steps,
+                        'patch_cov': R32_PER_STEP_K2 * accum * steps}
+                if {k: glaunch[k] for k in want} != want:
+                    raise AssertionError(f'resnet32gn x{accum}: launches '
+                                         f'{glaunch}, expected {want}')
+                gn[accum, steps] = (gres, glaunch)
+    (one, l1), (acc, l4) = gn[1, ACCUM_GN_STEPS], gn[ACCUM_N, ACCUM_GN_STEPS]
+    gaps = _state_gaps(acc, one)
+    gaps['loss'] = max(abs(a - b) / abs(b) for a, b in
+                       zip(acc['losses'], one['losses']))
+    worst, gaps['precond'] = _grad_gaps(gn[ACCUM_N, 1][0], gn[1, 1][0])
+    gaps['precond_final'] = _grad_gaps(acc, one)[1]
+    gaps['precond_tensors'] = worst[:3]
+    log(f'  ResNet-32 GN batch {ACCUM_GN_BATCH}, --grad-accum {ACCUM_N} vs '
+        f'1 over {ACCUM_GN_STEPS} steps: losses '
+        f'{[round(v, 5) for v in acc["losses"]]} vs '
+        f'{[round(v, 5) for v in one["losses"]]}; largest gaps: losses '
+        f'{gaps["loss"]:.2e}, final factors {gaps["factors"]:.2e}, '
+        f'first step\'s preconditioned grads {gaps["precond"]:.2e} of the '
+        f'largest entry (limits {ACCUM_GN_TOL}); per tensor, of its own '
+        f'largest: {[(w["name"], f"{w["entry"]:.2e}") for w in worst[:3]]}; '
+        f'final step\'s {gaps["precond_final"]:.2e} (not held); step ms '
+        f'{[round(t, 1) for t in acc["step_ms"]]} vs '
+        f'{[round(t, 1) for t in one["step_ms"]]}')
+    bad = {k: gaps[k] for k in ACCUM_GN_TOL if not gaps[k] <= ACCUM_GN_TOL[k]}
+    if bad:
+        raise AssertionError(f'resnet32gn accumulated vs single pass: {bad}')
+    launches_all = dict(launches)
+    for (accum, steps), (r, lc) in gn.items():
+        r.pop('state')
+        if steps == ACCUM_GN_STEPS:
+            launches_all = {k: launches_all[k] + lc.get(k, 0)
+                            for k in launches_all}
+    summary.update({'resnet32gn': {'gaps': gaps, 'losses_accum':
+                                   acc['losses'], 'losses_single':
+                                   one['losses'], 'step_ms_accum':
+                                   acc['step_ms'], 'step_ms_single':
+                                   one['step_ms'], 'launches_accum': l4,
+                                   'launches_single': l1},
+                    'launches': launches_all})
+    return summary
+
+
+def run_remat(card: str) -> dict:
+    """Phase 30: ResNet-50 with and without --remat, --deterministic, at
+    each batch of REMAT_BATCHES: the runs held equal; peak memory and
+    step ms of each."""
+    from distributed_kfac_pytorch_tpu_torch import train_imagenet_resnet
+    out = {'cases': [], 'launches': {}}
+    with _cudnn_flags():
+        for batch in REMAT_BATCHES:
+            runs = {}
+            for remat in (False, True):
+                config = _r50_config(batch_size=batch, synthetic_size=batch,
+                                     val_batch_size=R50_BATCH,
+                                     epochs=REMAT_STEPS, remat=remat,
+                                     deterministic=True)
+                res, launches, peak = _measured_run(train_imagenet_resnet,
+                                                    config)
+                expected = {name: per * REMAT_STEPS
+                            for name, per in R50_PER_STEP.items()}
+                expected['ns_inverse'] = expected['jacobi_eigh'] = 0
+                if launches != expected:
+                    raise AssertionError(f'remat={remat} batch {batch}: '
+                                         f'launches {launches}')
+                if res['state'].model.remat is not remat:
+                    raise AssertionError('remat flag not on the model')
+                for k, v in launches.items():
+                    out['launches'][k] = out['launches'].get(k, 0) + v
+                runs[remat] = (res, peak)
+            (plain, p_peak), (remat, r_peak) = runs[False], runs[True]
+            gaps = _state_gaps(remat, plain)
+            gaps['loss'] = max(abs(a - b) / abs(b) for a, b in
+                               zip(remat['losses'], plain['losses']))
+            gaps['loss_bitwise'] = remat['losses'] == plain['losses']
+            p_ms = statistics.median(plain['step_ms'][1:])
+            r_ms = statistics.median(remat['step_ms'][1:])
+            case = {'batch': batch, 'gaps': gaps,
+                    'peak_gib': {'plain': p_peak, 'remat': r_peak},
+                    'nonfiring_ms': {'plain': p_ms, 'remat': r_ms},
+                    'step_ms': {'plain': plain['step_ms'],
+                                'remat': remat['step_ms']},
+                    'losses': plain['losses']}
+            log(f'  batch {batch}: peak {p_peak:.2f} -> {r_peak:.2f} GiB '
+                f'with --remat; non-firing step {p_ms:.2f} -> {r_ms:.2f} '
+                f'ms (x{r_ms / p_ms:.3f}); largest gaps: loss '
+                f'{gaps["loss"]:.2e}, factors {gaps["factors"]:.2e}, '
+                f'preconditioned grads {gaps["precond"]:.2e}, BN buffers '
+                f'{gaps["buffers"]:.2e}; bit for bit: '
+                f'{ {k[:-8]: v for k, v in gaps.items() if k.endswith("_bitwise")} }'
+                f', counters equal {gaps["counters_equal"]} ({card})')
+            bad = {k: gaps[k] for k in REMAT_TOL
+                   if not gaps[k] <= REMAT_TOL[k]}
+            if bad or not gaps['counters_equal']:
+                raise AssertionError(f'remat batch {batch}: {bad}')
+            plain.pop('state')
+            remat.pop('state')
+            out['cases'].append(case)
+    return out
+
+
+def run_precise_bn(card: str) -> dict:
+    """Phase 31, first part: --precise-bn-batches through the ImageNet
+    CLI at ResNet-50; the evaluation's statistics against the plain
+    average taken by hand over the same batches at the same weights, the
+    training statistics back bit for bit."""
+    import copy
+
+    import numpy as np
+    import torch
+    from distributed_kfac_pytorch_tpu_torch import train_imagenet_resnet
+    from distributed_kfac_pytorch_tpu_torch.training import datasets, engine
+    seen = {}
+    recalibrate, evaluate = engine.precise_bn_recalibrate, engine.evaluate
+
+    def spy_recalibrate(model, batches, **kw):
+        batches = list(batches)
+        seen.update(batches=batches, model=copy.deepcopy(model),
+                    training={k: v.clone()
+                              for k, v in model.state_dict().items()})
+        t0 = time.perf_counter()
+        out = recalibrate(model, batches, **kw)
+        torch.cuda.synchronize()
+        seen['recal_ms'] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def spy_evaluate(model, batches, **kw):
+        seen['eval'] = {k: v.clone() for k, v in model.state_dict().items()}
+        return evaluate(model, batches, **kw)
+
+    steps = PRECISE_BN_BATCHES
+    config = _r50_config(synthetic_size=steps * R50_BATCH, epochs=1,
+                         precise_bn_batches=PRECISE_BN_BATCHES)
+    engine.precise_bn_recalibrate, engine.evaluate = (spy_recalibrate,
+                                                      spy_evaluate)
+    try:
+        res, launches, _ = _measured_run(train_imagenet_resnet, config)
+    finally:
+        engine.precise_bn_recalibrate, engine.evaluate = (recalibrate,
+                                                          evaluate)
+    expected = {name: per * steps for name, per in R50_PER_STEP.items()}
+    expected['ns_inverse'] = expected['jacobi_eigh'] = 0
+    if launches != expected:
+        raise AssertionError(f'precise-BN: launches {launches}')
+    train_data, _ = datasets.get_imagenet(
+        None, image_size=config['image_size'],
+        synthetic_size=steps * R50_BATCH)
+    stream = datasets.epoch_batches(*train_data, R50_BATCH, seed=0, epoch=0)
+    want = [next(stream) for _ in range(PRECISE_BN_BATCHES)]
+    if not all(np.array_equal(g[0], w[0]) for g, w in
+               zip(seen['batches'], want)):
+        raise AssertionError('precise-BN: not the epoch stream\'s first '
+                             'batches')
+    # By hand: each BatchNorm's input per batch, training mode, float64.
+    model = seen['model']
+    sums, hooks = {}, []
+
+    def hook(mod, inp, name):
+        x = inp[0].double()
+        m, v = sums.get(name, (0.0, 0.0))
+        sums[name] = (m + x.mean(dim=(0, 2, 3)),
+                      v + x.var(dim=(0, 2, 3), unbiased=True))
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, torch.nn.BatchNorm2d):
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, inp, name=name: hook(m, inp, name)))
+    model.train()
+    with torch.no_grad():
+        for x, _ in want:
+            model(torch.as_tensor(x, device='cuda'))
+    for h in hooks:
+        h.remove()
+    gaps = {'mean': 0.0, 'var': 0.0}
+    for name, (m, v) in sums.items():
+        for key, hand in (('mean', m), ('var', v)):
+            hand = (hand / PRECISE_BN_BATCHES).float()
+            got = seen['eval'][f'{name}.running_{key}']
+            gaps[key] = max(gaps[key], _tensor_rel(got, hand))
+    final = res.pop('state').model.state_dict()
+    restored = all(torch.equal(final[k], v)
+                   for k, v in seen['training'].items())
+    moved = max(_tensor_rel(seen['eval'][k], v)
+                for k, v in seen['training'].items()
+                if k.endswith('running_var'))
+    log(f'  {PRECISE_BN_BATCHES} batches of {R50_BATCH}, {len(sums)} '
+        f'BatchNorms: recalibrated against by hand: means '
+        f'{gaps["mean"]:.2e}, variances {gaps["var"]:.2e} (limit '
+        f'{PRECISE_BN_TOL}); the EWMA variances they replaced differ by up '
+        f'to {moved:.2e}; training buffers back bit for bit: {restored}; '
+        f'recalibration {seen["recal_ms"]:.1f} ms ({card})')
+    if not (gaps['mean'] <= PRECISE_BN_TOL and gaps['var'] <= PRECISE_BN_TOL
+            and restored):
+        raise AssertionError(f'precise-BN: {gaps}, restored {restored}')
+    return {'gaps': gaps, 'restored': restored, 'ewma_gap': moved,
+            'recal_ms': seen['recal_ms'], 'launches': launches,
+            'losses': res['losses']}
+
+
+def accum_dist_worker(cfg: dict) -> int:
+    """One rank of phase 31's world (``--dist-worker`` with phase
+    ``'resnet32gn_accum'``): ResNet-32 GN at full width, this rank's slice
+    of one global batch as ACCUM_GLOO_N micro-batches
+    (``engine.accumulate_pass``), ``DistributedKFAC.step(contribs=)``;
+    rank 0 holds each step against the single-device ``KFAC`` single pass
+    on the full batch at STEP_TOL (and the loss at 1e-5), the
+    preconditioned gradients relative to the largest entry of all of them
+    (as phase 29's GN comparison; the largest per-tensor gap is printed:
+    it reached 1.05e-4 at a third hybrid-opt step on the H100, where the
+    K-FAC updates amplify the two fp32 summation orders' gap in a small
+    tensor)."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from distributed_kfac_pytorch_tpu_torch import launch, \
+        set_fp32_precision
+    from distributed_kfac_pytorch_tpu_torch.models import cifar_resnet
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    from distributed_kfac_pytorch_tpu_torch.parallel.distributed import \
+        DistributedKFAC
+    from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
+    from distributed_kfac_pytorch_tpu_torch.training import engine
+
+    set_fp32_precision()
+    meta = launch.initialize_distributed(
+        init_method=f'file://{cfg["store"]}', backend='gloo',
+        device='cuda:0', timeout=600)
+    rank, dev = meta['process_index'], torch.device('cuda:0')
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(GLOO_BATCH, 3, 32, 32, generator=gen).to(dev)
+    y = torch.randint(0, 10, (GLOO_BATCH,), generator=gen).to(dev)
+    local = launch.process_local_slice(GLOO_BATCH)
+    torch.manual_seed(0)
+    model = cifar_resnet.get_model('resnet32gn').to(dev)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    knobs = dict(inverse_method='eigen', eigh_method='xla',
+                 factor_update_freq=1, inv_update_freq=GLOO_INV_FREQ,
+                 damping=0.003, lr=0.1, kl_clip=0.001, device=dev)
+    report = {'rank': rank, 'cases': []}
+    failures = []
+    for name, comm, frac, grid in ACCUM_GLOO_CASES:
+        model.load_state_dict(init)
+        kfac = KFAC(model, **knobs)
+        dk = DistributedKFAC(kfac, comm_method=comm,
+                             grad_worker_fraction=frac)
+        ts = engine.TrainState(model=model, optimizer=None, kfac=dk,
+                               kfac_state=dk.init_state(), distributed=True,
+                               grad_accum=ACCUM_GLOO_N)
+        work = dk.local_work()
+        ref = ref_state = None
+        if rank == 0:
+            ref = KFAC(model, **knobs)
+            ref_state = ref.init_state()
+        launches = dict.fromkeys(kernels.LAUNCHES, 0)
+        errors, step_ms = [], []
+        for step in range(GLOO_STEPS):
+            inv = step % GLOO_INV_FREQ == 0
+            torch.cuda.synchronize()
+            dist.barrier()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            loss, _, grads, captures, contribs = engine.accumulate_pass(
+                ts, x[local], y[local], factor_update=True)
+            *means, loss = engine.world_mean([*grads.values(), loss])
+            grads = dict(zip(grads, means))
+            precond, ts.kfac_state = dk.step(
+                ts.kfac_state, grads, captures, contribs=contribs,
+                factor_update=True, inv_update=inv)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            for k, v in kernels.LAUNCHES.items():
+                launches[k] += v
+            if rank == 0:
+                r_loss, _, g_full, c_full = ref.capture.loss_and_grads(
+                    lambda out: F.cross_entropy(out, y), x)
+                p_ref, ref_state = ref.step(ref_state, g_full, c_full,
+                                            factor_update=True,
+                                            inv_update=inv)
+                gap = max(float((precond[n] - p_ref[n]).abs().max())
+                          for n in p_ref)
+                top = max(float(p_ref[n].abs().max()) for n in p_ref)
+                err = {'factors': _max_rel(
+                           (ts.kfac_state['factors'][n][s],
+                            ref_state['factors'][n][s])
+                           for n in ref.specs for s in 'AG'),
+                       'precond': gap / top,
+                       'precond_per_tensor': _max_rel(
+                           (precond[n], p_ref[n]) for n in p_ref),
+                       'nu': _max_rel([(dk.last_nu, ref.last_nu)]),
+                       'loss': float(abs(loss - r_loss) / abs(r_loss))}
+                errors.append(err)
+                bad = {k: err[k] for k in ('factors', 'precond', 'nu', 'loss')
+                       if not err[k] <= STEP_TOL.get(k, 1e-5)}
+                if bad:
+                    failures.append(f'{name} step {step}: {bad}')
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p -= 0.1 * precond[n]
+        expected = dict.fromkeys(kernels.LAUNCHES, 0)
+        expected.update({
+            'factor_ema': R32_PER_STEP_K1 * ACCUM_GLOO_N * GLOO_STEPS,
+            'patch_cov': R32_PER_STEP_K2 * ACCUM_GLOO_N * GLOO_STEPS,
+            'bucket_precond': len(work['precondition']) * GLOO_STEPS})
+        if launches != expected:
+            failures.append(f'{name}: rank {rank} launches {launches}, '
+                            f'expected {expected}')
+        if (dk.n_rows, dk.n_cols) != grid:
+            failures.append(f'{name}: grid {(dk.n_rows, dk.n_cols)}')
+        report['cases'].append({
+            'name': name, 'grid': [dk.n_rows, dk.n_cols], 'row': dk.row,
+            'col': dk.col, 'launches': launches, 'expected': expected,
+            'errors': errors, 'step_ms': step_ms})
+        kfac.capture.close()
+        if ref is not None:
+            ref.capture.close()
+    report['failures'] = failures
+    Path(cfg['out']).write_text(json.dumps(report, indent=1))
+    dist.destroy_process_group()
+    return 1 if failures else 0
+
+
+def run_accum_gloo_world(card: str) -> dict:
+    """Phase 31, second part: ResNet-32 GN on GLOO_WORLD gloo ranks with
+    grad_accum ACCUM_GLOO_N; fails if any rank fails."""
+    reports = _run_gloo_ranks('resnet32gn_accum', timeout=300)
+    worst = {}
+    for i, case in enumerate(reports[0]['cases']):
+        errs = case['errors']
+        worst[case['name']] = w = {k: max(e[k] for e in errs)
+                                   for k in errs[0]}
+        log(f'  {case["name"]} grid {case["grid"]}, {ACCUM_GLOO_N} '
+            f'micro-batches of {GLOO_BATCH // GLOO_WORLD // ACCUM_GLOO_N} '
+            f'per rank: rank 0 vs the single-device single pass over '
+            f'{len(errs)} steps: factors {w["factors"]:.2e}, preconditioned '
+            f'grads {w["precond"]:.2e} of the largest entry (per tensor '
+            f'{w["precond_per_tensor"]:.2e}, not held), nu {w["nu"]:.2e}, '
+            f'loss {w["loss"]:.2e} (limits {STEP_TOL}, loss 1e-5)')
+        for rep in reports:
+            c = rep['cases'][i]
+            log(f'    rank {rep["rank"]} (row {c["row"]}, col {c["col"]}): '
+                f'launches { {k: v for k, v in c["launches"].items() if v} }'
+                f'; step ms {[round(t, 1) for t in c["step_ms"]]}')
+    total = _launch_total(reports)
+    log(f'  all ranks: launches {total} ({card})')
+    return {'launches': total, 'worst': worst, 'ranks': reports}
+
+
+def run_accum_phases(card: str) -> dict:
+    """Phases 29-31 with their wall time."""
+    t0 = time.perf_counter()
+    log(f'== gradient accumulation: the ImageNet CLI at ResNet-50, 224 px, '
+        f'batch {ACCUM_BATCH} as --grad-accum {ACCUM_N}, newton, '
+        f'{ACCUM_STEPS} steps on one batch; peak memory beside it at batch '
+        f'{R50_BATCH} and {ACCUM_BATCH} in one pass; the CIFAR CLI at '
+        f'ResNet-32 GN, batch {ACCUM_GN_BATCH}, --grad-accum {ACCUM_N} '
+        f'against 1, {ACCUM_GN_STEPS} steps')
+    out = {'grad_accum': run_grad_accum(card)}
+    t1 = time.perf_counter()
+    log(f'  phase 29: {t1 - t0:.1f} s')
+    log(f'== block rematerialization: ResNet-50 --remat against without, '
+        f'--deterministic, batches {REMAT_BATCHES}, {REMAT_STEPS} steps')
+    out['remat'] = run_remat(card)
+    t2 = time.perf_counter()
+    log(f'  phase 30: {t2 - t1:.1f} s')
+    log(f'== precise-BN and distribution: the ImageNet CLI at ResNet-50 '
+        f'with --precise-bn-batches {PRECISE_BN_BATCHES}; ResNet-32 GN, '
+        f'{GLOO_WORLD} gloo ranks on one card, world batch {GLOO_BATCH} '
+        f'with grad_accum {ACCUM_GLOO_N}, {len(ACCUM_GLOO_CASES)} mesh '
+        f'cases x {GLOO_STEPS} steps')
+    out['precise_bn'] = run_precise_bn(card)
+    out['accum_gloo_world'] = run_accum_gloo_world(card)
+    t3 = time.perf_counter()
+    log(f'  phase 31: {t3 - t2:.1f} s')
+    log(f'  phases 29-31: {t3 - t0:.1f} s wall ({card})')
+    out['accum_seconds'] = {'29': t1 - t0, '30': t2 - t1, '31': t3 - t2,
+                            'total': t3 - t0}
+    return out
+
+
 def _category(name: str) -> str:
     """Coarse owner of a CUDA kernel, from its (mangled) name."""
     n = name.lower()
@@ -4380,6 +5000,9 @@ def main(argv=None) -> int:
     ap.add_argument('--resume-only', action='store_true',
                     help='build, then run phases 27-28 only (no result '
                          'line)')
+    ap.add_argument('--accum-only', action='store_true',
+                    help='build, then run phases 29-31 only (no result '
+                         'line)')
     ap.add_argument('--determinism-probe', action='store_true',
                     help="build, then measure what phase 27's "
                          '--deterministic buys and costs (no result '
@@ -4392,7 +5015,8 @@ def main(argv=None) -> int:
         sys.path.insert(0, str(ROOT))
         cfg = json.loads(args.dist_worker)
         return {'lm': lm_dist_worker, 'seq': seq_dist_worker,
-                'resnet32_overlap': overlap_dist_worker}.get(
+                'resnet32_overlap': overlap_dist_worker,
+                'resnet32gn_accum': accum_dist_worker}.get(
             cfg['phase'], dist_worker)(cfg)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -4417,6 +5041,14 @@ def main(argv=None) -> int:
     log(f'  built {sorted(p.name for p in paths.values())} in '
         f'{time.perf_counter() - t0:.1f} s')
 
+    if args.accum_only:
+        report = {'card': card, **run_accum_phases(card)}
+        out_dir = ROOT / 'chiprun_out'
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / 'chip_smoke_accum.json').write_text(
+            json.dumps(report, indent=1))
+        log('done')
+        return 0
     if args.resume_only or args.determinism_probe:
         report = {'card': card}
         if args.determinism_probe:
@@ -4551,6 +5183,7 @@ def main(argv=None) -> int:
             'steps')
         report['overlap_gloo_world'] = run_overlap_gloo_world(card)
         report.update(run_resume_phases(card))
+        report.update(run_accum_phases(card))
         runs = (main_summary, r50, report['resnet50_auto'],
                 report['lstm_jacobi'], report['lm_defaults'],
                 report['resnet32_jacobi'], report['resnet50_nccl_world1'],
@@ -4563,7 +5196,9 @@ def main(argv=None) -> int:
                 report['seq_gloo_world'], report['resnet152_config5'],
                 report['bf16_gloo_world'], report['firing_schedule'],
                 report['overlap_gloo_world'], report['resume_resnet50'],
-                report['resume_gloo_world'])
+                report['resume_gloo_world'], report['grad_accum'],
+                report['remat'], report['precise_bn'],
+                report['accum_gloo_world'])
         launches = {name: sum(r['launches'].get(name, 0) for r in runs)
                     for name in kernels.LAUNCHES}
         aggs = {**summary50, 'ns_inverse': summary_ns,

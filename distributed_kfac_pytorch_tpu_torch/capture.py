@@ -5,7 +5,8 @@ Registration walks ``model.named_modules()`` once: every ``nn.Linear``,
 every ``nn.Conv2d`` with ``groups=1`` and every ``nn.Embedding`` (or the
 port's :class:`~distributed_kfac_pytorch_tpu_torch.modules.embed.Embed`)
 becomes a :class:`LayerSpec`; anything else that holds parameters is
-recorded in :attr:`KFACCapture.skipped_modules` with its reason.
+recorded in :attr:`KFACCapture.skipped_modules` with its reason, as is
+every module a ``trainable`` predicate marks frozen.
 
 Capture uses forward hooks: while recording, each registered module's
 input is kept (``a``; an embedding's ids) and a tensor hook on its output
@@ -21,6 +22,12 @@ is wrapped while the capture is open; each recorded call adds ``x`` to
 the layer's ``a_tied`` stream and the logits' gradient to ``g_tied``,
 paired by index. The weight's gradient stays the sum over both uses. A
 bare ``x @ embed.weight.T`` is invisible to capture.
+
+A rematerialized block (``torch.utils.checkpoint`` with
+:func:`recomputation` as its recompute context) is captured in the
+forward pass only: its recomputation in the backward pass fires the
+forward hooks again, and they record nothing while it runs, so each layer
+is captured once per pass, as under the JAX package's ``nn.remat``.
 
 ``capture_dtype`` (the JAX knob) casts the kept activations: ``None``
 and ``'auto'`` keep them as they are (the JAX package casts under
@@ -39,6 +46,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import threading
 from typing import Any, Callable, Sequence
 
 import torch
@@ -56,6 +64,24 @@ EMBEDDING = 'embedding'
 KFAC_EXPAND = 'expand'
 KFAC_REDUCE = 'reduce'
 KFAC_APPROXES = (KFAC_EXPAND, KFAC_REDUCE)
+
+# Depth of :func:`recomputation` contexts on this thread (the autograd
+# thread that recomputes a checkpointed block).
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputation():
+    """The recomputation of a rematerialized block in the backward pass
+    (``torch.utils.checkpoint``'s recompute context): no capture records
+    inside, so the layers the block's forward pass captured are not
+    captured a second time."""
+    depth = getattr(_RECOMPUTE, 'depth', 0)
+    _RECOMPUTE.depth = depth + 1
+    try:
+        yield
+    finally:
+        _RECOMPUTE.depth = depth
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,7 +161,10 @@ class KFACCapture:
 
     ``skip_layers``: module names or class names (case-insensitive) whose
     subtrees are left out; frozen modules (no parameter requiring grad)
-    are left out too. ``tied_embeddings``: also capture the ``attend``
+    are left out too, and so is every module for which ``trainable(name)``
+    is false (the JAX predicate, given the module's ``named_modules`` name,
+    ``a.b``, where JAX joins its path as ``a/b``): its parameters get plain
+    gradients and no factor work. ``tied_embeddings``: also capture the ``attend``
     calls of registered ``Embed`` modules (the tied decoder).
     ``capture_dtype``: ``'auto'`` or None keep captured activations as
     they are, a dtype casts floating ones to it (never the output-grads).
@@ -146,8 +175,10 @@ class KFACCapture:
     def __init__(self, model: nn.Module,
                  skip_layers: str | Sequence[str] | None = None,
                  tied_embeddings: bool = False,
-                 capture_dtype: Any = 'auto'):
+                 capture_dtype: Any = 'auto',
+                 trainable: Callable[[str], bool] | None = None):
         self.model = model
+        self.trainable = trainable
         self.tied_embeddings = bool(tied_embeddings)
         self.capture_dtype = capture_dtype
         if skip_layers is None:
@@ -184,6 +215,11 @@ class KFACCapture:
                 if path:
                     self._skipped[name] = 'skip_layers match'
                 continue
+            if self.trainable is not None and not self.trainable(name):
+                if path:
+                    self._skipped[name] = ('frozen (trainable predicate): '
+                                           'plain gradients, no factor work')
+                continue
             own = list(mod.parameters(recurse=False))
             if not isinstance(mod, (nn.Linear, nn.Conv2d, nn.Embedding)):
                 if own:
@@ -211,8 +247,9 @@ class KFACCapture:
                 a_store: dict, g_store: dict) -> bool:
         """Keep ``x`` and, through a tensor hook on ``y``, the gradient of
         the loss with respect to ``y``, as one call of ``name``; False
-        outside recording."""
-        if not self._recording or not torch.is_grad_enabled():
+        outside recording and while a rematerialized block recomputes."""
+        if (not self._recording or not torch.is_grad_enabled()
+                or getattr(_RECOMPUTE, 'depth', 0)):
             return False
         calls_a = a_store.setdefault(name, [])
         calls_g = g_store.setdefault(name, [])

@@ -8,22 +8,58 @@ Submodule names mirror the flax model (``conv1``, ``bn1``,
 ``downsample_bn``, ``fc``) so parameters convert name for name
 (``convert.py``). ReLU is never in place, so the K-FAC output-grad hooks
 see the tensors the layers produced. fp32 only: the JAX model's ``dtype``
-(bf16 / fp16 activations) and ``remat`` (block rematerialization) are not
-ported.
+(bf16 / fp16 activations) is not ported.
+
+``remat=True`` rematerializes each residual block in training (the JAX
+model's ``nn.remat``): ``torch.utils.checkpoint`` (non-reentrant) keeps
+the block's input only and recomputes its activations in the backward
+pass (:func:`remat_block`). The recomputation runs under
+``capture.recomputation`` (the K-FAC capture keeps the forward pass's
+records only) and leaves the block's BatchNorm running statistics as the
+forward pass left them, as flax discards a remat's mutations: a remat
+step updates them once, as the plain step does.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from distributed_kfac_pytorch_tpu_torch.capture import recomputation
 
 
 def _bn(planes: int, bn_momentum: float) -> nn.BatchNorm2d:
     # flax momentum m (new = m*old + (1-m)*batch) is torch momentum 1-m.
     return nn.BatchNorm2d(planes, eps=1e-5, momentum=1.0 - bn_momentum)
+
+
+@contextlib.contextmanager
+def _recompute(block: nn.Module):
+    """A block's recomputation: no capture records, and its buffers (the
+    BatchNorm running statistics and counters) back as they were when it
+    ends, early stop included."""
+    saved = [b.clone() for b in block.buffers()]
+    try:
+        with recomputation():
+            yield
+    finally:
+        with torch.no_grad():
+            for b, v in zip(block.buffers(), saved):
+                b.copy_(v)
+
+
+def remat_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` with its activations recomputed in the backward pass
+    instead of kept (non-reentrant ``torch.utils.checkpoint``, recomputed
+    under :func:`_recompute`)."""
+    return checkpoint(block, x, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _recompute(block)))
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
@@ -88,7 +124,8 @@ class Bottleneck(nn.Module):
 class ImageNetResNet(nn.Module):
     """Stem + 4 stages + pooled Linear head. Stage ``s`` uses ``width *
     2**(s-1)`` planes (64 is the paper network; narrow widths keep the
-    topology at test sizes)."""
+    topology at test sizes). ``remat``: each residual block is
+    rematerialized (:func:`remat_block`) in training mode with grad on."""
 
     def __init__(self, stage_sizes: Sequence[int], bottleneck: bool = True,
                  num_classes: int = 1000, dtype=torch.float32,
@@ -99,10 +136,7 @@ class ImageNetResNet(nn.Module):
             raise NotImplementedError(
                 f'ImageNetResNet(dtype={dtype}) is not ported yet (fp32 '
                 'only)')
-        if remat:
-            raise NotImplementedError(
-                'ImageNetResNet(remat=True) (block rematerialization) is '
-                'not ported yet')
+        self.remat = bool(remat)
         self.stage_sizes = tuple(stage_sizes)
         self.conv1 = nn.Conv2d(3, width, 7, stride=2, padding=3, bias=False)
         self.bn1 = _bn(width, bn_momentum)
@@ -128,8 +162,10 @@ class ImageNetResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.pool(F.relu(self.bn1(self.conv1(x))))
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for name in self.block_names:
-            y = getattr(self, name)(y)
+            block = getattr(self, name)
+            y = remat_block(block, y) if remat else block(y)
         return self.fc(y.mean(dim=(2, 3)))
 
 

@@ -85,8 +85,7 @@ import torch
 import torch.distributed as dist
 
 from distributed_kfac_pytorch_tpu_torch import layers as L
-from distributed_kfac_pytorch_tpu_torch.capture import EMBEDDING, \
-    subsample_captures
+from distributed_kfac_pytorch_tpu_torch.capture import EMBEDDING
 from distributed_kfac_pytorch_tpu_torch.ops import factors as F
 from distributed_kfac_pytorch_tpu_torch.ops import kernels, linalg
 from distributed_kfac_pytorch_tpu_torch.parallel.placement import (
@@ -615,48 +614,11 @@ class DistributedKFAC:
     # -- factors -------------------------------------------------------
 
     def local_factor_contribs(self, captures: dict) -> dict:
-        """This rank's covariance contributions ``{layer: {'A', 'G'}}``:
-        the sides ``KFAC.fused_factor_inputs`` names through K1 in its
-        contraction-only form (no old factor, decay 0; under 'reduce' the
-        reduced rows), conv A through K2, multi-call layers, an
-        embedding's A and a tied embedding's G as the stock sum of
-        per-call factors; a tied embedding also gets its attend-site parts
-        ``A_g2`` and ``G_a`` (``layers.compute_tied_factor_extras``), kept
-        apart until :meth:`update_factors` has scaled them. The specs are
-        resolved first (``KFAC.observe_specs``), as ``KFAC`` does at its
-        first factor update; the captures are thinned to
-        ``factor_batch_fraction`` (this rank's own rows)."""
-        kfac = self.kfac
-        missing = [n for n in self.specs if n not in captures]
-        if missing:
-            raise ValueError(f'no captures for registered layers {missing} '
-                             '(capture with intercept=True on factor '
-                             'steps)')
-        kfac.observe_specs()
-        captures = subsample_captures(captures, kfac.factor_batch_fraction)
-        cdt = kfac.factor_compute_dtype
-        out = {}
-        for name, spec in self.specs.items():
-            entry = captures[name]
-            fused = (kfac.fused_factor_inputs(spec, entry)
-                     if kfac.fused_factor_contraction else {})
-            contrib = {}
-            for side, compute, calls in (
-                    ('A', L.compute_a_factor, entry['a']),
-                    ('G', L.compute_g_factor, entry['g'])):
-                if side in fused:
-                    x, scale, has_bias = fused[side]
-                    contrib[side] = kernels.factor_ema(
-                        x, None, 0.0, scale=scale, has_bias=has_bias,
-                        compute_dtype=cdt)
-                else:
-                    contrib[side] = compute(spec, calls, compute_dtype=cdt)
-            extras = L.compute_tied_factor_extras(spec, entry,
-                                                  compute_dtype=cdt)
-            if extras is not None:
-                contrib.update(extras)
-            out[name] = contrib
-        return out
+        """This rank's covariance contributions (``KFAC.
+        local_factor_contribs``: K1 in its contraction-only form, K2 for
+        conv A, a tied embedding's attend-site parts kept apart until
+        :meth:`update_factors` has scaled them)."""
+        return self.kfac.local_factor_contribs(captures)
 
     def update_factors(self, state: dict, contribs: dict,
                        factor_decay=None) -> dict:
@@ -704,22 +666,29 @@ class DistributedKFAC:
         return {n: {'A': a, 'G': g}
                 for n, a, g in zip(self.specs, ema[0::2], ema[1::2])}
 
-    def accumulate_factors(self, state: dict, captures: dict,
-                           factor_decay=None) -> tuple[dict, Any]:
+    def accumulate_factors(self, state: dict, captures: dict | None,
+                           factor_decay=None, *,
+                           contribs: dict | None = None
+                           ) -> tuple[dict, Any]:
         """Deferred-reduction factor step, with no collective: this rank
         folds its own contributions into its local accumulator, ``acc <-
         alpha acc + (1 - alpha) c``, and ``decay <- alpha decay``
         (``KFAC.blend_factors``: K1's fused blend with the accumulator as
-        ``old`` where it applies). ``c`` takes the scale
-        :meth:`update_factors` gives the world's mean (the
-        output-grad-quadratic parts times ``1/W^2``), so that the window
-        head's mean of the accumulators is the eager recursion's value.
-        Returns ``(new_accum, new_decay)``."""
+        ``old`` where it applies; precomputed ``contribs``, such as an
+        accumulated step's micro-batch mean, through ``KFAC.
+        blend_contribs``). ``c`` takes the scale :meth:`update_factors`
+        gives the world's mean (the output-grad-quadratic parts times
+        ``1/W^2``), so that the window head's mean of the accumulators is
+        the eager recursion's value. Returns ``(new_accum, new_decay)``."""
         kfac = self.kfac
         alpha = kfac.factor_decay if factor_decay is None else factor_decay
-        return (kfac.blend_factors(state['factor_accum'], captures, alpha,
-                                   quad_scale=1.0 / self.world_size ** 2),
-                alpha * state['accum_decay'])
+        quad = 1.0 / self.world_size ** 2
+        acc = (kfac.blend_contribs(state['factor_accum'], contribs, alpha,
+                                   quad_scale=quad)
+               if contribs is not None else
+               kfac.blend_factors(state['factor_accum'], captures, alpha,
+                                  quad_scale=quad))
+        return acc, alpha * state['accum_decay']
 
     def reduce_factors(self, state: dict, acc: dict, decay) -> dict:
         """Deferred-reduction window head: one flat fp32 ``all_reduce`` of
@@ -974,7 +943,8 @@ class DistributedKFAC:
 
     # -- the step ------------------------------------------------------
 
-    def step(self, state: dict, grads: dict, captures: dict, *,
+    def step(self, state: dict, grads: dict, captures: dict | None = None,
+             *, contribs: dict | None = None,
              damping=None, lr=None, factor_decay=None,
              factor_update_freq=None, inv_update_freq=None,
              factor_update: bool | None = None,
@@ -986,7 +956,10 @@ class DistributedKFAC:
         new_state)``, with ``KFAC.step``'s cadence semantics and flags
         (``inv_chunk``, ``factor_reduce``, ``factor_snapshot``). ``grads``
         must already be averaged over the world; ``captures`` are this
-        rank's own."""
+        rank's own, or ``contribs`` its precomputed contributions
+        (:meth:`local_factor_contribs`; an accumulated step's micro-batch
+        mean, whose ``1/N`` and ``1/N^2`` compose with the world's ``1/W``
+        and ``1/W^2``) in their place."""
         kfac = self.kfac
         damping = kfac.damping if damping is None else damping
         lr = kfac.lr if lr is None else lr
@@ -995,6 +968,8 @@ class DistributedKFAC:
         i_freq = (kfac.inv_update_freq if inv_update_freq is None
                   else inv_update_freq)
         step = state['step']
+        if captures is None and contribs is None:
+            raise ValueError('pass captures or contribs')
         overlap = {}
         if kfac.deferred_factor_reduction:
             if factor_update is None:
@@ -1005,8 +980,8 @@ class DistributedKFAC:
                     'structure, like inv_chunk')
             acc, decay = state['factor_accum'], state['accum_decay']
             if factor_update:
-                acc, decay = self.accumulate_factors(state, captures,
-                                                     factor_decay)
+                acc, decay = self.accumulate_factors(
+                    state, captures, factor_decay, contribs=contribs)
             if factor_reduce:
                 factors = self.reduce_factors(state, acc, decay)
                 acc = {n: {k: torch.zeros_like(t) for k, t in e.items()}
@@ -1022,9 +997,10 @@ class DistributedKFAC:
                                  'deferred_factor_reduction=True')
             if factor_update is None:
                 factor_update = step % f_freq == 0
-            factors = (self.update_factors(
-                state, self.local_factor_contribs(captures), factor_decay)
-                if factor_update else state['factors'])
+            if factor_update and contribs is None:
+                contribs = self.local_factor_contribs(captures)
+            factors = (self.update_factors(state, contribs, factor_decay)
+                       if factor_update else state['factors'])
         fire_factors = factors
         if kfac.inv_staleness:
             if inv_update is None:

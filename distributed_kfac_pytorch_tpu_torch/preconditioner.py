@@ -104,12 +104,9 @@ def comm_method_of(value: CommMethod | str) -> CommMethod:
 #: implement yet, with the value that means "off". Passing any other
 #: value raises ``NotImplementedError`` naming the knob.
 NOT_PORTED = {
-    'use_eigen_decomp': None,
     'inv_lowrank_rank': 0,
     'inv_lowrank_dim_threshold': 2048,
-    'precond_bucketing': True,
     'hierarchical_reduce': False,
-    'trainable': None,
     'collect_metrics': False,
     'nonfinite_guard': False,
 }
@@ -150,7 +147,10 @@ class KFAC:
       model: the ``nn.Module`` to precondition; its ``nn.Linear``,
         ``nn.Conv2d`` (groups=1) and ``nn.Embedding`` layers are
         registered at construction.
-      inverse_method: ``'auto'`` (default: the eigen path for factor
+      use_eigen_decomp: True is ``inverse_method='eigen'``, False
+        ``'cholesky'``; None (default) leaves ``inverse_method`` alone.
+        Set with an ``inverse_method`` that contradicts it, it raises.
+      inverse_method: None or ``'auto'`` (default: the eigen path for factor
         dims <= ``auto_eigen_max_dim`` -- every CIFAR ResNet factor --
         and ``auto_large_method`` damped inverses above), ``'eigen'``
         (every factor), ``'cholesky'`` or ``'newton'`` (every factor
@@ -195,6 +195,15 @@ class KFAC:
         (accumulation fp32, the eigen damping quotient fp32): ``None``
         (default: operands read widened), ``torch.float32`` (strict fp32)
         or ``torch.bfloat16`` (bf16-rounded operands); also K3's mode.
+      precond_bucketing: precondition same-shape layers as one stack
+        (default True); False preconditions layer by layer, each a stack
+        of one (one K3 launch per layer with ``fused_precondition``).
+        ``parallel.DistributedKFAC`` always stacks, as the JAX package's
+        distributed path does.
+      trainable: optional predicate ``trainable(name) -> bool`` on each
+        module's ``named_modules`` name; a module it marks frozen gets
+        plain gradients and no factor or inverse work
+        (``capture.KFACCapture``; JAX passes the flax path, ``a/b``).
       fused_factor_contraction / fused_precondition: route the factor
         contraction + EMA and the bucketed preconditioning through their
         CUDA kernels (default True).
@@ -237,7 +246,8 @@ class KFAC:
                  inv_update_freq: int = 100,
                  kl_clip: float | None = 0.001,
                  lr: float = 0.1,
-                 inverse_method: str = 'auto',
+                 use_eigen_decomp: bool | None = None,
+                 inverse_method: str | None = None,
                  auto_eigen_max_dim: int = 640,
                  auto_large_method: str = 'cholesky',
                  eigh_method: str = 'auto',
@@ -249,6 +259,7 @@ class KFAC:
                  inv_dtype: Any = torch.float32,
                  capture_dtype: Any = 'auto',
                  precond_compute_dtype: Any = None,
+                 precond_bucketing: bool = True,
                  inv_pipeline_chunks: int = 1,
                  inv_pipeline_costs: dict | None = None,
                  deferred_factor_reduction: bool = False,
@@ -256,6 +267,7 @@ class KFAC:
                  kfac_approx: Any = 'expand',
                  tied_embeddings: bool | None = None,
                  skip_layers: str | Sequence[str] | None = None,
+                 trainable: Any = None,
                  fused_factor_contraction: bool = True,
                  fused_precondition: bool = True,
                  symmetry_aware_comm: bool = False,
@@ -309,9 +321,19 @@ class KFAC:
         if not 0.0 < factor_batch_fraction <= 1.0:
             raise ValueError(
                 f'{factor_batch_fraction=} must be in (0, 1]')
+        if inverse_method is None:
+            inverse_method = ('auto' if use_eigen_decomp is None
+                              else 'eigen' if use_eigen_decomp
+                              else 'cholesky')
         if inverse_method not in ('auto', 'eigen', 'cholesky', 'newton'):
             raise ValueError("inverse_method must be 'auto', 'eigen', "
                              f"'cholesky' or 'newton', got {inverse_method!r}")
+        if use_eigen_decomp is not None and (
+                inverse_method == 'auto'
+                or use_eigen_decomp != (inverse_method == 'eigen')):
+            raise ValueError(
+                f'{use_eigen_decomp=} contradicts {inverse_method=}; '
+                'set one or the other')
         if auto_large_method not in ('cholesky', 'newton'):
             raise ValueError("auto_large_method must be 'cholesky' or "
                              f"'newton', got {auto_large_method!r}")
@@ -344,7 +366,8 @@ class KFAC:
         self.model = model
         self.capture = KFACCapture(model, skip_layers=skip_layers,
                                    tied_embeddings=self.tied_embeddings,
-                                   capture_dtype=capture_dtype)
+                                   capture_dtype=capture_dtype,
+                                   trainable=trainable)
         self.specs = approx.annotate_specs(self.capture.specs, kfac_approx)
         self._specs_observed = False
         self.damping = damping
@@ -354,6 +377,7 @@ class KFAC:
         self.kl_clip = kl_clip
         self.lr = lr
         self.inverse_method = inverse_method
+        self.use_eigen_decomp = inverse_method == 'eigen'
         self.auto_eigen_max_dim = auto_eigen_max_dim
         self.auto_large_method = auto_large_method
         self.eigh_method = eigh_method
@@ -364,6 +388,7 @@ class KFAC:
         self.inv_dtype = torch.float32 if inv_dtype is None else inv_dtype
         self.capture_dtype = capture_dtype
         self.precond_compute_dtype = precond_compute_dtype
+        self.precond_bucketing = bool(precond_bucketing)
         self.factor_batch_fraction = factor_batch_fraction
         self.inv_pipeline_chunks = inv_pipeline_chunks
         self.inv_pipeline_costs = (dict(inv_pipeline_costs)
@@ -384,12 +409,14 @@ class KFAC:
         """Hyperparameter dump (the JAX ``KFAC.__repr__`` for the knobs
         the port has)."""
         fields = ('damping', 'factor_decay', 'factor_update_freq',
-                  'inv_update_freq', 'kl_clip', 'lr', 'inverse_method',
+                  'inv_update_freq', 'kl_clip', 'lr', 'use_eigen_decomp',
+                  'inverse_method',
                   'auto_eigen_max_dim', 'auto_large_method', 'eigh_method',
                   'eigh_polish_iters', 'newton_iters',
                   'factor_batch_fraction', 'factor_dtype',
                   'factor_compute_dtype', 'inv_dtype', 'capture_dtype',
-                  'precond_compute_dtype', 'inv_pipeline_chunks',
+                  'precond_compute_dtype', 'precond_bucketing',
+                  'inv_pipeline_chunks',
                   'deferred_factor_reduction', 'inv_staleness',
                   'kfac_approx', 'tied_embeddings',
                   'symmetry_aware_comm', 'assignment_strategy',
@@ -615,12 +642,83 @@ class KFAC:
             out['G'] = (g, float(b * h * w) * (h * w) ** 2, False)
         return out
 
-    def update_factors(self, state: dict, captures: dict,
-                       factor_decay=None) -> dict:
+    def update_factors(self, state: dict, captures: dict | None,
+                       factor_decay=None, *,
+                       contribs: dict | None = None) -> dict:
         """EWMA-update every factor from one batch's captures
-        (:meth:`blend_factors` into ``state['factors']``)."""
+        (:meth:`blend_factors` into ``state['factors']``), or from
+        precomputed ``contribs`` (:meth:`blend_contribs`)."""
         alpha = self.factor_decay if factor_decay is None else factor_decay
+        if contribs is not None:
+            return self.blend_contribs(state['factors'], contribs, alpha)
         return self.blend_factors(state['factors'], captures, alpha)
+
+    def local_factor_contribs(self, captures: dict) -> dict:
+        """One batch's covariance contributions ``{layer: {'A', 'G'}}``,
+        the contraction without the EMA: the sides
+        :meth:`fused_factor_inputs` names through K1 in its
+        contraction-only form (no old factor, decay 0; under 'reduce' the
+        reduced rows), conv A through K2, multi-call layers, an
+        embedding's A and a tied embedding's G as the stock sum of
+        per-call factors; a tied embedding also gets its attend-site parts
+        ``A_g2`` and ``G_a`` (``layers.compute_tied_factor_extras``), kept
+        apart until they are scaled (:meth:`blend_contribs`). The specs
+        are resolved first (:meth:`observe_specs`) and the captures thinned
+        to ``factor_batch_fraction``. Under ``parallel.DistributedKFAC``
+        they are a rank's own; an accumulated step sums them over its
+        micro-batches (``training.engine.accumulate_pass``)."""
+        missing = [n for n in self.specs if n not in captures]
+        if missing:
+            raise ValueError(f'no captures for registered layers {missing} '
+                             '(capture with intercept=True on factor '
+                             'steps)')
+        self.observe_specs()
+        captures = subsample_captures(captures, self.factor_batch_fraction)
+        cdt = self.factor_compute_dtype
+        out = {}
+        for name, spec in self.specs.items():
+            entry = captures[name]
+            fused = (self.fused_factor_inputs(spec, entry)
+                     if self.fused_factor_contraction else {})
+            contrib = {}
+            for side, compute, calls in (
+                    ('A', L.compute_a_factor, entry['a']),
+                    ('G', L.compute_g_factor, entry['g'])):
+                if side in fused:
+                    x, scale, has_bias = fused[side]
+                    contrib[side] = kernels.factor_ema(
+                        x, None, 0.0, scale=scale, has_bias=has_bias,
+                        compute_dtype=cdt)
+                else:
+                    contrib[side] = compute(spec, calls, compute_dtype=cdt)
+            extras = L.compute_tied_factor_extras(spec, entry,
+                                                  compute_dtype=cdt)
+            if extras is not None:
+                contrib.update(extras)
+            out[name] = contrib
+        return out
+
+    def blend_contribs(self, old_factors: dict, contribs: dict, alpha,
+                       quad_scale: float = 1.0) -> dict:
+        """``alpha * old + (1 - alpha) * c`` for precomputed contributions
+        (:meth:`local_factor_contribs`, or an accumulated step's micro-batch
+        mean): the output-grad-quadratic parts (``layers.
+        GRAD_QUADRATIC_KEYS``) times ``quad_scale``, a tied embedding's
+        ``A_g2`` folded into its A and ``G_a`` into its G, then the fp32
+        blend of the widened ``old`` rounded once to its dtype
+        (:func:`kernels.ema_blend`)."""
+        out = {}
+        for name in self.specs:
+            c, old = contribs[name], old_factors[name]
+            a = c['A']
+            g = c['G'] if quad_scale == 1.0 else quad_scale * c['G']
+            if 'A_g2' in c:
+                a = a + (c['A_g2'] if quad_scale == 1.0
+                         else quad_scale * c['A_g2'])
+                g = g + c['G_a']
+            out[name] = {'A': kernels.ema_blend(old['A'], a, alpha),
+                         'G': kernels.ema_blend(old['G'], g, alpha)}
+        return out
 
     def blend_factors(self, old_factors: dict, captures: dict,
                       alpha, quad_scale: float = 1.0) -> dict:
@@ -663,16 +761,20 @@ class KFAC:
             new_factors[name] = {side: res[side] for side in 'AG'}
         return new_factors
 
-    def accumulate_factors(self, state: dict, captures: dict,
-                           factor_decay=None) -> tuple[dict, Any]:
+    def accumulate_factors(self, state: dict, captures: dict | None,
+                           factor_decay=None, *,
+                           contribs: dict | None = None
+                           ) -> tuple[dict, Any]:
         """Deferred-reduction factor step: ``acc <- alpha acc + (1 -
         alpha) c`` (:meth:`blend_factors` into ``state['factor_accum']``,
-        K1's fused blend with the accumulator as ``old``) and ``decay <-
-        alpha decay``; the running factors are left alone. Returns
-        ``(new_accum, new_decay)``."""
+        K1's fused blend with the accumulator as ``old``; with ``contribs``,
+        :meth:`blend_contribs`) and ``decay <- alpha decay``; the running
+        factors are left alone. Returns ``(new_accum, new_decay)``."""
         alpha = self.factor_decay if factor_decay is None else factor_decay
-        return (self.blend_factors(state['factor_accum'], captures, alpha),
-                alpha * state['accum_decay'])
+        acc = (self.blend_contribs(state['factor_accum'], contribs, alpha)
+               if contribs is not None else
+               self.blend_factors(state['factor_accum'], captures, alpha))
+        return acc, alpha * state['accum_decay']
 
     def reduce_factors(self, state: dict, acc: dict, decay) -> dict:
         """Deferred-reduction window head: ``F <- decay F + acc``, in fp32
@@ -830,7 +932,8 @@ class KFAC:
 
     def _bucketed_precond_mats(self, inverses: dict, grad_mats: dict,
                                damping) -> tuple[dict, dict]:
-        """Precondition same-shape layers as one stack each.
+        """Precondition same-shape layers as one stack each (with
+        ``precond_bucketing=False``, each layer as a stack of one).
 
         A shape group is wholly eigen (``QA/dA/QG/dG``) or wholly baked
         (``A_inv/G_inv``; mixed layers precondition through their baked
@@ -842,7 +945,8 @@ class KFAC:
         groups: dict[tuple, list[str]] = {}
         for name, mat in grad_mats.items():
             if self.specs[name].kind != EMBEDDING:
-                groups.setdefault(tuple(mat.shape), []).append(name)
+                key = tuple(mat.shape) if self.precond_bucketing else name
+                groups.setdefault(key, []).append(name)
         mats, vg = {}, {}
         for members in groups.values():
             gstack = torch.stack([grad_mats[n].float() for n in members])
@@ -907,7 +1011,8 @@ class KFAC:
     # The full step
     # ------------------------------------------------------------------
 
-    def step(self, state: dict, grads: dict, captures: dict, *,
+    def step(self, state: dict, grads: dict, captures: dict | None = None,
+             *, contribs: dict | None = None,
              damping=None, lr=None, factor_decay=None,
              factor_update_freq=None, inv_update_freq=None,
              factor_update: bool | None = None,
@@ -916,6 +1021,11 @@ class KFAC:
              factor_reduce: bool = False,
              factor_snapshot: bool = False) -> tuple[dict, dict]:
         """One K-FAC update: ``(preconditioned_grads, new_state)``.
+
+        The factor step reads ``captures`` (one batch's) or, in their
+        place, precomputed ``contribs`` (:meth:`local_factor_contribs`,
+        e.g. the scaled micro-batch mean of an accumulated step); one of
+        the two must be passed.
 
         ``factor_update`` / ``inv_update`` are the cadence flags (the
         caller's schedule, ``training.engine.cadence_flags``); left None
@@ -935,6 +1045,8 @@ class KFAC:
         i_freq = (self.inv_update_freq if inv_update_freq is None
                   else inv_update_freq)
         step = state['step']
+        if captures is None and contribs is None:
+            raise ValueError('pass captures or contribs')
         if self.deferred_factor_reduction:
             if factor_update is None:
                 raise ValueError(
@@ -944,8 +1056,8 @@ class KFAC:
                     'structure, like inv_chunk')
             acc, decay = state['factor_accum'], state['accum_decay']
             if factor_update:
-                acc, decay = self.accumulate_factors(state, captures,
-                                                     factor_decay)
+                acc, decay = self.accumulate_factors(
+                    state, captures, factor_decay, contribs=contribs)
             if factor_reduce:
                 factors = self.reduce_factors(state, acc, decay)
                 acc = _zeros_like(acc)
@@ -961,7 +1073,8 @@ class KFAC:
                                  'deferred_factor_reduction=True')
             if factor_update is None:
                 factor_update = step % f_freq == 0
-            factors = (self.update_factors(state, captures, factor_decay)
+            factors = (self.update_factors(state, captures, factor_decay,
+                                           contribs=contribs)
                        if factor_update else state['factors'])
             state_f = {**state, 'factors': factors}
         if self.inv_staleness:

@@ -35,9 +35,14 @@ mid-epoch included (``--no-resume``, ``--resume-step``). ``train`` called
 with a dict of options checkpoints only when the dict sets
 ``checkpoint_dir``.
 
-Not ported yet (a set flag raises by name, ``engine.UNPORTED_FLAGS``):
-metrics sinks, profiling and autotune, heartbeats and self-healing,
-gradient accumulation, multi-slice meshes and fp16, precise-BN, the
+``--grad-accum N`` runs each rank's batch slice as ``N`` micro-batches
+in turn (``engine.accumulate_pass``); ``--precise-bn-batches N``
+re-estimates the BatchNorm statistics over the first ``N`` augmented
+training batches of epoch ``10_000 + epoch`` before each evaluation and
+restores the training statistics after it (a model without BatchNorm,
+such as ``resnet32gn``, exits). Not ported yet (a set flag raises by
+name, ``engine.UNPORTED_FLAGS``): metrics sinks, profiling and autotune,
+heartbeats and self-healing, multi-slice meshes and fp16, the
 hierarchical reduce, the low-rank inverse, and the K-FAC knobs listed in
 ``preconditioner.NOT_PORTED``.
 ``--bf16-factors``, ``--bf16-inverses`` and ``--bf16-precond`` set the
@@ -75,7 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help='CIFAR-10 python batches; synthetic data if absent')
     resilience_cli.add_checkpoint_args(p, 'cifar10', 10)
     p.add_argument('--model', default='resnet32',
-                   help='resnet20/32/44/56/110/1202')
+                   help='resnet20/32/44/56/110/1202, with a gn suffix '
+                        '(resnet32gn) for GroupNorm')
     p.add_argument('--batch-size', type=int, default=128)
     p.add_argument('--val-batch-size', type=int, default=128)
     p.add_argument('--epochs', type=int, default=100)
@@ -121,7 +127,8 @@ def build_parser() -> argparse.ArgumentParser:
     engine.add_precision_args(p)
     engine.add_schedule_args(p)
     resilience_cli.add_resilience_args(p)
-    engine.add_unported_args(p, 'precise_bn_batches')
+    engine.add_precise_bn_arg(p)
+    engine.add_unported_args(p)
     # Port-only flags.
     engine.add_port_args(p)
     p.add_argument('--synthetic-size', type=int, default=2048)
@@ -190,9 +197,16 @@ def _train(args: argparse.Namespace, dev: torch.device,
         **engine.schedule_config(args))
     optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
         model, cfg, device=dev)
+    # Precise-BN draws augmented training batches of epoch 10_000 + epoch
+    # (the JAX CLI's stream, apart from the training epochs').
+    precise_bn = engine.precise_bn_batches(
+        args, model, lambda epoch: datasets.epoch_batches(
+            train_x, train_y, args.batch_size, seed=args.seed,
+            epoch=10_000 + epoch, augment=not args.no_augment))
     state = engine.make_train_state(
         model, optimizer, kfac,
-        coallocate_layer_factors=args.coallocate_layer_factors)
+        coallocate_layer_factors=args.coallocate_layer_factors,
+        grad_accum=args.grad_accum)
     ckpt = engine.start_checkpointing(
         args, state, kfac_sched, name='cifar10', device=dev,
         preemption=preemption, verbose=not args.quiet)
@@ -205,7 +219,7 @@ def _train(args: argparse.Namespace, dev: torch.device,
         verbose=not args.quiet,
         criterion=functools.partial(utils.label_smooth_loss,
                                     smoothing=args.label_smoothing),
-        ckpt=ckpt)
+        ckpt=ckpt, precise_bn=precise_bn)
 
 
 def main(argv=None) -> int:

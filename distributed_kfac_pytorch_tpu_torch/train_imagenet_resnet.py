@@ -25,13 +25,17 @@ file).
 Checkpoints and resume as in the CIFAR CLI (``--checkpoint-dir``, default
 ``./checkpoints/imagenet``; ``--checkpoint-freq``, default 5 epochs;
 ``--checkpoint-steps``, ``--checkpoint-secs``, ``--preemption-grace``,
-``--resume-step``, ``--no-resume``; exit 75 after a preemption). Not
-ported yet: the ImageNet directory reader, ViT models, and the flags of
-``engine.UNPORTED_FLAGS`` (metrics sinks, profiling and autotune,
-heartbeats and self-healing, gradient accumulation, multi-slice meshes,
-fp16, precise-BN, ``--remat``, the hierarchical reduce, the low-rank
-inverse), which raise by name, and the K-FAC knobs listed in
-``preconditioner.NOT_PORTED``. ``--bf16-factors``,
+``--resume-step``, ``--no-resume``; exit 75 after a preemption).
+``--grad-accum N`` runs each rank's batch slice as ``N`` micro-batches in
+turn, ``--precise-bn-batches N`` re-estimates the BatchNorm statistics
+over the first ``N`` batches of the epoch's training stream before each
+evaluation (the training statistics restored after it) and ``--remat``
+rematerializes every residual block (``models.imagenet_resnet``), as in
+the JAX CLI. Not ported yet: the ImageNet directory reader, ViT models,
+and the flags of ``engine.UNPORTED_FLAGS`` (metrics sinks, profiling and
+autotune, heartbeats and self-healing, multi-slice meshes, fp16, the
+hierarchical reduce, the low-rank inverse), which raise by name, and the
+K-FAC knobs listed in ``preconditioner.NOT_PORTED``. ``--bf16-factors``,
 ``--bf16-inverses`` and ``--bf16-precond`` set the K-FAC reduced-precision
 knobs as the JAX ``OptimConfig`` does (tracked config 5 is ``--model
 resnet152 --bf16-factors --inverse-method eigen``).
@@ -121,7 +125,13 @@ def build_parser() -> argparse.ArgumentParser:
     engine.add_precision_args(p)
     engine.add_schedule_args(p)
     resilience_cli.add_resilience_args(p)
-    engine.add_unported_args(p, 'precise_bn_batches', 'remat')
+    engine.add_precise_bn_arg(p)
+    p.add_argument('--remat', action='store_true',
+                   help='block-level gradient checkpointing: each '
+                        'residual block recomputed in the backward pass '
+                        '(about 1/3 more forward work for activation '
+                        'memory O(depth)); fits larger batches')
+    engine.add_unported_args(p)
     # Port-only flags.
     engine.add_port_args(p)
     p.add_argument('--synthetic-size', type=int, default=512)
@@ -166,7 +176,8 @@ def _train(args: argparse.Namespace, dev: torch.device,
         torch.manual_seed(args.seed)
         model = imagenet_resnet.get_model(
             args.model, bn_momentum=(0.9 if args.bn_momentum is None
-                                     else args.bn_momentum))
+                                     else args.bn_momentum),
+            remat=args.remat)
     model = model.to(dev)
     cfg = optimizers.OptimConfig(
         base_lr=args.base_lr, momentum=args.momentum,
@@ -193,9 +204,14 @@ def _train(args: argparse.Namespace, dev: torch.device,
         **engine.schedule_config(args))
     optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
         model, cfg, device=dev)
+    # Precise-BN draws the first batches of the epoch's training stream.
+    precise_bn = engine.precise_bn_batches(
+        args, model, lambda epoch: datasets.epoch_batches(
+            *train_data, args.batch_size, seed=args.seed, epoch=epoch))
     state = engine.make_train_state(
         model, optimizer, kfac,
-        coallocate_layer_factors=args.coallocate_layer_factors)
+        coallocate_layer_factors=args.coallocate_layer_factors,
+        grad_accum=args.grad_accum)
     ckpt = engine.start_checkpointing(
         args, state, kfac_sched, name='imagenet', device=dev,
         preemption=preemption, verbose=not args.quiet)
@@ -208,7 +224,7 @@ def _train(args: argparse.Namespace, dev: torch.device,
         verbose=not args.quiet,
         criterion=functools.partial(utils.label_smooth_loss,
                                     smoothing=args.label_smoothing),
-        ckpt=ckpt)
+        ckpt=ckpt, precise_bn=precise_bn)
 
 
 def main(argv=None) -> int:

@@ -24,6 +24,19 @@ each rank trains on its ``launch.process_local_tile`` (a slice of the
 sequences and a block of positions, passed as ``pos_offset``) and
 evaluates whole sequences of its K-FAC rank's slice without the ring.
 
+Gradient accumulation (``TrainState.grad_accum = N``, the JAX
+``build_train_step(grad_accum_steps=)``): :func:`accumulate_pass` splits
+the rank's batch into ``N`` micro-batches run one after another (the
+BatchNorm running statistics updated by each in turn, as JAX's scan
+threads ``batch_stats``), sums the losses, accuracies and gradients and,
+on factor steps, each micro-batch's K-FAC factor contributions (its
+captures reduced and freed before the next forward pass, so memory stays
+flat in ``N``), in fp32, then scales by ``1/N`` (the contributions'
+output-grad-quadratic parts by ``1/N^2`` more). Precise-BN
+(:func:`precise_bn_recalibrate`) re-estimates the BatchNorm running
+statistics before an evaluation; :func:`fit` restores the training
+statistics afterwards.
+
 Checkpoints (:func:`start_checkpointing`, the JAX CLIs' wiring shared by
 the three CLIs): the epoch loops resume at a bundle's point, skipping the
 epoch's trained batches, call the ``resilience.policy.StepCheckpointer``
@@ -48,6 +61,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from distributed_kfac_pytorch_tpu_torch import launch
+from distributed_kfac_pytorch_tpu_torch.layers import GRAD_QUADRATIC_KEYS
 from distributed_kfac_pytorch_tpu_torch.models.transformer_lm import \
     whole_sequences
 from distributed_kfac_pytorch_tpu_torch.resilience import \
@@ -173,6 +187,7 @@ class TrainState:
     step: int = 0
     epoch: int = 0
     distributed: bool = False        # data parallel over the world
+    grad_accum: int = 1              # micro-batches per step
 
 
 def world_mean(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -193,17 +208,24 @@ def average_buffers(model: torch.nn.Module) -> None:
         torch._foreach_copy_(bufs, world_mean(bufs))
 
 
-def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
-               hyper: dict, flags: dict,
-               criterion: Callable = F.cross_entropy
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One forward/backward, K-FAC preconditioning and SGD update, with
-    the loss ``criterion(logits, labels)`` (default cross entropy).
-    Returns the (device) loss and accuracy of the batch, averaged over
-    the world when ``state.distributed``."""
+def micro_batches(x: torch.Tensor, y: torch.Tensor, n: int) -> list:
+    """``n`` equal consecutive ``(x, y)`` slices of a rank's batch (JAX's
+    ``ValueError`` when ``n`` does not divide it)."""
+    if n < 1:
+        raise ValueError(f'grad_accum_steps={n} must be >= 1')
+    if x.shape[0] % n:
+        raise ValueError(f'per-device batch shard of {x.shape[0]} is not '
+                         f'divisible by grad_accum_steps={n}')
+    size = x.shape[0] // n
+    return list(zip(x.split(size), y.split(size)))
+
+
+def _one_pass(state: TrainState, x: torch.Tensor, y: torch.Tensor,
+              criterion: Callable, intercept: bool) -> tuple:
+    """One forward/backward pass: ``(loss, acc, grads, captures)``, with
+    K-FAC's capture recording when ``intercept`` (else ``{}``)."""
     loss_fn = lambda out: criterion(out, y)  # noqa: E731
-    kfac = state.kfac
-    if kfac is None:
+    if state.kfac is None:
         state.optimizer.zero_grad(set_to_none=True)
         out = state.model(x)
         loss = loss_fn(out)
@@ -211,16 +233,86 @@ def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
         loss, out = loss.detach(), out.detach()
         grads = {n: p.grad for n, p in state.model.named_parameters()
                  if p.grad is not None}
+        captures = {}
     else:
-        loss, out, grads, captures = kfac.capture.loss_and_grads(
-            loss_fn, x, intercept=flags['factor_update'])
-    acc = accuracy(out, y)
+        loss, out, grads, captures = state.kfac.capture.loss_and_grads(
+            loss_fn, x, intercept=intercept)
+    return loss, accuracy(out, y), grads, captures
+
+
+def accumulate_pass(state: TrainState, x: torch.Tensor, y: torch.Tensor,
+                    criterion: Callable = F.cross_entropy,
+                    factor_update: bool = False) -> tuple:
+    """The forward and backward passes of one step on this rank's batch:
+    ``(loss, acc, grads, captures, contribs)``.
+
+    ``state.grad_accum == 1``: one pass; ``captures`` are its K-FAC
+    captures on a factor step (``{}`` otherwise), ``contribs`` None.
+    ``N > 1`` (the JAX accumulated step): :func:`micro_batches`, one pass
+    each in turn; the losses, accuracies and gradients are summed and
+    scaled by ``1/N``. On a K-FAC factor step each micro-batch's captures
+    become its contributions (``local_factor_contribs``: K1 contraction
+    only, K2) at once, summed in fp32; the sum is scaled by ``1/N``, and
+    its output-grad-quadratic parts (``layers.GRAD_QUADRATIC_KEYS``: each
+    micro-batch's output-grads come from its own mean loss, ``N`` times
+    the batch mean's) by ``1/N^2`` more. ``captures`` is then ``{}`` and
+    ``contribs`` the scaled sum (None off factor steps, where nothing is
+    captured or contracted)."""
+    do_factors = state.kfac is not None and bool(factor_update)
+    n = state.grad_accum
+    if n == 1:
+        return (*_one_pass(state, x, y, criterion, do_factors), None)
+    sums = contribs = None
+    for xm, ym in micro_batches(x, y, n):
+        loss, acc, grads, captures = _one_pass(state, xm, ym, criterion,
+                                               do_factors)
+        if do_factors:
+            c = state.kfac.local_factor_contribs(captures)
+            del captures
+            if contribs is None:
+                contribs = {name: {k: v.float() for k, v in e.items()}
+                            for name, e in c.items()}
+            else:
+                for name, e in c.items():
+                    for k, v in e.items():
+                        contribs[name][k] += v
+        if sums is None:
+            sums = (loss.float(), acc, dict(grads))
+        else:
+            loss_s, acc_s, grads_s = sums
+            for name, g in grads.items():
+                grads_s[name] += g
+            sums = (loss_s + loss, acc_s + acc, grads_s)
+    inv_n = 1.0 / n
+    loss_s, acc_s, grads_s = sums
+    grads = {name: g * inv_n for name, g in grads_s.items()}
+    if contribs is not None:
+        g_fix = 1.0 / n ** 2
+        contribs = {name: {k: ((g_fix * v) if k in GRAD_QUADRATIC_KEYS
+                               else v) * inv_n for k, v in e.items()}
+                    for name, e in contribs.items()}
+    return loss_s * inv_n, acc_s * inv_n, grads, {}, contribs
+
+
+def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
+               hyper: dict, flags: dict,
+               criterion: Callable = F.cross_entropy
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One forward/backward (``state.grad_accum`` micro-batches:
+    :func:`accumulate_pass`), K-FAC preconditioning and SGD update, with
+    the loss ``criterion(logits, labels)`` (default cross entropy).
+    Returns the (device) loss and accuracy of the batch, averaged over
+    the world when ``state.distributed``."""
+    kfac = state.kfac
+    loss, acc, grads, captures, contribs = accumulate_pass(
+        state, x, y, criterion,
+        factor_update=kfac is not None and flags['factor_update'])
     if state.distributed:
         *means, loss, acc = world_mean([*grads.values(), loss, acc])
         grads = dict(zip(grads, means))
     if kfac is not None:
         grads, state.kfac_state = kfac.step(
-            state.kfac_state, grads, captures,
+            state.kfac_state, grads, captures, contribs=contribs,
             damping=hyper.get('damping'), lr=hyper['lr'],
             **kfac_step_flags(flags))
     for name, p in state.model.named_parameters():
@@ -303,11 +395,17 @@ def fit(state: TrainState, train_data, val_data, *, lr_schedule,
         seed: int, augment: bool, device, max_steps: int | None = None,
         time_steps: bool = False, verbose: bool = False,
         criterion: Callable = F.cross_entropy,
-        ckpt: 'Checkpointing | None' = None) -> dict:
+        ckpt: 'Checkpointing | None' = None,
+        precise_bn: Callable[[int], Iterable] | None = None) -> dict:
     """The CLIs' epoch loop: per epoch, set the LR, train on the
     reshuffled ``(x, y)`` arrays of ``train_data`` (augmented with
     ``augment``), evaluate on ``val_data`` and advance the K-FAC
     scheduler; stop after ``max_steps`` global steps when given.
+
+    ``precise_bn(epoch)``: the batches :func:`precise_bn_recalibrate`
+    re-estimates the BatchNorm statistics over before each evaluation;
+    the evaluation reads them, and the training statistics are restored
+    after it, so the training state (and a checkpoint) is unchanged.
 
     With ``ckpt`` (:func:`start_checkpointing`) the loop starts at its
     resume point (``start_epoch``, skipping ``start_offset`` batches of
@@ -335,10 +433,16 @@ def fit(state: TrainState, train_data, val_data, *, lr_schedule,
                            start_step_in_epoch=skip)
 
     def eval_fn(epoch: int) -> dict:
-        return evaluate(
-            state.model, datasets.epoch_batches(*val_data, val_batch_size,
-                                                shuffle=False),
-            device=device, epoch=epoch, verbose=verbose)
+        saved = (precise_bn_recalibrate(
+            state.model, precise_bn(epoch), device=device,
+            distributed=state.distributed) if precise_bn else {})
+        try:
+            return evaluate(
+                state.model, datasets.epoch_batches(
+                    *val_data, val_batch_size, shuffle=False),
+                device=device, epoch=epoch, verbose=verbose)
+        finally:
+            restore_buffers(state.model, saved)
 
     return _epoch_loop(state, epoch_fn, eval_fn, lr_schedule=lr_schedule,
                        kfac_sched=kfac_sched, epochs=epochs,
@@ -417,9 +521,11 @@ def add_distributed_args(p: argparse.ArgumentParser) -> None:
     p.add_argument('--symmetry-aware-comm', action='store_true',
                    help='triangle-packed factor all_reduce (about half '
                         'the bytes)')
-    # JAX CLI flags the port does not run yet: setting one raises.
     p.add_argument('--grad-accum', type=int, default=1,
-                   help='not ported (raises unless 1)')
+                   help='micro-batches per step (the reference '
+                        '--batches-per-allreduce): each rank runs its '
+                        'batch slice as this many micro-batches in turn')
+    # JAX CLI flags the port does not run yet: setting one raises.
     p.add_argument('--num-slices', type=int, default=1,
                    help='not ported (raises unless 1)')
     p.add_argument('--fp16', action='store_true',
@@ -486,8 +592,7 @@ def precision_config(args: argparse.Namespace) -> dict:
 #: Flags of the JAX CLIs the port does not run yet, by destination, with
 #: their argparse definitions (the JAX names and "off" defaults; a path
 #: flag is off at None): the sinks, profiling and autotune, heartbeats and
-#: self-healing, precise-BN, rematerialization, the hierarchical reduce
-#: and the low-rank inverse.
+#: self-healing, the hierarchical reduce and the low-rank inverse.
 _UNPORTED_ARGS = {
     'log_dir': {},
     'hierarchical_reduce': {'action': 'store_true'},
@@ -515,31 +620,23 @@ _UNPORTED_ARGS = {
     'selfheal_diverge_ratio': {'type': float, 'default': 10.0},
     'selfheal_no_quarantine': {'action': 'store_true'},
     'selfheal_max_rollbacks': {'type': int, 'default': 1},
-    'precise_bn_batches': {'type': int, 'default': 0},
-    'remat': {'action': 'store_true'},
 }
-#: The flags of :data:`_UNPORTED_ARGS` every CLI takes (the image CLIs add
-#: ``precise_bn_batches``, the ImageNet CLI ``remat``).
-COMMON_UNPORTED = tuple(k for k in _UNPORTED_ARGS
-                        if k not in ('precise_bn_batches', 'remat'))
 
 
 def _off(spec: dict):
     return spec.get('default', False if spec.get('action') else None)
 
 
-#: Every flag the port does not run yet, with its "off" value: gradient
-#: accumulation, multi-slice meshes and fp16, then :data:`_UNPORTED_ARGS`.
-UNPORTED_FLAGS = (('grad_accum', 1), ('num_slices', 1), ('fp16', False),
+#: Every flag the port does not run yet, with its "off" value: multi-slice
+#: meshes and fp16, then :data:`_UNPORTED_ARGS`.
+UNPORTED_FLAGS = (('num_slices', 1), ('fp16', False),
                   *((k, _off(v)) for k, v in _UNPORTED_ARGS.items()))
 
 
-def add_unported_args(p: argparse.ArgumentParser, *extra: str) -> None:
-    """The :data:`COMMON_UNPORTED` flags plus ``extra`` ones of
-    :data:`_UNPORTED_ARGS`, each raising by name when set
+def add_unported_args(p: argparse.ArgumentParser) -> None:
+    """The :data:`_UNPORTED_ARGS` flags, each raising by name when set
     (:func:`check_unported`)."""
-    for dest in (*COMMON_UNPORTED, *extra):
-        spec = _UNPORTED_ARGS[dest]
+    for dest, spec in _UNPORTED_ARGS.items():
         p.add_argument('--' + dest.replace('_', '-'), **spec,
                        help='not ported (raises when set)')
 
@@ -584,6 +681,31 @@ def start_world(device, backend: str | None = None) -> int:
     ``launch.initialize_distributed``."""
     launch.initialize_distributed(device=device, backend=backend)
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def add_precise_bn_arg(p: argparse.ArgumentParser) -> None:
+    """The image CLIs' ``--precise-bn-batches`` (the JAX CLIs' flag)."""
+    p.add_argument('--precise-bn-batches', type=int, default=0,
+                   help='re-estimate BN running statistics over this '
+                        'many forward-only train batches before each '
+                        'eval (precise-BN; 0 = off). Eval-only: the '
+                        'training statistics are restored afterwards.')
+
+
+def precise_bn_batches(args: argparse.Namespace, model: torch.nn.Module,
+                       batches_of: Callable[[int], Iterable]
+                       ) -> Callable[[int], Iterable] | None:
+    """:func:`fit`'s ``precise_bn`` for ``--precise-bn-batches N``: the
+    first ``N`` of ``batches_of(epoch)``; None when ``N`` is 0. A model
+    without BatchNorm raises the JAX CLIs' ``SystemExit``."""
+    n = args.precise_bn_batches
+    if n <= 0:
+        return None
+    if not _batchnorms(model):
+        raise SystemExit('--precise-bn-batches requires a BatchNorm '
+                         f'model; {args.model!r} has no batch_stats')
+    import itertools
+    return lambda epoch: itertools.islice(batches_of(epoch), n)
 
 
 def set_determinism(args: argparse.Namespace) -> None:
@@ -702,12 +824,16 @@ def start_checkpointing(args: argparse.Namespace, state: TrainState,
 
 def make_train_state(model, optimizer, kfac, *,
                      coallocate_layer_factors: bool = False,
-                     seq_parallel: int = 1) -> TrainState:
+                     seq_parallel: int = 1,
+                     grad_accum: int = 1) -> TrainState:
     """The CLIs' ``TrainState``: with a process group up, data parallel
     over the world and ``kfac`` wrapped in ``DistributedKFAC`` (strategy
     from the ``KFAC``'s knobs; ``coallocate_layer_factors``: a layer's A
     and G on one rank; ``seq_parallel`` ranks per sequence group); else
-    the single-device ``KFAC``."""
+    the single-device ``KFAC``. ``grad_accum``: micro-batches per step
+    (:func:`accumulate_pass`)."""
+    if grad_accum < 1:
+        raise ValueError(f'grad_accum_steps={grad_accum} must be >= 1')
     distributed = dist.is_initialized()
     if kfac is not None and distributed:
         from distributed_kfac_pytorch_tpu_torch.parallel.distributed import (
@@ -719,7 +845,7 @@ def make_train_state(model, optimizer, kfac, *,
     return TrainState(
         model=model, optimizer=optimizer, kfac=kfac,
         kfac_state=kfac.init_state() if kfac is not None else None,
-        distributed=distributed)
+        distributed=distributed, grad_accum=int(grad_accum))
 
 
 def parse_args(parser: argparse.ArgumentParser,
@@ -771,6 +897,82 @@ def evaluate(model: torch.nn.Module, batches: Iterable, *, device,
         print(f'epoch {epoch}: val '
               f'{ {k: round(v, 4) for k, v in out.items()} }')
     return out
+
+
+def _batchnorms(model: torch.nn.Module) -> list:
+    """The BatchNorm modules of ``model`` that keep running statistics."""
+    return [m for m in model.modules()
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+            and m.track_running_stats]
+
+
+@torch.no_grad()
+def precise_bn_recalibrate(model: torch.nn.Module, batches: Iterable, *,
+                           device, distributed: bool = False
+                           ) -> dict[str, torch.Tensor]:
+    """Precise-BN (the JAX ``precise_bn_recalibrate``): set every
+    BatchNorm's running mean and variance to the plain average of its
+    per-batch statistics over ``batches``, at the current weights,
+    forward only (training-mode normalization, no gradient, so the K-FAC
+    capture records nothing). With ``distributed`` each rank forwards its
+    ``launch.process_local_slice`` of a batch and the batch's statistics
+    are averaged over the world (JAX: the ``pmean`` over the K-FAC axes).
+
+    The variance is torch's unbiased batch variance (the port's running
+    variance; JAX averages the biased one): with ``n = B*H*W`` values per
+    channel on a rank, the result is JAX's times ``n / (n - 1)``.
+
+    Returns every buffer of the model as it was (the training EWMA and
+    counters) for :func:`restore_buffers`; the BatchNorms' counters and
+    momenta are left as they were. A model with no BatchNorm is left
+    unchanged (``{}``); zero batches raise ``ValueError``."""
+    bns = _batchnorms(model)
+    if not bns:
+        return {}
+    device = torch.device(device)
+    saved = {k: b.clone() for k, b in model.named_buffers()}
+    momenta, was_training = [m.momentum for m in bns], model.training
+    model.train()
+    total, n = None, 0
+    try:
+        for m in bns:
+            # new = (1 - 1) * old + 1 * batch statistic: the statistic.
+            m.momentum = 1.0
+        for xb, _ in batches:
+            if distributed:
+                xb = xb[launch.process_local_slice(len(xb))]
+            model(torch.as_tensor(np.ascontiguousarray(xb), device=device))
+            stats = [t for m in bns for t in (m.running_mean, m.running_var)]
+            if distributed:
+                stats = world_mean(stats)
+            total = ([t.clone() for t in stats] if total is None
+                     else torch._foreach_add(total, stats))
+            n += 1
+    finally:
+        for m, momentum in zip(bns, momenta):
+            m.momentum = momentum
+        model.train(was_training)
+    if n == 0:
+        restore_buffers(model, saved)
+        raise ValueError('precise_bn_recalibrate: zero batches provided')
+    names = {id(b): k for k, b in model.named_buffers()}
+    for m in bns:
+        m.num_batches_tracked.copy_(saved[names[id(m.num_batches_tracked)]])
+    means = torch._foreach_div(total, float(n))
+    torch._foreach_copy_([t for m in bns
+                          for t in (m.running_mean, m.running_var)], means)
+    return saved
+
+
+@torch.no_grad()
+def restore_buffers(model: torch.nn.Module,
+                    saved: dict[str, torch.Tensor]) -> None:
+    """Copy ``saved`` (``{buffer name: tensor}``, as
+    :func:`precise_bn_recalibrate` returns) back into the model's
+    buffers, bit for bit."""
+    for name, b in model.named_buffers():
+        if name in saved:
+            b.copy_(saved[name])
 
 
 # ---------------------------------------------------------------------------

@@ -177,9 +177,8 @@ def test_import_leaves_jax_unloaded():
 
 @pytest.mark.parametrize('knob,value', [
     ('inv_lowrank_rank', 16), ('collect_metrics', True),
-    ('precond_bucketing', False), ('inv_lowrank_dim_threshold', 1024),
-    ('hierarchical_reduce', True), ('nonfinite_guard', True),
-    ('trainable', ('fc',)), ('use_eigen_decomp', True)])
+    ('inv_lowrank_dim_threshold', 1024),
+    ('hierarchical_reduce', True), ('nonfinite_guard', True)])
 def test_unported_knobs_raise_by_name(knob, value):
     with pytest.raises(NotImplementedError, match=knob):
         KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
@@ -192,7 +191,7 @@ def test_unported_knobs_raise_by_name(knob, value):
     ('inv_pipeline_costs', {64: 1.0})])
 def test_schedule_knobs_are_kfac_attributes(knob, value):
     from distributed_kfac_pytorch_tpu_torch.preconditioner import NOT_PORTED
-    assert knob not in NOT_PORTED and len(NOT_PORTED) == 8
+    assert knob not in NOT_PORTED and len(NOT_PORTED) == 5
     kfac = KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
                 inv_update_freq=10, **{knob: value})
     assert getattr(kfac, knob) == value
@@ -232,14 +231,51 @@ def _set_value(off):
                          ids=[f for f, _ in engine.UNPORTED_FLAGS])
 def test_cli_unported_flags_raise_by_name(module, flag, off):
     option = '--' + flag.replace('_', '-')
-    if option not in module.build_parser()._option_string_actions:
-        # Flags of another CLI (the JAX CLIs' sets differ).
-        assert (module, flag) in {(lm, 'grad_accum'),
-                                  (lm, 'precise_bn_batches'),
-                                  (lm, 'remat'), (cli, 'remat')}
-        return
+    assert option in module.build_parser()._option_string_actions
     with pytest.raises(NotImplementedError, match=option):
         module.train({flag: _set_value(off)}, device='cpu')
+
+
+# ImageNet CLI runs on the CPU leave stages 3-4 (factor dims up to 4608)
+# out of K-FAC for time.
+INET_SMALL = {'model': 'resnet18', 'image_size': 32, 'batch_size': 4,
+             'val_batch_size': 2, 'synthetic_size': 8, 'epochs': 1,
+             'inverse_method': 'cholesky', 'kfac_update_freq': 1,
+             'kfac_cov_update_freq': 1, 'quiet': True,
+             'skip_layers': ['layer3_block0', 'layer3_block1',
+                             'layer4_block0', 'layer4_block1']}
+
+
+@pytest.mark.parametrize('module,flags', [
+    (cli, {'grad_accum': 2}), (cli, {'precise_bn_batches': 1}),
+    (cli, {'model': 'resnet20gn', 'grad_accum': 4}),
+    (cli, {'grad_accum': 2, 'kfac_update_freq': 0}),
+    (inet, {'grad_accum': 2}), (inet, {'precise_bn_batches': 2}),
+    (inet, {'remat': True}),
+    (inet, {'remat': True, 'grad_accum': 2, 'precise_bn_batches': 1})],
+    ids=['cifar-accum', 'cifar-precise-bn', 'cifar-gn-accum',
+         'cifar-sgd-accum', 'imagenet-accum', 'imagenet-precise-bn',
+         'imagenet-remat', 'imagenet-all-three'])
+def test_wired_flags_run_a_step_on_cpu(module, flags):
+    """The flags this slice wires leave ``UNPORTED_FLAGS`` and run."""
+    assert not {f for f, _ in engine.UNPORTED_FLAGS} & set(flags)
+    base = TINY if module is cli else INET_SMALL
+    res = module.train({**base, 'max_steps': 2, **flags}, device='cpu')
+    assert res['steps'] == 2
+    assert all(math.isfinite(v) for v in res['losses'])
+    assert math.isfinite(res['val']['loss'])
+
+
+@pytest.mark.parametrize('module', [cli, inet], ids=['cifar', 'imagenet'])
+def test_image_clis_parse_the_wired_flags(module):
+    argv = ['--grad-accum', '4', '--precise-bn-batches', '3']
+    if module is inet:
+        argv.append('--remat')
+    args = module.build_parser().parse_args(argv)
+    assert (args.grad_accum, args.precise_bn_batches) == (4, 3)
+    assert getattr(args, 'remat', True)
+    assert '--remat' not in lm.build_parser()._option_string_actions
+    assert '--grad-accum' not in lm.build_parser()._option_string_actions
 
 
 JAX_CLI_SOURCES = {
@@ -308,8 +344,9 @@ def test_clis_take_the_distribution_flags(module):
             args.warmup_epochs) == ('hybrid-opt', 0.5, True, True, 2.0)
 
 
-@pytest.mark.parametrize('kwargs', [{'use_eigen_decomp': False},
-                                    {'use_eigen_decomp': True}])
+@pytest.mark.parametrize('kwargs', [{'inv_lowrank_rank': 8},
+                                    {'inv_lowrank_rank': 8,
+                                     'inv_lowrank_dim_threshold': 64}])
 def test_unported_inverse_methods_raise(kwargs):
     with pytest.raises(NotImplementedError, match='not ported'):
         KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu', **kwargs)

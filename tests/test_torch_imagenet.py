@@ -187,7 +187,8 @@ def test_imagenet_directory_reader_is_not_ported(tmp_path):
 
 
 @pytest.mark.parametrize('kwargs', [{'dtype': torch.bfloat16},
-                                    {'remat': True}])
+                                    {'dtype': torch.float16,
+                                     'remat': True}])
 def test_unported_model_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
         imagenet_resnet.get_model('resnet18', **kwargs)
