@@ -36,7 +36,17 @@ Phases (any failure exits nonzero and prints no result line):
      K2 timed with bf16 multiplicands (bound against the bf16 tensor-core
      rate); K3 on every eigen bucket, also fed bf16 stacks (fp32 and bf16
      modes, the usual tolerances); and K1 in bf16-storage mode at one
-     Transformer-XL shape, checked and timed the same way;
+     Transformer-XL shape, checked and timed the same way; then K1-K3 at
+     the ViT-S/16 step's shapes (224 px, batch 64: K1 on every Linear's
+     ``(64 * 197, 384)`` and ``(64 * 197, 1536)`` rows with and without
+     the bias column, the head's rows and the patch conv's G; K2 on the
+     patch embedding, kernel = stride = 16, no padding, 768 features
+     plus the bias; K3 on its five buckets in the forms ``auto`` gives
+     them) and K1-K3 at the MobileNetV1 step's (176 px, batch 64: K1 on
+     the stem's and the pointwise convs' G and the fc's A and G, K2 on
+     their A, the 3x3/2 stem and the 1x1 convs, five of 512 channels at
+     11 px among them, K3 on the eleven buckets in their ``auto`` forms),
+     each held and timed the same way;
   4. kernel K4 (Newton--Schulz inverse): random SPD stacks at every
      ResNet-50 size bucket and edge sizes, damping 0.003 and 0.001, and
      stacks whose matrices stop at different iterations (and at the cap),
@@ -87,13 +97,13 @@ Phases (any failure exits nonzero and prints no result line):
      finite losses, no jacobi_eigh launch;
  11. ResNet-32 under ``--eigh-method jacobi``: 11 steps, finite losses,
      jacobi_eigh 9 per firing besides phase 5's per-step launches;
- 12. the result (printed after phases 13-28): a JSON line of
-     per-kernel numbers (K1-K3 per ResNet-50 step, K4 per ResNet-50
-     firing, K5 per LSTM firing, under ``transformer_xl`` K1 and K3 per
-     XL step and K4 per XL firing, and under ``resnet152_config5`` K1-K3
-     per config-5 step; launches summed over phases 5-7, 9-11 and
-     13-28), the card line, then ``{"ok": true, "device":
-     {...}}`` as the last line;
+ 12. the result (printed after phases 13-33): a JSON line of
+     per-kernel numbers (K1-K3 per ResNet-50 step, K4 per ResNet-50 firing, K5
+     per LSTM firing, under ``transformer_xl`` K1 and K3 per XL step and K4 per
+     XL firing, under ``resnet152_config5`` K1-K3 per config-5 step, and under
+     ``vit_small`` and ``mobilenet_v1`` K1-K3 per ViT-S/16 and MobileNetV1
+     step; launches summed over phases 5-7, 9-11 and 13-33), the card line,
+     then ``{"ok": true, "device": {...}}`` as the last line;
  13. distributed, NCCL at world size 1: phase 6's ResNet-50 run through
      ``train_imagenet_resnet.train`` inside a one-rank NCCL group
      (``file://`` rendezvous under ``chiprun_out/``), ``--comm-method
@@ -209,7 +219,10 @@ Phases (any failure exits nonzero and prints no result line):
      Transformer at 1 block with ``--seq-parallel 2`` (2 K-FAC ranks x
      2 sequence ranks), 3 steps: every rank's losses identical and
      finite, launches equal the assignment; step times print labelled as
-     gloo through host memory;
+     gloo through host memory. Phases 20 and 22 run at once, after phase
+     21 (their eight ranks share the card and the host; their step times
+     are each other's neighbours'), phase 22's lines printed after phase
+     20's;
  23. tracked config 5: ``train_imagenet_resnet.train`` with ``--model
      resnet152 --bf16-factors --inverse-method eigen``, 224 px, batch 64,
      one fixed synthetic batch, lr 0.1 (``R152_LR``: at the CLI's 0.0125
@@ -300,7 +313,9 @@ Phases (any failure exits nonzero and prints no result line):
      equal. The uninterrupted world and the two interrupted ones run at
      once, then the two relaunches; rank 0's step-save ms under the group
      are printed. The phases' launches come from each run's
-     ``--launch-counts`` file and join the result line's.
+     ``--launch-counts`` file and join the result line's. Phases 27 and
+     28 run at once (phase 28's worlds beside phase 27's ResNet-50 runs),
+     phase 28's lines printed after phase 27's.
 
  29. gradient accumulation at ResNet-50 width: the ImageNet CLI
      (in process), 224 px, batch 256 as ``--grad-accum 4`` (micro-batches
@@ -337,6 +352,30 @@ Phases (any failure exits nonzero and prints no result line):
      per-tensor gap printed; the loss within 1e-5), every rank's
      launches twice the single pass's K1 / K2.
      Phases 29-31 print their seconds.
+ 32. grouped / depthwise convs: MobileNetV1 at the JAX package's
+     depthwise workload (width 1.0, 176 px, batch 64, damping 0.003, lr
+     0.1, momentum 0.9, factors every step, inverses every 10, ``auto``),
+     12 ``KFAC.step`` steps on one fixed synthetic batch in fp32: 13
+     ``conv2d_grouped`` layers registered (28 in all, only BatchNorms
+     declined), every loss finite, the last three below the first three,
+     launches K1 16, K2 14, K3 11 per step and no K4 / K5 (the grouped
+     layers launch no kernel); the last step's grouped A and G stacks, the
+     contribution and the stored EMA, within 1e-5 of a float64 per-group
+     covariance of the same captures taken with ``F.unfold``; non-firing
+     and firing step ms and the peak memory; then a one-rank NCCL
+     ``DistributedKFAC`` (COMM_OPT) for 3 shared-input steps, held to the
+     single device as phase 13 (factors 1e-5, preconditioned gradients
+     1e-4, ``nu`` 1e-5);
+ 33. ViT-S/16 through ``train_imagenet_resnet.train({'model':
+     'vit_small', ...})``, 224 px, batch 64, one fixed synthetic batch,
+     lr 0.1 with no warm-up, damping 0.003, factors every step, inverses
+     every 10: 12 steps under ``auto`` (firings at 0 and 10), then 3
+     under ``--kfac-approx reduce`` (the patch conv's reduced rows through
+     K1); every loss finite and falling, launches per step K1 147 (148
+     under reduce), K2 1 (0), K3 5, no K4 / K5, the K3 buckets in the
+     forms phase 3 times; non-firing and firing step ms.
+     Phases 32-33 print their seconds. The script ends with every phase
+     header's wall time, largest first.
 
 ``--quick`` builds with ``-Xptxas -v`` and runs only the correctness
 checks of phases 3, 4 and 8 (a first call after a kernel change).
@@ -348,7 +387,9 @@ if the ResNet-50 steps show no K2 time or the XL steps no K1 time). Details of e
 ``chiprun_out/chip_smoke.json`` next to this script. ``--resume-only``
 builds and runs phases 27-28 alone (no result line;
 ``chiprun_out/chip_smoke_resume.json``); ``--accum-only`` builds and runs
-phases 29-31 alone (``chiprun_out/chip_smoke_accum.json``).
+phases 29-31 alone (``chiprun_out/chip_smoke_accum.json``);
+``--models-only`` builds and runs phase 3's ViT-S and MobileNetV1 cases
+and phases 32-33 alone (``chiprun_out/chip_smoke_models.json``).
 ``--determinism-probe`` (alone
 or before ``--resume-only``'s phases) runs phase 27's uninterrupted
 ResNet-50 twice without ``--deterministic`` and compares the final
@@ -525,16 +566,99 @@ R50_NS_BUCKETS = ((64, 12), (128, 12), (147, 1), (256, 26), (512, 19),
                   (576, 3), (1000, 1), (1024, 14), (1152, 4), (2048, 6),
                   (2049, 1), (2304, 6), (4608, 3))
 
+# Phase 32: MobileNetV1 at the JAX package's depthwise workload
+# (benchmarks/depthwise_bench.py:128-150): width 1.0, 176 px, batch 64,
+# damping 0.003, K-FAC and SGD lr 0.1 (momentum 0.9), factors every step,
+# inverses every 10, 'auto', 12 steps on one fixed synthetic batch, fp32
+# (the bench defaults to bf16 activations; the port has no model dtype).
+# Per step K1 runs the stem's and the 13 pointwise convs' G and the fc's A
+# and G (16), K2 their A (14), K3 one launch per dense gradient shape (the
+# stem (32, 27), the pointwise (64, 32), (128, 64), (128, 128),
+# (256, 128), (256, 256), (512, 256), (512, 512) x 5, (1024, 512),
+# (1024, 1024) and the fc (1000, 1025): 11); the 13 depthwise convs
+# (conv2d_grouped) launch no kernel: stock torch factors, batched damped
+# Cholesky, G_inv V A_inv over their block stacks.
+MB_PX, MB_BATCH, MB_STEPS, MB_FIRE_EVERY = 176, 64, 12, 10
+MB_LR, MB_DAMPING, MB_GROUPED = 0.1, 0.003, 13
+MB_PER_STEP = {'factor_ema': 16, 'patch_cov': 14, 'bucket_precond': 11,
+               'ns_inverse': 0, 'jacobi_eigh': 0}
+MB_NCCL_STEPS = 3
+# Phase 32's per-group float64 check of the final grouped factors.
+MB_GROUPED_TOL = 1e-5
+# Phase 33: ViT-S/16 (benchmarks/vit_bench.py:133-148; SGD lr 0.1,
+# momentum 0.9, K-FAC damping 0.003) through the ImageNet CLI at 224 px,
+# batch 64, one fixed synthetic batch, factors every step, inverses every
+# 10, no warm-up. Per step under 'expand' K1 runs the A and G of the 12 x
+# 6 block Linears (rows (64 * 197, d)) and of the head (rows (64, d)) and
+# the patch conv's G (147); K2 the patch conv's A (1); under 'reduce' the
+# patch conv's reduced A and G rows go to K1 as well (148 K1, no K2). K3
+# runs the five gradient shapes, in the form 'auto' gives them: q, k, v,
+# o eigen (A 385, G 384); mlp_in (G 1536), mlp_out (A 1537), the head (G
+# 1000) and the patch conv (A 769) baked.
+VIT_BATCH, VIT_PX, VIT_STEPS, VIT_FIRE_EVERY = 64, 224, 12, 10
+VIT_TOKENS, VIT_D, VIT_LAYERS = 64 * 197, 384, 12
+VIT_REDUCE_STEPS = 3
+VIT_K1_CASES = (   # (rows, d, bias, launches per step)
+    (VIT_TOKENS, VIT_D, True, 5 * VIT_LAYERS),      # q, k, v, o, mlp_in A
+    (VIT_TOKENS, VIT_D, False, 5 * VIT_LAYERS),     # q, k, v, o, mlp_out G
+    (VIT_TOKENS, 4 * VIT_D, True, VIT_LAYERS),      # mlp_out A
+    (VIT_TOKENS, 4 * VIT_D, False, VIT_LAYERS),     # mlp_in G
+    (VIT_BATCH, VIT_D, True, 1),                    # head A
+    (VIT_BATCH, 1000, False, 1))                    # head G
+# (gradient shape (G, A), layers, form) of the K3 buckets.
+VIT_K3_BUCKETS = (((VIT_D, VIT_D + 1), 4 * VIT_LAYERS, 'eigen'),
+                  ((4 * VIT_D, VIT_D + 1), VIT_LAYERS, 'baked'),
+                  ((VIT_D, 4 * VIT_D + 1), VIT_LAYERS, 'baked'),
+                  ((1000, VIT_D + 1), 1, 'baked'),
+                  ((VIT_D, 3 * 16 * 16 + 1), 1, 'baked'))
+VIT_PER_STEP = {'factor_ema': sum(c[3] for c in VIT_K1_CASES) + 1,
+                'patch_cov': 1, 'bucket_precond': len(VIT_K3_BUCKETS),
+                'ns_inverse': 0, 'jacobi_eigh': 0}
+VIT_REDUCE_PER_STEP = {**VIT_PER_STEP,
+                       'factor_ema': VIT_PER_STEP['factor_ema'] + 1,
+                       'patch_cov': 0}
+
+# Phase 3's cases at the shapes of phases 32-33: (header, key, keywords of
+# check_kernels).
+_MODEL_KERNEL_CHECKS = (
+    (f'== kernels K1-K3 vs plain versions: ViT-S/16 shapes ({VIT_PX} px, '
+     f'batch {VIT_BATCH})', 'vit_small', {'vit': True}),
+    (f'== kernels K1-K3 vs plain versions: MobileNetV1 shapes ({MB_PX} px, '
+     f'batch {MB_BATCH})', 'mobilenet_v1', {'mobilenet': True}))
 
 _T0 = time.perf_counter()
 
 
+#: ``(header, seconds since the start)`` of every phase header logged.
+HEADERS: list = []
+
+
+#: Where a thread's :func:`log` lines go instead of stdout (:func:`at_once`).
+_LOG_BUFFER = threading.local()
+
+
 def log(msg: str) -> None:
     """Print a line; a phase's header (``== ...``) with the seconds since
-    the script started."""
+    the script started (kept in ``HEADERS``). A call running under
+    :func:`at_once` keeps its lines instead."""
+    buffered = getattr(_LOG_BUFFER, 'lines', None)
+    if buffered is not None:
+        buffered.append(msg)
+        return
     if msg.startswith('=='):
-        msg = f'{msg} [{time.perf_counter() - _T0:.1f} s]'
+        now = time.perf_counter() - _T0
+        HEADERS.append((msg, now))
+        msg = f'{msg} [{now:.1f} s]'
     print(msg, flush=True)
+
+
+def phase_walls() -> list:
+    """``[(header, wall s)]``: each logged phase header with the seconds
+    until the next one (the last until now), largest first."""
+    marks = HEADERS + [('', time.perf_counter() - _T0)]
+    walls = [(h[:72], round(t1 - t0, 1))
+             for (h, t0), (_, t1) in zip(marks, marks[1:])]
+    return sorted(walls, key=lambda w: -w[1])
 
 
 def card_line() -> str:
@@ -583,7 +707,7 @@ def bound(nbytes: float, flops: float,
 # ---------------------------------------------------------------------------
 
 def factor_ema_cases(gen, dev, resnet50=None, xl=False,
-                     storage_bf16=False):
+                     storage_bf16=False, vit=False, mobilenet=None):
     """K1's cases; ``storage_bf16``: the running factor ``old`` (and so the
     result) in bf16, K1's bf16-storage mode, each case also held bit for
     bit against the widen, fp32 launch, round sequence (``kern.widened``)
@@ -651,6 +775,26 @@ def factor_ema_cases(gen, dev, resnet50=None, xl=False,
         nbytes = 4 * rows * d_in + 2 * old.element_size() * n * n
         return kern, plain, library, nbytes, rows * d_in * (d_in + 1)
 
+    if mobilenet:
+        # The MobileNetV1 step's cases (phase 32): the stem's and the
+        # pointwise convs' G and the fc's A and G (the depthwise convs
+        # launch no kernel).
+        fc_in, fc_out = mobilenet['fc']
+        return [(f'mobilenet conv G ({MB_BATCH},{c},{h},{w})', count,
+                 lambda c=c, h=h, w=w: case((MB_BATCH, c, h, w), False))
+                for (c, h, w), count in mobilenet['conv_g']] + [
+            (f'mobilenet linear A ({MB_BATCH},{fc_in})+bias', 1,
+             lambda: case((MB_BATCH, fc_in), True)),
+            (f'mobilenet linear G ({MB_BATCH},{fc_out})', 1,
+             lambda: case((MB_BATCH, fc_out), False))]
+    if vit:
+        # The ViT-S/16 step's cases (phase 33, 'expand'): every Linear's
+        # A and G and the patch conv's G.
+        return [(f'vit ({rows},{d}){"+bias" if bias else ""}', count,
+                 lambda rows=rows, d=d, bias=bias: case((rows, d), bias))
+                for rows, d, bias, count in VIT_K1_CASES] + [
+            (f'vit patch conv G ({VIT_BATCH},{VIT_D},14,14)', 1,
+             lambda: case((VIT_BATCH, VIT_D, 14, 14), False))]
     if xl:
         # The XL step's cases, then one in bf16-storage mode (untimed on
         # the main path: phase 15 keeps fp32 factors).
@@ -695,7 +839,8 @@ def factor_ema_cases(gen, dev, resnet50=None, xl=False,
     ]
 
 
-def patch_cov_cases(gen, dev, resnet50=None):
+def patch_cov_cases(gen, dev, resnet50=None, vit=False,
+                    mobilenet=None):
     import torch
     import torch.nn.functional as F
     from distributed_kfac_pytorch_tpu_torch.ops import kernels as K
@@ -736,6 +881,21 @@ def patch_cov_cases(gen, dev, resnet50=None):
         nbytes = 4 * (x.numel() + n * n)
         return kern, plain, library, nbytes, rows * d * (d + 1)
 
+    if vit:
+        # The ViT-S/16 patch embedding: kernel = stride = 16, no padding,
+        # 768 features plus the bias (phase 33, 'expand').
+        return [(f'vit patch embed D=769 ({VIT_BATCH},3,{VIT_PX},{VIT_PX}) '
+                 'k16 s16 +bias', 1,
+                 lambda: case((VIT_BATCH, 3, VIT_PX, VIT_PX), (16, 16), 0,
+                              has_bias=True, k=(16, 16)))]
+    if mobilenet:
+        # MobileNetV1 at 176 px (phase 32): the 3x3/2 stem and the 1x1
+        # pointwise convs (the 512-channel ones at 11 px are blocks 6-10).
+        return [(f'mobilenet D={c * k[0] * k[1]} ({MB_BATCH},{c},{h},{w}) '
+                 f'k{k[0]} s{s[0]}', count,
+                 lambda c=c, h=h, w=w, k=k, s=s: case(
+                     (MB_BATCH, c, h, w), s, (k[0] // 2, k[1] // 2), k=k))
+                for (c, h, w), k, s, count in mobilenet['conv_a']]
     if resnet50:
         return [(f'D={c * k[0] * k[1]} ({R50_BATCH},{c},{h},{w}) k{k[0]} '
                  f's{s[0]}', count,
@@ -776,7 +936,7 @@ def patch_cov_cases(gen, dev, resnet50=None):
 
 
 def bucket_precond_cases(gen, dev, resnet50=None, xl=False,
-                         eigen_path=False):
+                         eigen_path=False, vit=False, mobilenet=None):
     """K3's cases. ``eigen_path`` (the ResNet-152 path under ``eigen``):
     every bucket eigen, timed, and checked again fed bf16 stacks (bf16
     inverse storage, which the wrapper widens)."""
@@ -837,6 +997,21 @@ def bucket_precond_cases(gen, dev, resnet50=None, xl=False,
         flops = s * (4 if eigen else 2) * g_dim * a_dim * (a_dim + g_dim)
         return kern, plain, library, nbytes, flops
 
+    if mobilenet:
+        # The MobileNetV1 step's buckets in the form 'auto' gives them:
+        # eigen where both sides are at most 640, baked otherwise.
+        return [(f'mobilenet {"eigen" if e else "baked"} ({s},{g_dim},'
+                 f'{a_dim})', 1,
+                 lambda s=s, g=g_dim, a=a_dim, e=e: case(s, g, a, e))
+                for (g_dim, a_dim), s in mobilenet['buckets']
+                for e in [max(g_dim, a_dim) <= 640]]
+    if vit:
+        # The ViT-S/16 step's five buckets in the form 'auto' gives them
+        # (phase 33 checks the forms on its state).
+        return [(f'vit {form} ({s},{g_dim},{a_dim})', 1,
+                 lambda s=s, g=g_dim, a=a_dim, e=form == 'eigen': case(
+                     s, g, a, e))
+                for (g_dim, a_dim), s, form in VIT_K3_BUCKETS]
     if xl:
         # Under 'auto' every side above 640 is baked: the main path's
         # three buckets, timed once per step.
@@ -909,22 +1084,37 @@ def resnet50_shapes() -> dict:
 
 
 def resnet_shapes(model_name: str) -> dict:
-    """The shapes an ImageNet ResNet's path (224 px) gives K1-K3, from one
-    forward pass of the model on the CPU at batch 1: conv output (C, H,
-    W) with counts, conv input (C, H, W) + kernel + stride with counts,
-    the head's (in, out) and the precondition buckets ((G, A), layers)."""
+    """The shapes an ImageNet ResNet's path (224 px) gives K1-K3
+    (:func:`layer_shapes`)."""
+    from distributed_kfac_pytorch_tpu_torch.models import imagenet_resnet
+    return layer_shapes(imagenet_resnet.get_model(model_name), 224)
+
+
+def mobilenet_shapes() -> dict:
+    """The shapes MobileNetV1's path (phase 32, ``MB_PX``) gives K1-K3
+    (:func:`layer_shapes`; the depthwise convs launch no kernel)."""
+    from distributed_kfac_pytorch_tpu_torch.models import mobilenet
+    return layer_shapes(mobilenet.get_model(1000), MB_PX)
+
+
+def layer_shapes(model, px: int) -> dict:
+    """The shapes a conv net's K-FAC step at ``px`` gives K1-K3, from one
+    forward pass of ``model`` on the CPU at batch 1: conv output (C, H, W)
+    with counts, conv input (C, H, W) + kernel + stride with counts, the
+    head's (in, out) and the precondition buckets ((G, A), layers);
+    grouped convs are left out."""
     import collections
     import torch
-    from distributed_kfac_pytorch_tpu_torch.models import imagenet_resnet
-    model = imagenet_resnet.get_model(model_name).eval()
-    seen, hooks = [], []
+    model = model.eval()
+    seen = []
     for mod in model.modules():
-        if isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear)):
-            hooks.append(mod.register_forward_hook(
+        if isinstance(mod, torch.nn.Linear) or (
+                isinstance(mod, torch.nn.Conv2d) and mod.groups == 1):
+            mod.register_forward_hook(
                 lambda m, i, o: seen.append((m, tuple(i[0].shape[1:]),
-                                             tuple(o.shape[1:])))))
+                                             tuple(o.shape[1:]))))
     with torch.no_grad():
-        model(torch.zeros(1, 3, 224, 224))
+        model(torch.zeros(1, 3, px, px))
     conv_g, conv_a, buckets = (collections.Counter() for _ in range(3))
     fc = None
     for m, x_shape, y_shape in seen:
@@ -954,15 +1144,18 @@ def plan_fields(plan) -> dict:
 
 def check_kernels(quick: bool, resnet50: dict | None = None,
                   lstm: bool = False, xl: bool = False,
-                  config5: bool = False) -> tuple[dict, list]:
+                  config5: bool = False, vit: bool = False,
+                  mobilenet: bool = False) -> tuple[dict, list]:
     """K1-K3 against their plain versions at the ResNet-32 shapes (or,
-    given ``resnet50_shapes()``, the ResNet-50 ones; with ``lstm``, K3 at
-    the LSTM LM's bucket; with ``xl``, K1 and K3 at the Transformer-XL
-    step's shapes; with ``config5`` and ``resnet_shapes('resnet152')``,
-    tracked config 5's modes: K1 with bf16 storage, K3 on eigen buckets,
-    also fed bf16 stacks, and K1 and K2 timed with bf16 multiplicands);
-    per-step sums of the timed cases' ms, plain ms, library ms and
-    bounds. A K1 case in bf16-storage mode is also held bit for bit
+    given ``resnet50_shapes()``, the ResNet-50 ones; with ``lstm``, K3 at the
+    LSTM LM's bucket; with ``xl``, K1 and K3 at the Transformer-XL step's
+    shapes; with ``vit``, K1-K3 at the ViT-S/16 step's shapes; with
+    ``mobilenet``, K1-K3 at the MobileNetV1 step's; with ``config5`` and
+    ``resnet_shapes('resnet152')``, tracked config 5's modes: K1 with bf16
+    storage, K3 on eigen buckets, also fed bf16 stacks, and K1 and K2 timed
+    with bf16 multiplicands); per-step sums of the timed cases' ms, plain ms,
+    library ms and bounds. A K1 case in bf16-storage mode is also held bit for
+    bit
     against the widen, fp32 launch, round sequence and timed beside it."""
     import torch
     dev = torch.device('cuda')
@@ -973,6 +1166,18 @@ def check_kernels(quick: bool, resnet50: dict | None = None,
     timed_bf16 = {'factor_ema': config5, 'patch_cov': config5}
     if lstm:
         families = {'bucket_precond': lstm_bucket_precond_cases(gen, dev)}
+    elif vit:
+        families = {'factor_ema': factor_ema_cases(gen, dev, vit=True),
+                    'patch_cov': patch_cov_cases(gen, dev, vit=True),
+                    'bucket_precond': bucket_precond_cases(gen, dev,
+                                                           vit=True)}
+    elif mobilenet:
+        shapes = mobilenet_shapes()
+        families = {
+            'factor_ema': factor_ema_cases(gen, dev, mobilenet=shapes),
+            'patch_cov': patch_cov_cases(gen, dev, mobilenet=shapes),
+            'bucket_precond': bucket_precond_cases(gen, dev,
+                                                   mobilenet=shapes)}
     elif xl:
         families = {'factor_ema': factor_ema_cases(gen, dev, xl=True),
                     'bucket_precond': bucket_precond_cases(gen, dev,
@@ -985,6 +1190,7 @@ def check_kernels(quick: bool, resnet50: dict | None = None,
             'bucket_precond': bucket_precond_cases(gen, dev, resnet50,
                                                    eigen_path=config5)}
     model = ('lstm' if lstm else 'transformer_xl' if xl
+             else 'vit_small' if vit else 'mobilenet_v1' if mobilenet
              else 'resnet152' if config5
              else 'resnet50' if resnet50 else 'resnet32')
     summary, details = {}, []
@@ -3629,6 +3835,9 @@ def _run_lm_gloo(phase: str, number: int, card: str) -> dict:
 
 def run_lm_gloo_world(card: str) -> dict:
     """Phase 20: LM_GLOO_CASES and the LSTM CLI on 4 gloo ranks."""
+    log(f'  phase 20, distributed: the LM at XL width, {LM_GLOO_LAYERS} '
+        f'blocks, global batch {XL_BATCH}, {len(LM_GLOO_CASES)} mesh cases x '
+        f'{LM_GLOO_STEPS} steps; the LSTM CLI, hybrid-opt 2 x 2, jacobi')
     return _run_lm_gloo('lm', 20, card)
 
 
@@ -3748,6 +3957,11 @@ def run_transformer_xl_chunked(card: str, xl: dict) -> dict:
 def run_seq_gloo_world(card: str) -> dict:
     """Phase 22: SEQ_GLOO_CASES (the ring) and the Transformer CLI with
     ``--seq-parallel SEQ_CLI_SP`` on 4 gloo ranks."""
+    log(f'  phase 22, sequence parallelism: the LM at XL width, '
+        f'{LM_GLOO_LAYERS} blocks, the ring over sequence groups, global '
+        f'batch {XL_BATCH} x {XL_BPTT}, {len(SEQ_GLOO_CASES)} cases x '
+        f'{LM_GLOO_STEPS} steps; the Transformer CLI, --seq-parallel '
+        f'{SEQ_CLI_SP}')
     return _run_lm_gloo('seq', 22, card)
 
 
@@ -3891,6 +4105,10 @@ def run_resume_resnet50(card: str) -> dict:
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
+    log(f'  phase 27: ResNet-50 at 224 px, batch 64, 2 epochs of 8 steps '
+        f'through the ImageNet CLI (subprocesses, {RESUME_CONCURRENCY} at '
+        'a time): uninterrupted, preempt@5, crash@9, and preempt@5 with 5 '
+        'chunks, the deferred reduction and newton')
     t0 = time.perf_counter()
     tmp = Path(tempfile.mkdtemp(prefix='kfac-resume-'))
     sem = threading.BoundedSemaphore(RESUME_CONCURRENCY)
@@ -4043,32 +4261,57 @@ def run_determinism_probe(card: str) -> dict:
 
 
 def run_resume_phases(card: str) -> dict:
-    """Phases 27 and 28, with their wall time; this process's cached
-    device memory is released first (the phases' subprocesses share the
-    card)."""
+    """Phases 27 and 28 at once, with their wall time; this process's
+    cached device memory is released first (the phases' subprocesses share
+    the card). Phase 28's gloo worlds run in a thread beside phase 27's
+    ResNet-50 runs (neither times anything the other perturbs but its own
+    runs' walls and saves); its lines are printed after phase 27's."""
     import shutil
     import tempfile
     import torch
     _release()
     t0 = time.perf_counter()
     free = shutil.disk_usage(tempfile.gettempdir()).free
-    log(f'== checkpoint and resume: ResNet-50 at 224 px, batch 64, 2 epochs '
-        f'of 8 steps through the ImageNet CLI (subprocesses, '
-        f'{RESUME_CONCURRENCY} at a time; {free / 2**30:.1f} GiB free in '
-        f'{tempfile.gettempdir()}, '
-        f'{torch.cuda.mem_get_info()[0] / 2**30:.1f} GiB on the card): '
-        'uninterrupted, preempt@5, crash@9, and preempt@5 with 5 chunks, '
-        'the deferred reduction and newton')
-    out = {'resume_resnet50': run_resume_resnet50(card)}
-    log(f'== checkpoint and resume, distributed: ResNet-32, {GLOO_WORLD} '
-        'gloo ranks of the CIFAR CLI on one card, hybrid-opt 2 x 2, 2 '
-        'epochs of 8 steps, jacobi: SIGTERM on rank 0, then '
-        'corrupt-ckpt@6,crash@7 (three worlds at once, then two)')
-    out['resume_gloo_world'] = run_resume_gloo_world(card)
+    log(f'== checkpoint and resume, phases 27 and 28 at once ('
+        f'{free / 2**30:.1f} GiB free in {tempfile.gettempdir()}, '
+        f'{torch.cuda.mem_get_info()[0] / 2**30:.1f} GiB on the card)')
+    resnet50, gloo_world = at_once((run_resume_resnet50, card),
+                                   (run_resume_gloo_world, card))
+    out = {'resume_resnet50': resnet50, 'resume_gloo_world': gloo_world}
     seconds = time.perf_counter() - t0
     log(f'  phases 27-28: {seconds:.1f} s wall ({card})')
     out['resume_seconds'] = seconds
     return out
+
+
+def at_once(*calls) -> list:
+    """Run ``(fn, *args)`` calls at once, each in a thread, and return
+    their results in order; each call's :func:`log` lines are kept and
+    printed after the call before it has printed its own, so the output
+    reads as if they had run one after the other. A call that raises
+    re-raises here, after the calls before it have printed."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def logged(lines, fn, *args):
+        _LOG_BUFFER.lines = lines
+        try:
+            return fn(*args)
+        finally:
+            _LOG_BUFFER.lines = None
+
+    buffers = [[] for _ in calls]
+    with ThreadPoolExecutor(len(calls)) as pool:
+        futures = [pool.submit(logged, buf, *call)
+                   for buf, call in zip(buffers, calls)]
+        results = []
+        for buf, fut in zip(buffers, futures):
+            exc = fut.exception()
+            for line in buf:
+                log(line)
+            if exc is not None:
+                raise exc
+            results.append(fut.result())
+    return results
 
 
 def _bundle_figures(directory: Path, card: str) -> dict:
@@ -4177,6 +4420,10 @@ def run_resume_gloo_world(card: str) -> dict:
     from distributed_kfac_pytorch_tpu_torch.training.checkpoint import \
         RANK_FILE
 
+    log(f'  phase 28: ResNet-32, {GLOO_WORLD} gloo ranks of the CIFAR CLI on '
+        'one card, hybrid-opt 2 x 2, 2 epochs of 8 steps, jacobi: SIGTERM '
+        'on rank 0, then corrupt-ckpt@6,crash@7 (three worlds at once, then '
+        'two)')
     t0 = time.perf_counter()
     tmp = Path(tempfile.mkdtemp(prefix='kfac-resume-world-'))
     launches: dict = {}
@@ -4828,6 +5075,331 @@ def run_accum_phases(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 32-33: MobileNetV1 (grouped / depthwise convs) and ViT-S/16
+# ---------------------------------------------------------------------------
+
+def _fixed_batch(batch: int, px: int, dev, seed: int = 0):
+    """One synthetic ImageNet batch, ``(x, y)`` on ``dev``, from ``seed``."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((batch, 3, px, px), generator=gen)
+    y = torch.randint(0, 1000, (batch,), generator=gen)
+    return x.to(dev), y.to(dev)
+
+
+def _mobilenet(dev):
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.models import mobilenet
+    with torch.random.fork_rng(devices=[dev]):
+        torch.manual_seed(0)
+        return mobilenet.get_model(1000).to(dev)
+
+
+def _mobilenet_kfac(model, dev):
+    from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
+    return KFAC(model, damping=MB_DAMPING, lr=MB_LR, factor_update_freq=1,
+                inv_update_freq=MB_FIRE_EVERY, device=dev)
+
+
+def _grouped_cov64(spec, a, g) -> dict:
+    """One batch's per-group A and G of a grouped conv in float64, by
+    ``F.unfold`` (independent of the port's strided-view im2col): the patch
+    covariance of each group's channels over ``B*OH*OW`` rows and the
+    covariance of its output-gradient block, each over ``rows *
+    spatial^2``."""
+    import torch
+    import torch.nn.functional as F
+    n = spec.feature_group_count
+    (ph, _), (pw, _) = spec.padding
+    p = F.unfold(a.double(), spec.kernel_size, padding=(ph, pw),
+                 stride=spec.strides)                  # (B, C*kh*kw, L)
+    b, _, spatial = p.shape
+    p = p.reshape(b, n, -1, spatial).permute(1, 2, 0, 3).reshape(
+        n, -1, b * spatial)
+    g2 = g.double().reshape(b, n, -1, spatial).permute(1, 2, 0, 3).reshape(
+        n, -1, b * spatial)
+    scale = 1.0 / (b * spatial * spatial * spatial)
+    return {'A': p @ p.mT * scale, 'G': g2 @ g2.mT * scale}
+
+
+def run_mobilenet(card: str) -> dict:
+    """Phase 32 (see the module docstring)."""
+    import torch
+    import torch.nn.functional as F
+    from distributed_kfac_pytorch_tpu_torch import layers as L
+    from distributed_kfac_pytorch_tpu_torch.capture import CONV2D_GROUPED
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    _release()
+    t0 = time.perf_counter()
+    dev = torch.device('cuda')
+    x, y = _fixed_batch(MB_BATCH, MB_PX, dev)
+    model = _mobilenet(dev)
+    kfac = _mobilenet_kfac(model, dev)
+    grouped = [n for n, sp in kfac.specs.items()
+               if sp.kind == CONV2D_GROUPED]
+    skipped = sorted(kfac.capture.skipped_modules)
+    if len(grouped) != MB_GROUPED or len(kfac.specs) != 28 or any(
+            'bn' not in n for n in skipped):
+        raise AssertionError(f'MobileNetV1: {len(grouped)} grouped of '
+                             f'{len(kfac.specs)} layers, skipped {skipped}')
+    opt = torch.optim.SGD(model.parameters(), lr=MB_LR, momentum=0.9)
+    state = kfac.init_state()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    kernels.reset_launches()
+    for step in range(MB_STEPS):
+        fire = step % MB_FIRE_EVERY == 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, _, grads, captures = kfac.capture.loss_and_grads(
+            lambda out: F.cross_entropy(out, y), x)
+        prev = state['factors']
+        precond, state = kfac.step(state, grads, captures,
+                                   factor_update=True, inv_update=fire)
+        for n, p in model.named_parameters():
+            p.grad = precond[n]
+        opt.step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+    launches = dict(kernels.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    log(f'  losses: {[round(v, 4) for v in losses]}')
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f'MobileNetV1: losses {losses}')
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not last < first:
+        raise AssertionError(f'MobileNetV1: loss did not decrease: first '
+                             f'three {first:.4f}, last three {last:.4f}')
+    expected = {k: v * MB_STEPS for k, v in MB_PER_STEP.items()}
+    if launches != expected:
+        raise AssertionError(f'MobileNetV1: launches {launches}, expected '
+                             f'{expected}')
+    # The K3 buckets phase 3 times, in the forms it times them.
+    forms = _bucket_forms(kfac, state['inverses'])
+    want = {(shape, 'eigen' if max(shape) <= kfac.auto_eigen_max_dim
+             else 'baked'): n for shape, n in mobilenet_shapes()['buckets']}
+    if forms != want:
+        raise AssertionError(f'MobileNetV1: buckets {forms}, expected '
+                             f'{want}')
+    # The last step's grouped factors: its contribution (stock torch) and
+    # the stored EMA against float64 from the same captures.
+    decay = kfac.factor_decay
+    gaps = {}
+    for name in grouped:
+        spec = kfac.specs[name]
+        a, g = captures[name]['a'][0], captures[name]['g'][0]
+        want = _grouped_cov64(spec, a, g)
+        got = {'A': L.compute_a_factor(spec, [a]),
+               'G': L.compute_g_factor(spec, [g])}
+        gaps[name] = {
+            'contrib': _max_rel((got[k].double(), want[k]) for k in 'AG'),
+            'ema': _max_rel((state['factors'][name][k].double(),
+                             decay * prev[name][k].double()
+                             + (1 - decay) * want[k]) for k in 'AG')}
+    worst = {k: max(v[k] for v in gaps.values()) for k in
+             ('contrib', 'ema')}
+    log(f'  {MB_GROUPED} grouped layers, last step against float64 '
+        f'(F.unfold): contribution {worst["contrib"]:.2e}, EMA '
+        f'{worst["ema"]:.2e} (limit {MB_GROUPED_TOL})')
+    if max(worst.values()) > MB_GROUPED_TOL:
+        raise AssertionError(f'MobileNetV1 grouped factors: {gaps}')
+    del captures, grads, precond, prev
+    firing = [t for i, t in enumerate(ms) if i % MB_FIRE_EVERY == 0 and i]
+    plain = [t for i, t in enumerate(ms) if i % MB_FIRE_EVERY and i]
+    summary = {'losses': losses, 'launches': launches, 'step_ms': ms,
+               'nonfiring_ms_median': statistics.median(plain),
+               'firing_ms': firing, 'step0_ms': ms[0], 'peak_gib': peak,
+               'grouped_gaps': gaps, 'grouped_worst': worst,
+               'state_bytes': kfac.memory_usage(state)}
+    log(f'  loss first three {first:.4f} -> last three {last:.4f}; '
+        f'launches {launches}')
+    log(f'  ms/step: non-firing {summary["nonfiring_ms_median"]:.2f} '
+        f'(median of {len(plain)}), firing {[round(t, 2) for t in firing]} '
+        f'(step 0: {ms[0]:.1f}); peak {peak:.2f} GiB above the baseline; '
+        f'state {summary["state_bytes"]} bytes ({card})')
+    kfac.capture.close()
+    del model, kfac, state, opt
+    _release()
+    summary['nccl_world1'] = _mobilenet_nccl()
+    summary['seconds'] = time.perf_counter() - t0
+    log(f'  phase 32: {summary["seconds"]:.1f} s wall')
+    return summary
+
+
+def _mobilenet_nccl() -> dict:
+    """Phase 32's one-rank NCCL ``DistributedKFAC`` (COMM_OPT): one capture
+    per step feeds it and the single-device ``KFAC``, the model stepped
+    with the single-device result; every step's factors, preconditioned
+    gradients and KL-clip scale held to it (``STEP_TOL``), as phase 13."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from distributed_kfac_pytorch_tpu_torch import launch
+    from distributed_kfac_pytorch_tpu_torch.parallel.distributed import \
+        DistributedKFAC
+    dev = torch.device('cuda')
+    store = _fresh_store('nccl_mobilenet.store')
+    launch.initialize_distributed(init_method=f'file://{store}', rank=0,
+                                  world_size=1, device='cuda')
+    try:
+        if dist.get_backend() != 'nccl':
+            raise AssertionError(f'backend {dist.get_backend()}, not nccl')
+        x, y = _fixed_batch(MB_BATCH, MB_PX, dev)
+        model = _mobilenet(dev)
+        ref = _mobilenet_kfac(model, dev)
+        dk = DistributedKFAC(_mobilenet_kfac(model, dev),
+                             comm_method='comm-opt')
+        if len(dk.assignment.grouped_layers) != MB_GROUPED:
+            raise AssertionError(f'grouped layers '
+                                 f'{dk.assignment.grouped_layers}')
+        ref_state, dk_state = ref.init_state(), dk.init_state()
+        errors, failures = [], []
+        for step in range(MB_NCCL_STEPS):
+            inv = step % MB_FIRE_EVERY == 0
+            _, _, grads, captures = ref.capture.loss_and_grads(
+                lambda out: F.cross_entropy(out, y), x)
+            p_ref, ref_state = ref.step(ref_state, grads, captures,
+                                        factor_update=True, inv_update=inv)
+            p_dk, dk_state = dk.step(dk_state, grads, captures,
+                                     factor_update=True, inv_update=inv)
+            err = {'factors': _max_rel(
+                       (dk_state['factors'][n][s],
+                        ref_state['factors'][n][s])
+                       for n in ref.specs for s in 'AG'),
+                   'precond': _max_rel((p_dk[n], p_ref[n]) for n in p_ref),
+                   'nu': _max_rel([(dk.last_nu, ref.last_nu)])}
+            errors.append(err)
+            bad = {k: v for k, v in err.items() if not v <= STEP_TOL[k]}
+            if bad:
+                failures.append(f'step {step}: {bad}')
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p -= MB_LR * p_ref[n]
+        ref.capture.close()
+        dk.kfac.capture.close()
+    finally:
+        dist.destroy_process_group()
+    worst = {k: max(e[k] for e in errors) for k in STEP_TOL}
+    log(f'  shared inputs, {MB_NCCL_STEPS} steps, DistributedKFAC (NCCL, '
+        f'world 1, {MB_GROUPED} grouped layers replicated) vs single-device '
+        f'KFAC, worst: factors {worst["factors"]:.2e}, preconditioned grads '
+        f'{worst["precond"]:.2e}, nu {worst["nu"]:.2e} (limits {STEP_TOL})')
+    if failures:
+        raise AssertionError(f'MobileNetV1 NCCL world 1: {failures}')
+    return {'errors': errors, 'worst': worst}
+
+
+def _bucket_forms(kfac, inverses: dict) -> dict:
+    """``{((G, A) gradient shape, 'eigen' | 'baked'): layers}`` of a K-FAC
+    state's dense layers: the K3 buckets a step runs."""
+    from distributed_kfac_pytorch_tpu_torch.capture import CONV2D_GROUPED
+    params = dict(kfac.model.named_parameters())
+    forms: dict = {}
+    for name, entry in inverses.items():
+        if kfac.specs[name].kind == CONV2D_GROUPED:
+            continue
+        w = params[f'{name}.weight']
+        key = ((w.shape[0], w[0].numel() + int(kfac.specs[name].has_bias)),
+               'baked' if 'A_inv' in entry else 'eigen')
+        forms[key] = forms.get(key, 0) + 1
+    return forms
+
+
+def _vit_config(**over) -> dict:
+    config = {'model': 'vit_small', 'image_size': VIT_PX,
+              'batch_size': VIT_BATCH, 'synthetic_size': VIT_BATCH,
+              'val_batch_size': VIT_BATCH, 'no_augment': True, 'seed': 0,
+              'kfac_update_freq': VIT_FIRE_EVERY, 'kfac_cov_update_freq': 1,
+              'damping': 0.003, 'kl_clip': 0.001, 'base_lr': 0.1,
+              'warmup_epochs': 0, 'time_steps': True, 'quiet': True}
+    config.update(over)
+    return config
+
+
+def _vit_run(label: str, config: dict, per_step: dict, card: str) -> dict:
+    from distributed_kfac_pytorch_tpu_torch import train_imagenet_resnet
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    from distributed_kfac_pytorch_tpu_torch.models import vit
+    _release()
+    kernels.reset_launches()
+    res = train_imagenet_resnet.train(config, device='cuda')
+    launches = dict(kernels.LAUNCHES)
+    state = res.pop('state')
+    losses, n = res['losses'], res['steps']
+    log(f'  {label}: losses {[round(v, 4) for v in losses]}')
+    if n != config['epochs'] or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f'{label}: {n} steps, losses {losses}')
+    if not isinstance(state.model, vit.VisionTransformer):
+        raise AssertionError(f'{label}: model {type(state.model)}')
+    k = min(3, n // 2) or 1
+    first, last = statistics.mean(losses[:k]), statistics.mean(losses[-k:])
+    if not last < first:
+        raise AssertionError(f'{label}: loss did not decrease: first {k} '
+                             f'{first:.4f}, last {k} {last:.4f}')
+    expected = {name: per * n for name, per in per_step.items()}
+    if launches != expected:
+        raise AssertionError(f'{label}: launches {launches}, expected '
+                             f'{expected}')
+    # The K3 buckets phase 3 times, in their forms.
+    forms = _bucket_forms(state.kfac, state.kfac_state['inverses'])
+    want = {(shape, form): count for shape, count, form in VIT_K3_BUCKETS}
+    if forms != want:
+        raise AssertionError(f'{label}: buckets {forms}, expected {want}')
+    firing, plain = _step_ms(res)
+    out = {'losses': losses, 'launches': launches, 'fired': res['fired'],
+           'approx': state.kfac.approx_summary()['patch_embed'],
+           'firing_ms': firing, 'step0_ms': res['step_ms'][0],
+           'nonfiring_ms': plain,
+           'nonfiring_ms_median': statistics.median(plain)}
+    log(f'  {label}: loss first {k} {first:.4f} -> last {k} {last:.4f}; '
+        f'launches {launches}; ms/step non-firing '
+        f'{out["nonfiring_ms_median"]:.2f} (median of {len(plain)}), firing '
+        f'{[round(t, 2) for t in firing]} (step 0: '
+        f'{res["step_ms"][0]:.1f}) ({card})')
+    return out
+
+
+def run_vit(card: str) -> dict:
+    """Phase 33 (see the module docstring)."""
+    t0 = time.perf_counter()
+    auto = _vit_run('auto', _vit_config(epochs=VIT_STEPS), VIT_PER_STEP,
+                    card)
+    if [i for i, f in enumerate(auto['fired']) if f == 'inverse'] != [
+            0, VIT_FIRE_EVERY]:
+        raise AssertionError(f'ViT: fired {auto["fired"]}')
+    reduce = _vit_run('reduce', _vit_config(epochs=VIT_REDUCE_STEPS,
+                                            kfac_approx='reduce'),
+                      VIT_REDUCE_PER_STEP, card)
+    if reduce['approx'] != 'reduce':
+        raise AssertionError(f'ViT reduce: patch conv {reduce["approx"]}')
+    launches: dict = {}
+    for run in (auto, reduce):
+        _add(launches, run['launches'])
+    seconds = time.perf_counter() - t0
+    log(f'  phase 33: {seconds:.1f} s wall')
+    return {'auto': auto, 'reduce': reduce, 'launches': launches,
+            'seconds': seconds}
+
+
+def run_model_phases(card: str) -> dict:
+    """Phases 32 and 33."""
+    log(f'== MobileNetV1 (13 depthwise convs, conv2d_grouped), width 1.0, '
+        f'{MB_PX} px, batch {MB_BATCH}, damping {MB_DAMPING}, lr {MB_LR}, '
+        f'inverses every {MB_FIRE_EVERY}, {MB_STEPS} KFAC.step steps on one '
+        f'batch; then {MB_NCCL_STEPS} shared-input steps in a one-rank NCCL '
+        'group')
+    out = {'mobilenet': run_mobilenet(card)}
+    log(f'== ViT-S/16 through the ImageNet CLI, {VIT_PX} px, batch '
+        f'{VIT_BATCH}, auto, {VIT_STEPS} steps on one batch; then '
+        f'{VIT_REDUCE_STEPS} steps under --kfac-approx reduce')
+    out['vit'] = run_vit(card)
+    return out
+
+
 def _category(name: str) -> str:
     """Coarse owner of a CUDA kernel, from its (mangled) name."""
     n = name.lower()
@@ -5003,6 +5575,9 @@ def main(argv=None) -> int:
     ap.add_argument('--accum-only', action='store_true',
                     help='build, then run phases 29-31 only (no result '
                          'line)')
+    ap.add_argument('--models-only', action='store_true',
+                    help="build, then run phase 3's ViT-S and MobileNetV1 "
+                         'cases and phases 32-33 only (no result line)')
     ap.add_argument('--determinism-probe', action='store_true',
                     help="build, then measure what phase 27's "
                          '--deterministic buys and costs (no result '
@@ -5049,6 +5624,19 @@ def main(argv=None) -> int:
             json.dumps(report, indent=1))
         log('done')
         return 0
+    if args.models_only:
+        report = {'card': card}
+        for label, key, kw in _MODEL_KERNEL_CHECKS:
+            log(label)
+            report[f'per_step_{key}'], report[f'cases_{key}'] = \
+                check_kernels(False, **kw)
+        report.update(run_model_phases(card))
+        out_dir = ROOT / 'chiprun_out'
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / 'chip_smoke_models.json').write_text(
+            json.dumps(report, indent=1))
+        log('done')
+        return 0
     if args.resume_only or args.determinism_probe:
         report = {'card': card}
         if args.determinism_probe:
@@ -5077,14 +5665,22 @@ def main(argv=None) -> int:
         'bf16 stacks)')
     r152 = resnet_shapes('resnet152')
     summary152, details152 = check_kernels(args.quick, r152, config5=True)
+    model_checks = {}
+    for label, key, kw in _MODEL_KERNEL_CHECKS:
+        log(label)
+        model_checks[key] = check_kernels(args.quick, **kw)
     log('== kernel K4 (Newton-Schulz inverse) vs plain version')
     summary_ns, details_ns = check_ns_inverse(args.quick)
     log('== kernel K5 (Jacobi eigh) vs plain version')
     summary_jac, summary_jac32, details_jac = check_jacobi_eigh(args.quick)
     report = {'card': card,
               'kernel_cases': (details + details50 + details_lm
-                               + details_xl + details152 + details_ns
-                               + details_jac),
+                               + details_xl + details152
+                               + model_checks['vit_small'][1]
+                               + model_checks['mobilenet_v1'][1]
+                               + details_ns + details_jac),
+              'per_step_vit_small': model_checks['vit_small'][0],
+              'per_step_mobilenet_v1': model_checks['mobilenet_v1'][0],
               'per_step_resnet32': summary32,
               'per_step_resnet50': summary50,
               'per_step_lstm': summary_lm,
@@ -5141,22 +5737,15 @@ def main(argv=None) -> int:
             f'inputs at {XL_SHARED_LAYERS} blocks')
         report['transformer_xl_nccl_world1'] = run_transformer_xl_nccl(
             card, report['transformer_xl'])
-        log(f'== distributed: the LM at XL width, {LM_GLOO_LAYERS} blocks, '
-            f'{GLOO_WORLD} ranks on one card over gloo, global batch '
-            f'{XL_BATCH}, {len(LM_GLOO_CASES)} mesh cases x {LM_GLOO_STEPS} '
-            'steps; the LSTM CLI, hybrid-opt 2 x 2, jacobi')
-        report['lm_gloo_world'] = run_lm_gloo_world(card)
         log(f'== the chunked attention fold: attention alone at '
             f'{ATTN_SHAPE}, block {ATTN_BLOCK}; phase 15 under '
             f'--attn-block-size {XL_ATTN_BLOCK}, {XL_STEPS} steps')
         report['transformer_xl_chunked'] = run_transformer_xl_chunked(
             card, report['transformer_xl'])
-        log(f'== sequence parallelism: the LM at XL width, {LM_GLOO_LAYERS} '
-            f'blocks, {GLOO_WORLD} ranks on one card over gloo, the ring '
-            f'over sequence groups, global batch {XL_BATCH} x {XL_BPTT}, '
-            f'{len(SEQ_GLOO_CASES)} cases x {LM_GLOO_STEPS} steps; the '
-            f'Transformer CLI, --seq-parallel {SEQ_CLI_SP}')
-        report['seq_gloo_world'] = run_seq_gloo_world(card)
+        log(f'== phases 20 and 22 at once, each {GLOO_WORLD} gloo ranks on '
+            'the card (phase 22\'s lines after phase 20\'s)')
+        report['lm_gloo_world'], report['seq_gloo_world'] = at_once(
+            (run_lm_gloo_world, card), (run_seq_gloo_world, card))
         log(f'== tracked config 5: ResNet-152, 224 px, batch {R50_BATCH}, '
             f'--bf16-factors --inverse-method eigen, {R152_STEPS} steps on '
             f'one batch; {R152_SHORT_STEPS} steps with fp32 factors and with '
@@ -5184,6 +5773,7 @@ def main(argv=None) -> int:
         report['overlap_gloo_world'] = run_overlap_gloo_world(card)
         report.update(run_resume_phases(card))
         report.update(run_accum_phases(card))
+        report.update(run_model_phases(card))
         runs = (main_summary, r50, report['resnet50_auto'],
                 report['lstm_jacobi'], report['lm_defaults'],
                 report['resnet32_jacobi'], report['resnet50_nccl_world1'],
@@ -5198,7 +5788,8 @@ def main(argv=None) -> int:
                 report['overlap_gloo_world'], report['resume_resnet50'],
                 report['resume_gloo_world'], report['grad_accum'],
                 report['remat'], report['precise_bn'],
-                report['accum_gloo_world'])
+                report['accum_gloo_world'], report['mobilenet'],
+                report['vit'])
         launches = {name: sum(r['launches'].get(name, 0) for r in runs)
                     for name in kernels.LAUNCHES}
         aggs = {**summary50, 'ns_inverse': summary_ns,
@@ -5249,8 +5840,26 @@ def main(argv=None) -> int:
                     'bound_by': 'bytes' if t_b >= t_o else 'operations',
                     'library_ms': agg152['library_ms'],
                     'fp32_bound_ms': agg152['fp32_bound_ms']}
+            # K1-K3 per ViT-S/16 step (phase 33, 'auto') and per
+            # MobileNetV1 step (phase 32).
+            for key, per_step in (('vit_small', VIT_PER_STEP),
+                                  ('mobilenet_v1', MB_PER_STEP)):
+                agg_m = model_checks[key][0].get(name)
+                if agg_m:
+                    t_b, t_o = agg_m['t_bytes'], agg_m['t_ops']
+                    entry[key] = {
+                        'per': 'step', 'launches': per_step[name],
+                        'max_abs_err': agg_m['max_abs_err'],
+                        'ms': agg_m['ms'], 'plain_ms': agg_m['plain_ms'],
+                        'bound_ms': max(t_b, t_o),
+                        'bound_by': 'bytes' if t_b >= t_o else 'operations',
+                        'library_ms': agg_m['library_ms'],
+                        'fp32_bound_ms': agg_m['fp32_bound_ms']}
             line.append(entry)
         report['kernels'] = line
+        report['phase_walls'] = phase_walls()
+        log('  phase walls, largest first: ' + '; '.join(
+            f'{w} s {h}' for h, w in report['phase_walls'][:12]))
         if args.profile:
             log('== profile: device time by kernel category, ResNet-32')
             report['profile'] = profile_main_path()

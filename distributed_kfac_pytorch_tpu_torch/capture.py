@@ -2,8 +2,11 @@
 port of ``distributed_kfac_pytorch_tpu/capture.py``).
 
 Registration walks ``model.named_modules()`` once: every ``nn.Linear``,
-every ``nn.Conv2d`` with ``groups=1`` and every ``nn.Embedding`` (or the
-port's :class:`~distributed_kfac_pytorch_tpu_torch.modules.embed.Embed`)
+every ``nn.Conv2d`` (kind ``conv2d``, or ``conv2d_grouped`` with its
+``feature_group_count`` when ``groups > 1``: per-group block-diagonal
+factors, the depthwise convs of MobileNet) and every ``nn.Embedding``
+(or the port's
+:class:`~distributed_kfac_pytorch_tpu_torch.modules.embed.Embed`)
 becomes a :class:`LayerSpec`; anything else that holds parameters is
 recorded in :attr:`KFACCapture.skipped_modules` with its reason, as is
 every module a ``trainable`` predicate marks frozen.
@@ -56,6 +59,9 @@ from distributed_kfac_pytorch_tpu_torch.modules.embed import Embed
 
 LINEAR = 'linear'
 CONV2D = 'conv2d'
+# Grouped / depthwise conv: one (A, G) factor pair per group, stacked
+# (G, d, d) (the JAX package's conv2d_grouped).
+CONV2D_GROUPED = 'conv2d_grouped'
 EMBEDDING = 'embedding'
 # Weight-sharing Kronecker approximations (arXiv:2311.00636):
 # KFAC_EXPAND flattens a shared (sequence / patch) axis into covariance
@@ -91,12 +97,13 @@ class LayerSpec:
     map its gradient to and from the 2-D ``(out_dim, in_dim[+1])`` form
     (``(vocab, dim)`` for an embedding)."""
     path: tuple[str, ...]           # module path (``named_modules`` name)
-    kind: str                       # LINEAR | CONV2D | EMBEDDING
+    kind: str                # LINEAR | CONV2D | CONV2D_GROUPED | EMBEDDING
     has_bias: bool
-    # conv2d only:
+    # conv2d / conv2d_grouped only:
     kernel_size: tuple[int, ...] | None = None
     strides: tuple[int, ...] | None = None
     padding: Any = None
+    feature_group_count: int = 1   # conv2d_grouped: number of groups
     # embedding only:
     vocab_size: int | None = None
     # KFAC_EXPAND | KFAC_REDUCE (sharing.approx.annotate_specs).
@@ -127,9 +134,6 @@ def _decline_reason(mod: nn.Module) -> str | None:
                 return (f'embedding with {attr}={getattr(mod, attr)!r} '
                         '(not modelled by the factor math)')
     if isinstance(mod, nn.Conv2d):
-        if mod.groups != 1:
-            return (f'grouped conv (groups={mod.groups}) is not ported '
-                    'yet')
         if any(d != 1 for d in mod.dilation):
             return f'dilated conv (dilation={mod.dilation})'
         if mod.padding_mode != 'zeros':
@@ -149,10 +153,12 @@ def _spec_for_module(mod: nn.Module, path: tuple[str, ...]
         padding = mod.padding
         if not isinstance(padding, str):
             padding = ((padding[0], padding[0]), (padding[1], padding[1]))
-        return LayerSpec(path=path, kind=CONV2D,
+        return LayerSpec(path=path,
+                         kind=CONV2D if mod.groups == 1 else CONV2D_GROUPED,
                          has_bias=mod.bias is not None,
                          kernel_size=tuple(mod.kernel_size),
-                         strides=tuple(mod.stride), padding=padding)
+                         strides=tuple(mod.stride), padding=padding,
+                         feature_group_count=mod.groups)
     return None
 
 

@@ -20,7 +20,11 @@ framework has to import the other. Layout rules:
     module's path;
   - a conv A factor's basis ``(kh, kw, c)`` -> ``(c, kh, kw)``
     (:func:`conv_a_perm`), for the factor, a baked ``A_inv`` and the rows
-    of an eigenbasis ``QA``; G sides and Linear factors need no change;
+    of an eigenbasis ``QA``; a grouped conv's ``(G, da, da)`` A stacks
+    the same way within each block (``(kh, kw, cpg)`` -> ``(cpg, kh,
+    kw)``, the identity for a depthwise conv); G sides and Linear factors
+    need no change. A grouped kernel ``(kh, kw, cpg, cout)`` is a weight
+    ``(cout, cpg, kh, kw)`` by the conv rule above;
   - bf16 arrays (``ml_dtypes.bfloat16`` on the JAX side) cross as their
     16-bit patterns, exactly (:func:`array_to_tensor`).
 """
@@ -179,8 +183,9 @@ def tensor_to_array(t: torch.Tensor, bfloat16=None) -> np.ndarray:
 
 def _a_perm(spec, a_dim: int) -> np.ndarray | None:
     """The conv A basis map of layer ``spec`` (:func:`conv_a_perm`) for an
-    A of dimension ``a_dim``; None for the other kinds."""
-    if spec.kind != 'conv2d':
+    A of dimension ``a_dim`` (a grouped conv: one block's); None for the
+    other kinds."""
+    if spec.kind not in ('conv2d', 'conv2d_grouped'):
         return None
     kh, kw = spec.kernel_size
     cin = (a_dim - int(spec.has_bias)) // (kh * kw)
@@ -189,11 +194,13 @@ def _a_perm(spec, a_dim: int) -> np.ndarray | None:
 
 def _map_a_side(key: str, a: np.ndarray, perm) -> np.ndarray:
     """Reorder an A-side slot by ``perm``: a matrix (the factor, a baked
-    inverse) on both axes, an eigenbasis on its rows only; eigenvalues and
-    diagonal slots (1-D) as they are."""
+    inverse; each block of a grouped stack) on its last two axes, an
+    eigenbasis on its rows only; eigenvalues and diagonal slots (1-D) as
+    they are."""
     if perm is None or a.ndim == 1:
         return a
-    return a[perm] if key.startswith('Q') else a[perm][:, perm]
+    rows = a[..., perm, :]
+    return rows if key.startswith('Q') else rows[..., perm]
 
 
 def _convert_state(tree: dict, specs: dict, to_torch: bool,
@@ -209,7 +216,7 @@ def _convert_state(tree: dict, specs: dict, to_torch: bool,
             a = (np.asarray(value) if to_torch
                  else tensor_to_array(value, bfloat16))
             if key.endswith('A') or key.startswith('A'):
-                dim = a.shape[0]
+                dim = a.shape[-2] if a.ndim > 1 else a.shape[0]
                 perm = _a_perm(spec, dim)
                 if perm is not None and not to_torch:
                     perm = np.argsort(perm)

@@ -12,9 +12,11 @@ LayerSpec` and that layer's captures or parameter gradients:
     'bias'}`` gradients to and from the 2-D ``(out_dim, in_dim[+1])``
     matrix the preconditioner works in. torch layouts: Linear weight
     ``(out, in)``; Conv2d weight ``(cout, cin, kh, kw)`` flattened to
-    ``(cout, cin*kh*kw)``, so the A basis is ``(c, kh, kw)``; an
-    embedding's ``(vocab, dim)`` table as it is (A is a diagonal over the
-    vocabulary, G is ``(dim, dim)``).
+    ``(cout, cin*kh*kw)``, so the A basis is ``(c, kh, kw)``; a grouped
+    conv's ``(cout, cin/G, kh, kw)`` weight as a ``(G, cout/G,
+    (cin/G)*kh*kw [+1])`` stack, one block per group (its factors are
+    ``(G, d, d)`` stacks); an embedding's ``(vocab, dim)`` table as it is
+    (A is a diagonal over the vocabulary, G is ``(dim, dim)``).
 """
 
 from __future__ import annotations
@@ -23,11 +25,11 @@ from typing import Sequence
 
 import torch
 
-from distributed_kfac_pytorch_tpu_torch.capture import CONV2D, EMBEDDING, \
-    KFAC_REDUCE, LINEAR, LayerSpec
+from distributed_kfac_pytorch_tpu_torch.capture import CONV2D, \
+    CONV2D_GROUPED, EMBEDDING, KFAC_REDUCE, LINEAR, LayerSpec
 from distributed_kfac_pytorch_tpu_torch.ops import factors as F
 
-KNOWN_KINDS = (LINEAR, CONV2D, EMBEDDING)
+KNOWN_KINDS = (LINEAR, CONV2D, CONV2D_GROUPED, EMBEDDING)
 
 #: Capture-entry keys QUADRATIC in the output-gradients: under data
 #: parallelism with a local-mean loss they take the ``1/world^2`` rescale
@@ -61,6 +63,11 @@ def compute_a_factor(spec: LayerSpec, a_calls: Sequence[torch.Tensor],
         return _sum_calls(lambda a: fn(
             a, spec.kernel_size, spec.strides, spec.padding, spec.has_bias,
             compute_dtype=compute_dtype), a_calls, spec.name)
+    if spec.kind == CONV2D_GROUPED:
+        return _sum_calls(lambda a: F.conv2d_grouped_a_factor(
+            a, spec.kernel_size, spec.strides, spec.padding,
+            spec.feature_group_count, spec.has_bias,
+            compute_dtype=compute_dtype), a_calls, spec.name)
     if spec.kind == EMBEDDING:
         return _sum_calls(lambda ids: F.embedding_a_factor(
             ids, spec.vocab_size), a_calls, spec.name)
@@ -80,6 +87,10 @@ def compute_g_factor(spec: LayerSpec, g_calls: Sequence[torch.Tensor],
         fn = F.conv2d_g_factor_reduced if reduced else F.conv2d_g_factor
         return _sum_calls(lambda g: fn(
             g, compute_dtype=compute_dtype), g_calls, spec.name)
+    if spec.kind == CONV2D_GROUPED:
+        return _sum_calls(lambda g: F.conv2d_grouped_g_factor(
+            g, spec.feature_group_count, compute_dtype=compute_dtype),
+            g_calls, spec.name)
     raise ValueError(f'unknown layer kind {spec.kind!r}')
 
 
@@ -110,6 +121,14 @@ def grads_to_matrix(spec: LayerSpec, grads: dict) -> torch.Tensor:
     w = grads['weight']
     if spec.kind == EMBEDDING:
         return w
+    if spec.kind == CONV2D_GROUPED:
+        # Output channels are contiguous per group: (G, cout/G, d).
+        groups = spec.feature_group_count
+        mat = w.reshape(groups, w.shape[0] // groups, -1)
+        if spec.has_bias:
+            mat = torch.cat([mat, grads['bias'].reshape(groups, -1, 1)],
+                            dim=-1)
+        return mat
     mat = w.reshape(w.shape[0], -1)
     if spec.has_bias:
         mat = torch.cat([mat, grads['bias'][:, None]], dim=1)
@@ -123,15 +142,16 @@ def matrix_to_grads(spec: LayerSpec, mat: torch.Tensor,
         raise ValueError(f'unknown layer kind {spec.kind!r}')
     out = dict(like)
     if spec.has_bias:
-        out['bias'] = mat[:, -1].reshape(like['bias'].shape)
-        mat = mat[:, :-1]
+        out['bias'] = mat[..., -1].reshape(like['bias'].shape)
+        mat = mat[..., :-1]
     out['weight'] = mat.reshape(like['weight'].shape)
     return out
 
 
 def factor_shapes(spec: LayerSpec, params: dict) -> tuple[int, int]:
     """(A_dim, G_dim) of a layer from its ``{'weight', ...}`` shapes (an
-    embedding: ``(vocab, dim)``, A being a diagonal of length vocab)."""
+    embedding: ``(vocab, dim)``, A being a diagonal of length vocab; a
+    grouped conv: the dims of one group's blocks)."""
     w = params['weight']
     if spec.kind == LINEAR:
         out_dim, in_dim = w.shape
@@ -139,6 +159,12 @@ def factor_shapes(spec: LayerSpec, params: dict) -> tuple[int, int]:
     if spec.kind == CONV2D:
         cout, cin, kh, kw = w.shape
         return cin * kh * kw + int(spec.has_bias), cout
+    if spec.kind == CONV2D_GROUPED:
+        # Per-group dims: the layer carries feature_group_count stacked
+        # (da, da) / (dg, dg) blocks.
+        cout, cpg, kh, kw = w.shape
+        return (cpg * kh * kw + int(spec.has_bias),
+                cout // spec.feature_group_count)
     if spec.kind == EMBEDDING:
         vocab, dim = w.shape
         return vocab, dim

@@ -164,6 +164,85 @@ def conv2d_g_factor_reduced(g: torch.Tensor,
                            compute_dtype=compute_dtype)
 
 
+#: Rows per partial product of the grouped factors' sums: each partial
+#: sums at most this many rows, and the partials are added afterwards, so
+#: a layer with ~500k rows (MobileNet's first depthwise conv at 176 px)
+#: keeps the fp32 error of a short sum.
+GROUPED_ROW_CHUNK = 4096
+
+
+def _grouped_gram(x: torch.Tensor) -> torch.Tensor:
+    """``sum_r x[r, g, :]^T x[r, g, :]`` of ``(rows, G, d)`` fp32 rows:
+    ``(G, d, d)``, summed over chunks of :data:`GROUPED_ROW_CHUNK` rows
+    (one batched product per chunk and group, then the sum of the
+    partials)."""
+    rows, groups, d = x.shape
+    pad = -rows % GROUPED_ROW_CHUNK
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, groups, d))])
+    x = x.reshape(-1, GROUPED_ROW_CHUNK, groups, d).permute(2, 0, 1, 3)
+    return (x.mT @ x).sum(1)
+
+
+def conv2d_grouped_a_factor(a: torch.Tensor, kernel_size, strides, padding,
+                            groups: int, has_bias: bool,
+                            compute_dtype=None) -> torch.Tensor:
+    """Per-group A factors of a grouped / depthwise conv from an NCHW
+    input: ``(G, da, da)``, ``da = (cin/G)*kh*kw [+1]``.
+
+    Group ``g``'s outputs see only its ``cin/G`` input channels, so the
+    layer's Fisher block is block-diagonal over groups and each block
+    factorizes on its own: ``A_g`` is the patch covariance of group
+    ``g``'s channels over ``B*OH*OW`` rows, scaled by ``1/spatial^2`` as
+    in :func:`conv2d_a_factor`, with the bias row / column and corner
+    ``1/spatial^2`` when ``has_bias``. The per-group basis is ``(cpg, kh,
+    kw)`` (the JAX package's is ``(kh, kw, cpg)``). Stock torch (im2col
+    and batched products in fp32 over row chunks, :func:`_grouped_gram`),
+    as the JAX function is a plain einsum outside any Pallas kernel.
+    """
+    c = a.shape[1]
+    if c % groups:
+        raise ValueError(f'{c=} channels not divisible by {groups=}')
+    patches = kernels.extract_conv2d_patches(a.float(), kernel_size,
+                                             strides, padding)
+    _, oh, ow = kernels.conv_out_geometry(a.shape, kernel_size, strides,
+                                          padding)
+    spatial = oh * ow
+    rows = patches.shape[0]
+    # (rows, G * cpg*kh*kw): each group's features are contiguous.
+    p = kernels._round(patches.reshape(rows, groups, -1),
+                       mult_bf16(compute_dtype))
+    cov = _grouped_gram(p)
+    cov = (cov + cov.mT) * (0.5 / (rows * spatial * spatial))
+    if not has_bias:
+        return cov
+    bias_cols = p.sum(0) / (rows * spatial * spatial)
+    d = cov.shape[-1]
+    out = cov.new_zeros((groups, d + 1, d + 1))
+    out[:, :d, :d] = cov
+    out[:, d, :d] = bias_cols
+    out[:, :d, d] = bias_cols
+    out[:, d, d] = 1.0 / (spatial * spatial)
+    return out
+
+
+def conv2d_grouped_g_factor(g: torch.Tensor, groups: int,
+                            compute_dtype=None) -> torch.Tensor:
+    """Per-group G factors of a grouped conv from NCHW output-grads:
+    ``(G, dg, dg)``, the covariance of each contiguous ``cout/G`` channel
+    block over ``B*H*W`` rows, divided by ``rows * spatial^2`` as in
+    :func:`conv2d_g_factor`."""
+    b, cout, h, w = g.shape
+    if cout % groups:
+        raise ValueError(f'{cout=} outputs not divisible by {groups=}')
+    spatial = h * w
+    g2 = g.float().permute(0, 2, 3, 1).reshape(-1, groups, cout // groups)
+    g2 = kernels._round(g2, mult_bf16(compute_dtype))
+    rows = g2.shape[0]
+    cov = _grouped_gram(g2)
+    return (cov + cov.mT) * (0.5 / (rows * spatial * spatial))
+
+
 def embedding_a_factor(ids: torch.Tensor, vocab_size: int) -> torch.Tensor:
     """Diagonal A of an embedding layer, as a ``(vocab_size,)`` vector:
     the frequency of each id among the looked-up ids (the diagonal of

@@ -26,10 +26,13 @@ world-averaged gradients:
      inverses). Each rank writes its slots into a zeroed row stack and
      one ``all_reduce`` SUM over its row gathers the row's stacks. An
      embedding's diagonal A is not placed: every rank computes its
-     elementwise inverse (``diag_inv``, replicated);
+     elementwise inverse (``diag_inv``, replicated); nor are a grouped
+     conv's block stacks: every rank computes their damped Cholesky
+     inverses (``grouped_inv``, replicated; the blocks are tiny);
   3. preconditioning: per gradient shape, each rank runs K3 on its row's
-     layers only, and its row's embeddings one by one (the diagonal A
-     inverse with the G inverse of the G bucket); the KL-clip ``v.g``
+     layers only, its row's embeddings one by one (the diagonal A
+     inverse with the G inverse of the G bucket) and its row's grouped
+     convs (``G_inv @ V @ A_inv`` over their block stacks); the KL-clip ``v.g``
      partial and the preconditioned matrices (zero where the row does not
      own the layer) ride one ``all_reduce`` SUM over the rank's column.
 
@@ -71,8 +74,7 @@ fires from the replicated ``frozen_factors``; ``factor_batch_fraction``
 thins each rank's own captures.
 
 Not ported: hierarchical factor reduction, the quarantine gates, metrics
-and the non-finite guard (the ``KFAC`` knobs raise by name), and
-grouped-conv layers (capture rejects them).
+and the non-finite guard (the ``KFAC`` knobs raise by name).
 """
 
 from __future__ import annotations
@@ -85,7 +87,8 @@ import torch
 import torch.distributed as dist
 
 from distributed_kfac_pytorch_tpu_torch import layers as L
-from distributed_kfac_pytorch_tpu_torch.capture import EMBEDDING
+from distributed_kfac_pytorch_tpu_torch.capture import CONV2D_GROUPED, \
+    EMBEDDING
 from distributed_kfac_pytorch_tpu_torch.ops import factors as F
 from distributed_kfac_pytorch_tpu_torch.ops import kernels, linalg
 from distributed_kfac_pytorch_tpu_torch.parallel.placement import (
@@ -97,11 +100,20 @@ from distributed_kfac_pytorch_tpu_torch.preconditioner import (
     OVERLAP_KEYS,
     CommMethod,
     comm_method_of,
+    _same_layout,
     eigen_family,
+    grouped_block_inverses,
+    grouped_cost,
+    grouped_init,
     measured_unit_scale,
     overlay_overlap_state,
     plan_inverse_chunks,
 )
+
+
+#: The state's inverse entries: the row stacks, the embeddings' diagonal
+#: inverses and the grouped convs' block stacks (the last two replicated).
+INVERSE_KEYS = ('inv_stacks', 'diag_inv', 'grouped_inv')
 
 
 def resolve_grad_workers(size: int, comm_method: CommMethod,
@@ -150,12 +162,15 @@ class WorkAssignment:
     decomposes and preconditions with layer ``name``'s inverses;
     ``buckets`` lay out the decompositions by factor size;
     ``diag_layers`` are the embeddings, whose diagonal A is inverted on
-    every rank (outside the buckets)."""
+    every rank (outside the buckets); ``grouped_layers`` the grouped
+    convs, whose block stacks are inverted on every rank (outside the
+    buckets) and preconditioned by their row."""
     n_rows: int
     n_cols: int
     layer_row: dict[str, int]
     buckets: dict[int, BucketPlan]
     diag_layers: tuple[str, ...]
+    grouped_layers: tuple[str, ...] = ()
 
 
 def factor_dims(kfac: KFAC) -> dict[str, tuple[int, int]]:
@@ -176,7 +191,9 @@ def assign_work(kfac: KFAC, n_rows: int, n_cols: int, *,
     ``distribute_layer_factors`` (default: ``n_cols > 1``) lets A and G
     of one layer land on different columns, else whole layers are placed.
     An embedding's diagonal A is no work item: only its G is placed and
-    costed.
+    costed. A grouped conv places no factor (its block stacks are
+    inverted on every rank) but takes a row, which preconditions it, at
+    the cost ``G (da^e + dg^e)``.
     """
     if distribute_layer_factors is None:
         distribute_layer_factors = n_cols > 1
@@ -184,8 +201,12 @@ def assign_work(kfac: KFAC, n_rows: int, n_cols: int, *,
     names = list(kfac.specs)
     shapes = factor_dims(kfac)
     diag = tuple(n for n in names if kfac.specs[n].kind == EMBEDDING)
+    grouped = tuple(n for n in names
+                    if kfac.specs[n].kind == CONV2D_GROUPED)
 
     def factor_entries(name):
+        if name in grouped:
+            return []
         a_dim, g_dim = shapes[name]
         g_item = ((name, 'G'), g_dim, g_dim ** exp)
         if name in diag:
@@ -193,6 +214,10 @@ def assign_work(kfac: KFAC, n_rows: int, n_cols: int, *,
         return [((name, 'A'), a_dim, a_dim ** exp), g_item]
 
     layer_cost = {n: sum(c for _, _, c in factor_entries(n)) for n in names}
+    for n in grouped:
+        a_dim, g_dim = shapes[n]
+        layer_cost[n] = kfac.specs[n].feature_group_count * (
+            a_dim ** exp + g_dim ** exp)
     row_of = dict(zip(names, load_balance(
         n_rows, [layer_cost[n] for n in names])))
 
@@ -204,7 +229,10 @@ def assign_work(kfac: KFAC, n_rows: int, n_cols: int, *,
         if distribute_layer_factors:
             items = [e for n in row_names for e in factor_entries(n)]
         else:
-            items = [((n, '*'), 0, layer_cost[n]) for n in row_names]
+            items = [((n, '*'), 0, layer_cost[n]) for n in row_names
+                     if factor_entries(n)]
+        if not items:
+            continue          # a row of grouped convs only: no buckets
         cols = load_balance(n_cols, [c for _, _, c in items])
         for (key, dim, _), col in zip(items, cols):
             if key[1] == '*':
@@ -225,7 +253,8 @@ def assign_work(kfac: KFAC, n_rows: int, n_cols: int, *,
         buckets[dim] = BucketPlan(dim=dim, slots_per_col=s, n_cols=n_cols,
                                   slot=slot)
     return WorkAssignment(n_rows=n_rows, n_cols=n_cols, layer_row=row_of,
-                          buckets=buckets, diag_layers=diag)
+                          buckets=buckets, diag_layers=diag,
+                          grouped_layers=grouped)
 
 
 def plan_precond_groups(kfac: KFAC, assignment: WorkAssignment
@@ -233,16 +262,16 @@ def plan_precond_groups(kfac: KFAC, assignment: WorkAssignment
     """Shape groups of the row-sharded preconditioning.
 
     Dense layers are grouped by gradient-matrix shape ``(g_dim, a_dim)``
-    (embeddings are preconditioned one by one); in a group of ``S`` slots
-    per row, row ``r``'s layers take the global slots ``r * S + k``
-    (``slot_of``), and ``a_idx`` / ``g_idx`` give each global slot's
-    in-row slot in the A / G factor buckets (0 for padding). The JAX
-    package's plan, in its order.
+    (embeddings and grouped convs are preconditioned one by one); in a group of
+    ``S`` slots per row, row ``r``'s layers take the global slots ``r * S + k``
+    (``slot_of``), and ``a_idx`` / ``g_idx`` give each global slot's in-row
+    slot in the A / G factor buckets (0 for padding). The JAX package's plan,
+    in its order.
     """
     dims = factor_dims(kfac)
     by_shape: dict[tuple[int, int], dict[int, list[str]]] = {}
     for name, spec in kfac.specs.items():
-        if spec.kind == EMBEDDING:
+        if spec.kind in (EMBEDDING, CONV2D_GROUPED):
             continue
         a_dim, g_dim = dims[name]
         rows = by_shape.setdefault((g_dim, a_dim), {})
@@ -274,10 +303,12 @@ def plan_firing_chunks(kfac: KFAC, assignment: WorkAssignment
     bucket: firing it costs each rank of a row the one slot at ``col *
     slots_per_col + m``, so a chunk's load per rank is what the
     pipelining spreads. An embedding's diagonal A is an item ``('diag',
-    layer)``. The items are packed onto ``inv_pipeline_chunks`` chunks by
-    ``preconditioner.plan_inverse_chunks`` (global and deterministic:
-    every rank gets the same plan). Returns ``{'offsets': {dim: {chunk:
-    (m, ...)}}, 'diag': {layer: chunk}}``.
+    layer)`` and a grouped conv's block stacks one ``('grouped', layer)``
+    (cost ``G (da^3 + dg^3)``). The items are packed onto
+    ``inv_pipeline_chunks`` chunks by ``preconditioner.plan_inverse_chunks``
+    (global and deterministic: every rank gets the same plan). Returns
+    ``{'offsets': {dim: {chunk: (m, ...)}}, 'diag': {layer: chunk},
+    'grouped': {layer: chunk}}``.
     """
     k = kfac.inv_pipeline_chunks
     if not kfac.pipelined_firing:
@@ -297,6 +328,9 @@ def plan_firing_chunks(kfac: KFAC, assignment: WorkAssignment
             items.append((('slot', dim, m), unit))
     for name in assignment.diag_layers:
         items.append((('diag', name), proxy_scale * float(dims[name][0])))
+    for name in assignment.grouped_layers:
+        items.append((('grouped', name), proxy_scale * grouped_cost(
+            kfac.specs[name], *dims[name])))
     if k > len(items):
         raise ValueError(
             f'inv_pipeline_chunks={k} exceeds the {len(items)} '
@@ -304,24 +338,24 @@ def plan_firing_chunks(kfac: KFAC, assignment: WorkAssignment
             'offsets + grouped/diagonal layers); lower it to at '
             f'most {len(items)}')
     offsets: dict[int, dict[int, list]] = {dim: {} for dim in buckets}
-    diag: dict[str, int] = {}
+    singles: dict[str, dict[str, int]] = {'diag': {}, 'grouped': {}}
     for key, j in plan_inverse_chunks(items, k).items():
         if key[0] == 'slot':
             offsets[key[1]].setdefault(j, []).append(key[2])
         else:
-            diag[key[1]] = j
+            singles[key[0]][key[1]] = j
     return {'offsets': {dim: {j: tuple(sorted(ms)) for j, ms in per.items()}
                         for dim, per in offsets.items()},
-            'diag': diag}
+            **singles}
 
 
 def item_chunk_plan(assignment: WorkAssignment, chunk_plan: dict
                     ) -> dict[tuple, int]:
     """A grid's chunk plan (:func:`plan_firing_chunks`) in the items of
     the single-device ``KFAC.inverse_chunk_plan``: ``{('mat', layer,
-    'A'|'G'): chunk, ('diag', layer): chunk}``, each matrix in the chunk
-    of its slot offset. A single-device ``KFAC`` firing this plan fires,
-    at each chunk, the matrices the grid fires."""
+    'A'|'G'): chunk, ('diag', layer): chunk, ('grouped', layer): chunk}``,
+    each matrix in the chunk of its slot offset. A single-device ``KFAC``
+    firing this plan fires, at each chunk, the matrices the grid fires."""
     out = {}
     for dim, plan in assignment.buckets.items():
         s = plan.slots_per_col
@@ -329,8 +363,9 @@ def item_chunk_plan(assignment: WorkAssignment, chunk_plan: dict
                     for m in offs}
         for (name, side), slot in plan.slot.items():
             out[('mat', name, side)] = chunk_of[slot % s]
-    for name, j in chunk_plan['diag'].items():
-        out[('diag', name)] = j
+    for kind in ('diag', 'grouped'):
+        for name, j in chunk_plan[kind].items():
+            out[(kind, name)] = j
     return out
 
 
@@ -574,22 +609,30 @@ class DistributedKFAC:
 
     def init_state(self) -> dict:
         """Fresh state: identity factors (an embedding's diagonal A: ones;
-        replicated on every rank), a zero ``diag_inv`` per embedding
-        (replicated) and this rank's row of each bucket, ``(slots_per_row,
-        dim, dim)``: identity ``Q`` and unit ``d`` for eigen buckets (plus
-        a zero ``inv`` where a mixed layer bakes its eigen side), zero
-        ``inv`` for baked ones; and the firing-schedule state of the
-        ``KFAC``'s knobs (as ``KFAC.init_state``: this rank's zero
-        accumulator, ``frozen_factors``)."""
+        a grouped conv: stacks of identity blocks; replicated on every
+        rank), a zero ``diag_inv`` per embedding and zero ``grouped_inv``
+        block stacks per grouped conv (replicated) and this rank's row of
+        each bucket, ``(slots_per_row, dim, dim)``: identity ``Q`` and unit
+        ``d`` for eigen buckets (plus a zero ``inv`` where a mixed layer
+        bakes its eigen side), zero ``inv`` for baked ones; and the
+        firing-schedule state of the ``KFAC``'s knobs (as
+        ``KFAC.init_state``: this rank's zero accumulator,
+        ``frozen_factors``)."""
         dev = self.device
         fdt, idt = self.kfac.storage_dtype, self.kfac.inv_dtype
         diag = self.assignment.diag_layers
-        factors = {
-            name: {side: (torch.ones(dim, dtype=fdt, device=dev)
-                          if side == 'A' and name in diag else
-                          torch.eye(dim, dtype=fdt, device=dev))
-                   for side, dim in zip('AG', self._factor_dims[name])}
-            for name in self.specs}
+        factors, grouped_inv = {}, {}
+        for name in self.specs:
+            if name in self.assignment.grouped_layers:
+                factors[name], grouped_inv[name] = grouped_init(
+                    self.specs[name], *self._factor_dims[name], fdt, idt,
+                    dev)
+                continue
+            factors[name] = {
+                side: (torch.ones(dim, dtype=fdt, device=dev)
+                       if side == 'A' and name in diag else
+                       torch.eye(dim, dtype=fdt, device=dev))
+                for side, dim in zip('AG', self._factor_dims[name])}
         diag_inv = {name: torch.zeros(self._factor_dims[name][0],
                                       dtype=idt, device=dev)
                     for name in diag}
@@ -609,7 +652,8 @@ class DistributedKFAC:
             stacks[str(dim)] = entry
         return self.kfac._seed_overlap_state(
             {'step': 0, 'factors': factors, 'inv_stacks': stacks,
-             'diag_inv': diag_inv, 'inv_chunk_phase': 0})
+             'diag_inv': diag_inv, 'grouped_inv': grouped_inv,
+             'inv_chunk_phase': 0})
 
     # -- factors -------------------------------------------------------
 
@@ -720,27 +764,29 @@ class DistributedKFAC:
     def update_inverses(self, factors: dict, damping=None,
                         prev_stacks: dict | None = None, *,
                         chunk: int | None = None,
-                        prev_diag: dict | None = None) -> dict:
-        """A firing, ``{'inv_stacks', 'diag_inv'}``.
+                        prev_diag: dict | None = None,
+                        prev_grouped: dict | None = None) -> dict:
+        """A firing, ``{'inv_stacks', 'diag_inv', 'grouped_inv'}``.
 
-        Monolithic (``chunk`` None): this rank decomposes its assigned
-        slots of every bucket, then one ``all_reduce`` SUM over its row
-        assembles the row's stacks (a masked-sum gather: each slot is
-        nonzero on one rank only); every rank inverts every embedding's
-        diagonal A elementwise at ``damping``. While firings are
-        pipelined (and ``prev_stacks`` are given) the slots are
-        decomposed chunk group by chunk group, as the chunk firings
-        stack them, so that a window of chunk firings over frozen factors
-        gives the monolithic firing's bits.
+        Monolithic (``chunk`` None): this rank decomposes its assigned slots of
+        every bucket, then one ``all_reduce`` SUM over its row assembles the
+        row's stacks (a masked-sum gather: each slot is nonzero on one rank
+        only); every rank inverts every embedding's diagonal A elementwise at
+        ``damping`` and every grouped conv's block stacks
+        (``preconditioner.grouped_block_inverses``). While firings are
+        pipelined (and ``prev_stacks`` are given) the slots are decomposed
+        chunk group by chunk group, as the chunk firings stack them, so that a
+        window of chunk firings over frozen factors gives the monolithic
+        firing's bits.
 
-        ``chunk=j`` (with ``prev_stacks`` and ``prev_diag``): only the
-        slot offsets and diagonal inverses the chunk plan gives chunk
-        ``j``. Each rank decomposes its fired slots into a zeroed stack
-        of the row's fired slots alone, one ``all_reduce`` SUM over the
-        row assembles it (every rank of a row joins, whether it holds a
-        fired slot or not; a row with no fired slot runs none), and the
-        result is written into the stored row stacks at those slots;
-        every other slot, padding included, keeps its value bit for bit.
+        ``chunk=j`` (with ``prev_stacks``, ``prev_diag`` and ``prev_grouped``):
+        only the slot offsets, diagonal inverses and grouped block stacks the
+        chunk plan gives chunk ``j``. Each rank decomposes its fired slots into
+        a zeroed stack of the row's fired slots alone, one ``all_reduce`` SUM
+        over the row assembles it (every rank of a row joins, whether it holds
+        a fired slot or not; a row with no fired slot runs none), and the
+        result is written into the stored row stacks at those slots; every
+        other slot, padding included, keeps its value bit for bit.
 
         Eigen buckets: the warm polish seeded from ``prev_stacks``' bases
         of the same slots (``eigh_method`` 'auto'/'warm'; without
@@ -761,7 +807,7 @@ class DistributedKFAC:
                     'inv_chunk requires inv_pipeline_chunks > 1 (or '
                     'inv_staleness=1) and stored inverse stacks')
             return self._fire_chunk(factors, damping, prev_stacks,
-                                    prev_diag, chunk)
+                                    prev_diag, prev_grouped, chunk)
         dev = self.device
         stacks = {}
         for dim, plan in self.assignment.buckets.items():
@@ -789,7 +835,11 @@ class DistributedKFAC:
                   for d, e in stacks.items()}
         diag_inv = {name: self._diag_inverse(factors, name, damping)
                     for name in self.assignment.diag_layers}
-        return {'inv_stacks': stacks, 'diag_inv': diag_inv}
+        grouped_inv = {name: grouped_block_inverses(factors[name], damping,
+                                                    idt)
+                       for name in self.assignment.grouped_layers}
+        return {'inv_stacks': stacks, 'diag_inv': diag_inv,
+                'grouped_inv': grouped_inv}
 
     def _stack_keys(self, dim: int) -> tuple[str, ...]:
         """The row-stack keys of a bucket: ``Q`` and ``d`` for eigen
@@ -827,7 +877,8 @@ class DistributedKFAC:
             factors[name]['A'].float(), damping).to(self.kfac.inv_dtype)
 
     def _fire_chunk(self, factors: dict, damping, prev_stacks: dict,
-                    prev_diag: dict, chunk: int) -> dict:
+                    prev_diag: dict, prev_grouped: dict, chunk: int
+                    ) -> dict:
         """Chunk ``chunk`` of a pipelined firing (:meth:`update_inverses`):
         the row's fired slots on a zeroed fp32 stack, one masked-sum
         ``all_reduce`` over the row, written into copies of the stored
@@ -860,15 +911,22 @@ class DistributedKFAC:
                    if self._chunk_plan['diag'][name] == chunk
                    else prev_diag[name])
             for name in self.assignment.diag_layers}
-        return {'inv_stacks': stacks, 'diag_inv': diag_inv}
+        grouped_inv = {
+            name: (grouped_block_inverses(factors[name], damping, idt)
+                   if self._chunk_plan['grouped'][name] == chunk
+                   else prev_grouped[name])
+            for name in self.assignment.grouped_layers}
+        return {'inv_stacks': stacks, 'diag_inv': diag_inv,
+                'grouped_inv': grouped_inv}
 
     # -- preconditioning -----------------------------------------------
 
     def precondition(self, state: dict, grads: dict, damping, lr) -> dict:
         """Precondition this row's layers (K3 per shape group; each
-        embedding with its diagonal A inverse from ``state['diag_inv']``),
-        deliver every layer's result over the column, and apply the
-        KL-clip scale ``nu = min(1, sqrt(kl_clip / |sum lr^2 v.g|))``;
+        embedding with its diagonal A inverse from ``state['diag_inv']``; each
+        grouped conv with its block stacks from ``state['grouped_inv']``),
+        deliver every layer's result over the column, and apply the KL-clip
+        scale ``nu = min(1, sqrt(kl_clip / |sum lr^2 v.g|))``;
         unregistered gradients pass through."""
         kfac = self.kfac
         dev = self.device
@@ -910,6 +968,11 @@ class DistributedKFAC:
             mats[name] = linalg.precondition_dispatch(
                 grad_mats[name], entry, damping,
                 diag_a=state['diag_inv'][name], compute_dtype=cdt)
+        for name in self.assignment.grouped_layers:
+            if self.assignment.layer_row[name] == self.row:
+                mats[name] = linalg.precondition_dispatch(
+                    grad_mats[name], state['grouped_inv'][name], damping,
+                    compute_dtype=cdt)
         # This row's v.g partial, in registration order.
         vg_sum = torch.zeros((), dtype=torch.float32, device=dev)
         if kfac.kl_clip is not None:
@@ -1025,7 +1088,8 @@ class DistributedKFAC:
                                  f'inv_pipeline_chunks={k}')
             inverses = self.update_inverses(
                 fire_factors, damping, state['inv_stacks'], chunk=inv_chunk,
-                prev_diag=state['diag_inv'])
+                prev_diag=state['diag_inv'],
+                prev_grouped=state['grouped_inv'])
             chunk_phase = (inv_chunk + 1) % k
         else:
             if inv_update is None:
@@ -1033,7 +1097,7 @@ class DistributedKFAC:
             inverses = (self.update_inverses(fire_factors, damping,
                                              state['inv_stacks'])
                         if inv_update else {k: state[k] for k in
-                                            ('inv_stacks', 'diag_inv')})
+                                            INVERSE_KEYS})
             chunk_phase = 0 if inv_update else state['inv_chunk_phase']
         new_state = {'step': step + 1, 'factors': factors, **inverses,
                      'inv_chunk_phase': chunk_phase, **overlap}
@@ -1052,29 +1116,30 @@ class DistributedKFAC:
         rank's own accumulator, ``frozen_factors``) and, with
         ``include_inverses``, this rank's row stacks with
         the grid position they belong to (and ``seq_parallel``) and the
-        embeddings' diagonal inverses."""
+        embeddings' diagonal inverses and the grouped convs' block
+        stacks."""
         out = {'step': state['step'], 'factors': state['factors'],
                'inv_chunk_phase': state.get('inv_chunk_phase', 0)}
         for key in OVERLAP_KEYS:
             if key in state:
                 out[key] = state[key]
         if include_inverses:
-            out['inv_stacks'] = state['inv_stacks']
-            out['diag_inv'] = state['diag_inv']
+            for key in INVERSE_KEYS:
+                out[key] = state[key]
             out['inv_layout'] = self._layout()
         return out
 
     def load_state_dict(self, sd: dict, *, damping=None) -> dict:
         """Rebuild the state from :meth:`state_dict` output (collective).
 
-        The layer sets must match. Saved row stacks and diagonal inverses
-        are used when the stacks were written for this rank's row of the
-        same grid and ``seq_parallel``, with the same keys and shapes, and
-        every slot this rank decomposes holds a nonzero basis; otherwise
-        every rank recomputes its inverses from the factors
-        (:meth:`recompute_inverses`). Factors and inverses take the
-        ``KFAC``'s storage dtypes; the firing-schedule state is restored
-        as ``KFAC.load_state_dict`` restores it.
+        The layer sets must match. Saved row stacks, diagonal inverses and
+        grouped block stacks are used when the stacks were written for this
+        rank's row of the same grid and ``seq_parallel``, with the same keys
+        and shapes, and every slot this rank decomposes holds a nonzero basis;
+        otherwise every rank recomputes its inverses from the factors
+        (:meth:`recompute_inverses`). Factors and inverses take the ``KFAC``'s
+        storage dtypes; the firing-schedule state is restored as
+        ``KFAC.load_state_dict`` restores it.
         """
         state = self.init_state()
         if set(sd['factors']) != set(state['factors']):
@@ -1090,6 +1155,8 @@ class DistributedKFAC:
         saved = sd.get('inv_stacks')
         ok = (saved is not None and sd.get('inv_layout') == self._layout()
               and set(sd.get('diag_inv', ())) == set(state['diag_inv'])
+              and _same_layout(sd.get('grouped_inv', {}),
+                               state['grouped_inv'])
               and all(set(saved.get(d, ())) == set(e)
                       and all(tuple(saved[d][k].shape) == tuple(t.shape)
                               for k, t in e.items())
@@ -1104,6 +1171,9 @@ class DistributedKFAC:
                                    for d, e in saved.items()}
             state['diag_inv'] = {n: t.to(self.device, idt)
                                  for n, t in sd['diag_inv'].items()}
+            state['grouped_inv'] = {
+                n: {k: t.to(self.device, idt) for k, t in e.items()}
+                for n, e in sd.get('grouped_inv', {}).items()}
             return state
         return self.recompute_inverses(state, damping=damping)
 
@@ -1120,7 +1190,8 @@ class DistributedKFAC:
         return True
 
     def recompute_inverses(self, state: dict, damping=None) -> dict:
-        """Every rank's row stacks and diagonal inverses rebuilt from the
-        current factors (a collective; eigen buckets by the library eigh
+        """Every rank's row stacks, diagonal inverses and grouped block
+        stacks rebuilt from the current factors (a collective; eigen buckets by
+        the library eigh
         under 'auto')."""
         return {**state, **self.update_inverses(state['factors'], damping)}

@@ -37,7 +37,14 @@ preconditioned through its baked inverses.
 Embedding layers carry a diagonal A (a vector over the vocabulary, its
 inverse the elementwise one, damping baked at the firing) and a dense G
 under the per-dim dispatch; they are preconditioned one by one outside
-the buckets, their ``v.g`` inside the KL clip. ``kfac_approx`` (the
+the buckets, their ``v.g`` inside the KL clip. Grouped / depthwise convs
+(``conv2d_grouped``) carry ``(G, d, d)`` stacks of per-group factors,
+computed by stock torch (im2col + batched products); whatever
+``inverse_method`` says, each side's stack gets one batched damped
+Cholesky at a firing (:func:`grouped_block_inverses`), and the layer is
+preconditioned on its own, ``G_inv @ V_g @ A_inv`` batched over the
+groups, outside the buckets (no kernel runs for it, as in the JAX
+package). ``kfac_approx`` (the
 weight-sharing approximation, ``sharing.approx``) and
 ``tied_embeddings`` (the attend site of a tied in/out embedding feeds its
 one factor pair) follow the JAX ``KFAC``, as do the reduced-precision
@@ -67,8 +74,9 @@ from torch import nn
 from distributed_kfac_pytorch_tpu_torch import resolve_device, \
     set_fp32_precision
 from distributed_kfac_pytorch_tpu_torch import layers as L
-from distributed_kfac_pytorch_tpu_torch.capture import CONV2D, EMBEDDING, \
-    KFAC_REDUCE, LINEAR, KFACCapture, subsample_captures
+from distributed_kfac_pytorch_tpu_torch.capture import CONV2D, \
+    CONV2D_GROUPED, EMBEDDING, KFAC_REDUCE, LINEAR, KFACCapture, \
+    subsample_captures
 from distributed_kfac_pytorch_tpu_torch.ops import factors as F
 from distributed_kfac_pytorch_tpu_torch.ops import kernels, linalg
 from distributed_kfac_pytorch_tpu_torch.parallel.placement import \
@@ -145,8 +153,8 @@ class KFAC:
 
     Args:
       model: the ``nn.Module`` to precondition; its ``nn.Linear``,
-        ``nn.Conv2d`` (groups=1) and ``nn.Embedding`` layers are
-        registered at construction.
+        ``nn.Conv2d`` (grouped ones as ``conv2d_grouped``) and
+        ``nn.Embedding`` layers are registered at construction.
       use_eigen_decomp: True is ``inverse_method='eigen'``, False
         ``'cholesky'``; None (default) leaves ``inverse_method`` alone.
         Set with an ``inverse_method`` that contradicts it, it raises.
@@ -446,11 +454,15 @@ class KFAC:
         return self.inverse_method
 
     def _side_methods(self, a_dim: int, g_dim: int, name: str
-                      ) -> tuple[str | None, str]:
+                      ) -> tuple[str | None, str | None]:
         """(A-side, G-side) inverse methods of layer ``name``; an
-        embedding's diagonal A has none."""
-        ma = (None if self.specs[name].kind == EMBEDDING
-              else self.method_for_dim(a_dim))
+        embedding's diagonal A has none, and a grouped conv neither side
+        (its block stacks take :func:`grouped_block_inverses`, outside the
+        per-dim dispatch)."""
+        kind = self.specs[name].kind
+        if kind == CONV2D_GROUPED:
+            return None, None
+        ma = None if kind == EMBEDDING else self.method_for_dim(a_dim)
         return ma, self.method_for_dim(g_dim)
 
     def _is_mixed(self, methods) -> bool:
@@ -474,15 +486,19 @@ class KFAC:
                             ) -> list[tuple[tuple, float]]:
         """Cost-weighted inverse work items of a pipelined firing, in
         registration order: one per dense factor matrix, ``('mat', layer,
-        'A'|'G')``, and one per embedding's diagonal A, ``('diag',
+        'A'|'G')``, one per grouped conv (its block stacks), ``('grouped',
+        layer)``, and one per embedding's diagonal A, ``('diag',
         layer)``. A matrix costs the ``dim^3`` proxy
         (``linalg.decomposition_cost``), or with ``inv_pipeline_costs``
         its bucket's measured ms split evenly over the bucket's matrices;
-        a diagonal A costs its dim, rescaled into the measured unit
-        (:func:`measured_unit_scale`, which requires the measurement to
-        cover every dense factor dim)."""
+        a grouped conv costs ``G (da^3 + dg^3)`` and a diagonal A its dim,
+        both rescaled into the measured unit (:func:`measured_unit_scale`,
+        which requires the measurement to cover every dense factor
+        dim)."""
         dense_count: dict[int, int] = {}
         for name, spec in self.specs.items():
+            if spec.kind == CONV2D_GROUPED:
+                continue
             f = factors[name]
             if spec.kind != EMBEDDING:
                 a = int(f['A'].shape[-1])
@@ -503,6 +519,10 @@ class KFAC:
             f = factors[name]
             a_dim = int(f['A'].shape[-1])
             g_dim = int(f['G'].shape[-1])
+            if spec.kind == CONV2D_GROUPED:
+                items.append((('grouped', name), proxy_scale
+                              * grouped_cost(spec, a_dim, g_dim)))
+                continue
             if spec.kind == EMBEDDING:
                 items.append((('diag', name), proxy_scale * a_dim))
             else:
@@ -550,11 +570,12 @@ class KFAC:
         return out
 
     def init_state(self) -> dict:
-        """Fresh state: identity factors (an embedding's diagonal A: ones)
-        in the storage dtype; eigen slots seeded with their exact
-        eigendecomposition (``Q = I, d = 1``) so the warm polish has a
-        basis from step 0; baked slots (non-eigen sides, the eigen side of
-        a mixed layer, an embedding's diagonal ``A_inv``) zero, computed
+        """Fresh state: identity factors (an embedding's diagonal A: ones;
+        a grouped conv: stacks of identity blocks) in the storage dtype;
+        eigen slots seeded with their exact eigendecomposition (``Q = I, d
+        = 1``) so the warm polish has a basis from step 0; baked slots
+        (non-eigen sides, the eigen side of a mixed layer, an embedding's
+        diagonal ``A_inv``, a grouped conv's block stacks) zero, computed
         at step 0 before first use; every inverse slot in ``inv_dtype``."""
         params = dict(self.model.named_parameters())
         dev = self.device
@@ -563,6 +584,10 @@ class KFAC:
         for name, spec in self.specs.items():
             dims = dict(zip('AG', L.factor_shapes(
                 spec, self._layer_params(name, params))))
+            if spec.kind == CONV2D_GROUPED:
+                factors[name], inverses[name] = grouped_init(
+                    spec, dims['A'], dims['G'], fdt, idt, dev)
+                continue
             methods = dict(zip('AG', self._side_methods(dims['A'],
                                                         dims['G'], name)))
             mixed = self._is_mixed(methods.values())
@@ -615,9 +640,10 @@ class KFAC:
         """``{side: (x, scale, has_bias)}`` for the sides of one layer that
         the factor contraction + EMA kernel computes: single-call dense A
         and G (under 'reduce' their ``(B, d)`` reduced rows), single-call
-        conv G (read in place as ``(B*H*W, C)``) and an untied embedding's
-        single-call G. Conv A has its own patch-covariance kernel; a
-        reduced conv, an embedding's A, a tied embedding's G and
+        conv G (read in place as ``(B*H*W, C)``; a patch-embedding conv
+        under 'reduce': its reduced A and G rows) and an untied
+        embedding's single-call G. Conv A has its own patch-covariance
+        kernel; an embedding's A, a tied embedding's G, grouped convs and
         multi-call layers run the stock sum of per-call factors."""
         out = {}
         if spec.kind == LINEAR:
@@ -635,8 +661,21 @@ class KFAC:
             if len(entry['g']) == 1 and not entry.get('g_tied'):
                 out['G'] = (F.collapse_batch_dims(entry['g'][0]), None,
                             False)
-        elif spec.kind == CONV2D and len(entry['g']) == 1 \
-                and spec.kfac_approx != KFAC_REDUCE:
+        elif spec.kind == CONV2D and spec.kfac_approx == KFAC_REDUCE:
+            # A patch-embedding conv under 'reduce': its (B, d) mean
+            # patch rows and (B, C) summed output-grad rows, as a reduced
+            # Linear's.
+            if len(entry['a']) == 1:
+                a = entry['a'][0]
+                rows = kernels.extract_conv2d_patches(
+                    a, spec.kernel_size, spec.strides, spec.padding)
+                out['A'] = (F._reduce_shared_axes(
+                    rows.reshape(a.shape[0], -1, rows.shape[-1]),
+                    mean=True), None, spec.has_bias)
+            if len(entry['g']) == 1:
+                g = entry['g'][0]
+                out['G'] = (g.float().flatten(2).sum(-1), None, False)
+        elif spec.kind == CONV2D and len(entry['g']) == 1:
             g = entry['g'][0]
             b, _, h, w = g.shape
             out['G'] = (g, float(b * h * w) * (h * w) ** 2, False)
@@ -879,10 +918,12 @@ class KFAC:
             return chunk is None or plan[key] == chunk
 
         eigen_mats, inv_mats, prev, sides = {}, {}, {}, {}
-        for name in self.specs:
+        for name, spec in self.specs.items():
             f = state['factors'][name]
             sides[name] = self._side_methods(f['A'].shape[-1],
                                              f['G'].shape[-1], name)
+            if spec.kind == CONV2D_GROUPED:
+                continue
             for side, method in zip('AG', sides[name]):
                 if method is None or not fires(('mat', name, side)):
                     continue
@@ -900,7 +941,14 @@ class KFAC:
             invs.update(self._bucketed_inverse(mats, damping))
         idt = self.inv_dtype
         new_inv = {}
-        for name in self.specs:
+        for name, spec in self.specs.items():
+            if spec.kind == CONV2D_GROUPED:
+                new_inv[name] = (
+                    grouped_block_inverses(state['factors'][name], damping,
+                                           idt)
+                    if fires(('grouped', name))
+                    else state['inverses'][name])
+                continue
             mixed = self._is_mixed(sides[name])
             entry = dict(state['inverses'][name]) if chunk is not None \
                 else {}
@@ -940,11 +988,12 @@ class KFAC:
         inverses): the per-dim method depends on the factor dims alone.
         Returns ``(mats, vg)``: the preconditioned matrix per layer and,
         for the stacks the kernel ran, its per-layer ``sum(v * g)``.
-        Embeddings (a diagonal A) are left to the caller.
+        Embeddings (a diagonal A) and grouped convs (block stacks) are
+        left to the caller.
         """
         groups: dict[tuple, list[str]] = {}
         for name, mat in grad_mats.items():
-            if self.specs[name].kind != EMBEDDING:
+            if self.specs[name].kind not in (EMBEDDING, CONV2D_GROUPED):
                 key = tuple(mat.shape) if self.precond_bucketing else name
                 groups.setdefault(key, []).append(name)
         mats, vg = {}, {}
@@ -978,10 +1027,13 @@ class KFAC:
         precond_mats, fused_vg = self._bucketed_precond_mats(
             state['inverses'], grad_mats, damping)
         for name, spec in self.specs.items():
-            if spec.kind == EMBEDDING:
+            if spec.kind in (EMBEDDING, CONV2D_GROUPED):
+                # A diagonal A inverse, or a grouped conv's block stacks
+                # (G_inv @ V @ A_inv batched over the groups).
                 inv = state['inverses'][name]
                 precond_mats[name] = linalg.precondition_dispatch(
-                    grad_mats[name], inv, damping, diag_a=inv['A_inv'],
+                    grad_mats[name], inv, damping,
+                    diag_a=inv['A_inv'] if spec.kind == EMBEDDING else None,
                     compute_dtype=self.precond_compute_dtype)
         if self.kl_clip is not None:
             # Registration order, like the JAX package's summation.
@@ -1228,6 +1280,40 @@ def _nbytes(tree: dict) -> int:
     """Bytes of every tensor in a ``{layer: {key: tensor}}`` dict."""
     return sum(t.numel() * t.element_size()
                for e in tree.values() for t in e.values())
+
+
+def grouped_init(spec, a_dim: int, g_dim: int, fdt, idt, device
+                 ) -> tuple[dict, dict]:
+    """A grouped conv's fresh ``({'A', 'G'}, {'A_inv', 'G_inv'})``:
+    ``(G, d, d)`` stacks of identity factors in ``fdt`` and of zero
+    inverses in ``idt`` (computed at step 0 before first use)."""
+    n = spec.feature_group_count
+    factors = {side: torch.eye(dim, dtype=fdt, device=device).repeat(n, 1, 1)
+               for side, dim in (('A', a_dim), ('G', g_dim))}
+    inverses = {f'{side}_inv': torch.zeros((n, dim, dim), dtype=idt,
+                                           device=device)
+                for side, dim in (('A', a_dim), ('G', g_dim))}
+    return factors, inverses
+
+
+def grouped_cost(spec, a_dim: int, g_dim: int) -> float:
+    """The ``dim^3`` proxy cost of a grouped conv's firing, ``G (da^3 +
+    dg^3)``: its work item in a chunk plan."""
+    n = spec.feature_group_count
+    return (n * linalg.decomposition_cost(a_dim)
+            + n * linalg.decomposition_cost(g_dim))
+
+
+def grouped_block_inverses(factors: dict, damping, inv_dtype) -> dict:
+    """A grouped conv's per-group damped block inverses, ``{'A_inv',
+    'G_inv'}``: one batched damped Cholesky per side over its ``(G, d,
+    d)`` factor stacks, in fp32, cast to ``inv_dtype``, whatever
+    ``inverse_method`` says (the blocks are tiny: eigen bookkeeping would
+    cost more than it saves). The single-device and the distributed
+    firings share it (the JAX ``grouped_block_inverses``)."""
+    return {f'{side}_inv': kernels.damped_inverse_stack(
+                factors[side].float(), damping, 'cholesky').to(inv_dtype)
+            for side in 'AG'}
 
 
 def eigen_family(method: str) -> bool:

@@ -1,8 +1,14 @@
-"""Train an ImageNet ResNet with K-FAC + SGD (PyTorch port of
-``examples/train_imagenet_resnet.py``), on one device or data parallel.
+"""Train an ImageNet ResNet or Vision Transformer with K-FAC + SGD
+(PyTorch port of ``examples/train_imagenet_resnet.py``), on one device or
+data parallel.
 
     python -m distributed_kfac_pytorch_tpu_torch.train_imagenet_resnet \
         --model resnet50 --inverse-method newton
+
+``--model`` takes ``resnet18`` ... ``resnet152`` and, as the JAX CLI,
+``vit`` (ViT-S/16) or ``vit_<size>`` (``cifar``, ``tiny``, ``small``,
+``base``; ``models.vit``); the name is parsed as strictly as there, so a
+misspelt ViT name and ``--remat`` with a ViT raise ``SystemExit``.
 
 Flags keep the JAX CLI's names and defaults for what the port supports
 (the recipe: lr 0.0125 decayed at epochs 25/35/40/45/50, wd 5e-5, label
@@ -25,21 +31,20 @@ file).
 Checkpoints and resume as in the CIFAR CLI (``--checkpoint-dir``, default
 ``./checkpoints/imagenet``; ``--checkpoint-freq``, default 5 epochs;
 ``--checkpoint-steps``, ``--checkpoint-secs``, ``--preemption-grace``,
-``--resume-step``, ``--no-resume``; exit 75 after a preemption).
-``--grad-accum N`` runs each rank's batch slice as ``N`` micro-batches in
-turn, ``--precise-bn-batches N`` re-estimates the BatchNorm statistics
-over the first ``N`` batches of the epoch's training stream before each
-evaluation (the training statistics restored after it) and ``--remat``
-rematerializes every residual block (``models.imagenet_resnet``), as in
-the JAX CLI. Not ported yet: the ImageNet directory reader, ViT models,
-and the flags of ``engine.UNPORTED_FLAGS`` (metrics sinks, profiling and
-autotune, heartbeats and self-healing, multi-slice meshes, fp16, the
-hierarchical reduce, the low-rank inverse), which raise by name, and the
-K-FAC knobs listed in ``preconditioner.NOT_PORTED``. ``--bf16-factors``,
-``--bf16-inverses`` and ``--bf16-precond`` set the K-FAC reduced-precision
-knobs as the JAX ``OptimConfig`` does (tracked config 5 is ``--model
-resnet152 --bf16-factors --inverse-method eigen``).
-``--inv-pipeline-chunks``, ``--inv-staleness``,
+``--resume-step``, ``--no-resume``; exit 75 after a preemption). ``--grad-accum
+N`` runs each rank's batch slice as ``N`` micro-batches in turn,
+``--precise-bn-batches N`` re-estimates the BatchNorm statistics over the first
+``N`` batches of the epoch's training stream before each evaluation (the
+training statistics restored after it) and ``--remat`` rematerializes every
+residual block (``models.imagenet_resnet``), as in the JAX CLI. Not ported yet:
+the ImageNet directory reader (the JAX CLI's ``tf.data`` JPEG pipeline) and the
+flags of ``engine.UNPORTED_FLAGS`` (metrics sinks, profiling and autotune,
+heartbeats and self-healing, multi-slice meshes, fp16, the hierarchical reduce,
+the low-rank inverse), which raise by name, and the K-FAC knobs listed in
+``preconditioner.NOT_PORTED``. ``--bf16-factors``, ``--bf16-inverses`` and
+``--bf16-precond`` set the K-FAC reduced-precision knobs as the JAX
+``OptimConfig`` does (tracked config 5 is ``--model resnet152 --bf16-factors
+--inverse-method eigen``). ``--inv-pipeline-chunks``, ``--inv-staleness``,
 ``--deferred-factor-reduction`` and ``--factor-batch-fraction`` set the
 firing-schedule knobs of the same names (``engine.add_schedule_args``).
 
@@ -56,7 +61,7 @@ import torch
 
 from distributed_kfac_pytorch_tpu_torch import resolve_device, \
     set_fp32_precision
-from distributed_kfac_pytorch_tpu_torch.models import imagenet_resnet
+from distributed_kfac_pytorch_tpu_torch.models import imagenet_resnet, vit
 from distributed_kfac_pytorch_tpu_torch.resilience import \
     cli as resilience_cli
 from distributed_kfac_pytorch_tpu_torch.resilience.preemption import \
@@ -73,7 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
                         'synthetic data if absent')
     resilience_cli.add_checkpoint_args(p, 'imagenet', 5)
     p.add_argument('--model', default='resnet50',
-                   help='resnet18/34/50/101/152')
+                   help="resnet18/34/50/101/152, 'vit' (ViT-S/16) or "
+                        "'vit_<cifar|tiny|small|base>'")
     p.add_argument('--image-size', type=int, default=224)
     p.add_argument('--batch-size', type=int, default=256)
     p.add_argument('--val-batch-size', type=int, default=256)
@@ -152,9 +158,7 @@ def train(args_or_config=None, device='cuda') -> dict:
     does.
     """
     args = engine.parse_args(build_parser(), args_or_config)
-    if args.model.lower().startswith('vit'):
-        raise NotImplementedError(
-            f'model {args.model!r}: the ViT models are not ported yet')
+    vit_size(args)
     dev = resolve_device(device if device is not None else args.device)
     engine.check_unported(args)
     preemption = engine.install_preemption(args)
@@ -162,6 +166,39 @@ def train(args_or_config=None, device='cuda') -> dict:
         return _train(args, dev, preemption)
     finally:
         engine.finish_run(args, preemption)
+
+
+def vit_size(args: argparse.Namespace) -> str | None:
+    """The ViT size ``--model`` names (``'vit'`` is ``'small'``), or None
+    for a ResNet. Strict, as the JAX CLI: exactly ``vit`` or
+    ``vit_<size>``, so ``vitbase`` or ``vit-base`` cannot fall through to
+    a default; ``--remat`` is the ResNet knob."""
+    head, _, size = args.model.partition('_')
+    if head == 'vit':
+        if args.remat:
+            raise SystemExit('--remat is the ResNet block-level knob; '
+                             'for ViT memory use chunked attention '
+                             '(models/vit.py attn_block_size)')
+        return size or 'small'
+    if args.model.startswith('vit'):
+        raise SystemExit(
+            f'unknown model {args.model!r}: ViT configs are spelled '
+            "'vit' or 'vit_<tiny|small|base>'")
+    return None
+
+
+def build_model(args: argparse.Namespace) -> torch.nn.Module:
+    """The ``--model`` network at ``--image-size``, 1000 classes, its
+    weights drawn from ``--seed``."""
+    size = vit_size(args)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(args.seed)
+        if size is not None:
+            return vit.get_model(1000, size, image_size=args.image_size)
+        return imagenet_resnet.get_model(
+            args.model, bn_momentum=(0.9 if args.bn_momentum is None
+                                     else args.bn_momentum),
+            remat=args.remat)
 
 
 def _train(args: argparse.Namespace, dev: torch.device,
@@ -172,13 +209,7 @@ def _train(args: argparse.Namespace, dev: torch.device,
     train_data, val_data = datasets.get_imagenet(
         args.data_dir, image_size=args.image_size,
         synthetic_size=args.synthetic_size)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(args.seed)
-        model = imagenet_resnet.get_model(
-            args.model, bn_momentum=(0.9 if args.bn_momentum is None
-                                     else args.bn_momentum),
-            remat=args.remat)
-    model = model.to(dev)
+    model = build_model(args).to(dev)
     cfg = optimizers.OptimConfig(
         base_lr=args.base_lr, momentum=args.momentum,
         weight_decay=args.wd, lr_decay=args.lr_decay,

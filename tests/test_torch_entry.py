@@ -80,14 +80,39 @@ def test_imagenet_train_on_cpu_one_step():
 
 
 def test_imagenet_cli_rejects_vit_and_parses_flags():
-    with pytest.raises(NotImplementedError, match='ViT'):
-        inet.train({**INET_TINY, 'model': 'vit_small'}, device='cpu')
+    # Misspelt ViT names and --remat with a ViT are refused as in the JAX
+    # CLI (the ViT models themselves are ported).
+    for name in ('vitbase', 'vit-base', 'vits'):
+        with pytest.raises(SystemExit, match='unknown model'):
+            inet.train({**INET_TINY, 'model': name}, device='cpu')
+    with pytest.raises(SystemExit, match='--remat'):
+        inet.train({**INET_TINY, 'model': 'vit', 'remat': True},
+                   device='cpu')
     args = inet.build_parser().parse_args(
         ['--inverse-method', 'newton', '--label-smoothing', '0.2'])
     assert (args.inverse_method, args.label_smoothing) == ('newton', 0.2)
     assert (args.base_lr, args.wd, args.kfac_update_freq,
             args.kfac_cov_update_freq, args.damping) == (0.0125, 5e-5, 100,
                                                          10, 0.001)
+
+
+@pytest.mark.parametrize('name,size', [
+    ('vit', 'small'), ('vit_small', 'small'), ('vit_tiny', 'tiny'),
+    ('vit_base', 'base'), ('vit_cifar', 'cifar'), ('resnet50', None)])
+def test_imagenet_cli_parses_vit_names_as_jax(name, size):
+    args = inet.build_parser().parse_args(['--model', name])
+    assert inet.vit_size(args) == size
+
+
+def test_imagenet_cli_builds_vit_at_the_image_size():
+    args = inet.build_parser().parse_args(
+        ['--model', 'vit_cifar', '--image-size', '32'])
+    model = inet.build_model(args)
+    assert model.image_size == 32 and model.patch_size == 4
+    assert tuple(model.pos_embed.shape) == (65, 192)
+    with pytest.raises(ValueError, match='unknown size'):
+        inet.build_model(inet.build_parser().parse_args(
+            ['--model', 'vit_huge']))
 
 
 def test_optim_config_passes_the_inverse_knobs_to_kfac():
@@ -407,9 +432,10 @@ def test_registration_and_declines():
         nn.Conv2d(8, 4, 3, dilation=2), nn.Flatten(), nn.LazyLinear(5))
     model(torch.zeros(1, 3, 8, 8))
     cap = KFACCapture(model, skip_layers=['6'])
-    assert list(cap.specs) == ['0']
+    assert list(cap.specs) == ['0', '2']
+    assert cap.specs['2'].kind == 'conv2d_grouped'
+    assert cap.specs['2'].feature_group_count == 2
     skipped = cap.skipped_modules
-    assert 'grouped conv' in skipped['2']
     assert 'dilated' in skipped['4']
     assert 'unsupported module type' in skipped['3']
     assert skipped['6'] == 'skip_layers match'
