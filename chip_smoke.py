@@ -46,7 +46,15 @@ Phases (any failure exits nonzero and prints no result line):
      the stem's and the pointwise convs' G and the fc's A and G, K2 on
      their A, the 3x3/2 stem and the 1x1 convs, five of 512 channels at
      11 px among them, K3 on the eleven buckets in their ``auto`` forms),
-     each held and timed the same way;
+     each held and timed the same way; then K1 and K2 over the whole
+     ResNet-50 ``--fp16`` step's launch set (55 and 53) on that step's own
+     captures (fp16 activations into K2 after the stem and into the fc's
+     A; fp32 unscaled output-grads into K1's G sides), each within 1e-5 of
+     its plain version on the same inputs and, on an fp16 input, bit for
+     bit the launch on the input widened first; the set timed on those
+     inputs and on the inputs widened beforehand (the widening's cost per
+     step), beside the plain versions, the library yardsticks and the
+     bound of the fp16-input bytes;
   4. kernel K4 (Newton--Schulz inverse): random SPD stacks at every
      ResNet-50 size bucket and edge sizes, damping 0.003 and 0.001, and
      stacks whose matrices stop at different iterations (and at the cap),
@@ -78,7 +86,9 @@ Phases (any failure exits nonzero and prints no result line):
      takes it (the largest of all is the cluster path's capacity), one
      size just above the capacity (the streaming path), all read from
      ``jacobi_cluster_plan``, and an identity stack, against its plain
-     version: eigenvalues <= 1e-5 of the largest, ``max|Q^T Q - I|`` and
+     version (the edge sizes and the identity stack, which are not
+     timed, run beside phases 20 and 22, their lines printed there):
+     eigenvalues <= 1e-5 of the largest, ``max|Q^T Q - I|`` and
      reconstruction <= 5e-5, the damped side inverse ``Q diag(1/(d +
      0.003)) Q^T`` <= 1e-4 relative; where one of these fails, the
      kernel's errors against a float64 eigh at most 2x the plain
@@ -97,12 +107,14 @@ Phases (any failure exits nonzero and prints no result line):
      finite losses, no jacobi_eigh launch;
  11. ResNet-32 under ``--eigh-method jacobi``: 11 steps, finite losses,
      jacobi_eigh 9 per firing besides phase 5's per-step launches;
- 12. the result (printed after phases 13-33): a JSON line of
+ 12. the result (printed after phases 13-36): a JSON line of
      per-kernel numbers (K1-K3 per ResNet-50 step, K4 per ResNet-50 firing, K5
      per LSTM firing, under ``transformer_xl`` K1 and K3 per XL step and K4 per
      XL firing, under ``resnet152_config5`` K1-K3 per config-5 step, and under
      ``vit_small`` and ``mobilenet_v1`` K1-K3 per ViT-S/16 and MobileNetV1
-     step; launches summed over phases 5-7, 9-11 and 13-33), the card line,
+     step, under ``resnet50_fp16`` K1 and K2 per ResNet-50 ``--fp16`` step
+     on its own captures; launches summed over phases 5-7, 9-11 and
+     13-36), the card line,
      then ``{"ok": true, "device": {...}}`` as the last line;
  13. distributed, NCCL at world size 1: phase 6's ResNet-50 run through
      ``train_imagenet_resnet.train`` inside a one-rank NCCL group
@@ -130,7 +142,11 @@ Phases (any failure exits nonzero and prints no result line):
      entry), every rank's launches must equal what the work assignment
      predicts (K1 33 and K2 31 per step; K3 one per gradient shape its
      row owns; K5 one per bucket it holds a slot of, per firing), and
-     the step times print labelled as gloo through host memory;
+     the step times print labelled as gloo through host memory. Phases
+     14, 24 and 26 and phase 31's gloo world run at once, at phase 14's
+     place (their sixteen ranks share the card and the host; their step
+     times are each other's neighbours'), their lines printed in that
+     order;
  15. main path, Transformer-XL LM: ``train_language_model.train`` with
      ``--arch transformer`` at d 1024, 18 blocks, 16 heads, MLP 4096,
      tied, synthetic vocabulary 32,768, BPTT 1024, batch 4, dropout 0,
@@ -221,8 +237,9 @@ Phases (any failure exits nonzero and prints no result line):
      finite, launches equal the assignment; step times print labelled as
      gloo through host memory. Phases 20 and 22 run at once, after phase
      21 (their eight ranks share the card and the host; their step times
-     are each other's neighbours'), phase 22's lines printed after phase
-     20's;
+     are each other's neighbours'), with phase 8's K5 edge cases beside
+     them, phase 22's lines printed after phase 20's and the edge cases'
+     after those;
  23. tracked config 5: ``train_imagenet_resnet.train`` with ``--model
      resnet152 --bf16-factors --inverse-method eigen``, 224 px, batch 64,
      one fixed synthetic batch, lr 0.1 (``R152_LR``: at the CLI's 0.0125
@@ -350,7 +367,8 @@ Phases (any failure exits nonzero and prints no result line):
      ``KFAC`` single pass on the full batch at phase 14's tolerances (the
      preconditioned gradients against the largest entry of all, the
      per-tensor gap printed; the loss within 1e-5), every rank's
-     launches twice the single pass's K1 / K2.
+     launches twice the single pass's K1 / K2 (the world runs beside
+     phase 14, its lines printed there; ``--accum-only`` runs it here).
      Phases 29-31 print their seconds.
  32. grouped / depthwise convs: MobileNetV1 at the JAX package's
      depthwise workload (width 1.0, 176 px, batch 64, damping 0.003, lr
@@ -374,14 +392,45 @@ Phases (any failure exits nonzero and prints no result line):
      K1); every loss finite and falling, launches per step K1 147 (148
      under reduce), K2 1 (0), K3 5, no K4 / K5, the K3 buckets in the
      forms phase 3 times; non-firing and firing step ms.
-     Phases 32-33 print their seconds. The script ends with every phase
+     Phases 32-33 print their seconds.
+ 34. fp16: ResNet-50 through ``train_imagenet_resnet.train`` with
+     ``--fp16`` (fp16 compute, fp32 parameters; the dynamic loss scale
+     from 2**15), 224 px, batch 64, ``auto``, one fixed synthetic batch,
+     12 steps (firings at 0 and 10): every loss finite, the last three
+     below the first three, the loss scale of every step printed, the
+     parameters fp32, launches K1 55, K2 53, K3 21 per step that ran its
+     K-FAC step (an overflow step launches nothing) and no K4 / K5;
+     non-firing and firing step ms and the peak memory beside phases 6
+     and 7's fp32 figures; then the same under ``KFAC_CHAOS=nan-batch@5``
+     over 8 steps: step 5 overflows besides the steps the clean run's
+     schedule skipped (at 2**15 ResNet-50's first step overflows and the
+     scale settles at 2**14), the parameters, the SGD
+     momentum, every ``kfac_state`` tensor and the BatchNorm buffers are
+     equal bit for bit before and after it (``kfac_state['step']``
+     advances), the scale halves and every later loss is finite; then
+     ``KFAC(nonfinite_guard=True)``, on phase 3's fp16 model, batch and
+     scale, given a poisoned capture after a clean one keeps every
+     factor bit for bit, and without the guard the factors go
+     non-finite;
+ 35. the Transformer-XL LM (phase 15's width, all 18 blocks) through
+     ``train_language_model.train`` with ``--fp16``, 6 steps, one firing:
+     finite, falling losses, the scale per step, phase 15's launches per
+     step, non-firing step ms and peak beside phase 15's;
+ 36. bf16 activations (the JAX benches' default): MobileNetV1 (phase 32's
+     settings) and ViT-S/16 (phase 33's) built at ``torch.bfloat16``, 6
+     ``engine.train_step`` steps each on one fixed batch: finite, falling
+     losses, phases 32-33's launches per step, step ms and peak beside
+     theirs.
+     Phases 34-36 print their seconds. The script ends with every phase
      header's wall time, largest first.
 
 ``--quick`` builds with ``-Xptxas -v`` and runs only the correctness
 checks of phases 3, 4 and 8 (a first call after a kernel change).
 ``--profile`` adds a torch.profiler pass over steady ResNet-32,
 ResNet-50 (``newton``), LSTM (``jacobi``), Transformer-XL (``auto``) and
-config-5 steps (ResNet-152 ``eigen``, bf16 and fp32 factors) (device
+config-5 steps (ResNet-152 ``eigen``, bf16 and fp32 factors), and the
+half-precision paths beside their fp32 twins (ResNet-50 ``--fp16``,
+ViT-S/16 at fp32 and bf16, the XL LM ``--fp16``) (device
 time by kernel category, the device's busy share; it fails
 if the ResNet-50 steps show no K2 time or the XL steps no K1 time). Details of every case go to
 ``chiprun_out/chip_smoke.json`` next to this script. ``--resume-only``
@@ -389,7 +438,9 @@ builds and runs phases 27-28 alone (no result line;
 ``chiprun_out/chip_smoke_resume.json``); ``--accum-only`` builds and runs
 phases 29-31 alone (``chiprun_out/chip_smoke_accum.json``);
 ``--models-only`` builds and runs phase 3's ViT-S and MobileNetV1 cases
-and phases 32-33 alone (``chiprun_out/chip_smoke_models.json``).
+and phases 32-33 alone (``chiprun_out/chip_smoke_models.json``);
+``--fp16-only`` builds and runs phase 3's ResNet-50 ``--fp16`` cases and
+phases 34-36 alone (``chiprun_out/chip_smoke_fp16.json``);
 ``--determinism-probe`` (alone
 or before ``--resume-only``'s phases) runs phase 27's uninterrupted
 ResNet-50 twice without ``--deterministic`` and compares the final
@@ -617,6 +668,18 @@ VIT_PER_STEP = {'factor_ema': sum(c[3] for c in VIT_K1_CASES) + 1,
 VIT_REDUCE_PER_STEP = {**VIT_PER_STEP,
                        'factor_ema': VIT_PER_STEP['factor_ema'] + 1,
                        'patch_cov': 0}
+
+# Phases 34-36: ResNet-50 under --fp16 (the reference's ImageNet
+# recipe) through the ImageNet CLI as phase 6 but 'auto', firings at 0 and
+# 10, the dynamic loss scale starting at 2**15; the same with the nan-batch
+# fault at step 5 over 8 steps; the Transformer-XL LM under --fp16 at
+# FP16_XL_LAYERS blocks (the depth the script's time allows; phase 15 keeps
+# 18), 6 steps, one firing; MobileNetV1 and ViT-S/16 at bf16 activations
+# (the JAX benches' default) with phases 32-33's settings, 6 steps each.
+FP16_STEPS, FP16_INIT_SCALE = 12, 2.0 ** 15
+FP16_CHAOS_STEP, FP16_CHAOS_STEPS = 5, 8
+FP16_XL_LAYERS, FP16_XL_STEPS = 18, 6
+BF16_MODEL_STEPS = 6
 
 # Phase 3's cases at the shapes of phases 32-33: (header, key, keywords of
 # check_kernels).
@@ -1585,12 +1648,18 @@ def run_resnet50_newton(card: str) -> tuple[dict, dict]:
 
 def run_resnet50_auto(card: str) -> dict:
     """Phase 7: 3 ResNet-50 steps under the default 'auto' (one firing)."""
+    import torch
     from distributed_kfac_pytorch_tpu_torch import train_imagenet_resnet
     from distributed_kfac_pytorch_tpu_torch.ops import kernels
     config = _r50_config(epochs=3)
+    _release()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     res = train_imagenet_resnet.train(config, device='cuda')
     launches = dict(kernels.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     state = res.pop('state')
     losses = res['losses']
     if len(losses) != 3 or not all(math.isfinite(v) for v in losses):
@@ -1616,11 +1685,12 @@ def run_resnet50_auto(card: str) -> dict:
         raise AssertionError(f'auto: bucket forms {split}')
     summary = {'losses': losses, 'launches': launches,
                'bucket_forms': split, 'firing_ms': res['step_ms'][0],
-               'nonfiring_ms': res['step_ms'][1:]}
+               'nonfiring_ms': res['step_ms'][1:], 'peak_gib': peak}
     log(f'  losses {[round(v, 4) for v in losses]}; launches {launches}; '
         f'buckets {split}')
     log(f'  firing step (step 0) {res["step_ms"][0]:.1f} ms, non-firing '
-        f'{[round(t, 2) for t in res["step_ms"][1:]]} ms ({card})')
+        f'{[round(t, 2) for t in res["step_ms"][1:]]} ms; peak {peak:.2f} '
+        f'GiB above the baseline ({card})')
     return summary
 
 
@@ -2149,13 +2219,13 @@ def jacobi_path(n: int, count: int) -> dict:
             'waves': math.ceil(per / active) * math.ceil(count / per)}
 
 
-def check_jacobi_eigh(quick: bool) -> tuple[dict, dict, list]:
+def check_jacobi_eigh(quick: bool, defer_edges: bool = False) -> tuple:
     """K5 against its plain version at the LSTM LM's and ResNet-32's size
     buckets, the edge sizes of both paths and an identity stack. Returns
-    the per-firing sums of the LSTM buckets and of the ResNet-32 ones, and
-    the rows."""
+    the per-firing sums of the LSTM buckets and of the ResNet-32 ones, the
+    rows, and, with ``defer_edges``, the untimed cases' inputs, drawn here
+    in turn, for :func:`check_jacobi_edges` (else ``[]``)."""
     import torch
-    from distributed_kfac_pytorch_tpu_torch.ops import kernels as K
     gen = torch.Generator(device='cuda')
     gen.manual_seed(2)
     cases = [(f'LSTM ({c},{n},{n})', 'lstm', lambda n=n, c=c: _spd_stack(
@@ -2169,75 +2239,99 @@ def check_jacobi_eigh(quick: bool) -> tuple[dict, dict, list]:
     aggs = {group: {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0,
                     't_bytes': 0.0, 't_ops': 0.0, 'max_abs_err': 0.0}
             for group in ('lstm', 'r32')}
-    rows = []
+    rows, deferred = [], []
     for label, group, make in cases:
         f = make()
-        count, n = f.shape[0], f.shape[-1]
-        got_q, got_d = K.batched_jacobi_eigh(f)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref_q, ref_d = K.batched_jacobi_eigh_plain(f)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        if not (torch.isfinite(got_q).all() and torch.isfinite(got_d).all()):
-            raise AssertionError(f'jacobi_eigh {label}: non-finite output')
-        d_scale = max(float(ref_d.abs().max()), 1e-30)
-        d_abs = float((got_d - ref_d).abs().max())
-        inv_got, inv_ref = _side_inverse(got_q, got_d), _side_inverse(
-            ref_q, ref_d)
-        inv_abs = float((inv_got - inv_ref).abs().max())
-        inv_rel = inv_abs / float(inv_ref.abs().max())
-        d64 = torch.linalg.eigvalsh(f.double())
-        err = _jacobi_errors(f, got_q, got_d, d64)
-        row = {'kernel': 'jacobi_eigh', 'case': label, 'n': n,
-               'count': count, 'd_rel_err': d_abs / d_scale,
-               'side_inverse_rel_err': inv_rel, 'orth': err['orth'],
-               'recon': err['recon'], 'eig_vs_fp64': err['eig'],
-               'plain_ms': plain_ms, 'q_max_abs_diff': float(
-                   (got_q - ref_q).abs().max()), **jacobi_path(n, count)}
-        # Against the plain version: eigenvalues and the damped side
-        # inverse, always.
-        ok = row['d_rel_err'] <= 1e-5 and inv_rel <= 1e-4
-        if err['orth'] > 5e-5 or err['recon'] > 5e-5:
-            # fp32 drift of the algorithm over thousands of rounds: hold the
-            # kernel to at most twice the plain version's own orthogonality
-            # and reconstruction errors against float64.
-            ref_err = _jacobi_errors(f, ref_q, ref_d, d64)
-            row['plain_vs_fp64'] = ref_err
-            row['rule'] = '2x plain vs fp64'
-            ok = ok and all(err[k] <= 2 * max(ref_err[k], 1e-7)
-                            for k in ('orth', 'recon'))
-        if not ok:
-            raise AssertionError(f'jacobi_eigh {label}: {row}')
-        path = (f'C {row["cluster"]} active {row["max_active_clusters"]} '
-                f'waves {row["waves"]}' if row['path'] == 'cluster'
-                else row['path'])
-        msg = (f'  jacobi_eigh {label:22s} d rel {row["d_rel_err"]:.1e} '
-               f'inv rel {inv_rel:.1e} orth {err["orth"]:.1e} recon '
-               f'{err["recon"]:.1e} |dQ| {row["q_max_abs_diff"]:.1e} '
-               f'(exactly 0: {row["q_max_abs_diff"] == 0.0}) [{path}] '
-               f'plain {plain_ms:.1f} ms')
-        if not quick and group is not None:
-            reps, trials, warm = (1, 3, 1) if n >= 500 else (3, 3, 1)
-            row['ms'] = time_ms(lambda: K.batched_jacobi_eigh(f), reps,
-                                trials, warm)
-            row['library_ms'] = time_ms(lambda: torch.linalg.eigh(f), reps,
-                                        trials, warm)
-            nbytes, flops = jacobi_work(n, count)
-            row['bound_ms'], row['bound_by'] = bound(nbytes, flops)
-            agg = aggs[group]
-            for key in ('ms', 'plain_ms', 'library_ms'):
-                agg[key] += row[key]
-            agg['t_bytes'] += nbytes / PEAK_BYTES * 1e3
-            agg['t_ops'] += flops / PEAK_FP32_FLOPS * 1e3
-            agg['max_abs_err'] = max(agg['max_abs_err'], d_abs, inv_abs)
-            msg += (f'  ms {row["ms"]:.2f} lib (eigh) '
-                    f'{row["library_ms"]:.2f} bound {row["bound_ms"]:.3f} '
-                    f'({row["bound_by"]})')
-        log(msg)
-        rows.append(row)
-        del f, got_q, got_d, ref_q, ref_d
-    return aggs['lstm'], aggs['r32'], rows
+        if defer_edges and group is None:
+            deferred.append((label, f))
+            continue
+        rows.append(_check_jacobi_case(label, group, f, quick, aggs))
+        del f
+    return aggs['lstm'], aggs['r32'], rows, deferred
+
+
+def check_jacobi_edges(deferred: list) -> list:
+    """Phase 8's untimed K5 cases (edge sizes and the identity stack) on
+    the inputs :func:`check_jacobi_eigh` drew, held as there; they run
+    beside phases 20 and 22, so their plain ms are those neighbours'.
+    Returns the rows."""
+    log('  phase 8, K5 edge sizes and the identity stack (beside phases 20 '
+        'and 22):')
+    return [_check_jacobi_case(label, None, f, True, {})
+            for label, f in deferred]
+
+
+def _check_jacobi_case(label: str, group, f, quick: bool,
+                       aggs: dict) -> dict:
+    """One K5 case against its plain version (see the module docstring);
+    a case of a ``group`` is timed and summed into ``aggs`` unless
+    ``quick``. Returns its row."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels as K
+    count, n = f.shape[0], f.shape[-1]
+    got_q, got_d = K.batched_jacobi_eigh(f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_q, ref_d = K.batched_jacobi_eigh_plain(f)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.isfinite(got_q).all() and torch.isfinite(got_d).all()):
+        raise AssertionError(f'jacobi_eigh {label}: non-finite output')
+    d_scale = max(float(ref_d.abs().max()), 1e-30)
+    d_abs = float((got_d - ref_d).abs().max())
+    inv_got, inv_ref = _side_inverse(got_q, got_d), _side_inverse(
+        ref_q, ref_d)
+    inv_abs = float((inv_got - inv_ref).abs().max())
+    inv_rel = inv_abs / float(inv_ref.abs().max())
+    d64 = torch.linalg.eigvalsh(f.double())
+    err = _jacobi_errors(f, got_q, got_d, d64)
+    row = {'kernel': 'jacobi_eigh', 'case': label, 'n': n,
+           'count': count, 'd_rel_err': d_abs / d_scale,
+           'side_inverse_rel_err': inv_rel, 'orth': err['orth'],
+           'recon': err['recon'], 'eig_vs_fp64': err['eig'],
+           'plain_ms': plain_ms, 'q_max_abs_diff': float(
+               (got_q - ref_q).abs().max()), **jacobi_path(n, count)}
+    # Against the plain version: eigenvalues and the damped side inverse,
+    # always.
+    ok = row['d_rel_err'] <= 1e-5 and inv_rel <= 1e-4
+    if err['orth'] > 5e-5 or err['recon'] > 5e-5:
+        # fp32 drift of the algorithm over thousands of rounds: hold the
+        # kernel to at most twice the plain version's own orthogonality
+        # and reconstruction errors against float64.
+        ref_err = _jacobi_errors(f, ref_q, ref_d, d64)
+        row['plain_vs_fp64'] = ref_err
+        row['rule'] = '2x plain vs fp64'
+        ok = ok and all(err[k] <= 2 * max(ref_err[k], 1e-7)
+                        for k in ('orth', 'recon'))
+    if not ok:
+        raise AssertionError(f'jacobi_eigh {label}: {row}')
+    path = (f'C {row["cluster"]} active {row["max_active_clusters"]} '
+            f'waves {row["waves"]}' if row['path'] == 'cluster'
+            else row['path'])
+    msg = (f'  jacobi_eigh {label:22s} d rel {row["d_rel_err"]:.1e} '
+           f'inv rel {inv_rel:.1e} orth {err["orth"]:.1e} recon '
+           f'{err["recon"]:.1e} |dQ| {row["q_max_abs_diff"]:.1e} '
+           f'(exactly 0: {row["q_max_abs_diff"] == 0.0}) [{path}] '
+           f'plain {plain_ms:.1f} ms')
+    if not quick and group is not None:
+        reps, trials, warm = (1, 3, 1) if n >= 500 else (3, 3, 1)
+        row['ms'] = time_ms(lambda: K.batched_jacobi_eigh(f), reps,
+                            trials, warm)
+        row['library_ms'] = time_ms(lambda: torch.linalg.eigh(f), reps,
+                                    trials, warm)
+        nbytes, flops = jacobi_work(n, count)
+        row['bound_ms'], row['bound_by'] = bound(nbytes, flops)
+        agg = aggs[group]
+        for key in ('ms', 'plain_ms', 'library_ms'):
+            agg[key] += row[key]
+        agg['t_bytes'] += nbytes / PEAK_BYTES * 1e3
+        agg['t_ops'] += flops / PEAK_FP32_FLOPS * 1e3
+        agg['max_abs_err'] = max(agg['max_abs_err'], d_abs, inv_abs)
+        msg += (f'  ms {row["ms"]:.2f} lib (eigh) '
+                f'{row["library_ms"]:.2f} bound {row["bound_ms"]:.3f} '
+                f'({row["bound_by"]})')
+    log(msg)
+    return row
 
 
 def _lm_config(**over) -> dict:
@@ -2741,6 +2835,9 @@ def _launch_total(reports) -> dict:
 def run_bf16_gloo_world(card: str) -> dict:
     """Phase 24: phase 14's ranks with the three bf16 flags under COMM_OPT,
     MEM_OPT and HYBRID_OPT; fails if any rank fails."""
+    log(f'  phase 24: ResNet-32, {GLOO_WORLD} ranks on one card over gloo, '
+        '--bf16-factors --bf16-inverses --bf16-precond, 3 mesh cases x '
+        f'{GLOO_STEPS} steps')
     reports = _run_gloo_ranks('resnet32_bf16')
     worst = {}
     for i, case in enumerate(reports[0]['cases']):
@@ -2891,6 +2988,10 @@ def run_overlap_gloo_world(card: str) -> dict:
     """Phase 26: GLOO_WORLD ranks of :func:`overlap_dist_worker`, each
     under OVERLAP_TIMEOUT; fails if any rank fails or two ranks' factor
     digests differ at any step."""
+    log(f'  phase 26: the firing schedule distributed, ResNet-32, '
+        f'{GLOO_WORLD} ranks on one card over gloo, chunks 2, staleness 1, '
+        f'deferred reduction, {len(OVERLAP_GLOO_CASES)} cases x '
+        f'{OVERLAP_STEPS} steps')
     t0 = time.perf_counter()
     reports = _run_gloo_ranks('resnet32_overlap', timeout=OVERLAP_TIMEOUT)
     worst = {}
@@ -2926,6 +3027,9 @@ def run_overlap_gloo_world(card: str) -> dict:
 def run_gloo_world(card: str) -> dict:
     """Phase 14: GLOO_WORLD ranks on the one card over gloo, every case
     of GLOO_CASES; fails if any rank fails."""
+    log(f'  phase 14: ResNet-32, {GLOO_WORLD} ranks on one card over gloo, '
+        f'global batch {GLOO_BATCH}, BatchNorm eval, {len(GLOO_CASES)} mesh '
+        f'cases x {GLOO_STEPS} steps')
     reports = _run_gloo_ranks('resnet32')
     total = _launch_total(reports)
     for i, (name, *_rest) in enumerate(GLOO_CASES):
@@ -5020,6 +5124,9 @@ def accum_dist_worker(cfg: dict) -> int:
 def run_accum_gloo_world(card: str) -> dict:
     """Phase 31, second part: ResNet-32 GN on GLOO_WORLD gloo ranks with
     grad_accum ACCUM_GLOO_N; fails if any rank fails."""
+    log(f'  phase 31\'s world: ResNet-32 GN, {GLOO_WORLD} gloo ranks on one '
+        f'card, world batch {GLOO_BATCH} with grad_accum {ACCUM_GLOO_N}, '
+        f'{len(ACCUM_GLOO_CASES)} mesh cases x {GLOO_STEPS} steps')
     reports = _run_gloo_ranks('resnet32gn_accum', timeout=300)
     worst = {}
     for i, case in enumerate(reports[0]['cases']):
@@ -5043,8 +5150,9 @@ def run_accum_gloo_world(card: str) -> dict:
     return {'launches': total, 'worst': worst, 'ranks': reports}
 
 
-def run_accum_phases(card: str) -> dict:
-    """Phases 29-31 with their wall time."""
+def run_accum_phases(card: str, accum_world: dict | None = None) -> dict:
+    """Phases 29-31 with their wall time; ``accum_world`` is phase 31's
+    gloo world when it ran beside phase 14 (else it runs here)."""
     t0 = time.perf_counter()
     log(f'== gradient accumulation: the ImageNet CLI at ResNet-50, 224 px, '
         f'batch {ACCUM_BATCH} as --grad-accum {ACCUM_N}, newton, '
@@ -5064,9 +5172,10 @@ def run_accum_phases(card: str) -> dict:
         f'with --precise-bn-batches {PRECISE_BN_BATCHES}; ResNet-32 GN, '
         f'{GLOO_WORLD} gloo ranks on one card, world batch {GLOO_BATCH} '
         f'with grad_accum {ACCUM_GLOO_N}, {len(ACCUM_GLOO_CASES)} mesh '
-        f'cases x {GLOO_STEPS} steps')
+        f'cases x {GLOO_STEPS} steps'
+        + (' (the world ran beside phase 14)' if accum_world else ''))
     out['precise_bn'] = run_precise_bn(card)
-    out['accum_gloo_world'] = run_accum_gloo_world(card)
+    out['accum_gloo_world'] = accum_world or run_accum_gloo_world(card)
     t3 = time.perf_counter()
     log(f'  phase 31: {t3 - t2:.1f} s')
     log(f'  phases 29-31: {t3 - t0:.1f} s wall ({card})')
@@ -5400,6 +5509,538 @@ def run_model_phases(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# fp16 compute, the dynamic loss scale and bf16 activations (phases 3's fp16
+# cases and 34-36)
+# ---------------------------------------------------------------------------
+
+#: Phase 3's ResNet-50 ``--fp16`` model, batch and loss scale, kept for
+#: phase 34's guard check (``'inputs'``).
+_R50_FP16_SHARED: dict = {}
+
+
+def _step_inputs_r50_fp16(dev):
+    """ResNet-50 at fp16 compute (seed 0), its ``KFAC`` and one capture
+    pass over phase 6's fixed batch under the loss scale the ``--fp16``
+    step would train at: 2**15, halved while the pass overflows, as the
+    dynamic scale backs off. Returns ``(model, kfac, x, y, captures,
+    scale)``."""
+    import torch
+    import torch.nn.functional as F
+    from distributed_kfac_pytorch_tpu_torch import fp16
+    from distributed_kfac_pytorch_tpu_torch.models import imagenet_resnet
+    from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
+    x, y = _fixed_batch(R50_BATCH, 224, dev)
+    with torch.random.fork_rng(devices=[dev]):
+        torch.manual_seed(0)
+        model = imagenet_resnet.get_model(
+            'resnet50', dtype=torch.float16).to(dev)
+    kfac = KFAC(model, device=dev)
+    scale = FP16_INIT_SCALE
+    while True:
+        _, _, grads, captures = kfac.capture.loss_and_grads(
+            lambda out: F.cross_entropy(out, y), x,
+            loss_scale=torch.tensor(scale, device=dev))
+        if bool(fp16.tree_all_finite([grads, captures])):
+            return model, kfac, x, y, captures, scale
+        if scale <= 1.0:
+            raise AssertionError('fp16 R-50: the pass overflows at scale 1')
+        scale /= 2
+
+
+def check_fp16_inputs(card: str) -> dict:
+    """Phase 3's fp16 cases: K1 and K2 over the whole ResNet-50 ``--fp16``
+    step's launch set on the step's own captures (fp16 activations into K2
+    after the stem and into the fc's K1 A side; fp32 unscaled output-grads
+    into K1's G sides), each held against its plain version on the same
+    inputs at the fp32 tolerance and, where its input is fp16, bit for bit
+    against the same launch on the input widened first (the widening is
+    exact); the step's set timed on these inputs and on the same inputs
+    widened beforehand, beside the plain versions and the library
+    yardsticks, with the bound of the fp16-input work."""
+    import torch
+    import torch.nn.functional as F
+    from distributed_kfac_pytorch_tpu_torch.capture import CONV2D
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels as K
+    dev = torch.device('cuda')
+    _release()
+    model, kfac, x, y, caps, loss_scale = _step_inputs_r50_fp16(dev)
+    log(f'  the step\'s captures at loss scale {loss_scale:g}')
+    kfac.observe_specs()
+    k1, k2 = [], []
+    for name, spec in kfac.specs.items():
+        entry = caps[name]
+        for side, (t, scale, bias) in kfac.fused_factor_inputs(
+                spec, entry).items():
+            k1.append((f'{name} {side}', t, scale, bias))
+        if spec.kind == CONV2D:
+            k2.append((name, entry['a'][0], spec))
+    del caps
+    counts = {'factor_ema': len(k1), 'patch_cov': len(k2)}
+    if counts != {k: R50_PER_STEP[k] for k in counts}:
+        raise AssertionError(f'fp16 R-50 step: {counts} K1/K2 launches, '
+                             f'expected {R50_PER_STEP}')
+    calls = {
+        'factor_ema': [(label, t, (
+            lambda t, s=scale, b=bias: K.factor_ema(
+                t, None, 0.0, scale=s, has_bias=b)), (
+            lambda t, s=scale, b=bias: K.factor_ema_plain(
+                t, None, 0.0, scale=s, has_bias=b)))
+            for label, t, scale, bias in k1],
+        'patch_cov': [(name, a, (
+            lambda t, sp=spec: K.patch_cov(t, sp.kernel_size, sp.strides,
+                                           sp.padding, sp.has_bias)), (
+            lambda t, sp=spec: K.patch_cov_plain(
+                t, sp.kernel_size, sp.strides, sp.padding, sp.has_bias)))
+            for name, a, spec in k2]}
+    out = {}
+    for kname, cases in calls.items():
+        dtypes: dict = {}
+        worst = max_abs = 0.0
+        t_bytes = t_ops = 0.0
+        for label, t, kern, plain in cases:
+            dtypes[str(t.dtype)] = dtypes.get(str(t.dtype), 0) + 1
+            got = kern(t)
+            abs_err, rel = rel_err(got, plain(t))
+            if not rel <= TOL_FP32[kname]:
+                raise AssertionError(f'{kname} fp16 step {label}: rel err '
+                                     f'{rel:.3g} > {TOL_FP32[kname]}')
+            if t.dtype == torch.float16 and not torch.equal(
+                    got, kern(t.float())):
+                raise AssertionError(f'{kname} fp16 step {label}: differs '
+                                     'from the launch on the widened input')
+            worst, max_abs = max(worst, rel), max(max_abs, abs_err)
+            if kname == 'factor_ema':
+                rows, d = K._gram_rows(t).shape
+            else:
+                sp = dict((c[0], c[2]) for c in k2)[label]
+                _, oh, ow = K.conv_out_geometry(t.shape, sp.kernel_size,
+                                                sp.strides, sp.padding)
+                rows = t.shape[0] * oh * ow
+                d = t.shape[1] * sp.kernel_size[0] * sp.kernel_size[1]
+            n = d + int(got.shape[-1] > d)
+            t_bytes += (t.numel() * t.element_size() + 4 * n * n) \
+                / PEAK_BYTES * 1e3
+            t_ops += rows * d * (d + 1) / OPS_PEAK[kname] * 1e3
+        wide = [(c[1].float(), c[2]) for c in cases]
+
+        def library(cases=cases, kname=kname):
+            for label, t, _, _ in cases:
+                if kname == 'factor_ema':
+                    r = K._gram_rows(t).float()
+                else:
+                    sp = dict((c[0], c[2]) for c in k2)[label]
+                    (ph, _), (pw, _) = K.conv_out_geometry(
+                        t.shape, sp.kernel_size, sp.strides, sp.padding)[0]
+                    r = F.unfold(t.float(), sp.kernel_size, padding=(ph, pw),
+                                 stride=sp.strides).transpose(1, 2).reshape(
+                        -1, t.shape[1] * sp.kernel_size[0]
+                        * sp.kernel_size[1])
+                r.T @ r
+
+        row = {
+            'launches': len(cases), 'input_dtypes': dtypes,
+            'max_abs_err': max_abs, 'max_rel_err': worst,
+            'ms': time_ms(lambda: [c[2](c[1]) for c in cases], 3, 3, 1),
+            'fp32_input_ms': time_ms(lambda: [k(t) for t, k in wide],
+                                     3, 3, 1),
+            'plain_ms': time_ms(lambda: [c[3](c[1]) for c in cases],
+                                1, 3, 1),
+            'library_ms': time_ms(library, 1, 3, 1),
+            'bound_ms': max(t_bytes, t_ops),
+            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
+        out[kname] = row
+        log(f'  {kname:11s} fp16 R-50 step: {row["launches"]} launches, '
+            f'inputs {dtypes}, max rel err {worst:.2e}; ms '
+            f'{row["ms"]:.3f} (inputs widened first {row["fp32_input_ms"]:.3f})'
+            f' plain {row["plain_ms"]:.3f} lib {row["library_ms"]:.3f} bound '
+            f'{row["bound_ms"]:.3f} ({row["bound_by"]}) ({card})')
+        del wide
+    kfac.capture.close()
+    _R50_FP16_SHARED['inputs'] = (model, x, y, loss_scale)
+    del model, kfac, calls, k1, k2
+    _release()
+    return out
+
+
+def _state_tensors(state) -> dict:
+    """Clones of what an overflow-skipped step must leave as it was: the
+    parameters, the SGD momentum, every ``kfac_state`` tensor and the
+    model's buffers."""
+    import torch
+
+    def flat(tree, out):
+        if isinstance(tree, torch.Tensor):
+            out.append(tree.detach().clone())
+        elif isinstance(tree, dict):
+            for k in sorted(tree, key=str):
+                flat(tree[k], out)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                flat(v, out)
+        return out
+
+    return {'params': flat(list(state.model.parameters()), []),
+            'momentum': flat([s.get('momentum_buffer') for s in
+                              state.optimizer.state.values()], []),
+            'kfac_state': flat({k: v for k, v in state.kfac_state.items()
+                                if k != 'step'}, []),
+            'buffers': flat(list(state.model.buffers()), []),
+            'kfac_step': state.kfac_state['step']}
+
+
+def _scaler_log(res) -> str:
+    return ', '.join(f'{r["scale"]:g}{"!" if r["overflow"] else ""}'
+                     for r in res['scaler'])
+
+
+def _fp16_launch_plan(res, per_step: dict) -> dict:
+    """The launches of a run that skipped its overflow steps: the per-step
+    plan times the steps that ran their K-FAC step."""
+    ran = sum(not r['overflow'] for r in res['scaler'])
+    plan = {k: v * ran for k, v in per_step.items()}
+    plan.setdefault('ns_inverse', 0)
+    plan.setdefault('jacobi_eigh', 0)
+    return plan
+
+
+def run_resnet50_fp16(card: str, r50: dict | None,
+                      r50_auto: dict | None) -> dict:
+    """Phase 34 (see the module docstring)."""
+    import os
+
+    import torch
+    import torch.nn.functional as F
+    from distributed_kfac_pytorch_tpu_torch import train_imagenet_resnet
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
+    from distributed_kfac_pytorch_tpu_torch.training import engine
+    t0 = time.perf_counter()
+    _release()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    res = train_imagenet_resnet.train(
+        _r50_config(epochs=FP16_STEPS, fp16=True), device='cuda')
+    launches = dict(kernels.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    state = res.pop('state')
+    losses, n = res['losses'], res['steps']
+    log(f'  losses: {[round(v, 4) for v in losses]}')
+    log(f'  loss scale per step (! = overflow, skipped): {_scaler_log(res)}')
+    if n != FP16_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f'fp16 R-50: {n} steps, losses {losses}')
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not last < first:
+        raise AssertionError(f'fp16 R-50: loss did not decrease: first '
+                             f'three {first:.4f}, last three {last:.4f}')
+    if [i for i, f in enumerate(res['fired']) if f == 'inverse'] != [
+            0, R50_FIRE_EVERY]:
+        raise AssertionError(f'fp16 R-50: fired {res["fired"]}')
+    expected = _fp16_launch_plan(res, R50_PER_STEP)
+    if launches != expected:
+        raise AssertionError(f'fp16 R-50: launches {launches}, expected '
+                             f'{expected}')
+    if any(p.dtype != torch.float32 for p in state.model.parameters()):
+        raise AssertionError('fp16 R-50: a parameter is not fp32')
+    firing, plain = _step_ms(res)
+    clean_over = [r['overflow'] for r in res['scaler']]
+    summary = {'losses': losses, 'scaler': res['scaler'],
+               'loss_first3': first, 'loss_last3': last,
+               'launches': launches, 'firing_ms': firing,
+               'step0_ms': res['step_ms'][0], 'nonfiring_ms': plain,
+               'nonfiring_ms_median': statistics.median(plain),
+               'peak_gib': peak}
+    log(f'  loss first three {first:.4f} -> last three {last:.4f}; launches '
+        f'{launches}')
+    ref6 = (f'{r50["nonfiring_ms_median"]:.2f} / {r50["firing_ms"]}'
+            if r50 else 'not run')
+    ref7 = (f'{statistics.median(r50_auto["nonfiring_ms"]):.2f}, peak '
+            f'{r50_auto["peak_gib"]:.2f} GiB' if r50_auto else 'not run')
+    log(f'  ms/step: non-firing {summary["nonfiring_ms_median"]:.2f} (median '
+        f'of {len(plain)}), firing {[round(t, 1) for t in firing]} (step 0: '
+        f'{res["step_ms"][0]:.1f}); peak {peak:.2f} GiB above the baseline; '
+        f'fp32 phase 6 (newton) non-firing / firing {ref6}, phase 7 (auto) '
+        f'non-firing {ref7} ({card})')
+    del state, res
+    _release()
+
+    # The same run with the nan-batch fault: step FP16_CHAOS_STEP skipped.
+    snaps: dict = {}
+    real = engine.train_step
+
+    def watched(state, x, y, hyper, flags, *args, **kw):
+        if state.step == FP16_CHAOS_STEP:
+            snaps['before'] = _state_tensors(state)
+        out = real(state, x, y, hyper, flags, *args, **kw)
+        if state.step == FP16_CHAOS_STEP:
+            snaps['after'] = _state_tensors(state)
+        return out
+
+    engine.train_step = watched
+    os.environ['KFAC_CHAOS'] = f'nan-batch@{FP16_CHAOS_STEP}'
+    try:
+        kernels.reset_launches()
+        res = train_imagenet_resnet.train(
+            _r50_config(epochs=FP16_CHAOS_STEPS, fp16=True), device='cuda')
+    finally:
+        engine.train_step = real
+        del os.environ['KFAC_CHAOS']
+    launches = dict(kernels.LAUNCHES)
+    res.pop('state')
+    losses, scaler = res['losses'], res['scaler']
+    log(f'  KFAC_CHAOS=nan-batch@{FP16_CHAOS_STEP}: losses '
+        f'{[round(v, 4) for v in losses]}; scale {_scaler_log(res)}')
+    # The poisoned step overflows, and only the steps the clean run's
+    # scale schedule skipped besides it.
+    over = [r['overflow'] for r in scaler]
+    want = [o or i == FP16_CHAOS_STEP
+            for i, o in enumerate(clean_over[:FP16_CHAOS_STEPS])]
+    if over != want:
+        raise AssertionError(f'nan-batch: overflow steps {over}, expected '
+                             f'{want}')
+    if scaler[FP16_CHAOS_STEP + 1]['scale'] != \
+            scaler[FP16_CHAOS_STEP]['scale'] / 2:
+        raise AssertionError(f'nan-batch: the scale did not halve: {scaler}')
+    if not all(math.isfinite(v) for i, v in enumerate(losses)
+               if i != FP16_CHAOS_STEP):
+        raise AssertionError(f'nan-batch: losses {losses}')
+    before, after = snaps['before'], snaps['after']
+    held = {}
+    for key in ('params', 'momentum', 'kfac_state', 'buffers'):
+        same = sum(torch.equal(a, b) for a, b in zip(before[key],
+                                                     after[key]))
+        held[key] = f'{same}/{len(before[key])}'
+        if same != len(before[key]) or not before[key]:
+            raise AssertionError(f'nan-batch: {key} moved at the skipped '
+                                 f'step ({held[key]} tensors equal)')
+    if after['kfac_step'] != before['kfac_step'] + 1:
+        raise AssertionError('nan-batch: kfac_state step did not advance')
+    expected = _fp16_launch_plan(res, R50_PER_STEP)
+    if launches != expected:
+        raise AssertionError(f'nan-batch: launches {launches}, expected '
+                             f'{expected}')
+    log(f'  step {FP16_CHAOS_STEP} skipped: bit for bit before / after '
+        f'(tensors equal) {held}; kfac_state step '
+        f'{before["kfac_step"]} -> {after["kfac_step"]}; launches '
+        f'{launches}')
+    summary['chaos'] = {'losses': losses, 'scaler': scaler, 'held': held,
+                        'launches': launches}
+    _add(summary['launches'], launches)
+    del snaps, before, after, res
+    _release()
+
+    # KFAC(nonfinite_guard=True) on a poisoned capture, directly, on phase
+    # 3's model, batch and scale.
+    dev = torch.device('cuda')
+    model, x, y, scale = _R50_FP16_SHARED.pop('inputs')
+    scale = torch.tensor(scale, device=dev)
+    bad = x.clone()
+    bad[0, 0, 0, 0] = float('nan')
+    guard = {}
+    for guarded in (True, False):
+        kf = KFAC(model, device=dev, nonfinite_guard=guarded)
+        _, _, grads, caps = kf.capture.loss_and_grads(
+            lambda out: F.cross_entropy(out, y), x, loss_scale=scale)
+        _, st = kf.step(kf.init_state(), grads, caps, factor_update=True,
+                        inv_update=False)
+        _, _, grads, caps = kf.capture.loss_and_grads(
+            lambda out: F.cross_entropy(out, y), bad, loss_scale=scale)
+        _, st2 = kf.step(st, grads, caps, factor_update=True,
+                         inv_update=False)
+        pairs = [(st['factors'][n][s], st2['factors'][n][s])
+                 for n in st['factors'] for s in 'AG']
+        guard[guarded] = {
+            'equal': sum(torch.equal(a, b) for a, b in pairs),
+            'finite': sum(bool(torch.isfinite(b).all()) for _, b in pairs),
+            'factors': len(pairs)}
+        kf.capture.close()
+        del kf, st, st2, grads, caps, pairs
+    log(f'  nonfinite_guard on a poisoned capture: guarded {guard[True]}, '
+        f'unguarded {guard[False]}')
+    if guard[True]['equal'] != guard[True]['factors'] or \
+            guard[False]['finite'] == guard[False]['factors']:
+        raise AssertionError(f'nonfinite_guard: {guard}')
+    summary['guard'] = {str(k): v for k, v in guard.items()}
+    del model, x, y, bad
+    _release()
+    summary['seconds'] = time.perf_counter() - t0
+    log(f'  phase 34: {summary["seconds"]:.1f} s wall')
+    return summary
+
+
+def run_transformer_xl_fp16(card: str, xl: dict | None) -> dict:
+    """Phase 35 (see the module docstring)."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch import train_language_model
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    res = train_language_model.train(
+        _xl_config(nlayers=FP16_XL_LAYERS, max_steps=FP16_XL_STEPS,
+                   fp16=True), device='cuda')
+    launches = dict(kernels.LAUNCHES)
+    state = res.pop('state')
+    losses, n = res['losses'], res['steps']
+    log(f'  losses: {[round(v, 4) for v in losses]}; scale '
+        f'{_scaler_log(res)}')
+    if n != FP16_XL_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f'fp16 XL: {n} steps, losses {losses}')
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not last < first:
+        raise AssertionError(f'fp16 XL: loss did not decrease: first three '
+                             f'{first:.4f}, last three {last:.4f}')
+    if res['fired'].count('inverse') != 1:
+        raise AssertionError(f'fp16 XL: fired {res["fired"]}')
+    # Phase 15's plan at FP16_XL_LAYERS blocks: K1 on the 6 Linears' two
+    # sides per block and the embedding's G, K3 on the three buckets.
+    expected = _fp16_launch_plan(res, {
+        **XL_PER_STEP, 'factor_ema': 12 * FP16_XL_LAYERS + 1})
+    if launches != expected:
+        raise AssertionError(f'fp16 XL: launches {launches}, expected '
+                             f'{expected}')
+    plain = res['step_ms'][1:]
+    summary = {'layers': FP16_XL_LAYERS, 'losses': losses,
+               'scaler': res['scaler'], 'launches': launches,
+               'step0_ms': res['step_ms'][0], 'nonfiring_ms': plain,
+               'nonfiring_ms_median': statistics.median(plain),
+               'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30}
+    ref = (f'{xl["nonfiring_ms_median"]:.2f} ms, peak {xl["peak_gib"]:.1f} '
+           'GiB' if xl else 'not run')
+    log(f'  loss first three {first:.4f} -> last three {last:.4f}; launches '
+        f'{launches}')
+    log(f'  ms/step: non-firing {summary["nonfiring_ms_median"]:.2f} (median '
+        f'of {len(plain)}), firing step 0 {res["step_ms"][0]:.1f}; peak '
+        f'{summary["peak_gib"]:.1f} GiB; fp32 phase 15 non-firing {ref} '
+        f'({card})')
+    del state, res
+    _release()
+    summary['seconds'] = time.perf_counter() - t0
+    log(f'  phase 35: {summary["seconds"]:.1f} s wall')
+    return summary
+
+
+def _bf16_model_run(label: str, model, x, y, kfac_kw: dict,
+                    per_step: dict, ref: dict | None, card: str) -> dict:
+    """``BF16_MODEL_STEPS`` ``engine.train_step`` calls on one batch (SGD
+    lr 0.1, momentum 0.9; factors every step, inverses every 10): finite,
+    falling losses, the per-step launch plan, step ms and peak memory
+    beside the fp32 phase's ``ref``."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
+    from distributed_kfac_pytorch_tpu_torch.training import engine
+    dev = x.device
+    kfac = KFAC(model, factor_update_freq=1, inv_update_freq=10,
+                device=dev, **kfac_kw)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    state = engine.TrainState(model=model, optimizer=opt, kfac=kfac,
+                              kfac_state=kfac.init_state())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, ms = [], []
+    for step in range(BF16_MODEL_STEPS):
+        flags = engine.cadence_flags(step, 1, 10)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, _ = engine.train_step(state, x, y, {'lr': 0.1}, flags)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+        state.step += 1
+    launches = dict(kernels.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    log(f'  {label}: losses {[round(v, 4) for v in losses]}')
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f'{label}: losses {losses}')
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not last < first:
+        raise AssertionError(f'{label}: loss did not decrease: first three '
+                             f'{first:.4f}, last three {last:.4f}')
+    expected = {k: v * BF16_MODEL_STEPS for k, v in per_step.items()}
+    if launches != expected:
+        raise AssertionError(f'{label}: launches {launches}, expected '
+                             f'{expected}')
+    out = {'losses': losses, 'launches': launches, 'step_ms': ms,
+           'nonfiring_ms_median': statistics.median(ms[1:]),
+           'step0_ms': ms[0], 'peak_gib': peak}
+    fp32 = (f'{ref["nonfiring_ms_median"]:.2f} ms'
+            + (f', peak {ref["peak_gib"]:.2f} GiB' if 'peak_gib' in ref
+               else '') if ref else 'not run')
+    log(f'  {label}: loss first three {first:.4f} -> last three {last:.4f}; '
+        f'launches {launches}; ms/step non-firing '
+        f'{out["nonfiring_ms_median"]:.2f} (median of {len(ms) - 1}), firing '
+        f'step 0 {ms[0]:.1f}; peak {peak:.2f} GiB; fp32 {fp32} ({card})')
+    kfac.capture.close()
+    return out
+
+
+def run_bf16_models(card: str, mb: dict | None, vit_ref: dict | None
+                    ) -> dict:
+    """Phase 36 (see the module docstring)."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.models import mobilenet, vit
+    t0 = time.perf_counter()
+    dev = torch.device('cuda')
+    out = {}
+    for key, label, build, px, batch, per_step, ref in (
+            ('mobilenet', 'MobileNetV1 bf16', lambda: mobilenet.get_model(
+                1000, dtype=torch.bfloat16), MB_PX, MB_BATCH, MB_PER_STEP,
+             mb),
+            ('vit', 'ViT-S/16 bf16', lambda: vit.get_model(
+                1000, 'small', image_size=VIT_PX, dtype=torch.bfloat16),
+             VIT_PX, VIT_BATCH, VIT_PER_STEP, vit_ref)):
+        _release()
+        x, y = _fixed_batch(batch, px, dev)
+        with torch.random.fork_rng(devices=[dev]):
+            torch.manual_seed(0)
+            model = build().to(dev)
+        kw = {'damping': MB_DAMPING, 'lr': MB_LR, 'kl_clip': 0.001}
+        out[key] = _bf16_model_run(label, model, x, y, kw, per_step, ref,
+                                   card)
+        del model, x, y
+    _release()
+    out['launches'] = {}
+    for key in ('mobilenet', 'vit'):
+        _add(out['launches'], out[key]['launches'])
+    out['seconds'] = time.perf_counter() - t0
+    log(f'  phase 36: {out["seconds"]:.1f} s wall')
+    return out
+
+
+#: The half-precision paths ``--profile`` adds, each beside its fp32 twin
+#: (``profile_main_path``).
+PROFILE_HALF = ('resnet50_fp16', 'vit_small', 'vit_small_bf16',
+                'transformer_xl_fp16')
+
+
+def run_fp16_phases(card: str, refs: dict) -> dict:
+    """Phases 34-36; ``refs`` holds the fp32 phases' summaries they print
+    beside theirs (None in ``--fp16-only``)."""
+    log(f'== ResNet-50 --fp16 through the ImageNet CLI, 224 px, batch '
+        f'{R50_BATCH}, auto, {FP16_STEPS} steps on one batch; then '
+        f'KFAC_CHAOS=nan-batch@{FP16_CHAOS_STEP} over {FP16_CHAOS_STEPS} '
+        'steps; then KFAC(nonfinite_guard=True) on a poisoned capture')
+    out = {'resnet50_fp16': run_resnet50_fp16(
+        card, refs.get('resnet50_newton'), refs.get('resnet50_auto'))}
+    log(f'== Transformer-XL LM --fp16 (d {XL_D}, {FP16_XL_LAYERS} blocks, '
+        f'vocabulary {XL_VOCAB}, tied), BPTT {XL_BPTT}, batch {XL_BATCH}, '
+        f'auto, {FP16_XL_STEPS} steps, one firing')
+    out['transformer_xl_fp16'] = run_transformer_xl_fp16(
+        card, refs.get('transformer_xl'))
+    log(f'== bf16 activations: MobileNetV1 ({MB_PX} px) and ViT-S/16 '
+        f'({VIT_PX} px) at torch.bfloat16, batch {MB_BATCH}, '
+        f'{BF16_MODEL_STEPS} steps each')
+    out['bf16_models'] = run_bf16_models(
+        card, refs.get('mobilenet'), (refs.get('vit') or {}).get('auto'))
+    return out
+
+
 def _category(name: str) -> str:
     """Coarse owner of a CUDA kernel, from its (mangled) name."""
     n = name.lower()
@@ -5433,26 +6074,43 @@ def profile_main_path(which: str = 'resnet32', steps: int = 5,
     """torch.profiler over ``steps`` steady non-firing steps and one firing
     step of the ResNet-32 path, the ResNet-50 ``newton`` path, the LSTM
     LM ``jacobi`` path, the Transformer-XL path of phase 15 or phase 23's
-    config 5 with bf16 or fp32 factors (``which``: 'resnet32',
-    'resnet50', 'lstm', 'transformer_xl', 'resnet152', 'resnet152_fp32';
-    ``xl_over``: LM CLI options over phase 15's): device time by kernel
-    category and the device's busy share (kernel time / wall time of the
-    profiled window)."""
+    config 5 with bf16 or fp32 factors, or ViT-S/16 at phase 33's shapes
+    (``which``: 'resnet32', 'resnet50', 'lstm', 'transformer_xl',
+    'resnet152', 'resnet152_fp32', 'vit_small'; 'resnet50_fp16' and
+    'transformer_xl_fp16' under ``--fp16``'s compute dtype and dynamic
+    loss scale, 'vit_small_bf16' at bf16 activations; ``xl_over``: LM CLI
+    options over phase 15's): device time by kernel category and the
+    device's busy share (kernel time / wall time of the profiled
+    window)."""
     import functools
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from distributed_kfac_pytorch_tpu_torch import train_language_model
+    from distributed_kfac_pytorch_tpu_torch import fp16, \
+        train_language_model
     from distributed_kfac_pytorch_tpu_torch.models import cifar_resnet, \
-        imagenet_resnet, lstm_lm
+        imagenet_resnet, lstm_lm, vit
     from distributed_kfac_pytorch_tpu_torch.training import datasets, \
         engine, optimizers, utils
     dev = torch.device('cuda')
     gen = None
+    half = which.endswith('_fp16')
+    if half:
+        which = which[:-len('_fp16')]
+        xl_over = {**xl_over, 'fp16': True}
     lm = which in ('lstm', 'transformer_xl')
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
-        if which == 'transformer_xl':
+        if which.startswith('vit_small'):
+            x, y = _fixed_batch(VIT_BATCH, VIT_PX, dev)
+            model = vit.get_model(1000, 'small', image_size=VIT_PX, dtype=(
+                torch.bfloat16 if which.endswith('bf16')
+                else torch.float32)).to(dev)
+            cfg = optimizers.OptimConfig(
+                base_lr=0.1, weight_decay=5e-5, damping=0.003,
+                kfac_inv_update_freq=10, kfac_cov_update_freq=1)
+            criterion = torch.nn.functional.cross_entropy
+        elif which == 'transformer_xl':
             args = engine.parse_args(train_language_model.build_parser(),
                                      _xl_config(**xl_over))
             x, y = _xl_first_window()
@@ -5477,7 +6135,8 @@ def profile_main_path(which: str = 'resnet32', steps: int = 5,
             gen.manual_seed(0)
         elif which == 'resnet50':
             (x, y), _ = datasets.get_imagenet(synthetic_size=R50_BATCH)
-            model = imagenet_resnet.get_model('resnet50').to(dev)
+            model = imagenet_resnet.get_model('resnet50', dtype=(
+                torch.float16 if half else torch.float32)).to(dev)
             cfg = optimizers.OptimConfig(
                 base_lr=R50_LR, weight_decay=5e-5, damping=0.001,
                 inverse_method='newton', kfac_inv_update_freq=10,
@@ -5501,8 +6160,10 @@ def profile_main_path(which: str = 'resnet32', steps: int = 5,
                                          kfac_cov_update_freq=1)
             criterion = torch.nn.functional.cross_entropy
     optimizer, _, kfac, sched = optimizers.get_optimizer(model, cfg, dev)
-    state = engine.TrainState(model=model, optimizer=optimizer, kfac=kfac,
-                              kfac_state=kfac.init_state())
+    state = engine.TrainState(
+        model=model, optimizer=optimizer, kfac=kfac,
+        kfac_state=kfac.init_state(),
+        loss_scale=fp16.init_loss_scale(device=dev) if half else None)
     hyper = {'lr': cfg.base_lr, **sched.params()}
     xb = torch.as_tensor(x, device=dev)
     yb = torch.as_tensor(y, device=dev)
@@ -5534,6 +6195,7 @@ def profile_main_path(which: str = 'resnet32', steps: int = 5,
             wall_ms = (time.perf_counter() - t0) * 1e3 / n
         cats: dict[str, float] = {}
         k5: dict[str, float] = {}
+        other: dict[str, float] = {}
         kernels_ms = 0.0
         for ev in prof.key_averages():
             dt = getattr(ev, 'self_device_time_total', None)
@@ -5543,6 +6205,8 @@ def profile_main_path(which: str = 'resnet32', steps: int = 5,
                 continue
             ms = dt / 1e3 / n
             cats[_category(ev.key)] = cats.get(_category(ev.key), 0.0) + ms
+            if _category(ev.key).startswith('elementwise'):
+                other[ev.key[:90]] = other.get(ev.key[:90], 0.0) + ms
             kernels_ms += ms
             for part in ('round', 'cluster', 'vlog'):
                 if f'jacobi_{part}' in ev.key:
@@ -5552,11 +6216,15 @@ def profile_main_path(which: str = 'resnet32', steps: int = 5,
                       'device_busy_share': kernels_ms / wall_ms,
                       'by_category_ms': dict(sorted(
                           cats.items(), key=lambda kv: -kv[1])),
-                      'k5_by_kernel_ms': k5}
+                      'k5_by_kernel_ms': k5,
+                      'elementwise_top_ms': dict(sorted(
+                          other.items(), key=lambda kv: -kv[1])[:12])}
         log(f'  {label}: wall {wall_ms:.2f} ms/step, device kernels '
             f'{kernels_ms:.2f} ms/step, busy {kernels_ms / wall_ms:.1%}')
         for cat, ms in out[label]['by_category_ms'].items():
             log(f'    {cat:45s} {ms:8.3f} ms')
+        for key, ms in list(out[label]['elementwise_top_ms'].items())[:8]:
+            log(f'      elementwise: {key[:70]:70s} {ms:8.3f} ms')
         if k5:
             log('    K5 by kernel (round: streaming, cluster: A, vlog: V): '
                 + ', '.join(f'{k} {ms:.3f} ms' for k, ms in k5.items()))
@@ -5578,6 +6246,9 @@ def main(argv=None) -> int:
     ap.add_argument('--models-only', action='store_true',
                     help="build, then run phase 3's ViT-S and MobileNetV1 "
                          'cases and phases 32-33 only (no result line)')
+    ap.add_argument('--fp16-only', action='store_true',
+                    help="build, then run phase 3's fp16 ResNet-50 cases "
+                         'and phases 34-36 only (no result line)')
     ap.add_argument('--determinism-probe', action='store_true',
                     help="build, then measure what phase 27's "
                          '--deterministic buys and costs (no result '
@@ -5624,6 +6295,17 @@ def main(argv=None) -> int:
             json.dumps(report, indent=1))
         log('done')
         return 0
+    if args.fp16_only:
+        log("== kernels K1, K2 vs plain versions: the ResNet-50 --fp16 "
+            "step's own captures")
+        report = {'card': card, 'fp16_inputs': check_fp16_inputs(card)}
+        report.update(run_fp16_phases(card, {}))
+        out_dir = ROOT / 'chiprun_out'
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / 'chip_smoke_fp16.json').write_text(
+            json.dumps(report, indent=1))
+        log('done')
+        return 0
     if args.models_only:
         report = {'card': card}
         for label, key, kw in _MODEL_KERNEL_CHECKS:
@@ -5656,6 +6338,9 @@ def main(argv=None) -> int:
     summary32, details = check_kernels(args.quick)
     log('== kernels K1-K3 vs plain versions: ResNet-50 shapes')
     summary50, details50 = check_kernels(args.quick, resnet50_shapes())
+    log("== kernels K1, K2 vs plain versions: the ResNet-50 --fp16 step's "
+        'own captures')
+    fp16_inputs = check_fp16_inputs(card)
     log('== kernel K3 vs plain version: LSTM LM bucket')
     summary_lm, details_lm = check_kernels(args.quick, lstm=True)
     log('== kernels K1, K3 vs plain versions: Transformer-XL shapes')
@@ -5672,7 +6357,8 @@ def main(argv=None) -> int:
     log('== kernel K4 (Newton-Schulz inverse) vs plain version')
     summary_ns, details_ns = check_ns_inverse(args.quick)
     log('== kernel K5 (Jacobi eigh) vs plain version')
-    summary_jac, summary_jac32, details_jac = check_jacobi_eigh(args.quick)
+    summary_jac, summary_jac32, details_jac, jac_edges = check_jacobi_eigh(
+        args.quick, defer_edges=not args.quick)
     report = {'card': card,
               'kernel_cases': (details + details50 + details_lm
                                + details_xl + details152
@@ -5688,7 +6374,8 @@ def main(argv=None) -> int:
               'per_step_resnet152_config5': summary152,
               'per_firing_resnet50_ns_inverse': summary_ns,
               'per_firing_lstm_jacobi_eigh': summary_jac,
-              'per_firing_resnet32_jacobi_eigh': summary_jac32}
+              'per_firing_resnet32_jacobi_eigh': summary_jac32,
+              'fp16_inputs': fp16_inputs}
     if not args.quick:
         log('== main path: ResNet-32, batch 128, '
             f'{STEPS} K-FAC steps on one batch')
@@ -5715,10 +6402,13 @@ def main(argv=None) -> int:
         log(f'== distributed: ResNet-50 as phase 6 in a one-rank NCCL '
             f'group, comm-opt, {R50_STEPS} steps')
         report['resnet50_nccl_world1'] = run_resnet50_nccl(card, r50)
-        log(f'== distributed: ResNet-32, {GLOO_WORLD} ranks on one card over '
-            f'gloo, global batch {GLOO_BATCH}, BatchNorm eval, '
-            f'{len(GLOO_CASES)} mesh cases x {GLOO_STEPS} steps')
-        report['gloo_world'] = run_gloo_world(card)
+        log(f'== phases 14, 24 and 26 and phase 31\'s world at once, each '
+            f'{GLOO_WORLD} gloo ranks of ResNet-32 on the card (their lines '
+            'in that order)')
+        (report['gloo_world'], report['bf16_gloo_world'],
+         report['overlap_gloo_world'], accum_world) = at_once(
+            (run_gloo_world, card), (run_bf16_gloo_world, card),
+            (run_overlap_gloo_world, card), (run_accum_gloo_world, card))
         log(f'== main path: Transformer-XL LM (d {XL_D}, {XL_LAYERS} blocks, '
             f'vocabulary {XL_VOCAB}, tied), BPTT {XL_BPTT}, batch '
             f'{XL_BATCH}, auto, {XL_STEPS} steps on one batch')
@@ -5743,9 +6433,12 @@ def main(argv=None) -> int:
         report['transformer_xl_chunked'] = run_transformer_xl_chunked(
             card, report['transformer_xl'])
         log(f'== phases 20 and 22 at once, each {GLOO_WORLD} gloo ranks on '
-            'the card (phase 22\'s lines after phase 20\'s)')
-        report['lm_gloo_world'], report['seq_gloo_world'] = at_once(
-            (run_lm_gloo_world, card), (run_seq_gloo_world, card))
+            'the card, and phase 8\'s K5 edge cases (in that order)')
+        report['lm_gloo_world'], report['seq_gloo_world'], edge_rows = \
+            at_once((run_lm_gloo_world, card), (run_seq_gloo_world, card),
+                    (check_jacobi_edges, jac_edges))
+        report['kernel_cases'] += edge_rows
+        del jac_edges
         log(f'== tracked config 5: ResNet-152, 224 px, batch {R50_BATCH}, '
             f'--bf16-factors --inverse-method eigen, {R152_STEPS} steps on '
             f'one batch; {R152_SHORT_STEPS} steps with fp32 factors and with '
@@ -5753,10 +6446,6 @@ def main(argv=None) -> int:
             f'flags, {R152_SHORT_STEPS} steps')
         report['resnet152_config5'] = run_resnet152_config5(
             card, r152, report['transformer_xl'])
-        log(f'== distributed, bf16: ResNet-32, {GLOO_WORLD} ranks on one '
-            'card over gloo, --bf16-factors --bf16-inverses --bf16-precond, '
-            f'3 mesh cases x {GLOO_STEPS} steps')
-        report['bf16_gloo_world'] = run_bf16_gloo_world(card)
         log(f'== the firing schedule at config 5: {SCHEDULE_CHUNKS} chunks, '
             f'{SCHEDULE_STEPS} steps; with --inv-staleness 1; ResNet-50 '
             f'newton in chunks; --factor-batch-fraction {FRACTION}, '
@@ -5766,14 +6455,10 @@ def main(argv=None) -> int:
         report['firing_schedule'] = run_firing_schedule(
             card, r152, report['resnet152_config5'],
             {k: summary152[k]['ms'] for k in ('factor_ema', 'patch_cov')})
-        log(f'== distributed firing schedule: ResNet-32, {GLOO_WORLD} ranks '
-            f'on one card over gloo, chunks 2, staleness 1, deferred '
-            f'reduction, {len(OVERLAP_GLOO_CASES)} cases x {OVERLAP_STEPS} '
-            'steps')
-        report['overlap_gloo_world'] = run_overlap_gloo_world(card)
         report.update(run_resume_phases(card))
-        report.update(run_accum_phases(card))
+        report.update(run_accum_phases(card, accum_world))
         report.update(run_model_phases(card))
+        report.update(run_fp16_phases(card, report))
         runs = (main_summary, r50, report['resnet50_auto'],
                 report['lstm_jacobi'], report['lm_defaults'],
                 report['resnet32_jacobi'], report['resnet50_nccl_world1'],
@@ -5789,7 +6474,8 @@ def main(argv=None) -> int:
                 report['resume_gloo_world'], report['grad_accum'],
                 report['remat'], report['precise_bn'],
                 report['accum_gloo_world'], report['mobilenet'],
-                report['vit'])
+                report['vit'], report['resnet50_fp16'],
+                report['transformer_xl_fp16'], report['bf16_models'])
         launches = {name: sum(r['launches'].get(name, 0) for r in runs)
                     for name in kernels.LAUNCHES}
         aggs = {**summary50, 'ns_inverse': summary_ns,
@@ -5855,6 +6541,15 @@ def main(argv=None) -> int:
                         'bound_by': 'bytes' if t_b >= t_o else 'operations',
                         'library_ms': agg_m['library_ms'],
                         'fp32_bound_ms': agg_m['fp32_bound_ms']}
+            # K1 and K2 per ResNet-50 --fp16 step, on its own captures.
+            agg16 = fp16_inputs.get(name)
+            if agg16:
+                entry['resnet50_fp16'] = {
+                    'per': 'step', 'launches': agg16['launches'],
+                    'input_dtypes': agg16['input_dtypes'],
+                    **{k: agg16[k] for k in (
+                        'max_abs_err', 'ms', 'fp32_input_ms', 'plain_ms',
+                        'bound_ms', 'bound_by', 'library_ms')}}
             line.append(entry)
         report['kernels'] = line
         report['phase_walls'] = phase_walls()
@@ -5887,6 +6582,10 @@ def main(argv=None) -> int:
                 _release()
                 log('== profile: device time by kernel category, config 5 '
                     f'(ResNet-152, eigen) with {what}')
+                report[f'profile_{which}'] = profile_main_path(which)
+            for which in PROFILE_HALF:
+                _release()
+                log(f'== profile: device time by kernel category, {which}')
                 report[f'profile_{which}'] = profile_main_path(which)
     out_dir = ROOT / 'chiprun_out'
     out_dir.mkdir(exist_ok=True)

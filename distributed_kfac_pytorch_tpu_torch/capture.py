@@ -16,7 +16,11 @@ input is kept (``a``; an embedding's ids) and a tensor hook on its output
 keeps the gradient of the loss with respect to that output (``g``) -- the
 gradient of the loss as the caller defines it (a batch mean for the
 training CLI), the same scaling as the JAX package's probes. A module
-called several times in one pass gets one ``(a, g)`` pair per call.
+called several times in one pass gets one ``(a, g)`` pair per call. The
+input is read by a forward pre-hook that runs before every other one:
+``a`` is the input as the model passes it, before a compute-dtype cast
+(``modules.precision``), as the JAX package sows a module's input before
+flax casts it -- a half-precision model's stem keeps its fp32 image.
 
 Tied embeddings (``tied_embeddings=True``): torch has no method
 interceptor, so the tied in/out use must be visible as a call. An
@@ -201,6 +205,7 @@ class KFACCapture:
         self._g_tied: dict[str, list] = {}
         self._shared: dict[str, int] = {}
         self._tied_seen: dict[str, int] = {}
+        self._inputs: dict[str, torch.Tensor] = {}
         self._handles = []
         self._wrapped: list[nn.Module] = []
         self._register()
@@ -243,6 +248,8 @@ class KFACCapture:
                 self._skipped[name] = reason
                 continue
             self._specs[name] = _spec_for_module(mod, path)
+            self._handles.append(mod.register_forward_pre_hook(
+                self._make_pre_hook(name), prepend=True))
             self._handles.append(mod.register_forward_hook(
                 self._make_hook(name)))
             if self.tied_embeddings and hasattr(mod, 'attend'):
@@ -253,9 +260,8 @@ class KFACCapture:
                 a_store: dict, g_store: dict) -> bool:
         """Keep ``x`` and, through a tensor hook on ``y``, the gradient of
         the loss with respect to ``y``, as one call of ``name``; False
-        outside recording and while a rematerialized block recomputes."""
-        if (not self._recording or not torch.is_grad_enabled()
-                or getattr(_RECOMPUTE, 'depth', 0)):
+        when not :meth:`_capturing`."""
+        if not self._capturing():
             return False
         calls_a = a_store.setdefault(name, [])
         calls_g = g_store.setdefault(name, [])
@@ -268,6 +274,12 @@ class KFACCapture:
             y.register_hook(store)
         return True
 
+    def _capturing(self) -> bool:
+        """A forward call is captured: recording, grad on, and not inside
+        a rematerialized block's recomputation."""
+        return (self._recording and torch.is_grad_enabled()
+                and not getattr(_RECOMPUTE, 'depth', 0))
+
     def _cast(self, x: torch.Tensor) -> torch.Tensor:
         """A captured activation in ``capture_dtype``: an explicit dtype
         casts a floating ``x``; ``'auto'`` and None pass it through."""
@@ -276,9 +288,17 @@ class KFACCapture:
             return x
         return x.to(cd)
 
+    def _make_pre_hook(self, name: str):
+        def pre_hook(mod, inputs):
+            # Kept only for a captured call, whose forward hook pops it: a
+            # recomputation stopped early skips that hook.
+            if self._capturing():
+                self._inputs[name] = inputs[0]
+        return pre_hook
+
     def _make_hook(self, name: str):
         def hook(mod, inputs, output):
-            x = inputs[0]
+            x = self._inputs.pop(name, inputs[0])
             if self._record(name, x, output, self._a, self._g) \
                     and name not in self._shared:
                 self._shared[name] = math.prod(x.shape[1:-1])
@@ -348,7 +368,7 @@ class KFACCapture:
         return out
 
     def loss_and_grads(self, loss_fn: Callable, *args,
-                       intercept: bool = True, **kwargs):
+                       intercept: bool = True, loss_scale=None, **kwargs):
         """One forward/backward pass: ``(loss, out, grads, captures)``.
 
         ``loss_fn`` maps the model output (a tensor, or nested tuples and
@@ -357,16 +377,34 @@ class KFACCapture:
         parameter names to their gradients; ``captures`` is :meth:`collect`
         (``{}`` with ``intercept=False`` -- the non-factor steps, where the
         JAX package skips its capture machinery too).
+
+        ``loss_scale`` (a float or an fp32 device scalar; the fp16 loss
+        scaling of the JAX ``loss_and_grads``) multiplies the loss before
+        the backward pass; the loss, the gradients and the output-gradient
+        captures (``g``, ``g_tied``) come back divided by it, in fp32 (an
+        fp16 output-gradient times an fp32 device scalar would stay fp16
+        in torch, where JAX promotes it), on both the intercepting and
+        the plain path.
         """
         self.model.zero_grad(set_to_none=True)
         with self.recording(intercept):
             out = self.model(*args, **kwargs)
             loss = loss_fn(out)
-            loss.backward()
+            scaled = loss if loss_scale is None else loss.float() * loss_scale
+            scaled.backward()
         grads = {n: p.grad for n, p in self.model.named_parameters()
                  if p.grad is not None}
         captures = self.collect() if intercept else {}
-        return loss.detach(), _detach(out), grads, captures
+        loss = scaled.detach()
+        if loss_scale is not None:
+            inv = 1.0 / loss_scale
+            loss = loss * inv
+            grads = {n: g.float() * inv for n, g in grads.items()}
+            captures = {name: {k: (tuple(t.float() * inv for t in calls)
+                                   if k in ('g', 'g_tied') else calls)
+                               for k, calls in entry.items()}
+                        for name, entry in captures.items()}
+        return loss, _detach(out), grads, captures
 
     def close(self) -> None:
         """Remove the forward hooks and the ``attend`` wrappers."""

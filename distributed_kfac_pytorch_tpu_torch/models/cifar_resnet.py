@@ -10,7 +10,10 @@ K-FAC output-grad hooks see the tensors the layers produced.
 A ``gn`` suffix (``'resnet20gn'``) swaps every BatchNorm for a GroupNorm
 of 8 groups (the JAX package's stateless-normalization control), under
 the same names, with flax's epsilon ``1e-6`` (torch's default is
-``1e-5``).
+``1e-5``). ``dtype`` is the compute dtype, as the JAX model's
+(``torch.float16`` under the CLI's ``--fp16``): convs and the head
+compute in it with fp32 parameters, the norms' statistics stay fp32
+(``modules.precision.set_compute_dtype``).
 """
 
 from __future__ import annotations
@@ -20,6 +23,11 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from distributed_kfac_pytorch_tpu_torch.modules.precision import (
+    check_compute_dtype,
+    set_compute_dtype,
+)
 
 
 def _norm(planes: int, norm: str, bn_momentum: float) -> nn.Module:
@@ -59,8 +67,10 @@ class CifarResNet(nn.Module):
     """Stacked BasicBlocks over 16/32/64 planes + global-pool Linear head."""
 
     def __init__(self, num_blocks: Sequence[int], num_classes: int = 10,
-                 bn_momentum: float = 0.9, norm: str = 'batch'):
+                 bn_momentum: float = 0.9, norm: str = 'batch',
+                 dtype=torch.float32):
         super().__init__()
+        dtype = check_compute_dtype(dtype)
         self.num_blocks = tuple(num_blocks)
         self.conv1 = nn.Conv2d(3, 16, 3, padding=1, bias=False)
         self.bn1 = _norm(16, norm, bn_momentum)
@@ -81,6 +91,7 @@ class CifarResNet(nn.Module):
                 nn.init.kaiming_normal_(m.weight)
             if isinstance(m, nn.Linear):
                 nn.init.zeros_(m.bias)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
@@ -94,16 +105,18 @@ _DEPTHS = {20: (3, 3, 3), 32: (5, 5, 5), 44: (7, 7, 7), 56: (9, 9, 9),
 
 
 def resnet(depth: int, num_classes: int = 10, bn_momentum: float = 0.9,
-           norm: str = 'batch') -> CifarResNet:
+           norm: str = 'batch', dtype=torch.float32) -> CifarResNet:
     """CIFAR ResNet by depth (20/32/44/56/110/1202)."""
     if depth not in _DEPTHS:
         raise ValueError(f'unsupported CIFAR ResNet depth {depth}; '
                          f'choose from {sorted(_DEPTHS)}')
-    return CifarResNet(_DEPTHS[depth], num_classes, bn_momentum, norm)
+    return CifarResNet(_DEPTHS[depth], num_classes, bn_momentum, norm,
+                       dtype)
 
 
 def get_model(name: str, num_classes: int = 10,
-              bn_momentum: float = 0.9) -> CifarResNet:
+              bn_momentum: float = 0.9, dtype=torch.float32
+              ) -> CifarResNet:
     """Model by name, e.g. ``'resnet32'``; a ``gn`` suffix
     (``'resnet20gn'``) swaps BatchNorm for GroupNorm."""
     name = name.lower()
@@ -113,4 +126,4 @@ def get_model(name: str, num_classes: int = 10,
     if name.endswith('gn'):
         norm, name = 'group', name[:-2]
     return resnet(int(name[len('resnet'):]), num_classes, bn_momentum,
-                  norm)
+                  norm, dtype)

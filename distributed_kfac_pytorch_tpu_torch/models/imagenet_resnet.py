@@ -7,8 +7,11 @@ Submodule names mirror the flax model (``conv1``, ``bn1``,
 ``layer{stage}_block{i}.conv1..3`` / ``bn1..3`` / ``downsample_conv`` /
 ``downsample_bn``, ``fc``) so parameters convert name for name
 (``convert.py``). ReLU is never in place, so the K-FAC output-grad hooks
-see the tensors the layers produced. fp32 only: the JAX model's ``dtype``
-(bf16 / fp16 activations) is not ported.
+see the tensors the layers produced. ``dtype`` is the compute dtype, as
+the JAX model's (``torch.float16`` under the CLI's ``--fp16``,
+``torch.bfloat16``): convs and the head compute in it with fp32
+parameters, the BatchNorm statistics stay fp32
+(``modules.precision.set_compute_dtype``).
 
 ``remat=True`` rematerializes each residual block in training (the JAX
 model's ``nn.remat``): ``torch.utils.checkpoint`` (non-reentrant) keeps
@@ -31,6 +34,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from distributed_kfac_pytorch_tpu_torch.capture import recomputation
+from distributed_kfac_pytorch_tpu_torch.modules.precision import (
+    check_compute_dtype,
+    set_compute_dtype,
+)
 
 
 def _bn(planes: int, bn_momentum: float) -> nn.BatchNorm2d:
@@ -132,10 +139,7 @@ class ImageNetResNet(nn.Module):
                  width: int = 64, bn_momentum: float = 0.9,
                  remat: bool = False):
         super().__init__()
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                f'ImageNetResNet(dtype={dtype}) is not ported yet (fp32 '
-                'only)')
+        dtype = check_compute_dtype(dtype)
         self.remat = bool(remat)
         self.stage_sizes = tuple(stage_sizes)
         self.conv1 = nn.Conv2d(3, width, 7, stride=2, padding=3, bias=False)
@@ -159,6 +163,7 @@ class ImageNetResNet(nn.Module):
                 nn.init.kaiming_normal_(m.weight)
             if isinstance(m, nn.Linear):
                 nn.init.zeros_(m.bias)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.pool(F.relu(self.bn1(self.conv1(x))))

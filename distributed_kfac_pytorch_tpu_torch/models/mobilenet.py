@@ -11,8 +11,10 @@ capture registers as ``conv2d_grouped`` (per-group block-diagonal
 factors); the stem, the pointwise convs and the head are dense layers.
 Submodule names mirror the flax model (``conv1``, ``bn1``,
 ``block{i}.dw`` / ``bn_dw`` / ``pw`` / ``bn_pw``, ``fc``) so parameters
-convert name for name (``convert.py``). fp32 only: the JAX model's
-``dtype`` (bf16 activations) is not ported.
+convert name for name (``convert.py``). ``dtype`` is the compute dtype,
+as the JAX model's (its bench runs ``bfloat16`` activations): the convs
+and the head compute in it with fp32 parameters, the BatchNorm
+statistics stay fp32 (``modules.precision.set_compute_dtype``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from distributed_kfac_pytorch_tpu_torch.modules.precision import (
+    check_compute_dtype,
+    set_compute_dtype,
+)
 
 # (pointwise out-planes, depthwise stride) per separable block: the
 # paper's 13-block body (Table 1): 64, 128x2, 256x2, 512x6, 1024x2.
@@ -56,9 +63,7 @@ class MobileNetV1(nn.Module):
     def __init__(self, num_classes: int = 1000, width_mult: float = 1.0,
                  dtype=torch.float32, bn_momentum: float = 0.9):
         super().__init__()
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                f'MobileNetV1(dtype={dtype}) is not ported yet (fp32 only)')
+        dtype = check_compute_dtype(dtype)
 
         def w(planes: int) -> int:
             return max(8, int(planes * width_mult))
@@ -78,6 +83,7 @@ class MobileNetV1(nn.Module):
                 nn.init.kaiming_normal_(m.weight)
             if isinstance(m, nn.Linear):
                 nn.init.zeros_(m.bias)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
@@ -87,6 +93,7 @@ class MobileNetV1(nn.Module):
 
 
 def get_model(num_classes: int = 1000, width_mult: float = 1.0,
-              bn_momentum: float = 0.9) -> MobileNetV1:
+              bn_momentum: float = 0.9, dtype=torch.float32
+              ) -> MobileNetV1:
     return MobileNetV1(num_classes=num_classes, width_mult=width_mult,
-                       bn_momentum=bn_momentum)
+                       dtype=dtype, bn_momentum=bn_momentum)

@@ -23,8 +23,11 @@ over K/V blocks of that many tokens on one device
 and runs attention as a ring (``ring_self_attention``): each rank passes
 its contiguous block of ids and its first position as ``pos_offset``. The
 two are exclusive. :func:`whole_sequences` runs a ring model over whole
-sequences on each rank (the JAX CLI's evaluation twin). Not ported yet:
-reduced-precision compute.
+sequences on each rank (the JAX CLI's evaluation twin). ``dtype`` is the
+compute dtype, as the JAX model's (``torch.float16`` under the CLI's
+``--fp16``): the embedding, the Linears and the tied attend compute in it
+with fp32 parameters, while the LayerNorm statistics and the attention
+scores and softmax stay fp32 (``modules.precision.set_compute_dtype``).
 """
 
 from __future__ import annotations
@@ -37,6 +40,10 @@ from torch import nn
 
 from distributed_kfac_pytorch_tpu_torch.modules.embed import Embed
 from distributed_kfac_pytorch_tpu_torch.modules.lstm import dense, dropout
+from distributed_kfac_pytorch_tpu_torch.modules.precision import (
+    check_compute_dtype,
+    set_compute_dtype,
+)
 from distributed_kfac_pytorch_tpu_torch.parallel.sequence import (
     chunked_causal_attention,
     local_causal_attention,
@@ -129,8 +136,10 @@ class TransformerLM(nn.Module):
                  num_layers: int = 6, num_heads: int = 8,
                  max_len: int = 2048, dropout: float = 0.1,
                  tie_weights: bool = True, mlp_ratio: int = 4,
-                 attn_block_size: int | None = None, seq_group=None):
+                 attn_block_size: int | None = None, seq_group=None,
+                 dtype=torch.float32):
         super().__init__()
+        dtype = check_compute_dtype(dtype)
         self.dropout = dropout
         self.tie_weights = tie_weights
         self.num_layers = num_layers
@@ -144,12 +153,14 @@ class TransformerLM(nn.Module):
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)
         if not tie_weights:
             self.decoder = dense(d_model, vocab_size)
+        set_compute_dtype(self, dtype)
 
     def forward(self, ids: torch.Tensor, *, pos_offset: int = 0,
                 dropout_generator: torch.Generator | None = None
                 ) -> torch.Tensor:
         pos = self.pos_embed[pos_offset:pos_offset + ids.shape[-1]]
-        x = self.embed(ids) + pos.to(self.embed.weight.dtype)
+        x = self.embed(ids)
+        x = x + pos.to(x.dtype)
         x = dropout(x, self.dropout, self.training, dropout_generator)
         for i in range(self.num_layers):
             x = getattr(self, f'block{i}')(x, dropout_generator)

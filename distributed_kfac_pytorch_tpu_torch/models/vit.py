@@ -20,7 +20,11 @@ padding). Names mirror the flax model (``patch_embed``, ``cls_token``,
 ``pos_embed``, ``block{i}``, ``ln_f``, ``head``), so parameters convert
 name for name (``convert.py``). flax fixes ``pos_embed``'s length at
 ``init`` from the first input; here the constructor's ``image_size`` does.
-fp32 only: the JAX model's ``dtype`` is not ported.
+``dtype`` is the compute dtype, as the JAX model's: the patch embedding,
+the Linears and the head compute in it with fp32 parameters, the
+LayerNorm statistics and the attention scores stay fp32, and
+``cls_token`` and ``pos_embed`` join the stream cast to it
+(``modules.precision.set_compute_dtype``).
 """
 
 from __future__ import annotations
@@ -36,6 +40,10 @@ from distributed_kfac_pytorch_tpu_torch.modules.lstm import (
     dense,
     dropout,
     lecun_normal_,
+)
+from distributed_kfac_pytorch_tpu_torch.modules.precision import (
+    check_compute_dtype,
+    set_compute_dtype,
 )
 
 POOLS = ('cls', 'mean')
@@ -56,10 +64,7 @@ class VisionTransformer(nn.Module):
         super().__init__()
         if pool not in POOLS:
             raise ValueError(f"pool must be 'cls' or 'mean', got {pool!r}")
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                f'VisionTransformer(dtype={dtype}) is not ported yet (fp32 '
-                'only)')
+        dtype = check_compute_dtype(dtype)
         if image_size % patch_size:
             raise ValueError(f'input {image_size}x{image_size} not '
                              f'divisible by patch_size={patch_size}')
@@ -85,6 +90,7 @@ class VisionTransformer(nn.Module):
                 attn_block_size=attn_block_size))
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)
         self.head = dense(d_model, num_classes)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor, *,
                 dropout_generator: torch.Generator | None = None
@@ -95,9 +101,9 @@ class VisionTransformer(nn.Module):
                              'for')
         y = self.patch_embed(x).flatten(2).transpose(1, 2)  # (B, N, D)
         if self.pool == 'cls':
-            y = torch.cat([self.cls_token.expand(y.shape[0], -1, -1), y],
-                          dim=1)
-        y = y + self.pos_embed
+            y = torch.cat([self.cls_token.expand(y.shape[0], -1, -1)
+                           .to(y.dtype), y], dim=1)
+        y = y + self.pos_embed.to(y.dtype)
         y = dropout(y, self.dropout, self.training, dropout_generator)
         for i in range(self.num_layers):
             y = getattr(self, f'block{i}')(y, dropout_generator)

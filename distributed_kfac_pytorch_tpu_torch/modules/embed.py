@@ -5,7 +5,10 @@
 normal of variance ``1 / dim`` (flax's default embedding init), and whose
 :meth:`Embed.attend` computes the tied decoder's logits ``x E^T`` (no
 bias). K-FAC's capture registers it like an ``nn.Embedding`` and, with
-tied embeddings on, wraps ``attend`` to capture that call site too.
+tied embeddings on, wraps ``attend`` to capture that call site too. Under
+a compute dtype (``modules.precision.set_compute_dtype`` sets
+``compute_dtype``) ``attend`` casts its query and the table to it, as
+flax's ``Embed.attend`` promotes both to its ``dtype``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,10 @@ class Embed(nn.Embedding):
     def __init__(self, num_embeddings: int, embedding_dim: int):
         super().__init__(num_embeddings, embedding_dim)
         nn.init.normal_(self.weight, std=embedding_dim ** -0.5)
+        self.compute_dtype = None
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight)
+        if self.compute_dtype is None:
+            return F.linear(x, self.weight)
+        return F.linear(x.to(self.compute_dtype),
+                        self.weight.to(self.compute_dtype))

@@ -9,10 +9,12 @@ the order of torch's ``(Cout, Cin, KH, KW)`` weight flattened to
 Precision: ``compute_dtype=None`` and ``torch.float32`` are fp32
 multiplicands with fp32 accumulation (the port's entry points turn TF32
 off); ``torch.bfloat16`` rounds the multiplicands to bf16 and still
-accumulates and returns fp32. Captures stored in bf16 (``capture_dtype``)
-are widened first, so every statistic, the KFAC-reduce sums over the
-shared axes included, accumulates in fp32, as the JAX functions'
-``preferred_element_type`` does.
+accumulates and returns fp32. Half-precision captures (bf16 from
+``capture_dtype``, fp16 or bf16 from a model's compute ``dtype``) are
+widened first, exactly, so every statistic, the KFAC-reduce sums over the
+shared axes, multi-call layers, an embedding's A, a tied embedding's
+extras and grouped convs included, accumulates in fp32, as the JAX
+functions' ``preferred_element_type`` does.
 """
 
 from __future__ import annotations

@@ -372,12 +372,17 @@ def _require(t: torch.Tensor, what: str, ndim: int | None = None,
                          f'{tuple(t.shape)}')
 
 
+#: The half-precision input dtypes the wrappers widen to fp32.
+_HALF_DTYPES = (torch.bfloat16, torch.float16)
+
+
 def _widened(t: torch.Tensor) -> torch.Tensor:
-    """A bf16 tensor as fp32 (the kernels read fp32), others as they are.
-    The wrappers widen their bf16 inputs with it before any check, as the
-    JAX wrappers widen theirs before their Pallas calls
-    (``pallas_kernels.py:731, 903-920``)."""
-    return t.float() if t.dtype == torch.bfloat16 else t
+    """A bf16 or fp16 tensor as fp32 (the kernels read fp32), others as
+    they are. The wrappers widen their half-precision inputs with it
+    before any check, as the JAX wrappers widen every input dtype before
+    their Pallas calls (``pallas_kernels.py:731, 903-920``); the widening
+    is exact."""
+    return t.float() if t.dtype in _HALF_DTYPES else t
 
 
 def _require_int32_offsets(x: torch.Tensor, what: str) -> None:
@@ -582,11 +587,11 @@ def factor_ema(x: torch.Tensor, old: torch.Tensor | None, decay, *,
 
     ``x`` is the ``(rows, d_in)`` capture matrix, or a ``(B, C, H, W)``
     conv output-grad read in place as ``(B*H*W, C)`` (through its strides:
-    no permuted copy is made); a bf16 ``x`` (a bf16 capture) is widened to
-    fp32 first. ``old`` is the running ``(n, n)`` factor (``n = d_in +
-    has_bias``), fp32 or bf16 (bf16 factor storage: the kernel reads it
-    widened and writes the blend rounded to bf16, in the same launch), or
-    None for the contraction alone; ``decay`` the EMA alpha. ``scale``
+    no permuted copy is made); a bf16 or fp16 ``x`` (a half-precision
+    capture) is widened to fp32 first. ``old`` is the running ``(n, n)``
+    factor (``n = d_in + has_bias``), fp32 or bf16 (bf16 factor storage:
+    the kernel reads it widened and writes the blend rounded to bf16, in
+    the same launch), or None for the contraction alone; ``decay`` the EMA alpha. ``scale``
     defaults to the row count.
     """
     bf16 = mult_bf16(compute_dtype)
@@ -767,7 +772,7 @@ def patch_cov(x: torch.Tensor, kernel_size, strides, padding,
     """Conv A factor (K2) of a ``(B, C, H, W)`` input: dense ``(D, D)``
     fp32 (``D = C*KH*KW [+1]``) in the ``(c, kh, kw)`` basis, padding as
     :func:`_canonical_pad`. The patch matrix is never materialized. A bf16
-    ``x`` (a bf16 capture) is widened to fp32 first."""
+    or fp16 ``x`` (a half-precision capture) is widened to fp32 first."""
     bf16 = mult_bf16(compute_dtype)
     if not _dispatch_device(x, 'patch_cov'):
         return patch_cov_plain(x, kernel_size, strides, padding, has_bias,
@@ -938,7 +943,8 @@ def bucket_precond(gstack: torch.Tensor, entry: dict, damping, *,
     ``entry`` holds stacked full-rank eigen slots ``{'QA', 'dA', 'QG',
     'dG'}`` or baked inverses ``{'A_inv', 'G_inv'}``, fp32 or bf16 (bf16
     inverse storage: widened to fp32 before the launch, as the JAX wrapper
-    widens them before its Pallas call). Returns ``(v, vg)``: the ``(S, G,
+    widens them before its Pallas call; a half-precision ``gstack`` is
+    widened alike). Returns ``(v, vg)``: the ``(S, G,
     A)`` preconditioned stack and the ``(S,)`` per-slice ``sum(v * g)``
     KL-clip partials (before the caller's ``lr^2``).
     """
@@ -946,6 +952,7 @@ def bucket_precond(gstack: torch.Tensor, entry: dict, damping, *,
     if not _dispatch_device(gstack, 'bucket_precond'):
         return bucket_precond_plain(gstack, entry, damping, bf16=bf16)
     entry = {k: _widened(t) for k, t in entry.items()}
+    gstack = _widened(gstack)
     _require(gstack, 'bucket_precond g', 3)
     s, g_dim, a_dim = gstack.shape
     eigen = 'QA' in entry

@@ -105,6 +105,7 @@ from distributed_kfac_pytorch_tpu_torch.preconditioner import (
     grouped_block_inverses,
     grouped_cost,
     grouped_init,
+    guard_nonfinite_factors,
     measured_unit_scale,
     overlay_overlap_state,
     plan_inverse_chunks,
@@ -1046,7 +1047,12 @@ class DistributedKFAC:
                 acc, decay = self.accumulate_factors(
                     state, captures, factor_decay, contribs=contribs)
             if factor_reduce:
-                factors = self.reduce_factors(state, acc, decay)
+                # The guard checks the post-all_reduce candidate: the same
+                # on every rank, so a non-finite window is skipped
+                # everywhere (and the accumulator resets either way).
+                factors = guard_nonfinite_factors(
+                    self.reduce_factors(state, acc, decay),
+                    state['factors'], kfac.nonfinite_guard)
                 acc = {n: {k: torch.zeros_like(t) for k, t in e.items()}
                        for n, e in acc.items()}
                 decay = torch.ones((), dtype=torch.float32,
@@ -1062,7 +1068,9 @@ class DistributedKFAC:
                 factor_update = step % f_freq == 0
             if factor_update and contribs is None:
                 contribs = self.local_factor_contribs(captures)
-            factors = (self.update_factors(state, contribs, factor_decay)
+            factors = (guard_nonfinite_factors(
+                self.update_factors(state, contribs, factor_decay),
+                state['factors'], kfac.nonfinite_guard)
                        if factor_update else state['factors'])
         fire_factors = factors
         if kfac.inv_staleness:

@@ -8,8 +8,8 @@ pass; ``ring_self_attention`` shards the sequence over a
 ``torch.distributed`` sequence group and circulates the K/V blocks around
 it. All three keep the JAX contract: ``1/sqrt(head_dim)`` scale, masked
 logits set to ``-1e30`` (a finite sentinel, not ``-inf``), fully masked
-rows zeroed, softmax statistics and the result in fp32, the normalizer
-clamped at ``1e-30``. Plain torch ops: attention is not a Pallas kernel in
+rows zeroed, the scores, softmax statistics and the result in fp32 at any
+input dtype, the normalizer clamped at ``1e-30``. Plain torch ops: attention is not a Pallas kernel in
 the JAX package.
 
 The ring's K/V shift is an autograd function whose backward is the
@@ -35,8 +35,12 @@ def _block_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """One block's ``(max, exp-scores @ v, exp-scores sum)``: ``q`` is
     ``(B, Tq, H, D)``, ``k``/``v`` ``(B, Tk, H, D)``, ``qpos``/``kpos``
     the tokens' positions, ``kvalid`` (optional, ``(Tk,)`` bool) masks
-    padding keys; the statistics are ``(B, H, Tq)`` fp32."""
-    logits = torch.einsum('bqhd,bkhd->bhqk', q, k).float() * scale
+    padding keys; the statistics are ``(B, H, Tq)`` fp32. ``q`` and ``k``
+    enter the product widened to fp32 (exact for fp16 and bf16), so each
+    logit is an fp32 sum of exact products, as JAX's fp32
+    ``preferred_element_type`` gives: a half-precision product would round
+    the scores, and overflow fp16's range."""
+    logits = torch.einsum('bqhd,bkhd->bhqk', q.float(), k.float()) * scale
     mask = None
     if causal:
         mask = kpos[None, :] <= qpos[:, None]

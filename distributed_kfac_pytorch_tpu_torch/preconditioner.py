@@ -73,6 +73,7 @@ from torch import nn
 
 from distributed_kfac_pytorch_tpu_torch import resolve_device, \
     set_fp32_precision
+from distributed_kfac_pytorch_tpu_torch import fp16
 from distributed_kfac_pytorch_tpu_torch import layers as L
 from distributed_kfac_pytorch_tpu_torch.capture import CONV2D, \
     CONV2D_GROUPED, EMBEDDING, KFAC_REDUCE, LINEAR, KFACCapture, \
@@ -116,7 +117,6 @@ NOT_PORTED = {
     'inv_lowrank_dim_threshold': 2048,
     'hierarchical_reduce': False,
     'collect_metrics': False,
-    'nonfinite_guard': False,
 }
 
 
@@ -233,6 +233,16 @@ class KFAC:
       inv_staleness: 0, or 1: window heads snapshot the factors
         (``step(factor_snapshot=True)``) and the chunks fire from that
         snapshot one step after their phase.
+      nonfinite_guard: keep the previous factors when the candidate
+        (post-blend) factors of a factor step are not all finite
+        (:func:`guard_nonfinite_factors`, one flag over every factor, a
+        device-side select: no host sync); under
+        ``deferred_factor_reduction`` the check runs at the window head's
+        reduce, a non-finite window is skipped whole and the accumulator
+        resets either way. It guards the factor statistics only: the
+        step's gradients still flow through the precondition (the
+        dynamic loss scale of ``training.engine`` skips whole steps).
+        Default False (no guard).
       symmetry_aware_comm: average only each factor's packed triangle
         across ranks (``ops.factors.pack_symmetric``), about half the
         bytes; read by ``parallel.DistributedKFAC``.
@@ -272,6 +282,7 @@ class KFAC:
                  inv_pipeline_costs: dict | None = None,
                  deferred_factor_reduction: bool = False,
                  inv_staleness: int = 0,
+                 nonfinite_guard: bool = False,
                  kfac_approx: Any = 'expand',
                  tied_embeddings: bool | None = None,
                  skip_layers: str | Sequence[str] | None = None,
@@ -403,6 +414,7 @@ class KFAC:
                                    if inv_pipeline_costs else None)
         self.deferred_factor_reduction = bool(deferred_factor_reduction)
         self.inv_staleness = int(inv_staleness)
+        self.nonfinite_guard = bool(nonfinite_guard)
         self.fused_factor_contraction = bool(fused_factor_contraction)
         self.fused_precondition = bool(fused_precondition)
         self.symmetry_aware_comm = bool(symmetry_aware_comm)
@@ -426,7 +438,7 @@ class KFAC:
                   'precond_compute_dtype', 'precond_bucketing',
                   'inv_pipeline_chunks',
                   'deferred_factor_reduction', 'inv_staleness',
-                  'kfac_approx', 'tied_embeddings',
+                  'nonfinite_guard', 'kfac_approx', 'tied_embeddings',
                   'symmetry_aware_comm', 'assignment_strategy',
                   'comm_method', 'grad_worker_fraction',
                   'fused_factor_contraction', 'fused_precondition')
@@ -1111,7 +1123,9 @@ class KFAC:
                 acc, decay = self.accumulate_factors(
                     state, captures, factor_decay, contribs=contribs)
             if factor_reduce:
-                factors = self.reduce_factors(state, acc, decay)
+                factors = guard_nonfinite_factors(
+                    self.reduce_factors(state, acc, decay),
+                    state['factors'], self.nonfinite_guard)
                 acc = _zeros_like(acc)
                 decay = torch.ones((), dtype=torch.float32,
                                    device=self.device)
@@ -1125,8 +1139,10 @@ class KFAC:
                                  'deferred_factor_reduction=True')
             if factor_update is None:
                 factor_update = step % f_freq == 0
-            factors = (self.update_factors(state, captures, factor_decay,
-                                           contribs=contribs)
+            factors = (guard_nonfinite_factors(
+                self.update_factors(state, captures, factor_decay,
+                                    contribs=contribs),
+                state['factors'], self.nonfinite_guard)
                        if factor_update else state['factors'])
             state_f = {**state, 'factors': factors}
         if self.inv_staleness:
@@ -1302,6 +1318,23 @@ def grouped_cost(spec, a_dim: int, g_dim: int) -> float:
     n = spec.feature_group_count
     return (n * linalg.decomposition_cost(a_dim)
             + n * linalg.decomposition_cost(g_dim))
+
+
+def guard_nonfinite_factors(new_factors: dict, old_factors: dict,
+                            guard: bool) -> dict:
+    """The non-finite factor guard (the JAX ``guard_nonfinite_factors``),
+    shared by ``KFAC`` and ``parallel.DistributedKFAC``: with ``guard``,
+    ``new_factors`` if every element of every candidate factor is finite,
+    else ``old_factors``, selected on the device from one finiteness flag
+    (no host sync); without, ``new_factors``. The candidates are the
+    post-average factors under ``DistributedKFAC``, the same on every
+    rank, so every rank takes the same branch."""
+    if not guard:
+        return new_factors
+    finite = fp16.tree_all_finite(new_factors)
+    return {name: {side: torch.where(finite, t, old_factors[name][side])
+                   for side, t in entry.items()}
+            for name, entry in new_factors.items()}
 
 
 def grouped_block_inverses(factors: dict, damping, inv_dtype) -> dict:

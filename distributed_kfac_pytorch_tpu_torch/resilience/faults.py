@@ -1,11 +1,11 @@
-"""Fault injectors of the checkpoint path (PyTorch port of the checkpoint
-part of ``distributed_kfac_pytorch_tpu/resilience/faults.py``).
+"""Fault injectors of the checkpoint path and the NaN batch (PyTorch port
+of that part of ``distributed_kfac_pytorch_tpu/resilience/faults.py``).
 
 A :class:`FaultPlan` names the global optimizer step at which each fault
 fires; the plan rides in the ``KFAC_CHAOS`` environment variable so the
 real CLIs run unmodified under injected failure. The grammar is the JAX
 package's, comma-separated ``kind@step``, and every spec it accepts parses
-alike. Four kinds act in the port:
+alike. Five kinds act in the port:
 
     preempt@K         trigger the preemption handler after step K (a
                       graceful drain: forced blocking save, exit with
@@ -19,8 +19,12 @@ alike. Four kinds act in the port:
     corrupt-ckpt@K    after a forced blocking save at step K, flip one
                       byte in the largest file of that bundle: the
                       verified resume walk must quarantine it
+    nan-batch@K       poison the batch consumed at step K with a NaN
+                      (:func:`poison_at`, which the CLIs wrap their batch
+                      iterators in): under ``--fp16`` the dynamic loss
+                      scale skips that step and backs off
 
-``nan-batch``, ``corrupt-factor``, ``diverge``, ``resize``,
+``corrupt-factor``, ``diverge``, ``resize``,
 ``slice-loss``, ``hang`` and ``slowrank`` belong to self-healing, elastic
 resume and the supervisor, which are not ported: :func:`check_ported`
 raises ``NotImplementedError`` naming them.
@@ -34,6 +38,8 @@ from __future__ import annotations
 import dataclasses
 import os
 
+import numpy as np
+
 ENV_VAR = 'KFAC_CHAOS'
 _KINDS = ('preempt', 'crash', 'nan-batch', 'crash-in-save',
           'corrupt-factor', 'corrupt-ckpt', 'diverge', 'resize',
@@ -43,7 +49,8 @@ _GRAMMAR = ('preempt@K, crash@K, nan-batch@K, crash-in-save@K, '
             'corrupt-factor@K, corrupt-ckpt@K, diverge@K, '
             'resize@K->N, slice-loss@K->S, hang@K, slowrank@K')
 #: The kinds the port acts on, by their ``FaultPlan`` field.
-PORTED = ('preempt_at', 'crash_at', 'crash_in_save_at', 'corrupt_ckpt_at')
+PORTED = ('preempt_at', 'crash_at', 'crash_in_save_at', 'corrupt_ckpt_at',
+          'nan_batch_at')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,8 +164,39 @@ def check_ported(plan: FaultPlan | None) -> None:
         kinds = ', '.join(a[:-3].replace('_', '-') for a in armed)
         raise NotImplementedError(
             f'{ENV_VAR} fault kind(s) {kinds} are not ported to torch yet '
-            '(the port injects preempt, crash, crash-in-save and '
-            'corrupt-ckpt)')
+            '(the port injects preempt, crash, crash-in-save, '
+            'corrupt-ckpt and nan-batch)')
+
+
+def poison_batch(batch):
+    """Copy of ``batch`` (a tuple of arrays) with one NaN planted in its
+    first floating array (the model input): the smallest poison that
+    reaches every gradient and factor capture. A batch without a floating
+    array (an LM's token ids) raises ``ValueError``, as in the JAX
+    package."""
+    out = list(batch)
+    for i, leaf in enumerate(out):
+        arr = np.asarray(leaf)
+        if np.issubdtype(arr.dtype, np.floating):
+            arr = arr.copy()
+            arr.reshape(-1)[0] = np.nan
+            out[i] = arr
+            return tuple(out)
+    raise ValueError('nan-batch fault: batch has no float leaf to poison')
+
+
+def poison_at(batches, plan: FaultPlan | None, *, first_step: int = 0):
+    """Wrap a batch iterator, poisoning the batch consumed at global step
+    ``plan.nan_batch_at`` (``first_step``: the global step the first
+    yielded batch is consumed at). Passthrough when the plan has no
+    nan-batch fault."""
+    if plan is None or plan.nan_batch_at is None:
+        yield from batches
+        return
+    for i, batch in enumerate(batches):
+        if first_step + i == plan.nan_batch_at:
+            batch = poison_batch(batch)
+        yield batch
 
 
 def hard_crash(code: int = 137) -> None:

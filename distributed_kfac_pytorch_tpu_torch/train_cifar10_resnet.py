@@ -40,11 +40,14 @@ in turn (``engine.accumulate_pass``); ``--precise-bn-batches N``
 re-estimates the BatchNorm statistics over the first ``N`` augmented
 training batches of epoch ``10_000 + epoch`` before each evaluation and
 restores the training statistics after it (a model without BatchNorm,
-such as ``resnet32gn``, exits). Not ported yet (a set flag raises by
-name, ``engine.UNPORTED_FLAGS``): metrics sinks, profiling and autotune,
-heartbeats and self-healing, multi-slice meshes and fp16, the
-hierarchical reduce, the low-rank inverse, and the K-FAC knobs listed in
-``preconditioner.NOT_PORTED``.
+such as ``resnet32gn``, exits). ``--fp16`` builds the model at
+``torch.float16`` compute with fp32 parameters and trains under the
+dynamic loss scale with the overflow skip (``engine``; the SGD baseline
+exits), and ``KFAC_CHAOS=nan-batch@K`` poisons the batch of step ``K``.
+Not ported yet (a set flag raises by name, ``engine.UNPORTED_FLAGS``):
+metrics sinks, profiling and autotune, heartbeats and self-healing,
+multi-slice meshes, the hierarchical reduce, the low-rank inverse, and
+the K-FAC knobs listed in ``preconditioner.NOT_PORTED``.
 ``--bf16-factors``, ``--bf16-inverses`` and ``--bf16-precond`` set the
 K-FAC reduced-precision knobs as the JAX ``OptimConfig`` does.
 ``--inv-pipeline-chunks``, ``--inv-staleness``,
@@ -170,7 +173,8 @@ def _train(args: argparse.Namespace, dev: torch.device,
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
         model = cifar_resnet.get_model(args.model,
-                                       bn_momentum=args.bn_momentum)
+                                       bn_momentum=args.bn_momentum,
+                                       dtype=engine.compute_dtype(args))
     model = model.to(dev)
     cfg = optimizers.OptimConfig(
         base_lr=args.base_lr, momentum=args.momentum,
@@ -206,7 +210,7 @@ def _train(args: argparse.Namespace, dev: torch.device,
     state = engine.make_train_state(
         model, optimizer, kfac,
         coallocate_layer_factors=args.coallocate_layer_factors,
-        grad_accum=args.grad_accum)
+        grad_accum=args.grad_accum, fp16=args.fp16)
     ckpt = engine.start_checkpointing(
         args, state, kfac_sched, name='cifar10', device=dev,
         preemption=preemption, verbose=not args.quiet)

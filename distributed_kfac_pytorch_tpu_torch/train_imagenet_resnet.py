@@ -36,10 +36,14 @@ N`` runs each rank's batch slice as ``N`` micro-batches in turn,
 ``--precise-bn-batches N`` re-estimates the BatchNorm statistics over the first
 ``N`` batches of the epoch's training stream before each evaluation (the
 training statistics restored after it) and ``--remat`` rematerializes every
-residual block (``models.imagenet_resnet``), as in the JAX CLI. Not ported yet:
+residual block (``models.imagenet_resnet``), as in the JAX CLI. ``--fp16`` (the
+reference's production ImageNet recipe) builds the model, ResNet or ViT, at
+``torch.float16`` compute with fp32 parameters and trains under the dynamic
+loss scale with the overflow skip (``engine``; the SGD baseline exits), and
+``KFAC_CHAOS=nan-batch@K`` poisons the batch of step ``K``. Not ported yet:
 the ImageNet directory reader (the JAX CLI's ``tf.data`` JPEG pipeline) and the
 flags of ``engine.UNPORTED_FLAGS`` (metrics sinks, profiling and autotune,
-heartbeats and self-healing, multi-slice meshes, fp16, the hierarchical reduce,
+heartbeats and self-healing, multi-slice meshes, the hierarchical reduce,
 the low-rank inverse), which raise by name, and the K-FAC knobs listed in
 ``preconditioner.NOT_PORTED``. ``--bf16-factors``, ``--bf16-inverses`` and
 ``--bf16-precond`` set the K-FAC reduced-precision knobs as the JAX
@@ -189,15 +193,18 @@ def vit_size(args: argparse.Namespace) -> str | None:
 
 def build_model(args: argparse.Namespace) -> torch.nn.Module:
     """The ``--model`` network at ``--image-size``, 1000 classes, its
-    weights drawn from ``--seed``."""
+    weights drawn from ``--seed``, computing in fp16 under ``--fp16``."""
     size = vit_size(args)
+    dtype = engine.compute_dtype(args)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
         if size is not None:
-            return vit.get_model(1000, size, image_size=args.image_size)
+            return vit.get_model(1000, size, image_size=args.image_size,
+                                 dtype=dtype)
         return imagenet_resnet.get_model(
-            args.model, bn_momentum=(0.9 if args.bn_momentum is None
-                                     else args.bn_momentum),
+            args.model, dtype=dtype,
+            bn_momentum=(0.9 if args.bn_momentum is None
+                         else args.bn_momentum),
             remat=args.remat)
 
 
@@ -242,7 +249,7 @@ def _train(args: argparse.Namespace, dev: torch.device,
     state = engine.make_train_state(
         model, optimizer, kfac,
         coallocate_layer_factors=args.coallocate_layer_factors,
-        grad_accum=args.grad_accum)
+        grad_accum=args.grad_accum, fp16=args.fp16)
     ckpt = engine.start_checkpointing(
         args, state, kfac_sched, name='imagenet', device=dev,
         preemption=preemption, verbose=not args.quiet)

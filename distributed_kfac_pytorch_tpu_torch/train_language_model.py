@@ -80,10 +80,17 @@ K-FAC reduced-precision knobs as the JAX ``OptimConfig`` does
 ``--deferred-factor-reduction`` and ``--factor-batch-fraction`` set the
 firing-schedule knobs of the same names (``engine.add_schedule_args``).
 
+``--fp16`` builds the LSTM or the Transformer at ``torch.float16`` compute
+with fp32 parameters (fp32 attention scores) and trains under the dynamic
+loss scale, unscaling before the global-norm clip, with the overflow skip
+(``engine``; the SGD baseline exits). ``KFAC_CHAOS=nan-batch@K`` raises the
+JAX CLI's ``ValueError`` at step ``K``: token windows hold no float to
+poison.
+
 Not ported yet (a set flag raises by name, ``engine.UNPORTED_FLAGS``):
-multi-slice meshes (``--num-slices``), fp16 (``--fp16``), metrics sinks,
-profiling and autotune, heartbeats and self-healing, the hierarchical
-reduce and the low-rank inverse; nor the K-FAC knobs listed in
+multi-slice meshes (``--num-slices``), metrics sinks, profiling and
+autotune, heartbeats and self-healing, the hierarchical reduce and the
+low-rank inverse; nor the K-FAC knobs listed in
 ``preconditioner.NOT_PORTED``.
 
 :func:`train` is the programmatic entry point.
@@ -186,8 +193,7 @@ def build_parser() -> argparse.ArgumentParser:
                         'the bytes)')
     engine.add_precision_args(p)
     engine.add_schedule_args(p)
-    p.add_argument('--fp16', action='store_true',
-                   help='not ported (raises)')
+    engine.add_fp16_arg(p)
     resilience_cli.add_resilience_args(p)
     engine.add_unported_args(p)
     # Port-only flags.
@@ -264,7 +270,7 @@ def _train(args: argparse.Namespace, dev: torch.device,
     optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
         model, cfg, device=dev)
     state = engine.make_train_state(model, optimizer, kfac,
-                                    seq_parallel=sp)
+                                    seq_parallel=sp, fp16=args.fp16)
     generator = torch.Generator(device=dev)
     generator.manual_seed(args.seed + (dist.get_rank() if state.distributed
                                        else 0))
@@ -319,15 +325,16 @@ def build_model(args: argparse.Namespace, vocab: int, device,
     are drawn there (the LSTM's on the CPU, then moved), so a
     Transformer at full width never passes through host memory. A
     Transformer with a ``seq_group`` runs its attention as a ring over it
-    (and drops ``--attn-block-size``)."""
+    (and drops ``--attn-block-size``). ``--fp16``: fp16 compute."""
     device = torch.device(device)
+    dtype = engine.compute_dtype(args)
     if args.arch == 'lstm':
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(args.seed)
             model = lstm_lm.LSTMLanguageModel(
                 vocab, embedding_dim=args.emsize, hidden_dim=args.nhid,
                 num_layers=args.nlayers, dropout=args.dropout,
-                tie_weights=args.tied)
+                tie_weights=args.tied, dtype=dtype)
         return model.to(device)
     cuda = [device] if device.type == 'cuda' else []
     with torch.random.fork_rng(devices=cuda), device:
@@ -338,7 +345,7 @@ def build_model(args: argparse.Namespace, vocab: int, device,
             dropout=args.dropout, tie_weights=args.tied,
             attn_block_size=(args.attn_block_size if seq_group is None
                              else None),
-            seq_group=seq_group)
+            seq_group=seq_group, dtype=dtype)
 
 
 def main(argv=None) -> int:

@@ -37,6 +37,25 @@ output-grad-quadratic parts by ``1/N^2`` more). Precise-BN
 statistics before an evaluation; :func:`fit` restores the training
 statistics afterwards.
 
+Dynamic loss scaling (``TrainState.loss_scale``, the JAX
+``build_train_step(loss_scale='dynamic')``; the CLIs' ``--fp16``): each
+pass scales its loss by the live scale and unscales its gradients and
+output-gradient captures to fp32 (``KFACCapture.loss_and_grads``, each
+micro-batch's before the sum), and after the world's mean one finiteness
+flag over every gradient and every capture (or accumulated contribution)
+is read on the host (the JAX step selects on the device; the port takes
+GradScaler's one read per step). A non-finite capture skips the step:
+JAX zeroes it (``fp16.sanitize_captures``) and steps on when the
+gradients are finite, which no model reaches, since a non-finite
+capture makes the gradients non-finite; the check reads each capture
+once and copies none. On overflow the step runs no K-FAC step and no
+optimizer step and leaves the parameters, the SGD momentum, every
+``kfac_state`` tensor and the BatchNorm buffers (restored from a
+snapshot taken before the forward pass) bit for bit as they were; only
+``kfac_state['step']`` and the loss-scale state advance
+(``fp16.update_loss_scale``). The mean carries any rank's non-finite
+value to every rank, so every rank skips.
+
 Checkpoints (:func:`start_checkpointing`, the JAX CLIs' wiring shared by
 the three CLIs): the epoch loops resume at a bundle's point, skipping the
 epoch's trained batches, call the ``resilience.policy.StepCheckpointer``
@@ -60,6 +79,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from distributed_kfac_pytorch_tpu_torch import fp16 as fp16_lib
 from distributed_kfac_pytorch_tpu_torch import launch
 from distributed_kfac_pytorch_tpu_torch.layers import GRAD_QUADRATIC_KEYS
 from distributed_kfac_pytorch_tpu_torch.models.transformer_lm import \
@@ -188,6 +208,9 @@ class TrainState:
     epoch: int = 0
     distributed: bool = False        # data parallel over the world
     grad_accum: int = 1              # micro-batches per step
+    # Dynamic loss-scale state (fp16.init_loss_scale) or None (no scaling).
+    loss_scale: dict | None = None
+    overflow: bool = False           # the last step was skipped
 
 
 def world_mean(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -223,7 +246,9 @@ def micro_batches(x: torch.Tensor, y: torch.Tensor, n: int) -> list:
 def _one_pass(state: TrainState, x: torch.Tensor, y: torch.Tensor,
               criterion: Callable, intercept: bool) -> tuple:
     """One forward/backward pass: ``(loss, acc, grads, captures)``, with
-    K-FAC's capture recording when ``intercept`` (else ``{}``)."""
+    K-FAC's capture recording when ``intercept`` (else ``{}``); under a
+    dynamic loss scale the loss is scaled, the gradients and captures
+    come back unscaled."""
     loss_fn = lambda out: criterion(out, y)  # noqa: E731
     if state.kfac is None:
         state.optimizer.zero_grad(set_to_none=True)
@@ -235,9 +260,61 @@ def _one_pass(state: TrainState, x: torch.Tensor, y: torch.Tensor,
                  if p.grad is not None}
         captures = {}
     else:
-        loss, out, grads, captures = state.kfac.capture.loss_and_grads(
-            loss_fn, x, intercept=intercept)
+        loss, out, grads, captures = _kfac_pass(state, loss_fn, x,
+                                                intercept)
     return loss, accuracy(out, y), grads, captures
+
+
+def _kfac_pass(state: TrainState, loss_fn: Callable, x: torch.Tensor,
+               intercept: bool, **kwargs) -> tuple:
+    """``KFACCapture.loss_and_grads`` at the live loss scale (None without
+    one)."""
+    scale = state.loss_scale and state.loss_scale['scale']
+    return state.kfac.capture.loss_and_grads(
+        loss_fn, x, intercept=intercept, loss_scale=scale, **kwargs)
+
+
+def _capture_check(state: TrainState, captures) -> list[torch.Tensor]:
+    """Under a dynamic loss scale with ``captures`` (or accumulated
+    contributions) this step, ``[flag]``: 0.0 when all are finite, else
+    NaN, which the world's mean carries to every rank beside the
+    gradients for :func:`_overflow_skip`; else ``[]``."""
+    if state.loss_scale is None or not captures:
+        return []
+    finite = fp16_lib.tree_all_finite(captures)
+    return [torch.where(finite, 0.0, float('nan'))]
+
+
+def _buffer_snapshot(state: TrainState) -> dict[str, torch.Tensor] | None:
+    """Under a dynamic loss scale, a copy of every buffer of the model
+    (the BatchNorm running statistics the forward pass writes in place)
+    for :func:`_overflow_skip`; else None. The scale needs the K-FAC
+    step (the SGD baseline does not wire the loss scaler)."""
+    if state.loss_scale is None:
+        return None
+    if state.kfac is None:
+        raise ValueError('a dynamic loss scale needs the K-FAC step (the '
+                         'SGD baseline does not wire the loss scaler)')
+    return {k: b.clone() for k, b in state.model.named_buffers()}
+
+
+def _overflow_skip(state: TrainState, checked: list[torch.Tensor],
+                   buffers: dict[str, torch.Tensor]) -> bool:
+    """The dynamic loss scale's decision on the world's mean gradients and
+    :func:`_capture_check` flag (``checked``): one finiteness flag, read
+    on the host (the step's one sync), advances
+    ``state.loss_scale``. On overflow the buffers go back to ``buffers``
+    and ``kfac_state['step']`` advances (the cadence stays aligned with
+    the host counter); returns True, and the caller leaves the K-FAC
+    step, the optimizer and the buffers' world mean out."""
+    finite = fp16_lib.tree_all_finite(checked)
+    state.loss_scale = fp16_lib.update_loss_scale(state.loss_scale, finite)
+    state.overflow = not bool(finite)
+    if state.overflow:
+        restore_buffers(state.model, buffers)
+        state.kfac_state = {**state.kfac_state,
+                            'step': state.kfac_state['step'] + 1}
+    return state.overflow
 
 
 def accumulate_pass(state: TrainState, x: torch.Tensor, y: torch.Tensor,
@@ -302,14 +379,21 @@ def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
     :func:`accumulate_pass`), K-FAC preconditioning and SGD update, with
     the loss ``criterion(logits, labels)`` (default cross entropy).
     Returns the (device) loss and accuracy of the batch, averaged over
-    the world when ``state.distributed``."""
+    the world when ``state.distributed``. Under ``state.loss_scale`` an
+    overflowing step is skipped (:func:`_overflow_skip`)."""
     kfac = state.kfac
+    buffers = _buffer_snapshot(state)
     loss, acc, grads, captures, contribs = accumulate_pass(
         state, x, y, criterion,
         factor_update=kfac is not None and flags['factor_update'])
+    checked = _capture_check(state, captures or contribs)
     if state.distributed:
-        *means, loss, acc = world_mean([*grads.values(), loss, acc])
-        grads = dict(zip(grads, means))
+        *means, loss, acc = world_mean([*grads.values(), *checked, loss,
+                                        acc])
+        grads, checked = dict(zip(grads, means)), means[len(grads):]
+    if buffers is not None and _overflow_skip(
+            state, [*grads.values(), *checked], buffers):
+        return loss, acc
     if kfac is not None:
         grads, state.kfac_state = kfac.step(
             state.kfac_state, grads, captures, contribs=contribs,
@@ -347,6 +431,7 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
     state.model.train()
     meters: dict[str, Metric] = {}
     losses, fired, step_ms = [], [], []
+    scaler = [] if state.loss_scale is not None else None
     schedule = (epoch_schedule(state.kfac, hyper['inv_update_freq'])
                 if state.kfac is not None else {})
     stopped = False
@@ -364,11 +449,14 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
             x = torch.as_tensor(np.ascontiguousarray(xb), device=device)
             y = torch.as_tensor(yb, dtype=torch.long, device=device)
             t0 = time.perf_counter()
+            scale = state.loss_scale and state.loss_scale['scale']
             loss, acc = train_step(state, x, y, hyper, flags, criterion)
             if time_steps:
                 if device.type == 'cuda':
                     torch.cuda.synchronize(device)
                 step_ms.append((time.perf_counter() - t0) * 1e3)
+            if scaler is not None:
+                scaler.append((scale, state.overflow))
             losses.append(loss)
             fired.append(fired_stage(flags))
             meters.setdefault('loss', Metric('loss')).update(loss)
@@ -379,7 +467,8 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
                                         start_step_in_epoch + len(losses))
     except Preempted as p:
         p.partial = {'losses': [float(v) for v in losses], 'fired': fired,
-                     'step_ms': step_ms if time_steps else None}
+                     'step_ms': step_ms if time_steps else None,
+                     'scaler': _scaler_record(scaler)}
         raise
     out = {k: m.avg for k, m in meters.items()}
     if verbose and out:
@@ -387,7 +476,15 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
         print(f'epoch {state.epoch}: train {shown}')
     return {'metrics': out, 'losses': [float(v) for v in losses],
             'fired': fired, 'step_ms': step_ms if time_steps else None,
-            'stopped': stopped}
+            'scaler': _scaler_record(scaler), 'stopped': stopped}
+
+
+def _scaler_record(scaler: list | None) -> list | None:
+    """Per step, ``{'scale', 'overflow'}``: the loss scale the step used
+    and whether it was skipped (None without a dynamic loss scale)."""
+    if scaler is None:
+        return None
+    return [{'scale': float(s), 'overflow': bool(o)} for s, o in scaler]
 
 
 def fit(state: TrainState, train_data, val_data, *, lr_schedule,
@@ -413,19 +510,26 @@ def fit(state: TrainState, train_data, val_data, *, lr_schedule,
     polls for preemption between epochs and saves the epoch bundle every
     ``freq`` epochs and after the last; a preemption ends the loop.
 
-    Returns ``{'device', 'steps', 'losses', 'fired', 'step_ms', 'train',
-    'val', 'seconds', 'state', 'preempted'}``: per-step losses and fired
-    stages (:func:`fired_stage`) of the steps this call ran, per-step
-    wall ms when ``time_steps``, the last epoch's train / val metrics,
-    the final ``TrainState`` and, after a preemption, its ``global_step``
-    and ``reason`` (else None).
+    The batch consumed at the ``KFAC_CHAOS`` plan's ``nan-batch`` step is
+    poisoned (``resilience.faults.poison_at``).
+
+    Returns ``{'device', 'steps', 'losses', 'fired', 'step_ms', 'scaler',
+    'train', 'val', 'seconds', 'state', 'preempted'}``: per-step losses
+    and fired stages (:func:`fired_stage`) of the steps this call ran,
+    per-step wall ms when ``time_steps``, under a dynamic loss scale the
+    per-step ``{'scale', 'overflow'}`` (else None), the last epoch's
+    train / val metrics, the final ``TrainState`` and, after a
+    preemption, its ``global_step`` and ``reason`` (else None).
     """
     device = torch.device(device)
+    plan = faults.plan_from_env()
 
     def epoch_fn(epoch: int, skip: int, hyper: dict) -> dict:
-        batches = datasets.epoch_batches(*train_data, batch_size, seed=seed,
-                                         epoch=epoch, augment=augment,
-                                         skip_batches=skip)
+        batches = faults.poison_at(
+            datasets.epoch_batches(*train_data, batch_size, seed=seed,
+                                   epoch=epoch, augment=augment,
+                                   skip_batches=skip),
+            plan, first_step=state.step)
         return train_epoch(state, batches, hyper, device=device,
                            verbose=verbose, time_steps=time_steps,
                            max_steps=max_steps, criterion=criterion,
@@ -458,6 +562,7 @@ def _epoch_loop(state: TrainState, epoch_fn, eval_fn, *, lr_schedule,
     ``epoch_fn(epoch, skip, hyper)`` trains one epoch (a
     :func:`train_epoch` result), ``eval_fn(epoch)`` evaluates."""
     losses, fired, step_ms = [], [], []
+    scaler = [] if state.loss_scale is not None else None
     train_m = val_m = {}
     preempted = None
     start_epoch, start_offset = ((ckpt.start_epoch, ckpt.start_offset)
@@ -483,6 +588,8 @@ def _epoch_loop(state: TrainState, epoch_fn, eval_fn, *, lr_schedule,
             fired += res['fired']
             if time_steps:
                 step_ms += res['step_ms']
+            if scaler is not None:
+                scaler += res['scaler']
             val_m = eval_fn(epoch)
             if kfac_sched:
                 kfac_sched.step(epoch + 1)
@@ -495,6 +602,8 @@ def _epoch_loop(state: TrainState, epoch_fn, eval_fn, *, lr_schedule,
         fired += p.partial['fired']
         if time_steps:
             step_ms += p.partial['step_ms']
+        if scaler is not None:
+            scaler += p.partial['scaler']
         preempted = {'global_step': p.global_step, 'reason': p.reason}
         if verbose:
             print(f'preempted ({p.reason}) at global step '
@@ -505,8 +614,8 @@ def _epoch_loop(state: TrainState, epoch_fn, eval_fn, *, lr_schedule,
         print(f'total: {seconds:.1f}s')
     return {'device': str(device), 'steps': state.step, 'losses': losses,
             'fired': fired, 'step_ms': step_ms if time_steps else None,
-            'train': train_m, 'val': val_m, 'seconds': seconds,
-            'state': state, 'preempted': preempted}
+            'scaler': scaler, 'train': train_m, 'val': val_m,
+            'seconds': seconds, 'state': state, 'preempted': preempted}
 
 
 def add_distributed_args(p: argparse.ArgumentParser) -> None:
@@ -525,11 +634,28 @@ def add_distributed_args(p: argparse.ArgumentParser) -> None:
                    help='micro-batches per step (the reference '
                         '--batches-per-allreduce): each rank runs its '
                         'batch slice as this many micro-batches in turn')
-    # JAX CLI flags the port does not run yet: setting one raises.
+    add_fp16_arg(p)
+    # A JAX CLI flag the port does not run yet: setting it raises.
     p.add_argument('--num-slices', type=int, default=1,
                    help='not ported (raises unless 1)')
+
+
+def add_fp16_arg(p: argparse.ArgumentParser) -> None:
+    """``--fp16`` (all three CLIs, the JAX name): fp16 model compute with
+    the dynamic loss scale and the overflow skip."""
     p.add_argument('--fp16', action='store_true',
-                   help='not ported (raises)')
+                   help='fp16 model compute (parameters and norm '
+                        'statistics fp32) with dynamic loss scaling and '
+                        'the overflow skip (GradScaler parity, reference '
+                        'engine.py:38-41,75-80; the reference ImageNet '
+                        'launch passes --fp16, '
+                        'launch_node_torch_imagenet.sh:73-87)')
+
+
+def compute_dtype(args: argparse.Namespace) -> torch.dtype:
+    """The model's compute dtype a CLI's flags ask for: fp16 under
+    ``--fp16``, else fp32."""
+    return torch.float16 if args.fp16 else torch.float32
 
 
 def add_precision_args(p: argparse.ArgumentParser) -> None:
@@ -628,8 +754,8 @@ def _off(spec: dict):
 
 
 #: Every flag the port does not run yet, with its "off" value: multi-slice
-#: meshes and fp16, then :data:`_UNPORTED_ARGS`.
-UNPORTED_FLAGS = (('num_slices', 1), ('fp16', False),
+#: meshes, then :data:`_UNPORTED_ARGS`.
+UNPORTED_FLAGS = (('num_slices', 1),
                   *((k, _off(v)) for k, v in _UNPORTED_ARGS.items()))
 
 
@@ -777,10 +903,13 @@ def start_checkpointing(args: argparse.Namespace, state: TrainState,
     A bundle holds the model's ``state_dict()`` (buffers included), the
     optimizer's (momentum), the K-FAC state with its inverses and bases
     (``include_inverses=True``), the K-FAC scheduler, ``extra_state()``
-    (an LM's dropout generator state) and the resume scalars, with the
-    digest field unhashed (the manager hashes each file it writes). On
-    resume every part is loaded onto ``device`` (``load_extra`` takes the
-    ``extra_vars``) and the scheduler steps to the resumed epoch.
+    (an LM's dropout generator state) and, under a dynamic loss scale, its
+    state (``extra_vars['loss_scale']``, as the JAX CLIs keep it) and the
+    resume scalars, with the digest field unhashed (the manager hashes
+    each file it writes). On resume every part is loaded onto ``device``
+    (``load_extra`` takes the ``extra_vars``; the loss-scale state goes
+    back into ``state``, so the schedule continues bit for bit) and the
+    scheduler steps to the resumed epoch.
     """
     if args.checkpoint_dir is None:
         return None
@@ -793,9 +922,12 @@ def start_checkpointing(args: argparse.Namespace, state: TrainState,
     def bundle_fn(st: TrainState, step_in_epoch: int) -> dict:
         kfac_sd = (st.kfac.state_dict(st.kfac_state, include_inverses=True)
                    if st.kfac is not None else {})
+        extra = dict(extra_state()) if extra_state else {}
+        if st.loss_scale is not None:
+            extra['loss_scale'] = dict(st.loss_scale)
         return checkpoint.bundle_state(
             st.model.state_dict(), st.optimizer.state_dict(), kfac_sd,
-            extra_state() if extra_state else {},
+            extra,
             schedulers={'kfac': kfac_sched} if kfac_sched else None,
             integrity='template', step=st.step, epoch=st.epoch,
             step_in_epoch=int(step_in_epoch), data_seed=args.seed)
@@ -813,6 +945,10 @@ def start_checkpointing(args: argparse.Namespace, state: TrainState,
             kfac_sched.step(start_epoch)
         if load_extra is not None:
             load_extra(tree['extra_vars'])
+        saved_scale = tree['extra_vars'].get('loss_scale')
+        if state.loss_scale is not None and saved_scale is not None:
+            state.loss_scale = {k: torch.as_tensor(v).to(device)
+                                for k, v in saved_scale.items()}
         state.step = int(tree['scalars']['step'])
         state.epoch = start_epoch
     step_ckpt = resilience_cli.make_step_checkpointer(
@@ -825,15 +961,22 @@ def start_checkpointing(args: argparse.Namespace, state: TrainState,
 def make_train_state(model, optimizer, kfac, *,
                      coallocate_layer_factors: bool = False,
                      seq_parallel: int = 1,
-                     grad_accum: int = 1) -> TrainState:
+                     grad_accum: int = 1,
+                     fp16: bool = False) -> TrainState:
     """The CLIs' ``TrainState``: with a process group up, data parallel
     over the world and ``kfac`` wrapped in ``DistributedKFAC`` (strategy
     from the ``KFAC``'s knobs; ``coallocate_layer_factors``: a layer's A
     and G on one rank; ``seq_parallel`` ranks per sequence group); else
     the single-device ``KFAC``. ``grad_accum``: micro-batches per step
-    (:func:`accumulate_pass`)."""
+    (:func:`accumulate_pass`). ``fp16`` (``--fp16``): the dynamic loss
+    scale, seeded with ``fp16.init_loss_scale()`` on the model's device;
+    without K-FAC it raises the JAX CLIs' ``SystemExit``."""
     if grad_accum < 1:
         raise ValueError(f'grad_accum_steps={grad_accum} must be >= 1')
+    if fp16 and kfac is None:
+        raise SystemExit('--fp16 requires the K-FAC step '
+                         '(--kfac-update-freq > 0); the SGD baseline path '
+                         'does not wire the loss scaler.')
     distributed = dist.is_initialized()
     if kfac is not None and distributed:
         from distributed_kfac_pytorch_tpu_torch.parallel.distributed import (
@@ -845,7 +988,9 @@ def make_train_state(model, optimizer, kfac, *,
     return TrainState(
         model=model, optimizer=optimizer, kfac=kfac,
         kfac_state=kfac.init_state() if kfac is not None else None,
-        distributed=distributed, grad_accum=int(grad_accum))
+        distributed=distributed, grad_accum=int(grad_accum),
+        loss_scale=(fp16_lib.init_loss_scale(
+            device=next(model.parameters()).device) if fp16 else None))
 
 
 def parse_args(parser: argparse.ArgumentParser,
@@ -1008,12 +1153,15 @@ def lm_train_step(state: TrainState, ids: torch.Tensor,
     ``pos_offset``), backward, with ``state.distributed`` the world's mean
     of the gradients and the loss, K-FAC preconditioning, then the
     global-norm clip at ``grad_clip`` (0: none) over every update, then
-    the SGD update. Returns the (device) loss."""
+    the SGD update. Under ``state.loss_scale`` the gradients are unscaled
+    before the clip and an overflowing step is skipped
+    (:func:`_overflow_skip`). Returns the (device) loss."""
     model = state.model
     kwargs = {'dropout_generator': generator}
     if pos_offset:
         kwargs['pos_offset'] = pos_offset
     loss_fn = lambda out: lm_loss(out, targets)  # noqa: E731
+    buffers = _buffer_snapshot(state)
     if state.kfac is None:
         model.zero_grad(set_to_none=True)
         loss = loss_fn(model(ids, **kwargs))
@@ -1021,12 +1169,17 @@ def lm_train_step(state: TrainState, ids: torch.Tensor,
         loss = loss.detach()
         grads = {n: p.grad for n, p in model.named_parameters()
                  if p.grad is not None}
+        captures = {}
     else:
-        loss, _, grads, captures = state.kfac.capture.loss_and_grads(
-            loss_fn, ids, intercept=flags['factor_update'], **kwargs)
+        loss, _, grads, captures = _kfac_pass(
+            state, loss_fn, ids, flags['factor_update'], **kwargs)
+    checked = _capture_check(state, captures)
     if state.distributed:
-        *means, loss = world_mean([*grads.values(), loss])
-        grads = dict(zip(grads, means))
+        *means, loss = world_mean([*grads.values(), *checked, loss])
+        grads, checked = dict(zip(grads, means)), means[len(grads):]
+    if buffers is not None and _overflow_skip(
+            state, [*grads.values(), *checked], buffers):
+        return loss
     if state.kfac is not None:
         grads, state.kfac_state = state.kfac.step(
             state.kfac_state, grads, captures,
@@ -1097,11 +1250,14 @@ def fit_lm(state: TrainState, train_ids: np.ndarray, val_ids: np.ndarray,
                                        shuffle_offset=True, seed=seed,
                                        epoch=0))
     last = {}
+    plan = faults.plan_from_env()
 
     def epoch_fn(epoch: int, skip: int, hyper: dict) -> dict:
-        windows = datasets.bptt_batches(train_ids, batch_size, bptt,
-                                        shuffle_offset=True, seed=seed,
-                                        epoch=epoch, skip_batches=skip)
+        windows = faults.poison_at(
+            datasets.bptt_batches(train_ids, batch_size, bptt,
+                                  shuffle_offset=True, seed=seed,
+                                  epoch=epoch, skip_batches=skip),
+            plan, first_step=state.step)
         res = lm_train_epoch(
             state, windows, hyper, device=device, grad_clip=grad_clip,
             generator=generator, first=first if fixed_batch else None,
@@ -1140,6 +1296,7 @@ def lm_train_epoch(state: TrainState, windows: Iterable, hyper: dict, *,
                 if state.kfac is not None else {})
     state.model.train()
     losses, fired, step_ms = [], [], []
+    scaler = [] if state.loss_scale is not None else None
     stopped = False
     try:
         for xb, yb in windows:
@@ -1159,6 +1316,7 @@ def lm_train_epoch(state: TrainState, windows: Iterable, hyper: dict, *,
             x = torch.as_tensor(xb, dtype=torch.long, device=device)
             y = torch.as_tensor(yb, dtype=torch.long, device=device)
             t0 = time.perf_counter()
+            scale = state.loss_scale and state.loss_scale['scale']
             loss = lm_train_step(state, x, y, hyper, flags,
                                  grad_clip=grad_clip, generator=generator,
                                  pos_offset=offset)
@@ -1166,6 +1324,8 @@ def lm_train_epoch(state: TrainState, windows: Iterable, hyper: dict, *,
                 if device.type == 'cuda':
                     torch.cuda.synchronize(device)
                 step_ms.append((time.perf_counter() - t0) * 1e3)
+            if scaler is not None:
+                scaler.append((scale, state.overflow))
             losses.append(loss)
             fired.append(fired_stage(flags))
             state.step += 1
@@ -1174,7 +1334,8 @@ def lm_train_epoch(state: TrainState, windows: Iterable, hyper: dict, *,
                                         start_step_in_epoch + len(losses))
     except Preempted as p:
         p.partial = {'losses': [float(v) for v in losses], 'fired': fired,
-                     'step_ms': step_ms if time_steps else None}
+                     'step_ms': step_ms if time_steps else None,
+                     'scaler': _scaler_record(scaler)}
         raise
     losses = [float(v) for v in losses]
     metrics = {}
@@ -1182,4 +1343,5 @@ def lm_train_epoch(state: TrainState, windows: Iterable, hyper: dict, *,
         mean = sum(losses) / len(losses)
         metrics = {'loss': mean, 'ppl': math.exp(min(mean, 20.0))}
     return {'metrics': metrics, 'losses': losses, 'fired': fired,
-            'step_ms': step_ms if time_steps else None, 'stopped': stopped}
+            'step_ms': step_ms if time_steps else None,
+            'scaler': _scaler_record(scaler), 'stopped': stopped}

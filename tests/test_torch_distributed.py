@@ -294,7 +294,8 @@ def jax_reference(name, flax_params, x_nhwc, y):
 
     _, world, comm, frac, _, knobs = _case(name)
     kfac = JKFAC(jax_small_cnn(), **COMMON, **knobs)
-    kfac.init(jax.random.PRNGKey(0), jnp.asarray(x_nhwc))
+    # Registration is a side effect of tracing the init.
+    jax.eval_shape(kfac.init, jax.random.PRNGKey(0), jnp.asarray(x_nhwc))
     method = JCommMethod[comm.upper().replace('-', '_')]
     mesh = JD.make_kfac_mesh(devices=jax.devices()[:world],
                              comm_method=method, grad_worker_fraction=frac)

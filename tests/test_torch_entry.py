@@ -203,11 +203,25 @@ def test_import_leaves_jax_unloaded():
 @pytest.mark.parametrize('knob,value', [
     ('inv_lowrank_rank', 16), ('collect_metrics', True),
     ('inv_lowrank_dim_threshold', 1024),
-    ('hierarchical_reduce', True), ('nonfinite_guard', True)])
+    ('hierarchical_reduce', True)])
 def test_unported_knobs_raise_by_name(knob, value):
     with pytest.raises(NotImplementedError, match=knob):
         KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
              **{knob: value})
+
+
+@pytest.mark.parametrize('module', [cli, inet, lm],
+                         ids=['cifar', 'imagenet', 'lm'])
+def test_fp16_and_nan_batch_are_ported(module):
+    """``--fp16`` parses and is no unported flag, the guard is a ``KFAC``
+    knob and ``nan-batch`` a ported fault kind (the flag's runs are in
+    ``tests/test_torch_fp16_cli.py``)."""
+    from distributed_kfac_pytorch_tpu_torch.resilience import faults
+    assert 'fp16' not in dict(engine.UNPORTED_FLAGS)
+    assert module.build_parser().parse_args(['--fp16']).fp16
+    assert KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
+                nonfinite_guard=True).nonfinite_guard
+    faults.check_ported(faults.parse_spec('nan-batch@3'))
 
 
 @pytest.mark.parametrize('knob,value', [
@@ -216,7 +230,7 @@ def test_unported_knobs_raise_by_name(knob, value):
     ('inv_pipeline_costs', {64: 1.0})])
 def test_schedule_knobs_are_kfac_attributes(knob, value):
     from distributed_kfac_pytorch_tpu_torch.preconditioner import NOT_PORTED
-    assert knob not in NOT_PORTED and len(NOT_PORTED) == 5
+    assert knob not in NOT_PORTED and len(NOT_PORTED) == 4
     kfac = KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
                 inv_update_freq=10, **{knob: value})
     assert getattr(kfac, knob) == value

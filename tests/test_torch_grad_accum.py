@@ -25,6 +25,7 @@ port's own single pass: factors within 1e-5 and gradients within 1e-4 of
 the largest entry, losses 1e-5 relative.
 """
 
+import functools
 import json
 import pathlib
 import sys
@@ -93,15 +94,17 @@ def _rel(got, want) -> float:
 # JAX references
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
 def _jax_init(norm):
     """Initial flax variables of the 1-1-1 ResNet, as a torch state
-    dict of numpy arrays."""
+    dict of numpy arrays (once per ``norm``)."""
     import jax
     import jax.numpy as jnp
 
     from distributed_kfac_pytorch_tpu.models import cifar_resnet as jres
     x, _ = _data()
-    variables = jres.CifarResNet(num_blocks=(1, 1, 1), norm=norm).init(
+    variables = jax.jit(jres.CifarResNet(num_blocks=(1, 1, 1),
+                                         norm=norm).init)(
         jax.random.PRNGKey(0), jnp.asarray(x))
     sd = convert.flax_to_torch(jax.tree.map(np.asarray,
                                             variables['params']),
@@ -153,7 +156,8 @@ def _jax_run(norm, n, devices, sgd=False):
     else:
         kfac = JKFAC(model, fused_factor_contraction=True,
                      fused_precondition=True, **HYPER)
-        kfac.init(jax.random.PRNGKey(0), jnp.asarray(x))
+        # Registration is a side effect of tracing the init.
+        jax.eval_shape(kfac.init, jax.random.PRNGKey(0), jnp.asarray(x))
         mesh = JD.make_kfac_mesh(devices=jax.devices()[:devices],
                                  comm_method=CommMethod.COMM_OPT)
         dk = JD.DistributedKFAC(kfac, mesh, params)

@@ -186,8 +186,8 @@ def test_imagenet_directory_reader_is_not_ported(tmp_path):
         datasets.get_imagenet(str(tmp_path))
 
 
-@pytest.mark.parametrize('kwargs', [{'dtype': torch.bfloat16},
-                                    {'dtype': torch.float16,
+@pytest.mark.parametrize('kwargs', [{'dtype': torch.float64},
+                                    {'dtype': torch.float64,
                                      'remat': True}])
 def test_unported_model_options_raise(kwargs):
     with pytest.raises(NotImplementedError):

@@ -213,7 +213,8 @@ def jax_reference(name, flax_params, x_nhwc, y):
     _, comm, frac, _, knobs = _case(name)
     kfac = JKFAC(jax_small_cnn(), **COMMON, **knobs,
                  **bf16_knobs(jnp.bfloat16))
-    kfac.init(jax.random.PRNGKey(0), jnp.asarray(x_nhwc))
+    # Registration is a side effect of tracing the init.
+    jax.eval_shape(kfac.init, jax.random.PRNGKey(0), jnp.asarray(x_nhwc))
     mesh = JD.make_kfac_mesh(
         devices=jax.devices()[:WORLD],
         comm_method=JCommMethod[comm.upper().replace('-', '_')],

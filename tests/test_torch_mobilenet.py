@@ -113,7 +113,7 @@ def test_parameter_count_and_registration():
     assert kinds['fc'] == 'linear' and len(kinds) == 28
     assert all('bn' in name for name in kfac.capture.skipped_modules)
     with pytest.raises(NotImplementedError, match='dtype'):
-        mobilenet.MobileNetV1(dtype=torch.bfloat16)
+        mobilenet.MobileNetV1(dtype=torch.float64)
 
 
 def test_conversion_round_trips(jax_variables):

@@ -191,7 +191,8 @@ def test_remat_model_matches_jax_remat_model():
     jmodel = jres.ImageNetResNet(stage_sizes=STAGES, num_classes=CLASSES,
                                  width=WIDTH, remat=True)
     jkfac = JKFAC(jmodel, **HYPER)
-    variables, kstate = jkfac.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    variables, kstate = jax.jit(jkfac.init)(jax.random.PRNGKey(0),
+                                            jnp.asarray(x))
     params = variables['params']
     extra = {'batch_stats': variables['batch_stats']}
 

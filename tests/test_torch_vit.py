@@ -166,7 +166,7 @@ def test_vit_rejects_other_inputs_and_options():
     with pytest.raises(ValueError, match='divisible'):
         vit.VisionTransformer(**SMALL, image_size=30)
     with pytest.raises(NotImplementedError, match='dtype'):
-        vit.VisionTransformer(**SMALL, dtype=torch.bfloat16)
+        vit.VisionTransformer(**SMALL, dtype=torch.float64)
 
 
 # ---------------------------------------------------------------------------
