@@ -107,14 +107,14 @@ Phases (any failure exits nonzero and prints no result line):
      finite losses, no jacobi_eigh launch;
  11. ResNet-32 under ``--eigh-method jacobi``: 11 steps, finite losses,
      jacobi_eigh 9 per firing besides phase 5's per-step launches;
- 12. the result (printed after phases 13-36): a JSON line of
+ 12. the result (printed after phases 13-39): a JSON line of
      per-kernel numbers (K1-K3 per ResNet-50 step, K4 per ResNet-50 firing, K5
      per LSTM firing, under ``transformer_xl`` K1 and K3 per XL step and K4 per
      XL firing, under ``resnet152_config5`` K1-K3 per config-5 step, and under
      ``vit_small`` and ``mobilenet_v1`` K1-K3 per ViT-S/16 and MobileNetV1
      step, under ``resnet50_fp16`` K1 and K2 per ResNet-50 ``--fp16`` step
      on its own captures; launches summed over phases 5-7, 9-11 and
-     13-36), the card line,
+     13-39), the card line,
      then ``{"ok": true, "device": {...}}`` as the last line;
  13. distributed, NCCL at world size 1: phase 6's ResNet-50 run through
      ``train_imagenet_resnet.train`` inside a one-rank NCCL group
@@ -142,11 +142,13 @@ Phases (any failure exits nonzero and prints no result line):
      entry), every rank's launches must equal what the work assignment
      predicts (K1 33 and K2 31 per step; K3 one per gradient shape its
      row owns; K5 one per bucket it holds a slot of, per firing), and
-     the step times print labelled as gloo through host memory. Phases
-     14, 24 and 26 and phase 31's gloo world run at once, at phase 14's
-     place (their sixteen ranks share the card and the host; their step
-     times are each other's neighbours'), their lines printed in that
-     order;
+     the step times print labelled as gloo through host memory. Phase
+     14, phase 31's gloo world and phase 39's run at once, at phase 14's
+     place, with phase 37's ``eigen`` run beside them (their ranks share
+     the card and the host; their step times are each other's
+     neighbours'), their lines printed in that order; phases 24 and 26
+     run one after the other once phase 28's worlds are done, beside
+     phase 27's ResNet-50 runs, their lines printed after phase 28's;
  15. main path, Transformer-XL LM: ``train_language_model.train`` with
      ``--arch transformer`` at d 1024, 18 blocks, 16 heads, MLP 4096,
      tied, synthetic vocabulary 32,768, BPTT 1024, batch 4, dropout 0,
@@ -331,8 +333,9 @@ Phases (any failure exits nonzero and prints no result line):
      once, then the two relaunches; rank 0's step-save ms under the group
      are printed. The phases' launches come from each run's
      ``--launch-counts`` file and join the result line's. Phases 27 and
-     28 run at once (phase 28's worlds beside phase 27's ResNet-50 runs),
-     phase 28's lines printed after phase 27's.
+     28 run at once (phase 28's worlds beside phase 27's ResNet-50 runs,
+     then phases 24 and 26 there), phase 28's lines printed after phase
+     27's.
 
  29. gradient accumulation at ResNet-50 width: the ImageNet CLI
      (in process), 224 px, batch 256 as ``--grad-accum 4`` (micro-batches
@@ -421,8 +424,35 @@ Phases (any failure exits nonzero and prints no result line):
      ``engine.train_step`` steps each on one fixed batch: finite, falling
      losses, phases 32-33's launches per step, step ms and peak beside
      theirs.
-     Phases 34-36 print their seconds. The script ends with every phase
-     header's wall time, largest first.
+     Phases 34-36 print their seconds.
+ 37. the randomized low-rank inverse at XL: phase 15's run with
+     ``--inv-lowrank-rank 256`` (threshold 2048: mlp_in's G and mlp_out's
+     A take rank-256 truncated eigenpairs), 12 steps under ``auto``
+     (firings at 0 and 10): the two layers mixed, their truncated side
+     baked, phase 15's launches per step (every bucket through K3's
+     baked path); non-firing and step-10 firing ms, the peak and the
+     inverse bytes beside phase 15's; block 0's mlp_in G decomposed from
+     its carried basis on the card and on the CPU, the damped operators
+     ``I/l + Q diag(1/(d + l) - 1/l) Q^T`` within 1e-4 of the CPU's
+     largest entry; and 6 steps under ``--inverse-method eigen`` (run
+     beside phase 14's worlds, above): K3 on the (1024, 1025) eigen
+     bucket alone, the two truncated buckets by stock torch;
+ 38. config 5 with ``--inv-lowrank-rank 256``: phase 23's ResNet-152
+     run, 12 steps: the buckets with a side of 2048 or more by stock
+     torch, the others through K3 (launches K1 157, K2 155 and K3 those
+     buckets per step), losses finite and falling; the step-10 firing,
+     the window mean and the inverse bytes beside phase 23's;
+ 39. multi-slice, in the wave of phase 14 (above): 4 gloo ranks on the
+     card as 2 slices x 2, ResNet-32 as phase 14 runs it, 5 steps with
+     inverses every 2 (``eigen``, the library eigh): the hierarchical
+     reduce against the flat one on the same layout, every rank's factors
+     at every window head, gradients and ``nu`` at every step within
+     phase 14's tolerances; then a low-rank case on 2 slices (threshold
+     512, rank 32: the 576-wide A sides engage), rank 0 against the
+     single-device ``KFAC`` (factors 1e-5, gradients by relative norm
+     5e-3, ``nu`` 1e-3); every rank's launches equal its assignment (K3
+     on the buckets without a truncated side).
+     The script ends with every phase header's wall time, largest first.
 
 ``--quick`` builds with ``-Xptxas -v`` and runs only the correctness
 checks of phases 3, 4 and 8 (a first call after a kernel change).
@@ -441,6 +471,8 @@ phases 29-31 alone (``chiprun_out/chip_smoke_accum.json``);
 and phases 32-33 alone (``chiprun_out/chip_smoke_models.json``);
 ``--fp16-only`` builds and runs phase 3's ResNet-50 ``--fp16`` cases and
 phases 34-36 alone (``chiprun_out/chip_smoke_fp16.json``);
+``--lowrank-only`` builds and runs phases 37-39 alone
+(``chiprun_out/chip_smoke_lowrank.json``);
 ``--determinism-probe`` (alone
 or before ``--resume-only``'s phases) runs phase 27's uninterrupted
 ResNet-50 twice without ``--deterministic`` and compares the final
@@ -4364,12 +4396,16 @@ def run_determinism_probe(card: str) -> dict:
             'nonfiring_ms': ms, 'seconds': seconds}
 
 
-def run_resume_phases(card: str) -> dict:
+def run_resume_phases(card: str, after_28=()) -> dict:
     """Phases 27 and 28 at once, with their wall time; this process's
     cached device memory is released first (the phases' subprocesses share
     the card). Phase 28's gloo worlds run in a thread beside phase 27's
     ResNet-50 runs (neither times anything the other perturbs but its own
-    runs' walls and saves); its lines are printed after phase 27's."""
+    runs' walls and saves); its lines are printed after phase 27's.
+    ``after_28``: ``(fn, *args)`` calls of subprocess gloo worlds run one
+    after the other in phase 28's thread once its worlds are done, on the
+    host cores phase 27's tail (three ResNet-50 runs on the card) leaves
+    idle; their results are ``out['after_28']``."""
     import shutil
     import tempfile
     import torch
@@ -4378,10 +4414,19 @@ def run_resume_phases(card: str) -> dict:
     free = shutil.disk_usage(tempfile.gettempdir()).free
     log(f'== checkpoint and resume, phases 27 and 28 at once ('
         f'{free / 2**30:.1f} GiB free in {tempfile.gettempdir()}, '
-        f'{torch.cuda.mem_get_info()[0] / 2**30:.1f} GiB on the card)')
-    resnet50, gloo_world = at_once((run_resume_resnet50, card),
-                                   (run_resume_gloo_world, card))
+        f'{torch.cuda.mem_get_info()[0] / 2**30:.1f} GiB on the card)'
+        + (f'; {len(after_28)} more gloo worlds after phase 28\'s'
+           if after_28 else ''))
+
+    def worlds():
+        return [run_resume_gloo_world(card)] + [fn(*args)
+                                                for fn, *args in after_28]
+
+    resnet50, (gloo_world, *more) = at_once((run_resume_resnet50, card),
+                                            (worlds,))
     out = {'resume_resnet50': resnet50, 'resume_gloo_world': gloo_world}
+    if after_28:
+        out['after_28'] = more
     seconds = time.perf_counter() - t0
     log(f'  phases 27-28: {seconds:.1f} s wall ({card})')
     out['resume_seconds'] = seconds
@@ -6041,6 +6086,422 @@ def run_fp16_phases(card: str, refs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 37-39: the randomized low-rank inverse and the multi-slice world
+# ---------------------------------------------------------------------------
+
+# Phase 37: phase 15's XL run under --inv-lowrank-rank 256 at the default
+# threshold 2048: mlp_in's G (4096) and mlp_out's A (4097) take rank-256
+# truncated eigenpairs. Under 'auto' both layers are mixed (the other side
+# a Cholesky inverse), bake the truncated side, and keep K3's baked path:
+# the launches are phase 15's. Then LOWRANK_XL_EIGEN_STEPS steps under
+# --inverse-method eigen, where the two truncated buckets run the stock
+# precondition and K3 runs the (1024, 1025) eigen bucket alone. One engaged
+# factor's next decomposition, on the card and on the CPU from the same
+# factor and carried basis: the damped operators within
+# LOWRANK_OPERATOR_TOL of the CPU's largest entry.
+LOWRANK_RANK, LOWRANK_THRESHOLD = 256, 2048
+LOWRANK_XL_EIGEN_STEPS = 6
+LOWRANK_OPERATOR_TOL = 1e-4
+# Phase 39: 4 gloo ranks as 2 slices x 2 at ResNet-32 width, inverses every
+# 2 (window heads at steps 0, 2, 4). The hierarchical reduce against the
+# flat one on the same layout (COMM_OPT: a slice is one row of two ranks):
+# two DistributedKFACs on one model, both fed each step's captures of the
+# same weights, which follow the flat run (the trajectory is shared, so
+# the two differ only by their reductions); then a low-rank case on 2
+# slices (HYBRID_OPT 0.5: four global rows of one rank) at threshold 512,
+# rank 32, so that the 576-wide stage-3 A sides (64 x 3 x 3, no bias)
+# engage, held against the single-device KFAC on the full batch.
+SLICE_GLOO_CASES = (  # (name, comm_method, fraction, knobs, grid)
+    ('flat', 'comm-opt', 0.0, {}, (2, 2)),
+    ('hierarchical', 'comm-opt', 0.0, {'hierarchical_reduce': True},
+     (2, 2)),
+    ('lowrank', 'hybrid-opt', 0.5,
+     {'inv_lowrank_rank': 32, 'inv_lowrank_dim_threshold': 512}, (4, 1)))
+SLICE_STEPS, SLICE_INV_FREQ, SLICE_COUNT = 5, 2, 2
+# The low-rank case against the single-device KFAC: the warm subspace step
+# carries the fp32 summation-order noise of the factors into the
+# preconditioned gradients (tests/test_torch_lowrank_dist.py: up to 7e-4
+# by relative norm on the CPU), so each layer is held by relative norm.
+SLICE_LOWRANK_TOL = {'factors': 1e-5, 'precond_norm': 5e-3, 'nu': 1e-3}
+
+
+def _operator_check(factor, basis, damping: float) -> dict:
+    """One engaged factor's next low-rank decomposition from its carried
+    basis, on the card and on the CPU (``linalg.lowrank_eigh``), each
+    turned into the damped operator ``I/l + Q diag(1/(d + l) - 1/l)
+    Q^T``; their largest difference over the CPU's largest entry, and the
+    card's time for the call."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.ops import linalg
+    f = factor.float()
+    q = basis.float()
+
+    def operator(dev):
+        qs, ds = linalg.lowrank_eigh(f.to(dev), q.shape[-1],
+                                     q_prev=q.to(dev))
+        return linalg.eigen_side_inverse(qs, ds, damping).double().cpu()
+
+    gpu = operator('cuda')
+    cpu = operator('cpu')
+    err = float((gpu - cpu).abs().max() / cpu.abs().max())
+    ms = time_ms(lambda: linalg.lowrank_eigh(f, q.shape[-1], q_prev=q),
+                 reps=3, trials=3, warmup=1)
+    return {'rel_err': err, 'lowrank_eigh_ms': ms, 'dim': f.shape[-1],
+            'rank': q.shape[-1]}
+
+
+LOWRANK_XL = {'inv_lowrank_rank': LOWRANK_RANK,
+              'inv_lowrank_dim_threshold': LOWRANK_THRESHOLD}
+
+
+def run_transformer_xl_lowrank(card: str, xl: dict | None) -> dict:
+    """Phase 37: the XL LM CLI with ``--inv-lowrank-rank 256``, 12 steps
+    under ``auto`` (firings at steps 0 and 10; phase 15's launches, every
+    bucket baked) and the operator check on block 0's mlp_in G. Its
+    ``--inverse-method eigen`` run is :func:`run_transformer_xl_lowrank_
+    eigen`."""
+    res, launches, state = _run_tlm('transformer-xl low-rank',
+                                    _xl_config(**LOWRANK_XL), XL_PER_STEP, 2)
+    kfac, kst = state.kfac, state.kfac_state
+    d = XL_D
+    inv = kst['inverses']
+    shapes = {'mlp_in QG': tuple(inv['block0.mlp_in']['QG'].shape),
+              'mlp_out QA': tuple(inv['block0.mlp_out']['QA'].shape)}
+    want = {'mlp_in QG': (4 * d, LOWRANK_RANK),
+            'mlp_out QA': (4 * d + 1, LOWRANK_RANK)}
+    baked = all(k in inv['block0.mlp_in'] for k in ('G_inv', 'A_inv'))
+    if shapes != want or not baked \
+            or kfac.method_for_dim(4 * d) != 'lowrank' \
+            or kfac.method_for_dim(d + 1) != 'cholesky':
+        raise AssertionError(f'xl low-rank: bases {shapes}, mixed layer '
+                             f'baked {baked}')
+    check = _operator_check(kst['factors']['block0.mlp_in']['G'],
+                            inv['block0.mlp_in']['QG'], kfac.damping)
+    if not check['rel_err'] <= LOWRANK_OPERATOR_TOL:
+        raise AssertionError(f'xl low-rank: the card\'s damped operator '
+                             f'{check["rel_err"]:.2e} off the CPU\'s')
+    inverse_bytes = sum(t.numel() * t.element_size()
+                        for e in inv.values() for t in e.values())
+    del state, kfac, kst, inv
+    _release()
+    firing, plain = _step_ms(res)
+    summary = {'losses': res['losses'], 'launches': launches,
+               'step_ms': res['step_ms'], 'firing_ms': firing,
+               'nonfiring_ms_median': statistics.median(plain),
+               'peak_gib': res['peak_gib'], 'inverse_bytes': inverse_bytes,
+               'operator': check}
+    ref = xl or {}
+    log(f'  low-rank {LOWRANK_RANK}, auto: ms/step non-firing '
+        f'{summary["nonfiring_ms_median"]:.2f} (phase 15 '
+        f'{ref.get("nonfiring_ms_median", float("nan")):.2f}), step-10 '
+        f'firing {firing[0]:.1f} (phase 15 '
+        f'{(ref.get("firing_ms") or [float("nan")])[0]:.1f}); peak '
+        f'{res["peak_gib"]:.2f} GiB (phase 15 '
+        f'{ref.get("peak_gib", float("nan")):.2f}); inverses '
+        f'{inverse_bytes / 1e9:.3f} GB (phase 15 '
+        f'{ref.get("inverse_bytes", float("nan")) / 1e9:.3f}) ({card})')
+    log(f'  block0.mlp_in G ({check["dim"]}, rank {check["rank"]}): the '
+        f'next firing\'s damped operator on the card vs the CPU '
+        f'{check["rel_err"]:.2e} (limit {LOWRANK_OPERATOR_TOL:.0e}); '
+        f'lowrank_eigh {check["lowrank_eigh_ms"]:.2f} ms on the card')
+    return summary
+
+
+def run_transformer_xl_lowrank_eigen(card: str) -> dict:
+    """Phase 37, its second run: LOWRANK_XL_EIGEN_STEPS steps of the XL
+    LM CLI with ``--inv-lowrank-rank 256 --inverse-method eigen``, one
+    firing: K3 on the one full-rank eigen bucket per step, the two
+    truncated buckets by stock torch, mlp_in's slots an unmixed eigenpair
+    with the (4096, 256) basis. In the full script it runs beside phase
+    14's worlds (subprocesses: the launch counts stay its own), so its
+    step ms are those of a shared host."""
+    d = XL_D
+    res, launches, state = _run_tlm(
+        'transformer-xl low-rank eigen',
+        _xl_config(inverse_method='eigen',
+                   max_steps=LOWRANK_XL_EIGEN_STEPS, **LOWRANK_XL),
+        {**XL_PER_STEP, 'bucket_precond': 1}, 1)
+    entry = state.kfac_state['inverses']['block0.mlp_in']
+    slots = {k: tuple(t.shape) for k, t in entry.items()}
+    if set(slots) != {'QA', 'dA', 'QG', 'dG'} \
+            or slots['QG'] != (4 * d, LOWRANK_RANK):
+        raise AssertionError(f'xl low-rank eigen: mlp_in slots {slots}')
+    del state, entry
+    _release()
+    plain = res['step_ms'][1:]
+    summary = {'losses': res['losses'], 'launches': launches,
+               'step_ms': res['step_ms'],
+               'nonfiring_ms_median': statistics.median(plain),
+               'peak_gib': res['peak_gib']}
+    log(f'  phase 37, low-rank {LOWRANK_RANK} under eigen, '
+        f'{LOWRANK_XL_EIGEN_STEPS} steps: ms/step non-firing '
+        f'{summary["nonfiring_ms_median"]:.2f} (median of {len(plain)}; K3 '
+        f'on the ({d}, {d + 1}) bucket, the two truncated buckets by stock '
+        f'torch), step 0 {res["step_ms"][0]:.1f}; peak '
+        f'{res["peak_gib"]:.2f} GiB ({card})')
+    return summary
+
+
+def run_resnet152_lowrank(card: str, r152: dict, c5: dict | None) -> dict:
+    """Phase 38: phase 23's config 5 (ResNet-152, 224 px, batch 64,
+    ``--bf16-factors``, ``eigen``) with ``--inv-lowrank-rank 256``, 12
+    steps: the shape buckets with a side of 2048 or more precondition by
+    stock torch, the others through K3; losses finite and falling; the
+    step-10 firing, the window mean (steps 1-10: nine plain steps and the
+    firing) and the inverse-state bytes beside phase 23's."""
+    k3 = sum(1 for (g, a), _ in r152['buckets']
+             if g < LOWRANK_THRESHOLD and a < LOWRANK_THRESHOLD)
+
+    def inspect(state):
+        kfac = state.kfac
+        engaged = sorted({int(t.shape[-2]) for e in
+                          state.kfac_state['inverses'].values()
+                          for k, t in e.items() if k.startswith('Q')
+                          and t.shape[-1] == LOWRANK_RANK
+                          and t.shape[-2] != LOWRANK_RANK})
+        if engaged != sorted(d for d in engaged
+                             if kfac.method_for_dim(d) == 'lowrank') \
+                or not engaged:
+            raise AssertionError(f'config 5 low-rank: engaged dims {engaged}')
+        return {'engaged_dims': engaged}
+
+    run = _r152_run(f'low-rank {LOWRANK_RANK}', card, R152_STEPS, k3,
+                    inspect=inspect,
+                    bf16_factors=True, inv_lowrank_rank=LOWRANK_RANK,
+                    inv_lowrank_dim_threshold=LOWRANK_THRESHOLD)
+    losses = run['losses']
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not last < first:
+        raise AssertionError(f'config 5 low-rank: loss did not decrease: '
+                             f'first three {first:.4f}, last three '
+                             f'{last:.4f}')
+    window = statistics.mean(run['step_ms'][1:R50_FIRE_EVERY + 1])
+    run.update(k3_buckets=k3, stock_buckets=len(r152['buckets']) - k3,
+               window_mean_ms=window)
+    exact = (c5 or {}).get('bf16_factors') or {}
+    exact_window = (statistics.mean(exact['step_ms'][1:R50_FIRE_EVERY + 1])
+                    if exact else float('nan'))
+    run['exact'] = {'firing_ms': exact.get('firing_ms'),
+                    'window_mean_ms': exact_window,
+                    'inverse_bytes': exact.get('inverse_bytes'),
+                    'nonfiring_ms_median': exact.get('nonfiring_ms_median')}
+    log(f'  config 5 low-rank {LOWRANK_RANK} (engaged dims '
+        f'{run["engaged_dims"]}; K3 '
+        f'on {k3} buckets, {run["stock_buckets"]} by stock torch): step-10 '
+        f'firing {run["firing_ms"][0]:.1f} ms (phase 23 '
+        f'{(exact.get("firing_ms") or [float("nan")])[0]:.1f}), window '
+        f'mean {window:.2f} (phase 23 {exact_window:.2f}), non-firing '
+        f'{run["nonfiring_ms_median"]:.2f} (phase 23 '
+        f'{exact.get("nonfiring_ms_median", float("nan")):.2f}); inverses '
+        f'{run["inverse_bytes"] / 1e9:.3f} GB (phase 23 '
+        f'{exact.get("inverse_bytes", float("nan")) / 1e9:.3f}) ({card})')
+    return run
+
+
+def slice_dist_worker(cfg: dict) -> int:
+    """One rank of phase 39 (``chip_smoke.py --dist-worker CONFIG``, phase
+    ``'resnet32_slices'``): ResNet-32 as phase 14 runs it, as slice
+    ``rank // 2`` of two. First the flat and the hierarchical
+    ``DistributedKFAC`` side by side on one model, each step's captures
+    taken for both from the same weights, the weights stepped with the
+    flat run's gradients: the hierarchical factors at every window head,
+    every step's gradients and ``nu`` held to the flat run's at STEP_TOL.
+    Then the low-rank case, rank 0 holding it against the single-device
+    ``KFAC`` on the full batch (SLICE_LOWRANK_TOL). Each run's launches,
+    counted around its own steps, must equal its assignment."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    from distributed_kfac_pytorch_tpu_torch.parallel.distributed import \
+        DistributedKFAC
+    from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
+    from distributed_kfac_pytorch_tpu_torch.training import engine
+
+    rank, dev, x, y, local, model, init = _gloo_resnet32(cfg, 300)
+    common = dict(inverse_method='eigen', eigh_method='xla',
+                  factor_update_freq=1, inv_update_freq=SLICE_INV_FREQ,
+                  damping=0.003, lr=0.1, kl_clip=0.001, device=dev)
+    report = {'rank': rank, 'cases': []}
+    failures = []
+
+    def world(name):
+        _, comm, frac, knobs, grid = next(c for c in SLICE_GLOO_CASES
+                                          if c[0] == name)
+        kfac = KFAC(model, **common, **knobs)
+        dk = DistributedKFAC(kfac, comm_method=comm,
+                             grad_worker_fraction=frac,
+                             num_slices=SLICE_COUNT)
+        return {'name': name, 'grid': grid, 'kfac': kfac, 'dk': dk,
+                'state': dk.init_state(), 'work': dk.local_work(),
+                'launches': dict.fromkeys(kernels.LAUNCHES, 0),
+                'step_ms': [], 'records': []}
+
+    def step_world(w, step):
+        kfac, dk = w['kfac'], w['dk']
+        flags = engine.kfac_step_flags(engine.cadence_flags(
+            step, 1, SLICE_INV_FREQ, deferred_reduce=kfac.window_reduce))
+        _, _, grads, captures = kfac.capture.loss_and_grads(
+            lambda out: F.cross_entropy(out, y[local]), x[local])
+        grads = dict(zip(grads, engine.world_mean(list(grads.values()))))
+        torch.cuda.synchronize()
+        dist.barrier()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        precond, w['state'] = dk.step(w['state'], grads, captures, **flags)
+        torch.cuda.synchronize()
+        w['step_ms'].append((time.perf_counter() - t0) * 1e3)
+        for k, v in kernels.LAUNCHES.items():
+            w['launches'][k] += v
+        w['records'].append({'factors': w['state']['factors'],
+                             'precond': precond, 'nu': dk.last_nu.clone()})
+        return precond, flags
+
+    def finish(w, errors=()):
+        work = w['work']
+        expected = dict.fromkeys(kernels.LAUNCHES, 0)
+        expected.update({
+            'factor_ema': R32_PER_STEP_K1 * SLICE_STEPS,
+            'patch_cov': R32_PER_STEP_K2 * SLICE_STEPS,
+            'bucket_precond': len(work['precondition']) * SLICE_STEPS})
+        dk = w['dk']
+        if w['launches'] != expected:
+            failures.append(f'{w["name"]}: rank {rank} launches '
+                            f'{w["launches"]}, expected {expected} from the '
+                            'assignment')
+        if (dk.n_rows, dk.n_cols) != w['grid']:
+            failures.append(f'{w["name"]}: grid {(dk.n_rows, dk.n_cols)}')
+        report['cases'].append({
+            'name': w['name'], 'grid': [dk.n_rows, dk.n_cols],
+            'slice': dk.groups.slice, 'row': dk.row, 'col': dk.col,
+            'work': {k: [list(s) if isinstance(s, tuple) else s
+                         for s in v] for k, v in work.items()},
+            'launches': w['launches'], 'expected': expected,
+            'errors': list(errors), 'step_ms': w['step_ms']})
+        w['kfac'].capture.close()
+
+    model.load_state_dict(init)
+    flat, hier = world('flat'), world('hierarchical')
+    for step in range(SLICE_STEPS):
+        precond, _ = step_world(flat, step)
+        step_world(hier, step)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p -= 0.1 * precond[n]
+    heads = [s for s in range(SLICE_STEPS) if s % SLICE_INV_FREQ == 0]
+    fr, hr = flat['records'], hier['records']
+    vs_flat = {
+        'factors': _max_rel((hr[s]['factors'][n][k], fr[s]['factors'][n][k])
+                            for s in heads for n in fr[s]['factors']
+                            for k in 'AG'),
+        'precond': _max_rel((hr[s]['precond'][n], fr[s]['precond'][n])
+                            for s in range(SLICE_STEPS)
+                            for n in fr[s]['precond']),
+        'nu': _max_rel((hr[s]['nu'], fr[s]['nu'])
+                       for s in range(SLICE_STEPS))}
+    bad = {k: v for k, v in vs_flat.items() if not v <= STEP_TOL[k]}
+    if bad:
+        failures.append(f'hierarchical vs flat: {bad}')
+    report['hierarchical_vs_flat'] = vs_flat
+    finish(flat)
+    finish(hier)
+
+    model.load_state_dict(init)
+    low = world('lowrank')
+    if not low['work']['stock_precondition'] and rank == 0:
+        failures.append('lowrank: rank 0 holds no truncated bucket')
+    ref = ref_state = None
+    if rank == 0:
+        ref = KFAC(model, **common, **next(
+            c[3] for c in SLICE_GLOO_CASES if c[0] == 'lowrank'))
+        ref_state = ref.init_state()
+    errors = []
+    for step in range(SLICE_STEPS):
+        precond, flags = step_world(low, step)
+        if ref is not None:
+            _, _, g_full, c_full = ref.capture.loss_and_grads(
+                lambda out: F.cross_entropy(out, y), x)
+            p_ref, ref_state = ref.step(ref_state, g_full, c_full, **flags)
+            norms = [float((precond[n] - p_ref[n]).norm()
+                           / p_ref[n].norm().clamp_min(1e-30))
+                     for n in p_ref]
+            err = {'factors': _max_rel(
+                       (low['state']['factors'][n][s],
+                        ref_state['factors'][n][s])
+                       for n in ref.specs for s in 'AG'),
+                   'precond_norm': max(norms),
+                   'nu': _max_rel([(low['dk'].last_nu, ref.last_nu)])}
+            errors.append(err)
+            bad = {k: v for k, v in err.items()
+                   if not v <= SLICE_LOWRANK_TOL[k]}
+            if bad:
+                failures.append(f'lowrank step {step}: {bad}')
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p -= 0.1 * precond[n]
+    finish(low, errors)
+    if ref is not None:
+        ref.capture.close()
+    report['failures'] = failures
+    Path(cfg['out']).write_text(json.dumps(report, indent=1))
+    dist.destroy_process_group()
+    return 1 if failures else 0
+
+
+def run_slice_gloo_world(card: str) -> dict:
+    """Phase 39: GLOO_WORLD ranks of :func:`slice_dist_worker` on the card
+    as SLICE_COUNT slices; fails if any rank fails."""
+    log(f'  phase 39: ResNet-32, {GLOO_WORLD} ranks on one card over gloo '
+        f'as {SLICE_COUNT} slices: the flat and the hierarchical reduce side '
+        f'by side, then low-rank; {SLICE_STEPS} steps each, inverses every '
+        f'{SLICE_INV_FREQ}')
+    t0 = time.perf_counter()
+    reports = _run_gloo_ranks('resnet32_slices', timeout=600)
+    for rep in reports:
+        v = rep['hierarchical_vs_flat']
+        log(f'    rank {rep["rank"]} (slice {rep["cases"][0]["slice"]}): '
+            f'hierarchical vs flat reduce, factors at the window heads '
+            f'{v["factors"]:.2e}, gradients {v["precond"]:.2e}, nu '
+            f'{v["nu"]:.2e} (limits {STEP_TOL}); launches = assignment in '
+            f'every case: ' + '; '.join(
+                f'{c["name"]} row {c["row"]} col {c["col"]} '
+                f'{ {k: n for k, n in c["launches"].items() if n} }'
+                for c in rep['cases']))
+    lowrank = next(c for c in reports[0]['cases'] if c['name'] == 'lowrank')
+    worst = {k: max(e[k] for e in lowrank['errors'])
+             for k in SLICE_LOWRANK_TOL}
+    log(f'  low-rank on {SLICE_COUNT} slices (grid {lowrank["grid"]}; stock '
+        f'precondition {lowrank["work"]["stock_precondition"]}): rank 0 vs '
+        f'single-device KFAC, worst of {len(lowrank["errors"])} steps: '
+        f'factors {worst["factors"]:.2e}, gradients (relative norm) '
+        f'{worst["precond_norm"]:.2e}, nu {worst["nu"]:.2e} (limits '
+        f'{SLICE_LOWRANK_TOL})')
+    total = _launch_total(reports)
+    seconds = time.perf_counter() - t0
+    log(f'  all ranks: launches {total}; phase 39: {seconds:.1f} s wall '
+        f'({card})')
+    return {'launches': total, 'ranks': reports, 'seconds': seconds,
+            'lowrank_worst': worst}
+
+
+def run_lowrank_phases(card: str, refs: dict) -> dict:
+    """Phases 37-38 (phase 37's ``eigen`` run and phase 39 run in the wave
+    of phase 14's worlds); ``refs`` holds phase 15's and phase 23's
+    summaries they print beside theirs (None in ``--lowrank-only``)."""
+    log(f'== Transformer-XL LM --inv-lowrank-rank {LOWRANK_RANK} (threshold '
+        f'{LOWRANK_THRESHOLD}: mlp_in G and mlp_out A engage), {XL_STEPS} '
+        'steps auto')
+    out = {'transformer_xl_lowrank': run_transformer_xl_lowrank(
+        card, refs.get('transformer_xl'))}
+    log(f'== config 5 --inv-lowrank-rank {LOWRANK_RANK}: ResNet-152, 224 px, '
+        f'batch {R50_BATCH}, --bf16-factors --inverse-method eigen, '
+        f'{R152_STEPS} steps on one batch')
+    out['resnet152_lowrank'] = run_resnet152_lowrank(
+        card, resnet_shapes('resnet152'), refs.get('resnet152_config5'))
+    return out
+
+
 def _category(name: str) -> str:
     """Coarse owner of a CUDA kernel, from its (mangled) name."""
     n = name.lower()
@@ -6249,6 +6710,9 @@ def main(argv=None) -> int:
     ap.add_argument('--fp16-only', action='store_true',
                     help="build, then run phase 3's fp16 ResNet-50 cases "
                          'and phases 34-36 only (no result line)')
+    ap.add_argument('--lowrank-only', action='store_true',
+                    help='build, then run phases 37-39 only (no result '
+                         'line)')
     ap.add_argument('--determinism-probe', action='store_true',
                     help="build, then measure what phase 27's "
                          '--deterministic buys and costs (no result '
@@ -6262,6 +6726,7 @@ def main(argv=None) -> int:
         cfg = json.loads(args.dist_worker)
         return {'lm': lm_dist_worker, 'seq': seq_dist_worker,
                 'resnet32_overlap': overlap_dist_worker,
+                'resnet32_slices': slice_dist_worker,
                 'resnet32gn_accum': accum_dist_worker}.get(
             cfg['phase'], dist_worker)(cfg)
     if not torch.cuda.is_available():
@@ -6303,6 +6768,20 @@ def main(argv=None) -> int:
         out_dir = ROOT / 'chiprun_out'
         out_dir.mkdir(exist_ok=True)
         (out_dir / 'chip_smoke_fp16.json').write_text(
+            json.dumps(report, indent=1))
+        log('done')
+        return 0
+    if args.lowrank_only:
+        report = {'card': card, **run_lowrank_phases(card, {})}
+        log(f'== phase 37\'s eigen run: {LOWRANK_XL_EIGEN_STEPS} steps')
+        report['transformer_xl_lowrank_eigen'] = \
+            run_transformer_xl_lowrank_eigen(card)
+        log(f'== phase 39: {SLICE_COUNT} slices x 2 gloo ranks of ResNet-32 '
+            'on the card')
+        report['slice_gloo_world'] = run_slice_gloo_world(card)
+        out_dir = ROOT / 'chiprun_out'
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / 'chip_smoke_lowrank.json').write_text(
             json.dumps(report, indent=1))
         log('done')
         return 0
@@ -6402,13 +6881,16 @@ def main(argv=None) -> int:
         log(f'== distributed: ResNet-50 as phase 6 in a one-rank NCCL '
             f'group, comm-opt, {R50_STEPS} steps')
         report['resnet50_nccl_world1'] = run_resnet50_nccl(card, r50)
-        log(f'== phases 14, 24 and 26 and phase 31\'s world at once, each '
-            f'{GLOO_WORLD} gloo ranks of ResNet-32 on the card (their lines '
-            'in that order)')
-        (report['gloo_world'], report['bf16_gloo_world'],
-         report['overlap_gloo_world'], accum_world) = at_once(
-            (run_gloo_world, card), (run_bf16_gloo_world, card),
-            (run_overlap_gloo_world, card), (run_accum_gloo_world, card))
+        log(f'== phase 14, phase 31\'s world and phase 39 at once, each '
+            f'{GLOO_WORLD} gloo ranks of ResNet-32 on the card, and phase '
+            f'37\'s eigen run ({LOWRANK_XL_EIGEN_STEPS} XL steps) beside them '
+            '(their lines in that order; phases 24 and 26 run after phase '
+            '28, beside phase 27)')
+        (report['gloo_world'], accum_world, report['slice_gloo_world'],
+         report['transformer_xl_lowrank_eigen']) = at_once(
+            (run_gloo_world, card), (run_accum_gloo_world, card),
+            (run_slice_gloo_world, card),
+            (run_transformer_xl_lowrank_eigen, card))
         log(f'== main path: Transformer-XL LM (d {XL_D}, {XL_LAYERS} blocks, '
             f'vocabulary {XL_VOCAB}, tied), BPTT {XL_BPTT}, batch '
             f'{XL_BATCH}, auto, {XL_STEPS} steps on one batch')
@@ -6455,10 +6937,15 @@ def main(argv=None) -> int:
         report['firing_schedule'] = run_firing_schedule(
             card, r152, report['resnet152_config5'],
             {k: summary152[k]['ms'] for k in ('factor_ema', 'patch_cov')})
-        report.update(run_resume_phases(card))
+        resume = run_resume_phases(card, after_28=(
+            (run_overlap_gloo_world, card), (run_bf16_gloo_world, card)))
+        report['overlap_gloo_world'], report['bf16_gloo_world'] = \
+            resume.pop('after_28')
+        report.update(resume)
         report.update(run_accum_phases(card, accum_world))
         report.update(run_model_phases(card))
         report.update(run_fp16_phases(card, report))
+        report.update(run_lowrank_phases(card, report))
         runs = (main_summary, r50, report['resnet50_auto'],
                 report['lstm_jacobi'], report['lm_defaults'],
                 report['resnet32_jacobi'], report['resnet50_nccl_world1'],
@@ -6475,7 +6962,10 @@ def main(argv=None) -> int:
                 report['remat'], report['precise_bn'],
                 report['accum_gloo_world'], report['mobilenet'],
                 report['vit'], report['resnet50_fp16'],
-                report['transformer_xl_fp16'], report['bf16_models'])
+                report['transformer_xl_fp16'], report['bf16_models'],
+                report['slice_gloo_world'], report['transformer_xl_lowrank'],
+                report['transformer_xl_lowrank_eigen'],
+                report['resnet152_lowrank'])
         launches = {name: sum(r['launches'].get(name, 0) for r in runs)
                     for name in kernels.LAUNCHES}
         aggs = {**summary50, 'ns_inverse': summary_ns,

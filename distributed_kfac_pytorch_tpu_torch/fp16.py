@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from distributed_kfac_pytorch_tpu_torch import resolve_device
+
 
 def _tensor_finite(x: torch.Tensor) -> torch.Tensor:
     """A device bool scalar: every element of ``x`` is finite. One pass
@@ -80,9 +82,12 @@ def sanitize_captures(captures: dict) -> tuple[dict, torch.Tensor]:
     return out, count
 
 
-def init_loss_scale(initial: float = 2.0 ** 15, device=None) -> dict:
+def init_loss_scale(initial: float = 2.0 ** 15, device='cuda') -> dict:
     """Fresh dynamic-loss-scale state (the AMP defaults): an fp32
-    ``scale`` and an int32 ``growth_count``, device scalars."""
+    ``scale`` and an int32 ``growth_count``, device scalars on ``device``
+    (default ``'cuda'``: raises without a CUDA device unless ``'cpu'`` is
+    passed, as every entry point does)."""
+    device = resolve_device(device)
     return {'scale': torch.tensor(initial, dtype=torch.float32,
                                   device=device),
             'growth_count': torch.zeros((), dtype=torch.int32,

@@ -10,10 +10,14 @@ package's ``Precision.HIGHEST``.
 The Brent--Luk Jacobi eigh (:func:`jacobi_eigh`) is the plain version of
 the Jacobi kernel (``ops.kernels.batched_jacobi_eigh``, K5).
 
+The randomized low-rank path (:func:`lowrank_eigh`, the *Randomized
+K-FACs* recipe) keeps a rank-``r`` truncated eigenpair ``Q (n, r)``, ``d
+(r,)`` of a large factor; every precondition function takes such a
+*truncated* basis beside full-rank ones, with the discarded tail's
+eigenvalues taken as 0 (the damping-only complement ``I / l`` on it).
+
 The precondition functions take the JAX ``compute_dtype`` (None, fp32 or
 bf16 operands, fp32 accumulation) and read slots stored in bf16 widened.
-Not ported yet: the randomized low-rank path and the truncated
-precondition branches.
 """
 
 from __future__ import annotations
@@ -25,9 +29,8 @@ def decomposition_cost(dim: int, count: int = 1,
                        rank: int | None = None) -> float:
     """Cost proxy of decomposing ``count`` SPD matrices of ``dim``: the
     ``dim^3`` scaling every dense factorization here shares, the cost
-    model of the KAISA work balancer (``assignment_strategy='compute'``).
-    ``rank`` (a low-rank decomposition, which the port does not run yet)
-    makes it ``rank * dim^2``."""
+    model of the chunk planners; ``rank`` (a low-rank decomposition,
+    :func:`lowrank_eigh`) makes it ``rank * dim^2``."""
     if rank:
         return float(count) * float(rank) * float(dim) ** 2
     return float(count) * float(dim) ** 3
@@ -252,6 +255,81 @@ def batched_eigh(stack: torch.Tensor, method: str = 'xla',
     return qs, ds
 
 
+def lowrank_sketch(n: int, rank: int, seed: int = 0,
+                   device='cuda') -> torch.Tensor:
+    """The cold path's Gaussian test matrix ``(n, rank)``: drawn from a
+    CPU ``torch.Generator`` seeded with ``seed``, then moved to
+    ``device`` (default ``'cuda'``; the CPU when asked for), so the CPU
+    and the card draw the same values."""
+    from distributed_kfac_pytorch_tpu_torch import resolve_device
+    gen = torch.Generator().manual_seed(int(seed))
+    return torch.randn(n, rank, generator=gen).to(resolve_device(device))
+
+
+def lowrank_eigh(a: torch.Tensor, rank: int,
+                 q_prev: torch.Tensor | None = None,
+                 power_iters: int = 2, polish_iters: int = 8,
+                 seed: int = 0, sketch: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rank-``rank`` truncated eigendecomposition of SPD matrices (any
+    leading batch dims): ``(Q, d)`` with ``Q (..., n, rank)`` orthonormal
+    columns and ``d (..., rank)`` their Rayleigh eigenvalues. The JAX
+    ``lowrank_eigh``, batched.
+
+    Warm (``q_prev``, the carried ``(..., n, rank)`` bases): one subspace
+    step ``Q0 = orth(A q_prev)`` by QR, one projection ``B0 = Q0^T A Q0``,
+    :func:`eigh_polish` of the ``rank x rank`` ``B0`` from the identity
+    (``polish_iters`` iterations), then ``Q = Q0 Z`` (eigenvalues in
+    tracked order). Cold: ``Y = A S`` for the Gaussian sketch ``S``
+    (:func:`lowrank_sketch` of ``seed``, the same for every matrix of the
+    batch; ``sketch``, a port-only argument, passes another draw, such
+    as the JAX package's), ``power_iters`` steps ``Y <- A orth(Y)``, then
+    a Rayleigh--Ritz ``eigh`` of ``Q0^T A Q0`` (ascending). Every product
+    is fp32 (the port's entry points turn TF32 off). Raises unless ``0 <
+    rank < n``.
+    """
+    a = a.float()
+    n = a.shape[-1]
+    if not 0 < rank < n:
+        raise ValueError(
+            f'lowrank_eigh needs 0 < rank < dim, got rank={rank} dim={n}')
+    if q_prev is not None:
+        q0, _ = torch.linalg.qr(a @ q_prev.float())
+        b0 = q0.mT @ (a @ q0)
+        b0 = 0.5 * (b0 + b0.mT)
+        eye = torch.eye(rank, dtype=torch.float32, device=a.device)
+        z, d = eigh_polish(b0, eye.expand_as(b0), iters=polish_iters)
+        return q0 @ z, d
+    if sketch is None:
+        sketch = lowrank_sketch(n, rank, seed, a.device)
+    y = a @ sketch.float()
+    for _ in range(max(0, power_iters)):
+        q0, _ = torch.linalg.qr(y)
+        y = a @ q0
+    q0, _ = torch.linalg.qr(y)
+    b = q0.mT @ (a @ q0)
+    d, u = torch.linalg.eigh(0.5 * (b + b.mT))
+    return q0 @ u, d
+
+
+def batched_lowrank_eigh(stack: torch.Tensor, rank: int,
+                         q_prev: torch.Tensor | None = None,
+                         power_iters: int = 2, polish_iters: int = 8,
+                         clip: float | None = 0.0, seed: int = 0,
+                         sketch: torch.Tensor | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`lowrank_eigh` of a ``(B, n, n)`` stack, warm from the
+    ``(B, n, rank)`` ``q_prev`` or cold from the sketch, with the
+    eigenvalues floored at ``clip``: ``(Q (B, n, rank), d (B, rank))``."""
+    qs, ds = lowrank_eigh(stack, rank, q_prev=q_prev,
+                          power_iters=power_iters,
+                          polish_iters=polish_iters, seed=seed,
+                          sketch=sketch)
+    if clip is not None:
+        ds = torch.clamp(ds, min=clip)
+    return qs, ds
+
+
 def get_inverse(x: torch.Tensor, damping=None) -> torch.Tensor:
     """Damped SPD inverse ``(x + damping I)^-1`` in fp32 by Cholesky: a
     triangular solve of the factor against ``I``, then ``inv_l^T @
@@ -310,10 +388,10 @@ def get_elementwise_inverse(v: torch.Tensor, damping=None) -> torch.Tensor:
     return torch.where(nonzero, 1.0 / torch.where(nonzero, v, 1.0), 0.0)
 
 
-def _require_square(q: torch.Tensor) -> None:
-    if q.shape[-1] != q.shape[-2]:
-        raise NotImplementedError(
-            'truncated (low-rank) eigenbases are not ported yet')
+def truncated_side(q: torch.Tensor) -> bool:
+    """Whether an eigenbasis is truncated: ``(..., n, r)`` with ``r <
+    n`` (:func:`lowrank_eigh`)."""
+    return q.shape[-1] < q.shape[-2]
 
 
 def _precond_operand(compute_dtype):
@@ -334,27 +412,38 @@ def precondition_eigen(grad: torch.Tensor, qa: torch.Tensor,
                        qg: torch.Tensor, da: torch.Tensor, dg: torch.Tensor,
                        damping, compute_dtype=None) -> torch.Tensor:
     """Eigenbasis preconditioning ``QG ((QG^T grad QA) / (dG dA^T + l))
-    QA^T`` (full-rank bases), returning fp32.
+    QA^T``, returning fp32.
 
     ``compute_dtype`` None reads every operand widened to fp32 (the
     default path); ``torch.float32`` / ``torch.bfloat16`` round the four
     products' operands as :func:`_precond_operand` says, in the JAX
     association ``QG^T (grad QA)`` and ``QG (V2 QA^T)``, while the damping
     quotient stays fp32 on the stored (possibly bf16-rounded)
-    eigenvalues."""
-    _require_square(qa)
-    _require_square(qg)
+    eigenvalues.
+
+    With a truncated side (:func:`truncated_side`) the discarded tail's
+    eigenvalues are 0, and the quotient splits into the captured block and
+    a damping-only complement: ``grad / l + QG (C / (dG dA^T + l) - C / l)
+    QA^T`` for ``C = QG^T grad QA`` (the complement in fp32, the thin
+    products' operands rounded as above). A square / square pair keeps
+    the formula above."""
+    truncated = truncated_side(qa) or truncated_side(qg)
     if compute_dtype is None:
         qa, qg = qa.float(), qg.float()
         v1 = qg.mT @ grad.float() @ qa
         v2 = v1 / (dg.float()[..., :, None] * da.float()[..., None, :]
                    + damping)
-        return qg @ v2 @ qa.mT
+        if not truncated:
+            return qg @ v2 @ qa.mT
+        return grad.float() / damping + qg @ (v2 - v1 / damping) @ qa.mT
     r = _precond_operand(compute_dtype)
     qa, qg = r(qa), r(qg)
     v1 = qg.mT @ (r(grad) @ qa)
     denom = dg.float()[..., :, None] * da.float()[..., None, :] + damping
-    return qg @ (r(v1 / denom) @ qa.mT)
+    if not truncated:
+        return qg @ (r(v1 / denom) @ qa.mT)
+    mid = r(v1 / denom - v1 / damping)
+    return grad.float() / damping + qg @ (mid @ qa.mT)
 
 
 def precondition_inv(grad: torch.Tensor, a_inv: torch.Tensor,
@@ -384,10 +473,15 @@ def precondition_diag_a(grad: torch.Tensor, a_inv_diag: torch.Tensor,
 
 def eigen_side_inverse(q: torch.Tensor, d: torch.Tensor,
                        damping) -> torch.Tensor:
-    """Damped inverse from an eigendecomposition:
-    ``Q diag(1/(d + l)) Q^T`` (full-rank bases)."""
-    _require_square(q)
+    """Damped inverse from an eigendecomposition: ``Q diag(1/(d + l))
+    Q^T``; for a truncated ``(n, r)`` basis the inverse of the operator
+    whose tail eigenvalues are 0, ``I / l + Q diag(1/(d + l) - 1/l)
+    Q^T``."""
     q = q.float()
+    if truncated_side(q):
+        eye = torch.eye(q.shape[-2], dtype=torch.float32, device=q.device)
+        scale = 1.0 / (d.float() + damping) - 1.0 / damping
+        return eye / damping + (q * scale[..., None, :]) @ q.mT
     return (q * (1.0 / (d.float() + damping))[..., None, :]) @ q.mT
 
 
@@ -401,21 +495,31 @@ def precondition_dispatch(grad: torch.Tensor, entry: dict, damping,
     ``diag_a``: the diagonal A inverse of an embedding layer (damping
     baked in); ``entry`` then supplies the G side, baked (``G_inv``,
     :func:`precondition_diag_a`) or eigen (``diag_a[:, None] * ((grad QG)
-    / (dG + damping)) QG^T``). ``compute_dtype`` reaches every branch (the
-    JAX ``precondition_dispatch``); slots may be stored in bf16."""
+    / (dG + damping)) QG^T``; a truncated ``QG`` adds the complement,
+    ``diag_a[:, None] * (grad / l + (V - grad QG / l) QG^T)`` for that
+    ``V``). ``compute_dtype`` reaches every branch (the JAX
+    ``precondition_dispatch``); slots may be stored in bf16."""
     if diag_a is not None:
         if 'G_inv' in entry:
             return precondition_diag_a(grad, diag_a, entry['G_inv'],
                                        compute_dtype=compute_dtype)
-        _require_square(entry['QG'])
+        truncated = truncated_side(entry['QG'])
         dg = entry['dG'].float()[None, :]
         if compute_dtype is None:
             qg = entry['QG'].float()
-            v = (grad.float() @ qg) / (dg + damping)
+            v1 = grad.float() @ qg
+            v = v1 / (dg + damping)
+            if truncated:
+                return diag_a.float()[:, None] * (
+                    grad.float() / damping + (v - v1 / damping) @ qg.T)
             return diag_a.float()[:, None] * (v @ qg.T)
         r = _precond_operand(compute_dtype)
         qg = r(entry['QG'])
-        v = (r(grad) @ qg) / (dg + damping)
+        v1 = r(grad) @ qg
+        v = v1 / (dg + damping)
+        if truncated:
+            return diag_a.float()[:, None] * (
+                grad.float() / damping + r(v - v1 / damping) @ qg.T)
         return diag_a.float()[:, None] * (r(v) @ qg.T)
     if 'A_inv' not in entry and 'G_inv' not in entry:
         return precondition_eigen(grad, entry['QA'], entry['QG'],

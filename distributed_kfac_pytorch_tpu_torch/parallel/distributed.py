@@ -73,8 +73,28 @@ runs one flat fp32 ``all_reduce`` of the accumulators; ``inv_staleness``
 fires from the replicated ``frozen_factors``; ``factor_batch_fraction``
 thins each rank's own captures.
 
-Not ported: hierarchical factor reduction, the quarantine gates, metrics
-and the non-finite guard (the ``KFAC`` knobs raise by name).
+The randomized low-rank inverse (``KFAC(inv_lowrank_rank=r)``): a bucket
+whose dim takes the ``'lowrank'`` method holds ``(slots_per_row, dim, r)``
+bases and ``(slots_per_row, r)`` eigenvalues, decomposed by
+``linalg.batched_lowrank_eigh`` warm from the stored bases, gathered by the
+same masked-sum ``all_reduce``; the chunk planner costs it ``r dim^2``, and
+a shape group with such a side is preconditioned by stock torch, not K3.
+
+Multi-slice (``num_slices = S > 1``, the JAX package's outer slice axis):
+slice ``s`` is the contiguous run of ranks ``[s W/S, (s+1) W/S)``, and the
+grid above is built within each slice. Work is placed over the global row
+space of ``S x rows_per_slice`` rows (global row ``s * rows_per_slice +
+r``), so a row's inverse group never leaves its slice; a column group
+spans every slice (one rank of each global row), so only the delivery of
+preconditioned gradients crosses slices. ``KFAC(hierarchical_reduce=True)``
+averages each factor step's contributions within the slice (one flat
+``all_reduce`` over the slice) into a per-slice accumulator, and the window
+head averages the accumulators across slices (one flat fp32 ``all_reduce``
+over the ranks of the same in-slice index), then blends as the deferred
+head does. ``num_slices=1`` is the flat path.
+
+Not ported: the quarantine gates and metrics (the ``KFAC`` knob raises by
+name).
 """
 
 from __future__ import annotations
@@ -89,6 +109,7 @@ import torch.distributed as dist
 from distributed_kfac_pytorch_tpu_torch import layers as L
 from distributed_kfac_pytorch_tpu_torch.capture import CONV2D_GROUPED, \
     EMBEDDING
+from distributed_kfac_pytorch_tpu_torch.multislice import mesh as slices
 from distributed_kfac_pytorch_tpu_torch.ops import factors as F
 from distributed_kfac_pytorch_tpu_torch.ops import kernels, linalg
 from distributed_kfac_pytorch_tpu_torch.parallel.placement import (
@@ -109,6 +130,7 @@ from distributed_kfac_pytorch_tpu_torch.preconditioner import (
     measured_unit_scale,
     overlay_overlap_state,
     plan_inverse_chunks,
+    truncated_entry,
 )
 
 
@@ -301,8 +323,9 @@ def plan_firing_chunks(kfac: KFAC, assignment: WorkAssignment
     ``KFAC``'s firings are not pipelined.
 
     The work unit is a within-column slot offset ``('slot', dim, m)`` of a
-    bucket: firing it costs each rank of a row the one slot at ``col *
-    slots_per_col + m``, so a chunk's load per rank is what the
+    bucket (cost ``dim^3``, ``r dim^2`` for a low-rank bucket): firing it
+    costs each rank of a row the one slot at ``col * slots_per_col + m``,
+    so a chunk's load per rank is what the
     pipelining spreads. An embedding's diagonal A is an item ``('diag',
     layer)`` and a grouped conv's block stacks one ``('grouped', layer)``
     (cost ``G (da^3 + dg^3)``). The items are packed onto
@@ -324,7 +347,8 @@ def plan_firing_chunks(kfac: KFAC, assignment: WorkAssignment
     for dim in sorted(buckets):
         plan = buckets[dim]
         unit = (float(measured[dim]) / plan.slots_per_col
-                if dim in measured else linalg.decomposition_cost(dim))
+                if dim in measured else linalg.decomposition_cost(
+                    dim, rank=kfac.lowrank_rank_for(dim)))
         for m in range(plan.slots_per_col):
             items.append((('slot', dim, m), unit))
     for name in assignment.diag_layers:
@@ -376,54 +400,95 @@ def item_chunk_plan(assignment: WorkAssignment, chunk_plan: dict
 
 @dataclasses.dataclass(frozen=True)
 class KFACGroups:
-    """This rank's place in the grid and its two process groups (``None``
+    """This rank's place in the grid and its process groups (``None``
     where the group is this rank alone: no collective runs there). The
-    ranks are world ranks."""
+    ranks are world ranks; ``row`` is the global row (``slice *
+    rows_per_slice`` + the row within the slice). ``slice_ranks`` /
+    ``cross_ranks`` are this rank's slice and the ranks of its in-slice
+    index in every slice (both groups exist only with more than one
+    slice)."""
     row: int
     col: int
     inv_ranks: tuple[int, ...]      # this rank's row
     grad_ranks: tuple[int, ...]     # this rank's column (strided)
     inv_group: Any
     grad_group: Any
+    slice: int = 0
+    slice_ranks: tuple[int, ...] = ()
+    cross_ranks: tuple[int, ...] = ()
+    slice_group: Any = None
+    cross_group: Any = None
 
 
 def make_kfac_groups(allocator: WorkerAllocator,
-                     seq_parallel: int = 1) -> KFACGroups:
+                     seq_parallel: int = 1,
+                     num_slices: int = 1) -> KFACGroups:
     """Create the grid's process groups and return this rank's.
 
-    ``allocator`` places the ``W / seq_parallel`` K-FAC ranks; world rank
-    ``r`` is K-FAC rank ``r // seq_parallel`` at sequence index ``r %
-    seq_parallel``, and every row and column group exists once per
-    sequence index. ``dist.new_group`` is collective: every rank creates
-    every row group and then every column group of more than one rank, in
-    the same order, whether or not it is a member.
+    The world is ``num_slices`` contiguous slices of ``P = W /
+    num_slices`` ranks (``multislice.slice_rank_groups``). ``allocator``
+    places the ``P / seq_parallel`` K-FAC ranks of one slice; world rank
+    ``s P + l`` is K-FAC rank ``l // seq_parallel`` of slice ``s`` at
+    sequence index ``l % seq_parallel``. Row groups exist once per slice
+    and sequence index, column groups once per sequence index and span
+    every slice. With more than one slice there is also one group per
+    slice and one cross-slice group per in-slice index.
+    ``dist.new_group`` is collective: every rank creates every group of
+    more than one rank (row groups, column groups, slice groups, then
+    cross-slice groups), in the same order, whether or not it is a member.
     """
     if not dist.is_initialized():
         raise RuntimeError('make_kfac_groups needs an initialized process '
                            'group (launch.initialize_distributed)')
     rank, world = dist.get_rank(), dist.get_world_size()
-    if allocator.size * seq_parallel != world:
+    slice_groups = slices.slice_rank_groups(world, num_slices)
+    per = world // num_slices
+    if allocator.size * seq_parallel != per:
         raise ValueError(f'allocator of {allocator.size} ranks x '
-                         f'{seq_parallel} sequence ranks for a world of '
-                         f'{world}')
-    kfac_rank, seq_index = divmod(rank, seq_parallel)
+                         f'{seq_parallel} sequence ranks x {num_slices} '
+                         f'slices for a world of {world}')
+    slice_id, local = divmod(rank, per)
+    kfac_rank, seq_index = divmod(local, seq_parallel)
 
-    def world_ranks(ranks, j):
-        return tuple(k * seq_parallel + j for k in ranks)
+    def world_ranks(ranks, j, in_slices):
+        return tuple(s * per + k * seq_parallel + j
+                     for s in in_slices for k in ranks)
 
     made = {}
-    for ranks in allocator.bcast_inv_ranks + allocator.bcast_grad_ranks:
+
+    def make(key):
+        if len(key) > 1 and key not in made:
+            made[key] = dist.new_group(list(key))
+
+    for s in range(num_slices):
+        for ranks in allocator.bcast_inv_ranks:
+            for j in range(seq_parallel):
+                make(world_ranks(ranks, j, (s,)))
+    every = range(num_slices)
+    for ranks in allocator.bcast_grad_ranks:
         for j in range(seq_parallel):
-            key = world_ranks(ranks, j)
-            if len(key) > 1 and key not in made:
-                made[key] = dist.new_group(list(key))
-    inv_ranks = world_ranks(allocator.get_inv_ranks(kfac_rank), seq_index)
-    grad_ranks = world_ranks(allocator.get_grad_ranks(kfac_rank), seq_index)
-    return KFACGroups(row=allocator.inv_group_index(kfac_rank),
+            make(world_ranks(ranks, j, every))
+    cross = tuple(tuple(s * per + i for s in every) for i in range(per))
+    if num_slices > 1:
+        for key in slice_groups + cross:
+            make(key)
+    inv_ranks = world_ranks(allocator.get_inv_ranks(kfac_rank), seq_index,
+                            (slice_id,))
+    grad_ranks = world_ranks(allocator.get_grad_ranks(kfac_rank),
+                             seq_index, every)
+    many = num_slices > 1
+    return KFACGroups(row=(slice_id * allocator.inv_groups
+                           + allocator.inv_group_index(kfac_rank)),
                       col=allocator.grad_group_index(kfac_rank),
                       inv_ranks=inv_ranks, grad_ranks=grad_ranks,
                       inv_group=made.get(inv_ranks),
-                      grad_group=made.get(grad_ranks))
+                      grad_group=made.get(grad_ranks),
+                      slice=slice_id,
+                      slice_ranks=slice_groups[slice_id] if many else (),
+                      cross_ranks=cross[local] if many else (),
+                      slice_group=made.get(slice_groups[slice_id])
+                      if many else None,
+                      cross_group=made.get(cross[local]) if many else None)
 
 
 def _all_reduce_sum(tensors: list[torch.Tensor], group) -> list:
@@ -452,8 +517,12 @@ class DistributedKFAC:
     Embeddings (tied or not) and every ``kfac_approx`` of the wrapped
     ``KFAC`` run as they do there.
 
+    ``num_slices`` (default 1): contiguous slices of the world, each with
+    its own grid, placed over the global row space (module docstring);
+    ``KFAC(hierarchical_reduce=True)`` needs more than one.
+
     ``seq_parallel`` (default 1): ranks per sequence group, which must
-    divide the world; the grid is laid over the ``W / seq_parallel``
+    divide a slice; the grid is laid over the slice's ``P / seq_parallel``
     K-FAC ranks. Each rank then captures its ``(batch, sequence)`` tile
     (``launch.process_local_tile``; the ring makes its captures those of
     the whole sequence's loss). Under ``'reduce'`` each rank reduces over
@@ -465,7 +534,8 @@ class DistributedKFAC:
                  comm_method: CommMethod | str | None = None,
                  grad_worker_fraction: float | None = None,
                  distribute_layer_factors: bool | None = None,
-                 seq_parallel: int = 1):
+                 seq_parallel: int = 1,
+                 num_slices: int = 1):
         if not dist.is_initialized():
             raise RuntimeError('DistributedKFAC needs an initialized process '
                                'group (launch.initialize_distributed)')
@@ -479,15 +549,25 @@ class DistributedKFAC:
                     else grad_worker_fraction)
         # The whole world averages the factors and the gradients.
         self.world_size = dist.get_world_size()
-        if self.world_size % seq_parallel:
-            raise ValueError(f'{seq_parallel=} does not divide world size '
-                             f'{self.world_size}')
+        per = len(slices.slice_rank_groups(self.world_size,
+                                           num_slices)[0])
+        if kfac.hierarchical_reduce and num_slices == 1:
+            raise ValueError(
+                'hierarchical_reduce=True requires num_slices > 1: on a '
+                'flat world there is no slice boundary to defer over')
+        if per % seq_parallel:
+            raise ValueError(f'{seq_parallel=} does not divide the {per} '
+                             'ranks of each slice')
         self.seq_parallel = seq_parallel
-        dp = self.world_size // seq_parallel
+        self.num_slices = num_slices
+        dp = per // seq_parallel
         gw = resolve_grad_workers(dp, self.comm_method, fraction)
         self.allocator = WorkerAllocator(dp, gw / dp)
-        self.groups = make_kfac_groups(self.allocator, seq_parallel)
-        self.n_rows, self.n_cols = self.allocator.inv_groups, gw
+        self.groups = make_kfac_groups(self.allocator, seq_parallel,
+                                       num_slices)
+        # Rows are global: num_slices x the rows of one slice.
+        self.rows_per_slice = self.allocator.inv_groups
+        self.n_rows, self.n_cols = num_slices * self.rows_per_slice, gw
         self.row, self.col = self.groups.row, self.groups.col
         self.distribute_layer_factors = (
             self.n_cols > 1 if distribute_layer_factors is None
@@ -583,13 +663,17 @@ class DistributedKFAC:
         ``'jacobi'``) of one firing on this rank: one per bucket it holds
         slots of, and while firings are pipelined one per bucket and
         chunk; with ``chunk``, one per bucket it holds a slot of in that
-        chunk."""
+        chunk. Low-rank buckets launch neither."""
+        def exact(dim):
+            return self.kfac.method_for_dim(dim) != 'lowrank'
         if chunk is not None:
-            return sum(bool(work[0])
-                       for work in self._chunk_rows[chunk].values())
+            return sum(bool(work[0]) for dim, work
+                       in self._chunk_rows[chunk].items() if exact(dim))
         if self._chunk_plan is None:
-            return sum(bool(cell) for cell in self._cells.values())
-        return sum(len(g) for g in self._chunk_cells.values())
+            return sum(bool(cell) for dim, cell in self._cells.items()
+                       if exact(dim))
+        return sum(len(g) for dim, g in self._chunk_cells.items()
+                   if exact(dim))
 
     def _layer_is_mixed(self, name: str) -> bool:
         if self.specs[name].kind == EMBEDDING:
@@ -601,10 +685,19 @@ class DistributedKFAC:
     def local_work(self) -> dict:
         """What this rank launches (the same on every rank of its K-FAC
         rank): ``'decompose'``, the bucket dims it decomposes at a firing
-        (it holds an assigned slot), and ``'precondition'``, the gradient
-        shapes its row preconditions."""
+        (it holds an assigned slot), ``'precondition'``, the gradient
+        shapes its row preconditions through K3, and
+        ``'stock_precondition'``, those it preconditions by stock torch
+        (a low-rank side beside an eigen one)."""
+        kfac = self.kfac
+        stock = [shape for shape, *_ in self._row_groups
+                 if all(eigen_family(kfac.method_for_dim(d)) for d in shape)
+                 and any(kfac.method_for_dim(d) == 'lowrank'
+                         for d in shape)]
         return {'decompose': [d for d, cell in self._cells.items() if cell],
-                'precondition': [shape for shape, *_ in self._row_groups]}
+                'precondition': [shape for shape, *_ in self._row_groups
+                                 if shape not in stock],
+                'stock_precondition': stock}
 
     # -- state ---------------------------------------------------------
 
@@ -614,7 +707,8 @@ class DistributedKFAC:
         rank), a zero ``diag_inv`` per embedding and zero ``grouped_inv``
         block stacks per grouped conv (replicated) and this rank's row of
         each bucket, ``(slots_per_row, dim, dim)``: identity ``Q`` and unit
-        ``d`` for eigen buckets (plus a zero ``inv`` where a mixed layer
+        ``d`` for eigen buckets (a low-rank bucket: ``r`` identity columns
+        and ``r`` unit eigenvalues; plus a zero ``inv`` where a mixed layer
         bakes its eigen side), zero ``inv`` for baked ones; and the
         firing-schedule state of the ``KFAC``'s knobs (as
         ``KFAC.init_state``: this rank's zero accumulator,
@@ -640,16 +734,14 @@ class DistributedKFAC:
         stacks = {}
         for dim, plan in self.assignment.buckets.items():
             n = plan.slots_per_row
-            if eigen_family(self.kfac.method_for_dim(dim)):
-                entry = {'Q': torch.eye(dim, dtype=idt, device=dev
-                                        ).repeat(n, 1, 1),
-                         'd': torch.ones((n, dim), dtype=idt, device=dev)}
-                if self._bucket_mixed.get(dim):
-                    entry['inv'] = torch.zeros((n, dim, dim), dtype=idt,
-                                               device=dev)
-            else:
-                entry = {'inv': torch.zeros((n, dim, dim), dtype=idt,
-                                            device=dev)}
+            entry = {}
+            for key in self._stack_keys(dim):
+                shape = (n, *self._slot_shape(dim, key))
+                entry[key] = (
+                    torch.eye(*shape[1:], dtype=idt, device=dev).repeat(
+                        n, 1, 1) if key == 'Q' else
+                    torch.ones(shape, dtype=idt, device=dev) if key == 'd'
+                    else torch.zeros(shape, dtype=idt, device=dev))
             stacks[str(dim)] = entry
         return self.kfac._seed_overlap_state(
             {'step': 0, 'factors': factors, 'inv_stacks': stacks,
@@ -664,6 +756,23 @@ class DistributedKFAC:
         conv A, a tied embedding's attend-site parts kept apart until
         :meth:`update_factors` has scaled them)."""
         return self.kfac.local_factor_contribs(captures)
+
+    def _flat_mean(self, parts: list, group, size: int) -> list:
+        """The mean of fp32 ``parts`` over the ``size`` ranks of ``group``
+        (None: the world) as one flat ``all_reduce``, each 2-D part
+        triangle-packed with ``symmetry_aware_comm``; a group of one rank
+        runs no collective."""
+        packed = self.kfac.symmetry_aware_comm
+        wire = [F.pack_symmetric(t) if packed and t.ndim == 2 else t
+                for t in parts]
+        sizes = [t.numel() for t in wire]
+        flat = torch.cat([t.reshape(-1) for t in wire])
+        if size > 1:
+            dist.all_reduce(flat, group=group)
+            flat /= size
+        return [F.unpack_symmetric(v.view(sent.shape), t.shape[-1])
+                if sent is not t else v.view(t.shape)
+                for v, sent, t in zip(flat.split(sizes), wire, parts)]
 
     def update_factors(self, state: dict, contribs: dict,
                        factor_decay=None) -> dict:
@@ -724,9 +833,24 @@ class DistributedKFAC:
         blend_contribs``). ``c`` takes the scale :meth:`update_factors`
         gives the world's mean (the output-grad-quadratic parts times
         ``1/W^2``), so that the window head's mean of the accumulators is
-        the eager recursion's value. Returns ``(new_accum, new_decay)``."""
+        the eager recursion's value. Returns ``(new_accum, new_decay)``.
+
+        Under ``hierarchical_reduce`` the contributions are first averaged
+        over this rank's slice (one flat fp32 ``all_reduce``), so every rank
+        of a slice folds the slice's mean into the same accumulator (through
+        ``KFAC.blend_contribs``)."""
         kfac = self.kfac
         alpha = kfac.factor_decay if factor_decay is None else factor_decay
+        if kfac.hierarchical_reduce:
+            if contribs is None:
+                contribs = self.local_factor_contribs(captures)
+            keys = [(n, k) for n in self.specs for k in contribs[n]]
+            means = self._flat_mean([contribs[n][k].float() for n, k in keys],
+                                    self.groups.slice_group,
+                                    len(self.groups.slice_ranks))
+            contribs = {n: {} for n in self.specs}
+            for (n, k), m in zip(keys, means):
+                contribs[n][k] = m
         quad = 1.0 / self.world_size ** 2
         acc = (kfac.blend_contribs(state['factor_accum'], contribs, alpha,
                                    quad_scale=quad)
@@ -736,24 +860,19 @@ class DistributedKFAC:
         return acc, alpha * state['accum_decay']
 
     def reduce_factors(self, state: dict, acc: dict, decay) -> dict:
-        """Deferred-reduction window head: one flat fp32 ``all_reduce`` of
-        every rank's accumulator over the world (each 2-D part
-        triangle-packed with ``symmetry_aware_comm``), then ``F <- decay
-        F + mean(acc)``, blended in fp32 and rounded once to the storage
-        dtype."""
-        packed = self.kfac.symmetry_aware_comm
-        w = self.world_size
+        """Window head of the deferred reduction: one flat fp32
+        ``all_reduce`` of every rank's accumulator over the world (each 2-D
+        part triangle-packed with ``symmetry_aware_comm``), then ``F <-
+        decay F + mean(acc)``, blended in fp32 and rounded once to the
+        storage dtype. Under ``hierarchical_reduce`` the accumulators hold
+        slice means, and the ``all_reduce`` runs over the ranks of this
+        rank's in-slice index across the slices."""
         parts = [acc[n][s].float() for n in self.specs for s in 'AG']
-        wire = [F.pack_symmetric(t) if packed and t.ndim == 2 else t
-                for t in parts]
-        sizes = [t.numel() for t in wire]
-        flat = torch.cat([t.reshape(-1) for t in wire])
-        dist.all_reduce(flat)
-        if w > 1:
-            flat /= w
-        means = [F.unpack_symmetric(v.view(sent.shape), t.shape[-1])
-                 if sent is not t else v.view(t.shape)
-                 for v, sent, t in zip(flat.split(sizes), wire, parts)]
+        if self.kfac.hierarchical_reduce:
+            means = self._flat_mean(parts, self.groups.cross_group,
+                                    self.num_slices)
+        else:
+            means = self._flat_mean(parts, None, self.world_size)
         olds = [state['factors'][n][s] for n in self.specs for s in 'AG']
         new = [(decay * o.float() + m).to(o.dtype)
                for o, m in zip(olds, means)]
@@ -813,8 +932,8 @@ class DistributedKFAC:
         stacks = {}
         for dim, plan in self.assignment.buckets.items():
             n = plan.slots_per_row
-            entry = {key: torch.zeros((n, dim) if key == 'd'
-                                      else (n, dim, dim), device=dev)
+            entry = {key: torch.zeros((n, *self._slot_shape(dim, key)),
+                                      device=dev)
                      for key in self._stack_keys(dim)}
             groups = (list(self._chunk_cells[dim].values()) if pipelined
                       else [(self._cells[dim], self._cell_idx[dim])]
@@ -850,11 +969,20 @@ class DistributedKFAC:
             return ('inv',)
         return ('Q', 'd', 'inv') if self._bucket_mixed.get(dim) else ('Q', 'd')
 
+    def _slot_shape(self, dim: int, key: str) -> tuple[int, ...]:
+        """The shape of one slot of a bucket's stack ``key``: ``(dim, r)``
+        bases and ``(r,)`` eigenvalues (``r = dim`` unless the bucket is
+        low-rank), ``(dim, dim)`` baked inverses."""
+        r = self.kfac.lowrank_rank_for(dim) or dim
+        return {'Q': (dim, r), 'd': (r,), 'inv': (dim, dim)}[key]
+
     def _decompose(self, dim: int, cells: list, idx, factors: dict,
                    damping, prev_stacks: dict | None) -> dict:
         """Decompose the factors of ``cells`` (``(in-row slot, key)``) as
         one stack: ``{stack key: (len(cells), ...) fp32}``; ``idx`` (their
-        slots, a device index) picks the warm polish's previous bases."""
+        slots, a device index) picks the warm polish's previous bases. A
+        low-rank bucket runs ``linalg.batched_lowrank_eigh``, warm from
+        the stored bases whatever ``eigh_method`` says."""
         kfac = self.kfac
         method = linalg.resolve_eigh_method(kfac.eigh_method)
         bucket_method = kfac.method_for_dim(dim)
@@ -864,10 +992,17 @@ class DistributedKFAC:
             return {'inv': kernels.damped_inverse_stack(
                 local, damping, bucket_method, iters=kfac.newton_iters)}
         q_prev = None
-        if prev_stacks is not None and method == 'auto':
+        lowrank = bucket_method == 'lowrank'
+        if prev_stacks is not None and (lowrank or method == 'auto'):
             q_prev = prev_stacks[str(dim)]['Q'][idx].float()
-        q, d = linalg.batched_eigh(local, method, clip=0.0, q_prev=q_prev,
-                                   polish_iters=kfac.eigh_polish_iters)
+        if lowrank:
+            q, d = linalg.batched_lowrank_eigh(
+                local, kfac.inv_lowrank_rank, q_prev=q_prev,
+                polish_iters=kfac.eigh_polish_iters)
+        else:
+            q, d = linalg.batched_eigh(local, method, clip=0.0,
+                                       q_prev=q_prev,
+                                       polish_iters=kfac.eigh_polish_iters)
         out = {'Q': q, 'd': d}
         if self._bucket_mixed.get(dim):
             out['inv'] = linalg.eigen_side_inverse(q, d, damping)
@@ -887,8 +1022,8 @@ class DistributedKFAC:
         dev = self.device
         parts, targets = [], []
         for dim, (cells, idx, pos, fired) in self._chunk_rows[chunk].items():
-            sub = {key: torch.zeros((len(fired), dim) if key == 'd'
-                                    else (len(fired), dim, dim), device=dev)
+            sub = {key: torch.zeros((len(fired), *self._slot_shape(dim, key)),
+                                    device=dev)
                    for key in self._stack_keys(dim)}
             if cells:
                 out = self._decompose(dim, cells, idx, factors, damping,
@@ -923,9 +1058,10 @@ class DistributedKFAC:
     # -- preconditioning -----------------------------------------------
 
     def precondition(self, state: dict, grads: dict, damping, lr) -> dict:
-        """Precondition this row's layers (K3 per shape group; each
-        embedding with its diagonal A inverse from ``state['diag_inv']``; each
-        grouped conv with its block stacks from ``state['grouped_inv']``),
+        """Precondition this row's layers (K3 per shape group, stock torch
+        for a group with a low-rank side; each embedding with its diagonal
+        A inverse from ``state['diag_inv']``; each grouped conv with its
+        block stacks from ``state['grouped_inv']``),
         deliver every layer's result over the column, and apply the KL-clip
         scale ``nu = min(1, sqrt(kl_clip / |sum lr^2 v.g|))``;
         unregistered gradients pass through."""
@@ -947,7 +1083,7 @@ class DistributedKFAC:
             else:
                 entry = {'A_inv': a_stack['inv'][a_idx],
                          'G_inv': g_stack['inv'][g_idx]}
-            if kfac.fused_precondition:
+            if kfac.fused_precondition and not truncated_entry(entry):
                 vs, vgs = kernels.bucket_precond(gstack, entry, damping,
                                                  compute_dtype=cdt)
                 for i, n in enumerate(names):
@@ -1035,7 +1171,7 @@ class DistributedKFAC:
         if captures is None and contribs is None:
             raise ValueError('pass captures or contribs')
         overlap = {}
-        if kfac.deferred_factor_reduction:
+        if kfac.window_reduce:
             if factor_update is None:
                 raise ValueError(
                     'deferred_factor_reduction requires static cadence '
@@ -1063,7 +1199,8 @@ class DistributedKFAC:
         else:
             if factor_reduce:
                 raise ValueError('factor_reduce requires '
-                                 'deferred_factor_reduction=True')
+                                 'deferred_factor_reduction=True or '
+                                 'hierarchical_reduce=True')
             if factor_update is None:
                 factor_update = step % f_freq == 0
             if factor_update and contribs is None:
@@ -1114,8 +1251,13 @@ class DistributedKFAC:
     # -- checkpointing -------------------------------------------------
 
     def _layout(self) -> dict:
-        return {'row': self.row, 'n_rows': self.n_rows,
-                'n_cols': self.n_cols, 'seq_parallel': self.seq_parallel}
+        """The grid position a rank's row stacks belong to (with more than
+        one slice, also the slice count and this rank's slice)."""
+        out = {'row': self.row, 'n_rows': self.n_rows,
+               'n_cols': self.n_cols, 'seq_parallel': self.seq_parallel}
+        if self.num_slices > 1:
+            out.update(num_slices=self.num_slices, slice=self.groups.slice)
+        return out
 
     def state_dict(self, state: dict, include_inverses: bool = True
                    ) -> dict:

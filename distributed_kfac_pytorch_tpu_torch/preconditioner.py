@@ -30,9 +30,17 @@ stays a device tensor: no host sync per layer.
 Inverses follow the JAX per-dim dispatch (:meth:`KFAC.method_for_dim`):
 eigen slots (``Q``, ``d``, damping applied at precondition time) or
 baked damped inverses (``A_inv``/``G_inv``, damping applied at firing
-time, by damped Cholesky or Newton--Schulz). A *mixed* layer (one side
-of each kind) also bakes its eigen side at the firing's damping, and is
-preconditioned through its baked inverses.
+time, by damped Cholesky or Newton--Schulz). With ``inv_lowrank_rank =
+r > 0`` every dense factor dim at or above ``inv_lowrank_dim_threshold``
+takes the randomized low-rank path instead (``'lowrank'``): a truncated
+eigenpair ``Q (dim, r)``, ``d (r,)`` seeded with ``r`` identity columns and
+refreshed warm from the carried basis at each firing
+(``linalg.lowrank_eigh``, ``r dim^2`` work); its tail eigenvalues count as
+0. A *mixed* layer (one side eigen or low-rank, the other baked) also
+bakes its eigen side at the firing's damping, and is preconditioned
+through its baked inverses. A shape group with a truncated basis is
+preconditioned by stock torch (``linalg.precondition_dispatch``), never by
+the bucketed kernel, as the JAX package dispatches it.
 
 Embedding layers carry a diagonal A (a vector over the vocabulary, its
 inverse the elementwise one, damping baked at the firing) and a dense G
@@ -113,9 +121,6 @@ def comm_method_of(value: CommMethod | str) -> CommMethod:
 #: implement yet, with the value that means "off". Passing any other
 #: value raises ``NotImplementedError`` naming the knob.
 NOT_PORTED = {
-    'inv_lowrank_rank': 0,
-    'inv_lowrank_dim_threshold': 2048,
-    'hierarchical_reduce': False,
     'collect_metrics': False,
 }
 
@@ -224,12 +229,26 @@ class KFAC:
         ``training.engine.cadence_flags``); ``k`` must divide
         ``inv_update_freq``. Step 0 fires monolithically.
       inv_pipeline_costs: measured ``{dim: ms}`` of a whole firing's size
-        buckets, in place of the ``dim^3`` proxy; it must cover every
-        dense factor dim.
+        buckets, in place of the ``dim^3`` proxy (``r dim^2`` for a
+        low-rank bucket); it must cover every dense factor dim.
+      inv_lowrank_rank: ``r``, the rank of the randomized truncated
+        eigendecomposition (the JAX knob; *Randomized K-FACs*). 0 (default)
+        is off. With ``r > 0`` every dense factor dim at or above
+        ``inv_lowrank_dim_threshold`` (default 2048) decomposes as a
+        rank-``r`` eigenpair whatever ``inverse_method`` says, always warm
+        from the carried basis (``eigh_method`` is not read for it); a
+        rank at or above an engaged dim raises at registration.
       deferred_factor_reduction: factor steps fold into a local
         accumulator; the window head (``step(factor_reduce=True)``)
         applies it to the factors, one collective per window under
         ``parallel.DistributedKFAC``.
+      hierarchical_reduce: the two-level factor reduction of a
+        multi-slice ``parallel.DistributedKFAC(num_slices > 1)``: a mean
+        within the slice on every factor step, folded into a per-slice
+        accumulator, and one mean across slices at the window head
+        (``step(factor_reduce=True)``). Exclusive with
+        ``deferred_factor_reduction``; the single-device :meth:`step`
+        raises under it.
       inv_staleness: 0, or 1: window heads snapshot the factors
         (``step(factor_snapshot=True)``) and the chunks fire from that
         snapshot one step after their phase.
@@ -280,7 +299,10 @@ class KFAC:
                  precond_bucketing: bool = True,
                  inv_pipeline_chunks: int = 1,
                  inv_pipeline_costs: dict | None = None,
+                 inv_lowrank_rank: int = 0,
+                 inv_lowrank_dim_threshold: int = 2048,
                  deferred_factor_reduction: bool = False,
+                 hierarchical_reduce: bool = False,
                  inv_staleness: int = 0,
                  nonfinite_guard: bool = False,
                  kfac_approx: Any = 'expand',
@@ -340,6 +362,24 @@ class KFAC:
         if not 0.0 < factor_batch_fraction <= 1.0:
             raise ValueError(
                 f'{factor_batch_fraction=} must be in (0, 1]')
+        inv_lowrank_rank = int(inv_lowrank_rank)
+        inv_lowrank_dim_threshold = int(inv_lowrank_dim_threshold)
+        if inv_lowrank_rank < 0:
+            raise ValueError(
+                f'{inv_lowrank_rank=} must be >= 0 (0 disables the '
+                'randomized low-rank inverse path)')
+        if inv_lowrank_rank > 0 and inv_lowrank_dim_threshold < 2:
+            raise ValueError(
+                f'{inv_lowrank_dim_threshold=} must be >= 2 with '
+                'inv_lowrank_rank > 0 (a rank-r truncation of a '
+                'dim < 2 factor cannot satisfy rank < dim)')
+        if hierarchical_reduce and deferred_factor_reduction:
+            raise ValueError(
+                'hierarchical_reduce and deferred_factor_reduction are '
+                'mutually exclusive: hierarchical reduce already '
+                'defers the cross-slice half of the factor reduction to '
+                'the window boundary, and its in-slice mean must run '
+                'every factor step')
         if inverse_method is None:
             inverse_method = ('auto' if use_eigen_decomp is None
                               else 'eigen' if use_eigen_decomp
@@ -412,7 +452,10 @@ class KFAC:
         self.inv_pipeline_chunks = inv_pipeline_chunks
         self.inv_pipeline_costs = (dict(inv_pipeline_costs)
                                    if inv_pipeline_costs else None)
+        self.inv_lowrank_rank = inv_lowrank_rank
+        self.inv_lowrank_dim_threshold = inv_lowrank_dim_threshold
         self.deferred_factor_reduction = bool(deferred_factor_reduction)
+        self.hierarchical_reduce = bool(hierarchical_reduce)
         self.inv_staleness = int(inv_staleness)
         self.nonfinite_guard = bool(nonfinite_guard)
         self.fused_factor_contraction = bool(fused_factor_contraction)
@@ -431,14 +474,17 @@ class KFAC:
         fields = ('damping', 'factor_decay', 'factor_update_freq',
                   'inv_update_freq', 'kl_clip', 'lr', 'use_eigen_decomp',
                   'inverse_method',
-                  'auto_eigen_max_dim', 'auto_large_method', 'eigh_method',
+                  'auto_eigen_max_dim', 'auto_large_method',
+                  'inv_lowrank_rank', 'inv_lowrank_dim_threshold',
+                  'eigh_method',
                   'eigh_polish_iters', 'newton_iters',
                   'factor_batch_fraction', 'factor_dtype',
                   'factor_compute_dtype', 'inv_dtype', 'capture_dtype',
                   'precond_compute_dtype', 'precond_bucketing',
                   'inv_pipeline_chunks',
-                  'deferred_factor_reduction', 'inv_staleness',
-                  'nonfinite_guard', 'kfac_approx', 'tied_embeddings',
+                  'deferred_factor_reduction', 'hierarchical_reduce',
+                  'inv_staleness', 'nonfinite_guard', 'kfac_approx',
+                  'tied_embeddings',
                   'symmetry_aware_comm', 'assignment_strategy',
                   'comm_method', 'grad_worker_fraction',
                   'fused_factor_contraction', 'fused_precondition')
@@ -456,14 +502,25 @@ class KFAC:
     # ------------------------------------------------------------------
 
     def method_for_dim(self, dim: int) -> str:
-        """Inverse method of a factor of this dimension: ``'auto'``
-        dispatches per dim (eigen up to ``auto_eigen_max_dim``,
-        ``auto_large_method`` above); the global modes return
+        """Inverse method of a factor of this dimension: ``'lowrank'`` for
+        every dim at or above ``inv_lowrank_dim_threshold`` while
+        ``inv_lowrank_rank > 0``, whatever ``inverse_method`` says; else
+        ``'auto'`` dispatches per dim (eigen up to ``auto_eigen_max_dim``,
+        ``auto_large_method`` above) and the global modes return
         themselves."""
+        if (self.inv_lowrank_rank > 0
+                and dim >= self.inv_lowrank_dim_threshold):
+            return 'lowrank'
         if self.inverse_method == 'auto':
             return ('eigen' if dim <= self.auto_eigen_max_dim
                     else self.auto_large_method)
         return self.inverse_method
+
+    def lowrank_rank_for(self, dim: int) -> int | None:
+        """The truncation rank of a factor dim, or None where the exact
+        path runs (the chunk planners' cost hook)."""
+        return (self.inv_lowrank_rank
+                if self.method_for_dim(dim) == 'lowrank' else None)
 
     def _side_methods(self, a_dim: int, g_dim: int, name: str
                       ) -> tuple[str | None, str | None]:
@@ -487,6 +544,13 @@ class KFAC:
     # ------------------------------------------------------------------
 
     @property
+    def window_reduce(self) -> bool:
+        """Whether the factors take the window-head reduction
+        (``step(factor_reduce=True)``): under ``deferred_factor_reduction``
+        or ``hierarchical_reduce``."""
+        return self.deferred_factor_reduction or self.hierarchical_reduce
+
+    @property
     def pipelined_firing(self) -> bool:
         """Whether firings run chunk by chunk: ``inv_pipeline_chunks >
         1``, or ``inv_staleness == 1``, which fires even one chunk
@@ -501,7 +565,8 @@ class KFAC:
         'A'|'G')``, one per grouped conv (its block stacks), ``('grouped',
         layer)``, and one per embedding's diagonal A, ``('diag',
         layer)``. A matrix costs the ``dim^3`` proxy
-        (``linalg.decomposition_cost``), or with ``inv_pipeline_costs``
+        (``linalg.decomposition_cost``; ``r dim^2`` for a low-rank
+        matrix), or with ``inv_pipeline_costs``
         its bucket's measured ms split evenly over the bucket's matrices;
         a grouped conv costs ``G (da^3 + dg^3)`` and a diagonal A its dim,
         both rescaled into the measured unit (:func:`measured_unit_scale`,
@@ -524,7 +589,8 @@ class KFAC:
         def unit_cost(dim: int) -> float:
             if dim in measured:
                 return float(measured[dim]) / dense_count[dim]
-            return linalg.decomposition_cost(dim)
+            return linalg.decomposition_cost(
+                dim, rank=self.lowrank_rank_for(dim))
 
         items: list[tuple[tuple, float]] = []
         for name, spec in self.specs.items():
@@ -585,7 +651,9 @@ class KFAC:
         """Fresh state: identity factors (an embedding's diagonal A: ones;
         a grouped conv: stacks of identity blocks) in the storage dtype;
         eigen slots seeded with their exact eigendecomposition (``Q = I, d
-        = 1``) so the warm polish has a basis from step 0; baked slots
+        = 1``) so the warm polish has a basis from step 0 (a low-rank side:
+        the ``(dim, r)`` identity columns and ``r`` unit eigenvalues, so
+        that every firing is warm); baked slots
         (non-eigen sides, the eigen side of a mixed layer, an embedding's
         diagonal ``A_inv``, a grouped conv's block stacks) zero, computed
         at step 0 before first use; every inverse slot in ``inv_dtype``."""
@@ -602,6 +670,17 @@ class KFAC:
                 continue
             methods = dict(zip('AG', self._side_methods(dims['A'],
                                                         dims['G'], name)))
+            for side, dim in dims.items():
+                if methods[side] == 'lowrank' \
+                        and self.inv_lowrank_rank >= dim:
+                    # Fail closed: never fall back to the exact path.
+                    raise ValueError(
+                        f'inv_lowrank_rank={self.inv_lowrank_rank} must be '
+                        f'< the engaged factor dim {dim} (layer {name!r} '
+                        f'side {side}; dims >= inv_lowrank_dim_threshold='
+                        f'{self.inv_lowrank_dim_threshold} run the '
+                        'randomized low-rank path): lower the rank or '
+                        'raise the threshold')
             mixed = self._is_mixed(methods.values())
             factors[name], entry = {}, {}
             for side, dim in dims.items():
@@ -613,9 +692,11 @@ class KFAC:
                     continue
                 factors[name][side] = torch.eye(dim, dtype=fdt, device=dev)
                 if eigen_family(methods[side]):
-                    entry[f'Q{side}'] = torch.eye(dim, dtype=idt,
+                    r = (self.inv_lowrank_rank
+                         if methods[side] == 'lowrank' else dim)
+                    entry[f'Q{side}'] = torch.eye(dim, r, dtype=idt,
                                                   device=dev)
-                    entry[f'd{side}'] = torch.ones(dim, dtype=idt,
+                    entry[f'd{side}'] = torch.ones(r, dtype=idt,
                                                    device=dev)
                 if mixed or not eigen_family(methods[side]):
                     entry[f'{side}_inv'] = torch.zeros(
@@ -627,13 +708,13 @@ class KFAC:
 
     def _seed_overlap_state(self, state: dict) -> dict:
         """Add the fresh state of the firing-schedule knobs: under
-        ``deferred_factor_reduction`` a zero accumulator of the factors'
-        layout and dtype (``factor_accum``) and its decay product
-        ``accum_decay`` (an fp32 device scalar, 1); under
+        ``deferred_factor_reduction`` (or ``hierarchical_reduce``) a zero
+        accumulator of the factors' layout and dtype (``factor_accum``) and
+        its decay product ``accum_decay`` (an fp32 device scalar, 1); under
         ``inv_staleness=1`` the snapshot ``frozen_factors`` (the factors
         themselves). With chunks, the plan is checked here, once."""
         factors = state['factors']
-        if self.deferred_factor_reduction:
+        if self.window_reduce:
             state['factor_accum'] = _zeros_like(factors)
             state['accum_decay'] = torch.ones((), dtype=torch.float32,
                                               device=self.device)
@@ -881,6 +962,24 @@ class KFAC:
                 out[n] = (qs[i], ds[i])
         return out
 
+    def _bucketed_lowrank(self, mats: dict, prev: dict | None = None
+                          ) -> dict:
+        """Truncated-eigendecompose a dict of SPD matrices, one batched
+        :func:`linalg.batched_lowrank_eigh` per size: warm from the
+        carried ``(dim, r)`` bases in ``prev`` whatever ``eigh_method``
+        says (the carried basis is the low-rank state), cold from the
+        seeded sketch without them (a rebuild)."""
+        out = {}
+        for names, stack in _size_buckets(mats):
+            q_prev = (torch.stack([prev[n].float() for n in names])
+                      if prev is not None else None)
+            qs, ds = linalg.batched_lowrank_eigh(
+                stack, self.inv_lowrank_rank, q_prev=q_prev,
+                polish_iters=self.eigh_polish_iters)
+            for i, n in enumerate(names):
+                out[n] = (qs[i], ds[i])
+        return out
+
     def _bucketed_inverse(self, mats: dict, damping) -> dict:
         """Damped-inverse a dict of SPD matrices, one batched call per
         size (:func:`kernels.damped_inverse_stack` with the size's
@@ -905,8 +1004,8 @@ class KFAC:
         Eigen sides are decomposed per size bucket; ``warm`` seeds the
         polish from the bases stored in ``state['inverses']``, and
         ``warm=False`` (a rebuild from checkpointed factors) runs the
-        library eigh instead. The other sides get damped inverses per
-        size bucket. A mixed layer's eigen side is also baked into
+        library eigh instead (a low-rank side: the seeded sketch). The
+        other sides get damped inverses per size bucket. A mixed layer's eigen side is also baked into
         ``{side}_inv`` at this damping, so both of its sides carry the
         damping of the firing that computed them (under chunks, each
         side's own chunk). Every decomposition runs in fp32 on the
@@ -929,7 +1028,8 @@ class KFAC:
         def fires(key: tuple) -> bool:
             return chunk is None or plan[key] == chunk
 
-        eigen_mats, inv_mats, prev, sides = {}, {}, {}, {}
+        eigen_mats, lowrank_mats, inv_mats = {}, {}, {}
+        prev, sides = {}, {}
         for name, spec in self.specs.items():
             f = state['factors'][name]
             sides[name] = self._side_methods(f['A'].shape[-1],
@@ -941,7 +1041,8 @@ class KFAC:
                     continue
                 key = f'{name}/{side}'
                 if eigen_family(method):
-                    eigen_mats[key] = f[side]
+                    (lowrank_mats if method == 'lowrank'
+                     else eigen_mats)[key] = f[side]
                     prev[key] = state['inverses'][name][f'Q{side}']
                 else:
                     inv_mats[key] = f[side]
@@ -949,6 +1050,8 @@ class KFAC:
         eigs, invs = {}, {}
         for mats in _by_chunk(eigen_mats, plan):
             eigs.update(self._bucketed_eigh(mats, prev))
+        for mats in _by_chunk(lowrank_mats, plan):
+            eigs.update(self._bucketed_lowrank(mats, prev))
         for mats in _by_chunk(inv_mats, plan):
             invs.update(self._bucketed_inverse(mats, damping))
         idt = self.inv_dtype
@@ -998,6 +1101,8 @@ class KFAC:
         A shape group is wholly eigen (``QA/dA/QG/dG``) or wholly baked
         (``A_inv/G_inv``; mixed layers precondition through their baked
         inverses): the per-dim method depends on the factor dims alone.
+        An eigen group with a truncated basis (a low-rank side) runs the
+        stock :func:`linalg.precondition_dispatch`, never the kernel.
         Returns ``(mats, vg)``: the preconditioned matrix per layer and,
         for the stacks the kernel ran, its per-layer ``sum(v * g)``.
         Embeddings (a diagonal A) and grouped convs (block stacks) are
@@ -1017,7 +1122,7 @@ class KFAC:
             entry = {k: torch.stack([inverses[n][k] for n in members])
                      for k in keys}
             cdt = self.precond_compute_dtype
-            if self.fused_precondition:
+            if self.fused_precondition and not truncated_entry(entry):
                 vs, vgs = kernels.bucket_precond(gstack, entry, damping,
                                                  compute_dtype=cdt)
                 for i, n in enumerate(members):
@@ -1111,6 +1216,11 @@ class KFAC:
         step = state['step']
         if captures is None and contribs is None:
             raise ValueError('pass captures or contribs')
+        if self.hierarchical_reduce:
+            raise ValueError(
+                'hierarchical_reduce needs a multi-slice world (it reduces '
+                'within and across slices): use parallel.DistributedKFAC '
+                'with num_slices > 1')
         if self.deferred_factor_reduction:
             if factor_update is None:
                 raise ValueError(
@@ -1351,10 +1461,18 @@ def grouped_block_inverses(factors: dict, damping, inv_dtype) -> dict:
 
 def eigen_family(method: str) -> bool:
     """True for methods whose inverse slots are an eigenpair ``(Q, d)``
-    read through the eigen precondition path (in the port, ``'eigen'``;
-    the JAX package's low-rank method is not ported). A layer is *mixed*
-    when exactly one side is eigen-family."""
-    return method == 'eigen'
+    read through the eigen precondition path: the exact ``'eigen'`` and
+    the truncated ``'lowrank'``. A layer is *mixed* when exactly one side
+    is eigen-family."""
+    return method in ('eigen', 'lowrank')
+
+
+def truncated_entry(entry: dict) -> bool:
+    """Whether a precondition entry holds a truncated (low-rank) basis:
+    such a bucket runs the stock precondition path, not the kernel (the
+    JAX dispatch sites' ``_truncated_side`` check)."""
+    return any(linalg.truncated_side(entry[k]) for k in ('QA', 'QG')
+               if k in entry)
 
 
 def _by_chunk(mats: dict, plan: dict | None) -> list[dict]:

@@ -43,14 +43,16 @@ loss scale with the overflow skip (``engine``; the SGD baseline exits), and
 ``KFAC_CHAOS=nan-batch@K`` poisons the batch of step ``K``. Not ported yet:
 the ImageNet directory reader (the JAX CLI's ``tf.data`` JPEG pipeline) and the
 flags of ``engine.UNPORTED_FLAGS`` (metrics sinks, profiling and autotune,
-heartbeats and self-healing, multi-slice meshes, the hierarchical reduce,
-the low-rank inverse), which raise by name, and the K-FAC knobs listed in
-``preconditioner.NOT_PORTED``. ``--bf16-factors``, ``--bf16-inverses`` and
+heartbeats and self-healing), which raise by name, and the K-FAC knobs
+listed in ``preconditioner.NOT_PORTED``. ``--bf16-factors``, ``--bf16-inverses`` and
 ``--bf16-precond`` set the K-FAC reduced-precision knobs as the JAX
 ``OptimConfig`` does (tracked config 5 is ``--model resnet152 --bf16-factors
 --inverse-method eigen``). ``--inv-pipeline-chunks``, ``--inv-staleness``,
-``--deferred-factor-reduction`` and ``--factor-batch-fraction`` set the
-firing-schedule knobs of the same names (``engine.add_schedule_args``).
+``--deferred-factor-reduction``, ``--factor-batch-fraction``,
+``--hierarchical-reduce``, ``--inv-lowrank-rank`` and
+``--inv-lowrank-dim-threshold`` set the K-FAC knobs of the same names
+(``engine.add_schedule_args``); ``--num-slices`` splits a launched world
+into contiguous slices (``parallel.DistributedKFAC(num_slices=)``).
 
 :func:`train` is the programmatic entry point.
 """
@@ -249,7 +251,8 @@ def _train(args: argparse.Namespace, dev: torch.device,
     state = engine.make_train_state(
         model, optimizer, kfac,
         coallocate_layer_factors=args.coallocate_layer_factors,
-        grad_accum=args.grad_accum, fp16=args.fp16)
+        num_slices=args.num_slices, grad_accum=args.grad_accum,
+        fp16=args.fp16)
     ckpt = engine.start_checkpointing(
         args, state, kfac_sched, name='imagenet', device=dev,
         preemption=preemption, verbose=not args.quiet)

@@ -77,8 +77,11 @@ the masks the uninterrupted run draws.
 K-FAC reduced-precision knobs as the JAX ``OptimConfig`` does
 (``engine.add_precision_args``).
 ``--inv-pipeline-chunks``, ``--inv-staleness``,
-``--deferred-factor-reduction`` and ``--factor-batch-fraction`` set the
-firing-schedule knobs of the same names (``engine.add_schedule_args``).
+``--deferred-factor-reduction``, ``--factor-batch-fraction``,
+``--hierarchical-reduce``, ``--inv-lowrank-rank`` and
+``--inv-lowrank-dim-threshold`` set the K-FAC knobs of the same names
+(``engine.add_schedule_args``); ``--num-slices`` splits a launched world
+into contiguous slices (``parallel.DistributedKFAC(num_slices=)``).
 
 ``--fp16`` builds the LSTM or the Transformer at ``torch.float16`` compute
 with fp32 parameters (fp32 attention scores) and trains under the dynamic
@@ -88,10 +91,8 @@ JAX CLI's ``ValueError`` at step ``K``: token windows hold no float to
 poison.
 
 Not ported yet (a set flag raises by name, ``engine.UNPORTED_FLAGS``):
-multi-slice meshes (``--num-slices``), metrics sinks, profiling and
-autotune, heartbeats and self-healing, the hierarchical reduce and the
-low-rank inverse; nor the K-FAC knobs listed in
-``preconditioner.NOT_PORTED``.
+metrics sinks, profiling and autotune, heartbeats and self-healing; nor
+the K-FAC knobs listed in ``preconditioner.NOT_PORTED``.
 
 :func:`train` is the programmatic entry point.
 """
@@ -148,8 +149,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--seq-parallel', type=int, default=1,
                    help='ranks per sequence group: ring attention over '
                         'each BPTT window (transformer, K-FAC)')
-    p.add_argument('--num-slices', type=int, default=1,
-                   help='not ported (raises unless 1)')
+    engine.add_num_slices_arg(p)
     p.add_argument('--attn-block-size', type=int, default=None,
                    help='chunked attention over K/V blocks of this many '
                         'tokens (transformer; dropped under '
@@ -270,7 +270,9 @@ def _train(args: argparse.Namespace, dev: torch.device,
     optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
         model, cfg, device=dev)
     state = engine.make_train_state(model, optimizer, kfac,
-                                    seq_parallel=sp, fp16=args.fp16)
+                                    seq_parallel=sp,
+                                    num_slices=args.num_slices,
+                                    fp16=args.fp16)
     generator = torch.Generator(device=dev)
     generator.manual_seed(args.seed + (dist.get_rank() if state.distributed
                                        else 0))

@@ -70,6 +70,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
+import os
 import time
 import warnings
 from typing import Any, Callable, Iterable
@@ -80,7 +81,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from distributed_kfac_pytorch_tpu_torch import fp16 as fp16_lib
-from distributed_kfac_pytorch_tpu_torch import launch
+from distributed_kfac_pytorch_tpu_torch import launch, multislice
 from distributed_kfac_pytorch_tpu_torch.layers import GRAD_QUADRATIC_KEYS
 from distributed_kfac_pytorch_tpu_torch.models.transformer_lm import \
     whole_sequences
@@ -186,7 +187,7 @@ def epoch_schedule(kfac, inv_update_freq) -> dict:
             'for the epoch')
         staleness, chunks = 0, 1
     return {'inv_pipeline_chunks': chunks, 'inv_staleness': staleness,
-            'deferred_reduce': kfac.deferred_factor_reduction}
+            'deferred_reduce': kfac.window_reduce}
 
 
 def kfac_step_flags(flags: dict) -> dict:
@@ -635,9 +636,7 @@ def add_distributed_args(p: argparse.ArgumentParser) -> None:
                         '--batches-per-allreduce): each rank runs its '
                         'batch slice as this many micro-batches in turn')
     add_fp16_arg(p)
-    # A JAX CLI flag the port does not run yet: setting it raises.
-    p.add_argument('--num-slices', type=int, default=1,
-                   help='not ported (raises unless 1)')
+    add_num_slices_arg(p)
 
 
 def add_fp16_arg(p: argparse.ArgumentParser) -> None:
@@ -700,13 +699,43 @@ def add_schedule_args(p: argparse.ArgumentParser) -> None:
                    help='fraction of the batch used for factor '
                         'statistics (1.0 = reference parity; <1 thins '
                         'the covariance sample within the step)')
+    p.add_argument('--hierarchical-reduce', action='store_true',
+                   help='two-level factor reduction (requires '
+                        '--num-slices > 1, mutually exclusive with '
+                        '--deferred-factor-reduction): a mean within '
+                        'each slice every factor step, one mean across '
+                        'slices per cadence window')
+    p.add_argument('--inv-lowrank-rank', type=int, default=0,
+                   help='rank of the randomized truncated '
+                        'eigendecomposition for large factor dims: dims '
+                        '>= --inv-lowrank-dim-threshold fire a rank-r '
+                        'warm subspace step + polish (r*d^2 work) '
+                        'instead of the O(d^3) exact decomposition; '
+                        'preconditioning adds the damping-only tail '
+                        'complement. 0 (default) = off; rank >= an '
+                        'engaged dim is an error')
+    p.add_argument('--inv-lowrank-dim-threshold', type=int, default=2048,
+                   help='smallest dense factor dim the low-rank path '
+                        'engages (ignored at --inv-lowrank-rank 0)')
 
 
 def schedule_config(args: argparse.Namespace) -> dict:
     """The ``OptimConfig`` fields of :func:`add_schedule_args`' flags."""
     return {key: getattr(args, key) for key in
             ('inv_pipeline_chunks', 'deferred_factor_reduction',
-             'inv_staleness', 'factor_batch_fraction')}
+             'inv_staleness', 'factor_batch_fraction',
+             'hierarchical_reduce', 'inv_lowrank_rank',
+             'inv_lowrank_dim_threshold')}
+
+
+def add_num_slices_arg(p: argparse.ArgumentParser) -> None:
+    """``--num-slices`` (all three CLIs, the JAX name and default)."""
+    p.add_argument('--num-slices', type=int,
+                   default=int(os.environ.get('KFAC_NUM_SLICES', 1)),
+                   help='multi-slice world: N contiguous slices of the '
+                        'ranks, each with its own K-FAC grid (1, the '
+                        'default, is the flat world); must divide the '
+                        'process count. Defaults from KFAC_NUM_SLICES')
 
 
 def precision_config(args: argparse.Namespace) -> dict:
@@ -718,12 +747,9 @@ def precision_config(args: argparse.Namespace) -> dict:
 #: Flags of the JAX CLIs the port does not run yet, by destination, with
 #: their argparse definitions (the JAX names and "off" defaults; a path
 #: flag is off at None): the sinks, profiling and autotune, heartbeats and
-#: self-healing, the hierarchical reduce and the low-rank inverse.
+#: self-healing.
 _UNPORTED_ARGS = {
     'log_dir': {},
-    'hierarchical_reduce': {'action': 'store_true'},
-    'inv_lowrank_rank': {'type': int, 'default': 0},
-    'inv_lowrank_dim_threshold': {'type': int, 'default': 2048},
     'kfac_metrics': {'nargs': '?', 'const': 'auto'},
     'metrics_interval': {'type': int, 'default': 10},
     'health_action': {'choices': ['warn', 'skip', 'raise']},
@@ -753,10 +779,9 @@ def _off(spec: dict):
     return spec.get('default', False if spec.get('action') else None)
 
 
-#: Every flag the port does not run yet, with its "off" value: multi-slice
-#: meshes, then :data:`_UNPORTED_ARGS`.
-UNPORTED_FLAGS = (('num_slices', 1),
-                  *((k, _off(v)) for k, v in _UNPORTED_ARGS.items()))
+#: Every flag the port does not run yet, with its "off" value
+#: (:data:`_UNPORTED_ARGS`).
+UNPORTED_FLAGS = tuple((k, _off(v)) for k, v in _UNPORTED_ARGS.items())
 
 
 def add_unported_args(p: argparse.ArgumentParser) -> None:
@@ -961,13 +986,16 @@ def start_checkpointing(args: argparse.Namespace, state: TrainState,
 def make_train_state(model, optimizer, kfac, *,
                      coallocate_layer_factors: bool = False,
                      seq_parallel: int = 1,
+                     num_slices: int = 1,
                      grad_accum: int = 1,
                      fp16: bool = False) -> TrainState:
     """The CLIs' ``TrainState``: with a process group up, data parallel
     over the world and ``kfac`` wrapped in ``DistributedKFAC`` (strategy
     from the ``KFAC``'s knobs; ``coallocate_layer_factors``: a layer's A
-    and G on one rank; ``seq_parallel`` ranks per sequence group); else
-    the single-device ``KFAC``. ``grad_accum``: micro-batches per step
+    and G on one rank; ``seq_parallel`` ranks per sequence group;
+    ``num_slices`` contiguous slices, which must divide the process
+    count, as the JAX CLIs' mesh requires); else the single-device
+    ``KFAC``. ``grad_accum``: micro-batches per step
     (:func:`accumulate_pass`). ``fp16`` (``--fp16``): the dynamic loss
     scale, seeded with ``fp16.init_loss_scale()`` on the model's device;
     without K-FAC it raises the JAX CLIs' ``SystemExit``."""
@@ -978,13 +1006,16 @@ def make_train_state(model, optimizer, kfac, *,
                          '(--kfac-update-freq > 0); the SGD baseline path '
                          'does not wire the loss scaler.')
     distributed = dist.is_initialized()
+    # Raises unless num_slices divides the process count.
+    multislice.slice_rank_groups(
+        dist.get_world_size() if distributed else 1, num_slices)
     if kfac is not None and distributed:
         from distributed_kfac_pytorch_tpu_torch.parallel.distributed import (
             DistributedKFAC,
         )
         kfac = DistributedKFAC(kfac, distribute_layer_factors=(
             False if coallocate_layer_factors else None),
-            seq_parallel=seq_parallel)
+            seq_parallel=seq_parallel, num_slices=num_slices)
     return TrainState(
         model=model, optimizer=optimizer, kfac=kfac,
         kfac_state=kfac.init_state() if kfac is not None else None,

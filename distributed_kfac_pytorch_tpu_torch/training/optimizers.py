@@ -73,6 +73,11 @@ class OptimConfig:
     inv_pipeline_chunks: int = 1
     deferred_factor_reduction: bool = False
     inv_staleness: int = 0
+    # The randomized low-rank inverse and the two-level factor reduction
+    # of a multi-slice world (KFAC's knobs of the same names).
+    inv_lowrank_rank: int = 0
+    inv_lowrank_dim_threshold: int = 2048
+    hierarchical_reduce: bool = False
     skip_layers: Sequence[str] = ()
     # Distribution (read by parallel.DistributedKFAC).
     comm_method: str = 'comm-opt'
@@ -128,6 +133,9 @@ def get_optimizer(model: torch.nn.Module, cfg: OptimConfig, device='cuda'):
             inv_pipeline_chunks=cfg.inv_pipeline_chunks,
             deferred_factor_reduction=cfg.deferred_factor_reduction,
             inv_staleness=cfg.inv_staleness,
+            inv_lowrank_rank=cfg.inv_lowrank_rank,
+            inv_lowrank_dim_threshold=cfg.inv_lowrank_dim_threshold,
+            hierarchical_reduce=cfg.hierarchical_reduce,
             eigh_method=cfg.eigh_method,
             eigh_polish_iters=cfg.eigh_polish_iters,
             kfac_approx=cfg.kfac_approx,

@@ -514,6 +514,7 @@ def test_cli_distribution_flags_match_jax():
                 'seq_parallel', 'attn_block_size'):
         assert got[key] == want[key], key
     assert got['warmup_epochs'] == 1
-    with pytest.raises(NotImplementedError, match='num-slices'):
+    # --num-slices is ported: one process cannot hold two slices.
+    with pytest.raises(ValueError, match='does not divide world size 1'):
         train_language_model.train({'num_slices': 2}, device='cpu')
     assert 'fp16' not in dict(engine.UNPORTED_FLAGS)

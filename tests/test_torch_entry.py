@@ -200,14 +200,26 @@ def test_import_leaves_jax_unloaded():
                    timeout=120)
 
 
-@pytest.mark.parametrize('knob,value', [
-    ('inv_lowrank_rank', 16), ('collect_metrics', True),
-    ('inv_lowrank_dim_threshold', 1024),
-    ('hierarchical_reduce', True)])
+@pytest.mark.parametrize('knob,value', [('collect_metrics', True)])
 def test_unported_knobs_raise_by_name(knob, value):
     with pytest.raises(NotImplementedError, match=knob):
         KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
              **{knob: value})
+
+
+@pytest.mark.parametrize('knob,value', [
+    ('inv_lowrank_rank', 16), ('inv_lowrank_dim_threshold', 1024),
+    ('hierarchical_reduce', True)])
+def test_lowrank_and_hierarchical_knobs_are_ported(knob, value):
+    """The low-rank and hierarchical-reduce knobs are ``KFAC`` attributes
+    (their runs are in ``tests/test_torch_lowrank*.py`` and
+    ``tests/test_torch_multislice.py``); ``NOT_PORTED`` holds
+    ``collect_metrics`` alone."""
+    from distributed_kfac_pytorch_tpu_torch.preconditioner import NOT_PORTED
+    assert NOT_PORTED == {'collect_metrics': False}
+    kfac = KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
+                **{knob: value})
+    assert getattr(kfac, knob) == value
 
 
 @pytest.mark.parametrize('module', [cli, inet, lm],
@@ -230,7 +242,7 @@ def test_fp16_and_nan_batch_are_ported(module):
     ('inv_pipeline_costs', {64: 1.0})])
 def test_schedule_knobs_are_kfac_attributes(knob, value):
     from distributed_kfac_pytorch_tpu_torch.preconditioner import NOT_PORTED
-    assert knob not in NOT_PORTED and len(NOT_PORTED) == 4
+    assert knob not in NOT_PORTED and len(NOT_PORTED) == 1
     kfac = KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
                 inv_update_freq=10, **{knob: value})
     assert getattr(kfac, knob) == value
@@ -387,8 +399,15 @@ def test_clis_take_the_distribution_flags(module):
                                     {'inv_lowrank_rank': 8,
                                      'inv_lowrank_dim_threshold': 64}])
 def test_unported_inverse_methods_raise(kwargs):
-    with pytest.raises(NotImplementedError, match='not ported'):
-        KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu', **kwargs)
+    """Every inverse method of the JAX ``KFAC`` is ported; a low-rank
+    configuration that cannot truncate raises by name instead: rank 10 at
+    threshold 8 engages the head's 10-wide G."""
+    kfac = KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu', **kwargs)
+    assert kfac.method_for_dim(4096) == 'lowrank'
+    with pytest.raises(ValueError, match='inv_lowrank_rank=10 must be <'):
+        KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
+             **{**kwargs, 'inv_lowrank_rank': 10,
+                'inv_lowrank_dim_threshold': 8}).init_state()
 
 
 @pytest.mark.parametrize('module', [cli, inet, lm])

@@ -141,11 +141,22 @@ SCHEDULES = {
 }
 
 
+def test_init_loss_scale_resolves_its_device(monkeypatch):
+    """``device='cpu'`` builds the scale state on the CPU; the default
+    is the card, which raises without one, as every entry point does
+    (``resolve_device``)."""
+    state = fp16.init_loss_scale(device='cpu')
+    assert {t.device.type for t in state.values()} == {'cpu'}
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        fp16.init_loss_scale()
+
+
 @pytest.mark.parametrize('case', list(SCHEDULES))
 def test_update_loss_scale_matches_jax_bit_for_bit(case):
     c = SCHEDULES[case]
     flags = np.random.default_rng(len(case)).random(c['n']) < c['p_finite']
-    t = fp16.init_loss_scale(c['initial'])
+    t = fp16.init_loss_scale(c['initial'], device='cpu')
     j = jfp16.init_loss_scale(c['initial'])
     assert t['scale'].dtype == torch.float32
     assert t['growth_count'].dtype == torch.int32
@@ -395,7 +406,8 @@ def test_train_step_skips_on_a_non_finite_capture(grad_accum):
             model=model, kfac=tk, kfac_state=tk.init_state(),
             optimizer=torch.optim.SGD(model.parameters(), lr=0.1,
                                       momentum=0.9),
-            grad_accum=grad_accum, loss_scale=fp16.init_loss_scale())
+            grad_accum=grad_accum,
+            loss_scale=fp16.init_loss_scale(device='cpu'))
         flags = {'factor_update': True, 'inv_update': True}
         hyper = {'lr': 0.1, 'damping': 0.01}
         engine.train_step(state, x, y, hyper, flags)

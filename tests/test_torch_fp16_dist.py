@@ -261,7 +261,7 @@ def test_grad_accum_under_fp16_matches_jax():
     state = engine.TrainState(
         model=model, optimizer=torch.optim.SGD(model.parameters(), lr=0.1),
         kfac=kfac, kfac_state=kfac.init_state(), grad_accum=2,
-        loss_scale=fp16.init_loss_scale())
+        loss_scale=fp16.init_loss_scale(device='cpu'))
     hyper = {'lr': 0.1, 'damping': 0.03, 'factor_update_freq': 1,
              'inv_update_freq': 2}
     for step, ((x, y), jxs) in enumerate(zip(xs, jx)):

@@ -466,13 +466,16 @@ def test_clis_take_the_schedule_flags(module):
     args = module.build_parser().parse_args(
         ['--inv-pipeline-chunks', '2', '--inv-staleness', '1',
          '--deferred-factor-reduction', '--factor-batch-fraction', '0.5'])
+    off = {'hierarchical_reduce': False, 'inv_lowrank_rank': 0,
+           'inv_lowrank_dim_threshold': 2048}
     assert engine.schedule_config(args) == {
         'inv_pipeline_chunks': 2, 'inv_staleness': 1,
-        'deferred_factor_reduction': True, 'factor_batch_fraction': 0.5}
+        'deferred_factor_reduction': True, 'factor_batch_fraction': 0.5,
+        **off}
     defaults = engine.schedule_config(module.build_parser().parse_args([]))
     assert defaults == {'inv_pipeline_chunks': 1, 'inv_staleness': 0,
                         'deferred_factor_reduction': False,
-                        'factor_batch_fraction': 1.0}
+                        'factor_batch_fraction': 1.0, **off}
     with pytest.raises(SystemExit):
         module.build_parser().parse_args(['--inv-staleness', '2'])
 
