@@ -107,14 +107,14 @@ Phases (any failure exits nonzero and prints no result line):
      finite losses, no jacobi_eigh launch;
  11. ResNet-32 under ``--eigh-method jacobi``: 11 steps, finite losses,
      jacobi_eigh 9 per firing besides phase 5's per-step launches;
- 12. the result (printed after phases 13-39): a JSON line of
+ 12. the result (printed after phases 13-40): a JSON line of
      per-kernel numbers (K1-K3 per ResNet-50 step, K4 per ResNet-50 firing, K5
      per LSTM firing, under ``transformer_xl`` K1 and K3 per XL step and K4 per
      XL firing, under ``resnet152_config5`` K1-K3 per config-5 step, and under
      ``vit_small`` and ``mobilenet_v1`` K1-K3 per ViT-S/16 and MobileNetV1
      step, under ``resnet50_fp16`` K1 and K2 per ResNet-50 ``--fp16`` step
      on its own captures; launches summed over phases 5-7, 9-11 and
-     13-39), the card line,
+     13-40), the card line,
      then ``{"ok": true, "device": {...}}`` as the last line;
  13. distributed, NCCL at world size 1: phase 6's ResNet-50 run through
      ``train_imagenet_resnet.train`` inside a one-rank NCCL group
@@ -142,7 +142,12 @@ Phases (any failure exits nonzero and prints no result line):
      entry), every rank's launches must equal what the work assignment
      predicts (K1 33 and K2 31 per step; K3 one per gradient shape its
      row owns; K5 one per bucket it holds a slot of, per firing), and
-     the step times print labelled as gloo through host memory. Phase
+     the step times print labelled as gloo through host memory; both
+     sides collect the on-device metrics (``collect_metrics``): rank 0
+     holds ``nu`` and the gradient norm (<= 1e-5), the preconditioned and
+     bucket norms (<= 1e-4) and every count, ``eig_clipped`` included,
+     to the single device's at every step, and every rank builds a
+     metrics sink at one path, which only rank 0 writes. Phase
      14, phase 31's gloo world and phase 39's run at once, at phase 14's
      place, with phase 37's ``eigen`` run beside them (their ranks share
      the card and the host; their step times are each other's
@@ -452,6 +457,21 @@ Phases (any failure exits nonzero and prints no result line):
      single-device ``KFAC`` (factors 1e-5, gradients by relative norm
      5e-3, ``nu`` 1e-3); every rank's launches equal its assignment (K3
      on the buckets without a truncated side).
+ 40. the on-device K-FAC metrics and their stream: phase 7's ResNet-50
+     run through ``train_imagenet_resnet.train`` (224 px, batch 64,
+     ``auto``, one fixed batch, 12 steps, firings at 0 and 10,
+     ``--deterministic``), once with ``--kfac-metrics PATH
+     --metrics-interval 1 --health-action warn --log-dir DIR`` and once
+     without, the launch counts reset before each run and read after it
+     (phase 7's per step): the two runs' losses and final parameters
+     equal bit for bit; the stream, read by the port's ``report --json``:
+     12 step records, their 12 epoch records, 2 meta records,
+     ``kfac/factor_updates`` 1..12, ``kfac/inv_updates`` stepping at 0
+     and 10, ``nu`` <= 1, every norm finite, the 21 bucket keys the run's
+     ``KFAC`` preconditions, no health event; the median non-firing step
+     with the metrics on and off and their difference, the device kernels
+     one step adds with the metrics on (profiler, on the run's final
+     state), and the sink's host ms to enqueue a record and to drain 12.
      The script ends with every phase header's wall time, largest first.
 
 ``--quick`` builds with ``-Xptxas -v`` and runs only the correctness
@@ -472,7 +492,8 @@ and phases 32-33 alone (``chiprun_out/chip_smoke_models.json``);
 ``--fp16-only`` builds and runs phase 3's ResNet-50 ``--fp16`` cases and
 phases 34-36 alone (``chiprun_out/chip_smoke_fp16.json``);
 ``--lowrank-only`` builds and runs phases 37-39 alone
-(``chiprun_out/chip_smoke_lowrank.json``);
+(``chiprun_out/chip_smoke_lowrank.json``); ``--metrics-only`` builds and
+runs phase 40 and phase 14 alone (``chiprun_out/chip_smoke_metrics.json``);
 ``--determinism-probe`` (alone
 or before ``--resume-only``'s phases) runs phase 27's uninterrupted
 ResNet-50 twice without ``--deterministic`` and compares the final
@@ -487,6 +508,7 @@ import contextlib
 import json
 import math
 import os
+import platform
 import statistics
 import subprocess
 import sys
@@ -555,6 +577,10 @@ R50_NCCL_HELD, R50_NCCL_FINAL_TOL = 3, 5e-2
 # gradients into the single-device KFAC and DistributedKFAC) and of phase
 # 14's gloo ranks is held to these, relative to the largest reference entry.
 STEP_TOL = {'factors': 1e-5, 'precond': 1e-4, 'nu': 1e-5}
+# Phase 14's on-device metrics against the single-device KFAC's, at the
+# same limits: nu and the gradient norm as nu, the preconditioned and
+# bucket norms as the preconditioned gradients.
+METRIC_TOL = {'metrics_nu': 1e-5, 'metrics_norms': 1e-4}
 # Transformer-XL large (tracked config 4; benchmarks/flagship_lm.py's
 # shape): d 1024, 18 blocks, 16 heads, MLP 4096, vocabulary 32768, BPTT
 # 1024, batch 4, tied embedding, fp32. Per expand step K1 runs every dense
@@ -745,6 +771,19 @@ def log(msg: str) -> None:
         HEADERS.append((msg, now))
         msg = f'{msg} [{now:.1f} s]'
     print(msg, flush=True)
+
+
+def _cpu_model() -> str:
+    """The host CPU's model name (hosts differ in speed from call to
+    call; the script's wall time is read beside it)."""
+    try:
+        with open('/proc/cpuinfo') as f:
+            for line in f:
+                if line.startswith('model name'):
+                    return line.split(':', 1)[1].strip()
+    except OSError:
+        pass
+    return platform.processor() or 'unknown CPU'
 
 
 def phase_walls() -> list:
@@ -2159,28 +2198,37 @@ def run_firing_schedule(card: str, r152: dict, c5: dict,
     """Phase 25 (see the module docstring): ``c5`` is phase 23's report,
     ``r152_ms`` phase 3's K1 and K2 ms per config-5 step."""
     t0 = time.perf_counter()
+    walls = {}
+
+    def timed(key, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        walls[key] = round(time.perf_counter() - t, 1)
+        return out
+
     buckets = len(r152['buckets'])
-    chunks = _schedule_run(f'config 5, {SCHEDULE_CHUNKS} chunks', card,
-                           buckets, c5, inv_pipeline_chunks=SCHEDULE_CHUNKS)
+    chunks = timed('chunks', _schedule_run,
+                   f'config 5, {SCHEDULE_CHUNKS} chunks', card, buckets, c5,
+                   inv_pipeline_chunks=SCHEDULE_CHUNKS)
     window = chunks['frozen_window']
     log(f'  frozen window from the final state: {window["slots"]} slots '
         f'equal bit for bit; monolithic firing '
         f'{window["monolithic_ms"]:.1f} ms, chunks '
         f'{[round(t, 1) for t in window["chunk_ms"]]} ms')
-    stale = _schedule_run(f'config 5, {SCHEDULE_CHUNKS} chunks, staleness 1',
-                          card, buckets, c5,
-                          inv_pipeline_chunks=SCHEDULE_CHUNKS,
-                          inv_staleness=1)
-    r50 = _r50_chunk_run(card)
-    frac = _fraction_run(card, buckets, r152_ms)
-    xl = _xl_schedule(card)
+    stale = timed('staleness', _schedule_run,
+                  f'config 5, {SCHEDULE_CHUNKS} chunks, staleness 1', card,
+                  buckets, c5, inv_pipeline_chunks=SCHEDULE_CHUNKS,
+                  inv_staleness=1)
+    r50 = timed('resnet50_newton', _r50_chunk_run, card)
+    frac = timed('fraction', _fraction_run, card, buckets, r152_ms)
+    xl = timed('transformer_xl', _xl_schedule, card)
     runs = (chunks, stale, r50, frac, xl)
     summary = {'chunks': chunks, 'staleness': stale, 'resnet50_newton': r50,
                'fraction': frac, 'transformer_xl': xl,
                'launches': {k: sum(r['launches'][k] for r in runs)
                             for k in chunks['launches']},
-               'seconds': time.perf_counter() - t0}
-    log(f'  phase 25: {summary["seconds"]:.1f} s wall')
+               'walls': walls, 'seconds': time.perf_counter() - t0}
+    log(f'  phase 25: {summary["seconds"]:.1f} s wall ({walls})')
     return summary
 
 
@@ -2718,6 +2766,19 @@ def dist_worker(cfg: dict) -> int:
     tol = BF16_STEP_TOL if bf16 else STEP_TOL
     report = {'rank': rank, 'cases': []}
     failures = []
+    # Phase 14 carries the on-device metrics (both sides), every rank a
+    # sink at one path: only rank 0's writes.
+    stream = None
+    if not bf16:
+        from distributed_kfac_pytorch_tpu_torch.observability import \
+            metrics as obs_metrics
+        from distributed_kfac_pytorch_tpu_torch.observability import \
+            sink as obs_sink
+        knobs['collect_metrics'] = True
+        stream = obs_sink.JsonlMetricsSink(
+            str(Path(cfg['store']).with_suffix('.jsonl')),
+            process_index=rank, meta={'rank': rank})
+    records = 0
     for name, comm, frac, eigh, grid in cases:
         model.load_state_dict(init)
         kfac = KFAC(model, eigh_method=eigh, **knobs)
@@ -2775,11 +2836,23 @@ def dist_worker(cfg: dict) -> int:
                     err['factors'] = _max_rel(
                         (state['factors'][n][s], ref_state['factors'][n][s])
                         for n in ref.specs for s in 'AG')
+                if stream is not None:
+                    err.update(_metric_errors(state['metrics'],
+                                              ref_state['metrics']))
+                    if err.pop('counters') != 'equal':
+                        failures.append(f'{name} step {step}: metric '
+                                        'counters differ from the single '
+                                        'device\'s')
                 errors.append(err)
                 bad = {k: v for k, v in err.items()
-                       if k in tol and not v <= tol[k]}
+                       if k in tol and not v <= tol[k]
+                       or k in METRIC_TOL and not v <= METRIC_TOL[k]}
                 if bad:
                     failures.append(f'{name} step {step}: {bad}')
+            if stream is not None:
+                stream.step_record(records, obs_metrics.flatten_metrics(
+                    state['metrics']))
+                records += 1
             with torch.no_grad():
                 for n, p in model.named_parameters():
                     p -= 0.1 * precond[n]
@@ -2808,10 +2881,35 @@ def dist_worker(cfg: dict) -> int:
         kfac.capture.close()
         if ref is not None:
             ref.capture.close()
+    if stream is not None:
+        stream.close()
     report['failures'] = failures
     Path(cfg['out']).write_text(json.dumps(report, indent=1))
     dist.destroy_process_group()
     return 1 if failures else 0
+
+
+def _metric_errors(got: dict, want: dict) -> dict:
+    """A rank's ``DistributedKFAC`` metrics against the single-device
+    ``KFAC``'s of the same step: ``metrics_nu`` (the largest relative gap
+    of ``nu`` and the gradient norm), ``metrics_norms`` (of the
+    preconditioned norm and every bucket norm), ``eig_clipped`` of both
+    and ``counters``: 'equal' when every count (clipped eigenvalues
+    included) is the single device's."""
+    def rel(a, b):
+        return float((a - b).abs() / b.abs().clamp_min(1e-30))
+    counts = ('factor_updates', 'inv_updates', 'inv_chunk_firings',
+              'nonfinite_skips', 'eig_clipped')
+    return {
+        'metrics_nu': max(rel(got[k], want[k])
+                          for k in ('nu', 'grad_norm')),
+        'metrics_norms': max([rel(got['precond_norm'],
+                                  want['precond_norm'])]
+                             + [rel(got['bucket_norms'][k], v)
+                                for k, v in want['bucket_norms'].items()]),
+        'eig_clipped': [int(got['eig_clipped']), int(want['eig_clipped'])],
+        'counters': ('equal' if all(int(got[k]) == int(want[k])
+                                    for k in counts) else 'differ')}
 
 
 def _run_gloo_ranks(phase: str, timeout: float = 900) -> list:
@@ -2867,6 +2965,7 @@ def _launch_total(reports) -> dict:
 def run_bf16_gloo_world(card: str) -> dict:
     """Phase 24: phase 14's ranks with the three bf16 flags under COMM_OPT,
     MEM_OPT and HYBRID_OPT; fails if any rank fails."""
+    t0 = time.perf_counter()
     log(f'  phase 24: ResNet-32, {GLOO_WORLD} ranks on one card over gloo, '
         '--bf16-factors --bf16-inverses --bf16-precond, 3 mesh cases x '
         f'{GLOO_STEPS} steps')
@@ -2889,8 +2988,11 @@ def run_bf16_gloo_world(card: str) -> dict:
                 f' = assignment; step ms (gloo through host memory) '
                 f'{[round(t, 1) for t in c["step_ms"]]}')
     total = _launch_total(reports)
-    log(f'  all ranks: launches {total} ({card})')
-    return {'launches': total, 'worst': worst, 'ranks': reports}
+    seconds = time.perf_counter() - t0
+    log(f'  all ranks: launches {total}; phase 24: {seconds:.1f} s wall '
+        f'({card})')
+    return {'launches': total, 'worst': worst, 'ranks': reports,
+            'seconds': seconds}
 
 
 # Phase 26: phase 14's ranks under the firing-schedule knobs, inverses
@@ -3062,15 +3164,21 @@ def run_gloo_world(card: str) -> dict:
     log(f'  phase 14: ResNet-32, {GLOO_WORLD} ranks on one card over gloo, '
         f'global batch {GLOO_BATCH}, BatchNorm eval, {len(GLOO_CASES)} mesh '
         f'cases x {GLOO_STEPS} steps')
+    stream = _fresh_store('gloo_resnet32.jsonl')
     reports = _run_gloo_ranks('resnet32')
     total = _launch_total(reports)
     for i, (name, *_rest) in enumerate(GLOO_CASES):
         errs = reports[0]['cases'][i]['errors']
-        worst = {k: max(e[k] for e in errs) for k in STEP_TOL}
+        worst = {k: max(e[k] for e in errs)
+                 for k in (*STEP_TOL, *METRIC_TOL)}
+        clipped = [e['eig_clipped'] for e in errs]
         log(f'  {name} grid {reports[0]["cases"][i]["grid"]}: rank 0 vs '
             f'single-device KFAC, worst of {len(errs)} steps: factors '
             f'{worst["factors"]:.2e}, preconditioned grads '
-            f'{worst["precond"]:.2e}, nu {worst["nu"]:.2e}')
+            f'{worst["precond"]:.2e}, nu {worst["nu"]:.2e}; metrics: nu and '
+            f'grad norm {worst["metrics_nu"]:.2e}, preconditioned and '
+            f'bucket norms {worst["metrics_norms"]:.2e}, counters equal, '
+            f'eig_clipped (world, single) {clipped}')
         for rep in reports:
             case = rep['cases'][i]
             log(f'    rank {rep["rank"]} (row {case["row"]}, col '
@@ -3079,6 +3187,16 @@ def run_gloo_world(card: str) -> dict:
                 f'assignment; step ms (gloo through host memory, '
                 f'{GLOO_WORLD} ranks on one card) '
                 f'{[round(t, 1) for t in case["step_ms"]]}')
+    from distributed_kfac_pytorch_tpu_torch.observability import sink as \
+        obs_sink
+    records = obs_sink.read_jsonl(str(stream))
+    metas = [r['meta'] for r in records if r['kind'] == 'meta']
+    steps = [r for r in records if r['kind'] == 'step']
+    if metas != [{'rank': 0}] or len(steps) != len(GLOO_CASES) * GLOO_STEPS:
+        raise AssertionError(f'phase 14 stream: meta {metas}, '
+                             f'{len(steps)} step records')
+    log(f'  the metrics stream: rank 0 alone wrote it, {len(steps)} step '
+        'records')
     log(f'  all ranks: launches {total} ({card})')
     return {'launches': total, 'ranks': reports}
 
@@ -4336,9 +4454,12 @@ def run_resume_resnet50(card: str) -> dict:
         'the card at once): '
         + '; '.join(f'{n} {t:.1f} {[round(v) for v in sv]}'
                     for n, t, sv in walls))
+    t_fig = time.perf_counter()
     figures = _bundle_figures(tmp / 'ref', card)
+    t_fig = time.perf_counter() - t_fig
     seconds = time.perf_counter() - t0
-    log(f'  launches {launches}; phase 27: {seconds:.1f} s wall ({card})')
+    log(f'  launches {launches}; phase 27: {seconds:.1f} s wall, the '
+        f'bundle figures {t_fig:.1f} of it ({card})')
     shutil.rmtree(tmp, ignore_errors=True)
     return {'runs': runs, 'held': held, 'figures': figures,
             'walls': walls, 'launches': launches, 'seconds': seconds}
@@ -6502,6 +6623,229 @@ def run_lowrank_phases(card: str, refs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 40: the on-device K-FAC metrics, the JSONL sink and the report
+# ---------------------------------------------------------------------------
+
+# ResNet-50 through the ImageNet CLI as phase 7 runs it ('auto', one fixed
+# batch, so one step and one epoch record per epoch), 12 steps (firings at
+# 0 and 10), deterministic cuDNN: once with --kfac-metrics
+# --metrics-interval 1 --health-action warn --log-dir, once without.
+METRICS_STEPS = 12
+# Every gradient-matrix shape of ResNet-50 is a K3 bucket (phase 7).
+METRICS_BUCKETS = R50_PER_STEP['bucket_precond']
+
+
+def _count_device_kernels(fn) -> int:
+    """CUDA kernels (and memory copies / sets) ``fn()`` puts on the card,
+    from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.events()
+               if ev.device_type.name == 'CUDA')
+
+
+def _metrics_overhead(state, card: str) -> dict:
+    """On the metrics-on run's final state: the device kernels one
+    non-firing ResNet-50 step puts on the card with the metrics on (the
+    step, the engine's meters and a sink record) and off (the step and
+    its loss / accuracy meters), from the profiler; the sink's host ms per
+    record and for the drain of 12 records."""
+    import tempfile
+    import functools
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.observability import sink as \
+        obs_sink
+    from distributed_kfac_pytorch_tpu_torch.training import datasets, \
+        engine, utils
+    (x, y), _ = datasets.get_imagenet(synthetic_size=R50_BATCH)
+    xb = torch.as_tensor(x, device='cuda')
+    yb = torch.as_tensor(y, dtype=torch.long, device='cuda')
+    criterion = functools.partial(utils.label_smooth_loss, smoothing=0.1)
+    hyper = {'lr': R50_LR, 'damping': state.kfac.damping}
+    flags = {'factor_update': True, 'inv_update': False}
+    tmp = Path(tempfile.mkdtemp(prefix='kfac-drain-'))
+    sink = obs_sink.JsonlMetricsSink(str(tmp / 'steps.jsonl'),
+                                     drain_every=10**6)
+    meters: dict = {}
+
+    def step(collect: bool):
+        state.kfac.collect_metrics = collect
+        loss, acc = engine.train_step(state, xb, yb, hyper, flags, criterion)
+        metrics = (engine.step_metrics(state, loss, acc) if collect
+                   else {'loss': loss, 'acc': acc})
+        for k, v in metrics.items():
+            meters.setdefault(k, utils.Metric(k)).update(v)
+        if collect:
+            engine.record_step(sink, state.step, metrics, 0.0, 'factor')
+
+    kernels_on = _count_device_kernels(lambda: step(True))
+    kernels_off = _count_device_kernels(lambda: step(False))
+    state.kfac.collect_metrics = True
+    metrics = engine.step_metrics(state, torch.zeros((), device='cuda'),
+                                  torch.zeros((), device='cuda'))
+    timed = obs_sink.JsonlMetricsSink(str(tmp / 'timed.jsonl'),
+                                      drain_every=10**6)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(METRICS_STEPS):
+        timed.step_record(i, metrics)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / METRICS_STEPS
+    t0 = time.perf_counter()
+    timed.flush()
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    sink.close()
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    out = {'kernels_on': kernels_on, 'kernels_off': kernels_off,
+           'kernels_added': kernels_on - kernels_off,
+           'record_enqueue_ms': enqueue_ms,
+           'drain_ms_12_records': drain_ms,
+           'metrics_per_record': len(metrics)}
+    log(f'  device kernels per non-firing step (profiler): metrics on '
+        f'{kernels_on}, off {kernels_off}: the metrics add '
+        f'{out["kernels_added"]}; a step record ({len(metrics)} scalars) '
+        f'takes {enqueue_ms:.3f} ms of host time to enqueue, the drain of '
+        f'{METRICS_STEPS} records {drain_ms:.2f} ms ({card})')
+    return out
+
+
+def run_metrics_phase(card: str) -> dict:
+    """Phase 40: ResNet-50 through ``train_imagenet_resnet.train`` with the
+    metrics stream on, then off (launch counts reset before each run and
+    read after it); the two runs' losses and final parameters equal bit
+    for bit; the stream, read by the port's ``report --json``: 12 step
+    records, their 12 epoch records, the two meta records,
+    ``kfac/factor_updates``
+    1..12, ``kfac/inv_updates`` stepping at steps 0 and 10, ``nu`` <= 1,
+    finite norms, the bucket keys those the run's ``KFAC`` preconditions
+    (21), no health event; the median non-firing step with the metrics on
+    and off, the kernels they add and the sink's host time."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import torch
+    from distributed_kfac_pytorch_tpu_torch import train_imagenet_resnet
+    from distributed_kfac_pytorch_tpu_torch.observability import report
+    from distributed_kfac_pytorch_tpu_torch.observability import sink as \
+        obs_sink
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix='kfac-metrics-'))
+    path = tmp / 'kfac_metrics.jsonl'
+    base = _r50_config(epochs=METRICS_STEPS, deterministic=True)
+    configs = {'on': {**base, 'kfac_metrics': str(path),
+                      'metrics_interval': 1, 'health_action': 'warn',
+                      'log_dir': str(tmp / 'logs')},
+               'off': base}
+    # Kernel loads of earlier phases are not this run's compile events.
+    kernels.drain_build_events()
+    runs, params = {}, {}
+    for label, config in configs.items():
+        _release()
+        kernels.reset_launches()
+        with _cudnn_flags():
+            res = train_imagenet_resnet.train(config, device='cuda')
+        res['launches'] = dict(kernels.LAUNCHES)
+        state = res.pop('state')
+        params[label] = {n: p.detach().clone()
+                         for n, p in state.model.named_parameters()}
+        if label == 'on':
+            bucket_keys = state.kfac.metric_bucket_keys()
+            overhead = _metrics_overhead(state, card)
+        del state
+        runs[label] = res
+    on, off = runs['on'], runs['off']
+    expected = {k: v * METRICS_STEPS for k, v in R50_PER_STEP.items()}
+    expected.update(ns_inverse=0, jacobi_eigh=0)
+    for label, res in runs.items():
+        if res['launches'] != expected or res['steps'] != METRICS_STEPS:
+            raise AssertionError(f'metrics {label}: {res["steps"]} steps, '
+                                 f'launches {res["launches"]}, expected '
+                                 f'{expected}')
+    if on['losses'] != off['losses']:
+        raise AssertionError(f'metrics on changed the losses: '
+                             f'{on["losses"]} vs {off["losses"]}')
+    differ = [n for n, p in params['on'].items()
+              if not torch.equal(p, params['off'][n])]
+    if differ:
+        raise AssertionError(f'metrics on changed the parameters: '
+                             f'{differ[:5]}')
+    del params
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = report.main([str(path), '--json'])
+    summary = json.loads(buf.getvalue())
+    records = obs_sink.read_jsonl(str(path))
+    steps = [r for r in records if r['kind'] == 'step']
+    kinds = [r['kind'] for r in records]
+    factor = [r['metrics']['kfac/factor_updates'] for r in steps]
+    inv = [r['metrics']['kfac/inv_updates'] for r in steps]
+    nus = [r['metrics']['kfac/nu'] for r in steps]
+    norms = [r['metrics'][k] for r in steps for k in r['metrics']
+             if k.endswith('_norm') or '/bucket_norm/' in k]
+    keys = sorted({k.split('/', 2)[2] for r in steps for k in r['metrics']
+                   if k.startswith('kfac/bucket_norm/')})
+    problems = []
+    # One fixed batch per epoch (phase 7's config): an epoch record each.
+    if rc != 0 or summary['n_steps'] != METRICS_STEPS \
+            or summary['n_epochs'] != METRICS_STEPS \
+            or kinds.count('meta') != 2:
+        problems.append(f'report rc {rc}, {summary["n_steps"]} steps, '
+                        f'{summary["n_epochs"]} epochs, kinds {kinds}')
+    if [r['step'] for r in steps] != list(range(METRICS_STEPS)):
+        problems.append(f'step records {[r["step"] for r in steps]}')
+    if factor != [float(i + 1) for i in range(METRICS_STEPS)]:
+        problems.append(f'factor_updates {factor}')
+    want_inv = [1.0 + (i >= R50_FIRE_EVERY) for i in range(METRICS_STEPS)]
+    if inv != want_inv:
+        problems.append(f'inv_updates {inv}, want {want_inv}')
+    if not all(isinstance(v, float) and v <= 1.0 for v in nus):
+        problems.append(f'nu {nus}')
+    if not all(isinstance(v, float) and math.isfinite(v) for v in norms):
+        problems.append('non-finite norms')
+    if keys != sorted(bucket_keys) or len(keys) != METRICS_BUCKETS:
+        problems.append(f'bucket keys {keys}, the KFAC preconditions '
+                        f'{bucket_keys}')
+    if summary['health_events']:
+        problems.append(f'health events {summary["health_events"]}')
+    if problems:
+        raise AssertionError('metrics stream: ' + '; '.join(problems))
+    med = {label: statistics.median(_step_ms(res)[1][1:])
+           for label, res in runs.items()}
+    shutil.rmtree(tmp, ignore_errors=True)
+    out = {'losses': on['losses'], 'launches': {
+               k: on['launches'][k] + off['launches'][k] for k in expected},
+           'nonfiring_ms_median': med,
+           'overhead_ms': med['on'] - med['off'],
+           'overhead_share': (med['on'] - med['off']) / med['off'],
+           'step_ms': {k: r['step_ms'] for k, r in runs.items()},
+           'report': {k: summary[k] for k in ('n_records', 'n_steps',
+                                               'n_epochs', 'kfac',
+                                               'health_events',
+                                               'step_time')},
+           'bucket_keys': keys, 'nu': nus, **overhead,
+           'seconds': time.perf_counter() - t0}
+    log(f'  metrics on and off: losses and final parameters equal bit for '
+        f'bit; launches per run {on["launches"]}')
+    log(f'  stream: {len(records)} records ({kinds.count("step")} step, '
+        f'{kinds.count("epoch")} epoch, {kinds.count("meta")} meta, '
+        f'{kinds.count("event")} event), factor_updates 1..{METRICS_STEPS}, '
+        f'inv_updates {[int(v) for v in inv]}, nu {min(nus):.4g}..'
+        f'{max(nus):.4g}, {len(keys)} bucket keys, no health events')
+    log(f'  non-firing ms/step (median of {METRICS_STEPS - 3}): metrics on '
+        f'{med["on"]:.2f}, off {med["off"]:.2f}, difference '
+        f'{out["overhead_ms"]:+.2f} ({out["overhead_share"]:+.2%}) ({card})')
+    log(f'  phase 40: {out["seconds"]:.1f} s wall')
+    return out
+
+
 def _category(name: str) -> str:
     """Coarse owner of a CUDA kernel, from its (mangled) name."""
     n = name.lower()
@@ -6713,6 +7057,9 @@ def main(argv=None) -> int:
     ap.add_argument('--lowrank-only', action='store_true',
                     help='build, then run phases 37-39 only (no result '
                          'line)')
+    ap.add_argument('--metrics-only', action='store_true',
+                    help="build, then run phase 40 and phase 14's gloo "
+                         'world only (no result line)')
     ap.add_argument('--determinism-probe', action='store_true',
                     help="build, then measure what phase 27's "
                          '--deterministic buys and costs (no result '
@@ -6740,6 +7087,7 @@ def main(argv=None) -> int:
     card = card_line()
     log('== environment')
     log(f'  {card}')
+    log(f'  host {platform.node()}: {os.cpu_count()} CPUs, {_cpu_model()}')
     log(f'  torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'python {sys.version.split()[0]}, device '
         f'{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}')
@@ -6782,6 +7130,20 @@ def main(argv=None) -> int:
         out_dir = ROOT / 'chiprun_out'
         out_dir.mkdir(exist_ok=True)
         (out_dir / 'chip_smoke_lowrank.json').write_text(
+            json.dumps(report, indent=1))
+        log('done')
+        return 0
+    if args.metrics_only:
+        log(f'== phase 40: the K-FAC metrics stream, ResNet-50 through the '
+            f'ImageNet CLI, 224 px, batch {R50_BATCH}, auto, '
+            f'{METRICS_STEPS} steps, metrics on and off')
+        report = {'card': card, 'metrics_stream': run_metrics_phase(card)}
+        log(f'== phase 14: {GLOO_WORLD} gloo ranks of ResNet-32 on the card, '
+            'the metrics on')
+        report['gloo_world'] = run_gloo_world(card)
+        out_dir = ROOT / 'chiprun_out'
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / 'chip_smoke_metrics.json').write_text(
             json.dumps(report, indent=1))
         log('done')
         return 0
@@ -6946,6 +7308,10 @@ def main(argv=None) -> int:
         report.update(run_model_phases(card))
         report.update(run_fp16_phases(card, report))
         report.update(run_lowrank_phases(card, report))
+        log(f'== phase 40: the K-FAC metrics stream, ResNet-50 through the '
+            f'ImageNet CLI, 224 px, batch {R50_BATCH}, auto, '
+            f'{METRICS_STEPS} steps, metrics on and off')
+        report['metrics_stream'] = run_metrics_phase(card)
         runs = (main_summary, r50, report['resnet50_auto'],
                 report['lstm_jacobi'], report['lm_defaults'],
                 report['resnet32_jacobi'], report['resnet50_nccl_world1'],
@@ -6965,7 +7331,7 @@ def main(argv=None) -> int:
                 report['transformer_xl_fp16'], report['bf16_models'],
                 report['slice_gloo_world'], report['transformer_xl_lowrank'],
                 report['transformer_xl_lowrank_eigen'],
-                report['resnet152_lowrank'])
+                report['resnet152_lowrank'], report['metrics_stream'])
         launches = {name: sum(r['launches'].get(name, 0) for r in runs)
                     for name in kernels.LAUNCHES}
         aggs = {**summary50, 'ns_inverse': summary_ns,

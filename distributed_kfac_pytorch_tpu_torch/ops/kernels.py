@@ -52,6 +52,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import numpy as np
@@ -76,6 +77,11 @@ LAUNCHES = {name: 0 for name in SOURCES}
 _ROW_STEP = 32
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+#: First-use builds and loads of the kernel libraries not yet drained
+#: (:func:`drain_build_events`), each a ``compile`` event of the metrics
+#: stream (``observability.sink.EVENT_KINDS``).
+_BUILD_EVENTS: list[dict] = []
 
 
 def reset_launches() -> None:
@@ -331,9 +337,17 @@ _SIGNATURES = {
 
 
 def _lib(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``. The first call builds what
+    is missing (:func:`build`) and loads every library, and records the
+    wall time as a pending ``compile`` event (:func:`drain_build_events`):
+    ``variant`` 'kernels', the libraries loaded, how many were built and
+    ``first_call_ms``."""
     lib = _LIBS.get(name)
     if lib is None:
+        t0 = time.perf_counter()
+        missing = [n for n in SOURCES if not _lib_path(n).exists()]
         paths = build()
+        loaded = []
         for n, path in paths.items():
             if n in _LIBS:
                 continue
@@ -342,8 +356,22 @@ def _lib(name: str) -> ctypes.CDLL:
                 getattr(handle, fn).argtypes = argtypes
                 getattr(handle, fn).restype = ctypes.c_int
             _LIBS[n] = handle
+            loaded.append(n)
+        _BUILD_EVENTS.append({
+            'event': 'compile', 'variant': 'kernels',
+            'libraries': ','.join(loaded), 'built': len(missing),
+            'first_call_ms': (time.perf_counter() - t0) * 1000.0})
         lib = _LIBS[name]
     return lib
+
+
+def drain_build_events() -> list[dict]:
+    """The pending first-use build / load events, emptied: the training
+    engine writes them into the metrics stream after the step that
+    triggered them."""
+    out = list(_BUILD_EVENTS)
+    _BUILD_EVENTS.clear()
+    return out
 
 
 def _check(err: int, what: str) -> None:
@@ -1328,6 +1356,7 @@ KERNEL_INFO = {
 }
 
 __all__ = ['LAUNCHES', 'KERNEL_INFO', 'reset_launches', 'build',
+           'drain_build_events',
            'factor_ema', 'factor_ema_plain', 'factor_ema_plan',
            'FactorEmaPlan', 'patch_cov', 'patch_cov_plain', 'patch_cov_plan',
            'PatchCovPlan',

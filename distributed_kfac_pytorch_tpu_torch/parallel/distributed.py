@@ -93,8 +93,16 @@ head averages the accumulators across slices (one flat fp32 ``all_reduce``
 over the ranks of the same in-slice index), then blends as the deferred
 head does. ``num_slices=1`` is the flat path.
 
-Not ported: the quarantine gates and metrics (the ``KFAC`` knob raises by
-name).
+On-device metrics (``KFAC(collect_metrics=True)``): the same
+``state['metrics']`` as the single-device ``KFAC``, replicated on every
+rank. The norms are taken after the delivery, where every rank holds
+every preconditioned matrix; ``eig_clipped`` counts, on each row, only the
+slots of its row stacks that hold a layer of the row (after a firing the
+padding slots and those of layers placed on other rows hold zeros), and
+the rows' counts are summed by riding the delivery's ``all_reduce`` over
+the column (one rank of each row), so the metrics add no collective.
+
+Not ported: the quarantine gates.
 """
 
 from __future__ import annotations
@@ -110,6 +118,8 @@ from distributed_kfac_pytorch_tpu_torch import layers as L
 from distributed_kfac_pytorch_tpu_torch.capture import CONV2D_GROUPED, \
     EMBEDDING
 from distributed_kfac_pytorch_tpu_torch.multislice import mesh as slices
+from distributed_kfac_pytorch_tpu_torch.observability import \
+    metrics as obs_metrics
 from distributed_kfac_pytorch_tpu_torch.ops import factors as F
 from distributed_kfac_pytorch_tpu_torch.ops import kernels, linalg
 from distributed_kfac_pytorch_tpu_torch.parallel.placement import (
@@ -126,7 +136,6 @@ from distributed_kfac_pytorch_tpu_torch.preconditioner import (
     grouped_block_inverses,
     grouped_cost,
     grouped_init,
-    guard_nonfinite_factors,
     measured_unit_scale,
     overlay_overlap_state,
     plan_inverse_chunks,
@@ -592,6 +601,15 @@ class DistributedKFAC:
                 and lo <= slot < lo + plan.slots_per_col)
             self._cell_idx[dim] = torch.tensor(
                 [slot for slot, _ in self._cells[dim]], device=self.device)
+        # The slots of this row's eigen stacks that hold a layer of the
+        # row (the metrics' clip count reads only these).
+        self._held_slots = {
+            str(dim): torch.tensor(sorted(
+                slot for key, slot in plan.slot.items()
+                if self.assignment.layer_row[key[0]] == self.row),
+                dtype=torch.long, device=self.device)
+            for dim, plan in self.assignment.buckets.items()
+            if eigen_family(kfac.method_for_dim(dim))}
         # This row's layers per shape group: (names, A slots, G slots).
         self._row_groups = []
         for grp in plan_precond_groups(kfac, self.assignment):
@@ -712,7 +730,8 @@ class DistributedKFAC:
         bakes its eigen side), zero ``inv`` for baked ones; and the
         firing-schedule state of the ``KFAC``'s knobs (as
         ``KFAC.init_state``: this rank's zero accumulator,
-        ``frozen_factors``)."""
+        ``frozen_factors``) and, under ``collect_metrics``, fresh
+        ``metrics``."""
         dev = self.device
         fdt, idt = self.kfac.storage_dtype, self.kfac.inv_dtype
         diag = self.assignment.diag_layers
@@ -743,10 +762,10 @@ class DistributedKFAC:
                     torch.ones(shape, dtype=idt, device=dev) if key == 'd'
                     else torch.zeros(shape, dtype=idt, device=dev))
             stacks[str(dim)] = entry
-        return self.kfac._seed_overlap_state(
+        return self.kfac._seed_metrics(self.kfac._seed_overlap_state(
             {'step': 0, 'factors': factors, 'inv_stacks': stacks,
              'diag_inv': diag_inv, 'grouped_inv': grouped_inv,
-             'inv_chunk_phase': 0})
+             'inv_chunk_phase': 0}))
 
     # -- factors -------------------------------------------------------
 
@@ -1057,14 +1076,19 @@ class DistributedKFAC:
 
     # -- preconditioning -----------------------------------------------
 
-    def precondition(self, state: dict, grads: dict, damping, lr) -> dict:
+    def precondition(self, state: dict, grads: dict, damping, lr,
+                     with_stats: bool = False):
         """Precondition this row's layers (K3 per shape group, stock torch
         for a group with a low-rank side; each embedding with its diagonal
         A inverse from ``state['diag_inv']``; each grouped conv with its
         block stacks from ``state['grouped_inv']``),
         deliver every layer's result over the column, and apply the KL-clip
         scale ``nu = min(1, sqrt(kl_clip / |sum lr^2 v.g|))``;
-        unregistered gradients pass through."""
+        unregistered gradients pass through. ``with_stats`` returns
+        ``(out, stats)``: ``observability.metrics.precond_stats`` of the
+        delivered matrices and, under ``'eig_clipped'``, the clip count of
+        the whole grid's stacks (this row's held slots, summed over the
+        rows in the delivery's ``all_reduce``)."""
         kfac = self.kfac
         dev = self.device
         inv_stacks = state['inv_stacks']
@@ -1119,13 +1143,21 @@ class DistributedKFAC:
                 elif name in mats:
                     vg_sum = vg_sum + torch.sum(
                         mats[name] * grad_mats[name].float() * lr ** 2)
+        clipped = (obs_metrics.count_clipped_eigvals_stacks(
+            inv_stacks, dev, self._held_slots).float().reshape(1)
+                   if with_stats else None)
         group = self.groups.grad_group
         if group is not None:
             parts = [vg_sum] + [
                 mats[n] if n in mats else torch.zeros(
                     grad_mats[n].shape, dtype=torch.float32, device=dev)
                 for n in self.specs]
-            vg_sum, *delivered = _all_reduce_sum(parts, group)
+            if with_stats:
+                # Exact in fp32: the counts stay far below 2**24.
+                *parts, clipped = _all_reduce_sum([*parts, clipped], group)
+                vg_sum, *delivered = parts
+            else:
+                vg_sum, *delivered = _all_reduce_sum(parts, group)
             mats = dict(zip(self.specs, delivered))
         if kfac.kl_clip is not None:
             nu = torch.clamp(torch.sqrt(
@@ -1139,6 +1171,11 @@ class DistributedKFAC:
             new = L.matrix_to_grads(spec, nu * mats[name], like)
             for key, t in new.items():
                 out[f'{name}.{key}'] = t.to(like[key].dtype)
+        if with_stats:
+            stats = obs_metrics.precond_stats(grad_mats, mats, nu,
+                                              kfac.stats_cache)
+            stats['eig_clipped'] = clipped.reshape(()).to(torch.int32)
+            return out, stats
         return out
 
     # -- the step ------------------------------------------------------
@@ -1182,13 +1219,13 @@ class DistributedKFAC:
             if factor_update:
                 acc, decay = self.accumulate_factors(
                     state, captures, factor_decay, contribs=contribs)
+            finite = None
             if factor_reduce:
                 # The guard checks the post-all_reduce candidate: the same
                 # on every rank, so a non-finite window is skipped
                 # everywhere (and the accumulator resets either way).
-                factors = guard_nonfinite_factors(
-                    self.reduce_factors(state, acc, decay),
-                    state['factors'], kfac.nonfinite_guard)
+                factors, finite = kfac.guard_factors(
+                    self.reduce_factors(state, acc, decay), state['factors'])
                 acc = {n: {k: torch.zeros_like(t) for k, t in e.items()}
                        for n, e in acc.items()}
                 decay = torch.ones((), dtype=torch.float32,
@@ -1205,10 +1242,10 @@ class DistributedKFAC:
                 factor_update = step % f_freq == 0
             if factor_update and contribs is None:
                 contribs = self.local_factor_contribs(captures)
-            factors = (guard_nonfinite_factors(
+            factors, finite = (kfac.guard_factors(
                 self.update_factors(state, contribs, factor_decay),
-                state['factors'], kfac.nonfinite_guard)
-                       if factor_update else state['factors'])
+                state['factors'])
+                               if factor_update else (state['factors'], None))
         fire_factors = factors
         if kfac.inv_staleness:
             if inv_update is None:
@@ -1246,7 +1283,17 @@ class DistributedKFAC:
             chunk_phase = 0 if inv_update else state['inv_chunk_phase']
         new_state = {'step': step + 1, 'factors': factors, **inverses,
                      'inv_chunk_phase': chunk_phase, **overlap}
-        return self.precondition(new_state, grads, damping, lr), new_state
+        if not kfac.collect_metrics:
+            return self.precondition(new_state, grads, damping, lr), new_state
+        precond, stats = self.precondition(new_state, grads, damping, lr,
+                                           with_stats=True)
+        new_state['metrics'] = obs_metrics.update_metrics(
+            state['metrics'], damping=damping, stats=stats,
+            did_factor=bool(factor_update),
+            did_inv=inv_chunk is None and bool(inv_update),
+            did_chunk=inv_chunk is not None, factor_finite=finite,
+            eig_clipped=stats['eig_clipped'])
+        return precond, new_state
 
     # -- checkpointing -------------------------------------------------
 

@@ -86,6 +86,8 @@ from distributed_kfac_pytorch_tpu_torch import layers as L
 from distributed_kfac_pytorch_tpu_torch.capture import CONV2D, \
     CONV2D_GROUPED, EMBEDDING, KFAC_REDUCE, LINEAR, KFACCapture, \
     subsample_captures
+from distributed_kfac_pytorch_tpu_torch.observability import \
+    metrics as obs_metrics
 from distributed_kfac_pytorch_tpu_torch.ops import factors as F
 from distributed_kfac_pytorch_tpu_torch.ops import kernels, linalg
 from distributed_kfac_pytorch_tpu_torch.parallel.placement import \
@@ -117,14 +119,6 @@ def comm_method_of(value: CommMethod | str) -> CommMethod:
     return CommMethod(value)
 
 
-#: Constructor knobs of the JAX ``KFAC`` that this port does not
-#: implement yet, with the value that means "off". Passing any other
-#: value raises ``NotImplementedError`` naming the knob.
-NOT_PORTED = {
-    'collect_metrics': False,
-}
-
-
 #: The dtypes of the reduced-precision knobs (``capture_dtype`` also takes
 #: ``'auto'``).
 PRECISION_DTYPES = (None, torch.float32, torch.bfloat16)
@@ -139,22 +133,11 @@ def check_dtype(knob: str, value, allowed=PRECISION_DTYPES) -> None:
                          f'{value!r}')
 
 
-def _check_not_ported(knobs: dict) -> None:
-    for key, value in knobs.items():
-        if key not in NOT_PORTED:
-            raise TypeError(f'KFAC got an unexpected keyword argument '
-                            f'{key!r}')
-        if value != NOT_PORTED[key]:
-            raise NotImplementedError(
-                f'KFAC({key}={value!r}) is not ported to torch yet (only '
-                f'{key}={NOT_PORTED[key]!r} is)')
-
-
 class KFAC:
     """K-FAC gradient preconditioner over a torch model (single device).
 
-    Hyperparameters follow the JAX ``KFAC`` (see its docstring); the ones
-    this port has not implemented are listed in :data:`NOT_PORTED`.
+    Hyperparameters follow the JAX ``KFAC`` (see its docstring); every
+    constructor knob of the JAX ``KFAC`` is ported.
 
     Args:
       model: the ``nn.Module`` to precondition; its ``nn.Linear``,
@@ -267,6 +250,16 @@ class KFAC:
         bytes; read by ``parallel.DistributedKFAC``.
       assignment_strategy: ``'compute'`` (``n^3``) or ``'memory'``
         (``n^2``): the cost model of the distributed work placement.
+      collect_metrics: carry the on-device step metrics in the state
+        (``state['metrics']``, :mod:`observability.metrics`): damping, the
+        KL-clip ``nu``, gradient and preconditioned norms per shape
+        bucket, firing counts, ``nonfinite_skips`` and ``eig_clipped``,
+        updated by :meth:`step` without a host read. Off (the default),
+        the step is the plain one, bit for bit and launch for launch; on,
+        the parameters, losses and every other state entry are the same
+        bits as off (the statistics only read the preconditioned
+        matrices). The metrics are not checkpointed: after a resume the
+        counters start again from zero, as in the JAX package.
       comm_method / grad_worker_fraction: the distributed strategy
         (:class:`CommMethod`, or its name) and, for HYBRID_OPT, the
         fraction of ranks that hold each layer's inverses; consumed by
@@ -315,9 +308,8 @@ class KFAC:
                  assignment_strategy: str = 'compute',
                  comm_method: CommMethod | str = CommMethod.COMM_OPT,
                  grad_worker_fraction: float = 0.25,
-                 device='cuda',
-                 **not_ported):
-        _check_not_ported(not_ported)
+                 collect_metrics: bool = False,
+                 device='cuda'):
         self.device = resolve_device(device)
         set_fp32_precision()
         if factor_update_freq < 1 or inv_update_freq < 1:
@@ -464,6 +456,9 @@ class KFAC:
         self.assignment_strategy = assignment_strategy
         self.comm_method = comm_method_of(comm_method)
         self.grad_worker_fraction = grad_worker_fraction
+        self.collect_metrics = bool(collect_metrics)
+        # observability.metrics.precond_stats's bucket matrix, per device.
+        self.stats_cache: dict = {}
         #: The KL-clip scale of the last :meth:`precondition` (a device
         #: scalar).
         self.last_nu = None
@@ -487,7 +482,8 @@ class KFAC:
                   'tied_embeddings',
                   'symmetry_aware_comm', 'assignment_strategy',
                   'comm_method', 'grad_worker_fraction',
-                  'fused_factor_contraction', 'fused_precondition')
+                  'fused_factor_contraction', 'fused_precondition',
+                  'collect_metrics')
         lines = [f'  {name}: {getattr(self, name)!r}' for name in fields]
         lines.append(f'  registered_layers: {len(self.specs)}')
         return 'KFAC(\n' + '\n'.join(lines) + '\n)'
@@ -704,7 +700,28 @@ class KFAC:
             inverses[name] = entry
         state = {'step': 0, 'factors': factors, 'inverses': inverses,
                  'inv_chunk_phase': 0}
-        return self._seed_overlap_state(state)
+        return self._seed_metrics(self._seed_overlap_state(state))
+
+    def metric_bucket_keys(self) -> list[str]:
+        """The shape-bucket keys of the metrics (``observability.metrics.
+        shape_key`` of each registered layer's gradient matrix, in
+        registration order), from the parameter shapes alone."""
+        params = {n: torch.empty(p.shape, device='meta')
+                  for n, p in self.model.named_parameters()}
+        keys: list[str] = []
+        for name, spec in self.specs.items():
+            key = obs_metrics.shape_key(L.grads_to_matrix(
+                spec, self._layer_params(name, params)).shape)
+            if key not in keys:
+                keys.append(key)
+        return keys
+
+    def _seed_metrics(self, state: dict) -> dict:
+        """Add fresh ``metrics`` under ``collect_metrics``."""
+        if self.collect_metrics:
+            state['metrics'] = obs_metrics.init_metrics(
+                self.metric_bucket_keys(), self.device)
+        return state
 
     def _seed_overlap_state(self, state: dict) -> dict:
         """Add the fresh state of the firing-schedule knobs: under
@@ -1134,10 +1151,14 @@ class KFAC:
                 mats[n] = vs[i]
         return mats, vg
 
-    def precondition(self, state: dict, grads: dict, damping, lr) -> dict:
+    def precondition(self, state: dict, grads: dict, damping, lr,
+                     with_stats: bool = False):
         """Precondition the registered layers' grads and apply the KL-clip
         scale ``nu = min(1, sqrt(kl_clip / |sum lr^2 v.g|))`` (a device
-        tensor); unregistered grads pass through."""
+        tensor); unregistered grads pass through. ``with_stats`` returns
+        ``(out, observability.metrics.precond_stats(...))``: ``nu``, the
+        gradient and preconditioned norms and the per-shape-bucket norms,
+        read from the matrices the step computed."""
         grad_mats = {
             name: L.grads_to_matrix(spec, self._layer_params(name, grads))
             for name, spec in self.specs.items()}
@@ -1174,6 +1195,9 @@ class KFAC:
             new = L.matrix_to_grads(spec, nu * precond_mats[name], like)
             for key, t in new.items():
                 out[f'{name}.{key}'] = t.to(like[key].dtype)
+        if with_stats:
+            return out, obs_metrics.precond_stats(grad_mats, precond_mats,
+                                                  nu, self.stats_cache)
         return out
 
     # ------------------------------------------------------------------
@@ -1206,6 +1230,8 @@ class KFAC:
         refreshes ``frozen_factors`` from this step's factors, which the
         chunk firings decompose (a monolithic firing snapshots, then
         fires). The deferred and stale schedules need explicit flags.
+        Under ``collect_metrics`` the new state's ``metrics`` are the
+        step's (:func:`observability.metrics.update_metrics`).
         """
         damping = self.damping if damping is None else damping
         lr = self.lr if lr is None else lr
@@ -1232,10 +1258,10 @@ class KFAC:
             if factor_update:
                 acc, decay = self.accumulate_factors(
                     state, captures, factor_decay, contribs=contribs)
+            finite = None
             if factor_reduce:
-                factors = guard_nonfinite_factors(
-                    self.reduce_factors(state, acc, decay),
-                    state['factors'], self.nonfinite_guard)
+                factors, finite = self.guard_factors(
+                    self.reduce_factors(state, acc, decay), state['factors'])
                 acc = _zeros_like(acc)
                 decay = torch.ones((), dtype=torch.float32,
                                    device=self.device)
@@ -1249,11 +1275,10 @@ class KFAC:
                                  'deferred_factor_reduction=True')
             if factor_update is None:
                 factor_update = step % f_freq == 0
-            factors = (guard_nonfinite_factors(
+            factors, finite = (self.guard_factors(
                 self.update_factors(state, captures, factor_decay,
-                                    contribs=contribs),
-                state['factors'], self.nonfinite_guard)
-                       if factor_update else state['factors'])
+                                    contribs=contribs), state['factors'])
+                               if factor_update else (state['factors'], None))
             state_f = {**state, 'factors': factors}
         if self.inv_staleness:
             if inv_update is None:
@@ -1290,8 +1315,35 @@ class KFAC:
             chunk_phase = 0 if inv_update else state['inv_chunk_phase']
         state_i = {**state_f, 'inverses': inverses,
                    'inv_chunk_phase': chunk_phase}
-        precond = self.precondition(state_i, grads, damping, lr)
-        return precond, {**state_i, 'step': step + 1}
+        if not self.collect_metrics:
+            precond = self.precondition(state_i, grads, damping, lr)
+            return precond, {**state_i, 'step': step + 1}
+        precond, stats = self.precondition(state_i, grads, damping, lr,
+                                           with_stats=True)
+        metrics = obs_metrics.update_metrics(
+            state['metrics'], damping=damping, stats=stats,
+            did_factor=bool(factor_update),
+            did_inv=inv_chunk is None and bool(inv_update),
+            did_chunk=inv_chunk is not None, factor_finite=finite,
+            eig_clipped=obs_metrics.count_clipped_eigvals(inverses,
+                                                          self.device))
+        return precond, {**state_i, 'step': step + 1, 'metrics': metrics}
+
+    def guard_factors(self, candidate: dict, old: dict
+                      ) -> tuple[dict, torch.Tensor | None]:
+        """``(factors, finite)`` of a factor step: the candidate factors
+        through :func:`guard_nonfinite_factors`, and the finiteness flag
+        the metrics count (None with neither the guard nor the metrics on,
+        where the step computes none). The guard's flag is exact; the
+        metrics alone take ``observability.metrics.factors_finite``, one
+        ``torch._foreach_norm`` over the factors."""
+        finite = None
+        if self.nonfinite_guard:
+            finite = fp16.tree_all_finite(candidate)
+        elif self.collect_metrics:
+            finite = obs_metrics.factors_finite(candidate)
+        return (guard_nonfinite_factors(candidate, old, self.nonfinite_guard,
+                                        finite), finite)
 
     # ------------------------------------------------------------------
     # Introspection and checkpoint helpers
@@ -1431,17 +1483,19 @@ def grouped_cost(spec, a_dim: int, g_dim: int) -> float:
 
 
 def guard_nonfinite_factors(new_factors: dict, old_factors: dict,
-                            guard: bool) -> dict:
+                            guard: bool, finite=None) -> dict:
     """The non-finite factor guard (the JAX ``guard_nonfinite_factors``),
     shared by ``KFAC`` and ``parallel.DistributedKFAC``: with ``guard``,
     ``new_factors`` if every element of every candidate factor is finite,
     else ``old_factors``, selected on the device from one finiteness flag
     (no host sync); without, ``new_factors``. The candidates are the
     post-average factors under ``DistributedKFAC``, the same on every
-    rank, so every rank takes the same branch."""
+    rank, so every rank takes the same branch. ``finite``: the flag, when
+    the caller computed it already."""
     if not guard:
         return new_factors
-    finite = fp16.tree_all_finite(new_factors)
+    if finite is None:
+        finite = fp16.tree_all_finite(new_factors)
     return {name: {side: torch.where(finite, t, old_factors[name][side])
                    for side, t in entry.items()}
             for name, entry in new_factors.items()}

@@ -104,12 +104,12 @@ def make_step_manager(args) -> ckpt_lib.CheckpointManager:
 
 def make_step_checkpointer(args, step_mgr, bundle_fn, *,
                            preemption=None, start_step: int = 0,
-                           verbose: bool = False
+                           verbose: bool = False, sink=None
                            ) -> policy_lib.StepCheckpointer:
     """The per-step hook: interval policy, preemption forcing and any
     ``KFAC_CHAOS`` fault plan (a kind the port does not inject raises
     ``NotImplementedError``). Always built, since preemption must be able
-    to force a save."""
+    to force a save. ``sink`` takes its save and preemption events."""
     plan = faults_lib.plan_from_env()
     faults_lib.check_ported(plan)
     pol = policy_lib.CheckpointPolicy(
@@ -117,11 +117,11 @@ def make_step_checkpointer(args, step_mgr, bundle_fn, *,
         every_secs=args.checkpoint_secs, start_step=start_step)
     return policy_lib.StepCheckpointer(
         step_mgr, pol, bundle_fn, preemption=preemption, plan=plan,
-        verbose=verbose)
+        verbose=verbose, sink=sink)
 
 
 def resume(args, epoch_mgr, step_mgr, *, device=None,
-           verbose: bool = False):
+           verbose: bool = False, sink=None):
     """Restore the newest checkpoint (step or epoch tree), if any.
 
     Returns ``(restored_tree, start_epoch, start_offset, source)``, or
@@ -137,6 +137,10 @@ def resume(args, epoch_mgr, step_mgr, *, device=None,
     Under a process group rank 0 walks, verifying every rank's file of
     each label, and broadcasts the label chosen (or the exit), so every
     rank loads the same bundle; the directory must be shared.
+
+    ``sink`` (a metrics sink, written by rank 0) takes a ``restore`` event
+    for the bundle resumed and a ``ckpt_quarantine`` event for each bundle
+    the walk rejected, with the JAX package's fields.
     """
     if getattr(args, 'no_resume', False):
         return None
@@ -147,7 +151,7 @@ def resume(args, epoch_mgr, step_mgr, *, device=None,
         if group:
             kw['all_ranks'] = True
         try:
-            found = _choose(args, epoch_mgr, step_mgr, kw)
+            found = _choose(args, epoch_mgr, step_mgr, kw, sink)
         except SystemExit as e:
             found = None
             decision = ('exit', str(e))
@@ -187,6 +191,10 @@ def resume(args, epoch_mgr, step_mgr, *, device=None,
                       f'{saved_seed} (relaunch passed --seed '
                       f'{args.seed}) to keep the batch replay exact')
             args.seed = saved_seed
+    if sink is not None:
+        sink.event_record('restore', source=source, label=int(label),
+                          global_step=int(tree['scalars']['step']),
+                          epoch=start_epoch, step_in_epoch=offset)
     if verbose:
         at = f', mid-epoch offset {offset}' if offset else ''
         print(f'resumed from {source} checkpoint {label} '
@@ -196,14 +204,14 @@ def resume(args, epoch_mgr, step_mgr, *, device=None,
     return tree, start_epoch, offset, source
 
 
-def _choose(args, epoch_mgr, step_mgr, kw):
+def _choose(args, epoch_mgr, step_mgr, kw, sink=None):
     """The walk of both trees: ``(tree, (epoch, offset), source, label)``
     of the newest resume point, or None."""
     candidates = []  # ((epoch, offset), tree, source, label)
     quarantined: list[str] = []
     found = _walk_restore(step_mgr, args, kind='step',
                           explicit=args.resume_step,
-                          quarantined=quarantined, restore_kw=kw)
+                          quarantined=quarantined, restore_kw=kw, sink=sink)
     if found is not None:
         label, tree = found
         sc = tree['scalars']
@@ -218,7 +226,8 @@ def _choose(args, epoch_mgr, step_mgr, kw):
                         if step_point is None or (e + 1, 0) > step_point]
         found = _walk_restore(epoch_mgr, args, kind='epoch',
                               labels=epoch_labels,
-                              quarantined=quarantined, restore_kw=kw)
+                              quarantined=quarantined, restore_kw=kw,
+                              sink=sink)
         if found is not None:
             label, tree = found
             sc = tree['scalars']
@@ -244,7 +253,7 @@ def _walk_restore(mgr, args, *, kind: str,
                   explicit: int | None = None,
                   labels: list[int] | None = None,
                   quarantined: list[str] | None = None,
-                  restore_kw: dict | None = None):
+                  restore_kw: dict | None = None, sink=None):
     """Restore the newest verifiable bundle of one checkpoint tree.
 
     Walks ``labels`` (default: every label on disk, newest first); a
@@ -277,7 +286,8 @@ def _walk_restore(mgr, args, *, kind: str,
         except FileNotFoundError as e:
             if explicit is not None:
                 raise SystemExit(f'cannot resume from {what}: {e}')
-            _quarantine(kind, label, f'restore failed: {e}', quarantined)
+            _quarantine(sink, kind, label, f'restore failed: {e}',
+                        quarantined)
             continue
         except integrity_lib.ChecksumMismatch as e:
             if explicit is not None:
@@ -285,7 +295,7 @@ def _walk_restore(mgr, args, *, kind: str,
                     f'cannot resume from {what}: {e}. The bundle is '
                     'corrupt on disk; drop --resume-step to walk back to '
                     'the newest verifiable checkpoint.')
-            _quarantine(kind, label, str(e), quarantined, mgr=mgr)
+            _quarantine(sink, kind, label, str(e), quarantined, mgr=mgr)
             continue
         except Exception as e:
             if explicit is not None:
@@ -299,7 +309,8 @@ def _walk_restore(mgr, args, *, kind: str,
             # No move: a load failure may hit every bundle alike (the
             # wrong world size, say), and moving the whole history would
             # make the next relaunch cold-start.
-            _quarantine(kind, label, f'restore failed: {e}', quarantined)
+            _quarantine(sink, kind, label, f'restore failed: {e}',
+                        quarantined)
             continue
         if getattr(mgr, 'verifies_on_restore', False):
             return label, tree
@@ -311,7 +322,7 @@ def _walk_restore(mgr, args, *, kind: str,
                     f'cannot resume from {what}: {reason}. The bundle '
                     'is corrupt on disk; drop --resume-step to walk '
                     'back to the newest verifiable checkpoint.')
-            _quarantine(kind, label, reason, quarantined, mgr=mgr)
+            _quarantine(sink, kind, label, reason, quarantined, mgr=mgr)
             continue
         if ok is None:
             warnings.warn(
@@ -322,11 +333,12 @@ def _walk_restore(mgr, args, *, kind: str,
     return None
 
 
-def _quarantine(kind: str, label, reason: str,
+def _quarantine(sink, kind: str, label, reason: str,
                 quarantined: list[str] | None, mgr=None) -> None:
-    """One rejected bundle: a warning, and the walk goes on. With
-    ``mgr`` (a confirmed digest mismatch only) the bundle is also moved
-    aside (``CheckpointManager.quarantine``)."""
+    """One rejected bundle: a warning and a ``ckpt_quarantine`` event in
+    ``sink``, and the walk goes on. With ``mgr`` (a confirmed digest
+    mismatch only) the bundle is also moved aside
+    (``CheckpointManager.quarantine``)."""
     note = f'{kind} checkpoint {label}: {reason}'
     if quarantined is not None:
         quarantined.append(note)
@@ -339,3 +351,6 @@ def _quarantine(kind: str, label, reason: str,
             warnings.warn(f'resume: could not move quarantined '
                           f'{kind} checkpoint {label} aside: {e}',
                           RuntimeWarning)
+    if sink is not None:
+        sink.event_record('ckpt_quarantine', source=kind,
+                          label=int(label), reason=str(reason)[:300])

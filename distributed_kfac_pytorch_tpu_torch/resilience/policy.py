@@ -76,18 +76,22 @@ class StepCheckpointer:
     ``bundle_fn(state, step_in_epoch) -> tree`` assembles the bundle (the
     CLI closes over its model and optimizer). The saves' ``(global step,
     ms)`` are kept in :attr:`saves` and, with ``verbose``, printed.
+    ``sink`` (an ``observability.sink.JsonlMetricsSink`` or None) takes a
+    ``checkpoint_save`` event per save and a ``preemption`` event per
+    drain, with the JAX package's fields.
     """
 
     def __init__(self, mgr, policy: CheckpointPolicy | None, bundle_fn,
                  *, preemption: PreemptionHandler | None = None,
                  plan: faults_lib.FaultPlan | None = None,
-                 verbose: bool = False):
+                 verbose: bool = False, sink=None):
         self.mgr = mgr
         self.policy = policy
         self.bundle_fn = bundle_fn
         self.preemption = preemption
         self.plan = plan
         self.verbose = verbose
+        self.sink = sink
         self.saves: list[tuple[int, float]] = []
         self._fired: set[str] = set()
 
@@ -125,6 +129,10 @@ class StepCheckpointer:
         self.save(state, step_in_epoch, forced=True)
         reason = ((self.preemption.reason if self.preemption else None)
                   or 'preempted')
+        self._event('preemption', global_step=gstep, reason=reason,
+                    grace_remaining_s=round(
+                        self.preemption.remaining_grace(), 3)
+                    if self.preemption else None)
         raise Preempted(gstep, reason)
 
     def _once(self, key: str) -> bool:
@@ -176,9 +184,18 @@ class StepCheckpointer:
         if self.policy is not None:
             self.policy.note_saved(gstep)
         self.saves.append((gstep, ms))
+        # Every save blocks (the JAX package's default ones are async).
+        self._event('checkpoint_save', global_step=gstep,
+                    step_in_epoch=int(step_in_epoch),
+                    latency_ms=round(ms, 3), blocking=True,
+                    forced=bool(forced))
         if self.verbose:
             print(f'checkpoint: step {gstep} saved in {ms:.1f} ms'
                   + (' (forced)' if forced else ''), flush=True)
+
+    def _event(self, name: str, **data) -> None:
+        if self.sink is not None:
+            self.sink.event_record(name, **data)
 
     def close(self) -> None:
         self.mgr.close()

@@ -44,9 +44,16 @@ such as ``resnet32gn``, exits). ``--fp16`` builds the model at
 ``torch.float16`` compute with fp32 parameters and trains under the
 dynamic loss scale with the overflow skip (``engine``; the SGD baseline
 exits), and ``KFAC_CHAOS=nan-batch@K`` poisons the batch of step ``K``.
-Not ported yet (a set flag raises by name, ``engine.UNPORTED_FLAGS``):
-metrics sinks, profiling and autotune, heartbeats and self-healing, and
-the K-FAC knobs listed in ``preconditioner.NOT_PORTED``.
+``--kfac-metrics [PATH]`` writes the on-device K-FAC metrics to a JSONL
+stream (default ``<log-dir>/kfac_metrics.jsonl``; every
+``--metrics-interval`` steps, rank 0 only), ``--health-action
+warn|skip|raise`` watches it (skip and raise also arm the non-finite
+factor guard), and ``--log-dir`` (default ``./logs/cifar10``) takes
+TensorBoard scalars where tensorboard is installed; read the stream with
+``python -m distributed_kfac_pytorch_tpu_torch.observability.report
+PATH``. Not ported yet (a set flag raises by name,
+``engine.UNPORTED_FLAGS``): profiling, memory telemetry and straggler
+shards, autotune, heartbeats and self-healing.
 ``--bf16-factors``, ``--bf16-inverses`` and ``--bf16-precond`` set the
 K-FAC reduced-precision knobs as the JAX ``OptimConfig`` does.
 ``--inv-pipeline-chunks``, ``--inv-staleness``,
@@ -70,6 +77,7 @@ import torch
 from distributed_kfac_pytorch_tpu_torch import resolve_device, \
     set_fp32_precision
 from distributed_kfac_pytorch_tpu_torch.models import cifar_resnet
+from distributed_kfac_pytorch_tpu_torch.observability import cli as obs_cli
 from distributed_kfac_pytorch_tpu_torch.resilience import \
     cli as resilience_cli
 from distributed_kfac_pytorch_tpu_torch.resilience.preemption import \
@@ -133,6 +141,7 @@ def build_parser() -> argparse.ArgumentParser:
     engine.add_schedule_args(p)
     resilience_cli.add_resilience_args(p)
     engine.add_precise_bn_arg(p)
+    engine.add_observability_args(p, 'cifar10')
     engine.add_unported_args(p)
     # Port-only flags.
     engine.add_port_args(p)
@@ -170,63 +179,73 @@ def _train(args: argparse.Namespace, dev: torch.device,
     set_fp32_precision()
     engine.set_determinism(args)
     workers = engine.start_world(dev, args.dist_backend)
-    (train_x, train_y), (test_x, test_y) = datasets.get_cifar(
-        args.data_dir, synthetic_size=args.synthetic_size)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(args.seed)
-        model = cifar_resnet.get_model(args.model,
-                                       bn_momentum=args.bn_momentum,
-                                       dtype=engine.compute_dtype(args))
-    model = model.to(dev)
-    cfg = optimizers.OptimConfig(
-        base_lr=args.base_lr, momentum=args.momentum,
-        weight_decay=args.wd, lr_decay=args.lr_decay,
-        warmup_epochs=args.warmup_epochs, workers=workers,
-        comm_method=args.comm_method,
-        grad_worker_fraction=args.grad_worker_fraction,
-        symmetry_aware_comm=args.symmetry_aware_comm,
-        kfac_inv_update_freq=args.kfac_update_freq,
-        kfac_cov_update_freq=args.kfac_cov_update_freq,
-        damping=args.damping, factor_decay=args.stat_decay,
-        kl_clip=args.kl_clip, eigh_method=args.eigh_method,
-        inverse_method='cholesky' if args.use_inv_kfac else 'auto',
-        eigh_polish_iters=args.eigh_polish_iters,
-        fused_factor_contraction=args.fused_factor_contraction,
-        fused_precondition=args.fused_precondition,
-        kfac_approx=args.kfac_approx,
-        skip_layers=args.skip_layers,
-        damping_alpha=args.damping_alpha,
-        damping_schedule=args.damping_decay,
-        kfac_update_freq_alpha=args.kfac_update_freq_alpha,
-        kfac_update_freq_schedule=args.kfac_update_freq_decay,
-        **engine.precision_config(args),
-        **engine.schedule_config(args))
-    optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
-        model, cfg, device=dev)
-    # Precise-BN draws augmented training batches of epoch 10_000 + epoch
-    # (the JAX CLI's stream, apart from the training epochs').
-    precise_bn = engine.precise_bn_batches(
-        args, model, lambda epoch: datasets.epoch_batches(
-            train_x, train_y, args.batch_size, seed=args.seed,
-            epoch=10_000 + epoch, augment=not args.no_augment))
-    state = engine.make_train_state(
-        model, optimizer, kfac,
-        coallocate_layer_factors=args.coallocate_layer_factors,
-        num_slices=args.num_slices, grad_accum=args.grad_accum,
-        fp16=args.fp16)
-    ckpt = engine.start_checkpointing(
-        args, state, kfac_sched, name='cifar10', device=dev,
-        preemption=preemption, verbose=not args.quiet)
-    return engine.fit(
-        state, (train_x, train_y), (test_x, test_y),
-        lr_schedule=lr_schedule, kfac_sched=kfac_sched, epochs=args.epochs,
-        batch_size=args.batch_size, val_batch_size=args.val_batch_size,
-        seed=args.seed, augment=not args.no_augment, device=dev,
-        max_steps=args.max_steps, time_steps=args.time_steps,
-        verbose=not args.quiet,
-        criterion=functools.partial(utils.label_smooth_loss,
-                                    smoothing=args.label_smoothing),
-        ckpt=ckpt, precise_bn=precise_bn)
+    sink, writer = engine.start_observability(
+        args, 'train_cifar10_resnet',
+        {'model': args.model, 'batch_size': args.batch_size,
+         'devices': workers})
+    try:
+        (train_x, train_y), (test_x, test_y) = datasets.get_cifar(
+            args.data_dir, synthetic_size=args.synthetic_size)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(args.seed)
+            model = cifar_resnet.get_model(args.model,
+                                           bn_momentum=args.bn_momentum,
+                                           dtype=engine.compute_dtype(args))
+        model = model.to(dev)
+        cfg = optimizers.OptimConfig(
+            base_lr=args.base_lr, momentum=args.momentum,
+            weight_decay=args.wd, lr_decay=args.lr_decay,
+            warmup_epochs=args.warmup_epochs, workers=workers,
+            comm_method=args.comm_method,
+            grad_worker_fraction=args.grad_worker_fraction,
+            symmetry_aware_comm=args.symmetry_aware_comm,
+            kfac_inv_update_freq=args.kfac_update_freq,
+            kfac_cov_update_freq=args.kfac_cov_update_freq,
+            damping=args.damping, factor_decay=args.stat_decay,
+            kl_clip=args.kl_clip, eigh_method=args.eigh_method,
+            inverse_method='cholesky' if args.use_inv_kfac else 'auto',
+            eigh_polish_iters=args.eigh_polish_iters,
+            fused_factor_contraction=args.fused_factor_contraction,
+            fused_precondition=args.fused_precondition,
+            kfac_approx=args.kfac_approx,
+            skip_layers=args.skip_layers,
+            damping_alpha=args.damping_alpha,
+            damping_schedule=args.damping_decay,
+            kfac_update_freq_alpha=args.kfac_update_freq_alpha,
+            kfac_update_freq_schedule=args.kfac_update_freq_decay,
+            **engine.precision_config(args),
+            **engine.observability_config(args),
+            **engine.schedule_config(args))
+        optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
+            model, cfg, device=dev)
+        obs_cli.emit_layer_meta(sink, kfac)
+        # Precise-BN draws augmented training batches of epoch 10_000 + epoch
+        # (the JAX CLI's stream, apart from the training epochs').
+        precise_bn = engine.precise_bn_batches(
+            args, model, lambda epoch: datasets.epoch_batches(
+                train_x, train_y, args.batch_size, seed=args.seed,
+                epoch=10_000 + epoch, augment=not args.no_augment))
+        state = engine.make_train_state(
+            model, optimizer, kfac,
+            coallocate_layer_factors=args.coallocate_layer_factors,
+            num_slices=args.num_slices, grad_accum=args.grad_accum,
+            fp16=args.fp16)
+        ckpt = engine.start_checkpointing(
+            args, state, kfac_sched, name='cifar10', device=dev,
+            preemption=preemption, sink=sink, verbose=not args.quiet)
+        return engine.fit(
+            state, (train_x, train_y), (test_x, test_y),
+            lr_schedule=lr_schedule, kfac_sched=kfac_sched, epochs=args.epochs,
+            batch_size=args.batch_size, val_batch_size=args.val_batch_size,
+            seed=args.seed, augment=not args.no_augment, device=dev,
+            max_steps=args.max_steps, time_steps=args.time_steps,
+            verbose=not args.quiet,
+            criterion=functools.partial(utils.label_smooth_loss,
+                                        smoothing=args.label_smoothing),
+            ckpt=ckpt, precise_bn=precise_bn, metrics_sink=sink,
+            log_writer=writer)
+    finally:
+        engine.close_observability(sink, writer)
 
 
 def main(argv=None) -> int:

@@ -42,9 +42,11 @@ reference's production ImageNet recipe) builds the model, ResNet or ViT, at
 loss scale with the overflow skip (``engine``; the SGD baseline exits), and
 ``KFAC_CHAOS=nan-batch@K`` poisons the batch of step ``K``. Not ported yet:
 the ImageNet directory reader (the JAX CLI's ``tf.data`` JPEG pipeline) and the
-flags of ``engine.UNPORTED_FLAGS`` (metrics sinks, profiling and autotune,
-heartbeats and self-healing), which raise by name, and the K-FAC knobs
-listed in ``preconditioner.NOT_PORTED``. ``--bf16-factors``, ``--bf16-inverses`` and
+flags of ``engine.UNPORTED_FLAGS`` (profiling, memory telemetry and
+straggler shards, autotune, heartbeats and self-healing), which raise by
+name. ``--kfac-metrics``, ``--metrics-interval``, ``--health-action`` and
+``--log-dir`` (default ``./logs/imagenet``) as in the CIFAR CLI.
+``--bf16-factors``, ``--bf16-inverses`` and
 ``--bf16-precond`` set the K-FAC reduced-precision knobs as the JAX
 ``OptimConfig`` does (tracked config 5 is ``--model resnet152 --bf16-factors
 --inverse-method eigen``). ``--inv-pipeline-chunks``, ``--inv-staleness``,
@@ -68,6 +70,7 @@ import torch
 from distributed_kfac_pytorch_tpu_torch import resolve_device, \
     set_fp32_precision
 from distributed_kfac_pytorch_tpu_torch.models import imagenet_resnet, vit
+from distributed_kfac_pytorch_tpu_torch.observability import cli as obs_cli
 from distributed_kfac_pytorch_tpu_torch.resilience import \
     cli as resilience_cli
 from distributed_kfac_pytorch_tpu_torch.resilience.preemption import \
@@ -143,6 +146,7 @@ def build_parser() -> argparse.ArgumentParser:
                         'residual block recomputed in the backward pass '
                         '(about 1/3 more forward work for activation '
                         'memory O(depth)); fits larger batches')
+    engine.add_observability_args(p, 'imagenet')
     engine.add_unported_args(p)
     # Port-only flags.
     engine.add_port_args(p)
@@ -215,57 +219,67 @@ def _train(args: argparse.Namespace, dev: torch.device,
     set_fp32_precision()
     engine.set_determinism(args)
     workers = engine.start_world(dev, args.dist_backend)
-    train_data, val_data = datasets.get_imagenet(
-        args.data_dir, image_size=args.image_size,
-        synthetic_size=args.synthetic_size)
-    model = build_model(args).to(dev)
-    cfg = optimizers.OptimConfig(
-        base_lr=args.base_lr, momentum=args.momentum,
-        weight_decay=args.wd, lr_decay=args.lr_decay,
-        warmup_epochs=args.warmup_epochs, workers=workers,
-        comm_method=args.comm_method,
-        grad_worker_fraction=args.grad_worker_fraction,
-        symmetry_aware_comm=args.symmetry_aware_comm,
-        kfac_inv_update_freq=args.kfac_update_freq,
-        kfac_cov_update_freq=args.kfac_cov_update_freq,
-        damping=args.damping, factor_decay=args.stat_decay,
-        kl_clip=args.kl_clip, inverse_method=args.inverse_method,
-        eigh_method=args.eigh_method,
-        eigh_polish_iters=args.eigh_polish_iters,
-        fused_factor_contraction=args.fused_factor_contraction,
-        fused_precondition=args.fused_precondition,
-        kfac_approx=args.kfac_approx,
-        skip_layers=args.skip_layers,
-        damping_alpha=args.damping_alpha,
-        damping_schedule=args.damping_decay,
-        kfac_update_freq_alpha=args.kfac_update_freq_alpha,
-        kfac_update_freq_schedule=args.kfac_update_freq_decay,
-        **engine.precision_config(args),
-        **engine.schedule_config(args))
-    optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
-        model, cfg, device=dev)
-    # Precise-BN draws the first batches of the epoch's training stream.
-    precise_bn = engine.precise_bn_batches(
-        args, model, lambda epoch: datasets.epoch_batches(
-            *train_data, args.batch_size, seed=args.seed, epoch=epoch))
-    state = engine.make_train_state(
-        model, optimizer, kfac,
-        coallocate_layer_factors=args.coallocate_layer_factors,
-        num_slices=args.num_slices, grad_accum=args.grad_accum,
-        fp16=args.fp16)
-    ckpt = engine.start_checkpointing(
-        args, state, kfac_sched, name='imagenet', device=dev,
-        preemption=preemption, verbose=not args.quiet)
-    return engine.fit(
-        state, train_data, val_data, lr_schedule=lr_schedule,
-        kfac_sched=kfac_sched, epochs=args.epochs,
-        batch_size=args.batch_size, val_batch_size=args.val_batch_size,
-        seed=args.seed, augment=False, device=dev,
-        max_steps=args.max_steps, time_steps=args.time_steps,
-        verbose=not args.quiet,
-        criterion=functools.partial(utils.label_smooth_loss,
-                                    smoothing=args.label_smoothing),
-        ckpt=ckpt, precise_bn=precise_bn)
+    sink, writer = engine.start_observability(
+        args, 'train_imagenet_resnet',
+        {'model': args.model, 'batch_size': args.batch_size,
+         'devices': workers})
+    try:
+        train_data, val_data = datasets.get_imagenet(
+            args.data_dir, image_size=args.image_size,
+            synthetic_size=args.synthetic_size)
+        model = build_model(args).to(dev)
+        cfg = optimizers.OptimConfig(
+            base_lr=args.base_lr, momentum=args.momentum,
+            weight_decay=args.wd, lr_decay=args.lr_decay,
+            warmup_epochs=args.warmup_epochs, workers=workers,
+            comm_method=args.comm_method,
+            grad_worker_fraction=args.grad_worker_fraction,
+            symmetry_aware_comm=args.symmetry_aware_comm,
+            kfac_inv_update_freq=args.kfac_update_freq,
+            kfac_cov_update_freq=args.kfac_cov_update_freq,
+            damping=args.damping, factor_decay=args.stat_decay,
+            kl_clip=args.kl_clip, inverse_method=args.inverse_method,
+            eigh_method=args.eigh_method,
+            eigh_polish_iters=args.eigh_polish_iters,
+            fused_factor_contraction=args.fused_factor_contraction,
+            fused_precondition=args.fused_precondition,
+            kfac_approx=args.kfac_approx,
+            skip_layers=args.skip_layers,
+            damping_alpha=args.damping_alpha,
+            damping_schedule=args.damping_decay,
+            kfac_update_freq_alpha=args.kfac_update_freq_alpha,
+            kfac_update_freq_schedule=args.kfac_update_freq_decay,
+            **engine.precision_config(args),
+            **engine.observability_config(args),
+            **engine.schedule_config(args))
+        optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
+            model, cfg, device=dev)
+        obs_cli.emit_layer_meta(sink, kfac)
+        # Precise-BN draws the first batches of the epoch's training stream.
+        precise_bn = engine.precise_bn_batches(
+            args, model, lambda epoch: datasets.epoch_batches(
+                *train_data, args.batch_size, seed=args.seed, epoch=epoch))
+        state = engine.make_train_state(
+            model, optimizer, kfac,
+            coallocate_layer_factors=args.coallocate_layer_factors,
+            num_slices=args.num_slices, grad_accum=args.grad_accum,
+            fp16=args.fp16)
+        ckpt = engine.start_checkpointing(
+            args, state, kfac_sched, name='imagenet', device=dev,
+            preemption=preemption, sink=sink, verbose=not args.quiet)
+        return engine.fit(
+            state, train_data, val_data, lr_schedule=lr_schedule,
+            kfac_sched=kfac_sched, epochs=args.epochs,
+            batch_size=args.batch_size, val_batch_size=args.val_batch_size,
+            seed=args.seed, augment=False, device=dev,
+            max_steps=args.max_steps, time_steps=args.time_steps,
+            verbose=not args.quiet,
+            criterion=functools.partial(utils.label_smooth_loss,
+                                        smoothing=args.label_smoothing),
+            ckpt=ckpt, precise_bn=precise_bn, metrics_sink=sink,
+            log_writer=writer)
+    finally:
+        engine.close_observability(sink, writer)
 
 
 def main(argv=None) -> int:

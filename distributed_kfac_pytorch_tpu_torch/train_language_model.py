@@ -90,9 +90,10 @@ loss scale, unscaling before the global-norm clip, with the overflow skip
 JAX CLI's ``ValueError`` at step ``K``: token windows hold no float to
 poison.
 
-Not ported yet (a set flag raises by name, ``engine.UNPORTED_FLAGS``):
-metrics sinks, profiling and autotune, heartbeats and self-healing; nor
-the K-FAC knobs listed in ``preconditioner.NOT_PORTED``.
+``--kfac-metrics``, ``--metrics-interval``, ``--health-action`` and
+``--log-dir`` (default ``./logs/lm``) as in the CIFAR CLI. Not ported yet
+(a set flag raises by name, ``engine.UNPORTED_FLAGS``): profiling, memory
+telemetry and straggler shards, autotune, heartbeats and self-healing.
 
 :func:`train` is the programmatic entry point.
 """
@@ -110,6 +111,7 @@ from distributed_kfac_pytorch_tpu_torch import resolve_device, \
 from distributed_kfac_pytorch_tpu_torch.models import lstm_lm, \
     transformer_lm
 from distributed_kfac_pytorch_tpu_torch.parallel import sequence
+from distributed_kfac_pytorch_tpu_torch.observability import cli as obs_cli
 from distributed_kfac_pytorch_tpu_torch.resilience import \
     cli as resilience_cli
 from distributed_kfac_pytorch_tpu_torch.resilience.preemption import \
@@ -195,6 +197,7 @@ def build_parser() -> argparse.ArgumentParser:
     engine.add_schedule_args(p)
     engine.add_fp16_arg(p)
     resilience_cli.add_resilience_args(p)
+    engine.add_observability_args(p, 'lm')
     engine.add_unported_args(p)
     # Port-only flags.
     engine.add_port_args(p)
@@ -235,62 +238,72 @@ def _train(args: argparse.Namespace, dev: torch.device,
            preemption) -> dict:
     set_fp32_precision()
     engine.set_determinism(args)
-    engine.start_world(dev, args.dist_backend)
-    sp = args.seq_parallel
-    # Before DistributedKFAC's groups: every rank creates every group in
-    # the same order.
-    seq_group = sequence.make_sequence_group(sp)
-    train_ids, val_ids, vocab = datasets.get_lm_corpus(
-        args.data_dir, synthetic_size=args.synthetic_size,
-        vocab_size=args.synthetic_vocab)
-    model = build_model(args, vocab, dev, seq_group)
-    if args.skip_layers is not None:
-        skip = args.skip_layers
-    else:
-        skip = ['embed', 'decoder'] if args.arch == 'lstm' else []
-    # workers=1: the JAX LM CLI's LR does not scale with the world.
-    cfg = optimizers.OptimConfig(
-        base_lr=args.base_lr, momentum=args.momentum,
-        weight_decay=args.wd, lr_decay=args.lr_decay,
-        warmup_epochs=args.warmup_epochs, workers=1,
-        comm_method=args.comm_method,
-        grad_worker_fraction=args.grad_worker_fraction,
-        symmetry_aware_comm=args.symmetry_aware_comm,
-        kfac_inv_update_freq=args.kfac_update_freq,
-        kfac_cov_update_freq=args.kfac_cov_update_freq,
-        damping=args.damping, factor_decay=args.stat_decay,
-        kl_clip=args.kl_clip, inverse_method=args.inverse_method,
-        eigh_method=args.eigh_method,
-        eigh_polish_iters=args.eigh_polish_iters,
-        fused_factor_contraction=args.fused_factor_contraction,
-        fused_precondition=args.fused_precondition,
-        kfac_approx=args.kfac_approx, skip_layers=skip,
-        **engine.precision_config(args),
-        **engine.schedule_config(args))
-    optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
-        model, cfg, device=dev)
-    state = engine.make_train_state(model, optimizer, kfac,
-                                    seq_parallel=sp,
-                                    num_slices=args.num_slices,
-                                    fp16=args.fp16)
-    generator = torch.Generator(device=dev)
-    generator.manual_seed(args.seed + (dist.get_rank() if state.distributed
-                                       else 0))
-    ckpt = engine.start_checkpointing(
-        args, state, kfac_sched, name='lm', device=dev,
-        preemption=preemption,
-        extra_state=lambda: {'dropout_generator': generator.get_state()},
-        load_extra=lambda extra: generator.set_state(
-            extra['dropout_generator'].cpu()),
-        verbose=not args.quiet)
-    return engine.fit_lm(
-        state, train_ids, val_ids, lr_schedule=lr_schedule,
-        kfac_sched=kfac_sched, epochs=args.epochs,
-        batch_size=args.batch_size, bptt=args.bptt, seed=args.seed,
-        device=dev, grad_clip=args.grad_clip, generator=generator,
-        fixed_batch=args.fixed_batch, max_steps=args.max_steps,
-        time_steps=args.time_steps, verbose=not args.quiet,
-        seq_parallel=sp, ckpt=ckpt)
+    workers = engine.start_world(dev, args.dist_backend)
+    sink, writer = engine.start_observability(
+        args, 'train_language_model',
+        {'arch': args.arch, 'batch_size': args.batch_size,
+         'bptt': args.bptt, 'devices': workers})
+    try:
+        sp = args.seq_parallel
+        # Before DistributedKFAC's groups: every rank creates every group in
+        # the same order.
+        seq_group = sequence.make_sequence_group(sp)
+        train_ids, val_ids, vocab = datasets.get_lm_corpus(
+            args.data_dir, synthetic_size=args.synthetic_size,
+            vocab_size=args.synthetic_vocab)
+        model = build_model(args, vocab, dev, seq_group)
+        if args.skip_layers is not None:
+            skip = args.skip_layers
+        else:
+            skip = ['embed', 'decoder'] if args.arch == 'lstm' else []
+        # workers=1: the JAX LM CLI's LR does not scale with the world.
+        cfg = optimizers.OptimConfig(
+            base_lr=args.base_lr, momentum=args.momentum,
+            weight_decay=args.wd, lr_decay=args.lr_decay,
+            warmup_epochs=args.warmup_epochs, workers=1,
+            comm_method=args.comm_method,
+            grad_worker_fraction=args.grad_worker_fraction,
+            symmetry_aware_comm=args.symmetry_aware_comm,
+            kfac_inv_update_freq=args.kfac_update_freq,
+            kfac_cov_update_freq=args.kfac_cov_update_freq,
+            damping=args.damping, factor_decay=args.stat_decay,
+            kl_clip=args.kl_clip, inverse_method=args.inverse_method,
+            eigh_method=args.eigh_method,
+            eigh_polish_iters=args.eigh_polish_iters,
+            fused_factor_contraction=args.fused_factor_contraction,
+            fused_precondition=args.fused_precondition,
+            kfac_approx=args.kfac_approx, skip_layers=skip,
+            **engine.precision_config(args),
+            **engine.observability_config(args),
+            **engine.schedule_config(args))
+        optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
+            model, cfg, device=dev)
+        obs_cli.emit_layer_meta(sink, kfac)
+        state = engine.make_train_state(model, optimizer, kfac,
+                                        seq_parallel=sp,
+                                        num_slices=args.num_slices,
+                                        fp16=args.fp16)
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(args.seed + (dist.get_rank() if state.distributed
+                                           else 0))
+        ckpt = engine.start_checkpointing(
+            args, state, kfac_sched, name='lm', device=dev,
+            preemption=preemption, sink=sink,
+            extra_state=lambda: {'dropout_generator': generator.get_state()},
+            load_extra=lambda extra: generator.set_state(
+                extra['dropout_generator'].cpu()),
+            verbose=not args.quiet)
+        return engine.fit_lm(
+            state, train_ids, val_ids, lr_schedule=lr_schedule,
+            kfac_sched=kfac_sched, epochs=args.epochs,
+            batch_size=args.batch_size, bptt=args.bptt, seed=args.seed,
+            device=dev, grad_clip=args.grad_clip, generator=generator,
+            fixed_batch=args.fixed_batch, max_steps=args.max_steps,
+            time_steps=args.time_steps, verbose=not args.quiet,
+            seq_parallel=sp, ckpt=ckpt, metrics_sink=sink,
+            log_writer=writer)
+    finally:
+        engine.close_observability(sink, writer)
 
 
 def check_long_context(args: argparse.Namespace) -> None:

@@ -17,6 +17,7 @@ uninterrupted epoch's batches, crops and flips included.
 
 from __future__ import annotations
 
+import functools
 import os
 import pickle
 from typing import Iterator
@@ -52,14 +53,25 @@ def _load_cifar_pickles(root: str):
             (to_nchw(d[b'data']), np.array(d[b'labels'], np.int64)))
 
 
+@functools.lru_cache(maxsize=2)
+def _prototypes(n_classes: int, hw: int) -> np.ndarray:
+    """The class prototypes every split draws from (a fixed seed), made
+    once per process and shape and read-only: at ImageNet's 1000 classes
+    and 224 px they are 150 M normal draws, seconds of host time that each
+    split and each run in a process would otherwise repeat."""
+    protos = np.random.default_rng(1234).normal(
+        size=(n_classes, hw, hw, 3)).astype(np.float32)
+    protos.setflags(write=False)
+    return protos
+
+
 def _synthetic_images(n: int, hw: int, n_classes: int, seed: int):
     """Deterministic class-conditional Gaussian images (learnable), NCHW.
 
-    The class prototypes come from a fixed seed shared by every split;
-    ``seed`` varies the labels and the noise.
+    The class prototypes come from a fixed seed shared by every split
+    (:func:`_prototypes`); ``seed`` varies the labels and the noise.
     """
-    protos = np.random.default_rng(1234).normal(
-        size=(n_classes, hw, hw, 3)).astype(np.float32)
+    protos = _prototypes(n_classes, hw)
     rng = np.random.default_rng(seed)
     labels = rng.integers(0, n_classes, size=n).astype(np.int32)
     x = 0.5 * protos[labels]

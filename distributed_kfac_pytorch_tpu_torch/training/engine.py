@@ -63,6 +63,20 @@ after each step (global-step bundles, the preemption drain, the
 ``KFAC_CHAOS`` faults), poll for preemption between epochs and save the
 epoch bundle every ``--checkpoint-freq`` epochs and after the last. The
 CLI flags the port does not run are :data:`UNPORTED_FLAGS`.
+
+Metrics (the JAX engine's ``metrics_sink=`` and ``log_writer=``): with an
+``observability.sink.JsonlMetricsSink`` the epoch loops enqueue one step
+record per step (:func:`step_metrics`: the loss, accuracy, loss scale
+and overflow, and the ``kfac/*`` metrics of ``KFAC(collect_metrics=
+True)``), with the host wall of the step call (no synchronize) and its
+fired stage; the sink snapshots the device scalars and reads them later.
+Pending first-use kernel builds (``ops.kernels.drain_build_events``) go
+into the stream as ``compile`` events after the step that triggered them,
+and label a plain step ``'compile'``. At the epoch's end (and when a
+preemption drains) an epoch record with the epoch's averages is appended
+and the sink flushed; the ``kfac/*`` entries join the averages through
+``Metric`` (summed on the device, read once). A :class:`TensorBoardWriter`
+(``--log-dir``) gets the epoch's train and validation averages.
 """
 
 from __future__ import annotations
@@ -85,6 +99,11 @@ from distributed_kfac_pytorch_tpu_torch import launch, multislice
 from distributed_kfac_pytorch_tpu_torch.layers import GRAD_QUADRATIC_KEYS
 from distributed_kfac_pytorch_tpu_torch.models.transformer_lm import \
     whole_sequences
+from distributed_kfac_pytorch_tpu_torch.observability import \
+    cli as obs_cli
+from distributed_kfac_pytorch_tpu_torch.observability import \
+    metrics as obs_metrics
+from distributed_kfac_pytorch_tpu_torch.ops import kernels
 from distributed_kfac_pytorch_tpu_torch.resilience import \
     cli as resilience_cli
 from distributed_kfac_pytorch_tpu_torch.resilience import faults
@@ -413,7 +432,7 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
                 device, verbose: bool = False, time_steps: bool = False,
                 max_steps: int | None = None,
                 criterion: Callable = F.cross_entropy, checkpointer=None,
-                start_step_in_epoch: int = 0) -> dict:
+                start_step_in_epoch: int = 0, metrics_sink=None) -> dict:
     """One training epoch; returns the averaged metrics and, per step,
     the losses, the fired stage and (``time_steps``: each step
     synchronized) the wall milliseconds, and whether ``max_steps`` stopped
@@ -426,7 +445,9 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
     ``resilience.policy.StepCheckpointer``) is called after each step with
     the steps finished in the epoch, ``start_step_in_epoch`` (the
     mid-epoch resume offset) included; it may raise ``Preempted``, which
-    then carries the epoch's record so far as ``partial``.
+    then carries the epoch's record so far as ``partial`` (the sink is
+    flushed first). ``metrics_sink``: one step record per step and the
+    epoch record (module docstring).
     """
     device = torch.device(device)
     state.model.train()
@@ -436,6 +457,7 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
     schedule = (epoch_schedule(state.kfac, hyper['inv_update_freq'])
                 if state.kfac is not None else {})
     stopped = False
+    t_epoch = time.perf_counter()
     try:
         for xb, yb in batches:
             if max_steps is not None and state.step >= max_steps:
@@ -452,6 +474,7 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
             t0 = time.perf_counter()
             scale = state.loss_scale and state.loss_scale['scale']
             loss, acc = train_step(state, x, y, hyper, flags, criterion)
+            dispatch_ms = (time.perf_counter() - t0) * 1e3
             if time_steps:
                 if device.type == 'cuda':
                     torch.cuda.synchronize(device)
@@ -460,24 +483,89 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
                 scaler.append((scale, state.overflow))
             losses.append(loss)
             fired.append(fired_stage(flags))
-            meters.setdefault('loss', Metric('loss')).update(loss)
-            meters.setdefault('acc', Metric('acc')).update(acc)
+            metrics = step_metrics(
+                state, loss, acc, scale if metrics_sink is not None else None)
+            for k, v in metrics.items():
+                meters.setdefault(k, Metric(k)).update(v)
+            if metrics_sink is not None:
+                record_step(metrics_sink, state.step, metrics, dispatch_ms,
+                            fired[-1])
             state.step += 1
             if checkpointer is not None:
-                checkpointer.after_step(state,
-                                        start_step_in_epoch + len(losses))
+                _after_step(checkpointer, state,
+                            start_step_in_epoch + len(losses), metrics_sink)
     except Preempted as p:
         p.partial = {'losses': [float(v) for v in losses], 'fired': fired,
                      'step_ms': step_ms if time_steps else None,
                      'scaler': _scaler_record(scaler)}
         raise
     out = {k: m.avg for k, m in meters.items()}
+    if metrics_sink is not None and losses:
+        record_epoch(metrics_sink, state.epoch, out, len(losses),
+                     time.perf_counter() - t_epoch)
     if verbose and out:
-        shown = {k: round(v, 4) for k, v in out.items()}
+        shown = {k: round(v, 4) for k, v in out.items()
+                 if not k.startswith('kfac/')}
         print(f'epoch {state.epoch}: train {shown}')
     return {'metrics': out, 'losses': [float(v) for v in losses],
             'fired': fired, 'step_ms': step_ms if time_steps else None,
             'scaler': _scaler_record(scaler), 'stopped': stopped}
+
+
+def step_metrics(state: TrainState, loss, acc=None, scale=None) -> dict:
+    """The step's metrics, as the JAX step returns them: ``loss`` (and
+    ``acc``), with ``scale`` (the dynamic loss scale the step used; the
+    epoch loops pass it when a sink records the step) ``loss_scale`` and
+    ``overflow`` (1.0 for a skipped step), and under
+    ``collect_metrics`` the K-FAC state's metrics flattened to ``kfac/*``
+    (an overflow-skipped step leaves them as they were). Device scalars
+    stay on the device."""
+    out = {'loss': loss}
+    if acc is not None:
+        out['acc'] = acc
+    if scale is not None:
+        out['loss_scale'] = scale
+        out['overflow'] = 1.0 if state.overflow else 0.0
+    kst = state.kfac_state
+    if kst is not None and 'metrics' in kst:
+        out.update(obs_metrics.flatten_metrics(kst['metrics']))
+    return out
+
+
+def record_step(sink, step: int, metrics: dict, dispatch_ms: float,
+                fired: str | None) -> None:
+    """One step record into ``sink``, then the pending kernel-build events
+    (``compile``; a plain step that built the kernels is labelled
+    ``'compile'``)."""
+    events = kernels.drain_build_events()
+    if events and fired is None:
+        fired = 'compile'
+    sink.step_record(step, metrics, host_step_ms=dispatch_ms, fired=fired)
+    for ev in events:
+        sink.event_record(ev['event'], **{k: v for k, v in ev.items()
+                                          if k != 'event'})
+
+
+def record_epoch(sink, epoch: int, averages: dict, steps: int,
+                 seconds: float) -> None:
+    """The epoch record (the averages with ``time_s`` and ``ms_per_iter``,
+    as the JAX engine writes them), then a flush."""
+    sink.epoch_record(epoch, {**averages, 'time_s': seconds,
+                              'ms_per_iter': seconds / steps * 1000.0})
+    sink.flush()
+
+
+def _after_step(checkpointer, state: TrainState, step_in_epoch: int,
+                sink) -> None:
+    """``checkpointer.after_step``; when it raises (a preemption drain),
+    the sink is flushed first, so the steps done so far are on disk beside
+    the bundle the relaunch resumes from."""
+    try:
+        checkpointer.after_step(state, step_in_epoch)
+    except BaseException:
+        if sink is not None:
+            sink.flush()
+        raise
 
 
 def _scaler_record(scaler: list | None) -> list | None:
@@ -494,7 +582,8 @@ def fit(state: TrainState, train_data, val_data, *, lr_schedule,
         time_steps: bool = False, verbose: bool = False,
         criterion: Callable = F.cross_entropy,
         ckpt: 'Checkpointing | None' = None,
-        precise_bn: Callable[[int], Iterable] | None = None) -> dict:
+        precise_bn: Callable[[int], Iterable] | None = None,
+        metrics_sink=None, log_writer=None) -> dict:
     """The CLIs' epoch loop: per epoch, set the LR, train on the
     reshuffled ``(x, y)`` arrays of ``train_data`` (augmented with
     ``augment``), evaluate on ``val_data`` and advance the K-FAC
@@ -512,7 +601,9 @@ def fit(state: TrainState, train_data, val_data, *, lr_schedule,
     ``freq`` epochs and after the last; a preemption ends the loop.
 
     The batch consumed at the ``KFAC_CHAOS`` plan's ``nan-batch`` step is
-    poisoned (``resilience.faults.poison_at``).
+    poisoned (``resilience.faults.poison_at``). ``metrics_sink`` and
+    ``log_writer`` (a :class:`TensorBoardWriter`) take the step and epoch
+    records (module docstring).
 
     Returns ``{'device', 'steps', 'losses', 'fired', 'step_ms', 'scaler',
     'train', 'val', 'seconds', 'state', 'preempted'}``: per-step losses
@@ -535,7 +626,8 @@ def fit(state: TrainState, train_data, val_data, *, lr_schedule,
                            verbose=verbose, time_steps=time_steps,
                            max_steps=max_steps, criterion=criterion,
                            checkpointer=ckpt and ckpt.step_ckpt,
-                           start_step_in_epoch=skip)
+                           start_step_in_epoch=skip,
+                           metrics_sink=metrics_sink)
 
     def eval_fn(epoch: int) -> dict:
         saved = (precise_bn_recalibrate(
@@ -552,16 +644,20 @@ def fit(state: TrainState, train_data, val_data, *, lr_schedule,
     return _epoch_loop(state, epoch_fn, eval_fn, lr_schedule=lr_schedule,
                        kfac_sched=kfac_sched, epochs=epochs,
                        max_steps=max_steps, time_steps=time_steps,
-                       verbose=verbose, device=device, ckpt=ckpt)
+                       verbose=verbose, device=device, ckpt=ckpt,
+                       metrics_sink=metrics_sink, log_writer=log_writer)
 
 
 def _epoch_loop(state: TrainState, epoch_fn, eval_fn, *, lr_schedule,
                 kfac_sched, epochs: int, max_steps: int | None,
                 time_steps: bool, verbose: bool, device,
-                ckpt: 'Checkpointing | None') -> dict:
+                ckpt: 'Checkpointing | None', metrics_sink=None,
+                log_writer=None) -> dict:
     """The epoch loop :func:`fit` and :func:`fit_lm` share:
     ``epoch_fn(epoch, skip, hyper)`` trains one epoch (a
-    :func:`train_epoch` result), ``eval_fn(epoch)`` evaluates."""
+    :func:`train_epoch` result), ``eval_fn(epoch)`` evaluates; the epoch's
+    train and validation averages go to ``log_writer``, and a preemption
+    flushes ``metrics_sink``."""
     losses, fired, step_ms = [], [], []
     scaler = [] if state.loss_scale is not None else None
     train_m = val_m = {}
@@ -592,6 +688,8 @@ def _epoch_loop(state: TrainState, epoch_fn, eval_fn, *, lr_schedule,
             if scaler is not None:
                 scaler += res['scaler']
             val_m = eval_fn(epoch)
+            if log_writer is not None:
+                log_writer.epoch(epoch, res['metrics'], val_m)
             if kfac_sched:
                 kfac_sched.step(epoch + 1)
             # An epoch resumed at its end yields no batch and is done.
@@ -606,6 +704,8 @@ def _epoch_loop(state: TrainState, epoch_fn, eval_fn, *, lr_schedule,
         if scaler is not None:
             scaler += p.partial['scaler']
         preempted = {'global_step': p.global_step, 'reason': p.reason}
+        if metrics_sink is not None:
+            metrics_sink.flush()
         if verbose:
             print(f'preempted ({p.reason}) at global step '
                   f'{p.global_step}; checkpoint saved — exiting '
@@ -738,6 +838,14 @@ def add_num_slices_arg(p: argparse.ArgumentParser) -> None:
                         'process count. Defaults from KFAC_NUM_SLICES')
 
 
+def observability_config(args: argparse.Namespace) -> dict:
+    """The ``OptimConfig`` fields of the metrics flags: the on-device
+    metrics under ``--kfac-metrics``, the non-finite factor guard under
+    ``--health-action skip|raise``."""
+    return {'kfac_metrics': bool(args.kfac_metrics),
+            'nonfinite_guard': obs_cli.wants_guard(args)}
+
+
 def precision_config(args: argparse.Namespace) -> dict:
     """The ``OptimConfig`` fields of :func:`add_precision_args`' flags."""
     return {key: getattr(args, key) for key in
@@ -746,13 +854,9 @@ def precision_config(args: argparse.Namespace) -> dict:
 
 #: Flags of the JAX CLIs the port does not run yet, by destination, with
 #: their argparse definitions (the JAX names and "off" defaults; a path
-#: flag is off at None): the sinks, profiling and autotune, heartbeats and
-#: self-healing.
+#: flag is off at None): profiling, memory telemetry and straggler shards,
+#: autotune, heartbeats and self-healing.
 _UNPORTED_ARGS = {
-    'log_dir': {},
-    'kfac_metrics': {'nargs': '?', 'const': 'auto'},
-    'metrics_interval': {'type': int, 'default': 10},
-    'health_action': {'choices': ['warn', 'skip', 'raise']},
     'profile_dir': {},
     'memory_interval': {'type': int, 'default': 100},
     'no_perf_anomalies': {'action': 'store_true'},
@@ -801,6 +905,44 @@ def check_unported(args: argparse.Namespace) -> None:
             raise NotImplementedError(
                 f'--{flag.replace("_", "-")} is not ported to torch yet')
     faults.check_ported(faults.plan_from_env())
+
+
+def add_observability_args(p: argparse.ArgumentParser, name: str) -> None:
+    """``--log-dir`` (the JAX CLIs' default ``./logs/<name>``) and the
+    metrics flags of ``observability.cli.add_observability_args``."""
+    p.add_argument('--log-dir', default=f'./logs/{name}',
+                   help='TensorBoard scalars (where the tensorboard '
+                        'package is installed) and the default '
+                        '--kfac-metrics directory')
+    obs_cli.add_observability_args(p)
+
+
+def start_observability(args: argparse.Namespace, cli: str,
+                        meta: dict) -> tuple:
+    """``(metrics_sink, log_writer)`` of a CLI run, made before the model
+    (either may be None): the JSONL sink of ``--kfac-metrics`` (rank 0
+    writes; its leading meta record is ``{'cli': cli, **meta,
+    'metrics_interval'}``) and, on rank 0 with a ``--log-dir``, the
+    :class:`TensorBoardWriter`. ``--kfac-metrics`` without the K-FAC step
+    raises the JAX CLIs' ``SystemExit``."""
+    if args.kfac_metrics and args.kfac_update_freq <= 0:
+        raise SystemExit('--kfac-metrics requires the K-FAC step '
+                         '(--kfac-update-freq > 0)')
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    sink = obs_cli.make_metrics_sink(
+        args, rank, meta={'cli': cli, **meta,
+                          'metrics_interval': args.metrics_interval})
+    writer = (TensorBoardWriter(args.log_dir)
+              if args.log_dir and rank == 0 else None)
+    return sink, writer
+
+
+def close_observability(sink, writer) -> None:
+    """Flush and close what :func:`start_observability` made."""
+    if sink is not None:
+        sink.close()
+    if writer is not None:
+        writer.close()
 
 
 def add_port_args(p: argparse.ArgumentParser) -> None:
@@ -918,7 +1060,8 @@ def start_checkpointing(args: argparse.Namespace, state: TrainState,
                         preemption: PreemptionHandler | None,
                         extra_state: Callable[[], dict] | None = None,
                         load_extra: Callable[[dict], None] | None = None,
-                        verbose: bool = False) -> Checkpointing | None:
+                        verbose: bool = False,
+                        sink=None) -> Checkpointing | None:
     """The JAX CLIs' checkpoint wiring, shared by the three CLIs: None
     when ``--checkpoint-dir`` is None; else the epoch manager under
     ``--checkpoint-dir`` (``-sgd`` appended to the default directory
@@ -934,7 +1077,9 @@ def start_checkpointing(args: argparse.Namespace, state: TrainState,
     each file it writes). On resume every part is loaded onto ``device``
     (``load_extra`` takes the ``extra_vars``; the loss-scale state goes
     back into ``state``, so the schedule continues bit for bit) and the
-    scheduler steps to the resumed epoch.
+    scheduler steps to the resumed epoch. ``sink`` (a metrics sink) takes
+    the ``restore``, ``ckpt_quarantine``, ``checkpoint_save`` and
+    ``preemption`` events.
     """
     if args.checkpoint_dir is None:
         return None
@@ -959,7 +1104,8 @@ def start_checkpointing(args: argparse.Namespace, state: TrainState,
 
     start_epoch = start_offset = 0
     resumed = resilience_cli.resume(args, epoch_mgr, step_mgr,
-                                    device=device, verbose=verbose)
+                                    device=device, verbose=verbose,
+                                    sink=sink)
     if resumed is not None:
         tree, start_epoch, start_offset, _ = resumed
         state.model.load_state_dict(tree['params'])
@@ -978,7 +1124,7 @@ def start_checkpointing(args: argparse.Namespace, state: TrainState,
         state.epoch = start_epoch
     step_ckpt = resilience_cli.make_step_checkpointer(
         args, step_mgr, bundle_fn, preemption=preemption,
-        start_step=state.step, verbose=verbose)
+        start_step=state.step, verbose=verbose, sink=sink)
     return Checkpointing(epoch_mgr, step_ckpt, bundle_fn,
                          args.checkpoint_freq, start_epoch, start_offset)
 
@@ -1029,18 +1175,20 @@ def parse_args(parser: argparse.ArgumentParser,
     """A CLI's options from an ``argparse.Namespace`` (as is), a list of
     CLI strings, a dict of option overrides or None (the defaults).
 
-    A dict or None starts with checkpointing off (``checkpoint_dir``
-    None) unless it sets ``checkpoint_dir``: a programmatic run writes and
-    resumes no bundles unless asked to. The command line keeps the JAX
-    CLIs' default directory."""
+    A dict or None starts with checkpointing and the TensorBoard
+    directory off (``checkpoint_dir`` and ``log_dir`` None) unless it sets
+    them: a programmatic run writes and resumes no bundles and writes no
+    event files unless asked to. The command line keeps the JAX CLIs'
+    default directories."""
     if args_or_config is None:
         args_or_config = {}
     if isinstance(args_or_config, argparse.Namespace):
         return args_or_config
     if isinstance(args_or_config, dict):
         args = parser.parse_args([])
-        if hasattr(args, 'checkpoint_dir'):
-            args.checkpoint_dir = None
+        for key in ('checkpoint_dir', 'log_dir'):
+            if hasattr(args, key):
+                setattr(args, key, None)
         for key, value in args_or_config.items():
             key = key.replace('-', '_')
             if not hasattr(args, key):
@@ -1264,14 +1412,16 @@ def fit_lm(state: TrainState, train_ids: np.ndarray, val_ids: np.ndarray,
            fixed_batch: bool = False, max_steps: int | None = None,
            time_steps: bool = False, verbose: bool = False,
            seq_parallel: int = 1,
-           ckpt: 'Checkpointing | None' = None) -> dict:
+           ckpt: 'Checkpointing | None' = None,
+           metrics_sink=None, log_writer=None) -> dict:
     """The LM CLI's epoch loop: per epoch, set the LR, train on the BPTT
     windows of ``train_ids`` (tracks offset per ``(seed, epoch)``; with
     ``fixed_batch`` every step takes epoch 0's first window instead;
     with ``state.distributed`` each rank its ``launch.process_local_tile``
     of the window under ``seq_parallel``), evaluate on ``val_ids`` and
     advance the K-FAC scheduler; stop after ``max_steps`` global steps
-    when given. ``ckpt`` as in :func:`fit`.
+    when given. ``ckpt``, ``metrics_sink`` and ``log_writer`` as in
+    :func:`fit`.
 
     Returns what :func:`fit` returns; ``train`` and ``val`` hold the last
     epoch's ``loss`` and ``ppl``.
@@ -1294,7 +1444,7 @@ def fit_lm(state: TrainState, train_ids: np.ndarray, val_ids: np.ndarray,
             generator=generator, first=first if fixed_batch else None,
             seq_parallel=seq_parallel, time_steps=time_steps,
             max_steps=max_steps, checkpointer=ckpt and ckpt.step_ckpt,
-            start_step_in_epoch=skip)
+            start_step_in_epoch=skip, metrics_sink=metrics_sink)
         last.update(res['metrics'])
         return res
 
@@ -1311,7 +1461,8 @@ def fit_lm(state: TrainState, train_ids: np.ndarray, val_ids: np.ndarray,
     return _epoch_loop(state, epoch_fn, eval_fn, lr_schedule=lr_schedule,
                        kfac_sched=kfac_sched, epochs=epochs,
                        max_steps=max_steps, time_steps=time_steps,
-                       verbose=verbose, device=device, ckpt=ckpt)
+                       verbose=verbose, device=device, ckpt=ckpt,
+                       metrics_sink=metrics_sink, log_writer=log_writer)
 
 
 def lm_train_epoch(state: TrainState, windows: Iterable, hyper: dict, *,
@@ -1319,16 +1470,19 @@ def lm_train_epoch(state: TrainState, windows: Iterable, hyper: dict, *,
                    generator: torch.Generator | None = None, first=None,
                    seq_parallel: int = 1, time_steps: bool = False,
                    max_steps: int | None = None, checkpointer=None,
-                   start_step_in_epoch: int = 0) -> dict:
+                   start_step_in_epoch: int = 0, metrics_sink=None) -> dict:
     """One LM epoch over ``windows`` (each step on ``first`` instead when
     given): :func:`train_epoch`'s record, with ``metrics`` the epoch's
-    mean ``loss`` and its ``ppl`` (empty without a step)."""
+    mean ``loss`` and its ``ppl`` (empty without a step), and the averages
+    of the other step metrics (:func:`step_metrics`)."""
     schedule = (epoch_schedule(state.kfac, hyper['inv_update_freq'])
                 if state.kfac is not None else {})
     state.model.train()
     losses, fired, step_ms = [], [], []
+    meters: dict[str, Metric] = {}
     scaler = [] if state.loss_scale is not None else None
     stopped = False
+    t_epoch = time.perf_counter()
     try:
         for xb, yb in windows:
             if max_steps is not None and state.step >= max_steps:
@@ -1351,6 +1505,7 @@ def lm_train_epoch(state: TrainState, windows: Iterable, hyper: dict, *,
             loss = lm_train_step(state, x, y, hyper, flags,
                                  grad_clip=grad_clip, generator=generator,
                                  pos_offset=offset)
+            dispatch_ms = (time.perf_counter() - t0) * 1e3
             if time_steps:
                 if device.type == 'cuda':
                     torch.cuda.synchronize(device)
@@ -1359,10 +1514,19 @@ def lm_train_epoch(state: TrainState, windows: Iterable, hyper: dict, *,
                 scaler.append((scale, state.overflow))
             losses.append(loss)
             fired.append(fired_stage(flags))
+            metrics = step_metrics(
+                state, loss, None,
+                scale if metrics_sink is not None else None)
+            for k, v in metrics.items():
+                if k != 'loss':
+                    meters.setdefault(k, Metric(k)).update(v)
+            if metrics_sink is not None:
+                record_step(metrics_sink, state.step, metrics, dispatch_ms,
+                            fired[-1])
             state.step += 1
             if checkpointer is not None:
-                checkpointer.after_step(state,
-                                        start_step_in_epoch + len(losses))
+                _after_step(checkpointer, state,
+                            start_step_in_epoch + len(losses), metrics_sink)
     except Preempted as p:
         p.partial = {'losses': [float(v) for v in losses], 'fired': fired,
                      'step_ms': step_ms if time_steps else None,
@@ -1372,7 +1536,67 @@ def lm_train_epoch(state: TrainState, windows: Iterable, hyper: dict, *,
     metrics = {}
     if losses:
         mean = sum(losses) / len(losses)
-        metrics = {'loss': mean, 'ppl': math.exp(min(mean, 20.0))}
+        metrics = {'loss': mean, 'ppl': math.exp(min(mean, 20.0)),
+                   **{k: m.avg for k, m in meters.items()}}
+        if metrics_sink is not None:
+            record_epoch(metrics_sink, state.epoch, metrics, len(losses),
+                         time.perf_counter() - t_epoch)
     return {'metrics': metrics, 'losses': losses, 'fired': fired,
             'step_ms': step_ms if time_steps else None,
             'scaler': _scaler_record(scaler), 'stopped': stopped}
+
+
+class TensorBoardWriter:
+    """Epoch scalars to TensorBoard under ``log_dir`` (the JAX engine's
+    writer, after the reference's ``SummaryWriter``), where the
+    ``tensorboard`` package is installed; a no-op where it is not, as the
+    JAX writer is without tensorflow.
+
+    It writes the event file ``SummaryWriter`` writes (``brain.Event:2``
+    records of ``simple_value`` scalars, framed by tensorboard's
+    ``RecordWriter``) from tensorboard's own protos, without importing
+    ``torch.utils.tensorboard``: that module resolves TensorFlow at import
+    wherever it is installed (seconds per process), and its TF-free mode
+    is a process-wide switch that breaks TensorFlow's own summaries.
+    """
+
+    def __init__(self, log_dir: str):
+        try:
+            from tensorboard.compat.proto import event_pb2, summary_pb2
+            from tensorboard.summary.writer.record_writer import \
+                RecordWriter
+        except ImportError:  # tensorboard not installed: write nothing
+            self._writer = None
+            return
+        import socket
+        os.makedirs(log_dir, exist_ok=True)
+        self._event, self._summary = event_pb2.Event, summary_pb2.Summary
+        self._file = open(os.path.join(
+            log_dir, f'events.out.tfevents.{int(time.time())}.'
+                     f'{socket.gethostname()}.{os.getpid()}.0'), 'wb')
+        self._writer = RecordWriter(self._file)
+        self._write(self._event(wall_time=time.time(),
+                                file_version='brain.Event:2'))
+
+    def _write(self, event) -> None:
+        self._writer.write(event.SerializeToString())
+
+    def scalar(self, tag: str, value, step: int) -> None:
+        if self._writer is not None:
+            self._write(self._event(
+                wall_time=time.time(), step=int(step),
+                summary=self._summary(value=[self._summary.Value(
+                    tag=tag, simple_value=float(value))])))
+
+    def epoch(self, epoch: int, train: dict, val: dict) -> None:
+        """``train/<k>`` and ``val/<k>`` of one epoch's averages."""
+        for prefix, metrics in (('train', train), ('val', val)):
+            for k, v in (metrics or {}).items():
+                self.scalar(f'{prefix}/{k}', v, epoch)
+        if self._writer is not None:
+            self._file.flush()
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._file.close()
+            self._writer = None

@@ -78,6 +78,11 @@ class OptimConfig:
     inv_lowrank_rank: int = 0
     inv_lowrank_dim_threshold: int = 2048
     hierarchical_reduce: bool = False
+    # Observability: the on-device step metrics (KFAC collect_metrics,
+    # the CLIs' --kfac-metrics) and the non-finite factor guard
+    # (--health-action skip / raise arm it).
+    kfac_metrics: bool = False
+    nonfinite_guard: bool = False
     skip_layers: Sequence[str] = ()
     # Distribution (read by parallel.DistributedKFAC).
     comm_method: str = 'comm-opt'
@@ -145,6 +150,8 @@ def get_optimizer(model: torch.nn.Module, cfg: OptimConfig, device='cuda'):
             symmetry_aware_comm=cfg.symmetry_aware_comm,
             comm_method=COMM_METHODS[cfg.comm_method.lower()],
             grad_worker_fraction=cfg.grad_worker_fraction,
+            collect_metrics=cfg.kfac_metrics,
+            nonfinite_guard=cfg.nonfinite_guard,
             device=device)
         kfac_scheduler = KFACParamScheduler(
             kfac,

@@ -202,9 +202,15 @@ def test_import_leaves_jax_unloaded():
 
 @pytest.mark.parametrize('knob,value', [('collect_metrics', True)])
 def test_unported_knobs_raise_by_name(knob, value):
-    with pytest.raises(NotImplementedError, match=knob):
+    """Every knob of the JAX ``KFAC`` is ported, ``collect_metrics`` last
+    (its runs are in ``tests/test_torch_metrics*.py``): it is a ``KFAC``
+    attribute, and a knob the JAX ``KFAC`` does not have raises by name."""
+    kfac = KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
+                **{knob: value})
+    assert getattr(kfac, knob) == value
+    with pytest.raises(TypeError, match='not_a_knob'):
         KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
-             **{knob: value})
+             not_a_knob=value)
 
 
 @pytest.mark.parametrize('knob,value', [
@@ -213,10 +219,9 @@ def test_unported_knobs_raise_by_name(knob, value):
 def test_lowrank_and_hierarchical_knobs_are_ported(knob, value):
     """The low-rank and hierarchical-reduce knobs are ``KFAC`` attributes
     (their runs are in ``tests/test_torch_lowrank*.py`` and
-    ``tests/test_torch_multislice.py``); ``NOT_PORTED`` holds
-    ``collect_metrics`` alone."""
-    from distributed_kfac_pytorch_tpu_torch.preconditioner import NOT_PORTED
-    assert NOT_PORTED == {'collect_metrics': False}
+    ``tests/test_torch_multislice.py``), constructor parameters."""
+    import inspect
+    assert knob in inspect.signature(KFAC).parameters
     kfac = KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
                 **{knob: value})
     assert getattr(kfac, knob) == value
@@ -241,21 +246,20 @@ def test_fp16_and_nan_batch_are_ported(module):
     ('inv_staleness', 1), ('factor_batch_fraction', 0.5),
     ('inv_pipeline_costs', {64: 1.0})])
 def test_schedule_knobs_are_kfac_attributes(knob, value):
-    from distributed_kfac_pytorch_tpu_torch.preconditioner import NOT_PORTED
-    assert knob not in NOT_PORTED and len(NOT_PORTED) == 1
+    import inspect
+    assert knob in inspect.signature(KFAC).parameters
     kfac = KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
                 inv_update_freq=10, **{knob: value})
     assert getattr(kfac, knob) == value
 
 
 def test_distribution_knobs_are_kfac_attributes():
-    from distributed_kfac_pytorch_tpu_torch.preconditioner import (
-        NOT_PORTED,
-        CommMethod,
-    )
+    import inspect
+
+    from distributed_kfac_pytorch_tpu_torch.preconditioner import CommMethod
     knobs = {'comm_method': 'hybrid-opt', 'grad_worker_fraction': 0.5,
              'symmetry_aware_comm': True, 'assignment_strategy': 'memory'}
-    assert not set(knobs) & set(NOT_PORTED)
+    assert set(knobs) <= set(inspect.signature(KFAC).parameters)
     kfac = KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu', **knobs)
     assert kfac.comm_method is CommMethod.HYBRID_OPT
     assert (kfac.grad_worker_fraction, kfac.symmetry_aware_comm,
