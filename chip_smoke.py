@@ -471,7 +471,40 @@ Phases (any failure exits nonzero and prints no result line):
      ``KFAC`` preconditions, no health event; the median non-firing step
      with the metrics on and off and their difference, the device kernels
      one step adds with the metrics on (profiler, on the run's final
-     state), and the sink's host ms to enqueue a record and to drain 12.
+     state), and the sink's host ms to enqueue a record and to drain 12;
+ 41. the rest of observability: phase 40's ResNet-50 run on two fixed
+     batches (12 steps, 2 per epoch) with ``--kfac-metrics
+     --metrics-interval 1 --memory-interval 4 --profile-dir DIR`` and with
+     ``--kfac-metrics`` alone: losses and parameters bit for bit, phase
+     7's launches per step; the first epoch's Chrome trace holds the
+     ``kfac/*`` scopes the step reaches and every K1, K2 and K3 launch
+     inside a scope of its stage; device ms per scope of the firing and
+     the plain step; the memory records' peak within 1 % of
+     ``torch.cuda.max_memory_allocated()`` and their footprint the state's
+     tensor bytes; the epoch records' trace table; the port's ``gate``
+     passing against the stream's own baseline and failing against one
+     with a tolerance broken; the profiler's cost on a step and a memory
+     record's host cost;
+ 42. self-healing on ResNet-32 at full width through the CIFAR CLI
+     (``--deterministic``): ``KFAC_CHAOS=diverge@6 --selfheal`` escalates
+     the damping and rolls back in the process to the newest verified,
+     finite step bundle before the fault, then finishes with finite,
+     falling losses (the ``gate`` counts one rollback);
+     ``corrupt-factor@3`` quarantines the ``conv1`` bucket, every gated
+     step launches K3 and is held against the stock path with the same
+     gates (1e-4), and the bucket is re-admitted after the next firing;
+     ``--selfheal`` without a fault moves ``nu`` by at most 1e-6; unarmed,
+     the run equals the one without the engine's observers bit for bit,
+     with phase 5's launches per step;
+ 43. straggler shards: 4 gloo ranks of the card (2 slices x 2) run the
+     CIFAR CLI at ResNet-32 with ``--num-slices 2 --hierarchical-reduce
+     --kfac-metrics --straggler-shards --straggler-sample-every 2``: one
+     shard per rank, the barrier probe's waits on the even steps only,
+     the window heads ``dcn_reduce``, the shards read by ``merge_shards``
+     and ``straggler_summary``; then ``DistributedKFAC.precondition(
+     gates=)`` on the run's state under three gate sets, rank 0 against the
+     single-device ``KFAC`` within phase 14's tolerances and each gated
+     layer its raw gradient times ``nu``, exactly.
      The script ends with every phase header's wall time, largest first.
 
 ``--quick`` builds with ``-Xptxas -v`` and runs only the correctness
@@ -494,6 +527,8 @@ phases 34-36 alone (``chiprun_out/chip_smoke_fp16.json``);
 ``--lowrank-only`` builds and runs phases 37-39 alone
 (``chiprun_out/chip_smoke_lowrank.json``); ``--metrics-only`` builds and
 runs phase 40 and phase 14 alone (``chiprun_out/chip_smoke_metrics.json``);
+``--observability-only`` builds and runs phases 41-43 alone
+(``chiprun_out/chip_smoke_observability.json``);
 ``--determinism-probe`` (alone
 or before ``--resume-only``'s phases) runs phase 27's uninterrupted
 ResNet-50 twice without ``--deterministic`` and compares the final
@@ -4554,13 +4589,15 @@ def run_resume_phases(card: str, after_28=()) -> dict:
     return out
 
 
-def at_once(*calls) -> list:
+def at_once(*calls, here: bool = False) -> list:
     """Run ``(fn, *args)`` calls at once, each in a thread, and return
     their results in order; each call's :func:`log` lines are kept and
     printed after the call before it has printed its own, so the output
     reads as if they had run one after the other. A call that raises
-    re-raises here, after the calls before it have printed."""
-    from concurrent.futures import ThreadPoolExecutor
+    re-raises here, after the calls before it have printed. ``here``: the
+    first call runs on this thread (a CLI run that installs signal
+    handlers must run on the main thread)."""
+    from concurrent.futures import Future, ThreadPoolExecutor
 
     def logged(lines, fn, *args):
         _LOG_BUFFER.lines = lines
@@ -4571,8 +4608,16 @@ def at_once(*calls) -> list:
 
     buffers = [[] for _ in calls]
     with ThreadPoolExecutor(len(calls)) as pool:
+        start = 1 if here else 0
         futures = [pool.submit(logged, buf, *call)
-                   for buf, call in zip(buffers, calls)]
+                   for buf, call in zip(buffers[start:], calls[start:])]
+        if here:
+            first = Future()
+            try:
+                first.set_result(logged(buffers[0], *calls[0]))
+            except BaseException as exc:
+                first.set_exception(exc)
+            futures.insert(0, first)
         results = []
         for buf, fut in zip(buffers, futures):
             exc = fut.exception()
@@ -6846,6 +6891,754 @@ def run_metrics_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 41-43: the rest of observability and self-healing
+# ---------------------------------------------------------------------------
+
+# Phase 41: phase 40's ResNet-50 run on two fixed batches (two steps per
+# epoch: the profiled first epoch holds the firing step 0 and the plain
+# step 1), 13 steps, memory records every 4: the last at the last step,
+# whose running peak covers every step before it.
+OBS_STEPS, OBS_MEMORY_EVERY = 13, 4
+# The kfac/* scopes a ResNet-50 'auto' step reaches (eigen sides <= 640,
+# Cholesky above; every bucket through K3).
+OBS_SCOPES = ('kfac/factors', 'kfac/factors/conv2d_a', 'kfac/factors/conv2d_g',
+              'kfac/factors/linear_a', 'kfac/factors/linear_g',
+              'kfac/inverses', 'kfac/eigh/warm', 'kfac/inverse/cholesky',
+              'kfac/precond', 'kfac/precond/inv')
+# Each kernel's launches sit inside a scope of its stage.
+OBS_STAGE_OF = {'K1 factor_ema': 'kfac/factors/', 'K2 patch_cov':
+                'kfac/factors/', 'K3 bucket_precond': 'kfac/precond/'}
+OBS_COARSE = ('kfac/factors', 'kfac/inverses', 'kfac/precond')
+
+
+def _trace_scopes(path: str) -> dict:
+    """A Chrome trace of ``torch.profiler``, read: each ``kfac/*`` scope's
+    host intervals, and each CUDA kernel with the scopes its launch sat
+    in (its runtime or driver launch call, matched by correlation id)."""
+    events = json.loads(Path(path).read_text())['traceEvents']
+    scopes, launches, kernels_ = [], {}, []
+    for ev in events:
+        cat, args = ev.get('cat', ''), ev.get('args') or {}
+        if cat == 'user_annotation' and ev.get('name', '').startswith(
+                'kfac/'):
+            scopes.append((ev['name'], ev['ts'], ev['ts'] + ev['dur'],
+                           ev.get('pid'), ev.get('tid')))
+        elif cat in ('cuda_runtime', 'cuda_driver') and \
+                'correlation' in args:
+            launches[args['correlation']] = (ev['ts'], ev.get('pid'),
+                                             ev.get('tid'))
+        elif cat == 'kernel':
+            kernels_.append((ev['name'], ev.get('dur', 0.0),
+                             args.get('correlation')))
+    out = []
+    for name, dur, corr in kernels_:
+        at = launches.get(corr)
+        inside = ([s[0] for s in scopes if s[3] == at[1] and s[4] == at[2]
+                   and s[1] <= at[0] <= s[2]] if at else [])
+        out.append({'name': name, 'us': dur, 'launch_ts': at and at[0],
+                    'scopes': inside})
+    return {'scopes': scopes, 'kernels': out}
+
+
+def _scope_table(trace: dict) -> list:
+    """Device ms per ``kfac/*`` scope of each step in the trace (a step
+    ends with its coarse ``kfac/precond`` scope): the kernels whose launch
+    sat inside the scope (nested scopes counted in each), and the step's
+    kernels in no scope (the model's)."""
+    ends = sorted(s[2] for s in trace['scopes'] if s[0] == 'kfac/precond')
+    steps = []
+    start = -math.inf
+    for end in ends:
+        ms, total, outside = {}, 0.0, 0.0
+        for k in trace['kernels']:
+            t = k['launch_ts']
+            if t is None or not start < t <= end:
+                continue
+            total += k['us'] / 1e3
+            if not k['scopes']:
+                outside += k['us'] / 1e3
+            for name in set(k['scopes']):
+                ms[name] = ms.get(name, 0.0) + k['us'] / 1e3
+        steps.append({'by_scope_ms': dict(sorted(ms.items())),
+                      'device_ms': total, 'outside_kfac_ms': outside})
+        start = end
+    return steps
+
+
+def _gate(argv) -> tuple[int, dict | str]:
+    """The port's ``observability.gate`` in this process: ``(exit code,
+    its --json verdict or its text)``."""
+    import io
+    from distributed_kfac_pytorch_tpu_torch.observability import gate
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = gate.main(argv)
+    text = buf.getvalue()
+    return rc, json.loads(text) if '--json' in argv else text
+
+
+def _memory_record_cost(state, card: str) -> dict:
+    """Host ms of one memory record's parts on the card: the allocator
+    read, the state footprint (once per epoch in the engine) and the
+    sink's enqueue; 200 of each."""
+    import tempfile
+    from distributed_kfac_pytorch_tpu_torch.observability import memory
+    from distributed_kfac_pytorch_tpu_torch.observability import sink as \
+        obs_sink
+    tmp = Path(tempfile.mkdtemp(prefix='kfac-mem-'))
+    s = obs_sink.JsonlMetricsSink(str(tmp / 'm.jsonl'), drain_every=10**6)
+    reps = 200
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        stats = memory.device_memory_stats('cuda')
+    stats_ms = (time.perf_counter() - t0) * 1e3 / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        foot = memory.state_footprint(state.kfac_state)
+    foot_ms = (time.perf_counter() - t0) * 1e3 / reps
+    t0 = time.perf_counter()
+    for i in range(reps):
+        s.memory_record(i, device=stats, state=foot)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / reps
+    s.close()
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    out = {'device_stats_ms': stats_ms, 'state_footprint_ms': foot_ms,
+           'enqueue_ms': enqueue_ms,
+           'record_ms': stats_ms + enqueue_ms}
+    log(f'  a memory record\'s host cost: allocator read {stats_ms:.4f} ms '
+        f'+ enqueue {enqueue_ms:.4f} ms; the state footprint (once per '
+        f'epoch) {foot_ms:.4f} ms ({card})')
+    return out
+
+
+def run_observability_phase(card: str) -> dict:
+    """Phase 41: ResNet-50 through ``train_imagenet_resnet.train`` (224
+    px, batch 64, ``auto``, two fixed batches, 12 steps, firings at 0 and
+    10, ``--deterministic``) with ``--kfac-metrics --metrics-interval 1
+    --memory-interval 4 --profile-dir`` and again with ``--kfac-metrics``
+    alone (launch counts reset before each run, read after it). Holds:
+    the losses and final parameters equal bit for bit, phase 7's launches
+    per step in both; the Chrome trace of the first epoch holds every
+    ``kfac/*`` scope of ``OBS_SCOPES``, each K1, K2 and K3 launch inside a
+    scope of its stage (``kfac/factors/*``, ``kfac/precond/*``); device ms
+    per scope of the firing step 0 and the plain step 1; the memory
+    records' peak within 1 % of ``torch.cuda.max_memory_allocated()``,
+    their state footprint the sum of the state's tensor bytes; every epoch
+    record carries the trace table; the port's ``gate`` passes against a
+    baseline written from the stream and fails against one with a broken
+    tolerance; the profiler's cost on step 1 and the host cost of a
+    memory record."""
+    import shutil
+    import tempfile
+    import torch
+    from distributed_kfac_pytorch_tpu_torch import train_imagenet_resnet, \
+        utils
+    from distributed_kfac_pytorch_tpu_torch.observability import profiling
+    from distributed_kfac_pytorch_tpu_torch.observability import sink as \
+        obs_sink
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix='kfac-obs-'))
+    base = _r50_config(epochs=(OBS_STEPS + 1) // 2, max_steps=OBS_STEPS,
+                       synthetic_size=2 * R50_BATCH, deterministic=True,
+                       metrics_interval=1)
+    configs = {'on': {**base, 'kfac_metrics': str(tmp / 'on.jsonl'),
+                      'memory_interval': OBS_MEMORY_EVERY,
+                      'profile_dir': str(tmp / 'prof')},
+               'off': {**base, 'kfac_metrics': str(tmp / 'off.jsonl')}}
+    kernels.drain_build_events()
+    runs, params = {}, {}
+    for label, config in configs.items():
+        _release()
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with _cudnn_flags():
+            res = train_imagenet_resnet.train(config, device='cuda')
+        res['launches'] = dict(kernels.LAUNCHES)
+        res['max_allocated'] = torch.cuda.max_memory_allocated()
+        state = res.pop('state')
+        params[label] = {n: p.detach().clone()
+                         for n, p in state.model.named_parameters()}
+        if label == 'on':
+            state_bytes = utils.tree_bytes(state.kfac_state)
+            cost = _memory_record_cost(state, card)
+        del state
+        runs[label] = res
+    on, off = runs['on'], runs['off']
+    expected = {k: v * OBS_STEPS for k, v in R50_PER_STEP.items()}
+    expected.update(ns_inverse=0, jacobi_eigh=0)
+    problems = []
+    for label, res in runs.items():
+        if res['launches'] != expected or res['steps'] != OBS_STEPS:
+            problems.append(f'{label}: {res["steps"]} steps, launches '
+                            f'{res["launches"]}, expected {expected}')
+    if on['losses'] != off['losses']:
+        problems.append(f'losses {on["losses"]} vs {off["losses"]}')
+    differ = [n for n, p in params['on'].items()
+              if not torch.equal(p, params['off'][n])]
+    if differ:
+        problems.append(f'parameters differ: {differ[:5]}')
+    del params
+    files = profiling.trace_files(str(tmp / 'prof'))
+    if len(files) != 1:
+        raise AssertionError(f'phase 41: trace files {files}')
+    trace = _trace_scopes(files[0])
+    found = sorted({s[0] for s in trace['scopes']})
+    missing = [s for s in OBS_SCOPES if s not in found]
+    if missing:
+        problems.append(f'scopes missing from the trace: {missing}')
+    placed = {}
+    for k in trace['kernels']:
+        cat = _category(k['name'])
+        stage = OBS_STAGE_OF.get(cat)
+        if stage is None:
+            continue
+        ok = any(s.startswith(stage) for s in k['scopes'])
+        n, good = placed.get(cat, (0, 0))
+        placed[cat] = (n + 1, good + ok)
+    for cat in OBS_STAGE_OF:
+        n, good = placed.get(cat, (0, 0))
+        if n == 0 or good != n:
+            problems.append(f'{cat}: {good} of {n} kernels inside their '
+                            f'stage scope')
+    table = _scope_table(trace)
+    if len(table) != 2:
+        problems.append(f'{len(table)} steps in the profiled epoch')
+    records = obs_sink.read_jsonl(configs['on']['kfac_metrics'])
+    mem = [r for r in records if r['kind'] == 'memory']
+    epochs = [r for r in records if r['kind'] == 'epoch']
+    peaks = [r['device']['peak_bytes_in_use'] for r in mem]
+    peak = max(peaks, default=0)
+    if [r['step'] for r in mem] != list(range(0, OBS_STEPS,
+                                              OBS_MEMORY_EVERY)):
+        problems.append(f'memory records at {[r["step"] for r in mem]}')
+    if not mem or abs(peak - on['max_allocated']) > 0.01 * on[
+            'max_allocated']:
+        problems.append(f'memory peaks {peaks} against '
+                        f'max_memory_allocated {on["max_allocated"]}')
+    totals = {r['state']['total_bytes'] for r in mem}
+    if totals != {state_bytes}:
+        problems.append(f'state footprint {totals}, tensor bytes '
+                        f'{state_bytes}')
+    if len(epochs) != (OBS_STEPS + 1) // 2 or not all(
+            'train_step_dispatch' in r.get('trace', {}) for r in epochs):
+        problems.append('epoch records without the trace table')
+    baseline, broken = str(tmp / 'base.json'), str(tmp / 'broken.json')
+    stream = configs['on']['kfac_metrics']
+    rc_write, _ = _gate([stream, '--write-baseline', baseline])
+    rc_pass, verdict = _gate([stream, '--baseline', baseline, '--json'])
+    obj = json.loads(Path(baseline).read_text())
+    obj['metrics']['step_p50_ms'] *= 0.5        # a tolerance broken
+    Path(broken).write_text(json.dumps(obj))
+    rc_fail, verdict_fail = _gate([stream, '--baseline', broken, '--json'])
+    if (rc_write, rc_pass) != (0, 0) or rc_fail == 0:
+        problems.append(f'gate exit codes {rc_write}, {rc_pass}, {rc_fail}')
+    if problems:
+        raise AssertionError('phase 41: ' + '; '.join(problems))
+    prof_ms, plain_ms = on['step_ms'][1], off['step_ms'][1]
+    later = statistics.median(off['step_ms'][3:10:2])
+    out = {'launches': {k: on['launches'][k] + off['launches'][k]
+                        for k in expected},
+           'losses': on['losses'], 'scopes_found': found,
+           'kernels_in_stage_scope': {k: list(v) for k, v in placed.items()},
+           'per_scope': {'firing_step0': table[0], 'plain_step1': table[1]},
+           'step_ms': {k: r['step_ms'] for k, r in runs.items()},
+           'profiled_step1_ms': prof_ms, 'unprofiled_step1_ms': plain_ms,
+           'unprofiled_plain_median_ms': later,
+           'memory_peak_bytes': peak, 'memory_record_peaks': peaks,
+           'max_allocated': on['max_allocated'],
+           'state_bytes': state_bytes, 'memory_record': cost,
+           'gate': {'pass': verdict, 'broken': verdict_fail['breaches']},
+           'seconds': time.perf_counter() - t0}
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f'  --profile-dir and --memory-interval on and off: losses and final '
+        f'parameters equal bit for bit; launches per run {on["launches"]}')
+    log(f'  trace: {len(found)} kfac/* scopes {found}; kernels inside their '
+        f'stage scope (of all): '
+        f'{ {k: f"{g}/{n}" for k, (n, g) in placed.items()} }')
+    for label, row in (('firing step 0', table[0]),
+                       ('plain step 1', table[1])):
+        coarse = {k: round(v, 3) for k, v in row['by_scope_ms'].items()
+                  if k in OBS_COARSE or k.startswith('kfac/comm')}
+        log(f'  device ms per scope, {label}: {coarse}; step '
+            f'{row["device_ms"]:.3f}, outside kfac/* '
+            f'{row["outside_kfac_ms"]:.3f} ({card})')
+        log(f'    finer: { {k: round(v, 3) for k, v in row["by_scope_ms"].items() if k not in OBS_COARSE} }')
+    log(f'  step 1 under the profiler {prof_ms:.2f} ms, unprofiled '
+        f'{plain_ms:.2f} (later plain steps unprofiled, median '
+        f'{later:.2f}) ({card})')
+    log(f'  memory records at {[r["step"] for r in mem]}: running peaks '
+        f'{peaks} B, max_memory_allocated {on["max_allocated"]} B; state '
+        f'footprint {state_bytes} B = the state\'s tensor bytes; gate: pass '
+        f'against the stream\'s baseline, exit {rc_fail} with step_p50_ms '
+        f'halved')
+    log(f'  phase 41: {out["seconds"]:.1f} s wall ({card})')
+    return out
+
+
+# Phase 42: ResNet-32 at full width through the CIFAR CLI, one card.
+SELFHEAL_R32 = {'model': 'resnet32', 'batch_size': 128,
+                'val_batch_size': 128, 'synthetic_size': 1280,
+                'no_augment': True, 'seed': 0, 'kfac_update_freq': 10,
+                'deterministic': True, 'quiet': True, 'time_steps': True,
+                'metrics_interval': 1}
+SELFHEAL_DIVERGE_AT, SELFHEAL_CORRUPT_AT = 6, 3
+SELFHEAL_PRECOND_TOL = 1e-4
+SELFHEAL_NU_TOL = 1e-6
+
+
+@contextlib.contextmanager
+def _chaos(spec: str | None):
+    old = os.environ.pop('KFAC_CHAOS', None)
+    if spec:
+        os.environ['KFAC_CHAOS'] = spec
+    try:
+        yield
+    finally:
+        os.environ.pop('KFAC_CHAOS', None)
+        if old is not None:
+            os.environ['KFAC_CHAOS'] = old
+
+
+@contextlib.contextmanager
+def _gated_steps_held(record: list):
+    """Within the block, every ``KFAC.precondition`` with gates is held
+    against a second call on the same inputs: with a gate off, the same
+    gates on the stock path (``fused_precondition=False``: no K3), per
+    tensor within ``SELFHEAL_PRECOND_TOL``; with every gate on, the call
+    without gates (K3's fused ``v.g``), ``nu`` within ``SELFHEAL_NU_TOL``.
+    ``record`` gets each step's K3 launches, largest error and ``nu``s;
+    the second call's launches are taken back off the counts."""
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
+    orig = KFAC.precondition
+
+    def checked(self, state, grads, damping, lr, with_stats=False,
+                gates=None):
+        before = kernels.LAUNCHES['bucket_precond']
+        out = orig(self, state, grads, damping, lr, with_stats=with_stats,
+                   gates=gates)
+        if gates is None:
+            return out
+        k3 = kernels.LAUNCHES['bucket_precond'] - before
+        counts = dict(kernels.LAUNCHES)
+        nu = self.last_nu
+        off = sorted(k for k, g in gates.items() if float(g) < 0.5)
+        try:
+            if off:
+                self.fused_precondition = False
+                ref = orig(self, state, grads, damping, lr, gates=gates)
+            else:
+                ref = orig(self, state, grads, damping, lr)
+            ref_nu = self.last_nu
+        finally:
+            self.fused_precondition = True
+            self.last_nu = nu
+            kernels.LAUNCHES.update(counts)
+        got = out[0] if with_stats else out
+        err = max(_tensor_rel(got[k], ref[k]) for k in ref)
+        record.append({'k3_launches': k3, 'max_rel': err,
+                       'nu': float(nu), 'ref_nu': float(ref_nu),
+                       'nu_gap': abs(float(nu) / float(ref_nu) - 1.0),
+                       'gated': off})
+        return out
+
+    KFAC.precondition = checked
+    try:
+        yield
+    finally:
+        KFAC.precondition = orig
+
+
+def _selfheal_run(label: str, extra: dict, tmp: Path,
+                  chaos: str | None = None, observers=True) -> dict:
+    """One ResNet-32 CLI run of phase 42 (launch counts reset before it),
+    its stream's selfheal events and final parameters."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch import train_cifar10_resnet
+    from distributed_kfac_pytorch_tpu_torch.observability import sink as \
+        obs_sink
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    from distributed_kfac_pytorch_tpu_torch.training import engine
+    stream = tmp / f'{label}.jsonl'
+    config = {**SELFHEAL_R32, 'kfac_metrics': str(stream), **extra}
+    _release()
+    kernels.reset_launches()
+    real = engine.make_observers
+    if not observers:
+        engine.make_observers = lambda *a, **k: None
+    try:
+        with _cudnn_flags(), _chaos(chaos):
+            res = train_cifar10_resnet.train(config, device='cuda')
+    finally:
+        engine.make_observers = real
+    res['launches'] = dict(kernels.LAUNCHES)
+    state = res.pop('state')
+    res['params'] = {n: p.detach().clone()
+                     for n, p in state.model.named_parameters()}
+    del state
+    records = obs_sink.read_jsonl(str(stream))
+    res['records'] = records
+    res['events'] = [(r['event'], r['data']) for r in records
+                     if r['kind'] == 'event'
+                     and r['event'].startswith('selfheal')]
+    res['nu'] = [r['metrics']['kfac/nu'] for r in records
+                 if r['kind'] == 'step']
+    return res
+
+
+def run_selfheal_phase(card: str) -> dict:
+    """Phase 42: self-healing on ResNet-32 at full width through
+    ``train_cifar10_resnet.train`` (batch 128, ``auto``, firings every
+    10 steps, ``--deterministic``, ``--kfac-metrics --metrics-interval
+    1``):
+      1. ``KFAC_CHAOS=diverge@6 --selfheal --selfheal-window 2
+         --selfheal-diverge-ratio 3``, step bundles every 2 steps, 3
+         epochs: damping escalations, then one in-process rollback to the
+         newest verified, finite bundle before the fault; the process
+         finishes every epoch, the losses after the rollback finite and
+         falling; the port's ``gate`` counts one rollback;
+      2. ``KFAC_CHAOS=corrupt-factor@3 --selfheal --selfheal-window 1``,
+         2 epochs: the quarantine of the 16x27 bucket (``conv1``), every
+         gated step through K3 and held against the stock path with the
+         same gates, the re-admission after the step-10 firing;
+      3. ``--selfheal`` with no fault, 2 epochs: at every step the gated
+         call (every gate on: the full-tensor ``v.g``) against the same
+         call without gates (K3's fused ``v.g``), ``nu`` within 1e-6;
+      4. unarmed, 2 epochs, against the same run with the engine's
+         observers taken out: losses and parameters bit for bit, phase 5's
+         launches per step."""
+    import shutil
+    import tempfile
+    from distributed_kfac_pytorch_tpu_torch.observability import gate
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix='kfac-selfheal-'))
+    problems = []
+    steps = SELFHEAL_R32['synthetic_size'] // SELFHEAL_R32['batch_size']
+    # 1. diverge -> escalate -> rollback.
+    div = _selfheal_run('diverge', {
+        'epochs': 3, 'selfheal': True, 'selfheal_window': 2,
+        'selfheal_diverge_ratio': 3.0,
+        'checkpoint_dir': str(tmp / 'ck_div'), 'checkpoint_steps': 2},
+        tmp, chaos=f'diverge@{SELFHEAL_DIVERGE_AT}')
+    names = [e for e, _ in div['events']]
+    rb = [d for e, d in div['events'] if e == 'selfheal_rollback']
+    counted = gate.gate_metrics(div['records'])['selfheal_rollbacks']
+    after = div['losses'][-(3 * steps - rb[0]['to_step']):] if rb else []
+    if not names or names[0] != 'selfheal_escalate' or len(rb) != 1 \
+            or counted != 1 or len(div['rollbacks']) != 1 \
+            or div['steps'] != 3 * steps:
+        problems.append(f'diverge: events {names}, rollbacks '
+                        f'{div["rollbacks"]}, gate counts {counted}, steps '
+                        f'{div["steps"]}')
+    elif not (all(math.isfinite(v) for v in after)
+              and statistics.mean(after[-3:]) < statistics.mean(after[:3])
+              and rb[0]['to_step'] <= SELFHEAL_DIVERGE_AT):
+        problems.append(f'diverge: after the rollback to step '
+                        f'{rb[0]["to_step"]}: losses {after}')
+    # 2. corrupt-factor -> quarantine -> readmit, gated steps held.
+    calls: list = []
+    with _gated_steps_held(calls):
+        cor = _selfheal_run('corrupt', {
+            'epochs': 2, 'selfheal': True, 'selfheal_window': 1},
+            tmp, chaos=f'corrupt-factor@{SELFHEAL_CORRUPT_AT}')
+    held = [c for c in calls if c['gated']]
+    cnames = [e for e, _ in cor['events']]
+    quarantined = [d['bucket'] for e, d in cor['events']
+                   if e == 'selfheal_quarantine']
+    worst = max((h['max_rel'] for h in held), default=math.inf)
+    if quarantined != ['16x27'] or 'selfheal_readmit' not in cnames \
+            or cor['rollbacks']:
+        problems.append(f'corrupt-factor: events {cnames}, rollbacks '
+                        f'{cor["rollbacks"]}')
+    if not held or worst > SELFHEAL_PRECOND_TOL or any(
+            h['k3_launches'] != EXPECTED_PER_STEP['bucket_precond']
+            for h in held):
+        problems.append(f'gated steps: {held}')
+    if not all(math.isfinite(v) for v in cor['losses']):
+        problems.append(f'corrupt-factor losses {cor["losses"]}')
+    # 3-4. armed without a fault (every step's gated call against the
+    # same call without gates); unarmed, with and without observers.
+    on_calls: list = []
+    with _gated_steps_held(on_calls):
+        armed = _selfheal_run('armed', {'epochs': 2, 'selfheal': True}, tmp)
+    plain = _selfheal_run('plain', {'epochs': 2}, tmp)
+    bare = _selfheal_run('bare', {'epochs': 2}, tmp, observers=False)
+    nu_gap = max((c['nu_gap'] for c in on_calls), default=math.inf)
+    on_err = max((c['max_rel'] for c in on_calls), default=math.inf)
+    nu_trajectory = max(abs(a / b - 1.0) for a, b in zip(armed['nu'],
+                                                         plain['nu']))
+    if nu_gap > SELFHEAL_NU_TOL or len(on_calls) != 2 * steps \
+            or armed['events'] or any(c['gated'] for c in on_calls):
+        problems.append(f'armed: {len(on_calls)} gated calls, nu gap '
+                        f'{nu_gap:.3e}, events {armed["events"]}')
+    want = {k: v * 2 * steps for k, v in EXPECTED_PER_STEP.items()}
+    want['jacobi_eigh'] = 0
+    if plain['losses'] != bare['losses'] or any(
+            not _tensor_rel(p, bare['params'][n]) == 0.0
+            for n, p in plain['params'].items()) \
+            or plain['launches'] != want or bare['launches'] != want:
+        problems.append(f'unarmed: losses {plain["losses"][:3]} vs '
+                        f'{bare["losses"][:3]}, launches '
+                        f'{plain["launches"]} / {bare["launches"]}, plan '
+                        f'{want}')
+    if problems:
+        raise AssertionError('phase 42: ' + '; '.join(problems))
+    runs = (div, cor, armed, plain, bare)
+    launches = {k: sum(r['launches'].get(k, 0) for r in runs)
+                for k in div['launches']}
+    out = {'launches': launches,
+           'diverge': {'events': div['events'], 'rollbacks':
+                       div['rollbacks'], 'losses': div['losses']},
+           'corrupt': {'events': cor['events'], 'held': held,
+                       'losses': cor['losses']},
+           'armed_nu_gap': nu_gap, 'armed_precond_gap': on_err,
+           'armed_vs_unarmed_nu_trajectory': nu_trajectory,
+           'step_ms': {'armed': armed['step_ms'], 'plain': plain['step_ms']},
+           'seconds': time.perf_counter() - t0}
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f'  diverge@{SELFHEAL_DIVERGE_AT}: {names}; rolled back from step '
+        f'{rb[0]["from_step"]} to {rb[0]["to_step"]} in the process, '
+        f'{div["steps"]} steps done, losses after it '
+        f'{after[0]:.4f} -> {after[-1]:.4f}; gate counts {counted} rollback')
+    log(f'  corrupt-factor@{SELFHEAL_CORRUPT_AT}: {cnames}; {len(held)} gated '
+        f'steps, each K3 x {held[0]["k3_launches"]}, against the stock path '
+        f'max rel {worst:.2e} (tol {SELFHEAL_PRECOND_TOL})')
+    log(f'  --selfheal without a fault: on each of {len(on_calls)} steps the '
+        f'gated call (all on, full-tensor v.g) against the same call without '
+        f'gates (K3\'s v.g): nu within {nu_gap:.2e}, gradients {on_err:.2e} '
+        f'(the two runs\' nu part by {nu_trajectory:.2e} over the steps: '
+        f'a chaotic trajectory); unarmed equal bit for bit to the run without '
+        f'observers, launches {want}')
+    log(f'  phase 42: {out["seconds"]:.1f} s wall ({card})')
+    return out
+
+
+# Phase 43: straggler shards on GLOO_WORLD gloo ranks of cuda:0.
+SHARDS_STEPS = 4
+SHARDS_GATES = {'all_on': (), 'conv1_off': ('16x27',), 'all_off': 'all'}
+
+
+def shards_dist_worker(cfg: dict) -> int:
+    """One rank of phase 43 (``chip_smoke.py --dist-worker CONFIG``, the
+    torchrun environment set): the CIFAR CLI at ResNet-32 with
+    ``--num-slices 2 --hierarchical-reduce --kfac-metrics
+    --straggler-shards --straggler-sample-every 2 --use-inv-kfac``, then
+    on the run's final state ``DistributedKFAC.precondition(gates=)`` of a
+    world-mean gradient under each of ``SHARDS_GATES``; rank 0 holds each
+    against the single-device ``KFAC`` on the same factors, its inverses
+    fired at the same damping (``STEP_TOL``), and each gated layer to its
+    raw gradient times ``nu``, exactly."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from distributed_kfac_pytorch_tpu_torch import launch, \
+        train_cifar10_resnet
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    from distributed_kfac_pytorch_tpu_torch.preconditioner import KFAC
+    from distributed_kfac_pytorch_tpu_torch.resilience import selfheal
+    from distributed_kfac_pytorch_tpu_torch.training import engine
+    rank = int(os.environ['RANK'])
+    report = {'rank': rank, 'failures': []}
+    kernels.reset_launches()
+    res = train_cifar10_resnet.train({
+        'model': 'resnet32', 'batch_size': GLOO_BATCH,
+        'val_batch_size': GLOO_BATCH,
+        'synthetic_size': GLOO_BATCH * SHARDS_STEPS, 'epochs': 1,
+        'no_augment': True, 'seed': 0, 'kfac_update_freq': 2,
+        'use_inv_kfac': True, 'dist_backend': 'gloo', 'num_slices': 2,
+        'hierarchical_reduce': True, 'kfac_metrics': cfg['stream'],
+        'metrics_interval': 1, 'straggler_shards': True,
+        'straggler_sample_every': 2, 'quiet': True}, device='cuda')
+    report['run_launches'] = dict(kernels.LAUNCHES)
+    report['losses'] = res['losses']
+    state = res['state']
+    dk, kfac, model = state.kfac, state.kfac.kfac, state.model
+    dev = torch.device('cuda:0')
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(GLOO_BATCH, 3, 32, 32, generator=gen).to(dev)
+    y = torch.randint(0, 10, (GLOO_BATCH,), generator=gen).to(dev)
+    local = launch.process_local_slice(GLOO_BATCH)
+    model.eval()
+    _, _, grads, _ = kfac.capture.loss_and_grads(
+        lambda out: F.cross_entropy(out, y[local]), x[local],
+        intercept=False)
+    grads = dict(zip(grads, engine.world_mean(list(grads.values()))))
+    damping, lr = kfac.damping, 0.1
+    ref = ref_state = None
+    if rank == 0:
+        ref = KFAC(model, device=dev, inverse_method='cholesky',
+                   factor_update_freq=1, inv_update_freq=2,
+                   damping=damping, kl_clip=kfac.kl_clip)
+        fresh = ref.init_state()
+        ref_state = {**fresh, 'factors': {
+            n: {k: t.clone() for k, t in e.items()}
+            for n, e in state.kfac_state['factors'].items()}}
+        ref_state['inverses'] = ref.update_inverses(ref_state, damping)
+    buckets = selfheal.bucket_layer_map(kfac)
+    keys = kfac.metric_bucket_keys()
+    errors = {}
+    k3 = 0
+    for label, off in SHARDS_GATES.items():
+        off = keys if off == 'all' else off
+        gates = {k: torch.tensor(0.0 if k in off else 1.0, device=dev)
+                 for k in keys}
+        before = kernels.LAUNCHES['bucket_precond']
+        out = dk.precondition(state.kfac_state, dict(grads), damping, lr,
+                              gates=gates)
+        k3 += kernels.LAUNCHES['bucket_precond'] - before
+        nu = dk.last_nu
+        if rank != 0:
+            continue
+        want = ref.precondition(ref_state, dict(grads), damping, lr,
+                                gates=gates)
+        errors[label] = {
+            'precond': max(_tensor_rel(out[k], want[k]) for k in want),
+            'nu': abs(float(nu) / float(ref.last_nu) - 1.0)}
+        gated = {n for k in off for n in buckets[k]}
+        for name, t in out.items():
+            if name.rsplit('.', 1)[0] in gated and not torch.equal(
+                    t, nu * grads[name]):
+                report['failures'].append(f'{label}: {name} is not the raw '
+                                          'gradient times nu')
+        if errors[label]['precond'] > STEP_TOL['precond'] or \
+                errors[label]['nu'] > STEP_TOL['nu']:
+            report['failures'].append(f'{label}: {errors[label]}')
+    report.update(errors=errors, gated_k3=k3,
+                  launches=dict(kernels.LAUNCHES))
+    Path(cfg['out']).write_text(json.dumps(report))
+    dist.barrier()
+    return 1 if report['failures'] else 0
+
+
+def run_shards_gloo_world(card: str) -> dict:
+    """Phase 43: GLOO_WORLD ranks of :func:`shards_dist_worker` on the
+    card (2 slices of 2); then, in this process: one shard per rank with
+    its rank and slice, a step record per step, the barrier probe's wait
+    on the even steps only; the window heads labelled ``dcn_reduce`` in
+    the rank-0 stream and every shard; the shards read by the port's
+    ``merge_shards`` and ``straggler_summary`` (per-slice rows and the
+    wait by stage class)."""
+    import socket
+    from distributed_kfac_pytorch_tpu_torch.observability import sink as \
+        obs_sink
+    from distributed_kfac_pytorch_tpu_torch.observability import \
+        stragglers
+    t0 = time.perf_counter()
+    stream = _fresh_store('shards_resnet32.jsonl')
+    for old in stream.parent.glob(stream.name + '*'):
+        old.unlink()
+    outs = [_fresh_store(f'shards_rank{r}.json') for r in range(GLOO_WORLD)]
+    with _PORTS_LOCK:
+        port = 0
+        while port == 0 or port in _PORTS_TAKEN:
+            with socket.socket() as s:
+                s.bind(('localhost', 0))
+                port = s.getsockname()[1]
+        _PORTS_TAKEN.add(port)
+    procs = []
+    for rank in range(GLOO_WORLD):
+        cfg = json.dumps({'phase': 'resnet32_shards', 'stream': str(stream),
+                          'out': str(outs[rank])})
+        env = {**{k: v for k, v in os.environ.items()
+                  if k != 'KFAC_CHAOS'},
+               'RANK': str(rank), 'WORLD_SIZE': str(GLOO_WORLD),
+               'LOCAL_RANK': '0', 'MASTER_ADDR': 'localhost',
+               'MASTER_PORT': str(port)}
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / 'chip_smoke.py'), '--dist-worker',
+             cfg], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    reports = [json.loads(o.read_text()) if o.exists() else None
+               for o in outs]
+    for rank, (p, rep) in enumerate(zip(procs, reports)):
+        if p.returncode != 0 or rep is None:
+            log(logs[rank][-4000:])
+            raise AssertionError(
+                f'phase 43 rank {rank}: exit {p.returncode}; '
+                f'{rep["failures"] if rep else "no report"}')
+    problems = []
+    main = [r for r in obs_sink.read_jsonl(str(stream))
+            if r['kind'] == 'step']
+    fired = [r.get('fired') for r in main]
+    if fired[0::2] != ['inverse+dcn_reduce'] * (SHARDS_STEPS // 2):
+        problems.append(f'window heads {fired}')
+    shards, torn, errors = stragglers.merge_shards(str(stream))
+    if sorted(shards) != list(range(GLOO_WORLD)) or torn or errors:
+        problems.append(f'shards {sorted(shards)}, torn {torn}, {errors}')
+    waits = {}
+    for rank, records in shards.items():
+        meta = [r['meta'] for r in records if r['kind'] == 'meta'][0]
+        steps = [r for r in records if r['kind'] == 'step']
+        waited = [r['step'] for r in steps
+                  if stragglers.BARRIER_WAIT_KEY in r['metrics']]
+        waits[rank] = [r['metrics'][stragglers.BARRIER_WAIT_KEY]
+                       for r in steps if r['step'] in waited]
+        if meta['rank'] != rank or meta['slice'] != rank // 2 \
+                or [r['step'] for r in steps] != list(range(SHARDS_STEPS)) \
+                or waited != list(range(0, SHARDS_STEPS, 2)) \
+                or [r.get('fired') for r in steps] != fired:
+            problems.append(f'rank {rank} shard: meta {meta}, steps '
+                            f'{[r["step"] for r in steps]}, waits at '
+                            f'{waited}')
+    summary = stragglers.straggler_summary(shards)
+    if summary is None or sorted(summary['per_slice']) != [0, 1] \
+            or 'dcn' not in summary['wait_by_stage']:
+        problems.append(f'summary {summary}')
+    if problems:
+        raise AssertionError('phase 43: ' + '; '.join(problems))
+    total = {}
+    for rep in reports:
+        for k, v in rep['launches'].items():
+            total[k] = total.get(k, 0) + v
+    out = {'launches': total, 'errors': reports[0]['errors'],
+           'gated_k3_per_rank': [r['gated_k3'] for r in reports],
+           'waits_ms': waits, 'fired': fired, 'summary': summary,
+           'losses': reports[0]['losses'],
+           'seconds': time.perf_counter() - t0}
+    log(f'  {GLOO_WORLD} ranks, 2 slices, {SHARDS_STEPS} steps: fired {fired}; '
+        f'one shard per rank, barrier waits on steps 0 and 2 only (ms, by '
+        f'rank) { {r: [round(w, 3) for w in v] for r, v in waits.items()} }')
+    log(f'  straggler summary: wait by stage '
+        f'{ {k: round(v["mean_wait_ms"], 3) for k, v in summary["wait_by_stage"].items()} }'
+        f' ms, slices {sorted(summary["per_slice"])}')
+    log(f'  gated precondition on the grid against the single device: '
+        f'{reports[0]["errors"]}; K3 launches per rank '
+        f'{out["gated_k3_per_rank"]}; all ranks: launches {total}')
+    log(f'  phase 43: {out["seconds"]:.1f} s wall ({card})')
+    return out
+
+
+def run_observability_phases(card: str) -> dict:
+    """Phase 41, then phases 42 and 43 at once (43's ranks are
+    subprocesses: the in-process launch counts stay phase 42's own)."""
+    log(f'== phase 41: observability on ResNet-50 through the ImageNet CLI, '
+        f'224 px, batch {R50_BATCH}, auto, {OBS_STEPS} steps, --profile-dir '
+        f'--memory-interval {OBS_MEMORY_EVERY} on and off')
+    out = {'observability': run_observability_phase(card)}
+    log('== phases 42 and 43 at once: self-healing on ResNet-32 through the '
+        'CIFAR CLI (diverge, corrupt-factor, armed without a fault, '
+        f'unarmed); straggler shards, {GLOO_WORLD} gloo ranks of ResNet-32 '
+        'on the card, 2 slices, hierarchical reduce (their lines in that '
+        'order)')
+    out['selfheal'], out['shards_gloo_world'] = at_once(
+        (run_selfheal_phase, card), (run_shards_gloo_world, card),
+        here=True)
+    return out
+
+
 def _category(name: str) -> str:
     """Coarse owner of a CUDA kernel, from its (mangled) name."""
     n = name.lower()
@@ -7060,6 +7853,9 @@ def main(argv=None) -> int:
     ap.add_argument('--metrics-only', action='store_true',
                     help="build, then run phase 40 and phase 14's gloo "
                          'world only (no result line)')
+    ap.add_argument('--observability-only', action='store_true',
+                    help='build, then run phases 41-43 only (no result '
+                         'line)')
     ap.add_argument('--determinism-probe', action='store_true',
                     help="build, then measure what phase 27's "
                          '--deterministic buys and costs (no result '
@@ -7074,6 +7870,7 @@ def main(argv=None) -> int:
         return {'lm': lm_dist_worker, 'seq': seq_dist_worker,
                 'resnet32_overlap': overlap_dist_worker,
                 'resnet32_slices': slice_dist_worker,
+                'resnet32_shards': shards_dist_worker,
                 'resnet32gn_accum': accum_dist_worker}.get(
             cfg['phase'], dist_worker)(cfg)
     if not torch.cuda.is_available():
@@ -7144,6 +7941,14 @@ def main(argv=None) -> int:
         out_dir = ROOT / 'chiprun_out'
         out_dir.mkdir(exist_ok=True)
         (out_dir / 'chip_smoke_metrics.json').write_text(
+            json.dumps(report, indent=1))
+        log('done')
+        return 0
+    if args.observability_only:
+        report = {'card': card, **run_observability_phases(card)}
+        out_dir = ROOT / 'chiprun_out'
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / 'chip_smoke_observability.json').write_text(
             json.dumps(report, indent=1))
         log('done')
         return 0
@@ -7312,6 +8117,7 @@ def main(argv=None) -> int:
             f'ImageNet CLI, 224 px, batch {R50_BATCH}, auto, '
             f'{METRICS_STEPS} steps, metrics on and off')
         report['metrics_stream'] = run_metrics_phase(card)
+        report.update(run_observability_phases(card))
         runs = (main_summary, r50, report['resnet50_auto'],
                 report['lstm_jacobi'], report['lm_defaults'],
                 report['resnet32_jacobi'], report['resnet50_nccl_world1'],
@@ -7331,7 +8137,9 @@ def main(argv=None) -> int:
                 report['transformer_xl_fp16'], report['bf16_models'],
                 report['slice_gloo_world'], report['transformer_xl_lowrank'],
                 report['transformer_xl_lowrank_eigen'],
-                report['resnet152_lowrank'], report['metrics_stream'])
+                report['resnet152_lowrank'], report['metrics_stream'],
+                report['observability'], report['selfheal'],
+                report['shards_gloo_world'])
         launches = {name: sum(r['launches'].get(name, 0) for r in runs)
                     for name in kernels.LAUNCHES}
         aggs = {**summary50, 'ns_inverse': summary_ns,

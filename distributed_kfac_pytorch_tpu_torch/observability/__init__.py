@@ -1,4 +1,4 @@
-"""K-FAC observability of the PyTorch port (the core of
+"""K-FAC observability of the PyTorch port (the JAX package's
 ``distributed_kfac_pytorch_tpu/observability``), one discipline —
 *observing a run must not change it*:
 
@@ -12,9 +12,17 @@
     memory-growth monitors with warn / skip / raise actions;
   - :mod:`report` — ``python -m distributed_kfac_pytorch_tpu_torch.
     observability.report run.jsonl`` (``--json`` for machines);
-  - :mod:`stragglers` — the readers of per-rank shards the report merges;
-  - :mod:`cli` — the CLIs' ``--kfac-metrics`` / ``--metrics-interval`` /
-    ``--health-action`` wiring.
+  - :mod:`gate` — the regression gate over a stream against a baseline
+    (``python -m ...observability.gate run.jsonl --baseline B.json``);
+  - :mod:`memory` — the CUDA allocator's watermarks and the K-FAC state
+    footprint (``kind='memory'`` records);
+  - :mod:`profiling` — the ``kfac/*`` profiler scopes
+    (``torch.profiler.record_function`` and NVTX) and the
+    ``--profile-dir`` session;
+  - :mod:`tracing` — the host trace table the epoch records carry;
+  - :mod:`stragglers` — per-rank shards, the barrier probe and the
+    readers the report merges;
+  - :mod:`cli` — the CLIs' observability flags.
 
 Every submodule loads on first attribute access.
 """
@@ -23,7 +31,8 @@ from __future__ import annotations
 
 import importlib
 
-_LAZY = ('metrics', 'sink', 'health', 'report', 'cli', 'stragglers')
+_LAZY = ('metrics', 'sink', 'health', 'report', 'cli', 'stragglers',
+         'gate', 'memory', 'profiling', 'tracing')
 
 __all__ = list(_LAZY)
 

@@ -1,20 +1,23 @@
 """The CLIs' observability flags (PyTorch port of
-``distributed_kfac_pytorch_tpu/observability/cli.py``, the flags the port
-runs):
+``distributed_kfac_pytorch_tpu/observability/cli.py``):
 
     add_observability_args(parser)   # --kfac-metrics / --metrics-interval
-                                     # / --health-action
+                                     # / --health-action / --profile-dir /
+                                     # --memory-interval /
+                                     # --no-perf-anomalies /
+                                     # --straggler-shards /
+                                     # --straggler-sample-every
     sink = make_metrics_sink(args, rank, meta={...})
+    rank_sink = make_rank_shard_sink(args, rank, meta={...})
     emit_layer_meta(sink, kfac)      # after the layers are registered
+    with profile_epoch(args.profile_dir, rank): ...   # one epoch
 
-``--log-dir`` is each CLI's own (its default names the CLI). The other
-observability flags of the JAX CLIs (``--profile-dir``,
-``--memory-interval``, ``--no-perf-anomalies``, ``--straggler-shards``,
-``--straggler-sample-every``) raise by name (``engine.UNPORTED_FLAGS``).
+``--log-dir`` is each CLI's own (its default names the CLI).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 from distributed_kfac_pytorch_tpu_torch.observability import health as \
@@ -48,6 +51,37 @@ def add_observability_args(p) -> None:
                         'which protects the FACTOR STATISTICS only; '
                         'for a whole-step skip on non-finite gradients '
                         'use --fp16. Requires --kfac-metrics')
+    p.add_argument('--profile-dir', default=None,
+                   help='capture a torch.profiler trace (CPU and CUDA '
+                        'activity, a Chrome trace file) of the first '
+                        'trained epoch into this dir; the kfac/* stage '
+                        'scopes attribute its device time (rank 0 only)')
+    p.add_argument('--memory-interval', type=int, default=100,
+                   help='emit a memory-telemetry record (the CUDA '
+                        'allocator watermarks + resident K-FAC state '
+                        'footprint by group/dtype) every N steps into the '
+                        'metrics JSONL; 0 disables. Host-side reads '
+                        'only. Requires --kfac-metrics')
+    p.add_argument('--no-perf-anomalies', action='store_true',
+                   help='disable the live perf-anomaly monitors '
+                        '(plain-step spike z-score, monotonic memory '
+                        'growth) that --health-action otherwise arms '
+                        'beside the numerics checks; the offline gate '
+                        'still replays both checks from the stream')
+    p.add_argument('--straggler-shards', action='store_true',
+                   help='every rank writes its own sink shard '
+                        '(PATH.rank<r>) with its per-step host time and '
+                        'pre-collective barrier wait, for straggler '
+                        'attribution (observability.report merges the '
+                        'shards). The barrier probe synchronizes the '
+                        'card on the steps it samples. Requires '
+                        '--kfac-metrics')
+    p.add_argument('--straggler-sample-every', type=int, default=1,
+                   metavar='N',
+                   help='run the barrier-wait probe only every Nth step '
+                        '(a pure function of the global step, the same '
+                        'steps on every rank); other steps carry no wait '
+                        'field. Requires --straggler-shards')
 
 
 def wants_guard(args) -> bool:
@@ -70,13 +104,24 @@ def make_metrics_sink(args, rank: int, meta: dict | None = None):
     Rank gating happens inside the sink (ranks other than 0 get a no-op
     sink). The monitor's factor-staleness limit is 10x the CLI's factor
     cadence, and the step-spike (8 sigma) and memory-growth (6 samples)
-    checks are on, as in the JAX CLIs. A health action without the stream
-    raises the JAX CLIs' ``SystemExit``, as does the bare flag without a
-    ``--log-dir`` to write under.
+    checks are on unless ``--no-perf-anomalies``, as in the JAX CLIs. A
+    health action or straggler shards without the stream raise the JAX
+    CLIs' ``SystemExit``, as do a bad ``--straggler-sample-every`` and
+    the bare flag without a ``--log-dir`` to write under.
     """
     if args.health_action and not args.kfac_metrics:
         raise SystemExit('--health-action requires --kfac-metrics '
                          '(the monitor consumes the drained metrics)')
+    if getattr(args, 'straggler_shards', False) and not args.kfac_metrics:
+        raise SystemExit('--straggler-shards requires --kfac-metrics '
+                         '(shards live next to the metrics path)')
+    if getattr(args, 'straggler_sample_every', 1) < 1:
+        raise SystemExit('--straggler-sample-every must be >= 1')
+    if (getattr(args, 'straggler_sample_every', 1) > 1
+            and not getattr(args, 'straggler_shards', False)):
+        raise SystemExit('--straggler-sample-every requires '
+                         '--straggler-shards (it paces the barrier '
+                         'probe those shards record)')
     if args.kfac_metrics == 'auto' and not args.log_dir:
         raise SystemExit('--kfac-metrics without a PATH writes under '
                          '--log-dir, which is not set')
@@ -85,9 +130,11 @@ def make_metrics_sink(args, rank: int, meta: dict | None = None):
     monitor = None
     if args.health_action:
         cov_freq = max(1, int(getattr(args, 'kfac_cov_update_freq', 1)))
+        perf = not getattr(args, 'no_perf_anomalies', False)
         monitor = obs_health.HealthMonitor(
             action=args.health_action, stale_after_steps=10 * cov_freq,
-            step_spike_zscore=8.0, memory_growth_windows=6)
+            step_spike_zscore=8.0 if perf else None,
+            memory_growth_windows=6 if perf else 0)
     return obs_sink.JsonlMetricsSink(
         metrics_path(args), interval=args.metrics_interval,
         process_index=rank, monitor=monitor, meta=meta)
@@ -106,3 +153,32 @@ def emit_layer_meta(sink, kfac) -> None:
                                 if isinstance(kfac.kfac_approx, str)
                                 else dict(kfac.kfac_approx)),
         'tied_embeddings': bool(kfac.tied_embeddings)})
+
+
+def make_rank_shard_sink(args, rank: int, meta: dict | None = None):
+    """The rank's straggler shard sink at ``<metrics-path>.rank<r>`` under
+    ``--straggler-shards`` (None otherwise); its meta carries
+    ``launch.host_metadata()``, so the merged report can name the host."""
+    if not getattr(args, 'straggler_shards', False):
+        return None
+    from distributed_kfac_pytorch_tpu_torch import launch
+    from distributed_kfac_pytorch_tpu_torch.observability import stragglers
+    return stragglers.make_rank_shard_sink(
+        metrics_path(args), rank,
+        meta={**launch.host_metadata(), **(meta or {})})
+
+
+@contextlib.contextmanager
+def profile_epoch(profile_dir: str | None, rank: int):
+    """Profile the epoch run inside into ``profile_dir`` on rank 0
+    (``--profile-dir``: the engine's epoch loop profiles the first epoch
+    it trains); a no-op without a directory or on another rank. Kernel
+    builds that happen inside land in the window."""
+    from distributed_kfac_pytorch_tpu_torch.observability import profiling
+    active = (profile_dir is not None
+              and profiling.start_trace(profile_dir, process_index=rank))
+    try:
+        yield
+    finally:
+        if active:
+            profiling.stop_trace()

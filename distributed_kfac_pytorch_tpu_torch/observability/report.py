@@ -65,6 +65,9 @@ import sys
 from distributed_kfac_pytorch_tpu_torch.observability.health import (
     HealthMonitor,
 )
+from distributed_kfac_pytorch_tpu_torch.observability.memory import (  # noqa: F401
+    format_bytes,
+)
 from distributed_kfac_pytorch_tpu_torch.observability.sink import (
     SUPERVISOR_SIDECAR_SUFFIX,
     peak_hbm_bytes,
@@ -78,21 +81,6 @@ def _fmt(v: float, unit: str = '') -> str:
     if math.isnan(v):
         return '-'
     return f'{v:.4g}{unit}'
-
-
-def format_bytes(n: float) -> str:
-    """Human-readable byte count for the report tables (the JAX
-    ``observability.memory.format_bytes``)."""
-    try:
-        n = float(n)
-    except (TypeError, ValueError):
-        return '-'
-    for unit in ('B', 'KiB', 'MiB', 'GiB', 'TiB'):
-        if abs(n) < 1024.0 or unit == 'TiB':
-            return (f'{n:.0f} {unit}' if unit == 'B'
-                    else f'{n:.2f} {unit}')
-        n /= 1024.0
-    return f'{n:.2f} TiB'
 
 
 def step_time_distribution(records: list[dict]) -> dict | None:

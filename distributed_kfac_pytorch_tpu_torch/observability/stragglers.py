@@ -1,15 +1,27 @@
-"""Straggler attribution over per-rank sink shards: the readers (PyTorch
-port of the reader half of ``distributed_kfac_pytorch_tpu/observability/
-stragglers.py``).
+"""Straggler attribution: per-rank sink shards, the barrier probe and
+the readers (PyTorch port of
+``distributed_kfac_pytorch_tpu/observability/stragglers.py``).
 
-Every rank of a run with straggler shards writes its own stream
-``<path>.rank<r>`` next to the rank-0 stream, each step record carrying
-that host's dispatch wall time and its pre-collective barrier wait
-(``host/barrier_wait_ms``). :func:`merge_shards` reads them (torn- and
-fault-tolerant) and :func:`straggler_summary` turns them into per-host
-skew, slowest-rank frequency and barrier-wait attribution, which
-``observability.report`` prints. The shard writer and the barrier probe
-are not ported yet; the report reads shards of either package.
+  - **Rank shards** (:func:`make_rank_shard_sink`): every rank of a run
+    with ``--straggler-shards`` writes its own stream ``<path>.rank<r>``
+    next to the rank-0 stream (a ``JsonlMetricsSink`` enabled for its
+    rank), each step record carrying that rank's host step time, its
+    fired stage and, on sampled steps, its pre-collective barrier wait
+    (``host/barrier_wait_ms``).
+  - **Barrier probe** (:func:`build_barrier_probe`, surfaced as
+    ``DistributedKFAC.build_barrier_probe``): a 0-dim fp32 ``all_reduce``
+    over the K-FAC world, timed between two ``torch.cuda.synchronize``
+    calls. The first synchronize drains this rank's own queue, so the
+    timed span is the wait for the slowest rank to arrive at the
+    collective (plus the collective itself): the wait this rank's next
+    K-FAC collective would pay. A fast rank measures large waits, the
+    straggler ~0. Synchronizing costs the step its overlap of host and
+    device, so the probe is opt-in and sampled
+    (``--straggler-sample-every``).
+  - **Readers** (:func:`merge_shards`, :func:`straggler_summary`):
+    torn- and fault-tolerant; per-host skew, slowest-rank frequency and
+    barrier-wait attribution, which ``observability.report`` prints. They
+    read shards of either package.
 """
 
 from __future__ import annotations
@@ -30,6 +42,64 @@ BARRIER_WAIT_KEY = 'host/barrier_wait_ms'
 def rank_shard_path(path: str, rank: int) -> str:
     """``run.jsonl`` -> ``run.jsonl.rank<r>`` (one shard per host)."""
     return f'{path}.rank{int(rank)}'
+
+
+def make_rank_shard_sink(path: str, process_index: int, *,
+                         rotate_bytes: int | None = 4 * 1024 * 1024,
+                         drain_every: int = 64,
+                         meta: dict | None = None
+                         ) -> obs_sink.JsonlMetricsSink:
+    """A writing sink at ``rank_shard_path(path, rank)`` on every rank
+    (the shard path itself is the rank gate); its meta record pins the
+    rank, so the merger can check the file name against the content."""
+    shard_meta = {'rank': int(process_index), **(meta or {})}
+    return obs_sink.JsonlMetricsSink(
+        rank_shard_path(path, process_index), process_index=0,
+        rotate_bytes=rotate_bytes, drain_every=drain_every,
+        meta=shard_meta)
+
+
+def sampled(step: int, every: int) -> bool:
+    """Whether the barrier probe runs at global ``step`` (every rank
+    samples the same steps: a pure function of the step)."""
+    return every <= 1 or step % every == 0
+
+
+def build_barrier_probe(group=None, device=None):
+    """Warm a 0-dim fp32 ``all_reduce`` barrier over ``group`` (None: the
+    world) on ``device`` and return ``probe() -> wait_ms``: synchronize
+    the card, time one ``all_reduce`` and the synchronize after it (see
+    the module docstring). The warm-up collective runs here, so the
+    first measured probe pays no set-up."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from distributed_kfac_pytorch_tpu_torch.observability import profiling
+
+    device = torch.device(device if device is not None else 'cpu')
+    cuda = device.type == 'cuda'
+    x = torch.zeros((), dtype=torch.float32, device=device)
+
+    def reduce() -> None:
+        with profiling.annotate('kfac/comm/barrier_probe'):
+            dist.all_reduce(x, group=group)
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    if cuda:
+        torch.cuda.synchronize(device)
+    reduce()
+
+    def probe() -> float:
+        if cuda:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        reduce()
+        return (time.perf_counter() - t0) * 1000.0
+
+    return probe
 
 
 def find_shards(path: str) -> dict[int, str]:

@@ -58,6 +58,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from distributed_kfac_pytorch_tpu_torch.observability import profiling
 from distributed_kfac_pytorch_tpu_torch.ops import linalg
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
@@ -1098,7 +1099,8 @@ def damped_inverse_stack(stack: torch.Tensor, damping, method: str,
     (:func:`batched_inverse`), ``'cholesky'`` the batched Cholesky
     inverse (:func:`linalg.get_inverse`)."""
     if method == 'newton':
-        return batched_inverse(stack, damping, iters=iters)
+        with profiling.annotate('kfac/inverse/newton'):
+            return batched_inverse(stack, damping, iters=iters)
     if method == 'cholesky':
         return linalg.get_inverse(stack, damping)
     raise ValueError(f"damped inverse method must be 'newton' or "

@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from distributed_kfac_pytorch_tpu_torch.observability import profiling
+
 
 def decomposition_cost(dim: int, count: int = 1,
                        rank: int | None = None) -> float:
@@ -241,12 +243,15 @@ def batched_eigh(stack: torch.Tensor, method: str = 'xla',
     if method == 'warm':
         if q_prev is None:
             raise ValueError("eigh method 'warm' requires q_prev")
-        qs, ds = eigh_polish(stack, q_prev, iters=polish_iters)
+        with profiling.annotate('kfac/eigh/warm'):
+            qs, ds = eigh_polish(stack, q_prev, iters=polish_iters)
     elif method == 'jacobi':
         from distributed_kfac_pytorch_tpu_torch.ops import kernels
-        qs, ds = kernels.batched_jacobi_eigh(stack, sweeps)
+        with profiling.annotate('kfac/eigh/jacobi'):
+            qs, ds = kernels.batched_jacobi_eigh(stack, sweeps)
     elif method == 'xla':
-        return get_eigendecomp(stack, clip=clip)
+        with profiling.annotate('kfac/eigh/xla'):
+            return get_eigendecomp(stack, clip=clip)
     else:
         raise ValueError("eigh method must be 'auto', 'xla', 'jacobi' or "
                          f"'warm', got {method!r}")
@@ -321,15 +326,17 @@ def batched_lowrank_eigh(stack: torch.Tensor, rank: int,
     """:func:`lowrank_eigh` of a ``(B, n, n)`` stack, warm from the
     ``(B, n, rank)`` ``q_prev`` or cold from the sketch, with the
     eigenvalues floored at ``clip``: ``(Q (B, n, rank), d (B, rank))``."""
-    qs, ds = lowrank_eigh(stack, rank, q_prev=q_prev,
-                          power_iters=power_iters,
-                          polish_iters=polish_iters, seed=seed,
-                          sketch=sketch)
+    with profiling.annotate('kfac/eigh/lowrank'):
+        qs, ds = lowrank_eigh(stack, rank, q_prev=q_prev,
+                              power_iters=power_iters,
+                              polish_iters=polish_iters, seed=seed,
+                              sketch=sketch)
     if clip is not None:
         ds = torch.clamp(ds, min=clip)
     return qs, ds
 
 
+@profiling.scope('kfac/inverse/cholesky')
 def get_inverse(x: torch.Tensor, damping=None) -> torch.Tensor:
     """Damped SPD inverse ``(x + damping I)^-1`` in fp32 by Cholesky: a
     triangular solve of the factor against ``I``, then ``inv_l^T @
@@ -408,6 +415,7 @@ def _precond_operand(compute_dtype):
     return lambda t: kernels._round(t, bf16)
 
 
+@profiling.scope('kfac/precond/eigen')
 def precondition_eigen(grad: torch.Tensor, qa: torch.Tensor,
                        qg: torch.Tensor, da: torch.Tensor, dg: torch.Tensor,
                        damping, compute_dtype=None) -> torch.Tensor:
@@ -446,6 +454,7 @@ def precondition_eigen(grad: torch.Tensor, qa: torch.Tensor,
     return grad.float() / damping + qg @ (mid @ qa.mT)
 
 
+@profiling.scope('kfac/precond/inv')
 def precondition_inv(grad: torch.Tensor, a_inv: torch.Tensor,
                      g_inv: torch.Tensor, compute_dtype=None
                      ) -> torch.Tensor:
@@ -457,6 +466,7 @@ def precondition_inv(grad: torch.Tensor, a_inv: torch.Tensor,
     return r(g_inv) @ (r(grad) @ r(a_inv))
 
 
+@profiling.scope('kfac/precond/diag_a')
 def precondition_diag_a(grad: torch.Tensor, a_inv_diag: torch.Tensor,
                         g_inv: torch.Tensor, compute_dtype=None
                         ) -> torch.Tensor:
@@ -503,27 +513,37 @@ def precondition_dispatch(grad: torch.Tensor, entry: dict, damping,
         if 'G_inv' in entry:
             return precondition_diag_a(grad, diag_a, entry['G_inv'],
                                        compute_dtype=compute_dtype)
-        truncated = truncated_side(entry['QG'])
-        dg = entry['dG'].float()[None, :]
-        if compute_dtype is None:
-            qg = entry['QG'].float()
-            v1 = grad.float() @ qg
-            v = v1 / (dg + damping)
-            if truncated:
-                return diag_a.float()[:, None] * (
-                    grad.float() / damping + (v - v1 / damping) @ qg.T)
-            return diag_a.float()[:, None] * (v @ qg.T)
-        r = _precond_operand(compute_dtype)
-        qg = r(entry['QG'])
-        v1 = r(grad) @ qg
-        v = v1 / (dg + damping)
-        if truncated:
-            return diag_a.float()[:, None] * (
-                grad.float() / damping + r(v - v1 / damping) @ qg.T)
-        return diag_a.float()[:, None] * (r(v) @ qg.T)
+        with profiling.annotate('kfac/precond/diag_a_eigen'):
+            return _precondition_diag_a_eigen(grad, entry, damping,
+                                              diag_a, compute_dtype)
     if 'A_inv' not in entry and 'G_inv' not in entry:
         return precondition_eigen(grad, entry['QA'], entry['QG'],
                                   entry['dA'], entry['dG'], damping,
                                   compute_dtype=compute_dtype)
     return precondition_inv(grad, entry['A_inv'], entry['G_inv'],
                             compute_dtype=compute_dtype)
+
+
+def _precondition_diag_a_eigen(grad: torch.Tensor, entry: dict, damping,
+                               diag_a: torch.Tensor,
+                               compute_dtype) -> torch.Tensor:
+    """:func:`precondition_dispatch`'s diagonal-A branch with an eigen G
+    side."""
+    truncated = truncated_side(entry['QG'])
+    dg = entry['dG'].float()[None, :]
+    if compute_dtype is None:
+        qg = entry['QG'].float()
+        v1 = grad.float() @ qg
+        v = v1 / (dg + damping)
+        if truncated:
+            return diag_a.float()[:, None] * (
+                grad.float() / damping + (v - v1 / damping) @ qg.T)
+        return diag_a.float()[:, None] * (v @ qg.T)
+    r = _precond_operand(compute_dtype)
+    qg = r(entry['QG'])
+    v1 = r(grad) @ qg
+    v = v1 / (dg + damping)
+    if truncated:
+        return diag_a.float()[:, None] * (
+            grad.float() / damping + r(v - v1 / damping) @ qg.T)
+    return diag_a.float()[:, None] * (r(v) @ qg.T)

@@ -120,6 +120,7 @@ from distributed_kfac_pytorch_tpu_torch.capture import CONV2D_GROUPED, \
 from distributed_kfac_pytorch_tpu_torch.multislice import mesh as slices
 from distributed_kfac_pytorch_tpu_torch.observability import \
     metrics as obs_metrics
+from distributed_kfac_pytorch_tpu_torch.observability import profiling
 from distributed_kfac_pytorch_tpu_torch.ops import factors as F
 from distributed_kfac_pytorch_tpu_torch.ops import kernels, linalg
 from distributed_kfac_pytorch_tpu_torch.parallel.placement import (
@@ -133,10 +134,12 @@ from distributed_kfac_pytorch_tpu_torch.preconditioner import (
     comm_method_of,
     _same_layout,
     eigen_family,
+    gate_blend,
     grouped_block_inverses,
     grouped_cost,
     grouped_init,
     measured_unit_scale,
+    precond_scope,
     overlay_overlap_state,
     plan_inverse_chunks,
     truncated_entry,
@@ -776,23 +779,27 @@ class DistributedKFAC:
         :meth:`update_factors` has scaled them)."""
         return self.kfac.local_factor_contribs(captures)
 
-    def _flat_mean(self, parts: list, group, size: int) -> list:
+    def _flat_mean(self, parts: list, group, size: int,
+                   scope: str) -> list:
         """The mean of fp32 ``parts`` over the ``size`` ranks of ``group``
-        (None: the world) as one flat ``all_reduce``, each 2-D part
-        triangle-packed with ``symmetry_aware_comm``; a group of one rank
-        runs no collective."""
+        (None: the world) as one flat ``all_reduce`` under the profiler
+        scope ``scope``, each 2-D part triangle-packed with
+        ``symmetry_aware_comm``; a group of one rank runs no
+        collective."""
         packed = self.kfac.symmetry_aware_comm
         wire = [F.pack_symmetric(t) if packed and t.ndim == 2 else t
                 for t in parts]
         sizes = [t.numel() for t in wire]
         flat = torch.cat([t.reshape(-1) for t in wire])
         if size > 1:
-            dist.all_reduce(flat, group=group)
+            with profiling.annotate(scope):
+                dist.all_reduce(flat, group=group)
             flat /= size
         return [F.unpack_symmetric(v.view(sent.shape), t.shape[-1])
                 if sent is not t else v.view(t.shape)
                 for v, sent, t in zip(flat.split(sizes), wire, parts)]
 
+    @profiling.scope('kfac/factors')
     def update_factors(self, state: dict, contribs: dict,
                        factor_decay=None) -> dict:
         """Average the ranks' contributions (one ``all_reduce`` over the
@@ -814,7 +821,8 @@ class DistributedKFAC:
                 for t in parts]
         sizes = [t.numel() for t in wire]
         flat = torch.cat([t.reshape(-1) for t in wire])
-        dist.all_reduce(flat)
+        with profiling.annotate('kfac/comm/factor_allreduce'):
+            dist.all_reduce(flat)
         if w > 1:
             flat /= w                                    # the mean
             flat[sum(sizes[:n_plain]):] /= w ** 2        # G, A_g2: 1/W^2
@@ -839,6 +847,7 @@ class DistributedKFAC:
         return {n: {'A': a, 'G': g}
                 for n, a, g in zip(self.specs, ema[0::2], ema[1::2])}
 
+    @profiling.scope('kfac/factors')
     def accumulate_factors(self, state: dict, captures: dict | None,
                            factor_decay=None, *,
                            contribs: dict | None = None
@@ -866,7 +875,8 @@ class DistributedKFAC:
             keys = [(n, k) for n in self.specs for k in contribs[n]]
             means = self._flat_mean([contribs[n][k].float() for n, k in keys],
                                     self.groups.slice_group,
-                                    len(self.groups.slice_ranks))
+                                    len(self.groups.slice_ranks),
+                                    'kfac/comm/factor_allreduce_intra')
             contribs = {n: {} for n in self.specs}
             for (n, k), m in zip(keys, means):
                 contribs[n][k] = m
@@ -878,6 +888,7 @@ class DistributedKFAC:
                                   quad_scale=quad))
         return acc, alpha * state['accum_decay']
 
+    @profiling.scope('kfac/factors')
     def reduce_factors(self, state: dict, acc: dict, decay) -> dict:
         """Window head of the deferred reduction: one flat fp32
         ``all_reduce`` of every rank's accumulator over the world (each 2-D
@@ -889,9 +900,11 @@ class DistributedKFAC:
         parts = [acc[n][s].float() for n in self.specs for s in 'AG']
         if self.kfac.hierarchical_reduce:
             means = self._flat_mean(parts, self.groups.cross_group,
-                                    self.num_slices)
+                                    self.num_slices,
+                                    'kfac/comm/factor_reduce_dcn')
         else:
-            means = self._flat_mean(parts, None, self.world_size)
+            means = self._flat_mean(parts, None, self.world_size,
+                                    'kfac/comm/factor_reduce')
         olds = [state['factors'][n][s] for n in self.specs for s in 'AG']
         new = [(decay * o.float() + m).to(o.dtype)
                for o, m in zip(olds, means)]
@@ -900,6 +913,7 @@ class DistributedKFAC:
 
     # -- inverses ------------------------------------------------------
 
+    @profiling.scope('kfac/inverses')
     def update_inverses(self, factors: dict, damping=None,
                         prev_stacks: dict | None = None, *,
                         chunk: int | None = None,
@@ -966,7 +980,9 @@ class DistributedKFAC:
         group = self.groups.inv_group
         if group is not None:
             keys = [(d, k) for d, e in stacks.items() for k in e]
-            reduced = _all_reduce_sum([stacks[d][k] for d, k in keys], group)
+            with profiling.annotate('kfac/comm/inverse_allgather'):
+                reduced = _all_reduce_sum([stacks[d][k] for d, k in keys],
+                                          group)
             for (d, k), t in zip(keys, reduced):
                 stacks[d][k] = t
         idt = kfac.inv_dtype
@@ -1054,7 +1070,8 @@ class DistributedKFAC:
                 targets.append((dim, key, fired))
         group = self.groups.inv_group
         if group is not None and parts:
-            parts = _all_reduce_sum(parts, group)
+            with profiling.annotate('kfac/comm/inverse_allgather'):
+                parts = _all_reduce_sum(parts, group)
         idt = self.kfac.inv_dtype
         stacks = {d: dict(e) for d, e in prev_stacks.items()}
         for (dim, key, fired), t in zip(targets, parts):
@@ -1076,8 +1093,9 @@ class DistributedKFAC:
 
     # -- preconditioning -----------------------------------------------
 
+    @profiling.scope('kfac/precond')
     def precondition(self, state: dict, grads: dict, damping, lr,
-                     with_stats: bool = False):
+                     with_stats: bool = False, gates: dict | None = None):
         """Precondition this row's layers (K3 per shape group, stock torch
         for a group with a low-rank side; each embedding with its diagonal
         A inverse from ``state['diag_inv']``; each grouped conv with its
@@ -1088,7 +1106,13 @@ class DistributedKFAC:
         ``(out, stats)``: ``observability.metrics.precond_stats`` of the
         delivered matrices and, under ``'eig_clipped'``, the clip count of
         the whole grid's stacks (this row's held slots, summed over the
-        rows in the delivery's ``all_reduce``)."""
+        rows in the delivery's ``all_reduce``).
+
+        ``gates`` (the self-healing quarantine, ``KFAC.precondition``):
+        each row blends its own layers (``preconditioner.gate_blend``)
+        before its ``v.g`` partial, which rides the delivery's column
+        ``all_reduce`` as before (no collective added); with gates every
+        layer's ``v.g`` is the full-tensor reduction."""
         kfac = self.kfac
         dev = self.device
         inv_stacks = state['inv_stacks']
@@ -1108,8 +1132,9 @@ class DistributedKFAC:
                 entry = {'A_inv': a_stack['inv'][a_idx],
                          'G_inv': g_stack['inv'][g_idx]}
             if kfac.fused_precondition and not truncated_entry(entry):
-                vs, vgs = kernels.bucket_precond(gstack, entry, damping,
-                                                 compute_dtype=cdt)
+                with profiling.annotate(precond_scope(entry)):
+                    vs, vgs = kernels.bucket_precond(gstack, entry, damping,
+                                                     compute_dtype=cdt)
                 for i, n in enumerate(names):
                     vg[n] = vgs[i]
             else:
@@ -1134,11 +1159,13 @@ class DistributedKFAC:
                 mats[name] = linalg.precondition_dispatch(
                     grad_mats[name], state['grouped_inv'][name], damping,
                     compute_dtype=cdt)
+        if gates is not None:
+            mats = gate_blend(mats, grad_mats, gates)
         # This row's v.g partial, in registration order.
         vg_sum = torch.zeros((), dtype=torch.float32, device=dev)
         if kfac.kl_clip is not None:
             for name in self.specs:
-                if name in vg:
+                if gates is None and name in vg:
                     vg_sum = vg_sum + vg[name] * lr ** 2
                 elif name in mats:
                     vg_sum = vg_sum + torch.sum(
@@ -1152,12 +1179,14 @@ class DistributedKFAC:
                 mats[n] if n in mats else torch.zeros(
                     grad_mats[n].shape, dtype=torch.float32, device=dev)
                 for n in self.specs]
-            if with_stats:
-                # Exact in fp32: the counts stay far below 2**24.
-                *parts, clipped = _all_reduce_sum([*parts, clipped], group)
-                vg_sum, *delivered = parts
-            else:
-                vg_sum, *delivered = _all_reduce_sum(parts, group)
+            with profiling.annotate('kfac/comm/grad_psum'):
+                if with_stats:
+                    # Exact in fp32: the counts stay far below 2**24.
+                    *parts, clipped = _all_reduce_sum([*parts, clipped],
+                                                      group)
+                    vg_sum, *delivered = parts
+                else:
+                    vg_sum, *delivered = _all_reduce_sum(parts, group)
             mats = dict(zip(self.specs, delivered))
         if kfac.kl_clip is not None:
             nu = torch.clamp(torch.sqrt(
@@ -1188,7 +1217,8 @@ class DistributedKFAC:
              inv_update: bool | None = None,
              inv_chunk: int | None = None,
              factor_reduce: bool = False,
-             factor_snapshot: bool = False) -> tuple[dict, dict]:
+             factor_snapshot: bool = False,
+             gates: dict | None = None) -> tuple[dict, dict]:
         """One distributed K-FAC update, ``(preconditioned_grads,
         new_state)``, with ``KFAC.step``'s cadence semantics and flags
         (``inv_chunk``, ``factor_reduce``, ``factor_snapshot``). ``grads``
@@ -1268,10 +1298,11 @@ class DistributedKFAC:
             if not 0 <= inv_chunk < k:
                 raise ValueError(f'{inv_chunk=} out of range for '
                                  f'inv_pipeline_chunks={k}')
-            inverses = self.update_inverses(
-                fire_factors, damping, state['inv_stacks'], chunk=inv_chunk,
-                prev_diag=state['diag_inv'],
-                prev_grouped=state['grouped_inv'])
+            with profiling.annotate(f'kfac/inverse/chunk{inv_chunk}'):
+                inverses = self.update_inverses(
+                    fire_factors, damping, state['inv_stacks'],
+                    chunk=inv_chunk, prev_diag=state['diag_inv'],
+                    prev_grouped=state['grouped_inv'])
             chunk_phase = (inv_chunk + 1) % k
         else:
             if inv_update is None:
@@ -1284,9 +1315,10 @@ class DistributedKFAC:
         new_state = {'step': step + 1, 'factors': factors, **inverses,
                      'inv_chunk_phase': chunk_phase, **overlap}
         if not kfac.collect_metrics:
-            return self.precondition(new_state, grads, damping, lr), new_state
+            return (self.precondition(new_state, grads, damping, lr,
+                                      gates=gates), new_state)
         precond, stats = self.precondition(new_state, grads, damping, lr,
-                                           with_stats=True)
+                                           with_stats=True, gates=gates)
         new_state['metrics'] = obs_metrics.update_metrics(
             state['metrics'], damping=damping, stats=stats,
             did_factor=bool(factor_update),
@@ -1294,6 +1326,17 @@ class DistributedKFAC:
             did_chunk=inv_chunk is not None, factor_finite=finite,
             eig_clipped=stats['eig_clipped'])
         return precond, new_state
+
+    # -- straggler probe ----------------------------------------------
+
+    def build_barrier_probe(self):
+        """``probe() -> wait_ms``: a warmed 0-dim fp32 ``all_reduce`` over
+        the world (every K-FAC collective's ranks) on this rank's device,
+        timed between two synchronizes
+        (``observability.stragglers.build_barrier_probe``)."""
+        from distributed_kfac_pytorch_tpu_torch.observability import \
+            stragglers
+        return stragglers.build_barrier_probe(None, self.device)
 
     # -- checkpointing -------------------------------------------------
 

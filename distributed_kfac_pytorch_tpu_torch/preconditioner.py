@@ -88,6 +88,7 @@ from distributed_kfac_pytorch_tpu_torch.capture import CONV2D, \
     subsample_captures
 from distributed_kfac_pytorch_tpu_torch.observability import \
     metrics as obs_metrics
+from distributed_kfac_pytorch_tpu_torch.observability import profiling
 from distributed_kfac_pytorch_tpu_torch.ops import factors as F
 from distributed_kfac_pytorch_tpu_torch.ops import kernels, linalg
 from distributed_kfac_pytorch_tpu_torch.parallel.placement import \
@@ -791,6 +792,7 @@ class KFAC:
             out['G'] = (g, float(b * h * w) * (h * w) ** 2, False)
         return out
 
+    @profiling.scope('kfac/factors')
     def update_factors(self, state: dict, captures: dict | None,
                        factor_decay=None, *,
                        contribs: dict | None = None) -> dict:
@@ -802,6 +804,7 @@ class KFAC:
             return self.blend_contribs(state['factors'], contribs, alpha)
         return self.blend_factors(state['factors'], captures, alpha)
 
+    @profiling.scope('kfac/factors')
     def local_factor_contribs(self, captures: dict) -> dict:
         """One batch's covariance contributions ``{layer: {'A', 'G'}}``,
         the contraction without the EMA: the sides
@@ -833,13 +836,15 @@ class KFAC:
             for side, compute, calls in (
                     ('A', L.compute_a_factor, entry['a']),
                     ('G', L.compute_g_factor, entry['g'])):
-                if side in fused:
-                    x, scale, has_bias = fused[side]
-                    contrib[side] = kernels.factor_ema(
-                        x, None, 0.0, scale=scale, has_bias=has_bias,
-                        compute_dtype=cdt)
-                else:
-                    contrib[side] = compute(spec, calls, compute_dtype=cdt)
+                with profiling.annotate(factor_scope(spec, side)):
+                    if side in fused:
+                        x, scale, has_bias = fused[side]
+                        contrib[side] = kernels.factor_ema(
+                            x, None, 0.0, scale=scale, has_bias=has_bias,
+                            compute_dtype=cdt)
+                    else:
+                        contrib[side] = compute(spec, calls,
+                                                compute_dtype=cdt)
             extras = L.compute_tied_factor_extras(spec, entry,
                                                   compute_dtype=cdt)
             if extras is not None:
@@ -904,12 +909,14 @@ class KFAC:
                 if side == 'G' and quad_scale != 1.0:
                     scale = (x.shape[0] if scale is None
                              else scale) / quad_scale
-                res[side] = kernels.factor_ema(
-                    x, old[side], alpha, scale=scale, has_bias=has_bias,
-                    compute_dtype=cdt)
+                with profiling.annotate(factor_scope(spec, side)):
+                    res[side] = kernels.factor_ema(
+                        x, old[side], alpha, scale=scale,
+                        has_bias=has_bias, compute_dtype=cdt)
             new_factors[name] = {side: res[side] for side in 'AG'}
         return new_factors
 
+    @profiling.scope('kfac/factors')
     def accumulate_factors(self, state: dict, captures: dict | None,
                            factor_decay=None, *,
                            contribs: dict | None = None
@@ -925,6 +932,7 @@ class KFAC:
                self.blend_factors(state['factor_accum'], captures, alpha))
         return acc, alpha * state['accum_decay']
 
+    @profiling.scope('kfac/factors')
     def reduce_factors(self, state: dict, acc: dict, decay) -> dict:
         """Deferred-reduction window head: ``F <- decay F + acc``, in fp32
         and rounded once to the storage dtype (by EMA linearity the eager
@@ -951,7 +959,8 @@ class KFAC:
                 ('G', L.compute_g_factor, entry['g'], 'G_a')):
             if side in skip:
                 continue
-            new = compute(spec, calls, compute_dtype=cdt)
+            with profiling.annotate(factor_scope(spec, side)):
+                new = compute(spec, calls, compute_dtype=cdt)
             if side == 'G' and quad_scale != 1.0:
                 new = quad_scale * new
             out[side] = new if extras is None else new + extras[extra]
@@ -1010,6 +1019,7 @@ class KFAC:
                 out[n] = invs[i]
         return out
 
+    @profiling.scope('kfac/inverses')
     def update_inverses(self, state: dict, damping=None, *,
                         warm: bool = True, chunk: int | None = None) -> dict:
         """Recompute the inverse slots from the factors at ``damping``
@@ -1140,8 +1150,9 @@ class KFAC:
                      for k in keys}
             cdt = self.precond_compute_dtype
             if self.fused_precondition and not truncated_entry(entry):
-                vs, vgs = kernels.bucket_precond(gstack, entry, damping,
-                                                 compute_dtype=cdt)
+                with profiling.annotate(precond_scope(entry)):
+                    vs, vgs = kernels.bucket_precond(gstack, entry, damping,
+                                                     compute_dtype=cdt)
                 for i, n in enumerate(members):
                     vg[n] = vgs[i]
             else:
@@ -1151,14 +1162,26 @@ class KFAC:
                 mats[n] = vs[i]
         return mats, vg
 
+    @profiling.scope('kfac/precond')
     def precondition(self, state: dict, grads: dict, damping, lr,
-                     with_stats: bool = False):
+                     with_stats: bool = False, gates: dict | None = None):
         """Precondition the registered layers' grads and apply the KL-clip
         scale ``nu = min(1, sqrt(kl_clip / |sum lr^2 v.g|))`` (a device
         tensor); unregistered grads pass through. ``with_stats`` returns
         ``(out, observability.metrics.precond_stats(...))``: ``nu``, the
         gradient and preconditioned norms and the per-shape-bucket norms,
-        read from the matrices the step computed."""
+        read from the matrices the step computed.
+
+        ``gates`` (the self-healing quarantine): shape-bucket key
+        (``observability.metrics.shape_key`` of the gradient matrix) ->
+        0-dim 0/1 device tensor. A gated-off bucket's layers take the raw
+        gradient, blended by :func:`gate_blend` (a select: a NaN or
+        infinity of the unselected preconditioned branch does not reach
+        the output) before the KL clip, so the clip and the stats see the
+        blended directions. With gates the ``v.g`` sum is the full-tensor
+        reduction for every layer (K3 still runs; its fused partial would
+        be stale after the blend). None is the plain path, bit for bit.
+        """
         grad_mats = {
             name: L.grads_to_matrix(spec, self._layer_params(name, grads))
             for name, spec in self.specs.items()}
@@ -1173,12 +1196,14 @@ class KFAC:
                     grad_mats[name], inv, damping,
                     diag_a=inv['A_inv'] if spec.kind == EMBEDDING else None,
                     compute_dtype=self.precond_compute_dtype)
+        if gates is not None:
+            precond_mats = gate_blend(precond_mats, grad_mats, gates)
         if self.kl_clip is not None:
             # Registration order, like the JAX package's summation.
             vg_sum = torch.zeros((), dtype=torch.float32,
                                  device=self.device)
             for name in self.specs:
-                if name in fused_vg:
+                if gates is None and name in fused_vg:
                     vg_sum = vg_sum + fused_vg[name] * lr ** 2
                 else:
                     vg_sum = vg_sum + torch.sum(
@@ -1212,7 +1237,8 @@ class KFAC:
              inv_update: bool | None = None,
              inv_chunk: int | None = None,
              factor_reduce: bool = False,
-             factor_snapshot: bool = False) -> tuple[dict, dict]:
+             factor_snapshot: bool = False,
+             gates: dict | None = None) -> tuple[dict, dict]:
         """One K-FAC update: ``(preconditioned_grads, new_state)``.
 
         The factor step reads ``captures`` (one batch's) or, in their
@@ -1231,7 +1257,8 @@ class KFAC:
         chunk firings decompose (a monolithic firing snapshots, then
         fires). The deferred and stale schedules need explicit flags.
         Under ``collect_metrics`` the new state's ``metrics`` are the
-        step's (:func:`observability.metrics.update_metrics`).
+        step's (:func:`observability.metrics.update_metrics`). ``gates``:
+        the self-healing quarantine mask (:meth:`precondition`).
         """
         damping = self.damping if damping is None else damping
         lr = self.lr if lr is None else lr
@@ -1304,8 +1331,9 @@ class KFAC:
             if not 0 <= inv_chunk < k:
                 raise ValueError(f'{inv_chunk=} out of range for '
                                  f'inv_pipeline_chunks={k}')
-            inverses = self.update_inverses(fire_state, damping,
-                                            chunk=inv_chunk)
+            with profiling.annotate(f'kfac/inverse/chunk{inv_chunk}'):
+                inverses = self.update_inverses(fire_state, damping,
+                                                chunk=inv_chunk)
             chunk_phase = (inv_chunk + 1) % k
         else:
             if inv_update is None:
@@ -1316,10 +1344,11 @@ class KFAC:
         state_i = {**state_f, 'inverses': inverses,
                    'inv_chunk_phase': chunk_phase}
         if not self.collect_metrics:
-            precond = self.precondition(state_i, grads, damping, lr)
+            precond = self.precondition(state_i, grads, damping, lr,
+                                        gates=gates)
             return precond, {**state_i, 'step': step + 1}
         precond, stats = self.precondition(state_i, grads, damping, lr,
-                                           with_stats=True)
+                                           with_stats=True, gates=gates)
         metrics = obs_metrics.update_metrics(
             state['metrics'], damping=damping, stats=stats,
             did_factor=bool(factor_update),
@@ -1480,6 +1509,39 @@ def grouped_cost(spec, a_dim: int, g_dim: int) -> float:
     n = spec.feature_group_count
     return (n * linalg.decomposition_cost(a_dim)
             + n * linalg.decomposition_cost(g_dim))
+
+
+def factor_scope(spec, side: str) -> str:
+    """The profiler scope of one side's factor contraction, with the JAX
+    package's names: ``kfac/factors/<kind>_<a|g>`` (``_reduced`` under
+    'reduce'; an embedding's G is a Linear's)."""
+    kind = 'linear' if spec.kind == EMBEDDING and side == 'G' else spec.kind
+    reduced = (spec.kind in (LINEAR, CONV2D)
+               and spec.kfac_approx == KFAC_REDUCE)
+    return (f'kfac/factors/{kind}_{side.lower()}'
+            + ('_reduced' if reduced else ''))
+
+
+def precond_scope(entry: dict) -> str:
+    """The profiler scope of a bucket's preconditioning: eigen slots or
+    baked inverses."""
+    return 'kfac/precond/eigen' if 'QA' in entry else 'kfac/precond/inv'
+
+
+def gate_blend(mats: dict, grad_mats: dict, gates: dict) -> dict:
+    """The quarantine blend: each layer of ``mats`` whose gradient
+    matrix's shape bucket has a gate in ``gates`` becomes
+    ``torch.where(gate >= 0.5, mat, g)``, ``g`` its raw gradient matrix;
+    a select, so a NaN of the unselected branch does not propagate.
+    Layers without a gate pass through."""
+    out = dict(mats)
+    for name, pm in mats.items():
+        g = gates.get(obs_metrics.shape_key(grad_mats[name].shape))
+        if g is None:
+            continue
+        keep = torch.as_tensor(g, device=pm.device) >= 0.5
+        out[name] = torch.where(keep, pm, grad_mats[name].to(pm.dtype))
+    return out
 
 
 def guard_nonfinite_factors(new_factors: dict, old_factors: dict,

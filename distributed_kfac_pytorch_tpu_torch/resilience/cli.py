@@ -12,13 +12,15 @@ checkpoint part of ``distributed_kfac_pytorch_tpu/resilience/cli.py``):
     ckpt = make_step_checkpointer(args, step_mgr, bundle_fn,
                                   preemption=handler, start_step=0)
     resumed = resume(args, epoch_mgr, step_mgr, device=device)
+    selfheal = make_selfheal(args, kfac=kfac, sink=sink, device=device)
 
 ``resume`` unifies the two checkpoint trees: epoch bundles (every
 ``--checkpoint-freq`` epochs) and global-step bundles under
 ``<checkpoint-dir>/steps/``. Both record their resume point (``epoch`` to
 (re)enter, offset by ``step_in_epoch`` batches; see
-``resilience.dataiter``) and the newest point wins. The heartbeat and
-self-healing flags of the JAX module are not ported
+``resilience.dataiter``) and the newest point wins. ``--selfheal*`` arm
+the self-healing ladder (:func:`make_selfheal`, ``resilience.selfheal``).
+The heartbeat flags of the JAX module are not ported
 (``training.engine.UNPORTED_FLAGS``).
 """
 
@@ -81,6 +83,43 @@ def add_resilience_args(p) -> None:
                    help='resume from this exact global-step checkpoint '
                         'in <checkpoint-dir>/steps (default: the '
                         'newest of step/epoch checkpoints)')
+    p.add_argument('--selfheal', action='store_true',
+                   help='arm the fault-response escalation ladder: '
+                        'skip-window (the nonfinite guard, forced on) '
+                        '-> damping escalation -> per-bucket layer '
+                        'quarantine (the raw gradient while factors '
+                        're-accumulate) -> in-process rollback to the '
+                        'newest VERIFIED, finite step checkpoint. '
+                        'Requires --kfac-metrics (the ladder reads the '
+                        'on-device metrics); adds one host read per '
+                        '--selfheal-window steps')
+    p.add_argument('--selfheal-window', type=int, default=0,
+                   metavar='N',
+                   help='ladder observation window in optimizer steps '
+                        '(0 = half the K-FAC inverse-update frequency: '
+                        'two observations per cadence window, so a '
+                        'factor corruption can be quarantined before the '
+                        'next inverse firing decomposes it)')
+    p.add_argument('--selfheal-damping-factor', type=float,
+                   default=10.0, metavar='F',
+                   help='damping multiplier applied per escalation on '
+                        'repeated bad windows, divided back one notch '
+                        'per clean window (rung 2)')
+    p.add_argument('--selfheal-diverge-ratio', type=float,
+                   default=10.0, metavar='R',
+                   help='a window whose loss exceeds R x the running '
+                        'boundary-loss average counts as a divergence '
+                        'window (rung-2 trigger); lower R (e.g. 1.5) for '
+                        'cross-entropy workloads, which saturate near '
+                        'log(vocab)')
+    p.add_argument('--selfheal-no-quarantine', action='store_true',
+                   help='skip the per-bucket quarantine rung (the ladder '
+                        'then goes skip -> damping -> rollback)')
+    p.add_argument('--selfheal-max-rollbacks', type=int, default=1,
+                   metavar='N',
+                   help='in-process rollback budget; past it the ladder '
+                        'is exhausted and the process ends for the '
+                        'relaunch loop (the last rung)')
 
 
 def install_preemption(args) -> preemption_lib.PreemptionHandler:
@@ -97,9 +136,53 @@ def install_preemption(args) -> preemption_lib.PreemptionHandler:
 
 def make_step_manager(args) -> ckpt_lib.CheckpointManager:
     """The global-step manager under ``<checkpoint-dir>/steps`` (the
-    epoch tree's integer scan ignores the subdirectory), keeping 2."""
+    epoch tree's integer scan ignores the subdirectory), keeping 2, or 10
+    under ``--selfheal``: the rollback needs a bundle saved before the
+    fault's onset, which the ladder detects up to ``rollback_after``
+    windows late."""
+    keep = 10 if getattr(args, 'selfheal', False) else 2
     return ckpt_lib.CheckpointManager(
-        os.path.join(args.checkpoint_dir, STEP_SUBDIR), max_to_keep=2)
+        os.path.join(args.checkpoint_dir, STEP_SUBDIR), max_to_keep=keep)
+
+
+def wants_selfheal_guard(args) -> bool:
+    """True when the ladder is armed: rung 1 is the non-finite factor
+    guard, without which a poisoned candidate enters the factors and
+    ``nonfinite_skips`` never counts."""
+    return bool(getattr(args, 'selfheal', False))
+
+
+def make_selfheal(args, *, kfac, sink=None, device=None):
+    """The :class:`resilience.selfheal.SelfHealController` of a CLI run
+    under ``--selfheal`` (None otherwise). The ladder reads the on-device
+    metrics and needs the K-FAC step: without ``--kfac-metrics`` or with
+    ``--kfac-update-freq 0`` it raises the JAX CLIs' ``SystemExit``. The
+    window defaults to half the inverse frequency; ``kfac`` (a ``KFAC``
+    or ``DistributedKFAC``) gives the buckets the quarantine gates."""
+    if not getattr(args, 'selfheal', False):
+        return None
+    from distributed_kfac_pytorch_tpu_torch.resilience import \
+        selfheal as selfheal_lib
+    if not getattr(args, 'kfac_metrics', None):
+        raise SystemExit('--selfheal requires --kfac-metrics (the '
+                         'ladder is driven by the on-device metrics '
+                         'stream)')
+    if kfac is None:
+        raise SystemExit('--selfheal requires the K-FAC step '
+                         '(--kfac-update-freq > 0)')
+    window = int(getattr(args, 'selfheal_window', 0) or 0)
+    if window <= 0:
+        window = max(1, int(getattr(args, 'kfac_update_freq', 10)) // 2)
+    cfg = selfheal_lib.SelfHealConfig(
+        check_every=window,
+        damping_factor=args.selfheal_damping_factor,
+        diverge_ratio=args.selfheal_diverge_ratio,
+        quarantine=not args.selfheal_no_quarantine,
+        max_rollbacks=args.selfheal_max_rollbacks)
+    bucket_layers = (None if args.selfheal_no_quarantine
+                     else selfheal_lib.bucket_layer_map(kfac))
+    return selfheal_lib.SelfHealController(
+        cfg, bucket_layers=bucket_layers, sink=sink, device=device)
 
 
 def make_step_checkpointer(args, step_mgr, bundle_fn, *,

@@ -5,7 +5,7 @@ A :class:`FaultPlan` names the global optimizer step at which each fault
 fires; the plan rides in the ``KFAC_CHAOS`` environment variable so the
 real CLIs run unmodified under injected failure. The grammar is the JAX
 package's, comma-separated ``kind@step``, and every spec it accepts parses
-alike. Five kinds act in the port:
+alike. Seven kinds act in the port:
 
     preempt@K         trigger the preemption handler after step K (a
                       graceful drain: forced blocking save, exit with
@@ -23,14 +23,22 @@ alike. Five kinds act in the port:
                       (:func:`poison_at`, which the CLIs wrap their batch
                       iterators in): under ``--fp16`` the dynamic loss
                       scale skips that step and backs off
+    corrupt-factor@K  after step K, plant an infinity in one live
+                      Kronecker factor (:func:`poison_factors`), outside
+                      the K-FAC step: the self-healing quarantine rung's
+                      proof fault
+    diverge@K         after step K, scale every parameter by
+                      ``DIVERGE_SCALE`` (:func:`poison_params`): a finite
+                      loss spike, the damping-escalation rung's proof fault
 
-``corrupt-factor``, ``diverge``, ``resize``,
-``slice-loss``, ``hang`` and ``slowrank`` belong to self-healing, elastic
+``resize``, ``slice-loss``, ``hang`` and ``slowrank`` belong to elastic
 resume and the supervisor, which are not ported: :func:`check_ported`
 raises ``NotImplementedError`` naming them.
 
 Faults are one-shot: a relaunch re-reads the environment, so relaunch
-without ``KFAC_CHAOS`` unless the fault should fire again.
+without ``KFAC_CHAOS`` unless the fault should fire again; within a
+process the state faults fire once, so an in-process rollback's replay of
+step K does not poison again.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import dataclasses
 import os
 
 import numpy as np
+import torch
 
 ENV_VAR = 'KFAC_CHAOS'
 _KINDS = ('preempt', 'crash', 'nan-batch', 'crash-in-save',
@@ -50,7 +59,9 @@ _GRAMMAR = ('preempt@K, crash@K, nan-batch@K, crash-in-save@K, '
             'resize@K->N, slice-loss@K->S, hang@K, slowrank@K')
 #: The kinds the port acts on, by their ``FaultPlan`` field.
 PORTED = ('preempt_at', 'crash_at', 'crash_in_save_at', 'corrupt_ckpt_at',
-          'nan_batch_at')
+          'nan_batch_at', 'corrupt_factor_at', 'diverge_at')
+#: How hard ``diverge`` kicks the parameters (:func:`poison_params`).
+DIVERGE_SCALE = 8.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,7 +176,7 @@ def check_ported(plan: FaultPlan | None) -> None:
         raise NotImplementedError(
             f'{ENV_VAR} fault kind(s) {kinds} are not ported to torch yet '
             '(the port injects preempt, crash, crash-in-save, '
-            'corrupt-ckpt and nan-batch)')
+            'corrupt-ckpt, nan-batch, corrupt-factor and diverge)')
 
 
 def poison_batch(batch):
@@ -197,6 +208,67 @@ def poison_at(batches, plan: FaultPlan | None, *, first_step: int = 0):
         if first_step + i == plan.nan_batch_at:
             batch = poison_batch(batch)
         yield batch
+
+
+def poison_factors(kfac_state: dict) -> dict:
+    """The state with an infinity planted in one live Kronecker factor:
+    the first element of the first factor (by key) of the first
+    registered layer (by name), in a copy of that tensor. Applied outside
+    the K-FAC step, so the non-finite guard never sees it: a silent
+    in-memory corruption. Works on the ``KFAC`` and the
+    ``DistributedKFAC`` state alike (``'factors'`` is a per-layer dict in
+    both)."""
+    factors = dict(kfac_state['factors'])
+    name = sorted(factors)[0]
+    entry = dict(factors[name])
+    key = sorted(entry)[0]
+    leaf = entry[key].clone()
+    leaf.view(-1)[0] = float('inf')
+    entry[key] = leaf
+    factors[name] = entry
+    return {**kfac_state, 'factors': factors}
+
+
+def poison_params(params: dict, scale: float = DIVERGE_SCALE) -> dict:
+    """Every floating-point tensor of ``params`` (name -> tensor) times
+    ``scale``, in its dtype: a finite loss spike, the divergence signature
+    the damping-escalation rung reads."""
+    return {k: (p * scale).to(p.dtype) if isinstance(p, torch.Tensor)
+            and p.is_floating_point() else p for k, p in params.items()}
+
+
+def inject_state_faults(plan: FaultPlan | None, state, fired: set) -> None:
+    """Apply the plan's live-state faults due after global step
+    ``state.step`` (a ``TrainState``), each once per ``fired`` set (an
+    in-process rollback replays the step without re-poisoning):
+    ``corrupt-factor`` into ``state.kfac_state``, ``diverge`` into the
+    model's parameters, in place."""
+    if plan is None:
+        return
+    gstep = int(state.step)
+    if plan.corrupt_factor_at == gstep and state.kfac_state is not None \
+            and 'corrupt-factor' not in fired:
+        fired.add('corrupt-factor')
+        state.kfac_state = poison_factors(state.kfac_state)
+    if plan.diverge_at == gstep and 'diverge' not in fired:
+        fired.add('diverge')
+        params = dict(state.model.named_parameters())
+        with torch.no_grad():
+            for name, p in poison_params(params).items():
+                params[name].copy_(p)
+
+
+class StateFaults:
+    """The step hook of :func:`inject_state_faults` for a run without a
+    step checkpointer (``resilience.policy.StepCheckpointer`` applies
+    them itself); it does nothing when the plan has no state fault."""
+
+    def __init__(self, plan: FaultPlan | None):
+        self.plan = plan
+        self._fired: set[str] = set()
+
+    def after_step(self, state, step_in_epoch: int = 0) -> None:
+        inject_state_faults(self.plan, state, self._fired)
 
 
 def hard_crash(code: int = 137) -> None:

@@ -1,7 +1,6 @@
 """Checkpoint-bundle content integrity: a digest stamped at save and
 verified at restore (PyTorch port of
-``distributed_kfac_pytorch_tpu/resilience/integrity.py``; ``finite_ok``
-belongs to self-healing and is not ported).
+``distributed_kfac_pytorch_tpu/resilience/integrity.py``).
 
   - :func:`tree_checksum` reduces a bundle tree (nested dicts, lists and
     tuples of torch tensors and Python scalars) to one 63-bit digest:
@@ -17,6 +16,9 @@ belongs to self-healing and is not ported).
     another digest; the resume walk (``resilience.cli.resume``)
     quarantines such a bundle and walks back to the newest one that
     verifies.
+  - :func:`finite_ok` checks that a restored K-FAC state holds no NaN or
+    infinity: a bundle saved after the state was poisoned verifies, and
+    the self-healing rollback walk (``resilience.selfheal``) must pass it.
 
 The digest is the port's own: it need not equal the JAX package's for the
 same model (NCHW against NHWC layouts, the ``(c, kh, kw)`` conv basis
@@ -113,6 +115,18 @@ def verify_tree(tree: dict) -> tuple[bool | None, int | None, int]:
         return None, recorded, UNVERIFIED
     actual = tree_checksum(tree)
     return recorded == actual, recorded, actual
+
+
+def finite_ok(subtree) -> bool:
+    """True when every floating-point tensor of ``subtree`` (nested dicts,
+    lists and tuples) is finite; bf16 and fp16 are widened to fp32 for
+    the check. One host read per tensor."""
+    for _path, leaf in _walk(subtree):
+        if isinstance(leaf, torch.Tensor) and leaf.is_floating_point() \
+                and leaf.numel():
+            if not bool(torch.isfinite(leaf.float()).all()):
+                return False
+    return True
 
 
 def strip_checksum(like: dict) -> dict:

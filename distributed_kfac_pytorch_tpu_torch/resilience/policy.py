@@ -103,6 +103,8 @@ class StepCheckpointer:
         if self.plan is not None:
             if self.plan.crash_at == gstep:
                 faults_lib.hard_crash()
+            # corrupt-factor and diverge: live-state faults, once each.
+            faults_lib.inject_state_faults(self.plan, state, self._fired)
             if self.plan.corrupt_ckpt_at == gstep and \
                     self._once('corrupt-ckpt'):
                 # Bit-rot a committed bundle: save, then flip a byte in its

@@ -51,9 +51,16 @@ warn|skip|raise`` watches it (skip and raise also arm the non-finite
 factor guard), and ``--log-dir`` (default ``./logs/cifar10``) takes
 TensorBoard scalars where tensorboard is installed; read the stream with
 ``python -m distributed_kfac_pytorch_tpu_torch.observability.report
-PATH``. Not ported yet (a set flag raises by name,
-``engine.UNPORTED_FLAGS``): profiling, memory telemetry and straggler
-shards, autotune, heartbeats and self-healing.
+PATH`` (``observability.gate`` regresses it against a baseline).
+``--profile-dir`` writes a ``torch.profiler`` trace of the first trained
+epoch, ``--memory-interval`` memory records, ``--straggler-shards`` and
+``--straggler-sample-every`` per-rank shards with the barrier probe's
+waits, ``--no-perf-anomalies`` turns the monitor's perf checks off, and
+``--selfheal*`` arm the self-healing ladder, whose rollback restores a
+step bundle in the process (``engine``, ``resilience.selfheal``;
+``KFAC_CHAOS=corrupt-factor@K`` and ``diverge@K`` are its proof faults).
+Not ported yet (a set flag raises by name, ``engine.UNPORTED_FLAGS``):
+autotune and heartbeats.
 ``--bf16-factors``, ``--bf16-inverses`` and ``--bf16-precond`` set the
 K-FAC reduced-precision knobs as the JAX ``OptimConfig`` does.
 ``--inv-pipeline-chunks``, ``--inv-staleness``,
@@ -183,6 +190,7 @@ def _train(args: argparse.Namespace, dev: torch.device,
         args, 'train_cifar10_resnet',
         {'model': args.model, 'batch_size': args.batch_size,
          'devices': workers})
+    observers = None
     try:
         (train_x, train_y), (test_x, test_y) = datasets.get_cifar(
             args.data_dir, synthetic_size=args.synthetic_size)
@@ -233,6 +241,8 @@ def _train(args: argparse.Namespace, dev: torch.device,
         ckpt = engine.start_checkpointing(
             args, state, kfac_sched, name='cifar10', device=dev,
             preemption=preemption, sink=sink, verbose=not args.quiet)
+        observers = engine.make_observers(args, state, sink, dev,
+                                          cli='train_cifar10_resnet')
         return engine.fit(
             state, (train_x, train_y), (test_x, test_y),
             lr_schedule=lr_schedule, kfac_sched=kfac_sched, epochs=args.epochs,
@@ -243,9 +253,9 @@ def _train(args: argparse.Namespace, dev: torch.device,
             criterion=functools.partial(utils.label_smooth_loss,
                                         smoothing=args.label_smoothing),
             ckpt=ckpt, precise_bn=precise_bn, metrics_sink=sink,
-            log_writer=writer)
+            log_writer=writer, observers=observers)
     finally:
-        engine.close_observability(sink, writer)
+        engine.close_observability(sink, writer, observers)
 
 
 def main(argv=None) -> int:

@@ -42,9 +42,10 @@ reference's production ImageNet recipe) builds the model, ResNet or ViT, at
 loss scale with the overflow skip (``engine``; the SGD baseline exits), and
 ``KFAC_CHAOS=nan-batch@K`` poisons the batch of step ``K``. Not ported yet:
 the ImageNet directory reader (the JAX CLI's ``tf.data`` JPEG pipeline) and the
-flags of ``engine.UNPORTED_FLAGS`` (profiling, memory telemetry and
-straggler shards, autotune, heartbeats and self-healing), which raise by
-name. ``--kfac-metrics``, ``--metrics-interval``, ``--health-action`` and
+flags of ``engine.UNPORTED_FLAGS`` (autotune and heartbeats), which raise
+by name. ``--kfac-metrics``, ``--metrics-interval``, ``--health-action``,
+``--profile-dir``, ``--memory-interval``, ``--no-perf-anomalies``,
+``--straggler-shards``, ``--straggler-sample-every``, ``--selfheal*`` and
 ``--log-dir`` (default ``./logs/imagenet``) as in the CIFAR CLI.
 ``--bf16-factors``, ``--bf16-inverses`` and
 ``--bf16-precond`` set the K-FAC reduced-precision knobs as the JAX
@@ -223,6 +224,7 @@ def _train(args: argparse.Namespace, dev: torch.device,
         args, 'train_imagenet_resnet',
         {'model': args.model, 'batch_size': args.batch_size,
          'devices': workers})
+    observers = None
     try:
         train_data, val_data = datasets.get_imagenet(
             args.data_dir, image_size=args.image_size,
@@ -267,6 +269,8 @@ def _train(args: argparse.Namespace, dev: torch.device,
         ckpt = engine.start_checkpointing(
             args, state, kfac_sched, name='imagenet', device=dev,
             preemption=preemption, sink=sink, verbose=not args.quiet)
+        observers = engine.make_observers(args, state, sink, dev,
+                                          cli='train_imagenet_resnet')
         return engine.fit(
             state, train_data, val_data, lr_schedule=lr_schedule,
             kfac_sched=kfac_sched, epochs=args.epochs,
@@ -277,9 +281,9 @@ def _train(args: argparse.Namespace, dev: torch.device,
             criterion=functools.partial(utils.label_smooth_loss,
                                         smoothing=args.label_smoothing),
             ckpt=ckpt, precise_bn=precise_bn, metrics_sink=sink,
-            log_writer=writer)
+            log_writer=writer, observers=observers)
     finally:
-        engine.close_observability(sink, writer)
+        engine.close_observability(sink, writer, observers)
 
 
 def main(argv=None) -> int:

@@ -90,10 +90,12 @@ loss scale, unscaling before the global-norm clip, with the overflow skip
 JAX CLI's ``ValueError`` at step ``K``: token windows hold no float to
 poison.
 
-``--kfac-metrics``, ``--metrics-interval``, ``--health-action`` and
+``--kfac-metrics``, ``--metrics-interval``, ``--health-action``,
+``--profile-dir``, ``--memory-interval``, ``--no-perf-anomalies``,
+``--straggler-shards``, ``--straggler-sample-every``, ``--selfheal*`` and
 ``--log-dir`` (default ``./logs/lm``) as in the CIFAR CLI. Not ported yet
-(a set flag raises by name, ``engine.UNPORTED_FLAGS``): profiling, memory
-telemetry and straggler shards, autotune, heartbeats and self-healing.
+(a set flag raises by name, ``engine.UNPORTED_FLAGS``): autotune and
+heartbeats.
 
 :func:`train` is the programmatic entry point.
 """
@@ -243,6 +245,7 @@ def _train(args: argparse.Namespace, dev: torch.device,
         args, 'train_language_model',
         {'arch': args.arch, 'batch_size': args.batch_size,
          'bptt': args.bptt, 'devices': workers})
+    observers = None
     try:
         sp = args.seq_parallel
         # Before DistributedKFAC's groups: every rank creates every group in
@@ -293,6 +296,8 @@ def _train(args: argparse.Namespace, dev: torch.device,
             load_extra=lambda extra: generator.set_state(
                 extra['dropout_generator'].cpu()),
             verbose=not args.quiet)
+        observers = engine.make_observers(args, state, sink, dev,
+                                          cli='train_language_model')
         return engine.fit_lm(
             state, train_ids, val_ids, lr_schedule=lr_schedule,
             kfac_sched=kfac_sched, epochs=args.epochs,
@@ -301,9 +306,9 @@ def _train(args: argparse.Namespace, dev: torch.device,
             fixed_batch=args.fixed_batch, max_steps=args.max_steps,
             time_steps=args.time_steps, verbose=not args.quiet,
             seq_parallel=sp, ckpt=ckpt, metrics_sink=sink,
-            log_writer=writer)
+            log_writer=writer, observers=observers)
     finally:
-        engine.close_observability(sink, writer)
+        engine.close_observability(sink, writer, observers)
 
 
 def check_long_context(args: argparse.Namespace) -> None:

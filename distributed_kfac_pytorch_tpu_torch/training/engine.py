@@ -76,7 +76,25 @@ and label a plain step ``'compile'``. At the epoch's end (and when a
 preemption drains) an epoch record with the epoch's averages is appended
 and the sink flushed; the ``kfac/*`` entries join the averages through
 ``Metric`` (summed on the device, read once). A :class:`TensorBoardWriter`
-(``--log-dir``) gets the epoch's train and validation averages.
+(``--log-dir``) gets the epoch's train and validation averages. The
+step's host time joins the trace table (``observability.tracing``,
+``train_step_dispatch``), whose snapshot each epoch record carries.
+
+Observers beside the sink (:class:`Observers`, :func:`make_observers`;
+all off by default, and off the step is the plain step): a
+``kind='memory'`` record every ``memory_interval`` steps (the allocator
+watermarks and the K-FAC state footprint, computed once per epoch); a
+rank's straggler shard record per step, with the barrier probe's wait on
+the steps it samples; a ``torch.profiler`` session over the first trained
+epoch (``--profile-dir``); and the self-healing ladder
+(``resilience.selfheal``): :meth:`~SelfHealController.adjust_hyper`
+before each step (escalated damping, the quarantine gates) and
+:meth:`~SelfHealController.observe` after it. A :class:`Rollback` leaves
+the epoch with the sinks flushed; the epoch loop restores the newest
+verified, finite step bundle at or before the fault and trains on in the
+same process. Under hierarchical reduction a window head's fired stage
+is recorded as ``dcn_reduce`` (the cross-slice collective), which
+``observability.stragglers.stage_class`` attributes apart.
 """
 
 from __future__ import annotations
@@ -102,7 +120,12 @@ from distributed_kfac_pytorch_tpu_torch.models.transformer_lm import \
 from distributed_kfac_pytorch_tpu_torch.observability import \
     cli as obs_cli
 from distributed_kfac_pytorch_tpu_torch.observability import \
+    memory as obs_memory
+from distributed_kfac_pytorch_tpu_torch.observability import \
     metrics as obs_metrics
+from distributed_kfac_pytorch_tpu_torch.observability import \
+    stragglers as obs_stragglers
+from distributed_kfac_pytorch_tpu_torch.observability import tracing
 from distributed_kfac_pytorch_tpu_torch.ops import kernels
 from distributed_kfac_pytorch_tpu_torch.resilience import \
     cli as resilience_cli
@@ -111,6 +134,10 @@ from distributed_kfac_pytorch_tpu_torch.resilience.preemption import (
     RELAUNCH_EXIT_CODE,
     Preempted,
     PreemptionHandler,
+)
+from distributed_kfac_pytorch_tpu_torch.resilience.selfheal import (
+    Rollback,
+    handle_rollback,
 )
 from distributed_kfac_pytorch_tpu_torch.training import checkpoint, \
     datasets, optimizers
@@ -418,7 +445,7 @@ def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
         grads, state.kfac_state = kfac.step(
             state.kfac_state, grads, captures, contribs=contribs,
             damping=hyper.get('damping'), lr=hyper['lr'],
-            **kfac_step_flags(flags))
+            **kfac_step_flags(flags), gates=hyper.get('bucket_gate'))
     for name, p in state.model.named_parameters():
         if name in grads:
             p.grad = grads[name]
@@ -432,7 +459,8 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
                 device, verbose: bool = False, time_steps: bool = False,
                 max_steps: int | None = None,
                 criterion: Callable = F.cross_entropy, checkpointer=None,
-                start_step_in_epoch: int = 0, metrics_sink=None) -> dict:
+                start_step_in_epoch: int = 0, metrics_sink=None,
+                observers: 'Observers | None' = None) -> dict:
     """One training epoch; returns the averaged metrics and, per step,
     the losses, the fired stage and (``time_steps``: each step
     synchronized) the wall milliseconds, and whether ``max_steps`` stopped
@@ -442,12 +470,15 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
     the update frequencies (``KFACParamScheduler.params()``). Stops after
     ``max_steps`` global steps when given. ``criterion`` is the training
     loss (see :func:`train_step`). ``checkpointer`` (a
-    ``resilience.policy.StepCheckpointer``) is called after each step with
+    ``resilience.policy.StepCheckpointer``, or without step bundles the
+    ``resilience.faults.StateFaults`` hook) is called after each step with
     the steps finished in the epoch, ``start_step_in_epoch`` (the
-    mid-epoch resume offset) included; it may raise ``Preempted``, which
-    then carries the epoch's record so far as ``partial`` (the sink is
-    flushed first). ``metrics_sink``: one step record per step and the
-    epoch record (module docstring).
+    mid-epoch resume offset) included; it may raise ``Preempted``, and the
+    ladder (``observers.selfheal``) ``Rollback``, which then carry the
+    epoch's record so far as ``partial`` (the sinks are flushed first).
+    ``metrics_sink``: one step record per step and the epoch record;
+    ``observers``: memory records, straggler shards and the ladder
+    (module docstring).
     """
     device = torch.device(device)
     state.model.train()
@@ -457,6 +488,7 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
     schedule = (epoch_schedule(state.kfac, hyper['inv_update_freq'])
                 if state.kfac is not None else {})
     stopped = False
+    epoch_cache: dict = {}
     t_epoch = time.perf_counter()
     try:
         for xb, yb in batches:
@@ -471,9 +503,12 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
                 xb, yb = xb[local], yb[local]
             x = torch.as_tensor(np.ascontiguousarray(xb), device=device)
             y = torch.as_tensor(yb, dtype=torch.long, device=device)
+            wait_ms = _probe(observers, state.step)
+            step_hyper = _step_hyper(observers, hyper)
             t0 = time.perf_counter()
             scale = state.loss_scale and state.loss_scale['scale']
-            loss, acc = train_step(state, x, y, hyper, flags, criterion)
+            loss, acc = train_step(state, x, y, step_hyper, flags,
+                                   criterion)
             dispatch_ms = (time.perf_counter() - t0) * 1e3
             if time_steps:
                 if device.type == 'cuda':
@@ -487,14 +522,15 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
                 state, loss, acc, scale if metrics_sink is not None else None)
             for k, v in metrics.items():
                 meters.setdefault(k, Metric(k)).update(v)
-            if metrics_sink is not None:
-                record_step(metrics_sink, state.step, metrics, dispatch_ms,
-                            fired[-1])
+            _after_dispatch(state, metrics_sink, observers, metrics,
+                            dispatch_ms, fired[-1], wait_ms, device,
+                            epoch_cache)
             state.step += 1
             if checkpointer is not None:
                 _after_step(checkpointer, state,
-                            start_step_in_epoch + len(losses), metrics_sink)
-    except Preempted as p:
+                            start_step_in_epoch + len(losses), metrics_sink,
+                            observers)
+    except (Preempted, Rollback) as p:
         p.partial = {'losses': [float(v) for v in losses], 'fired': fired,
                      'step_ms': step_ms if time_steps else None,
                      'scaler': _scaler_record(scaler)}
@@ -503,6 +539,7 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
     if metrics_sink is not None and losses:
         record_epoch(metrics_sink, state.epoch, out, len(losses),
                      time.perf_counter() - t_epoch)
+    _flush_shard(observers)
     if verbose and out:
         shown = {k: round(v, 4) for k, v in out.items()
                  if not k.startswith('kfac/')}
@@ -510,6 +547,144 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
     return {'metrics': out, 'losses': [float(v) for v in losses],
             'fired': fired, 'step_ms': step_ms if time_steps else None,
             'scaler': _scaler_record(scaler), 'stopped': stopped}
+
+
+@dataclasses.dataclass
+class Observers:
+    """A run's observers beside the metrics sink (module docstring); the
+    defaults observe nothing. ``rank_sink``: this rank's straggler shard
+    (``observability.stragglers.make_rank_shard_sink``);
+    ``barrier_probe``: ``probe() -> wait_ms``, run on the steps
+    ``sample_every`` selects; ``memory_interval``: steps between memory
+    records (0: none); ``profile_dir``: the ``torch.profiler`` trace of
+    the first trained epoch on rank ``rank``; ``selfheal``: a
+    ``resilience.selfheal.SelfHealController``."""
+    rank_sink: Any = None
+    barrier_probe: Callable[[], float] | None = None
+    sample_every: int = 1
+    memory_interval: int = 0
+    profile_dir: str | None = None
+    rank: int = 0
+    selfheal: Any = None
+
+    def close(self) -> None:
+        if self.rank_sink is not None:
+            self.rank_sink.close()
+
+
+def make_observers(args: argparse.Namespace, state: TrainState, sink,
+                   device, *, cli: str, meta: dict | None = None
+                   ) -> Observers:
+    """The :class:`Observers` of a CLI run, made once the ``TrainState``
+    exists: ``--memory-interval`` (with ``--kfac-metrics``),
+    ``--straggler-shards`` (the rank's shard; with a K-FAC world, the
+    barrier probe of its ``DistributedKFAC``; with more than one slice,
+    the rank's slice in the shard's meta), ``--straggler-sample-every``,
+    ``--profile-dir`` and ``--selfheal*`` (``resilience.cli.
+    make_selfheal``)."""
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    shard_meta = {'cli': cli, **(meta or {})}
+    slices = getattr(args, 'num_slices', 1)
+    if dist.is_initialized() and slices > 1:
+        shard_meta['slice'] = multislice.slice_of_rank(
+            rank, dist.get_world_size(), slices)
+    rank_sink = obs_cli.make_rank_shard_sink(args, rank, meta=shard_meta)
+    probe = (state.kfac.build_barrier_probe()
+             if rank_sink is not None
+             and hasattr(state.kfac, 'build_barrier_probe') else None)
+    return Observers(
+        rank_sink=rank_sink, barrier_probe=probe,
+        sample_every=getattr(args, 'straggler_sample_every', 1),
+        memory_interval=(getattr(args, 'memory_interval', 0)
+                         if args.kfac_metrics else 0),
+        profile_dir=getattr(args, 'profile_dir', None), rank=rank,
+        selfheal=resilience_cli.make_selfheal(
+            args, kfac=state.kfac, sink=sink, device=device))
+
+
+def _probe(observers: Observers | None, step: int) -> float | None:
+    """The barrier probe's wait (ms) at ``step`` when it samples it, else
+    None; run before the step, so the wait is not this step's work."""
+    if observers is None or observers.barrier_probe is None \
+            or not obs_stragglers.sampled(step, observers.sample_every):
+        return None
+    return observers.barrier_probe()
+
+
+def _step_hyper(observers: Observers | None, hyper: dict) -> dict:
+    """The step's hyperparameters: the ladder's (escalated damping,
+    quarantine gates) when it is armed, else ``hyper`` itself."""
+    if observers is None or observers.selfheal is None:
+        return hyper
+    return observers.selfheal.adjust_hyper(hyper)
+
+
+def _record_label(state: TrainState, fired: str | None) -> str | None:
+    """The fired stage a step's records carry: under hierarchical
+    reduction a window head's ``reduce`` is the cross-slice collective,
+    ``dcn_reduce``."""
+    kfac = getattr(state.kfac, 'kfac', state.kfac)
+    if fired and 'reduce' in fired and getattr(kfac, 'hierarchical_reduce',
+                                               False):
+        return fired.replace('reduce', 'dcn_reduce')
+    return fired
+
+
+def _after_dispatch(state: TrainState, sink, observers: Observers | None,
+                    metrics: dict, dispatch_ms: float, fired: str | None,
+                    wait_ms: float | None, device, epoch_cache: dict
+                    ) -> None:
+    """Everything that follows a step's dispatch (``state.step`` still
+    the step just run): its record with the pending kernel-build events
+    and its host time in the trace table, a memory record every
+    ``memory_interval`` steps, the rank's shard record and the ladder's
+    observation (on :class:`Rollback` the sinks are flushed first)."""
+    label = _record_label(state, fired)
+    if sink is not None:
+        label = record_step(sink, state.step, metrics, dispatch_ms, label)
+        tracing.record('train_step_dispatch', dispatch_ms / 1e3)
+    if observers is None:
+        return
+    if sink is not None and observers.memory_interval > 0 \
+            and state.step % observers.memory_interval == 0:
+        if 'footprint' not in epoch_cache:
+            epoch_cache['footprint'] = obs_memory.state_footprint(
+                state.kfac_state)
+        sink.memory_record(state.step,
+                           device=obs_memory.device_memory_stats(device),
+                           state=epoch_cache['footprint'])
+    if observers.rank_sink is not None:
+        shard = ({} if wait_ms is None
+                 else {obs_stragglers.BARRIER_WAIT_KEY: wait_ms})
+        observers.rank_sink.step_record(state.step, shard,
+                                        host_step_ms=dispatch_ms,
+                                        fired=label)
+    ladder = observers.selfheal
+    if ladder is not None:
+        try:
+            ladder.observe(state, metrics)
+        except BaseException:
+            _drain_selfheal(ladder, sink)
+            if sink is not None:
+                sink.flush()
+            _flush_shard(observers)
+            raise
+        _drain_selfheal(ladder, sink)
+
+
+def _drain_selfheal(ladder, sink) -> None:
+    """The ladder's queued decision events into ``sink`` (kept queued
+    without one)."""
+    if sink is None:
+        return
+    for ev in ladder.drain_events():
+        sink.event_record(ev['event'], **{k: v for k, v in ev.items()
+                                          if k != 'event'})
+
+
+def _flush_shard(observers: Observers | None) -> None:
+    if observers is not None and observers.rank_sink is not None:
+        observers.rank_sink.flush()
 
 
 def step_metrics(state: TrainState, loss, acc=None, scale=None) -> dict:
@@ -533,10 +708,10 @@ def step_metrics(state: TrainState, loss, acc=None, scale=None) -> dict:
 
 
 def record_step(sink, step: int, metrics: dict, dispatch_ms: float,
-                fired: str | None) -> None:
+                fired: str | None) -> str | None:
     """One step record into ``sink``, then the pending kernel-build events
     (``compile``; a plain step that built the kernels is labelled
-    ``'compile'``)."""
+    ``'compile'``). Returns the label recorded."""
     events = kernels.drain_build_events()
     if events and fired is None:
         fired = 'compile'
@@ -544,27 +719,31 @@ def record_step(sink, step: int, metrics: dict, dispatch_ms: float,
     for ev in events:
         sink.event_record(ev['event'], **{k: v for k, v in ev.items()
                                           if k != 'event'})
+    return fired
 
 
 def record_epoch(sink, epoch: int, averages: dict, steps: int,
                  seconds: float) -> None:
     """The epoch record (the averages with ``time_s`` and ``ms_per_iter``,
-    as the JAX engine writes them), then a flush."""
+    and the trace table's snapshot, as the JAX engine writes them), then a
+    flush."""
     sink.epoch_record(epoch, {**averages, 'time_s': seconds,
-                              'ms_per_iter': seconds / steps * 1000.0})
+                              'ms_per_iter': seconds / steps * 1000.0},
+                      trace=tracing.snapshot_trace())
     sink.flush()
 
 
 def _after_step(checkpointer, state: TrainState, step_in_epoch: int,
-                sink) -> None:
+                sink, observers: Observers | None = None) -> None:
     """``checkpointer.after_step``; when it raises (a preemption drain),
-    the sink is flushed first, so the steps done so far are on disk beside
-    the bundle the relaunch resumes from."""
+    the sinks are flushed first, so the steps done so far are on disk
+    beside the bundle the relaunch resumes from."""
     try:
         checkpointer.after_step(state, step_in_epoch)
     except BaseException:
         if sink is not None:
             sink.flush()
+        _flush_shard(observers)
         raise
 
 
@@ -583,7 +762,8 @@ def fit(state: TrainState, train_data, val_data, *, lr_schedule,
         criterion: Callable = F.cross_entropy,
         ckpt: 'Checkpointing | None' = None,
         precise_bn: Callable[[int], Iterable] | None = None,
-        metrics_sink=None, log_writer=None) -> dict:
+        metrics_sink=None, log_writer=None,
+        observers: Observers | None = None) -> dict:
     """The CLIs' epoch loop: per epoch, set the LR, train on the
     reshuffled ``(x, y)`` arrays of ``train_data`` (augmented with
     ``augment``), evaluate on ``val_data`` and advance the K-FAC
@@ -603,18 +783,21 @@ def fit(state: TrainState, train_data, val_data, *, lr_schedule,
     The batch consumed at the ``KFAC_CHAOS`` plan's ``nan-batch`` step is
     poisoned (``resilience.faults.poison_at``). ``metrics_sink`` and
     ``log_writer`` (a :class:`TensorBoardWriter`) take the step and epoch
-    records (module docstring).
+    records, and ``observers`` observe the run (module docstring); a
+    self-healing rollback restores in place and the loop goes on.
 
     Returns ``{'device', 'steps', 'losses', 'fired', 'step_ms', 'scaler',
     'train', 'val', 'seconds', 'state', 'preempted'}``: per-step losses
     and fired stages (:func:`fired_stage`) of the steps this call ran,
     per-step wall ms when ``time_steps``, under a dynamic loss scale the
     per-step ``{'scale', 'overflow'}`` (else None), the last epoch's
-    train / val metrics, the final ``TrainState`` and, after a
-    preemption, its ``global_step`` and ``reason`` (else None).
+    train / val metrics, the final ``TrainState``, after a
+    preemption its ``global_step`` and ``reason`` (else None), and the
+    self-healing rollbacks (``rollbacks``: ``from_step``, ``to_step``).
     """
     device = torch.device(device)
     plan = faults.plan_from_env()
+    hook = faults.StateFaults(plan)     # without step checkpoints
 
     def epoch_fn(epoch: int, skip: int, hyper: dict) -> dict:
         batches = faults.poison_at(
@@ -625,9 +808,9 @@ def fit(state: TrainState, train_data, val_data, *, lr_schedule,
         return train_epoch(state, batches, hyper, device=device,
                            verbose=verbose, time_steps=time_steps,
                            max_steps=max_steps, criterion=criterion,
-                           checkpointer=ckpt and ckpt.step_ckpt,
+                           checkpointer=ckpt.step_ckpt if ckpt else hook,
                            start_step_in_epoch=skip,
-                           metrics_sink=metrics_sink)
+                           metrics_sink=metrics_sink, observers=observers)
 
     def eval_fn(epoch: int) -> dict:
         saved = (precise_bn_recalibrate(
@@ -645,28 +828,47 @@ def fit(state: TrainState, train_data, val_data, *, lr_schedule,
                        kfac_sched=kfac_sched, epochs=epochs,
                        max_steps=max_steps, time_steps=time_steps,
                        verbose=verbose, device=device, ckpt=ckpt,
-                       metrics_sink=metrics_sink, log_writer=log_writer)
+                       metrics_sink=metrics_sink, log_writer=log_writer,
+                       observers=observers)
 
 
 def _epoch_loop(state: TrainState, epoch_fn, eval_fn, *, lr_schedule,
                 kfac_sched, epochs: int, max_steps: int | None,
                 time_steps: bool, verbose: bool, device,
                 ckpt: 'Checkpointing | None', metrics_sink=None,
-                log_writer=None) -> dict:
+                log_writer=None, observers: Observers | None = None) -> dict:
     """The epoch loop :func:`fit` and :func:`fit_lm` share:
     ``epoch_fn(epoch, skip, hyper)`` trains one epoch (a
     :func:`train_epoch` result), ``eval_fn(epoch)`` evaluates; the epoch's
     train and validation averages go to ``log_writer``, and a preemption
-    flushes ``metrics_sink``."""
+    flushes ``metrics_sink``. The first epoch trained is profiled under
+    ``observers.profile_dir``; a self-healing :class:`Rollback` restores
+    the newest verified, finite step bundle before the fault
+    (``resilience.selfheal.handle_rollback``) and the loop continues from
+    its epoch and offset."""
     losses, fired, step_ms = [], [], []
     scaler = [] if state.loss_scale is not None else None
     train_m = val_m = {}
     preempted = None
+    rollbacks = []
+    obs = observers or Observers()
+    profile_dir = obs.profile_dir
     start_epoch, start_offset = ((ckpt.start_epoch, ckpt.start_offset)
                                  if ckpt else (0, 0))
+
+    def extend(part: dict) -> None:
+        nonlocal losses, fired, step_ms, scaler
+        losses += part['losses']
+        fired += part['fired']
+        if time_steps:
+            step_ms += part['step_ms']
+        if scaler is not None:
+            scaler += part['scaler']
+
     t_start = time.perf_counter()
     try:
-        for epoch in range(start_epoch, epochs):
+        epoch = start_epoch
+        while epoch < epochs:
             if max_steps is not None and state.step >= max_steps:
                 break
             skip = start_offset if epoch == start_epoch else 0
@@ -679,14 +881,21 @@ def _epoch_loop(state: TrainState, epoch_fn, eval_fn, *, lr_schedule,
             optimizers.set_lr(state.optimizer, lr)
             hyper = {'lr': lr,
                      **(kfac_sched.params() if kfac_sched else {})}
-            res = epoch_fn(epoch, skip, hyper)
+            try:
+                with obs_cli.profile_epoch(profile_dir, obs.rank):
+                    profile_dir = None      # the first epoch trained only
+                    res = epoch_fn(epoch, skip, hyper)
+            except Rollback as rb:
+                extend(rb.partial)
+                start_epoch, start_offset = handle_rollback(
+                    rb, ckpt=ckpt, state=state, controller=obs.selfheal,
+                    sink=metrics_sink, device=device, verbose=verbose)
+                rollbacks.append({'from_step': rb.global_step,
+                                  'to_step': state.step})
+                epoch = start_epoch
+                continue
             train_m = res['metrics'] or train_m
-            losses += res['losses']
-            fired += res['fired']
-            if time_steps:
-                step_ms += res['step_ms']
-            if scaler is not None:
-                scaler += res['scaler']
+            extend(res)
             val_m = eval_fn(epoch)
             if log_writer is not None:
                 log_writer.epoch(epoch, res['metrics'], val_m)
@@ -696,16 +905,13 @@ def _epoch_loop(state: TrainState, epoch_fn, eval_fn, *, lr_schedule,
             state.epoch = epoch + 1
             if ckpt and not res['stopped']:
                 ckpt.after_epoch(state, epoch, epochs)
+            epoch += 1
     except Preempted as p:
-        losses += p.partial['losses']
-        fired += p.partial['fired']
-        if time_steps:
-            step_ms += p.partial['step_ms']
-        if scaler is not None:
-            scaler += p.partial['scaler']
+        extend(p.partial)
         preempted = {'global_step': p.global_step, 'reason': p.reason}
         if metrics_sink is not None:
             metrics_sink.flush()
+        _flush_shard(obs)
         if verbose:
             print(f'preempted ({p.reason}) at global step '
                   f'{p.global_step}; checkpoint saved — exiting '
@@ -716,7 +922,8 @@ def _epoch_loop(state: TrainState, epoch_fn, eval_fn, *, lr_schedule,
     return {'device': str(device), 'steps': state.step, 'losses': losses,
             'fired': fired, 'step_ms': step_ms if time_steps else None,
             'scaler': scaler, 'train': train_m, 'val': val_m,
-            'seconds': seconds, 'state': state, 'preempted': preempted}
+            'seconds': seconds, 'state': state, 'preempted': preempted,
+            'rollbacks': rollbacks}
 
 
 def add_distributed_args(p: argparse.ArgumentParser) -> None:
@@ -841,9 +1048,12 @@ def add_num_slices_arg(p: argparse.ArgumentParser) -> None:
 def observability_config(args: argparse.Namespace) -> dict:
     """The ``OptimConfig`` fields of the metrics flags: the on-device
     metrics under ``--kfac-metrics``, the non-finite factor guard under
-    ``--health-action skip|raise``."""
+    ``--health-action skip|raise`` or ``--selfheal`` (the ladder's first
+    rung)."""
     return {'kfac_metrics': bool(args.kfac_metrics),
-            'nonfinite_guard': obs_cli.wants_guard(args)}
+            'nonfinite_guard': (obs_cli.wants_guard(args)
+                                or resilience_cli.wants_selfheal_guard(
+                                    args))}
 
 
 def precision_config(args: argparse.Namespace) -> dict:
@@ -854,14 +1064,8 @@ def precision_config(args: argparse.Namespace) -> dict:
 
 #: Flags of the JAX CLIs the port does not run yet, by destination, with
 #: their argparse definitions (the JAX names and "off" defaults; a path
-#: flag is off at None): profiling, memory telemetry and straggler shards,
-#: autotune, heartbeats and self-healing.
+#: flag is off at None): autotune and heartbeats.
 _UNPORTED_ARGS = {
-    'profile_dir': {},
-    'memory_interval': {'type': int, 'default': 100},
-    'no_perf_anomalies': {'action': 'store_true'},
-    'straggler_shards': {'action': 'store_true'},
-    'straggler_sample_every': {'type': int, 'default': 1},
     'tuned_config': {},
     'cadence_backoff': {'action': 'store_true'},
     'backoff_skew_ms': {'type': float, 'default': 5.0},
@@ -870,12 +1074,6 @@ _UNPORTED_ARGS = {
     'backoff_max_stretch': {'type': int, 'default': 4},
     'heartbeat_dir': {},
     'heartbeat_every': {'type': int, 'default': 1},
-    'selfheal': {'action': 'store_true'},
-    'selfheal_window': {'type': int, 'default': 0},
-    'selfheal_damping_factor': {'type': float, 'default': 10.0},
-    'selfheal_diverge_ratio': {'type': float, 'default': 10.0},
-    'selfheal_no_quarantine': {'action': 'store_true'},
-    'selfheal_max_rollbacks': {'type': int, 'default': 1},
 }
 
 
@@ -937,8 +1135,12 @@ def start_observability(args: argparse.Namespace, cli: str,
     return sink, writer
 
 
-def close_observability(sink, writer) -> None:
-    """Flush and close what :func:`start_observability` made."""
+def close_observability(sink, writer,
+                        observers: Observers | None = None) -> None:
+    """Flush and close what :func:`start_observability` and
+    :func:`make_observers` made."""
+    if observers is not None:
+        observers.close()
     if sink is not None:
         sink.close()
     if writer is not None:
@@ -1046,6 +1248,9 @@ class Checkpointing:
     freq: int
     start_epoch: int = 0
     start_offset: int = 0
+    #: ``load(state, tree) -> (epoch, step_in_epoch)``: a restored bundle
+    #: into the live state (the resume's and the rollback's loader).
+    load: Callable | None = None
 
     def after_epoch(self, state: TrainState, epoch: int,
                     epochs: int) -> None:
@@ -1102,31 +1307,37 @@ def start_checkpointing(args: argparse.Namespace, state: TrainState,
             integrity='template', step=st.step, epoch=st.epoch,
             step_in_epoch=int(step_in_epoch), data_seed=args.seed)
 
+    def load(st: TrainState, tree: dict) -> tuple[int, int]:
+        sc = tree['scalars']
+        epoch = int(sc['epoch'])
+        st.model.load_state_dict(tree['params'])
+        st.optimizer.load_state_dict(tree['opt_state'])
+        if st.kfac is not None:
+            st.kfac_state = st.kfac.load_state_dict(tree['kfac'])
+        if kfac_sched:
+            kfac_sched.step(epoch)
+        if load_extra is not None:
+            load_extra(tree['extra_vars'])
+        saved_scale = tree['extra_vars'].get('loss_scale')
+        if st.loss_scale is not None and saved_scale is not None:
+            st.loss_scale = {k: torch.as_tensor(v).to(device)
+                             for k, v in saved_scale.items()}
+        st.step = int(sc['step'])
+        st.epoch = epoch
+        return epoch, int(sc['step_in_epoch'])
+
     start_epoch = start_offset = 0
     resumed = resilience_cli.resume(args, epoch_mgr, step_mgr,
                                     device=device, verbose=verbose,
                                     sink=sink)
     if resumed is not None:
-        tree, start_epoch, start_offset, _ = resumed
-        state.model.load_state_dict(tree['params'])
-        state.optimizer.load_state_dict(tree['opt_state'])
-        if state.kfac is not None:
-            state.kfac_state = state.kfac.load_state_dict(tree['kfac'])
-        if kfac_sched:
-            kfac_sched.step(start_epoch)
-        if load_extra is not None:
-            load_extra(tree['extra_vars'])
-        saved_scale = tree['extra_vars'].get('loss_scale')
-        if state.loss_scale is not None and saved_scale is not None:
-            state.loss_scale = {k: torch.as_tensor(v).to(device)
-                                for k, v in saved_scale.items()}
-        state.step = int(tree['scalars']['step'])
-        state.epoch = start_epoch
+        start_epoch, start_offset = load(state, resumed[0])
     step_ckpt = resilience_cli.make_step_checkpointer(
         args, step_mgr, bundle_fn, preemption=preemption,
         start_step=state.step, verbose=verbose, sink=sink)
     return Checkpointing(epoch_mgr, step_ckpt, bundle_fn,
-                         args.checkpoint_freq, start_epoch, start_offset)
+                         args.checkpoint_freq, start_epoch, start_offset,
+                         load=load)
 
 
 def make_train_state(model, optimizer, kfac, *,
@@ -1363,7 +1574,7 @@ def lm_train_step(state: TrainState, ids: torch.Tensor,
         grads, state.kfac_state = state.kfac.step(
             state.kfac_state, grads, captures,
             damping=hyper.get('damping'), lr=hyper['lr'],
-            **kfac_step_flags(flags))
+            **kfac_step_flags(flags), gates=hyper.get('bucket_gate'))
     if grad_clip:
         grads = clip_by_global_norm(grads, grad_clip)
     for name, p in model.named_parameters():
@@ -1413,15 +1624,16 @@ def fit_lm(state: TrainState, train_ids: np.ndarray, val_ids: np.ndarray,
            time_steps: bool = False, verbose: bool = False,
            seq_parallel: int = 1,
            ckpt: 'Checkpointing | None' = None,
-           metrics_sink=None, log_writer=None) -> dict:
+           metrics_sink=None, log_writer=None,
+           observers: Observers | None = None) -> dict:
     """The LM CLI's epoch loop: per epoch, set the LR, train on the BPTT
     windows of ``train_ids`` (tracks offset per ``(seed, epoch)``; with
     ``fixed_batch`` every step takes epoch 0's first window instead;
     with ``state.distributed`` each rank its ``launch.process_local_tile``
     of the window under ``seq_parallel``), evaluate on ``val_ids`` and
     advance the K-FAC scheduler; stop after ``max_steps`` global steps
-    when given. ``ckpt``, ``metrics_sink`` and ``log_writer`` as in
-    :func:`fit`.
+    when given. ``ckpt``, ``metrics_sink``, ``log_writer`` and
+    ``observers`` as in :func:`fit`.
 
     Returns what :func:`fit` returns; ``train`` and ``val`` hold the last
     epoch's ``loss`` and ``ppl``.
@@ -1432,6 +1644,7 @@ def fit_lm(state: TrainState, train_ids: np.ndarray, val_ids: np.ndarray,
                                        epoch=0))
     last = {}
     plan = faults.plan_from_env()
+    hook = faults.StateFaults(plan)     # without step checkpoints
 
     def epoch_fn(epoch: int, skip: int, hyper: dict) -> dict:
         windows = faults.poison_at(
@@ -1443,8 +1656,10 @@ def fit_lm(state: TrainState, train_ids: np.ndarray, val_ids: np.ndarray,
             state, windows, hyper, device=device, grad_clip=grad_clip,
             generator=generator, first=first if fixed_batch else None,
             seq_parallel=seq_parallel, time_steps=time_steps,
-            max_steps=max_steps, checkpointer=ckpt and ckpt.step_ckpt,
-            start_step_in_epoch=skip, metrics_sink=metrics_sink)
+            max_steps=max_steps,
+            checkpointer=ckpt.step_ckpt if ckpt else hook,
+            start_step_in_epoch=skip, metrics_sink=metrics_sink,
+            observers=observers)
         last.update(res['metrics'])
         return res
 
@@ -1462,7 +1677,8 @@ def fit_lm(state: TrainState, train_ids: np.ndarray, val_ids: np.ndarray,
                        kfac_sched=kfac_sched, epochs=epochs,
                        max_steps=max_steps, time_steps=time_steps,
                        verbose=verbose, device=device, ckpt=ckpt,
-                       metrics_sink=metrics_sink, log_writer=log_writer)
+                       metrics_sink=metrics_sink, log_writer=log_writer,
+                       observers=observers)
 
 
 def lm_train_epoch(state: TrainState, windows: Iterable, hyper: dict, *,
@@ -1470,7 +1686,8 @@ def lm_train_epoch(state: TrainState, windows: Iterable, hyper: dict, *,
                    generator: torch.Generator | None = None, first=None,
                    seq_parallel: int = 1, time_steps: bool = False,
                    max_steps: int | None = None, checkpointer=None,
-                   start_step_in_epoch: int = 0, metrics_sink=None) -> dict:
+                   start_step_in_epoch: int = 0, metrics_sink=None,
+                   observers: Observers | None = None) -> dict:
     """One LM epoch over ``windows`` (each step on ``first`` instead when
     given): :func:`train_epoch`'s record, with ``metrics`` the epoch's
     mean ``loss`` and its ``ppl`` (empty without a step), and the averages
@@ -1482,6 +1699,7 @@ def lm_train_epoch(state: TrainState, windows: Iterable, hyper: dict, *,
     meters: dict[str, Metric] = {}
     scaler = [] if state.loss_scale is not None else None
     stopped = False
+    epoch_cache: dict = {}
     t_epoch = time.perf_counter()
     try:
         for xb, yb in windows:
@@ -1500,9 +1718,11 @@ def lm_train_epoch(state: TrainState, windows: Iterable, hyper: dict, *,
                      if state.kfac is not None else {})
             x = torch.as_tensor(xb, dtype=torch.long, device=device)
             y = torch.as_tensor(yb, dtype=torch.long, device=device)
+            wait_ms = _probe(observers, state.step)
+            step_hyper = _step_hyper(observers, hyper)
             t0 = time.perf_counter()
             scale = state.loss_scale and state.loss_scale['scale']
-            loss = lm_train_step(state, x, y, hyper, flags,
+            loss = lm_train_step(state, x, y, step_hyper, flags,
                                  grad_clip=grad_clip, generator=generator,
                                  pos_offset=offset)
             dispatch_ms = (time.perf_counter() - t0) * 1e3
@@ -1520,14 +1740,15 @@ def lm_train_epoch(state: TrainState, windows: Iterable, hyper: dict, *,
             for k, v in metrics.items():
                 if k != 'loss':
                     meters.setdefault(k, Metric(k)).update(v)
-            if metrics_sink is not None:
-                record_step(metrics_sink, state.step, metrics, dispatch_ms,
-                            fired[-1])
+            _after_dispatch(state, metrics_sink, observers, metrics,
+                            dispatch_ms, fired[-1], wait_ms, device,
+                            epoch_cache)
             state.step += 1
             if checkpointer is not None:
                 _after_step(checkpointer, state,
-                            start_step_in_epoch + len(losses), metrics_sink)
-    except Preempted as p:
+                            start_step_in_epoch + len(losses), metrics_sink,
+                            observers)
+    except (Preempted, Rollback) as p:
         p.partial = {'losses': [float(v) for v in losses], 'fired': fired,
                      'step_ms': step_ms if time_steps else None,
                      'scaler': _scaler_record(scaler)}
@@ -1541,6 +1762,7 @@ def lm_train_epoch(state: TrainState, windows: Iterable, hyper: dict, *,
         if metrics_sink is not None:
             record_epoch(metrics_sink, state.epoch, metrics, len(losses),
                          time.perf_counter() - t_epoch)
+    _flush_shard(observers)
     return {'metrics': metrics, 'losses': losses, 'fired': fired,
             'step_ms': step_ms if time_steps else None,
             'scaler': _scaler_record(scaler), 'stopped': stopped}

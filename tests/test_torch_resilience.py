@@ -94,8 +94,7 @@ def test_plan_from_env(monkeypatch):
 
 
 @pytest.mark.parametrize('spec,kind', [
-    ('corrupt-factor@1', 'corrupt-factor'),
-    ('diverge@5', 'diverge'), ('resize@2->4', 'resize'),
+    ('resize@2->4', 'resize'),
     ('slice-loss@3->1', 'slice-loss'), ('hang@9', 'hang'),
     ('slowrank@2', 'slowrank')])
 def test_unported_fault_kinds_raise_by_name(monkeypatch, spec, kind):
@@ -105,7 +104,8 @@ def test_unported_fault_kinds_raise_by_name(monkeypatch, spec, kind):
 
 
 @pytest.mark.parametrize('spec', ['preempt@3', 'crash@1', 'crash-in-save@2',
-                                  'corrupt-ckpt@6,crash@7', 'nan-batch@2'])
+                                  'corrupt-ckpt@6,crash@7', 'nan-batch@2',
+                                  'corrupt-factor@1', 'diverge@5'])
 def test_ported_fault_kinds_pass(spec):
     faults.check_ported(faults.parse_spec(spec))
 
