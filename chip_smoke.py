@@ -504,7 +504,33 @@ Phases (any failure exits nonzero and prints no result line):
      and ``straggler_summary``; then ``DistributedKFAC.precondition(
      gates=)`` on the run's state under three gate sets, rank 0 against the
      single-device ``KFAC`` within phase 14's tolerances and each gated
-     layer its raw gradient times ``nu``, exactly.
+     layer its raw gradient times ``nu``, exactly;
+ 44. elastic resume and supervision: 4 gloo ranks of the card run the
+     CIFAR CLI at ResNet-32 (phase 28's flags, one epoch of 8 steps), five
+     legs at once in their own directories, each world started by
+     ``launch.spawn_world``: (1) ``resize@3->2`` through
+     ``resilience.chaos`` with ``--deferred-factor-reduction``: exit 75
+     with ``resize -> 2 devices``, the relaunch on 2 ranks resumes at step
+     3 through the reshard and trains to the end with finite losses, its
+     stream holds ``topology_change`` then ``restore`` and the report shows
+     ``to_devices=2``; then the drained step-3 bundle resumed on 2 ranks
+     and saved there again holds the factors bit for bit and every rank's
+     accumulator back at its seed; (2) 4 -> 2 -> 4 without the deferred
+     reduction: the step-3 bundle of the uninterrupted run resumes on 2
+     ranks and is saved there by a drain before the first step, then
+     resumes on 4, drained again (its step-3 bundle equal to the original
+     bit for bit, row stacks included; the draining worlds launch no
+     kernel) and run to the end (equal bit for bit to the uninterrupted
+     run, K1-K3 per rank and step as its, K5 launched); (3)
+     ``resilience.supervisor --devices 4`` under ``hang@4``
+     (``hang_detected``, a kill, a relaunch resumed at step 3 that
+     finishes; the gate counts one ``supervisor_restart``), (4) with a
+     capacity file 4 -> 2 -> 4 (``supervisor_failover`` then
+     ``supervisor_growback``, each relaunch resumed elastically) and (5)
+     under ``slowrank@1 --straggler-skew-ms 100`` (comm-opt, batch 96:
+     rank 3 classified from the shards, the world drained and relaunched
+     on 3 ranks). In the whole script phase 44 runs beside phases 27 and
+     28, from their start.
      The script ends with every phase header's wall time, largest first.
 
 ``--quick`` builds with ``-Xptxas -v`` and runs only the correctness
@@ -528,7 +554,8 @@ phases 34-36 alone (``chiprun_out/chip_smoke_fp16.json``);
 (``chiprun_out/chip_smoke_lowrank.json``); ``--metrics-only`` builds and
 runs phase 40 and phase 14 alone (``chiprun_out/chip_smoke_metrics.json``);
 ``--observability-only`` builds and runs phases 41-43 alone
-(``chiprun_out/chip_smoke_observability.json``);
+(``chiprun_out/chip_smoke_observability.json``); ``--elastic-only`` builds
+and runs phase 44 alone (``chiprun_out/chip_smoke_elastic.json``);
 ``--determinism-probe`` (alone
 or before ``--resume-only``'s phases) runs phase 27's uninterrupted
 ResNet-50 twice without ``--deterministic`` and compares the final
@@ -4552,7 +4579,7 @@ def run_determinism_probe(card: str) -> dict:
             'nonfiring_ms': ms, 'seconds': seconds}
 
 
-def run_resume_phases(card: str, after_28=()) -> dict:
+def run_resume_phases(card: str, after_28=(), beside=()) -> dict:
     """Phases 27 and 28 at once, with their wall time; this process's
     cached device memory is released first (the phases' subprocesses share
     the card). Phase 28's gloo worlds run in a thread beside phase 27's
@@ -4561,7 +4588,9 @@ def run_resume_phases(card: str, after_28=()) -> dict:
     ``after_28``: ``(fn, *args)`` calls of subprocess gloo worlds run one
     after the other in phase 28's thread once its worlds are done, on the
     host cores phase 27's tail (three ResNet-50 runs on the card) leaves
-    idle; their results are ``out['after_28']``."""
+    idle; their results are ``out['after_28']``. ``beside``: ``(fn,
+    *args)`` calls run at once with both phases from the start (their
+    lines after phase 28's; results ``out['beside']``)."""
     import shutil
     import tempfile
     import torch
@@ -4571,18 +4600,23 @@ def run_resume_phases(card: str, after_28=()) -> dict:
     log(f'== checkpoint and resume, phases 27 and 28 at once ('
         f'{free / 2**30:.1f} GiB free in {tempfile.gettempdir()}, '
         f'{torch.cuda.mem_get_info()[0] / 2**30:.1f} GiB on the card)'
-        + (f'; {len(after_28)} more gloo worlds after phase 28\'s'
-           if after_28 else ''))
+        + (f'; then in phase 28\'s thread '
+           + ', '.join(fn.__name__ for fn, *_ in after_28)
+           if after_28 else '')
+        + (f'; beside them ' + ', '.join(fn.__name__ for fn, *_ in beside)
+           if beside else ''))
 
     def worlds():
         return [run_resume_gloo_world(card)] + [fn(*args)
                                                 for fn, *args in after_28]
 
-    resnet50, (gloo_world, *more) = at_once((run_resume_resnet50, card),
-                                            (worlds,))
+    resnet50, (gloo_world, *more), *others = at_once(
+        (run_resume_resnet50, card), (worlds,), *beside)
     out = {'resume_resnet50': resnet50, 'resume_gloo_world': gloo_world}
     if after_28:
         out['after_28'] = more
+    if beside:
+        out['beside'] = others
     seconds = time.perf_counter() - t0
     log(f'  phases 27-28: {seconds:.1f} s wall ({card})')
     out['resume_seconds'] = seconds
@@ -7639,6 +7673,413 @@ def run_observability_phases(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 44: elastic resume and supervision
+# ---------------------------------------------------------------------------
+
+# Phase 28's ResNet-32 flags without the deferred reduction: a change of
+# world drops each rank's accumulator (as the JAX package's), which the
+# bit-for-bit legs must not meet (the resize leg runs with it). One epoch
+# of 8 steps.
+ELASTIC_R32 = (*(f for f in RESUME_R32
+                 if f != '--deferred-factor-reduction'), '--epochs', '1')
+ELASTIC_STEPS = 8
+ELASTIC_TIMEOUT = 300
+# Host threads per rank process: ~20 ranks share the host's cores.
+ELASTIC_ENV = {'OMP_NUM_THREADS': '1'}
+DEFERRED = ('--deferred-factor-reduction',)
+# The straggler leg: comm-opt at batch 96 (the 3 ranks it shrinks to
+# divide it), 5 epochs of 4 steps: the shards reach the disk at every
+# epoch's end, where the supervisor's classifier reads them.
+STRAGGLER_FLAGS = ('--comm-method', 'comm-opt', '--batch-size', '96',
+                   '--val-batch-size', '32', '--synthetic-size', '384',
+                   '--epochs', '5', '--straggler-shards')
+SUPERVISOR_FLAGS = ('--hang-timeout', '15', '--startup-grace', '300',
+                    '--poll', '0.2', '--drain-grace', '120',
+                    '--term-grace', '5', '--backoff', '0',
+                    '--max-restarts', '3')
+
+
+def _rank_launches(directory: Path, ranks: int) -> list:
+    """Each rank's launch counts that the runs into ``directory`` added
+    (read once: the files are removed)."""
+    out = []
+    for r in range(ranks):
+        path = Path(f'{directory}.launches.{r}.json')
+        out.append(json.loads(path.read_text()) if path.exists() else {})
+        path.unlink(missing_ok=True)
+    return out
+
+
+def _elastic_world(name: str, directory: Path, n: int, want: int, *,
+                   chaos: str | None = None, sentinel: Path | None = None,
+                   flags=()) -> str:
+    """``n`` ranks of the CIFAR CLI on the card (``launch.spawn_world``,
+    the port's world knob), awaited; their output (one log), or raise
+    unless the world exits ``want``."""
+    from distributed_kfac_pytorch_tpu_torch import launch
+    env = _resume_env(chaos, **ELASTIC_ENV,
+                      **({'KFAC_PREEMPT_FILE': str(sentinel)}
+                         if sentinel else {}))
+    log_path = Path(f'{directory}.{name}.log')
+    t0 = time.perf_counter()
+    with log_path.open('w') as f:
+        world = launch.spawn_world(
+            _cli_argv('train_cifar10_resnet', [*ELASTIC_R32, *flags],
+                      directory), n, env, cwd=ROOT, stdout=f,
+            stderr=subprocess.STDOUT, text=True)
+        try:
+            rc = world.wait(ELASTIC_TIMEOUT)
+        finally:
+            world.kill()
+    text = log_path.read_text()
+    if rc != want:
+        raise AssertionError(f'phase 44 {name}: exit {rc}, expected '
+                             f'{want}\n{text[-4000:]}')
+    log(f'    world {name}: {n} rank(s), exit {rc}, '
+        f'{time.perf_counter() - t0:.1f} s')
+    return text
+
+
+def _stream(path: Path) -> list:
+    from distributed_kfac_pytorch_tpu_torch.observability import sink
+    return sink.read_jsonl(str(path))
+
+
+def _report_text(path: Path) -> str:
+    p = subprocess.run(
+        [sys.executable, '-m',
+         'distributed_kfac_pytorch_tpu_torch.observability.report',
+         str(path)], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    if p.returncode != 0:
+        raise AssertionError(f'report {path}: {p.stderr[-2000:]}')
+    return p.stdout
+
+
+def _elastic_resize(tmp: Path) -> dict:
+    """Leg 1: ``resize@3->2`` through the chaos harness, with phase 28's
+    ``--deferred-factor-reduction`` (no bit-for-bit check here); then
+    :func:`_elastic_deferred` on the drained step-3 bundle."""
+    t0 = time.perf_counter()
+    d, m = tmp / 'resize', tmp / 'resize.jsonl'
+    log_path = tmp / 'resize.log'
+    with log_path.open('w') as f:
+        p = subprocess.run(
+            [sys.executable, '-m',
+             'distributed_kfac_pytorch_tpu_torch.resilience.chaos',
+             'resize@3->2', '--nproc', str(GLOO_WORLD), '--relaunch', '1',
+             '--', *_cli_argv('train_cifar10_resnet',
+                              [*ELASTIC_R32, *DEFERRED,
+                               '--kfac-metrics', str(m),
+                               '--metrics-interval', '1'], d)],
+            cwd=ROOT, env=_resume_env(**ELASTIC_ENV), stdout=f,
+            stderr=subprocess.STDOUT, timeout=2 * ELASTIC_TIMEOUT)
+    text = log_path.read_text()
+    problems = []
+    if p.returncode != 0:
+        raise AssertionError(f'phase 44 resize: exit {p.returncode}\n'
+                             + text[-4000:])
+    for want in ('resize -> 2 devices', 'relaunching on 2 rank(s)',
+                 'elastic resume: topology changed — saved on 4 device(s)',
+                 'resuming on 2 device(s) / 2 process(es), KAISA grid 2x1',
+                 'resumed from step checkpoint 3'):
+        if want not in text:
+            problems.append(f'no line {want!r}')
+    stream = _stream(m)
+    steps = [r for r in stream if r['kind'] == 'step']
+    losses = [r['metrics']['loss'] for r in steps]
+    if [r['step'] for r in steps] != list(range(3, ELASTIC_STEPS)) \
+            or not all(math.isfinite(v) for v in losses):
+        problems.append(f'relaunch steps {[r["step"] for r in steps]}, '
+                        f'losses {losses}')
+    events = [(r['event'], r.get('data', {})) for r in stream
+              if r['kind'] == 'event'
+              and r['event'] in ('topology_change', 'restore')]
+    if [e for e, _ in events] != ['topology_change', 'restore'] \
+            or events[0][1].get('to_devices') != 2:
+        problems.append(f'events {events}')
+    if 'to_devices=2' not in _report_text(m):
+        problems.append('report: no to_devices=2')
+    if problems:
+        raise AssertionError('phase 44 resize: ' + '; '.join(problems))
+    launches = _launches_of(d, GLOO_WORLD)
+    out = {'losses': losses, 'change': events[0][1], 'launches': launches,
+           'seconds': time.perf_counter() - t0}
+    log(f'  resize@3->2 through the chaos harness: drained at step 3 on '
+        f'{GLOO_WORLD} ranks (exit 75), relaunched on 2 (grid 2x2 -> 2x1, '
+        f'resharded), steps 3..{ELASTIC_STEPS - 1} with finite losses '
+        f'{[round(v, 4) for v in losses]}; stream topology_change then '
+        f'restore, report to_devices=2; launches of both worlds {launches}; '
+        f'{out["seconds"]:.1f} s wall')
+    out['deferred'] = _elastic_deferred(tmp, d)
+    return out
+
+
+def _elastic_pin(tmp: Path) -> dict:
+    """Leg 2: 4 -> 2 -> 4, bit for bit: the uninterrupted world, whose
+    step bundles every 3 steps keep its step-3 bundle; that bundle
+    resumed on 2 ranks and re-saved there (a sentinel drain before the
+    first step); that bundle, copied, resumed on 4 ranks twice at once:
+    drained again (its step-3 bundle against the original) and run to the
+    end (against the uninterrupted run)."""
+    import shutil
+    t0 = time.perf_counter()
+    original = tmp / 'ref' / 'steps' / '3'
+    _elastic_world('ref', tmp / 'ref', GLOO_WORLD, 0)
+    ref_ranks = _rank_launches(tmp / 'ref', GLOO_WORLD)
+    rt, back_dir = tmp / 'rt', tmp / 'rt-back'
+    (rt / 'steps').mkdir(parents=True)
+    shutil.copytree(original, rt / 'steps' / '3')
+    sentinel = tmp / 'drain'
+    sentinel.touch()
+    two = _elastic_world('rt2', rt, 2, 75, sentinel=sentinel)
+    drains = _rank_launches(rt, GLOO_WORLD)
+    (back_dir / 'steps').mkdir(parents=True)
+    shutil.copytree(rt / 'steps' / '3', back_dir / 'steps' / '3')
+    back, _ = at_once(
+        (lambda: _elastic_world('rt4-drain', back_dir, GLOO_WORLD, 75,
+                                sentinel=sentinel),),
+        (_elastic_world, 'rt4', rt, GLOO_WORLD, 0))
+    drains += _rank_launches(back_dir, GLOO_WORLD)
+    rt_ranks = _rank_launches(rt, GLOO_WORLD)
+    problems = []
+    for text, world in ((two, '2 device(s) / 2 process(es), KAISA grid 2x1'),
+                        (back, '4 device(s) / 4 process(es), KAISA grid '
+                               '2x2')):
+        if f'resuming on {world}' not in text \
+                or 'resumed from step checkpoint 3' not in text:
+            problems.append(f'no elastic resume on {world}')
+    if any(sum(c.values()) for c in drains):
+        problems.append(f'the reshard launched kernels: {drains}')
+    if problems:
+        raise AssertionError('phase 44 pin: ' + '; '.join(problems))
+    stacks = _held_to('4 -> 2 -> 4 step-3 bundle (row stacks included)',
+                      back_dir / 'steps' / '3', original)
+    final = _held_to('4 -> 2 -> 4 continuation', rt / '0', tmp / 'ref' / '0')
+    # A resumed rank launches per step what the uninterrupted one does
+    # (its row's buckets): 5 steps against 8.
+    resumed = ELASTIC_STEPS - 3
+    for r, (got, want) in enumerate(zip(rt_ranks, ref_ranks)):
+        for k in ('factor_ema', 'patch_cov', 'bucket_precond'):
+            if not got.get(k) or got[k] * ELASTIC_STEPS != want[k] * resumed:
+                problems.append(f'rank {r} {k}: {got.get(k)} in {resumed} '
+                                f'steps, {want.get(k)} in {ELASTIC_STEPS}')
+    if 'jacobi' in ELASTIC_R32 \
+            and not sum(c.get('jacobi_eigh', 0) for c in rt_ranks):
+        problems.append('no K5 launch in the resumed world')
+    if problems:
+        raise AssertionError('phase 44 pin: ' + '; '.join(problems))
+    launches = {}
+    for counts in rt_ranks:
+        _add(launches, counts)
+    out = {'step3': stacks, 'final': final, 'launches': launches,
+           'per_rank': rt_ranks, 'seconds': time.perf_counter() - t0}
+    log(f'  4 -> 2 -> 4: the step-3 bundle resumed on 2 ranks and re-saved '
+        f'there, then on 4: equal to the original bit for bit; the '
+        f'resharding drains launched nothing; the 4-rank continuation '
+        f'equals the uninterrupted run bit for bit; its launches {launches}'
+        f' (K1-K3 per rank and step as the uninterrupted run\'s); '
+        f'{out["seconds"]:.1f} s wall')
+    return out
+
+
+def _elastic_deferred(tmp: Path, pre: Path) -> dict:
+    """``--deferred-factor-reduction`` across a change of world: the
+    4-rank step-3 bundle under ``pre`` (mid-window: steps 1-2 folded into
+    each rank's accumulator) resumes on 2 ranks and drains at once; the
+    2-rank bundle holds the saved factors bit for bit and every rank's
+    accumulator dropped to its seed (zeros, decay 1), as the JAX
+    package drops its per-device stack."""
+    import shutil
+    import torch
+    t0 = time.perf_counter()
+    two = tmp / 'deferred-two'
+    (two / 'steps').mkdir(parents=True)
+    shutil.copytree(pre / 'steps' / '3', two / 'steps' / '3')
+    sentinel = tmp / 'deferred-drain'
+    sentinel.touch()
+    text = _elastic_world('deferred-two', two, 2, 75, sentinel=sentinel,
+                          flags=DEFERRED)
+    _launches_of(two, GLOO_WORLD)
+    saved, got = _load_bundle_files(pre / 'steps' / '3'), \
+        _load_bundle_files(two / 'steps' / '3')
+    problems = []
+    if 'resuming on 2 device(s)' not in text:
+        problems.append('no elastic resume on 2 ranks')
+
+    def accum_norm(part) -> float:
+        return sum(float(t.abs().sum()) for f in
+                   part['kfac']['factor_accum'].values() for t in f.values())
+
+    before = [accum_norm(saved[f'kfac_rank{r}.pt'])
+              for r in range(GLOO_WORLD)]
+    after = [accum_norm(got[f'kfac_rank{r}.pt']) for r in range(2)]
+    decay = [float(got[f'kfac_rank{r}.pt']['kfac']['accum_decay'])
+             for r in range(2)]
+    if not all(v > 0 for v in before) or any(after) or decay != [1.0, 1.0]:
+        problems.append(f'accumulators {before} -> {after}, decay {decay}')
+    for r in range(2):
+        a = got[f'kfac_rank{r}.pt']['kfac']['factors']
+        b = saved[f'kfac_rank{r}.pt']['kfac']['factors']
+        if any(not torch.equal(a[n][s], b[n][s]) for n in b for s in b[n]):
+            problems.append(f'rank {r}: factors differ')
+    if problems:
+        raise AssertionError('phase 44 deferred: ' + '; '.join(problems))
+    seconds = time.perf_counter() - t0
+    log(f'  --deferred-factor-reduction 4 -> 2: the saved accumulators '
+        f'(|sum| by rank {[round(v, 3) for v in before]}) dropped to zeros, '
+        f'decay {decay}, factors bit for bit; {seconds:.1f} s wall')
+    return {'accum_before': before, 'launches': {}, 'seconds': seconds}
+
+
+def _supervised(tmp: Path, name: str, *, chaos: str | None = None,
+                flags=(), sup_flags=(), during=None) -> tuple:
+    """The CIFAR CLI under ``resilience.supervisor --devices GLOO_WORLD``:
+    ``(its output, the supervisor's events, the metrics path)``."""
+    d, m = tmp / name, tmp / f'{name}.jsonl'
+    workdir = tmp / f'{name}.sup'
+    log_path = tmp / f'{name}.log'
+    with log_path.open('w') as f:
+        p = subprocess.Popen(
+            [sys.executable, '-m',
+             'distributed_kfac_pytorch_tpu_torch.resilience.supervisor',
+             '--workdir', str(workdir), '--instance', name, '--devices',
+             str(GLOO_WORLD), '--metrics', str(m), *SUPERVISOR_FLAGS,
+             *sup_flags, '--',
+             *_cli_argv('train_cifar10_resnet',
+                        [*ELASTIC_R32, '--kfac-metrics', str(m), *flags],
+                        d)],
+            cwd=ROOT, env=_resume_env(chaos, **ELASTIC_ENV), stdout=f,
+            stderr=subprocess.STDOUT)
+        try:
+            if during is not None:
+                during(workdir / 'heartbeats' / name)
+            p.wait(timeout=3 * ELASTIC_TIMEOUT)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    text = log_path.read_text()
+    if p.returncode != 0:
+        raise AssertionError(f'phase 44 {name}: supervisor exit '
+                             f'{p.returncode}\n{text[-4000:]}')
+    events = [(r['event'], r.get('data', {}))
+              for r in _stream(Path(str(m) + '.supervisor'))
+              if r['kind'] == 'event']
+    return text, events, m, _launches_of(d, GLOO_WORLD)
+
+
+def _when_lease(hbdir: Path, incarnation: int, step: int,
+                deadline: float) -> None:
+    from distributed_kfac_pytorch_tpu_torch.resilience import heartbeat
+    while time.monotonic() < deadline:
+        leases, _ = heartbeat.scan_leases(str(hbdir), incarnation)
+        if any(lease['step'] >= step for lease in leases.values()):
+            return
+        time.sleep(0.2)
+    raise AssertionError(f'phase 44: no lease of incarnation {incarnation} '
+                         f'at step {step}')
+
+
+def _elastic_supervision(tmp: Path, leg: str) -> dict:
+    """Leg 3: the supervisor under ``hang@4``, a capacity file 4 -> 2 ->
+    4, and ``slowrank@1`` with ``--straggler-skew-ms``."""
+    from distributed_kfac_pytorch_tpu_torch.observability import gate
+    t0 = time.perf_counter()
+    problems = []
+    if leg == 'hang':
+        text, events, m, launches = _supervised(tmp, 'hang',
+                                                chaos='hang@4')
+        kinds = [e for e, _ in events]
+        records = _stream(m) + _stream(Path(str(m) + '.supervisor'))
+        restarts = gate.gate_metrics(records)['supervisor_restarts']
+        if kinds != ['hang_detected', 'supervisor_restart'] \
+                or 'resumed from step checkpoint 3' not in text \
+                or restarts != 1:
+            problems.append(f'events {kinds}, gate supervisor_restarts '
+                            f'{restarts}')
+        note = (f'hang@4: {events[0][1]} -> killed, relaunched, resumed '
+                f'from step 3 and finished; the gate counts '
+                f'supervisor_restarts {restarts}')
+    elif leg == 'capacity':
+        cap = tmp / 'capacity.count'
+        cap.write_text(str(GLOO_WORLD))
+
+        def during(hbdir):
+            deadline = time.monotonic() + 2 * ELASTIC_TIMEOUT
+            _when_lease(hbdir, 0, 2, deadline)
+            cap.write_text('2')
+            _when_lease(hbdir, 1, 4, deadline)
+            cap.write_text(str(GLOO_WORLD))
+
+        text, events, m, launches = _supervised(
+            tmp, 'capacity', sup_flags=('--capacity-file', str(cap)),
+            during=during)
+        kinds = [e for e, _ in events]
+        moves = [(d.get('from_devices'), d.get('to_devices'))
+                 for _, d in events]
+        if kinds != ['supervisor_failover', 'supervisor_growback'] \
+                or moves != [(GLOO_WORLD, 2), (2, GLOO_WORLD)] \
+                or 'resuming on 2 device(s)' not in text \
+                or 'resuming on 4 device(s)' not in text:
+            problems.append(f'events {events}')
+        note = (f'capacity {GLOO_WORLD} -> 2 -> {GLOO_WORLD}: '
+                f'{kinds} {moves}, each relaunch resumed elastically')
+    else:
+        text, events, m, launches = _supervised(
+            tmp, 'straggler', chaos='slowrank@1', flags=STRAGGLER_FLAGS,
+            sup_flags=('--straggler-skew-ms', '100'))
+        kinds = [e for e, _ in events]
+        data = events[0][1] if events else {}
+        if kinds != ['supervisor_failover'] \
+                or data.get('reason') != 'straggler' \
+                or data.get('rank') != GLOO_WORLD - 1 \
+                or 'resuming on 3 device(s)' not in text:
+            problems.append(f'events {events}')
+        note = (f'slowrank@1 (rank {GLOO_WORLD - 1}, '
+                f'{data.get("mean_skew_ms")} ms mean skew): classified, '
+                f'drained, relaunched on {data.get("to_devices")} ranks '
+                'through the elastic resume')
+    if problems:
+        raise AssertionError(f'phase 44 {leg}: ' + '; '.join(problems)
+                             + '\n' + text[-4000:])
+    seconds = time.perf_counter() - t0
+    log(f'  supervisor, {note}; launches {launches}; {seconds:.1f} s wall')
+    return {'events': events, 'launches': launches, 'seconds': seconds}
+
+
+def run_elastic_phase(card: str) -> dict:
+    """Phase 44: elastic resume and supervision on GLOO_WORLD gloo ranks
+    of ResNet-32 at full width through the CIFAR CLI, the legs in
+    separate directories at once (in the whole script beside phases 27
+    and 28: its lines follow theirs)."""
+    import shutil
+    import tempfile
+    log(f'  phase 44: elastic resume and supervision, {GLOO_WORLD} gloo '
+        'ranks of ResNet-32 through the CIFAR CLI on the card: resize@3->2 '
+        'through the chaos harness; 4 -> 2 -> 4 bit for bit; the supervisor '
+        'under hang@4, a capacity file 4 -> 2 -> 4 and slowrank@1 (the legs '
+        'at once, their lines in that order)')
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix='kfac-elastic-'))
+    legs = at_once((_elastic_resize, tmp), (_elastic_pin, tmp),
+                   (_elastic_supervision, tmp, 'hang'),
+                   (_elastic_supervision, tmp, 'capacity'),
+                   (_elastic_supervision, tmp, 'straggler'))
+    names = ('resize', 'pin', 'hang', 'capacity', 'straggler')
+    out = dict(zip(names, legs))
+    launches = {}
+    for leg in legs:
+        _add(launches, leg['launches'])
+    out['launches'] = launches
+    out['seconds'] = time.perf_counter() - t0
+    log(f'  phase 44: launches {launches}; legs '
+        + ', '.join(f'{n} {out[n]["seconds"]:.1f} s' for n in names)
+        + f'; {out["seconds"]:.1f} s wall on {platform.node()} ({card})')
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def _category(name: str) -> str:
     """Coarse owner of a CUDA kernel, from its (mangled) name."""
     n = name.lower()
@@ -7856,6 +8297,8 @@ def main(argv=None) -> int:
     ap.add_argument('--observability-only', action='store_true',
                     help='build, then run phases 41-43 only (no result '
                          'line)')
+    ap.add_argument('--elastic-only', action='store_true',
+                    help='build, then run phase 44 only (no result line)')
     ap.add_argument('--determinism-probe', action='store_true',
                     help="build, then measure what phase 27's "
                          '--deterministic buys and costs (no result '
@@ -7941,6 +8384,14 @@ def main(argv=None) -> int:
         out_dir = ROOT / 'chiprun_out'
         out_dir.mkdir(exist_ok=True)
         (out_dir / 'chip_smoke_metrics.json').write_text(
+            json.dumps(report, indent=1))
+        log('done')
+        return 0
+    if args.elastic_only:
+        report = {'card': card, 'elastic': run_elastic_phase(card)}
+        out_dir = ROOT / 'chiprun_out'
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / 'chip_smoke_elastic.json').write_text(
             json.dumps(report, indent=1))
         log('done')
         return 0
@@ -8104,10 +8555,15 @@ def main(argv=None) -> int:
         report['firing_schedule'] = run_firing_schedule(
             card, r152, report['resnet152_config5'],
             {k: summary152[k]['ms'] for k in ('factor_ema', 'patch_cov')})
-        resume = run_resume_phases(card, after_28=(
-            (run_overlap_gloo_world, card), (run_bf16_gloo_world, card)))
+        # Phase 44's worlds (host-bound gloo ranks) run beside phase 27's
+        # GPU-bound ResNet-50 runs and phase 28's worlds.
+        resume = run_resume_phases(
+            card, after_28=((run_overlap_gloo_world, card),
+                            (run_bf16_gloo_world, card)),
+            beside=((run_elastic_phase, card),))
         report['overlap_gloo_world'], report['bf16_gloo_world'] = \
             resume.pop('after_28')
+        report['elastic'], = resume.pop('beside')
         report.update(resume)
         report.update(run_accum_phases(card, accum_world))
         report.update(run_model_phases(card))
@@ -8139,7 +8595,7 @@ def main(argv=None) -> int:
                 report['transformer_xl_lowrank_eigen'],
                 report['resnet152_lowrank'], report['metrics_stream'],
                 report['observability'], report['selfheal'],
-                report['shards_gloo_world'])
+                report['shards_gloo_world'], report['elastic'])
         launches = {name: sum(r['launches'].get(name, 0) for r in runs)
                     for name in kernels.LAUNCHES}
         aggs = {**summary50, 'ns_inverse': summary_ns,

@@ -16,6 +16,11 @@ parallelism its :func:`process_local_tile`); the JAX package's mesh
 helpers (``replicate_on_mesh``, ``host_local_batch_to_global``,
 ``global_batches``) have no counterpart, since a rank's batch is a plain
 tensor.
+
+A world of the port is ``N`` rank processes (the JAX package's is one
+process over ``N`` devices): :func:`spawn_world` starts them with the
+launcher's environment, and the chaos harness and the supervisor relaunch
+a job at another world size through it.
 """
 
 from __future__ import annotations
@@ -153,3 +158,102 @@ def process_local_tile(n_batch: int, n_seq: int, seq_parallel: int = 1
     k, j = divmod(rank, seq_parallel)
     return (slice(k * per_b, (k + 1) * per_b),
             slice(j * per_t, (j + 1) * per_t))
+
+
+#: The launcher variables :func:`spawn_world` sets for each rank.
+RANK_ENV = ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'LOCAL_WORLD_SIZE',
+            'MASTER_ADDR', 'MASTER_PORT')
+_PORTS_TAKEN: set[int] = set()
+
+
+def free_port() -> int:
+    """A free localhost TCP port, never the same one twice in this
+    process (worlds started at once must not share a rendezvous)."""
+    import socket
+    while True:
+        with socket.socket() as s:
+            s.bind(('localhost', 0))
+            port = s.getsockname()[1]
+        if port not in _PORTS_TAKEN:
+            _PORTS_TAKEN.add(port)
+            return port
+
+
+class World:
+    """The rank processes of one command, watched as one job
+    (:func:`spawn_world`). :meth:`poll` is None while it runs; a rank that
+    exits nonzero other than with the relaunch code ends the world (the
+    others are killed) with its code; once every rank has exited, the
+    relaunch code when any rank drained with it, else 0."""
+
+    def __init__(self, procs: list):
+        self.procs = procs
+        self.returncode: int | None = None
+
+    def poll(self) -> int | None:
+        from distributed_kfac_pytorch_tpu_torch.resilience.preemption import \
+            RELAUNCH_EXIT_CODE
+        if self.returncode is not None:
+            return self.returncode
+        codes = [p.poll() for p in self.procs]
+        failed = [c for c in codes
+                  if c is not None and c not in (0, RELAUNCH_EXIT_CODE)]
+        if failed:
+            self.kill()
+            self.returncode = failed[0]
+        elif all(c is not None for c in codes):
+            self.returncode = (RELAUNCH_EXIT_CODE
+                               if RELAUNCH_EXIT_CODE in codes else 0)
+        return self.returncode
+
+    def wait(self, timeout: float | None = None) -> int:
+        """Block until :meth:`poll` has a code (``subprocess.
+        TimeoutExpired`` past ``timeout`` seconds)."""
+        import subprocess
+        import time
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while self.poll() is None:
+            if deadline is not None and time.monotonic() > deadline:
+                raise subprocess.TimeoutExpired(self.procs[0].args, timeout)
+            time.sleep(0.05)
+        return self.returncode
+
+    def terminate(self) -> None:
+        """SIGTERM to every rank still running."""
+        for p in self.procs:
+            if p.poll() is None:
+                p.terminate()
+
+    def kill(self) -> None:
+        """SIGKILL to every rank still running, and reap them all."""
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+        for p in self.procs:
+            p.wait()
+
+
+def spawn_world(cmd: list[str], n: int, env: dict | None = None,
+                **popen_kw) -> World:
+    """Start ``n`` copies of ``cmd`` as the ranks of one world, each with
+    the ``torchrun`` environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR`` = localhost and a free ``MASTER_PORT``) over ``env``
+    (default: this process's); ``LOCAL_RANK`` wraps over the visible CUDA
+    devices, so ranks share a card when there are fewer (they then need
+    ``--dist-backend gloo``). ``n = 1`` starts the command alone, with no
+    process group. ``popen_kw`` go to every ``subprocess.Popen``."""
+    import subprocess
+    base = {k: v for k, v in (os.environ if env is None else env).items()
+            if k not in RANK_ENV}
+    if n <= 1:
+        return World([subprocess.Popen(cmd, env=base, **popen_kw)])
+    port = free_port()
+    cards = torch.cuda.device_count()
+    procs = []
+    for rank in range(n):
+        rank_env = {**base, 'RANK': str(rank), 'WORLD_SIZE': str(n),
+                    'LOCAL_RANK': str(rank % cards if cards else rank),
+                    'LOCAL_WORLD_SIZE': str(n), 'MASTER_ADDR': 'localhost',
+                    'MASTER_PORT': str(port)}
+        procs.append(subprocess.Popen(cmd, env=rank_env, **popen_kw))
+    return World(procs)

@@ -16,14 +16,20 @@ self-healing (PyTorch port of that part of
     K-FAC state.
   - :mod:`faults`: the ``KFAC_CHAOS`` fault injectors (``preempt``,
     ``crash``, ``crash-in-save``, ``corrupt-ckpt``, ``nan-batch``,
-    ``corrupt-factor``, ``diverge``).
+    ``corrupt-factor``, ``diverge``, ``resize``, ``slice-loss``, ``hang``,
+    ``slowrank``).
   - :mod:`selfheal`: the escalation ladder (damping escalation,
     per-bucket quarantine, in-process rollback to a verified, finite
     step bundle).
   - :mod:`cli`: the CLIs' flags, and ``resume``, which walks the step
-    and epoch bundles newest first, quarantines those that fail, and
-    picks the newest resume point.
-
-Heartbeats, the supervisor, elastic resume and the chaos harness are not
-ported.
+    and epoch bundles newest first, quarantines those that fail, picks
+    the newest resume point and re-shards a bundle of another world
+    (``elastic``).
+  - :mod:`heartbeat`: per-rank liveness leases (standard library only).
+  - :mod:`chaos`: run a command under a fault spec as a world of rank
+    processes, relaunching it after a drain (at a new world size after
+    ``resize`` / ``slice-loss``).
+  - :mod:`supervisor`: crash, hang, dead-rank, capacity and straggler
+    handling by relaunch, with backoff, a restart budget and crash-loop
+    detection.
 """

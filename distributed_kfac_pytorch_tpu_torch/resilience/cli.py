@@ -11,17 +11,22 @@ checkpoint part of ``distributed_kfac_pytorch_tpu/resilience/cli.py``):
     step_mgr = make_step_manager(args)
     ckpt = make_step_checkpointer(args, step_mgr, bundle_fn,
                                   preemption=handler, start_step=0)
-    resumed = resume(args, epoch_mgr, step_mgr, device=device)
+    resumed = resume(args, epoch_mgr, step_mgr, device=device,
+                     elastic=ElasticResume(kfac))
     selfheal = make_selfheal(args, kfac=kfac, sink=sink, device=device)
+    heartbeat = make_heartbeat(args, rank)
 
 ``resume`` unifies the two checkpoint trees: epoch bundles (every
 ``--checkpoint-freq`` epochs) and global-step bundles under
 ``<checkpoint-dir>/steps/``. Both record their resume point (``epoch`` to
 (re)enter, offset by ``step_in_epoch`` batches; see
-``resilience.dataiter``) and the newest point wins. ``--selfheal*`` arm
-the self-healing ladder (:func:`make_selfheal`, ``resilience.selfheal``).
-The heartbeat flags of the JAX module are not ported
-(``training.engine.UNPORTED_FLAGS``).
+``resilience.dataiter``) and the newest point wins. With ``elastic`` a
+bundle saved by another world (its ``topo_*`` scalars) is re-sharded for
+this one (``elastic.reshard``) and a ``topology_change`` event is emitted.
+``--selfheal*`` arm the self-healing ladder (:func:`make_selfheal`,
+``resilience.selfheal``); ``--heartbeat-dir`` / ``--heartbeat-every`` (or
+``KFAC_HEARTBEAT_DIR``) the per-rank liveness lease the supervisor watches
+(:func:`make_heartbeat`, ``resilience.heartbeat``).
 """
 
 from __future__ import annotations
@@ -83,6 +88,21 @@ def add_resilience_args(p) -> None:
                    help='resume from this exact global-step checkpoint '
                         'in <checkpoint-dir>/steps (default: the '
                         'newest of step/epoch checkpoints)')
+    p.add_argument('--heartbeat-dir', default=None, metavar='DIR',
+                   help='publish a per-rank liveness lease (atomic '
+                        'JSON file rank<r>.lease with global step, '
+                        'wall time, incarnation) into DIR from the '
+                        "train loop: the failure supervisor's hang / "
+                        'dead-worker signal (default: the '
+                        'KFAC_HEARTBEAT_DIR environment variable, unset = '
+                        'no heartbeats; host file I/O only, bit for bit '
+                        'the same run on and off)')
+    p.add_argument('--heartbeat-every', type=int, default=1,
+                   metavar='N',
+                   help='publish the lease every N optimizer steps '
+                        '(keyed to the global step, so a resumed run '
+                        'keeps the cadence); budget --hang-timeout '
+                        'above N steps + the eval/checkpoint gaps')
     p.add_argument('--selfheal', action='store_true',
                    help='arm the fault-response escalation ladder: '
                         'skip-window (the nonfinite guard, forced on) '
@@ -120,6 +140,22 @@ def add_resilience_args(p) -> None:
                    help='in-process rollback budget; past it the ladder '
                         'is exhausted and the process ends for the '
                         'relaunch loop (the last rung)')
+
+
+def make_heartbeat(args, rank: int):
+    """The rank's :class:`resilience.heartbeat.HeartbeatEmitter` of a CLI
+    run, or None when heartbeats are off. ``--heartbeat-dir`` wins over
+    ``KFAC_HEARTBEAT_DIR`` (the supervisor's wiring: the supervised
+    command line runs unmodified). Every rank writes its own lease."""
+    directory = (getattr(args, 'heartbeat_dir', None)
+                 or os.environ.get('KFAC_HEARTBEAT_DIR'))
+    if not directory:
+        return None
+    from distributed_kfac_pytorch_tpu_torch.resilience import \
+        heartbeat as heartbeat_lib
+    return heartbeat_lib.HeartbeatEmitter(
+        directory, rank,
+        every=max(1, int(getattr(args, 'heartbeat_every', 1) or 1)))
 
 
 def install_preemption(args) -> preemption_lib.PreemptionHandler:
@@ -204,7 +240,7 @@ def make_step_checkpointer(args, step_mgr, bundle_fn, *,
 
 
 def resume(args, epoch_mgr, step_mgr, *, device=None,
-           verbose: bool = False, sink=None):
+           verbose: bool = False, sink=None, elastic=None):
     """Restore the newest checkpoint (step or epoch tree), if any.
 
     Returns ``(restored_tree, start_epoch, start_offset, source)``, or
@@ -224,13 +260,21 @@ def resume(args, epoch_mgr, step_mgr, *, device=None,
     ``sink`` (a metrics sink, written by rank 0) takes a ``restore`` event
     for the bundle resumed and a ``ckpt_quarantine`` event for each bundle
     the walk rejected, with the JAX package's fields.
+
+    ``elastic`` (an ``elastic.ElasticResume`` of the live K-FAC): a bundle
+    whose recorded topology (``topo_*`` scalars) is another world's, or
+    another layout's, is read whole (every rank's file, verified) and each
+    rank re-shards it for its own row (``elastic.reshard``); a
+    ``topology_change`` event precedes the ``restore`` event. A bundle of
+    another world without the record still raises. Without ``elastic``
+    only same-world bundles restore.
     """
     if getattr(args, 'no_resume', False):
         return None
     group = dist.is_initialized() and dist.get_world_size() > 1
     t0 = time.perf_counter()
     if not group or dist.get_rank() == 0:
-        kw = {'map_location': device}
+        kw = {'map_location': device, 'elastic': elastic is not None}
         if group:
             kw['all_ranks'] = True
         try:
@@ -257,10 +301,14 @@ def resume(args, epoch_mgr, step_mgr, *, device=None,
         if decision[0] == 'exit':
             raise SystemExit(decision[1])
         source, label = decision
-        mgr = step_mgr if source == 'step' else epoch_mgr
-        tree = mgr.restore(label, map_location=device)
+        tree = (step_mgr if source == 'step' else epoch_mgr).restore(
+            label, map_location=device, elastic=elastic is not None)
         sc = tree['scalars']
         start_epoch, offset = int(sc['epoch']), int(sc['step_in_epoch'])
+    if elastic is not None:
+        tree = _adopt_topology(tree, elastic,
+                               step_mgr if source == 'step' else epoch_mgr,
+                               label, device, sink=sink, verbose=verbose)
     ms = (time.perf_counter() - t0) * 1000.0
     # The bundle's data_seed is part of the data-stream position: adopt
     # it, or a relaunch without --seed would skip `offset` batches of
@@ -383,12 +431,17 @@ def _walk_restore(mgr, args, *, kind: str,
         except Exception as e:
             if explicit is not None:
                 traceback.print_exc()  # keep the real cause diagnosable
+                # Another world's bundle with a topology record reshards
+                # (elastic resume): the world size is advice only for a
+                # bundle without one.
+                other = ('configuration or world size'
+                         if isinstance(e, ckpt_lib.WorldMismatch)
+                         else 'configuration')
                 raise SystemExit(
                     f'cannot resume from {what} under '
                     f'{args.checkpoint_dir}: {e}\nThe checkpoint was '
-                    'likely written with a different model/K-FAC '
-                    'configuration or world size — pass --no-resume or '
-                    'a fresh --checkpoint-dir.')
+                    f'likely written with a different model/K-FAC {other} '
+                    '— pass --no-resume or a fresh --checkpoint-dir.')
             # No move: a load failure may hit every bundle alike (the
             # wrong world size, say), and moving the whole history would
             # make the next relaunch cold-start.
@@ -437,3 +490,36 @@ def _quarantine(sink, kind: str, label, reason: str,
     if sink is not None:
         sink.event_record('ckpt_quarantine', source=kind,
                           label=int(label), reason=str(reason)[:300])
+
+
+def _adopt_topology(tree: dict, elastic, mgr, label, device, *, sink=None,
+                    verbose: bool = False) -> dict:
+    """The resumed tree for the live world: a bundle restored whole for
+    another world (``tree['ranks']``), or of the same world size but
+    another layout (read whole here), is re-sharded for this rank; a
+    ``topology_change`` event and a line when the world changed."""
+    from distributed_kfac_pytorch_tpu_torch.elastic import \
+        topology as topo_lib
+    saved = topo_lib.TopologySpec.from_scalars(tree.get('scalars', {}))
+    live = elastic.topology
+    if saved is not None and 'ranks' not in tree \
+            and saved.needs_reshard(live):
+        tree = mgr.restore_every_rank(int(label))
+    if 'ranks' in tree:
+        tree = elastic.reshard_tree(tree, saved, device)
+    if saved is not None and saved != live:
+        if sink is not None:
+            sink.event_record(
+                'topology_change',
+                global_step=int(tree['scalars']['step']),
+                resharded=bool(saved.needs_reshard(live)),
+                from_processes=saved.processes, to_processes=live.processes,
+                from_devices=saved.devices, to_devices=live.devices,
+                from_grid=f'{saved.rows}x{saved.cols}',
+                to_grid=f'{live.rows}x{live.cols}')
+        if verbose:
+            print(f'elastic resume: topology changed — saved on '
+                  f'{saved.describe()}, resuming on {live.describe()}'
+                  + ('' if saved.needs_reshard(live)
+                     else ' (layout-compatible, no reshard)'), flush=True)
+    return tree

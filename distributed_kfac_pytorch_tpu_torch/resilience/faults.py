@@ -5,7 +5,7 @@ A :class:`FaultPlan` names the global optimizer step at which each fault
 fires; the plan rides in the ``KFAC_CHAOS`` environment variable so the
 real CLIs run unmodified under injected failure. The grammar is the JAX
 package's, comma-separated ``kind@step``, and every spec it accepts parses
-alike. Seven kinds act in the port:
+alike. Every kind acts in the port:
 
     preempt@K         trigger the preemption handler after step K (a
                       graceful drain: forced blocking save, exit with
@@ -30,15 +30,35 @@ alike. Seven kinds act in the port:
     diverge@K         after step K, scale every parameter by
                       ``DIVERGE_SCALE`` (:func:`poison_params`): a finite
                       loss spike, the damping-escalation rung's proof fault
+    resize@K->N       after step K, drain like a preemption (forced
+                      blocking save, exit RELAUNCH_EXIT_CODE, printing
+                      ``resize -> N devices``); ``resilience.chaos``
+                      relaunches the command on N ranks, which resume
+                      through the elastic reshard
+    slice-loss@K->S   after step K, drain the same way; the chaos harness
+                      relaunches on the S surviving slices
+                      (``S * per-slice ranks``, ``KFAC_NUM_SLICES=S``)
+    hang@K            after step K (its lease already written), block
+                      forever without exiting and without heartbeats
+                      (:func:`hang`): the supervisor's lease expiry
+                      (``--hang-timeout``) is what ends it
+    slowrank@K        from step K on, one rank sleeps ``SLOWRANK_DELAY_S``
+                      inside every step's timed window (:func:`slow_step`):
+                      the persistent straggler the supervisor's classifier
+                      reads from the rank shards
 
-``resize``, ``slice-loss``, ``hang`` and ``slowrank`` belong to elastic
-resume and the supervisor, which are not ported: :func:`check_ported`
-raises ``NotImplementedError`` naming them.
+A world is rank processes that share the environment, so ``slowrank``
+slows one rank: ``KFAC_SLOWRANK_RANK``, by default the world's last (the
+JAX package's world is one process, which the fault slows whole). The
+XLA device-count helpers of the JAX module (``xla_flags_with_device_count``,
+``forced_device_count``) have no counterpart: a world's size is the number
+of rank processes ``launch.spawn_world`` starts.
 
 Faults are one-shot: a relaunch re-reads the environment, so relaunch
-without ``KFAC_CHAOS`` unless the fault should fire again; within a
-process the state faults fire once, so an in-process rollback's replay of
-step K does not poison again.
+without ``KFAC_CHAOS`` unless the fault should fire again (the chaos
+harness and the supervisor clear it); within a process the state faults
+fire once, so an in-process rollback's replay of step K does not poison
+again.
 """
 
 from __future__ import annotations
@@ -59,9 +79,15 @@ _GRAMMAR = ('preempt@K, crash@K, nan-batch@K, crash-in-save@K, '
             'resize@K->N, slice-loss@K->S, hang@K, slowrank@K')
 #: The kinds the port acts on, by their ``FaultPlan`` field.
 PORTED = ('preempt_at', 'crash_at', 'crash_in_save_at', 'corrupt_ckpt_at',
-          'nan_batch_at', 'corrupt_factor_at', 'diverge_at')
+          'nan_batch_at', 'corrupt_factor_at', 'diverge_at', 'resize_at',
+          'slice_loss_at', 'hang_at', 'slowrank_at')
 #: How hard ``diverge`` kicks the parameters (:func:`poison_params`).
 DIVERGE_SCALE = 8.0
+#: The ``slowrank`` fault's delay per step, in seconds (:func:`slow_step`).
+SLOWRANK_DELAY_S = 0.25
+#: The rank the ``slowrank`` fault slows under a process group (default:
+#: the world's last rank).
+SLOWRANK_RANK_ENV = 'KFAC_SLOWRANK_RANK'
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,8 +201,7 @@ def check_ported(plan: FaultPlan | None) -> None:
         kinds = ', '.join(a[:-3].replace('_', '-') for a in armed)
         raise NotImplementedError(
             f'{ENV_VAR} fault kind(s) {kinds} are not ported to torch yet '
-            '(the port injects preempt, crash, crash-in-save, '
-            'corrupt-ckpt, nan-batch, corrupt-factor and diverge)')
+            f'(the port injects {_GRAMMAR})')
 
 
 def poison_batch(batch):
@@ -246,6 +271,8 @@ def inject_state_faults(plan: FaultPlan | None, state, fired: set) -> None:
     if plan is None:
         return
     gstep = int(state.step)
+    if plan.hang_at == gstep:
+        hang()
     if plan.corrupt_factor_at == gstep and state.kfac_state is not None \
             and 'corrupt-factor' not in fired:
         fired.add('corrupt-factor')
@@ -274,6 +301,40 @@ class StateFaults:
 def hard_crash(code: int = 137) -> None:
     """Die now: no save, no atexit (137 = 128 + SIGKILL)."""
     os._exit(code)
+
+
+def hang() -> None:
+    """Wedge now: no progress, no heartbeat, no exit. Sleeps in a loop
+    forever; a first SIGTERM only sets the preemption flag, which is never
+    polled again, so the supervisor's escalation to SIGKILL ends it."""
+    import sys
+    import time as _time
+
+    print('chaos: hang fault — blocking without exit (no further '
+          'heartbeats); kill me', file=sys.stderr, flush=True)
+    while True:
+        _time.sleep(60)
+
+
+def slow_step(plan: FaultPlan | None, global_step: int) -> None:
+    """The persistent-straggler delay: once ``global_step`` reaches
+    ``plan.slowrank_at``, sleep :data:`SLOWRANK_DELAY_S` on this process;
+    under a process group only on rank ``KFAC_SLOWRANK_RANK`` (default:
+    the last). The engine calls it inside the step's timed window, so the
+    slow rank's shard records the delay and the others wait in the next
+    step's barrier probe."""
+    if plan is None or plan.slowrank_at is None \
+            or global_step < plan.slowrank_at:
+        return
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        world = dist.get_world_size()
+        slow = int(os.environ.get(SLOWRANK_RANK_ENV, world - 1))
+        if dist.get_rank() != slow:
+            return
+    import time as _time
+
+    _time.sleep(SLOWRANK_DELAY_S)
 
 
 def corrupt_bundle_file(directory: str, step: int) -> str:

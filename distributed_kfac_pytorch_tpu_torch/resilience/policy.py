@@ -103,7 +103,8 @@ class StepCheckpointer:
         if self.plan is not None:
             if self.plan.crash_at == gstep:
                 faults_lib.hard_crash()
-            # corrupt-factor and diverge: live-state faults, once each.
+            # hang (the lease of this step is written), corrupt-factor and
+            # diverge: live-state faults, the last two once each.
             faults_lib.inject_state_faults(self.plan, state, self._fired)
             if self.plan.corrupt_ckpt_at == gstep and \
                     self._once('corrupt-ckpt'):
@@ -116,6 +117,17 @@ class StepCheckpointer:
             if self.plan.preempt_at == gstep and \
                     self.preemption is not None:
                 self.preemption.trigger('injected preemption')
+            # A change of world drains like a preemption; the chaos
+            # harness relaunches on the new world, which reshards.
+            if self.plan.resize_at == gstep and \
+                    self.preemption is not None:
+                self.preemption.trigger(
+                    f'injected resize -> {self.plan.resize_to} devices')
+            if self.plan.slice_loss_at == gstep and \
+                    self.preemption is not None:
+                self.preemption.trigger(
+                    'injected slice loss -> '
+                    f'{self.plan.slice_loss_to} survivor slice(s)')
         preempted = (self.preemption is not None
                      and self.preemption.triggered())
         due = self.policy is not None and self.policy.should_save(gstep)

@@ -59,8 +59,11 @@ waits, ``--no-perf-anomalies`` turns the monitor's perf checks off, and
 ``--selfheal*`` arm the self-healing ladder, whose rollback restores a
 step bundle in the process (``engine``, ``resilience.selfheal``;
 ``KFAC_CHAOS=corrupt-factor@K`` and ``diverge@K`` are its proof faults).
-Not ported yet (a set flag raises by name, ``engine.UNPORTED_FLAGS``):
-autotune and heartbeats.
+``--heartbeat-dir`` / ``--heartbeat-every`` publish each rank's
+liveness lease for ``resilience.supervisor``; a bundle of another world
+resumes re-sharded (``elastic``; ``KFAC_CHAOS=resize@K->N`` with
+``resilience.chaos`` drives the change). Not ported yet (a set flag
+raises by name, ``engine.UNPORTED_FLAGS``): autotune.
 ``--bf16-factors``, ``--bf16-inverses`` and ``--bf16-precond`` set the
 K-FAC reduced-precision knobs as the JAX ``OptimConfig`` does.
 ``--inv-pipeline-chunks``, ``--inv-staleness``,

@@ -42,8 +42,9 @@ reference's production ImageNet recipe) builds the model, ResNet or ViT, at
 loss scale with the overflow skip (``engine``; the SGD baseline exits), and
 ``KFAC_CHAOS=nan-batch@K`` poisons the batch of step ``K``. Not ported yet:
 the ImageNet directory reader (the JAX CLI's ``tf.data`` JPEG pipeline) and the
-flags of ``engine.UNPORTED_FLAGS`` (autotune and heartbeats), which raise
-by name. ``--kfac-metrics``, ``--metrics-interval``, ``--health-action``,
+flags of ``engine.UNPORTED_FLAGS`` (autotune), which raise by name;
+``--heartbeat-dir`` / ``--heartbeat-every`` and the elastic resume as in
+the CIFAR CLI. ``--kfac-metrics``, ``--metrics-interval``, ``--health-action``,
 ``--profile-dir``, ``--memory-interval``, ``--no-perf-anomalies``,
 ``--straggler-shards``, ``--straggler-sample-every``, ``--selfheal*`` and
 ``--log-dir`` (default ``./logs/imagenet``) as in the CIFAR CLI.

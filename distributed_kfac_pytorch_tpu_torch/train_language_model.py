@@ -71,7 +71,10 @@ Checkpoints and resume as in the CIFAR CLI (``--checkpoint-dir``, default
 ``--checkpoint-steps``, ``--checkpoint-secs``, ``--preemption-grace``,
 ``--resume-step``, ``--no-resume``; exit 75 after a preemption); a bundle
 also holds each rank's dropout generator state, so a resumed run draws
-the masks the uninterrupted run draws.
+the masks the uninterrupted run draws. After a change of world a rank the
+saving world did not have seeds its generator from ``--seed`` plus its
+rank (the JAX CLI folds the data index into its key, which moves with the
+world too).
 
 ``--bf16-factors``, ``--bf16-inverses`` and ``--bf16-precond`` set the
 K-FAC reduced-precision knobs as the JAX ``OptimConfig`` does
@@ -93,9 +96,9 @@ poison.
 ``--kfac-metrics``, ``--metrics-interval``, ``--health-action``,
 ``--profile-dir``, ``--memory-interval``, ``--no-perf-anomalies``,
 ``--straggler-shards``, ``--straggler-sample-every``, ``--selfheal*`` and
-``--log-dir`` (default ``./logs/lm``) as in the CIFAR CLI. Not ported yet
-(a set flag raises by name, ``engine.UNPORTED_FLAGS``): autotune and
-heartbeats.
+``--log-dir`` (default ``./logs/lm``), ``--heartbeat-dir`` and
+``--heartbeat-every`` as in the CIFAR CLI. Not ported yet (a set flag
+raises by name, ``engine.UNPORTED_FLAGS``): autotune.
 
 :func:`train` is the programmatic entry point.
 """
@@ -293,8 +296,9 @@ def _train(args: argparse.Namespace, dev: torch.device,
             args, state, kfac_sched, name='lm', device=dev,
             preemption=preemption, sink=sink,
             extra_state=lambda: {'dropout_generator': generator.get_state()},
-            load_extra=lambda extra: generator.set_state(
-                extra['dropout_generator'].cpu()),
+            load_extra=lambda extra: (
+                generator.set_state(extra['dropout_generator'].cpu())
+                if 'dropout_generator' in extra else None),
             verbose=not args.quiet)
         observers = engine.make_observers(args, state, sink, dev,
                                           cli='train_language_model')

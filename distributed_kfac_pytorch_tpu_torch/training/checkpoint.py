@@ -1,7 +1,5 @@
 """Checkpoint bundles on disk: save, retention, quarantine and restore
-(PyTorch port of ``distributed_kfac_pytorch_tpu/training/checkpoint.py``;
-``metadata_tree`` and ``restore_replicated`` belong to elastic resume and
-are not ported).
+(PyTorch port of ``distributed_kfac_pytorch_tpu/training/checkpoint.py``).
 
 A bundle is a directory ``<directory>/<label>/`` of ``torch.save`` files,
 read back with ``torch.load(weights_only=True)``, so a bundle holds only
@@ -20,6 +18,15 @@ content digest in its ``scalars`` (``resilience.integrity``) when the tree
 it is given carries the field (``bundle_state(integrity='template')`` is
 enough: the manager computes the digest), and
 :meth:`CheckpointManager.restore` verifies every file it reads.
+
+Elastic resume (the counterpart of the JAX package's ``metadata_tree`` /
+``restore_replicated``): a bundle whose scalars record the saving world
+(``bundle_state(topology=)``, the ``topo_*`` scalars of
+``elastic.topology``) restores on another world with
+``restore(elastic=True)``, which reads ``bundle.pt`` and every
+``kfac_rank<r>.pt`` onto the CPU, verifies each and hands every saved
+rank's part back (``tree['ranks']``) for ``elastic.reshard``. A bundle
+without the record restores on its own world only.
 
 Saves are atomic: the files are written into ``<label>.partial`` and the
 directory is then renamed onto ``<label>`` (under a group, by rank 0 after
@@ -55,6 +62,20 @@ def _world() -> tuple[int, int]:
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
+
+
+def tree_to(tree, device):
+    """``tree`` with every tensor on ``device`` (``tree`` itself when
+    ``device`` is None or the CPU)."""
+    if device is None or torch.device(device) == torch.device('cpu'):
+        return tree
+    return _to(tree, device)
+
+
+class WorldMismatch(ValueError):
+    """A bundle of another world size that cannot be restored on this one
+    (elastic resume was not asked for, or the bundle records no
+    topology)."""
 
 
 def _to(tree, device):
@@ -221,7 +242,7 @@ class CheckpointManager:
         return newest, reason
 
     def restore(self, label: int | None = None, *, map_location=None,
-                all_ranks: bool = False) -> dict:
+                all_ranks: bool = False, elastic: bool = False) -> dict:
         """Read bundle ``label`` (the latest when None), every tensor on
         ``map_location`` (default: where it was saved from).
 
@@ -230,7 +251,9 @@ class CheckpointManager:
         bundle of a process group gives this rank's ``kfac`` and
         ``extra_vars``; ``all_ranks`` also reads and verifies the other
         ranks' files (rank 0's resume walk). A bundle written by another
-        world size raises ``ValueError``.
+        world size raises :class:`WorldMismatch` (a ``ValueError``) unless
+        ``elastic`` is set and the bundle records its topology: then
+        :meth:`restore_every_rank`'s tree comes back, on the CPU.
         """
         if label is None:
             label = self.latest_epoch()
@@ -244,14 +267,19 @@ class CheckpointManager:
                 f'{self.directory}; steps on disk: '
                 f'{sorted(steps) if steps else "none"}')
         root = self._path(label)
-        tree = self._load(os.path.join(root, BUNDLE_FILE), map_location)
-        n_ranks = sum(1 for n in os.listdir(root)
-                      if n.startswith('kfac_rank'))
+        n_ranks = self._saved_ranks(root)
         rank, world = _world()
         if n_ranks != (world if world > 1 else 0):
-            raise ValueError(
+            if elastic:
+                tree = self.restore_every_rank(label)
+                if 'topo_format' in tree['scalars']:
+                    return tree
+            raise WorldMismatch(
                 f'checkpoint {label} was written by '
-                f'{n_ranks or 1} rank(s); this world has {world}')
+                f'{n_ranks or 1} rank(s); this world has {world}'
+                + (' and the bundle records no topology to reshard from'
+                   if elastic else ''))
+        tree = self._load(os.path.join(root, BUNDLE_FILE), map_location)
         ranks = range(n_ranks) if all_ranks else [rank] if n_ranks else []
         for r in ranks:
             part = self._load(os.path.join(root, RANK_FILE.format(r)),
@@ -263,6 +291,36 @@ class CheckpointManager:
                     f'step {tree["scalars"].get("step")}')
             if r == rank:
                 tree.update({k: part[k] for k in RANK_KEYS if k in part})
+        return tree
+
+    @staticmethod
+    def _saved_ranks(root: str) -> int:
+        """Rank files of a bundle directory (0 for a single process's)."""
+        return sum(1 for n in os.listdir(root) if n.startswith('kfac_rank'))
+
+    def restore_every_rank(self, label: int) -> dict:
+        """Bundle ``label`` whatever world wrote it, on the CPU, every file
+        verified: ``bundle.pt``'s tree with ``ranks``, every saved rank's
+        ``{'kfac', 'extra_vars'}`` in rank order (a single process's bundle
+        gives one), in place of ``kfac`` and ``extra_vars``."""
+        if label not in self.all_steps():
+            raise FileNotFoundError(
+                f'no checkpoint for step {label} under {self.directory}')
+        root = self._path(label)
+        tree = self._load(os.path.join(root, BUNDLE_FILE), None)
+        n_ranks = self._saved_ranks(root)
+        parts = []
+        if n_ranks == 0:
+            parts.append({k: tree.pop(k) for k in RANK_KEYS if k in tree})
+        for r in range(n_ranks):
+            part = self._load(os.path.join(root, RANK_FILE.format(r)), None)
+            if part['scalars'].get('step') != tree['scalars'].get('step'):
+                raise ValueError(
+                    f'checkpoint {label}: {RANK_FILE.format(r)} is of '
+                    f'step {part["scalars"].get("step")}, the bundle of '
+                    f'step {tree["scalars"].get("step")}')
+            parts.append({k: part[k] for k in RANK_KEYS if k in part})
+        tree['ranks'] = parts
         return tree
 
     @staticmethod
@@ -280,10 +338,7 @@ class CheckpointManager:
                 f'checkpoint file {path} restored UNVERIFIED '
                 f'({integrity_lib.describe_mismatch(recorded, actual)})',
                 RuntimeWarning)
-        if map_location is not None and torch.device(map_location) \
-                != torch.device('cpu'):
-            tree = _to(tree, map_location)
-        return tree
+        return tree_to(tree, map_location)
 
     def close(self) -> None:
         """Nothing to release: every save is synchronous."""
@@ -291,7 +346,8 @@ class CheckpointManager:
 
 def bundle_state(params, opt_state, kfac_state_dict, extra_vars,
                  schedulers: dict[str, Any] | None = None,
-                 integrity: bool | str = True, **scalars) -> dict:
+                 integrity: bool | str = True, topology=None,
+                 **scalars) -> dict:
     """Assemble the checkpoint tree: ``params`` (the model's
     ``state_dict()``, buffers included), ``opt_state`` (the optimizer's),
     ``kfac`` (``KFAC`` / ``DistributedKFAC.state_dict``), ``extra_vars``,
@@ -301,6 +357,9 @@ def bundle_state(params, opt_state, kfac_state_dict, extra_vars,
     step), ``epoch`` (the epoch to (re)enter), ``step_in_epoch`` and
     ``data_seed`` (``resilience.dataiter.DataStreamState``); epoch
     bundles record ``step_in_epoch=0``.
+
+    ``topology`` (an ``elastic.TopologySpec``, the saving world) merges
+    its ``topo_*`` scalars, which let the bundle restore on another world.
 
     ``integrity=True`` stamps the tree's content digest into
     ``scalars['integrity_checksum']``; ``'template'`` records the field
@@ -312,6 +371,8 @@ def bundle_state(params, opt_state, kfac_state_dict, extra_vars,
             'kfac': kfac_state_dict,
             'extra_vars': extra_vars,
             'scalars': dict(scalars)}
+    if topology is not None:
+        tree['scalars'].update(topology.scalars())
     if schedulers:
         tree['schedulers'] = {k: v.state_dict()
                               for k, v in schedulers.items()}

@@ -61,8 +61,10 @@ the three CLIs): the epoch loops resume at a bundle's point, skipping the
 epoch's trained batches, call the ``resilience.policy.StepCheckpointer``
 after each step (global-step bundles, the preemption drain, the
 ``KFAC_CHAOS`` faults), poll for preemption between epochs and save the
-epoch bundle every ``--checkpoint-freq`` epochs and after the last. The
-CLI flags the port does not run are :data:`UNPORTED_FLAGS`.
+epoch bundle every ``--checkpoint-freq`` epochs and after the last. Every
+bundle records its world (``elastic.TopologySpec``), and the resume
+re-shards a bundle of another world for this one (``elastic.reshard``).
+The CLI flags the port does not run are :data:`UNPORTED_FLAGS`.
 
 Metrics (the JAX engine's ``metrics_sink=`` and ``log_writer=``): with an
 ``observability.sink.JsonlMetricsSink`` the epoch loops enqueue one step
@@ -92,7 +94,11 @@ before each step (escalated damping, the quarantine gates) and
 :meth:`~SelfHealController.observe` after it. A :class:`Rollback` leaves
 the epoch with the sinks flushed; the epoch loop restores the newest
 verified, finite step bundle at or before the fault and trains on in the
-same process. Under hierarchical reduction a window head's fired stage
+same process. With ``--heartbeat-dir`` (or ``KFAC_HEARTBEAT_DIR``) every
+rank publishes its liveness lease after each step, before the step hook
+(``resilience.heartbeat``, the supervisor's hang and dead-rank signal),
+and the ``slowrank`` fault's delay falls inside the step's timed window
+of the rank it slows. Under hierarchical reduction a window head's fired stage
 is recorded as ``dcn_reduce`` (the cross-slice collective), which
 ``observability.stragglers.stage_class`` attributes apart.
 """
@@ -509,6 +515,7 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
             scale = state.loss_scale and state.loss_scale['scale']
             loss, acc = train_step(state, x, y, step_hyper, flags,
                                    criterion)
+            _slow_step(observers, state.step + 1)
             dispatch_ms = (time.perf_counter() - t0) * 1e3
             if time_steps:
                 if device.type == 'cuda':
@@ -526,10 +533,9 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
                             dispatch_ms, fired[-1], wait_ms, device,
                             epoch_cache)
             state.step += 1
-            if checkpointer is not None:
-                _after_step(checkpointer, state,
-                            start_step_in_epoch + len(losses), metrics_sink,
-                            observers)
+            _after_step(checkpointer, state,
+                        start_step_in_epoch + len(losses), metrics_sink,
+                        observers)
     except (Preempted, Rollback) as p:
         p.partial = {'losses': [float(v) for v in losses], 'fired': fired,
                      'step_ms': step_ms if time_steps else None,
@@ -558,7 +564,9 @@ class Observers:
     ``sample_every`` selects; ``memory_interval``: steps between memory
     records (0: none); ``profile_dir``: the ``torch.profiler`` trace of
     the first trained epoch on rank ``rank``; ``selfheal``: a
-    ``resilience.selfheal.SelfHealController``."""
+    ``resilience.selfheal.SelfHealController``; ``heartbeat``: the rank's
+    ``resilience.heartbeat.HeartbeatEmitter``; ``fault_plan``: the
+    ``KFAC_CHAOS`` plan whose ``slowrank`` delay the epoch loops apply."""
     rank_sink: Any = None
     barrier_probe: Callable[[], float] | None = None
     sample_every: int = 1
@@ -566,10 +574,14 @@ class Observers:
     profile_dir: str | None = None
     rank: int = 0
     selfheal: Any = None
+    heartbeat: Any = None
+    fault_plan: Any = None
 
     def close(self) -> None:
         if self.rank_sink is not None:
             self.rank_sink.close()
+        if self.heartbeat is not None:
+            self.heartbeat.close()
 
 
 def make_observers(args: argparse.Namespace, state: TrainState, sink,
@@ -580,8 +592,10 @@ def make_observers(args: argparse.Namespace, state: TrainState, sink,
     ``--straggler-shards`` (the rank's shard; with a K-FAC world, the
     barrier probe of its ``DistributedKFAC``; with more than one slice,
     the rank's slice in the shard's meta), ``--straggler-sample-every``,
-    ``--profile-dir`` and ``--selfheal*`` (``resilience.cli.
-    make_selfheal``)."""
+    ``--profile-dir``, ``--selfheal*`` (``resilience.cli.
+    make_selfheal``), ``--heartbeat-dir`` / ``--heartbeat-every``
+    (``resilience.cli.make_heartbeat``) and the ``KFAC_CHAOS`` plan's
+    ``slowrank``."""
     rank = dist.get_rank() if dist.is_initialized() else 0
     shard_meta = {'cli': cli, **(meta or {})}
     slices = getattr(args, 'num_slices', 1)
@@ -599,7 +613,15 @@ def make_observers(args: argparse.Namespace, state: TrainState, sink,
                          if args.kfac_metrics else 0),
         profile_dir=getattr(args, 'profile_dir', None), rank=rank,
         selfheal=resilience_cli.make_selfheal(
-            args, kfac=state.kfac, sink=sink, device=device))
+            args, kfac=state.kfac, sink=sink, device=device),
+        heartbeat=resilience_cli.make_heartbeat(args, rank),
+        fault_plan=faults.plan_from_env())
+
+
+def _slow_step(observers: Observers | None, step: int) -> None:
+    """The ``slowrank`` fault's delay (``resilience.faults.slow_step``)."""
+    if observers is not None and observers.fault_plan is not None:
+        faults.slow_step(observers.fault_plan, step)
 
 
 def _probe(observers: Observers | None, step: int) -> float | None:
@@ -735,9 +757,16 @@ def record_epoch(sink, epoch: int, averages: dict, steps: int,
 
 def _after_step(checkpointer, state: TrainState, step_in_epoch: int,
                 sink, observers: Observers | None = None) -> None:
-    """``checkpointer.after_step``; when it raises (a preemption drain),
-    the sinks are flushed first, so the steps done so far are on disk
-    beside the bundle the relaunch resumes from."""
+    """The rank's heartbeat for the step just done, then
+    ``checkpointer.after_step`` (when given): a hang in the hook leaves a
+    fresh lease at its step, which then stops advancing. When the hook
+    raises (a preemption drain), the sinks are flushed first, so the steps
+    done so far are on disk beside the bundle the relaunch resumes
+    from."""
+    if observers is not None and observers.heartbeat is not None:
+        observers.heartbeat.beat(state.step)
+    if checkpointer is None:
+        return
     try:
         checkpointer.after_step(state, step_in_epoch)
     except BaseException:
@@ -1064,7 +1093,7 @@ def precision_config(args: argparse.Namespace) -> dict:
 
 #: Flags of the JAX CLIs the port does not run yet, by destination, with
 #: their argparse definitions (the JAX names and "off" defaults; a path
-#: flag is off at None): autotune and heartbeats.
+#: flag is off at None): autotune.
 _UNPORTED_ARGS = {
     'tuned_config': {},
     'cadence_backoff': {'action': 'store_true'},
@@ -1072,8 +1101,6 @@ _UNPORTED_ARGS = {
     'backoff_sustain_steps': {'type': int, 'default': 8},
     'backoff_recover_steps': {'type': int, 'default': 32},
     'backoff_max_stretch': {'type': int, 'default': 4},
-    'heartbeat_dir': {},
-    'heartbeat_every': {'type': int, 'default': 1},
 }
 
 
@@ -1164,9 +1191,10 @@ def add_port_args(p: argparse.ArgumentParser) -> None:
     p.add_argument('--time-steps', action='store_true')
     p.add_argument('--quiet', action='store_true')
     p.add_argument('--launch-counts', default=None, metavar='PATH',
-                   help="write the kernels' launch counts of this process "
-                        '(ops.kernels.LAUNCHES) to PATH as JSON when the '
-                        'run ends; {rank} in PATH is the process rank')
+                   help="add the kernels' launch counts of this process "
+                        '(ops.kernels.LAUNCHES) to the JSON counts in PATH '
+                        'when the run ends; {rank} in PATH is the process '
+                        'rank')
 
 
 def start_world(device, backend: str | None = None) -> int:
@@ -1224,8 +1252,9 @@ def install_preemption(args: argparse.Namespace
 def finish_run(args: argparse.Namespace,
                preemption: PreemptionHandler | None) -> None:
     """The end of a CLI's run, however it ends: the preemption handler
-    uninstalled and, with ``--launch-counts``, the launch counts
-    written."""
+    uninstalled and, with ``--launch-counts``, the launch counts added to
+    those the file holds (a relaunch of the same command adds its
+    own)."""
     if preemption is not None:
         preemption.uninstall()
     if getattr(args, 'launch_counts', None):
@@ -1233,8 +1262,14 @@ def finish_run(args: argparse.Namespace,
 
         from distributed_kfac_pytorch_tpu_torch.ops import kernels
         rank = dist.get_rank() if dist.is_initialized() else 0
-        with open(args.launch_counts.format(rank=rank), 'w') as f:
-            json.dump(dict(kernels.LAUNCHES), f)
+        path = args.launch_counts.format(rank=rank)
+        counts = dict(kernels.LAUNCHES)
+        if os.path.exists(path):
+            with open(path) as f:
+                for k, v in json.load(f).items():
+                    counts[k] = counts.get(k, 0) + v
+        with open(path, 'w') as f:
+            json.dump(counts, f)
 
 
 @dataclasses.dataclass
@@ -1294,6 +1329,9 @@ def start_checkpointing(args: argparse.Namespace, state: TrainState,
     epoch_mgr = checkpoint.CheckpointManager(args.checkpoint_dir)
     step_mgr = resilience_cli.make_step_manager(args)
 
+    from distributed_kfac_pytorch_tpu_torch import elastic
+    topology = elastic.TopologySpec.of_world(state.kfac)
+
     def bundle_fn(st: TrainState, step_in_epoch: int) -> dict:
         kfac_sd = (st.kfac.state_dict(st.kfac_state, include_inverses=True)
                    if st.kfac is not None else {})
@@ -1304,7 +1342,8 @@ def start_checkpointing(args: argparse.Namespace, state: TrainState,
             st.model.state_dict(), st.optimizer.state_dict(), kfac_sd,
             extra,
             schedulers={'kfac': kfac_sched} if kfac_sched else None,
-            integrity='template', step=st.step, epoch=st.epoch,
+            integrity='template', topology=topology, step=st.step,
+            epoch=st.epoch,
             step_in_epoch=int(step_in_epoch), data_seed=args.seed)
 
     def load(st: TrainState, tree: dict) -> tuple[int, int]:
@@ -1327,9 +1366,9 @@ def start_checkpointing(args: argparse.Namespace, state: TrainState,
         return epoch, int(sc['step_in_epoch'])
 
     start_epoch = start_offset = 0
-    resumed = resilience_cli.resume(args, epoch_mgr, step_mgr,
-                                    device=device, verbose=verbose,
-                                    sink=sink)
+    resumed = resilience_cli.resume(
+        args, epoch_mgr, step_mgr, device=device, verbose=verbose, sink=sink,
+        elastic=elastic.ElasticResume(state.kfac))
     if resumed is not None:
         start_epoch, start_offset = load(state, resumed[0])
     step_ckpt = resilience_cli.make_step_checkpointer(
@@ -1725,6 +1764,7 @@ def lm_train_epoch(state: TrainState, windows: Iterable, hyper: dict, *,
             loss = lm_train_step(state, x, y, step_hyper, flags,
                                  grad_clip=grad_clip, generator=generator,
                                  pos_offset=offset)
+            _slow_step(observers, state.step + 1)
             dispatch_ms = (time.perf_counter() - t0) * 1e3
             if time_steps:
                 if device.type == 'cuda':
@@ -1744,10 +1784,9 @@ def lm_train_epoch(state: TrainState, windows: Iterable, hyper: dict, *,
                             dispatch_ms, fired[-1], wait_ms, device,
                             epoch_cache)
             state.step += 1
-            if checkpointer is not None:
-                _after_step(checkpointer, state,
-                            start_step_in_epoch + len(losses), metrics_sink,
-                            observers)
+            _after_step(checkpointer, state,
+                        start_step_in_epoch + len(losses), metrics_sink,
+                        observers)
     except (Preempted, Rollback) as p:
         p.partial = {'losses': [float(v) for v in losses], 'fired': fired,
                      'step_ms': step_ms if time_steps else None,

@@ -1025,10 +1025,13 @@ CLI_TINY = {
     'cifar': {'model': 'resnet20', 'batch_size': 8, 'val_batch_size': 4,
               'synthetic_size': 16, 'epochs': 1, 'no_augment': True},
     # ResNet-18 stands in for ResNet-152, whose CPU firing is too slow.
-    # Its 'auto' default: eigen slots up to 640, Cholesky above.
+    # Its 'auto' default: eigen slots up to 640, Cholesky above (stage 2's
+    # 1153-wide sides); stages 3-4 (up to 4608) stay out for time.
     'imagenet': {'model': 'resnet18', 'image_size': 32, 'batch_size': 4,
                  'val_batch_size': 2, 'synthetic_size': 4, 'epochs': 1,
-                 'kfac_update_freq': 1, 'kfac_cov_update_freq': 1},
+                 'kfac_update_freq': 1, 'kfac_cov_update_freq': 1,
+                 'skip_layers': ['layer3_block0', 'layer3_block1',
+                                 'layer4_block0', 'layer4_block1']},
     'lm': {'arch': 'transformer', 'emsize': 16, 'nheads': 2, 'nlayers': 1,
            'synthetic_vocab': 40, 'synthetic_size': 2000, 'bptt': 8,
            'batch_size': 2, 'max_steps': 3, 'epochs': 1,
