@@ -107,14 +107,14 @@ Phases (any failure exits nonzero and prints no result line):
      finite losses, no jacobi_eigh launch;
  11. ResNet-32 under ``--eigh-method jacobi``: 11 steps, finite losses,
      jacobi_eigh 9 per firing besides phase 5's per-step launches;
- 12. the result (printed after phases 13-40): a JSON line of
+ 12. the result (printed after phases 13-45): a JSON line of
      per-kernel numbers (K1-K3 per ResNet-50 step, K4 per ResNet-50 firing, K5
      per LSTM firing, under ``transformer_xl`` K1 and K3 per XL step and K4 per
      XL firing, under ``resnet152_config5`` K1-K3 per config-5 step, and under
      ``vit_small`` and ``mobilenet_v1`` K1-K3 per ViT-S/16 and MobileNetV1
      step, under ``resnet50_fp16`` K1 and K2 per ResNet-50 ``--fp16`` step
      on its own captures; launches summed over phases 5-7, 9-11 and
-     13-40), the card line,
+     13-45), the card line,
      then ``{"ok": true, "device": {...}}`` as the last line;
  13. distributed, NCCL at world size 1: phase 6's ResNet-50 run through
      ``train_imagenet_resnet.train`` inside a one-rank NCCL group
@@ -530,7 +530,33 @@ Phases (any failure exits nonzero and prints no result line):
      under ``slowrank@1 --straggler-skew-ms 100`` (comm-opt, batch 96:
      rank 3 classified from the shards, the world drained and relaunched
      on 3 ranks). In the whole script phase 44 runs beside phases 27 and
-     28, from their start.
+     28, from their start, without legs (3) and (4) (for time;
+     ``--elastic-only`` runs all five);
+ 45. autotune: ``autotune.tune('cifar_resnet20')`` in this process
+     (ResNet-20 at full width, batch 16, inverses every 4, two warm
+     windows, 16 recorded steps, each step synchronized), the full
+     pruner over the 8 candidates of factor cadence {1, 2} x factor batch
+     fraction {1, 0.5} x inverse chunks {1, 2}: each probe's launch
+     counts reset before it and read after it (K1 and K2 per factor
+     step, K3 per step), its p50 / p95 / p99 ms and peak device memory,
+     the winner re-probed (the self-check), the artifact and its probe
+     stream under ``chiprun_out/`` read back with platform ``gpu`` and
+     world 1/1; then tracked config 1 (ResNet-32, batch 128, 20 steps,
+     ``--deterministic --kfac-metrics --log-dir``) through the CIFAR CLI
+     three times: ``--tuned-config`` with the new artifact (one
+     ``autotune_apply`` with the winner's knobs, the run's ``KFAC``
+     built with them, K1 and K2 launched on the tuned factor cadence),
+     with the committed ``TUNED_flagship_lm.json`` (one
+     ``autotune_fallback``, ``platform_mismatch``) and without the flag,
+     the last two equal bit for bit; and ``--cadence-backoff`` on 2 gloo
+     ranks of the card (ResNet-32, batch 128, 24 steps,
+     ``--straggler-shards --kfac-metrics --backoff-skew-ms 50
+     --backoff-sustain-steps 2 --backoff-recover-steps 64``,
+     ``KFAC_CHAOS=slowrank@1`` on rank 1, a time limit of its own): the
+     stream's ``autotune_backoff`` stretches up to 4, K1 and K2 equal on
+     both ranks, 33 and 31 per factor step run, fewer than the
+     unstretched schedule's. In the whole script the backoff world runs
+     beside phases 27-28 and 44.
      The script ends with every phase header's wall time, largest first.
 
 ``--quick`` builds with ``-Xptxas -v`` and runs only the correctness
@@ -556,6 +582,8 @@ runs phase 40 and phase 14 alone (``chiprun_out/chip_smoke_metrics.json``);
 ``--observability-only`` builds and runs phases 41-43 alone
 (``chiprun_out/chip_smoke_observability.json``); ``--elastic-only`` builds
 and runs phase 44 alone (``chiprun_out/chip_smoke_elastic.json``);
+``--autotune-only`` builds and runs phase 45 alone
+(``chiprun_out/chip_smoke_autotune.json``);
 ``--determinism-probe`` (alone
 or before ``--resume-only``'s phases) runs phase 27's uninterrupted
 ResNet-50 twice without ``--deterministic`` and compares the final
@@ -7694,6 +7722,9 @@ DEFERRED = ('--deferred-factor-reduction',)
 STRAGGLER_FLAGS = ('--comm-method', 'comm-opt', '--batch-size', '96',
                    '--val-batch-size', '32', '--synthetic-size', '384',
                    '--epochs', '5', '--straggler-shards')
+# Phase 44's legs; the whole script runs WHOLE_SCRIPT_LEGS.
+ELASTIC_LEGS = ('resize', 'pin', 'hang', 'capacity', 'straggler')
+WHOLE_SCRIPT_LEGS = ('resize', 'pin', 'straggler')
 SUPERVISOR_FLAGS = ('--hang-timeout', '15', '--startup-grace', '300',
                     '--poll', '0.2', '--drain-grace', '120',
                     '--term-grace', '5', '--backoff', '0',
@@ -8048,34 +8079,343 @@ def _elastic_supervision(tmp: Path, leg: str) -> dict:
     return {'events': events, 'launches': launches, 'seconds': seconds}
 
 
-def run_elastic_phase(card: str) -> dict:
+def run_elastic_phase(card: str, legs=ELASTIC_LEGS) -> dict:
     """Phase 44: elastic resume and supervision on GLOO_WORLD gloo ranks
-    of ResNet-32 at full width through the CIFAR CLI, the legs in
-    separate directories at once (in the whole script beside phases 27
-    and 28: its lines follow theirs)."""
+    of ResNet-32 at full width through the CIFAR CLI, the ``legs`` (of
+    ELASTIC_LEGS) in separate directories at once (in the whole script
+    beside phases 27 and 28, its lines following theirs, without the hang
+    and capacity legs, for time)."""
     import shutil
     import tempfile
+    what = {'resize': 'resize@3->2 through the chaos harness',
+            'pin': '4 -> 2 -> 4 bit for bit',
+            'hang': 'the supervisor under hang@4',
+            'capacity': 'the supervisor under a capacity file 4 -> 2 -> 4',
+            'straggler': 'the supervisor under slowrank@1'}
     log(f'  phase 44: elastic resume and supervision, {GLOO_WORLD} gloo '
-        'ranks of ResNet-32 through the CIFAR CLI on the card: resize@3->2 '
-        'through the chaos harness; 4 -> 2 -> 4 bit for bit; the supervisor '
-        'under hang@4, a capacity file 4 -> 2 -> 4 and slowrank@1 (the legs '
-        'at once, their lines in that order)')
+        'ranks of ResNet-32 through the CIFAR CLI on the card: '
+        + '; '.join(what[n] for n in legs)
+        + ' (the legs at once, their lines in that order)')
     t0 = time.perf_counter()
     tmp = Path(tempfile.mkdtemp(prefix='kfac-elastic-'))
-    legs = at_once((_elastic_resize, tmp), (_elastic_pin, tmp),
-                   (_elastic_supervision, tmp, 'hang'),
-                   (_elastic_supervision, tmp, 'capacity'),
-                   (_elastic_supervision, tmp, 'straggler'))
-    names = ('resize', 'pin', 'hang', 'capacity', 'straggler')
-    out = dict(zip(names, legs))
+    results = at_once(*[(_elastic_resize, tmp) if n == 'resize' else
+                        (_elastic_pin, tmp) if n == 'pin' else
+                        (_elastic_supervision, tmp, n) for n in legs])
+    out = dict(zip(legs, results))
     launches = {}
-    for leg in legs:
+    for leg in results:
         _add(launches, leg['launches'])
     out['launches'] = launches
     out['seconds'] = time.perf_counter() - t0
     log(f'  phase 44: launches {launches}; legs '
-        + ', '.join(f'{n} {out[n]["seconds"]:.1f} s' for n in names)
+        + ', '.join(f'{n} {out[n]["seconds"]:.1f} s' for n in legs)
         + f'; {out["seconds"]:.1f} s wall on {platform.node()} ({card})')
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 45: autotune
+# ---------------------------------------------------------------------------
+
+# The tuner's space: 8 candidates, every other knob at the config's value.
+AUTOTUNE_SPACE = {'kfac_cov_update_freq': [1, 2],
+                  'factor_batch_fraction': [1.0, 0.5],
+                  'inv_pipeline_chunks': [1, 2],
+                  **dict.fromkeys(('bf16_precond', 'kfac_approx',
+                                   'deferred_factor_reduction',
+                                   'inv_staleness', 'inv_lowrank_rank',
+                                   'fused_factor_contraction',
+                                   'fused_precondition'), [])}
+AUTOTUNE_STEPS, AUTOTUNE_INV_FREQ, AUTOTUNE_WARM = 16, 4, 2
+# Tracked config 1 through the CIFAR CLI under --tuned-config.
+AUTOTUNE_CLI_STEPS = 20
+# The backoff world: 2 gloo ranks of cuda:0, ResNet-32 at batch 128, 3
+# epochs of 8 steps, rank 1 slowed from step 1 (slowrank, 250 ms a step).
+BACKOFF_WORLD, BACKOFF_STEPS, BACKOFF_TIMEOUT = 2, 24, 300
+BACKOFF_FLAGS = ('--model', 'resnet32', '--batch-size', '128',
+                 '--synthetic-size', '1024', '--epochs', '3',
+                 '--max-steps', str(BACKOFF_STEPS), '--no-augment',
+                 '--dist-backend', 'gloo', '--cadence-backoff',
+                 '--straggler-shards', '--metrics-interval', '1',
+                 '--backoff-skew-ms', '50', '--backoff-sustain-steps', '2',
+                 '--backoff-recover-steps', '64', '--quiet')
+K1_K2_K3 = ('factor_ema', 'patch_cov', 'bucket_precond')
+
+
+def _factor_steps(steps: int, every: int) -> int:
+    return sum(1 for s in range(steps) if s % every == 0)
+
+
+def _autotune_tuner(card: str) -> dict:
+    """Phase 45 (1): ``tune('cifar_resnet20')`` in this process, each probe
+    with the launch counts reset before it and read after it; the artifact
+    read back (platform ``gpu``, world 1/1)."""
+    import torch
+    from distributed_kfac_pytorch_tpu_torch.autotune import driver, probe
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    out_dir = ROOT / 'chiprun_out'
+    out_dir.mkdir(exist_ok=True)
+    out = out_dir / 'TUNED_cifar_resnet20.json'
+    t0 = time.perf_counter()
+    per_probe = []
+    real = probe.probe_candidate
+
+    def counted(*args, **kw):
+        kernels.reset_launches()
+        r = real(*args, **kw)
+        per_probe.append((r, dict(kernels.LAUNCHES)))
+        return r
+
+    probe.probe_candidate = counted
+    try:
+        art = driver.tune(
+            'cifar_resnet20', out=str(out), steps=AUTOTUNE_STEPS,
+            warmup_windows=AUTOTUNE_WARM, inv_update_freq=AUTOTUNE_INV_FREQ,
+            pruner='full', space_overrides=AUTOTUNE_SPACE, device='cuda',
+            log=lambda msg: log('  ' + msg.strip()))
+    finally:
+        probe.probe_candidate = real
+    seconds = time.perf_counter() - t0
+    problems = []
+    steps = AUTOTUNE_WARM * AUTOTUNE_INV_FREQ + AUTOTUNE_STEPS
+    model = probe.get_workload('cifar_resnet20').make_model()
+    n_conv = sum(isinstance(m, torch.nn.Conv2d) for m in model.modules())
+    rows, launches = [], {}
+    for r, counts in per_probe:
+        _add(launches, counts)
+        fs = _factor_steps(steps, r.knobs['kfac_cov_update_freq'])
+        if r.disqualified:
+            problems.append(f'{r.knobs}: {r.disqualified}')
+        elif (counts.get('factor_ema') != (n_conv + 2) * fs
+              or counts.get('patch_cov') != n_conv * fs
+              or not counts.get('bucket_precond')
+              or counts['bucket_precond'] % steps):
+            problems.append(f'{r.knobs}: launches {counts} over {steps} '
+                            f'steps, {fs} factor steps')
+        m = r.metrics
+        rows.append({'knobs': r.knobs, 'p50_ms': m.get('step_p50_ms'),
+                     'p95_ms': m.get('step_p95_ms'),
+                     'p99_ms': m.get('step_p99_ms'),
+                     'peak_bytes': m.get('peak_hbm_bytes'),
+                     'n_steps': r.n_steps, 'disqualified': r.disqualified,
+                     'launches': {k: counts.get(k, 0) for k in K1_K2_K3}})
+    read = driver.read_tuned(str(out))
+    stream = Path(art['probe']['stream'])
+    if read['platform'] != 'gpu' \
+            or (read['topology']['topo_devices'],
+                read['topology']['topo_processes']) != (1, 1):
+        problems.append(f"artifact platform {read['platform']}, topology "
+                        f"{read['topology']}")
+    if len(per_probe) != 9 or not stream.exists():
+        problems.append(f'{len(per_probe)} probes, stream {stream}')
+    if any(row['peak_bytes'] is None for row in rows):
+        problems.append('a probe without a peak device-memory record')
+    if problems:
+        raise AssertionError('phase 45 tuner: ' + '; '.join(problems))
+    log('  candidates (p50 / p95 / p99 ms, peak MiB, K1 / K2 / K3 '
+        'launches per probe; the last row is the winner\'s re-probe):')
+    for row in rows:
+        k = row['knobs']
+        log(f"    cov {k['kfac_cov_update_freq']} fraction "
+            f"{k['factor_batch_fraction']} chunks "
+            f"{k['inv_pipeline_chunks']}: {row['p50_ms']:.3f} / "
+            f"{row['p95_ms']:.3f} / {row['p99_ms']:.3f} ms, "
+            f"{row['peak_bytes'] / 2**20:.1f} MiB, "
+            + ' / '.join(str(row['launches'][n]) for n in K1_K2_K3)
+            + (f", disqualified {row['disqualified']}"
+               if row['disqualified'] else ''))
+    check = {k: v for k, v in art['self_check'].items()
+             if k != 'rescore_metrics'}
+    log(f"  winner {json.dumps(art['best'], sort_keys=True)} score "
+        f"{art['best_score']:.4f}; self-check {check}; artifact "
+        f"{out.relative_to(ROOT)} (platform {read['platform']}, world "
+        f"{read['topology']['topo_devices']}/"
+        f"{read['topology']['topo_processes']}); launches {launches}; "
+        f'{seconds:.1f} s wall ({card})')
+    return {'rows': rows, 'best': art['best'],
+            'best_score': art['best_score'], 'self_check': check,
+            'artifact': str(out.relative_to(ROOT)), 'launches': launches,
+            'seconds': seconds}
+
+
+def _autotune_cli_run(tmp: Path, label: str, **extra) -> dict:
+    """Tracked config 1 through the CIFAR CLI in this process, 20 steps on
+    one batch with the metrics stream, ``--deterministic``; the launch
+    counts reset before it and read after it."""
+    from distributed_kfac_pytorch_tpu_torch import train_cifar10_resnet
+    from distributed_kfac_pytorch_tpu_torch.ops import kernels
+    d = tmp / label
+    config = {'model': 'resnet32', 'batch_size': 128,
+              'synthetic_size': 128, 'val_batch_size': 32,
+              'epochs': AUTOTUNE_CLI_STEPS, 'no_augment': True, 'seed': 0,
+              'deterministic': True, 'kfac_metrics': str(d / 'm.jsonl'),
+              'metrics_interval': 1, 'log_dir': str(d / 'logs'),
+              'quiet': True, **extra}
+    kernels.reset_launches()
+    res = train_cifar10_resnet.train(config, device='cuda')
+    launches = dict(kernels.LAUNCHES)
+    kfac = res.pop('state').kfac
+    stream = _stream(d / 'm.jsonl')
+    events = [(r['event'], r.get('data', {})) for r in stream
+              if r['kind'] == 'event' and r['event'].startswith('autotune')]
+    if res['steps'] != AUTOTUNE_CLI_STEPS \
+            or not all(math.isfinite(v) for v in res['losses']):
+        raise AssertionError(f'phase 45 {label}: {res["steps"]} steps, '
+                             f'losses {res["losses"]}')
+    return {'losses': res['losses'], 'events': events, 'launches': launches,
+            'knobs': {'kfac_cov_update_freq': kfac.factor_update_freq,
+                      'factor_batch_fraction': kfac.factor_batch_fraction,
+                      'inv_pipeline_chunks': kfac.inv_pipeline_chunks}}
+
+
+def _autotune_cli(tmp: Path, tuned: dict, card: str) -> dict:
+    """Phase 45 (2): ``--tuned-config`` with the new artifact (applied:
+    the knobs act), with the committed CPU artifact (falls back) and
+    without the flag."""
+    t0 = time.perf_counter()
+    art = ROOT / tuned['artifact']
+    applied = _autotune_cli_run(tmp, 'tuned', tuned_config=str(art))
+    fallback = _autotune_cli_run(
+        tmp, 'fallback', tuned_config=str(ROOT / 'TUNED_flagship_lm.json'))
+    plain = _autotune_cli_run(tmp, 'plain')
+    best = tuned['best']
+    problems = []
+    if [e for e, _ in applied['events']] != ['autotune_apply'] \
+            or json.loads(applied['events'][0][1]['knobs']) != best \
+            or applied['knobs'] != best:
+        problems.append(f"tuned run: events {applied['events']}, knobs "
+                        f"{applied['knobs']}")
+    fs = _factor_steps(AUTOTUNE_CLI_STEPS, best['kfac_cov_update_freq'])
+    for name in ('factor_ema', 'patch_cov'):
+        want = EXPECTED_PER_STEP[name] * fs
+        if applied['launches'].get(name) != want:
+            problems.append(f"tuned run {name}: "
+                            f"{applied['launches'].get(name)}, expected "
+                            f'{want} ({fs} factor steps)')
+    reasons = [(e, d.get('reason')) for e, d in fallback['events']]
+    if reasons != [('autotune_fallback', 'platform_mismatch')]:
+        problems.append(f'committed artifact: events {fallback["events"]}')
+    if fallback['losses'] != plain['losses']:
+        problems.append('the fallback run differs from the run without '
+                        'the flag')
+    if plain['events'] or plain['knobs']['kfac_cov_update_freq'] != 1:
+        problems.append(f"plain run: {plain['events']} {plain['knobs']}")
+    if problems:
+        raise AssertionError('phase 45 --tuned-config: '
+                             + '; '.join(problems))
+    launches = {}
+    for run in (applied, fallback, plain):
+        _add(launches, run['launches'])
+    seconds = time.perf_counter() - t0
+    log(f"  --tuned-config (ResNet-32, batch 128, {AUTOTUNE_CLI_STEPS} "
+        f"steps): the new artifact applied {applied['knobs']}, K1 / K2 "
+        f"{applied['launches'].get('factor_ema')} / "
+        f"{applied['launches'].get('patch_cov')} ({fs} factor steps); "
+        f"the committed TUNED_flagship_lm.json fell back "
+        f"({fallback['events'][0][1].get('artifact')} artifact, "
+        f"{fallback['events'][0][1].get('live')} run), its losses equal "
+        'to the run without the flag bit for bit; launches of the three '
+        f'runs {launches}; {seconds:.1f} s wall ({card})')
+    return {'applied': applied, 'fallback_events': fallback['events'],
+            'launches': launches, 'seconds': seconds}
+
+
+def run_backoff_world(card: str) -> dict:
+    """Phase 45 (3): ``--cadence-backoff`` on BACKOFF_WORLD gloo ranks of
+    the card under ``KFAC_CHAOS=slowrank@1`` (rank 1), through the CIFAR
+    CLI: stretch events to 4 in rank 0's stream, the same K1 and K2
+    launches on every rank, fewer than the unstretched schedule's, and
+    the world ends within its own time limit."""
+    import tempfile
+    from distributed_kfac_pytorch_tpu_torch import launch
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix='kfac-backoff-'))
+    d, m = tmp / 'world', tmp / 'm.jsonl'
+    log_path = tmp / 'world.log'
+    env = _resume_env('slowrank@1', KFAC_SLOWRANK_RANK='1', **ELASTIC_ENV)
+    argv = _cli_argv('train_cifar10_resnet',
+                     [*BACKOFF_FLAGS, '--kfac-metrics', str(m),
+                      '--log-dir', str(tmp / 'logs')], d)
+    with log_path.open('w') as f:
+        world = launch.spawn_world(argv, BACKOFF_WORLD, env, cwd=ROOT,
+                                   stdout=f, stderr=subprocess.STDOUT,
+                                   text=True)
+        try:
+            rc = world.wait(BACKOFF_TIMEOUT)
+        finally:
+            world.kill()
+    text = log_path.read_text()
+    if rc != 0:
+        raise AssertionError(f'phase 45 backoff world: exit {rc}\n'
+                             + text[-4000:])
+    ranks = _rank_launches(d, BACKOFF_WORLD)
+    stream = _stream(m)
+    events = [r.get('data', {}) for r in stream if r['kind'] == 'event'
+              and r['event'] == 'autotune_backoff']
+    steps = [r for r in stream if r['kind'] == 'step']
+    factor_steps = int(steps[-1]['metrics']['kfac/factor_updates'])
+    problems = []
+    if len(steps) != BACKOFF_STEPS:
+        problems.append(f'{len(steps)} step records')
+    if not events or max(e['stretch'] for e in events) != 4 \
+            or events[0]['action'] != 'stretch':
+        problems.append(f'events {events}')
+    for name in ('factor_ema', 'patch_cov'):
+        got = [c.get(name) for c in ranks]
+        want = EXPECTED_PER_STEP[name] * factor_steps
+        if got != [want] * BACKOFF_WORLD \
+                or want >= EXPECTED_PER_STEP[name] * BACKOFF_STEPS:
+            problems.append(f'{name}: {got} by rank, {factor_steps} factor '
+                            f'steps of {BACKOFF_STEPS}')
+    if problems:
+        raise AssertionError('phase 45 backoff world: ' + '; '.join(problems)
+                             + '\n' + text[-4000:])
+    launches = {}
+    for counts in ranks:
+        _add(launches, counts)
+    seconds = time.perf_counter() - t0
+    log(f'  --cadence-backoff, {BACKOFF_WORLD} gloo ranks of ResNet-32 '
+        f'under slowrank@1 (rank 1), {BACKOFF_STEPS} steps: events '
+        + ', '.join(f"{e['action']} {e['stretch']} at step {e['step']} "
+                    f"({e['skew_ms']:.1f} ms)" for e in events)
+        + f'; {factor_steps} factor steps of {BACKOFF_STEPS}; K1 / K2 / K3 '
+        'by rank ' + '; '.join(' / '.join(str(c.get(n, 0)) for n in K1_K2_K3)
+                               for c in ranks)
+        + f' (unstretched K1 {EXPECTED_PER_STEP["factor_ema"] * BACKOFF_STEPS}'
+        f' per rank); {seconds:.1f} s wall ({card})')
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {'events': events, 'factor_steps': factor_steps,
+            'per_rank': ranks, 'launches': launches, 'seconds': seconds}
+
+
+def run_autotune_phase(card: str, backoff: dict | None = None) -> dict:
+    """Phase 45: the tuner, then ``--tuned-config`` through the CIFAR CLI,
+    in this process; and the backoff world (``backoff``: its result when
+    it ran beside phases 27-28, else it runs here)."""
+    import shutil
+    import tempfile
+    log('== phase 45: autotune, tune(cifar_resnet20) over the 8 candidates '
+        'of factor cadence {1, 2} x fraction {1, 0.5} x chunks {1, 2}, '
+        f'{AUTOTUNE_STEPS} steps at inverse cadence {AUTOTUNE_INV_FREQ}; '
+        '--tuned-config through the CIFAR CLI; --cadence-backoff on '
+        f'{BACKOFF_WORLD} gloo ranks under slowrank@1')
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix='kfac-autotune-'))
+    _release()
+    out = {'tuner': _autotune_tuner(card)}
+    _release()
+    out['tuned_config'] = _autotune_cli(tmp, out['tuner'], card)
+    out['backoff'] = backoff if backoff is not None else \
+        run_backoff_world(card)
+    launches = {}
+    for part in out.values():
+        _add(launches, part['launches'])
+    out['launches'] = launches
+    out['seconds'] = time.perf_counter() - t0
+    log(f'  phase 45: launches {launches}; {out["seconds"]:.1f} s wall on '
+        f'{platform.node()} ({card})')
     shutil.rmtree(tmp, ignore_errors=True)
     return out
 
@@ -8299,6 +8639,8 @@ def main(argv=None) -> int:
                          'line)')
     ap.add_argument('--elastic-only', action='store_true',
                     help='build, then run phase 44 only (no result line)')
+    ap.add_argument('--autotune-only', action='store_true',
+                    help='build, then run phase 45 only (no result line)')
     ap.add_argument('--determinism-probe', action='store_true',
                     help="build, then measure what phase 27's "
                          '--deterministic buys and costs (no result '
@@ -8392,6 +8734,14 @@ def main(argv=None) -> int:
         out_dir = ROOT / 'chiprun_out'
         out_dir.mkdir(exist_ok=True)
         (out_dir / 'chip_smoke_elastic.json').write_text(
+            json.dumps(report, indent=1))
+        log('done')
+        return 0
+    if args.autotune_only:
+        report = {'card': card, 'autotune': run_autotune_phase(card)}
+        out_dir = ROOT / 'chiprun_out'
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / 'chip_smoke_autotune.json').write_text(
             json.dumps(report, indent=1))
         log('done')
         return 0
@@ -8555,15 +8905,18 @@ def main(argv=None) -> int:
         report['firing_schedule'] = run_firing_schedule(
             card, r152, report['resnet152_config5'],
             {k: summary152[k]['ms'] for k in ('factor_ema', 'patch_cov')})
-        # Phase 44's worlds (host-bound gloo ranks) run beside phase 27's
-        # GPU-bound ResNet-50 runs and phase 28's worlds.
+        # Phase 44's worlds and phase 45's backoff world (host-bound gloo
+        # ranks) run beside phase 27's GPU-bound ResNet-50 runs and phase
+        # 28's worlds; phase 44 without its hang and capacity legs, for
+        # time.
         resume = run_resume_phases(
             card, after_28=((run_overlap_gloo_world, card),
                             (run_bf16_gloo_world, card)),
-            beside=((run_elastic_phase, card),))
+            beside=((run_elastic_phase, card, WHOLE_SCRIPT_LEGS),
+                    (run_backoff_world, card)))
         report['overlap_gloo_world'], report['bf16_gloo_world'] = \
             resume.pop('after_28')
-        report['elastic'], = resume.pop('beside')
+        report['elastic'], backoff = resume.pop('beside')
         report.update(resume)
         report.update(run_accum_phases(card, accum_world))
         report.update(run_model_phases(card))
@@ -8574,6 +8927,7 @@ def main(argv=None) -> int:
             f'{METRICS_STEPS} steps, metrics on and off')
         report['metrics_stream'] = run_metrics_phase(card)
         report.update(run_observability_phases(card))
+        report['autotune'] = run_autotune_phase(card, backoff)
         runs = (main_summary, r50, report['resnet50_auto'],
                 report['lstm_jacobi'], report['lm_defaults'],
                 report['resnet32_jacobi'], report['resnet50_nccl_world1'],
@@ -8595,7 +8949,8 @@ def main(argv=None) -> int:
                 report['transformer_xl_lowrank_eigen'],
                 report['resnet152_lowrank'], report['metrics_stream'],
                 report['observability'], report['selfheal'],
-                report['shards_gloo_world'], report['elastic'])
+                report['shards_gloo_world'], report['elastic'],
+                report['autotune'])
         launches = {name: sum(r['launches'].get(name, 0) for r in runs)
                     for name in kernels.LAUNCHES}
         aggs = {**summary50, 'ns_inverse': summary_ns,

@@ -62,8 +62,15 @@ step bundle in the process (``engine``, ``resilience.selfheal``;
 ``--heartbeat-dir`` / ``--heartbeat-every`` publish each rank's
 liveness lease for ``resilience.supervisor``; a bundle of another world
 resumes re-sharded (``elastic``; ``KFAC_CHAOS=resize@K->N`` with
-``resilience.chaos`` drives the change). Not ported yet (a set flag
-raises by name, ``engine.UNPORTED_FLAGS``): autotune.
+``resilience.chaos`` drives the change). ``--tuned-config PATH`` overlays
+the knobs of a ``TUNED_<workload>.json`` (``python -m
+distributed_kfac_pytorch_tpu_torch.autotune``) fail-closed, one
+``autotune_apply`` or ``autotune_fallback`` event in the stream;
+``--cadence-backoff`` (with ``--backoff-skew-ms``,
+``--backoff-sustain-steps``, ``--backoff-recover-steps`` and
+``--backoff-max-stretch``) stretches the factor cadence while the barrier
+probe shows sustained skew (``autotune.policy``; in a process alone there
+is no probe and it never stretches).
 ``--bf16-factors``, ``--bf16-inverses`` and ``--bf16-precond`` set the
 K-FAC reduced-precision knobs as the JAX ``OptimConfig`` does.
 ``--inv-pipeline-chunks``, ``--inv-staleness``,
@@ -87,6 +94,7 @@ import torch
 from distributed_kfac_pytorch_tpu_torch import resolve_device, \
     set_fp32_precision
 from distributed_kfac_pytorch_tpu_torch.models import cifar_resnet
+from distributed_kfac_pytorch_tpu_torch.autotune import cli as autotune_cli
 from distributed_kfac_pytorch_tpu_torch.observability import cli as obs_cli
 from distributed_kfac_pytorch_tpu_torch.resilience import \
     cli as resilience_cli
@@ -152,7 +160,7 @@ def build_parser() -> argparse.ArgumentParser:
     resilience_cli.add_resilience_args(p)
     engine.add_precise_bn_arg(p)
     engine.add_observability_args(p, 'cifar10')
-    engine.add_unported_args(p)
+    autotune_cli.add_autotune_args(p)
     # Port-only flags.
     engine.add_port_args(p)
     p.add_argument('--synthetic-size', type=int, default=2048)
@@ -227,6 +235,7 @@ def _train(args: argparse.Namespace, dev: torch.device,
             **engine.precision_config(args),
             **engine.observability_config(args),
             **engine.schedule_config(args))
+        cfg = engine.apply_autotune(args, cfg, dev, sink)
         optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
             model, cfg, device=dev)
         obs_cli.emit_layer_meta(sink, kfac)

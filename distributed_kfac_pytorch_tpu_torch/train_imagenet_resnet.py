@@ -41,11 +41,12 @@ reference's production ImageNet recipe) builds the model, ResNet or ViT, at
 ``torch.float16`` compute with fp32 parameters and trains under the dynamic
 loss scale with the overflow skip (``engine``; the SGD baseline exits), and
 ``KFAC_CHAOS=nan-batch@K`` poisons the batch of step ``K``. Not ported yet:
-the ImageNet directory reader (the JAX CLI's ``tf.data`` JPEG pipeline) and the
-flags of ``engine.UNPORTED_FLAGS`` (autotune), which raise by name;
-``--heartbeat-dir`` / ``--heartbeat-every`` and the elastic resume as in
-the CIFAR CLI. ``--kfac-metrics``, ``--metrics-interval``, ``--health-action``,
-``--profile-dir``, ``--memory-interval``, ``--no-perf-anomalies``,
+the ImageNet directory reader (the JAX CLI's ``tf.data`` JPEG pipeline).
+``--heartbeat-dir`` / ``--heartbeat-every``, the elastic resume,
+``--tuned-config``, ``--cadence-backoff`` and the ``--backoff-*`` envelope
+as in the CIFAR CLI. ``--kfac-metrics``, ``--metrics-interval``,
+``--health-action``, ``--profile-dir``, ``--memory-interval``,
+``--no-perf-anomalies``,
 ``--straggler-shards``, ``--straggler-sample-every``, ``--selfheal*`` and
 ``--log-dir`` (default ``./logs/imagenet``) as in the CIFAR CLI.
 ``--bf16-factors``, ``--bf16-inverses`` and
@@ -72,6 +73,7 @@ import torch
 from distributed_kfac_pytorch_tpu_torch import resolve_device, \
     set_fp32_precision
 from distributed_kfac_pytorch_tpu_torch.models import imagenet_resnet, vit
+from distributed_kfac_pytorch_tpu_torch.autotune import cli as autotune_cli
 from distributed_kfac_pytorch_tpu_torch.observability import cli as obs_cli
 from distributed_kfac_pytorch_tpu_torch.resilience import \
     cli as resilience_cli
@@ -149,7 +151,7 @@ def build_parser() -> argparse.ArgumentParser:
                         '(about 1/3 more forward work for activation '
                         'memory O(depth)); fits larger batches')
     engine.add_observability_args(p, 'imagenet')
-    engine.add_unported_args(p)
+    autotune_cli.add_autotune_args(p)
     # Port-only flags.
     engine.add_port_args(p)
     p.add_argument('--synthetic-size', type=int, default=512)
@@ -255,6 +257,7 @@ def _train(args: argparse.Namespace, dev: torch.device,
             **engine.precision_config(args),
             **engine.observability_config(args),
             **engine.schedule_config(args))
+        cfg = engine.apply_autotune(args, cfg, dev, sink)
         optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
             model, cfg, device=dev)
         obs_cli.emit_layer_meta(sink, kfac)

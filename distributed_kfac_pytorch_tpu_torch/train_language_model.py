@@ -97,8 +97,8 @@ poison.
 ``--profile-dir``, ``--memory-interval``, ``--no-perf-anomalies``,
 ``--straggler-shards``, ``--straggler-sample-every``, ``--selfheal*`` and
 ``--log-dir`` (default ``./logs/lm``), ``--heartbeat-dir`` and
-``--heartbeat-every`` as in the CIFAR CLI. Not ported yet (a set flag
-raises by name, ``engine.UNPORTED_FLAGS``): autotune.
+``--heartbeat-every``, ``--tuned-config``, ``--cadence-backoff`` and the
+``--backoff-*`` envelope as in the CIFAR CLI.
 
 :func:`train` is the programmatic entry point.
 """
@@ -116,6 +116,7 @@ from distributed_kfac_pytorch_tpu_torch import resolve_device, \
 from distributed_kfac_pytorch_tpu_torch.models import lstm_lm, \
     transformer_lm
 from distributed_kfac_pytorch_tpu_torch.parallel import sequence
+from distributed_kfac_pytorch_tpu_torch.autotune import cli as autotune_cli
 from distributed_kfac_pytorch_tpu_torch.observability import cli as obs_cli
 from distributed_kfac_pytorch_tpu_torch.resilience import \
     cli as resilience_cli
@@ -203,7 +204,7 @@ def build_parser() -> argparse.ArgumentParser:
     engine.add_fp16_arg(p)
     resilience_cli.add_resilience_args(p)
     engine.add_observability_args(p, 'lm')
-    engine.add_unported_args(p)
+    autotune_cli.add_autotune_args(p)
     # Port-only flags.
     engine.add_port_args(p)
     p.add_argument('--synthetic-size', type=int, default=200_000)
@@ -282,6 +283,7 @@ def _train(args: argparse.Namespace, dev: torch.device,
             **engine.precision_config(args),
             **engine.observability_config(args),
             **engine.schedule_config(args))
+        cfg = engine.apply_autotune(args, cfg, dev, sink)
         optimizer, lr_schedule, kfac, kfac_sched = optimizers.get_optimizer(
             model, cfg, device=dev)
         obs_cli.emit_layer_meta(sink, kfac)

@@ -64,7 +64,19 @@ after each step (global-step bundles, the preemption drain, the
 epoch bundle every ``--checkpoint-freq`` epochs and after the last. Every
 bundle records its world (``elastic.TopologySpec``), and the resume
 re-shards a bundle of another world for this one (``elastic.reshard``).
-The CLI flags the port does not run are :data:`UNPORTED_FLAGS`.
+
+Autotune (the CLIs' ``--tuned-config``, :func:`apply_autotune`): a
+``TUNED_<workload>.json`` overlays its knobs on the run's ``OptimConfig``
+after the process group is up, fail-closed, its one ``autotune_apply`` or
+``autotune_fallback`` event into the stream. ``--cadence-backoff``
+(``autotune.StragglerCadencePolicy`` on the :class:`Observers`): after the
+barrier probe and before the step, the policy may turn the step's
+scheduled factor update off while the probe shows sustained skew; the
+fired stage and the records follow the adjusted flags, and the policy's
+``autotune_backoff`` events drain into the stream. Under a process group
+every rank acts on the world's largest wait of the step, so the ranks keep
+one schedule (and enter the same factor ``all_reduce``); a process alone
+has no probe, and the policy never stretches.
 
 Metrics (the JAX engine's ``metrics_sink=`` and ``log_writer=``): with an
 ``observability.sink.JsonlMetricsSink`` the epoch loops enqueue one step
@@ -87,8 +99,10 @@ all off by default, and off the step is the plain step): a
 ``kind='memory'`` record every ``memory_interval`` steps (the allocator
 watermarks and the K-FAC state footprint, computed once per epoch); a
 rank's straggler shard record per step, with the barrier probe's wait on
-the steps it samples; a ``torch.profiler`` session over the first trained
-epoch (``--profile-dir``); and the self-healing ladder
+the steps it samples (taken right after the previous step's work, before
+its step hook, whose collective agreement would absorb the wait); a
+``torch.profiler`` session over the first trained epoch
+(``--profile-dir``); and the self-healing ladder
 (``resilience.selfheal``): :meth:`~SelfHealController.adjust_hyper`
 before each step (escalated damping, the quarantine gates) and
 :meth:`~SelfHealController.observe` after it. A :class:`Rollback` leaves
@@ -120,6 +134,9 @@ import torch.nn.functional as F
 
 from distributed_kfac_pytorch_tpu_torch import fp16 as fp16_lib
 from distributed_kfac_pytorch_tpu_torch import launch, multislice
+from distributed_kfac_pytorch_tpu_torch.autotune import cli as autotune_cli
+from distributed_kfac_pytorch_tpu_torch.autotune import \
+    driver as autotune_driver
 from distributed_kfac_pytorch_tpu_torch.layers import GRAD_QUADRATIC_KEYS
 from distributed_kfac_pytorch_tpu_torch.models.transformer_lm import \
     whole_sequences
@@ -510,17 +527,22 @@ def train_epoch(state: TrainState, batches: Iterable, hyper: dict, *,
             x = torch.as_tensor(np.ascontiguousarray(xb), device=device)
             y = torch.as_tensor(yb, dtype=torch.long, device=device)
             wait_ms = _probe(observers, state.step)
+            flags = _adjust_cadence(observers, state.step, flags, wait_ms,
+                                    device)
             step_hyper = _step_hyper(observers, hyper)
+            _sync_step(observers, device)
             t0 = time.perf_counter()
             scale = state.loss_scale and state.loss_scale['scale']
             loss, acc = train_step(state, x, y, step_hyper, flags,
                                    criterion)
             _slow_step(observers, state.step + 1)
+            _sync_step(observers, device)
             dispatch_ms = (time.perf_counter() - t0) * 1e3
             if time_steps:
                 if device.type == 'cuda':
                     torch.cuda.synchronize(device)
                 step_ms.append((time.perf_counter() - t0) * 1e3)
+            _probe_next(observers, state.step + 1)
             if scaler is not None:
                 scaler.append((scale, state.overflow))
             losses.append(loss)
@@ -566,7 +588,13 @@ class Observers:
     the first trained epoch on rank ``rank``; ``selfheal``: a
     ``resilience.selfheal.SelfHealController``; ``heartbeat``: the rank's
     ``resilience.heartbeat.HeartbeatEmitter``; ``fault_plan``: the
-    ``KFAC_CHAOS`` plan whose ``slowrank`` delay the epoch loops apply."""
+    ``KFAC_CHAOS`` plan whose ``slowrank`` delay the epoch loops apply;
+    ``cadence_policy``: an ``autotune.StragglerCadencePolicy``
+    (``--cadence-backoff``) fed the probe's waits, under a process group
+    the world's largest (:func:`_adjust_cadence`); ``sync_steps``:
+    synchronize the device before and after each step, so a record's
+    ``host_step_ms`` is the step's whole wall (the autotune probe; the
+    CLIs record dispatch time)."""
     rank_sink: Any = None
     barrier_probe: Callable[[], float] | None = None
     sample_every: int = 1
@@ -576,6 +604,11 @@ class Observers:
     selfheal: Any = None
     heartbeat: Any = None
     fault_plan: Any = None
+    cadence_policy: Any = None
+    sync_steps: bool = False
+    #: ``(step, wait_ms)`` the probe took ahead of ``step``
+    #: (:func:`_probe_next`).
+    next_wait: tuple | None = dataclasses.field(default=None, repr=False)
 
     def close(self) -> None:
         if self.rank_sink is not None:
@@ -594,8 +627,10 @@ def make_observers(args: argparse.Namespace, state: TrainState, sink,
     the rank's slice in the shard's meta), ``--straggler-sample-every``,
     ``--profile-dir``, ``--selfheal*`` (``resilience.cli.
     make_selfheal``), ``--heartbeat-dir`` / ``--heartbeat-every``
-    (``resilience.cli.make_heartbeat``) and the ``KFAC_CHAOS`` plan's
-    ``slowrank``."""
+    (``resilience.cli.make_heartbeat``), the ``KFAC_CHAOS`` plan's
+    ``slowrank`` and ``--cadence-backoff`` (``autotune.cli.
+    make_cadence_policy``; with a K-FAC world it also arms the barrier
+    probe, as ``--straggler-shards`` does)."""
     rank = dist.get_rank() if dist.is_initialized() else 0
     shard_meta = {'cli': cli, **(meta or {})}
     slices = getattr(args, 'num_slices', 1)
@@ -603,10 +638,12 @@ def make_observers(args: argparse.Namespace, state: TrainState, sink,
         shard_meta['slice'] = multislice.slice_of_rank(
             rank, dist.get_world_size(), slices)
     rank_sink = obs_cli.make_rank_shard_sink(args, rank, meta=shard_meta)
+    policy = autotune_cli.make_cadence_policy(args)
     probe = (state.kfac.build_barrier_probe()
-             if rank_sink is not None
+             if (rank_sink is not None or policy is not None)
              and hasattr(state.kfac, 'build_barrier_probe') else None)
     return Observers(
+        cadence_policy=policy,
         rank_sink=rank_sink, barrier_probe=probe,
         sample_every=getattr(args, 'straggler_sample_every', 1),
         memory_interval=(getattr(args, 'memory_interval', 0)
@@ -625,12 +662,55 @@ def _slow_step(observers: Observers | None, step: int) -> None:
 
 
 def _probe(observers: Observers | None, step: int) -> float | None:
-    """The barrier probe's wait (ms) at ``step`` when it samples it, else
-    None; run before the step, so the wait is not this step's work."""
-    if observers is None or observers.barrier_probe is None \
-            or not obs_stragglers.sampled(step, observers.sample_every):
+    """The barrier probe's wait (ms) before ``step`` when it samples it,
+    else None: the wait :func:`_probe_next` took right after the previous
+    step's work, or (an epoch's first step, a restored one) taken now.
+    Either way before the step, so the wait is not this step's work."""
+    if observers is None or observers.barrier_probe is None:
+        return None
+    carried, observers.next_wait = observers.next_wait, None
+    if carried is not None and carried[0] == step:
+        return carried[1]
+    if not obs_stragglers.sampled(step, observers.sample_every):
         return None
     return observers.barrier_probe()
+
+
+def _probe_next(observers: Observers | None, step: int) -> None:
+    """The wait before ``step``, when the probe samples it, taken right
+    after the previous step's work and before that step's hook: the step
+    checkpointer's per-step agreement is a collective, which would
+    otherwise absorb a slow rank's delay and leave the probe ~0."""
+    if observers is None or observers.barrier_probe is None \
+            or not obs_stragglers.sampled(step, observers.sample_every):
+        return
+    observers.next_wait = (step, observers.barrier_probe())
+
+
+def _adjust_cadence(observers: Observers | None, step: int, flags: dict,
+                    wait_ms: float | None, device) -> dict:
+    """The step's cadence flags after the backoff policy (when one is
+    armed): under a process group the policy sees the world's largest wait
+    of a sampled step (one 0-dim ``all_reduce`` MAX; every rank samples the
+    same steps), so every rank suppresses the same factor steps."""
+    policy = observers.cadence_policy if observers is not None else None
+    if policy is None:
+        return flags
+    if wait_ms is not None and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        t = torch.tensor(float(wait_ms), dtype=torch.float32,
+                         device=device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        wait_ms = float(t)
+    return policy.adjust(step, flags, wait_ms)
+
+
+def _sync_step(observers: Observers | None, device) -> None:
+    """``observers.sync_steps``: wait for the device's queued work."""
+    if observers is not None and observers.sync_steps:
+        device = torch.device(device)
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
 
 
 def _step_hyper(observers: Observers | None, hyper: dict) -> dict:
@@ -681,25 +761,27 @@ def _after_dispatch(state: TrainState, sink, observers: Observers | None,
         observers.rank_sink.step_record(state.step, shard,
                                         host_step_ms=dispatch_ms,
                                         fired=label)
+    if observers.cadence_policy is not None:
+        _drain_events(observers.cadence_policy, sink)
     ladder = observers.selfheal
     if ladder is not None:
         try:
             ladder.observe(state, metrics)
         except BaseException:
-            _drain_selfheal(ladder, sink)
+            _drain_events(ladder, sink)
             if sink is not None:
                 sink.flush()
             _flush_shard(observers)
             raise
-        _drain_selfheal(ladder, sink)
+        _drain_events(ladder, sink)
 
 
-def _drain_selfheal(ladder, sink) -> None:
-    """The ladder's queued decision events into ``sink`` (kept queued
-    without one)."""
+def _drain_events(source, sink) -> None:
+    """The queued decision events of ``source`` (the self-healing ladder,
+    the cadence policy) into ``sink`` (kept queued without one)."""
     if sink is None:
         return
-    for ev in ladder.drain_events():
+    for ev in source.drain_events():
         sink.event_record(ev['event'], **{k: v for k, v in ev.items()
                                           if k != 'event'})
 
@@ -1091,45 +1173,25 @@ def precision_config(args: argparse.Namespace) -> dict:
             ('bf16_factors', 'bf16_inverses', 'bf16_precond')}
 
 
-#: Flags of the JAX CLIs the port does not run yet, by destination, with
-#: their argparse definitions (the JAX names and "off" defaults; a path
-#: flag is off at None): autotune.
-_UNPORTED_ARGS = {
-    'tuned_config': {},
-    'cadence_backoff': {'action': 'store_true'},
-    'backoff_skew_ms': {'type': float, 'default': 5.0},
-    'backoff_sustain_steps': {'type': int, 'default': 8},
-    'backoff_recover_steps': {'type': int, 'default': 32},
-    'backoff_max_stretch': {'type': int, 'default': 4},
-}
-
-
-def _off(spec: dict):
-    return spec.get('default', False if spec.get('action') else None)
-
-
-#: Every flag the port does not run yet, with its "off" value
-#: (:data:`_UNPORTED_ARGS`).
-UNPORTED_FLAGS = tuple((k, _off(v)) for k, v in _UNPORTED_ARGS.items())
-
-
-def add_unported_args(p: argparse.ArgumentParser) -> None:
-    """The :data:`_UNPORTED_ARGS` flags, each raising by name when set
-    (:func:`check_unported`)."""
-    for dest, spec in _UNPORTED_ARGS.items():
-        p.add_argument('--' + dest.replace('_', '-'), **spec,
-                       help='not ported (raises when set)')
-
-
 def check_unported(args: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError`` naming any unported flag that is set
-    (flags the CLI does not have are skipped), or any ``KFAC_CHAOS`` fault
-    kind the port does not inject."""
-    for flag, off in UNPORTED_FLAGS:
-        if getattr(args, flag, off) != off:
-            raise NotImplementedError(
-                f'--{flag.replace("_", "-")} is not ported to torch yet')
+    """Raise ``NotImplementedError`` naming any ``KFAC_CHAOS`` fault kind
+    the port does not inject (every flag of the JAX CLIs is ported)."""
     faults.check_ported(faults.plan_from_env())
+
+
+def apply_autotune(args: argparse.Namespace, cfg: optimizers.OptimConfig,
+                   device, sink) -> optimizers.OptimConfig:
+    """A CLI's ``OptimConfig`` after ``--tuned-config`` (the JAX CLIs'
+    ``maybe_apply_tuned``; call it once the process group is up), its
+    apply or fall-back event into ``sink``. ``--tuned-config`` or
+    ``--cadence-backoff`` without the K-FAC step raises the JAX CLIs'
+    ``SystemExit``."""
+    if args.cadence_backoff and cfg.kfac_inv_update_freq <= 0:
+        raise SystemExit('--cadence-backoff requires the K-FAC step '
+                         '(--kfac-update-freq > 0)')
+    cfg, events = autotune_cli.maybe_apply_tuned(args, cfg, device)
+    autotune_driver.emit_events(sink, events)
+    return cfg
 
 
 def add_observability_args(p: argparse.ArgumentParser, name: str) -> None:
@@ -1758,18 +1820,23 @@ def lm_train_epoch(state: TrainState, windows: Iterable, hyper: dict, *,
             x = torch.as_tensor(xb, dtype=torch.long, device=device)
             y = torch.as_tensor(yb, dtype=torch.long, device=device)
             wait_ms = _probe(observers, state.step)
+            flags = _adjust_cadence(observers, state.step, flags, wait_ms,
+                                    device)
             step_hyper = _step_hyper(observers, hyper)
+            _sync_step(observers, device)
             t0 = time.perf_counter()
             scale = state.loss_scale and state.loss_scale['scale']
             loss = lm_train_step(state, x, y, step_hyper, flags,
                                  grad_clip=grad_clip, generator=generator,
                                  pos_offset=offset)
             _slow_step(observers, state.step + 1)
+            _sync_step(observers, device)
             dispatch_ms = (time.perf_counter() - t0) * 1e3
             if time_steps:
                 if device.type == 'cuda':
                     torch.cuda.synchronize(device)
                 step_ms.append((time.perf_counter() - t0) * 1e3)
+            _probe_next(observers, state.step + 1)
             if scaler is not None:
                 scaler.append((scale, state.overflow))
             losses.append(loss)

@@ -94,6 +94,32 @@ class OptimConfig:
     kfac_update_freq_schedule: Sequence[int] = ()
 
 
+#: OptimConfig fields the autotuner may override from a
+#: ``TUNED_<workload>.json`` artifact (``autotune.apply_tuned``), the JAX
+#: package's names in its order: per-KFAC knobs that leave the world's
+#: grid alone. The grid-shaping fields (``comm_method``,
+#: ``grad_worker_fraction``) stay flags. An artifact naming a field outside
+#: this set is rejected whole (fail-closed), never applied in part.
+TUNABLE_FIELDS = (
+    'bf16_precond',
+    'bf16_factors',
+    'bf16_inverses',
+    'inv_pipeline_chunks',
+    'deferred_factor_reduction',
+    'hierarchical_reduce',
+    'inv_staleness',
+    'factor_batch_fraction',
+    'kfac_cov_update_freq',
+    'kfac_inv_update_freq',
+    'eigh_polish_iters',
+    'kfac_approx',
+    'inv_lowrank_rank',
+    'inv_lowrank_dim_threshold',
+    'fused_factor_contraction',
+    'fused_precondition',
+)
+
+
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
     for group in optimizer.param_groups:
         group['lr'] = lr

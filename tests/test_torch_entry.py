@@ -1,5 +1,6 @@
 """Entry points and package boundary of the torch port: the CPU must be
-asked for, the package never imports JAX, unported knobs raise by name."""
+asked for, the package never imports JAX, unported knobs raise by name,
+every flag of the JAX CLIs is accepted."""
 
 import ast
 import math
@@ -234,7 +235,7 @@ def test_fp16_and_nan_batch_are_ported(module):
     knob and ``nan-batch`` a ported fault kind (the flag's runs are in
     ``tests/test_torch_fp16_cli.py``)."""
     from distributed_kfac_pytorch_tpu_torch.resilience import faults
-    assert 'fp16' not in dict(engine.UNPORTED_FLAGS)
+    assert not hasattr(engine, 'UNPORTED_FLAGS')
     assert module.build_parser().parse_args(['--fp16']).fp16
     assert KFAC(cifar_resnet.CifarResNet((1, 1, 1)), device='cpu',
                 nonfinite_guard=True).nonfinite_guard
@@ -271,26 +272,6 @@ def test_distribution_knobs_are_kfac_attributes():
              assignment_strategy='speed')
 
 
-def _set_value(off):
-    """A value other than a flag's "off" value."""
-    if off is None:
-        return 'warn'
-    if isinstance(off, bool):
-        return not off
-    return off + 1
-
-
-@pytest.mark.parametrize('module', [cli, inet, lm],
-                         ids=['cifar', 'imagenet', 'lm'])
-@pytest.mark.parametrize('flag,off', engine.UNPORTED_FLAGS,
-                         ids=[f for f, _ in engine.UNPORTED_FLAGS])
-def test_cli_unported_flags_raise_by_name(module, flag, off):
-    option = '--' + flag.replace('_', '-')
-    assert option in module.build_parser()._option_string_actions
-    with pytest.raises(NotImplementedError, match=option):
-        module.train({flag: _set_value(off)}, device='cpu')
-
-
 # ImageNet CLI runs on the CPU leave stages 3-4 (factor dims up to 4608)
 # out of K-FAC for time.
 INET_SMALL = {'model': 'resnet18', 'image_size': 32, 'batch_size': 4,
@@ -312,8 +293,9 @@ INET_SMALL = {'model': 'resnet18', 'image_size': 32, 'batch_size': 4,
          'cifar-sgd-accum', 'imagenet-accum', 'imagenet-precise-bn',
          'imagenet-remat', 'imagenet-all-three'])
 def test_wired_flags_run_a_step_on_cpu(module, flags):
-    """The flags this slice wires leave ``UNPORTED_FLAGS`` and run."""
-    assert not {f for f, _ in engine.UNPORTED_FLAGS} & set(flags)
+    """The flags this slice wires run (no flag raises by name: the
+    unported-flag table is gone)."""
+    assert not hasattr(engine, 'UNPORTED_FLAGS')
     base = TINY if module is cli else INET_SMALL
     res = module.train({**base, 'max_steps': 2, **flags}, device='cpu')
     assert res['steps'] == 2
@@ -360,16 +342,18 @@ def test_every_jax_cli_flag_is_wired_or_raises_by_name(name, module):
     flags = _jax_cli_flags(name)
     assert len(flags) > 60, flags
     options = module.build_parser()._option_string_actions
-    unported = {'--' + f.replace('_', '-') for f, _ in engine.UNPORTED_FLAGS}
     missing = [f for f in flags if f not in options]
     assert not missing, f'{name}: JAX flags the port does not accept: ' \
                         f'{missing}'
-    # Wired flags are not in the unported table and parse to a value.
-    wired = [f for f in flags if f not in unported]
+    # Every flag is wired: none raises by name any more.
+    assert not hasattr(engine, 'UNPORTED_FLAGS')
     assert {'--checkpoint-dir', '--checkpoint-freq', '--no-resume',
             '--checkpoint-steps', '--checkpoint-secs', '--preemption-grace',
             '--resume-step', '--fused-precondition',
-            '--fused-factor-contraction'} <= set(wired)
+            '--fused-factor-contraction', '--tuned-config',
+            '--cadence-backoff', '--backoff-skew-ms',
+            '--backoff-sustain-steps', '--backoff-recover-steps',
+            '--backoff-max-stretch'} <= set(flags)
 
 
 @pytest.mark.parametrize('name,module,freq', [('cifar10', cli, 10),
